@@ -1,0 +1,124 @@
+"""Operator base class and registry (counterpart of flexflow_tpu/core/op.py).
+
+An Op is an `nn.Module`: it computes its output shapes when it is built,
+declares its weights as WeightSpecs, and `lower()` runs its forward on
+torch tensors. Weights are registered as parameters under the JAX
+package's weight names and layouts (`wq` (e, h, d), dense `kernel`
+(in, out), ...), so weights move between the two packages by op name and
+weight name with no transpose.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ffconst import CompMode, DataType, OpType
+from .tensor import Tensor
+
+_op_guid = itertools.count(1)
+
+
+@dataclasses.dataclass
+class WeightSpec:
+    """Declaration of one weight tensor of an op."""
+
+    name: str
+    dims: Tuple[int, ...]
+    dtype: DataType = DataType.DT_FLOAT
+    initializer: Optional[Any] = None  # runtime.initializers.Initializer
+
+
+class LoweringContext:
+    """State threaded through one forward walk of the graph."""
+
+    def __init__(self, config, mode: CompMode):
+        self.config = config
+        self.mode = mode
+        # tensor guid -> value
+        self.values: Dict[int, torch.Tensor] = {}
+        # per-op device state, op name -> {var: tensor}; the attention op's
+        # "k_cache"/"v_cache" are written IN PLACE (the batcher preallocates
+        # them once — the port's counterpart of jit-donated buffers)
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        # KV-cache decoding: an int chunk offset, or a (B,) int32 tensor of
+        # per-row positions (ops/attention.py _decode_step)
+        self.decode_pos = None
+
+
+class Op(nn.Module):
+    """Base operator. Subclasses implement shape inference and lowering."""
+
+    op_type: OpType = OpType.INPUT
+
+    def __init__(self, model, inputs: Sequence[Tensor], name: str = "",
+                 **params):
+        super().__init__()
+        self.guid = next(_op_guid)
+        self.inputs: List[Tensor] = list(inputs)
+        self.params: Dict[str, Any] = params
+        self.name = name or f"{self.op_type.value}_{self.guid}"
+        out_dims, out_dtypes = self.output_shapes()
+        self.outputs: List[Tensor] = [
+            Tensor(dims, dtype, name=f"{self.name}.out{i}", owner_op=self,
+                   owner_idx=i)
+            for i, (dims, dtype) in enumerate(zip(out_dims, out_dtypes))
+        ]
+        self.specs: List[WeightSpec] = list(self.weight_specs())
+        # compute-dtype copies of the weights (bf16 under mixed precision),
+        # made on first use; weights are inference-only, so a copy stays
+        # valid until set_weight replaces the master
+        self._cast: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
+
+    # -- subclass API -----------------------------------------------------
+    def output_shapes(self) -> Tuple[List[Tuple[int, ...]], List[DataType]]:
+        raise NotImplementedError
+
+    def weight_specs(self) -> List[WeightSpec]:
+        return []
+
+    def lower(self, ctx: LoweringContext, inputs: List[torch.Tensor]):
+        """Run the op; return one value per output tensor."""
+        raise NotImplementedError
+
+    # -- weights ----------------------------------------------------------
+    def init_weights(self, generator: torch.Generator,
+                     device: torch.device) -> None:
+        """Draw every weight from `generator` on the host, in spec order,
+        and place it on `device`."""
+        for ws in self.specs:
+            val = ws.initializer(generator, ws.dims, ws.dtype.torch_dtype)
+            self.register_parameter(
+                ws.name, nn.Parameter(val.to(device), requires_grad=False))
+        self._cast.clear()
+
+    def set_weight(self, name: str, value: torch.Tensor) -> None:
+        p = self._parameters[name]
+        with torch.no_grad():
+            p.copy_(value)
+        self._cast.clear()
+
+    def w(self, name: str, dtype: Optional[torch.dtype] = None):
+        """Weight `name`, in `dtype` when given (a cached copy)."""
+        p = self._parameters[name]
+        if dtype is None or p.dtype == dtype:
+            return p
+        key = (name, dtype)
+        if key not in self._cast:
+            self._cast[key] = p.to(dtype)
+        return self._cast[key]
+
+    def has_weight(self, name: str) -> bool:
+        return name in self._parameters
+
+
+# registry: OpType -> Op subclass
+OP_REGISTRY: Dict[OpType, type] = {}
+
+
+def register_op(cls):
+    OP_REGISTRY[cls.op_type] = cls
+    return cls

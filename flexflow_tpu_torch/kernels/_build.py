@@ -1,0 +1,140 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `flexflow_tpu_torch/csrc/` are compiled at first use
+with `nvcc -gencode arch=compute_90a,code=sm_90a`, one `nvcc` per source,
+all started together, then linked into ONE shared library with a plain C
+interface, loaded through ctypes. No PyTorch header is compiled, so a
+build takes seconds. The library lands in `flexflow_tpu_torch/_build/`
+(ignored by git) under a name keyed by the hash of the sources and flags:
+an edited source rebuilds, an unchanged one loads the existing library.
+
+Nothing here runs at import: a CPU-only machine can import every kernel
+module; only a launch on a CUDA tensor builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = ["-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+# dtype codes of csrc/common.cuh FFDtype
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# what the last build did: seconds, whether it compiled, ptxas's
+# register / shared-memory report per source
+BUILD_INFO: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA "
+            "kernels of flexflow_tpu_torch are built from csrc/ at first "
+            "use and need the CUDA toolkit")
+    return path
+
+
+def _digest(paths) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (in parallel) and link the shared library; return
+    its path. Reuses a library built from identical sources."""
+    sources = sorted(CSRC.glob("*.cu"))
+    tag = _digest(sorted(CSRC.glob("*.cu*")))
+    lib_path = BUILD_DIR / f"libffkernels_{tag}.so"
+    if lib_path.exists():
+        BUILD_INFO.update(compiled=False, library=str(lib_path))
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    jobs = []
+    for src in sources:
+        obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = {}, []
+    for src, _, proc in jobs:  # wait for every compile before raising
+        logs[src.name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
+    link = subprocess.run(
+        [nvcc, ARCH, "-shared", "-o", str(tmp)]
+        + [str(obj) for _, obj, _ in jobs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernel library failed:\n"
+                           f"{link.stdout}")
+    os.replace(tmp, lib_path)
+    BUILD_INFO.update(compiled=True, library=str(lib_path),
+                      seconds=time.perf_counter() - t0, ptxas=logs)
+    return lib_path
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ff_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
+                                        i, i, p]
+    lib.ff_decode_attention.restype = i
+    lib.ff_layernorm_fwd.argtypes = [p, p, p, p, p, p, i, i, f, i, p]
+    lib.ff_layernorm_fwd.restype = i
+    lib.ff_softmax_fwd.argtypes = [p, p, i, i, i, p]
+    lib.ff_softmax_fwd.restype = i
+    lib.ff_error_string.argtypes = [i]
+    lib.ff_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        msg = library().ff_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -13,7 +13,9 @@ setup(
         "TPU-native automatic-parallelization DNN framework with the "
         "capabilities of FlexFlow/Unity (JAX/XLA/Pallas/pjit)"
     ),
-    packages=find_packages(include=["flexflow_tpu", "flexflow_tpu.*"]),
+    packages=find_packages(include=["flexflow_tpu", "flexflow_tpu.*",
+                                    "flexflow_tpu_torch",
+                                    "flexflow_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     extras_require={

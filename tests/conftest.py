@@ -25,6 +25,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy training/search tests excluded from the tier-1 "
         "`-m 'not slow'` sweep")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the flexflow_tpu_torch kernels); skips "
+        "without one")
 
 
 def module_xla_cache():

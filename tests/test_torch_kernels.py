@@ -1,0 +1,161 @@
+"""flexflow_tpu_torch kernels on the CPU: each plain version against the
+JAX package's Pallas kernel in interpret mode (as
+tests/test_pallas_kernels.py runs it), and the wrappers' input checks.
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_cuda.py and chip_smoke.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flexflow_tpu.kernels.pallas.decode import (
+    fused_decode_attention, fused_multiquery_decode_attention)
+from flexflow_tpu.kernels.pallas.norm import _ln_fwd, fused_softmax
+from flexflow_tpu_torch.kernels import decode, launch_counts, norm
+
+# f32: the same math, summed in another order (and, for Pallas' multi-
+# block path, through the online softmax)
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+# bf16 outputs: a few ulps (2^-8 relative) — the two round the
+# probabilities at different points (normalised vs per block)
+BF16_TOL = dict(rtol=2e-2, atol=1e-2)
+
+
+def _randn(rng, shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+def _decode_pair(q, kc, vc, pos, c, block_k, dtype, kv_dtype):
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jfn = fused_decode_attention if c == 1 \
+        else fused_multiquery_decode_attention
+    ref = jfn(jnp.asarray(q, dtype), jnp.asarray(kc, kv_dtype),
+              jnp.asarray(vc, kv_dtype), jnp.asarray(pos), scale=scale,
+              block_k=block_k, interpret=True)
+    tdt = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+    fn = decode.decode_attention if c == 1 \
+        else decode.multiquery_decode_attention
+    out = fn(torch.from_numpy(q).to(tdt[dtype]),
+             torch.from_numpy(kc).to(tdt[kv_dtype]),
+             torch.from_numpy(vc).to(tdt[kv_dtype]), torch.from_numpy(pos),
+             scale=scale, block_k=block_k)
+    assert out.dtype == tdt[dtype] and tuple(out.shape) == q.shape
+    return out.float().numpy(), np.asarray(ref, np.float32)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("block_k", [64, 8])  # single- and multi-block
+def test_decode_plain_matches_pallas(c, block_k):
+    rng = np.random.RandomState(6 + c)
+    b, m, h, d = 5, 24, 3, 8
+    q = _randn(rng, (b, c, h, d))
+    kc, vc = _randn(rng, (b, m, h, d)), _randn(rng, (b, m, h, d))
+    # ragged: one live row, the window ending at the last row, mid-cache
+    pos = np.array([0, 3, 11, m - c, 7], np.int32)
+    out, ref = _decode_pair(q, kc, vc, pos, c, block_k, jnp.float32,
+                            jnp.float32)
+    np.testing.assert_allclose(out, ref, **F32_TOL)
+
+
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("qdt", [jnp.float32, jnp.bfloat16])
+def test_decode_plain_bf16_cache_matches_pallas(c, qdt):
+    rng = np.random.RandomState(7 + c)
+    b, m, h, d = 2, 16, 2, 16
+    q = _randn(rng, (b, c, h, d))
+    kc, vc = _randn(rng, (b, m, h, d)), _randn(rng, (b, m, h, d))
+    pos = np.array([5, m - c], np.int32)
+    for block_k in (64, 8):
+        out, ref = _decode_pair(q, kc, vc, pos, c, block_k, qdt,
+                                jnp.bfloat16)
+        np.testing.assert_allclose(
+            out, ref, **(F32_TOL if qdt == jnp.float32 else BF16_TOL))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_layernorm_plain_matches_pallas(dtype):
+    rng = np.random.RandomState(8)
+    x = _randn(rng, (6, 5, 48)) * 3 + 1
+    gamma = rng.rand(48).astype(np.float32) + 0.5
+    beta = _randn(rng, (48,))
+    y, mean, rstd = _ln_fwd(jnp.asarray(x, dtype), jnp.asarray(gamma),
+                            jnp.asarray(beta), 1e-5, 4, True, True)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    py, pmean, prstd = norm.layernorm_fwd(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(gamma),
+        torch.from_numpy(beta), eps=1e-5)
+    assert py.dtype == tdt and tuple(py.shape) == x.shape
+    np.testing.assert_allclose(py.float().numpy(), np.asarray(y, np.float32),
+                               **(F32_TOL if dtype == jnp.float32
+                                  else BF16_TOL))
+    np.testing.assert_allclose(pmean.numpy(), np.asarray(mean), **F32_TOL)
+    np.testing.assert_allclose(prstd.numpy(), np.asarray(rstd), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_softmax_plain_matches_pallas_on_a_wide_row(dtype):
+    rng = np.random.RandomState(9)
+    x = _randn(rng, (6, 3000)) * 4
+    ref = fused_softmax(jnp.asarray(x, dtype), block_rows=4, interpret=True)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    out = norm.softmax_fwd(torch.from_numpy(x).to(tdt))
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               **(F32_TOL if dtype == jnp.float32
+                                  else dict(rtol=1e-2, atol=1e-6)))
+
+
+def test_plain_versions_count_no_launch():
+    before = launch_counts()
+    x = torch.randn(3, 8)
+    norm.softmax_fwd(x)
+    norm.layernorm_fwd(x)
+    assert launch_counts() == before
+
+
+def test_decode_wrappers_reject_bad_inputs():
+    q = torch.zeros(2, 1, 3, 4)
+    kc = vc = torch.zeros(2, 8, 3, 4)
+    pos = torch.zeros(2, dtype=torch.int32)
+    fn = decode.multiquery_decode_attention
+    with pytest.raises(ValueError, match="one query token"):
+        decode.decode_attention(torch.zeros(2, 2, 3, 4), kc, vc, pos,
+                                scale=1.0)
+    with pytest.raises(ValueError, match="q must be"):
+        fn(torch.zeros(2, 3, 4), kc, vc, pos, scale=1.0)
+    with pytest.raises(ValueError, match="k_cache must be"):
+        fn(q, torch.zeros(2, 8, 3, 5), vc, pos, scale=1.0)
+    with pytest.raises(ValueError, match="v_cache"):
+        fn(q, kc, torch.zeros(2, 9, 3, 4), pos, scale=1.0)
+    with pytest.raises(ValueError, match="pos must be"):
+        fn(q, kc, vc, torch.zeros(3, dtype=torch.int32), scale=1.0)
+    with pytest.raises(TypeError, match="int32"):
+        fn(q, kc, vc, pos.long(), scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fn(q.half(), kc, vc, pos, scale=1.0)
+    with pytest.raises(TypeError, match="!= v_cache"):
+        fn(q, kc, vc.bfloat16(), pos, scale=1.0)
+    # a tensor on neither the CPU nor a GPU gets no quiet plain fallback
+    meta = [t.to("meta") for t in (q, kc, vc, pos)]
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fn(*meta, scale=1.0)
+
+
+def test_norm_wrappers_reject_bad_inputs():
+    x = torch.zeros(4, 6)
+    g = torch.ones(6)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        norm.softmax_fwd(x.long())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        norm.layernorm_fwd(x.half())
+    with pytest.raises(ValueError, match="non-empty"):
+        norm.softmax_fwd(torch.zeros(0, 6))
+    with pytest.raises(ValueError, match="together"):
+        norm.layernorm_fwd(x, g, None)
+    with pytest.raises(ValueError, match=r"gamma/beta must be \(6,\)"):
+        norm.layernorm_fwd(x, torch.ones(5), torch.zeros(5))
+    with pytest.raises(TypeError, match="gamma/beta must be float32"):
+        norm.layernorm_fwd(x, g.bfloat16(), g.bfloat16())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        norm.softmax_fwd(x.to("meta"))
