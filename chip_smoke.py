@@ -7,19 +7,35 @@ Phases, in order; any failure propagates and exits non-zero:
  1. device  — require CUDA, print the card's name and power limit, set
               and print the TF32 flags;
  2. build   — compile the port's CUDA kernels from csrc/ and time it;
- 3. kernels — hold every kernel of the serving path against its plain
-              PyTorch version on the card, at the shapes the serving path
-              gives it, and time kernel, plain version and one library
-              call beside the least time the card could take;
+ 3. kernels — hold every kernel of the serving and training paths against
+              its plain PyTorch version on the card, in f32 and bf16, at
+              the shapes its path gives it, and time kernel, plain
+              version and one library call beside the least time the card
+              could take;
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
               fixed generator, bf16 mixed precision) through
               ContinuousBatcher(num_slots=8, max_len=1024, page_size=16):
               16 requests, prompts of 32-512 tokens, 32-64 new tokens
               each; every request must finish with exactly its token
-              count and every kernel must have launched;
+              count and every serving kernel must have launched;
  5. cross   — the first token's probabilities for two prompts on the card
-              against the port on the CPU (plain versions), same weights.
+              against the port on the CPU (plain versions), same weights;
+ 6. train   — bench.py's flagship BERT encoder at full width (batch 8,
+              seq 512, hidden 1024, 16 heads, 12 layers, FFN 4096, vocab
+              30522; bf16 mixed precision, Adam alpha 1e-4 with bf16
+              moments) through FFModel.compile and fit on random tokens
+              and labels from np.random.RandomState(0): warm-up steps,
+              then timed steps; every loss finite, every training kernel
+              launched;
+ 7. train-witness — the train phase's first three steps again from the
+              same weights and batch in f32 on the card and in f32 on the
+              CPU: per-step losses against the CPU's, and the classifier's
+              logit gap before and after the first step;
+ 8. train-cross — the loss and gradient norms of the first two steps
+              (one Adam update with bf16 moments between them) of the
+              same encoder cut to 2 layers, in f32, on the card against
+              the port on the CPU, same weights and batch.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -36,6 +52,23 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense, no TC f32
+
+# bench.py's flagship training configuration
+TRAIN = dict(batch=8, seq=512, hidden=1024, heads=16, layers=12,
+             vocab=30522)
+SERVE_KERNELS = ("decode_attention", "multiquery_decode_attention",
+                 "layernorm_fwd", "softmax_fwd")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd",
+                 "layernorm_bwd", "softmax_fwd", "softmax_bwd")
+
+
+def train_step_flops(batch, seq, hidden, layers, **_) -> float:
+    """bench.py `train_step_flops` times the batch: 6 x matmul parameters
+    x tokens plus the attention score and context products; the
+    embedding gather is not counted."""
+    params = layers * (2 * hidden * 4 * hidden + 4 * hidden * hidden)
+    per_sample = 6.0 * params * seq + layers * 6.0 * 2.0 * seq * seq * hidden
+    return per_sample * batch
 
 
 def _emit(obj) -> None:
@@ -213,7 +246,336 @@ def phase_kernels(torch, F):
         table[name]["serving_shape"] = norm_case(
             name, 8, n, torch.bfloat16, tol, True)
     del flush_buf
+    table.update(train_kernels(torch, F, g))
     return table
+
+
+def _agree(name, out, ref, tol, shape):
+    err = (out.float() - ref.float()).abs()
+    row = {"shape": shape, "max_abs_err": float(err.max()),
+           "tolerance": f"|err| <= {tol[0]} + {tol[1]}*|plain|"}
+    if not bool((err <= tol[0] + tol[1] * ref.float().abs()).all()):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{shape}: {row}")
+    return row
+
+
+def train_kernels(torch, F, g):
+    """The training path's kernels against their plain versions at the
+    training shapes, in f32 and bf16; timed in bf16 (the training path's
+    dtype). Returns {kernel name: table row}."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import norm
+
+    dev = torch.device("cuda")
+    b, l, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"], 64
+    e = h * d
+    scale = d ** -0.5
+    table = {}
+    f32_tol = (1e-5, 1e-4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # flash forward and backward, (b, l, h*d), not causal (BERT)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (rnd(b, l, e).to(dtype) for _ in range(4))
+        shape = f"b={b} l={l} h={h} d={d} {dtype}".replace("torch.", "")
+        tol = f32_tol if dtype == torch.float32 else (4e-3, 2e-2)
+        o, lse = fa.flash_fwd(q, k, v, h, scale=scale)
+        ro, rlse = fa.flash_fwd_plain(q, k, v, h, scale, False)
+        fwd = _agree("flash_fwd", o, ro, tol, shape)
+        _agree("flash_fwd (lse)", lse, rlse, f32_tol, shape)
+        grads = fa.flash_bwd(q, k, v, o, lse, do, h, scale=scale)
+        delta = (do.float() * o.float()).reshape(b, l, h, d).sum(-1)
+        ref = fa.flash_bwd_plain(q, k, v, do, lse, delta, h, scale, False)
+        # bf16: the same bf16-rounded ds and p as the plain version; f32
+        # sums in another order may move a result by one bf16 ulp (<= 2^-7)
+        btol = f32_tol if dtype == torch.float32 else (1e-3, 1e-2)
+        bwd = [_agree(f"flash_bwd ({n})", a, r, btol, shape)
+               for n, a, r in zip(("dq", "dk", "dv"), grads, ref)]
+        bwd = dict(bwd[0], max_abs_err=max(r["max_abs_err"] for r in bwd))
+    torch.cuda.synchronize()
+    esz = q.element_size()
+    fwd_bytes = 4 * b * l * e * esz + b * l * h * 4
+    fwd_bound = _bound(fwd_bytes, 4 * b * h * l * l * d, "bfloat16")
+    bwd_bytes = 8 * b * l * e * esz + 2 * b * l * h * 4
+    bwd_bound = _bound(bwd_bytes, 10 * b * h * l * l * d, "bfloat16")
+    qt, kt, vt, dot = (t.reshape(b, l, h, d).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    fwd.update(
+        ms=_time_ms(torch, lambda: fa.flash_fwd(q, k, v, h, scale=scale)),
+        plain_ms=_time_ms(torch, lambda: fa.flash_fwd_plain(
+            q, k, v, h, scale, False)),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale)),
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+        library="F.scaled_dot_product_attention on (b, h, l, d)")
+    table["flash_fwd"] = fwd
+    bwd.update(
+        ms=_time_ms(torch, lambda: fa.flash_bwd(q, k, v, o, lse, do, h,
+                                                scale=scale)),
+        plain_ms=_time_ms(torch, lambda: fa.flash_bwd_plain(
+            q, k, v, do, lse, delta, h, scale, False)),
+        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), dot, retain_graph=True)),
+        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+        library="SDPA's backward through autograd",
+        ms_includes="delta = sum(dO * O) per head (torch) + 2 launches")
+    table["flash_bwd"] = bwd
+    del sdpa_out, qg, kg, vg
+
+    # LayerNorm backward, R = b*l rows of the hidden width
+    r, n = b * l, TRAIN["hidden"]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (rnd(r, n) * 2 + 1).to(dtype)
+        dy = rnd(r, n).to(dtype)
+        gamma, beta = rnd(n).abs() + 0.5, rnd(n)
+        _, mean, rstd = norm.layernorm_fwd(x, gamma, beta)
+        dx, dg, db = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+        rdx, rdg, rdb = norm.layernorm_bwd_plain(x, gamma, mean, rstd, dy)
+        shape = f"R={r} N={n} {dtype}".replace("torch.", "")
+        tol = f32_tol if dtype == torch.float32 else (2e-2, 2e-2)
+        ln = _agree("layernorm_bwd (dx)", dx, rdx, tol, shape)
+        # dgamma / dbeta: f32 sums over 4096 rows in another order
+        for nm, a, ref_ in (("dgamma", dg, rdg), ("dbeta", db, rdb)):
+            row = _agree(f"layernorm_bwd ({nm})", a, ref_, (1e-3, 1e-4),
+                         shape)
+            ln["max_abs_err"] = max(ln["max_abs_err"], row["max_abs_err"])
+        again = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+        if not (torch.equal(again[1], dg) and torch.equal(again[2], db)):
+            raise AssertionError("layernorm_bwd: dgamma / dbeta differ "
+                                 "between two runs")
+    g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n], g16, b16,
+                                                       1e-5)
+    esz = x.element_size()
+    ln_bytes = 3 * r * n * esz + 2 * r * 4 + 3 * n * 4
+    ln_bound = _bound(ln_bytes, 10 * r * n, "bfloat16")
+    ln.update(
+        ms=_time_ms(torch, lambda: norm.layernorm_bwd(x, gamma, mean, rstd,
+                                                      dy)),
+        plain_ms=_time_ms(torch, lambda: norm.layernorm_bwd_plain(
+            x, gamma, mean, rstd, dy)),
+        library_ms=_time_ms(
+            torch, lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [n], lmean, lrstd, g16, b16, [True, True, True])),
+        bound_ms=ln_bound[0], bound_by=ln_bound[1],
+        library="torch.ops.aten.native_layer_norm_backward (bf16 gamma)")
+    table["layernorm_bwd"] = ln
+
+    # softmax backward: the classifier's (b*l, 2) probabilities
+    r, n = b * l, 2
+    for dtype in (torch.float32, torch.bfloat16):
+        y = norm.softmax_fwd((rnd(r, n) * 3).to(dtype))
+        dy = rnd(r, n).to(dtype)
+        dx = norm.softmax_bwd(y, dy)
+        shape = f"R={r} N={n} {dtype}".replace("torch.", "")
+        sm = _agree("softmax_bwd", dx, norm.softmax_bwd_plain(y, dy),
+                    (1e-6, 1e-4) if dtype == torch.float32 else (1e-4, 1e-2),
+                    shape)
+    sm_bound = _bound(3 * r * n * y.element_size(), 4 * r * n, "bfloat16")
+    sm.update(
+        ms=_time_ms(torch, lambda: norm.softmax_bwd(y, dy)),
+        plain_ms=_time_ms(torch, lambda: norm.softmax_bwd_plain(y, dy)),
+        library_ms=_time_ms(torch, lambda: torch._softmax_backward_data(
+            dy, y, -1, y.dtype)),
+        bound_ms=sm_bound[0], bound_by=sm_bound[1],
+        library="torch._softmax_backward_data",
+        note="N = 2: bound by launch latency, not by bytes")
+    table["softmax_bwd"] = sm
+    return table
+
+
+def _cls_margins(torch, model, x):
+    """The classifier's logit gap z1 - z0 per token (min, mean, max) and
+    the smallest and largest output probability, through the inference
+    walk on the model's current weights."""
+    cls = next(op for op in model.ops if op.name == "cls")
+    vals = model.executor.forward_values(
+        {model.input_ops[0].name: torch.from_numpy(x).to(model.device)})
+    z = vals[cls.outputs[0].guid].float()
+    p = vals[model.final_tensor.guid].float()
+    gap = z[..., 1] - z[..., 0]
+    return {"gap_min": float(gap.min()), "gap_mean": float(gap.mean()),
+            "gap_max": float(gap.max()), "p_min": float(p.min()),
+            "p_max": float(p.max())}
+
+
+def _train_batch():
+    """bench.py `_run`'s batch: tokens and labels from RandomState(0)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+    x = rng.randint(0, TRAIN["vocab"], size=(b, seq)).astype(np.int32)
+    y = rng.randint(0, 2, size=(b, seq, 1)).astype(np.int32)
+    return x, y
+
+
+def phase_train(torch, warmup=3, steps=10):
+    """Full-width training through compile and fit; returns the phase's
+    record (launches per step among them) and the initial weights on the
+    host. The classifier's margins are read before and after the first
+    step (outside the timed and counted steps)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    t0 = time.perf_counter()
+    model = build_bench_model("cuda", TRAIN["layers"], True, 0)
+    build_s = time.perf_counter() - t0
+    init = {op: {w: t.cpu().clone() for w, t in ws.items()}
+            for op, ws in model.params.items()}
+    n_params = sum(t.numel() for ws in init.values() for t in ws.values())
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+    x, y = _train_batch()
+    margins = [_cls_margins(torch, model, x)]
+    warm = model.fit(x, y, batch_size=b, epochs=1)
+    margins.append(_cls_margins(torch, model, x))
+    warm += model.fit(x, y, batch_size=b, epochs=warmup - 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    hist = model.fit(x, y, batch_size=b, epochs=steps)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = [r["loss"] for r in warm + hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training "
+                             f"path: {missing}")
+    step_ms = np.array([r["step_ms"] for r in hist])
+    flops = train_step_flops(**TRAIN)
+    med_s = float(np.median(step_ms)) / 1e3
+    return {
+        "phase": "train", "params": n_params, "model_build_s": build_s,
+        "batch": b, "seq": seq, "warmup_steps": warmup, "steps": steps,
+        "ms_per_step_median": float(np.median(step_ms)),
+        "ms_per_step_mean": float(step_ms.mean()),
+        "ms_per_step_min": float(step_ms.min()),
+        "samples_per_s": b / med_s,
+        "flops_per_step": flops,
+        "mfu_bf16_peak": flops / med_s / PEAK_OPS_PER_S["bfloat16"],
+        "losses": losses,
+        "cls_margins_before_after_step1": margins,
+        "launches": launches,
+        "launches_per_step": {k: launches[k] / steps for k in TRAIN_KERNELS},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }, init
+
+
+def phase_train_witness(torch, init, bf16_losses, steps=3):
+    """The train phase's first steps again from the same weights and
+    batch, in f32 on the card and in f32 on the CPU (plain versions):
+    per-step losses of the card's f32 run against the CPU's within 1e-3
+    relative, and of the train phase's bf16 run (bf16 activations, the
+    timed path) against the CPU's within 2e-2, the bf16 tolerance of
+    tests/test_torch_train.py. Both also use Adam with bf16 moments."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    x, y = _train_batch()
+    out = {}
+    for name, dev, seed in (("card_f32", "cuda", 3), ("cpu_f32", "cpu", 4)):
+        t0 = time.perf_counter()
+        m = build_bench_model(dev, TRAIN["layers"], False, seed)
+        m.load_params(init)
+        margins = [_cls_margins(torch, m, x)]
+        losses = [m.fit(x, y, batch_size=TRAIN["batch"], epochs=1)[0]["loss"]]
+        margins.append(_cls_margins(torch, m, x))
+        losses += [r["loss"] for r in m.fit(x, y, batch_size=TRAIN["batch"],
+                                             epochs=steps - 1)]
+        out[name] = {"losses": losses, "cls_margins_before_after_step1":
+                     margins, "seconds": time.perf_counter() - t0}
+        del m
+    worst = {"card_f32": 0.0, "card_bf16": 0.0}
+    for name, got, tol in (("card_f32", out["card_f32"]["losses"], 1e-3),
+                           ("card_bf16", bf16_losses[:steps], 2e-2)):
+        for i, (a, c) in enumerate(zip(got, out["cpu_f32"]["losses"])):
+            rel = abs(a - c) / abs(c)
+            worst[name] = max(worst[name], rel)
+            if not (np.isfinite(a) and rel <= tol):
+                raise AssertionError(f"train-witness: step {i + 1} loss "
+                                     f"{name} {a} vs cpu_f32 {c}")
+    frac0 = float((y == 0).mean())
+    return {"phase": "train-witness", "layers": TRAIN["layers"],
+            "steps": steps, "card_bf16_losses": bf16_losses[:steps], **out,
+            "max_relative_diff": worst,
+            "label0_share": frac0,
+            # log_softmax of probabilities (p0, p1) = (0, 1) exactly
+            "loss_if_sure_of_class": {
+                c: float(np.log1p(np.exp(-1.0)) + (frac0 if c else 1 - frac0))
+                for c in (0, 1)},
+            "tolerance": "|loss - cpu_f32| <= 1e-3 |cpu_f32| (card_f32), "
+                         "2e-2 |cpu_f32| (card_bf16), each step"}
+
+
+def phase_train_cross(torch, layers=2):
+    """Loss and gradient norms of the first two steps, card vs CPU, f32,
+    same weights and batch; between them one Adam update (bf16 moments)
+    on each side."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    gpu = build_bench_model("cuda", layers, False, 1)
+    cpu = build_bench_model("cpu", layers, False, 2)
+    cpu.load_params({op: {w: t.cpu() for w, t in ws.items()}
+                     for op, ws in gpu.params.items()})
+    rng = np.random.RandomState(5)
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+    x = rng.randint(0, TRAIN["vocab"], size=(b, seq)).astype(np.int32)
+    y = rng.randint(0, 2, size=(b, seq, 1)).astype(np.int32)
+    out = {}
+    for name, m in (("card", gpu), ("cpu", cpu)):
+        gstep = m.executor.build_grad_metrics_step(m.loss.fn, m.metrics,
+                                                   m.final_tensor)
+        inputs = {m.input_ops[0].name: torch.from_numpy(x).to(m.device)}
+        label = torch.from_numpy(y).to(m.device)
+        out[name] = []
+        for step in (1, 2):
+            grads, mvals = gstep(inputs, label)
+            norms = {f"{op}/{w}": float(grads[op][w].float().norm())
+                     for op, w in (("tok_emb", "weight"),
+                                   ("layer0_attn", "wq"),
+                                   ("layer0_attn", "wv"),
+                                   ("layer0_ln1", "gamma"),
+                                   (f"layer{layers - 1}_ln2", "beta"),
+                                   ("cls", "kernel"))}
+            out[name].append({"step": step, "loss": float(mvals["loss"]),
+                              "grad_norms": norms})
+            if step == 1:
+                m.optimizer.update(m.executor.parameters(), grads,
+                                   m.opt_state)
+    worst = 0.0
+    for card, host in zip(out["card"], out["cpu"]):
+        checks = {"loss": (card["loss"], host["loss"])}
+        checks.update({k: (v, host["grad_norms"][k])
+                       for k, v in card["grad_norms"].items()})
+        for k, (a, c) in checks.items():
+            if not np.isfinite(a):
+                raise AssertionError(f"train-cross: non-finite {k} on the "
+                                     f"card at step {card['step']}")
+            rel = abs(a - c) / max(abs(c), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1e-3:
+                raise AssertionError(
+                    f"train-cross: step {card['step']} {k} card {a} vs cpu "
+                    f"{c} (relative {rel})")
+    return {"phase": "train-cross", "layers": layers, "dtype": "float32",
+            "optimizer": "Adam alpha 1e-4, bf16 moments",
+            "card": out["card"], "cpu": out["cpu"],
+            "max_relative_diff": worst,
+            "tolerance": "|card - cpu| <= 1e-3 |cpu| (loss and each norm, "
+                         "steps 1 and 2)"}
 
 
 def _prefill_probs(torch, model, prompt, chunk, max_len):
@@ -316,7 +678,7 @@ def main() -> int:
                                  f"expected {int(n)}")
         if out.min() < 0 or out.max() >= vocab:
             raise AssertionError(f"request {r.id}: token out of range")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
@@ -365,7 +727,18 @@ def main() -> int:
            "tolerance": "max|p_card - p_cpu| <= 0.05 * max(p_cpu)",
            "seconds_since_start": time.perf_counter() - t_start})
 
-    # 6) the kernel table, the card, the result
+    # 6) train, 7) train-witness, 8) train-cross
+    train, init = phase_train(torch)
+    _emit(train)
+    _emit(dict(phase_train_witness(torch, init, train["losses"]),
+               seconds_since_start=time.perf_counter() - t_start))
+    del init
+    _emit(dict(phase_train_cross(torch),
+               seconds_since_start=time.perf_counter() - t_start))
+
+    # 9) the kernel table, the card, the result. A kernel's launches are
+    # those of the path(s) that run it (serve, train), each counted from 0
+    # just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:115",
@@ -373,14 +746,26 @@ def main() -> int:
             "flexflow_tpu/kernels/pallas/decode.py:115",
         "layernorm_fwd": "flexflow_tpu/kernels/pallas/norm.py:98",
         "softmax_fwd": "flexflow_tpu/kernels/pallas/norm.py:369",
+        "flash_fwd": "flexflow_tpu/kernels/flash_attention.py:256",
+        "flash_bwd": "flexflow_tpu/kernels/flash_attention.py:412",
+        "layernorm_bwd": "flexflow_tpu/kernels/pallas/norm.py:130",
+        "softmax_bwd": "flexflow_tpu/kernels/pallas/norm.py:369",
     }
     sources = {"decode_attention": src + "decode_attention.cu",
                "multiquery_decode_attention": src + "decode_attention.cu",
-               "layernorm_fwd": src + "norm.cu",
-               "softmax_fwd": src + "norm.cu"}
-    kernels = [dict(name=name, route="cuda", source=sources[name],
-                    replaces=replaces[name], launches=launches[name],
-                    **table[name]) for name in replaces]
+               "flash_fwd": src + "flash_attention.cu",
+               "flash_bwd": src + "flash_attention.cu"}
+    kernels = []
+    for name in replaces:
+        by_path = {}
+        if name in SERVE_KERNELS:
+            by_path["serve"] = launches[name]
+        if name in TRAIN_KERNELS:
+            by_path["train"] = train["launches"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=sources.get(name, src + "norm.cu"),
+            replaces=replaces[name], launches=sum(by_path.values()),
+            launches_by_path=by_path, **table[name]))
     _emit({"kernels": kernels})
     print(_card_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

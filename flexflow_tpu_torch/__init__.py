@@ -3,17 +3,23 @@ Hopper (H100).
 
 flexflow_tpu (JAX on a TPU) stays the reference; this package imports
 torch, never jax, and nothing of flexflow_tpu. The port goes slice by
-slice (ROADMAP.md). This slice is continuous-batching serving of a causal
-transformer LM: the FFModel layer API the LM needs, the executor's
-KV-cache decode walk, the paged KV pool, admission and the continuous
-batcher, over three hand-written CUDA kernels (kernels/, csrc/).
+slice (ROADMAP.md). Two slices are ported: continuous-batching serving of
+a causal transformer LM (the executor's KV-cache decode walk, the paged
+KV pool, admission and the continuous batcher) and the single-device
+training step of the flagship BERT encoder (compile, fit and eval with
+SGD or Adam on autograd), over hand-written CUDA kernels (kernels/,
+csrc/): decode attention, flash attention forward and backward, and
+LayerNorm and softmax forward and backward.
 
 Entry points run on `FFConfig.device`, "cuda" unless the caller passes
 "cpu"; on the CPU every kernel wrapper runs its plain PyTorch version.
 """
 from .config import FFConfig
-from .ffconst import ActiMode, AggrMode, CompMode, DataType, OpType
-from .model import FFModel, params_from_jax
+from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
+                      MetricsType, OpType)
+from .model import FFModel, opt_state_from_jax, params_from_jax
+from .runtime.optimizers import AdamOptimizer, SGDOptimizer
 
-__all__ = ["ActiMode", "AggrMode", "CompMode", "DataType", "FFConfig",
-           "FFModel", "OpType", "params_from_jax"]
+__all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode", "DataType",
+           "FFConfig", "FFModel", "LossType", "MetricsType", "OpType",
+           "SGDOptimizer", "opt_state_from_jax", "params_from_jax"]

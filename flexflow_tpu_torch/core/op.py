@@ -6,6 +6,11 @@ torch tensors. Weights are registered as parameters under the JAX
 package's weight names and layouts (`wq` (e, h, d), dense `kernel`
 (in, out), ...), so weights move between the two packages by op name and
 weight name with no transpose.
+
+Weights are f32 master parameters. Serving reads them under
+`torch.no_grad()` through a cache of compute-dtype copies (bf16 under
+mixed precision); training casts them inside the autograd graph on every
+step, so gradients reach the f32 masters (`Op.w`).
 """
 from __future__ import annotations
 
@@ -68,10 +73,12 @@ class Op(nn.Module):
             for i, (dims, dtype) in enumerate(zip(out_dims, out_dtypes))
         ]
         self.specs: List[WeightSpec] = list(self.weight_specs())
-        # compute-dtype copies of the weights (bf16 under mixed precision),
-        # made on first use; weights are inference-only, so a copy stays
-        # valid until set_weight replaces the master
-        self._cast: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
+        # compute-dtype copies of the weights (bf16 under mixed precision)
+        # for reads outside autograd, each beside the version of the master
+        # it was cast from: an in-place update (set_weight, an optimizer
+        # step) bumps the version and the next read casts again
+        self._cast: Dict[Tuple[str, torch.dtype],
+                         Tuple[int, torch.Tensor]] = {}
 
     # -- subclass API -----------------------------------------------------
     def output_shapes(self) -> Tuple[List[Tuple[int, ...]], List[DataType]]:
@@ -86,13 +93,14 @@ class Op(nn.Module):
 
     # -- weights ----------------------------------------------------------
     def init_weights(self, generator: torch.Generator,
-                     device: torch.device) -> None:
+                     device: torch.device, trainable: bool = False) -> None:
         """Draw every weight from `generator` on the host, in spec order,
-        and place it on `device`."""
+        and place it on `device`; `trainable` weights take gradients."""
         for ws in self.specs:
             val = ws.initializer(generator, ws.dims, ws.dtype.torch_dtype)
             self.register_parameter(
-                ws.name, nn.Parameter(val.to(device), requires_grad=False))
+                ws.name, nn.Parameter(val.to(device),
+                                      requires_grad=trainable))
         self._cast.clear()
 
     def set_weight(self, name: str, value: torch.Tensor) -> None:
@@ -102,14 +110,21 @@ class Op(nn.Module):
         self._cast.clear()
 
     def w(self, name: str, dtype: Optional[torch.dtype] = None):
-        """Weight `name`, in `dtype` when given (a cached copy)."""
+        """Weight `name`, in `dtype` when given. Under autograd (a trainable
+        weight with grad mode on) the cast is a node of the graph, made
+        anew on every call; otherwise it is a cached copy, cast again only
+        after the master changed."""
         p = self._parameters[name]
         if dtype is None or p.dtype == dtype:
             return p
+        if p.requires_grad and torch.is_grad_enabled():
+            return p.to(dtype)
         key = (name, dtype)
-        if key not in self._cast:
-            self._cast[key] = p.to(dtype)
-        return self._cast[key]
+        hit = self._cast.get(key)
+        if hit is None or hit[0] != p._version:
+            hit = (p._version, p.detach().to(dtype))
+            self._cast[key] = hit
+        return hit[1]
 
     def has_weight(self, name: str) -> bool:
         return name in self._parameters

@@ -1,4 +1,4 @@
-"""Framework-wide enums, the subset the serving slice uses.
+"""Framework-wide enums, the subset the serving and training slices use.
 
 Mirrors flexflow_tpu/ffconst.py: the same member names and values, so a
 graph built in either package names its ops and dtypes the same way. The
@@ -32,6 +32,23 @@ class ActiMode(enum.Enum):
 
 class AggrMode(enum.Enum):
     AGGR_MODE_NONE = 0
+
+
+class LossType(enum.Enum):
+    LOSS_CATEGORICAL_CROSSENTROPY = 0
+    LOSS_SPARSE_CATEGORICAL_CROSSENTROPY = 1
+    LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE = 2
+    LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE = 3
+    LOSS_IDENTITY = 4
+
+
+class MetricsType(enum.Enum):
+    METRICS_ACCURACY = 0
+    METRICS_CATEGORICAL_CROSSENTROPY = 1
+    METRICS_SPARSE_CATEGORICAL_CROSSENTROPY = 2
+    METRICS_MEAN_SQUARED_ERROR = 3
+    METRICS_ROOT_MEAN_SQUARED_ERROR = 4
+    METRICS_MEAN_ABSOLUTE_ERROR = 5
 
 
 class CompMode(enum.Enum):

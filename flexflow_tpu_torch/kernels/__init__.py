@@ -1,22 +1,25 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 decode.py: decode attention (C = 1 and the multi-query chunk entry);
-norm.py: LayerNorm forward and softmax forward. `_build.py` compiles
-csrc/ into one library at first use.
+norm.py: LayerNorm and softmax, forward and backward; flash_attention.py:
+flash attention forward and backward on packed heads. `_build.py`
+compiles csrc/ into one library at first use.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import decode, norm
+from . import decode, flash_attention, norm
+
+_COUNTS = (decode.LAUNCHES, flash_attention.LAUNCHES, norm.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {**decode.LAUNCHES, **norm.LAUNCHES}
+    return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (decode.LAUNCHES, norm.LAUNCHES):
+    for counts in _COUNTS:
         for name in counts:
             counts[name] = 0

@@ -113,6 +113,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_layernorm_fwd.restype = i
     lib.ff_softmax_fwd.argtypes = [p, p, i, i, i, p]
     lib.ff_softmax_fwd.restype = i
+    lib.ff_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                     p]
+    lib.ff_layernorm_bwd.restype = i
+    lib.ff_layernorm_bwd_rows_per_block.argtypes = []
+    lib.ff_layernorm_bwd_rows_per_block.restype = i
+    lib.ff_softmax_bwd.argtypes = [p, p, p, i, i, i, p]
+    lib.ff_softmax_bwd.restype = i
+    lib.ff_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, i, i,
+                                 i, p]
+    lib.ff_flash_fwd.restype = i
+    lib.ff_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f,
+                                 i, i, i, i, p]
+    lib.ff_flash_bwd.restype = i
     lib.ff_error_string.argtypes = [i]
     lib.ff_error_string.restype = ctypes.c_char_p
 

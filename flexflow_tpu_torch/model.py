@@ -1,5 +1,6 @@
-"""FFModel: the layer API and an inference compile on one torch device
-(the subset of flexflow_tpu/model.py the serving slice uses).
+"""FFModel: the layer API, compile, fit and eval on one torch device
+(the subset of flexflow_tpu/model.py the serving and training slices
+use).
 
 Op names follow the JAX package's scheme (an explicit name, else
 `<op type>_<n>` per model), so the same builder code gives the same op
@@ -8,7 +9,8 @@ model's weights across.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -18,8 +20,12 @@ from .config import FFConfig
 from .core.graph import Graph
 from .core.op import OP_REGISTRY, Op
 from .core.tensor import Tensor
-from .ffconst import ActiMode, AggrMode, DataType, OpType
+from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
+                      MetricsType, OpType)
 from .runtime.executor import Executor
+from .runtime.losses import Loss
+from .runtime.metrics import Metrics
+from .runtime.optimizers import Optimizer, SGDOptimizer
 
 
 class FFModel:
@@ -30,6 +36,9 @@ class FFModel:
         self.final_tensor: Optional[Tensor] = None
         self.graph: Optional[Graph] = None
         self.executor: Optional[Executor] = None
+        self.optimizer: Optional[Optimizer] = None
+        self.opt_state: Optional[dict] = None
+        self.comp_mode: Optional[CompMode] = None
         self._name_counts: Dict[OpType, int] = {}
         self._used_names: set = set()
 
@@ -104,34 +113,183 @@ class FFModel:
 
     def multihead_attention(self, query: Tensor, key: Tensor, value: Tensor,
                             embed_dim: int, num_heads: int, kdim: int = 0,
-                            vdim: int = 0, bias: bool = True,
-                            causal: bool = False, kernel_initializer=None,
+                            vdim: int = 0, dropout: float = 0.0,
+                            bias: bool = True, causal: bool = False,
+                            sequence_parallel: bool = False,
+                            kernel_initializer=None,
                             name: str = "") -> Tensor:
+        """The full-sequence path is the flash kernel (its plain version on
+        the CPU). dropout > 0 and sequence_parallel raise: neither is
+        ported."""
         return self._add_op(
             OpType.MULTIHEAD_ATTENTION, [query, key, value], name,
             embed_dim=embed_dim, num_heads=num_heads, kdim=kdim or None,
-            vdim=vdim or None, bias=bias, causal=causal,
+            vdim=vdim or None, dropout=dropout, bias=bias, causal=causal,
+            sequence_parallel=sequence_parallel,
             kernel_initializer=kernel_initializer).outputs[0]
 
     # -- compile ----------------------------------------------------------
-    def compile(self, generator: Optional[torch.Generator] = None) -> None:
+    def compile(self, optimizer: Optional[Optimizer] = None,
+                loss_type: LossType =
+                LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                metrics: Sequence[MetricsType] = (),
+                comp_mode: CompMode = CompMode.COMP_MODE_TRAINING,
+                parallel_axes: Optional[Dict[str, int]] = None,
+                generator: Optional[torch.Generator] = None) -> None:
         """Build the graph and executor and draw every weight from
         `generator` (default: a CPU generator seeded 0) onto
-        `config.device`. Inference only, one device, no search."""
+        `config.device`.
+
+        The strategy search is a stub that returns the one-device plan
+        (ROADMAP A7); a mesh in `parallel_axes` raises (A8). In training
+        mode (the default, as in the JAX package) the weights take
+        gradients, `optimizer` defaults to SGD at `config.learning_rate`,
+        and the train and eval steps are built; COMP_MODE_INFERENCE
+        builds the executor only (the serving path)."""
+        if any(int(n) > 1 for n in (parallel_axes or {}).values()):
+            raise NotImplementedError(
+                f"parallel_axes={parallel_axes}: multi-device execution "
+                "(data, tensor, sequence parallelism) is not ported yet "
+                "(ROADMAP A8); the port runs one device")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.comp_mode = comp_mode
+        training = comp_mode == CompMode.COMP_MODE_TRAINING
         self.graph = Graph(self.ops)
         order = self.graph.topo_order()
         self.final_tensor = self.final_tensor or order[-1].outputs[0]
         self.executor = Executor(self.graph, self.config)
         for op in order:
-            op.init_weights(generator, self.device)
+            op.init_weights(generator, self.device, trainable=training)
+        if not training:
+            return
+        self.optimizer = optimizer or SGDOptimizer(
+            self, lr=self.config.learning_rate)
+        self.loss = Loss(loss_type)
+        self.metrics = Metrics(loss_type, list(metrics))
+        self._train_step = self.executor.build_train_step(
+            self.optimizer, self.loss.fn, self.metrics, self.final_tensor)
+        self._eval_step = self.executor.build_eval_step(
+            self.loss.fn, self.metrics, self.final_tensor)
+        self.opt_state = self.optimizer.init_state(self.executor.parameters())
+
+    # -- training -----------------------------------------------------------
+    def _batch(self, x: List[np.ndarray], y, lo: int, hi: int):
+        inputs = {op.name: torch.from_numpy(np.ascontiguousarray(
+            arr[lo:hi]).astype(op.outputs[0].dtype.np_dtype)).to(self.device)
+            for op, arr in zip(self.input_ops, x)}
+        label = torch.from_numpy(np.ascontiguousarray(y[lo:hi]).astype(
+            np.int32)).to(self.device)
+        return inputs, label
+
+    def _require_training(self, what: str) -> None:
+        if self.comp_mode != CompMode.COMP_MODE_TRAINING:
+            raise RuntimeError(f"{what} needs compile() in training mode")
+
+    def fit(self, x: Union[np.ndarray, Sequence[np.ndarray]],
+            y: np.ndarray, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, accum_steps: int = 1,
+            steps_per_execution: int = 1) -> List[Dict[str, float]]:
+        """Train on (x, y) for `epochs` passes of n // batch_size steps.
+
+        Returns the per-step history — one record per optimizer step with
+        its epoch, step, loss, the compiled metrics, host wall ms (from
+        the batch's copy to the device until its loss reaches the host)
+        and samples/s — where
+        the JAX package's fit returns one summary per epoch. Gradient
+        accumulation and several steps per dispatch are not ported."""
+        self._require_training("fit()")
+        if accum_steps != 1:
+            raise NotImplementedError(
+                "fit(accum_steps > 1): gradient accumulation is not ported "
+                "yet (ROADMAP A2)")
+        if steps_per_execution != 1:
+            raise NotImplementedError(
+                "fit(steps_per_execution > 1): several optimizer steps per "
+                "dispatch are not ported yet (ROADMAP A2, a CUDA graph of "
+                "the step)")
+        if isinstance(x, np.ndarray):
+            x = [x]
+        bs = batch_size or self.config.batch_size
+        epochs = epochs or self.config.epochs
+        n = x[0].shape[0]
+        if n < bs:
+            raise ValueError(f"dataset has {n} samples but batch_size is "
+                             f"{bs}; fit needs at least one full step")
+        history: List[Dict[str, float]] = []
+        for epoch in range(epochs):
+            for step in range(n // bs):
+                t0 = time.perf_counter()
+                inputs, label = self._batch(x, y, step * bs, (step + 1) * bs)
+                mvals = self._train_step(inputs, label, self.opt_state)
+                rec = {k: float(v) for k, v in mvals.items()}
+                dt = time.perf_counter() - t0
+                rec.update(epoch=epoch, step=len(history), step_ms=dt * 1e3,
+                           samples_per_s=bs / dt)
+                history.append(rec)
+        return history
+
+    def eval(self, x, y, batch_size: Optional[int] = None
+             ) -> Dict[str, float]:
+        """Metrics and loss over (x, y), the tail batch included, weighted
+        by batch size."""
+        self._require_training("eval()")
+        if isinstance(x, np.ndarray):
+            x = [x]
+        bs = batch_size or self.config.batch_size
+        n = x[0].shape[0]
+        sums: Dict[str, float] = {}
+        for lo in range(0, n, bs):
+            hi = min(lo + bs, n)
+            inputs, label = self._batch(x, y, lo, hi)
+            mvals, _ = self._eval_step(inputs, label)
+            for k, v in mvals.items():
+                sums[k] = sums.get(k, 0.0) + float(v) * (hi - lo)
+        out = {k: v / max(1, n) for k, v in sums.items()}
+        out["samples"] = n
+        return out
+
+    def load_opt_state(self, state: Mapping[str, object]) -> None:
+        """Load an optimizer state — {"step", "lr", and the optimizer's
+        moment trees ("v" for momentum SGD, "m" and "v" for Adam) of op
+        name -> weight name -> array} — into this model's, checking every
+        name and shape; values keep this state's dtypes and device."""
+        self._require_training("load_opt_state()")
+        mine = self.opt_state
+        if set(state) != set(mine):
+            raise KeyError(f"optimizer state keys {sorted(state)}, expected "
+                           f"{sorted(mine)}")
+        staged = []
+        for key, tree in mine.items():
+            if not isinstance(tree, dict):
+                continue
+            given = state[key]
+            if {op: set(ws) for op, ws in given.items()} != \
+                    {op: set(ws) for op, ws in tree.items()}:
+                raise KeyError(f"optimizer state {key!r}: names differ from "
+                               "the model's weights")
+            for op, ws in tree.items():
+                for w, t in ws.items():
+                    val = given[op][w]
+                    if not torch.is_tensor(val):
+                        val = torch.from_numpy(np.array(val, np.float32))
+                    if tuple(val.shape) != tuple(t.shape):
+                        raise ValueError(
+                            f"optimizer state {key!r} {op}/{w}: shape "
+                            f"{tuple(val.shape)}, expected {tuple(t.shape)}")
+                    staged.append((t, val))
+        with torch.no_grad():
+            for t, val in staged:
+                t.copy_(val)
+        mine["step"] = int(np.asarray(state["step"]))
+        mine["lr"] = float(np.asarray(state["lr"]))
 
     # -- weights ----------------------------------------------------------
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """op name -> weight name -> tensor, the JAX `model.params` tree."""
-        return {op.name: {ws.name: op.w(ws.name) for ws in op.specs}
+        """op name -> weight name -> tensor, the JAX `model.params` tree;
+        each tensor shares the master's storage, outside autograd."""
+        return {op.name: {ws.name: op.w(ws.name).detach() for ws in op.specs}
                 for op in self.ops if op.specs}
 
     def load_params(self, params: Mapping[str, Mapping[str, object]]) -> None:
@@ -173,3 +331,15 @@ def params_from_jax(model: FFModel, params) -> None:
     transposed."""
     model.load_params({op: {w: np.asarray(v) for w, v in ws.items()}
                        for op, ws in params.items()})
+
+
+def opt_state_from_jax(model: FFModel, opt_state) -> None:
+    """Carry a JAX FFModel's optimizer state (`model.opt_state`) into the
+    port's `model`, by op name and weight name; bf16 moments cross as f32,
+    which holds every bf16 value exactly."""
+    def host(v):
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        return np.asarray(v, np.float32) if np.ndim(v) else np.asarray(v)
+
+    model.load_opt_state(host(dict(opt_state)))

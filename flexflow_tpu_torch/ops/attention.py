@@ -1,13 +1,22 @@
-"""Multi-head attention, the KV-cache decoding half
-(counterpart of flexflow_tpu/ops/attention.py).
+"""Multi-head attention (counterpart of flexflow_tpu/ops/attention.py):
+the full-sequence path and the KV-cache decoding half.
 
 Weights keep the JAX package's names and layouts: wq/wk/wv (e, h, d),
 wo (h, d, e), bq/bk/bv (h, d), bo (e). Projections and the output
-projection are plain matmuls; the QK^T -> masked softmax -> V core runs
-through the port's decode-attention kernel (kernels/decode.py) over the
-caches the caller holds in `ctx.state[op name]`, updated in place.
+projection are plain matmuls.
 
-Two entries, as `_decode_step` in the JAX package:
+Full sequence (training, and inference without caches): the JAX
+package's packed branch. q, k and v are projected with wq.reshape(e, h*d)
+in the compute dtype to (b, l, h*d) and run through the flash-attention
+kernel (kernels/flash_attention.py) in that layout, its backward a kernel
+too; the context goes through wo.reshape(h*d, e), is cast to the output's
+boundary dtype, and bo is added in that dtype. Attention dropout and
+sequence parallelism are not ported and raise.
+
+Decoding: the QK^T -> masked softmax -> V core runs through the port's
+decode-attention kernel (kernels/decode.py) over the caches the caller
+holds in `ctx.state[op name]`, updated in place. Two entries, as
+`_decode_step` in the JAX package:
  - a (B,) int32 tensor of per-slot positions with one query token per
    slot: the continuous batcher's decode iteration;
  - an int chunk offset with C >= 1 query tokens: chunked prefill. The
@@ -16,9 +25,6 @@ Two entries, as `_decode_step` in the JAX package:
    `dynamic_update_slice` would clamp the start and shift the chunk; the
    JAX batcher keeps chunk - 1 slack rows so that its clamp never fires,
    the port writes the pool slot directly and drops the padded tail.
-
-Full-sequence attention (one-shot prefill, GenerativeSession, training)
-runs the flash-attention kernel, which comes with the training slice.
 """
 from __future__ import annotations
 
@@ -30,8 +36,9 @@ import torch
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import OpType
 from ..kernels.decode import decode_attention, multiquery_decode_attention
+from ..kernels.flash_attention import flash_attention
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
-from .common import matmul_dtype
+from .common import emit_dtype, matmul_dtype
 
 
 @register_op
@@ -51,8 +58,16 @@ class MultiHeadAttentionOp(Op):
         q, _, _, embed, _, kdim, vdim = self._dims()
         if kdim != vdim:
             raise NotImplementedError(
-                f"kdim={kdim} != vdim={vdim}: the decode kernel takes one "
-                "head_dim")
+                f"kdim={kdim} != vdim={vdim}: the attention kernels take "
+                "one head_dim")
+        if self.params.get("dropout", 0.0) > 0:
+            raise NotImplementedError(
+                f"{self.name}: attention-probability dropout is not ported "
+                "(the flash kernel has none); set dropout=0")
+        if self.params.get("sequence_parallel"):
+            raise NotImplementedError(
+                f"{self.name}: sequence-parallel attention (ring / Ulysses) "
+                "is not ported yet (ROADMAP A8); the port runs one device")
         return [q.dims[:-1] + (embed,)], [q.dtype]
 
     def weight_specs(self) -> List[WeightSpec]:
@@ -93,18 +108,38 @@ class MultiHeadAttentionOp(Op):
         return y
 
     def lower(self, ctx, inputs):
-        if ctx.decode_pos is None or self.name not in ctx.state:
-            raise NotImplementedError(
-                f"{self.name}: full-sequence attention (one-shot prefill, "
-                "GenerativeSession, training) runs the flash-attention "
-                "kernel, which comes with the training slice (ROADMAP "
-                "queue B1); this port decodes against KV caches only")
+        if ctx.decode_pos is None:
+            return [self._full_sequence(ctx, *inputs[:3])]
+        if self.name not in ctx.state:
+            raise ValueError(f"{self.name}: decode_pos given but no KV "
+                             "caches in the state")
         q_in, k_in, v_in = inputs[:3]
         cdt = matmul_dtype(ctx.config, q_in.dtype)
         q = self._project(q_in, "wq", "bq", cdt)
         k = self._project(k_in, "wk", "bk", cdt)
         v = self._project(v_in, "wv", "bv", cdt)
         return [self._decode_step(ctx, q, k, v, 1.0 / math.sqrt(q.shape[-1]))]
+
+    def _full_sequence(self, ctx, q_in, k_in, v_in):
+        """The JAX package's packed flash branch: (b, l, h*d) projections,
+        no transposes around the kernel."""
+        _, _, _, embed, heads, kdim, vdim = self._dims()
+        cdt = matmul_dtype(ctx.config, q_in.dtype)
+        q = self._project(q_in, "wq", "bq", cdt).flatten(2)
+        k = self._project(k_in, "wk", "bk", cdt).flatten(2)
+        v = self._project(v_in, "wv", "bv", cdt).flatten(2)
+        ctxv = flash_attention(
+            q, k, v, heads, scale=1.0 / math.sqrt(kdim),
+            causal=self.params.get("causal", False),
+            block_q=ctx.config.flash_block_q,
+            block_k=ctx.config.flash_block_k)
+        odt = emit_dtype(ctx.config, self.outputs[0].dtype)
+        out = torch.matmul(ctxv.to(cdt),
+                           self.w("wo", cdt).reshape(heads * vdim, embed))
+        out = out.to(odt)
+        if self.has_weight("bo"):
+            out = out + self.w("bo", odt)
+        return out
 
     def _decode_step(self, ctx, q, k, v, scale):
         """Write the new tokens' K/V rows into the caches, then attend:

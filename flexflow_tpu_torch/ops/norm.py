@@ -1,8 +1,9 @@
 """LayerNorm and Softmax ops (counterpart of flexflow_tpu/ops/norm.py).
 
-Both normalize the trailing axis through the port's kernels
-(kernels/norm.py): the CUDA kernel for tensors on the card, its plain
-version on the CPU. Other axes come with the op-set slice (ROADMAP A6).
+Both normalize the trailing axis through the port's differentiable
+kernel ops (kernels/norm.py `layernorm`, `softmax`): forward and backward
+are the CUDA kernels for tensors on the card, their plain versions on the
+CPU. Other axes come with the op-set slice (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import List
 
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import OpType
-from ..kernels.norm import layernorm_fwd, softmax_fwd
+from ..kernels.norm import layernorm, softmax
 from ..runtime.initializers import ConstantInitializer, ZeroInitializer
 
 
@@ -49,11 +50,9 @@ class LayerNormOp(Op):
 
     def lower(self, ctx, inputs):
         affine = self.has_weight("gamma")
-        y, _, _ = layernorm_fwd(
-            inputs[0], self.w("gamma") if affine else None,
-            self.w("beta") if affine else None,
-            eps=self.params.get("eps", 1e-5))
-        return [y]
+        return [layernorm(inputs[0], self.w("gamma") if affine else None,
+                          self.w("beta") if affine else None,
+                          eps=self.params.get("eps", 1e-5))]
 
 
 @register_op
@@ -65,4 +64,4 @@ class SoftmaxOp(Op):
         return [self.inputs[0].dims], [self.inputs[0].dtype]
 
     def lower(self, ctx, inputs):
-        return [softmax_fwd(inputs[0])]
+        return [softmax(inputs[0])]

@@ -8,7 +8,7 @@ from typing import Optional
 import torch
 
 from ...config import FFConfig
-from ...ffconst import ActiMode, AggrMode, DataType
+from ...ffconst import ActiMode, AggrMode, CompMode, DataType
 from ...model import FFModel
 
 
@@ -38,5 +38,6 @@ def build_tiny_lm(batch: int, window: int, vocab: int = 64,
         h = model.dense(h, hidden, name=f"l{i}_ff2")
         t = model.layer_norm(model.add(t, h), [-1], name=f"l{i}_ln2")
     model.softmax(model.dense(t, vocab, name="lm_head"))
-    model.compile(generator)
+    model.compile(comp_mode=CompMode.COMP_MODE_INFERENCE,
+                  generator=generator)
     return model

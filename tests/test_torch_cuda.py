@@ -1,7 +1,8 @@
 """flexflow_tpu_torch on the card: each CUDA kernel against its plain
-version, and the continuous batcher on the card against the port on the
-CPU. Every test is marked `cuda` and skips without a GPU. This file
-imports no jax, so it also runs where only the port's dependencies are
+version, the continuous batcher on the card against the port on the
+CPU, and one training step on the card against the port on the CPU.
+Every test is marked `cuda` and skips without a GPU. This file imports
+no jax, so it also runs where only the port's dependencies are
 installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -10,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from flexflow_tpu_torch.kernels import decode, launch_counts, norm, \
-    reset_launch_counts
+from flexflow_tpu_torch.kernels import decode, flash_attention, \
+    launch_counts, norm, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -118,5 +119,127 @@ def test_batcher_on_card_matches_cpu_port(dev):
 
     reset_launch_counts()
     on_card = run(gpu)
-    assert all(v > 0 for v in launch_counts().values()), launch_counts()
+    serving = ("decode_attention", "multiquery_decode_attention",
+               "layernorm_fwd", "softmax_fwd")
+    assert all(launch_counts()[k] > 0 for k in serving), launch_counts()
     assert on_card == run(cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lk,h,d,block", [
+    (64, 64, 2, 64, 64),     # one tile each way
+    (100, 130, 3, 32, 64),   # ragged tiles, lq != lk (causal offset)
+    (40, 40, 2, 16, 16),     # tiles smaller than the kernel's largest
+    (33, 70, 1, 128, 32)])   # the largest head dim
+def test_flash_kernels_match_plain(dev, dtype, causal, lq, lk, h, d, block):
+    g = torch.Generator(device=dev).manual_seed(lq * 7 + lk + d)
+    b = 2
+
+    def rnd(l):
+        return torch.randn((b, l, h * d), generator=g, device=dev).to(dtype)
+
+    q, k, v, do = rnd(lq), rnd(lk), rnd(lk), rnd(lq)
+    scale = d ** -0.5
+    reset_launch_counts()
+    o, lse = flash_attention.flash_fwd(q, k, v, h, scale=scale,
+                                       causal=causal, block_q=block,
+                                       block_k=block)
+    ro, rlse = flash_attention.flash_fwd_plain(q, k, v, h, scale, causal)
+    assert o.dtype == dtype and lse.shape == (b, lq, h)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    _close(o, ro, tol)
+    _close(lse, rlse, F32_TOL)
+    grads = flash_attention.flash_bwd(q, k, v, o, lse, do, h, scale=scale,
+                                      causal=causal, block_q=block,
+                                      block_k=block)
+    delta = (do.float() * o.float()).reshape(b, lq, h, d).sum(-1)
+    ref = flash_attention.flash_bwd_plain(q, k, v, do, lse, delta, h, scale,
+                                          causal)
+    # bf16: the same rounded ds and p as the plain version; f32 sums in
+    # another order may move a result by one bf16 ulp (<= 2^-7 relative)
+    for out, want in zip(grads, ref):
+        assert out.dtype == dtype
+        _close(out, want, F32_TOL if dtype == torch.float32
+               else dict(atol=1e-3, rtol=1e-2))
+    assert launch_counts()["flash_fwd"] == 1
+    assert launch_counts()["flash_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(4096, 1024), (37, 300)])
+@pytest.mark.parametrize("affine", [True, False])
+def test_layernorm_bwd_kernel_matches_plain(dev, dtype, rows, n, affine):
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(dtype)
+    dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    gamma = torch.rand((n,), generator=g, device=dev) + 0.5 if affine \
+        else None
+    beta = torch.randn((n,), generator=g, device=dev) if affine else None
+    _, mean, rstd = norm.layernorm_fwd(x, gamma, beta)
+    dx, dg, db = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+    rdx, rdg, rdb = norm.layernorm_bwd_plain(x, gamma, mean, rstd, dy)
+    assert dx.dtype == dtype
+    _close(dx, rdx, F32_TOL if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    if affine:
+        # sums over `rows` f32 terms in another order
+        _close(dg, rdg, dict(atol=1e-3, rtol=1e-4))
+        _close(db, rdb, dict(atol=1e-3, rtol=1e-4))
+        again = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+        assert torch.equal(again[1], dg) and torch.equal(again[2], db)
+    else:
+        assert dg is None and db is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 30522])
+def test_softmax_bwd_kernel_matches_plain(dev, dtype, n):
+    g = torch.Generator(device=dev).manual_seed(n + 5)
+    y = norm.softmax_fwd(
+        (torch.randn((9, n), generator=g, device=dev) * 3).to(dtype))
+    dy = torch.randn((9, n), generator=g, device=dev).to(dtype)
+    dx = norm.softmax_bwd(y, dy)
+    assert dx.dtype == dtype
+    _close(dx, norm.softmax_bwd_plain(y, dy),
+           dict(atol=1e-6, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=1e-4, rtol=1e-2))
+
+
+def test_fit_step_on_card_matches_cpu_port(dev):
+    """One SGD step of a small encoder through the card's kernels (f32)
+    against the port on the CPU, same weights and batch."""
+    from flexflow_tpu_torch.models import (TransformerConfig,
+                                           build_bert_encoder)
+    from flexflow_tpu_torch.runtime.optimizers import SGDOptimizer
+    from flexflow_tpu_torch import FFConfig, FFModel, DataType, LossType
+
+    def build(device):
+        cfg = FFConfig(batch_size=4, allow_mixed_precision=False,
+                       device=device)
+        m = FFModel(cfg)
+        tok = m.create_tensor([4, 80], DataType.DT_INT32)
+        build_bert_encoder(m, tok, TransformerConfig(
+            hidden_size=64, embedding_size=64, num_heads=4, num_layers=2,
+            sequence_length=80, vocab_size=97))
+        m.compile(optimizer=SGDOptimizer(m, lr=0.05, momentum=0.9),
+                  loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  generator=torch.Generator().manual_seed(3))
+        return m
+
+    cpu, gpu = build("cpu"), build("cuda")
+    gpu.load_params(cpu.params)
+    rng = np.random.RandomState(4)
+    x = rng.randint(0, 97, size=(4, 80)).astype(np.int32)
+    y = rng.randint(0, 2, size=(4, 80, 1)).astype(np.int32)
+    reset_launch_counts()
+    h_gpu = gpu.fit(x, y, batch_size=4, epochs=1)
+    for k in ("flash_fwd", "flash_bwd", "layernorm_fwd", "layernorm_bwd",
+              "softmax_fwd", "softmax_bwd"):
+        assert launch_counts()[k] > 0, (k, launch_counts())
+    h_cpu = cpu.fit(x, y, batch_size=4, epochs=1)
+    assert h_gpu[0]["loss"] == pytest.approx(h_cpu[0]["loss"], rel=1e-4)
+    for op, ws in cpu.params.items():
+        for w, t in ws.items():
+            torch.testing.assert_close(gpu.params[op][w].cpu(), t,
+                                       atol=1e-5, rtol=1e-4)

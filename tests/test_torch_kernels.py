@@ -3,6 +3,7 @@ JAX package's Pallas kernel in interpret mode (as
 tests/test_pallas_kernels.py runs it), and the wrappers' input checks.
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +11,7 @@ import torch
 
 from flexflow_tpu.kernels.pallas.decode import (
     fused_decode_attention, fused_multiquery_decode_attention)
-from flexflow_tpu.kernels.pallas.norm import _ln_fwd, fused_softmax
+from flexflow_tpu.kernels.pallas.norm import _ln_bwd, _ln_fwd, fused_softmax
 from flexflow_tpu_torch.kernels import decode, launch_counts, norm
 
 # f32: the same math, summed in another order (and, for Pallas' multi-
@@ -106,11 +107,90 @@ def test_softmax_plain_matches_pallas_on_a_wide_row(dtype):
                                   else dict(rtol=1e-2, atol=1e-6)))
 
 
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_layernorm_bwd_plain_matches_pallas(affine, dtype):
+    rng = np.random.RandomState(10)
+    x = _randn(rng, (7, 3, 40)) * 2 + 1
+    dy = _randn(rng, (7, 3, 40))
+    gamma = rng.rand(40).astype(np.float32) + 0.5
+    jg = jnp.asarray(gamma) if affine else None
+    _, mean, rstd = _ln_fwd(jnp.asarray(x, dtype), jg,
+                            jnp.asarray(_randn(rng, (40,))) if affine
+                            else None, 1e-5, 4, True, affine)
+    dx, dg, db = _ln_bwd(jnp.asarray(x, dtype), jg, mean, rstd,
+                         jnp.asarray(dy, dtype), 4, True, affine)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    pdx, pdg, pdb = norm.layernorm_bwd(
+        torch.from_numpy(x).to(tdt),
+        torch.from_numpy(gamma) if affine else None,
+        torch.from_numpy(np.array(mean)), torch.from_numpy(np.array(rstd)),
+        torch.from_numpy(dy).to(tdt))
+    assert pdx.dtype == tdt and tuple(pdx.shape) == x.shape
+    np.testing.assert_allclose(pdx.float().numpy(),
+                               np.asarray(dx, np.float32),
+                               **(F32_TOL if dtype == jnp.float32
+                                  else BF16_TOL))
+    if not affine:
+        assert pdg is None and pdb is None
+        return
+    # f32 sums over 21 rows, in another order
+    for got, want in ((pdg, dg), (pdb, db)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 300])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_softmax_bwd_plain_matches_pallas_vjp(n, dtype):
+    rng = np.random.RandomState(11 + n)
+    x = _randn(rng, (5, 6, n)) * 3
+    g = _randn(rng, (5, 6, n))
+    y, vjp = jax.vjp(lambda a: fused_softmax(a, block_rows=4,
+                                             interpret=True),
+                     jnp.asarray(x, dtype))
+    (want,) = vjp(jnp.asarray(g, dtype))
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    ty = torch.from_numpy(np.array(y, np.float32)).to(tdt)
+    got = norm.softmax_bwd(ty, torch.from_numpy(g).to(tdt))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **(F32_TOL if dtype == jnp.float32
+                                  else BF16_TOL))
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_norm_autograd_functions_match_torch(affine):
+    """layernorm / softmax through their autograd Functions give torch's
+    own gradients of the same math (f32)."""
+    rng = np.random.RandomState(12)
+    x0 = torch.from_numpy(_randn(rng, (6, 32)) * 2)
+    g0 = torch.from_numpy(rng.rand(32).astype(np.float32) + 0.5)
+    b0 = torch.from_numpy(_randn(rng, (32,)))
+    cot = torch.from_numpy(_randn(rng, (6, 32)))
+    x, g, b = (t.clone().requires_grad_() for t in (x0, g0, b0))
+    y = norm.layernorm(x, g, b) if affine else norm.layernorm(x)
+    y = norm.softmax(y)
+    got = torch.autograd.grad(y, (x, g, b) if affine else (x,), cot)
+    x, g, b = (t.clone().requires_grad_() for t in (x0, g0, b0))
+    ref = torch.nn.functional.layer_norm(
+        x, (32,), g if affine else None, b if affine else None, 1e-5)
+    want = torch.autograd.grad(torch.softmax(ref, -1),
+                               (x, g, b) if affine else (x,), cot)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
 def test_plain_versions_count_no_launch():
     before = launch_counts()
     x = torch.randn(3, 8)
     norm.softmax_fwd(x)
-    norm.layernorm_fwd(x)
+    y, mean, rstd = norm.layernorm_fwd(x)
+    norm.layernorm_bwd(x, None, mean, rstd, y)
+    norm.softmax_bwd(x, y)
     assert launch_counts() == before
 
 
@@ -159,3 +239,14 @@ def test_norm_wrappers_reject_bad_inputs():
         norm.layernorm_fwd(x, g.bfloat16(), g.bfloat16())
     with pytest.raises(ValueError, match="no kernel for device"):
         norm.softmax_fwd(x.to("meta"))
+    _, mean, rstd = norm.layernorm_fwd(x)
+    with pytest.raises(ValueError, match="dy"):
+        norm.layernorm_bwd(x, None, mean, rstd, x.bfloat16())
+    with pytest.raises(ValueError, match=r"mean must be \(4, 1\)"):
+        norm.layernorm_bwd(x, None, mean[:3], rstd, x)
+    with pytest.raises(ValueError, match="gamma must be"):
+        norm.layernorm_bwd(x, g.bfloat16(), mean, rstd, x)
+    with pytest.raises(ValueError, match="dy"):
+        norm.softmax_bwd(x, x[:2])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        norm.softmax_bwd(x.to("meta"), x.to("meta"))

@@ -97,10 +97,26 @@ def test_forward_matches_jax_chunk_offset_then_vector_decode(
 
 
 def test_full_sequence_attention_is_not_ported():
-    pm = build_tiny_lm(1, 4, vocab=50, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="flash-attention"):
-        pm.executor.forward_values({pm.input_ops[0].name: toks})
+    """Full-sequence attention runs the flash path now (the training
+    slice): a forward with no caches matches the JAX executor's; what of
+    it is still not ported — attention dropout, sequence parallelism —
+    raises."""
+    jm, pm = _models(False)
+    toks = np.random.RandomState(4).randint(1, 50, size=(2, 8)).astype(
+        np.int32)
+    vals, _, _ = jm.executor.forward_values(
+        jm.params, jm.state, {jm.input_ops[0].name: jnp.asarray(toks)},
+        None, CompMode.COMP_MODE_INFERENCE)
+    pvals = pm.executor.forward_values(
+        {pm.input_ops[0].name: torch.from_numpy(toks)})
+    np.testing.assert_allclose(
+        pvals[pm.final_tensor.guid].numpy(),
+        np.asarray(vals[jm.final_tensor.guid]), **F32_TOL)
+    t = pm.ops[1].outputs[0]
+    with pytest.raises(NotImplementedError, match="dropout"):
+        pm.multihead_attention(t, t, t, 32, 4, dropout=0.1)
+    with pytest.raises(NotImplementedError, match="sequence-parallel"):
+        pm.multihead_attention(t, t, t, 32, 4, sequence_parallel=True)
 
 
 def test_params_from_jax_checks_names_and_shapes():
