@@ -7,11 +7,12 @@ Phases, in order; any failure propagates and exits non-zero:
  1. device  — require CUDA, print the card's name and power limit, set
               and print the TF32 flags;
  2. build   — compile the port's CUDA kernels from csrc/ and time it;
- 3. kernels — hold every kernel of the serving and training paths against
-              its plain PyTorch version on the card, in f32 and bf16, at
-              the shapes its path gives it, and time kernel, plain
-              version and one library call beside the least time the card
-              could take;
+ 3. kernels — hold every kernel of the serving, training and kernel-tier
+              paths against its plain PyTorch version on the card, in f32
+              and bf16, at the shapes its path gives it (and at edge
+              shapes for RMSNorm and the reduction), and time kernel,
+              plain version and one library call beside the least time
+              the card could take;
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
               fixed generator, bf16 mixed precision) through
@@ -27,7 +28,8 @@ Phases, in order; any failure propagates and exits non-zero:
               moments) through FFModel.compile and fit on random tokens
               and labels from np.random.RandomState(0): warm-up steps,
               then timed steps; every loss finite, every training kernel
-              launched;
+              launched its count per step, and the kernel registry (its
+              auto policy) picked the kernels;
  7. train-witness — the train phase's first three steps again from the
               same weights and batch in f32 on the card and in f32 on the
               CPU: per-step losses against the CPU's, and the classifier's
@@ -35,7 +37,17 @@ Phases, in order; any failure propagates and exits non-zero:
  8. train-cross — the loss and gradient norms of the first two steps
               (one Adam update with bf16 moments between them) of the
               same encoder cut to 2 layers, in f32, on the card against
-              the port on the CPU, same weights and batch.
+              the port on the CPU, same weights and batch;
+ 9. tier    — the JAX package's kernel-tier graph (input (8, 512, 1024)
+              -> layer_norm -> rms_norm -> dense(10) -> softmax, sparse CE
+              and accuracy, SGD lr 0.05, data from RandomState(8)): 3 fit
+              steps on the card in bf16 under kernel_impl="pallas" (each
+              kernel's launches per step asserted) and under "reference"
+              (no kernel launches), and on the CPU in f32 as a witness;
+10. ref-vs-kernel — the flagship cut to 2 layers, f32, two Adam steps on
+              the card under kernel_impl="pallas" and "reference" (flash
+              against the einsum core, the CUDA norms against the
+              reference lowerings): loss and six gradient norms.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -58,8 +70,18 @@ TRAIN = dict(batch=8, seq=512, hidden=1024, heads=16, layers=12,
              vocab=30522)
 SERVE_KERNELS = ("decode_attention", "multiquery_decode_attention",
                  "layernorm_fwd", "softmax_fwd")
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd",
-                 "layernorm_bwd", "softmax_fwd", "softmax_bwd")
+# launches per training step of the full-width flagship (12 layers)
+TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
+                  "layernorm_bwd": 24, "softmax_fwd": 1, "softmax_bwd": 1,
+                  "reduce": 2}
+TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
+# launches per step of the kernel-tier graph under kernel_impl="pallas"
+TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
+                 "rmsnorm_bwd": 1, "softmax_fwd": 1, "softmax_bwd": 1,
+                 "reduce": 2}
+TIER_KERNELS = tuple(TIER_PER_STEP)
+# families the registry must pick the kernel for on the training path
+TRAIN_FAMILIES = ("attention", "layernorm", "softmax", "reduction")
 
 
 def train_step_flops(batch, seq, hidden, layers, **_) -> float:
@@ -247,6 +269,7 @@ def phase_kernels(torch, F):
             name, 8, n, torch.bfloat16, tol, True)
     del flush_buf
     table.update(train_kernels(torch, F, g))
+    table.update(tier_kernels(torch, F, g))
     return table
 
 
@@ -389,6 +412,152 @@ def train_kernels(torch, F, g):
     return table
 
 
+def tier_kernels(torch, F, g):
+    """RMSNorm forward and backward and the scalar reduction against their
+    plain versions, in f32 and bf16, at the kernel-tier graph's shapes
+    (RMSNorm (4096, 1024); the loss and accuracy terms, 4096 f32
+    elements), at edge shapes, and the reduction at 2^26 f32 elements;
+    dgamma and the reduction bit-identical over two runs. Timed at the
+    path's shapes (bf16 RMSNorm). Returns {kernel name: table row}."""
+    from flexflow_tpu_torch.kernels import norm, reduction
+
+    dev = torch.device("cuda")
+    table = {}
+    f32_tol = (1e-5, 1e-4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def rms_case(rows, n, dtype, affine):
+        x = (rnd(rows, n) * 2 + 1).to(dtype)
+        dy = rnd(rows, n).to(dtype)
+        gamma = rnd(n).abs() + 0.5 if affine else None
+        shape = (f"R={rows} N={n} {dtype} "
+                 f"{'affine' if affine else 'plain'}").replace("torch.", "")
+        tol = f32_tol if dtype == torch.float32 else (2e-2, 2e-2)
+        y, rstd = norm.rmsnorm_fwd(x, gamma)
+        ry, rrstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
+        fwd = _agree("rmsnorm_fwd", y, ry, tol, shape)
+        _agree("rmsnorm_fwd (rstd)", rstd, rrstd, f32_tol, shape)
+        dx, dg = norm.rmsnorm_bwd(x, gamma, rstd, dy)
+        rdx, rdg = norm.rmsnorm_bwd_plain(x, gamma, rstd, dy)
+        bwd = _agree("rmsnorm_bwd (dx)", dx, rdx, tol, shape)
+        if affine:
+            # dgamma: f32 sums over the rows in another order
+            row = _agree("rmsnorm_bwd (dgamma)", dg, rdg, (1e-3, 1e-4), shape)
+            bwd["max_abs_err"] = max(bwd["max_abs_err"], row["max_abs_err"])
+            if not torch.equal(norm.rmsnorm_bwd(x, gamma, rstd, dy)[1], dg):
+                raise AssertionError("rmsnorm_bwd: dgamma differs between "
+                                     "two runs")
+        return fwd, bwd, (x, gamma, rstd, dy)
+
+    r, n = TRAIN["batch"] * TRAIN["seq"], TRAIN["hidden"]
+    worst = {"rmsnorm_fwd": 0.0, "rmsnorm_bwd": 0.0}
+    edges = []
+    for rows, cols in ((r, n), (37, 300), (4095, 1000), (1, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for affine in (True, False):
+                fwd, bwd, args = rms_case(rows, cols, dtype, affine)
+                worst["rmsnorm_fwd"] = max(worst["rmsnorm_fwd"],
+                                           fwd["max_abs_err"])
+                worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"],
+                                           bwd["max_abs_err"])
+                if (rows, cols) != (r, n):
+                    edges.append(fwd["shape"])
+                elif dtype == torch.bfloat16 and affine:
+                    timed = (fwd, bwd, args)
+    fwd, bwd, (x, gamma, rstd, dy) = timed
+    esz = x.element_size()
+    g16 = gamma.to(x.dtype)
+    xg = x.detach().requires_grad_()
+    wg = g16.detach().requires_grad_()
+    lib_out = F.rms_norm(xg, (n,), wg, 1e-6)
+    fwd_bound = _bound(2 * r * n * esz + n * 4 + r * 4, 4 * r * n,
+                       "bfloat16")
+    bwd_bound = _bound(3 * r * n * esz + 2 * n * 4 + r * 4, 8 * r * n,
+                       "bfloat16")
+    fwd.update(
+        max_abs_err=worst["rmsnorm_fwd"], edge_shapes=edges,
+        ms=_time_ms(torch, lambda: norm.rmsnorm_fwd(x, gamma)),
+        plain_ms=_time_ms(torch, lambda: norm.rmsnorm_fwd_plain(
+            x, gamma, 1e-6)),
+        library_ms=_time_ms(torch, lambda: F.rms_norm(x, (n,), g16, 1e-6)),
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+        library="F.rms_norm (bf16 weight)")
+    table["rmsnorm_fwd"] = fwd
+    bwd.update(
+        max_abs_err=worst["rmsnorm_bwd"], edge_shapes=edges,
+        ms=_time_ms(torch, lambda: norm.rmsnorm_bwd(x, gamma, rstd, dy)),
+        plain_ms=_time_ms(torch, lambda: norm.rmsnorm_bwd_plain(
+            x, gamma, rstd, dy)),
+        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (xg, wg), dy, retain_graph=True)),
+        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+        library="F.rms_norm's backward through autograd (bf16 weight)",
+        ms_includes="2 launches (rows, then the dgamma column sums)")
+    table["rmsnorm_bwd"] = bwd
+    del lib_out, xg, wg
+
+    def reduce_case(x, kind):
+        out = reduction.reduce(x, kind)
+        ref = reduction.reduce_plain(x, kind)
+        shape = f"n={x.numel()} {x.dtype} {kind}".replace("torch.", "")
+        err = abs(float(out) - float(ref)) if x.numel() or kind != "max" \
+            else 0.0
+        if kind == "max":
+            ok = torch.equal(out, ref)
+            tol = "exact"
+        else:
+            lim = 1e-6 * float(x.float().abs().sum())
+            ok = err <= lim
+            tol = f"|err| <= 1e-6 * sum|x| = {lim}"
+        if not ok or out.dtype != torch.float32 or out.shape != ():
+            raise AssertionError(f"reduce disagrees with its plain version "
+                                 f"at {shape}: {float(out)} vs {float(ref)}")
+        if not torch.equal(reduction.reduce(x, kind), out):
+            raise AssertionError(f"reduce: {shape} differs between two runs")
+        return {"shape": shape, "max_abs_err": err, "tolerance": tol}
+
+    rows = []
+    for numel in (4096, 0, 1, 4097, 1000003):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd(numel).to(dtype)
+            for kind in ("sum", "mean", "max"):
+                rows.append(reduce_case(x, kind))
+                if numel > 1:  # off the 16-byte boundary: scalar loads
+                    rows.append(reduce_case(x[1:], kind))
+    # the loss's (b, l, 1) log-likelihoods and the accuracy's (b, l) hits
+    ll = -(rnd(TRAIN["batch"], TRAIN["seq"], 1).abs())
+    big = rnd(2 ** 26)
+    for kind in ("sum", "max"):
+        rows.append(reduce_case(big, kind))
+    red = dict(reduce_case(ll, "mean"))
+    red.update(
+        max_abs_err=max(row["max_abs_err"] for row in rows),
+        checked=[row["shape"] for row in rows],
+        ms=_time_ms(torch, lambda: reduction.reduce(ll, "mean")),
+        plain_ms=_time_ms(torch, lambda: reduction.reduce_plain(ll, "mean")),
+        library_ms=_time_ms(torch, lambda: torch.sum(ll)),
+        bound_ms=_bound(ll.numel() * 4 + 4, ll.numel(), "float32")[0],
+        bound_by="bytes", library="torch.sum",
+        ms_includes="2 launches (block partials, then their sum)",
+        note="4096 elements: launch latency rules")
+    large = {}
+    for kind, lib in (("sum", torch.sum), ("max", torch.amax)):
+        b_ms, by = _bound(big.numel() * 4 + 4, big.numel(), "float32")
+        large[kind] = dict(
+            ms=_time_ms(torch, lambda: reduction.reduce(big, kind)),
+            plain_ms=_time_ms(torch, lambda: reduction.reduce_plain(big,
+                                                                    kind)),
+            library_ms=_time_ms(torch, lambda: lib(big)),
+            bound_ms=b_ms, bound_by=by,
+            library=f"torch.{lib.__name__}")
+    red["at_2^26_f32"] = large
+    table["reduce"] = red
+    del big
+    return table
+
+
 def _cls_margins(torch, model, x):
     """The classifier's logit gap z1 - z0 per token (min, mean, max) and
     the smallest and largest output probability, through the inference
@@ -426,6 +595,7 @@ def phase_train(torch, warmup=3, steps=10):
         reset_launch_counts
     from flexflow_tpu_torch.tools.train_profile import build_bench_model
 
+    selected_before = _selections(TRAIN_FAMILIES)
     t0 = time.perf_counter()
     model = build_bench_model("cuda", TRAIN["layers"], True, 0)
     build_s = time.perf_counter() - t0
@@ -447,10 +617,19 @@ def phase_train(torch, warmup=3, steps=10):
     losses = [r["loss"] for r in warm + hist]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the training "
-                             f"path: {missing}")
+    wrong = {k: launches[k] / steps for k, n in TRAIN_PER_STEP.items()
+             if launches[k] != n * steps}
+    if wrong:
+        raise AssertionError(f"training path launches per step {wrong}, "
+                             f"expected {TRAIN_PER_STEP}")
+    # the registry's auto policy chose the kernels, and never a reference
+    # lowering, on the card
+    selected = {k: v - selected_before[k]
+                for k, v in _selections(TRAIN_FAMILIES).items()}
+    if any(selected[(f, "pallas")] <= 0 or selected[(f, "reference")] != 0
+           for f in TRAIN_FAMILIES):
+        raise AssertionError(f"kernel registry selections on the training "
+                             f"path: {selected}")
     step_ms = np.array([r["step_ms"] for r in hist])
     flops = train_step_flops(**TRAIN)
     med_s = float(np.median(step_ms)) / 1e3
@@ -467,8 +646,22 @@ def phase_train(torch, warmup=3, steps=10):
         "cls_margins_before_after_step1": margins,
         "launches": launches,
         "launches_per_step": {k: launches[k] / steps for k in TRAIN_KERNELS},
+        "ff_kernel_selected_total": {f"{f}/{i}": v
+                                     for (f, i), v in selected.items()},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }, init
+
+
+def _selections(families):
+    """ff_kernel_selected_total by (family, impl)."""
+    from flexflow_tpu_torch.obs import REGISTRY
+
+    fam = REGISTRY.counter(
+        "ff_kernel_selected_total",
+        "Kernel-tier selections by op family and implementation",
+        labels=("op", "impl"))
+    return {(f, i): fam.value(op=f, impl=i) for f in families
+            for i in ("pallas", "reference")}
 
 
 def phase_train_witness(torch, init, bf16_losses, steps=3):
@@ -518,64 +711,208 @@ def phase_train_witness(torch, init, bf16_losses, steps=3):
                          "2e-2 |cpu_f32| (card_bf16), each step"}
 
 
+def _cross_batch():
+    import numpy as np
+
+    rng = np.random.RandomState(5)
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+    x = rng.randint(0, TRAIN["vocab"], size=(b, seq)).astype(np.int32)
+    y = rng.randint(0, 2, size=(b, seq, 1)).astype(np.int32)
+    return x, y
+
+
+def _two_steps(torch, m, x, y, layers):
+    """Loss and six gradient norms of two steps of model `m`, one Adam
+    update (bf16 moments) between them."""
+    gstep = m.executor.build_grad_metrics_step(m.loss.fn, m.metrics,
+                                               m.final_tensor)
+    inputs = {m.input_ops[0].name: torch.from_numpy(x).to(m.device)}
+    label = torch.from_numpy(y).to(m.device)
+    out = []
+    for step in (1, 2):
+        grads, mvals = gstep(inputs, label)
+        norms = {f"{op}/{w}": float(grads[op][w].float().norm())
+                 for op, w in (("tok_emb", "weight"),
+                               ("layer0_attn", "wq"),
+                               ("layer0_attn", "wv"),
+                               ("layer0_ln1", "gamma"),
+                               (f"layer{layers - 1}_ln2", "beta"),
+                               ("cls", "kernel"))}
+        out.append({"step": step, "loss": float(mvals["loss"]),
+                    "grad_norms": norms})
+        if step == 1:
+            m.optimizer.update(m.executor.parameters(), grads, m.opt_state)
+    return out
+
+
+def _compare_steps(phase, got, want, names, tol):
+    """Worst relative difference of loss and norms, step by step; raises
+    past `tol` or on a non-finite value."""
+    import numpy as np
+
+    worst = 0.0
+    for a_rec, b_rec in zip(got, want):
+        checks = {"loss": (a_rec["loss"], b_rec["loss"])}
+        checks.update({k: (v, b_rec["grad_norms"][k])
+                       for k, v in a_rec["grad_norms"].items()})
+        for k, (a, c) in checks.items():
+            if not np.isfinite(a):
+                raise AssertionError(f"{phase}: non-finite {k} ({names[0]}) "
+                                     f"at step {a_rec['step']}")
+            rel = abs(a - c) / max(abs(c), 1e-30)
+            worst = max(worst, rel)
+            if rel > tol:
+                raise AssertionError(
+                    f"{phase}: step {a_rec['step']} {k} {names[0]} {a} vs "
+                    f"{names[1]} {c} (relative {rel})")
+    return worst
+
+
 def phase_train_cross(torch, layers=2):
     """Loss and gradient norms of the first two steps, card vs CPU, f32,
     same weights and batch; between them one Adam update (bf16 moments)
-    on each side."""
-    import numpy as np
-
+    on each side. Each side under auto: the kernels on the card, the
+    reference lowerings on the CPU."""
     from flexflow_tpu_torch.tools.train_profile import build_bench_model
 
     gpu = build_bench_model("cuda", layers, False, 1)
     cpu = build_bench_model("cpu", layers, False, 2)
     cpu.load_params({op: {w: t.cpu() for w, t in ws.items()}
                      for op, ws in gpu.params.items()})
-    rng = np.random.RandomState(5)
-    b, seq = TRAIN["batch"], TRAIN["seq"]
-    x = rng.randint(0, TRAIN["vocab"], size=(b, seq)).astype(np.int32)
-    y = rng.randint(0, 2, size=(b, seq, 1)).astype(np.int32)
+    x, y = _cross_batch()
     out = {}
     for name, m in (("card", gpu), ("cpu", cpu)):
-        gstep = m.executor.build_grad_metrics_step(m.loss.fn, m.metrics,
-                                                   m.final_tensor)
-        inputs = {m.input_ops[0].name: torch.from_numpy(x).to(m.device)}
-        label = torch.from_numpy(y).to(m.device)
-        out[name] = []
-        for step in (1, 2):
-            grads, mvals = gstep(inputs, label)
-            norms = {f"{op}/{w}": float(grads[op][w].float().norm())
-                     for op, w in (("tok_emb", "weight"),
-                                   ("layer0_attn", "wq"),
-                                   ("layer0_attn", "wv"),
-                                   ("layer0_ln1", "gamma"),
-                                   (f"layer{layers - 1}_ln2", "beta"),
-                                   ("cls", "kernel"))}
-            out[name].append({"step": step, "loss": float(mvals["loss"]),
-                              "grad_norms": norms})
-            if step == 1:
-                m.optimizer.update(m.executor.parameters(), grads,
-                                   m.opt_state)
-    worst = 0.0
-    for card, host in zip(out["card"], out["cpu"]):
-        checks = {"loss": (card["loss"], host["loss"])}
-        checks.update({k: (v, host["grad_norms"][k])
-                       for k, v in card["grad_norms"].items()})
-        for k, (a, c) in checks.items():
-            if not np.isfinite(a):
-                raise AssertionError(f"train-cross: non-finite {k} on the "
-                                     f"card at step {card['step']}")
-            rel = abs(a - c) / max(abs(c), 1e-30)
-            worst = max(worst, rel)
-            if rel > 1e-3:
-                raise AssertionError(
-                    f"train-cross: step {card['step']} {k} card {a} vs cpu "
-                    f"{c} (relative {rel})")
+        out[name] = _two_steps(torch, m, x, y, layers)
+    worst = _compare_steps("train-cross", out["card"], out["cpu"],
+                           ("card", "cpu"), 1e-3)
     return {"phase": "train-cross", "layers": layers, "dtype": "float32",
             "optimizer": "Adam alpha 1e-4, bf16 moments",
             "card": out["card"], "cpu": out["cpu"],
             "max_relative_diff": worst,
             "tolerance": "|card - cpu| <= 1e-3 |cpu| (loss and each norm, "
                          "steps 1 and 2)"}
+
+
+def phase_ref_vs_kernel(torch, layers=2):
+    """The flagship at `layers` layers, f32, on the card: two steps (one
+    Adam update between) under kernel_impl="pallas" — flash attention,
+    the CUDA LayerNorm, softmax and reduction — and under "reference" —
+    the einsum core and the reference lowerings — from the same weights
+    and batch. Each model is compiled just before its steps: the loss
+    reduction reads the knob of the last compile."""
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    x, y = _cross_batch()
+    out, launches = {}, {}
+    for impl in ("pallas", "reference"):
+        m = build_bench_model("cuda", layers, False, 1, kernel_impl=impl)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out[impl] = _two_steps(torch, m, x, y, layers)
+        torch.cuda.synchronize()
+        launches[impl] = launch_counts()
+        del m
+    missing = [k for k in TRAIN_KERNELS if launches["pallas"][k] == 0]
+    ran = {k: n for k, n in launches["reference"].items() if n}
+    if missing or ran:
+        raise AssertionError(f"ref-vs-kernel: kernels not launched under "
+                             f"pallas {missing}, launched under reference "
+                             f"{ran}")
+    worst = _compare_steps("ref-vs-kernel", out["pallas"], out["reference"],
+                           ("pallas", "reference"), 1e-3)
+    return {"phase": "ref-vs-kernel", "layers": layers, "dtype": "float32",
+            "optimizer": "Adam alpha 1e-4, bf16 moments",
+            "pallas": out["pallas"], "reference": out["reference"],
+            "launches_pallas": launches["pallas"],
+            "max_relative_diff": worst,
+            "tolerance": "|pallas - reference| <= 1e-3 |reference| (loss "
+                         "and each norm, steps 1 and 2)"}
+
+
+def _tier_model(torch, device, mixed, kernel_impl):
+    """The JAX package's kernel-tier graph (tests/test_pallas_kernels.py
+    `_tiny_model`) at the flagship's norm shape: (8, 512, 1024) ->
+    layer_norm -> rms_norm -> dense(10) -> softmax; sparse CE, accuracy,
+    SGD lr 0.05; weights from torch.Generator().manual_seed(0)."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
+                                    MetricsType, SGDOptimizer)
+
+    b, seq, hidden = TRAIN["batch"], TRAIN["seq"], TRAIN["hidden"]
+    m = FFModel(FFConfig(batch_size=b, allow_mixed_precision=mixed,
+                         device=device, kernel_impl=kernel_impl))
+    t = m.create_tensor([b, seq, hidden])
+    t = m.layer_norm(t, [-1], name="ln")
+    t = m.rms_norm(t, [-1], name="rms")
+    m.softmax(m.dense(t, 10, name="cls"))
+    m.compile(optimizer=SGDOptimizer(m, lr=0.05),
+              loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              metrics=[MetricsType.METRICS_ACCURACY],
+              generator=torch.Generator().manual_seed(0))
+    return m
+
+
+def phase_tier(torch, steps=3):
+    """The kernel-tier graph for `steps` fit steps (one batch each, data
+    from RandomState(8)): on the card in bf16 under kernel_impl="pallas"
+    and "reference", and on the CPU in f32 (the witness). Launches per
+    step under pallas exactly TIER_PER_STEP, none under reference; losses
+    within 2e-2 relative of each other and of the witness at every step."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+
+    rng = np.random.RandomState(8)
+    b = TRAIN["batch"]
+    x = rng.randn(steps * b, TRAIN["seq"], TRAIN["hidden"]).astype(
+        np.float32)
+    y = rng.randint(0, 10, size=(steps * b, TRAIN["seq"], 1)).astype(
+        np.int32)
+    out = {}
+    for name, device, mixed, impl in (
+            ("card_pallas_bf16", "cuda", True, "pallas"),
+            ("card_reference_bf16", "cuda", True, "reference"),
+            ("cpu_f32", "cpu", False, "auto")):
+        m = _tier_model(torch, device, mixed, impl)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = m.fit(x, y, batch_size=b, epochs=1)
+        torch.cuda.synchronize()
+        out[name] = {"losses": [r["loss"] for r in hist],
+                     "accuracy": [r["accuracy"] for r in hist],
+                     "launches": launch_counts(),
+                     "seconds": time.perf_counter() - t0}
+        del m
+    got = out["card_pallas_bf16"]["launches"]
+    wrong = {k: got[k] for k, n in TIER_PER_STEP.items()
+             if got[k] != n * steps}
+    extra = {k: n for k, n in got.items() if n and k not in TIER_PER_STEP}
+    ran = {k: n for k, n in out["card_reference_bf16"]["launches"].items()
+           if n}
+    if wrong or extra or ran:
+        raise AssertionError(f"tier: launches under pallas {wrong} {extra} "
+                             f"(expected {TIER_PER_STEP} per step), under "
+                             f"reference {ran}")
+    worst = {}
+    for a, c in (("card_pallas_bf16", "card_reference_bf16"),
+                 ("card_pallas_bf16", "cpu_f32"),
+                 ("card_reference_bf16", "cpu_f32")):
+        rels = [abs(p - q) / abs(q) for p, q in zip(out[a]["losses"],
+                                                      out[c]["losses"])]
+        worst[f"{a} vs {c}"] = max(rels)
+        if len(rels) != steps or not all(np.isfinite(out[a]["losses"])) \
+                or max(rels) > 2e-2:
+            raise AssertionError(f"tier: losses {a} {out[a]['losses']} vs "
+                                 f"{c} {out[c]['losses']}")
+    return {"phase": "tier", "shape": [b, TRAIN["seq"], TRAIN["hidden"]],
+            "steps": steps, **out,
+            "launches_per_step_pallas": {k: got[k] / steps
+                                         for k in TIER_PER_STEP},
+            "max_relative_diff": worst,
+            "tolerance": "|loss - other| <= 2e-2 |other| at every step"}
 
 
 def _prefill_probs(torch, model, prompt, chunk, max_len):
@@ -736,9 +1073,15 @@ def main() -> int:
     _emit(dict(phase_train_cross(torch),
                seconds_since_start=time.perf_counter() - t_start))
 
-    # 9) the kernel table, the card, the result. A kernel's launches are
-    # those of the path(s) that run it (serve, train), each counted from 0
-    # just before its path ran
+    # 9) tier, 10) ref-vs-kernel
+    tier = phase_tier(torch)
+    _emit(dict(tier, seconds_since_start=time.perf_counter() - t_start))
+    _emit(dict(phase_ref_vs_kernel(torch),
+               seconds_since_start=time.perf_counter() - t_start))
+
+    # 11) the kernel table, the card, the result. A kernel's launches are
+    # those of the path(s) that run it (serve, train, tier), each counted
+    # from 0 just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:115",
@@ -750,11 +1093,15 @@ def main() -> int:
         "flash_bwd": "flexflow_tpu/kernels/flash_attention.py:412",
         "layernorm_bwd": "flexflow_tpu/kernels/pallas/norm.py:130",
         "softmax_bwd": "flexflow_tpu/kernels/pallas/norm.py:369",
+        "rmsnorm_fwd": "flexflow_tpu/kernels/pallas/norm.py:251",
+        "rmsnorm_bwd": "flexflow_tpu/kernels/pallas/norm.py:274",
+        "reduce": "flexflow_tpu/kernels/pallas/reduction.py:52",
     }
     sources = {"decode_attention": src + "decode_attention.cu",
                "multiquery_decode_attention": src + "decode_attention.cu",
                "flash_fwd": src + "flash_attention.cu",
-               "flash_bwd": src + "flash_attention.cu"}
+               "flash_bwd": src + "flash_attention.cu",
+               "reduce": src + "reduction.cu"}
     kernels = []
     for name in replaces:
         by_path = {}
@@ -762,6 +1109,8 @@ def main() -> int:
             by_path["serve"] = launches[name]
         if name in TRAIN_KERNELS:
             by_path["train"] = train["launches"][name]
+        if name in TIER_KERNELS:
+            by_path["tier"] = tier["card_pallas_bf16"]["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=sources.get(name, src + "norm.cu"),
             replaces=replaces[name], launches=sum(by_path.values()),

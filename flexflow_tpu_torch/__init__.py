@@ -3,16 +3,21 @@ Hopper (H100).
 
 flexflow_tpu (JAX on a TPU) stays the reference; this package imports
 torch, never jax, and nothing of flexflow_tpu. The port goes slice by
-slice (ROADMAP.md). Two slices are ported: continuous-batching serving of
-a causal transformer LM (the executor's KV-cache decode walk, the paged
-KV pool, admission and the continuous batcher) and the single-device
+slice (ROADMAP.md). Three slices are ported: continuous-batching serving
+of a causal transformer LM (the executor's KV-cache decode walk, the
+paged KV pool, admission and the continuous batcher), the single-device
 training step of the flagship BERT encoder (compile, fit and eval with
-SGD or Adam on autograd), over hand-written CUDA kernels (kernels/,
-csrc/): decode attention, flash attention forward and backward, and
-LayerNorm and softmax forward and backward.
+SGD or Adam on autograd), and the kernel tier's selection path (the
+kernel registry, `FFConfig.kernel_impl`, the ops' reference lowerings,
+RMSNorm, the losses), over hand-written CUDA kernels (kernels/, csrc/):
+decode attention, flash attention forward and backward, LayerNorm,
+RMSNorm and softmax forward and backward, and the scalar reduction.
 
 Entry points run on `FFConfig.device`, "cuda" unless the caller passes
-"cpu"; on the CPU every kernel wrapper runs its plain PyTorch version.
+"cpu". The kernel registry (kernels/registry.py) runs the kernels on a
+Hopper card and the ops' reference lowerings on the CPU; forced to the
+kernel tier on the CPU, every kernel wrapper runs its plain PyTorch
+version.
 """
 from .config import FFConfig
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,

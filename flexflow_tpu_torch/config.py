@@ -1,5 +1,4 @@
-"""Runtime configuration: the FFConfig fields the serving and training
-slices read.
+"""Runtime configuration: the FFConfig fields the ported slices read.
 
 Counterpart of flexflow_tpu/config.py FFConfig. The search and mesh flags
 arrive with their slices; `device` is new — the port runs on one explicit
@@ -8,6 +7,7 @@ torch device, CUDA unless the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass
@@ -25,3 +25,44 @@ class FFConfig:
     flash_block_q: int = 512
     flash_block_k: int = 512
     device: str = "cuda"
+    # kernel tier (kernels/registry.py): auto, pallas (the CUDA kernels),
+    # reference, or family=impl[,...]
+    kernel_impl: str = "auto"
+
+    def parse_args(self, argv: Sequence[str]) -> None:
+        """Set fields from the JAX package's flag spellings of the fields
+        the port has; any other flag raises ValueError naming it."""
+        args = list(argv)
+        i = 0
+
+        def take() -> str:
+            nonlocal i
+            i += 1
+            if i >= len(args):
+                raise ValueError(f"flag {args[i - 1]!r} requires a value")
+            return args[i]
+
+        while i < len(args):
+            a = args[i]
+            if a in ("-b", "--batch-size"):
+                self.batch_size = int(take())
+            elif a in ("-e", "--epochs"):
+                self.epochs = int(take())
+            elif a in ("--lr", "--learning-rate"):
+                self.learning_rate = float(take())
+            elif a == "--flash-block-q":
+                self.flash_block_q = int(take())
+            elif a == "--flash-block-k":
+                self.flash_block_k = int(take())
+            elif a == "--kernel-impl":
+                v = take()
+                from .kernels.registry import KernelRegistry
+
+                KernelRegistry.parse_spec(v)  # raises on a bad spec
+                self.kernel_impl = v
+            else:
+                raise ValueError(f"flag {a!r} is not ported (flags: "
+                                 "--batch-size, --epochs, --learning-rate, "
+                                 "--flash-block-q, --flash-block-k, "
+                                 "--kernel-impl)")
+            i += 1

@@ -79,6 +79,9 @@ class Op(nn.Module):
         # step) bumps the version and the next read casts again
         self._cast: Dict[Tuple[str, torch.dtype],
                          Tuple[int, torch.Tensor]] = {}
+        # this op's kernel-tier choices, resolved once and kept until the
+        # registry changes (kernels/registry.py KernelRegistry.resolve)
+        self.kernel_memo: Dict[Any, Any] = {}
 
     # -- subclass API -----------------------------------------------------
     def output_shapes(self) -> Tuple[List[Tuple[int, ...]], List[DataType]]:

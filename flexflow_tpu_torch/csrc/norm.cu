@@ -13,6 +13,13 @@
 // sum over rows of dy * xhat and dbeta = sum of dy, in f32.
 // softmax_bwd replaces `_softmax_call` with `_softmax_bwd_kernel`: per row,
 // dx = y * (dy - sum(y * dy)) in y's dtype, the sum in f32.
+// rmsnorm_fwd replaces `_rms_fwd` (`_rms_fwd_kernel`): per row, f32
+// rstd = 1 / sqrt(mean(x^2) + eps), y = x * rstd [* gamma] in x's dtype,
+// plus the f32 rstd the backward needs.
+// rmsnorm_bwd replaces `_rms_bwd` (`_rms_bwd_kernel`): per row, with
+// xhat = x * rstd and g = dy * gamma (dy without affine),
+// dx = (g - xhat * mean(g * xhat)) * rstd in x's dtype; dgamma = sum over
+// rows of dy * xhat in f32.
 //
 // Bound on this card: bytes. Both read each element once and write it
 // once with a handful of operations per element.
@@ -32,7 +39,10 @@
 // adds the blocks' partial sums column by column in a fixed order — no
 // float atomics, so the sums are the same on every run. Softmax backward
 // gives each row one warp: at the classifier's N = 2 it is bound by launch
-// latency, not by bytes.
+// latency, not by bytes. RMSNorm is LayerNorm without the mean: its
+// forward holds the row in shared memory like layernorm_fwd, and its
+// backward takes layernorm_bwd's shape (kLnBwdRows rows a block, column
+// partials of dgamma, a second launch summing them in a fixed order).
 #include "common.cuh"
 
 namespace {
@@ -150,21 +160,22 @@ __global__ void __launch_bounds__(kLnThreads)
     }
 }
 
-// dgamma / dbeta: column c sums the P partial rows. Group y of the block
-// sums rows y, y + kReduceGroups, ... in order; then thread y = 0 adds the
-// groups in order — a fixed order, so every run gives the same bits.
+// dgamma (and dbeta, when db_part is given): column c sums the P partial
+// rows. Group y of the block sums rows y, y + kReduceGroups, ... in order;
+// then thread y = 0 adds the groups in order — a fixed order, so every run
+// gives the same bits.
 __global__ void __launch_bounds__(32 * kReduceGroups)
-    layernorm_bwd_reduce_kernel(const float* __restrict__ dg_part,
-                                const float* __restrict__ db_part, int P,
-                                int N, float* __restrict__ dg,
-                                float* __restrict__ db) {
+    column_sums_kernel(const float* __restrict__ dg_part,
+                       const float* __restrict__ db_part, int P, int N,
+                       float* __restrict__ dg, float* __restrict__ db) {
   __shared__ float sg[kReduceGroups][32], sb[kReduceGroups][32];
   const int c = blockIdx.x * 32 + threadIdx.x;
+  const bool two = db_part != nullptr;
   float a = 0.f, b = 0.f;
   if (c < N)
     for (int p = threadIdx.y; p < P; p += kReduceGroups) {
       a += dg_part[(size_t)p * N + c];
-      b += db_part[(size_t)p * N + c];
+      if (two) b += db_part[(size_t)p * N + c];
     }
   sg[threadIdx.y][threadIdx.x] = a;
   sb[threadIdx.y][threadIdx.x] = b;
@@ -176,7 +187,7 @@ __global__ void __launch_bounds__(32 * kReduceGroups)
       tb += sb[y][threadIdx.x];
     }
     dg[c] = ta;
-    db[c] = tb;
+    if (two) db[c] = tb;
   }
 }
 
@@ -195,6 +206,105 @@ __global__ void __launch_bounds__(kSoftmaxBwdThreads)
   T* dxr = dx + (size_t)row * N;
   for (int i = lane; i < N; i += 32)
     dxr[i] = from_f<T>(to_f(yr[i]) * (to_f(dyr[i]) - s));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+    rmsnorm_fwd_kernel(const T* __restrict__ x,
+                       const float* __restrict__ gamma, T* __restrict__ y,
+                       float* __restrict__ rstd_out, int N, float eps) {
+  extern __shared__ float row[];
+  __shared__ float red[32];
+  const size_t r = blockIdx.x;
+  const T* xr = x + r * N;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const float v = to_f(xr[i]);
+    row[i] = v;  // each thread rereads only the elements it wrote
+    s += v * v;
+  }
+  const float ms = block_reduce<false>(s, red) / N;
+  const float rstd = 1.f / sqrtf(ms + eps);
+  T* yr = y + r * N;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    float v = row[i] * rstd;
+    if (gamma != nullptr) v *= gamma[i];
+    yr[i] = from_f<T>(v);
+  }
+  if (threadIdx.x == 0) rstd_out[r] = rstd;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+    rmsnorm_bwd_kernel(const T* __restrict__ x,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ rstd,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ dg_part, int R, int N) {
+  extern __shared__ float sm[];
+  float* xhat_s = sm;         // N
+  float* g_s = xhat_s + N;    // N
+  float* dg_s = g_s + N;      // N, affine only
+  __shared__ float red[32];
+  const bool affine = gamma != nullptr;
+  // as in layernorm_bwd_kernel, each thread touches only its own columns
+  if (affine)
+    for (int i = threadIdx.x; i < N; i += blockDim.x) dg_s[i] = 0.f;
+  const int r0 = blockIdx.x * kLnBwdRows;
+  const int r1 = min(R, r0 + kLnBwdRows);
+  for (int r = r0; r < r1; ++r) {
+    const T* xr = x + (size_t)r * N;
+    const T* dyr = dy + (size_t)r * N;
+    const float rs = rstd[r];
+    float s2 = 0.f;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      const float d = to_f(dyr[i]);
+      const float xh = to_f(xr[i]) * rs;
+      const float g = affine ? d * gamma[i] : d;
+      xhat_s[i] = xh;
+      g_s[i] = g;
+      s2 += g * xh;
+      if (affine) dg_s[i] += d * xh;
+    }
+    const float m2 = block_reduce<false>(s2, red) / N;
+    T* dxr = dx + (size_t)r * N;
+    for (int i = threadIdx.x; i < N; i += blockDim.x)
+      dxr[i] = from_f<T>((g_s[i] - xhat_s[i] * m2) * rs);
+  }
+  if (affine)
+    for (int i = threadIdx.x; i < N; i += blockDim.x)
+      dg_part[(size_t)blockIdx.x * N + i] = dg_s[i];
+}
+
+template <typename T>
+int launch_rmsnorm(const void* x, const float* gamma, void* y, float* rstd,
+                   int R, int N, float eps, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)N;
+  auto kernel = rmsnorm_fwd_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<R, kLnThreads, smem, stream>>>(static_cast<const T*>(x), gamma,
+                                          static_cast<T*>(y), rstd, N, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rmsnorm_bwd(const void* x, const float* gamma, const float* rstd,
+                       const void* dy, void* dx, float* dg_part, float* dg,
+                       int R, int N, cudaStream_t stream) {
+  const int blocks = (R + kLnBwdRows - 1) / kLnBwdRows;
+  const size_t smem = sizeof(float) * (size_t)N * (gamma != nullptr ? 3 : 2);
+  auto kernel = rmsnorm_bwd_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kLnThreads, smem, stream>>>(
+      static_cast<const T*>(x), gamma, rstd, static_cast<const T*>(dy),
+      static_cast<T*>(dx), dg_part, R, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || gamma == nullptr) return (int)err;
+  column_sums_kernel<<<(N + 31) / 32, dim3(32, kReduceGroups), 0, stream>>>(
+      dg_part, nullptr, blocks, N, dg, nullptr);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -233,9 +343,8 @@ int launch_layernorm_bwd(const void* x, const float* gamma, const float* mean,
       static_cast<T*>(dx), dg_part, db_part, R, N);
   err = cudaGetLastError();
   if (err != cudaSuccess || gamma == nullptr) return (int)err;
-  layernorm_bwd_reduce_kernel<<<(N + 31) / 32, dim3(32, kReduceGroups), 0,
-                                stream>>>(dg_part, db_part, blocks, N, dg,
-                                          db);
+  column_sums_kernel<<<(N + 31) / 32, dim3(32, kReduceGroups), 0, stream>>>(
+      dg_part, db_part, blocks, N, dg, db);
   return (int)cudaGetLastError();
 }
 
@@ -298,6 +407,31 @@ extern "C" int ff_softmax_fwd(const void* x, void* y, int R, int N, int dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32) return launch_softmax<float>(x, y, R, N, s);
   if (dtype == FF_BF16) return launch_softmax<__nv_bfloat16>(x, y, R, N, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ff_rmsnorm_fwd(const void* x, const float* gamma, void* y,
+                              float* rstd, int R, int N, float eps, int dtype,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == FF_F32)
+    return launch_rmsnorm<float>(x, gamma, y, rstd, R, N, eps, s);
+  if (dtype == FF_BF16)
+    return launch_rmsnorm<__nv_bfloat16>(x, gamma, y, rstd, R, N, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ff_rmsnorm_bwd(const void* x, const float* gamma,
+                              const float* rstd, const void* dy, void* dx,
+                              float* dg_part, float* dg, int R, int N,
+                              int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == FF_F32)
+    return launch_rmsnorm_bwd<float>(x, gamma, rstd, dy, dx, dg_part, dg, R,
+                                     N, s);
+  if (dtype == FF_BF16)
+    return launch_rmsnorm_bwd<__nv_bfloat16>(x, gamma, rstd, dy, dx, dg_part,
+                                             dg, R, N, s);
   return (int)cudaErrorInvalidValue;
 }
 

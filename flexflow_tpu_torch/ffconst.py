@@ -1,4 +1,4 @@
-"""Framework-wide enums, the subset the serving and training slices use.
+"""Framework-wide enums, the subset the ported slices use.
 
 Mirrors flexflow_tpu/ffconst.py: the same member names and values, so a
 graph built in either package names its ops and dtypes the same way. The
@@ -61,6 +61,7 @@ class OpType(enum.Enum):
     LINEAR = "linear"
     SOFTMAX = "softmax"
     LAYERNORM = "layernorm"
+    RMSNORM = "rmsnorm"
     EMBEDDING = "embedding"
     EW_ADD = "ew_add"
     MULTIHEAD_ATTENTION = "multihead_attention"

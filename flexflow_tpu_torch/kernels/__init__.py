@@ -1,17 +1,20 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 decode.py: decode attention (C = 1 and the multi-query chunk entry);
-norm.py: LayerNorm and softmax, forward and backward; flash_attention.py:
-flash attention forward and backward on packed heads. `_build.py`
-compiles csrc/ into one library at first use.
+norm.py: LayerNorm, RMSNorm and softmax, forward and backward;
+flash_attention.py: flash attention forward and backward on packed
+heads; reduction.py: the scalar sum / mean / max. `_build.py` compiles
+csrc/ into one library at first use; registry.py selects, per op family,
+between these kernels and the ops' reference lowerings.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import decode, flash_attention, norm
+from . import decode, flash_attention, norm, reduction
 
-_COUNTS = (decode.LAUNCHES, flash_attention.LAUNCHES, norm.LAUNCHES)
+_COUNTS = (decode.LAUNCHES, flash_attention.LAUNCHES, norm.LAUNCHES,
+           reduction.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -126,6 +126,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f,
                                  i, i, i, i, p]
     lib.ff_flash_bwd.restype = i
+    lib.ff_rmsnorm_fwd.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.ff_rmsnorm_fwd.restype = i
+    lib.ff_rmsnorm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.ff_rmsnorm_bwd.restype = i
+    lib.ff_reduce_blocks.argtypes = [ctypes.c_longlong]
+    lib.ff_reduce_blocks.restype = i
+    lib.ff_reduce.argtypes = [p, ctypes.c_longlong, i, i, p, p, i, p]
+    lib.ff_reduce.restype = i
     lib.ff_error_string.argtypes = [i]
     lib.ff_error_string.restype = ctypes.c_char_p
 

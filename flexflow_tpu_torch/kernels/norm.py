@@ -1,11 +1,13 @@
-"""LayerNorm and softmax, forward and backward: CUDA kernels, plain
-versions and the autograd Functions.
+"""LayerNorm, RMSNorm and softmax, forward and backward: CUDA kernels,
+plain versions and the autograd Functions.
 
 `layernorm_fwd` / `layernorm_bwd` replace flexflow_tpu/kernels/pallas/
-norm.py `_ln_fwd` / `_ln_bwd` (`fused_layernorm`); `softmax_fwd` /
-`softmax_bwd` replace `_softmax_call` with `_softmax_fwd_kernel` /
-`_softmax_bwd_kernel` (`fused_softmax`); `layernorm` and `softmax` are the
-differentiable ops, saving what the JAX custom VJPs save. All normalize
+norm.py `_ln_fwd` / `_ln_bwd` (`fused_layernorm`); `rmsnorm_fwd` /
+`rmsnorm_bwd` replace `_rms_fwd` / `_rms_bwd` (`fused_rmsnorm`);
+`softmax_fwd` / `softmax_bwd` replace `_softmax_call` with
+`_softmax_fwd_kernel` / `_softmax_bwd_kernel` (`fused_softmax`);
+`layernorm`, `rmsnorm` and `softmax` are the differentiable ops, saving
+what the JAX custom VJPs save. All normalize
 the trailing axis with leading dims flattened into rows, compute in f32
 and store in x's dtype. The kernels are csrc/norm.cu. On the card all
 are bound by bytes (one read and one write per element, a few operations
@@ -14,7 +16,8 @@ shuffles in f32, LayerNorm holding its row in shared memory, softmax
 looping over the 30522-wide vocabulary row and leaving the re-reads to
 L2. LayerNorm backward gives each block a few rows and sums dgamma and
 dbeta per block, then over blocks in a second launch in a fixed order;
-softmax backward gives each row a warp.
+softmax backward gives each row a warp. RMSNorm follows LayerNorm's two
+designs without the mean.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -30,9 +33,11 @@ from . import _build
 # kernel launches per wrapper (layernorm_bwd's two launches count once), a
 # plain count the serving and training paths are read by
 LAUNCHES: Dict[str, int] = {"layernorm_fwd": 0, "layernorm_bwd": 0,
+                            "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
                             "softmax_fwd": 0, "softmax_bwd": 0}
 # f32 floats of shared memory a layernorm_bwd block stages per column
-# (xhat, g, and the dgamma / dbeta partial sums): N <= 227 KB / 16 B
+# (xhat, g, and the dgamma / dbeta partial sums): N <= 227 KB / 16 B;
+# rmsnorm_bwd stages one sum fewer, the same bound keeps one rule
 MAX_BWD_COLS = 232448 // 16
 
 
@@ -73,6 +78,36 @@ def layernorm_bwd_plain(x, gamma, mean, rstd, dy):
         return dx, None, None
     return (dx, (d * xhat).sum(dim=0).to(gamma.dtype),
             d.sum(dim=0).to(gamma.dtype))
+
+
+def rmsnorm_fwd_plain(x, gamma, eps: float):
+    """(y, rstd): rstd = 1 / sqrt(mean(x^2) + eps) over the trailing axis
+    in f32, (R, 1); y = x * rstd [* gamma] in x.dtype — `_rms_fwd_kernel`'s
+    outputs."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    rstd = torch.rsqrt(torch.square(xf).mean(dim=1, keepdim=True) + eps)
+    y = xf * rstd
+    if gamma is not None:
+        y = y * gamma.float()
+    return y.to(x.dtype).reshape(x.shape), rstd
+
+
+def rmsnorm_bwd_plain(x, gamma, rstd, dy):
+    """(dx, dgamma), `_rms_bwd_kernel`'s math: with xhat = x * rstd and
+    g = dy * gamma, dx = (g - xhat * mean(g * xhat)) * rstd in x.dtype;
+    dgamma = sum(dy * xhat) over rows in f32, cast to gamma's dtype (None
+    without affine)."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    d = dy.reshape(-1, n).float()
+    xhat = xf * rstd
+    g = d * gamma.float() if gamma is not None else d
+    m2 = (g * xhat).mean(dim=1, keepdim=True)
+    dx = ((g - xhat * m2) * rstd).to(x.dtype).reshape(x.shape)
+    if gamma is None:
+        return dx, None
+    return dx, (d * xhat).sum(dim=0).to(gamma.dtype)
 
 
 def softmax_bwd_plain(y, dy):
@@ -137,6 +172,75 @@ def layernorm_fwd(x, gamma=None, beta=None, *, eps: float = 1e-5):
     return y, mean, rstd
 
 
+def _check_gamma(name, gamma, n):
+    if gamma is not None and (tuple(gamma.shape) != (n,)
+                              or gamma.dtype != torch.float32):
+        raise ValueError(f"{name}: gamma must be ({n},) float32, got "
+                         f"{tuple(gamma.shape)} {gamma.dtype}")
+
+
+def rmsnorm_fwd(x, gamma=None, *, eps: float = 1e-6):
+    """RMSNorm over the trailing axis: (y, rstd). gamma (N,) f32, or None
+    for no affine."""
+    _check_x("rmsnorm_fwd", x)
+    n = x.shape[-1]
+    _check_gamma("rmsnorm_fwd", gamma, n)
+    affine = [] if gamma is None else [gamma]
+    if not _on_card("rmsnorm_fwd", x, *affine):
+        return rmsnorm_fwd_plain(x, gamma, eps)
+    r = x.numel() // n
+    y = torch.empty_like(x)
+    rstd = torch.empty((r, 1), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.ff_rmsnorm_fwd(
+            x.data_ptr(), gamma.data_ptr() if affine else None, y.data_ptr(),
+            rstd.data_ptr(), r, n, float(eps), _build.DTYPE_CODES[x.dtype],
+            _build.stream_ptr(x.device))
+    _build.check(err, "rmsnorm_fwd")
+    LAUNCHES["rmsnorm_fwd"] += 1
+    return y, rstd
+
+
+def rmsnorm_bwd(x, gamma, rstd, dy):
+    """(dx, dgamma) of `rmsnorm_fwd(x, gamma)` for the cotangent dy; rstd
+    is the forward's (R, 1) f32 statistic. gamma None: no affine, dgamma
+    None."""
+    _check_x("rmsnorm_bwd", x)
+    n = x.shape[-1]
+    r = x.numel() // n
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"must match x {tuple(x.shape)} {x.dtype}")
+    if tuple(rstd.shape) != (r, 1) or rstd.dtype != torch.float32:
+        raise ValueError(f"rmsnorm_bwd: rstd must be ({r}, 1) float32, got "
+                         f"{tuple(rstd.shape)} {rstd.dtype}")
+    _check_gamma("rmsnorm_bwd", gamma, n)
+    affine = [] if gamma is None else [gamma]
+    if not _on_card("rmsnorm_bwd", x, rstd, dy, *affine):
+        return rmsnorm_bwd_plain(x, gamma, rstd, dy)
+    if n > MAX_BWD_COLS:
+        raise ValueError(f"rmsnorm_bwd: N={n} > {MAX_BWD_COLS}, the most "
+                         "a block stages in shared memory")
+    dx = torch.empty_like(x)
+    lib = _build.library()
+    dg = part = None
+    if affine:
+        blocks = -(-r // lib.ff_layernorm_bwd_rows_per_block())
+        part = torch.empty((blocks, n), dtype=torch.float32, device=x.device)
+        dg = torch.empty((n,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ff_rmsnorm_bwd(
+            x.data_ptr(), gamma.data_ptr() if affine else None,
+            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            part.data_ptr() if affine else None,
+            dg.data_ptr() if affine else None, r, n,
+            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+    _build.check(err, "rmsnorm_bwd")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dg
+
+
 def softmax_fwd(x):
     """softmax over the trailing axis (f32 max/exp/sum, result in x's
     dtype)."""
@@ -169,11 +273,8 @@ def layernorm_bwd(x, gamma, mean, rstd, dy):
         if tuple(t.shape) != (r, 1) or t.dtype != torch.float32:
             raise ValueError(f"layernorm_bwd: {tname} must be ({r}, 1) "
                              f"float32, got {tuple(t.shape)} {t.dtype}")
+    _check_gamma("layernorm_bwd", gamma, n)
     affine = [] if gamma is None else [gamma]
-    if gamma is not None and (tuple(gamma.shape) != (n,)
-                              or gamma.dtype != torch.float32):
-        raise ValueError(f"layernorm_bwd: gamma must be ({n},) float32, got "
-                         f"{tuple(gamma.shape)} {gamma.dtype}")
     if not _on_card("layernorm_bwd", x, mean, rstd, dy, *affine):
         return layernorm_bwd_plain(x, gamma, mean, rstd, dy)
     if n > MAX_BWD_COLS:
@@ -240,6 +341,23 @@ class _LayerNorm(torch.autograd.Function):
         return dx, dg, db, None
 
 
+class _RMSNorm(torch.autograd.Function):
+    """Saves (x, gamma, rstd), as `_fused_rms_affine_fwd`; gamma is None
+    without affine, as `_fused_rms_plain_fwd` saves (x, rstd)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        y, rstd = rmsnorm_fwd(x, gamma, eps=eps)
+        ctx.save_for_backward(x, gamma, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, rstd = ctx.saved_tensors
+        dx, dg = rmsnorm_bwd(x, gamma, rstd, g.contiguous())
+        return dx, dg, None
+
+
 class _Softmax(torch.autograd.Function):
     """Saves y, as `_fused_softmax_fwd`."""
 
@@ -261,6 +379,12 @@ def layernorm(x, gamma=None, beta=None, *, eps: float = 1e-5):
     if (gamma is None) != (beta is None):
         raise ValueError("gamma and beta must be given together")
     return _LayerNorm.apply(x, gamma, beta, float(eps))
+
+
+def rmsnorm(x, gamma=None, eps: float = 1e-6):
+    """Differentiable RMSNorm over the trailing axis through rmsnorm_fwd /
+    rmsnorm_bwd."""
+    return _RMSNorm.apply(x, gamma, float(eps))
 
 
 def softmax(x):

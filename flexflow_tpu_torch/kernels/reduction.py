@@ -1,0 +1,105 @@
+"""Scalar sum, mean or max of a whole array: the CUDA kernel, its plain
+version and the autograd Function.
+
+`reduce` replaces flexflow_tpu/kernels/pallas/reduction.py
+`_reduce_sum_or_max` (`_reduce_kernel`), and `fused_reduce` is the
+counterpart of the JAX `fused_reduce` with its custom VJP. x has any
+shape, f32 or bf16; the kernel reads the stored dtype and accumulates in
+f32, and the result is an f32 scalar. mean is sum / max(1, n); an empty
+x gives 0 for sum and mean and -inf for max. The kernel is
+csrc/reduction.cu: bound by bytes, one streaming pass of block partials
+and a finishing launch that adds them in a fixed order, with no atomics,
+so the loss is the same bits on every run.
+
+The gradient of sum and mean broadcasts the cotangent (divided by n for
+mean) in f32, cast to x's dtype, with no kernel, as the JAX VJP does.
+max is forward-only: its gradient raises TypeError.
+
+A wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import _build
+
+KINDS = {"sum": 0, "mean": 1, "max": 2}
+
+# kernel launches of `reduce` (its two launches count once), a plain
+# count the training path is read by
+LAUNCHES: Dict[str, int] = {"reduce": 0}
+
+
+def reduce_plain(x, kind: str):
+    """f32 scalar sum / mean / max of x, the JAX `_fused_reduce`'s math:
+    x cast to f32, summed (or maxed), mean divided by max(1, n)."""
+    xf = x.reshape(-1).float()
+    n = xf.numel()
+    if kind == "max":
+        if n == 0:
+            return torch.tensor(float("-inf"), device=x.device)
+        return xf.max()
+    s = xf.sum()
+    return s / max(1, n) if kind == "mean" else s
+
+
+def _check(x, kind):
+    if kind not in KINDS:
+        raise ValueError(f"kind must be sum, mean or max, got {kind!r}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"reduce: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+
+
+def reduce(x, kind: str = "sum"):
+    """f32 scalar sum, mean or max of x (any shape)."""
+    _check(x, kind)
+    if x.device.type == "cpu":
+        return reduce_plain(x, kind)
+    if x.device.type != "cuda":
+        raise ValueError(f"reduce: no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("reduce: x must be contiguous")
+    lib = _build.library()
+    n = x.numel()
+    part = torch.empty((lib.ff_reduce_blocks(n),), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ff_reduce(x.data_ptr(), n, int(x.data_ptr() % 16 == 0),
+                            KINDS[kind], part.data_ptr(), out.data_ptr(),
+                            _build.DTYPE_CODES[x.dtype],
+                            _build.stream_ptr(x.device))
+    _build.check(err, "reduce")
+    LAUNCHES["reduce"] += 1
+    return out
+
+
+class _Reduce(torch.autograd.Function):
+    """Saves x's shape and dtype only, as the JAX VJP saves a zero-size
+    prototype."""
+
+    @staticmethod
+    def forward(ctx, x, kind):
+        ctx.kind, ctx.shape, ctx.dtype = kind, x.shape, x.dtype
+        return reduce(x, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.kind == "max":
+            raise TypeError("fused_reduce(kind='max') is forward-only; use "
+                            "the reference reduction for differentiable "
+                            "maxima")
+        n = 1
+        for d in ctx.shape:
+            n *= d
+        scale = g.float() / max(1, n) if ctx.kind == "mean" else g.float()
+        return scale.to(ctx.dtype).expand(ctx.shape), None
+
+
+def fused_reduce(x, kind: str = "sum"):
+    """Differentiable scalar reduction of x through `reduce`."""
+    return _Reduce.apply(x, kind)

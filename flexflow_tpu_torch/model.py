@@ -1,6 +1,5 @@
 """FFModel: the layer API, compile, fit and eval on one torch device
-(the subset of flexflow_tpu/model.py the serving and training slices
-use).
+(the subset of flexflow_tpu/model.py the ported slices use).
 
 Op names follow the JAX package's scheme (an explicit name, else
 `<op type>_<n>` per model), so the same builder code gives the same op
@@ -22,6 +21,7 @@ from .core.op import OP_REGISTRY, Op
 from .core.tensor import Tensor
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OpType)
+from .kernels.registry import KERNELS
 from .runtime.executor import Executor
 from .runtime.losses import Loss
 from .runtime.metrics import Metrics
@@ -97,6 +97,14 @@ class FFModel:
             OpType.LAYERNORM, [input], name, axes=tuple(axes),
             elementwise_affine=elementwise_affine, eps=eps).outputs[0]
 
+    def rms_norm(self, input: Tensor, axes: Sequence[int],
+                 elementwise_affine: bool = True, eps: float = 1e-6,
+                 name: str = "") -> Tensor:
+        axes = [a if a >= 0 else input.num_dims + a for a in axes]
+        return self._add_op(
+            OpType.RMSNORM, [input], name, axes=tuple(axes),
+            elementwise_affine=elementwise_affine, eps=eps).outputs[0]
+
     def softmax(self, input: Tensor, axis: int = -1,
                 name: str = "") -> Tensor:
         return self._add_op(OpType.SOFTMAX, [input], name,
@@ -116,16 +124,18 @@ class FFModel:
                             vdim: int = 0, dropout: float = 0.0,
                             bias: bool = True, causal: bool = False,
                             sequence_parallel: bool = False,
+                            use_flash: Optional[bool] = None,
                             kernel_initializer=None,
                             name: str = "") -> Tensor:
-        """The full-sequence path is the flash kernel (its plain version on
-        the CPU). dropout > 0 and sequence_parallel raise: neither is
-        ported."""
+        """use_flash: True / False force the full-sequence path to the
+        flash kernel / the einsum reference core; None leaves it to the
+        kernel registry. dropout > 0 and sequence_parallel raise: neither
+        is ported."""
         return self._add_op(
             OpType.MULTIHEAD_ATTENTION, [query, key, value], name,
             embed_dim=embed_dim, num_heads=num_heads, kdim=kdim or None,
             vdim=vdim or None, dropout=dropout, bias=bias, causal=causal,
-            sequence_parallel=sequence_parallel,
+            sequence_parallel=sequence_parallel, use_flash=use_flash,
             kernel_initializer=kernel_initializer).outputs[0]
 
     # -- compile ----------------------------------------------------------
@@ -153,6 +163,9 @@ class FFModel:
                 "(ROADMAP A8); the port runs one device")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        # the kernel tier: this model's --kernel-impl becomes the default
+        # of the config-less consumers (the loss and metric reductions)
+        KERNELS.configure(self.config)
         self.comp_mode = comp_mode
         training = comp_mode == CompMode.COMP_MODE_TRAINING
         self.graph = Graph(self.ops)

@@ -5,18 +5,29 @@ Weights keep the JAX package's names and layouts: wq/wk/wv (e, h, d),
 wo (h, d, e), bq/bk/bv (h, d), bo (e). Projections and the output
 projection are plain matmuls.
 
-Full sequence (training, and inference without caches): the JAX
-package's packed branch. q, k and v are projected with wq.reshape(e, h*d)
-in the compute dtype to (b, l, h*d) and run through the flash-attention
-kernel (kernels/flash_attention.py) in that layout, its backward a kernel
-too; the context goes through wo.reshape(h*d, e), is cast to the output's
-boundary dtype, and bo is added in that dtype. Attention dropout and
-sequence parallelism are not ported and raise.
+Every attention core is a kernel-tier family (kernels/registry.py), with
+the JAX package's einsum chain as its reference lowering.
 
-Decoding: the QK^T -> masked softmax -> V core runs through the port's
-decode-attention kernel (kernels/decode.py) over the caches the caller
-holds in `ctx.state[op name]`, updated in place. Two entries, as
-`_decode_step` in the JAX package:
+Full sequence (training, and inference without caches), family
+`attention`, selected by the op's `use_flash` param first: the kernel
+tier is the JAX package's packed branch. q, k and v are projected with
+wq.reshape(e, h*d) in the compute dtype to (b, l, h*d) and run through
+the flash-attention kernel (kernels/flash_attention.py) in that layout,
+its backward a kernel too. The reference is the einsum core: (b, l, h, d)
+projections, f32 logits times the scale, the causal mask
+tril(ones(lq, lk), lk - lq) with -1e30, an f32 softmax, the context
+product in the compute dtype, under autograd. Either way the context goes
+through wo, is cast to the output's boundary dtype, and bo is added in
+that dtype. Attention dropout and sequence parallelism are not ported and
+raise.
+
+Decoding: the caller holds the caches in `ctx.state[op name]`, updated in
+place. The QK^T -> masked softmax -> V core runs through the port's
+decode-attention kernel (kernels/decode.py; families `attention_decode`
+for C = 1 with a position vector, `attention_decode_mq` for a chunk
+offset) or, when the kernel is not selected, through the JAX package's
+einsum decode chain over the whole cache. Two entries, as `_decode_step`
+in the JAX package:
  - a (B,) int32 tensor of per-slot positions with one query token per
    slot: the continuous batcher's decode iteration;
  - an int chunk offset with C >= 1 query tokens: chunked prefill. The
@@ -37,8 +48,12 @@ from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import OpType
 from ..kernels.decode import decode_attention, multiquery_decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..kernels.registry import KERNELS, flash_crossover
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
 from .common import emit_dtype, matmul_dtype
+
+# score of a masked key, as the JAX package's einsum core and kernels
+NEG_INF = -1e30
 
 
 @register_op
@@ -120,19 +135,37 @@ class MultiHeadAttentionOp(Op):
         v = self._project(v_in, "wv", "bv", cdt)
         return [self._decode_step(ctx, q, k, v, 1.0 / math.sqrt(q.shape[-1]))]
 
+    def _use_flash(self, ctx, device) -> bool:
+        """The `attention` family through the registry: the op's use_flash
+        param first, then override and knob, then auto with the
+        score-bytes crossover as its size policy."""
+        def crossover() -> bool:
+            q, k = self.inputs[0], self.inputs[1]
+            return flash_crossover(q.dims[0], self.params["num_heads"],
+                                   q.dims[1], k.dims[1])
+
+        return bool(KERNELS.resolve(
+            self.kernel_memo, "attention", config=ctx.config, device=device,
+            param=self.params.get("use_flash"), heuristic=crossover))
+
     def _full_sequence(self, ctx, q_in, k_in, v_in):
-        """The JAX package's packed flash branch: (b, l, h*d) projections,
-        no transposes around the kernel."""
+        """The kernel tier: the JAX package's packed flash branch, (b, l,
+        h*d) projections with no transposes around the kernel. The
+        reference: its einsum core."""
         _, _, _, embed, heads, kdim, vdim = self._dims()
         cdt = matmul_dtype(ctx.config, q_in.dtype)
-        q = self._project(q_in, "wq", "bq", cdt).flatten(2)
-        k = self._project(k_in, "wk", "bk", cdt).flatten(2)
-        v = self._project(v_in, "wv", "bv", cdt).flatten(2)
-        ctxv = flash_attention(
-            q, k, v, heads, scale=1.0 / math.sqrt(kdim),
-            causal=self.params.get("causal", False),
-            block_q=ctx.config.flash_block_q,
-            block_k=ctx.config.flash_block_k)
+        q = self._project(q_in, "wq", "bq", cdt)
+        k = self._project(k_in, "wk", "bk", cdt)
+        v = self._project(v_in, "wv", "bv", cdt)
+        scale = 1.0 / math.sqrt(kdim)
+        causal = self.params.get("causal", False)
+        if self._use_flash(ctx, q_in.device):
+            ctxv = flash_attention(
+                q.flatten(2), k.flatten(2), v.flatten(2), heads, scale=scale,
+                causal=causal, block_q=ctx.config.flash_block_q,
+                block_k=ctx.config.flash_block_k)
+        else:
+            ctxv = self._einsum_core(q, k, v, scale, causal, cdt).flatten(2)
         odt = emit_dtype(ctx.config, self.outputs[0].dtype)
         out = torch.matmul(ctxv.to(cdt),
                            self.w("wo", cdt).reshape(heads * vdim, embed))
@@ -140,6 +173,21 @@ class MultiHeadAttentionOp(Op):
         if self.has_weight("bo"):
             out = out + self.w("bo", odt)
         return out
+
+    @staticmethod
+    def _einsum_core(q, k, v, scale, causal, cdt):
+        """The JAX package's reference core on (b, l, h, d): f32 logits
+        (the products of the compute-dtype values, summed in f32), the
+        causal mask, an f32 softmax, the context in the compute dtype."""
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+            * scale
+        if causal:
+            lq, lk = logits.shape[-2], logits.shape[-1]
+            mask = torch.ones((lq, lk), dtype=torch.bool,
+                              device=q.device).tril(lk - lq)
+            logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(cdt), v)
 
     def _decode_step(self, ctx, q, k, v, scale):
         """Write the new tokens' K/V rows into the caches, then attend:
@@ -149,7 +197,8 @@ class MultiHeadAttentionOp(Op):
         vc = ctx.state[self.name]["v_cache"]
         b, c = q.shape[0], q.shape[1]
         block_k = ctx.config.flash_block_k
-        if torch.is_tensor(pos):
+        vector = torch.is_tensor(pos)
+        if vector:
             if c != 1:
                 raise NotImplementedError(
                     f"{self.name}: per-slot positions with C={c} query "
@@ -159,16 +208,36 @@ class MultiHeadAttentionOp(Op):
             idx = pos.long()
             kc.index_put_((rows, idx), k[:, 0].to(kc.dtype))
             vc.index_put_((rows, idx), v[:, 0].to(vc.dtype))
-            ctxv = decode_attention(q, kc, vc, pos, scale=scale,
-                                    block_k=block_k)
+            if KERNELS.resolve(self.kernel_memo, "attention_decode",
+                               config=ctx.config, device=kc.device):
+                ctxv = decode_attention(q, kc, vc, pos, scale=scale,
+                                        block_k=block_k)
+                return self._decode_project(ctxv, q.dtype)
+            qpos = pos.long()[:, None]                       # (B, C)
         else:
             off = int(pos)
             n = min(c, kc.shape[1] - off)
             kc[:, off:off + n] = k[:, :n].to(kc.dtype)
             vc[:, off:off + n] = v[:, :n].to(vc.dtype)
-            posv = torch.full((b,), off, dtype=torch.int32, device=kc.device)
-            ctxv = multiquery_decode_attention(q, kc, vc, posv, scale=scale,
-                                               block_k=block_k)
+            if KERNELS.resolve(self.kernel_memo, "attention_decode_mq",
+                               config=ctx.config, device=kc.device):
+                posv = torch.full((b,), off, dtype=torch.int32,
+                                  device=kc.device)
+                ctxv = multiquery_decode_attention(q, kc, vc, posv,
+                                                   scale=scale,
+                                                   block_k=block_k)
+                return self._decode_project(ctxv, q.dtype)
+            qpos = off + torch.arange(c, device=kc.device)[None, :]
+        # the JAX package's einsum decode chain: query j attends cache rows
+        # <= its absolute position, over the whole cache
+        mask = (torch.arange(kc.shape[1], device=kc.device)[None, None, :]
+                <= qpos[:, :, None])[:, None]                # (B|1, 1, C, M)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              kc.to(q.dtype).float()) * scale
+        logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        ctxv = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype),
+                            vc.to(q.dtype))
         return self._decode_project(ctxv, q.dtype)
 
     def _decode_project(self, ctxv, cdt):

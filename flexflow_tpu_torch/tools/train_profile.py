@@ -26,11 +26,13 @@ BATCH, SEQ = 8, 512
 
 
 def build_bench_model(device: str = "cuda", layers: int = 12,
-                      mixed: bool = True, seed: int = 0):
+                      mixed: bool = True, seed: int = 0,
+                      kernel_impl: str = "auto"):
     """bench.py's flagship BERT encoder (`TransformerConfig()` widths, cut
     to `layers`), compiled for training with bench.py's optimizer (Adam,
     alpha 1e-4, bf16 moments) and accuracy, weights drawn from
-    `torch.Generator().manual_seed(seed)`."""
+    `torch.Generator().manual_seed(seed)`, ops selected by `kernel_impl`
+    (FFConfig.kernel_impl)."""
     import torch
 
     from .. import (AdamOptimizer, DataType, FFConfig, FFModel, LossType,
@@ -38,7 +40,7 @@ def build_bench_model(device: str = "cuda", layers: int = 12,
     from ..models import TransformerConfig, build_bert_encoder
 
     model = FFModel(FFConfig(batch_size=BATCH, allow_mixed_precision=mixed,
-                             device=device))
+                             device=device, kernel_impl=kernel_impl))
     tokens = model.create_tensor([BATCH, SEQ], DataType.DT_INT32)
     build_bert_encoder(model, tokens, TransformerConfig(num_layers=layers))
     model.compile(

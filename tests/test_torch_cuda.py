@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from flexflow_tpu_torch.kernels import decode, flash_attention, \
-    launch_counts, norm, reset_launch_counts
+    launch_counts, norm, reduction, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -204,6 +204,82 @@ def test_softmax_bwd_kernel_matches_plain(dev, dtype, n):
     _close(dx, norm.softmax_bwd_plain(y, dy),
            dict(atol=1e-6, rtol=1e-4) if dtype == torch.float32
            else dict(atol=1e-4, rtol=1e-2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(4096, 1024), (37, 300), (1, 20000)])
+@pytest.mark.parametrize("affine", [True, False])
+def test_rmsnorm_kernels_match_plain(dev, dtype, rows, n, affine):
+    g = torch.Generator(device=dev).manual_seed(rows + n + 7)
+    x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(dtype)
+    dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    gamma = torch.rand((n,), generator=g, device=dev) + 0.5 if affine \
+        else None
+    reset_launch_counts()
+    y, rstd = norm.rmsnorm_fwd(x, gamma)
+    ry, rrstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
+    assert y.dtype == dtype and rstd.shape == (rows, 1)
+    f32 = dtype == torch.float32
+    _close(y, ry, F32_TOL if f32 else dict(atol=2e-2, rtol=2e-2))
+    _close(rstd, rrstd, F32_TOL)
+    if n > norm.MAX_BWD_COLS:
+        return
+    dx, dg = norm.rmsnorm_bwd(x, gamma, rstd, dy)
+    rdx, rdg = norm.rmsnorm_bwd_plain(x, gamma, rstd, dy)
+    _close(dx, rdx, F32_TOL if f32 else dict(atol=2e-2, rtol=2e-2))
+    assert launch_counts()["rmsnorm_fwd"] == 1
+    assert launch_counts()["rmsnorm_bwd"] == 1
+    if affine:
+        # f32 sums over `rows` terms in another order
+        _close(dg, rdg, dict(atol=1e-3, rtol=1e-4))
+        assert torch.equal(norm.rmsnorm_bwd(x, gamma, rstd, dy)[1], dg)
+    else:
+        assert dg is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0, 1, 7, 4096, 1_000_003])
+@pytest.mark.parametrize("kind", ["sum", "mean", "max"])
+def test_reduce_kernel_matches_plain(dev, dtype, n, kind):
+    g = torch.Generator(device=dev).manual_seed(n + 11)
+    x = torch.randn((n,), generator=g, device=dev).to(dtype)
+    reset_launch_counts()
+    out = reduction.reduce(x, kind)
+    ref = reduction.reduce_plain(x, kind)
+    assert out.dtype == torch.float32 and out.shape == ()
+    assert launch_counts()["reduce"] == 1
+    if kind == "max":
+        assert torch.equal(out, ref)
+    else:
+        # f32 sums in another order
+        assert abs(float(out) - float(ref)) <= \
+            1e-6 * float(x.float().abs().sum()) + 1e-30
+    assert torch.equal(reduction.reduce(x, kind), out)
+    # a view off the 16-byte boundary takes the unvectorised loads
+    if n > 1:
+        tail = x[1:]
+        _close(reduction.reduce(tail, kind),
+               reduction.reduce_plain(tail, kind),
+               dict(atol=1e-6 * float(x.float().abs().sum()) + 1e-30,
+                    rtol=0))
+
+
+def test_reduce_autograd_on_card(dev):
+    x = torch.randn((3, 5), device=dev, requires_grad=True)
+    (g,) = torch.autograd.grad(reduction.fused_reduce(x, "mean"), x)
+    torch.testing.assert_close(g, torch.full_like(x, 1 / 15))
+    with pytest.raises(TypeError, match="forward-only"):
+        torch.autograd.grad(reduction.fused_reduce(x, "max"), x)
+
+
+def test_registry_selects_the_kernels_on_the_card(dev):
+    from flexflow_tpu_torch.kernels.registry import FAMILIES, KernelRegistry
+
+    reg = KernelRegistry()
+    for fam in FAMILIES:
+        c = reg.select(fam, device=dev, record=False)
+        assert c and c.reason == "default"
+    assert not reg.select("softmax", device="cpu", record=False)
 
 
 def test_fit_step_on_card_matches_cpu_port(dev):

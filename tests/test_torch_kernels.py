@@ -11,8 +11,11 @@ import torch
 
 from flexflow_tpu.kernels.pallas.decode import (
     fused_decode_attention, fused_multiquery_decode_attention)
-from flexflow_tpu.kernels.pallas.norm import _ln_bwd, _ln_fwd, fused_softmax
-from flexflow_tpu_torch.kernels import decode, launch_counts, norm
+from flexflow_tpu.kernels.pallas.norm import (_ln_bwd, _ln_fwd, _rms_bwd,
+                                             _rms_fwd, fused_rmsnorm,
+                                             fused_softmax)
+from flexflow_tpu.kernels.pallas.reduction import fused_reduce
+from flexflow_tpu_torch.kernels import decode, launch_counts, norm, reduction
 
 # f32: the same math, summed in another order (and, for Pallas' multi-
 # block path, through the online softmax)
@@ -250,3 +253,144 @@ def test_norm_wrappers_reject_bad_inputs():
         norm.softmax_bwd(x, x[:2])
     with pytest.raises(ValueError, match="no kernel for device"):
         norm.softmax_bwd(x.to("meta"), x.to("meta"))
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_rmsnorm_plain_matches_pallas(affine, dtype):
+    """rmsnorm_fwd / rmsnorm_bwd plain against `_rms_fwd` / `_rms_bwd` in
+    interpret mode: y, rstd, dx and dgamma."""
+    rng = np.random.RandomState(20)
+    x = _randn(rng, (7, 3, 40)) * 2 + 1
+    dy = _randn(rng, (7, 3, 40))
+    gamma = rng.rand(40).astype(np.float32) + 0.5
+    jg = jnp.asarray(gamma) if affine else None
+    jy, jrstd = _rms_fwd(jnp.asarray(x, dtype), jg, 1e-6, 4, True, affine)
+    jdx, jdg = _rms_bwd(jnp.asarray(x, dtype), jg, jrstd,
+                        jnp.asarray(dy, dtype), 4, True, affine)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tx = torch.from_numpy(x).to(tdt)
+    tg = torch.from_numpy(gamma) if affine else None
+    y, rstd = norm.rmsnorm_fwd(tx, tg)
+    assert y.dtype == tdt and tuple(y.shape) == x.shape
+    assert rstd.dtype == torch.float32 and tuple(rstd.shape) == (21, 1)
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32),
+                               **tol)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd), **F32_TOL)
+    dx, dg = norm.rmsnorm_bwd(tx, tg, rstd, torch.from_numpy(dy).to(tdt))
+    assert dx.dtype == tdt
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(jdx, np.float32), **tol)
+    if affine:
+        # f32 sums over 21 rows, in another order
+        assert dg.dtype == torch.float32
+        np.testing.assert_allclose(dg.numpy(), np.asarray(jdg), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert dg is None and jdg is None
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_rmsnorm_autograd_matches_jax_grad(affine, dtype):
+    """The autograd Function `rmsnorm` against jax.grad through
+    `fused_rmsnorm` (interpret mode), for a weighted-sum loss."""
+    rng = np.random.RandomState(21)
+    x = _randn(rng, (5, 33)) * 3
+    w = _randn(rng, (5, 33))
+    gamma = rng.rand(33).astype(np.float32) + 0.5
+
+    def jloss(a, g):
+        y = fused_rmsnorm(a, g if affine else None, block_rows=2,
+                          interpret=True)
+        return jnp.sum(y.astype(jnp.float32) * w)
+
+    jx, jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x, dtype),
+                                            jnp.asarray(gamma))
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tg = torch.from_numpy(gamma).requires_grad_()
+    y = norm.rmsnorm(tx, tg if affine else None)
+    got = torch.autograd.grad((y.float() * torch.from_numpy(w)).sum(),
+                              (tx, tg) if affine else (tx,))
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(jx, np.float32), **tol)
+    if affine:
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(jg),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [0, 1, 129, 4096])
+@pytest.mark.parametrize("kind", ["sum", "mean", "max"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_reduce_plain_matches_pallas(n, kind, dtype):
+    """reduce plain against `fused_reduce` in interpret mode, at odd and
+    empty sizes; always an f32 scalar."""
+    rng = np.random.RandomState(22 + n)
+    x = (_randn(rng, (n,)) * 5).reshape(-1, 1) if n else \
+        np.zeros((0, 3), np.float32)
+    want = fused_reduce(jnp.asarray(x, dtype), kind, block_rows=8,
+                        interpret=True)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    got = reduction.reduce(torch.from_numpy(x).to(tdt), kind)
+    assert got.dtype == torch.float32 and got.shape == ()
+    if kind == "max":
+        assert float(got) == float(want)
+    else:
+        # f32 sums in another order
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(x).sum()))
+
+
+@pytest.mark.parametrize("kind", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_fused_reduce_vjp_broadcasts_like_jax(kind, dtype):
+    rng = np.random.RandomState(23)
+    x = _randn(rng, (4, 7))
+    (want,) = jax.grad(lambda a: 3.0 * fused_reduce(
+        a, kind, interpret=True), argnums=(0,))(jnp.asarray(x, dtype))
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    (got,) = torch.autograd.grad(3.0 * reduction.fused_reduce(tx, kind), tx)
+    assert got.dtype == tdt and tuple(got.shape) == x.shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_fused_reduce_max_is_forward_only_like_jax():
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    with pytest.raises(TypeError, match="forward-only"):
+        jax.grad(lambda a: fused_reduce(a, "max", interpret=True))(
+            jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    out = reduction.fused_reduce(tx, "max")
+    assert float(out.detach()) == 5.0
+    with pytest.raises(TypeError, match="forward-only"):
+        torch.autograd.grad(out, tx)
+
+
+def test_new_plain_versions_count_no_launch_and_check_inputs():
+    before = launch_counts()
+    x = torch.randn(3, 8)
+    y, rstd = norm.rmsnorm_fwd(x, torch.ones(8))
+    norm.rmsnorm_bwd(x, torch.ones(8), rstd, y)
+    reduction.reduce(x, "mean")
+    assert launch_counts() == before
+    with pytest.raises(ValueError, match="kind must be"):
+        reduction.reduce(x, "prod")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        reduction.reduce(x.half())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        reduction.reduce(x.to("meta"))
+    with pytest.raises(ValueError, match=r"gamma must be \(8,\) float32"):
+        norm.rmsnorm_fwd(x, torch.ones(7))
+    with pytest.raises(ValueError, match="gamma must be"):
+        norm.rmsnorm_fwd(x, torch.ones(8).bfloat16())
+    with pytest.raises(ValueError, match=r"rstd must be \(3, 1\)"):
+        norm.rmsnorm_bwd(x, None, rstd[:2], x)
+    with pytest.raises(ValueError, match="dy"):
+        norm.rmsnorm_bwd(x, None, rstd, x.bfloat16())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        norm.rmsnorm_fwd(x.to("meta"))

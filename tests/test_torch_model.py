@@ -33,6 +33,10 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flexflow_tpu'))\n"
+        "new = ('flexflow_tpu_torch.kernels.registry',\n"
+        "       'flexflow_tpu_torch.kernels.reduction',\n"
+        "       'flexflow_tpu_torch.obs.registry')\n"
+        "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)

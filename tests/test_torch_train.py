@@ -2,9 +2,11 @@
 package's, same weights (`params_from_jax`), same optimizer state
 (`opt_state_from_jax`), same tokens and labels — first-step gradients by
 op and weight name, then the per-step losses of three Adam and three
-momentum-SGD steps; a mixed-precision bf16 run; and one run whose JAX
-side goes through the interpret-mode Pallas kernels (flash attention,
-LayerNorm, softmax)."""
+momentum-SGD steps; a mixed-precision bf16 run; and one run with the
+kernel tier forced in both packages: the JAX side through the
+interpret-mode Pallas kernels (flash attention, LayerNorm, softmax), the
+port through the plain versions of its kernels. Otherwise both run their
+reference lowerings, each registry's choice on the CPU."""
 import jax
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 import flexflow_tpu as ff
 import flexflow_tpu_torch as pt
 from flexflow_tpu.kernels.registry import KERNELS
+from flexflow_tpu_torch.kernels.registry import KERNELS as PORT_KERNELS
 from flexflow_tpu.models import TransformerConfig as JaxTransformerConfig
 from flexflow_tpu.models import build_bert_encoder as jax_build_bert
 from flexflow_tpu_torch.models import TransformerConfig, build_bert_encoder
@@ -58,7 +61,8 @@ def _models(jax_opt, port_opt, mixed=False, use_flash=None, widths=WIDTHS,
     pm = pt.FFModel(pt.FFConfig(batch_size=batch,
                                 allow_mixed_precision=mixed, device="cpu"))
     tok = pm.create_tensor([batch, seq], pt.DataType.DT_INT32)
-    build_bert_encoder(pm, tok, TransformerConfig(**widths))
+    build_bert_encoder(pm, tok, TransformerConfig(**widths),
+                       use_flash=use_flash)
     pm.compile(optimizer=port_opt(pm),
                loss_type=pt.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                metrics=[pt.MetricsType.METRICS_ACCURACY])
@@ -173,17 +177,20 @@ def test_first_adam_step_saturates_classifier_like_jax():
 
 
 def test_f32_step_matches_jax_through_pallas_kernels():
-    """The JAX side through its interpret-mode Pallas kernels: packed flash
-    attention (use_flash=True), fused LayerNorm and fused softmax, forward
-    and backward."""
+    """The kernel tier forced in both packages: the JAX side through its
+    interpret-mode Pallas kernels, the port through the plain versions of
+    its kernels — packed flash attention (use_flash=True), fused LayerNorm
+    and fused softmax, forward and backward."""
     with KERNELS.override("layernorm", "pallas"), \
-            KERNELS.override("softmax", "pallas"):
+            KERNELS.override("softmax", "pallas"), \
+            PORT_KERNELS.override("layernorm", "pallas"), \
+            PORT_KERNELS.override("softmax", "pallas"):
         jm, pm = _models(*OPTIMIZERS["adam"], use_flash=True)
         x, y = _data(2)
         jgrads, pgrads = _first_grads(jm, pm, x, y)
         jh = jm.fit(x, y, batch_size=B, epochs=2)
-    _check_grads(jgrads, pgrads, F32_GRAD_RTOL)
-    ph = pm.fit(x, y, batch_size=B, epochs=2)
+        _check_grads(jgrads, pgrads, F32_GRAD_RTOL)
+        ph = pm.fit(x, y, batch_size=B, epochs=2)
     for j, p in zip(jh, ph):
         assert p["loss"] == pytest.approx(j["loss"], **F32_LOSS)
 
