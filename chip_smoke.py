@@ -48,6 +48,25 @@ Phases, in order; any failure propagates and exits non-zero:
               the card under kernel_impl="pallas" and "reference" (flash
               against the einsum core, the CUDA norms against the
               reference lowerings): loss and six gradient norms.
+11. standalone — the public entries no model path calls: head-separated
+              flash attention in the bhld layout (forward and backward
+              through its autograd Function, at the TP rank's shape) and
+              `fused_cumsum` (forward and its reversed-scan gradient) at
+              (4096, 1024); each kernel's launches counted.
+12. tp      — two ranks sharing cuda:0 (gloo, collectives staged through
+              host memory) train the train phase's encoder, full width,
+              under compile(parallel_axes={"model": 2}): 5 steps from the
+              same weights and batch; every rank's loss the same bits at
+              every step, the replicated weights the same bits at the
+              end, per step and rank exactly 12 head-separated flash
+              forward and backward launches (blhd) and no packed one,
+              the LayerNorm, softmax and reduction counts of the train
+              phase, and the first three losses within 2e-2 of the train
+              phase's;
+13. tp-cross — in the same ranks, the train-cross model (2 layers, f32,
+              same weights and batch) under model=2: loss and the six
+              whole-gradient norms of two steps against the train-cross
+              phase's card run, within 1e-4.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -82,6 +101,16 @@ TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
 TIER_KERNELS = tuple(TIER_PER_STEP)
 # families the registry must pick the kernel for on the training path
 TRAIN_FAMILIES = ("attention", "layernorm", "softmax", "reduction")
+# launches per step and rank of the full-width flagship under model=2:
+# the head-separated flash kernels in place of the packed ones
+TP_PER_STEP = {"flash_fwd_blhd": 12, "flash_bwd_blhd": 12, "flash_fwd": 0,
+               "flash_bwd": 0, "layernorm_fwd": 24, "layernorm_bwd": 24,
+               "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2}
+TP_KERNELS = ("flash_fwd_blhd", "flash_bwd_blhd")
+# launches of the standalone entries (phase 11)
+STANDALONE_LAUNCHES = {"flash_fwd_bhld": 1, "flash_bwd_bhld": 1,
+                       "cumsum": 2}
+STANDALONE_KERNELS = tuple(STANDALONE_LAUNCHES)
 
 
 def train_step_flops(batch, seq, hidden, layers, **_) -> float:
@@ -270,6 +299,8 @@ def phase_kernels(torch, F):
     del flush_buf
     table.update(train_kernels(torch, F, g))
     table.update(tier_kernels(torch, F, g))
+    table.update(heads_kernels(torch, F, g))
+    table.update(cumsum_kernels(torch, g))
     return table
 
 
@@ -556,6 +587,312 @@ def tier_kernels(torch, F, g):
     table["reduce"] = red
     del big
     return table
+
+
+def heads_kernels(torch, F, g):
+    """The head-separated flash kernels (B7) against their plain versions
+    in both layouts: at the TP rank's shape (8, 512, 8, 64) in bf16, not
+    causal and causal; at (2, 100 -> 130, 3, 64) in f32 (lq != lk); at
+    head dim 128. Timed at the rank's shape, bf16, not causal (BERT).
+    Returns {kernel name: table row}."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    table = {}
+    f32_tol, bf16_tol = (1e-5, 1e-4), (4e-3, 2e-2)
+    # bf16 gradients: the same rounded ds and p as the plain version, f32
+    # sums in another order move a result by one bf16 ulp (<= 2^-7)
+    grad_tol = {torch.float32: f32_tol, torch.bfloat16: (1e-3, 1e-2)}
+    b, l, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"] // 2, 64
+
+    def make(layout, bb, lq, lk, hh, dd, dtype):
+        def rnd(n):
+            x = torch.randn((bb, n, hh, dd), generator=g, device=dev)
+            x = x.to(dtype)
+            return x.transpose(1, 2).contiguous() if layout == "bhld" else x
+        return rnd(lq), rnd(lk), rnd(lk), rnd(lq)
+
+    def check(layout, bb, lq, lk, hh, dd, dtype, causal):
+        q, k, v, do = make(layout, bb, lq, lk, hh, dd, dtype)
+        scale = dd ** -0.5
+        shape = (f"b={bb} lq={lq} lk={lk} h={hh} d={dd} {layout} {dtype}"
+                 f"{' causal' if causal else ''}").replace("torch.", "")
+        o, lse = fa.flash_fwd_heads(q, k, v, scale=scale, causal=causal,
+                                    layout=layout)
+        ro, rlse = fa.flash_fwd_heads_plain(q, k, v, scale, causal, layout)
+        fwd = _agree("flash_fwd_heads", o, ro,
+                     f32_tol if dtype == torch.float32 else bf16_tol, shape)
+        _agree("flash_fwd_heads (lse)", lse, rlse, f32_tol, shape)
+        grads = fa.flash_bwd_heads(q, k, v, o, lse, do, scale=scale,
+                                   causal=causal, layout=layout)
+        delta = (do.float() * o.float()).sum(-1)
+        if layout == "blhd":
+            delta = delta.transpose(1, 2)
+        ref = fa.flash_bwd_heads_plain(q, k, v, do, lse, delta, scale,
+                                       causal, layout)
+        rows = [_agree(f"flash_bwd_heads (d{n})", a, r_, grad_tol[dtype],
+                       shape) for n, a, r_ in zip("qkv", grads, ref)]
+        bwd = dict(rows[0], max_abs_err=max(r_["max_abs_err"]
+                                            for r_ in rows))
+        return fwd, bwd, (q, k, v, o, lse, do, delta)
+
+    for layout in fa.LAYOUTS:
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        checked = []
+        for case in ((b, l, l, h, d, torch.bfloat16, True),
+                     (2, 100, 130, 3, 64, torch.float32, True),
+                     (2, 100, 130, 3, 64, torch.float32, False),
+                     (2, 70, 33, 2, 128, torch.bfloat16, True),
+                     (2, 70, 33, 2, 128, torch.float32, False),
+                     (b, l, l, h, d, torch.bfloat16, False)):
+            fwd, bwd, args = check(layout, *case)
+            worst["fwd"] = max(worst["fwd"], fwd["max_abs_err"])
+            worst["bwd"] = max(worst["bwd"], bwd["max_abs_err"])
+            checked.append(fwd["shape"])
+        # the last case is the rank's shape, bf16, not causal: timed
+        q, k, v, o, lse, do, delta = args
+        scale = d ** -0.5
+        torch.cuda.synchronize()
+        esz = q.element_size()
+        fwd_bound = _bound(4 * b * l * h * d * esz + b * h * l * 4,
+                           4 * b * h * l * l * d, "bfloat16")
+        bwd_bound = _bound(8 * b * l * h * d * esz + 2 * b * h * l * 4,
+                           10 * b * h * l * l * d, "bfloat16")
+        qt, kt, vt, dot = (t.transpose(1, 2) if layout == "blhd" else t
+                           for t in (q, k, v, do))
+        qt, kt, vt, dot = (t.contiguous() for t in (qt, kt, vt, dot))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        fwd.update(
+            max_abs_err=worst["fwd"], checked=checked,
+            ms=_time_ms(torch, lambda: fa.flash_fwd_heads(
+                q, k, v, scale=scale, layout=layout)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_fwd_heads_plain(
+                q, k, v, scale, False, layout)),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale)),
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            library="F.scaled_dot_product_attention on (b, h, l, d)")
+        bwd.update(
+            max_abs_err=worst["bwd"], checked=checked,
+            ms=_time_ms(torch, lambda: fa.flash_bwd_heads(
+                q, k, v, o, lse, do, scale=scale, layout=layout)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_bwd_heads_plain(
+                q, k, v, do, lse, delta, scale, False, layout)),
+            library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, (qg, kg, vg), dot, retain_graph=True)),
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            library="SDPA's backward through autograd",
+            ms_includes="delta = sum(dO * O) per head (torch) + 2 launches")
+        table[f"flash_fwd_{layout}"] = fwd
+        table[f"flash_bwd_{layout}"] = bwd
+        del sdpa_out, qg, kg, vg
+    return table
+
+
+def cumsum_kernels(torch, g):
+    """The scan (B9) against its plain version, forward and reverse, at
+    (4096, 1024) in f32 and bf16 and at (1, 1), (37, 300) and
+    (3, 1000003); timed at (4096, 1024) f32 (and bf16, and the long rows,
+    as notes). Returns {"cumsum": table row}."""
+    from flexflow_tpu_torch.kernels import reduction
+
+    dev = torch.device("cuda")
+    rows, worst = [], 0.0
+    for shape in ((4096, 1024), (1, 1), (37, 300), (3, 1000003)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            for reverse in (False, True):
+                out = reduction.cumsum(x, reverse=reverse)
+                ref = reduction.cumsum_plain(x, reverse=reverse)
+                # f32 sums in another order: a few ulps of the running
+                # sum of |x| over up to ~1000 tiles; bf16 one rounding more
+                mag = reduction.cumsum_plain(x.float().abs(), reverse)
+                lim = 1e-5 * mag + 1e-6
+                if dtype == torch.bfloat16:
+                    lim = lim + 2.0 ** -7 * ref.float().abs()
+                err = (out.float() - ref.float()).abs()
+                name = (f"R={shape[0]} N={shape[1]} {dtype}"
+                        f"{' reverse' if reverse else ''}").replace(
+                            "torch.", "")
+                if out.dtype != dtype or not bool((err <= lim).all()):
+                    raise AssertionError(f"cumsum disagrees with its plain "
+                                         f"version at {name}: max err "
+                                         f"{float(err.max())}")
+                worst = max(worst, float(err.max()))
+                rows.append(name)
+    row = {"shape": "R=4096 N=1024 float32", "max_abs_err": worst,
+           "checked": rows,
+           "tolerance": "|err| <= 1e-5 cumsum(|x|) + 1e-6 (+ 2^-7 |plain| "
+                        "in bf16)"}
+    notes = {}
+    for shape, dtype in (((4096, 1024), torch.float32),
+                         ((4096, 1024), torch.bfloat16),
+                         ((3, 1000003), torch.float32)):
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        n = x.numel()
+        bound, by = _bound(2 * n * x.element_size(), n, "float32")
+        t = dict(ms=_time_ms(torch, lambda: reduction.cumsum(x)),
+                 plain_ms=_time_ms(torch, lambda: reduction.cumsum_plain(x)),
+                 library_ms=_time_ms(torch, lambda: torch.cumsum(x, -1)),
+                 bound_ms=bound, bound_by=by)
+        if not notes and dtype == torch.float32:
+            row.update(t, library="torch.cumsum along the last axis")
+        notes[f"R={shape[0]} N={shape[1]} {dtype}".replace("torch.",
+                                                           "")] = t
+        del x
+    row["timed"] = notes
+    return {"cumsum": row}
+
+
+def phase_standalone(torch):
+    """The public entries no model path calls, driven as a user calls
+    them: flash_attention_heads(layout="bhld") forward and backward at the
+    TP rank's shape (bf16) and fused_cumsum forward and backward at
+    (4096, 1024) f32, counts from 0; each result finite and equal to its
+    plain version's within the kernels phase's tolerances."""
+    from flexflow_tpu_torch.kernels import (flash_attention as fa,
+                                            launch_counts, reduction,
+                                            reset_launch_counts)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(77)
+    b, l, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"] // 2, 64
+    q, k, v, do = (torch.randn((b, h, l, d), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    x = torch.randn((4096, 1024), generator=g, device=dev)
+    gx = torch.randn((4096, 1024), generator=g, device=dev)
+    qg, kg, vg, xg = (t.clone().requires_grad_() for t in (q, k, v, x))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    o = fa.flash_attention_heads(qg, kg, vg, layout="bhld")
+    grads = torch.autograd.grad(o, (qg, kg, vg), do)
+    c = reduction.fused_cumsum(xg)
+    (dx,) = torch.autograd.grad(c, xg, gx)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    wrong = {k_: launches[k_] for k_, n in STANDALONE_LAUNCHES.items()
+             if launches[k_] != n}
+    if wrong:
+        raise AssertionError(f"standalone launches {wrong}, expected "
+                             f"{STANDALONE_LAUNCHES}")
+    ro, rlse = fa.flash_fwd_heads_plain(q, k, v, d ** -0.5, False, "bhld")
+    o, c = o.detach(), c.detach()
+    checks = [_agree("flash_attention_heads", o, ro, (4e-3, 2e-2),
+                     "bhld bf16")]
+    delta = (do.float() * o.float()).sum(-1)
+    for n, a, r_ in zip("qkv", grads, fa.flash_bwd_heads_plain(
+            q, k, v, do, rlse, delta, d ** -0.5, False, "bhld")):
+        checks.append(_agree(f"flash_attention_heads d{n}", a, r_,
+                             (1e-3, 1e-2), "bhld bf16"))
+    mag = reduction.cumsum_plain(x.abs())
+    for name, a, r_, m in (
+            ("fused_cumsum", c, reduction.cumsum_plain(x), mag),
+            ("fused_cumsum grad", dx, reduction.cumsum_plain(gx, True),
+             reduction.cumsum_plain(gx.abs(), True))):
+        err = (a - r_).abs()
+        if not (bool(torch.isfinite(a).all())
+                and bool((err <= 1e-5 * m + 1e-6).all())):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        checks.append({"shape": name, "max_abs_err": float(err.max())})
+    return {"phase": "standalone", "launches": {k_: launches[k_] for k_ in
+                                                STANDALONE_KERNELS},
+            "checks": checks}
+
+
+def _tp_jobs():
+    """The tp phase's two jobs (flexflow_tpu_torch/tools/tp_train.py)."""
+    x, y = _train_batch()
+    cx, cy = _cross_batch()
+    layers = 2
+    train = {"axes": {"model": 2},
+             "widths": {"num_layers": TRAIN["layers"]}, "x": x, "y": y,
+             "steps": 5, "count_steps": 3, "seed": 0, "mixed": True,
+             "adam": (1e-4, "bfloat16")}
+    cross = {"axes": {"model": 2}, "widths": {"num_layers": layers},
+             "x": cx, "y": cy, "seed": 1, "mixed": False,
+             "adam": (1e-4, "bfloat16"), "grad_steps": 2,
+             "grad_norms_of": (("tok_emb", "weight"), ("layer0_attn", "wq"),
+                               ("layer0_attn", "wv"), ("layer0_ln1", "gamma"),
+                               (f"layer{layers - 1}_ln2", "beta"),
+                               ("cls", "kernel"))}
+    return [train, cross]
+
+
+def phase_tp(torch, train_losses, cross_card):
+    """Two ranks on cuda:0 (tools/tp_train.py run_rank): the full-width
+    flagship under model=2 (tp) and the train-cross model under model=2
+    (tp-cross). Returns the two phase records and rank 0's launches."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.tools.tp_train import spawn_jobs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_jobs(2, "cuda", _tp_jobs(), timeout_s=900)
+    wall = time.perf_counter() - t0
+    tp = [r["jobs"][0] for r in ranks]
+    cross = [r["jobs"][1] for r in ranks]
+    first = tp[0]
+    for i, r in enumerate(tp[1:], 1):
+        if r["losses"] != first["losses"]:
+            raise AssertionError(f"tp: rank {i} losses {r['losses']} differ "
+                                 f"from rank 0's {first['losses']}")
+        if r["replicated_digest"] != first["replicated_digest"]:
+            raise AssertionError(f"tp: rank {i}'s replicated weights differ "
+                                 "from rank 0's after the last step")
+    for i, r in enumerate(tp):
+        wrong = {k: r["launches_per_step"][k] for k, n in TP_PER_STEP.items()
+                 if r["launches_per_step"][k] != n}
+        if wrong:
+            raise AssertionError(f"tp: rank {i} launches per step {wrong}, "
+                                 f"expected {TP_PER_STEP}")
+    losses = first["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"tp: non-finite loss {losses}")
+    rels = [abs(a - c) / abs(c) for a, c in zip(losses[:3],
+                                                 train_losses[:3])]
+    if max(rels) > 2e-2:
+        raise AssertionError(f"tp: losses {losses[:3]} vs one device "
+                             f"{train_losses[:3]} (relative {rels})")
+    host = ranks[0]["host"]
+    record = {
+        "phase": "tp", "axes": {"model": 2}, "world_size":
+            host["process_count"], "backend": host["backend"],
+        "devices": [r["host"]["device"] for r in ranks],
+        "host_staging": host["host_staging"],
+        "layers": TRAIN["layers"], "steps": len(losses),
+        "losses": losses, "one_device_losses": train_losses[:3],
+        "max_relative_diff_first3": max(rels),
+        "launches_per_step": {k: first["launches_per_step"][k]
+                              for k in TP_PER_STEP},
+        "staged_per_step_rank0": first["staged_per_step"],
+        "ms_per_step_rank0": first["ms_per_step"],
+        "ms_per_step_note": "two ranks time-sharing one card over a "
+                            "host-staged gloo transport: not a TP speed",
+        "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in tp],
+        "build_s_by_rank": [r["build_s"] for r in tp],
+        "spawn_wall_s": wall,
+        "tolerance": "ranks' losses and replicated weights identical; "
+                     "|loss - one device| <= 2e-2 |one device|, steps 1-3"}
+    for i, r in enumerate(cross[1:], 1):
+        if r["steps"] != cross[0]["steps"]:
+            raise AssertionError(f"tp-cross: rank {i} differs from rank 0")
+    worst = _compare_steps("tp-cross", cross[0]["steps"], cross_card,
+                           ("model=2", "one device"), 1e-4)
+    record_cross = {
+        "phase": "tp-cross", "layers": 2, "dtype": "float32",
+        "optimizer": "Adam alpha 1e-4, bf16 moments",
+        "tp": cross[0]["steps"], "one_device": cross_card,
+        "max_relative_diff": worst,
+        "tolerance": "|model=2 - one device| <= 1e-4 |one device| (loss "
+                     "and each whole-gradient norm, steps 1 and 2)"}
+    launches = {k: int(round(first["launches_per_step"][k] * 3))
+                for k in TP_KERNELS}
+    return record, record_cross, launches
 
 
 def _cls_margins(torch, model, x):
@@ -1070,7 +1407,8 @@ def main() -> int:
     _emit(dict(phase_train_witness(torch, init, train["losses"]),
                seconds_since_start=time.perf_counter() - t_start))
     del init
-    _emit(dict(phase_train_cross(torch),
+    train_cross = phase_train_cross(torch)
+    _emit(dict(train_cross,
                seconds_since_start=time.perf_counter() - t_start))
 
     # 9) tier, 10) ref-vs-kernel
@@ -1079,9 +1417,17 @@ def main() -> int:
     _emit(dict(phase_ref_vs_kernel(torch),
                seconds_since_start=time.perf_counter() - t_start))
 
-    # 11) the kernel table, the card, the result. A kernel's launches are
-    # those of the path(s) that run it (serve, train, tier), each counted
-    # from 0 just before its path ran
+    # 11) standalone, 12) tp, 13) tp-cross
+    standalone = phase_standalone(torch)
+    _emit(dict(standalone, seconds_since_start=time.perf_counter() - t_start))
+    tp, tp_cross, tp_launches = phase_tp(torch, train["losses"],
+                                         train_cross["card"])
+    _emit(dict(tp, seconds_since_start=time.perf_counter() - t_start))
+    _emit(dict(tp_cross, seconds_since_start=time.perf_counter() - t_start))
+
+    # 14) the kernel table, the card, the result. A kernel's launches are
+    # those of the path(s) that run it (serve, train, tier, standalone, tp
+    # on rank 0), each counted from 0 just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:115",
@@ -1096,12 +1442,22 @@ def main() -> int:
         "rmsnorm_fwd": "flexflow_tpu/kernels/pallas/norm.py:251",
         "rmsnorm_bwd": "flexflow_tpu/kernels/pallas/norm.py:274",
         "reduce": "flexflow_tpu/kernels/pallas/reduction.py:52",
+        "flash_fwd_blhd": "flexflow_tpu/kernels/flash_attention.py:110",
+        "flash_bwd_blhd": "flexflow_tpu/kernels/flash_attention.py:613",
+        "flash_fwd_bhld": "flexflow_tpu/kernels/flash_attention.py:110",
+        "flash_bwd_bhld": "flexflow_tpu/kernels/flash_attention.py:613",
+        "cumsum": "flexflow_tpu/kernels/pallas/reduction.py:127",
     }
     sources = {"decode_attention": src + "decode_attention.cu",
                "multiquery_decode_attention": src + "decode_attention.cu",
                "flash_fwd": src + "flash_attention.cu",
                "flash_bwd": src + "flash_attention.cu",
-               "reduce": src + "reduction.cu"}
+               "reduce": src + "reduction.cu",
+               "flash_fwd_blhd": src + "flash_attention.cu",
+               "flash_bwd_blhd": src + "flash_attention.cu",
+               "flash_fwd_bhld": src + "flash_attention.cu",
+               "flash_bwd_bhld": src + "flash_attention.cu",
+               "cumsum": src + "reduction.cu"}
     kernels = []
     for name in replaces:
         by_path = {}
@@ -1111,6 +1467,10 @@ def main() -> int:
             by_path["train"] = train["launches"][name]
         if name in TIER_KERNELS:
             by_path["tier"] = tier["card_pallas_bf16"]["launches"][name]
+        if name in STANDALONE_KERNELS:
+            by_path["standalone"] = standalone["launches"][name]
+        if name in TP_KERNELS:
+            by_path["tp"] = tp_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=sources.get(name, src + "norm.cu"),
             replaces=replaces[name], launches=sum(by_path.values()),

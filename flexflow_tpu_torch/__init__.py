@@ -3,15 +3,18 @@ Hopper (H100).
 
 flexflow_tpu (JAX on a TPU) stays the reference; this package imports
 torch, never jax, and nothing of flexflow_tpu. The port goes slice by
-slice (ROADMAP.md). Three slices are ported: continuous-batching serving
+slice (ROADMAP.md). Four slices are ported: continuous-batching serving
 of a causal transformer LM (the executor's KV-cache decode walk, the
 paged KV pool, admission and the continuous batcher), the single-device
 training step of the flagship BERT encoder (compile, fit and eval with
-SGD or Adam on autograd), and the kernel tier's selection path (the
-kernel registry, `FFConfig.kernel_impl`, the ops' reference lowerings,
-RMSNorm, the losses), over hand-written CUDA kernels (kernels/, csrc/):
-decode attention, flash attention forward and backward, LayerNorm,
-RMSNorm and softmax forward and backward, and the scalar reduction.
+SGD or Adam on autograd), the kernel tier's selection path (the kernel
+registry, `FFConfig.kernel_impl`, the ops' reference lowerings, RMSNorm,
+the losses), and training on a data x model mesh of torch.distributed
+ranks (`compile(parallel_axes={"data": dp, "model": tp})`,
+runtime/distributed.py, runtime/collectives.py), over hand-written CUDA
+kernels (kernels/, csrc/): decode attention, flash attention forward and
+backward (packed and head-separated), LayerNorm, RMSNorm and softmax
+forward and backward, the scalar reduction and the scan.
 
 Entry points run on `FFConfig.device`, "cuda" unless the caller passes
 "cpu". The kernel registry (kernels/registry.py) runs the kernels on a

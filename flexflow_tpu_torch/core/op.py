@@ -7,6 +7,11 @@ package's weight names and layouts (`wq` (e, h, d), dense `kernel`
 (in, out), ...), so weights move between the two packages by op name and
 weight name with no transpose.
 
+On a mesh (core/machine.py) an op holds only its shard of each weight
+that `shards` names (FFModel._assign_tp_weights): drawn and loaded whole,
+then cut to the mesh position's piece. Its `tp_degree` is the number of
+shards over the `model` axis, 1 for an op that runs unsharded.
+
 Weights are f32 master parameters. Serving reads them under
 `torch.no_grad()` through a cache of compute-dtype copies (bf16 under
 mixed precision); training casts them inside the autograd graph on every
@@ -22,7 +27,7 @@ import torch
 from torch import nn
 
 from ..ffconst import CompMode, DataType, OpType
-from .tensor import Tensor
+from .tensor import ParallelTensorShape, Tensor
 
 _op_guid = itertools.count(1)
 
@@ -52,6 +57,8 @@ class LoweringContext:
         # KV-cache decoding: an int chunk offset, or a (B,) int32 tensor of
         # per-row positions (ops/attention.py _decode_step)
         self.decode_pos = None
+        # this process's core.machine.Mesh, None on one device
+        self.mesh = None
 
 
 class Op(nn.Module):
@@ -82,6 +89,12 @@ class Op(nn.Module):
         # this op's kernel-tier choices, resolved once and kept until the
         # registry changes (kernels/registry.py KernelRegistry.resolve)
         self.kernel_memo: Dict[Any, Any] = {}
+        # on a mesh: weight name -> its parallel shape, for the weights
+        # that are sharded; the mesh coordinates of this process; the
+        # shards over the `model` axis (1: the op runs unsharded)
+        self.shards: Dict[str, ParallelTensorShape] = {}
+        self.coords: Dict[str, int] = {}
+        self.tp_degree = 1
 
     # -- subclass API -----------------------------------------------------
     def output_shapes(self) -> Tuple[List[Tuple[int, ...]], List[DataType]]:
@@ -95,21 +108,40 @@ class Op(nn.Module):
         raise NotImplementedError
 
     # -- weights ----------------------------------------------------------
+    def set_sharding(self, shards: Dict[str, ParallelTensorShape],
+                     coords: Dict[str, int]) -> None:
+        """Hold only this mesh position's piece of the weights `shards`
+        names; call before init_weights."""
+        self.shards = dict(shards)
+        self.coords = dict(coords)
+        self.tp_degree = max((pt.dims[i].degree for pt in shards.values()
+                              for i in pt.sharded_dims()
+                              if pt.dims[i].axis == "model"), default=1)
+
+    def local_value(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """This process's piece of the full weight `value`."""
+        pt = self.shards.get(name)
+        return value if pt is None else pt.shard(value, self.coords)
+
     def init_weights(self, generator: torch.Generator,
                      device: torch.device, trainable: bool = False) -> None:
-        """Draw every weight from `generator` on the host, in spec order,
-        and place it on `device`; `trainable` weights take gradients."""
+        """Draw every weight whole from `generator` on the host, in spec
+        order (so every mesh position draws the same model), keep this
+        position's piece and place it on `device`; `trainable` weights
+        take gradients."""
         for ws in self.specs:
             val = ws.initializer(generator, ws.dims, ws.dtype.torch_dtype)
+            val = self.local_value(ws.name, val)
             self.register_parameter(
-                ws.name, nn.Parameter(val.to(device),
+                ws.name, nn.Parameter(val.to(device).contiguous(),
                                       requires_grad=trainable))
         self._cast.clear()
 
     def set_weight(self, name: str, value: torch.Tensor) -> None:
+        """Load the full weight `name` (this position keeps its piece)."""
         p = self._parameters[name]
         with torch.no_grad():
-            p.copy_(value)
+            p.copy_(self.local_value(name, value))
         self._cast.clear()
 
     def w(self, name: str, dtype: Optional[torch.dtype] = None):

@@ -1,13 +1,16 @@
 """Logical graph tensors (counterpart of flexflow_tpu/core/tensor.py).
 
 A Tensor here is a node of the graph, not data: dims, dtype and the op
-that produces it. Parallel shapes arrive with the search slice; the port
-runs on one device.
+that produces it. ParallelDim and ParallelTensorShape describe how a
+weight is sharded over a mesh (FFModel._assign_tp_weights sets them);
+activations carry none: they are replicated over `model` and cut over
+`data` at the batch (runtime/collectives.py, FFModel.fit).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
-from typing import Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..ffconst import DataType
 
@@ -30,3 +33,42 @@ class Tensor:
 
     def __repr__(self):
         return f"Tensor({self.name}, dims={self.dims}, {self.dtype.value})"
+
+
+@dataclasses.dataclass
+class ParallelDim:
+    """One dimension of a parallel tensor (flexflow_tpu/core/tensor.py:31):
+    its global size, the number of shards, and the mesh axis it is
+    sharded over (None iff degree == 1)."""
+
+    size: int
+    degree: int = 1
+    axis: Optional[str] = None
+
+    def __post_init__(self):
+        if self.degree > 1 and self.axis is None:
+            raise ValueError("partitioned dim needs a mesh axis name")
+        if self.size % self.degree != 0:
+            raise ValueError(f"dim size {self.size} not divisible by degree "
+                             f"{self.degree}")
+
+
+@dataclasses.dataclass
+class ParallelTensorShape:
+    """The shape of a parallel tensor (flexflow_tpu/core/tensor.py:57),
+    only what describes a weight's shard."""
+
+    dims: List[ParallelDim]
+    dtype: DataType
+
+    def sharded_dims(self) -> List[int]:
+        return [i for i, d in enumerate(self.dims) if d.degree > 1]
+
+    def shard(self, value, coords: Dict[str, int]):
+        """The piece of the full `value` that the mesh position `coords`
+        (axis name -> index) holds."""
+        for i in self.sharded_dims():
+            d = self.dims[i]
+            n = d.size // d.degree
+            value = value.narrow(i, coords[d.axis] * n, n)
+        return value

@@ -1,15 +1,23 @@
-// Flash attention, forward and backward, on packed (b, l, heads * d)
-// tensors, for Hopper (sm_90a).
+// Flash attention, forward and backward, for Hopper (sm_90a), on q, k, v
+// in any layout whose head dim is contiguous: each tensor comes with its
+// own batch, row and head strides (in elements), and so do lse and delta.
 //
-// Replaces flexflow_tpu/kernels/flash_attention.py `_flash_fwd_packed`
-// (`_fwd_kernel_packed`) and `_flash_bwd_packed` (`_bwd_dq_kernel_packed`,
-// `_bwd_dkv_kernel_packed`). Per batch row b and head h, with query i at
+// One kernel serves both TPU kernel families of
+// flexflow_tpu/kernels/flash_attention.py:
+//  - packed (b, l, heads * d), lse (b, lq, heads): `_flash_fwd_packed`
+//    (`_fwd_kernel_packed`) and `_flash_bwd_packed`
+//    (`_bwd_dq_kernel_packed`, `_bwd_dkv_kernel_packed`);
+//  - head-separated blhd (b, l, h, d) and bhld (b, h, l, d), lse
+//    (b, h, lq): `_flash_fwd` (`_fwd_kernel`) and `_flash_bwd`
+//    (`_bwd_dq_kernel`, `_bwd_dkv_kernel`), the TP-sharded attention's
+//    path.
+// Per batch row b and head h, with query i at
 // position i and key j at position j (q_offset = Lk - Lq):
 //   forward:  s = q_i.k_j * scale (f32); masked s = -1e30 (causal: keep
 //             j <= i + q_offset); online softmax over key tiles with f32
 //             m / l / acc; p rounded to v's dtype before p.v;
 //             o = acc / (l == 0 ? 1 : l) in q's dtype,
-//             lse = m + log(l == 0 ? 1 : l) in f32, (b, Lq, heads).
+//             lse = m + log(l == 0 ? 1 : l) in f32.
 //   backward: p = exp(s - lse), masked p = 0, dp = dO_i.v_j (f32),
 //             ds = p * (dp - delta_i) with delta = sum_d dO * O (computed
 //             by the caller), ds and p rounded to the stored dtype before
@@ -31,7 +39,10 @@
 // with four shuffles, with m and l in registers beside the thread's rows
 // of the accumulator. The key loop stops at the last key a causal tile
 // can attend; dk / dv start at the first query tile that attends them.
-// CUDA cores only: `wgmma` and TMA are later work.
+// CUDA cores only: `wgmma` and TMA are later work. The strides cost
+// nothing at the inner loops: a tile's rows are staged once through
+// load_tile, whatever the layout (bhld's rows of one head are
+// contiguous, blhd's and packed rows are heads * d apart).
 #include <type_traits>
 
 #include "common.cuh"
@@ -42,6 +53,24 @@ constexpr int kThreads = 256;  // 16 x 16
 constexpr int kTile = 64;      // largest query / key tile
 constexpr int kSld = kTile + 1;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF, not -inf
+
+// element strides of one tensor's batch, head and row (position) axes;
+// the head dim itself has stride 1. A row offset takes 32 bits (the
+// wrapper checks rows * l < 2^31): with 64-bit row strides the backward
+// kernels lost 10-20% on the card, as ptxas unrolled less around them.
+struct Layout {
+  long long b, h;
+  int l;
+  __device__ __forceinline__ size_t at(int bi, int hi, int row) const {
+    return (size_t)(bi * b + hi * h) + (size_t)(row * l);
+  }
+};
+struct FwdLayouts {
+  Layout q, k, v, o, lse;
+};
+struct BwdLayouts {
+  Layout q, k, v, dout, lse, delta, dq, dk, dv;
+};
 
 // Stage `nrows` rows of one head (row r at src + r * stride) into dst as
 // f32 with row stride ld; rows up to kTile and columns up to ld - 1 past
@@ -88,8 +117,8 @@ template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int Lq, int Lk, int H, int D,
-                     float scale, int causal, int bq, int bk) {
+                     float* __restrict__ lse, FwdLayouts L, int Lq, int Lk,
+                     int D, float scale, int causal, int bq, int bk) {
   extern __shared__ float smem[];
   constexpr int ld = 16 * NC + 1;
   float* q_s = smem;
@@ -98,12 +127,10 @@ __global__ void __launch_bounds__(kThreads)
   float* p_s = v_s + kTile * ld;  // kTile x kSld
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * bq;
   const int nq = min(bq, Lq - q0);
-  const size_t E = (size_t)H * D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q_offset = Lk - Lq;
 
-  const size_t qbase = ((size_t)b * Lq + q0) * E + (size_t)h * D;
-  load_tile(q + qbase, E, nq, D, q_s, ld);
+  load_tile(q + L.q.at(b, h, q0), L.q.l, nq, D, q_s, ld);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -114,14 +141,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int cc = 0; cc < NC; ++cc) acc[r][cc] = 0.f;
   }
 
-  // keys past the last one a row of this tile may attend are skipped
-  const int k_end = causal ? min(Lk, q0 + nq + q_offset) : Lk;
+  // keys past the last one a row of this tile may attend are skipped; a
+  // row that attends no key at all (causal with Lq > Lk) gets the mean of
+  // every v, as the TPU kernel's masked softmax gives it, so a tile that
+  // holds one reads every key
+  const bool row_sees_none = causal && q0 + q_offset < 0;
+  const int k_end =
+      causal && !row_sees_none ? min(Lk, q0 + nq + q_offset) : Lk;
   for (int k0 = 0; k0 < k_end; k0 += bk) {
     const int nk = min(bk, Lk - k0);
     __syncthreads();  // the previous tile's readers are done
-    const size_t kbase = ((size_t)b * Lk + k0) * E + (size_t)h * D;
-    load_tile(k + kbase, E, nk, D, k_s, ld);
-    load_tile(v + kbase, E, nk, D, v_s, ld);
+    load_tile(k + L.k.at(b, h, k0), L.k.l, nk, D, k_s, ld);
+    load_tile(v + L.v.at(b, h, k0), L.v.l, nk, D, v_s, ld);
     __syncthreads();
 
     float s[4][4];
@@ -195,9 +226,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int dd = tx + 16 * cc;
-      if (dd < D) o[qbase + (size_t)i * E + dd] = from_f<T>(acc[r][cc] / l_safe);
+      if (dd < D) o[L.o.at(b, h, q0 + i) + dd] = from_f<T>(acc[r][cc] / l_safe);
     }
-    if (tx == 0) lse[((size_t)b * Lq + q0 + i) * H + h] = m[r] + logf(l_safe);
+    if (tx == 0) lse[L.lse.at(b, h, q0 + i)] = m[r] + logf(l_safe);
   }
 }
 
@@ -208,8 +239,8 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int Lq, int Lk, int H, int D, float scale, int causal,
-                        int bq, int bk) {
+                        BwdLayouts L, int Lq, int Lk, int D, float scale,
+                        int causal, int bq, int bk) {
   extern __shared__ float smem[];
   constexpr int ld = 16 * NC + 1;
   float* q_s = smem;
@@ -219,20 +250,17 @@ __global__ void __launch_bounds__(kThreads)
   float* ds_s = v_s + kTile * ld;  // kTile x kSld
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * bq;
   const int nq = min(bq, Lq - q0);
-  const size_t E = (size_t)H * D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q_offset = Lk - Lq;
 
-  const size_t qbase = ((size_t)b * Lq + q0) * E + (size_t)h * D;
-  load_tile(q + qbase, E, nq, D, q_s, ld);
-  load_tile(dout + qbase, E, nq, D, do_s, ld);
+  load_tile(q + L.q.at(b, h, q0), L.q.l, nq, D, q_s, ld);
+  load_tile(dout + L.dout.at(b, h, q0), L.dout.l, nq, D, do_s, ld);
   float lse_r[4], delta_r[4], acc[4][NC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = ty + 16 * r;
-    const size_t at = ((size_t)b * Lq + q0 + i) * H + h;
-    lse_r[r] = i < nq ? lse[at] : 0.f;
-    delta_r[r] = i < nq ? delta[at] : 0.f;
+    lse_r[r] = i < nq ? lse[L.lse.at(b, h, q0 + i)] : 0.f;
+    delta_r[r] = i < nq ? delta[L.delta.at(b, h, q0 + i)] : 0.f;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) acc[r][cc] = 0.f;
   }
@@ -241,9 +269,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < k_end; k0 += bk) {
     const int nk = min(bk, Lk - k0);
     __syncthreads();
-    const size_t kbase = ((size_t)b * Lk + k0) * E + (size_t)h * D;
-    load_tile(k + kbase, E, nk, D, k_s, ld);
-    load_tile(v + kbase, E, nk, D, v_s, ld);
+    load_tile(k + L.k.at(b, h, k0), L.k.l, nk, D, k_s, ld);
+    load_tile(v + L.v.at(b, h, k0), L.v.l, nk, D, v_s, ld);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -285,6 +312,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
+    // unrolled by 4: left to itself nvcc unrolls the backward's
+    // product loops less here, about 10% slower on the card
+#pragma unroll 4
     for (int j = 0; j < nk; ++j) {
       float da[4], kb[NC];
 #pragma unroll
@@ -306,7 +336,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int dd = tx + 16 * cc;
-      if (dd < D) dq[qbase + (size_t)i * E + dd] = from_f<T>(acc[r][cc] * scale);
+      if (dd < D) dq[L.dq.at(b, h, q0 + i) + dd] = from_f<T>(acc[r][cc] * scale);
     }
   }
 }
@@ -320,8 +350,8 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int Lq, int Lk, int H, int D,
-                         float scale, int causal, int bq, int bk) {
+                         T* __restrict__ dv, BwdLayouts L, int Lq, int Lk,
+                         int D, float scale, int causal, int bq, int bk) {
   extern __shared__ float smem[];
   constexpr int ld = 16 * NC + 1;
   float* k_s = smem;
@@ -334,13 +364,11 @@ __global__ void __launch_bounds__(kThreads)
   float* delta_s = lse_s + kTile;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * bk;
   const int nk = min(bk, Lk - k0);
-  const size_t E = (size_t)H * D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q_offset = Lk - Lq;
 
-  const size_t kbase = ((size_t)b * Lk + k0) * E + (size_t)h * D;
-  load_tile(k + kbase, E, nk, D, k_s, ld);
-  load_tile(v + kbase, E, nk, D, v_s, ld);
+  load_tile(k + L.k.at(b, h, k0), L.k.l, nk, D, k_s, ld);
+  load_tile(v + L.v.at(b, h, k0), L.v.l, nk, D, v_s, ld);
   float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -353,13 +381,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int q0 = q_begin; q0 < Lq; q0 += bq) {
     const int nq = min(bq, Lq - q0);
     __syncthreads();
-    const size_t qbase = ((size_t)b * Lq + q0) * E + (size_t)h * D;
-    load_tile(q + qbase, E, nq, D, q_s, ld);
-    load_tile(dout + qbase, E, nq, D, do_s, ld);
+    load_tile(q + L.q.at(b, h, q0), L.q.l, nq, D, q_s, ld);
+    load_tile(dout + L.dout.at(b, h, q0), L.dout.l, nq, D, do_s, ld);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const size_t at = ((size_t)b * Lq + q0 + i) * H + h;
-      lse_s[i] = i < nq ? lse[at] : 0.f;
-      delta_s[i] = i < nq ? delta[at] : 0.f;
+      lse_s[i] = i < nq ? lse[L.lse.at(b, h, q0 + i)] : 0.f;
+      delta_s[i] = i < nq ? delta[L.delta.at(b, h, q0 + i)] : 0.f;
     }
     __syncthreads();
 
@@ -403,6 +429,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
+    // unrolled by 4: left to itself nvcc unrolls the backward's
+    // product loops less here, about 10% slower on the card
+#pragma unroll 4
     for (int i = 0; i < nq; ++i) {
       float pa[4], da[4], ob[NC], qb[NC];
 #pragma unroll
@@ -433,8 +462,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int cc = 0; cc < NC; ++cc) {
       const int dd = tx + 16 * cc;
       if (dd >= D) continue;
-      dk[kbase + (size_t)j * E + dd] = from_f<T>(dk_acc[r][cc] * scale);
-      dv[kbase + (size_t)j * E + dd] = from_f<T>(dv_acc[r][cc]);
+      dk[L.dk.at(b, h, k0 + j) + dd] = from_f<T>(dk_acc[r][cc] * scale);
+      dv[L.dv.at(b, h, k0 + j) + dd] = from_f<T>(dv_acc[r][cc]);
     }
   }
 }
@@ -446,7 +475,8 @@ struct Shape {
 
 template <typename T, int NC>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, const Shape& s, cudaStream_t stream) {
+               float* lse, const FwdLayouts& L, const Shape& s,
+               cudaStream_t stream) {
   const size_t smem = sizeof(float) * fwd_smem_floats<NC>();
   auto kernel = flash_fwd_kernel<T, NC>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -454,15 +484,16 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((s.Lq + s.bq - 1) / s.bq, s.H, s.B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, s.Lq, s.Lk, s.H,
-      s.D, s.scale, s.causal, s.bq, s.bk);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, L, s.Lq, s.Lk, s.D,
+      s.scale, s.causal, s.bq, s.bk);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NC>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, const Shape& s, cudaStream_t stream) {
+               void* dv, const BwdLayouts& L, const Shape& s,
+               cudaStream_t stream) {
   const size_t smem_dq = sizeof(float) * dq_smem_floats<NC>();
   auto dq_kernel = flash_bwd_dq_kernel<T, NC>;
   cudaError_t err = allow_smem(dq_kernel, smem_dq);
@@ -471,7 +502,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   dq_kernel<<<grid_q, kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), s.Lq, s.Lk, s.H, s.D, s.scale, s.causal, s.bq,
+      static_cast<T*>(dq), L, s.Lq, s.Lk, s.D, s.scale, s.causal, s.bq,
       s.bk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -484,8 +515,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   dkv_kernel<<<grid_k, kThreads, smem_kv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), s.Lq, s.Lk, s.H, s.D,
-      s.scale, s.causal, s.bq, s.bk);
+      static_cast<T*>(dk), static_cast<T*>(dv), L, s.Lq, s.Lk, s.D, s.scale,
+      s.causal, s.bq, s.bk);
   return (int)cudaGetLastError();
 }
 
@@ -505,45 +536,67 @@ bool valid(const Shape& s) {
          s.bk <= kTile;
 }
 
-}  // namespace
-
-extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, float* lse, int B, int Lq, int Lk,
-                            int H, int D, float scale, int causal, int bq,
-                            int bk, int dtype, void* stream) {
-  const Shape s{B, Lq, Lk, H, D, causal, bq, bk, scale};
-  if (!valid(s)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == FF_F32)
-    return by_head_dim(D, [&](auto nc) {
-      return launch_fwd<float, decltype(nc)::value>(q, k, v, o, lse, s, st);
-    });
-  if (dtype == FF_BF16)
-    return by_head_dim(D, [&](auto nc) {
-      return launch_fwd<__nv_bfloat16, decltype(nc)::value>(q, k, v, o, lse,
-                                                            s, st);
-    });
-  return (int)cudaErrorInvalidValue;
+// `n` layouts from 3 * n strides (batch, row, head of each tensor in
+// turn); false when a row stride does not fit 32 bits
+bool read_layouts(const long long* strides, Layout* out, int n) {
+  for (int t = 0; t < n; ++t) {
+    const long long row = strides[3 * t + 1];
+    if (row < 0 || row > 2147483647LL) return false;
+    out[t] = Layout{strides[3 * t], strides[3 * t + 2], (int)row};
+  }
+  return true;
 }
 
-extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v,
-                            const void* dout, const float* lse,
-                            const float* delta, void* dq, void* dk, void* dv,
+}  // namespace
+
+// strides: 15 element strides, (batch, row, head) of q, k, v, o and lse
+extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
+                            void* o, float* lse, const long long* strides,
                             int B, int Lq, int Lk, int H, int D, float scale,
                             int causal, int bq, int bk, int dtype,
                             void* stream) {
   const Shape s{B, Lq, Lk, H, D, causal, bq, bk, scale};
   if (!valid(s)) return (int)cudaErrorInvalidValue;
+  Layout l[5];
+  if (!read_layouts(strides, l, 5)) return (int)cudaErrorInvalidValue;
+  const FwdLayouts L{l[0], l[1], l[2], l[3], l[4]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32)
     return by_head_dim(D, [&](auto nc) {
-      return launch_bwd<float, decltype(nc)::value>(q, k, v, dout, lse, delta,
-                                                    dq, dk, dv, s, st);
+      return launch_fwd<float, decltype(nc)::value>(q, k, v, o, lse, L, s,
+                                                    st);
+    });
+  if (dtype == FF_BF16)
+    return by_head_dim(D, [&](auto nc) {
+      return launch_fwd<__nv_bfloat16, decltype(nc)::value>(q, k, v, o, lse,
+                                                            L, s, st);
+    });
+  return (int)cudaErrorInvalidValue;
+}
+
+// strides: 27 element strides, (batch, row, head) of q, k, v, dout, lse,
+// delta, dq, dk and dv
+extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, void* dk, void* dv,
+                            const long long* strides, int B, int Lq, int Lk,
+                            int H, int D, float scale, int causal, int bq,
+                            int bk, int dtype, void* stream) {
+  const Shape s{B, Lq, Lk, H, D, causal, bq, bk, scale};
+  if (!valid(s)) return (int)cudaErrorInvalidValue;
+  Layout l[9];
+  if (!read_layouts(strides, l, 9)) return (int)cudaErrorInvalidValue;
+  const BwdLayouts L{l[0], l[1], l[2], l[3], l[4], l[5], l[6], l[7], l[8]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == FF_F32)
+    return by_head_dim(D, [&](auto nc) {
+      return launch_bwd<float, decltype(nc)::value>(
+          q, k, v, dout, lse, delta, dq, dk, dv, L, s, st);
     });
   if (dtype == FF_BF16)
     return by_head_dim(D, [&](auto nc) {
       return launch_bwd<__nv_bfloat16, decltype(nc)::value>(
-          q, k, v, dout, lse, delta, dq, dk, dv, s, st);
+          q, k, v, dout, lse, delta, dq, dk, dv, L, s, st);
     });
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// Scalar sum, mean or max of a whole array, for Hopper (sm_90a).
+// Scalar sum, mean or max of a whole array, and the inclusive scan along
+// the trailing axis, for Hopper (sm_90a).
 //
 // Replaces flexflow_tpu/kernels/pallas/reduction.py `_reduce_sum_or_max`
 // (`_reduce_kernel`, through `fused_reduce`): x of any shape, f32 or bf16,
@@ -17,6 +18,24 @@
 // block adds the G partials. Every launch configuration and every order
 // of addition is fixed by n, so a loss is the same bits on every run, as
 // the TPU kernel's sequential grid makes it.
+//
+// The scan (cumsum) replaces `_cumsum_call` (`_cumsum_kernel`, through
+// `fused_cumsum`): x viewed as (R, N), each row's inclusive prefix sum,
+// read in x's dtype, accumulated in f32 and written in x's dtype;
+// `reverse` scans from the row's end (the VJP, which the TPU package
+// computes by the same kernel on flipped rows). Bound on this card:
+// bytes (one read and one write of x, one add an element).
+//
+// Design: the TPU kernel holds whole rows in VMEM and calls jnp.cumsum
+// on them. Here one block of 256 threads owns a row and walks it in
+// tiles of 1024 elements in scan order: a coalesced load into shared
+// memory as f32, each thread's sequential scan of 4 consecutive
+// elements, a warp scan of the thread totals with __shfl_up_sync, the
+// 8 warp totals scanned by one warp in shared memory, then an f32
+// carry across tiles. Shared memory is padded one float per 32, so
+// the 4-apart reads of the per-thread scans hit 32 distinct banks.
+// Rows run in parallel; one row's tiles run in order, so a single long
+// row (R = 1) uses one SM: a look-back scan across blocks is later work.
 #include "common.cuh"
 
 namespace {
@@ -146,6 +165,82 @@ int dispatch_kind(const void* x, long long n, int vec, int kind, float* part,
   return (int)cudaErrorInvalidValue;
 }
 
+constexpr int kScanThreads = 256;
+constexpr int kScanItems = 4;
+constexpr int kScanTile = kScanThreads * kScanItems;
+constexpr int kScanWarps = kScanThreads / 32;
+
+__device__ __forceinline__ int scan_pad(int i) { return i + (i >> 5); }
+
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+    cumsum_kernel(const T* __restrict__ x, T* __restrict__ out, long long N,
+                  int reverse) {
+  __shared__ float tile[kScanTile + kScanTile / 32];
+  __shared__ float warp_tot[kScanWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T* xr = x + (size_t)blockIdx.x * N;
+  T* outr = out + (size_t)blockIdx.x * N;
+  float carry = 0.f;
+  for (long long t0 = 0; t0 < N; t0 += kScanTile) {
+    const int n = (int)(N - t0 < kScanTile ? N - t0 : kScanTile);
+    // element i of the tile is the (t0 + i)-th of the row in scan order
+    for (int i = threadIdx.x; i < kScanTile; i += kScanThreads) {
+      float v = 0.f;
+      if (i < n) v = to_f(xr[reverse ? N - 1 - (t0 + i) : t0 + i]);
+      tile[scan_pad(i)] = v;
+    }
+    __syncthreads();
+    float part[kScanItems];
+    float run = 0.f;
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      run += tile[scan_pad(threadIdx.x * kScanItems + j)];
+      part[j] = run;
+    }
+    // inclusive scan of the thread totals over the warp
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.f;
+    if (lane == 31) warp_tot[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      float w = lane < kScanWarps ? warp_tot[lane] : 0.f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      if (lane < kScanWarps) warp_tot[lane] = w;
+    }
+    __syncthreads();
+    const float before =
+        carry + (warp > 0 ? warp_tot[warp - 1] : 0.f) + excl;
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j)
+      tile[scan_pad(threadIdx.x * kScanItems + j)] = before + part[j];
+    carry += warp_tot[kScanWarps - 1];
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += kScanThreads)
+      outr[reverse ? N - 1 - (t0 + i) : t0 + i] =
+          from_f<T>(tile[scan_pad(i)]);
+    __syncthreads();  // the tile and warp_tot are rewritten next
+  }
+}
+
+template <typename T>
+int launch_cumsum(const void* x, void* out, long long R, long long N,
+                  int reverse, cudaStream_t stream) {
+  cumsum_kernel<T><<<(unsigned)R, kScanThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), N, reverse);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ff_reduce_blocks(long long n) { return blocks_for(n); }
@@ -159,5 +254,17 @@ extern "C" int ff_reduce(const void* x, long long n, int vec, int kind,
     return dispatch_kind<float>(x, n, vec, kind, part, out, s);
   if (dtype == FF_BF16)
     return dispatch_kind<__nv_bfloat16>(x, n, vec, kind, part, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, out: R rows of N contiguous elements (R <= 2^31 - 1, R, N >= 1)
+extern "C" int ff_cumsum(const void* x, void* out, long long R, long long N,
+                         int reverse, int dtype, void* stream) {
+  if (R < 1 || N < 1 || R > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == FF_F32)
+    return launch_cumsum<float>(x, out, R, N, reverse, s);
+  if (dtype == FF_BF16)
+    return launch_cumsum<__nv_bfloat16>(x, out, R, N, reverse, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -65,3 +65,5 @@ class OpType(enum.Enum):
     EMBEDDING = "embedding"
     EW_ADD = "ew_add"
     MULTIHEAD_ATTENTION = "multihead_attention"
+    # not ported yet (ROADMAP A6); named by the TP tables of search/
+    BATCHMATMUL = "batch_matmul"

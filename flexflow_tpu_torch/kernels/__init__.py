@@ -2,8 +2,9 @@
 
 decode.py: decode attention (C = 1 and the multi-query chunk entry);
 norm.py: LayerNorm, RMSNorm and softmax, forward and backward;
-flash_attention.py: flash attention forward and backward on packed
-heads; reduction.py: the scalar sum / mean / max. `_build.py` compiles
+flash_attention.py: flash attention forward and backward, on packed
+heads and head-separated (blhd, bhld); reduction.py: the scalar sum /
+mean / max and the inclusive scan (cumsum). `_build.py` compiles
 csrc/ into one library at first use; registry.py selects, per op family,
 between these kernels and the ops' reference lowerings.
 """

@@ -9,11 +9,15 @@ build takes seconds. The library lands in `flexflow_tpu_torch/_build/`
 an edited source rebuilds, an unchanged one loads the existing library.
 
 Nothing here runs at import: a CPU-only machine can import every kernel
-module; only a launch on a CUDA tensor builds.
+module; only a launch on a CUDA tensor builds. Processes that share the
+checkout (the ranks of a mesh) build under an exclusive lock on
+`_build/build.lock`, so no two write the same object file; a launcher
+builds once before it starts its ranks, which then load the library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -65,14 +69,25 @@ def _digest(paths) -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu (in parallel) and link the shared library; return
-    its path. Reuses a library built from identical sources."""
-    sources = sorted(CSRC.glob("*.cu"))
+    its path. Reuses a library built from identical sources. Holds an
+    exclusive file lock on the build directory meanwhile: a second
+    process waits, then finds the library built."""
     tag = _digest(sorted(CSRC.glob("*.cu*")))
     lib_path = BUILD_DIR / f"libffkernels_{tag}.so"
     if lib_path.exists():
         BUILD_INFO.update(compiled=False, library=str(lib_path))
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if lib_path.exists():
+            BUILD_INFO.update(compiled=False, library=str(lib_path))
+            return lib_path
+        return _compile(tag, lib_path)
+
+
+def _compile(tag: str, lib_path: Path) -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
@@ -120,11 +135,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_layernorm_bwd_rows_per_block.restype = i
     lib.ff_softmax_bwd.argtypes = [p, p, p, i, i, i, p]
     lib.ff_softmax_bwd.restype = i
-    lib.ff_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, i, i,
-                                 i, p]
+    lib.ff_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i,
+                                 i, i, p]
     lib.ff_flash_fwd.restype = i
-    lib.ff_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, f,
-                                 i, i, i, i, p]
+    lib.ff_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                 i, f, i, i, i, i, p]
     lib.ff_flash_bwd.restype = i
     lib.ff_rmsnorm_fwd.argtypes = [p, p, p, p, i, i, f, i, p]
     lib.ff_rmsnorm_fwd.restype = i
@@ -134,6 +149,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_reduce_blocks.restype = i
     lib.ff_reduce.argtypes = [p, ctypes.c_longlong, i, i, p, p, i, p]
     lib.ff_reduce.restype = i
+    lib.ff_cumsum.argtypes = [p, p, ctypes.c_longlong, ctypes.c_longlong, i,
+                              i, p]
+    lib.ff_cumsum.restype = i
     lib.ff_error_string.argtypes = [i]
     lib.ff_error_string.restype = ctypes.c_char_p
 

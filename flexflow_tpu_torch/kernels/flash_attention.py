@@ -1,27 +1,41 @@
-"""Flash attention on packed (b, l, heads * d) tensors: CUDA kernels,
-plain versions and the autograd Function.
+"""Flash attention: CUDA kernels, plain versions and the autograd
+Functions, in the JAX package's two layout families.
 
-`flash_fwd` replaces flexflow_tpu/kernels/flash_attention.py
-`_flash_fwd_packed`, `flash_bwd` replaces `_flash_bwd_packed` (its dq and
-dk/dv kernels), and `flash_attention` is the counterpart of
-`flash_attention_packed` with its custom VJP. The kernels are
-csrc/flash_attention.cu. At the training shapes they are bound by
-operations (4 b h l^2 d flops forward, 10 b h l^2 d backward); the design
-is one block per (query tile, head, batch row) with an f32 online softmax
-over key tiles in shared memory (forward, dq) and one per (key tile,
-head, batch row) streaming query tiles (dk, dv).
+Packed (b, l, heads * d), lse (b, lq, heads): `flash_fwd` replaces
+flexflow_tpu/kernels/flash_attention.py `_flash_fwd_packed`, `flash_bwd`
+replaces `_flash_bwd_packed` (its dq and dk/dv kernels), and
+`flash_attention` is the counterpart of `flash_attention_packed` with its
+custom VJP: the one-device attention op's path.
 
-Layouts as in the JAX package: q (b, lq, h*d), k and v (b, lk, h*d), the
-heads packed in the trailing axis; o in q's dtype, lse (b, lq, h) f32.
-Causal masking keeps key j for query i when j <= i + (lk - lq).
+Head-separated, layout "blhd" (b, l, h, d) or "bhld" (b, h, l, d), lse
+(b, h, lq): `flash_fwd_heads` replaces `_flash_fwd`, `flash_bwd_heads`
+replaces `_flash_bwd` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`), and
+`flash_attention_heads` is the counterpart of `flash_attention(layout=)`
+with the custom VJP of `_flash_attention_bhld`: the path of attention
+with its heads sharded over a tensor-parallel mesh (ops/attention.py).
+The JAX blhd wrapper transposes to bhld around its kernel; here the
+kernel takes each tensor's batch, row and head strides, so neither
+layout is copied.
+
+Both families run the same kernels, csrc/flash_attention.cu. At the
+training shapes they are bound by operations (4 b h l^2 d flops forward,
+10 b h l^2 d backward); the design is one block per (query tile, head,
+batch row) with an f32 online softmax over key tiles in shared memory
+(forward, dq) and one per (key tile, head, batch row) streaming query
+tiles (dk, dv). o is in q's dtype, lse f32. Causal masking keeps key j
+for query i when j <= i + (lk - lq).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises. The kernels read any strides
+but need the head dim contiguous (stride 1): a wrapper raises on any
+other, and the one copy the autograd Functions make is of a cotangent
+that arrives with another stride, in their backward.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,9 +47,14 @@ NEG_INF = -1e30
 MAX_TILE = 64
 MAX_HEAD_DIM = 128
 
-# kernel launches per wrapper (flash_bwd's dq and dk/dv launches count
-# once), a plain count the training path is read by
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0}
+LAYOUTS = ("blhd", "bhld")
+
+# kernel launches per wrapper (a backward's dq and dk/dv launches count
+# once), the head-separated ones per layout: plain counts the training
+# paths are read by
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd": 0,
+                            "flash_fwd_blhd": 0, "flash_fwd_bhld": 0,
+                            "flash_bwd_blhd": 0, "flash_bwd_bhld": 0}
 
 
 def _heads(x, heads: int):
@@ -59,24 +78,44 @@ def _mask(lq: int, lk: int, causal: bool, device):
     return kj <= qi + (lk - lq)
 
 
-def flash_fwd_plain(q, k, v, heads: int, scale: float, causal: bool):
-    """(o, lse) with the whole (lq, lk) score matrix written out: scores,
-    max, exp and sum in f32, masked scores -1e30, p rounded to v's dtype
-    before p.v, the `l == 0` guard, lse = m + log(l) — the single-block
-    branch of `_fwd_kernel_packed`."""
-    dt = q.dtype
-    qh, kh, vh = (_heads(t, heads).float() for t in (q, k, v))
+def _fwd_math(qh, kh, vh, scale: float, causal: bool, pdt):
+    """(o f32, lse f32) of f32 (b, h, l, d) operands, p rounded to `pdt`."""
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale      # (b, h, lq, lk)
-    mask = _mask(q.shape[1], k.shape[1], causal, q.device)
+    mask = _mask(qh.shape[2], kh.shape[2], causal, qh.device)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    o = torch.matmul(p.to(v.dtype).float(), vh) / l_safe
-    lse = (m + torch.log(l_safe))[..., 0].transpose(1, 2)   # (b, lq, h)
-    return _unheads(o).to(dt), lse.contiguous()
+    o = torch.matmul(p.to(pdt).float(), vh) / l_safe
+    return o, (m + torch.log(l_safe))[..., 0]               # lse (b, h, lq)
+
+
+def _bwd_math(qh, kh, vh, doh, lse, delta, scale: float, causal: bool, dt):
+    """(dq, dk, dv) f32 of f32 (b, h, l, d) operands; lse and delta
+    (b, h, lq); p and ds rounded to `dt` before each product."""
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    mask = _mask(qh.shape[2], kh.shape[2], causal, qh.device)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
+    return dq, dk, dv
+
+
+def flash_fwd_plain(q, k, v, heads: int, scale: float, causal: bool):
+    """(o, lse) with the whole (lq, lk) score matrix written out: scores,
+    max, exp and sum in f32, masked scores -1e30, p rounded to v's dtype
+    before p.v, the `l == 0` guard, lse = m + log(l) — the single-block
+    branch of `_fwd_kernel_packed`."""
+    qh, kh, vh = (_heads(t, heads).float() for t in (q, k, v))
+    o, lse = _fwd_math(qh, kh, vh, scale, causal, v.dtype)
+    return _unheads(o).to(q.dtype), lse.transpose(1, 2).contiguous()
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, heads: int, scale: float,
@@ -84,20 +123,34 @@ def flash_bwd_plain(q, k, v, do, lse, delta, heads: int, scale: float,
     """(dq, dk, dv) from the recomputed probabilities, as
     `_bwd_dq_kernel_packed` / `_bwd_dkv_kernel_packed`: p = exp(s - lse)
     (masked p = 0), ds = p * (do.v - delta), p and ds rounded to the stored
-    dtype before each product, dq and dk scaled once at the end."""
-    dt = q.dtype
+    dtype before each product, dq and dk scaled once at the end. lse and
+    delta are (b, lq, h)."""
     qh, kh, vh, doh = (_heads(t, heads).float() for t in (q, k, v, do))
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
-    p = torch.exp(s - lse.transpose(1, 2)[..., None])
-    mask = _mask(q.shape[1], k.shape[1], causal, q.device)
-    if mask is not None:
-        p = torch.where(mask, p, torch.zeros_like(p))
-    dp = torch.matmul(doh, vh.transpose(-1, -2))
-    ds = (p * (dp - delta.transpose(1, 2)[..., None])).to(dt).float()
-    dq = torch.matmul(ds, kh) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
-    return tuple(_unheads(t).to(dt) for t in (dq, dk, dv))
+    grads = _bwd_math(qh, kh, vh, doh, lse.transpose(1, 2),
+                      delta.transpose(1, 2), scale, causal, q.dtype)
+    return tuple(_unheads(t).to(q.dtype) for t in grads)
+
+
+def _to_bhld(x, layout: str):
+    return x.transpose(1, 2) if layout == "blhd" else x
+
+
+def flash_fwd_heads_plain(q, k, v, scale: float, causal: bool,
+                          layout: str = "blhd"):
+    """(o, lse (b, h, lq)) in the head-separated `layout`: the math of
+    `flash_fwd_plain` (the single-block branch of `_fwd_kernel`)."""
+    qh, kh, vh = (_to_bhld(t, layout).float() for t in (q, k, v))
+    o, lse = _fwd_math(qh, kh, vh, scale, causal, v.dtype)
+    return _to_bhld(o, layout).to(q.dtype), lse
+
+
+def flash_bwd_heads_plain(q, k, v, do, lse, delta, scale: float,
+                          causal: bool, layout: str = "blhd"):
+    """(dq, dk, dv) in the head-separated `layout`, lse and delta (b, h,
+    lq): the math of `_bwd_dq_kernel` / `_bwd_dkv_kernel`."""
+    qh, kh, vh, doh = (_to_bhld(t, layout).float() for t in (q, k, v, do))
+    grads = _bwd_math(qh, kh, vh, doh, lse, delta, scale, causal, q.dtype)
+    return tuple(_to_bhld(t, layout).to(q.dtype) for t in grads)
 
 
 def _check(name, heads, q, k, v, *more):
@@ -144,6 +197,61 @@ def _tiles(block_q: int, block_k: int):
     return min(int(block_q), MAX_TILE), min(int(block_k), MAX_TILE)
 
 
+Strides = Tuple[int, int, int]
+
+
+def _packed(t, d: int) -> Strides:
+    """(batch, row, head) element strides of a (b, l, h*d) tensor."""
+    return t.stride(0), t.stride(1), d * t.stride(2)
+
+
+def _heads_layout(t, layout: str) -> Strides:
+    """(batch, row, head) element strides of a blhd or bhld tensor."""
+    if layout == "blhd":
+        return t.stride(0), t.stride(1), t.stride(2)
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def _stat(t, order: str) -> Strides:
+    """(batch, row, head) strides of a per-row f32 statistic (lse, delta)
+    stored (b, lq, h) ("bl") or (b, h, lq) ("bh")."""
+    if order == "bl":
+        return t.stride(0), t.stride(1), t.stride(2)
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def _call(fn, name: str, tensors, layouts: Sequence[Strides], dims,
+          scale, causal, bq, bk):
+    q = tensors[0]
+    b, lq, lk, h, d = dims
+    # the kernels take a row's offset in 32 bits
+    if max(lq, lk) * max(lay[1] for lay in layouts) >= 2 ** 31:
+        raise ValueError(f"{name}: row offsets of {max(lq, lk)} rows reach "
+                         "2^31 elements, past the kernel's 32-bit row "
+                         "offsets")
+    strides = (ctypes.c_longlong * (3 * len(layouts)))(
+        *[int(x) for lay in layouts for x in lay])
+    with torch.cuda.device(q.device):
+        err = fn(*[t.data_ptr() for t in tensors], strides, b, lq, lk, h, d,
+                 float(scale), int(bool(causal)), bq, bk,
+                 _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+
+
+def _launch_fwd(name, tensors, layouts, dims, scale, causal, bq, bk):
+    """One forward launch: tensors (q, k, v, o, lse) with their strides."""
+    _call(_build.library().ff_flash_fwd, name, tensors, layouts, dims, scale,
+          causal, bq, bk)
+
+
+def _launch_bwd(name, tensors, layouts, dims, scale, causal, bq, bk):
+    """The dq and dk/dv launches: tensors (q, k, v, do, lse, delta, dq,
+    dk, dv) with their strides."""
+    _call(_build.library().ff_flash_bwd, name, tensors, layouts, dims, scale,
+          causal, bq, bk)
+
+
 def flash_fwd(q, k, v, heads: int, *, scale: float, causal: bool = False,
               block_q: int = MAX_TILE, block_k: int = MAX_TILE):
     """(o, lse): softmax(q k^T * scale) v per head. `block_q` / `block_k`
@@ -153,17 +261,12 @@ def flash_fwd(q, k, v, heads: int, *, scale: float, causal: bool = False,
     if not on_card:
         return flash_fwd_plain(q, k, v, heads, scale, causal)
     b, lq, e = q.shape
+    d = e // heads
     o = torch.empty_like(q)
     lse = torch.empty((b, lq, heads), dtype=torch.float32, device=q.device)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.ff_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, lq, k.shape[1], heads, e // heads,
-            float(scale), int(bool(causal)), bq, bk,
-            _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
-    _build.check(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launch_fwd("flash_fwd", (q, k, v, o, lse),
+                [_packed(t, d) for t in (q, k, v, o)] + [_stat(lse, "bl")],
+                (b, lq, k.shape[1], heads, d), scale, causal, bq, bk)
     return o, lse
 
 
@@ -186,17 +289,115 @@ def flash_bwd(q, k, v, o, lse, do, heads: int, *, scale: float,
     do = do.to(q.dtype)
     if not on_card:
         return flash_bwd_plain(q, k, v, do, lse, delta, heads, scale, causal)
+    d = e // heads
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.ff_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, lq, k.shape[1], heads, e // heads, float(scale),
-            int(bool(causal)), bq, bk, _build.DTYPE_CODES[q.dtype],
-            _build.stream_ptr(q.device))
-    _build.check(err, "flash_bwd")
-    LAUNCHES["flash_bwd"] += 1
+    tensors = (q, k, v, do, lse, delta, dq, dk, dv)
+    layouts = ([_packed(t, d) for t in (q, k, v, do)]
+               + [_stat(lse, "bl"), _stat(delta, "bl")]
+               + [_packed(t, d) for t in (dq, dk, dv)])
+    _launch_bwd("flash_bwd", tensors, layouts, (b, lq, k.shape[1], heads, d),
+                scale, causal, bq, bk)
+    return dq, dk, dv
+
+
+def _check_heads(name: str, layout: str, q, k, v, *more):
+    """Validate head-separated operands; True when they are on the card.
+    Returns (b, h, lq, lk, d) beside it."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"{name}: layout={layout!r}: expected 'blhd' or "
+                         "'bhld'")
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name}: {tname} must be 4-D ({layout}), got "
+                             f"shape {tuple(t.shape)}")
+    qh, kh = _to_bhld(q, layout), _to_bhld(k, layout)
+    b, h, lq, d = qh.shape
+    lk = kh.shape[2]
+    if k.shape != v.shape or kh.shape[0] != b or kh.shape[1] != h \
+            or kh.shape[3] != d:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must both match q "
+                         f"{tuple(q.shape)} but for the key length "
+                         f"({layout})")
+    if lq < 1 or lk < 1 or d < 1:
+        raise ValueError(f"{name}: need lq, lk and d >= 1, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    for tname, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {tname} is {t.dtype}, q is {q.dtype}")
+    devices = {t.device for t in (q, k, v, *more)}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices: {devices}")
+    dev = q.device
+    dims = (b, h, lq, lk, d)
+    if dev.type == "cpu":
+        return False, dims
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {d} > {MAX_HEAD_DIM}, the "
+                         "kernel's largest")
+    for t in (q, k, v, *more):
+        if t.dim() == 4 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dim must have stride 1 (got "
+                             f"strides {t.stride()}); make the tensor "
+                             "contiguous where it is produced")
+    return True, dims
+
+
+def flash_fwd_heads(q, k, v, *, scale: float, causal: bool = False,
+                    block_q: int = MAX_TILE, block_k: int = MAX_TILE,
+                    layout: str = "blhd"):
+    """(o, lse): softmax(q k^T * scale) v per head, q (b, lq, h, d) and k,
+    v (b, lk, h, d) in "blhd", or (b, h, l, d) in "bhld"; o in q's layout
+    and dtype, lse (b, h, lq) f32. Any strides with the head dim
+    contiguous; `block_q` / `block_k` cap the kernel's tiles."""
+    on_card, (b, h, lq, lk, d) = _check_heads("flash_fwd_heads", layout, q,
+                                               k, v)
+    bq, bk = _tiles(block_q, block_k)
+    if not on_card:
+        return flash_fwd_heads_plain(q, k, v, scale, causal, layout)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    _launch_fwd(f"flash_fwd_{layout}", (q, k, v, o, lse),
+                [_heads_layout(t, layout) for t in (q, k, v, o)]
+                + [_stat(lse, "bh")], (b, lq, lk, h, d), scale, causal, bq,
+                bk)
+    return o, lse
+
+
+def flash_bwd_heads(q, k, v, o, lse, do, *, scale: float,
+                    causal: bool = False, block_q: int = MAX_TILE,
+                    block_k: int = MAX_TILE, layout: str = "blhd"):
+    """(dq, dk, dv) for the cotangent `do` of o = flash_fwd_heads(q, k,
+    v)[0], each in its operand's layout and dtype. delta = sum_d do * o
+    per head is one f32 torch reduction here, as `_flash_bwd` computes it;
+    the kernel reads it in place, whatever its strides."""
+    on_card, (b, h, lq, lk, d) = _check_heads("flash_bwd_heads", layout, q,
+                                               k, v, o, lse, do)
+    bq, bk = _tiles(block_q, block_k)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_bwd_heads: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must match q {tuple(q.shape)}")
+    if tuple(lse.shape) != (b, h, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd_heads: lse must be ({b}, {h}, {lq}) "
+                         f"float32, got {tuple(lse.shape)} {lse.dtype}")
+    # (b, h, lq) as a view: blhd's sum is (b, lq, h)
+    delta = _to_bhld((do.float() * o.float()).sum(-1), layout)
+    do = do.to(q.dtype)
+    if not on_card:
+        return flash_bwd_heads_plain(q, k, v, do, lse, delta, scale, causal,
+                                     layout)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tensors = (q, k, v, do, lse, delta, dq, dk, dv)
+    layouts = ([_heads_layout(t, layout) for t in (q, k, v, do)]
+               + [_stat(lse, "bh"), _stat(delta, "bh")]
+               + [_heads_layout(t, layout) for t in (dq, dk, dv)])
+    _launch_bwd(f"flash_bwd_{layout}", tensors, layouts, (b, lq, lk, h, d),
+                scale, causal, bq, bk)
     return dq, dk, dv
 
 
@@ -234,3 +435,43 @@ def flash_attention(q, k, v, num_heads: int, *,
         scale = 1.0 / math.sqrt(e // num_heads)
     return _FlashAttention.apply(q, k, v, int(num_heads), float(scale),
                                  bool(causal), int(block_q), int(block_k))
+
+
+class _FlashAttentionHeads(torch.autograd.Function):
+    """Saves (q, k, v, o, lse), as `_flash_attention_fwd_rule`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, block_q, block_k, layout):
+        o, lse = flash_fwd_heads(q, k, v, scale=scale, causal=causal,
+                                 block_q=block_q, block_k=block_k,
+                                 layout=layout)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, causal, block_q, block_k, layout)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, causal, block_q, block_k, layout = ctx.args
+        if g.stride(-1) != 1:
+            # autograd may hand over a cotangent with a strided head dim
+            # (an expanded or transposed gradient): the kernel's one copy
+            g = g.contiguous()
+        dq, dk, dv = flash_bwd_heads(q, k, v, o, lse, g, scale=scale,
+                                     causal=causal, block_q=block_q,
+                                     block_k=block_k, layout=layout)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_heads(q, k, v, *, scale: Optional[float] = None,
+                          causal: bool = False, block_q: int = MAX_TILE,
+                          block_k: int = MAX_TILE, layout: str = "blhd"):
+    """Flash attention on head-separated tensors with its backward through
+    the kernels (counterpart of the JAX `flash_attention`): q (b, lq, h,
+    d), k and v (b, lk, h, d) with layout="blhd", the attention op's
+    layout, or (b, h, l, d) with layout="bhld". Returns the context in
+    q's layout."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttentionHeads.apply(q, k, v, float(scale), bool(causal),
+                                      int(block_q), int(block_k), layout)

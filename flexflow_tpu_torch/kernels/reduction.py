@@ -1,5 +1,6 @@
-"""Scalar sum, mean or max of a whole array: the CUDA kernel, its plain
-version and the autograd Function.
+"""Scalar sum, mean or max of a whole array, and the inclusive scan along
+the trailing axis: the CUDA kernels, their plain versions and the
+autograd Functions.
 
 `reduce` replaces flexflow_tpu/kernels/pallas/reduction.py
 `_reduce_sum_or_max` (`_reduce_kernel`), and `fused_reduce` is the
@@ -15,6 +16,16 @@ The gradient of sum and mean broadcasts the cotangent (divided by n for
 mean) in f32, cast to x's dtype, with no kernel, as the JAX VJP does.
 max is forward-only: its gradient raises TypeError.
 
+`cumsum` replaces flexflow_tpu/kernels/pallas/reduction.py `_cumsum_call`
+(`_cumsum_kernel`), and `fused_cumsum` is the counterpart of the JAX
+`fused_cumsum` with its custom VJP: the inclusive prefix sum along the
+trailing axis of x (any shape, f32 or bf16), accumulated in f32 and
+written in x's dtype. Its gradient is the reversed scan of the cotangent
+by the same kernel (`reverse=True` in place of the JAX flips). The JAX
+package has no consumer of it; it is a public kernel of its own. The
+kernel (csrc/reduction.cu) is bound by bytes: one block per row walks it
+in tiles with an f32 carry.
+
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 """
@@ -28,9 +39,9 @@ from . import _build
 
 KINDS = {"sum": 0, "mean": 1, "max": 2}
 
-# kernel launches of `reduce` (its two launches count once), a plain
-# count the training path is read by
-LAUNCHES: Dict[str, int] = {"reduce": 0}
+# kernel launches of `reduce` (its two launches count once) and of
+# `cumsum`, plain counts the paths are read by
+LAUNCHES: Dict[str, int] = {"reduce": 0, "cumsum": 0}
 
 
 def reduce_plain(x, kind: str):
@@ -103,3 +114,67 @@ class _Reduce(torch.autograd.Function):
 def fused_reduce(x, kind: str = "sum"):
     """Differentiable scalar reduction of x through `reduce`."""
     return _Reduce.apply(x, kind)
+
+
+def cumsum_plain(x, reverse: bool = False):
+    """Inclusive scan of x along its trailing axis, the JAX
+    `_cumsum_kernel`'s math: x cast to f32, jnp.cumsum, cast back to x's
+    dtype; `reverse` scans from the end (the flip, scan, flip of the JAX
+    VJP)."""
+    xf = x.float()
+    if reverse:
+        return torch.cumsum(xf.flip(-1), dim=-1).flip(-1).to(x.dtype)
+    return torch.cumsum(xf, dim=-1).to(x.dtype)
+
+
+def cumsum(x, reverse: bool = False):
+    """Inclusive prefix sum of x along its trailing axis (from the end
+    with `reverse`), f32 accumulation, in x's dtype and shape."""
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"cumsum: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if x.dim() < 1:
+        raise ValueError("cumsum: x needs a trailing axis to scan")
+    if x.device.type == "cpu":
+        return cumsum_plain(x, reverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"cumsum: no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("cumsum: x must be contiguous")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    n = x.shape[-1]
+    rows = x.numel() // n
+    if rows > 2 ** 31 - 1:
+        raise ValueError(f"cumsum: {rows} rows, the kernel's grid takes at "
+                         f"most 2^31 - 1")
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.ff_cumsum(x.data_ptr(), out.data_ptr(), rows, n,
+                            int(bool(reverse)), _build.DTYPE_CODES[x.dtype],
+                            _build.stream_ptr(x.device))
+    _build.check(err, "cumsum")
+    LAUNCHES["cumsum"] += 1
+    return out
+
+
+class _Cumsum(torch.autograd.Function):
+    """Saves nothing, as the JAX VJP: the gradient is the reversed scan of
+    the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return cumsum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the kernel reads rows in place: a cotangent that arrives strided
+        # (an expanded gradient) is the one copy
+        return cumsum(g.contiguous(), reverse=True)
+
+
+def fused_cumsum(x):
+    """Differentiable inclusive prefix sum along the trailing axis through
+    `cumsum` (counterpart of the JAX `fused_cumsum`)."""
+    return _Cumsum.apply(x)

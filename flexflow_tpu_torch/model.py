@@ -1,5 +1,6 @@
-"""FFModel: the layer API, compile, fit and eval on one torch device
-(the subset of flexflow_tpu/model.py the ported slices use).
+"""FFModel: the layer API, compile, fit and eval on one torch device or
+on a data x model mesh of torch.distributed ranks (the subset of
+flexflow_tpu/model.py the ported slices use).
 
 Op names follow the JAX package's scheme (an explicit name, else
 `<op type>_<n>` per model), so the same builder code gives the same op
@@ -17,15 +18,18 @@ import torch
 from . import ops as _ops  # noqa: F401  (registers every op type)
 from .config import FFConfig
 from .core.graph import Graph
+from .core.machine import Mesh, check_axes, make_mesh
 from .core.op import OP_REGISTRY, Op
-from .core.tensor import Tensor
+from .core.tensor import ParallelDim, ParallelTensorShape, Tensor
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OpType)
 from .kernels.registry import KERNELS
+from .runtime.collectives import gather_shards
 from .runtime.executor import Executor
 from .runtime.losses import Loss
 from .runtime.metrics import Metrics
 from .runtime.optimizers import Optimizer, SGDOptimizer
+from .search.simulator import TP_CAPABLE, TP_WEIGHT_SHARD_DIMS
 
 
 class FFModel:
@@ -39,11 +43,16 @@ class FFModel:
         self.optimizer: Optional[Optimizer] = None
         self.opt_state: Optional[dict] = None
         self.comp_mode: Optional[CompMode] = None
+        self.mesh: Optional[Mesh] = None
         self._name_counts: Dict[OpType, int] = {}
         self._used_names: set = set()
 
     @property
     def device(self) -> torch.device:
+        """`config.device`; on a mesh, this rank's device (as
+        runtime/distributed.py initialize chose it)."""
+        if self.mesh is not None:
+            return self.mesh.device
         return torch.device(self.config.device)
 
     # -- tensor & op creation ---------------------------------------------
@@ -151,16 +160,33 @@ class FFModel:
         `config.device`.
 
         The strategy search is a stub that returns the one-device plan
-        (ROADMAP A7); a mesh in `parallel_axes` raises (A8). In training
-        mode (the default, as in the JAX package) the weights take
-        gradients, `optimizer` defaults to SGD at `config.learning_rate`,
-        and the train and eval steps are built; COMP_MODE_INFERENCE
-        builds the executor only (the serving path)."""
-        if any(int(n) > 1 for n in (parallel_axes or {}).values()):
-            raise NotImplementedError(
-                f"parallel_axes={parallel_axes}: multi-device execution "
-                "(data, tensor, sequence parallelism) is not ported yet "
-                "(ROADMAP A8); the port runs one device")
+        (ROADMAP A7). `parallel_axes={"data": dp, "model": tp}` trains on
+        a mesh of dp * tp torch.distributed ranks, one process each
+        (runtime/distributed.py initialize, before compile, on every
+        rank): each data rank takes its slice of the batch, and the
+        TP-capable ops shard their weights over `model` as the JAX
+        package's `_assign_tp_weights` does. Every rank draws the whole
+        model from the same generator and keeps its shards, so a mesh run
+        starts from the one-device run's weights. The other axes, strategy
+        import, row-parallel pairs and sharded serving raise (A8). In
+        training mode (the default, as in the JAX package) the weights
+        take gradients, `optimizer` defaults to SGD at
+        `config.learning_rate`, and the train and eval steps are built;
+        COMP_MODE_INFERENCE builds the executor only (the serving
+        path)."""
+        axes = check_axes(parallel_axes or {})
+        self.mesh = None
+        if axes:
+            if comp_mode != CompMode.COMP_MODE_TRAINING:
+                raise NotImplementedError(
+                    f"parallel_axes={parallel_axes}: sharded serving "
+                    "(inference on a mesh) is not ported yet (ROADMAP A8)")
+            mesh = make_mesh(axes)
+            if mesh.device.type != torch.device(self.config.device).type:
+                raise ValueError(
+                    f"config.device={self.config.device!r}, but this rank "
+                    f"was initialized on {mesh.device}")
+            self.mesh = mesh
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         # the kernel tier: this model's --kernel-impl becomes the default
@@ -171,7 +197,8 @@ class FFModel:
         self.graph = Graph(self.ops)
         order = self.graph.topo_order()
         self.final_tensor = self.final_tensor or order[-1].outputs[0]
-        self.executor = Executor(self.graph, self.config)
+        self.executor = Executor(self.graph, self.config, self.mesh)
+        self._assign_strategy(order)
         for op in order:
             op.init_weights(generator, self.device, trainable=training)
         if not training:
@@ -186,8 +213,50 @@ class FFModel:
             self.loss.fn, self.metrics, self.final_tensor)
         self.opt_state = self.optimizer.init_state(self.executor.parameters())
 
+    def _assign_strategy(self, order: Sequence[Op]) -> None:
+        """The mesh-wide strategy (JAX `_assign_strategy`, its data and
+        model dims): every TP-capable op shards its weights over `model`;
+        the others keep theirs whole. The batch is cut over `data` in
+        `_batch`, the activations stay replicated."""
+        tp = self.mesh.size("model") if self.mesh is not None else 1
+        coords = self.mesh.coords if self.mesh is not None else {}
+        for op in order:
+            shards = {}
+            if tp > 1 and op.op_type in TP_CAPABLE:
+                shards = self._assign_tp_weights(op, tp)
+            op.set_sharding(shards, coords)
+
+    @staticmethod
+    def _assign_tp_weights(op: Op, tp: int) -> Dict[str, ParallelTensorShape]:
+        """The parallel shape of each of `op`'s weights that shards over
+        `model` (JAX `_assign_tp_weights`, column-parallel): the dim
+        TP_WEIGHT_SHARD_DIMS names, where tp divides it. Row-parallel
+        (`tp_row`) pairs come only from an imported strategy, which waits
+        for ROADMAP A7."""
+        shard_dim = TP_WEIGHT_SHARD_DIMS.get(op.op_type, {})
+        out = {}
+        for ws in op.specs:
+            if ws.name not in shard_dim:
+                continue
+            d = shard_dim[ws.name] % len(ws.dims)
+            if ws.dims[d] % tp:
+                continue
+            dims = [ParallelDim(s) for s in ws.dims]
+            dims[d] = ParallelDim(ws.dims[d], tp, "model")
+            out[ws.name] = ParallelTensorShape(dims, ws.dtype)
+        return out
+
     # -- training -----------------------------------------------------------
     def _batch(self, x: List[np.ndarray], y, lo: int, hi: int):
+        """(inputs, label) of samples [lo, hi) on this rank's device; on a
+        mesh with a `data` axis, this rank's equal slice of them (the whole
+        batch, replicated, when it does not divide, as JAX's shard_batch
+        replicates)."""
+        dp = self.mesh.size("data") if self.mesh is not None else 1
+        if dp > 1 and (hi - lo) % dp == 0:
+            n = (hi - lo) // dp
+            lo += self.mesh.index("data") * n
+            hi = lo + n
         inputs = {op.name: torch.from_numpy(np.ascontiguousarray(
             arr[lo:hi]).astype(op.outputs[0].dtype.np_dtype)).to(self.device)
             for op, arr in zip(self.input_ops, x)}
@@ -266,9 +335,11 @@ class FFModel:
         """Load an optimizer state — {"step", "lr", and the optimizer's
         moment trees ("v" for momentum SGD, "m" and "v" for Adam) of op
         name -> weight name -> array} — into this model's, checking every
-        name and shape; values keep this state's dtypes and device."""
+        name and shape; values keep this state's dtypes and device. The
+        moments are given whole; on a mesh each rank keeps its shards."""
         self._require_training("load_opt_state()")
         mine = self.opt_state
+        by_name = {op.name: op for op in self.ops}
         if set(state) != set(mine):
             raise KeyError(f"optimizer state keys {sorted(state)}, expected "
                            f"{sorted(mine)}")
@@ -286,11 +357,13 @@ class FFModel:
                     val = given[op][w]
                     if not torch.is_tensor(val):
                         val = torch.from_numpy(np.array(val, np.float32))
-                    if tuple(val.shape) != tuple(t.shape):
+                    full = next(ws.dims for ws in by_name[op].specs
+                                if ws.name == w)
+                    if tuple(val.shape) != tuple(full):
                         raise ValueError(
                             f"optimizer state {key!r} {op}/{w}: shape "
-                            f"{tuple(val.shape)}, expected {tuple(t.shape)}")
-                    staged.append((t, val))
+                            f"{tuple(val.shape)}, expected {tuple(full)}")
+                    staged.append((t, by_name[op].local_value(w, val)))
         with torch.no_grad():
             for t, val in staged:
                 t.copy_(val)
@@ -301,14 +374,40 @@ class FFModel:
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """op name -> weight name -> tensor, the JAX `model.params` tree;
-        each tensor shares the master's storage, outside autograd."""
+        each tensor shares the master's storage, outside autograd. On a
+        mesh: this rank's shards (`gather_params` gives the whole)."""
         return {op.name: {ws.name: op.w(ws.name).detach() for ws in op.specs}
                 for op in self.ops if op.specs}
 
+    def gather_params(self, tree: Optional[Mapping] = None
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The whole of `tree` (default: the weights; or any tree shaped
+        like them, such as gradients or moments) on every rank, gathered
+        from the shards over `model`. Every rank of the mesh calls it. On
+        one device it is the tree itself."""
+        tree = self.params if tree is None else tree
+        if self.mesh is None:
+            return {op: dict(ws) for op, ws in tree.items()}
+        group = self.mesh.group("model")
+        size = self.mesh.size("model")
+        out = {}
+        for op in self.ops:
+            if op.name not in tree:
+                continue
+            out[op.name] = {}
+            for w, t in tree[op.name].items():
+                pt = op.shards.get(w)
+                if pt is not None:
+                    (d,) = pt.sharded_dims()
+                    t = gather_shards(t, d, group, size)
+                out[op.name][w] = t
+        return out
+
     def load_params(self, params: Mapping[str, Mapping[str, object]]) -> None:
         """Load every weight by op name and weight name. The tree must name
-        exactly this model's weights with their shapes; each value (numpy
-        array or tensor) is converted to the weight's dtype and device."""
+        exactly this model's weights with their (whole) shapes; each value
+        (numpy array or tensor) is converted to the weight's dtype and
+        device, and on a mesh each rank keeps its shards."""
         expected = {op.name: op for op in self.ops if op.specs}
         missing_ops = sorted(set(expected) - set(params))
         extra_ops = sorted(set(params) - set(expected))
@@ -339,8 +438,9 @@ class FFModel:
 
 def params_from_jax(model: FFModel, params) -> None:
     """Carry a JAX FFModel's weights (`model.params`: op name -> weight
-    name -> array) into the port's `model`, checking every name and
-    shape. The layouts are the same in both packages, so nothing is
+    name -> array, whole or sharded: numpy gathers them) into the port's
+    `model`, checking every name and shape; on a mesh each rank keeps its
+    shards. The layouts are the same in both packages, so nothing is
     transposed."""
     model.load_params({op: {w: np.asarray(v) for w, v in ws.items()}
                        for op, ws in params.items()})
@@ -349,7 +449,8 @@ def params_from_jax(model: FFModel, params) -> None:
 def opt_state_from_jax(model: FFModel, opt_state) -> None:
     """Carry a JAX FFModel's optimizer state (`model.opt_state`) into the
     port's `model`, by op name and weight name; bf16 moments cross as f32,
-    which holds every bf16 value exactly."""
+    which holds every bf16 value exactly. On a mesh each rank keeps its
+    shards."""
     def host(v):
         if isinstance(v, dict):
             return {k: host(x) for k, x in v.items()}

@@ -21,6 +21,18 @@ through wo, is cast to the output's boundary dtype, and bo is added in
 that dtype. Attention dropout and sequence parallelism are not ported and
 raise.
 
+On a mesh whose `model` axis is larger than 1 (`tp > 1`, the JAX
+package's `ops/attention.py:143-146`) the packed path is off: the heads
+are what shard (wq/wk/wv on their heads axis, bq/bk/bv and wo on theirs,
+bo replicated; search/simulator.py TP_WEIGHT_SHARD_DIMS). The input
+enters through `enter_tp` (one gradient all-reduce for q, k and v when
+they are one tensor), the head-separated projections give this rank's
+(b, l, h/tp, d) heads, the kernel tier runs the head-separated flash
+kernel on them in the blhd layout (kernels/flash_attention.py
+`flash_attention_heads`) and the reference the einsum core, and the
+local heads' part of the output projection is summed over the ranks in
+f32 (`reduce_sum`) before it is cast and bo is added once.
+
 Decoding: the caller holds the caches in `ctx.state[op name]`, updated in
 place. The QK^T -> masked softmax -> V core runs through the port's
 decode-attention kernel (kernels/decode.py; families `attention_decode`
@@ -47,8 +59,9 @@ import torch
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import OpType
 from ..kernels.decode import decode_attention, multiquery_decode_attention
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_attention_heads
 from ..kernels.registry import KERNELS, flash_crossover
+from ..runtime.collectives import enter_tp, reduce_sum
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
 from .common import emit_dtype, matmul_dtype
 
@@ -128,6 +141,10 @@ class MultiHeadAttentionOp(Op):
         if self.name not in ctx.state:
             raise ValueError(f"{self.name}: decode_pos given but no KV "
                              "caches in the state")
+        if ctx.mesh is not None:
+            raise NotImplementedError(
+                f"{self.name}: KV-cache decoding on a mesh (sharded "
+                "serving) is not ported yet (ROADMAP A8)")
         q_in, k_in, v_in = inputs[:3]
         cdt = matmul_dtype(ctx.config, q_in.dtype)
         q = self._project(q_in, "wq", "bq", cdt)
@@ -150,8 +167,11 @@ class MultiHeadAttentionOp(Op):
 
     def _full_sequence(self, ctx, q_in, k_in, v_in):
         """The kernel tier: the JAX package's packed flash branch, (b, l,
-        h*d) projections with no transposes around the kernel. The
-        reference: its einsum core."""
+        h*d) projections with no transposes around the kernel, or on a
+        tensor-parallel mesh the head-separated branch. The reference: its
+        einsum core."""
+        if ctx.mesh is not None and ctx.mesh.size("model") > 1:
+            return self._tensor_parallel(ctx, q_in, k_in, v_in)
         _, _, _, embed, heads, kdim, vdim = self._dims()
         cdt = matmul_dtype(ctx.config, q_in.dtype)
         q = self._project(q_in, "wq", "bq", cdt)
@@ -169,6 +189,43 @@ class MultiHeadAttentionOp(Op):
         odt = emit_dtype(ctx.config, self.outputs[0].dtype)
         out = torch.matmul(ctxv.to(cdt),
                            self.w("wo", cdt).reshape(heads * vdim, embed))
+        out = out.to(odt)
+        if self.has_weight("bo"):
+            out = out + self.w("bo", odt)
+        return out
+
+    def _tensor_parallel(self, ctx, q_in, k_in, v_in):
+        """This rank's heads (JAX `ops/attention.py:160-175, 245-288`):
+        head-separated projections, the head-separated flash kernel or
+        the einsum core, the local part of `wo`, then the sum over the
+        model group and bo."""
+        _, _, _, embed, _, kdim, vdim = self._dims()
+        if self.tp_degree > 1:
+            group = ctx.mesh.group("model")
+            entered = {}
+            for t in (q_in, k_in, v_in):  # self-attention: one entry
+                if id(t) not in entered:
+                    entered[id(t)] = enter_tp(t, group)
+            q_in, k_in, v_in = (entered[id(t)] for t in (q_in, k_in, v_in))
+        cdt = matmul_dtype(ctx.config, q_in.dtype)
+        q = self._project(q_in, "wq", "bq", cdt)            # (b, l, h/tp, d)
+        k = self._project(k_in, "wk", "bk", cdt)
+        v = self._project(v_in, "wv", "bv", cdt)
+        scale = 1.0 / math.sqrt(kdim)
+        causal = self.params.get("causal", False)
+        if self._use_flash(ctx, q_in.device):
+            ctxv = flash_attention_heads(
+                q, k, v, scale=scale, causal=causal,
+                block_q=ctx.config.flash_block_q,
+                block_k=ctx.config.flash_block_k, layout="blhd")
+        else:
+            ctxv = self._einsum_core(q, k, v, scale, causal, cdt)
+        local = ctxv.shape[2] * vdim
+        out = torch.matmul(ctxv.to(cdt).reshape(*ctxv.shape[:2], local),
+                           self.w("wo", cdt).reshape(local, embed))
+        if self.tp_degree > 1:
+            out = reduce_sum(out.float(), ctx.mesh.group("model"))
+        odt = emit_dtype(ctx.config, self.outputs[0].dtype)
         out = out.to(odt)
         if self.has_weight("bo"):
             out = out + self.w("bo", odt)

@@ -4,13 +4,18 @@ op-set slice (ROADMAP A6).
 
 `jnp.take` clamps an out-of-range id where torch indexing raises; the
 batcher rejects such ids at submit, so the port keeps torch's check
-instead of emulating the clamp."""
+instead of emulating the clamp.
+
+On a mesh the table is sharded on its feature dim (TP_WEIGHT_SHARD_DIMS):
+each rank looks up its slice of every row, then the rows are
+all-gathered (runtime/collectives.py)."""
 from __future__ import annotations
 
 from typing import List
 
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import AggrMode, DataType, OpType
+from ..runtime.collectives import gather_last
 from ..runtime.initializers import NormInitializer
 
 
@@ -36,4 +41,8 @@ class EmbeddingOp(Op):
             or NormInitializer(stddev=0.05))]
 
     def lower(self, ctx, inputs):
-        return [self.w("weight")[inputs[0].long()]]
+        y = self.w("weight")[inputs[0].long()]
+        if self.tp_degree > 1:
+            y = gather_last(y, ctx.mesh.group("model"),
+                            ctx.mesh.index("model"), self.tp_degree)
+        return [y]

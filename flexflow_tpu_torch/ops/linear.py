@@ -2,7 +2,12 @@
 
 Weight layout (in_dim, out_dim), as in the JAX package. The product is a
 plain `torch.matmul` (cuBLAS on the card), which is what the JAX package
-leaves to XLA."""
+leaves to XLA.
+
+Column-parallel on a mesh (`kernel` sharded on out_dim, `bias` on its
+one dim, search/simulator.py TP_WEIGHT_SHARD_DIMS): each rank computes
+its columns from the replicated input, then the output is all-gathered
+(runtime/collectives.py)."""
 from __future__ import annotations
 
 from typing import List
@@ -11,6 +16,7 @@ import torch
 
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import ActiMode, OpType
+from ..runtime.collectives import enter_tp, gather_last
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
 from .common import apply_activation, emit_dtype, matmul_dtype
 
@@ -39,6 +45,8 @@ class LinearOp(Op):
 
     def lower(self, ctx, inputs):
         x = inputs[0]
+        if self.tp_degree > 1:
+            x = enter_tp(x, ctx.mesh.group("model"))
         cdt = matmul_dtype(ctx.config, x.dtype)
         # the product accumulates in f32 and is rounded once to the
         # boundary dtype; bias and activation then run in that dtype
@@ -46,5 +54,9 @@ class LinearOp(Op):
         y = torch.matmul(x.to(cdt), self.w("kernel", cdt)).to(odt)
         if self.has_weight("bias"):
             y = y + self.w("bias", odt)
-        return [apply_activation(
-            y, self.params.get("activation", ActiMode.AC_MODE_NONE))]
+        y = apply_activation(
+            y, self.params.get("activation", ActiMode.AC_MODE_NONE))
+        if self.tp_degree > 1:
+            y = gather_last(y, ctx.mesh.group("model"),
+                            ctx.mesh.index("model"), self.tp_degree)
+        return [y]

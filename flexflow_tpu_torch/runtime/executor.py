@@ -8,6 +8,13 @@ executor casts. Inference runs under `torch.no_grad()`; training runs the
 same walk under autograd, and its step functions update the parameters
 in place. Parameters stay f32, so their gradients arrive in f32, as
 `jax.value_and_grad` gives them.
+
+On a mesh (core/machine.py) each process walks the graph on its slice of
+the batch with its shards of the weights; the ops restore replicated
+activations themselves (runtime/collectives.py). After the backward, the
+gradients and the reported metrics are averaged over the `data` axis, so
+every rank's optimizer sees the gradient of the global batch's loss, as
+`jax.grad` under GSPMD gives it.
 """
 from __future__ import annotations
 
@@ -19,14 +26,16 @@ from ..core.graph import Graph
 from ..core.op import LoweringContext
 from ..ffconst import CompMode, OpType
 from ..ops.common import emit_dtype
+from .collectives import mean_
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
 
 class Executor:
-    def __init__(self, graph: Graph, config):
+    def __init__(self, graph: Graph, config, mesh=None):
         self.graph = graph
         self.config = config
+        self.mesh = mesh
         self.topo = graph.topo_order()
 
     def parameters(self) -> Tree:
@@ -52,6 +61,7 @@ class Executor:
             raise ValueError("a training walk takes no KV caches and no "
                              "decode position")
         ctx = LoweringContext(self.config, mode)
+        ctx.mesh = self.mesh
         ctx.decode_pos = decode_pos
         ctx.state = state if state is not None else {}
         with torch.set_grad_enabled(training):
@@ -70,7 +80,8 @@ class Executor:
         """(inputs, label) -> (grads, metric values incl. loss): one
         training-mode walk, the loss, and its backward. Gradients are
         returned as a tree like the parameters' (zeros where a weight got
-        none, as jax.grad gives)."""
+        none, as jax.grad gives); on a mesh with a `data` axis, gradients
+        and metrics are the means over it."""
         params = self.parameters()
         flat = [(op, w, p) for op, ws in params.items()
                 for w, p in ws.items()]
@@ -88,9 +99,24 @@ class Executor:
             for (op, w, p), g in zip(flat, got):
                 grads[op][w] = torch.zeros_like(p) if g is None else g
             mvals["loss"] = loss.detach()
+            self._data_mean([grads[op][w] for op, w, _ in flat], mvals)
             return grads, mvals
 
         return gstep
+
+    def _data_mean(self, grads, mvals) -> None:
+        """Average gradients (one bucket) and metric values over the mesh's
+        `data` axis, in place; nothing without one."""
+        size = self.mesh.size("data") if self.mesh is not None else 1
+        if size == 1:
+            return
+        group = self.mesh.group("data")
+        with torch.no_grad():
+            mean_(grads, group, size)
+            keys = sorted(mvals)
+            vals = torch.stack([mvals[k].float() for k in keys])
+            mean_([vals], group, size)
+        mvals.update(zip(keys, vals.unbind()))
 
     def build_train_step(self, optimizer, loss_fn, metrics, final_tensor):
         """(inputs, label, opt_state) -> metric values: forward, loss,
@@ -116,6 +142,7 @@ class Executor:
             with torch.no_grad():
                 mvals = metrics.compute(pred, label) if metrics else {}
                 mvals["loss"] = loss_fn(pred, label)
+            self._data_mean([], mvals)
             return mvals, pred
 
         return eval_step

@@ -166,6 +166,92 @@ def test_flash_kernels_match_plain(dev, dtype, causal, lq, lk, h, d, block):
     assert launch_counts()["flash_bwd"] == 1
 
 
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lk,h,d,block", [
+    (64, 64, 2, 64, 64),     # one tile each way
+    (100, 130, 3, 32, 64),   # ragged tiles, lq != lk (causal offset)
+    (40, 40, 2, 16, 16),     # tiles smaller than the kernel's largest
+    (33, 70, 1, 128, 32),    # the largest head dim
+    (70, 33, 2, 64, 32)])    # lq > lk: causal rows that see no key
+def test_flash_heads_kernels_match_plain(dev, layout, dtype, causal, lq, lk,
+                                         h, d, block):
+    """B7: the head-separated kernels in both layouts, forward and
+    backward, against their plain versions; bhld's rows of one head are
+    contiguous and its heads are not."""
+    g = torch.Generator(device=dev).manual_seed(lq * 5 + lk + d)
+    b = 2
+
+    def rnd(l):
+        x = torch.randn((b, l, h, d), generator=g, device=dev).to(dtype)
+        return x.transpose(1, 2).contiguous() if layout == "bhld" else x
+
+    q, k, v, do = rnd(lq), rnd(lk), rnd(lk), rnd(lq)
+    scale = d ** -0.5
+    reset_launch_counts()
+    o, lse = flash_attention.flash_fwd_heads(
+        q, k, v, scale=scale, causal=causal, block_q=block, block_k=block,
+        layout=layout)
+    ro, rlse = flash_attention.flash_fwd_heads_plain(q, k, v, scale, causal,
+                                                     layout)
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == (b, h, lq)
+    _close(o, ro, F32_TOL if dtype == torch.float32 else BF16_TOL)
+    _close(lse, rlse, F32_TOL)
+    grads = flash_attention.flash_bwd_heads(
+        q, k, v, o, lse, do, scale=scale, causal=causal, block_q=block,
+        block_k=block, layout=layout)
+    delta = (do.float() * o.float()).sum(-1)
+    if layout == "blhd":
+        delta = delta.transpose(1, 2)
+    ref = flash_attention.flash_bwd_heads_plain(q, k, v, do, lse, delta,
+                                                scale, causal, layout)
+    for out, want in zip(grads, ref):
+        assert out.dtype == dtype and out.shape == want.shape
+        _close(out, want, F32_TOL if dtype == torch.float32
+               else dict(atol=1e-3, rtol=1e-2))
+    assert launch_counts()[f"flash_fwd_{layout}"] == 1
+    assert launch_counts()[f"flash_bwd_{layout}"] == 1
+    assert launch_counts()["flash_fwd"] == 0
+
+
+def test_flash_heads_kernel_reads_strided_views(dev):
+    """A bhld view of blhd storage (no copy) gives the blhd result."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((2, 48, 4, 64), generator=g, device=dev)
+               for _ in range(3))
+    o, lse = flash_attention.flash_fwd_heads(q, k, v, scale=0.125)
+    ot, lset = flash_attention.flash_fwd_heads(
+        *(t.transpose(1, 2) for t in (q, k, v)), scale=0.125,
+        layout="bhld")
+    assert torch.equal(o, ot.transpose(1, 2)) and torch.equal(lse, lset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 1024), (37, 300), (1, 1),
+                                   (3, 1000003), (2, 3, 1030)])
+def test_cumsum_kernel_matches_plain(dev, dtype, shape):
+    """B9: forward and reverse scans against the plain version; rows
+    longer than one tile carry across tiles."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    reset_launch_counts()
+    for reverse in (False, True):
+        out = reduction.cumsum(x, reverse=reverse)
+        ref = reduction.cumsum_plain(x, reverse=reverse)
+        assert out.dtype == dtype and out.shape == x.shape
+        # f32 sums of the same terms in another order (the kernel's carry
+        # adds one tile total at a time): a few f32 ulps of the running
+        # sum of |x| over up to ~1000 tiles; bf16 adds one rounding of the
+        # output. A lost or doubled carry is off by a whole tile's sum.
+        mag = reduction.cumsum_plain(x.float().abs(), reverse=reverse)
+        lim = 1e-5 * mag + 1e-6
+        if dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * ref.float().abs()
+        assert bool(((out.float() - ref.float()).abs() <= lim).all())
+    assert launch_counts()["cumsum"] == 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,n", [(4096, 1024), (37, 300)])
 @pytest.mark.parametrize("affine", [True, False])

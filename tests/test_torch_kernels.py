@@ -14,7 +14,8 @@ from flexflow_tpu.kernels.pallas.decode import (
 from flexflow_tpu.kernels.pallas.norm import (_ln_bwd, _ln_fwd, _rms_bwd,
                                              _rms_fwd, fused_rmsnorm,
                                              fused_softmax)
-from flexflow_tpu.kernels.pallas.reduction import fused_reduce
+from flexflow_tpu.kernels.pallas.reduction import (fused_cumsum,
+                                                   fused_reduce)
 from flexflow_tpu_torch.kernels import decode, launch_counts, norm, reduction
 
 # f32: the same math, summed in another order (and, for Pallas' multi-
@@ -394,3 +395,49 @@ def test_new_plain_versions_count_no_launch_and_check_inputs():
         norm.rmsnorm_bwd(x, None, rstd, x.bfloat16())
     with pytest.raises(ValueError, match="no kernel for device"):
         norm.rmsnorm_fwd(x.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 37), (3, 4, 300), (1, 1), (2, 1030)])
+def test_cumsum_plain_and_vjp_match_pallas(dtype, shape):
+    """B9: the inclusive scan and its VJP (the reversed scan) against the
+    JAX `fused_cumsum` in interpret mode, 2-D and 3-D, rows longer than
+    one 1024-element tile of the kernel."""
+    rng = np.random.RandomState(sum(shape))
+    x = rng.randn(*shape).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    jx, jg = jnp.asarray(x, dtype), jnp.asarray(g, dtype)
+    want, vjp = jax.vjp(lambda a: fused_cumsum(a, interpret=True), jx)
+    (want_dx,) = vjp(jg)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    out = reduction.fused_cumsum(tx)
+    (dx,) = torch.autograd.grad(out, tx, torch.from_numpy(g).to(tdt))
+    assert out.dtype == tdt and dx.dtype == tdt and out.shape == shape
+    # f32: the same f32 scan in another summation order; bf16: the same
+    # f32 sums rounded once to bf16, one ulp (2^-8 relative) apart where
+    # the two orders straddle a rounding boundary
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == jnp.float32 \
+        else dict(rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(want_dx, np.float32), **tol)
+
+
+def test_cumsum_reverse_and_input_checks():
+    x = torch.arange(6.0).reshape(2, 3)
+    assert torch.equal(reduction.cumsum(x),
+                       torch.tensor([[0.0, 1, 3], [3, 7, 12]]))
+    assert torch.equal(reduction.cumsum(x, reverse=True),
+                       torch.tensor([[3.0, 3, 2], [12, 9, 5]]))
+    before = launch_counts()
+    reduction.cumsum(x)
+    assert launch_counts() == before and "cumsum" in before
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        reduction.cumsum(x.half())
+    with pytest.raises(ValueError, match="trailing axis"):
+        reduction.cumsum(torch.tensor(1.0))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        reduction.cumsum(x.to("meta"))
+    assert reduction.cumsum(torch.zeros(0, 4)).shape == (0, 4)

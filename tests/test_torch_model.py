@@ -35,7 +35,12 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "             ('jax', 'jaxlib', 'flexflow_tpu'))\n"
         "new = ('flexflow_tpu_torch.kernels.registry',\n"
         "       'flexflow_tpu_torch.kernels.reduction',\n"
-        "       'flexflow_tpu_torch.obs.registry')\n"
+        "       'flexflow_tpu_torch.obs.registry',\n"
+        "       'flexflow_tpu_torch.core.machine',\n"
+        "       'flexflow_tpu_torch.runtime.distributed',\n"
+        "       'flexflow_tpu_torch.runtime.collectives',\n"
+        "       'flexflow_tpu_torch.search.simulator',\n"
+        "       'flexflow_tpu_torch.tools.tp_train')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
