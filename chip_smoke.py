@@ -12,7 +12,9 @@ Phases, in order; any failure propagates and exits non-zero:
               and bf16, at the shapes its path gives it (and at edge
               shapes for RMSNorm and the reduction), and time kernel,
               plain version and one library call beside the least time
-              the card could take;
+              the card could take; print ptxas's registers, spills and
+              shared memory of the bf16 tensor-core flash kernels and the
+              flash launches per route (tc: bf16, cc: f32);
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
               fixed generator, bf16 mixed precision) through
@@ -28,7 +30,8 @@ Phases, in order; any failure propagates and exits non-zero:
               moments) through FFModel.compile and fit on random tokens
               and labels from np.random.RandomState(0): warm-up steps,
               then timed steps; every loss finite, every training kernel
-              launched its count per step, and the kernel registry (its
+              launched its count per step (the 12 + 12 flash launches on
+              the bf16 tensor-core route), and the kernel registry (its
               auto policy) picked the kernels;
  7. train-witness — the train phase's first three steps again from the
               same weights and batch in f32 on the card and in f32 on the
@@ -59,7 +62,8 @@ Phases, in order; any failure propagates and exits non-zero:
               same weights and batch; every rank's loss the same bits at
               every step, the replicated weights the same bits at the
               end, per step and rank exactly 12 head-separated flash
-              forward and backward launches (blhd) and no packed one,
+              forward and backward launches (blhd, on the tensor-core
+              route) and no packed one,
               the LayerNorm, softmax and reduction counts of the train
               phase, and the first three losses within 2e-2 of the train
               phase's;
@@ -94,6 +98,9 @@ TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
                   "layernorm_bwd": 24, "softmax_fwd": 1, "softmax_bwd": 1,
                   "reduce": 2}
 TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
+# the same flash launches by route: bf16, so all on the tensor cores
+TRAIN_ROUTES_PER_STEP = {"flash_fwd/tc": 12, "flash_bwd/tc": 12,
+                         "flash_fwd/cc": 0, "flash_bwd/cc": 0}
 # launches per step of the kernel-tier graph under kernel_impl="pallas"
 TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
                  "rmsnorm_bwd": 1, "softmax_fwd": 1, "softmax_bwd": 1,
@@ -106,6 +113,8 @@ TRAIN_FAMILIES = ("attention", "layernorm", "softmax", "reduction")
 TP_PER_STEP = {"flash_fwd_blhd": 12, "flash_bwd_blhd": 12, "flash_fwd": 0,
                "flash_bwd": 0, "layernorm_fwd": 24, "layernorm_bwd": 24,
                "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2}
+TP_ROUTES_PER_STEP = {"flash_fwd_blhd/tc": 12, "flash_bwd_blhd/tc": 12,
+                      "flash_fwd_blhd/cc": 0, "flash_bwd_blhd/cc": 0}
 TP_KERNELS = ("flash_fwd_blhd", "flash_bwd_blhd")
 # launches of the standalone entries (phase 11)
 STANDALONE_LAUNCHES = {"flash_fwd_bhld": 1, "flash_bwd_bhld": 1,
@@ -377,7 +386,9 @@ def train_kernels(torch, F, g):
             sdpa_out, (qg, kg, vg), dot, retain_graph=True)),
         bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
         library="SDPA's backward through autograd",
-        ms_includes="delta = sum(dO * O) per head (torch) + 2 launches")
+        ms_includes="delta = sum(dO * O) per head in torch (2 kernels: "
+                    "the f32 product, the sum) + the dq and dk/dv "
+                    "launches")
     table["flash_bwd"] = bwd
     del sdpa_out, qg, kg, vg
 
@@ -683,7 +694,9 @@ def heads_kernels(torch, F, g):
                 sdpa_out, (qg, kg, vg), dot, retain_graph=True)),
             bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
             library="SDPA's backward through autograd",
-            ms_includes="delta = sum(dO * O) per head (torch) + 2 launches")
+            ms_includes="delta = sum(dO * O) per head in torch (2 kernels: "
+                    "the f32 product, the sum) + the dq and dk/dv "
+                    "launches")
         table[f"flash_fwd_{layout}"] = fwd
         table[f"flash_bwd_{layout}"] = bwd
         del sdpa_out, qg, kg, vg
@@ -844,12 +857,13 @@ def phase_tp(torch, train_losses, cross_card):
         if r["replicated_digest"] != first["replicated_digest"]:
             raise AssertionError(f"tp: rank {i}'s replicated weights differ "
                                  "from rank 0's after the last step")
+    expected = {**TP_PER_STEP, **TP_ROUTES_PER_STEP}
     for i, r in enumerate(tp):
-        wrong = {k: r["launches_per_step"][k] for k, n in TP_PER_STEP.items()
+        wrong = {k: r["launches_per_step"][k] for k, n in expected.items()
                  if r["launches_per_step"][k] != n}
         if wrong:
             raise AssertionError(f"tp: rank {i} launches per step {wrong}, "
-                                 f"expected {TP_PER_STEP}")
+                                 f"expected {expected}")
     losses = first["losses"]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"tp: non-finite loss {losses}")
@@ -869,6 +883,8 @@ def phase_tp(torch, train_losses, cross_card):
         "max_relative_diff_first3": max(rels),
         "launches_per_step": {k: first["launches_per_step"][k]
                               for k in TP_PER_STEP},
+        "flash_routes_per_step": {k: first["launches_per_step"][k]
+                                  for k in TP_ROUTES_PER_STEP},
         "staged_per_step_rank0": first["staged_per_step"],
         "ms_per_step_rank0": first["ms_per_step"],
         "ms_per_step_note": "two ranks time-sharing one card over a "
@@ -954,11 +970,12 @@ def phase_train(torch, warmup=3, steps=10):
     losses = [r["loss"] for r in warm + hist]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    wrong = {k: launches[k] / steps for k, n in TRAIN_PER_STEP.items()
+    expected = {**TRAIN_PER_STEP, **TRAIN_ROUTES_PER_STEP}
+    wrong = {k: launches[k] / steps for k, n in expected.items()
              if launches[k] != n * steps}
     if wrong:
         raise AssertionError(f"training path launches per step {wrong}, "
-                             f"expected {TRAIN_PER_STEP}")
+                             f"expected {expected}")
     # the registry's auto policy chose the kernels, and never a reference
     # lowering, on the card
     selected = {k: v - selected_before[k]
@@ -983,6 +1000,8 @@ def phase_train(torch, warmup=3, steps=10):
         "cls_margins_before_after_step1": margins,
         "launches": launches,
         "launches_per_step": {k: launches[k] / steps for k in TRAIN_KERNELS},
+        "flash_routes_per_step": {k: launches[k] / steps
+                                  for k in TRAIN_ROUTES_PER_STEP},
         "ff_kernel_selected_total": {f"{f}/{i}": v
                                      for (f, i), v in selected.items()},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1313,8 +1332,14 @@ def main() -> int:
            "compiled": _build.BUILD_INFO["compiled"], "ptxas": ptxas})
 
     # 3) kernels
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    reset_launch_counts()
     table = phase_kernels(torch, F)
-    _emit({"phase": "kernels", "table": table})
+    _emit({"phase": "kernels", "table": table,
+           # the flash launches of this phase by route: tc the bf16
+           # tensor-core kernels, cc the f32 CUDA-core ones
+           "flash_routes": dict(fa.ROUTES),
+           "flash_tc_ptxas": fa.tc_kernel_report()})
 
     # 4) serve: full width, random weights from a fixed generator
     hidden, heads, layers, vocab, window = 1024, 16, 12, 30522, 512
@@ -1448,15 +1473,15 @@ def main() -> int:
         "flash_bwd_bhld": "flexflow_tpu/kernels/flash_attention.py:613",
         "cumsum": "flexflow_tpu/kernels/pallas/reduction.py:127",
     }
+    # the flash rows: timed in bf16, the tensor-core kernels; their f32
+    # route runs the CUDA-core kernels of flash_attention.cu
+    flash_tc = src + "flash_attention_tc.cu"
     sources = {"decode_attention": src + "decode_attention.cu",
                "multiquery_decode_attention": src + "decode_attention.cu",
-               "flash_fwd": src + "flash_attention.cu",
-               "flash_bwd": src + "flash_attention.cu",
+               "flash_fwd": flash_tc, "flash_bwd": flash_tc,
                "reduce": src + "reduction.cu",
-               "flash_fwd_blhd": src + "flash_attention.cu",
-               "flash_bwd_blhd": src + "flash_attention.cu",
-               "flash_fwd_bhld": src + "flash_attention.cu",
-               "flash_bwd_bhld": src + "flash_attention.cu",
+               "flash_fwd_blhd": flash_tc, "flash_bwd_blhd": flash_tc,
+               "flash_fwd_bhld": flash_tc, "flash_bwd_bhld": flash_tc,
                "cumsum": src + "reduction.cu"}
     kernels = []
     for name in replaces:
@@ -1471,10 +1496,13 @@ def main() -> int:
             by_path["standalone"] = standalone["launches"][name]
         if name in TP_KERNELS:
             by_path["tp"] = tp_launches[name]
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source=sources.get(name, src + "norm.cu"),
             replaces=replaces[name], launches=sum(by_path.values()),
-            launches_by_path=by_path, **table[name]))
+            launches_by_path=by_path, **table[name])
+        if name.startswith("flash_"):
+            row["f32_source"] = src + "flash_attention.cu"
+        kernels.append(row)
     _emit({"kernels": kernels})
     print(_card_line(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -2,6 +2,13 @@
 // in any layout whose head dim is contiguous: each tensor comes with its
 // own batch, row and head strides (in elements), and so do lse and delta.
 //
+// The C entries ff_flash_fwd and ff_flash_bwd choose the route by dtype:
+// bf16 (the training path's dtype, under mixed precision) goes to the
+// tensor-core kernels of csrc/flash_attention_tc.cu (`wgmma`, TMA); f32
+// stays on the CUDA-core kernels below, because a tensor-core product in
+// f32 is TF32 (about three decimal digits), which would miss the f32
+// tolerances the card's checks hold (1e-5 + 1e-4 relative).
+//
 // One kernel serves both TPU kernel families of
 // flexflow_tpu/kernels/flash_attention.py:
 //  - packed (b, l, heads * d), lse (b, lq, heads): `_flash_fwd_packed`
@@ -25,24 +32,24 @@
 //             dk = scale * sum_i ds q_i, dv = sum_i p dO_i.
 //
 // Bound on this card, at the training shapes (b 8, l 512, 16 heads of
-// 64, bf16): operations. The forward does 4 * b * h * l^2 * d flops on
-// 4 * b * l * h * d stored elements — 512 flops per bf16 byte, above the
-// ~295 at which bf16 tensor cores outrun device memory; the backward
-// (which recomputes s) 10 * b * h * l^2 * d.
+// 64): the forward does 4 * b * h * l^2 * d flops on 4 * b * l * h * d
+// stored elements — 512 flops per bf16 byte; in f32 on CUDA cores (67
+// TFLOP/s) operations bound it; the backward (which recomputes s) does
+// 10 * b * h * l^2 * d.
 //
-// Design: one block of 256 threads per (query tile, head, batch row) for
-// the forward and dq, one per (key tile, head, batch row) for dk / dv.
-// Tiles are at most 64 rows and live in shared memory as f32 (rows padded
-// to an odd stride: no bank conflicts); each thread owns a 4 x 4 block of
-// the 64 x 64 score tile (rows ty + 16 r, columns tx + 16 c), so the
-// rows of a query sit in one half-warp and the online softmax reduces
-// with four shuffles, with m and l in registers beside the thread's rows
-// of the accumulator. The key loop stops at the last key a causal tile
-// can attend; dk / dv start at the first query tile that attends them.
-// CUDA cores only: `wgmma` and TMA are later work. The strides cost
-// nothing at the inner loops: a tile's rows are staged once through
-// load_tile, whatever the layout (bhld's rows of one head are
-// contiguous, blhd's and packed rows are heads * d apart).
+// Design of the f32 kernels: one block of 256 threads per (query tile,
+// head, batch row) for the forward and dq, one per (key tile, head, batch
+// row) for dk / dv. Tiles are at most 64 rows and live in shared memory
+// as f32 (rows padded to an odd stride: no bank conflicts); each thread
+// owns a 4 x 4 block of the 64 x 64 score tile (rows ty + 16 r, columns
+// tx + 16 c), so the rows of a query sit in one half-warp and the online
+// softmax reduces with four shuffles, with m and l in registers beside
+// the thread's rows of the accumulator. The key loop stops at the last
+// key a causal tile can attend; dk / dv start at the first query tile
+// that attends them. The strides cost nothing at the inner loops: a
+// tile's rows are staged once through load_tile, whatever the layout
+// (bhld's rows of one head are contiguous, blhd's and packed rows are
+// heads * d apart).
 #include <type_traits>
 
 #include "common.cuh"
@@ -532,8 +539,7 @@ int by_head_dim(int D, F&& f) {
 
 bool valid(const Shape& s) {
   return s.B > 0 && s.Lq > 0 && s.Lk > 0 && s.H > 0 && s.D > 0 &&
-         s.D <= 128 && s.bq > 0 && s.bq <= kTile && s.bk > 0 &&
-         s.bk <= kTile;
+         s.D <= 128 && s.bq > 0 && s.bk > 0;
 }
 
 // `n` layouts from 3 * n strides (batch, row, head of each tensor in
@@ -549,7 +555,20 @@ bool read_layouts(const long long* strides, Layout* out, int n) {
 
 }  // namespace
 
-// strides: 15 element strides, (batch, row, head) of q, k, v, o and lse
+// the bf16 route (csrc/flash_attention_tc.cu); bq, bk are 64 or 128
+int ff_flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                    float* lse, const long long* strides, int B, int Lq,
+                    int Lk, int H, int D, float scale, int causal, int bq,
+                    int bk, cudaStream_t stream);
+int ff_flash_bwd_tc(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, void* dk, void* dv, const long long* strides,
+                    int B, int Lq, int Lk, int H, int D, float scale,
+                    int causal, int bq, int bk, cudaStream_t stream);
+
+// strides: 15 element strides, (batch, row, head) of q, k, v, o and lse.
+// bf16 runs the tensor-core kernels (bq, bk: 64 or 128 rows), f32 the
+// CUDA-core ones (bq, bk: at most 64 rows).
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, float* lse, const long long* strides,
                             int B, int Lq, int Lk, int H, int D, float scale,
@@ -557,25 +576,22 @@ extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v,
                             void* stream) {
   const Shape s{B, Lq, Lk, H, D, causal, bq, bk, scale};
   if (!valid(s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == FF_BF16)
+    return ff_flash_fwd_tc(q, k, v, o, lse, strides, B, Lq, Lk, H, D, scale,
+                           causal, bq, bk, st);
+  if (dtype != FF_F32 || bq > kTile || bk > kTile)
+    return (int)cudaErrorInvalidValue;
   Layout l[5];
   if (!read_layouts(strides, l, 5)) return (int)cudaErrorInvalidValue;
   const FwdLayouts L{l[0], l[1], l[2], l[3], l[4]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == FF_F32)
-    return by_head_dim(D, [&](auto nc) {
-      return launch_fwd<float, decltype(nc)::value>(q, k, v, o, lse, L, s,
-                                                    st);
-    });
-  if (dtype == FF_BF16)
-    return by_head_dim(D, [&](auto nc) {
-      return launch_fwd<__nv_bfloat16, decltype(nc)::value>(q, k, v, o, lse,
-                                                            L, s, st);
-    });
-  return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto nc) {
+    return launch_fwd<float, decltype(nc)::value>(q, k, v, o, lse, L, s, st);
+  });
 }
 
 // strides: 27 element strides, (batch, row, head) of q, k, v, dout, lse,
-// delta, dq, dk and dv
+// delta, dq, dk and dv; routes as ff_flash_fwd
 extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, void* dk, void* dv,
@@ -584,19 +600,17 @@ extern "C" int ff_flash_bwd(const void* q, const void* k, const void* v,
                             int bk, int dtype, void* stream) {
   const Shape s{B, Lq, Lk, H, D, causal, bq, bk, scale};
   if (!valid(s)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == FF_BF16)
+    return ff_flash_bwd_tc(q, k, v, dout, lse, delta, dq, dk, dv, strides,
+                           B, Lq, Lk, H, D, scale, causal, bq, bk, st);
+  if (dtype != FF_F32 || bq > kTile || bk > kTile)
+    return (int)cudaErrorInvalidValue;
   Layout l[9];
   if (!read_layouts(strides, l, 9)) return (int)cudaErrorInvalidValue;
   const BwdLayouts L{l[0], l[1], l[2], l[3], l[4], l[5], l[6], l[7], l[8]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == FF_F32)
-    return by_head_dim(D, [&](auto nc) {
-      return launch_bwd<float, decltype(nc)::value>(
-          q, k, v, dout, lse, delta, dq, dk, dv, L, s, st);
-    });
-  if (dtype == FF_BF16)
-    return by_head_dim(D, [&](auto nc) {
-      return launch_bwd<__nv_bfloat16, decltype(nc)::value>(
-          q, k, v, dout, lse, delta, dq, dk, dv, L, s, st);
-    });
-  return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto nc) {
+    return launch_bwd<float, decltype(nc)::value>(q, k, v, dout, lse, delta,
+                                                  dq, dk, dv, L, s, st);
+  });
 }

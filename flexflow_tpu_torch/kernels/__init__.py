@@ -14,12 +14,13 @@ from typing import Dict
 
 from . import decode, flash_attention, norm, reduction
 
-_COUNTS = (decode.LAUNCHES, flash_attention.LAUNCHES, norm.LAUNCHES,
-           reduction.LAUNCHES)
+_COUNTS = (decode.LAUNCHES, flash_attention.LAUNCHES,
+           flash_attention.ROUTES, norm.LAUNCHES, reduction.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
+    """Kernel launches per wrapper since the last reset, and the flash
+    wrappers' launches per route ("flash_fwd/tc", ...)."""
     return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 

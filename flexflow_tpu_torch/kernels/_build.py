@@ -20,12 +20,13 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -152,6 +153,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_cumsum.argtypes = [p, p, ctypes.c_longlong, ctypes.c_longlong, i,
                               i, p]
     lib.ff_cumsum.restype = i
+    lib.ff_flash_tc_smem_bytes.argtypes = [i, i, i, i]
+    lib.ff_flash_tc_smem_bytes.restype = ctypes.c_longlong
     lib.ff_error_string.argtypes = [i]
     lib.ff_error_string.restype = ctypes.c_char_p
 
@@ -165,6 +168,48 @@ def library() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
         return _lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """`name<args>` of a mangled template kernel whose arguments are ints
+    (`...16flash_bwd_dkv_tcILi64ELi2EEEv...`), else the mangled name."""
+    for m in re.finditer(r"\d+", mangled):
+        start = m.end()
+        for i in range(m.start(), start):  # a length may follow other digits
+            n = int(mangled[i:start])
+            ident, rest = mangled[start:start + n], mangled[start + n:]
+            args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+            if len(ident) == n and re.fullmatch(r"[A-Za-z_]\w*", ident) \
+                    and args:
+                return (f"{ident}<" + ", ".join(
+                    re.findall(r"Li(-?\d+)E", args.group(1))) + ">")
+    return mangled
+
+
+def ptxas_report(source: str) -> List[Dict[str, object]]:
+    """What ptxas said of each kernel of `source` (a csrc/ file name) in
+    the build of this process: the kernel (`name<template args>`),
+    registers, stack, spill stores and loads in bytes. Empty when this
+    process loaded a library built earlier."""
+    log = BUILD_INFO.get("ptxas", {}).get(source, "")
+    out: List[Dict[str, object]] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            out.append({"kernel": _kernel_name(entry.group(1))})
+            continue
+        if not out:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            out[-1].update(stack=int(frame.group(1)),
+                           spill_stores=int(frame.group(2)),
+                           spill_loads=int(frame.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[-1]["registers"] = int(regs.group(1))
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -131,7 +131,12 @@ def test_batcher_on_card_matches_cpu_port(dev):
     (64, 64, 2, 64, 64),     # one tile each way
     (100, 130, 3, 32, 64),   # ragged tiles, lq != lk (causal offset)
     (40, 40, 2, 16, 16),     # tiles smaller than the kernel's largest
-    (33, 70, 1, 128, 32)])   # the largest head dim
+    (33, 70, 1, 128, 32),    # the largest head dim
+    # bf16: the shared-memory rings wrap several times, ragged ends
+    (300, 520, 2, 64, 512),
+    # bf16: d 128 as two 64-column TMA boxes, 8 key tiles of 128
+    (129, 1000, 1, 128, 512),
+    (70, 33, 2, 48, 512)])   # a head dim padded to 64 by TMA's zero fill
 def test_flash_kernels_match_plain(dev, dtype, causal, lq, lk, h, d, block):
     g = torch.Generator(device=dev).manual_seed(lq * 7 + lk + d)
     b = 2
@@ -164,6 +169,11 @@ def test_flash_kernels_match_plain(dev, dtype, causal, lq, lk, h, d, block):
                else dict(atol=1e-3, rtol=1e-2))
     assert launch_counts()["flash_fwd"] == 1
     assert launch_counts()["flash_bwd"] == 1
+    # bf16 runs the tensor-core kernels, f32 the CUDA-core ones
+    route, other = ("tc", "cc") if dtype == torch.bfloat16 else ("cc", "tc")
+    for name in ("flash_fwd", "flash_bwd"):
+        assert launch_counts()[f"{name}/{route}"] == 1
+        assert launch_counts()[f"{name}/{other}"] == 0
 
 
 @pytest.mark.parametrize("layout", ["blhd", "bhld"])
@@ -174,7 +184,10 @@ def test_flash_kernels_match_plain(dev, dtype, causal, lq, lk, h, d, block):
     (100, 130, 3, 32, 64),   # ragged tiles, lq != lk (causal offset)
     (40, 40, 2, 16, 16),     # tiles smaller than the kernel's largest
     (33, 70, 1, 128, 32),    # the largest head dim
-    (70, 33, 2, 64, 32)])    # lq > lk: causal rows that see no key
+    (70, 33, 2, 64, 32),     # lq > lk: causal rows that see no key
+    (300, 520, 2, 64, 512),  # bf16: the rings wrap several times
+    (129, 1000, 1, 128, 512),  # bf16: d 128 as two TMA boxes
+    (70, 33, 2, 48, 512)])   # a head dim padded to 64
 def test_flash_heads_kernels_match_plain(dev, layout, dtype, causal, lq, lk,
                                          h, d, block):
     """B7: the head-separated kernels in both layouts, forward and
@@ -213,6 +226,43 @@ def test_flash_heads_kernels_match_plain(dev, layout, dtype, causal, lq, lk,
     assert launch_counts()[f"flash_fwd_{layout}"] == 1
     assert launch_counts()[f"flash_bwd_{layout}"] == 1
     assert launch_counts()["flash_fwd"] == 0
+    route = "tc" if dtype == torch.bfloat16 else "cc"
+    assert launch_counts()[f"flash_fwd_{layout}/{route}"] == 1
+    assert launch_counts()[f"flash_bwd_{layout}/{route}"] == 1
+
+
+@pytest.mark.parametrize("case", ["base", "head_dim_12", "row_stride"])
+def test_flash_bf16_view_tma_cannot_load_raises(dev, case):
+    """A bf16 CUDA tensor that breaks TMA's 16-byte rules raises
+    ValueError naming the rule, and nothing launches: it is never sent to
+    the CUDA-core kernels or the plain version."""
+    b, l, h, d = 2, 40, 2, 12 if case == "head_dim_12" else 64
+    q = torch.randn((b, l, h * d), device=dev).bfloat16()
+    if case == "base":          # the whole tensor 2 bytes off 16
+        bad = torch.zeros(b * l * h * d + 1, device=dev,
+                          dtype=torch.bfloat16)[1:].view(b, l, h * d)
+        match = "base address"
+    elif case == "head_dim_12":  # heads 24 bytes apart
+        bad = q.clone()
+        match = "head stride 12 elements"
+    else:                       # blhd rows 4 elements past the data
+        bad = torch.zeros((b, l, h * d + 4), device=dev,
+                          dtype=torch.bfloat16)[..., :h * d]
+        match = "row stride 132 elements"
+    bad.copy_(q)
+    reset_launch_counts()
+    heads, bad_heads = q.view(b, l, h, d), bad.view(b, l, h, d)
+    with pytest.raises(ValueError, match=match):
+        flash_attention.flash_fwd_heads(heads, bad_heads, heads, scale=0.3)
+    if case != "row_stride":    # packed operands must be contiguous
+        with pytest.raises(ValueError, match=match):
+            flash_attention.flash_fwd(q, bad, q, h, scale=0.3)
+        o = torch.zeros_like(q)
+        lse = torch.zeros((b, l, h), device=dev)
+        with pytest.raises(ValueError, match=match):
+            flash_attention.flash_bwd(q, q, bad, o, lse, q, h, scale=0.3)
+    torch.cuda.synchronize()
+    assert not any(launch_counts().values()), launch_counts()
 
 
 def test_flash_heads_kernel_reads_strided_views(dev):

@@ -238,3 +238,99 @@ def test_flash_heads_wrappers_check_inputs():
     assert lse.shape == (2, 3, 4)
     with pytest.raises(ValueError, match="lse must be"):
         fa.flash_bwd_heads(q, q, q, o, lse.transpose(1, 2), q, scale=1.0)
+
+
+# flash_route: the bf16 / f32 route rule and TMA's 16-byte rules, on plain
+# ints. A packed (b, l, h*d) bf16 operand at the training shape (8, 512,
+# 16, 64): (batch, row, head) element strides (512 * 1024, 1024, 64).
+TRAIN_OPERAND = ("q", 0x7F0000000000, (512 * 1024, 1024, 64), (8, 512, 16))
+
+
+@pytest.mark.parametrize("dtype,operands,block_q,block_k,want", [
+    # the training path: bf16 -> tensor cores, FFConfig's 512 caps at 128
+    (torch.bfloat16, [TRAIN_OPERAND], 512, 512, ("tc", 128, 128)),
+    # f32 -> CUDA cores, at most MAX_TILE rows, whatever the alignment
+    (torch.float32, [TRAIN_OPERAND], 512, 512, ("cc", 64, 64)),
+    (torch.float32, [("q", 0x7F0000000002, (9, 3, 1), (2, 5, 3))], 16, 32,
+     ("cc", 16, 32)),
+    # bf16 caps round up to the warpgroup's 64 rows, at most 128
+    (torch.bfloat16, [TRAIN_OPERAND], 1, 64, ("tc", 64, 64)),
+    (torch.bfloat16, [TRAIN_OPERAND], 65, 200, ("tc", 128, 128)),
+    (torch.bfloat16, [TRAIN_OPERAND], 16, 128, ("tc", 64, 128)),
+    # a dim of extent 1 is never stepped: its stride is not TMA's concern
+    (torch.bfloat16, [("q", 0x7F0000000010, (3, 24, 5), (1, 1, 1))], 64, 64,
+     ("tc", 64, 64)),
+    # blhd and bhld at the tensor-parallel rank's shape (8, 512, 8, 64)
+    (torch.bfloat16, [("q", 0x7F0000000000, (512 * 512, 512, 64),
+                       (8, 512, 8))], 512, 512, ("tc", 128, 128)),
+    (torch.bfloat16, [("q", 0x7F0000000000, (512 * 512, 64, 512 * 64),
+                       (8, 512, 8))], 512, 512, ("tc", 128, 128)),
+])
+def test_flash_route_picks_kernel_and_caps(dtype, operands, block_q, block_k,
+                                           want):
+    route = fa.flash_route(dtype, 64, operands, block_q, block_k)
+    assert (route.name, route.block_q, route.block_k) == want
+
+
+@pytest.mark.parametrize("operand,match", [
+    (("q", 0x7F0000000008, (512 * 1024, 1024, 64), (8, 512, 16)),
+     "base address 0x7f0000000008 is not 16-byte aligned"),
+    # d 12 packed, 4 heads: rows 96 bytes apart, heads 24
+    (("k", 0x7F0000000000, (512 * 48, 48, 12), (8, 512, 4)),
+     "head stride 12 elements"),
+    (("v", 0x7F0000000000, (512 * 1028, 1028, 64), (8, 512, 16)),
+     "row stride 1028 elements"),
+    (("do", 0x7F0000000000, (4, 1024, 64), (8, 512, 16)),
+     "batch stride 4 elements"),
+    # a broadcast (stride 0) dim that TMA would have to step
+    (("k", 0x7F0000000000, (0, 1024, 64), (8, 512, 16)),
+     "batch stride 0 elements"),
+])
+def test_flash_route_raises_on_tma_breach(operand, match):
+    with pytest.raises(ValueError, match=match):
+        fa.flash_route(torch.bfloat16, 64, [TRAIN_OPERAND, operand], 512,
+                       512)
+    # the f32 route has no such rule
+    assert fa.flash_route(torch.float32, 64, [operand], 512, 512).name == "cc"
+
+
+@pytest.mark.parametrize("head_dim,blocks,exc", [
+    (129, (64, 64), "head_dim 129"),
+    (0, (64, 64), "head_dim 0"),
+    (64, (0, 64), "block_q 0"),
+])
+def test_flash_route_checks_head_dim_and_blocks(head_dim, blocks, exc):
+    with pytest.raises(ValueError, match=exc):
+        fa.flash_route(torch.bfloat16, head_dim, [TRAIN_OPERAND], *blocks)
+
+
+def test_flash_launch_route_reads_tensors_as_the_launch_does():
+    """`launch_route` builds the operands a launch hands the C entry: the
+    packed training shape in bf16 goes to the tensor cores; a view whose
+    rows are 1028 elements apart, or whose base is 2 bytes off, raises
+    before anything launches; the f32 copy goes to the CUDA cores."""
+    b, l, h, d = 2, 8, 4, 16
+    q = torch.zeros(b, l, h * d, dtype=torch.bfloat16)
+    dims = (b, l, l, h, d)
+    lse = torch.zeros(b, l, h)
+    names = fa.FWD_OPERANDS
+
+    def layouts(*ts):
+        return [fa._packed(t, d) for t in ts] + [fa._stat(lse, "bl")]
+
+    route = fa.launch_route("flash_fwd", names, (q, q, q, q, lse),
+                            layouts(q, q, q, q), dims, 512, 512)
+    assert route == fa.Route("tc", 128, 128)
+    wide = torch.zeros(b, l, h * d + 4, dtype=torch.bfloat16)[..., :h * d]
+    with pytest.raises(ValueError, match="flash_fwd: k: row stride 68"):
+        fa.launch_route("flash_fwd", names, (q, wide, q, q, lse),
+                        layouts(q, wide, q, q), dims, 512, 512)
+    off = torch.zeros(b * l * h * d + 1, dtype=torch.bfloat16)[1:].view(
+        b, l, h * d)
+    with pytest.raises(ValueError, match="flash_fwd: v: base address"):
+        fa.launch_route("flash_fwd", names, (q, q, off, q, lse),
+                        layouts(q, q, off, q), dims, 512, 512)
+    f = q.float()
+    assert fa.launch_route("flash_fwd", names, (f, f, f, f, lse),
+                           layouts(f, f, f, f), dims, 32, 512) == \
+        fa.Route("cc", 32, 64)
