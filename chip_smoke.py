@@ -13,15 +13,18 @@ Phases, in order; any failure propagates and exits non-zero:
               shapes for RMSNorm and the reduction), and time kernel,
               plain version and one library call beside the least time
               the card could take; print ptxas's registers, spills and
-              shared memory of the bf16 tensor-core flash kernels and the
-              flash launches per route (tc: bf16, cc: f32);
+              shared memory of the bf16 tensor-core flash kernels, and
+              the decode and flash calls per route (tc: bf16 tensor
+              cores, cc: CUDA cores) with each decode row's plan (route,
+              splits; a split call is a kernel and a combine launch);
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
               fixed generator, bf16 mixed precision) through
               ContinuousBatcher(num_slots=8, max_len=1024, page_size=16):
               16 requests, prompts of 32-512 tokens, 32-64 new tokens
               each; every request must finish with exactly its token
-              count and every serving kernel must have launched;
+              count, every serving kernel must have launched, and every
+              decode and multi-query call must have taken the tc route;
  5. cross   — the first token's probabilities for two prompts on the card
               against the port on the CPU (plain versions), same weights;
  6. train   — bench.py's flagship BERT encoder at full width (batch 8,
@@ -207,6 +210,7 @@ def phase_kernels(torch, F):
         kc = torch.randn((b, M, H, D), generator=g, device=dev).to(dtype)
         vc = torch.randn((b, M, H, D), generator=g, device=dev).to(dtype)
         fn = getattr(decode, name)
+        plan = decode.decode_plan(b, c, M, H, D, 512, dtype, dtype)
         out = fn(q, kc, vc, pos, scale=scale, block_k=512)
         ref = decode.decode_attention_plain(q, kc, vc, pos, scale)
         torch.cuda.synchronize()
@@ -214,7 +218,10 @@ def phase_kernels(torch, F):
         ok = bool((err <= tol[0] + tol[1] * ref.float().abs()).all())
         row = {"shape": f"B={b} C={c} M={M} h={H} d={D} {dtype}".replace(
             "torch.", ""), "max_abs_err": float(err.max()),
-            "tolerance": f"|err| <= {tol[0]} + {tol[1]}*|plain|"}
+            "tolerance": f"|err| <= {tol[0]} + {tol[1]}*|plain|",
+            "plan": {"route": plan.route, "splits": plan.splits,
+                     "split_rows": plan.split_rows, "single": plan.single,
+                     "launches_per_call": plan.launches}}
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"at {row['shape']}: {row}")
@@ -958,13 +965,18 @@ def phase_train(torch, warmup=3, steps=10):
     b, seq = TRAIN["batch"], TRAIN["seq"]
     x, y = _train_batch()
     margins = [_cls_margins(torch, model, x)]
-    warm = model.fit(x, y, batch_size=b, epochs=1)
+    # fit returns one summary per epoch (one step each here); the per-step
+    # losses and times are its step_records
+    model.fit(x, y, batch_size=b, epochs=1)
+    warm = list(model.step_records)
     margins.append(_cls_margins(torch, model, x))
-    warm += model.fit(x, y, batch_size=b, epochs=warmup - 1)
+    model.fit(x, y, batch_size=b, epochs=warmup - 1)
+    warm += model.step_records
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    hist = model.fit(x, y, batch_size=b, epochs=steps)
+    model.fit(x, y, batch_size=b, epochs=steps)
+    hist = model.step_records
     torch.cuda.synchronize()
     launches = launch_counts()
     losses = [r["loss"] for r in warm + hist]
@@ -1038,10 +1050,11 @@ def phase_train_witness(torch, init, bf16_losses, steps=3):
         m = build_bench_model(dev, TRAIN["layers"], False, seed)
         m.load_params(init)
         margins = [_cls_margins(torch, m, x)]
-        losses = [m.fit(x, y, batch_size=TRAIN["batch"], epochs=1)[0]["loss"]]
+        m.fit(x, y, batch_size=TRAIN["batch"], epochs=1)
+        losses = [r["loss"] for r in m.step_records]
         margins.append(_cls_margins(torch, m, x))
-        losses += [r["loss"] for r in m.fit(x, y, batch_size=TRAIN["batch"],
-                                             epochs=steps - 1)]
+        m.fit(x, y, batch_size=TRAIN["batch"], epochs=steps - 1)
+        losses += [r["loss"] for r in m.step_records]
         out[name] = {"losses": losses, "cls_margins_before_after_step1":
                      margins, "seconds": time.perf_counter() - t0}
         del m
@@ -1235,7 +1248,8 @@ def phase_tier(torch, steps=3):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        hist = m.fit(x, y, batch_size=b, epochs=1)
+        m.fit(x, y, batch_size=b, epochs=1)
+        hist = m.step_records  # `steps` steps in the one epoch
         torch.cuda.synchronize()
         out[name] = {"losses": [r["loss"] for r in hist],
                      "accuracy": [r["accuracy"] for r in hist],
@@ -1335,9 +1349,11 @@ def main() -> int:
     from flexflow_tpu_torch.kernels import flash_attention as fa
     reset_launch_counts()
     table = phase_kernels(torch, F)
+    from flexflow_tpu_torch.kernels import decode as dec
     _emit({"phase": "kernels", "table": table,
-           # the flash launches of this phase by route: tc the bf16
-           # tensor-core kernels, cc the f32 CUDA-core ones
+           # the decode and flash calls of this phase by route: tc the
+           # bf16 tensor-core kernels, cc the CUDA-core ones
+           "decode_routes": dict(dec.ROUTES),
            "flash_routes": dict(fa.ROUTES),
            "flash_tc_ptxas": fa.tc_kernel_report()})
 
@@ -1381,6 +1397,13 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
+    # bf16 caches, head dim 64: every decode call on the tensor-core route
+    off_route = {k: (launches[k], launches[f"{k}/tc"])
+                 for k in ("decode_attention", "multiquery_decode_attention")
+                 if launches[f"{k}/tc"] != launches[k]}
+    if off_route:
+        raise AssertionError(f"decode calls (all, tc) off the tensor-core "
+                             f"route on the serving path: {off_route}")
     ttft = np.array([r.ttft_s for r in reqs]) * 1e3
     generated = int(sum(len(o) for o in outs))
     serve = {
@@ -1393,6 +1416,9 @@ def main() -> int:
         "decode_iter_ms": stats["decode_iter_s"] * 1e3,
         "decode_iterations": stats["decode_iterations"],
         "prefill_chunks": stats["prefill_chunks"],
+        "decode_routes": {k: launches[k] for k in launches
+                          if k.startswith(("decode_attention/",
+                                           "multiquery_decode_attention/"))},
         "launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -1455,9 +1481,9 @@ def main() -> int:
     # on rank 0), each counted from 0 just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
-        "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:115",
+        "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:130",
         "multiquery_decode_attention":
-            "flexflow_tpu/kernels/pallas/decode.py:115",
+            "flexflow_tpu/kernels/pallas/decode.py:130",
         "layernorm_fwd": "flexflow_tpu/kernels/pallas/norm.py:98",
         "softmax_fwd": "flexflow_tpu/kernels/pallas/norm.py:369",
         "flash_fwd": "flexflow_tpu/kernels/flash_attention.py:256",

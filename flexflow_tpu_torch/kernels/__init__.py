@@ -14,13 +14,14 @@ from typing import Dict
 
 from . import decode, flash_attention, norm, reduction
 
-_COUNTS = (decode.LAUNCHES, flash_attention.LAUNCHES,
+_COUNTS = (decode.LAUNCHES, decode.ROUTES, flash_attention.LAUNCHES,
            flash_attention.ROUTES, norm.LAUNCHES, reduction.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset, and the flash
-    wrappers' launches per route ("flash_fwd/tc", ...)."""
+    """Kernel launches per wrapper since the last reset, and the decode
+    and flash wrappers' launches per route ("decode_attention/tc",
+    "flash_fwd/tc", ...)."""
     return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 

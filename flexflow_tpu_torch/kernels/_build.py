@@ -122,8 +122,8 @@ def _compile(tag: str, lib_path: Path) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ff_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
-                                        i, i, p]
+    lib.ff_decode_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f,
+                                        i, i, i, i, i, i, i, p]
     lib.ff_decode_attention.restype = i
     lib.ff_layernorm_fwd.argtypes = [p, p, p, p, p, p, i, i, f, i, p]
     lib.ff_layernorm_fwd.restype = i

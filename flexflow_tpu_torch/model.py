@@ -27,7 +27,7 @@ from .kernels.registry import KERNELS
 from .runtime.collectives import gather_shards
 from .runtime.executor import Executor
 from .runtime.losses import Loss
-from .runtime.metrics import Metrics
+from .runtime.metrics import Metrics, PerfMetrics
 from .runtime.optimizers import Optimizer, SGDOptimizer
 from .search.simulator import TP_CAPABLE, TP_WEIGHT_SHARD_DIMS
 
@@ -44,6 +44,12 @@ class FFModel:
         self.opt_state: Optional[dict] = None
         self.comp_mode: Optional[CompMode] = None
         self.mesh: Optional[Mesh] = None
+        # one record per optimizer step of the last fit() call (epoch,
+        # step, loss, metrics, step_ms, samples_per_s): it stands in for
+        # the JAX package's `step_stats` (a StepStats ring,
+        # flexflow_tpu/model.py fit) until ROADMAP A9 ports
+        # obs/stepstats.py
+        self.step_records: List[Dict[str, float]] = []
         self._name_counts: Dict[OpType, int] = {}
         self._used_names: set = set()
 
@@ -274,12 +280,15 @@ class FFModel:
             steps_per_execution: int = 1) -> List[Dict[str, float]]:
         """Train on (x, y) for `epochs` passes of n // batch_size steps.
 
-        Returns the per-step history — one record per optimizer step with
-        its epoch, step, loss, the compiled metrics, host wall ms (from
-        the batch's copy to the device until its loss reaches the host)
-        and samples/s — where
-        the JAX package's fit returns one summary per epoch. Gradient
-        accumulation and several steps per dispatch are not ported."""
+        Returns the JAX package's history: one `PerfMetrics.summary()` per
+        epoch (samples, accuracy, loss, cce, sparse_cce, mse, rmse, mae)
+        with its `epoch` and `throughput` (samples per second over the
+        epoch's wall). Each optimizer step also appends a record to
+        `step_records` (emptied at the start of every call): its epoch,
+        step, loss, the compiled metrics, host wall ms (from the batch's
+        copy to the device until its loss reaches the host) and
+        samples/s. Gradient accumulation and several steps per dispatch
+        are not ported."""
         self._require_training("fit()")
         if accum_steps != 1:
             raise NotImplementedError(
@@ -298,17 +307,25 @@ class FFModel:
         if n < bs:
             raise ValueError(f"dataset has {n} samples but batch_size is "
                              f"{bs}; fit needs at least one full step")
+        self.step_records = []
         history: List[Dict[str, float]] = []
         for epoch in range(epochs):
+            perf = PerfMetrics()
+            t_epoch = time.time()
             for step in range(n // bs):
                 t0 = time.perf_counter()
                 inputs, label = self._batch(x, y, step * bs, (step + 1) * bs)
                 mvals = self._train_step(inputs, label, self.opt_state)
                 rec = {k: float(v) for k, v in mvals.items()}
                 dt = time.perf_counter() - t0
-                rec.update(epoch=epoch, step=len(history), step_ms=dt * 1e3,
-                           samples_per_s=bs / dt)
-                history.append(rec)
+                perf.update(bs, rec)
+                rec.update(epoch=epoch, step=len(self.step_records),
+                           step_ms=dt * 1e3, samples_per_s=bs / dt)
+                self.step_records.append(rec)
+            summ = perf.summary()
+            summ["epoch"] = epoch
+            summ["throughput"] = (n // bs) * bs / (time.time() - t_epoch)
+            history.append(summ)
         return history
 
     def eval(self, x, y, batch_size: Optional[int] = None

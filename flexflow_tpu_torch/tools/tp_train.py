@@ -146,8 +146,12 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
                                   job["grad_norms_of"])
     else:
         warm = job["steps"] - job["count_steps"]
-        hist = model.fit(x, y, batch_size=job["batch"],
-                         epochs=warm) if warm else []
+        # fit's per-step records (its history has one summary per epoch)
+        steps = []
+        if warm:
+            model.fit(x, y, batch_size=job["batch"], epochs=warm)
+            steps += model.step_records
+        n_warm = len(steps)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -155,19 +159,20 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         collectives.reset_staged()
         counted = job["count_steps"]
         if counted:
-            hist += model.fit(x, y, batch_size=job["batch"], epochs=counted)
+            model.fit(x, y, batch_size=job["batch"], epochs=counted)
+            steps += model.step_records
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             launches = launch_counts()
             out["launches_per_step"] = {k: n / counted
                                         for k, n in launches.items()}
-            out["ms_per_step"] = [r["step_ms"] for r in hist[warm:]]
+            out["ms_per_step"] = [r["step_ms"] for r in steps[n_warm:]]
             out["staged_per_step"] = {k: v / counted for k, v in
                                       collectives.STAGED.items()}
             out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev)
                                    / 2 ** 30 if dev.type == "cuda" else None)
-        out["losses"] = [r["loss"] for r in hist]
-        out["accuracy"] = [r["accuracy"] for r in hist]
+        out["losses"] = [r["loss"] for r in steps]
+        out["accuracy"] = [r["accuracy"] for r in steps]
         if job["eval"]:
             out["eval"] = model.eval(x, y, batch_size=job["batch"])
     # the weights every rank holds whole must agree to the bit

@@ -34,26 +34,203 @@ def _close(out, ref, tol):
     torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
-@pytest.mark.parametrize("c", [1, 3, 17])
-@pytest.mark.parametrize("block_k", [8, 64])
+# (C, M, block_k): M <= block_k runs the single-block order (M = 300: two
+# passes over 5 tiles); M = 1100 at block_k 512 the split path (6 splits
+# of 192 rows, the last of 140, 3 ring stages)
+@pytest.mark.parametrize("c,m,block_k", [
+    (1, 40, 8), (3, 40, 8), (17, 40, 8), (1, 40, 64), (3, 40, 64),
+    (17, 40, 64), (3, 300, 512), (1, 1100, 512), (16, 1100, 512)])
 @pytest.mark.parametrize("qdt,kvdt", [
     (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("d", [12, 16, 64])  # 12 x bf16: no 16-byte rows
-def test_decode_kernel_matches_plain(dev, c, block_k, qdt, kvdt, d):
-    g = torch.Generator(device=dev).manual_seed(c * 100 + block_k + d)
-    b, m, h = 4, 40, 3
+def test_decode_kernel_matches_plain(dev, c, m, block_k, qdt, kvdt, d):
+    g = torch.Generator(device=dev).manual_seed(c * 100 + block_k + d + m)
+    b, h = 4, 3
     q = torch.randn((b, c, h, d), generator=g, device=dev).to(qdt)
     kc = torch.randn((b, m, h, d), generator=g, device=dev).to(kvdt)
     vc = torch.randn((b, m, h, d), generator=g, device=dev).to(kvdt)
     # ragged: the first row only, mid-cache, the window ending at the edge
-    pos = torch.tensor([0, 5, 21, m - c], dtype=torch.int32, device=dev)
-    fn = decode.decode_attention if c == 1 \
-        else decode.multiquery_decode_attention
+    # (at M = 1100 some splits of every slot but the last are empty)
+    mid = {40: (5, 21), 300: (70, 200)}.get(m, (70, 600))
+    pos = torch.tensor([0, *mid, m - c], dtype=torch.int32, device=dev)
+    name = "decode_attention" if c == 1 else "multiquery_decode_attention"
+    fn = getattr(decode, name)
+    # the route rule: the tensor cores for bf16 q and caches with d a
+    # multiple of 8, CUDA-core f32 FMA otherwise
+    route = "tc" if qdt == kvdt == torch.bfloat16 and d % 8 == 0 else "cc"
+    reset_launch_counts()
     out = fn(q, kc, vc, pos, scale=d ** -0.5, block_k=block_k)
     ref = decode.decode_attention_plain(q, kc, vc, pos, d ** -0.5)
     assert out.dtype == qdt and out.shape == q.shape
+    counts = launch_counts()
+    assert counts[f"{name}/{route}"] == 1 and counts[name] == 1, counts
     _close(out, ref, BF16_TOL if torch.bfloat16 in (qdt, kvdt) else F32_TOL)
+
+
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+def _tc_split_order(q, kc, vc, pos, scale, plan):
+    """The tensor-core route's split-path op order, in torch: per split,
+    per 64-row tile, each warp's 16 rows through an online softmax in the
+    exp2 domain (scores pre-scaled by log2 e, masked at -1e30, a row with
+    nothing attended yet keeping 0 as its reference max) with the
+    unnormalised p rounded to bf16 before p.v, as the JAX multi-block
+    path rounds; then the warps, then the splits merged. It differs from
+    the kernel only in the order of f32 sums."""
+    b_, c, h, d = q.shape
+    m = kc.shape[1]
+    t_all = torch.einsum("bqhd,bkhd->bhqk", q.float(), kc.float()) * (
+        scale * LOG2E)
+    vf = vc.float()
+
+    def merge(ms, ls, accs):
+        ms, ls, accs = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        mx = torch.where(ls > 0, ms, torch.full_like(ms, NEG_INF)).amax(0)
+        mu = torch.where(mx == NEG_INF, torch.zeros_like(mx), mx)
+        w = torch.where(ls > 0, torch.exp2(ms - mu), torch.zeros_like(ms))
+        return mx, (w * ls).sum(0), (w[..., None] * accs).sum(0)
+
+    out = torch.empty((b_, c, h, d), device=q.device)
+    for b in range(b_):
+        p0 = int(pos[b])
+        for j0 in range(0, c, 16):
+            nq = min(16, c - j0)
+            span = max(0, min(p0 + j0 + nq, m))
+            lim = p0 + j0 + torch.arange(nq, device=q.device)
+            parts = []
+            for lo in range(0, span, plan.split_rows):
+                hi = min(lo + plan.split_rows, span)
+                warps = []
+                for w in range(4):
+                    mw = torch.full((h, nq), NEG_INF, device=q.device)
+                    lw = torch.zeros((h, nq), device=q.device)
+                    aw = torch.zeros((h, nq, d), device=q.device)
+                    for t0 in range(lo, hi, 64):
+                        k0, k1 = t0 + 16 * w, min(t0 + 16 * w + 16, hi)
+                        if k0 >= k1:
+                            continue
+                        keys = torch.arange(k0, k1, device=q.device)
+                        t = torch.where(keys[None, :] <= lim[:, None],
+                                        t_all[b, :, j0:j0 + nq, k0:k1],
+                                        NEG_INF)
+                        m_new = torch.maximum(mw, t.amax(-1))
+                        mu = torch.where(m_new == NEG_INF,
+                                         torch.zeros_like(m_new), m_new)
+                        corr = torch.exp2(mw - mu)
+                        p = torch.exp2(t - mu[..., None])
+                        lw = lw * corr + p.sum(-1)
+                        aw = aw * corr[..., None] + torch.einsum(
+                            "hqk,khd->hqd", p.to(torch.bfloat16).float(),
+                            vf[b, k0:k1])
+                        mw = m_new
+                    warps.append((mw, lw, aw))
+                parts.append(merge(*zip(*warps)))
+            _, tot, acc = merge(*zip(*parts))
+            tot = torch.where(tot == 0, torch.ones_like(tot), tot)
+            out[b, j0:j0 + nq] = (acc / tot[..., None]).permute(1, 0, 2)
+    return out.to(torch.bfloat16)
+
+
+# (C, M, block_k): the split path with one split (M = 40), with two query
+# tiles, with 6 splits of 3 ring stages and the combine (M = 1100); the
+# single path over 5 tiles (M = 300)
+@pytest.mark.parametrize("c,m,block_k", [
+    (3, 40, 8), (17, 40, 8), (1, 1100, 512), (16, 1100, 512),
+    (3, 300, 512)])
+@pytest.mark.parametrize("d", [8, 16, 64, 128, 256])  # every padded d
+def test_decode_tc_kernel_keeps_its_op_order(dev, c, m, block_k, d):
+    """Each head dim the tensor-core kernel pads to (16, 32 .. 256),
+    within one bf16 ulp (2^-7 relative, 2^-10 absolute) of its own op
+    order: the single path's is the plain version's ((p / l) rounded
+    before p.v); the split path's, the unnormalised p rounded, is
+    `_tc_split_order`. Against the plain version the split path differs
+    by where p is rounded, at wide head dims by more than BF16_TOL
+    always covers."""
+    g = torch.Generator(device=dev).manual_seed(7 * c + block_k + d + m)
+    b, h = 4, 3
+    q, kc, vc = (torch.randn(shape, generator=g, device=dev)
+                 .to(torch.bfloat16)
+                 for shape in ((b, c, h, d), (b, m, h, d), (b, m, h, d)))
+    pos = torch.tensor([0, 5, m // 2, m - c], dtype=torch.int32, device=dev)
+    plan = decode.decode_plan(b, c, m, h, d, block_k, torch.bfloat16,
+                              torch.bfloat16)
+    assert plan.route == "tc" and plan.single == (m <= block_k)
+    fn = decode.decode_attention if c == 1 \
+        else decode.multiquery_decode_attention
+    out = fn(q, kc, vc, pos, scale=d ** -0.5, block_k=block_k)
+    ref = decode.decode_attention_plain(q, kc, vc, pos, d ** -0.5) \
+        if plan.single else _tc_split_order(q, kc, vc, pos.cpu(),
+                                            d ** -0.5, plan)
+    _close(out, ref, dict(atol=2 ** -10, rtol=2 ** -7))
+
+
+def test_decode_tc_route_alignment(dev):
+    """The tensor-core route copies 16-byte chunks of q and the caches: a
+    contiguous operand whose base is not 16-byte aligned raises (it is
+    never sent to the other route); an aligned one runs."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, c, m, h, d = 2, 3, 200, 2, 16
+
+    def shifted(shape):  # contiguous, its base 2 bytes past an alignment
+        n = int(np.prod(shape))
+        flat = torch.randn((n + 1,), generator=g, device=dev)
+        return flat.to(torch.bfloat16)[1:].view(shape)
+
+    q = torch.randn((b, c, h, d), generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, m, h, d), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    pos = torch.tensor([7, m - c], dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    for args in ((shifted(q.shape), kc, vc), (q, shifted(kc.shape), vc),
+                 (q, kc, shifted(vc.shape))):
+        assert all(t.is_contiguous() for t in args)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            decode.multiquery_decode_attention(*args, pos, scale=0.25)
+    assert launch_counts()["multiquery_decode_attention"] == 0
+    out = decode.multiquery_decode_attention(q, kc, vc, pos, scale=0.25)
+    _close(out, decode.decode_attention_plain(q, kc, vc, pos, 0.25),
+           BF16_TOL)
+
+
+@pytest.mark.parametrize("hidden,heads", [(32, 4), (64, 2)])  # d 8, 32
+def test_batcher_bf16_decode_kernels_match_einsum_chain(dev, hidden, heads):
+    """Greedy tokens of the bf16 LM through the continuous batcher at
+    max_len <= block_k (the single-block order, tensor-core route) equal
+    those of the einsum decode chain: only the two decode families are
+    switched, every other op runs the same way in both runs."""
+    from flexflow_tpu_torch.kernels.registry import KERNELS
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+
+    lm = build_tiny_lm(2, 16, vocab=50, hidden=hidden, heads=heads,
+                       mixed_precision=True, device="cuda",
+                       generator=torch.Generator().manual_seed(21))
+    assert 32 <= lm.config.flash_block_k
+    rng = np.random.RandomState(22)
+    prompts = [rng.randint(1, 50, size=(n,)).astype(np.int32)
+               for n in (5, 11, 3, 8)]
+
+    def run(impl):
+        reset_launch_counts()
+        with KERNELS.override("attention_decode", impl), \
+                KERNELS.override("attention_decode_mq", impl), \
+                ContinuousBatcher(lm, max_len=32, num_slots=2, page_size=4,
+                                  max_queue=8) as cb:
+            toks = [r.result(timeout=120).tolist()
+                    for r in [cb.submit(p, 12) for p in prompts]]
+        return toks, launch_counts()
+
+    kernel, counts = run("pallas")
+    assert counts["decode_attention/tc"] > 0, counts
+    assert counts["multiquery_decode_attention/tc"] > 0, counts
+    assert counts["decode_attention/cc"] == 0, counts
+    einsum, counts = run("reference")
+    assert counts["decode_attention"] == 0, counts
+    assert counts["multiquery_decode_attention"] == 0, counts
+    assert kernel == einsum
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -451,6 +628,7 @@ def test_fit_step_on_card_matches_cpu_port(dev):
         assert launch_counts()[k] > 0, (k, launch_counts())
     h_cpu = cpu.fit(x, y, batch_size=4, epochs=1)
     assert h_gpu[0]["loss"] == pytest.approx(h_cpu[0]["loss"], rel=1e-4)
+    assert gpu.step_records[0]["loss"] == h_gpu[0]["loss"]  # one step
     for op, ws in cpu.params.items():
         for w, t in ws.items():
             torch.testing.assert_close(gpu.params[op][w].cpu(), t,

@@ -86,19 +86,6 @@ def _tier_data():
     return x, y
 
 
-def _epochs(hist, batch):
-    """The port's per-step history as the JAX fit's per-epoch summary:
-    the mean step loss, and round(accuracy * batch) correct samples."""
-    out = {}
-    for rec in hist:
-        e = out.setdefault(rec["epoch"], {"loss": [], "correct": 0})
-        e["loss"].append(rec["loss"])
-        e["correct"] += round(rec["accuracy"] * batch)
-    return [{"loss": float(np.mean(e["loss"])),
-             "accuracy": e["correct"] / (batch * len(e["loss"]))}
-            for _, e in sorted(out.items())]
-
-
 @pytest.mark.parametrize("impl", ["reference", "pallas"])
 def test_tier_graph_matches_jax(impl):
     """f32, 2 epochs of 2 steps: under the reference lowerings (auto on
@@ -113,7 +100,8 @@ def test_tier_graph_matches_jax(impl):
     with forced(KERNELS, families):
         ph = pm.fit(x, y, batch_size=4, epochs=2)
     assert launch_counts() == before  # the CPU runs no kernel
-    for j, p in zip(jh, _epochs(ph, 4)):
+    assert len(ph) == len(jh) == 2
+    for j, p in zip(jh, ph):
         assert p["loss"] == pytest.approx(j["loss"], **LOSS_TOL)
         assert p["accuracy"] == j["accuracy"]
     for op, ws in jm.params.items():
@@ -133,9 +121,13 @@ def test_tier_graph_reference_vs_forced_kernels():
     h_ref = ref.fit(x, y, batch_size=4, epochs=2)
     with forced(KERNELS, TIER):
         h_fused = fused.fit(x, y, batch_size=4, epochs=2)
-    for r, f in zip(h_ref, h_fused):
-        assert f["loss"] == pytest.approx(r["loss"], **LOSS_TOL)
-        assert f["accuracy"] == r["accuracy"]
+    # epoch by epoch (fit's history), then step by step (its step_records)
+    for hr, hf in ((h_ref, h_fused), (ref.step_records, fused.step_records)):
+        assert len(hr) == len(hf) > 0
+        for r, f in zip(hr, hf):
+            assert f["loss"] == pytest.approx(r["loss"], **LOSS_TOL)
+            assert f["accuracy"] == r["accuracy"]
+    assert len(ref.step_records) == 4
 
 
 def _axes_graph(m, pkg):
@@ -175,7 +167,8 @@ def test_norms_over_any_axes_match_jax(impl):
         jh = jm.fit([x], y, batch_size=4, epochs=2)
     with forced(KERNELS, families):
         ph = pm.fit(x, y, batch_size=4, epochs=2)
-    for j, p in zip(jh, _epochs(ph, 4)):
+    assert len(ph) == len(jh) == 2
+    for j, p in zip(jh, ph):
         assert p["loss"] == pytest.approx(j["loss"], **LOSS_TOL)
     for op, ws in jm.params.items():
         for w, v in ws.items():

@@ -159,7 +159,8 @@ def test_two_ranks_match_one_device(axes, tmp_path):
     x, y = _data()
     job = dict(JOB, seed=3, x=x, y=y, return_params=True)
     one = build_encoder(dict(job, axes={}), "cpu")
-    hist = one.fit(x, y, batch_size=B, epochs=STEPS)
+    one.fit(x, y, batch_size=B, epochs=STEPS)
+    hist = one.step_records  # per step, as tp_train reports the ranks'
     res = spawn_jobs(2, "cpu", [dict(job, axes=axes)], timeout_s=JOIN_S,
                      workdir=str(tmp_path))
     for r in res:

@@ -112,12 +112,15 @@ def test_f32_steps_match_jax(opt):
     _check_grads(jgrads, pgrads, F32_GRAD_RTOL)
     jh = jm.fit(x, y, batch_size=B, epochs=3)
     ph = pm.fit(x, y, batch_size=B, epochs=3)
-    assert len(ph) == 3 and [r["step"] for r in ph] == [0, 1, 2]
+    # one epoch of one step each: the history per epoch, the per-step
+    # records beside it
+    assert [r["epoch"] for r in ph] == [0, 1, 2]
+    assert [r["step"] for r in pm.step_records] == [0, 1, 2]
     for j, p in zip(jh, ph):
         assert p["loss"] == pytest.approx(j["loss"], **F32_LOSS)
-        # the JAX history counts round(accuracy * batch) correct samples
-        # (PerfMetrics.update), the port reports the token accuracy
-        assert round(p["accuracy"] * B) / B == j["accuracy"]
+        # both count round(accuracy * batch) correct samples
+        # (PerfMetrics.update)
+        assert p["accuracy"] == j["accuracy"]
     assert pm.opt_state["step"] == 3
     # bk's gradient is noise (see F32_GRAD_RTOL) that Adam normalises into
     # steps of its own: bk ends within ~1e-5 of 0 in both, with any sign
@@ -126,6 +129,52 @@ def test_f32_steps_match_jax(opt):
             np.testing.assert_allclose(pm.params[op][w].numpy(),
                                        np.asarray(v), rtol=1e-4, atol=5e-5,
                                        err_msg=f"{op}/{w}")
+
+
+def _mlp(pkg, config):
+    m = pkg.FFModel(config)
+    t = m.create_tensor([4, 20], pkg.DataType.DT_FLOAT)
+    t = m.dense(t, 16, pkg.ActiMode.AC_MODE_GELU, name="fc1")
+    m.softmax(m.dense(t, 4, name="fc2"))
+    m.compile(optimizer=pkg.SGDOptimizer(m, lr=0.05),
+              loss_type=pkg.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              metrics=[pkg.MetricsType.METRICS_ACCURACY])
+    return m
+
+
+def test_fit_history_matches_jax_per_epoch():
+    """fit returns the JAX package's history over several steps per
+    epoch: one PerfMetrics summary per epoch with its epoch and
+    throughput, key for key; the steps' records go to step_records."""
+    config = ff.FFConfig()
+    config.num_devices = 1
+    config.batch_size = 4
+    config.allow_mixed_precision = False
+    jm = _mlp(ff, config)
+    pm = _mlp(pt, pt.FFConfig(batch_size=4, allow_mixed_precision=False,
+                              device="cpu"))
+    pt.params_from_jax(pm, jm.params)
+    rng = np.random.RandomState(11)
+    x = rng.randn(16, 20).astype(np.float32)
+    y = rng.randint(0, 4, size=(16, 1)).astype(np.int32)
+    jh = jm.fit(x, y, batch_size=4, epochs=2)
+    ph = pm.fit(x, y, batch_size=4, epochs=2)
+    assert len(ph) == len(jh) == 2
+    for j, p in zip(jh, ph):
+        assert set(p) == set(j)
+        assert p["epoch"] == j["epoch"]
+        assert p["samples"] == j["samples"] == 16
+        assert p["accuracy"] == j["accuracy"]
+        assert p["throughput"] > 0
+        for k in ("loss", "cce", "sparse_cce", "mse", "rmse", "mae"):
+            assert p[k] == pytest.approx(j[k], **F32_LOSS), k
+    assert [(r["epoch"], r["step"]) for r in pm.step_records] == \
+        [(e, 4 * e + s) for e in range(2) for s in range(4)]
+    for e in range(2):  # equal batches: the epoch's loss is their mean
+        steps = [r["loss"] for r in pm.step_records if r["epoch"] == e]
+        assert ph[e]["loss"] == pytest.approx(np.mean(steps), rel=1e-6)
+    pm.fit(x, y, batch_size=4, epochs=1)
+    assert len(pm.step_records) == 4  # emptied by every call
 
 
 def test_bf16_mixed_precision_adam_matches_jax():
