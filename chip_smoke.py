@@ -10,12 +10,18 @@ Phases, in order; any failure propagates and exits non-zero:
  3. kernels — hold every kernel of the serving, training and kernel-tier
               paths against its plain PyTorch version on the card, in f32
               and bf16, at the shapes its path gives it (and at edge
-              shapes for RMSNorm and the reduction), and time kernel,
-              plain version and one library call beside the least time
-              the card could take; print ptxas's registers, spills and
-              shared memory of the bf16 tensor-core flash kernels, and
-              the decode and flash calls per route (tc: bf16 tensor
-              cores, cc: CUDA cores) with each decode row's plan (route,
+              shapes for the reduction, and for softmax and RMSNorm
+              forward every route of their plans at N in {1, 2, 10, 33,
+              300, 1000, 1024, 30522, 70000} x R in {1, 8, 16, 128, 4095},
+              two calls giving the same bits), and time kernel, plain
+              version and one library call beside the least time the
+              card could take (softmax at every path's shape, LayerNorm
+              also at the training shape); print ptxas's registers,
+              spills and shared memory of the bf16 tensor-core flash
+              kernels and of the softmax and RMSNorm forward kernels, and
+              the decode, flash, softmax and RMSNorm calls per route (tc:
+              bf16 tensor cores, cc: CUDA cores; rows, block, cluster,
+              loop; warp, block) with each decode row's plan (route,
               splits; a split call is a kernel and a combine launch);
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
@@ -23,8 +29,10 @@ Phases, in order; any failure propagates and exits non-zero:
               ContinuousBatcher(num_slots=8, max_len=1024, page_size=16):
               16 requests, prompts of 32-512 tokens, 32-64 new tokens
               each; every request must finish with exactly its token
-              count, every serving kernel must have launched, and every
-              decode and multi-query call must have taken the tc route;
+              count, every serving kernel must have launched, every
+              decode and multi-query call must have taken the tc route,
+              and every softmax (the LM head over 30522) the cluster
+              route;
  5. cross   — the first token's probabilities for two prompts on the card
               against the port on the CPU (plain versions), same weights;
  6. train   — bench.py's flagship BERT encoder at full width (batch 8,
@@ -34,8 +42,9 @@ Phases, in order; any failure propagates and exits non-zero:
               and labels from np.random.RandomState(0): warm-up steps,
               then timed steps; every loss finite, every training kernel
               launched its count per step (the 12 + 12 flash launches on
-              the bf16 tensor-core route), and the kernel registry (its
-              auto policy) picked the kernels;
+              the bf16 tensor-core route, the classifier's softmax on the
+              rows route), and the kernel registry (its auto policy)
+              picked the kernels;
  7. train-witness — the train phase's first three steps again from the
               same weights and batch in f32 on the card and in f32 on the
               CPU: per-step losses against the CPU's, and the classifier's
@@ -48,7 +57,8 @@ Phases, in order; any failure propagates and exits non-zero:
               -> layer_norm -> rms_norm -> dense(10) -> softmax, sparse CE
               and accuracy, SGD lr 0.05, data from RandomState(8)): 3 fit
               steps on the card in bf16 under kernel_impl="pallas" (each
-              kernel's launches per step asserted) and under "reference"
+              kernel's launches per step asserted, the softmax on the rows
+              route and the RMSNorm on the warp route) and under "reference"
               (no kernel launches), and on the CPU in f32 as a witness;
 10. ref-vs-kernel — the flagship cut to 2 layers, f32, two Adam steps on
               the card under kernel_impl="pallas" and "reference" (flash
@@ -101,13 +111,18 @@ TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
                   "layernorm_bwd": 24, "softmax_fwd": 1, "softmax_bwd": 1,
                   "reduce": 2}
 TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
-# the same flash launches by route: bf16, so all on the tensor cores
+# the same launches by route: the flash kernels in bf16, so all on the
+# tensor cores; the classifier's (4096, 2) softmax on the "rows" route
 TRAIN_ROUTES_PER_STEP = {"flash_fwd/tc": 12, "flash_bwd/tc": 12,
-                         "flash_fwd/cc": 0, "flash_bwd/cc": 0}
+                         "flash_fwd/cc": 0, "flash_bwd/cc": 0,
+                         "softmax_fwd/rows": 1}
 # launches per step of the kernel-tier graph under kernel_impl="pallas"
 TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
                  "rmsnorm_bwd": 1, "softmax_fwd": 1, "softmax_bwd": 1,
                  "reduce": 2}
+# the tier's (4096, 10) softmax takes "rows", its (4096, 1024) RMSNorm
+# "warp"
+TIER_ROUTES_PER_STEP = {"softmax_fwd/rows": 1, "rmsnorm_fwd/warp": 1}
 TIER_KERNELS = tuple(TIER_PER_STEP)
 # families the registry must pick the kernel for on the training path
 TRAIN_FAMILIES = ("attention", "layernorm", "softmax", "reduction")
@@ -117,7 +132,8 @@ TP_PER_STEP = {"flash_fwd_blhd": 12, "flash_bwd_blhd": 12, "flash_fwd": 0,
                "flash_bwd": 0, "layernorm_fwd": 24, "layernorm_bwd": 24,
                "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2}
 TP_ROUTES_PER_STEP = {"flash_fwd_blhd/tc": 12, "flash_bwd_blhd/tc": 12,
-                      "flash_fwd_blhd/cc": 0, "flash_bwd_blhd/cc": 0}
+                      "flash_fwd_blhd/cc": 0, "flash_bwd_blhd/cc": 0,
+                      "softmax_fwd/rows": 1}
 TP_KERNELS = ("flash_fwd_blhd", "flash_bwd_blhd")
 # launches of the standalone entries (phase 11)
 STANDALONE_LAUNCHES = {"flash_fwd_bhld": 1, "flash_bwd_bhld": 1,
@@ -282,6 +298,9 @@ def phase_kernels(torch, F):
             ops = 8 * x.numel()
         else:
             out = norm.softmax_fwd(x)
+            if not torch.equal(norm.softmax_fwd(x), out):
+                raise AssertionError(f"softmax_fwd: R={rows} N={n} {dtype} "
+                                     "differs between two calls")
             ref = norm.softmax_fwd_plain(x)
             run = lambda: norm.softmax_fwd(x)  # noqa: E731
             plain = lambda: norm.softmax_fwd_plain(x)  # noqa: E731
@@ -294,6 +313,8 @@ def phase_kernels(torch, F):
         row = {"shape": f"R={rows} N={n} {dtype}".replace("torch.", ""),
                "max_abs_err": float(err.max()),
                "tolerance": f"|err| <= {tol[0]} + {tol[1]}*|plain|"}
+        if name == "softmax_fwd":
+            row["plan"] = norm.softmax_plan(rows, n, dtype)._asdict()
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"at {row['shape']}: {row}")
@@ -312,12 +333,124 @@ def phase_kernels(torch, F):
         # the serving path: 8 decode rows / 16 rows of a prefill chunk
         table[name]["serving_shape"] = norm_case(
             name, 8, n, torch.bfloat16, tol, True)
+    # the other shapes the paths give them: LayerNorm's 24 launches a
+    # training step; softmax over a prefill chunk's 16 rows, the training
+    # step's classifier (4096, 2) and the tier's dense(10) (4096, 10)
+    table["layernorm_fwd"]["training_shape"] = norm_case(
+        "layernorm_fwd", 4096, 1024, torch.bfloat16, (1e-2, 1e-2), True)
+    table["softmax_fwd"]["path_shapes"] = {
+        path: norm_case("softmax_fwd", rows, n, torch.bfloat16,
+                        (1e-6, 1e-2), True)
+        for path, rows, n in (("prefill chunk", 16, 30522),
+                              ("train step", 4096, 2),
+                              ("tier step", 4096, 10))}
     del flush_buf
     table.update(train_kernels(torch, F, g))
     table.update(tier_kernels(torch, F, g))
     table.update(heads_kernels(torch, F, g))
     table.update(cumsum_kernels(torch, g))
+    edges = norm_route_edges(torch, g)
+    for name in ("softmax_fwd", "rmsnorm_fwd"):
+        table[name]["edges"] = edges[name]
     return table
+
+
+# the edge shapes every softmax_fwd and rmsnorm_fwd route is held at:
+# N x R, f32 and bf16 (RMSNorm with and without gamma); N = 300000 is
+# wider than a cluster of 8 holds (softmax's loop route)
+NORM_EDGE_N = (1, 2, 10, 33, 300, 1000, 1024, 30522, 70000)
+NORM_EDGE_R = (1, 8, 16, 128, 4095)
+
+
+def norm_route_edges(torch, g):
+    """softmax_fwd and rmsnorm_fwd against their plain versions at the
+    edge shapes, every route of both plans, at the tolerances of the
+    path-shape checks; two calls give the same bits; an RMSNorm row wider
+    than a block's shared memory raises ValueError, as the parent
+    refused it. Also each cluster plan's cudaOccupancyMaxActiveClusters
+    (at least 1). Returns {kernel: summary}."""
+    from flexflow_tpu_torch.kernels import _build, norm
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sm_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-6, 1e-2)}
+    rms_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+    out = {k: {"checked": 0, "routes": {}, "max_abs_err": 0.0}
+           for k in ("softmax_fwd", "rmsnorm_fwd")}
+
+    def note(name, route, row):
+        rec = out[name]
+        rec["checked"] += 1
+        rec["routes"][route] = rec["routes"].get(route, 0) + 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], row["max_abs_err"])
+
+    shapes = [(r, n) for n in NORM_EDGE_N for r in NORM_EDGE_R]
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, n in shapes + [(1, 300000), (3, 300000)]:
+            x = (torch.randn((rows, n), generator=g, device=dev) * 4).to(
+                dtype)
+            shape = f"R={rows} N={n} {dtype}".replace("torch.", "")
+            plan = norm.softmax_plan(rows, n, dtype, sms)
+            y = norm.softmax_fwd(x)
+            note("softmax_fwd", plan.route, _agree(
+                "softmax_fwd", y, norm.softmax_fwd_plain(x), sm_tol[dtype],
+                shape))
+            if not torch.equal(norm.softmax_fwd(x), y):
+                raise AssertionError(f"softmax_fwd: {shape} differs between "
+                                     "two calls")
+            del x, y
+        for rows, n in shapes:
+            for affine in (True, False):
+                x = (torch.randn((rows, n), generator=g, device=dev) * 2
+                     + 1).to(dtype)
+                gamma = torch.rand((n,), generator=g, device=dev) + 0.5                     if affine else None
+                shape = (f"R={rows} N={n} {dtype} "
+                         f"{'affine' if affine else 'plain'}").replace(
+                             "torch.", "")
+                if n > norm.rmsnorm_max_n(dtype):
+                    try:
+                        norm.rmsnorm_fwd(x, gamma)
+                    except ValueError:
+                        out["rmsnorm_fwd"]["refused"] = shape
+                        continue
+                    raise AssertionError(f"rmsnorm_fwd took {shape}")
+                plan = norm.rmsnorm_plan(rows, n, dtype, sms)
+                y, rstd = norm.rmsnorm_fwd(x, gamma)
+                ry, rrstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
+                note("rmsnorm_fwd", plan.route, _agree(
+                    "rmsnorm_fwd", y, ry, rms_tol[dtype], shape))
+                _agree("rmsnorm_fwd (rstd)", rstd, rrstd, rms_tol[
+                    torch.float32], shape)
+                y2, rstd2 = norm.rmsnorm_fwd(x, gamma)
+                if not (torch.equal(y2, y) and torch.equal(rstd2, rstd)):
+                    raise AssertionError(f"rmsnorm_fwd: {shape} differs "
+                                         "between two calls")
+                del x, y, y2
+    missing = [f"{k}/{r}" for k, routes in (
+        ("softmax_fwd", norm.SOFTMAX_ROUTES),
+        ("rmsnorm_fwd", norm.RMSNORM_ROUTES)) for r in routes
+        if r not in out[k]["routes"]]
+    if missing:
+        raise AssertionError(f"routes never held at the edges: {missing}")
+    lib = _build.library()
+    clusters = {}
+    for rows, n in ((8, 30522), (16, 30522), (1, 70000), (4095, 70000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = norm.softmax_plan(rows, n, dtype, sms)
+            fit = lib.ff_softmax_max_active_clusters(
+                plan.threads, plan.per_thread, plan.cluster,
+                _build.DTYPE_CODES[dtype])
+            key = (f"R={rows} N={n} {dtype}: {plan.cluster} x "
+                   f"{plan.threads}").replace("torch.", "")
+            clusters[key] = fit
+            if fit < 1:
+                raise AssertionError(f"softmax_fwd cluster plan {key} does "
+                                     f"not fit on the card ({fit})")
+    out["softmax_fwd"]["max_active_clusters"] = clusters
+    for rec in out.values():
+        rec["tolerance"] = "the path shapes' (f32 and bf16)"
+        rec["same_bits_on_two_calls"] = True
+    return out
 
 
 def _agree(name, out, ref, tol, shape):
@@ -485,8 +618,13 @@ def tier_kernels(torch, F, g):
                  f"{'affine' if affine else 'plain'}").replace("torch.", "")
         tol = f32_tol if dtype == torch.float32 else (2e-2, 2e-2)
         y, rstd = norm.rmsnorm_fwd(x, gamma)
+        y2, rstd2 = norm.rmsnorm_fwd(x, gamma)
+        if not (torch.equal(y2, y) and torch.equal(rstd2, rstd)):
+            raise AssertionError(f"rmsnorm_fwd: {shape} differs between two "
+                                 "calls")
         ry, rrstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
         fwd = _agree("rmsnorm_fwd", y, ry, tol, shape)
+        fwd["plan"] = norm.rmsnorm_plan(rows, n, dtype)._asdict()
         _agree("rmsnorm_fwd (rstd)", rstd, rrstd, f32_tol, shape)
         dx, dg = norm.rmsnorm_bwd(x, gamma, rstd, dy)
         rdx, rdg = norm.rmsnorm_bwd_plain(x, gamma, rstd, dy)
@@ -890,8 +1028,8 @@ def phase_tp(torch, train_losses, cross_card):
         "max_relative_diff_first3": max(rels),
         "launches_per_step": {k: first["launches_per_step"][k]
                               for k in TP_PER_STEP},
-        "flash_routes_per_step": {k: first["launches_per_step"][k]
-                                  for k in TP_ROUTES_PER_STEP},
+        "routes_per_step": {k: first["launches_per_step"][k]
+                            for k in TP_ROUTES_PER_STEP},
         "staged_per_step_rank0": first["staged_per_step"],
         "ms_per_step_rank0": first["ms_per_step"],
         "ms_per_step_note": "two ranks time-sharing one card over a "
@@ -1012,8 +1150,8 @@ def phase_train(torch, warmup=3, steps=10):
         "cls_margins_before_after_step1": margins,
         "launches": launches,
         "launches_per_step": {k: launches[k] / steps for k in TRAIN_KERNELS},
-        "flash_routes_per_step": {k: launches[k] / steps
-                                  for k in TRAIN_ROUTES_PER_STEP},
+        "routes_per_step": {k: launches[k] / steps
+                            for k in TRAIN_ROUTES_PER_STEP},
         "ff_kernel_selected_total": {f"{f}/{i}": v
                                      for (f, i), v in selected.items()},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1257,14 +1395,14 @@ def phase_tier(torch, steps=3):
                      "seconds": time.perf_counter() - t0}
         del m
     got = out["card_pallas_bf16"]["launches"]
-    wrong = {k: got[k] for k, n in TIER_PER_STEP.items()
-             if got[k] != n * steps}
-    extra = {k: n for k, n in got.items() if n and k not in TIER_PER_STEP}
+    expected = {**TIER_PER_STEP, **TIER_ROUTES_PER_STEP}
+    wrong = {k: got[k] for k, n in expected.items() if got[k] != n * steps}
+    extra = {k: n for k, n in got.items() if n and k not in expected}
     ran = {k: n for k, n in out["card_reference_bf16"]["launches"].items()
            if n}
     if wrong or extra or ran:
         raise AssertionError(f"tier: launches under pallas {wrong} {extra} "
-                             f"(expected {TIER_PER_STEP} per step), under "
+                             f"(expected {expected} per step), under "
                              f"reference {ran}")
     worst = {}
     for a, c in (("card_pallas_bf16", "card_reference_bf16"),
@@ -1280,7 +1418,7 @@ def phase_tier(torch, steps=3):
     return {"phase": "tier", "shape": [b, TRAIN["seq"], TRAIN["hidden"]],
             "steps": steps, **out,
             "launches_per_step_pallas": {k: got[k] / steps
-                                         for k in TIER_PER_STEP},
+                                         for k in expected},
             "max_relative_diff": worst,
             "tolerance": "|loss - other| <= 2e-2 |other| at every step"}
 
@@ -1350,12 +1488,21 @@ def main() -> int:
     reset_launch_counts()
     table = phase_kernels(torch, F)
     from flexflow_tpu_torch.kernels import decode as dec
+    from flexflow_tpu_torch.kernels import norm
     _emit({"phase": "kernels", "table": table,
            # the decode and flash calls of this phase by route: tc the
-           # bf16 tensor-core kernels, cc the CUDA-core ones
+           # bf16 tensor-core kernels, cc the CUDA-core ones; softmax and
+           # RMSNorm forward by their plans' routes
            "decode_routes": dict(dec.ROUTES),
            "flash_routes": dict(fa.ROUTES),
-           "flash_tc_ptxas": fa.tc_kernel_report()})
+           "norm_routes": dict(norm.ROUTES),
+           "flash_tc_ptxas": fa.tc_kernel_report(),
+           # empty where this process loaded a library built earlier
+           "norm_fwd_ptxas": [
+               r for r in _build.ptxas_report("norm.cu")
+               if r["kernel"].startswith(("softmax_", "rmsnorm_warp",
+                                          "rmsnorm_block"))
+               and not r["kernel"].startswith("softmax_bwd")]})
 
     # 4) serve: full width, random weights from a fixed generator
     hidden, heads, layers, vocab, window = 1024, 16, 12, 30522, 512
@@ -1404,6 +1551,13 @@ def main() -> int:
     if off_route:
         raise AssertionError(f"decode calls (all, tc) off the tensor-core "
                              f"route on the serving path: {off_route}")
+    # the LM head's softmax over the vocabulary, 8 decode rows or 16 rows
+    # of a prefill chunk: every call split over a thread-block cluster
+    softmax_routes = {k: n for k, n in launches.items()
+                      if k.startswith("softmax_fwd/")}
+    if softmax_routes["softmax_fwd/cluster"] != launches["softmax_fwd"]:
+        raise AssertionError(f"softmax_fwd calls off the cluster route on "
+                             f"the serving path: {softmax_routes}")
     ttft = np.array([r.ttft_s for r in reqs]) * 1e3
     generated = int(sum(len(o) for o in outs))
     serve = {
@@ -1419,6 +1573,7 @@ def main() -> int:
         "decode_routes": {k: launches[k] for k in launches
                           if k.startswith(("decode_attention/",
                                            "multiquery_decode_attention/"))},
+        "softmax_routes": softmax_routes,
         "launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }

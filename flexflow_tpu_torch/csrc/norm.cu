@@ -24,13 +24,46 @@
 // Bound on this card: bytes. Both read each element once and write it
 // once with a handful of operations per element.
 //
-// Design: one block per row, all statistics reduced in f32 with warp
-// shuffles. LayerNorm stages its row in shared memory as f32 (N = 1024 on
-// the serving path: 4 KB), so device memory is read once. Softmax rows are
-// the vocabulary (30522 wide): it loops over the row three times — max,
-// sum, write — and relies on L2 (50 MB) for the second and third reads
-// instead of holding the row in shared memory. Plain loads and stores;
-// vectorised and multi-row variants are later work.
+// Design of LayerNorm forward: one block per row, its statistics reduced
+// in f32 with warp shuffles; the row is staged in shared memory as f32
+// (N = 1024 on every path: 4 KB), so device memory is read once.
+//
+// Softmax forward and RMSNorm forward take a route that
+// kernels/norm.py `softmax_plan` / `rmsnorm_plan` choose from the shape
+// alone (rows, N, dtype); each route is a kernel below.
+//  - softmax "rows" (N <= 1024: the classifier's N = 2, the tier's 10):
+//    a group of 2^k lanes per row (one warp from N = 33), several rows a
+//    warp, a grid of a few blocks per SM walking the rows; the row sits
+//    in registers, reduced with shuffles only (no shared memory, no
+//    barrier); x is read once, exp taken once, y written once.
+//  - softmax "block" (wide rows, enough of them to fill the SMs: 128 x
+//    30522) and "cluster" (wide rows, few of them: the 8 decode rows and
+//    16 prefill-chunk rows over the vocabulary): the row, or its slice
+//    on a CTA of a thread-block cluster of 2, 4 or 8, sits in registers
+//    as f32 (at most 32 values a thread), read and written with 16-byte
+//    vectors; a row of 30522 bf16 is 4 mod 16 bytes long, so each row
+//    peels a head of up to 7 elements to the first 16-byte boundary and
+//    a tail, handled as scalars. Each CTA takes its (max, sum of e); the
+//    CTAs of a cluster exchange them through distributed shared memory
+//    and every CTA merges them in rank order (the same bits everywhere,
+//    on every run) before it writes its slice: one read of x, one exp.
+//  - softmax "loop" (rows wider than a cluster of 8 holds): one block of
+//    1024 threads a row, three passes over the row — max, sum, write —
+//    the re-reads left to L2 (50 MB).
+//  - RMSNorm "warp" (N <= 2048): one warp a row, the row in registers
+//    through 16-byte loads (scalar head and tail; the next row's loads
+//    issued before this row's sums), gamma in registers
+//    loaded once per warp and kept for all its rows while the rows'
+//    16-byte phase stays (N * size a multiple of 16: every row), the
+//    sum of x^2 in a fixed order (each lane's values in order, then a
+//    butterfly of shuffles), a persistent grid walking the rows; y =
+//    (x * rstd) * gamma in f32, rounded once, in the plain version's
+//    order.
+//  - RMSNorm "block" (larger N): one block of 256 threads a row, the row
+//    staged in shared memory as it was loaded (16-byte vectors), so
+//    device memory is read once; N * size <= 227 KB.
+// The vector routes need y at the same 16-byte phase as x (the wrapper
+// allocates it so).
 //
 // The backward kernels are bound by bytes too. LayerNorm backward gives
 // each block kLnBwdRows rows: the row's xhat and g sit in shared memory
@@ -39,19 +72,135 @@
 // adds the blocks' partial sums column by column in a fixed order — no
 // float atomics, so the sums are the same on every run. Softmax backward
 // gives each row one warp: at the classifier's N = 2 it is bound by launch
-// latency, not by bytes. RMSNorm is LayerNorm without the mean: its
-// forward holds the row in shared memory like layernorm_fwd, and its
-// backward takes layernorm_bwd's shape (kLnBwdRows rows a block, column
-// partials of dgamma, a second launch summing them in a fixed order).
+// latency, not by bytes. RMSNorm backward takes layernorm_bwd's shape
+// (kLnBwdRows rows a block, column partials of dgamma, a second launch
+// summing them in a fixed order).
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kLnThreads = 256;
-constexpr int kSoftmaxThreads = 1024;
+constexpr int kSoftmaxThreads = 1024;  // loop route; most of a regs CTA
+constexpr int kSoftmaxMaxPerThread = 32;  // f32 values a regs thread holds
+constexpr int kMaxCluster = 8;            // the portable cluster size
+constexpr int kRowsThreads = 128;         // softmax rows route
+constexpr int kRmsWarpThreads = 256;      // RMSNorm warp route: 8 rows
+constexpr int kRmsWarpMaxPerLane = 64;    // f32 values of x a lane holds
 constexpr int kLnBwdRows = 8;        // rows per block of layernorm_bwd
 constexpr int kReduceGroups = 16;    // partial-sum groups per column
 constexpr int kSoftmaxBwdThreads = 256;  // 8 rows per block, a warp each
+
+// route codes shared with kernels/norm.py SOFTMAX_ROUTES, RMSNORM_ROUTES
+enum SoftmaxRoute { kSoftmaxLoop = 0, kSoftmaxRows = 1, kSoftmaxBlock = 2,
+                    kSoftmaxCluster = 3 };
+enum RmsRoute { kRmsBlock = 0, kRmsWarp = 1 };
+
+// ---- rows as 16-byte vectors ---------------------------------------------
+
+template <typename T>
+constexpr int kVecElems = 16 / static_cast<int>(sizeof(T));
+
+// 16 bytes of T as f32 values (bf16 widens exactly: its bits shifted up)
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u,
+                                                      float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// f32 values rounded to T (round to nearest even, as from_f) as 16 bytes
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float* f);
+template <>
+__device__ __forceinline__ uint4 pack<float>(const float* f) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float* f) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = static_cast<uint32_t>(
+               __bfloat16_as_ushort(__float2bfloat16(f[2 * i]))) |
+           (static_cast<uint32_t>(
+                __bfloat16_as_ushort(__float2bfloat16(f[2 * i + 1])))
+            << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A row as `head` elements up to its first 16-byte boundary, `nv` 16-byte
+// vectors, then `tail` elements. Rows start wherever R x N puts them (a
+// bf16 row of 30522 is 4 mod 16 bytes long), so each row has its own.
+struct RowSplit {
+  int head, nv, tail;
+};
+
+template <typename T>
+__device__ __forceinline__ RowSplit row_split(const T* row, int n) {
+  constexpr int W = kVecElems<T>;
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+  const int head = min(mis ? (16 - mis) / static_cast<int>(sizeof(T)) : 0,
+                       n);
+  const int nv = (n - head) / W;
+  return {head, nv, n - head - nv * W};
+}
+
+// the head or tail element thread t takes (at most 14 of them), or -1
+__device__ __forceinline__ int edge_elem(const RowSplit& s, int n, int t) {
+  if (t < s.head) return t;
+  if (t < s.head + s.tail) return n - s.tail + (t - s.head);
+  return -1;
+}
+
+// W (a multiple of 4) f32 values of gamma from p: 16-byte loads where p is
+// 16-byte aligned, else one float at a time. A lane's W values sit 4W bytes
+// from its neighbour's, so one float a load would touch 8x the bytes it
+// uses: L1's rate, not the memory's, then bounds a warp's gather.
+template <int W>
+__device__ __forceinline__ void load_gamma(const float* p, bool aligned,
+                                           float (&g)[W]) {
+  if (aligned) {
+#pragma unroll
+    for (int j = 0; j < W; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + j);
+      g[j] = q.x;
+      g[j + 1] = q.y;
+      g[j + 2] = q.z;
+      g[j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j) g[j] = p[j];
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kLnThreads)
@@ -90,9 +239,152 @@ __global__ void __launch_bounds__(kLnThreads)
   }
 }
 
+// softmax "rows": LANES lanes a row (32 / LANES rows a warp), K values a
+// lane at columns lane + LANES * k; the warp's rows advance together, so
+// every shuffle has the full warp.
+template <typename T, int LANES, int K>
+__global__ void __launch_bounds__(kRowsThreads)
+    softmax_rows_kernel(const T* __restrict__ x, T* __restrict__ y, int R,
+                        int N) {
+  constexpr int kRowsPerWarp = 32 / LANES;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / LANES, li = lane % LANES;
+  const long warps = static_cast<long>(gridDim.x) * (blockDim.x >> 5);
+  for (long base = (static_cast<long>(blockIdx.x) * (blockDim.x >> 5) +
+                    (threadIdx.x >> 5)) * kRowsPerWarp;
+       base < R; base += warps * kRowsPerWarp) {
+    const long r = base + sub;
+    const bool live = r < R;
+    const T* xr = x + r * N;
+    float v[K];
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = li + k * LANES;
+      v[k] = live && i < N ? to_f(xr[i]) : -CUDART_INF_F;
+      m = fmaxf(m, v[k]);
+    }
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = expf(v[k] - m);  // 0 past N (a row past R is never written)
+      s += v[k];
+    }
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (live) {
+      const float inv = 1.f / s;
+      T* yr = y + r * N;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int i = li + k * LANES;
+        if (i < N) yr[i] = from_f<T>(v[k] * inv);
+      }
+    }
+  }
+}
+
+// softmax "block" (a cluster of 1) and "cluster": the CTA of rank c of a
+// row's cluster of C holds vectors [c * per, (c + 1) * per) of the row, at
+// most VECS a thread, and rank 0 the head and tail elements. It takes its
+// max m_c and s_c = sum exp(x - m_c); thread 0 of every CTA merges the
+// cluster's (m_c, s_c) in rank order, M = max m_c, S = sum s_c e^(m_c - M),
+// and the CTA writes e * (e^(m_c - M) / S), which is e * (1 / s) on one
+// CTA: one reciprocal a CTA in place of a division an element (within an
+// f32 ulp of e / s; the division's MUFU and refinement cost more than the
+// exp at 30 values a thread).
+template <typename T, int VECS>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+    softmax_regs_kernel(const T* __restrict__ x, T* __restrict__ y, int N) {
+  constexpr int W = kVecElems<T>;
+  __shared__ float red[32];
+  __shared__ float2 part;    // this CTA's (m_c, s_c), read by the cluster
+  __shared__ float2 merged;  // the row's (M, S)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t r = blockIdx.x / C;
+  const T* xr = x + r * N;
+  T* yr = y + r * N;
+  const RowSplit rs = row_split(xr, N);
+  const int per = (rs.nv + C - 1) / C;
+  const int v0 = rank * per, v1 = min(rs.nv, v0 + per);
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + rs.head);
+  uint4* yv = reinterpret_cast<uint4*>(yr + rs.head);
+  float v[VECS][W];
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    const int i = v0 + threadIdx.x + k * blockDim.x;
+    if (i < v1) {
+      unpack<T>(xv[i], v[k]);
+#pragma unroll
+      for (int j = 0; j < W; ++j) m = fmaxf(m, v[k][j]);
+    }
+  }
+  const int ei = rank == 0 ? edge_elem(rs, N, threadIdx.x) : -1;
+  float ev = ei >= 0 ? to_f(xr[ei]) : -CUDART_INF_F;
+  m = block_reduce<true>(fmaxf(m, ev), red);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    if (v0 + threadIdx.x + k * blockDim.x < v1) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        v[k][j] = expf(v[k][j] - m);
+        s += v[k][j];
+      }
+    }
+  }
+  if (ei >= 0) {
+    ev = expf(ev - m);
+    s += ev;
+  }
+  s = block_reduce<false>(s, red);
+  float f = 1.f;  // e^(m_c - M)
+  if (C > 1) {
+    if (threadIdx.x == 0) part = make_float2(m, s);
+    cluster.sync();
+    if (threadIdx.x == 0) {
+      float M = -CUDART_INF_F, S = 0.f;
+      for (int c = 0; c < C; ++c)
+        M = fmaxf(M, cluster.map_shared_rank(&part, c)->x);
+      for (int c = 0; c < C; ++c) {
+        const float2 p = *cluster.map_shared_rank(&part, c);
+        S += p.y * expf(p.x - M);
+      }
+      merged = make_float2(M, S);
+    }
+    // done with the other CTAs' partials; the matching wait, before this
+    // CTA exits, keeps its own alive until every CTA has read it
+    cluster_arrive();
+    __syncthreads();
+    f = expf(m - merged.x);
+    s = merged.y;
+  }
+  const float scale = f / s;
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    const int i = v0 + threadIdx.x + k * blockDim.x;
+    if (i < v1) {
+      float o[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) o[j] = v[k][j] * scale;
+      yv[i] = pack<T>(o);
+    }
+  }
+  if (ei >= 0) yr[ei] = from_f<T>(ev * scale);
+  if (C > 1) cluster_wait();
+}
+
+// softmax "loop": one block a row, three passes over it
 template <typename T>
 __global__ void __launch_bounds__(kSoftmaxThreads)
-    softmax_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int N) {
+    softmax_loop_kernel(const T* __restrict__ x, T* __restrict__ y, int N) {
   __shared__ float red[32];
   const size_t r = blockIdx.x;
   const T* xr = x + r * N;
@@ -208,28 +500,150 @@ __global__ void __launch_bounds__(kSoftmaxBwdThreads)
     dxr[i] = from_f<T>(to_f(yr[i]) * (to_f(dyr[i]) - s));
 }
 
+// One row of the RMSNorm warp route as a lane holds it: its split, its
+// vectors at indices lane + 32 * k, its head or tail element.
+template <typename T, int VECS>
+struct WarpRow {
+  RowSplit rs;
+  int ei;
+  float xe;
+  uint4 raw[VECS];
+
+  __device__ __forceinline__ void load(const T* x, long r, int N, int lane) {
+    const T* xr = x + r * N;
+    rs = row_split(xr, N);
+    ei = edge_elem(rs, N, lane);
+    const uint4* xv = reinterpret_cast<const uint4*>(xr + rs.head);
+#pragma unroll
+    for (int k = 0; k < VECS; ++k)
+      if (lane + 32 * k < rs.nv) raw[k] = xv[lane + 32 * k];
+    xe = ei >= 0 ? to_f(xr[ei]) : 0.f;
+  }
+};
+
+// RMSNorm "warp": one warp a row, the head and tail elements on lanes
+// 0-13; the next row's loads are issued before this row's sums, so two
+// rows of a warp are in flight.
+template <typename T, int VECS>
+__global__ void __launch_bounds__(kRmsWarpThreads)
+    rmsnorm_warp_kernel(const T* __restrict__ x,
+                        const float* __restrict__ gamma, T* __restrict__ y,
+                        float* __restrict__ rstd_out, int R, int N,
+                        float eps) {
+  constexpr int W = kVecElems<T>;
+  const int lane = threadIdx.x & 31;
+  const bool affine = gamma != nullptr;
+  const long warps = static_cast<long>(gridDim.x) * (blockDim.x >> 5);
+  float g[VECS][W];  // gamma at this lane's columns for rows of phase ghead
+  float ge = 1.f;    // and at its head or tail element
+  int ghead = -1;
+  long r = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) +
+           (threadIdx.x >> 5);
+  WarpRow<T, VECS> cur;
+  if (r < R) cur.load(x, r, N, lane);
+  for (; r < R; r += warps) {
+    WarpRow<T, VECS> next;
+    if (r + warps < R) next.load(x, r + warps, N, lane);
+    const RowSplit& rs = cur.rs;
+    const int ei = cur.ei;
+    if (affine && rs.head != ghead) {  // the same branch for the whole warp
+      const bool aligned =
+          (reinterpret_cast<uintptr_t>(gamma + rs.head) & 15) == 0;
+#pragma unroll
+      for (int k = 0; k < VECS; ++k)
+        if (lane + 32 * k < rs.nv)
+          load_gamma<W>(gamma + rs.head + (lane + 32 * k) * W, aligned,
+                        g[k]);
+      ge = ei >= 0 ? gamma[ei] : 1.f;
+      ghead = rs.head;
+    }
+    // sum of x^2: this lane's values in order, no fused multiply-add
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      if (lane + 32 * k < rs.nv) {
+        float f[W];
+        unpack<T>(cur.raw[k], f);
+#pragma unroll
+        for (int j = 0; j < W; ++j) s = __fadd_rn(s, __fmul_rn(f[j], f[j]));
+      }
+    }
+    if (ei >= 0) s = __fadd_rn(s, __fmul_rn(cur.xe, cur.xe));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    const float rstd = 1.f / sqrtf(s / N + eps);
+    if (lane == 0) rstd_out[r] = rstd;
+    T* yr = y + r * N;
+    uint4* yv = reinterpret_cast<uint4*>(yr + rs.head);
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      if (lane + 32 * k < rs.nv) {
+        float f[W];
+        unpack<T>(cur.raw[k], f);
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          f[j] = __fmul_rn(f[j], rstd);
+          if (affine) f[j] = __fmul_rn(f[j], g[k][j]);
+        }
+        yv[lane + 32 * k] = pack<T>(f);
+      }
+    }
+    if (ei >= 0) {
+      float o = __fmul_rn(cur.xe, rstd);
+      if (affine) o = __fmul_rn(o, ge);
+      yr[ei] = from_f<T>(o);
+    }
+    cur = next;
+  }
+}
+
+// RMSNorm "block": one block a row, its vectors staged in shared memory as
+// loaded (each thread rereads only the vectors it wrote)
 template <typename T>
 __global__ void __launch_bounds__(kLnThreads)
-    rmsnorm_fwd_kernel(const T* __restrict__ x,
-                       const float* __restrict__ gamma, T* __restrict__ y,
-                       float* __restrict__ rstd_out, int N, float eps) {
-  extern __shared__ float row[];
+    rmsnorm_block_kernel(const T* __restrict__ x,
+                         const float* __restrict__ gamma, T* __restrict__ y,
+                         float* __restrict__ rstd_out, int N, float eps) {
+  constexpr int W = kVecElems<T>;
+  extern __shared__ uint4 rms_row[];
   __shared__ float red[32];
   const size_t r = blockIdx.x;
   const T* xr = x + r * N;
+  const RowSplit rs = row_split(xr, N);
+  const int ei = edge_elem(rs, N, threadIdx.x);
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + rs.head);
   float s = 0.f;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const float v = to_f(xr[i]);
-    row[i] = v;  // each thread rereads only the elements it wrote
-    s += v * v;
+  for (int i = threadIdx.x; i < rs.nv; i += blockDim.x) {
+    const uint4 u = xv[i];
+    rms_row[i] = u;
+    float f[W];
+    unpack<T>(u, f);
+#pragma unroll
+    for (int j = 0; j < W; ++j) s = __fadd_rn(s, __fmul_rn(f[j], f[j]));
   }
-  const float ms = block_reduce<false>(s, red) / N;
-  const float rstd = 1.f / sqrtf(ms + eps);
+  const float xe = ei >= 0 ? to_f(xr[ei]) : 0.f;
+  if (ei >= 0) s = __fadd_rn(s, __fmul_rn(xe, xe));
+  const float rstd = 1.f / sqrtf(block_reduce<false>(s, red) / N + eps);
   T* yr = y + r * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    float v = row[i] * rstd;
-    if (gamma != nullptr) v *= gamma[i];
-    yr[i] = from_f<T>(v);
+  uint4* yv = reinterpret_cast<uint4*>(yr + rs.head);
+  const float* gr = gamma != nullptr ? gamma + rs.head : nullptr;
+  const bool aligned = (reinterpret_cast<uintptr_t>(gr) & 15) == 0;
+  for (int i = threadIdx.x; i < rs.nv; i += blockDim.x) {
+    float f[W], g[W];
+    unpack<T>(rms_row[i], f);
+    if (gr != nullptr) load_gamma<W>(gr + i * W, aligned, g);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      f[j] = __fmul_rn(f[j], rstd);
+      if (gr != nullptr) f[j] = __fmul_rn(f[j], g[j]);
+    }
+    yv[i] = pack<T>(f);
+  }
+  if (ei >= 0) {
+    float o = __fmul_rn(xe, rstd);
+    if (gamma != nullptr) o = __fmul_rn(o, gamma[ei]);
+    yr[ei] = from_f<T>(o);
   }
   if (threadIdx.x == 0) rstd_out[r] = rstd;
 }
@@ -277,14 +691,53 @@ __global__ void __launch_bounds__(kLnThreads)
 }
 
 template <typename T>
+using RmsWarpFn = void (*)(const T*, const float*, T*, float*, int, int,
+                           float);
+
+template <typename T, int V>
+RmsWarpFn<T> rms_warp_if_fits() {
+  if constexpr (V * kVecElems<T> <= kRmsWarpMaxPerLane)
+    return rmsnorm_warp_kernel<T, V>;
+  else
+    return nullptr;
+}
+
+template <typename T>
+RmsWarpFn<T> rms_warp_for(int vecs) {
+  switch (vecs) {
+    case 1: return rms_warp_if_fits<T, 1>();
+    case 2: return rms_warp_if_fits<T, 2>();
+    case 4: return rms_warp_if_fits<T, 4>();
+    case 8: return rms_warp_if_fits<T, 8>();
+    case 16: return rms_warp_if_fits<T, 16>();
+    default: return nullptr;
+  }
+}
+
+template <typename T>
 int launch_rmsnorm(const void* x, const float* gamma, void* y, float* rstd,
-                   int R, int N, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)N;
-  auto kernel = rmsnorm_fwd_kernel<T>;
+                   int R, int N, float eps, int route, int threads,
+                   int blocks, int vecs, cudaStream_t stream) {
+  constexpr int W = kVecElems<T>;
+  // both routes read and write a row with the same 16-byte vectors
+  if ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(y)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (route == kRmsWarp) {
+    RmsWarpFn<T> kernel = rms_warp_for<T>(vecs);
+    if (kernel == nullptr || (N + W - 1) / W > 32 * vecs || blocks < 1 ||
+        threads % 32 != 0 || threads > kRmsWarpThreads)
+      return (int)cudaErrorInvalidValue;
+    kernel<<<blocks, threads, 0, stream>>>(xt, gamma, yt, rstd, R, N, eps);
+    return (int)cudaGetLastError();
+  }
+  if (route != kRmsBlock) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(uint4) * (size_t)(N / W);
+  auto kernel = rmsnorm_block_kernel<T>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<R, kLnThreads, smem, stream>>>(static_cast<const T*>(x), gamma,
-                                          static_cast<T*>(y), rstd, N, eps);
+  kernel<<<R, kLnThreads, smem, stream>>>(xt, gamma, yt, rstd, N, eps);
   return (int)cudaGetLastError();
 }
 
@@ -322,10 +775,143 @@ int launch_layernorm(const void* x, const float* gamma, const float* beta,
 }
 
 template <typename T>
-int launch_softmax(const void* x, void* y, int R, int N, cudaStream_t stream) {
-  softmax_fwd_kernel<T><<<R, kSoftmaxThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), N);
+using SoftmaxRegsFn = void (*)(const T*, T*, int);
+
+template <typename T, int V>
+SoftmaxRegsFn<T> regs_if_fits() {
+  if constexpr (V * kVecElems<T> <= kSoftmaxMaxPerThread)
+    return softmax_regs_kernel<T, V>;
+  else
+    return nullptr;
+}
+
+template <typename T>
+SoftmaxRegsFn<T> softmax_regs_for(int vecs) {
+  switch (vecs) {
+    case 1: return regs_if_fits<T, 1>();
+    case 2: return regs_if_fits<T, 2>();
+    case 3: return regs_if_fits<T, 3>();
+    case 4: return regs_if_fits<T, 4>();
+    case 5: return regs_if_fits<T, 5>();
+    case 6: return regs_if_fits<T, 6>();
+    case 7: return regs_if_fits<T, 7>();
+    case 8: return regs_if_fits<T, 8>();
+    default: return nullptr;
+  }
+}
+
+// a launch of R rows on clusters of `cluster` CTAs (attr: one attribute)
+inline cudaLaunchConfig_t regs_config(int R, int threads, int cluster,
+                                      cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(R) * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+template <typename T>
+int launch_softmax_regs(const T* x, T* y, int R, int N, int threads,
+                        int vecs, int cluster, cudaStream_t stream) {
+  constexpr int W = kVecElems<T>;
+  SoftmaxRegsFn<T> kernel = softmax_regs_for<T>(vecs);
+  if (kernel == nullptr || threads < 32 || threads > kSoftmaxThreads ||
+      cluster < 1 || cluster > kMaxCluster ||
+      ((N + W - 1) / W + cluster - 1) / cluster > threads * vecs)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(y)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = regs_config(R, threads, cluster, stream,
+                                             &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, y, N);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename T, int LANES, int K>
+int launch_rows(const T* x, T* y, int R, int N, int threads, int blocks,
+                cudaStream_t stream) {
+  softmax_rows_kernel<T, LANES, K><<<blocks, threads, 0, stream>>>(x, y, R,
+                                                                   N);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_softmax_rows(const T* x, T* y, int R, int N, int threads,
+                        int blocks, int lanes, int k, cudaStream_t stream) {
+  if (lanes * k < N || blocks < 1 || threads % 32 != 0 ||
+      threads > kRowsThreads)
+    return (int)cudaErrorInvalidValue;
+  if (k == 1) {
+    switch (lanes) {
+      case 1: return launch_rows<T, 1, 1>(x, y, R, N, threads, blocks, stream);
+      case 2: return launch_rows<T, 2, 1>(x, y, R, N, threads, blocks, stream);
+      case 4: return launch_rows<T, 4, 1>(x, y, R, N, threads, blocks, stream);
+      case 8: return launch_rows<T, 8, 1>(x, y, R, N, threads, blocks, stream);
+      case 16:
+        return launch_rows<T, 16, 1>(x, y, R, N, threads, blocks, stream);
+      case 32:
+        return launch_rows<T, 32, 1>(x, y, R, N, threads, blocks, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (lanes != 32) return (int)cudaErrorInvalidValue;
+  switch (k) {
+    case 2: return launch_rows<T, 32, 2>(x, y, R, N, threads, blocks, stream);
+    case 4: return launch_rows<T, 32, 4>(x, y, R, N, threads, blocks, stream);
+    case 8: return launch_rows<T, 32, 8>(x, y, R, N, threads, blocks, stream);
+    case 16:
+      return launch_rows<T, 32, 16>(x, y, R, N, threads, blocks, stream);
+    case 32:
+      return launch_rows<T, 32, 32>(x, y, R, N, threads, blocks, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch_softmax(const void* x, void* y, int R, int N, int route,
+                   int threads, int blocks, int per_thread, int lanes,
+                   int cluster, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  switch (route) {
+    case kSoftmaxRows:
+      return launch_softmax_rows<T>(xt, yt, R, N, threads, blocks, lanes,
+                                    per_thread, stream);
+    case kSoftmaxBlock:
+      return launch_softmax_regs<T>(xt, yt, R, N, threads, per_thread, 1,
+                                    stream);
+    case kSoftmaxCluster:
+      return launch_softmax_regs<T>(xt, yt, R, N, threads, per_thread,
+                                    cluster, stream);
+    case kSoftmaxLoop:
+      softmax_loop_kernel<T><<<R, kSoftmaxThreads, 0, stream>>>(xt, yt, N);
+      return (int)cudaGetLastError();
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int max_active_clusters(int threads, int vecs, int cluster) {
+  SoftmaxRegsFn<T> kernel = softmax_regs_for<T>(vecs);
+  if (kernel == nullptr || cluster < 1 || cluster > kMaxCluster)
+    return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = regs_config(1, threads, cluster, nullptr, &attr);
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 template <typename T>
@@ -402,22 +988,47 @@ extern "C" int ff_layernorm_fwd(const void* x, const float* gamma,
   return (int)cudaErrorInvalidValue;
 }
 
+// the plan's arguments (kernels/norm.py SoftmaxPlan) follow the stream:
+// route, threads a block, blocks (rows route), values a thread (rows: K;
+// block and cluster: 16-byte vectors), lanes a row (rows), cluster size
 extern "C" int ff_softmax_fwd(const void* x, void* y, int R, int N, int dtype,
-                              void* stream) {
+                              void* stream, int route, int threads,
+                              int blocks, int per_thread, int lanes,
+                              int cluster) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == FF_F32) return launch_softmax<float>(x, y, R, N, s);
-  if (dtype == FF_BF16) return launch_softmax<__nv_bfloat16>(x, y, R, N, s);
+  if (dtype == FF_F32)
+    return launch_softmax<float>(x, y, R, N, route, threads, blocks,
+                                 per_thread, lanes, cluster, s);
+  if (dtype == FF_BF16)
+    return launch_softmax<__nv_bfloat16>(x, y, R, N, route, threads, blocks,
+                                         per_thread, lanes, cluster, s);
   return (int)cudaErrorInvalidValue;
 }
 
+// clusters of the block / cluster route's kernel that fit on the card at
+// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error
+extern "C" int ff_softmax_max_active_clusters(int threads, int vecs,
+                                              int cluster, int dtype) {
+  if (dtype == FF_F32) return max_active_clusters<float>(threads, vecs,
+                                                         cluster);
+  if (dtype == FF_BF16)
+    return max_active_clusters<__nv_bfloat16>(threads, vecs, cluster);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// the plan's arguments (kernels/norm.py RmsNormPlan) follow the stream:
+// route, threads a block, blocks (warp route), 16-byte vectors a lane
 extern "C" int ff_rmsnorm_fwd(const void* x, const float* gamma, void* y,
                               float* rstd, int R, int N, float eps, int dtype,
-                              void* stream) {
+                              void* stream, int route, int threads,
+                              int blocks, int vecs) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32)
-    return launch_rmsnorm<float>(x, gamma, y, rstd, R, N, eps, s);
+    return launch_rmsnorm<float>(x, gamma, y, rstd, R, N, eps, route,
+                                 threads, blocks, vecs, s);
   if (dtype == FF_BF16)
-    return launch_rmsnorm<__nv_bfloat16>(x, gamma, y, rstd, R, N, eps, s);
+    return launch_rmsnorm<__nv_bfloat16>(x, gamma, y, rstd, R, N, eps, route,
+                                         threads, blocks, vecs, s);
   return (int)cudaErrorInvalidValue;
 }
 

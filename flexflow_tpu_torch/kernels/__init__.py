@@ -15,13 +15,14 @@ from typing import Dict
 from . import decode, flash_attention, norm, reduction
 
 _COUNTS = (decode.LAUNCHES, decode.ROUTES, flash_attention.LAUNCHES,
-           flash_attention.ROUTES, norm.LAUNCHES, reduction.LAUNCHES)
+           flash_attention.ROUTES, norm.LAUNCHES, norm.ROUTES,
+           reduction.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset, and the decode
-    and flash wrappers' launches per route ("decode_attention/tc",
-    "flash_fwd/tc", ...)."""
+    """Kernel launches per wrapper since the last reset, and the decode,
+    flash, softmax_fwd and rmsnorm_fwd wrappers' launches per route
+    ("decode_attention/tc", "flash_fwd/tc", "softmax_fwd/rows", ...)."""
     return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 

@@ -127,8 +127,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_decode_attention.restype = i
     lib.ff_layernorm_fwd.argtypes = [p, p, p, p, p, p, i, i, f, i, p]
     lib.ff_layernorm_fwd.restype = i
-    lib.ff_softmax_fwd.argtypes = [p, p, i, i, i, p]
+    lib.ff_softmax_fwd.argtypes = [p, p, i, i, i, p, i, i, i, i, i, i]
     lib.ff_softmax_fwd.restype = i
+    lib.ff_softmax_max_active_clusters.argtypes = [i, i, i, i]
+    lib.ff_softmax_max_active_clusters.restype = i
     lib.ff_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                      p]
     lib.ff_layernorm_bwd.restype = i
@@ -142,7 +144,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                  i, f, i, i, i, i, p]
     lib.ff_flash_bwd.restype = i
-    lib.ff_rmsnorm_fwd.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.ff_rmsnorm_fwd.argtypes = [p, p, p, p, i, i, f, i, p, i, i, i, i]
     lib.ff_rmsnorm_fwd.restype = i
     lib.ff_rmsnorm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.ff_rmsnorm_bwd.restype = i
@@ -170,20 +172,40 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+# template arguments a kernel of csrc/ takes, as they are mangled
+_TEMPLATE_ARG = r"Li(-?\d+)E|(f)|(13__nv_bfloat16)"
+
+
 def _kernel_name(mangled: str) -> str:
-    """`name<args>` of a mangled template kernel whose arguments are ints
-    (`...16flash_bwd_dkv_tcILi64ELi2EEEv...`), else the mangled name."""
-    for m in re.finditer(r"\d+", mangled):
-        start = m.end()
-        for i in range(m.start(), start):  # a length may follow other digits
-            n = int(mangled[i:start])
-            ident, rest = mangled[start:start + n], mangled[start + n:]
-            args = re.match(r"I((?:Li-?\d+E)+)E", rest)
-            if len(ident) == n and re.fullmatch(r"[A-Za-z_]\w*", ident) \
-                    and args:
-                return (f"{ident}<" + ", ".join(
-                    re.findall(r"Li(-?\d+)E", args.group(1))) + ">")
-    return mangled
+    """`name<args>` of a mangled kernel, at namespace scope or in a
+    (possibly anonymous) namespace, whose template arguments are ints,
+    float or bf16 (`_Z16flash_bwd_dkv_tcILi64ELi2EEvPK...` ->
+    `flash_bwd_dkv_tc<64, 2>`, `_ZN..19rmsnorm_warp_kernelI13__nv_bfloat16
+    Li4EEEv...` -> `rmsnorm_warp_kernel<bf16, 4>`); a kernel that is no
+    template by its name alone; anything else as mangled."""
+    nested = mangled.startswith("_ZN")
+    if not mangled.startswith("_Z"):
+        return mangled
+    pos, ident = 3 if nested else 2, None
+    if mangled[pos:pos + 1] == "L":  # internal linkage
+        pos += 1
+    while True:  # the length-prefixed names, the innermost last
+        num = re.match(r"\d+", mangled[pos:])
+        if num is None:
+            break
+        pos += len(num.group())
+        ident = mangled[pos:pos + int(num.group())]
+        pos += int(num.group())
+        if not nested:
+            break
+    if ident is None:
+        return mangled
+    args = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[pos:])
+    if args is None:
+        return ident
+    names = [num or ("float" if f else "bf16")
+             for num, f, _ in re.findall(_TEMPLATE_ARG, args.group(1))]
+    return f"{ident}<" + ", ".join(names) + ">"
 
 
 def ptxas_report(source: str) -> List[Dict[str, object]]:

@@ -11,20 +11,31 @@ what the JAX custom VJPs save. All normalize
 the trailing axis with leading dims flattened into rows, compute in f32
 and store in x's dtype. The kernels are csrc/norm.cu. On the card all
 are bound by bytes (one read and one write per element, a few operations
-each); the forward kernels give each row a block, reduced with warp
-shuffles in f32, LayerNorm holding its row in shared memory, softmax
-looping over the 30522-wide vocabulary row and leaving the re-reads to
-L2. LayerNorm backward gives each block a few rows and sums dgamma and
-dbeta per block, then over blocks in a second launch in a fixed order;
-softmax backward gives each row a warp. RMSNorm follows LayerNorm's two
-designs without the mean.
+each). LayerNorm forward gives each row a block, reduced with warp
+shuffles in f32, holding its row in shared memory. Softmax forward and
+RMSNorm forward take a route that `softmax_plan` / `rmsnorm_plan` choose
+from the shape alone (rows, N, dtype: never a value, so no host sync):
+softmax "rows" (N <= ROWS_MAX_N: lanes of a warp per row, shuffles
+only), "block" (a wide row a CTA in registers, 16-byte vectors),
+"cluster" (a wide row split over a thread-block cluster of 2-8 CTAs
+that merge their (max, sum) in rank order through distributed shared
+memory: few rows) and "loop" (rows too wide for a cluster's registers:
+three passes, re-reads from L2); RMSNorm "warp" (N <= RMS_WARP_MAX_N:
+a warp a row in registers, gamma kept in registers) and "block" (a row
+a block, staged in shared memory). `softmax_split_plain` and
+`rmsnorm_warp_plain` repeat the cluster and warp routes' arithmetic in
+torch. LayerNorm backward gives each block a few rows and sums dgamma
+and dbeta per block, then over blocks in a second launch in a fixed
+order; softmax backward gives each row a warp. RMSNorm backward follows
+LayerNorm's without the mean.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -35,6 +46,257 @@ from . import _build
 LAUNCHES: Dict[str, int] = {"layernorm_fwd": 0, "layernorm_bwd": 0,
                             "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
                             "softmax_fwd": 0, "softmax_bwd": 0}
+# softmax_fwd and rmsnorm_fwd calls by route (csrc/norm.cu SoftmaxRoute,
+# RmsRoute), the codes the C entries take
+SOFTMAX_ROUTES = {"loop": 0, "rows": 1, "block": 2, "cluster": 3}
+RMSNORM_ROUTES = {"block": 0, "warp": 1}
+ROUTES: Dict[str, int] = {
+    **{f"softmax_fwd/{r}": 0 for r in SOFTMAX_ROUTES},
+    **{f"rmsnorm_fwd/{r}": 0 for r in RMSNORM_ROUTES}}
+# SMs of the card the plans assume when not told (H100 SXM)
+H100_SMS = 132
+# softmax "rows": N up to ROWS_MAX_N (lanes a row: the power of two at or
+# above N, 32 from N = 33), ROWS_THREADS a block, at most
+# ROWS_BLOCKS_PER_SM blocks an SM, the grid walking the rows
+ROWS_MAX_N = 1024
+ROWS_THREADS = 128
+ROWS_BLOCKS_PER_SM = 8
+# softmax "block" / "cluster": a CTA of 128-1024 threads holds its slice
+# as f32 values in registers, up to REGS_PER_THREAD a thread (fewer
+# threads with more values timed as fast or faster than 16 a thread at
+# every wide shape, tools/norm_bench.py); a row takes the least
+# power-of-two cluster with rows x cluster >= FILL_CTAS (at most
+# MAX_CLUSTER, the portable size), or the least that holds it; a row no
+# cluster holds takes "loop"
+REGS_PER_THREAD = 32
+REGS_MIN_THREADS, REGS_MAX_THREADS = 128, 1024
+MAX_CLUSTER = 8
+FILL_CTAS = 128
+LOOP_THREADS = 1024
+# RMSNorm "warp": N up to RMS_WARP_MAX_N (x and gamma in registers: at
+# most 64 f32 of each a lane), 8 warps a block, at most RMS_BLOCKS_PER_SM
+# blocks an SM, the grid walking the rows; "block": 256 threads a row
+RMS_WARP_MAX_N = 2048
+RMS_WARP_THREADS = 256
+RMS_BLOCKS_PER_SM = 2
+RMS_BLOCK_THREADS = 256
+# shared memory a block may use; the RMSNorm block route stages a row's
+# bytes beside 32 floats of reduction scratch
+SMEM_BYTES = 232448
+_ESZ = {torch.float32: 4, torch.bfloat16: 2}
+
+
+class SoftmaxPlan(NamedTuple):
+    """How one softmax_fwd call runs on the card (`softmax_plan`)."""
+    route: str       # "rows", "block", "cluster" or "loop"
+    threads: int     # a block (a CTA)
+    blocks: int      # the grid: rows x cluster on "block" / "cluster"
+    per_thread: int  # rows: values a lane; block / cluster: 16-byte
+    #                  vectors a thread; loop: 0
+    lanes: int       # rows: lanes a row; else 0
+    cluster: int     # CTAs a row: > 1 only on "cluster"
+
+
+class RmsNormPlan(NamedTuple):
+    """How one rmsnorm_fwd call runs on the card (`rmsnorm_plan`)."""
+    route: str    # "warp" or "block"
+    threads: int  # a block
+    blocks: int   # the grid
+    vecs: int     # warp: 16-byte vectors a lane; block: 0
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _shape(name, rows, n, dtype):
+    rows, n = int(rows), int(n)
+    if rows < 1 or n < 1:
+        raise ValueError(f"{name}: rows = {rows} and N = {n} must be >= 1")
+    if dtype not in _ESZ:
+        raise TypeError(f"{name}: dtype must be float32 or bfloat16, got "
+                        f"{dtype}")
+    return rows, n, _ESZ[dtype]
+
+
+def softmax_plan(rows: int, n: int, dtype,
+                 sms: int = H100_SMS) -> SoftmaxPlan:
+    """The route and launch of softmax_fwd over `rows` rows of N, from the
+    shape and dtype alone. N <= ROWS_MAX_N: "rows" (the training step's
+    (4096, 2), the tier's (4096, 10)). Wider: the cluster size c is the
+    least power of two with rows * c >= FILL_CTAS, capped at MAX_CLUSTER,
+    raised to the least that holds the row in registers (1024 threads x
+    REGS_PER_THREAD a CTA): c = 1 is "block" (128 x 30522), c > 1
+    "cluster" (the 8 decode rows and 16 prefill-chunk rows of 30522: c =
+    8); a row more than MAX_CLUSTER CTAs hold takes "loop". Threads per
+    CTA: the least power of two that holds the CTA's slice at
+    REGS_PER_THREAD values a thread, in [REGS_MIN_THREADS,
+    REGS_MAX_THREADS]."""
+    rows, n, esz = _shape("softmax_plan", rows, n, dtype)
+    if n <= ROWS_MAX_N:
+        lanes = min(32, _pow2_at_least(n))
+        k = _pow2_at_least(-(-n // 32)) if n > 32 else 1
+        per_block = ROWS_THREADS // 32 * (32 // lanes)
+        blocks = min(-(-rows // per_block), sms * ROWS_BLOCKS_PER_SM)
+        return SoftmaxPlan("rows", ROWS_THREADS, blocks, k, lanes, 1)
+    w = 16 // esz
+    nvec = -(-n // w)  # at most; a row's head leaves one fewer
+    need = _pow2_at_least(-(-nvec // (REGS_MAX_THREADS
+                                      * (REGS_PER_THREAD // w))))
+    if need > MAX_CLUSTER:
+        return SoftmaxPlan("loop", LOOP_THREADS, rows, 0, 0, 1)
+    c = max(need, min(MAX_CLUSTER, _pow2_at_least(-(-FILL_CTAS // rows))))
+    per_cta = -(-nvec // c)
+    threads = min(REGS_MAX_THREADS, max(REGS_MIN_THREADS, _pow2_at_least(
+        -(-per_cta * w // REGS_PER_THREAD))))
+    return SoftmaxPlan("block" if c == 1 else "cluster", threads, rows * c,
+                       -(-per_cta // threads), 0, c)
+
+
+def rmsnorm_max_n(dtype) -> int:
+    """The widest row rmsnorm_fwd takes on the card: the block route's
+    row in shared memory (f32 58080, as the parent's f32 staging)."""
+    return (SMEM_BYTES - 32 * 4) // _ESZ[dtype]
+
+
+def rmsnorm_plan(rows: int, n: int, dtype,
+                 sms: int = H100_SMS) -> RmsNormPlan:
+    """The route and launch of rmsnorm_fwd over `rows` rows of N, from the
+    shape and dtype alone: "warp" for N <= RMS_WARP_MAX_N (the tier's
+    (4096, 1024)), with the power of two of 16-byte vectors a lane that
+    holds the row; "block" up to `rmsnorm_max_n`; wider raises
+    ValueError."""
+    rows, n, esz = _shape("rmsnorm_plan", rows, n, dtype)
+    if n <= RMS_WARP_MAX_N:
+        vecs = _pow2_at_least(-(-(-(-n // (16 // esz))) // 32))
+        per_block = RMS_WARP_THREADS // 32
+        blocks = min(-(-rows // per_block), sms * RMS_BLOCKS_PER_SM)
+        return RmsNormPlan("warp", RMS_WARP_THREADS, blocks, vecs)
+    if n > rmsnorm_max_n(dtype):
+        raise ValueError(f"rmsnorm_fwd: N={n} > {rmsnorm_max_n(dtype)}, "
+                         "the widest row a block stages in shared memory")
+    return RmsNormPlan("block", RMS_BLOCK_THREADS, rows, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _empty_in_phase(x):
+    """An empty tensor like contiguous x at x's 16-byte phase, so that a
+    row of both starts at the same distance from a 16-byte boundary: the
+    vector routes read x and write y with the same 16-byte vectors."""
+    phase = x.data_ptr() % 16
+    y = torch.empty_like(x)
+    if y.data_ptr() % 16 == phase:
+        return y
+    esz = x.element_size()
+    buf = torch.empty(x.numel() + 16 // esz, dtype=x.dtype, device=x.device)
+    off = (phase - buf.data_ptr() % 16) % 16 // esz
+    return buf[off:off + x.numel()].view(x.shape)
+
+
+def _row_heads(rows: int, n: int, esz: int, phase: int):
+    """Each row's head (elements before its first 16-byte boundary) for a
+    tensor whose first row lies `phase` bytes past one."""
+    off = (phase + torch.arange(rows, dtype=torch.int64) * (n * esz)) % 16
+    return torch.clamp((16 - off) % 16 // esz, max=n)
+
+
+def softmax_split_plain(x, splits: int, phase: int = 0):
+    """The cluster route's arithmetic in torch, in f32, result in x.dtype:
+    each row cut as the kernel cuts it — a head to its first 16-byte
+    boundary (x's first row `phase` bytes past one), 16-byte vectors, a
+    tail — CTA c of `splits` taking vectors [c * per, (c + 1) * per) and
+    CTA 0 the head and tail; each CTA's m_c and s_c = sum exp(x - m_c);
+    M = max m_c and S = sum s_c e^(m_c - M) merged in rank order; y =
+    exp(x - m_c) * (e^(m_c - M) / S). (The order of the sums inside a CTA
+    is torch's.)"""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    esz = x.element_size()
+    w = 16 // esz
+    out = torch.empty_like(xf)
+    heads = _row_heads(xf.shape[0], n, esz, phase)
+    for head in heads.unique().tolist():
+        idx = (heads == head).nonzero().flatten()
+        rows = xf[idx]
+        nv = (n - head) // w
+        tail = n - head - nv * w
+        per = -(-nv // splits)
+        parts = []
+        for c in range(splits):
+            cols = list(range(head + min(nv, c * per) * w,
+                              head + min(nv, (c + 1) * per) * w))
+            if c == 0:
+                cols = list(range(head)) + cols + list(range(n - tail, n))
+            if not cols:
+                continue
+            cols = torch.tensor(cols, dtype=torch.int64)
+            m = rows[:, cols].amax(dim=1, keepdim=True)
+            e = torch.exp(rows[:, cols] - m)
+            parts.append((cols, m, e, e.sum(dim=1, keepdim=True)))
+        big_m = parts[0][1]
+        for _, m, _, _ in parts[1:]:
+            big_m = torch.maximum(big_m, m)
+        big_s = torch.zeros_like(big_m)
+        for _, m, _, s in parts:
+            big_s = big_s + s * torch.exp(m - big_m)
+        y = torch.empty_like(rows)
+        for cols, m, e, _ in parts:
+            y[:, cols] = e * (torch.exp(m - big_m) / big_s)
+        out[idx] = y
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def rmsnorm_warp_plain(x, gamma, eps: float, phase: int = 0):
+    """(y, rstd) in the warp route's order, in torch: each row cut into a
+    head, 16-byte vectors and a tail as the kernel cuts it (x's first row
+    `phase` bytes past a 16-byte boundary); lane l sums x^2 over its
+    vectors l, l + 32, ... element by element, then its head or tail
+    element, without fused multiply-adds; the 32 lane sums meet in a
+    butterfly (s + s[l ^ o] for o = 16, 8, 4, 2, 1); rstd = 1 /
+    sqrt(s / N + eps), each step rounded to f32; y = (x * rstd) * gamma,
+    rounded once to x.dtype. On the card's sums this gives the kernel's
+    bits."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    r = xf.shape[0]
+    esz = x.element_size()
+    w = 16 // esz
+    rstd = torch.empty((r, 1), dtype=torch.float32)
+    heads = _row_heads(r, n, esz, phase)
+    lanes = torch.arange(32)
+    for head in heads.unique().tolist():
+        idx = (heads == head).nonzero().flatten()
+        rows = xf[idx]
+        nv = (n - head) // w
+        tail = n - head - nv * w
+        k = -(-nv // 32)
+        body = torch.zeros((len(idx), k * 32, w), dtype=torch.float32)
+        body[:, :nv] = rows[:, head:head + nv * w].reshape(len(idx), nv, w)
+        body = body.reshape(len(idx), k, 32, w)
+        s = torch.zeros((len(idx), 32), dtype=torch.float32)
+        for kk in range(k):
+            for j in range(w):
+                v = body[:, kk, :, j]
+                s = s + v * v
+        edge = torch.zeros_like(s)
+        edge[:, :head] = rows[:, :head]
+        edge[:, head:head + tail] = rows[:, n - tail:]
+        s = s + edge * edge
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, lanes ^ o]
+        # sqrt correctly rounded, as the card's sqrtf (torch's f32 sqrt on
+        # the CPU is not): through f64, which rounds a square root right
+        rstd[idx] = 1 / torch.sqrt((s[:, :1] / n + eps).double()).float()
+    y = xf * rstd
+    if gamma is not None:
+        y = y * gamma.float()
+    return y.to(x.dtype).reshape(x.shape), rstd
+
+
 # f32 floats of shared memory a layernorm_bwd block stages per column
 # (xhat, g, and the dgamma / dbeta partial sums): N <= 227 KB / 16 B;
 # rmsnorm_bwd stages one sum fewer, the same bound keeps one rule
@@ -189,16 +451,19 @@ def rmsnorm_fwd(x, gamma=None, *, eps: float = 1e-6):
     if not _on_card("rmsnorm_fwd", x, *affine):
         return rmsnorm_fwd_plain(x, gamma, eps)
     r = x.numel() // n
-    y = torch.empty_like(x)
+    plan = rmsnorm_plan(r, n, x.dtype, _sm_count(x.device.index))
+    y = _empty_in_phase(x)
     rstd = torch.empty((r, 1), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.ff_rmsnorm_fwd(
             x.data_ptr(), gamma.data_ptr() if affine else None, y.data_ptr(),
             rstd.data_ptr(), r, n, float(eps), _build.DTYPE_CODES[x.dtype],
-            _build.stream_ptr(x.device))
+            _build.stream_ptr(x.device), RMSNORM_ROUTES[plan.route],
+            plan.threads, plan.blocks, plan.vecs)
     _build.check(err, "rmsnorm_fwd")
     LAUNCHES["rmsnorm_fwd"] += 1
+    ROUTES[f"rmsnorm_fwd/{plan.route}"] += 1
     return y, rstd
 
 
@@ -248,14 +513,19 @@ def softmax_fwd(x):
     if not _on_card("softmax_fwd", x):
         return softmax_fwd_plain(x)
     n = x.shape[-1]
-    y = torch.empty_like(x)
+    r = x.numel() // n
+    plan = softmax_plan(r, n, x.dtype, _sm_count(x.device.index))
+    y = _empty_in_phase(x)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.ff_softmax_fwd(x.data_ptr(), y.data_ptr(), x.numel() // n, n,
-                                 _build.DTYPE_CODES[x.dtype],
-                                 _build.stream_ptr(x.device))
+        err = lib.ff_softmax_fwd(
+            x.data_ptr(), y.data_ptr(), r, n, _build.DTYPE_CODES[x.dtype],
+            _build.stream_ptr(x.device), SOFTMAX_ROUTES[plan.route],
+            plan.threads, plan.blocks, plan.per_thread, plan.lanes,
+            plan.cluster)
     _build.check(err, "softmax_fwd")
     LAUNCHES["softmax_fwd"] += 1
+    ROUTES[f"softmax_fwd/{plan.route}"] += 1
     return y
 
 

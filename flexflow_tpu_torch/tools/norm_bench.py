@@ -1,0 +1,201 @@
+"""Time the softmax and RMSNorm forward kernels on one NVIDIA GPU.
+
+    python flexflow_tpu_torch/tools/norm_bench.py [--repeat N] [--sweep]
+
+Builds the kernel library, prints what ptxas reported for the forward
+kernels of csrc/norm.cu (registers, stack, spills), then times in bf16 at
+every shape the paths give them:
+ - `softmax_fwd` at (8, 30522) (a decode iteration's LM head), (16,
+   30522) (a prefill chunk's), (128, 30522) (the kernel table's), (4096,
+   2) (the training step's classifier) and (4096, 10) (the kernel-tier
+   graph's dense(10));
+ - `rmsnorm_fwd` at (4096, 1024) with gamma (the tier's rms_norm);
+ - `layernorm_fwd` at (4096, 1024) (24 launches a training step) and
+   (8, 1024) (a decode iteration), with gamma and beta;
+each beside one library call on the same inputs (`torch.softmax`,
+`F.rms_norm` and `F.layer_norm` with bf16 weights) and the least time the
+card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s,
+the larger). Device time from CUDA events around each call, the host's
+calls queued behind a sleep kernel, no L2 flush (the activations arrive
+hot from the op before, as on the paths): `repeat` rounds of 50 calls
+after a warm-up, each round's mean. Each shape also gives the largest
+difference from the plain version, and the calls per route where the
+package counts them. Two yardsticks of the same timing go beside them:
+an empty kernel (what any call pays) and a copy (`clone`) of a
+(4096, 1024) and a (128, 30522) bf16 tensor (one read and one write of
+the bytes). Prints one JSON line.
+
+`--sweep` (a checkout with `softmax_plan`) times the plans' alternatives:
+every cluster size at the wide softmax shapes (norm.FILL_CTAS set to
+rows x size; size 1 is the "block" route), the "rows" route against
+"block" at N = 256-1024 (norm.ROWS_MAX_N 1024 against 128), and the
+RMSNorm warp route's grid (norm.RMS_BLOCKS_PER_SM): how the constants
+in kernels/norm.py were chosen.
+
+It uses only the wrappers and absolute imports, so run as a file with an
+older checkout's root first on PYTHONPATH it times that checkout's
+kernels: the way to compare a parent with a change within one call
+(parent, change, change, parent).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_OPS_PER_S = 989e12
+SOFTMAX_SHAPES = ((8, 30522), (16, 30522), (128, 30522), (4096, 2),
+                  (4096, 10))
+NORM_SHAPES = (("rmsnorm_fwd", 4096, 1024), ("layernorm_fwd", 4096, 1024),
+               ("layernorm_fwd", 8, 1024))
+SWEEP_WIDE = ((8, 30522), (16, 30522), (64, 30522), (128, 30522))
+SWEEP_NARROW = ((4096, 256), (4096, 512), (4096, 1000), (4096, 1024),
+                (128, 1024))
+
+
+def _bound_ms(nbytes, ops):
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+
+
+def _cases(torch, F, norm, g):
+    """{name: (kernel call, library call, bound ms, max |kernel - plain|)}
+    on fresh bf16 inputs."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    out = {}
+    for rows, n in SOFTMAX_SHAPES:
+        x = (torch.randn((rows, n), generator=g, device=dev) * 4).to(bf16)
+        err = (norm.softmax_fwd(x).float()
+               - norm.softmax_fwd_plain(x).float()).abs().max()
+        out[f"softmax_fwd {rows}x{n}"] = (
+            lambda x=x: norm.softmax_fwd(x),
+            lambda x=x: torch.softmax(x, dim=-1),
+            _bound_ms(2 * x.numel() * 2, 5 * x.numel()), float(err))
+    for name, rows, n in NORM_SHAPES:
+        x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(
+            bf16)
+        gamma = torch.rand((n,), generator=g, device=dev) + 0.5
+        g16 = gamma.to(bf16)
+        if name == "rmsnorm_fwd":
+            y = norm.rmsnorm_fwd(x, gamma)[0]
+            ref = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)[0]
+            kernel = lambda x=x, gamma=gamma: norm.rmsnorm_fwd(  # noqa: E731
+                x, gamma)
+            lib = lambda x=x, g16=g16, n=n: F.rms_norm(  # noqa: E731
+                x, (n,), g16, 1e-6)
+            bound = _bound_ms(2 * x.numel() * 2 + n * 4 + rows * 4,
+                              4 * x.numel())
+        else:
+            beta = torch.randn((n,), generator=g, device=dev)
+            b16 = beta.to(bf16)
+            y = norm.layernorm_fwd(x, gamma, beta)[0]
+            ref = norm.layernorm_fwd_plain(x, gamma, beta, 1e-5)[0]
+            kernel = lambda x=x, gamma=gamma, beta=beta: (  # noqa: E731
+                norm.layernorm_fwd(x, gamma, beta))
+            lib = lambda x=x, g16=g16, b16=b16, n=n: F.layer_norm(  # noqa
+                x, (n,), g16, b16, 1e-5)
+            bound = _bound_ms(2 * x.numel() * 2 + 2 * n * 4 + 2 * rows * 4,
+                              8 * x.numel())
+        err = (y.float() - ref.float()).abs().max()
+        out[f"{name} {rows}x{n}"] = (kernel, lib, bound, float(err))
+    return out
+
+
+def _sweep(torch, norm, g, device_ms):
+    """Device ms under other plan constants, each restored afterwards."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    keep = (norm.FILL_CTAS, norm.ROWS_MAX_N, norm.RMS_BLOCKS_PER_SM)
+    out = {"cluster": {}, "rows_vs_block": {}, "rms_blocks_per_sm": {}}
+    try:
+        for rows, n in SWEEP_WIDE:
+            x = (torch.randn((rows, n), generator=g, device=dev) * 4).to(
+                bf16)
+            for c in (1, 2, 4, 8):
+                norm.FILL_CTAS = rows * c
+                plan = norm.softmax_plan(rows, n, bf16)
+                out["cluster"][f"{rows}x{n} c={plan.cluster} "
+                               f"threads={plan.threads}"] = min(
+                    device_ms(lambda: norm.softmax_fwd(x)) for _ in range(3))
+        norm.FILL_CTAS = keep[0]
+        for rows, n in SWEEP_NARROW:
+            x = (torch.randn((rows, n), generator=g, device=dev) * 4).to(
+                bf16)
+            for limit in (1024, 128):
+                norm.ROWS_MAX_N = limit
+                route = norm.softmax_plan(rows, n, bf16).route
+                out["rows_vs_block"][f"{rows}x{n} {route}"] = min(
+                    device_ms(lambda: norm.softmax_fwd(x)) for _ in range(3))
+        norm.ROWS_MAX_N = keep[1]
+        x = (torch.randn((4096, 1024), generator=g, device=dev) * 2 + 1).to(
+            bf16)
+        gamma = torch.rand((1024,), generator=g, device=dev) + 0.5
+        for per_sm in (1, 2, 3, 4, 8):
+            norm.RMS_BLOCKS_PER_SM = per_sm
+            out["rms_blocks_per_sm"][str(per_sm)] = min(
+                device_ms(lambda: norm.rmsnorm_fwd(x, gamma))
+                for _ in range(3))
+    finally:
+        norm.FILL_CTAS, norm.ROWS_MAX_N, norm.RMS_BLOCKS_PER_SM = keep
+    return out
+
+
+def main(argv=None) -> int:
+    import torch
+    import torch.nn.functional as F
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repeat", type=int, default=5)
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time other plan constants")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("norm_bench: no CUDA device visible", file=sys.stderr)
+        return 2
+    from flexflow_tpu_torch.kernels import _build, norm
+    from flexflow_tpu_torch.tools.decode_bench import _device_ms
+
+    def device_ms(fn):
+        return _device_ms(torch, fn, lambda: None)
+
+    _build.library()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {"device": torch.cuda.get_device_name(0), "package": norm.__file__,
+           # empty where this process loaded a library built earlier
+           "ptxas": [r for r in _build.ptxas_report("norm.cu")
+                     if re.search(r"softmax_(?!bwd)|rmsnorm_(?!bwd)",
+                                  str(r["kernel"]))]}
+    # yardsticks of this timing: an empty kernel (the floor any call pays)
+    # and a copy of the (4096, 1024) and (128, 30522) bf16 inputs, one read
+    # and one write of the bytes, as a norm or softmax moves them
+    out["empty_kernel_ms"] = [device_ms(lambda: torch.cuda._sleep(0))
+                              for _ in range(2)]
+    for rows, n in ((4096, 1024), (128, 30522)):
+        x = torch.randn((rows, n), device="cuda").to(torch.bfloat16)
+        out[f"copy_ms {rows}x{n}"] = [device_ms(x.clone) for _ in range(2)]
+    routes = getattr(norm, "ROUTES", None)
+    for name, (kernel, lib, bound, err) in _cases(torch, F, norm,
+                                                   g).items():
+        if routes is not None:
+            for key in routes:
+                routes[key] = 0
+        kernel()
+        row = {"ms": [device_ms(kernel) for _ in range(args.repeat)],
+               "library_ms": [device_ms(lib) for _ in range(2)],
+               "bound_ms": bound, "max_abs_err_vs_plain": err}
+        if routes is not None:
+            row["routes"] = {k: n for k, n in routes.items() if n}
+        out[name] = row
+    if args.sweep:
+        if not hasattr(norm, "softmax_plan"):
+            raise SystemExit("norm_bench --sweep: this checkout has no "
+                             "softmax_plan")
+        out["sweep"] = _sweep(torch, norm, g, device_ms)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

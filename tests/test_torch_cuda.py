@@ -633,3 +633,146 @@ def test_fit_step_on_card_matches_cpu_port(dev):
         for w, t in ws.items():
             torch.testing.assert_close(gpu.params[op][w].cpu(), t,
                                        atol=1e-5, rtol=1e-4)
+
+
+# softmax_fwd and rmsnorm_fwd by route (kernels/norm.py softmax_plan,
+# rmsnorm_plan) at the edge shapes: N x R, f32 and bf16
+NORM_EDGE_N = [1, 2, 10, 33, 300, 1000, 1024, 30522, 70000]
+NORM_EDGE_R = [1, 8, 16, 128, 4095]
+SOFTMAX_TOL = {torch.float32: dict(atol=1e-7, rtol=1e-4),
+               torch.bfloat16: dict(atol=1e-6, rtol=1e-2)}
+
+
+def _softmax_route_case(dev, rows, n, dtype, x=None):
+    if x is None:
+        g = torch.Generator(device=dev).manual_seed(rows * 7 + n)
+        x = (torch.randn((rows, n), generator=g, device=dev) * 4).to(dtype)
+    plan = norm.softmax_plan(rows, n, dtype,
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count)
+    reset_launch_counts()
+    y = norm.softmax_fwd(x)
+    counts = launch_counts()
+    assert counts["softmax_fwd"] == 1
+    assert counts[f"softmax_fwd/{plan.route}"] == 1, (plan, counts)
+    assert y.dtype == dtype and y.shape == x.shape
+    _close(y, norm.softmax_fwd_plain(x), SOFTMAX_TOL[dtype])
+    assert torch.equal(norm.softmax_fwd(x), y)  # the same bits every call
+    return plan, y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", NORM_EDGE_R)
+@pytest.mark.parametrize("n", NORM_EDGE_N)
+def test_softmax_routes_match_plain(dev, n, rows, dtype):
+    _softmax_route_case(dev, rows, n, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3])
+def test_softmax_loop_route_matches_plain(dev, rows, dtype):
+    plan, _ = _softmax_route_case(dev, rows, 300000, dtype)
+    assert plan.route == "loop"
+
+
+@pytest.mark.parametrize("rows,n", [(8, 30522), (16, 30522), (1, 70000)])
+@pytest.mark.parametrize("clusters", [2, 4, 8])
+def test_softmax_cluster_sizes_match_plain(dev, rows, n, clusters):
+    """Every cluster size the plan may choose (FILL_CTAS set to ask for
+    it), held against the plain version and the split emulation."""
+    keep = norm.FILL_CTAS
+    try:
+        norm.FILL_CTAS = rows * clusters
+        for dtype in (torch.float32, torch.bfloat16):
+            plan, y = _softmax_route_case(dev, rows, n, dtype)
+            # a row of 70000 needs 4 CTAs' registers at least
+            assert (plan.route, plan.cluster) == ("cluster", max(
+                clusters, 4 if n > 32768 else 1)), plan
+            x = (torch.randn((rows, n), device=dev) * 4).to(dtype)
+            y = norm.softmax_fwd(x)
+            _close(y, norm.softmax_split_plain(x.cpu(), plan.cluster).to(dev),
+                   SOFTMAX_TOL[dtype])
+    finally:
+        norm.FILL_CTAS = keep
+
+
+def test_softmax_cluster_sizes_fit_the_card(dev):
+    """cudaOccupancyMaxActiveClusters at the plans' sizes: every cluster
+    the plan may launch fits on the card at least once."""
+    from flexflow_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, n in ((8, 30522), (16, 30522), (1, 70000), (4095, 70000),
+                        (64, 30522)):
+            plan = norm.softmax_plan(rows, n, dtype)
+            got = lib.ff_softmax_max_active_clusters(
+                plan.threads, plan.per_thread, plan.cluster,
+                _build.DTYPE_CODES[dtype])
+            assert got >= 1, (rows, n, dtype, plan, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", NORM_EDGE_R)
+@pytest.mark.parametrize("n", NORM_EDGE_N)
+@pytest.mark.parametrize("affine", [True, False])
+def test_rmsnorm_routes_match_plain(dev, n, rows, dtype, affine):
+    g = torch.Generator(device=dev).manual_seed(rows * 3 + n)
+    x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(dtype)
+    gamma = torch.rand((n,), generator=g, device=dev) + 0.5 if affine \
+        else None
+    if n > norm.rmsnorm_max_n(dtype):  # the parent refused it too
+        with pytest.raises(ValueError, match="shared memory"):
+            norm.rmsnorm_fwd(x, gamma)
+        return
+    plan = norm.rmsnorm_plan(rows, n, dtype)
+    reset_launch_counts()
+    y, rstd = norm.rmsnorm_fwd(x, gamma)
+    assert launch_counts()[f"rmsnorm_fwd/{plan.route}"] == 1
+    ry, rrstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
+    _close(y, ry, F32_TOL if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    _close(rstd, rrstd, F32_TOL)
+    y2, rstd2 = norm.rmsnorm_fwd(x, gamma)
+    assert torch.equal(y2, y) and torch.equal(rstd2, rstd)
+    if plan.route == "warp":
+        # the emulation repeats the warp route's order of operations
+        ey, erstd = norm.rmsnorm_warp_plain(
+            x.cpu(), gamma.cpu() if affine else None, 1e-6)
+        assert torch.equal(rstd.cpu(), erstd)
+        assert torch.equal(y.cpu(), ey)
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("n", [1, 33, 300, 30522])
+def test_norm_vector_routes_read_rows_at_any_phase(dev, offset, n):
+    """bf16 x starting `offset` elements past a 16-byte boundary (rows of
+    N = 30522 are 4 mod 16 bytes long besides): y lands at x's phase, and
+    both kernels agree with their plain versions."""
+    rows = 9
+    buf = torch.randn(rows * n + 16, device=dev).bfloat16()
+    x = buf[offset:offset + rows * n].view(rows, n)
+    assert x.data_ptr() % 16 == 2 * offset
+    plan, y = _softmax_route_case(dev, rows, n, torch.bfloat16, x=x)
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+    gamma = torch.rand(n, device=dev) + 0.5
+    y, rstd = norm.rmsnorm_fwd(x, gamma)
+    ry, rrstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
+    _close(y, ry, dict(atol=2e-2, rtol=2e-2))
+    _close(rstd, rrstd, F32_TOL)
+
+
+def test_norm_forward_wrappers_raise_where_the_parent_raised(dev):
+    x = torch.randn((4, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.softmax_fwd(x.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.rmsnorm_fwd(x.t())
+    with pytest.raises(ValueError, match="non-empty"):
+        norm.softmax_fwd(torch.zeros((0, 64), device=dev))
+    with pytest.raises(ValueError, match="gamma must be"):
+        norm.rmsnorm_fwd(x, torch.ones(63, device=dev))
+    with pytest.raises(ValueError, match="several devices"):
+        norm.rmsnorm_fwd(x, torch.ones(64))
+    with pytest.raises(ValueError, match="shared memory"):
+        norm.rmsnorm_fwd(torch.randn((2, 58081), device=dev))
