@@ -9,19 +9,26 @@ Phases, in order; any failure propagates and exits non-zero:
  2. build   — compile the port's CUDA kernels from csrc/ and time it;
  3. kernels — hold every kernel of the serving, training and kernel-tier
               paths against its plain PyTorch version on the card, in f32
-              and bf16, at the shapes its path gives it (and at edge
-              shapes for the reduction, and for softmax and RMSNorm
-              forward every route of their plans at N in {1, 2, 10, 33,
-              300, 1000, 1024, 30522, 70000} x R in {1, 8, 16, 128, 4095},
-              two calls giving the same bits), and time kernel, plain
-              version and one library call beside the least time the
-              card could take (softmax at every path's shape, LayerNorm
-              also at the training shape); print ptxas's registers,
-              spills and shared memory of the bf16 tensor-core flash
-              kernels and of the softmax and RMSNorm forward kernels, and
-              the decode, flash, softmax and RMSNorm calls per route (tc:
-              bf16 tensor cores, cc: CUDA cores; rows, block, cluster,
-              loop; warp, block) with each decode row's plan (route,
+              and bf16, at the shapes its path gives it (and for softmax
+              and RMSNorm forward every route of their plans at N in {1,
+              2, 10, 33, 300, 1000, 1024, 30522, 70000} x R in {1, 8, 16,
+              128, 4095}; for LayerNorm backward every route at N in {1,
+              2, 33, 300, 1000, 1024, 2048, 2049, 14520, 14528} x R in
+              {1, 7, 8, 9, 4095}, with and without gamma, the warp route
+              at the training shape equal to the bit to its CPU
+              emulation; for the reduction both routes at n in {0, 1,
+              4096, 4097, 1000003, 2^26}, aligned and one element off,
+              and at the route threshold; two calls giving the same
+              bits), and time kernel, plain version and one library call
+              beside the least time the card could take (softmax at every
+              path's shape, LayerNorm also at the training shape); print
+              ptxas's registers, spills and shared memory of the bf16
+              tensor-core flash kernels, of the softmax and RMSNorm
+              forward kernels, the LayerNorm backward kernels and the
+              reduction kernels, and the decode, flash, softmax, RMSNorm,
+              LayerNorm backward and reduce calls per route (tc: bf16
+              tensor cores, cc: CUDA cores; rows, block, cluster, loop;
+              warp, block; cta, grid) with each decode row's plan (route,
               splits; a split call is a kernel and a combine launch);
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
@@ -43,8 +50,9 @@ Phases, in order; any failure propagates and exits non-zero:
               then timed steps; every loss finite, every training kernel
               launched its count per step (the 12 + 12 flash launches on
               the bf16 tensor-core route, the classifier's softmax on the
-              rows route), and the kernel registry (its auto policy)
-              picked the kernels;
+              rows route, the 24 LayerNorm backward launches on the warp
+              route, the 2 reductions on the cta route), and the kernel
+              registry (its auto policy) picked the kernels;
  7. train-witness — the train phase's first three steps again from the
               same weights and batch in f32 on the card and in f32 on the
               CPU: per-step losses against the CPU's, and the classifier's
@@ -58,7 +66,8 @@ Phases, in order; any failure propagates and exits non-zero:
               and accuracy, SGD lr 0.05, data from RandomState(8)): 3 fit
               steps on the card in bf16 under kernel_impl="pallas" (each
               kernel's launches per step asserted, the softmax on the rows
-              route and the RMSNorm on the warp route) and under "reference"
+              route, the RMSNorm and the LayerNorm backward on the warp
+              route, the reductions on the cta route) and under "reference"
               (no kernel launches), and on the CPU in f32 as a witness;
 10. ref-vs-kernel — the flagship cut to 2 layers, f32, two Adam steps on
               the card under kernel_impl="pallas" and "reference" (flash
@@ -77,8 +86,9 @@ Phases, in order; any failure propagates and exits non-zero:
               end, per step and rank exactly 12 head-separated flash
               forward and backward launches (blhd, on the tensor-core
               route) and no packed one,
-              the LayerNorm, softmax and reduction counts of the train
-              phase, and the first three losses within 2e-2 of the train
+              the LayerNorm, softmax and reduction counts (and routes) of
+              the train phase, and the first three losses within 2e-2 of
+              the train
               phase's;
 13. tp-cross — in the same ranks, the train-cross model (2 layers, f32,
               same weights and batch) under model=2: loss and the six
@@ -112,17 +122,21 @@ TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
                   "reduce": 2}
 TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
 # the same launches by route: the flash kernels in bf16, so all on the
-# tensor cores; the classifier's (4096, 2) softmax on the "rows" route
+# tensor cores; the classifier's (4096, 2) softmax on the "rows" route;
+# the (4096, 1024) LayerNorm backward on "warp"; the loss's and the
+# accuracy's 4096-element means on "cta" (one launch each)
 TRAIN_ROUTES_PER_STEP = {"flash_fwd/tc": 12, "flash_bwd/tc": 12,
                          "flash_fwd/cc": 0, "flash_bwd/cc": 0,
-                         "softmax_fwd/rows": 1}
+                         "softmax_fwd/rows": 1, "layernorm_bwd/warp": 24,
+                         "reduce/cta": 2}
 # launches per step of the kernel-tier graph under kernel_impl="pallas"
 TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
                  "rmsnorm_bwd": 1, "softmax_fwd": 1, "softmax_bwd": 1,
                  "reduce": 2}
 # the tier's (4096, 10) softmax takes "rows", its (4096, 1024) RMSNorm
-# "warp"
-TIER_ROUTES_PER_STEP = {"softmax_fwd/rows": 1, "rmsnorm_fwd/warp": 1}
+# and LayerNorm backward "warp", its two 4096-element means "cta"
+TIER_ROUTES_PER_STEP = {"softmax_fwd/rows": 1, "rmsnorm_fwd/warp": 1,
+                        "layernorm_bwd/warp": 1, "reduce/cta": 2}
 TIER_KERNELS = tuple(TIER_PER_STEP)
 # families the registry must pick the kernel for on the training path
 TRAIN_FAMILIES = ("attention", "layernorm", "softmax", "reduction")
@@ -133,7 +147,8 @@ TP_PER_STEP = {"flash_fwd_blhd": 12, "flash_bwd_blhd": 12, "flash_fwd": 0,
                "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2}
 TP_ROUTES_PER_STEP = {"flash_fwd_blhd/tc": 12, "flash_bwd_blhd/tc": 12,
                       "flash_fwd_blhd/cc": 0, "flash_bwd_blhd/cc": 0,
-                      "softmax_fwd/rows": 1}
+                      "softmax_fwd/rows": 1, "layernorm_bwd/warp": 24,
+                      "reduce/cta": 2}
 TP_KERNELS = ("flash_fwd_blhd", "flash_bwd_blhd")
 # launches of the standalone entries (phase 11)
 STANDALONE_LAUNCHES = {"flash_fwd_bhld": 1, "flash_bwd_bhld": 1,
@@ -350,7 +365,8 @@ def phase_kernels(torch, F):
     table.update(heads_kernels(torch, F, g))
     table.update(cumsum_kernels(torch, g))
     edges = norm_route_edges(torch, g)
-    for name in ("softmax_fwd", "rmsnorm_fwd"):
+    edges.update(bwd_route_edges(torch, g))
+    for name in ("softmax_fwd", "rmsnorm_fwd", "layernorm_bwd", "reduce"):
         table[name]["edges"] = edges[name]
     return table
 
@@ -449,6 +465,119 @@ def norm_route_edges(torch, g):
     out["softmax_fwd"]["max_active_clusters"] = clusters
     for rec in out.values():
         rec["tolerance"] = "the path shapes' (f32 and bf16)"
+        rec["same_bits_on_two_calls"] = True
+    return out
+
+
+# the edge shapes every layernorm_bwd route is held at (N = 14520 is the
+# widest the block route stages with gamma, 14528 without), and the
+# reduce's element counts, each 16-byte aligned and one element past
+LN_BWD_EDGE_N = (1, 2, 33, 300, 1000, 1024, 2048, 2049, 14520, 14528)
+LN_BWD_EDGE_R = (1, 7, 8, 9, 4095)
+REDUCE_EDGE_N = (0, 1, 4096, 4097, 1000003, 2 ** 26)
+
+
+def bwd_route_edges(torch, g):
+    """layernorm_bwd and reduce against their plain versions at the edge
+    shapes, every route of both plans, at the path-shape checks'
+    tolerances; dgamma / dbeta and the reduction the same bits on two
+    calls; a LayerNorm row with gamma wider than the block route stages
+    raises ValueError, where the parent's launch failed. Also the reduce
+    at the last n of "cta" and the first of "grid", at every 16-byte
+    phase of the start. Returns {kernel: summary}."""
+    from flexflow_tpu_torch.kernels import norm, reduction
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dx_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+    out = {k: {"checked": 0, "routes": {}, "max_abs_err": 0.0}
+           for k in ("layernorm_bwd", "reduce")}
+
+    def note(name, route, err):
+        rec = out[name]
+        rec["checked"] += 1
+        rec["routes"][route] = rec["routes"].get(route, 0) + 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in LN_BWD_EDGE_R:
+            for n in LN_BWD_EDGE_N:
+                for affine in (True, False):
+                    x = (torch.randn((rows, n), generator=g, device=dev) * 2
+                         + 1).to(dtype)
+                    dy = torch.randn((rows, n), generator=g,
+                                     device=dev).to(dtype)
+                    gamma = beta = None
+                    if affine:
+                        gamma = torch.rand((n,), generator=g,
+                                           device=dev) + 0.5
+                        beta = torch.zeros_like(gamma)
+                    shape = (f"R={rows} N={n} {dtype} "
+                             f"{'affine' if affine else 'plain'}").replace(
+                                 "torch.", "")
+                    _, mean, rstd = norm.layernorm_fwd(x, gamma, beta)
+                    if affine and n > norm.LN_BWD_BLOCK_AFFINE_MAX_N:
+                        try:
+                            norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+                        except ValueError:
+                            out["layernorm_bwd"]["refused"] = shape
+                            continue
+                        raise AssertionError(f"layernorm_bwd took {shape}")
+                    plan = norm.layernorm_bwd_plan(rows, n, dtype, sms)
+                    dx, dg, db = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+                    rdx, rdg, rdb = norm.layernorm_bwd_plain(x, gamma, mean,
+                                                             rstd, dy)
+                    err = _agree("layernorm_bwd (dx)", dx, rdx,
+                                 dx_tol[dtype], shape)["max_abs_err"]
+                    if affine:
+                        for nm, a, b in (("dgamma", dg, rdg),
+                                         ("dbeta", db, rdb)):
+                            err = max(err, _agree(
+                                f"layernorm_bwd ({nm})", a, b, (1e-3, 1e-4),
+                                shape)["max_abs_err"])
+                        again = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+                        if not (torch.equal(again[1], dg)
+                                and torch.equal(again[2], db)):
+                            raise AssertionError(f"layernorm_bwd: {shape} "
+                                                 "differs between two calls")
+                    note("layernorm_bwd", plan.route, err)
+                    del x, dy, dx
+    for dtype in (torch.float32, torch.bfloat16):
+        last = reduction.REDUCE_CTA_MAX_BYTES // (
+            4 if dtype == torch.float32 else 2)
+        cases = [(n, off) for n in REDUCE_EDGE_N for off in (0, 1)]
+        cases += [(n, off) for n in (last, last + 1)
+                  for off in range(16 // (4 if dtype == torch.float32
+                                          else 2))]
+        for n, off in cases:
+            x = torch.randn((n + off,), generator=g, device=dev).to(
+                dtype)[off:]
+            plan = reduction.reduce_plan(n, dtype)
+            for kind in ("sum", "mean", "max"):
+                shape = f"n={n} +{off} {dtype} {kind}".replace("torch.", "")
+                got = reduction.reduce(x, kind)
+                ref = reduction.reduce_plain(x, kind)
+                err = abs(float(got) - float(ref)) if n or kind != "max" \
+                    else 0.0
+                lim = 1e-6 * float(x.float().abs().sum())
+                ok = torch.equal(got, ref) if kind == "max" else err <= lim
+                if not ok or not torch.equal(reduction.reduce(x, kind), got):
+                    raise AssertionError(f"reduce at {shape}: {float(got)} "
+                                         f"vs plain {float(ref)}, or two "
+                                         "calls differ")
+                note("reduce", plan.route, err)
+            del x
+    missing = [f"{k}/{r}" for k, routes in (
+        ("layernorm_bwd", norm.LN_BWD_ROUTES),
+        ("reduce", reduction.REDUCE_ROUTES)) for r in routes
+        if r not in out[k]["routes"]]
+    if missing:
+        raise AssertionError(f"routes never held at the edges: {missing}")
+    out["layernorm_bwd"]["tolerance"] = (
+        "dx the path shapes' (f32 and bf16); dgamma, dbeta |err| <= 1e-3 + "
+        "1e-4*|plain|")
+    out["reduce"]["tolerance"] = "max exact; sum, mean |err| <= 1e-6 sum|x|"
+    for rec in out.values():
         rec["same_bits_on_two_calls"] = True
     return out
 
@@ -553,6 +682,20 @@ def train_kernels(torch, F, g):
         if not (torch.equal(again[1], dg) and torch.equal(again[2], db)):
             raise AssertionError("layernorm_bwd: dgamma / dbeta differ "
                                  "between two runs")
+        # the warp route's every step is rounded on its own: the CPU
+        # emulation of its order gives the kernel's bits
+        plan = norm.layernorm_bwd_plan(r, n, dtype, torch.cuda.
+                                       get_device_properties(dev).
+                                       multi_processor_count)
+        emu = norm.layernorm_bwd_warp_plain(
+            x.cpu(), gamma.cpu(), mean.cpu(), rstd.cpu(), dy.cpu(),
+            plan.blocks, x.data_ptr() % 16, plan.threads // 32)
+        if plan.route != "warp" or not all(
+                torch.equal(a.cpu(), b) for a, b in zip((dx, dg, db), emu)):
+            raise AssertionError(f"layernorm_bwd at {shape}: {plan}, or not "
+                                 "the bits of layernorm_bwd_warp_plain")
+    ln["plan"] = plan._asdict()
+    ln["warp_plain_same_bits"] = True
     g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
     _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n], g16, b16,
                                                        1e-5)
@@ -568,7 +711,9 @@ def train_kernels(torch, F, g):
             torch, lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, x, [n], lmean, lrstd, g16, b16, [True, True, True])),
         bound_ms=ln_bound[0], bound_by=ln_bound[1],
-        library="torch.ops.aten.native_layer_norm_backward (bf16 gamma)")
+        library="torch.ops.aten.native_layer_norm_backward (bf16 gamma)",
+        ms_includes="2 launches (the warp route's rows, then the dgamma / "
+                    "dbeta column sums as a programmatic dependent)")
     table["layernorm_bwd"] = ln
 
     # softmax backward: the classifier's (b*l, 2) probabilities
@@ -727,7 +872,8 @@ def tier_kernels(torch, F, g):
         library_ms=_time_ms(torch, lambda: torch.sum(ll)),
         bound_ms=_bound(ll.numel() * 4 + 4, ll.numel(), "float32")[0],
         bound_by="bytes", library="torch.sum",
-        ms_includes="2 launches (block partials, then their sum)",
+        plan=reduction.reduce_plan(ll.numel(), ll.dtype)._asdict(),
+        ms_includes="1 launch (the cta route)",
         note="4096 elements: launch latency rules")
     large = {}
     for kind, lib in (("sum", torch.sum), ("max", torch.amax)):
@@ -738,7 +884,9 @@ def tier_kernels(torch, F, g):
                                                                     kind)),
             library_ms=_time_ms(torch, lambda: lib(big)),
             bound_ms=b_ms, bound_by=by,
-            library=f"torch.{lib.__name__}")
+            library=f"torch.{lib.__name__}",
+            ms_includes="2 launches (the grid route's block partials, then "
+                        "their sum as a programmatic dependent)")
     red["at_2^26_f32"] = large
     table["reduce"] = red
     del big
@@ -1488,21 +1636,29 @@ def main() -> int:
     reset_launch_counts()
     table = phase_kernels(torch, F)
     from flexflow_tpu_torch.kernels import decode as dec
-    from flexflow_tpu_torch.kernels import norm
+    from flexflow_tpu_torch.kernels import norm, reduction
     _emit({"phase": "kernels", "table": table,
            # the decode and flash calls of this phase by route: tc the
            # bf16 tensor-core kernels, cc the CUDA-core ones; softmax and
-           # RMSNorm forward by their plans' routes
+           # RMSNorm forward, LayerNorm backward and the reduce by their
+           # plans' routes
            "decode_routes": dict(dec.ROUTES),
            "flash_routes": dict(fa.ROUTES),
            "norm_routes": dict(norm.ROUTES),
+           "reduce_routes": dict(reduction.ROUTES),
            "flash_tc_ptxas": fa.tc_kernel_report(),
            # empty where this process loaded a library built earlier
            "norm_fwd_ptxas": [
                r for r in _build.ptxas_report("norm.cu")
                if r["kernel"].startswith(("softmax_", "rmsnorm_warp",
                                           "rmsnorm_block"))
-               and not r["kernel"].startswith("softmax_bwd")]})
+               and not r["kernel"].startswith("softmax_bwd")],
+           "ln_bwd_ptxas": [
+               r for r in _build.ptxas_report("norm.cu")
+               if r["kernel"].startswith(("layernorm_bwd",
+                                          "ln_column_sums"))],
+           "reduce_ptxas": [r for r in _build.ptxas_report("reduction.cu")
+                            if r["kernel"].startswith("reduce_")]})
 
     # 4) serve: full width, random weights from a fixed generator
     hidden, heads, layers, vocab, window = 1024, 16, 12, 30522, 512

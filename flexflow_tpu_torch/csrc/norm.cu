@@ -65,16 +65,28 @@
 // The vector routes need y at the same 16-byte phase as x (the wrapper
 // allocates it so).
 //
-// The backward kernels are bound by bytes too. LayerNorm backward gives
-// each block kLnBwdRows rows: the row's xhat and g sit in shared memory
-// between the two reductions and the dx pass, and each thread sums dgamma
-// and dbeta for its own columns over the block's rows; a second launch
-// adds the blocks' partial sums column by column in a fixed order — no
-// float atomics, so the sums are the same on every run. Softmax backward
-// gives each row one warp: at the classifier's N = 2 it is bound by launch
-// latency, not by bytes. RMSNorm backward takes layernorm_bwd's shape
-// (kLnBwdRows rows a block, column partials of dgamma, a second launch
-// summing them in a fixed order).
+// The backward kernels are bound by bytes too. LayerNorm backward takes a
+// route that kernels/norm.py `layernorm_bwd_plan` chooses from the shape
+// alone:
+//  - "warp" (N <= 2048: the training step's (4096, 1024)): one warp a row,
+//    x and dy read once as 16-byte vectors (scalar head and tail), gamma
+//    in registers for the warp's life, both row sums through one
+//    butterfly of shuffles, dx written as 16-byte vectors; each lane sums
+//    dgamma and dbeta for its columns over the rows of its warp, a
+//    persistent grid of one CTA an SM, so each CTA writes one partial row
+//    of each (132 x N x 2 f32 in place of the block route's R / 8); a
+//    second kernel, launched as a programmatic dependent, adds them in a
+//    fixed order.
+//  - "block" (wider N, up to MAX_BWD_COLS): each block takes kLnBwdRows
+//    rows: the row's xhat and g sit in shared memory between the two
+//    reductions and the dx pass, and each thread sums dgamma and dbeta for
+//    its own columns over the block's rows; a second launch adds the
+//    blocks' partial sums column by column in a fixed order.
+// Neither uses float atomics, so the sums are the same on every run.
+// Softmax backward gives each row one warp: at the classifier's N = 2 it
+// is bound by launch latency, not by bytes. RMSNorm backward takes the
+// LayerNorm block route's shape (kLnBwdRows rows a block, column partials
+// of dgamma, a second launch summing them in a fixed order).
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -93,6 +105,11 @@ constexpr int kRowsThreads = 128;         // softmax rows route
 constexpr int kRmsWarpThreads = 256;      // RMSNorm warp route: 8 rows
 constexpr int kRmsWarpMaxPerLane = 64;    // f32 values of x a lane holds
 constexpr int kLnBwdRows = 8;        // rows per block of layernorm_bwd
+constexpr int kLnBwdWarpThreads = 256;   // LayerNorm backward warp route
+constexpr int kLnBwdMaxPerLane = 64;     // values of a row a lane takes
+constexpr int kLnBwdHoldPerLane = 32;    // up to which x, dy, gamma stay
+constexpr int kColSumsThreads = 256;     // warp route's column sums
+constexpr int kColSumsBatch = 8;         // loads a lane has in flight
 constexpr int kReduceGroups = 16;    // partial-sum groups per column
 constexpr int kSoftmaxBwdThreads = 256;  // 8 rows per block, a warp each
 
@@ -100,6 +117,8 @@ constexpr int kSoftmaxBwdThreads = 256;  // 8 rows per block, a warp each
 enum SoftmaxRoute { kSoftmaxLoop = 0, kSoftmaxRows = 1, kSoftmaxBlock = 2,
                     kSoftmaxCluster = 3 };
 enum RmsRoute { kRmsBlock = 0, kRmsWarp = 1 };
+// route codes shared with kernels/norm.py LN_BWD_ROUTES
+enum LnBwdRoute { kLnBwdBlock = 0, kLnBwdWarp = 1 };
 
 // ---- rows as 16-byte vectors ---------------------------------------------
 
@@ -192,6 +211,26 @@ __device__ __forceinline__ void load_gamma(const float* p, bool aligned,
 #pragma unroll
     for (int j = 0; j < W; ++j) g[j] = p[j];
   }
+}
+
+// 16 bytes of T from p: one vector load where `vec` (p 16-byte aligned),
+// else single loads assembled into the same bits
+template <typename T>
+__device__ __forceinline__ uint4 load_vec(const T* p, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4];
+  if constexpr (sizeof(T) == 4) {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = q[i];
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = static_cast<uint32_t>(q[2 * i]) |
+             (static_cast<uint32_t>(q[2 * i + 1]) << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -481,6 +520,261 @@ __global__ void __launch_bounds__(32 * kReduceGroups)
     dg[c] = ta;
     if (two) db[c] = tb;
   }
+}
+
+// One row of the LayerNorm backward warp route as a lane holds it: HV
+// 16-byte vectors of x and of dy (its vectors lane + 32 * k; none where
+// the row is read again in the second pass), the row's mean and rstd, and
+// the lane's head or tail element of x and dy.
+template <typename T, int HV>
+struct LnBwdRow {
+  uint4 xu[HV > 0 ? HV : 1], du[HV > 0 ? HV : 1];
+  float mu, rsd, xe, de;
+
+  __device__ __forceinline__ void load(const T* x, const T* dy,
+                                       const float* mean, const float* rstd,
+                                       long r, int N, const RowSplit& rs,
+                                       int ei, int lane, bool dy_vec) {
+    constexpr int W = kVecElems<T>;
+    const T* xr = x + r * N;
+    const T* dyr = dy + r * N;
+    const uint4* xv = reinterpret_cast<const uint4*>(xr + rs.head);
+#pragma unroll
+    for (int k = 0; k < HV; ++k) {
+      const int v = lane + 32 * k;
+      if (v < rs.nv) {
+        xu[k] = xv[v];
+        du[k] = load_vec<T>(dyr + rs.head + v * W, dy_vec);
+      }
+    }
+    mu = mean[r];
+    rsd = rstd[r];
+    xe = ei >= 0 ? to_f(xr[ei]) : 0.f;
+    de = ei >= 0 ? to_f(dyr[ei]) : 0.f;
+  }
+};
+
+// LayerNorm backward "warp": one warp a row, a persistent grid of warps
+// striding over the rows. Every row of a warp starts at the 16-byte phase
+// of its first (the stride times a row's bytes is a multiple of 16: the
+// launcher checks), so lane l takes the same columns of every row: the
+// vectors l, l + 32, ... after the row's head, and one head or tail
+// element on lanes 0-13. Per row, in f32 with every step rounded on its
+// own (no fused multiply-add): xhat = (x - mean) * rstd, g = dy * gamma;
+// the lane sums g and g * xhat over its values in order, the two sums
+// meet in one butterfly of shuffles (no shared memory, no barrier), m1 =
+// sum(g) / N, m2 = sum(g * xhat) / N, and dx = ((g - m1) - xhat * m2) *
+// rstd goes out as 16-byte vectors (dx at x's phase; dy read as vectors
+// where it shares x's phase, else element by element). Each lane adds
+// dy * xhat and dy into dgamma and dbeta for its columns over its warp's
+// rows; at the end the CTA adds its warps' sums in warp order through
+// shared memory and writes one partial row of each. Up to
+// kLnBwdHoldPerLane values a lane (N <= 1024) x, dy and gamma stay in
+// registers between the two passes; past it (N <= 2048) the second pass
+// reads x, dy and gamma again (from L1), so the dgamma and dbeta sums
+// keep the registers. Timed at (4096, 1024) bf16 on an H100 SXM
+// (tools/norm_bench.py) against this design: the next row's loads issued
+// before this row's sums (as RMSNorm forward) 3% slower; gamma read from
+// L1 in place of registers 6%, and with the registers it frees 12 warps
+// an SM 10%, 16 (128 registers, spilling) 18% slower.
+template <typename T, int VECS>
+__global__ void __launch_bounds__(kLnBwdWarpThreads)
+    layernorm_bwd_warp_kernel(const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ mean,
+                              const float* __restrict__ rstd,
+                              const T* __restrict__ dy, T* __restrict__ dx,
+                              float* __restrict__ dg_part,
+                              float* __restrict__ db_part, int R, int N,
+                              int dy_vec) {
+  constexpr int W = kVecElems<T>;
+  constexpr bool kHold = VECS * W <= kLnBwdHoldPerLane;
+  constexpr int HV = kHold ? VECS : 0;
+  extern __shared__ float ln_acc[];  // [warps][N], affine only
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool affine = gamma != nullptr;
+  const long warps = static_cast<long>(gridDim.x) * nwarps;
+  const long r0 = static_cast<long>(blockIdx.x) * nwarps + warp;
+  const RowSplit rs = row_split(x + r0 * N, N);
+  const int ei = edge_elem(rs, N, lane);
+  const float* gr = affine ? gamma + rs.head : nullptr;
+  const bool g_aligned = (reinterpret_cast<uintptr_t>(gr) & 15) == 0;
+  float gk[kHold ? VECS : 1][W];  // gamma at this lane's columns (hold)
+  float ge = 1.f;                 // and at its head or tail element
+  float dg[VECS][W], db[VECS][W];
+  float dge = 0.f, dbe = 0.f;
+#pragma unroll
+  for (int k = 0; k < VECS; ++k)
+#pragma unroll
+    for (int j = 0; j < W; ++j) dg[k][j] = db[k][j] = 0.f;
+  if (affine) {
+    if constexpr (kHold) {
+#pragma unroll
+      for (int k = 0; k < VECS; ++k)
+        if (lane + 32 * k < rs.nv)
+          load_gamma<W>(gr + (lane + 32 * k) * W, g_aligned, gk[k]);
+    }
+    if (ei >= 0) ge = gamma[ei];
+  }
+  for (long r = r0; r < R; r += warps) {
+    LnBwdRow<T, HV> cur;
+    cur.load(x, dy, mean, rstd, r, N, rs, ei, lane, dy_vec);
+    const float mu = cur.mu, rsd = cur.rsd;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + r * N + rs.head);
+    const T* dyh = dy + r * N + rs.head;
+    // pass 1: the two row sums and this lane's dgamma / dbeta terms
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int v = lane + 32 * k;
+      if (v < rs.nv) {
+        float xf[W], df[W], gf[W];
+        if constexpr (kHold) {
+          unpack<T>(cur.xu[k], xf);
+          unpack<T>(cur.du[k], df);
+        } else {
+          unpack<T>(xv[v], xf);
+          unpack<T>(load_vec<T>(dyh + v * W, dy_vec), df);
+        }
+        if (affine) {
+          if constexpr (kHold) {
+#pragma unroll
+            for (int j = 0; j < W; ++j) gf[j] = gk[k][j];
+          } else {
+            load_gamma<W>(gr + v * W, g_aligned, gf);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          const float xh = __fmul_rn(__fsub_rn(xf[j], mu), rsd);
+          const float g = affine ? __fmul_rn(df[j], gf[j]) : df[j];
+          s1 = __fadd_rn(s1, g);
+          s2 = __fadd_rn(s2, __fmul_rn(g, xh));
+          if (affine) {
+            dg[k][j] = __fadd_rn(dg[k][j], __fmul_rn(df[j], xh));
+            db[k][j] = __fadd_rn(db[k][j], df[j]);
+          }
+        }
+      }
+    }
+    const float xhe = __fmul_rn(__fsub_rn(cur.xe, mu), rsd);
+    const float gv = affine ? __fmul_rn(cur.de, ge) : cur.de;
+    if (ei >= 0) {
+      s1 = __fadd_rn(s1, gv);
+      s2 = __fadd_rn(s2, __fmul_rn(gv, xhe));
+      if (affine) {
+        dge = __fadd_rn(dge, __fmul_rn(cur.de, xhe));
+        dbe = __fadd_rn(dbe, cur.de);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, o));
+      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
+    }
+    const float m1 = __fdiv_rn(s1, static_cast<float>(N));
+    const float m2 = __fdiv_rn(s2, static_cast<float>(N));
+    // pass 2: dx
+    T* dxr = dx + r * N;
+    uint4* dxv = reinterpret_cast<uint4*>(dxr + rs.head);
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int v = lane + 32 * k;
+      if (v < rs.nv) {
+        float xf[W], df[W], gf[W];
+        if constexpr (kHold) {
+          unpack<T>(cur.xu[k], xf);
+          unpack<T>(cur.du[k], df);
+        } else {
+          unpack<T>(xv[v], xf);
+          unpack<T>(load_vec<T>(dyh + v * W, dy_vec), df);
+        }
+        if (affine) {
+          if constexpr (kHold) {
+#pragma unroll
+            for (int j = 0; j < W; ++j) gf[j] = gk[k][j];
+          } else {
+            load_gamma<W>(gr + v * W, g_aligned, gf);
+          }
+        }
+        float o[W];
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          const float xh = __fmul_rn(__fsub_rn(xf[j], mu), rsd);
+          const float g = affine ? __fmul_rn(df[j], gf[j]) : df[j];
+          o[j] = __fmul_rn(__fsub_rn(__fsub_rn(g, m1), __fmul_rn(xh, m2)),
+                           rsd);
+        }
+        dxv[v] = pack<T>(o);
+      }
+    }
+    if (ei >= 0)
+      dxr[ei] = from_f<T>(
+          __fmul_rn(__fsub_rn(__fsub_rn(gv, m1), __fmul_rn(xhe, m2)), rsd));
+  }
+  if (!affine) return;
+  // the CTA's partial rows: column by column, its warps' sums in warp
+  // order (each column has one lane of every warp)
+  float* mine = ln_acc + static_cast<size_t>(warp) * N;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int v = lane + 32 * k;
+      if (v < rs.nv)
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          mine[rs.head + v * W + j] = pass ? db[k][j] : dg[k][j];
+    }
+    if (ei >= 0) mine[ei] = pass ? dbe : dge;
+    __syncthreads();
+    float* out = (pass ? db_part : dg_part) +
+                 static_cast<size_t>(blockIdx.x) * N;
+    for (int c = threadIdx.x; c < N; c += blockDim.x) {
+      float t = 0.f;
+      for (int w = 0; w < nwarps; ++w)
+        t = __fadd_rn(t, ln_acc[static_cast<size_t>(w) * N + c]);
+      out[c] = t;
+    }
+    __syncthreads();  // the buffer is rewritten by the next pass
+  }
+  // the column sums may launch once every CTA has written its partials
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// The warp route's dgamma (blockIdx.y 0) and dbeta (1): a warp a column
+// c, lane y summing partial rows y, y + 32, ... in order, then a
+// butterfly over the lanes — a fixed order, so every run gives the same
+// bits. A lane issues kColSumsBatch loads before it adds them (one at a
+// time, each would wait out L2's latency). Launched as a programmatic
+// dependent of the row kernel: it waits for the partials before it reads
+// them.
+__global__ void __launch_bounds__(kColSumsThreads)
+    ln_column_sums_kernel(const float* __restrict__ dg_part,
+                          const float* __restrict__ db_part, int P, int N,
+                          float* __restrict__ dg, float* __restrict__ db) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (c >= N) return;  // whole warps: the shuffles below stay full
+  const float* part = blockIdx.y ? db_part : dg_part;
+  float s = 0.f;
+  for (int p0 = lane; p0 < P; p0 += 32 * kColSumsBatch) {
+    float v[kColSumsBatch];
+#pragma unroll
+    for (int i = 0; i < kColSumsBatch; ++i) {
+      const int p = p0 + 32 * i;
+      v[i] = p < P ? part[static_cast<size_t>(p) * N + c] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kColSumsBatch; ++i)
+      if (p0 + 32 * i < P) s = __fadd_rn(s, v[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  if (lane == 0) (blockIdx.y ? db : dg)[c] = s;
 }
 
 template <typename T>
@@ -915,11 +1209,96 @@ int max_active_clusters(int threads, int vecs, int cluster) {
 }
 
 template <typename T>
+using LnBwdWarpFn = void (*)(const T*, const float*, const float*,
+                             const float*, const T*, T*, float*, float*, int,
+                             int, int);
+
+template <typename T, int V>
+LnBwdWarpFn<T> ln_bwd_warp_if_fits() {
+  if constexpr (V * kVecElems<T> <= kLnBwdMaxPerLane)
+    return layernorm_bwd_warp_kernel<T, V>;
+  else
+    return nullptr;
+}
+
+template <typename T>
+LnBwdWarpFn<T> ln_bwd_warp_for(int vecs) {
+  switch (vecs) {
+    case 1: return ln_bwd_warp_if_fits<T, 1>();
+    case 2: return ln_bwd_warp_if_fits<T, 2>();
+    case 4: return ln_bwd_warp_if_fits<T, 4>();
+    case 8: return ln_bwd_warp_if_fits<T, 8>();
+    case 16: return ln_bwd_warp_if_fits<T, 16>();
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+int launch_layernorm_bwd_warp(const T* x, const float* gamma,
+                              const float* mean, const float* rstd,
+                              const T* dy, T* dx, float* dg_part,
+                              float* db_part, float* dg, float* db, int R,
+                              int N, int threads, int blocks, int vecs,
+                              cudaStream_t stream) {
+  constexpr int W = kVecElems<T>;
+  LnBwdWarpFn<T> kernel = ln_bwd_warp_for<T>(vecs);
+  const long long warps = static_cast<long long>(blocks) * (threads / 32);
+  // a warp's rows must share one 16-byte phase: the stride between them,
+  // warps rows, a multiple of 16 bytes
+  if (kernel == nullptr || (N + W - 1) / W > 32 * vecs || blocks < 1 ||
+      threads < 32 || threads % 32 != 0 || threads > kLnBwdWarpThreads ||
+      (warps * N * static_cast<long long>(sizeof(T))) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  // dx is written with x's 16-byte vectors
+  if ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(dx)) &
+      15)
+    return (int)cudaErrorMisalignedAddress;
+  const int dy_vec =
+      ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(dy)) &
+       15) == 0;
+  const size_t smem =
+      gamma != nullptr ? sizeof(float) * (size_t)(threads / 32) * N : 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem, stream>>>(x, gamma, mean, rstd, dy, dx,
+                                            dg_part, db_part, R, N, dy_vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || gamma == nullptr) return (int)err;
+  // programmatic dependent launch: the column sums are scheduled as the
+  // row kernel's CTAs finish, hiding a launch's latency
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  constexpr int cols = kColSumsThreads / 32;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + cols - 1) / cols, 2);
+  cfg.blockDim = dim3(kColSumsThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ln_column_sums_kernel,
+                           static_cast<const float*>(dg_part),
+                           static_cast<const float*>(db_part), blocks, N, dg,
+                           db);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_layernorm_bwd(const void* x, const float* gamma, const float* mean,
                          const float* rstd, const void* dy, void* dx,
                          float* dg_part, float* db_part, float* dg, float* db,
-                         int R, int N, cudaStream_t stream) {
-  const int blocks = (R + kLnBwdRows - 1) / kLnBwdRows;
+                         int R, int N, int route, int threads, int blocks,
+                         int vecs, cudaStream_t stream) {
+  if (route == kLnBwdWarp)
+    return launch_layernorm_bwd_warp<T>(
+        static_cast<const T*>(x), gamma, mean, rstd,
+        static_cast<const T*>(dy), static_cast<T*>(dx), dg_part, db_part, dg,
+        db, R, N, threads, blocks, vecs, stream);
+  if (route != kLnBwdBlock || threads != kLnThreads ||
+      blocks != (R + kLnBwdRows - 1) / kLnBwdRows)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)N * (gamma != nullptr ? 4 : 2);
   auto kernel = layernorm_bwd_kernel<T>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -949,19 +1328,25 @@ int launch_softmax_bwd(const void* y, const void* dy, void* dx, int R, int N,
 
 extern "C" int ff_layernorm_bwd_rows_per_block() { return kLnBwdRows; }
 
+// the plan's arguments (kernels/norm.py LnBwdPlan) follow the stream:
+// route, threads a block, blocks (the partial rows of dgamma / dbeta),
+// 16-byte vectors a lane (warp route); dg_part / db_part hold `blocks`
+// rows of N
 extern "C" int ff_layernorm_bwd(const void* x, const float* gamma,
                                 const float* mean, const float* rstd,
                                 const void* dy, void* dx, float* dg_part,
                                 float* db_part, float* dg, float* db, int R,
-                                int N, int dtype, void* stream) {
+                                int N, int dtype, void* stream, int route,
+                                int threads, int blocks, int vecs) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32)
     return launch_layernorm_bwd<float>(x, gamma, mean, rstd, dy, dx, dg_part,
-                                       db_part, dg, db, R, N, s);
+                                       db_part, dg, db, R, N, route, threads,
+                                       blocks, vecs, s);
   if (dtype == FF_BF16)
-    return launch_layernorm_bwd<__nv_bfloat16>(x, gamma, mean, rstd, dy, dx,
-                                               dg_part, db_part, dg, db, R,
-                                               N, s);
+    return launch_layernorm_bwd<__nv_bfloat16>(
+        x, gamma, mean, rstd, dy, dx, dg_part, db_part, dg, db, R, N, route,
+        threads, blocks, vecs, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,17 +7,33 @@
 // mean is sum / max(1, n); an empty x gives 0 for sum and mean and -inf
 // for max. max propagates NaN, as jnp.max does.
 //
-// Bound on this card: bytes (one read of x, one operation an element).
+// Bound on this card: bytes (one read of x, one operation an element); at
+// the loss's 4096 elements (16 KB) the launch itself.
 //
 // Design: the TPU kernel streams x through one persistent f32 accumulator
-// over a sequential grid. Blocks on Hopper run in no order, so this is two
-// launches and no atomics: a streaming pass where each of G blocks (G a
-// function of n only, at most kMaxBlocks) walks x grid-strided with
-// 16-byte loads where x is 16-byte aligned, keeps four f32 accumulators a
-// thread and reduces them over the block, writing one partial; then one
-// block adds the G partials. Every launch configuration and every order
-// of addition is fixed by n, so a loss is the same bits on every run, as
-// the TPU kernel's sequential grid makes it.
+// over a sequential grid. Here kernels/reduction.py `reduce_plan` picks a
+// route from n and the dtype alone:
+//  - "cta" (x up to REDUCE_CTA_MAX_BYTES: the loss's and the accuracy's
+//    4096 f32): ONE launch of one CTA of up to 1024 threads that holds the
+//    whole of x. Each thread issues all its 16-byte loads (VECS vectors at
+//    t, t + threads, ...; a head to x's first 16-byte boundary and a tail
+//    as single elements on threads 0-13) before its first add, combines
+//    them in a fixed order, and one block_combine gives the scalar, which
+//    thread 0 writes finished: no partials, no second launch.
+//  - "grid" (larger x): G blocks (G a function of n only, at most
+//    kMaxBlocks) walk x grid-strided with 16-byte loads where x is 16-byte
+//    aligned, keep four f32 accumulators a thread and reduce them over the
+//    block, writing one partial; then one block adds the G partials. That
+//    finishing block is a programmatic dependent launch: it is scheduled
+//    as the streaming blocks retire and waits (griddepcontrol.wait) for
+//    their partials, so the second launch's latency hides under the
+//    first's tail. The partials live in the caller's buffer, written
+//    before they are read: no counter, no memset, and two streams never
+//    share state.
+// Blocks on Hopper run in no order, so no route uses atomics: every launch
+// configuration and every order of addition is fixed by n (and x's
+// 16-byte phase), so a loss is the same bits on every run, as the TPU
+// kernel's sequential grid makes it.
 //
 // The scan (cumsum) replaces `_cumsum_call` (`_cumsum_kernel`, through
 // `fused_cumsum`): x viewed as (R, N), each row's inclusive prefix sum,
@@ -36,18 +52,20 @@
 // the 4-apart reads of the per-thread scans hit 32 distinct banks.
 // Rows run in parallel; one row's tiles run in order, so a single long
 // row (R = 1) uses one SM: a look-back scan across blocks is later work.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
+constexpr int kMaxBlocks = 1024;  // of the grid route's streaming pass
 constexpr int kFinishThreads = 1024;
-// elements a block of the streaming pass takes before a second block is
-// worth launching
-constexpr long long kBlockElems = 16LL * kThreads;
+constexpr int kCtaMaxThreads = 1024;
 
 enum ReduceKind { kSum = 0, kMean = 1, kMax = 2 };
+// route codes shared with kernels/reduction.py REDUCE_ROUTES
+enum ReduceRoute { kRouteGrid = 0, kRouteCta = 1 };
 
 template <bool kIsMax>
 __device__ __forceinline__ float combine(float a, float b) {
@@ -91,6 +109,27 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// 16 loaded bytes as f32 values, as load16 converts them: a "cta" thread
+// holds its vectors as loaded (bf16 at 2 bytes a value: 8 vectors in 32
+// registers, within the 64 a thread of 1024 may have)
+__device__ __forceinline__ void widen(const uint4& u, const float*,
+                                      float* out) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void widen(const uint4& u, const __nv_bfloat16*,
+                                      float* out) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);  // bf16 widens exactly
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 template <typename T, bool kIsMax>
 __global__ void __launch_bounds__(kThreads)
     reduce_partial_kernel(const T* __restrict__ x, long long n, int vec,
@@ -119,6 +158,8 @@ __global__ void __launch_bounds__(kThreads)
                             combine<kIsMax>(acc[2], acc[3]));
   s = block_combine<kIsMax>(s, red);
   if (threadIdx.x == 0) part[blockIdx.x] = s;
+  // the finishing block may launch once every block has written its part
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 template <bool kIsMax>
@@ -126,6 +167,9 @@ __global__ void __launch_bounds__(kFinishThreads)
     reduce_finish_kernel(const float* __restrict__ part, int P, float denom,
                          float* __restrict__ out) {
   __shared__ float red[32];
+  // launched early (programmatic dependent launch): wait until the
+  // streaming pass has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   float s = kIsMax ? -CUDART_INF_F : 0.f;
   for (int i = threadIdx.x; i < P; i += blockDim.x)
     s = combine<kIsMax>(s, part[i]);
@@ -133,35 +177,128 @@ __global__ void __launch_bounds__(kFinishThreads)
   if (threadIdx.x == 0) out[0] = kIsMax ? s : s / denom;
 }
 
-int blocks_for(long long n) {
-  long long g = (n + kBlockElems - 1) / kBlockElems;
-  if (g < 1) g = 1;
-  if (g > kMaxBlocks) g = kMaxBlocks;
-  return (int)g;
+// "cta": one block holds x, VECS 16-byte vectors a thread (at t, t +
+// blockDim.x, ...) after a head of single elements up to x's first 16-byte
+// boundary, and the tail; thread t < head + tail also takes one of those.
+// Every load is issued before the first combine; each thread combines its
+// values in order (vectors, then its single element), then block_combine.
+template <typename T, bool kIsMax, int VECS>
+__global__ void __launch_bounds__(kCtaMaxThreads)
+    reduce_cta_kernel(const T* __restrict__ x, int n, float denom,
+                      float* __restrict__ out) {
+  __shared__ float red[32];
+  constexpr int W = 16 / sizeof(T);
+  const int t = threadIdx.x;
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(x) & 15);
+  const int head = min(mis ? (16 - mis) / static_cast<int>(sizeof(T)) : 0,
+                       n);
+  const int nv = (n - head) / W;
+  const int tail = n - head - nv * W;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  uint4 raw[VECS];
+#pragma unroll
+  for (int k = 0; k < VECS; ++k)
+    if (t + k * blockDim.x < nv) raw[k] = xv[t + k * blockDim.x];
+  const int ei = t < head ? t : (t < head + tail ? n - tail + (t - head)
+                                                 : -1);
+  const float xe = ei >= 0 ? to_f(x[ei]) : 0.f;
+  float s = kIsMax ? -CUDART_INF_F : 0.f;
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    if (t + k * blockDim.x < nv) {
+      float v[W];
+      widen(raw[k], x, v);
+#pragma unroll
+      for (int j = 0; j < W; ++j) s = combine<kIsMax>(s, v[j]);
+    }
+  }
+  if (ei >= 0) s = combine<kIsMax>(s, xe);
+  s = block_combine<kIsMax>(s, red);
+  if (t == 0) out[0] = kIsMax ? s : s / denom;
 }
 
 template <typename T, bool kIsMax>
-int launch_reduce(const void* x, long long n, int vec, float* part,
-                  float* out, float denom, cudaStream_t stream) {
-  const int blocks = blocks_for(n);
+int launch_grid(const void* x, long long n, int vec, int blocks, float* part,
+                float* out, float denom, cudaStream_t stream) {
+  if (blocks < 1 || blocks > kMaxBlocks) return (int)cudaErrorInvalidValue;
   reduce_partial_kernel<T, kIsMax><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), n, vec, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_finish_kernel<kIsMax><<<1, kFinishThreads, 0, stream>>>(
-      part, blocks, denom, out);
+  // programmatic dependent launch: the finishing block is scheduled while
+  // the streaming pass's last blocks run, hiding a launch's latency
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kFinishThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, reduce_finish_kernel<kIsMax>,
+                           static_cast<const float*>(part), blocks, denom,
+                           out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool kIsMax, int VECS>
+int launch_cta_vecs(const void* x, int n, int threads, float* out,
+                    float denom, cudaStream_t stream) {
+  reduce_cta_kernel<T, kIsMax, VECS><<<1, threads, 0, stream>>>(
+      static_cast<const T*>(x), n, denom, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kIsMax>
+int launch_cta(const void* x, long long n, int threads, int vecs,
+               float* out, float denom, cudaStream_t stream) {
+  constexpr int W = 16 / sizeof(T);
+  // every vector of x on some thread, the head and tail (at most 2W - 2
+  // elements) on threads of their own
+  if (threads < 32 || threads > kCtaMaxThreads || threads % 32 != 0 ||
+      n > (long long)threads * vecs * W)
+    return (int)cudaErrorInvalidValue;
+  const int ni = static_cast<int>(n);
+  switch (vecs) {
+    case 1: return launch_cta_vecs<T, kIsMax, 1>(x, ni, threads, out, denom,
+                                                 stream);
+    case 2: return launch_cta_vecs<T, kIsMax, 2>(x, ni, threads, out, denom,
+                                                 stream);
+    case 4: return launch_cta_vecs<T, kIsMax, 4>(x, ni, threads, out, denom,
+                                                 stream);
+    case 8: return launch_cta_vecs<T, kIsMax, 8>(x, ni, threads, out, denom,
+                                                 stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, bool kIsMax>
+int launch_route(const void* x, long long n, int vec, int route,
+                 int threads, int blocks, int vecs, float* part, float* out,
+                 float denom, cudaStream_t stream) {
+  if (route == kRouteCta)
+    return launch_cta<T, kIsMax>(x, n, threads, vecs, out, denom, stream);
+  if (route == kRouteGrid)
+    return launch_grid<T, kIsMax>(x, n, vec, blocks, part, out, denom,
+                                  stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int dispatch_kind(const void* x, long long n, int vec, int kind, float* part,
-                  float* out, cudaStream_t stream) {
+int dispatch_kind(const void* x, long long n, int vec, int kind, int route,
+                  int threads, int blocks, int vecs, float* part, float* out,
+                  cudaStream_t stream) {
   // mean divides by max(1, n), as `s / max(1, x.size)`
   const float denom = kind == kMean ? (float)(n > 1 ? n : 1) : 1.f;
   if (kind == kMax)
-    return launch_reduce<T, true>(x, n, vec, part, out, denom, stream);
+    return launch_route<T, true>(x, n, vec, route, threads, blocks, vecs,
+                                 part, out, denom, stream);
   if (kind == kSum || kind == kMean)
-    return launch_reduce<T, false>(x, n, vec, part, out, denom, stream);
+    return launch_route<T, false>(x, n, vec, route, threads, blocks, vecs,
+                                  part, out, denom, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -243,17 +380,21 @@ int launch_cumsum(const void* x, void* out, long long R, long long N,
 
 }  // namespace
 
-extern "C" int ff_reduce_blocks(long long n) { return blocks_for(n); }
-
-// x: n contiguous elements; vec: x is 16-byte aligned; part: room for
-// ff_reduce_blocks(n) floats; out: one float
+// x: n contiguous elements; vec: x is 16-byte aligned (grid route); part:
+// room for `blocks` floats (grid route; unused on "cta"); out: one float.
+// The plan's arguments (kernels/reduction.py ReducePlan) follow the
+// stream: route, threads a block (cta), blocks (grid), 16-byte vectors a
+// thread (cta).
 extern "C" int ff_reduce(const void* x, long long n, int vec, int kind,
-                         float* part, float* out, int dtype, void* stream) {
+                         float* part, float* out, int dtype, void* stream,
+                         int route, int threads, int blocks, int vecs) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32)
-    return dispatch_kind<float>(x, n, vec, kind, part, out, s);
+    return dispatch_kind<float>(x, n, vec, kind, route, threads, blocks,
+                                vecs, part, out, s);
   if (dtype == FF_BF16)
-    return dispatch_kind<__nv_bfloat16>(x, n, vec, kind, part, out, s);
+    return dispatch_kind<__nv_bfloat16>(x, n, vec, kind, route, threads,
+                                        blocks, vecs, part, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,13 +16,14 @@ from . import decode, flash_attention, norm, reduction
 
 _COUNTS = (decode.LAUNCHES, decode.ROUTES, flash_attention.LAUNCHES,
            flash_attention.ROUTES, norm.LAUNCHES, norm.ROUTES,
-           reduction.LAUNCHES)
+           reduction.LAUNCHES, reduction.ROUTES)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset, and the decode,
-    flash, softmax_fwd and rmsnorm_fwd wrappers' launches per route
-    ("decode_attention/tc", "flash_fwd/tc", "softmax_fwd/rows", ...)."""
+    flash, softmax_fwd, rmsnorm_fwd, layernorm_bwd and reduce wrappers'
+    launches per route ("decode_attention/tc", "flash_fwd/tc",
+    "softmax_fwd/rows", "reduce/cta", ...)."""
     return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 

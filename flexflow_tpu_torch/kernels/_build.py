@@ -132,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_softmax_max_active_clusters.argtypes = [i, i, i, i]
     lib.ff_softmax_max_active_clusters.restype = i
     lib.ff_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                     p]
+                                     p, i, i, i, i]
     lib.ff_layernorm_bwd.restype = i
     lib.ff_layernorm_bwd_rows_per_block.argtypes = []
     lib.ff_layernorm_bwd_rows_per_block.restype = i
@@ -148,9 +148,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_rmsnorm_fwd.restype = i
     lib.ff_rmsnorm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.ff_rmsnorm_bwd.restype = i
-    lib.ff_reduce_blocks.argtypes = [ctypes.c_longlong]
-    lib.ff_reduce_blocks.restype = i
-    lib.ff_reduce.argtypes = [p, ctypes.c_longlong, i, i, p, p, i, p]
+    lib.ff_reduce.argtypes = [p, ctypes.c_longlong, i, i, p, p, i, p, i, i,
+                              i, i]
     lib.ff_reduce.restype = i
     lib.ff_cumsum.argtypes = [p, p, ctypes.c_longlong, ctypes.c_longlong, i,
                               i, p]
@@ -173,16 +172,17 @@ def library() -> ctypes.CDLL:
 
 
 # template arguments a kernel of csrc/ takes, as they are mangled
-_TEMPLATE_ARG = r"Li(-?\d+)E|(f)|(13__nv_bfloat16)"
+_TEMPLATE_ARG = r"Li(-?\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)"
 
 
 def _kernel_name(mangled: str) -> str:
     """`name<args>` of a mangled kernel, at namespace scope or in a
     (possibly anonymous) namespace, whose template arguments are ints,
-    float or bf16 (`_Z16flash_bwd_dkv_tcILi64ELi2EEvPK...` ->
+    bools, float or bf16 (`_Z16flash_bwd_dkv_tcILi64ELi2EEvPK...` ->
     `flash_bwd_dkv_tc<64, 2>`, `_ZN..19rmsnorm_warp_kernelI13__nv_bfloat16
-    Li4EEEv...` -> `rmsnorm_warp_kernel<bf16, 4>`); a kernel that is no
-    template by its name alone; anything else as mangled."""
+    Li4EEEv...` -> `rmsnorm_warp_kernel<bf16, 4>`, `..17reduce_cta_kernelI
+    fLb1ELi4EEEv...` -> `reduce_cta_kernel<float, true, 4>`); a kernel
+    that is no template by its name alone; anything else as mangled."""
     nested = mangled.startswith("_ZN")
     if not mangled.startswith("_Z"):
         return mangled
@@ -203,8 +203,10 @@ def _kernel_name(mangled: str) -> str:
     args = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[pos:])
     if args is None:
         return ident
-    names = [num or ("float" if f else "bf16")
-             for num, f, _ in re.findall(_TEMPLATE_ARG, args.group(1))]
+    names = [num or {"1": "true", "0": "false"}.get(flag)
+             or ("float" if f else "bf16")
+             for num, flag, f, _ in re.findall(_TEMPLATE_ARG,
+                                               args.group(1))]
     return f"{ident}<" + ", ".join(names) + ">"
 
 

@@ -24,10 +24,17 @@ three passes, re-reads from L2); RMSNorm "warp" (N <= RMS_WARP_MAX_N:
 a warp a row in registers, gamma kept in registers) and "block" (a row
 a block, staged in shared memory). `softmax_split_plain` and
 `rmsnorm_warp_plain` repeat the cluster and warp routes' arithmetic in
-torch. LayerNorm backward gives each block a few rows and sums dgamma
-and dbeta per block, then over blocks in a second launch in a fixed
-order; softmax backward gives each row a warp. RMSNorm backward follows
-LayerNorm's without the mean.
+torch. LayerNorm backward takes a route that `layernorm_bwd_plan` chooses
+from the shape alone: "warp" (N <= LN_BWD_WARP_MAX_N: a warp a row, x
+and dy in registers through 16-byte loads, gamma kept, the row sums
+through shuffles only, dgamma and dbeta summed per lane over the warp's
+rows and per CTA over its warps, one partial row a CTA of a persistent
+grid; the column sums a programmatic dependent launch) and "block" (a
+few rows a block, dgamma and dbeta summed per block, then over blocks in
+a second launch); both add in a fixed order, and
+`layernorm_bwd_warp_plain` repeats the warp route's arithmetic in torch.
+Softmax backward gives each row a warp. RMSNorm backward follows
+LayerNorm's block route without the mean.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -46,13 +53,15 @@ from . import _build
 LAUNCHES: Dict[str, int] = {"layernorm_fwd": 0, "layernorm_bwd": 0,
                             "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
                             "softmax_fwd": 0, "softmax_bwd": 0}
-# softmax_fwd and rmsnorm_fwd calls by route (csrc/norm.cu SoftmaxRoute,
-# RmsRoute), the codes the C entries take
+# softmax_fwd, rmsnorm_fwd and layernorm_bwd calls by route (csrc/norm.cu
+# SoftmaxRoute, RmsRoute, LnBwdRoute), the codes the C entries take
 SOFTMAX_ROUTES = {"loop": 0, "rows": 1, "block": 2, "cluster": 3}
 RMSNORM_ROUTES = {"block": 0, "warp": 1}
+LN_BWD_ROUTES = {"block": 0, "warp": 1}
 ROUTES: Dict[str, int] = {
     **{f"softmax_fwd/{r}": 0 for r in SOFTMAX_ROUTES},
-    **{f"rmsnorm_fwd/{r}": 0 for r in RMSNORM_ROUTES}}
+    **{f"rmsnorm_fwd/{r}": 0 for r in RMSNORM_ROUTES},
+    **{f"layernorm_bwd/{r}": 0 for r in LN_BWD_ROUTES}}
 # SMs of the card the plans assume when not told (H100 SXM)
 H100_SMS = 132
 # softmax "rows": N up to ROWS_MAX_N (lanes a row: the power of two at or
@@ -80,6 +89,16 @@ RMS_WARP_MAX_N = 2048
 RMS_WARP_THREADS = 256
 RMS_BLOCKS_PER_SM = 2
 RMS_BLOCK_THREADS = 256
+# LayerNorm backward "warp": N up to LN_BWD_WARP_MAX_N (at most 64 values
+# a lane; x, dy and gamma stay in registers up to 32), 8 warps a block,
+# LN_BWD_BLOCKS_PER_SM blocks an SM: a CTA writes one partial row of
+# dgamma and of dbeta; "block": 256 threads take 8 rows (csrc/norm.cu
+# kLnBwdRows)
+LN_BWD_WARP_MAX_N = 2048
+LN_BWD_WARP_THREADS = 256
+LN_BWD_BLOCKS_PER_SM = 1
+LN_BWD_BLOCK_THREADS = 256
+LN_BWD_BLOCK_ROWS = 8
 # shared memory a block may use; the RMSNorm block route stages a row's
 # bytes beside 32 floats of reduction scratch
 SMEM_BYTES = 232448
@@ -102,6 +121,15 @@ class RmsNormPlan(NamedTuple):
     route: str    # "warp" or "block"
     threads: int  # a block
     blocks: int   # the grid
+    vecs: int     # warp: 16-byte vectors a lane; block: 0
+
+
+class LnBwdPlan(NamedTuple):
+    """How one layernorm_bwd call runs on the card
+    (`layernorm_bwd_plan`)."""
+    route: str    # "warp" or "block"
+    threads: int  # a block
+    blocks: int   # the grid, one partial row of dgamma / dbeta each
     vecs: int     # warp: 16-byte vectors a lane; block: 0
 
 
@@ -176,6 +204,28 @@ def rmsnorm_plan(rows: int, n: int, dtype,
         raise ValueError(f"rmsnorm_fwd: N={n} > {rmsnorm_max_n(dtype)}, "
                          "the widest row a block stages in shared memory")
     return RmsNormPlan("block", RMS_BLOCK_THREADS, rows, 0)
+
+
+def layernorm_bwd_plan(rows: int, n: int, dtype,
+                       sms: int = H100_SMS) -> LnBwdPlan:
+    """The route and launch of layernorm_bwd over `rows` rows of N, from
+    the shape and dtype alone: "warp" for N <= LN_BWD_WARP_MAX_N (the
+    training step's (4096, 1024)), with the power of two of 16-byte
+    vectors a lane that holds the row, a persistent grid of at most
+    LN_BWD_BLOCKS_PER_SM blocks an SM of 8 warps (so the stride between a
+    warp's rows is a multiple of 16 bytes); "block" up to MAX_BWD_COLS,
+    8 rows a block; wider raises ValueError."""
+    rows, n, esz = _shape("layernorm_bwd_plan", rows, n, dtype)
+    if n <= LN_BWD_WARP_MAX_N:
+        vecs = _pow2_at_least(-(-(-(-n // (16 // esz))) // 32))
+        per_block = LN_BWD_WARP_THREADS // 32
+        blocks = min(-(-rows // per_block), sms * LN_BWD_BLOCKS_PER_SM)
+        return LnBwdPlan("warp", LN_BWD_WARP_THREADS, blocks, vecs)
+    if n > MAX_BWD_COLS:
+        raise ValueError(f"layernorm_bwd: N={n} > {MAX_BWD_COLS}, the most "
+                         "a block stages in shared memory")
+    return LnBwdPlan("block", LN_BWD_BLOCK_THREADS,
+                     -(-rows // LN_BWD_BLOCK_ROWS), 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,40 +317,108 @@ def rmsnorm_warp_plain(x, gamma, eps: float, phase: int = 0):
     w = 16 // esz
     rstd = torch.empty((r, 1), dtype=torch.float32)
     heads = _row_heads(r, n, esz, phase)
-    lanes = torch.arange(32)
     for head in heads.unique().tolist():
         idx = (heads == head).nonzero().flatten()
         rows = xf[idx]
-        nv = (n - head) // w
-        tail = n - head - nv * w
-        k = -(-nv // 32)
-        body = torch.zeros((len(idx), k * 32, w), dtype=torch.float32)
-        body[:, :nv] = rows[:, head:head + nv * w].reshape(len(idx), nv, w)
-        body = body.reshape(len(idx), k, 32, w)
-        s = torch.zeros((len(idx), 32), dtype=torch.float32)
-        for kk in range(k):
-            for j in range(w):
-                v = body[:, kk, :, j]
-                s = s + v * v
-        edge = torch.zeros_like(s)
-        edge[:, :head] = rows[:, :head]
-        edge[:, head:head + tail] = rows[:, n - tail:]
-        s = s + edge * edge
-        for o in (16, 8, 4, 2, 1):
-            s = s + s[:, lanes ^ o]
+        s = _lane_sums(rows * rows, head, n, w)
         # sqrt correctly rounded, as the card's sqrtf (torch's f32 sqrt on
         # the CPU is not): through f64, which rounds a square root right
-        rstd[idx] = 1 / torch.sqrt((s[:, :1] / n + eps).double()).float()
+        rstd[idx] = 1 / torch.sqrt((s / n + eps).double()).float()
     y = xf * rstd
     if gamma is not None:
         y = y * gamma.float()
     return y.to(x.dtype).reshape(x.shape), rstd
 
 
+def _butterfly(s):
+    """Each lane's value after the warp's butterfly of adds: s + s[l ^ o]
+    for o = 16, 8, 4, 2, 1 over the last axis (32 lanes)."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[..., lanes ^ o]
+    return s
+
+
+def _lane_sums(v, head, n, w):
+    """The warp route's row sums of v (rows of one head): lane l adds its
+    vectors l, l + 32, ... element by element, then its head or tail
+    element; the lanes meet in the butterfly. (rows, 1)."""
+    rows = v.shape[0]
+    nv = (n - head) // w
+    tail = n - head - nv * w
+    k = -(-nv // 32)
+    body = torch.zeros((rows, k * 32, w), dtype=torch.float32)
+    body[:, :nv] = v[:, head:head + nv * w].reshape(rows, nv, w)
+    body = body.reshape(rows, k, 32, w)
+    s = torch.zeros((rows, 32), dtype=torch.float32)
+    for kk in range(k):
+        for j in range(w):
+            s = s + body[:, kk, :, j]
+    edge = torch.zeros_like(s)
+    edge[:, :head] = v[:, :head]
+    edge[:, head:head + tail] = v[:, n - tail:]
+    return _butterfly(s + edge)[:, :1]
+
+
+def layernorm_bwd_warp_plain(x, gamma, mean, rstd, dy, blocks: int,
+                             phase: int = 0, warps: int = 8):
+    """(dx, dgamma, dbeta) in the warp route's order, in torch, for a grid
+    of `blocks` CTAs of `warps` warps (`layernorm_bwd_plan(...)`'s blocks
+    and threads / 32), x's first row `phase` bytes past a 16-byte
+    boundary. Every step is
+    rounded to f32 on its own: xhat = (x - mean) * rstd, g = dy * gamma;
+    sum(g) and sum(g * xhat) as `_lane_sums` takes them, m = sum / N, dx =
+    ((g - m1) - xhat * m2) * rstd rounded once to x.dtype. dgamma (of dy *
+    xhat) and dbeta (of dy): warp w of the S = warps * blocks adds rows
+    w, w + S, ... in order; CTA b adds its warps in order;
+    partial row p goes to group p mod 32 in order, and the 32 groups
+    meet in the butterfly. On the card's sums this gives the kernel's
+    bits."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    d = dy.reshape(-1, n).float()
+    r = xf.shape[0]
+    w = 16 // x.element_size()
+    xhat = (xf - mean) * rstd
+    g = d * gamma.float() if gamma is not None else d
+    gx = g * xhat
+    dx = torch.empty_like(xf)
+    heads = _row_heads(r, n, x.element_size(), phase)
+    for head in heads.unique().tolist():
+        idx = (heads == head).nonzero().flatten()
+        m1 = _lane_sums(g[idx], head, n, w) / n
+        m2 = _lane_sums(gx[idx], head, n, w) / n
+        dx[idx] = ((g[idx] - m1) - xhat[idx] * m2) * rstd[idx]
+    dx = dx.to(x.dtype).reshape(x.shape)
+    if gamma is None:
+        return dx, None, None
+    stride = warps * blocks
+
+    def column_sums(terms):
+        acc = torch.zeros((stride, n), dtype=torch.float32)
+        for lo in range(0, r, stride):
+            hi = min(r, lo + stride)
+            acc[:hi - lo] = acc[:hi - lo] + terms[lo:hi]
+        acc = acc.reshape(blocks, warps, n)
+        part = torch.zeros((blocks, n), dtype=torch.float32)
+        for wi in range(warps):
+            part = part + acc[:, wi]
+        groups = torch.zeros((n, 32), dtype=torch.float32)
+        for lo in range(0, blocks, 32):
+            hi = min(blocks, lo + 32)
+            groups[:, :hi - lo] = groups[:, :hi - lo] + part[lo:hi].t()
+        return _butterfly(groups)[:, 0]
+
+    return dx, column_sums(d * xhat), column_sums(d)
+
+
 # f32 floats of shared memory a layernorm_bwd block stages per column
 # (xhat, g, and the dgamma / dbeta partial sums): N <= 227 KB / 16 B;
 # rmsnorm_bwd stages one sum fewer, the same bound keeps one rule
 MAX_BWD_COLS = 232448 // 16
+# with gamma the LayerNorm block route stages all four beside 32 floats of
+# reduction scratch: N <= 14520 (the parent's launch failed above it)
+LN_BWD_BLOCK_AFFINE_MAX_N = (SMEM_BYTES - 32 * 4) // 16
 
 
 def layernorm_fwd_plain(x, gamma, beta, eps: float):
@@ -547,15 +665,16 @@ def layernorm_bwd(x, gamma, mean, rstd, dy):
     affine = [] if gamma is None else [gamma]
     if not _on_card("layernorm_bwd", x, mean, rstd, dy, *affine):
         return layernorm_bwd_plain(x, gamma, mean, rstd, dy)
-    if n > MAX_BWD_COLS:
-        raise ValueError(f"layernorm_bwd: N={n} > {MAX_BWD_COLS}, the most "
+    plan = layernorm_bwd_plan(r, n, x.dtype, _sm_count(x.device.index))
+    if affine and n > LN_BWD_BLOCK_AFFINE_MAX_N:
+        raise ValueError(f"layernorm_bwd: N={n} > "
+                         f"{LN_BWD_BLOCK_AFFINE_MAX_N} with gamma, the most "
                          "a block stages in shared memory")
-    dx = torch.empty_like(x)
+    dx = _empty_in_phase(x)
     lib = _build.library()
     dg = db = part = None
     if affine:
-        blocks = -(-r // lib.ff_layernorm_bwd_rows_per_block())
-        part = torch.empty((2, blocks, n), dtype=torch.float32,
+        part = torch.empty((2, plan.blocks, n), dtype=torch.float32,
                            device=x.device)
         dg = torch.empty((n,), dtype=torch.float32, device=x.device)
         db = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -567,9 +686,11 @@ def layernorm_bwd(x, gamma, mean, rstd, dy):
             part[1].data_ptr() if affine else None,
             dg.data_ptr() if affine else None,
             db.data_ptr() if affine else None, r, n,
-            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device),
+            LN_BWD_ROUTES[plan.route], plan.threads, plan.blocks, plan.vecs)
     _build.check(err, "layernorm_bwd")
     LAUNCHES["layernorm_bwd"] += 1
+    ROUTES[f"layernorm_bwd/{plan.route}"] += 1
     return dx, dg, db
 
 

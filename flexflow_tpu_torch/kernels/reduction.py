@@ -8,9 +8,13 @@ counterpart of the JAX `fused_reduce` with its custom VJP. x has any
 shape, f32 or bf16; the kernel reads the stored dtype and accumulates in
 f32, and the result is an f32 scalar. mean is sum / max(1, n); an empty
 x gives 0 for sum and mean and -inf for max. The kernel is
-csrc/reduction.cu: bound by bytes, one streaming pass of block partials
-and a finishing launch that adds them in a fixed order, with no atomics,
-so the loss is the same bits on every run.
+csrc/reduction.cu, bound by bytes, on a route that `reduce_plan` picks
+from n and the dtype alone (never a value, so no host sync): "cta" (x up
+to REDUCE_CTA_MAX_BYTES, the loss's 4096 f32 elements among them): one
+launch of one block that holds x; "grid" (larger x): a streaming pass of
+block partials, then a finishing block launched as a programmatic
+dependent that adds them in a fixed order. No atomics on either, so the
+loss is the same bits on every run.
 
 The gradient of sum and mean broadcasts the cotangent (divided by n for
 mean) in f32, cast to x's dtype, with no kernel, as the JAX VJP does.
@@ -31,7 +35,7 @@ tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -39,9 +43,59 @@ from . import _build
 
 KINDS = {"sum": 0, "mean": 1, "max": 2}
 
-# kernel launches of `reduce` (its two launches count once) and of
-# `cumsum`, plain counts the paths are read by
+# kernel launches of `reduce` (the grid route's two launches count once)
+# and of `cumsum`, plain counts the paths are read by
 LAUNCHES: Dict[str, int] = {"reduce": 0, "cumsum": 0}
+# reduce calls by route (csrc/reduction.cu ReduceRoute), the codes the C
+# entry takes
+REDUCE_ROUTES = {"grid": 0, "cta": 1}
+ROUTES: Dict[str, int] = {f"reduce/{r}": 0 for r in REDUCE_ROUTES}
+# "cta": x of at most REDUCE_CTA_MAX_BYTES in one block; a thread takes
+# up to CTA_MAX_VECS 16-byte vectors, the block the least multiple of 32
+# threads that holds x at the fewest vectors a thread that keeps it within
+# CTA_THREADS (past 2048 vectors: 8 a thread, up to 1024 threads)
+REDUCE_CTA_MAX_BYTES = 128 * 1024
+CTA_THREADS = 256
+CTA_MAX_THREADS = 1024
+CTA_MAX_VECS = 8
+# "grid": a block of 256 threads for every GRID_BLOCK_ELEMS elements, at
+# most GRID_MAX_BLOCKS, then one finishing block
+GRID_THREADS = 256
+GRID_BLOCK_ELEMS = 16 * GRID_THREADS
+GRID_MAX_BLOCKS = 1024
+_ESZ = {torch.float32: 4, torch.bfloat16: 2}
+
+
+class ReducePlan(NamedTuple):
+    """How one reduce call runs on the card (`reduce_plan`)."""
+    route: str    # "cta" or "grid"
+    threads: int  # a block
+    blocks: int   # the grid (cta: 1; grid: the streaming pass's blocks)
+    vecs: int     # cta: 16-byte vectors a thread; grid: 0
+
+
+def reduce_plan(n: int, dtype) -> ReducePlan:
+    """The route and launch of reduce over n elements of `dtype`, from
+    those alone: "cta" while x fits REDUCE_CTA_MAX_BYTES (and one block's
+    CTA_MAX_THREADS x CTA_MAX_VECS vectors), with the fewest vectors a
+    thread (1, 2, 4, 8) that keeps the block within CTA_THREADS; "grid"
+    beyond, ceil(n / GRID_BLOCK_ELEMS) blocks, at most GRID_MAX_BLOCKS."""
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"reduce_plan: n = {n} must be >= 0")
+    if dtype not in _ESZ:
+        raise TypeError(f"reduce_plan: dtype must be float32 or bfloat16, "
+                        f"got {dtype}")
+    w = 16 // _ESZ[dtype]
+    nvec = -(-n // w)
+    if (n * _ESZ[dtype] <= REDUCE_CTA_MAX_BYTES
+            and nvec <= CTA_MAX_THREADS * CTA_MAX_VECS):
+        vecs = next(v for v in (1, 2, 4, CTA_MAX_VECS)
+                    if v == CTA_MAX_VECS or nvec <= CTA_THREADS * v)
+        per = -(-nvec // vecs)  # threads that hold x, then whole warps
+        return ReducePlan("cta", max(32, -(-per // 32) * 32), 1, vecs)
+    blocks = min(GRID_MAX_BLOCKS, max(1, -(-n // GRID_BLOCK_ELEMS)))
+    return ReducePlan("grid", GRID_THREADS, blocks, 0)
 
 
 def reduce_plain(x, kind: str):
@@ -74,18 +128,24 @@ def reduce(x, kind: str = "sum"):
         raise ValueError(f"reduce: no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("reduce: x must be contiguous")
-    lib = _build.library()
     n = x.numel()
-    part = torch.empty((lib.ff_reduce_blocks(n),), dtype=torch.float32,
-                       device=x.device)
+    plan = reduce_plan(n, x.dtype)
+    lib = _build.library()
     out = torch.empty((), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.blocks,), dtype=torch.float32,
+                       device=x.device) if plan.route == "grid" else None
     with torch.cuda.device(x.device):
         err = lib.ff_reduce(x.data_ptr(), n, int(x.data_ptr() % 16 == 0),
-                            KINDS[kind], part.data_ptr(), out.data_ptr(),
+                            KINDS[kind],
+                            part.data_ptr() if part is not None else None,
+                            out.data_ptr(),
                             _build.DTYPE_CODES[x.dtype],
-                            _build.stream_ptr(x.device))
+                            _build.stream_ptr(x.device),
+                            REDUCE_ROUTES[plan.route], plan.threads,
+                            plan.blocks, plan.vecs)
     _build.check(err, "reduce")
     LAUNCHES["reduce"] += 1
+    ROUTES[f"reduce/{plan.route}"] += 1
     return out
 
 

@@ -1,10 +1,12 @@
-"""Time the softmax and RMSNorm forward kernels on one NVIDIA GPU.
+"""Time the norm, softmax and scalar reduction kernels on one NVIDIA GPU.
 
     python flexflow_tpu_torch/tools/norm_bench.py [--repeat N] [--sweep]
+                                                  [--profile]
 
-Builds the kernel library, prints what ptxas reported for the forward
-kernels of csrc/norm.cu (registers, stack, spills), then times in bf16 at
-every shape the paths give them:
+Builds the kernel library, prints what ptxas reported for the softmax and
+RMSNorm forward kernels, the LayerNorm backward kernels (csrc/norm.cu)
+and the reduction kernels (csrc/reduction.cu): registers, stack, spills.
+Then it times in bf16 at every shape the paths give them:
  - `softmax_fwd` at (8, 30522) (a decode iteration's LM head), (16,
    30522) (a prefill chunk's), (128, 30522) (the kernel table's), (4096,
    2) (the training step's classifier) and (4096, 10) (the kernel-tier
@@ -12,10 +14,16 @@ every shape the paths give them:
  - `rmsnorm_fwd` at (4096, 1024) with gamma (the tier's rms_norm);
  - `layernorm_fwd` at (4096, 1024) (24 launches a training step) and
    (8, 1024) (a decode iteration), with gamma and beta;
+ - `layernorm_bwd` at (4096, 1024) with gamma, in bf16 (24 launches a
+   training step) and f32 (the train-witness's);
+ - `reduce` over 4096 f32 elements, mean (the loss's and the accuracy's
+   terms, 2 launches a step), and over 2^26 f32, sum and max;
 each beside one library call on the same inputs (`torch.softmax`,
-`F.rms_norm` and `F.layer_norm` with bf16 weights) and the least time the
-card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s,
-the larger). Device time from CUDA events around each call, the host's
+`F.rms_norm` and `F.layer_norm` with bf16 weights,
+`aten.native_layer_norm_backward` with weights in x's dtype, `torch.sum`
+and `torch.amax`) and the least time the card could take (bytes over
+3.35 TB/s or operations over 989 (bf16) or 67 (f32) TFLOP/s, the
+larger). Device time from CUDA events around each call, the host's
 calls queued behind a sleep kernel, no L2 flush (the activations arrive
 hot from the op before, as on the paths): `repeat` rounds of 50 calls
 after a warm-up, each round's mean. Each shape also gives the largest
@@ -25,12 +33,19 @@ an empty kernel (what any call pays) and a copy (`clone`) of a
 (4096, 1024) and a (128, 30522) bf16 tensor (one read and one write of
 the bytes). Prints one JSON line.
 
-`--sweep` (a checkout with `softmax_plan`) times the plans' alternatives:
-every cluster size at the wide softmax shapes (norm.FILL_CTAS set to
-rows x size; size 1 is the "block" route), the "rows" route against
-"block" at N = 256-1024 (norm.ROWS_MAX_N 1024 against 128), and the
-RMSNorm warp route's grid (norm.RMS_BLOCKS_PER_SM): how the constants
-in kernels/norm.py were chosen.
+`--profile` adds each shape's device time per call by kernel (from
+torch.profiler, the device synchronised between calls): LayerNorm
+backward's row kernel beside its column sums.
+
+`--sweep` (a checkout with `layernorm_bwd_plan`) times the plans'
+alternatives: every cluster size at the wide softmax shapes
+(norm.FILL_CTAS set to rows x size; size 1 is the "block" route), the
+"rows" route against "block" at N = 256-1024 (norm.ROWS_MAX_N 1024
+against 128), the RMSNorm warp route's grid (norm.RMS_BLOCKS_PER_SM),
+the LayerNorm backward warp route's grid (norm.LN_BWD_BLOCKS_PER_SM) and
+the reduction's "cta" route against "grid" at 4096-65536 f32 elements
+and 65536-131072 bf16 (reduction.REDUCE_CTA_MAX_BYTES): how the
+constants in kernels/norm.py and kernels/reduction.py were chosen.
 
 It uses only the wrappers and absolute imports, so run as a file with an
 older checkout's root first on PYTHONPATH it times that checkout's
@@ -46,6 +61,7 @@ import sys
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
 SOFTMAX_SHAPES = ((8, 30522), (16, 30522), (128, 30522), (4096, 2),
                   (4096, 10))
 NORM_SHAPES = (("rmsnorm_fwd", 4096, 1024), ("layernorm_fwd", 4096, 1024),
@@ -55,11 +71,11 @@ SWEEP_NARROW = ((4096, 256), (4096, 512), (4096, 1000), (4096, 1024),
                 (128, 1024))
 
 
-def _bound_ms(nbytes, ops):
-    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+def _bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
+    return max(nbytes / HBM_BYTES_PER_S, ops / ops_per_s) * 1e3
 
 
-def _cases(torch, F, norm, g):
+def _cases(torch, F, norm, reduction, g):
     """{name: (kernel call, library call, bound ms, max |kernel - plain|)}
     on fresh bf16 inputs."""
     dev = torch.device("cuda")
@@ -100,15 +116,52 @@ def _cases(torch, F, norm, g):
                               8 * x.numel())
         err = (y.float() - ref.float()).abs().max()
         out[f"{name} {rows}x{n}"] = (kernel, lib, bound, float(err))
+    rows, n = 4096, 1024
+    for dtype in (bf16, torch.float32):
+        x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(
+            dtype)
+        dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+        gamma = torch.rand((n,), generator=g, device=dev) + 0.5
+        beta = torch.randn((n,), generator=g, device=dev)
+        _, mean, rstd = norm.layernorm_fwd(x, gamma, beta)
+        got = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+        ref = norm.layernorm_bwd_plain(x, gamma, mean, rstd, dy)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, ref))
+        wx, bx = gamma.to(dtype), beta.to(dtype)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [n], wx, bx,
+                                                           1e-5)
+        esz = x.element_size()
+        out[f"layernorm_bwd {rows}x{n} {str(dtype)[6:]}"] = (
+            lambda x=x, gamma=gamma, mean=mean, rstd=rstd, dy=dy: (
+                norm.layernorm_bwd(x, gamma, mean, rstd, dy)),
+            lambda x=x, dy=dy, lm=lmean, lr=lrstd, wx=wx, bx=bx, n=n: (
+                torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [n], lm, lr, wx, bx, [True, True, True])),
+            _bound_ms(3 * rows * n * esz + 2 * rows * 4 + 3 * n * 4,
+                      10 * rows * n,
+                      BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S),
+            err)
+    for n, kinds in ((4096, ("mean",)), (2 ** 26, ("sum", "max"))):
+        x = torch.randn((n,), generator=g, device=dev)
+        for kind in kinds:
+            err = abs(float(reduction.reduce(x, kind))
+                      - float(reduction.reduce_plain(x, kind)))
+            lib = torch.amax if kind == "max" else torch.sum
+            out[f"reduce {n} float32 {kind}"] = (
+                lambda x=x, kind=kind: reduction.reduce(x, kind),
+                lambda x=x, lib=lib: lib(x),
+                _bound_ms(n * 4 + 4, n, F32_OPS_PER_S), err)
     return out
 
 
-def _sweep(torch, norm, g, device_ms):
+def _sweep(torch, norm, reduction, g, device_ms):
     """Device ms under other plan constants, each restored afterwards."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     keep = (norm.FILL_CTAS, norm.ROWS_MAX_N, norm.RMS_BLOCKS_PER_SM)
-    out = {"cluster": {}, "rows_vs_block": {}, "rms_blocks_per_sm": {}}
+    out = {"cluster": {}, "rows_vs_block": {}, "rms_blocks_per_sm": {},
+           "ln_bwd_blocks_per_sm": {}, "reduce_cta_vs_grid": {}}
     try:
         for rows, n in SWEEP_WIDE:
             x = (torch.randn((rows, n), generator=g, device=dev) * 4).to(
@@ -139,6 +192,31 @@ def _sweep(torch, norm, g, device_ms):
                 for _ in range(3))
     finally:
         norm.FILL_CTAS, norm.ROWS_MAX_N, norm.RMS_BLOCKS_PER_SM = keep
+    keep = (norm.LN_BWD_BLOCKS_PER_SM, reduction.REDUCE_CTA_MAX_BYTES)
+    try:
+        dy = torch.randn((4096, 1024), generator=g, device=dev).to(bf16)
+        beta = torch.randn((1024,), generator=g, device=dev)
+        _, mean, rstd = norm.layernorm_fwd(x, gamma, beta)
+        for per_sm in (1, 2, 3, 4):
+            norm.LN_BWD_BLOCKS_PER_SM = per_sm
+            out["ln_bwd_blocks_per_sm"][str(per_sm)] = min(
+                device_ms(lambda: norm.layernorm_bwd(x, gamma, mean, rstd,
+                                                     dy))
+                for _ in range(3))
+        for dtype, ns in ((torch.float32, (4096, 8192, 16384, 32768, 65536)),
+                          (bf16, (65536, 131072))):
+            for n in ns:
+                v = torch.randn((n,), generator=g, device=dev).to(dtype)
+                for limit in (0, 1 << 20):
+                    reduction.REDUCE_CTA_MAX_BYTES = limit
+                    plan = reduction.reduce_plan(n, dtype)
+                    key = (f"{n} {str(dtype)[6:]} {plan.route} "
+                           f"threads={plan.threads} vecs={plan.vecs}")
+                    out["reduce_cta_vs_grid"][key] = min(
+                        device_ms(lambda: reduction.reduce(v, "sum"))
+                        for _ in range(3))
+    finally:
+        norm.LN_BWD_BLOCKS_PER_SM, reduction.REDUCE_CTA_MAX_BYTES = keep
     return out
 
 
@@ -150,12 +228,14 @@ def main(argv=None) -> int:
     ap.add_argument("--repeat", type=int, default=5)
     ap.add_argument("--sweep", action="store_true",
                     help="also time other plan constants")
+    ap.add_argument("--profile", action="store_true",
+                    help="also give device time by kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("norm_bench: no CUDA device visible", file=sys.stderr)
         return 2
-    from flexflow_tpu_torch.kernels import _build, norm
-    from flexflow_tpu_torch.tools.decode_bench import _device_ms
+    from flexflow_tpu_torch.kernels import _build, norm, reduction
+    from flexflow_tpu_torch.tools.decode_bench import _by_kernel, _device_ms
 
     def device_ms(fn):
         return _device_ms(torch, fn, lambda: None)
@@ -164,8 +244,10 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"device": torch.cuda.get_device_name(0), "package": norm.__file__,
            # empty where this process loaded a library built earlier
-           "ptxas": [r for r in _build.ptxas_report("norm.cu")
-                     if re.search(r"softmax_(?!bwd)|rmsnorm_(?!bwd)",
+           "ptxas": [r for src in ("norm.cu", "reduction.cu")
+                     for r in _build.ptxas_report(src)
+                     if re.search(r"softmax_(?!bwd)|rmsnorm_(?!bwd)|"
+                                  r"layernorm_bwd|column_sums|reduce_",
                                   str(r["kernel"]))]}
     # yardsticks of this timing: an empty kernel (the floor any call pays)
     # and a copy of the (4096, 1024) and (128, 30522) bf16 inputs, one read
@@ -175,24 +257,28 @@ def main(argv=None) -> int:
     for rows, n in ((4096, 1024), (128, 30522)):
         x = torch.randn((rows, n), device="cuda").to(torch.bfloat16)
         out[f"copy_ms {rows}x{n}"] = [device_ms(x.clone) for _ in range(2)]
-    routes = getattr(norm, "ROUTES", None)
-    for name, (kernel, lib, bound, err) in _cases(torch, F, norm,
+    routes = [r for r in (getattr(norm, "ROUTES", None),
+                          getattr(reduction, "ROUTES", None)) if r is not None]
+    for name, (kernel, lib, bound, err) in _cases(torch, F, norm, reduction,
                                                    g).items():
-        if routes is not None:
-            for key in routes:
-                routes[key] = 0
+        for counts in routes:
+            for key in counts:
+                counts[key] = 0
         kernel()
         row = {"ms": [device_ms(kernel) for _ in range(args.repeat)],
                "library_ms": [device_ms(lib) for _ in range(2)],
                "bound_ms": bound, "max_abs_err_vs_plain": err}
-        if routes is not None:
-            row["routes"] = {k: n for k, n in routes.items() if n}
+        if routes:
+            row["routes"] = {k: n for counts in routes
+                             for k, n in counts.items() if n}
+        if args.profile:
+            row["by_kernel_us"] = _by_kernel(torch, kernel, lambda: None)
         out[name] = row
     if args.sweep:
-        if not hasattr(norm, "softmax_plan"):
+        if not hasattr(norm, "layernorm_bwd_plan"):
             raise SystemExit("norm_bench --sweep: this checkout has no "
-                             "softmax_plan")
-        out["sweep"] = _sweep(torch, norm, g, device_ms)
+                             "layernorm_bwd_plan")
+        out["sweep"] = _sweep(torch, norm, reduction, g, device_ms)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -776,3 +776,158 @@ def test_norm_forward_wrappers_raise_where_the_parent_raised(dev):
         norm.rmsnorm_fwd(x, torch.ones(64))
     with pytest.raises(ValueError, match="shared memory"):
         norm.rmsnorm_fwd(torch.randn((2, 58081), device=dev))
+
+
+# layernorm_bwd by route (kernels/norm.py layernorm_bwd_plan) at the edge
+# shapes: N x R, f32 and bf16, with and without gamma; N = MAX_BWD_COLS is
+# the widest row the parent's block kernel took
+LN_BWD_EDGE_N = [1, 2, 33, 300, 1000, 1024, 2048, 2049,
+                 norm.LN_BWD_BLOCK_AFFINE_MAX_N, norm.MAX_BWD_COLS]
+LN_BWD_EDGE_R = [1, 7, 8, 9, 4095]
+LN_BWD_DX_TOL = {torch.float32: F32_TOL,
+                 torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# dgamma / dbeta against the plain version: f32 sums over the rows in
+# another order (the kernel table's tolerance)
+LN_BWD_SUM_TOL = dict(atol=1e-3, rtol=1e-4)
+
+
+def _ln_bwd_route_case(dev, x, dy, gamma):
+    """layernorm_bwd on the card against its plain version, its route
+    counted, dgamma / dbeta the same bits on two calls; on the warp route
+    dx, dgamma and dbeta equal to the bit to `layernorm_bwd_warp_plain`
+    (every step of the kernel rounded by __fmul_rn / __fadd_rn /
+    __fdiv_rn, none fused). Returns the plan."""
+    rows, n = x.shape
+    beta = torch.zeros(n, device=dev) if gamma is not None else None
+    _, mean, rstd = norm.layernorm_fwd(x.contiguous(), gamma, beta)
+    plan = norm.layernorm_bwd_plan(
+        rows, n, x.dtype,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    reset_launch_counts()
+    dx, dg, db = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+    counts = launch_counts()
+    assert counts["layernorm_bwd"] == 1
+    assert counts[f"layernorm_bwd/{plan.route}"] == 1, (plan, counts)
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    assert dx.data_ptr() % 16 == x.data_ptr() % 16
+    rdx, rdg, rdb = norm.layernorm_bwd_plain(x, gamma, mean, rstd, dy)
+    _close(dx, rdx, LN_BWD_DX_TOL[x.dtype])
+    if gamma is None:
+        assert dg is None and db is None
+    else:
+        _close(dg, rdg, LN_BWD_SUM_TOL)
+        _close(db, rdb, LN_BWD_SUM_TOL)
+        again = norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+        assert torch.equal(again[1], dg) and torch.equal(again[2], db)
+        assert torch.equal(again[0], dx)
+    if plan.route == "warp":
+        edx, edg, edb = norm.layernorm_bwd_warp_plain(
+            x.cpu(), gamma.cpu() if gamma is not None else None, mean.cpu(),
+            rstd.cpu(), dy.cpu(), plan.blocks, x.data_ptr() % 16,
+            plan.threads // 32)
+        assert torch.equal(dx.cpu(), edx)
+        if gamma is not None:
+            assert torch.equal(dg.cpu(), edg) and torch.equal(db.cpu(), edb)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", LN_BWD_EDGE_R)
+@pytest.mark.parametrize("n", LN_BWD_EDGE_N)
+@pytest.mark.parametrize("affine", [True, False])
+def test_layernorm_bwd_routes_match_plain(dev, n, rows, dtype, affine):
+    g = torch.Generator(device=dev).manual_seed(rows * 5 + n)
+    x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(dtype)
+    dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    gamma = torch.rand((n,), generator=g, device=dev) + 0.5 if affine \
+        else None
+    if affine and n > norm.LN_BWD_BLOCK_AFFINE_MAX_N:
+        # the parent's launch failed here (shared memory); now a ValueError
+        _, mean, rstd = norm.layernorm_fwd(x, gamma, torch.zeros_like(gamma))
+        with pytest.raises(ValueError, match="shared memory"):
+            norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+        return
+    plan = _ln_bwd_route_case(dev, x, dy, gamma)
+    assert plan.route == ("warp" if n <= norm.LN_BWD_WARP_MAX_N
+                          else "block")
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("n", [1, 33, 300, 1000])
+@pytest.mark.parametrize("dy_offset", ["same", "other"])
+def test_layernorm_bwd_reads_rows_at_any_phase(dev, offset, n, dy_offset):
+    """bf16 x starting `offset` elements past a 16-byte boundary, dy at the
+    same phase (16-byte loads) or at another (element loads): dx lands at
+    x's phase and matches the plain version and the warp emulation."""
+    rows = 37
+    g = torch.Generator(device=dev).manual_seed(offset * 100 + n)
+    buf = torch.randn(rows * n + 16, generator=g, device=dev).bfloat16()
+    x = buf[offset:offset + rows * n].view(rows, n)
+    dbuf = torch.randn(rows * n + 16, generator=g, device=dev).bfloat16()
+    d0 = offset if dy_offset == "same" else (offset + 3) % 8
+    dy = dbuf[d0:d0 + rows * n].view(rows, n)
+    assert x.data_ptr() % 16 == 2 * offset
+    gamma = torch.rand(n, generator=g, device=dev) + 0.5
+    assert _ln_bwd_route_case(dev, x, dy, gamma).route == "warp"
+
+
+def test_layernorm_bwd_refuses_what_the_parent_refused(dev):
+    x = torch.randn((2, norm.MAX_BWD_COLS + 1), device=dev)
+    stat = torch.zeros((2, 1), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        norm.layernorm_bwd(x, None, stat, stat, x)
+    y = torch.randn((4, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.layernorm_bwd(y.t().contiguous().t(), None,
+                           torch.zeros((4, 1), device=dev),
+                           torch.ones((4, 1), device=dev), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [0, 1, 4096, 4097, 1_000_003, 2 ** 26])
+@pytest.mark.parametrize("kind", ["sum", "mean", "max"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_reduce_routes_match_plain(dev, dtype, n, kind, offset):
+    """Both routes of `reduce_plan`, x 16-byte aligned and one element
+    past it: the route counted, the plain version's result (max exactly,
+    sum and mean within f32 rounding of sum |x|), the same bits twice."""
+    g = torch.Generator(device=dev).manual_seed(n + 13)
+    x = torch.randn((n + offset,), generator=g, device=dev).to(dtype)[offset:]
+    plan = reduction.reduce_plan(n, dtype)
+    reset_launch_counts()
+    out = reduction.reduce(x, kind)
+    counts = launch_counts()
+    assert counts["reduce"] == 1 and counts[f"reduce/{plan.route}"] == 1
+    ref = reduction.reduce_plain(x, kind)
+    assert out.dtype == torch.float32 and out.shape == ()
+    if kind == "max":
+        assert torch.equal(out, ref)
+    else:
+        assert abs(float(out) - float(ref)) <= \
+            1e-6 * float(x.float().abs().sum()) + 1e-30
+    assert torch.equal(reduction.reduce(x, kind), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_at_the_route_threshold(dev, dtype):
+    """The last n the "cta" route takes and the first of "grid", with a
+    NaN in the max and every 16-byte phase of the start."""
+    last = reduction.REDUCE_CTA_MAX_BYTES // torch.tensor(
+        [], dtype=dtype).element_size()
+    g = torch.Generator(device=dev).manual_seed(7)
+    base = torch.randn((last + 16,), generator=g, device=dev).to(dtype)
+    for n, route in ((last, "cta"), (last + 1, "grid")):
+        for offset in range(0, 16 // base.element_size()):
+            x = base[offset:offset + n]
+            assert reduction.reduce_plan(n, dtype).route == route
+            for kind in ("sum", "mean", "max"):
+                out = reduction.reduce(x, kind)
+                ref = reduction.reduce_plain(x, kind)
+                if kind == "max":
+                    assert torch.equal(out, ref)
+                else:
+                    assert abs(float(out) - float(ref)) <= \
+                        1e-6 * float(x.float().abs().sum())
+        y = base[:n].clone()
+        y[n // 3] = float("nan")
+        assert torch.isnan(reduction.reduce(y, "max"))
