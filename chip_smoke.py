@@ -12,21 +12,26 @@ Phases, in order; any failure propagates and exits non-zero:
               and bf16, at the shapes its path gives it (and for softmax
               and RMSNorm forward every route of their plans at N in {1,
               2, 10, 33, 300, 1000, 1024, 30522, 70000} x R in {1, 8, 16,
-              128, 4095}; for LayerNorm backward every route at N in {1,
-              2, 33, 300, 1000, 1024, 2048, 2049, 14520, 14528} x R in
-              {1, 7, 8, 9, 4095}, with and without gamma, the warp route
-              at the training shape equal to the bit to its CPU
-              emulation; for the reduction both routes at n in {0, 1,
+              128, 4095}; for LayerNorm forward every route at N in {1,
+              2, 33, 300, 1000, 1024, 2048, 2049, 58080}, for LayerNorm
+              backward at N in {1, 2, 33, 300, 1000, 1024, 2048, 2049,
+              14520, 14528} and for RMSNorm backward at N in {1, 2, 33,
+              300, 1000, 1024, 2048, 2049, 14528}, each x R in {1, 7, 8,
+              9, 4095}, with and without the affine weights, the warp
+              routes at the path shape (4096, 1024) equal to the bit to
+              their CPU emulations; for the reduction both routes at n in
+              {0, 1,
               4096, 4097, 1000003, 2^26}, aligned and one element off,
               and at the route threshold; two calls giving the same
               bits), and time kernel, plain version and one library call
               beside the least time the card could take (softmax at every
               path's shape, LayerNorm also at the training shape); print
               ptxas's registers, spills and shared memory of the bf16
-              tensor-core flash kernels, of the softmax and RMSNorm
-              forward kernels, the LayerNorm backward kernels and the
-              reduction kernels, and the decode, flash, softmax, RMSNorm,
-              LayerNorm backward and reduce calls per route (tc: bf16
+              tensor-core flash kernels, of the softmax, RMSNorm and
+              LayerNorm forward kernels, the LayerNorm and RMSNorm
+              backward kernels and the reduction kernels, and the decode,
+              flash, softmax, RMSNorm, LayerNorm and reduce calls per
+              route (tc: bf16
               tensor cores, cc: CUDA cores; rows, block, cluster, loop;
               warp, block; cta, grid) with each decode row's plan (route,
               splits; a split call is a kernel and a combine launch);
@@ -38,8 +43,8 @@ Phases, in order; any failure propagates and exits non-zero:
               each; every request must finish with exactly its token
               count, every serving kernel must have launched, every
               decode and multi-query call must have taken the tc route,
-              and every softmax (the LM head over 30522) the cluster
-              route;
+              every softmax (the LM head over 30522) the cluster route,
+              and every LayerNorm forward the warp route;
  5. cross   — the first token's probabilities for two prompts on the card
               against the port on the CPU (plain versions), same weights;
  6. train   — bench.py's flagship BERT encoder at full width (batch 8,
@@ -50,8 +55,9 @@ Phases, in order; any failure propagates and exits non-zero:
               then timed steps; every loss finite, every training kernel
               launched its count per step (the 12 + 12 flash launches on
               the bf16 tensor-core route, the classifier's softmax on the
-              rows route, the 24 LayerNorm backward launches on the warp
-              route, the 2 reductions on the cta route), and the kernel
+              rows route, the 24 LayerNorm forward and 24 backward
+              launches on the warp route, the 2 reductions on the cta
+              route), and the kernel
               registry (its auto policy) picked the kernels;
  7. train-witness — the train phase's first three steps again from the
               same weights and batch in f32 on the card and in f32 on the
@@ -66,8 +72,9 @@ Phases, in order; any failure propagates and exits non-zero:
               and accuracy, SGD lr 0.05, data from RandomState(8)): 3 fit
               steps on the card in bf16 under kernel_impl="pallas" (each
               kernel's launches per step asserted, the softmax on the rows
-              route, the RMSNorm and the LayerNorm backward on the warp
-              route, the reductions on the cta route) and under "reference"
+              route, the RMSNorm and the LayerNorm forward and backward on
+              the warp route, the reductions on the cta route) and under
+              "reference"
               (no kernel launches), and on the CPU in f32 as a witness;
 10. ref-vs-kernel — the flagship cut to 2 layers, f32, two Adam steps on
               the card under kernel_impl="pallas" and "reference" (flash
@@ -123,19 +130,21 @@ TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
 TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
 # the same launches by route: the flash kernels in bf16, so all on the
 # tensor cores; the classifier's (4096, 2) softmax on the "rows" route;
-# the (4096, 1024) LayerNorm backward on "warp"; the loss's and the
-# accuracy's 4096-element means on "cta" (one launch each)
+# the (4096, 1024) LayerNorm forward and backward on "warp"; the loss's
+# and the accuracy's 4096-element means on "cta" (one launch each)
 TRAIN_ROUTES_PER_STEP = {"flash_fwd/tc": 12, "flash_bwd/tc": 12,
                          "flash_fwd/cc": 0, "flash_bwd/cc": 0,
-                         "softmax_fwd/rows": 1, "layernorm_bwd/warp": 24,
-                         "reduce/cta": 2}
+                         "softmax_fwd/rows": 1, "layernorm_fwd/warp": 24,
+                         "layernorm_bwd/warp": 24, "reduce/cta": 2}
 # launches per step of the kernel-tier graph under kernel_impl="pallas"
 TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
                  "rmsnorm_bwd": 1, "softmax_fwd": 1, "softmax_bwd": 1,
                  "reduce": 2}
 # the tier's (4096, 10) softmax takes "rows", its (4096, 1024) RMSNorm
-# and LayerNorm backward "warp", its two 4096-element means "cta"
+# and LayerNorm, forward and backward, "warp", its two 4096-element means
+# "cta"
 TIER_ROUTES_PER_STEP = {"softmax_fwd/rows": 1, "rmsnorm_fwd/warp": 1,
+                        "rmsnorm_bwd/warp": 1, "layernorm_fwd/warp": 1,
                         "layernorm_bwd/warp": 1, "reduce/cta": 2}
 TIER_KERNELS = tuple(TIER_PER_STEP)
 # families the registry must pick the kernel for on the training path
@@ -147,8 +156,8 @@ TP_PER_STEP = {"flash_fwd_blhd": 12, "flash_bwd_blhd": 12, "flash_fwd": 0,
                "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2}
 TP_ROUTES_PER_STEP = {"flash_fwd_blhd/tc": 12, "flash_bwd_blhd/tc": 12,
                       "flash_fwd_blhd/cc": 0, "flash_bwd_blhd/cc": 0,
-                      "softmax_fwd/rows": 1, "layernorm_bwd/warp": 24,
-                      "reduce/cta": 2}
+                      "softmax_fwd/rows": 1, "layernorm_fwd/warp": 24,
+                      "layernorm_bwd/warp": 24, "reduce/cta": 2}
 TP_KERNELS = ("flash_fwd_blhd", "flash_bwd_blhd")
 # launches of the standalone entries (phase 11)
 STANDALONE_LAUNCHES = {"flash_fwd_bhld": 1, "flash_bwd_bhld": 1,
@@ -328,13 +337,29 @@ def phase_kernels(torch, F):
         row = {"shape": f"R={rows} N={n} {dtype}".replace("torch.", ""),
                "max_abs_err": float(err.max()),
                "tolerance": f"|err| <= {tol[0]} + {tol[1]}*|plain|"}
-        if name == "softmax_fwd":
-            row["plan"] = norm.softmax_plan(rows, n, dtype)._asdict()
+        plan_of = (norm.softmax_plan if name == "softmax_fwd"
+                   else norm.layernorm_fwd_plan)
+        row["plan"] = plan_of(rows, n, dtype, torch.cuda.
+                              get_device_properties(dev).
+                              multi_processor_count)._asdict()
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"at {row['shape']}: {row}")
+        if name == "layernorm_fwd" and rows == 4096:
+            # the warp route's every step is rounded on its own: the CPU
+            # emulation of its order gives the kernel's bits
+            got = norm.layernorm_fwd(x, gamma, beta)
+            emu = norm.layernorm_fwd_warp_plain(
+                x.cpu(), gamma.cpu(), beta.cpu(), 1e-5, x.data_ptr() % 16)
+            if row["plan"]["route"] != "warp" or not all(
+                    torch.equal(a.cpu(), b) for a, b in zip(got, emu)):
+                raise AssertionError(f"layernorm_fwd at {row['shape']}: "
+                                     f"{row['plan']}, or not the bits of "
+                                     "layernorm_fwd_warp_plain")
+            row["warp_plain_same_bits"] = True
         if timed:
-            bound, by = _bound(nbytes, ops, "bfloat16")
+            bound, by = _bound(nbytes, ops, "bfloat16" if dtype ==
+                               torch.bfloat16 else "float32")
             # activations arrive hot in L2 from the op before: no flush
             row.update(ms=_time_ms(torch, run), plain_ms=_time_ms(
                 torch, plain), library_ms=_time_ms(torch, lib),
@@ -353,6 +378,10 @@ def phase_kernels(torch, F):
     # step's classifier (4096, 2) and the tier's dense(10) (4096, 10)
     table["layernorm_fwd"]["training_shape"] = norm_case(
         "layernorm_fwd", 4096, 1024, torch.bfloat16, (1e-2, 1e-2), True)
+    # the train-witness's f32 steps
+    table["layernorm_fwd"]["training_shape_f32"] = norm_case(
+        "layernorm_fwd", 4096, 1024, torch.float32, (1e-5, 1e-4), True)
+    table["layernorm_fwd"]["ms_includes"] = "1 launch"
     table["softmax_fwd"]["path_shapes"] = {
         path: norm_case("softmax_fwd", rows, n, torch.bfloat16,
                         (1e-6, 1e-2), True)
@@ -366,7 +395,8 @@ def phase_kernels(torch, F):
     table.update(cumsum_kernels(torch, g))
     edges = norm_route_edges(torch, g)
     edges.update(bwd_route_edges(torch, g))
-    for name in ("softmax_fwd", "rmsnorm_fwd", "layernorm_bwd", "reduce"):
+    for name in ("softmax_fwd", "rmsnorm_fwd", "layernorm_fwd",
+                 "layernorm_bwd", "rmsnorm_bwd", "reduce"):
         table[name]["edges"] = edges[name]
     return table
 
@@ -376,14 +406,22 @@ def phase_kernels(torch, F):
 # wider than a cluster of 8 holds (softmax's loop route)
 NORM_EDGE_N = (1, 2, 10, 33, 300, 1000, 1024, 30522, 70000)
 NORM_EDGE_R = (1, 8, 16, 128, 4095)
+# the edge shapes of the LayerNorm forward and of the two warp-route
+# backward kernels (LayerNorm, RMSNorm): N = 2049 the first of "block",
+# 58080 the widest row the parent's LayerNorm forward took (N = 14520 the
+# widest the LayerNorm backward's block route stages with gamma, 14528
+# without); R = 7, 8, 9 about one CTA of 8 warps
+LN_FWD_EDGE_N = (1, 2, 33, 300, 1000, 1024, 2048, 2049, 58080)
+LN_EDGE_R = (1, 7, 8, 9, 4095)
 
 
 def norm_route_edges(torch, g):
-    """softmax_fwd and rmsnorm_fwd against their plain versions at the
-    edge shapes, every route of both plans, at the tolerances of the
-    path-shape checks; two calls give the same bits; an RMSNorm row wider
-    than a block's shared memory raises ValueError, as the parent
-    refused it. Also each cluster plan's cudaOccupancyMaxActiveClusters
+    """softmax_fwd, rmsnorm_fwd and layernorm_fwd against their plain
+    versions at the edge shapes, every route of the three plans, at the
+    tolerances of the path-shape checks; two calls give the same bits; an
+    RMSNorm or LayerNorm row wider than a block's shared memory raises
+    ValueError, where the parent refused it (RMSNorm) or its launch failed
+    (LayerNorm). Also each cluster plan's cudaOccupancyMaxActiveClusters
     (at least 1). Returns {kernel: summary}."""
     from flexflow_tpu_torch.kernels import _build, norm
 
@@ -391,8 +429,9 @@ def norm_route_edges(torch, g):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sm_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-6, 1e-2)}
     rms_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+    ln_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
     out = {k: {"checked": 0, "routes": {}, "max_abs_err": 0.0}
-           for k in ("softmax_fwd", "rmsnorm_fwd")}
+           for k in ("softmax_fwd", "rmsnorm_fwd", "layernorm_fwd")}
 
     def note(name, route, row):
         rec = out[name]
@@ -419,7 +458,8 @@ def norm_route_edges(torch, g):
             for affine in (True, False):
                 x = (torch.randn((rows, n), generator=g, device=dev) * 2
                      + 1).to(dtype)
-                gamma = torch.rand((n,), generator=g, device=dev) + 0.5                     if affine else None
+                gamma = (torch.rand((n,), generator=g, device=dev) + 0.5
+                         if affine else None)
                 shape = (f"R={rows} N={n} {dtype} "
                          f"{'affine' if affine else 'plain'}").replace(
                              "torch.", "")
@@ -442,9 +482,44 @@ def norm_route_edges(torch, g):
                     raise AssertionError(f"rmsnorm_fwd: {shape} differs "
                                          "between two calls")
                 del x, y, y2
+        ln_shapes = [(r, n) for n in LN_FWD_EDGE_N for r in LN_EDGE_R]
+        for rows, n in ln_shapes + [(2, LN_FWD_EDGE_N[-1] + 1)]:
+            for affine in (True, False):
+                x = (torch.randn((rows, n), generator=g, device=dev) * 2
+                     + 1).to(dtype)
+                gamma = beta = None
+                if affine:
+                    gamma = torch.rand((n,), generator=g, device=dev) + 0.5
+                    beta = torch.randn((n,), generator=g, device=dev)
+                shape = (f"R={rows} N={n} {dtype} "
+                         f"{'affine' if affine else 'plain'}").replace(
+                             "torch.", "")
+                if n > norm.layernorm_max_n(dtype):
+                    try:
+                        norm.layernorm_fwd(x, gamma, beta)
+                    except ValueError:
+                        out["layernorm_fwd"]["refused"] = shape
+                        continue
+                    raise AssertionError(f"layernorm_fwd took {shape}")
+                plan = norm.layernorm_fwd_plan(rows, n, dtype, sms)
+                got = norm.layernorm_fwd(x, gamma, beta)
+                ry, rmean, rrstd = norm.layernorm_fwd_plain(x, gamma, beta,
+                                                            1e-5)
+                note("layernorm_fwd", plan.route, _agree(
+                    "layernorm_fwd", got[0], ry, ln_tol[dtype], shape))
+                for nm, a, b in (("mean", got[1], rmean),
+                                 ("rstd", got[2], rrstd)):
+                    _agree(f"layernorm_fwd ({nm})", a, b,
+                           ln_tol[torch.float32], shape)
+                again = norm.layernorm_fwd(x, gamma, beta)
+                if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                    raise AssertionError(f"layernorm_fwd: {shape} differs "
+                                         "between two calls")
+                del x, got, again
     missing = [f"{k}/{r}" for k, routes in (
         ("softmax_fwd", norm.SOFTMAX_ROUTES),
-        ("rmsnorm_fwd", norm.RMSNORM_ROUTES)) for r in routes
+        ("rmsnorm_fwd", norm.RMSNORM_ROUTES),
+        ("layernorm_fwd", norm.LN_FWD_ROUTES)) for r in routes
         if r not in out[k]["routes"]]
     if missing:
         raise AssertionError(f"routes never held at the edges: {missing}")
@@ -469,20 +544,20 @@ def norm_route_edges(torch, g):
     return out
 
 
-# the edge shapes every layernorm_bwd route is held at (N = 14520 is the
-# widest the block route stages with gamma, 14528 without), and the
-# reduce's element counts, each 16-byte aligned and one element past
 LN_BWD_EDGE_N = (1, 2, 33, 300, 1000, 1024, 2048, 2049, 14520, 14528)
-LN_BWD_EDGE_R = (1, 7, 8, 9, 4095)
+RMS_BWD_EDGE_N = (1, 2, 33, 300, 1000, 1024, 2048, 2049, 14528)
+# the reduce's element counts, each 16-byte aligned and one element past
 REDUCE_EDGE_N = (0, 1, 4096, 4097, 1000003, 2 ** 26)
 
 
 def bwd_route_edges(torch, g):
-    """layernorm_bwd and reduce against their plain versions at the edge
-    shapes, every route of both plans, at the path-shape checks'
-    tolerances; dgamma / dbeta and the reduction the same bits on two
-    calls; a LayerNorm row with gamma wider than the block route stages
-    raises ValueError, where the parent's launch failed. Also the reduce
+    """layernorm_bwd, rmsnorm_bwd and reduce against their plain versions
+    at the edge shapes, every route of the three plans, at the path-shape
+    checks' tolerances; dx, dgamma / dbeta and the reduction the same
+    bits on two calls; a LayerNorm row with gamma wider than the block
+    route stages raises ValueError, where the parent's launch failed, and
+    an RMSNorm row wider than MAX_BWD_COLS, where the parent raised. Also
+    the reduce
     at the last n of "cta" and the first of "grid", at every 16-byte
     phase of the start. Returns {kernel: summary}."""
     from flexflow_tpu_torch.kernels import norm, reduction
@@ -491,7 +566,7 @@ def bwd_route_edges(torch, g):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     dx_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
     out = {k: {"checked": 0, "routes": {}, "max_abs_err": 0.0}
-           for k in ("layernorm_bwd", "reduce")}
+           for k in ("layernorm_bwd", "rmsnorm_bwd", "reduce")}
 
     def note(name, route, err):
         rec = out[name]
@@ -500,7 +575,7 @@ def bwd_route_edges(torch, g):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
 
     for dtype in (torch.float32, torch.bfloat16):
-        for rows in LN_BWD_EDGE_R:
+        for rows in LN_EDGE_R:
             for n in LN_BWD_EDGE_N:
                 for affine in (True, False):
                     x = (torch.randn((rows, n), generator=g, device=dev) * 2
@@ -542,6 +617,43 @@ def bwd_route_edges(torch, g):
                                                  "differs between two calls")
                     note("layernorm_bwd", plan.route, err)
                     del x, dy, dx
+            for n in RMS_BWD_EDGE_N + (RMS_BWD_EDGE_N[-1] + 1,):
+                for affine in (True, False):
+                    x = (torch.randn((rows, n), generator=g, device=dev) * 2
+                         + 1).to(dtype)
+                    dy = torch.randn((rows, n), generator=g,
+                                     device=dev).to(dtype)
+                    gamma = torch.rand((n,), generator=g,
+                                       device=dev) + 0.5 if affine else None
+                    shape = (f"R={rows} N={n} {dtype} "
+                             f"{'affine' if affine else 'plain'}").replace(
+                                 "torch.", "")
+                    _, rstd = norm.rmsnorm_fwd(x, gamma)
+                    if n > norm.MAX_BWD_COLS:
+                        try:
+                            norm.rmsnorm_bwd(x, gamma, rstd, dy)
+                        except ValueError:
+                            out["rmsnorm_bwd"]["refused"] = shape
+                            continue
+                        raise AssertionError(f"rmsnorm_bwd took {shape}")
+                    plan = norm.rmsnorm_bwd_plan(rows, n, dtype, sms)
+                    dx, dg = norm.rmsnorm_bwd(x, gamma, rstd, dy)
+                    rdx, rdg = norm.rmsnorm_bwd_plain(x, gamma, rstd, dy)
+                    err = _agree("rmsnorm_bwd (dx)", dx, rdx, dx_tol[dtype],
+                                 shape)["max_abs_err"]
+                    again = norm.rmsnorm_bwd(x, gamma, rstd, dy)
+                    if not torch.equal(again[0], dx):
+                        raise AssertionError(f"rmsnorm_bwd: {shape} differs "
+                                             "between two calls")
+                    if affine:
+                        err = max(err, _agree(
+                            "rmsnorm_bwd (dgamma)", dg, rdg, (1e-3, 1e-4),
+                            shape)["max_abs_err"])
+                        if not torch.equal(again[1], dg):
+                            raise AssertionError(f"rmsnorm_bwd: {shape} "
+                                                 "differs between two calls")
+                    note("rmsnorm_bwd", plan.route, err)
+                    del x, dy, dx, again
     for dtype in (torch.float32, torch.bfloat16):
         last = reduction.REDUCE_CTA_MAX_BYTES // (
             4 if dtype == torch.float32 else 2)
@@ -569,12 +681,16 @@ def bwd_route_edges(torch, g):
             del x
     missing = [f"{k}/{r}" for k, routes in (
         ("layernorm_bwd", norm.LN_BWD_ROUTES),
+        ("rmsnorm_bwd", norm.RMS_BWD_ROUTES),
         ("reduce", reduction.REDUCE_ROUTES)) for r in routes
         if r not in out[k]["routes"]]
     if missing:
         raise AssertionError(f"routes never held at the edges: {missing}")
     out["layernorm_bwd"]["tolerance"] = (
         "dx the path shapes' (f32 and bf16); dgamma, dbeta |err| <= 1e-3 + "
+        "1e-4*|plain|")
+    out["rmsnorm_bwd"]["tolerance"] = (
+        "dx the path shapes' (f32 and bf16); dgamma |err| <= 1e-3 + "
         "1e-4*|plain|")
     out["reduce"]["tolerance"] = "max exact; sum, mean |err| <= 1e-6 sum|x|"
     for rec in out.values():
@@ -744,8 +860,10 @@ def tier_kernels(torch, F, g):
     plain versions, in f32 and bf16, at the kernel-tier graph's shapes
     (RMSNorm (4096, 1024); the loss and accuracy terms, 4096 f32
     elements), at edge shapes, and the reduction at 2^26 f32 elements;
-    dgamma and the reduction bit-identical over two runs. Timed at the
-    path's shapes (bf16 RMSNorm). Returns {kernel name: table row}."""
+    dgamma and the reduction bit-identical over two runs; RMSNorm
+    backward at (4096, 1024) the bits of its warp route's emulation. Timed
+    at the path's shapes (bf16 RMSNorm; the backward also in f32). Returns
+    {kernel name: table row}."""
     from flexflow_tpu_torch.kernels import norm, reduction
 
     dev = torch.device("cuda")
@@ -774,6 +892,21 @@ def tier_kernels(torch, F, g):
         dx, dg = norm.rmsnorm_bwd(x, gamma, rstd, dy)
         rdx, rdg = norm.rmsnorm_bwd_plain(x, gamma, rstd, dy)
         bwd = _agree("rmsnorm_bwd (dx)", dx, rdx, tol, shape)
+        plan = norm.rmsnorm_bwd_plan(rows, n, dtype, torch.cuda.
+                                     get_device_properties(dev).
+                                     multi_processor_count)
+        bwd["plan"] = plan._asdict()
+        if rows == TRAIN["batch"] * TRAIN["seq"]:
+            # the warp route's every step is rounded on its own: the CPU
+            # emulation of its order gives the kernel's bits
+            emu = norm.rmsnorm_bwd_warp_plain(
+                x.cpu(), gamma.cpu() if affine else None, rstd.cpu(),
+                dy.cpu(), plan.blocks, x.data_ptr() % 16, plan.threads // 32)
+            if plan.route != "warp" or not torch.equal(dx.cpu(), emu[0]) \
+                    or (affine and not torch.equal(dg.cpu(), emu[1])):
+                raise AssertionError(f"rmsnorm_bwd at {shape}: {plan}, or "
+                                     "not the bits of rmsnorm_bwd_warp_plain")
+            bwd["warp_plain_same_bits"] = True
         if affine:
             # dgamma: f32 sums over the rows in another order
             row = _agree("rmsnorm_bwd (dgamma)", dg, rdg, (1e-3, 1e-4), shape)
@@ -785,7 +918,7 @@ def tier_kernels(torch, F, g):
 
     r, n = TRAIN["batch"] * TRAIN["seq"], TRAIN["hidden"]
     worst = {"rmsnorm_fwd": 0.0, "rmsnorm_bwd": 0.0}
-    edges = []
+    edges, timed = [], {}
     for rows, cols in ((r, n), (37, 300), (4095, 1000), (1, 33)):
         for dtype in (torch.float32, torch.bfloat16):
             for affine in (True, False):
@@ -796,9 +929,9 @@ def tier_kernels(torch, F, g):
                                            bwd["max_abs_err"])
                 if (rows, cols) != (r, n):
                     edges.append(fwd["shape"])
-                elif dtype == torch.bfloat16 and affine:
-                    timed = (fwd, bwd, args)
-    fwd, bwd, (x, gamma, rstd, dy) = timed
+                elif affine:
+                    timed[dtype] = (fwd, bwd, args)
+    fwd, bwd, (x, gamma, rstd, dy) = timed[torch.bfloat16]
     esz = x.element_size()
     g16 = gamma.to(x.dtype)
     xg = x.detach().requires_grad_()
@@ -826,7 +959,23 @@ def tier_kernels(torch, F, g):
             lib_out, (xg, wg), dy, retain_graph=True)),
         bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
         library="F.rms_norm's backward through autograd (bf16 weight)",
-        ms_includes="2 launches (rows, then the dgamma column sums)")
+        ms_includes="2 launches (the warp route's rows, then the dgamma "
+                    "column sums as a programmatic dependent)")
+    # the f32 shape, beside F.rms_norm's backward with an f32 weight
+    _, f32_bwd, (x, gamma, rstd, dy) = timed[torch.float32]
+    xg = x.detach().requires_grad_()
+    wg = gamma.detach().requires_grad_()
+    lib_out = F.rms_norm(xg, (n,), wg, 1e-6)
+    f32_bound = _bound(3 * r * n * 4 + 2 * n * 4 + r * 4, 8 * r * n,
+                       "float32")
+    f32_bwd.update(
+        ms=_time_ms(torch, lambda: norm.rmsnorm_bwd(x, gamma, rstd, dy)),
+        plain_ms=_time_ms(torch, lambda: norm.rmsnorm_bwd_plain(
+            x, gamma, rstd, dy)),
+        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (xg, wg), dy, retain_graph=True)),
+        bound_ms=f32_bound[0], bound_by=f32_bound[1])
+    bwd["f32_shape"] = f32_bwd
     table["rmsnorm_bwd"] = bwd
     del lib_out, xg, wg
 
@@ -1486,28 +1635,6 @@ def phase_ref_vs_kernel(torch, layers=2):
                          "and each norm, steps 1 and 2)"}
 
 
-def _tier_model(torch, device, mixed, kernel_impl):
-    """The JAX package's kernel-tier graph (tests/test_pallas_kernels.py
-    `_tiny_model`) at the flagship's norm shape: (8, 512, 1024) ->
-    layer_norm -> rms_norm -> dense(10) -> softmax; sparse CE, accuracy,
-    SGD lr 0.05; weights from torch.Generator().manual_seed(0)."""
-    from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
-                                    MetricsType, SGDOptimizer)
-
-    b, seq, hidden = TRAIN["batch"], TRAIN["seq"], TRAIN["hidden"]
-    m = FFModel(FFConfig(batch_size=b, allow_mixed_precision=mixed,
-                         device=device, kernel_impl=kernel_impl))
-    t = m.create_tensor([b, seq, hidden])
-    t = m.layer_norm(t, [-1], name="ln")
-    t = m.rms_norm(t, [-1], name="rms")
-    m.softmax(m.dense(t, 10, name="cls"))
-    m.compile(optimizer=SGDOptimizer(m, lr=0.05),
-              loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
-              metrics=[MetricsType.METRICS_ACCURACY],
-              generator=torch.Generator().manual_seed(0))
-    return m
-
-
 def phase_tier(torch, steps=3):
     """The kernel-tier graph for `steps` fit steps (one batch each, data
     from RandomState(8)): on the card in bf16 under kernel_impl="pallas"
@@ -1518,6 +1645,7 @@ def phase_tier(torch, steps=3):
 
     from flexflow_tpu_torch.kernels import launch_counts, \
         reset_launch_counts
+    from flexflow_tpu_torch.tools.train_profile import build_tier_model
 
     rng = np.random.RandomState(8)
     b = TRAIN["batch"]
@@ -1530,7 +1658,7 @@ def phase_tier(torch, steps=3):
             ("card_pallas_bf16", "cuda", True, "pallas"),
             ("card_reference_bf16", "cuda", True, "reference"),
             ("cpu_f32", "cpu", False, "auto")):
-        m = _tier_model(torch, device, mixed, impl)
+        m = build_tier_model(device, mixed, impl)
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -1651,11 +1779,12 @@ def main() -> int:
            "norm_fwd_ptxas": [
                r for r in _build.ptxas_report("norm.cu")
                if r["kernel"].startswith(("softmax_", "rmsnorm_warp",
-                                          "rmsnorm_block"))
+                                          "rmsnorm_block", "layernorm_fwd"))
                and not r["kernel"].startswith("softmax_bwd")],
+           # layernorm_bwd_warp_kernel<T, V, false> is RMSNorm's backward
            "ln_bwd_ptxas": [
                r for r in _build.ptxas_report("norm.cu")
-               if r["kernel"].startswith(("layernorm_bwd",
+               if r["kernel"].startswith(("layernorm_bwd", "rmsnorm_bwd",
                                           "ln_column_sums"))],
            "reduce_ptxas": [r for r in _build.ptxas_report("reduction.cu")
                             if r["kernel"].startswith("reduce_")]})
@@ -1714,6 +1843,13 @@ def main() -> int:
     if softmax_routes["softmax_fwd/cluster"] != launches["softmax_fwd"]:
         raise AssertionError(f"softmax_fwd calls off the cluster route on "
                              f"the serving path: {softmax_routes}")
+    # LayerNorm forward over 8 decode rows or 16 rows of a prefill chunk of
+    # the hidden width: every call a warp a row
+    if launches["layernorm_fwd/warp"] != launches["layernorm_fwd"]:
+        raise AssertionError(
+            f"layernorm_fwd calls off the warp route on the serving path: "
+            f"{launches['layernorm_fwd/warp']} of "
+            f"{launches['layernorm_fwd']}")
     ttft = np.array([r.ttft_s for r in reqs]) * 1e3
     generated = int(sum(len(o) for o in outs))
     serve = {
@@ -1730,6 +1866,8 @@ def main() -> int:
                           if k.startswith(("decode_attention/",
                                            "multiquery_decode_attention/"))},
         "softmax_routes": softmax_routes,
+        "layernorm_fwd_routes": {k: n for k, n in launches.items()
+                                 if k.startswith("layernorm_fwd/")},
         "launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }

@@ -24,13 +24,10 @@
 // Bound on this card: bytes. Both read each element once and write it
 // once with a handful of operations per element.
 //
-// Design of LayerNorm forward: one block per row, its statistics reduced
-// in f32 with warp shuffles; the row is staged in shared memory as f32
-// (N = 1024 on every path: 4 KB), so device memory is read once.
-//
-// Softmax forward and RMSNorm forward take a route that
-// kernels/norm.py `softmax_plan` / `rmsnorm_plan` choose from the shape
-// alone (rows, N, dtype); each route is a kernel below.
+// Softmax forward, RMSNorm forward and LayerNorm forward take a route
+// that kernels/norm.py `softmax_plan` / `rmsnorm_plan` /
+// `layernorm_fwd_plan` choose from the shape alone (rows, N, dtype); each
+// route is a kernel below.
 //  - softmax "rows" (N <= 1024: the classifier's N = 2, the tier's 10):
 //    a group of 2^k lanes per row (one warp from N = 33), several rows a
 //    warp, a grid of a few blocks per SM walking the rows; the row sits
@@ -62,12 +59,21 @@
 //  - RMSNorm "block" (larger N): one block of 256 threads a row, the row
 //    staged in shared memory as it was loaded (16-byte vectors), so
 //    device memory is read once; N * size <= 227 KB.
+//  - LayerNorm "warp" (N <= 2048: every path's N = 1024): the RMSNorm
+//    warp route with the mean — two sums from the registers, sum(x) and
+//    then sum((x - mean)^2), each through its own butterfly — and beta
+//    kept beside gamma; CTAs of up to 8 warps, fewer where there are few
+//    rows (a decode iteration's 8), so the rows spread over the SMs.
+//  - LayerNorm "block" (larger N): one block of 256 threads a row, its
+//    statistics reduced in f32 with warp shuffles; the row is staged in
+//    shared memory as f32 (4N bytes <= 227 KB), so device memory is read
+//    once.
 // The vector routes need y at the same 16-byte phase as x (the wrapper
 // allocates it so).
 //
-// The backward kernels are bound by bytes too. LayerNorm backward takes a
-// route that kernels/norm.py `layernorm_bwd_plan` chooses from the shape
-// alone:
+// The backward kernels are bound by bytes too. LayerNorm backward and
+// RMSNorm backward take a route that kernels/norm.py `layernorm_bwd_plan`
+// / `rmsnorm_bwd_plan` choose from the shape alone:
 //  - "warp" (N <= 2048: the training step's (4096, 1024)): one warp a row,
 //    x and dy read once as 16-byte vectors (scalar head and tail), gamma
 //    in registers for the warp's life, both row sums through one
@@ -76,17 +82,16 @@
 //    persistent grid of one CTA an SM, so each CTA writes one partial row
 //    of each (132 x N x 2 f32 in place of the block route's R / 8); a
 //    second kernel, launched as a programmatic dependent, adds them in a
-//    fixed order.
+//    fixed order. RMSNorm's "warp" is the same kernel without the mean
+//    (kCenter false): xhat = x * rstd, one row sum, no dbeta.
 //  - "block" (wider N, up to MAX_BWD_COLS): each block takes kLnBwdRows
-//    rows: the row's xhat and g sit in shared memory between the two
-//    reductions and the dx pass, and each thread sums dgamma and dbeta for
-//    its own columns over the block's rows; a second launch adds the
+//    rows: the row's xhat and g sit in shared memory between the
+//    reductions and the dx pass, and each thread sums dgamma (and dbeta)
+//    for its own columns over the block's rows; a second launch adds the
 //    blocks' partial sums column by column in a fixed order.
-// Neither uses float atomics, so the sums are the same on every run.
+// None uses float atomics, so the sums are the same on every run.
 // Softmax backward gives each row one warp: at the classifier's N = 2 it
-// is bound by launch latency, not by bytes. RMSNorm backward takes the
-// LayerNorm block route's shape (kLnBwdRows rows a block, column partials
-// of dgamma, a second launch summing them in a fixed order).
+// is bound by launch latency, not by bytes.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -104,6 +109,9 @@ constexpr int kMaxCluster = 8;            // the portable cluster size
 constexpr int kRowsThreads = 128;         // softmax rows route
 constexpr int kRmsWarpThreads = 256;      // RMSNorm warp route: 8 rows
 constexpr int kRmsWarpMaxPerLane = 64;    // f32 values of x a lane holds
+constexpr int kLnFwdWarpThreads = 256;    // LayerNorm forward warp route
+constexpr int kLnFwdMaxPerLane = 64;      // values of a row a lane takes
+constexpr int kLnFwdHoldPerLane = 32;     // up to which gamma, beta stay
 constexpr int kLnBwdRows = 8;        // rows per block of layernorm_bwd
 constexpr int kLnBwdWarpThreads = 256;   // LayerNorm backward warp route
 constexpr int kLnBwdMaxPerLane = 64;     // values of a row a lane takes
@@ -117,7 +125,9 @@ constexpr int kSoftmaxBwdThreads = 256;  // 8 rows per block, a warp each
 enum SoftmaxRoute { kSoftmaxLoop = 0, kSoftmaxRows = 1, kSoftmaxBlock = 2,
                     kSoftmaxCluster = 3 };
 enum RmsRoute { kRmsBlock = 0, kRmsWarp = 1 };
-// route codes shared with kernels/norm.py LN_BWD_ROUTES
+// route codes shared with kernels/norm.py LN_FWD_ROUTES
+enum LnFwdRoute { kLnFwdBlock = 0, kLnFwdWarp = 1 };
+// route codes shared with kernels/norm.py LN_BWD_ROUTES, RMS_BWD_ROUTES
 enum LnBwdRoute { kLnBwdBlock = 0, kLnBwdWarp = 1 };
 
 // ---- rows as 16-byte vectors ---------------------------------------------
@@ -524,9 +534,10 @@ __global__ void __launch_bounds__(32 * kReduceGroups)
 
 // One row of the LayerNorm backward warp route as a lane holds it: HV
 // 16-byte vectors of x and of dy (its vectors lane + 32 * k; none where
-// the row is read again in the second pass), the row's mean and rstd, and
-// the lane's head or tail element of x and dy.
-template <typename T, int HV>
+// the row is read again in the second pass), the row's mean (kCenter:
+// LayerNorm; RMSNorm has none) and rstd, and the lane's head or tail
+// element of x and dy.
+template <typename T, int HV, bool kCenter>
 struct LnBwdRow {
   uint4 xu[HV > 0 ? HV : 1], du[HV > 0 ? HV : 1];
   float mu, rsd, xe, de;
@@ -547,7 +558,7 @@ struct LnBwdRow {
         du[k] = load_vec<T>(dyr + rs.head + v * W, dy_vec);
       }
     }
-    mu = mean[r];
+    mu = kCenter ? mean[r] : 0.f;
     rsd = rstd[r];
     xe = ei >= 0 ? to_f(xr[ei]) : 0.f;
     de = ei >= 0 ? to_f(dyr[ei]) : 0.f;
@@ -577,7 +588,10 @@ struct LnBwdRow {
 // before this row's sums (as RMSNorm forward) 3% slower; gamma read from
 // L1 in place of registers 6%, and with the registers it frees 12 warps
 // an SM 10%, 16 (128 registers, spilling) 18% slower.
-template <typename T, int VECS>
+// kCenter false is RMSNorm's backward (`_rms_bwd_kernel`): no mean, xhat =
+// x * rstd, only the sum of g * xhat, dx = (g - xhat * m2) * rstd, and
+// dgamma without dbeta.
+template <typename T, int VECS, bool kCenter>
 __global__ void __launch_bounds__(kLnBwdWarpThreads)
     layernorm_bwd_warp_kernel(const T* __restrict__ x,
                               const float* __restrict__ gamma,
@@ -602,12 +616,15 @@ __global__ void __launch_bounds__(kLnBwdWarpThreads)
   const bool g_aligned = (reinterpret_cast<uintptr_t>(gr) & 15) == 0;
   float gk[kHold ? VECS : 1][W];  // gamma at this lane's columns (hold)
   float ge = 1.f;                 // and at its head or tail element
-  float dg[VECS][W], db[VECS][W];
+  float dg[VECS][W], db[kCenter ? VECS : 1][W];
   float dge = 0.f, dbe = 0.f;
 #pragma unroll
   for (int k = 0; k < VECS; ++k)
 #pragma unroll
-    for (int j = 0; j < W; ++j) dg[k][j] = db[k][j] = 0.f;
+    for (int j = 0; j < W; ++j) {
+      dg[k][j] = 0.f;
+      if constexpr (kCenter) db[k][j] = 0.f;
+    }
   if (affine) {
     if constexpr (kHold) {
 #pragma unroll
@@ -618,12 +635,17 @@ __global__ void __launch_bounds__(kLnBwdWarpThreads)
     if (ei >= 0) ge = gamma[ei];
   }
   for (long r = r0; r < R; r += warps) {
-    LnBwdRow<T, HV> cur;
+    LnBwdRow<T, HV, kCenter> cur;
     cur.load(x, dy, mean, rstd, r, N, rs, ei, lane, dy_vec);
     const float mu = cur.mu, rsd = cur.rsd;
+    // xhat of one value: x - mean only where there is a mean
+    auto xhat = [&](float v) {
+      if constexpr (kCenter) return __fmul_rn(__fsub_rn(v, mu), rsd);
+      else return __fmul_rn(v, rsd);
+    };
     const uint4* xv = reinterpret_cast<const uint4*>(x + r * N + rs.head);
     const T* dyh = dy + r * N + rs.head;
-    // pass 1: the two row sums and this lane's dgamma / dbeta terms
+    // pass 1: the row sums and this lane's dgamma / dbeta terms
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int k = 0; k < VECS; ++k) {
@@ -647,34 +669,40 @@ __global__ void __launch_bounds__(kLnBwdWarpThreads)
         }
 #pragma unroll
         for (int j = 0; j < W; ++j) {
-          const float xh = __fmul_rn(__fsub_rn(xf[j], mu), rsd);
+          const float xh = xhat(xf[j]);
           const float g = affine ? __fmul_rn(df[j], gf[j]) : df[j];
-          s1 = __fadd_rn(s1, g);
+          if constexpr (kCenter) s1 = __fadd_rn(s1, g);
           s2 = __fadd_rn(s2, __fmul_rn(g, xh));
           if (affine) {
             dg[k][j] = __fadd_rn(dg[k][j], __fmul_rn(df[j], xh));
-            db[k][j] = __fadd_rn(db[k][j], df[j]);
+            if constexpr (kCenter) db[k][j] = __fadd_rn(db[k][j], df[j]);
           }
         }
       }
     }
-    const float xhe = __fmul_rn(__fsub_rn(cur.xe, mu), rsd);
+    const float xhe = xhat(cur.xe);
     const float gv = affine ? __fmul_rn(cur.de, ge) : cur.de;
     if (ei >= 0) {
-      s1 = __fadd_rn(s1, gv);
+      if constexpr (kCenter) s1 = __fadd_rn(s1, gv);
       s2 = __fadd_rn(s2, __fmul_rn(gv, xhe));
       if (affine) {
         dge = __fadd_rn(dge, __fmul_rn(cur.de, xhe));
-        dbe = __fadd_rn(dbe, cur.de);
+        if constexpr (kCenter) dbe = __fadd_rn(dbe, cur.de);
       }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, o));
+      if constexpr (kCenter)
+        s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, o));
       s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
     }
     const float m1 = __fdiv_rn(s1, static_cast<float>(N));
     const float m2 = __fdiv_rn(s2, static_cast<float>(N));
+    // dx of one value: ((g - m1) - xhat * m2) * rstd, without m1 for RMSNorm
+    auto dx_of = [&](float g, float xh) {
+      const float c = kCenter ? __fsub_rn(g, m1) : g;
+      return __fmul_rn(__fsub_rn(c, __fmul_rn(xh, m2)), rsd);
+    };
     // pass 2: dx
     T* dxr = dx + r * N;
     uint4* dxv = reinterpret_cast<uint4*>(dxr + rs.head);
@@ -700,32 +728,28 @@ __global__ void __launch_bounds__(kLnBwdWarpThreads)
         }
         float o[W];
 #pragma unroll
-        for (int j = 0; j < W; ++j) {
-          const float xh = __fmul_rn(__fsub_rn(xf[j], mu), rsd);
-          const float g = affine ? __fmul_rn(df[j], gf[j]) : df[j];
-          o[j] = __fmul_rn(__fsub_rn(__fsub_rn(g, m1), __fmul_rn(xh, m2)),
-                           rsd);
-        }
+        for (int j = 0; j < W; ++j)
+          o[j] = dx_of(affine ? __fmul_rn(df[j], gf[j]) : df[j],
+                       xhat(xf[j]));
         dxv[v] = pack<T>(o);
       }
     }
-    if (ei >= 0)
-      dxr[ei] = from_f<T>(
-          __fmul_rn(__fsub_rn(__fsub_rn(gv, m1), __fmul_rn(xhe, m2)), rsd));
+    if (ei >= 0) dxr[ei] = from_f<T>(dx_of(gv, xhe));
   }
   if (!affine) return;
   // the CTA's partial rows: column by column, its warps' sums in warp
-  // order (each column has one lane of every warp)
+  // order (each column has one lane of every warp); dgamma, then dbeta
   float* mine = ln_acc + static_cast<size_t>(warp) * N;
 #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
+  for (int pass = 0; pass < (kCenter ? 2 : 1); ++pass) {
 #pragma unroll
     for (int k = 0; k < VECS; ++k) {
       const int v = lane + 32 * k;
       if (v < rs.nv)
 #pragma unroll
         for (int j = 0; j < W; ++j)
-          mine[rs.head + v * W + j] = pass ? db[k][j] : dg[k][j];
+          mine[rs.head + v * W + j] = pass ? db[kCenter ? k : 0][j]
+                                           : dg[k][j];
     }
     if (ei >= 0) mine[ei] = pass ? dbe : dge;
     __syncthreads();
@@ -892,6 +916,144 @@ __global__ void __launch_bounds__(kRmsWarpThreads)
   }
 }
 
+// LayerNorm "warp": the RMSNorm warp route's rows (a warp a row, a
+// persistent grid, the next row's loads issued before this row's sums,
+// the head and tail elements on lanes 0-13) with `_ln_fwd_kernel`'s
+// two-pass statistics taken from the registers: mean = sum(x) / N, then
+// var = sum((x - mean)^2) / N, each sum this lane's values in order and
+// then a butterfly of shuffles, every step rounded on its own (no fused
+// multiply-add); rstd = 1 / sqrt(var + eps), y = ((x - mean) * rstd) *
+// gamma + beta rounded once to T. Up to kLnFwdHoldPerLane values a lane
+// (N <= 1024) gamma and beta stay in registers while the rows' 16-byte
+// phase stays (N * size a multiple of 16: every row); past it they are
+// read from L1 for each row, so that the two rows of x keep the
+// registers.
+template <typename T, int VECS>
+__global__ void __launch_bounds__(kLnFwdWarpThreads)
+    layernorm_fwd_warp_kernel(const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              T* __restrict__ y, float* __restrict__ mean_out,
+                              float* __restrict__ rstd_out, int R, int N,
+                              float eps) {
+  constexpr int W = kVecElems<T>;
+  constexpr bool kHold = VECS * W <= kLnFwdHoldPerLane;
+  const int lane = threadIdx.x & 31;
+  const bool affine = gamma != nullptr;
+  const long warps = static_cast<long>(gridDim.x) * (blockDim.x >> 5);
+  // gamma and beta at this lane's columns for rows of phase ghead (hold),
+  // and at its head or tail element
+  float g[kHold ? VECS : 1][W], b[kHold ? VECS : 1][W];
+  float ge = 1.f, be = 0.f;
+  int ghead = -1;
+  bool g_aligned = false, b_aligned = false;
+  long r = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) +
+           (threadIdx.x >> 5);
+  WarpRow<T, VECS> cur;
+  if (r < R) cur.load(x, r, N, lane);
+  for (; r < R; r += warps) {
+    WarpRow<T, VECS> next;
+    if (r + warps < R) next.load(x, r + warps, N, lane);
+    const RowSplit& rs = cur.rs;
+    const int ei = cur.ei;
+    if (affine && rs.head != ghead) {  // the same branch for the whole warp
+      g_aligned = (reinterpret_cast<uintptr_t>(gamma + rs.head) & 15) == 0;
+      b_aligned = (reinterpret_cast<uintptr_t>(beta + rs.head) & 15) == 0;
+      if constexpr (kHold) {
+#pragma unroll
+        for (int k = 0; k < VECS; ++k) {
+          const int v = lane + 32 * k;
+          if (v < rs.nv) {
+            load_gamma<W>(gamma + rs.head + v * W, g_aligned, g[k]);
+            load_gamma<W>(beta + rs.head + v * W, b_aligned, b[k]);
+          }
+        }
+      }
+      ge = ei >= 0 ? gamma[ei] : 1.f;
+      be = ei >= 0 ? beta[ei] : 0.f;
+      ghead = rs.head;
+    }
+    // mean: this lane's values in order, then the butterfly
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      if (lane + 32 * k < rs.nv) {
+        float f[W];
+        unpack<T>(cur.raw[k], f);
+#pragma unroll
+        for (int j = 0; j < W; ++j) s = __fadd_rn(s, f[j]);
+      }
+    }
+    if (ei >= 0) s = __fadd_rn(s, cur.xe);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    const float mean = __fdiv_rn(s, static_cast<float>(N));
+    // var: the same order over (x - mean)^2
+    float s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      if (lane + 32 * k < rs.nv) {
+        float f[W];
+        unpack<T>(cur.raw[k], f);
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          const float d = __fsub_rn(f[j], mean);
+          s2 = __fadd_rn(s2, __fmul_rn(d, d));
+        }
+      }
+    }
+    if (ei >= 0) {
+      const float d = __fsub_rn(cur.xe, mean);
+      s2 = __fadd_rn(s2, __fmul_rn(d, d));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
+    const float rstd = __frcp_rn(__fsqrt_rn(
+        __fadd_rn(__fdiv_rn(s2, static_cast<float>(N)), eps)));
+    if (lane == 0) {
+      mean_out[r] = mean;
+      rstd_out[r] = rstd;
+    }
+    // y = ((x - mean) * rstd) * gamma + beta
+    T* yr = y + r * N;
+    uint4* yv = reinterpret_cast<uint4*>(yr + rs.head);
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int v = lane + 32 * k;
+      if (v < rs.nv) {
+        float f[W], gf[W], bf[W];
+        unpack<T>(cur.raw[k], f);
+        if (affine) {
+          if constexpr (kHold) {
+#pragma unroll
+            for (int j = 0; j < W; ++j) {
+              gf[j] = g[k][j];
+              bf[j] = b[k][j];
+            }
+          } else {
+            load_gamma<W>(gamma + rs.head + v * W, g_aligned, gf);
+            load_gamma<W>(beta + rs.head + v * W, b_aligned, bf);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          f[j] = __fmul_rn(__fsub_rn(f[j], mean), rstd);
+          if (affine) f[j] = __fadd_rn(__fmul_rn(f[j], gf[j]), bf[j]);
+        }
+        yv[v] = pack<T>(f);
+      }
+    }
+    if (ei >= 0) {
+      float o = __fmul_rn(__fsub_rn(cur.xe, mean), rstd);
+      if (affine) o = __fadd_rn(__fmul_rn(o, ge), be);
+      yr[ei] = from_f<T>(o);
+    }
+    cur = next;
+  }
+}
+
 // RMSNorm "block": one block a row, its vectors staged in shared memory as
 // loaded (each thread rereads only the vectors it wrote)
 template <typename T>
@@ -1036,35 +1198,58 @@ int launch_rmsnorm(const void* x, const float* gamma, void* y, float* rstd,
 }
 
 template <typename T>
-int launch_rmsnorm_bwd(const void* x, const float* gamma, const float* rstd,
-                       const void* dy, void* dx, float* dg_part, float* dg,
-                       int R, int N, cudaStream_t stream) {
-  const int blocks = (R + kLnBwdRows - 1) / kLnBwdRows;
-  const size_t smem = sizeof(float) * (size_t)N * (gamma != nullptr ? 3 : 2);
-  auto kernel = rmsnorm_bwd_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kLnThreads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, rstd, static_cast<const T*>(dy),
-      static_cast<T*>(dx), dg_part, R, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || gamma == nullptr) return (int)err;
-  column_sums_kernel<<<(N + 31) / 32, dim3(32, kReduceGroups), 0, stream>>>(
-      dg_part, nullptr, blocks, N, dg, nullptr);
-  return (int)cudaGetLastError();
+using LnFwdWarpFn = void (*)(const T*, const float*, const float*, T*,
+                             float*, float*, int, int, float);
+
+template <typename T, int V>
+LnFwdWarpFn<T> ln_fwd_warp_if_fits() {
+  if constexpr (V * kVecElems<T> <= kLnFwdMaxPerLane)
+    return layernorm_fwd_warp_kernel<T, V>;
+  else
+    return nullptr;
+}
+
+template <typename T>
+LnFwdWarpFn<T> ln_fwd_warp_for(int vecs) {
+  switch (vecs) {
+    case 1: return ln_fwd_warp_if_fits<T, 1>();
+    case 2: return ln_fwd_warp_if_fits<T, 2>();
+    case 4: return ln_fwd_warp_if_fits<T, 4>();
+    case 8: return ln_fwd_warp_if_fits<T, 8>();
+    case 16: return ln_fwd_warp_if_fits<T, 16>();
+    default: return nullptr;
+  }
 }
 
 template <typename T>
 int launch_layernorm(const void* x, const float* gamma, const float* beta,
                      void* y, float* mean, float* rstd, int R, int N,
-                     float eps, cudaStream_t stream) {
+                     float eps, int route, int threads, int blocks, int vecs,
+                     cudaStream_t stream) {
+  constexpr int W = kVecElems<T>;
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (route == kLnFwdWarp) {
+    LnFwdWarpFn<T> kernel = ln_fwd_warp_for<T>(vecs);
+    if (kernel == nullptr || (N + W - 1) / W > 32 * vecs || blocks < 1 ||
+        threads < 32 || threads % 32 != 0 || threads > kLnFwdWarpThreads)
+      return (int)cudaErrorInvalidValue;
+    // y is written with x's 16-byte vectors
+    if ((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(y)) &
+        15)
+      return (int)cudaErrorMisalignedAddress;
+    kernel<<<blocks, threads, 0, stream>>>(xt, gamma, beta, yt, mean, rstd,
+                                           R, N, eps);
+    return (int)cudaGetLastError();
+  }
+  if (route != kLnFwdBlock || threads != kLnThreads || blocks != R)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)N;
   auto kernel = layernorm_fwd_kernel<T>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<R, kLnThreads, smem, stream>>>(static_cast<const T*>(x), gamma,
-                                          beta, static_cast<T*>(y), mean,
-                                          rstd, N, eps);
+  kernel<<<R, kLnThreads, smem, stream>>>(xt, gamma, beta, yt, mean, rstd, N,
+                                          eps);
   return (int)cudaGetLastError();
 }
 
@@ -1213,27 +1398,30 @@ using LnBwdWarpFn = void (*)(const T*, const float*, const float*,
                              const float*, const T*, T*, float*, float*, int,
                              int, int);
 
-template <typename T, int V>
+template <typename T, int V, bool kCenter>
 LnBwdWarpFn<T> ln_bwd_warp_if_fits() {
   if constexpr (V * kVecElems<T> <= kLnBwdMaxPerLane)
-    return layernorm_bwd_warp_kernel<T, V>;
+    return layernorm_bwd_warp_kernel<T, V, kCenter>;
   else
     return nullptr;
 }
 
-template <typename T>
+template <typename T, bool kCenter>
 LnBwdWarpFn<T> ln_bwd_warp_for(int vecs) {
   switch (vecs) {
-    case 1: return ln_bwd_warp_if_fits<T, 1>();
-    case 2: return ln_bwd_warp_if_fits<T, 2>();
-    case 4: return ln_bwd_warp_if_fits<T, 4>();
-    case 8: return ln_bwd_warp_if_fits<T, 8>();
-    case 16: return ln_bwd_warp_if_fits<T, 16>();
+    case 1: return ln_bwd_warp_if_fits<T, 1, kCenter>();
+    case 2: return ln_bwd_warp_if_fits<T, 2, kCenter>();
+    case 4: return ln_bwd_warp_if_fits<T, 4, kCenter>();
+    case 8: return ln_bwd_warp_if_fits<T, 8, kCenter>();
+    case 16: return ln_bwd_warp_if_fits<T, 16, kCenter>();
     default: return nullptr;
   }
 }
 
-template <typename T>
+// LayerNorm backward's warp route (kCenter) and RMSNorm's (no mean, mean
+// and db_part / db null): the rows, then the column sums of dgamma (and
+// dbeta) as a programmatic dependent
+template <typename T, bool kCenter>
 int launch_layernorm_bwd_warp(const T* x, const float* gamma,
                               const float* mean, const float* rstd,
                               const T* dy, T* dx, float* dg_part,
@@ -1241,7 +1429,7 @@ int launch_layernorm_bwd_warp(const T* x, const float* gamma,
                               int N, int threads, int blocks, int vecs,
                               cudaStream_t stream) {
   constexpr int W = kVecElems<T>;
-  LnBwdWarpFn<T> kernel = ln_bwd_warp_for<T>(vecs);
+  LnBwdWarpFn<T> kernel = ln_bwd_warp_for<T, kCenter>(vecs);
   const long long warps = static_cast<long long>(blocks) * (threads / 32);
   // a warp's rows must share one 16-byte phase: the stride between them,
   // warps rows, a multiple of 16 bytes
@@ -1271,7 +1459,7 @@ int launch_layernorm_bwd_warp(const T* x, const float* gamma,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   constexpr int cols = kColSumsThreads / 32;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + cols - 1) / cols, 2);
+  cfg.gridDim = dim3((N + cols - 1) / cols, kCenter ? 2 : 1);
   cfg.blockDim = dim3(kColSumsThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -1292,7 +1480,7 @@ int launch_layernorm_bwd(const void* x, const float* gamma, const float* mean,
                          int R, int N, int route, int threads, int blocks,
                          int vecs, cudaStream_t stream) {
   if (route == kLnBwdWarp)
-    return launch_layernorm_bwd_warp<T>(
+    return launch_layernorm_bwd_warp<T, true>(
         static_cast<const T*>(x), gamma, mean, rstd,
         static_cast<const T*>(dy), static_cast<T*>(dx), dg_part, db_part, dg,
         db, R, N, threads, blocks, vecs, stream);
@@ -1314,6 +1502,33 @@ int launch_layernorm_bwd(const void* x, const float* gamma, const float* mean,
 }
 
 template <typename T>
+int launch_rmsnorm_bwd(const void* x, const float* gamma, const float* rstd,
+                       const void* dy, void* dx, float* dg_part, float* dg,
+                       int R, int N, int route, int threads, int blocks,
+                       int vecs, cudaStream_t stream) {
+  if (route == kLnBwdWarp)
+    return launch_layernorm_bwd_warp<T, false>(
+        static_cast<const T*>(x), gamma, nullptr, rstd,
+        static_cast<const T*>(dy), static_cast<T*>(dx), dg_part, nullptr, dg,
+        nullptr, R, N, threads, blocks, vecs, stream);
+  if (route != kLnBwdBlock || threads != kLnThreads ||
+      blocks != (R + kLnBwdRows - 1) / kLnBwdRows)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)N * (gamma != nullptr ? 3 : 2);
+  auto kernel = rmsnorm_bwd_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kLnThreads, smem, stream>>>(
+      static_cast<const T*>(x), gamma, rstd, static_cast<const T*>(dy),
+      static_cast<T*>(dx), dg_part, R, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || gamma == nullptr) return (int)err;
+  column_sums_kernel<<<(N + 31) / 32, dim3(32, kReduceGroups), 0, stream>>>(
+      dg_part, nullptr, blocks, N, dg, nullptr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_softmax_bwd(const void* y, const void* dy, void* dx, int R, int N,
                        cudaStream_t stream) {
   constexpr int rows_per_block = kSoftmaxBwdThreads / 32;
@@ -1325,8 +1540,6 @@ int launch_softmax_bwd(const void* y, const void* dy, void* dx, int R, int N,
 }
 
 }  // namespace
-
-extern "C" int ff_layernorm_bwd_rows_per_block() { return kLnBwdRows; }
 
 // the plan's arguments (kernels/norm.py LnBwdPlan) follow the stream:
 // route, threads a block, blocks (the partial rows of dgamma / dbeta),
@@ -1359,17 +1572,21 @@ extern "C" int ff_softmax_bwd(const void* y, const void* dy, void* dx, int R,
   return (int)cudaErrorInvalidValue;
 }
 
+// the plan's arguments (kernels/norm.py LnFwdPlan) follow the stream:
+// route, threads a block, blocks, 16-byte vectors a lane (warp route)
 extern "C" int ff_layernorm_fwd(const void* x, const float* gamma,
                                 const float* beta, void* y, float* mean,
                                 float* rstd, int R, int N, float eps,
-                                int dtype, void* stream) {
+                                int dtype, void* stream, int route,
+                                int threads, int blocks, int vecs) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32)
     return launch_layernorm<float>(x, gamma, beta, y, mean, rstd, R, N, eps,
-                                   s);
+                                   route, threads, blocks, vecs, s);
   if (dtype == FF_BF16)
     return launch_layernorm<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, R,
-                                           N, eps, s);
+                                           N, eps, route, threads, blocks,
+                                           vecs, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1417,17 +1634,22 @@ extern "C" int ff_rmsnorm_fwd(const void* x, const float* gamma, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
+// the plan's arguments (kernels/norm.py RmsBwdPlan) follow the stream:
+// route, threads a block, blocks (the partial rows of dgamma), 16-byte
+// vectors a lane (warp route); dg_part holds `blocks` rows of N
 extern "C" int ff_rmsnorm_bwd(const void* x, const float* gamma,
                               const float* rstd, const void* dy, void* dx,
                               float* dg_part, float* dg, int R, int N,
-                              int dtype, void* stream) {
+                              int dtype, void* stream, int route, int threads,
+                              int blocks, int vecs) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32)
     return launch_rmsnorm_bwd<float>(x, gamma, rstd, dy, dx, dg_part, dg, R,
-                                     N, s);
+                                     N, route, threads, blocks, vecs, s);
   if (dtype == FF_BF16)
     return launch_rmsnorm_bwd<__nv_bfloat16>(x, gamma, rstd, dy, dx, dg_part,
-                                             dg, R, N, s);
+                                             dg, R, N, route, threads, blocks,
+                                             vecs, s);
   return (int)cudaErrorInvalidValue;
 }
 

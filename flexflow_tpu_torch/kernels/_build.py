@@ -125,7 +125,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_decode_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f,
                                         i, i, i, i, i, i, i, p]
     lib.ff_decode_attention.restype = i
-    lib.ff_layernorm_fwd.argtypes = [p, p, p, p, p, p, i, i, f, i, p]
+    lib.ff_layernorm_fwd.argtypes = [p, p, p, p, p, p, i, i, f, i, p, i, i,
+                                     i, i]
     lib.ff_layernorm_fwd.restype = i
     lib.ff_softmax_fwd.argtypes = [p, p, i, i, i, p, i, i, i, i, i, i]
     lib.ff_softmax_fwd.restype = i
@@ -134,8 +135,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                      p, i, i, i, i]
     lib.ff_layernorm_bwd.restype = i
-    lib.ff_layernorm_bwd_rows_per_block.argtypes = []
-    lib.ff_layernorm_bwd_rows_per_block.restype = i
     lib.ff_softmax_bwd.argtypes = [p, p, p, i, i, i, p]
     lib.ff_softmax_bwd.restype = i
     lib.ff_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i,
@@ -146,7 +145,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_flash_bwd.restype = i
     lib.ff_rmsnorm_fwd.argtypes = [p, p, p, p, i, i, f, i, p, i, i, i, i]
     lib.ff_rmsnorm_fwd.restype = i
-    lib.ff_rmsnorm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.ff_rmsnorm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p, i, i,
+                                   i, i]
     lib.ff_rmsnorm_bwd.restype = i
     lib.ff_reduce.argtypes = [p, ctypes.c_longlong, i, i, p, p, i, p, i, i,
                               i, i]

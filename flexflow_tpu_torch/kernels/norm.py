@@ -11,9 +11,8 @@ what the JAX custom VJPs save. All normalize
 the trailing axis with leading dims flattened into rows, compute in f32
 and store in x's dtype. The kernels are csrc/norm.cu. On the card all
 are bound by bytes (one read and one write per element, a few operations
-each). LayerNorm forward gives each row a block, reduced with warp
-shuffles in f32, holding its row in shared memory. Softmax forward and
-RMSNorm forward take a route that `softmax_plan` / `rmsnorm_plan` choose
+each). Softmax forward, RMSNorm forward and LayerNorm forward take a
+route that `softmax_plan` / `rmsnorm_plan` / `layernorm_fwd_plan` choose
 from the shape alone (rows, N, dtype: never a value, so no host sync):
 softmax "rows" (N <= ROWS_MAX_N: lanes of a warp per row, shuffles
 only), "block" (a wide row a CTA in registers, 16-byte vectors),
@@ -22,19 +21,23 @@ that merge their (max, sum) in rank order through distributed shared
 memory: few rows) and "loop" (rows too wide for a cluster's registers:
 three passes, re-reads from L2); RMSNorm "warp" (N <= RMS_WARP_MAX_N:
 a warp a row in registers, gamma kept in registers) and "block" (a row
-a block, staged in shared memory). `softmax_split_plain` and
-`rmsnorm_warp_plain` repeat the cluster and warp routes' arithmetic in
-torch. LayerNorm backward takes a route that `layernorm_bwd_plan` chooses
-from the shape alone: "warp" (N <= LN_BWD_WARP_MAX_N: a warp a row, x
+a block, staged in shared memory); LayerNorm "warp" (N <=
+LN_FWD_WARP_MAX_N: the RMSNorm warp route with the mean, its two sums
+taken from the registers, beta kept beside gamma) and "block" (a row a
+block, staged in shared memory as f32). `softmax_split_plain`,
+`rmsnorm_warp_plain` and `layernorm_fwd_warp_plain` repeat the cluster
+and warp routes' arithmetic in torch. LayerNorm backward and RMSNorm
+backward take a route that `layernorm_bwd_plan` / `rmsnorm_bwd_plan`
+choose from the shape alone: "warp" (N <= 2048: a warp a row, x
 and dy in registers through 16-byte loads, gamma kept, the row sums
 through shuffles only, dgamma and dbeta summed per lane over the warp's
 rows and per CTA over its warps, one partial row a CTA of a persistent
 grid; the column sums a programmatic dependent launch) and "block" (a
 few rows a block, dgamma and dbeta summed per block, then over blocks in
-a second launch); both add in a fixed order, and
-`layernorm_bwd_warp_plain` repeats the warp route's arithmetic in torch.
-Softmax backward gives each row a warp. RMSNorm backward follows
-LayerNorm's block route without the mean.
+a second launch); both add in a fixed order. RMSNorm's routes are
+LayerNorm's without the mean (and without dbeta);
+`layernorm_bwd_warp_plain` and `rmsnorm_bwd_warp_plain` repeat the warp
+route's arithmetic in torch. Softmax backward gives each row a warp.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -48,20 +51,24 @@ import torch
 
 from . import _build
 
-# kernel launches per wrapper (layernorm_bwd's two launches count once), a
-# plain count the serving and training paths are read by
+# kernel launches per wrapper (layernorm_bwd's and rmsnorm_bwd's two
+# launches count once), a plain count the serving and training paths are
+# read by
 LAUNCHES: Dict[str, int] = {"layernorm_fwd": 0, "layernorm_bwd": 0,
                             "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
                             "softmax_fwd": 0, "softmax_bwd": 0}
-# softmax_fwd, rmsnorm_fwd and layernorm_bwd calls by route (csrc/norm.cu
-# SoftmaxRoute, RmsRoute, LnBwdRoute), the codes the C entries take
+# calls by route of every planned kernel (csrc/norm.cu SoftmaxRoute,
+# RmsRoute, LnFwdRoute, LnBwdRoute), the codes the C entries take
 SOFTMAX_ROUTES = {"loop": 0, "rows": 1, "block": 2, "cluster": 3}
 RMSNORM_ROUTES = {"block": 0, "warp": 1}
+LN_FWD_ROUTES = {"block": 0, "warp": 1}
 LN_BWD_ROUTES = {"block": 0, "warp": 1}
+RMS_BWD_ROUTES = LN_BWD_ROUTES  # the same launcher, without the mean
 ROUTES: Dict[str, int] = {
-    **{f"softmax_fwd/{r}": 0 for r in SOFTMAX_ROUTES},
-    **{f"rmsnorm_fwd/{r}": 0 for r in RMSNORM_ROUTES},
-    **{f"layernorm_bwd/{r}": 0 for r in LN_BWD_ROUTES}}
+    f"{name}/{r}": 0 for name, routes in (
+        ("softmax_fwd", SOFTMAX_ROUTES), ("rmsnorm_fwd", RMSNORM_ROUTES),
+        ("layernorm_fwd", LN_FWD_ROUTES), ("layernorm_bwd", LN_BWD_ROUTES),
+        ("rmsnorm_bwd", RMS_BWD_ROUTES)) for r in routes}
 # SMs of the card the plans assume when not told (H100 SXM)
 H100_SMS = 132
 # softmax "rows": N up to ROWS_MAX_N (lanes a row: the power of two at or
@@ -89,11 +96,20 @@ RMS_WARP_MAX_N = 2048
 RMS_WARP_THREADS = 256
 RMS_BLOCKS_PER_SM = 2
 RMS_BLOCK_THREADS = 256
-# LayerNorm backward "warp": N up to LN_BWD_WARP_MAX_N (at most 64 values
-# a lane; x, dy and gamma stay in registers up to 32), 8 warps a block,
-# LN_BWD_BLOCKS_PER_SM blocks an SM: a CTA writes one partial row of
-# dgamma and of dbeta; "block": 256 threads take 8 rows (csrc/norm.cu
-# kLnBwdRows)
+# LayerNorm forward "warp": N up to LN_FWD_WARP_MAX_N (at most 64 values a
+# lane; gamma and beta stay in registers up to 32), up to 8 warps a block
+# (fewer for fewer rows than 8 an SM: the rows spread over the SMs), at
+# most LN_FWD_BLOCKS_PER_SM blocks an SM, the grid walking the rows;
+# "block": 256 threads a row
+LN_FWD_WARP_MAX_N = 2048
+LN_FWD_WARP_THREADS = 256
+LN_FWD_BLOCKS_PER_SM = 2
+LN_FWD_BLOCK_THREADS = 256
+# LayerNorm and RMSNorm backward "warp" (one kernel): N up to
+# LN_BWD_WARP_MAX_N (at most 64 values a lane; x, dy and gamma stay in
+# registers up to 32), 8 warps a block, LN_BWD_BLOCKS_PER_SM blocks an SM:
+# a CTA writes one partial row of dgamma (and of dbeta); "block": 256
+# threads take 8 rows (csrc/norm.cu kLnBwdRows)
 LN_BWD_WARP_MAX_N = 2048
 LN_BWD_WARP_THREADS = 256
 LN_BWD_BLOCKS_PER_SM = 1
@@ -124,6 +140,15 @@ class RmsNormPlan(NamedTuple):
     vecs: int     # warp: 16-byte vectors a lane; block: 0
 
 
+class LnFwdPlan(NamedTuple):
+    """How one layernorm_fwd call runs on the card
+    (`layernorm_fwd_plan`)."""
+    route: str    # "warp" or "block"
+    threads: int  # a block
+    blocks: int   # the grid
+    vecs: int     # warp: 16-byte vectors a lane; block: 0
+
+
 class LnBwdPlan(NamedTuple):
     """How one layernorm_bwd call runs on the card
     (`layernorm_bwd_plan`)."""
@@ -133,8 +158,22 @@ class LnBwdPlan(NamedTuple):
     vecs: int     # warp: 16-byte vectors a lane; block: 0
 
 
+class RmsBwdPlan(NamedTuple):
+    """How one rmsnorm_bwd call runs on the card (`rmsnorm_bwd_plan`)."""
+    route: str    # "warp" or "block"
+    threads: int  # a block
+    blocks: int   # the grid, one partial row of dgamma each
+    vecs: int     # warp: 16-byte vectors a lane; block: 0
+
+
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _lane_vecs(n: int, esz: int) -> int:
+    """16-byte vectors a lane of the warp routes takes: the power of two
+    that holds a row of N in 32 lanes."""
+    return _pow2_at_least(-(-(-(-n // (16 // esz))) // 32))
 
 
 def _shape(name, rows, n, dtype):
@@ -196,7 +235,7 @@ def rmsnorm_plan(rows: int, n: int, dtype,
     ValueError."""
     rows, n, esz = _shape("rmsnorm_plan", rows, n, dtype)
     if n <= RMS_WARP_MAX_N:
-        vecs = _pow2_at_least(-(-(-(-n // (16 // esz))) // 32))
+        vecs = _lane_vecs(n, esz)
         per_block = RMS_WARP_THREADS // 32
         blocks = min(-(-rows // per_block), sms * RMS_BLOCKS_PER_SM)
         return RmsNormPlan("warp", RMS_WARP_THREADS, blocks, vecs)
@@ -204,6 +243,47 @@ def rmsnorm_plan(rows: int, n: int, dtype,
         raise ValueError(f"rmsnorm_fwd: N={n} > {rmsnorm_max_n(dtype)}, "
                          "the widest row a block stages in shared memory")
     return RmsNormPlan("block", RMS_BLOCK_THREADS, rows, 0)
+
+
+def layernorm_max_n(dtype) -> int:
+    """The widest row layernorm_fwd takes on the card: the block route's
+    row in shared memory as f32 whatever x's dtype (58080, where the
+    parent's launch failed above it)."""
+    _shape("layernorm_max_n", 1, 1, dtype)
+    return (SMEM_BYTES - 32 * 4) // 4
+
+
+def layernorm_fwd_plan(rows: int, n: int, dtype,
+                       sms: int = H100_SMS) -> LnFwdPlan:
+    """The route and launch of layernorm_fwd over `rows` rows of N, from
+    the shape and dtype alone: "warp" for N <= LN_FWD_WARP_MAX_N (every
+    path's N = 1024), with the power of two of 16-byte vectors a lane that
+    holds the row, ceil(rows / sms) warps a block up to 8 (a decode
+    iteration's 8 rows take 8 blocks of one warp, the training step's
+    4096 blocks of 8) and at most LN_FWD_BLOCKS_PER_SM blocks an SM;
+    "block" up to `layernorm_max_n`; wider raises ValueError."""
+    rows, n, esz = _shape("layernorm_fwd_plan", rows, n, dtype)
+    if n <= LN_FWD_WARP_MAX_N:
+        warps = min(LN_FWD_WARP_THREADS // 32, -(-rows // sms))
+        blocks = min(-(-rows // warps), sms * LN_FWD_BLOCKS_PER_SM)
+        return LnFwdPlan("warp", 32 * warps, blocks, _lane_vecs(n, esz))
+    if n > layernorm_max_n(dtype):
+        raise ValueError(f"layernorm_fwd: N={n} > {layernorm_max_n(dtype)}, "
+                         "the widest row a block stages in shared memory")
+    return LnFwdPlan("block", LN_FWD_BLOCK_THREADS, rows, 0)
+
+
+def _bwd_plan(kernel, plan, rows, n, dtype, sms):
+    rows, n, esz = _shape(f"{kernel}_plan", rows, n, dtype)
+    if n <= LN_BWD_WARP_MAX_N:
+        per_block = LN_BWD_WARP_THREADS // 32
+        blocks = min(-(-rows // per_block), sms * LN_BWD_BLOCKS_PER_SM)
+        return plan("warp", LN_BWD_WARP_THREADS, blocks, _lane_vecs(n, esz))
+    if n > MAX_BWD_COLS:
+        raise ValueError(f"{kernel}: N={n} > {MAX_BWD_COLS}, the most a "
+                         "block stages in shared memory")
+    return plan("block", LN_BWD_BLOCK_THREADS, -(-rows // LN_BWD_BLOCK_ROWS),
+                0)
 
 
 def layernorm_bwd_plan(rows: int, n: int, dtype,
@@ -215,17 +295,16 @@ def layernorm_bwd_plan(rows: int, n: int, dtype,
     LN_BWD_BLOCKS_PER_SM blocks an SM of 8 warps (so the stride between a
     warp's rows is a multiple of 16 bytes); "block" up to MAX_BWD_COLS,
     8 rows a block; wider raises ValueError."""
-    rows, n, esz = _shape("layernorm_bwd_plan", rows, n, dtype)
-    if n <= LN_BWD_WARP_MAX_N:
-        vecs = _pow2_at_least(-(-(-(-n // (16 // esz))) // 32))
-        per_block = LN_BWD_WARP_THREADS // 32
-        blocks = min(-(-rows // per_block), sms * LN_BWD_BLOCKS_PER_SM)
-        return LnBwdPlan("warp", LN_BWD_WARP_THREADS, blocks, vecs)
-    if n > MAX_BWD_COLS:
-        raise ValueError(f"layernorm_bwd: N={n} > {MAX_BWD_COLS}, the most "
-                         "a block stages in shared memory")
-    return LnBwdPlan("block", LN_BWD_BLOCK_THREADS,
-                     -(-rows // LN_BWD_BLOCK_ROWS), 0)
+    return _bwd_plan("layernorm_bwd", LnBwdPlan, rows, n, dtype, sms)
+
+
+def rmsnorm_bwd_plan(rows: int, n: int, dtype,
+                     sms: int = H100_SMS) -> RmsBwdPlan:
+    """`layernorm_bwd_plan`'s routes and grid for rmsnorm_bwd (the same
+    kernels without the mean): "warp" for N <= LN_BWD_WARP_MAX_N (the
+    tier's (4096, 1024)), one partial row of dgamma a block; "block" up
+    to MAX_BWD_COLS; wider raises ValueError."""
+    return _bwd_plan("rmsnorm_bwd", RmsBwdPlan, rows, n, dtype, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,6 +409,37 @@ def rmsnorm_warp_plain(x, gamma, eps: float, phase: int = 0):
     return y.to(x.dtype).reshape(x.shape), rstd
 
 
+def layernorm_fwd_warp_plain(x, gamma, beta, eps: float, phase: int = 0):
+    """(y, mean, rstd) in the warp route's order, in torch: each row cut
+    as `rmsnorm_warp_plain` cuts it (x's first row `phase` bytes past a
+    16-byte boundary); mean = sum(x) / N and var = sum((x - mean)^2) / N,
+    each sum as `_lane_sums` takes it (lane sums in order, no fused
+    multiply-add, a butterfly); rstd = 1 / sqrt(var + eps), each step
+    rounded to f32; y = ((x - mean) * rstd) * gamma + beta, rounded once
+    to x.dtype. On the card's sums this gives the kernel's bits."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    r = xf.shape[0]
+    esz = x.element_size()
+    w = 16 // esz
+    mean = torch.empty((r, 1), dtype=torch.float32)
+    rstd = torch.empty((r, 1), dtype=torch.float32)
+    heads = _row_heads(r, n, esz, phase)
+    for head in heads.unique().tolist():
+        idx = (heads == head).nonzero().flatten()
+        rows = xf[idx]
+        m = _lane_sums(rows, head, n, w) / n
+        d = rows - m
+        var = _lane_sums(d * d, head, n, w) / n
+        mean[idx] = m
+        # sqrt correctly rounded, as in rmsnorm_warp_plain
+        rstd[idx] = 1 / torch.sqrt((var + eps).double()).float()
+    y = (xf - mean) * rstd
+    if gamma is not None:
+        y = y * gamma.float() + beta.float()
+    return y.to(x.dtype).reshape(x.shape), mean, rstd
+
+
 def _butterfly(s):
     """Each lane's value after the warp's butterfly of adds: s + s[l ^ o]
     for o = 16, 8, 4, 2, 1 over the last axis (32 lanes)."""
@@ -361,7 +471,8 @@ def _lane_sums(v, head, n, w):
 
 
 def layernorm_bwd_warp_plain(x, gamma, mean, rstd, dy, blocks: int,
-                             phase: int = 0, warps: int = 8):
+                             phase: int = 0, warps: int = 8,
+                             center: bool = True):
     """(dx, dgamma, dbeta) in the warp route's order, in torch, for a grid
     of `blocks` CTAs of `warps` warps (`layernorm_bwd_plan(...)`'s blocks
     and threads / 32), x's first row `phase` bytes past a 16-byte
@@ -373,22 +484,26 @@ def layernorm_bwd_warp_plain(x, gamma, mean, rstd, dy, blocks: int,
     w, w + S, ... in order; CTA b adds its warps in order;
     partial row p goes to group p mod 32 in order, and the 32 groups
     meet in the butterfly. On the card's sums this gives the kernel's
-    bits."""
+    bits. `center` False is RMSNorm's route (the kernel's kCenter): no
+    mean (None), xhat = x * rstd, dx = (g - xhat * m2) * rstd, dbeta
+    None."""
     n = x.shape[-1]
     xf = x.reshape(-1, n).float()
     d = dy.reshape(-1, n).float()
     r = xf.shape[0]
     w = 16 // x.element_size()
-    xhat = (xf - mean) * rstd
+    xhat = (xf - mean) * rstd if center else xf * rstd
     g = d * gamma.float() if gamma is not None else d
     gx = g * xhat
     dx = torch.empty_like(xf)
     heads = _row_heads(r, n, x.element_size(), phase)
     for head in heads.unique().tolist():
         idx = (heads == head).nonzero().flatten()
-        m1 = _lane_sums(g[idx], head, n, w) / n
         m2 = _lane_sums(gx[idx], head, n, w) / n
-        dx[idx] = ((g[idx] - m1) - xhat[idx] * m2) * rstd[idx]
+        c = g[idx]
+        if center:
+            c = c - _lane_sums(g[idx], head, n, w) / n
+        dx[idx] = (c - xhat[idx] * m2) * rstd[idx]
     dx = dx.to(x.dtype).reshape(x.shape)
     if gamma is None:
         return dx, None, None
@@ -409,7 +524,18 @@ def layernorm_bwd_warp_plain(x, gamma, mean, rstd, dy, blocks: int,
             groups[:, :hi - lo] = groups[:, :hi - lo] + part[lo:hi].t()
         return _butterfly(groups)[:, 0]
 
-    return dx, column_sums(d * xhat), column_sums(d)
+    return dx, column_sums(d * xhat), column_sums(d) if center else None
+
+
+def rmsnorm_bwd_warp_plain(x, gamma, rstd, dy, blocks: int, phase: int = 0,
+                           warps: int = 8):
+    """(dx, dgamma) in RMSNorm's warp route's order, in torch:
+    `layernorm_bwd_warp_plain` without the mean (`rmsnorm_bwd_plan(...)`'s
+    blocks and threads / 32). On the card's sums this gives the kernel's
+    bits."""
+    dx, dg, _ = layernorm_bwd_warp_plain(x, gamma, None, rstd, dy, blocks,
+                                         phase, warps, center=False)
+    return dx, dg
 
 
 # f32 floats of shared memory a layernorm_bwd block stages per column
@@ -537,7 +663,8 @@ def layernorm_fwd(x, gamma=None, beta=None, *, eps: float = 1e-5):
     if not _on_card("layernorm_fwd", x, *affine):
         return layernorm_fwd_plain(x, gamma, beta, eps)
     r = x.numel() // n
-    y = torch.empty_like(x)
+    plan = layernorm_fwd_plan(r, n, x.dtype, _sm_count(x.device.index))
+    y = _empty_in_phase(x)
     mean = torch.empty((r, 1), dtype=torch.float32, device=x.device)
     rstd = torch.empty((r, 1), dtype=torch.float32, device=x.device)
     lib = _build.library()
@@ -546,9 +673,11 @@ def layernorm_fwd(x, gamma=None, beta=None, *, eps: float = 1e-5):
             x.data_ptr(), gamma.data_ptr() if affine else None,
             beta.data_ptr() if affine else None, y.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), r, n, float(eps), _build.DTYPE_CODES[x.dtype],
-            _build.stream_ptr(x.device))
+            _build.stream_ptr(x.device), LN_FWD_ROUTES[plan.route],
+            plan.threads, plan.blocks, plan.vecs)
     _build.check(err, "layernorm_fwd")
     LAUNCHES["layernorm_fwd"] += 1
+    ROUTES[f"layernorm_fwd/{plan.route}"] += 1
     return y, mean, rstd
 
 
@@ -602,15 +731,13 @@ def rmsnorm_bwd(x, gamma, rstd, dy):
     affine = [] if gamma is None else [gamma]
     if not _on_card("rmsnorm_bwd", x, rstd, dy, *affine):
         return rmsnorm_bwd_plain(x, gamma, rstd, dy)
-    if n > MAX_BWD_COLS:
-        raise ValueError(f"rmsnorm_bwd: N={n} > {MAX_BWD_COLS}, the most "
-                         "a block stages in shared memory")
-    dx = torch.empty_like(x)
+    plan = rmsnorm_bwd_plan(r, n, x.dtype, _sm_count(x.device.index))
+    dx = _empty_in_phase(x)
     lib = _build.library()
     dg = part = None
     if affine:
-        blocks = -(-r // lib.ff_layernorm_bwd_rows_per_block())
-        part = torch.empty((blocks, n), dtype=torch.float32, device=x.device)
+        part = torch.empty((plan.blocks, n), dtype=torch.float32,
+                           device=x.device)
         dg = torch.empty((n,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ff_rmsnorm_bwd(
@@ -618,9 +745,11 @@ def rmsnorm_bwd(x, gamma, rstd, dy):
             rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             part.data_ptr() if affine else None,
             dg.data_ptr() if affine else None, r, n,
-            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+            _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device),
+            RMS_BWD_ROUTES[plan.route], plan.threads, plan.blocks, plan.vecs)
     _build.check(err, "rmsnorm_bwd")
     LAUNCHES["rmsnorm_bwd"] += 1
+    ROUTES[f"rmsnorm_bwd/{plan.route}"] += 1
     return dx, dg
 
 

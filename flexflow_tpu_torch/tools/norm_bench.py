@@ -3,25 +3,31 @@
     python flexflow_tpu_torch/tools/norm_bench.py [--repeat N] [--sweep]
                                                   [--profile]
 
-Builds the kernel library, prints what ptxas reported for the softmax and
-RMSNorm forward kernels, the LayerNorm backward kernels (csrc/norm.cu)
-and the reduction kernels (csrc/reduction.cu): registers, stack, spills.
-Then it times in bf16 at every shape the paths give them:
+Builds the kernel library, prints what ptxas reported for the softmax,
+RMSNorm and LayerNorm forward kernels, the LayerNorm and RMSNorm backward
+kernels (csrc/norm.cu) and the reduction kernels (csrc/reduction.cu):
+registers, stack, spills. Then it times in bf16 at every shape the paths
+give them:
  - `softmax_fwd` at (8, 30522) (a decode iteration's LM head), (16,
    30522) (a prefill chunk's), (128, 30522) (the kernel table's), (4096,
    2) (the training step's classifier) and (4096, 10) (the kernel-tier
    graph's dense(10));
  - `rmsnorm_fwd` at (4096, 1024) with gamma (the tier's rms_norm);
- - `layernorm_fwd` at (4096, 1024) (24 launches a training step) and
-   (8, 1024) (a decode iteration), with gamma and beta;
+ - `layernorm_fwd` at (4096, 1024) (24 launches a training step; also
+   in f32, the train-witness's), (8, 1024) (a decode iteration), (16,
+   1024) (a prefill chunk) and (128, 1024) (the kernel table's), with
+   gamma and beta;
  - `layernorm_bwd` at (4096, 1024) with gamma, in bf16 (24 launches a
    training step) and f32 (the train-witness's);
+ - `rmsnorm_bwd` at (4096, 1024) with gamma, in bf16 (the tier's) and
+   f32;
  - `reduce` over 4096 f32 elements, mean (the loss's and the accuracy's
    terms, 2 launches a step), and over 2^26 f32, sum and max;
 each beside one library call on the same inputs (`torch.softmax`,
-`F.rms_norm` and `F.layer_norm` with bf16 weights,
-`aten.native_layer_norm_backward` with weights in x's dtype, `torch.sum`
-and `torch.amax`) and the least time the card could take (bytes over
+`F.rms_norm` and `F.layer_norm` with weights in x's dtype,
+`aten.native_layer_norm_backward` likewise, `F.rms_norm`'s backward
+through autograd, `torch.sum` and `torch.amax`) and the least time the
+card could take (bytes over
 3.35 TB/s or operations over 989 (bf16) or 67 (f32) TFLOP/s, the
 larger). Device time from CUDA events around each call, the host's
 calls queued behind a sleep kernel, no L2 flush (the activations arrive
@@ -34,17 +40,20 @@ an empty kernel (what any call pays) and a copy (`clone`) of a
 the bytes). Prints one JSON line.
 
 `--profile` adds each shape's device time per call by kernel (from
-torch.profiler, the device synchronised between calls): LayerNorm
-backward's row kernel beside its column sums.
+torch.profiler, the device synchronised between calls): LayerNorm's and
+RMSNorm's backward row kernel beside its column sums.
 
-`--sweep` (a checkout with `layernorm_bwd_plan`) times the plans'
+`--sweep` (a checkout with `layernorm_fwd_plan`) times the plans'
 alternatives: every cluster size at the wide softmax shapes
 (norm.FILL_CTAS set to rows x size; size 1 is the "block" route), the
 "rows" route against "block" at N = 256-1024 (norm.ROWS_MAX_N 1024
 against 128), the RMSNorm warp route's grid (norm.RMS_BLOCKS_PER_SM),
-the LayerNorm backward warp route's grid (norm.LN_BWD_BLOCKS_PER_SM) and
-the reduction's "cta" route against "grid" at 4096-65536 f32 elements
-and 65536-131072 bf16 (reduction.REDUCE_CTA_MAX_BYTES): how the
+the LayerNorm forward warp route's grid (norm.LN_FWD_BLOCKS_PER_SM) and,
+at the serving shapes, its warps a CTA (the plan's one warp a row an SM
+against CTAs of 2-8 warps), the LayerNorm and RMSNorm backward warp
+routes' grid (norm.LN_BWD_BLOCKS_PER_SM, one kernel) and the
+reduction's "cta" route against "grid" at 4096-65536 f32
+elements and 65536-131072 bf16 (reduction.REDUCE_CTA_MAX_BYTES): how the
 constants in kernels/norm.py and kernels/reduction.py were chosen.
 
 It uses only the wrappers and absolute imports, so run as a file with an
@@ -65,7 +74,9 @@ F32_OPS_PER_S = 67e12
 SOFTMAX_SHAPES = ((8, 30522), (16, 30522), (128, 30522), (4096, 2),
                   (4096, 10))
 NORM_SHAPES = (("rmsnorm_fwd", 4096, 1024), ("layernorm_fwd", 4096, 1024),
-               ("layernorm_fwd", 8, 1024))
+               ("layernorm_fwd", 8, 1024), ("layernorm_fwd", 16, 1024),
+               ("layernorm_fwd", 128, 1024))
+LN_SERVE_ROWS = (8, 16, 128)
 SWEEP_WIDE = ((8, 30522), (16, 30522), (64, 30522), (128, 30522))
 SWEEP_NARROW = ((4096, 256), (4096, 512), (4096, 1000), (4096, 1024),
                 (128, 1024))
@@ -117,6 +128,19 @@ def _cases(torch, F, norm, reduction, g):
         err = (y.float() - ref.float()).abs().max()
         out[f"{name} {rows}x{n}"] = (kernel, lib, bound, float(err))
     rows, n = 4096, 1024
+    x = torch.randn((rows, n), generator=g, device=dev) * 2 + 1
+    gamma = torch.rand((n,), generator=g, device=dev) + 0.5
+    beta = torch.randn((n,), generator=g, device=dev)
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        norm.layernorm_fwd(x, gamma, beta),
+        norm.layernorm_fwd_plain(x, gamma, beta, 1e-5)))
+    out[f"layernorm_fwd {rows}x{n} float32"] = (
+        lambda x=x, gamma=gamma, beta=beta: norm.layernorm_fwd(x, gamma,
+                                                               beta),
+        lambda x=x, gamma=gamma, beta=beta, n=n: F.layer_norm(
+            x, (n,), gamma, beta, 1e-5),
+        _bound_ms(2 * x.numel() * 4 + 2 * n * 4 + 2 * rows * 4,
+                  8 * x.numel(), F32_OPS_PER_S), err)
     for dtype in (bf16, torch.float32):
         x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(
             dtype)
@@ -142,6 +166,24 @@ def _cases(torch, F, norm, reduction, g):
                       10 * rows * n,
                       BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S),
             err)
+        # RMSNorm backward on the same x and dy
+        _, rrstd = norm.rmsnorm_fwd(x, gamma)
+        got = norm.rmsnorm_bwd(x, gamma, rrstd, dy)
+        ref = norm.rmsnorm_bwd_plain(x, gamma, rrstd, dy)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, ref))
+        xg = x.detach().requires_grad_()
+        wg = gamma.to(dtype).detach().requires_grad_()
+        lib_out = F.rms_norm(xg, (n,), wg, 1e-6)
+        out[f"rmsnorm_bwd {rows}x{n} {str(dtype)[6:]}"] = (
+            lambda x=x, gamma=gamma, rstd=rrstd, dy=dy: (
+                norm.rmsnorm_bwd(x, gamma, rstd, dy)),
+            lambda o=lib_out, xg=xg, wg=wg, dy=dy: torch.autograd.grad(
+                o, (xg, wg), dy, retain_graph=True),
+            _bound_ms(3 * rows * n * esz + rows * 4 + 2 * n * 4,
+                      8 * rows * n,
+                      BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S),
+            err)
     for n, kinds in ((4096, ("mean",)), (2 ** 26, ("sum", "max"))):
         x = torch.randn((n,), generator=g, device=dev)
         for kind in kinds:
@@ -161,7 +203,9 @@ def _sweep(torch, norm, reduction, g, device_ms):
     bf16 = torch.bfloat16
     keep = (norm.FILL_CTAS, norm.ROWS_MAX_N, norm.RMS_BLOCKS_PER_SM)
     out = {"cluster": {}, "rows_vs_block": {}, "rms_blocks_per_sm": {},
-           "ln_bwd_blocks_per_sm": {}, "reduce_cta_vs_grid": {}}
+           "ln_bwd_blocks_per_sm": {}, "rms_bwd_blocks_per_sm": {},
+           "ln_fwd_blocks_per_sm": {}, "ln_fwd_serving_warps": {},
+           "reduce_cta_vs_grid": {}}
     try:
         for rows, n in SWEEP_WIDE:
             x = (torch.randn((rows, n), generator=g, device=dev) * 4).to(
@@ -192,17 +236,46 @@ def _sweep(torch, norm, reduction, g, device_ms):
                 for _ in range(3))
     finally:
         norm.FILL_CTAS, norm.ROWS_MAX_N, norm.RMS_BLOCKS_PER_SM = keep
-    keep = (norm.LN_BWD_BLOCKS_PER_SM, reduction.REDUCE_CTA_MAX_BYTES)
+    keep = (norm.LN_BWD_BLOCKS_PER_SM, reduction.REDUCE_CTA_MAX_BYTES,
+            norm.LN_FWD_BLOCKS_PER_SM, norm.layernorm_fwd_plan)
     try:
         dy = torch.randn((4096, 1024), generator=g, device=dev).to(bf16)
         beta = torch.randn((1024,), generator=g, device=dev)
         _, mean, rstd = norm.layernorm_fwd(x, gamma, beta)
+        _, rrstd = norm.rmsnorm_fwd(x, gamma)
         for per_sm in (1, 2, 3, 4):
+            # the grid of both backward warp routes (one kernel)
             norm.LN_BWD_BLOCKS_PER_SM = per_sm
+            norm.LN_FWD_BLOCKS_PER_SM = per_sm
             out["ln_bwd_blocks_per_sm"][str(per_sm)] = min(
                 device_ms(lambda: norm.layernorm_bwd(x, gamma, mean, rstd,
                                                      dy))
                 for _ in range(3))
+            out["rms_bwd_blocks_per_sm"][str(per_sm)] = min(
+                device_ms(lambda: norm.rmsnorm_bwd(x, gamma, rrstd, dy))
+                for _ in range(3))
+            out["ln_fwd_blocks_per_sm"][str(per_sm)] = min(
+                device_ms(lambda: norm.layernorm_fwd(x, gamma, beta))
+                for _ in range(3))
+        norm.LN_FWD_BLOCKS_PER_SM = keep[2]
+        # the serving shapes: the plan's CTAs against CTAs of more warps
+        # (a plan with `warps` warps a CTA in place of ceil(rows / SMs))
+        plan_of = keep[3]
+        for rows in LN_SERVE_ROWS:
+            xs = x[:rows]
+            for warps in (0, 2, 4, 8):
+                def forced(r, n, dtype, sms=norm.H100_SMS, warps=warps):
+                    plan = plan_of(r, n, dtype, sms)
+                    if not warps or plan.route != "warp":
+                        return plan
+                    return plan._replace(threads=32 * warps,
+                                         blocks=-(-r // warps))
+                norm.layernorm_fwd_plan = forced
+                key = f"{rows}x1024 warps={warps or 'plan'}"
+                out["ln_fwd_serving_warps"][key] = min(
+                    device_ms(lambda: norm.layernorm_fwd(xs, gamma, beta))
+                    for _ in range(3))
+            norm.layernorm_fwd_plan = plan_of
         for dtype, ns in ((torch.float32, (4096, 8192, 16384, 32768, 65536)),
                           (bf16, (65536, 131072))):
             for n in ns:
@@ -216,7 +289,8 @@ def _sweep(torch, norm, reduction, g, device_ms):
                         device_ms(lambda: reduction.reduce(v, "sum"))
                         for _ in range(3))
     finally:
-        norm.LN_BWD_BLOCKS_PER_SM, reduction.REDUCE_CTA_MAX_BYTES = keep
+        (norm.LN_BWD_BLOCKS_PER_SM, reduction.REDUCE_CTA_MAX_BYTES,
+         norm.LN_FWD_BLOCKS_PER_SM, norm.layernorm_fwd_plan) = keep
     return out
 
 
@@ -246,8 +320,8 @@ def main(argv=None) -> int:
            # empty where this process loaded a library built earlier
            "ptxas": [r for src in ("norm.cu", "reduction.cu")
                      for r in _build.ptxas_report(src)
-                     if re.search(r"softmax_(?!bwd)|rmsnorm_(?!bwd)|"
-                                  r"layernorm_bwd|column_sums|reduce_",
+                     if re.search(r"softmax_(?!bwd)|rmsnorm_|layernorm_|"
+                                  r"column_sums|reduce_",
                                   str(r["kernel"]))]}
     # yardsticks of this timing: an empty kernel (the floor any call pays)
     # and a copy of the (4096, 1024) and (128, 30522) bf16 inputs, one read
@@ -275,9 +349,9 @@ def main(argv=None) -> int:
             row["by_kernel_us"] = _by_kernel(torch, kernel, lambda: None)
         out[name] = row
     if args.sweep:
-        if not hasattr(norm, "layernorm_bwd_plan"):
+        if not hasattr(norm, "layernorm_fwd_plan"):
             raise SystemExit("norm_bench --sweep: this checkout has no "
-                             "layernorm_bwd_plan")
+                             "layernorm_fwd_plan")
         out["sweep"] = _sweep(torch, norm, reduction, g, device_ms)
     print(json.dumps(out), flush=True)
     return 0

@@ -1,6 +1,6 @@
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
-    python -m flexflow_tpu_torch.tools.train_profile [--steps N]
+    python -m flexflow_tpu_torch.tools.train_profile [--steps N] [--tier]
 
 Builds bench.py's flagship BERT encoder at full width (batch 8, seq 512,
 hidden 1024, 16 heads, 12 layers, FFN 4096, vocab 30522; bf16 mixed
@@ -9,7 +9,10 @@ generator, tokens and labels from np.random.RandomState(0)), runs a few
 warm-up steps through FFModel.fit, then `steps` steps under torch.profiler
 with CUDA activity, and prints one JSON line: host wall per step, device
 busy time per step (the sum of kernel times), the device's idle share,
-and device time by kernel, largest first. Needs CUDA; exits 2 without.
+and device time by kernel, largest first. `--tier` does the same for the
+JAX package's kernel-tier graph (`build_tier_model`, bf16, the kernels
+forced; one batch from np.random.RandomState(8)): the only full-width
+path of RMSNorm forward and backward. Needs CUDA; exits 2 without.
 """
 from __future__ import annotations
 
@@ -52,6 +55,29 @@ def build_bench_model(device: str = "cuda", layers: int = 12,
     return model
 
 
+def build_tier_model(device: str = "cuda", mixed: bool = True,
+                     kernel_impl: str = "pallas", seed: int = 0):
+    """The JAX package's kernel-tier graph (tests/test_pallas_kernels.py
+    `_tiny_model`) at the flagship's norm shape: (8, 512, 1024) ->
+    layer_norm -> rms_norm -> dense(10) -> softmax; sparse CE, accuracy,
+    SGD lr 0.05; weights from torch.Generator().manual_seed(seed)."""
+    import torch
+
+    from .. import FFConfig, FFModel, LossType, MetricsType, SGDOptimizer
+
+    m = FFModel(FFConfig(batch_size=BATCH, allow_mixed_precision=mixed,
+                         device=device, kernel_impl=kernel_impl))
+    t = m.create_tensor([BATCH, SEQ, 1024])
+    t = m.layer_norm(t, [-1], name="ln")
+    t = m.rms_norm(t, [-1], name="rms")
+    m.softmax(m.dense(t, 10, name="cls"))
+    m.compile(optimizer=SGDOptimizer(m, lr=0.05),
+              loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              metrics=[MetricsType.METRICS_ACCURACY],
+              generator=torch.Generator().manual_seed(seed))
+    return m
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -60,15 +86,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--tier", action="store_true",
+                    help="profile the kernel-tier graph's step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device visible", file=sys.stderr)
         return 2
     batch, seq, vocab = BATCH, SEQ, 30522
-    model = build_bench_model()
-    rng = np.random.RandomState(0)
-    x = rng.randint(0, vocab, size=(batch, seq)).astype(np.int32)
-    y = rng.randint(0, 2, size=(batch, seq, 1)).astype(np.int32)
+    if args.tier:
+        model = build_tier_model()
+        rng = np.random.RandomState(8)
+        x = rng.randn(batch, seq, 1024).astype(np.float32)
+        y = rng.randint(0, 10, size=(batch, seq, 1)).astype(np.int32)
+    else:
+        model = build_bench_model()
+        rng = np.random.RandomState(0)
+        x = rng.randint(0, vocab, size=(batch, seq)).astype(np.int32)
+        y = rng.randint(0, 2, size=(batch, seq, 1)).astype(np.int32)
     model.fit(x, y, batch_size=batch, epochs=args.warmup)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -82,7 +116,8 @@ def main(argv=None) -> int:
     model.fit(x, y, batch_size=batch, epochs=args.steps)
     bare_ms = (time.perf_counter() - t0) / args.steps * 1e3
     print(json.dumps({
-        "phase": "train", "device": torch.cuda.get_device_name(0),
+        "phase": "tier" if args.tier else "train",
+        "device": torch.cuda.get_device_name(0),
         "steps": args.steps, "wall_ms_per_step": bare_ms,
         "wall_ms_per_step_profiled": wall_ms,
         "device_busy_ms_per_step": busy_ms,

@@ -931,3 +931,182 @@ def test_reduce_at_the_route_threshold(dev, dtype):
         y = base[:n].clone()
         y[n // 3] = float("nan")
         assert torch.isnan(reduction.reduce(y, "max"))
+
+
+# layernorm_fwd by route (kernels/norm.py layernorm_fwd_plan) at the edge
+# shapes: N x R, f32 and bf16, with and without gamma and beta; N = 58080
+# is the widest row the parent's block kernel took
+LN_FWD_EDGE_N = [1, 2, 33, 300, 1000, 1024, 2048, 2049,
+                 norm.layernorm_max_n(torch.float32)]
+LN_FWD_EDGE_R = [1, 7, 8, 9, 4095]
+LN_FWD_Y_TOL = {torch.float32: F32_TOL,
+                torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+
+
+def _ln_fwd_route_case(dev, x, gamma, beta):
+    """layernorm_fwd on the card against its plain version, its route
+    counted, y and the statistics the same bits on two calls; on the warp
+    route y, mean and rstd equal to the bit to `layernorm_fwd_warp_plain`
+    (every step of the kernel rounded on its own, none fused). Returns
+    the plan."""
+    rows, n = x.shape
+    plan = norm.layernorm_fwd_plan(
+        rows, n, x.dtype,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    reset_launch_counts()
+    y, mean, rstd = norm.layernorm_fwd(x, gamma, beta)
+    counts = launch_counts()
+    assert counts["layernorm_fwd"] == 1
+    assert counts[f"layernorm_fwd/{plan.route}"] == 1, (plan, counts)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+    assert mean.shape == (rows, 1) and rstd.dtype == torch.float32
+    ry, rmean, rrstd = norm.layernorm_fwd_plain(x, gamma, beta, 1e-5)
+    _close(y, ry, LN_FWD_Y_TOL[x.dtype])
+    _close(mean, rmean, F32_TOL)
+    _close(rstd, rrstd, F32_TOL)
+    again = norm.layernorm_fwd(x, gamma, beta)
+    assert all(torch.equal(a, b) for a, b in zip(again, (y, mean, rstd)))
+    if plan.route == "warp":
+        ey, emean, erstd = norm.layernorm_fwd_warp_plain(
+            x.cpu(), gamma.cpu() if gamma is not None else None,
+            beta.cpu() if beta is not None else None, 1e-5,
+            x.data_ptr() % 16)
+        assert torch.equal(mean.cpu(), emean)
+        assert torch.equal(rstd.cpu(), erstd)
+        assert torch.equal(y.cpu(), ey)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", LN_FWD_EDGE_R)
+@pytest.mark.parametrize("n", LN_FWD_EDGE_N)
+@pytest.mark.parametrize("affine", [True, False])
+def test_layernorm_fwd_routes_match_plain(dev, n, rows, dtype, affine):
+    g = torch.Generator(device=dev).manual_seed(rows * 11 + n)
+    x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(dtype)
+    gamma = beta = None
+    if affine:
+        gamma = torch.rand((n,), generator=g, device=dev) + 0.5
+        beta = torch.randn((n,), generator=g, device=dev)
+    plan = _ln_fwd_route_case(dev, x, gamma, beta)
+    assert plan.route == ("warp" if n <= norm.LN_FWD_WARP_MAX_N
+                          else "block")
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("n", [1, 33, 300, 1000])
+def test_layernorm_fwd_reads_rows_at_any_phase(dev, offset, n):
+    """bf16 x starting `offset` elements past a 16-byte boundary: y lands
+    at x's phase and matches the plain version and the warp emulation;
+    gamma and beta one element past a 16-byte boundary (element loads)."""
+    rows = 37
+    g = torch.Generator(device=dev).manual_seed(offset * 10 + n)
+    buf = torch.randn(rows * n + 16, generator=g, device=dev).bfloat16()
+    x = buf[offset:offset + rows * n].view(rows, n)
+    assert x.data_ptr() % 16 == 2 * offset
+    gamma = torch.rand(n + 1, generator=g, device=dev)[1:] + 0.5
+    beta = torch.randn(n + 1, generator=g, device=dev)[1:]
+    assert _ln_fwd_route_case(dev, x, gamma, beta).route == "warp"
+
+
+def test_layernorm_fwd_raises_where_the_parent_raised_or_failed(dev):
+    """The parent's launch failed above 58080 columns (shared memory);
+    now a ValueError that names the limit."""
+    x = torch.randn((4, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.layernorm_fwd(x.t())
+    with pytest.raises(ValueError, match="non-empty"):
+        norm.layernorm_fwd(torch.zeros((0, 64), device=dev))
+    with pytest.raises(ValueError, match="several devices"):
+        norm.layernorm_fwd(x, torch.ones(64), torch.zeros(64))
+    with pytest.raises(ValueError, match="58080"):
+        norm.layernorm_fwd(torch.randn((2, 58081), device=dev))
+
+
+# rmsnorm_bwd by route (kernels/norm.py rmsnorm_bwd_plan) at the edge
+# shapes; N = MAX_BWD_COLS is the widest row the parent's kernel took
+RMS_BWD_EDGE_N = [1, 2, 33, 300, 1000, 1024, 2048, 2049, norm.MAX_BWD_COLS]
+
+
+def _rms_bwd_route_case(dev, x, dy, gamma):
+    """rmsnorm_bwd on the card against its plain version, its route
+    counted, dx and dgamma the same bits on two calls; on the warp route
+    both equal to the bit to `rmsnorm_bwd_warp_plain`. Returns the
+    plan."""
+    rows, n = x.shape
+    _, rstd = norm.rmsnorm_fwd(x.contiguous(), gamma)
+    plan = norm.rmsnorm_bwd_plan(
+        rows, n, x.dtype,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    reset_launch_counts()
+    dx, dg = norm.rmsnorm_bwd(x, gamma, rstd, dy)
+    counts = launch_counts()
+    assert counts["rmsnorm_bwd"] == 1
+    assert counts[f"rmsnorm_bwd/{plan.route}"] == 1, (plan, counts)
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    assert dx.data_ptr() % 16 == x.data_ptr() % 16
+    rdx, rdg = norm.rmsnorm_bwd_plain(x, gamma, rstd, dy)
+    _close(dx, rdx, LN_BWD_DX_TOL[x.dtype])
+    again = norm.rmsnorm_bwd(x, gamma, rstd, dy)
+    assert torch.equal(again[0], dx)
+    if gamma is None:
+        assert dg is None
+    else:
+        _close(dg, rdg, LN_BWD_SUM_TOL)
+        assert torch.equal(again[1], dg)
+    if plan.route == "warp":
+        edx, edg = norm.rmsnorm_bwd_warp_plain(
+            x.cpu(), gamma.cpu() if gamma is not None else None, rstd.cpu(),
+            dy.cpu(), plan.blocks, x.data_ptr() % 16, plan.threads // 32)
+        assert torch.equal(dx.cpu(), edx)
+        if gamma is not None:
+            assert torch.equal(dg.cpu(), edg)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", LN_BWD_EDGE_R)
+@pytest.mark.parametrize("n", RMS_BWD_EDGE_N)
+@pytest.mark.parametrize("affine", [True, False])
+def test_rmsnorm_bwd_routes_match_plain(dev, n, rows, dtype, affine):
+    g = torch.Generator(device=dev).manual_seed(rows * 13 + n)
+    x = (torch.randn((rows, n), generator=g, device=dev) * 2 + 1).to(dtype)
+    dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    gamma = torch.rand((n,), generator=g, device=dev) + 0.5 if affine \
+        else None
+    plan = _rms_bwd_route_case(dev, x, dy, gamma)
+    assert plan.route == ("warp" if n <= norm.LN_BWD_WARP_MAX_N
+                          else "block")
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("n", [1, 33, 300, 1000])
+@pytest.mark.parametrize("dy_offset", ["same", "other"])
+def test_rmsnorm_bwd_reads_rows_at_any_phase(dev, offset, n, dy_offset):
+    """bf16 x starting `offset` elements past a 16-byte boundary, dy at the
+    same phase (16-byte loads) or at another (element loads): dx lands at
+    x's phase and matches the plain version and the warp emulation."""
+    rows = 37
+    g = torch.Generator(device=dev).manual_seed(offset * 100 + n + 1)
+    buf = torch.randn(rows * n + 16, generator=g, device=dev).bfloat16()
+    x = buf[offset:offset + rows * n].view(rows, n)
+    dbuf = torch.randn(rows * n + 16, generator=g, device=dev).bfloat16()
+    d0 = offset if dy_offset == "same" else (offset + 3) % 8
+    dy = dbuf[d0:d0 + rows * n].view(rows, n)
+    assert x.data_ptr() % 16 == 2 * offset
+    gamma = torch.rand(n, generator=g, device=dev) + 0.5
+    assert _rms_bwd_route_case(dev, x, dy, gamma).route == "warp"
+
+
+def test_rmsnorm_bwd_refuses_what_the_parent_refused(dev):
+    x = torch.randn((2, norm.MAX_BWD_COLS + 1), device=dev)
+    rstd = torch.ones((2, 1), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        norm.rmsnorm_bwd(x, None, rstd, x)
+    y = torch.randn((4, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        norm.rmsnorm_bwd(y.t().contiguous().t(), None,
+                         torch.ones((4, 1), device=dev), y)
+    with pytest.raises(ValueError, match="rstd must be"):
+        norm.rmsnorm_bwd(y, None, torch.ones((3, 1), device=dev), y)

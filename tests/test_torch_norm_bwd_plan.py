@@ -1,18 +1,20 @@
-"""The LayerNorm backward and scalar reduction kernels' plans and
-arithmetic, on the CPU.
+"""The LayerNorm and RMSNorm backward and scalar reduction kernels'
+plans and arithmetic, on the CPU.
 
-`layernorm_bwd_plan` (flexflow_tpu_torch/kernels/norm.py) and
-`reduce_plan` (kernels/reduction.py) pick each call's route and launch
-from the shape and dtype alone; these tests hold the routes at the
-paths' shapes and at edge shapes, and hold every plan inside what the
-CUDA launchers of csrc/norm.cu and csrc/reduction.cu accept, for every
-shape the parent kernels took. The LayerNorm warp route's fixed-order
-arithmetic (`layernorm_bwd_warp_plain`: the per-lane row sums, the
-butterfly, dgamma and dbeta summed per warp, per CTA and over CTAs) is
-held against the JAX package's `_ln_bwd` in interpret mode and
-`fused_layernorm`'s VJP, as tests/test_torch_kernels.py runs them. The
-kernels themselves are held against these on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+`layernorm_bwd_plan` / `rmsnorm_bwd_plan`
+(flexflow_tpu_torch/kernels/norm.py) and `reduce_plan`
+(kernels/reduction.py) pick each call's route and launch from the shape
+and dtype alone; these tests hold the routes at the paths' shapes and at
+edge shapes, and hold every plan inside what the CUDA launchers of
+csrc/norm.cu and csrc/reduction.cu accept, for every shape the parent
+kernels took. The warp route's fixed-order arithmetic
+(`layernorm_bwd_warp_plain`: the per-lane row sums, the butterfly, dgamma
+and dbeta summed per warp, per CTA and over CTAs; `rmsnorm_bwd_warp_plain`
+the same without the mean) is held against the JAX package's `_ln_bwd` /
+`_rms_bwd` in interpret mode and `fused_layernorm`'s / `fused_rmsnorm`'s
+VJPs, as tests/test_torch_kernels.py runs them. The kernels themselves
+are held against these on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
@@ -20,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from flexflow_tpu.kernels.pallas.norm import _ln_bwd, _ln_fwd, \
-    fused_layernorm
+from flexflow_tpu.kernels.pallas.norm import _ln_bwd, _ln_fwd, _rms_bwd, \
+    _rms_fwd, fused_layernorm, fused_rmsnorm
 from flexflow_tpu_torch.kernels import launch_counts, norm, reduction
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -307,3 +309,184 @@ def test_ptxas_report_names_bool_template_arguments():
     assert _kernel_name("_ZN12_GLOBAL__N_125layernorm_bwd_warp_kernelI13__"
                         "nv_bfloat16Li4EEEvPKT_PKfS6_S6_S4_PS2_PfS8_iii") \
         == "layernorm_bwd_warp_kernel<bf16, 4>"
+
+
+# RMSNorm backward against the Pallas kernel, at the tolerances of
+# tests/test_torch_kernels.py's RMSNorm check: dx f32 (rtol 1e-5, atol
+# 1e-6), bf16 (2e-2, 1e-2); dgamma f32 sums over the rows in another order
+RMS_DX_TOL = {jnp.float32: dict(rtol=1e-5, atol=1e-6),
+              jnp.bfloat16: dict(rtol=2e-2, atol=1e-2)}
+RMS_DG_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,n,route", [
+    (4096, 1024, "warp"),         # the tier step's one launch
+    (64, 1024, "warp"), (37, 300, "warp"), (1, 1, "warp"),
+    (4095, 2048, "warp"), (1, 2049, "block"), (4095, 14528, "block")])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_bwd_plan_routes(rows, n, route, dtype):
+    assert norm.rmsnorm_bwd_plan(rows, n, dtype).route == route
+
+
+def test_rmsnorm_bwd_plan_at_the_tier_shape():
+    """(4096, 1024): LayerNorm backward's grid, one CTA of 8 warps an SM,
+    one partial row of dgamma a CTA: 132 in place of the parent's 512."""
+    for dtype, vecs in ((torch.bfloat16, 4), (torch.float32, 8)):
+        plan = norm.rmsnorm_bwd_plan(4096, 1024, dtype)
+        assert plan == norm.RmsBwdPlan(
+            "warp", 256, 132 * norm.LN_BWD_BLOCKS_PER_SM, vecs)
+        assert tuple(plan) == tuple(norm.layernorm_bwd_plan(4096, 1024,
+                                                            dtype))
+    small = norm.rmsnorm_bwd_plan(4096, 1024, torch.bfloat16, sms=16)
+    assert (small.route, small.blocks) == ("warp",
+                                           16 * norm.LN_BWD_BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_bwd_plan_is_pure_and_refuses_no_shape_the_parent_took(
+        dtype):
+    """The same answer twice, from ints alone; every N up to the parent's
+    MAX_BWD_COLS gets a route inside what the launcher accepts (the warp
+    route's is LayerNorm backward's launcher); wider raises, as the
+    parent's wrapper did."""
+    ns = sorted(set(EDGE_N + [3, 31, 32, 64, 65, 511, 1023, 1025, 1536,
+                              4096, 8191, 10000]))
+    for rows in EDGE_R + [2, 100, 132, 1056, 1057, 10 ** 6]:
+        for n in ns:
+            plan = norm.rmsnorm_bwd_plan(rows, n, dtype)
+            assert plan == norm.rmsnorm_bwd_plan(np.int64(rows), n, dtype)
+            assert (plan.route == "warp") == (n <= 2048)
+            _ln_bwd_plan_fits(plan, rows, n, dtype)
+    with pytest.raises(ValueError, match=str(norm.MAX_BWD_COLS)):
+        norm.rmsnorm_bwd_plan(1, norm.MAX_BWD_COLS + 1, dtype)
+    with pytest.raises(ValueError, match=">= 1"):
+        norm.rmsnorm_bwd_plan(0, 5, dtype)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        norm.rmsnorm_bwd_plan(4, 5, torch.float16)
+
+
+def _rms_warp_pair(rows, n, dtype, affine, seed, phase=0):
+    """(the warp emulation, `_rms_fwd` then `_rms_bwd` in interpret
+    mode): (dx, dgamma) each."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(rows, n).astype(np.float32) * 2 + 1
+    dy = rng.randn(rows, n).astype(np.float32)
+    gamma = rng.rand(n).astype(np.float32) + 0.5
+    jg = jnp.asarray(gamma) if affine else None
+    _, rstd = _rms_fwd(jnp.asarray(x, dtype), jg, 1e-6, 16, True, affine)
+    want = _rms_bwd(jnp.asarray(x, dtype), jg, rstd, jnp.asarray(dy, dtype),
+                    16, True, affine)
+    plan = norm.rmsnorm_bwd_plan(rows, n, TDT[dtype])
+    got = norm.rmsnorm_bwd_warp_plain(
+        torch.from_numpy(x).to(TDT[dtype]),
+        torch.from_numpy(gamma) if affine else None,
+        torch.from_numpy(np.array(rstd)), torch.from_numpy(dy).to(TDT[dtype]),
+        plan.blocks, phase, plan.threads // 32)
+    return got, want
+
+
+def _rms_close(got, want, dtype, affine):
+    (dx, dg), (jdx, jdg) = got, want
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(jdx, np.float32), **RMS_DX_TOL[dtype])
+    if not affine:
+        assert dg is None and jdg is None
+        return
+    assert dg.dtype == torch.float32 and dg.shape == dx.shape[-1:]
+    np.testing.assert_allclose(dg.numpy(), np.asarray(jdg), **RMS_DG_TOL)
+
+
+@pytest.mark.parametrize("rows,n", [(64, 1024), (37, 300), (9, 33),
+                                    (5, 1000), (3, 2048), (1, 1)])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_rmsnorm_bwd_warp_plain_matches_pallas(rows, n, affine, dtype):
+    """The warp route's order without the mean (per-lane sums of g *
+    xhat, a butterfly; dgamma per warp, per CTA, over CTAs) against
+    `_rms_bwd` in interpret mode."""
+    got, want = _rms_warp_pair(rows, n, dtype, affine, rows * 5 + n)
+    assert got[0].dtype == TDT[dtype] and tuple(got[0].shape) == (rows, n)
+    _rms_close(got, want, dtype, affine)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_rmsnorm_bwd_warp_plain_matches_the_public_vjp(dtype):
+    """The tier's width through `fused_rmsnorm`'s custom VJP (interpret
+    mode), the entry the JAX kernel tier calls."""
+    rng = np.random.RandomState(6)
+    rows, n = 64, 1024
+    x = rng.randn(rows, n).astype(np.float32) * 2 + 1
+    dy = rng.randn(rows, n).astype(np.float32)
+    gamma = rng.rand(n).astype(np.float32) + 0.5
+    _, vjp = jax.vjp(lambda a, g: fused_rmsnorm(a, g, block_rows=16,
+                                                interpret=True),
+                     jnp.asarray(x, dtype), jnp.asarray(gamma))
+    jdx, jdg = vjp(jnp.asarray(dy, dtype))
+    tx = torch.from_numpy(x).to(TDT[dtype])
+    _, rstd = norm.rmsnorm_fwd_plain(tx, torch.from_numpy(gamma), 1e-6)
+    plan = norm.rmsnorm_bwd_plan(rows, n, TDT[dtype])
+    got = norm.rmsnorm_bwd_warp_plain(
+        tx, torch.from_numpy(gamma), rstd, torch.from_numpy(dy).to(
+            TDT[dtype]), plan.blocks, 0, plan.threads // 32)
+    _rms_close(got, (jdx, jdg), dtype, True)
+
+
+@pytest.mark.parametrize("phase", [2, 4, 6, 8, 10, 12, 14])
+def test_rmsnorm_bwd_warp_plain_at_every_row_phase(phase):
+    """bf16 rows of 300 (8 mod 16 bytes) and 33 (2 mod 16) from x's first
+    row `phase` bytes past a 16-byte boundary: heads and tails on the
+    lanes the kernel gives them, against `_rms_bwd`."""
+    for n in (300, 33):
+        got, want = _rms_warp_pair(37, n, jnp.bfloat16, True, phase + n,
+                                   phase)
+        _rms_close(got, want, jnp.bfloat16, True)
+
+
+def test_rmsnorm_bwd_warp_sums_are_fixed_by_the_grid():
+    """dgamma depends on the grid alone: the same bits on every call, and
+    any two grids agree to f32 rounding."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(300, 64).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(300, 64).astype(np.float32))
+    gamma = torch.from_numpy(rng.rand(64).astype(np.float32) + 0.5)
+    _, rstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
+    a = norm.rmsnorm_bwd_warp_plain(x, gamma, rstd, dy, 38)
+    b = norm.rmsnorm_bwd_warp_plain(x, gamma, rstd, dy, 38)
+    c = norm.rmsnorm_bwd_warp_plain(x, gamma, rstd, dy, 3)
+    for u, v, w in zip(a, b, c):
+        assert torch.equal(u, v)
+        torch.testing.assert_close(u, w, rtol=1e-5, atol=1e-5)
+
+
+def test_layernorm_bwd_warp_plain_center_flag():
+    """`center` (the kernel's kCenter) True is LayerNorm's route, the
+    default, with dbeta; False drops the mean's terms and dbeta only: at
+    mean 0 both give the same dgamma, and dx differs by m1 * rstd."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(40, 96).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(40, 96).astype(np.float32))
+    gamma = torch.from_numpy(rng.rand(96).astype(np.float32) + 0.5)
+    _, rstd = norm.rmsnorm_fwd_plain(x, gamma, 1e-6)
+    zero = torch.zeros_like(rstd)
+    ln = norm.layernorm_bwd_warp_plain(x, gamma, zero, rstd, dy, 2)
+    ln2 = norm.layernorm_bwd_warp_plain(x, gamma, zero, rstd, dy, 2,
+                                        center=True)
+    assert all(torch.equal(a, b) for a, b in zip(ln, ln2))
+    rms = norm.layernorm_bwd_warp_plain(x, gamma, None, rstd, dy, 2,
+                                        center=False)
+    assert rms[2] is None and ln[2] is not None
+    assert torch.equal(rms[1], ln[1])
+    m1 = (dy * gamma).mean(dim=1, keepdim=True)
+    torch.testing.assert_close(rms[0] - ln[0], (m1 * rstd).expand_as(x),
+                               rtol=1e-4, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(
+        rms[:2], norm.rmsnorm_bwd_warp_plain(x, gamma, rstd, dy, 2)))
+
+
+def test_cpu_rmsnorm_bwd_plans_nothing_and_counts_no_route():
+    before = launch_counts()
+    x = torch.randn(8, 1024)
+    _, rstd = norm.rmsnorm_fwd(x, torch.ones(1024))
+    norm.rmsnorm_bwd(x, torch.ones(1024), rstd, torch.randn(8, 1024))
+    assert launch_counts() == before
+    assert {"rmsnorm_bwd/warp", "rmsnorm_bwd/block"} <= set(before)
