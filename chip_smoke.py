@@ -22,19 +22,27 @@ Phases, in order; any failure propagates and exits non-zero:
               their CPU emulations; for the reduction both routes at n in
               {0, 1,
               4096, 4097, 1000003, 2^26}, aligned and one element off,
-              and at the route threshold; two calls giving the same
+              and at the route threshold; for the softmax backward every
+              route at N in {1, 2, 10, 33, 512, 513, 1000, 1024, 30522,
+              70000} x R in {1, 8, 16, 128, 4095} and N = 300000, for the
+              scan both routes, forward and reverse, at 12 (rows, N) from
+              (1, 1) to (1, 2^24), each equal to the bit to its route's
+              emulation; two calls giving the same
               bits), and time kernel, plain version and one library call
               beside the least time the card could take (softmax at every
-              path's shape, LayerNorm also at the training shape); print
+              path's shape, LayerNorm also at the training shape, the
+              softmax backward and the scan at the kernel table's shapes
+              of every route); print
               ptxas's registers, spills and shared memory of the bf16
               tensor-core flash kernels, of the softmax, RMSNorm and
               LayerNorm forward kernels, the LayerNorm and RMSNorm
-              backward kernels and the reduction kernels, and the decode,
-              flash, softmax, RMSNorm, LayerNorm and reduce calls per
-              route (tc: bf16
+              backward kernels, the softmax backward and the reduction and
+              scan kernels, and the decode, flash, softmax, RMSNorm,
+              LayerNorm, reduce and cumsum calls per route (tc: bf16
               tensor cores, cc: CUDA cores; rows, block, cluster, loop;
-              warp, block; cta, grid) with each decode row's plan (route,
-              splits; a split call is a kernel and a combine launch);
+              warp, block; cta, grid; row, split) with each decode row's
+              plan (route, splits; a split call is a kernel and a combine
+              launch);
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
               fixed generator, bf16 mixed precision) through
@@ -54,8 +62,9 @@ Phases, in order; any failure propagates and exits non-zero:
               and labels from np.random.RandomState(0): warm-up steps,
               then timed steps; every loss finite, every training kernel
               launched its count per step (the 12 + 12 flash launches on
-              the bf16 tensor-core route, the classifier's softmax on the
-              rows route, the 24 LayerNorm forward and 24 backward
+              the bf16 tensor-core route, the classifier's softmax forward
+              and backward on the rows route, the 24 LayerNorm forward and
+              24 backward
               launches on the warp route, the 2 reductions on the cta
               route), and the kernel
               registry (its auto policy) picked the kernels;
@@ -72,8 +81,9 @@ Phases, in order; any failure propagates and exits non-zero:
               and accuracy, SGD lr 0.05, data from RandomState(8)): 3 fit
               steps on the card in bf16 under kernel_impl="pallas" (each
               kernel's launches per step asserted, the softmax on the rows
-              route, the RMSNorm and the LayerNorm forward and backward on
-              the warp route, the reductions on the cta route) and under
+              route, forward and backward, the RMSNorm and the LayerNorm
+              forward and backward on the warp route, the reductions on
+              the cta route) and under
               "reference"
               (no kernel launches), and on the CPU in f32 as a witness;
 10. ref-vs-kernel — the flagship cut to 2 layers, f32, two Adam steps on
@@ -82,9 +92,11 @@ Phases, in order; any failure propagates and exits non-zero:
               reference lowerings): loss and six gradient norms.
 11. standalone — the public entries no model path calls: head-separated
               flash attention in the bhld layout (forward and backward
-              through its autograd Function, at the TP rank's shape) and
+              through its autograd Function, at the TP rank's shape),
               `fused_cumsum` (forward and its reversed-scan gradient) at
-              (4096, 1024); each kernel's launches counted.
+              (4096, 1024) on the scan's row route and one `cumsum` at
+              (3, 1000003) on its split route; each kernel's launches and
+              the scan's routes counted.
 12. tp      — two ranks sharing cuda:0 (gloo, collectives staged through
               host memory) train the train phase's encoder, full width,
               under compile(parallel_axes={"model": 2}): 5 steps from the
@@ -129,21 +141,25 @@ TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
                   "reduce": 2}
 TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
 # the same launches by route: the flash kernels in bf16, so all on the
-# tensor cores; the classifier's (4096, 2) softmax on the "rows" route;
+# tensor cores; the classifier's (4096, 2) softmax, forward and backward,
+# on the "rows" route;
 # the (4096, 1024) LayerNorm forward and backward on "warp"; the loss's
 # and the accuracy's 4096-element means on "cta" (one launch each)
 TRAIN_ROUTES_PER_STEP = {"flash_fwd/tc": 12, "flash_bwd/tc": 12,
                          "flash_fwd/cc": 0, "flash_bwd/cc": 0,
-                         "softmax_fwd/rows": 1, "layernorm_fwd/warp": 24,
-                         "layernorm_bwd/warp": 24, "reduce/cta": 2}
+                         "softmax_fwd/rows": 1, "softmax_bwd/rows": 1,
+                         "layernorm_fwd/warp": 24, "layernorm_bwd/warp": 24,
+                         "reduce/cta": 2}
 # launches per step of the kernel-tier graph under kernel_impl="pallas"
 TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
                  "rmsnorm_bwd": 1, "softmax_fwd": 1, "softmax_bwd": 1,
                  "reduce": 2}
-# the tier's (4096, 10) softmax takes "rows", its (4096, 1024) RMSNorm
+# the tier's (4096, 10) softmax, forward and backward, takes "rows", its
+# (4096, 1024) RMSNorm
 # and LayerNorm, forward and backward, "warp", its two 4096-element means
 # "cta"
-TIER_ROUTES_PER_STEP = {"softmax_fwd/rows": 1, "rmsnorm_fwd/warp": 1,
+TIER_ROUTES_PER_STEP = {"softmax_fwd/rows": 1, "softmax_bwd/rows": 1,
+                        "rmsnorm_fwd/warp": 1,
                         "rmsnorm_bwd/warp": 1, "layernorm_fwd/warp": 1,
                         "layernorm_bwd/warp": 1, "reduce/cta": 2}
 TIER_KERNELS = tuple(TIER_PER_STEP)
@@ -156,13 +172,16 @@ TP_PER_STEP = {"flash_fwd_blhd": 12, "flash_bwd_blhd": 12, "flash_fwd": 0,
                "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2}
 TP_ROUTES_PER_STEP = {"flash_fwd_blhd/tc": 12, "flash_bwd_blhd/tc": 12,
                       "flash_fwd_blhd/cc": 0, "flash_bwd_blhd/cc": 0,
-                      "softmax_fwd/rows": 1, "layernorm_fwd/warp": 24,
-                      "layernorm_bwd/warp": 24, "reduce/cta": 2}
+                      "softmax_fwd/rows": 1, "softmax_bwd/rows": 1,
+                      "layernorm_fwd/warp": 24, "layernorm_bwd/warp": 24,
+                      "reduce/cta": 2}
 TP_KERNELS = ("flash_fwd_blhd", "flash_bwd_blhd")
-# launches of the standalone entries (phase 11)
+# launches of the standalone entries (phase 11): fused_cumsum forward and
+# backward at (4096, 1024) on "row", one cumsum at (3, 1000003) on "split"
+# (its two launches counted once)
 STANDALONE_LAUNCHES = {"flash_fwd_bhld": 1, "flash_bwd_bhld": 1,
-                       "cumsum": 2}
-STANDALONE_KERNELS = tuple(STANDALONE_LAUNCHES)
+                       "cumsum": 3, "cumsum/row": 2, "cumsum/split": 1}
+STANDALONE_KERNELS = ("flash_fwd_bhld", "flash_bwd_bhld", "cumsum")
 
 
 def train_step_flops(batch, seq, hidden, layers, **_) -> float:
@@ -396,7 +415,8 @@ def phase_kernels(torch, F):
     edges = norm_route_edges(torch, g)
     edges.update(bwd_route_edges(torch, g))
     for name in ("softmax_fwd", "rmsnorm_fwd", "layernorm_fwd",
-                 "layernorm_bwd", "rmsnorm_bwd", "reduce"):
+                 "layernorm_bwd", "rmsnorm_bwd", "reduce", "softmax_bwd",
+                 "cumsum"):
         table[name]["edges"] = edges[name]
     return table
 
@@ -545,28 +565,40 @@ def norm_route_edges(torch, g):
 
 
 LN_BWD_EDGE_N = (1, 2, 33, 300, 1000, 1024, 2048, 2049, 14520, 14528)
+# the softmax backward's: the forward's N and the rows route's last and
+# the register routes' first (512, 513); N = 300000 takes "loop"
+SOFTMAX_BWD_EDGE_N = (1, 2, 10, 33, 512, 513, 1000, 1024, 30522, 70000)
+# the scan's (rows, N): "row" at the table's, the short and the many-row
+# shapes, "split" from the first N past 4 tiles, at a chunk edge (3 x 175
+# tiles + 1) and on the long rows
+CUMSUM_EDGE = ((1, 1), (37, 300), (4096, 1024), (1, 4096), (1056, 5000),
+               (1, 4097), (1055, 5000), (2, 3 * 1024 * 175 + 1),
+               (3, 1000003), (1, 1000003), (132, 100000), (1, 2 ** 24))
 RMS_BWD_EDGE_N = (1, 2, 33, 300, 1000, 1024, 2048, 2049, 14528)
 # the reduce's element counts, each 16-byte aligned and one element past
 REDUCE_EDGE_N = (0, 1, 4096, 4097, 1000003, 2 ** 26)
 
 
 def bwd_route_edges(torch, g):
-    """layernorm_bwd, rmsnorm_bwd and reduce against their plain versions
-    at the edge shapes, every route of the three plans, at the path-shape
-    checks' tolerances; dx, dgamma / dbeta and the reduction the same
-    bits on two calls; a LayerNorm row with gamma wider than the block
-    route stages raises ValueError, where the parent's launch failed, and
-    an RMSNorm row wider than MAX_BWD_COLS, where the parent raised. Also
-    the reduce
-    at the last n of "cta" and the first of "grid", at every 16-byte
-    phase of the start. Returns {kernel: summary}."""
+    """layernorm_bwd, rmsnorm_bwd, reduce, softmax_bwd and cumsum against
+    their plain versions at the edge shapes, every route of the five
+    plans, at the path-shape checks' tolerances; dx, dgamma / dbeta, the
+    reduction, the softmax backward and the scan the same bits on two
+    calls, the last two also the bits of their routes' emulations
+    (`softmax_bwd_split_plain`, `cumsum_split_plain`); a LayerNorm row
+    with gamma wider than the block route stages raises ValueError, where
+    the parent's launch failed, and an RMSNorm row wider than
+    MAX_BWD_COLS, where the parent raised. Also the reduce at the last n
+    of "cta" and the first of "grid", at every 16-byte phase of the
+    start. Returns {kernel: summary}."""
     from flexflow_tpu_torch.kernels import norm, reduction
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     dx_tol = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
     out = {k: {"checked": 0, "routes": {}, "max_abs_err": 0.0}
-           for k in ("layernorm_bwd", "rmsnorm_bwd", "reduce")}
+           for k in ("layernorm_bwd", "rmsnorm_bwd", "reduce", "softmax_bwd",
+                     "cumsum")}
 
     def note(name, route, err):
         rec = out[name]
@@ -679,10 +711,43 @@ def bwd_route_edges(torch, g):
                                          "calls differ")
                 note("reduce", plan.route, err)
             del x
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, n in ([(r, n) for n in SOFTMAX_BWD_EDGE_N
+                         for r in NORM_EDGE_R] + [(1, 300000), (3, 300000)]):
+            y = norm.softmax_fwd((torch.randn((rows, n), generator=g,
+                                              device=dev) * 3).to(dtype))
+            dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+            shape = f"R={rows} N={n} {dtype}".replace("torch.", "")
+            plan = norm.softmax_bwd_plan(rows, n, dtype, sms)
+            dx = norm.softmax_bwd(y, dy)
+            err = _agree("softmax_bwd", dx, norm.softmax_bwd_plain(y, dy),
+                         (1e-6, 1e-4) if dtype == torch.float32
+                         else (1e-4, 1e-2), shape)["max_abs_err"]
+            emu = norm.softmax_bwd_split_plain(y, dy, plan.cluster,
+                                               y.data_ptr() % 16)
+            if not (torch.equal(dx, emu)
+                    and torch.equal(norm.softmax_bwd(y, dy), dx)):
+                raise AssertionError(f"softmax_bwd at {shape} ({plan}): not "
+                                     "the bits of its emulation, or two "
+                                     "calls differ")
+            note("softmax_bwd", plan.route, err)
+            del y, dy, dx, emu
+        for rows, n in CUMSUM_EDGE:
+            x = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+            plan = reduction.cumsum_plan(rows, n, dtype, sms)
+            for reverse in (False, True):
+                shape = (f"R={rows} N={n} {dtype}"
+                         f"{' reverse' if reverse else ''}").replace(
+                             "torch.", "")
+                note("cumsum", plan.route, cumsum_case(
+                    torch, reduction, x, reverse, sms, shape))
+            del x
     missing = [f"{k}/{r}" for k, routes in (
         ("layernorm_bwd", norm.LN_BWD_ROUTES),
         ("rmsnorm_bwd", norm.RMS_BWD_ROUTES),
-        ("reduce", reduction.REDUCE_ROUTES)) for r in routes
+        ("reduce", reduction.REDUCE_ROUTES),
+        ("softmax_bwd", norm.SOFTMAX_BWD_ROUTES),
+        ("cumsum", reduction.CUMSUM_ROUTES)) for r in routes
         if r not in out[k]["routes"]]
     if missing:
         raise AssertionError(f"routes never held at the edges: {missing}")
@@ -693,6 +758,12 @@ def bwd_route_edges(torch, g):
         "dx the path shapes' (f32 and bf16); dgamma |err| <= 1e-3 + "
         "1e-4*|plain|")
     out["reduce"]["tolerance"] = "max exact; sum, mean |err| <= 1e-6 sum|x|"
+    out["softmax_bwd"]["tolerance"] = (
+        "the path shapes' (f32 and bf16); dx the bits of "
+        "softmax_bwd_split_plain")
+    out["cumsum"]["tolerance"] = (
+        "the kernel row's; out the bits of cumsum_split_plain, forward and "
+        "reverse")
     for rec in out.values():
         rec["same_bits_on_two_calls"] = True
     return out
@@ -832,27 +903,62 @@ def train_kernels(torch, F, g):
                     "dbeta column sums as a programmatic dependent)")
     table["layernorm_bwd"] = ln
 
-    # softmax backward: the classifier's (b*l, 2) probabilities
-    r, n = b * l, 2
-    for dtype in (torch.float32, torch.bfloat16):
-        y = norm.softmax_fwd((rnd(r, n) * 3).to(dtype))
-        dy = rnd(r, n).to(dtype)
-        dx = norm.softmax_bwd(y, dy)
-        shape = f"R={r} N={n} {dtype}".replace("torch.", "")
-        sm = _agree("softmax_bwd", dx, norm.softmax_bwd_plain(y, dy),
-                    (1e-6, 1e-4) if dtype == torch.float32 else (1e-4, 1e-2),
-                    shape)
-    sm_bound = _bound(3 * r * n * y.element_size(), 4 * r * n, "bfloat16")
-    sm.update(
-        ms=_time_ms(torch, lambda: norm.softmax_bwd(y, dy)),
-        plain_ms=_time_ms(torch, lambda: norm.softmax_bwd_plain(y, dy)),
-        library_ms=_time_ms(torch, lambda: torch._softmax_backward_data(
-            dy, y, -1, y.dtype)),
-        bound_ms=sm_bound[0], bound_by=sm_bound[1],
-        library="torch._softmax_backward_data",
-        note="N = 2: bound by launch latency, not by bytes")
+    # softmax backward: the classifier's (b*l, 2) probabilities (the
+    # table's row), the tier's (4096, 10), and the wide shapes of its
+    # other routes; every one the bits of its route's emulation
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {}
+    for path, r, n in (("train step", b * l, 2), ("tier step", 4096, 10),
+                       ("cluster", 8, 30522), ("cluster 16", 16, 30522),
+                       ("block", 128, 30522), ("NMT projection", 2048, 32000),
+                       ("block mid", 4096, 1024)):
+        dtypes = ((torch.float32, torch.bfloat16) if n <= 10
+                  else (torch.bfloat16,))
+        for dtype in dtypes:
+            y = norm.softmax_fwd((rnd(r, n) * 3).to(dtype))
+            dy = rnd(r, n).to(dtype)
+            shapes[f"{path} {str(dtype)[6:]}"] = softmax_bwd_case(
+                torch, norm, y, dy, sms)
+    sm = dict(shapes.pop("train step bfloat16"),
+              library="torch._softmax_backward_data",
+              ms_includes="1 launch",
+              note="N = 2: bound by launch latency, not by bytes")
+    sm["path_shapes"] = shapes
     table["softmax_bwd"] = sm
     return table
+
+
+def softmax_bwd_case(torch, norm, y, dy, sms):
+    """softmax_bwd on (y, dy): within tolerance of its plain version,
+    equal to the bit to its route's emulation (`softmax_bwd_split_plain`,
+    run on the card in torch's elementwise kernels) and the same bits on
+    two calls; timed beside its plain version and
+    `torch._softmax_backward_data`, hot in L2 (the cotangent arrives from
+    the op before). Returns a table row with the plan."""
+    rows, n = y.shape
+    shape = f"R={rows} N={n} {y.dtype}".replace("torch.", "")
+    plan = norm.softmax_bwd_plan(rows, n, y.dtype, sms)
+    dx = norm.softmax_bwd(y, dy)
+    row = _agree("softmax_bwd", dx, norm.softmax_bwd_plain(y, dy),
+                 (1e-6, 1e-4) if y.dtype == torch.float32 else (1e-4, 1e-2),
+                 shape)
+    emu = norm.softmax_bwd_split_plain(y, dy, plan.cluster,
+                                       y.data_ptr() % 16)
+    if not (torch.equal(dx, emu) and torch.equal(norm.softmax_bwd(y, dy),
+                                                 dx)):
+        raise AssertionError(f"softmax_bwd at {shape} ({plan}): not the "
+                             "bits of its emulation, or two calls differ")
+    bound, by = _bound(3 * y.numel() * y.element_size(), 4 * y.numel(),
+                       str(y.dtype)[6:])
+    row.update(plan=plan._asdict(), emulation_same_bits=True,
+               ms=_time_ms(torch, lambda: norm.softmax_bwd(y, dy)),
+               plain_ms=_time_ms(torch, lambda: norm.softmax_bwd_plain(y,
+                                                                       dy)),
+               library_ms=_time_ms(torch, lambda: torch.
+                                   _softmax_backward_data(dy, y, -1,
+                                                          y.dtype)),
+               bound_ms=bound, bound_by=by)
+    return row
 
 
 def tier_kernels(torch, F, g):
@@ -1146,65 +1252,95 @@ def heads_kernels(torch, F, g):
 
 
 def cumsum_kernels(torch, g):
-    """The scan (B9) against its plain version, forward and reverse, at
-    (4096, 1024) in f32 and bf16 and at (1, 1), (37, 300) and
-    (3, 1000003); timed at (4096, 1024) f32 (and bf16, and the long rows,
-    as notes). Returns {"cumsum": table row}."""
+    """The scan (B9) against its plain version and, to the bit, its
+    route's emulation (`cumsum_split_plain`, run on the card in torch's
+    elementwise adds), forward and reverse, at (4096, 1024) f32 and bf16
+    and (1, 1), (37, 300) ("row") and (3, 1000003) ("split"); timed at the
+    kernel table's shapes: (4096, 1024) f32 (the row) and bf16, (3,
+    1000003) f32 forward and reverse, (1, 2^24) f32 and (1, 1000003) bf16.
+    Returns {"cumsum": table row}."""
     from flexflow_tpu_torch.kernels import reduction
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, worst = [], 0.0
     for shape in ((4096, 1024), (1, 1), (37, 300), (3, 1000003)):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
             for reverse in (False, True):
-                out = reduction.cumsum(x, reverse=reverse)
-                ref = reduction.cumsum_plain(x, reverse=reverse)
-                # f32 sums in another order: a few ulps of the running
-                # sum of |x| over up to ~1000 tiles; bf16 one rounding more
-                mag = reduction.cumsum_plain(x.float().abs(), reverse)
-                lim = 1e-5 * mag + 1e-6
-                if dtype == torch.bfloat16:
-                    lim = lim + 2.0 ** -7 * ref.float().abs()
-                err = (out.float() - ref.float()).abs()
                 name = (f"R={shape[0]} N={shape[1]} {dtype}"
                         f"{' reverse' if reverse else ''}").replace(
                             "torch.", "")
-                if out.dtype != dtype or not bool((err <= lim).all()):
-                    raise AssertionError(f"cumsum disagrees with its plain "
-                                         f"version at {name}: max err "
-                                         f"{float(err.max())}")
-                worst = max(worst, float(err.max()))
+                worst = max(worst, cumsum_case(torch, reduction, x, reverse,
+                                               sms, name))
                 rows.append(name)
     row = {"shape": "R=4096 N=1024 float32", "max_abs_err": worst,
-           "checked": rows,
+           "checked": rows, "emulation_same_bits": True,
            "tolerance": "|err| <= 1e-5 cumsum(|x|) + 1e-6 (+ 2^-7 |plain| "
                         "in bf16)"}
     notes = {}
-    for shape, dtype in (((4096, 1024), torch.float32),
-                         ((4096, 1024), torch.bfloat16),
-                         ((3, 1000003), torch.float32)):
+    for shape, dtype, reverse in (((4096, 1024), torch.float32, False),
+                                  ((4096, 1024), torch.bfloat16, False),
+                                  ((3, 1000003), torch.float32, False),
+                                  ((3, 1000003), torch.float32, True),
+                                  ((1, 2 ** 24), torch.float32, False),
+                                  ((1, 1000003), torch.bfloat16, False)):
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
         n = x.numel()
         bound, by = _bound(2 * n * x.element_size(), n, "float32")
-        t = dict(ms=_time_ms(torch, lambda: reduction.cumsum(x)),
-                 plain_ms=_time_ms(torch, lambda: reduction.cumsum_plain(x)),
+        plan = reduction.cumsum_plan(*shape, dtype, sms)
+        t = dict(plan=plan._asdict(),
+                 ms=_time_ms(torch, lambda: reduction.cumsum(
+                     x, reverse=reverse)),
+                 plain_ms=_time_ms(torch, lambda: reduction.cumsum_plain(
+                     x, reverse=reverse)),
                  library_ms=_time_ms(torch, lambda: torch.cumsum(x, -1)),
-                 bound_ms=bound, bound_by=by)
-        if not notes and dtype == torch.float32:
-            row.update(t, library="torch.cumsum along the last axis")
-        notes[f"R={shape[0]} N={shape[1]} {dtype}".replace("torch.",
-                                                           "")] = t
+                 bound_ms=bound, bound_by=by,
+                 ms_includes=("2 launches (the chunk totals, then the scan "
+                              "as a programmatic dependent)"
+                              if plan.route == "split" else "1 launch"))
+        if not notes:
+            row.update(t, library="torch.cumsum along the last axis (the "
+                                  "forward scan, also beside the reverse)")
+        notes[f"R={shape[0]} N={shape[1]} {dtype}"
+              f"{' reverse' if reverse else ''}".replace("torch.", "")] = t
         del x
     row["timed"] = notes
     return {"cumsum": row}
 
 
+def cumsum_case(torch, reduction, x, reverse, sms, name):
+    """cumsum of x within tolerance of its plain version, equal to the bit
+    to `cumsum_split_plain` at its plan's chunk, the same bits on two
+    calls; returns the largest difference from the plain version."""
+    plan = reduction.cumsum_plan(x.numel() // x.shape[-1], x.shape[-1],
+                                 x.dtype, sms)
+    out = reduction.cumsum(x, reverse=reverse)
+    ref = reduction.cumsum_plain(x, reverse=reverse)
+    # f32 sums in another order: a few ulps of the running sum of |x|;
+    # bf16 one rounding more
+    lim = 1e-5 * reduction.cumsum_plain(x.float().abs(), reverse) + 1e-6
+    if x.dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * ref.float().abs()
+    err = (out.float() - ref.float()).abs()
+    if out.dtype != x.dtype or not bool((err <= lim).all()):
+        raise AssertionError(f"cumsum disagrees with its plain version at "
+                             f"{name}: max err {float(err.max())}")
+    emu = reduction.cumsum_split_plain(
+        x, plan.chunk if plan.route == "split" else None, reverse)
+    if not (torch.equal(out, emu)
+            and torch.equal(reduction.cumsum(x, reverse=reverse), out)):
+        raise AssertionError(f"cumsum at {name} ({plan}): not the bits of "
+                             "its emulation, or two calls differ")
+    return float(err.max())
+
+
 def phase_standalone(torch):
     """The public entries no model path calls, driven as a user calls
     them: flash_attention_heads(layout="bhld") forward and backward at the
-    TP rank's shape (bf16) and fused_cumsum forward and backward at
-    (4096, 1024) f32, counts from 0; each result finite and equal to its
+    TP rank's shape (bf16), fused_cumsum forward and backward at (4096,
+    1024) f32 (the "row" route) and cumsum at (3, 1000003) f32 (the
+    "split" route), counts from 0; each result finite and equal to its
     plain version's within the kernels phase's tolerances."""
     from flexflow_tpu_torch.kernels import (flash_attention as fa,
                                             launch_counts, reduction,
@@ -1217,6 +1353,7 @@ def phase_standalone(torch):
         torch.bfloat16) for _ in range(4))
     x = torch.randn((4096, 1024), generator=g, device=dev)
     gx = torch.randn((4096, 1024), generator=g, device=dev)
+    long_x = torch.randn((3, 1000003), generator=g, device=dev)
     qg, kg, vg, xg = (t.clone().requires_grad_() for t in (q, k, v, x))
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1224,6 +1361,7 @@ def phase_standalone(torch):
     grads = torch.autograd.grad(o, (qg, kg, vg), do)
     c = reduction.fused_cumsum(xg)
     (dx,) = torch.autograd.grad(c, xg, gx)
+    long_c = reduction.cumsum(long_x)
     torch.cuda.synchronize()
     launches = launch_counts()
     wrong = {k_: launches[k_] for k_, n in STANDALONE_LAUNCHES.items()
@@ -1244,14 +1382,17 @@ def phase_standalone(torch):
     for name, a, r_, m in (
             ("fused_cumsum", c, reduction.cumsum_plain(x), mag),
             ("fused_cumsum grad", dx, reduction.cumsum_plain(gx, True),
-             reduction.cumsum_plain(gx.abs(), True))):
+             reduction.cumsum_plain(gx.abs(), True)),
+            ("cumsum (3, 1000003) split", long_c,
+             reduction.cumsum_plain(long_x), reduction.cumsum_plain(
+                 long_x.abs()))):
         err = (a - r_).abs()
         if not (bool(torch.isfinite(a).all())
                 and bool((err <= 1e-5 * m + 1e-6).all())):
             raise AssertionError(f"{name} disagrees with its plain version")
         checks.append({"shape": name, "max_abs_err": float(err.max())})
     return {"phase": "standalone", "launches": {k_: launches[k_] for k_ in
-                                                STANDALONE_KERNELS},
+                                                STANDALONE_LAUNCHES},
             "checks": checks}
 
 
@@ -1786,8 +1927,16 @@ def main() -> int:
                r for r in _build.ptxas_report("norm.cu")
                if r["kernel"].startswith(("layernorm_bwd", "rmsnorm_bwd",
                                           "ln_column_sums"))],
+           # the register and loop routes, and the rows route at the
+           # paths' (lanes, values a lane): (2, 1) and (16, 1)
+           "softmax_bwd_ptxas": [
+               r for r in _build.ptxas_report("norm.cu")
+               if r["kernel"].startswith("softmax_bwd_") and (
+                   not r["kernel"].startswith("softmax_bwd_rows")
+                   or r["kernel"].endswith((", 2, 1>", ", 16, 1>")))],
            "reduce_ptxas": [r for r in _build.ptxas_report("reduction.cu")
-                            if r["kernel"].startswith("reduce_")]})
+                            if r["kernel"].startswith(("reduce_",
+                                                       "cumsum_"))]})
 
     # 4) serve: full width, random weights from a fixed generator
     hidden, heads, layers, vocab, window = 1024, 16, 12, 30522, 512

@@ -90,8 +90,29 @@
 //    for its own columns over the block's rows; a second launch adds the
 //    blocks' partial sums column by column in a fixed order.
 // None uses float atomics, so the sums are the same on every run.
-// Softmax backward gives each row one warp: at the classifier's N = 2 it
-// is bound by launch latency, not by bytes.
+//
+// Softmax backward (dx = y * (dy - sum(y * dy)), bound by bytes: two
+// reads and one write an element; at the classifier's N = 2 by the
+// launch) takes a route that kernels/norm.py `softmax_bwd_plan` chooses
+// from the shape alone: the forward's routes with a second operand.
+//  - "rows" (N <= 512: the classifier's 2, the tier's 10): 2^k lanes a
+//    row, several rows a warp, y and dy in registers, the sum by
+//    shuffles only; a grid of a few CTAs an SM walking the rows.
+//  - "block" (wide rows, enough of them: 128 x 30522, 2048 x 32000,
+//    4096 x 1024) and "cluster" (few wide rows: 8 and 16 x 30522, on 8
+//    and 4 CTAs): a CTA holds its slice of y and dy as loaded 16-byte
+//    vectors (raw: a bf16 vector pair is 8 registers, so 4 pairs a
+//    thread stay within the 64 registers a thread of 1024 may have;
+//    ptxas reports the counts, tools/norm_bench.py), after the
+//    forward's per-row head and tail peel; a cluster's CTAs exchange one
+//    partial sum each through distributed shared memory and add them in
+//    rank order.
+//  - "loop" (rows no cluster of 8 holds: bf16 N > 262144, f32 > 131072):
+//    a CTA a row, two passes, the second read left to L2.
+// Every product and sum is rounded on its own (__fmul_rn, __fadd_rn, in
+// a fixed order), so kernels/norm.py `softmax_bwd_split_plain` gives each
+// route's bits in torch; dx is written at y's 16-byte phase, dy read as
+// vectors where it shares that phase, else element by element.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -119,7 +140,7 @@ constexpr int kLnBwdHoldPerLane = 32;    // up to which x, dy, gamma stay
 constexpr int kColSumsThreads = 256;     // warp route's column sums
 constexpr int kColSumsBatch = 8;         // loads a lane has in flight
 constexpr int kReduceGroups = 16;    // partial-sum groups per column
-constexpr int kSoftmaxBwdThreads = 256;  // 8 rows per block, a warp each
+constexpr int kSoftmaxBwdMaxVecs = 4;     // vector pairs a regs thread holds
 
 // route codes shared with kernels/norm.py SOFTMAX_ROUTES, RMSNORM_ROUTES
 enum SoftmaxRoute { kSoftmaxLoop = 0, kSoftmaxRows = 1, kSoftmaxBlock = 2,
@@ -801,21 +822,178 @@ __global__ void __launch_bounds__(kColSumsThreads)
   if (lane == 0) (blockIdx.y ? db : dg)[c] = s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kSoftmaxBwdThreads)
-    softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy,
-                       T* __restrict__ dx, int R, int N) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// softmax backward "rows": the forward's rows kernel with dy beside y.
+// LANES lanes a row (32 / LANES rows a warp), K values of each a lane at
+// columns lane + LANES * k; the lane adds its y * dy in k order, then a
+// butterfly over the row's lanes.
+template <typename T, int LANES, int K>
+__global__ void __launch_bounds__(kRowsThreads)
+    softmax_bwd_rows_kernel(const T* __restrict__ y,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            int R, int N) {
+  constexpr int kRowsPerWarp = 32 / LANES;
   const int lane = threadIdx.x & 31;
-  if (row >= R) return;  // whole warps: the shuffles below stay full
-  const T* yr = y + (size_t)row * N;
-  const T* dyr = dy + (size_t)row * N;
+  const int sub = lane / LANES, li = lane % LANES;
+  const long warps = static_cast<long>(gridDim.x) * (blockDim.x >> 5);
+  for (long base = (static_cast<long>(blockIdx.x) * (blockDim.x >> 5) +
+                    (threadIdx.x >> 5)) * kRowsPerWarp;
+       base < R; base += warps * kRowsPerWarp) {
+    const long r = base + sub;
+    const bool live = r < R;
+    const T* yr = y + r * N;
+    const T* dyr = dy + r * N;
+    float yv[K], dv[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = li + k * LANES;
+      const bool in = live && i < N;
+      yv[k] = in ? to_f(yr[i]) : 0.f;
+      dv[k] = in ? to_f(dyr[i]) : 0.f;
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) s = __fadd_rn(s, __fmul_rn(yv[k], dv[k]));
+#pragma unroll
+    for (int o = LANES / 2; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    if (live) {
+      T* dxr = dx + r * N;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int i = li + k * LANES;
+        if (i < N) dxr[i] = from_f<T>(__fmul_rn(yv[k], __fsub_rn(dv[k], s)));
+      }
+    }
+  }
+}
+
+// y * dy of one 16-byte vector pair, added to s in element order
+template <typename T>
+__device__ __forceinline__ float dot_vec(float s, const uint4& uy,
+                                         const uint4& ud) {
+  constexpr int W = kVecElems<T>;
+  float fy[W], fd[W];
+  unpack<T>(uy, fy);
+  unpack<T>(ud, fd);
+#pragma unroll
+  for (int j = 0; j < W; ++j) s = __fadd_rn(s, __fmul_rn(fy[j], fd[j]));
+  return s;
+}
+
+// y * (dy - S) of one 16-byte vector pair, packed
+template <typename T>
+__device__ __forceinline__ uint4 dx_vec(const uint4& uy, const uint4& ud,
+                                        float S) {
+  constexpr int W = kVecElems<T>;
+  float fy[W], fd[W], o[W];
+  unpack<T>(uy, fy);
+  unpack<T>(ud, fd);
+#pragma unroll
+  for (int j = 0; j < W; ++j) o[j] = __fmul_rn(fy[j], __fsub_rn(fd[j], S));
+  return pack<T>(o);
+}
+
+// softmax backward "block" (a cluster of 1) and "cluster": the CTA of
+// rank c of a row's cluster of C holds vectors [c * per, (c + 1) * per) of
+// y and dy as loaded, at most VECS of each a thread (vectors t, t +
+// blockDim.x, ...), and rank 0 the head and tail elements. Thread t adds
+// y * dy over its vectors in order, then its head or tail element;
+// block_reduce gives the CTA's sum; with C > 1 thread 0 of every CTA adds
+// the cluster's sums in rank order (the same bits on every CTA), and the
+// CTA writes its slice of dx.
+template <typename T, int VECS>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+    softmax_bwd_regs_kernel(const T* __restrict__ y, const T* __restrict__ dy,
+                            T* __restrict__ dx, int N, int dy_vec) {
+  constexpr int W = kVecElems<T>;
+  __shared__ float red[32];
+  __shared__ float part;    // this CTA's sum, read by the cluster
+  __shared__ float merged;  // the row's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const size_t r = blockIdx.x / C;
+  const T* yr = y + r * N;
+  const T* dyr = dy + r * N;
+  T* dxr = dx + r * N;
+  const RowSplit rs = row_split(yr, N);
+  const int per = (rs.nv + C - 1) / C;
+  const int v0 = rank * per, v1 = min(rs.nv, v0 + per);
+  const uint4* yv = reinterpret_cast<const uint4*>(yr + rs.head);
+  uint4* dxv = reinterpret_cast<uint4*>(dxr + rs.head);
+  uint4 uy[VECS], ud[VECS];
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    const int i = v0 + threadIdx.x + k * blockDim.x;
+    if (i < v1) {
+      uy[k] = yv[i];
+      ud[k] = load_vec<T>(dyr + rs.head + static_cast<size_t>(i) * W,
+                          dy_vec);
+    }
+  }
+  const int ei = rank == 0 ? edge_elem(rs, N, threadIdx.x) : -1;
+  const float ye = ei >= 0 ? to_f(yr[ei]) : 0.f;
+  const float de = ei >= 0 ? to_f(dyr[ei]) : 0.f;
   float s = 0.f;
-  for (int i = lane; i < N; i += 32) s += to_f(yr[i]) * to_f(dyr[i]);
-  s = warp_sum(s);
-  T* dxr = dx + (size_t)row * N;
-  for (int i = lane; i < N; i += 32)
-    dxr[i] = from_f<T>(to_f(yr[i]) * (to_f(dyr[i]) - s));
+#pragma unroll
+  for (int k = 0; k < VECS; ++k)
+    if (v0 + threadIdx.x + k * blockDim.x < v1) s = dot_vec<T>(s, uy[k], ud[k]);
+  if (ei >= 0) s = __fadd_rn(s, __fmul_rn(ye, de));
+  s = block_reduce<false>(s, red);
+  if (C > 1) {
+    if (threadIdx.x == 0) part = s;
+    cluster.sync();
+    if (threadIdx.x == 0) {
+      float S = 0.f;
+      for (int c = 0; c < C; ++c)
+        S = __fadd_rn(S, *cluster.map_shared_rank(&part, c));
+      merged = S;
+    }
+    // done with the other CTAs' sums; the matching wait, before this CTA
+    // exits, keeps its own alive until every CTA has read it
+    cluster_arrive();
+    __syncthreads();
+    s = merged;
+  }
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    const int i = v0 + threadIdx.x + k * blockDim.x;
+    if (i < v1) dxv[i] = dx_vec<T>(uy[k], ud[k], s);
+  }
+  if (ei >= 0) dxr[ei] = from_f<T>(__fmul_rn(ye, __fsub_rn(de, s)));
+  if (C > 1) cluster_wait();
+}
+
+// softmax backward "loop": a CTA a row, its vectors t, t + blockDim.x, ...
+// read twice (the sum, then dx; the second read from L2), the sum in the
+// regs kernel's order with no bound on the vectors a thread
+template <typename T>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+    softmax_bwd_loop_kernel(const T* __restrict__ y, const T* __restrict__ dy,
+                            T* __restrict__ dx, int N, int dy_vec) {
+  constexpr int W = kVecElems<T>;
+  __shared__ float red[32];
+  const size_t r = blockIdx.x;
+  const T* yr = y + r * N;
+  const T* dyr = dy + r * N;
+  T* dxr = dx + r * N;
+  const RowSplit rs = row_split(yr, N);
+  const uint4* yv = reinterpret_cast<const uint4*>(yr + rs.head);
+  uint4* dxv = reinterpret_cast<uint4*>(dxr + rs.head);
+  const T* dyv = dyr + rs.head;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < rs.nv; i += blockDim.x)
+    s = dot_vec<T>(s, yv[i], load_vec<T>(dyv + static_cast<size_t>(i) * W,
+                                         dy_vec));
+  const int ei = edge_elem(rs, N, threadIdx.x);
+  const float ye = ei >= 0 ? to_f(yr[ei]) : 0.f;
+  const float de = ei >= 0 ? to_f(dyr[ei]) : 0.f;
+  if (ei >= 0) s = __fadd_rn(s, __fmul_rn(ye, de));
+  s = block_reduce<false>(s, red);
+  for (int i = threadIdx.x; i < rs.nv; i += blockDim.x)
+    dxv[i] = dx_vec<T>(yv[i], load_vec<T>(dyv + static_cast<size_t>(i) * W,
+                                          dy_vec), s);
+  if (ei >= 0) dxr[ei] = from_f<T>(__fmul_rn(ye, __fsub_rn(de, s)));
 }
 
 // One row of the RMSNorm warp route as a lane holds it: its split, its
@@ -1528,14 +1706,113 @@ int launch_rmsnorm_bwd(const void* x, const float* gamma, const float* rstd,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int LANES, int K>
+int launch_bwd_rows(const T* y, const T* dy, T* dx, int R, int N,
+                    int threads, int blocks, cudaStream_t stream) {
+  softmax_bwd_rows_kernel<T, LANES, K><<<blocks, threads, 0, stream>>>(
+      y, dy, dx, R, N);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int LANES>
+int launch_bwd_rows_k(const T* y, const T* dy, T* dx, int R, int N,
+                      int threads, int blocks, int k, cudaStream_t stream) {
+  switch (k) {
+    case 1: return launch_bwd_rows<T, LANES, 1>(y, dy, dx, R, N, threads,
+                                                blocks, stream);
+    case 2: return launch_bwd_rows<T, LANES, 2>(y, dy, dx, R, N, threads,
+                                                blocks, stream);
+    case 4: return launch_bwd_rows<T, LANES, 4>(y, dy, dx, R, N, threads,
+                                                blocks, stream);
+    case 8: return launch_bwd_rows<T, LANES, 8>(y, dy, dx, R, N, threads,
+                                                blocks, stream);
+    case 16: return launch_bwd_rows<T, LANES, 16>(y, dy, dx, R, N, threads,
+                                                  blocks, stream);
+    case 32: return launch_bwd_rows<T, LANES, 32>(y, dy, dx, R, N, threads,
+                                                  blocks, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch_softmax_bwd_rows(const T* y, const T* dy, T* dx, int R, int N,
+                            int threads, int blocks, int lanes, int k,
+                            cudaStream_t stream) {
+  if (lanes * k < N || blocks < 1 || threads < 32 || threads % 32 != 0 ||
+      threads > kRowsThreads)
+    return (int)cudaErrorInvalidValue;
+  switch (lanes) {
+    case 1: return launch_bwd_rows_k<T, 1>(y, dy, dx, R, N, threads, blocks,
+                                           k, stream);
+    case 2: return launch_bwd_rows_k<T, 2>(y, dy, dx, R, N, threads, blocks,
+                                           k, stream);
+    case 4: return launch_bwd_rows_k<T, 4>(y, dy, dx, R, N, threads, blocks,
+                                           k, stream);
+    case 8: return launch_bwd_rows_k<T, 8>(y, dy, dx, R, N, threads, blocks,
+                                           k, stream);
+    case 16: return launch_bwd_rows_k<T, 16>(y, dy, dx, R, N, threads,
+                                             blocks, k, stream);
+    case 32: return launch_bwd_rows_k<T, 32>(y, dy, dx, R, N, threads,
+                                             blocks, k, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+using SoftmaxBwdRegsFn = void (*)(const T*, const T*, T*, int, int);
+
+template <typename T>
+SoftmaxBwdRegsFn<T> softmax_bwd_regs_for(int vecs) {
+  static_assert(kSoftmaxBwdMaxVecs == 4, "instantiate 1..kSoftmaxBwdMaxVecs");
+  switch (vecs) {
+    case 1: return softmax_bwd_regs_kernel<T, 1>;
+    case 2: return softmax_bwd_regs_kernel<T, 2>;
+    case 3: return softmax_bwd_regs_kernel<T, 3>;
+    case 4: return softmax_bwd_regs_kernel<T, 4>;
+    default: return nullptr;
+  }
+}
+
 template <typename T>
 int launch_softmax_bwd(const void* y, const void* dy, void* dx, int R, int N,
-                       cudaStream_t stream) {
-  constexpr int rows_per_block = kSoftmaxBwdThreads / 32;
-  softmax_bwd_kernel<T>
-      <<<(R + rows_per_block - 1) / rows_per_block, kSoftmaxBwdThreads, 0,
-         stream>>>(static_cast<const T*>(y), static_cast<const T*>(dy),
-                   static_cast<T*>(dx), R, N);
+                       int route, int threads, int blocks, int per_thread,
+                       int lanes, int cluster, cudaStream_t stream) {
+  constexpr int W = kVecElems<T>;
+  const T* yt = static_cast<const T*>(y);
+  const T* dyt = static_cast<const T*>(dy);
+  T* dxt = static_cast<T*>(dx);
+  if (route == kSoftmaxRows)
+    return launch_softmax_bwd_rows<T>(yt, dyt, dxt, R, N, threads, blocks,
+                                      lanes, per_thread, stream);
+  // the vector routes write dx with y's 16-byte vectors; dy is read as
+  // vectors where it shares y's phase, else element by element
+  if ((reinterpret_cast<uintptr_t>(y) ^ reinterpret_cast<uintptr_t>(dx)) &
+      15)
+    return (int)cudaErrorMisalignedAddress;
+  const int dy_vec =
+      ((reinterpret_cast<uintptr_t>(y) ^ reinterpret_cast<uintptr_t>(dy)) &
+       15) == 0;
+  if (route == kSoftmaxLoop) {
+    if (threads != kSoftmaxThreads || blocks != R)
+      return (int)cudaErrorInvalidValue;
+    softmax_bwd_loop_kernel<T><<<R, kSoftmaxThreads, 0, stream>>>(
+        yt, dyt, dxt, N, dy_vec);
+    return (int)cudaGetLastError();
+  }
+  if (route != kSoftmaxBlock && route != kSoftmaxCluster)
+    return (int)cudaErrorInvalidValue;
+  if (route == kSoftmaxBlock) cluster = 1;
+  SoftmaxBwdRegsFn<T> kernel = softmax_bwd_regs_for<T>(per_thread);
+  if (kernel == nullptr || threads < 32 || threads > kSoftmaxThreads ||
+      threads % 32 != 0 || cluster < 1 || cluster > kMaxCluster ||
+      blocks != R * cluster ||
+      ((N + W - 1) / W + cluster - 1) / cluster > threads * per_thread)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = regs_config(R, threads, cluster, stream,
+                                             &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, yt, dyt, dxt, N, dy_vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1563,12 +1840,20 @@ extern "C" int ff_layernorm_bwd(const void* x, const float* gamma,
   return (int)cudaErrorInvalidValue;
 }
 
+// the plan's arguments (kernels/norm.py SoftmaxPlan, from
+// softmax_bwd_plan) follow the stream, as ff_softmax_fwd's
 extern "C" int ff_softmax_bwd(const void* y, const void* dy, void* dx, int R,
-                              int N, int dtype, void* stream) {
+                              int N, int dtype, void* stream, int route,
+                              int threads, int blocks, int per_thread,
+                              int lanes, int cluster) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == FF_F32) return launch_softmax_bwd<float>(y, dy, dx, R, N, s);
+  if (dtype == FF_F32)
+    return launch_softmax_bwd<float>(y, dy, dx, R, N, route, threads, blocks,
+                                     per_thread, lanes, cluster, s);
   if (dtype == FF_BF16)
-    return launch_softmax_bwd<__nv_bfloat16>(y, dy, dx, R, N, s);
+    return launch_softmax_bwd<__nv_bfloat16>(y, dy, dx, R, N, route, threads,
+                                             blocks, per_thread, lanes,
+                                             cluster, s);
   return (int)cudaErrorInvalidValue;
 }
 

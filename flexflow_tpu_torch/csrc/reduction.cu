@@ -43,15 +43,30 @@
 // bytes (one read and one write of x, one add an element).
 //
 // Design: the TPU kernel holds whole rows in VMEM and calls jnp.cumsum
-// on them. Here one block of 256 threads owns a row and walks it in
-// tiles of 1024 elements in scan order: a coalesced load into shared
-// memory as f32, each thread's sequential scan of 4 consecutive
-// elements, a warp scan of the thread totals with __shfl_up_sync, the
-// 8 warp totals scanned by one warp in shared memory, then an f32
-// carry across tiles. Shared memory is padded one float per 32, so
-// the 4-apart reads of the per-thread scans hit 32 distinct banks.
-// Rows run in parallel; one row's tiles run in order, so a single long
-// row (R = 1) uses one SM: a look-back scan across blocks is later work.
+// on them. Here a block of 256 threads scans a span of a row in tiles of
+// 1024 elements in scan order: a coalesced load into shared memory as
+// f32 (the next tile's loads issued into registers before this tile is
+// scanned), each thread's sequential scan of 4 consecutive elements, a
+// warp scan of the thread totals with __shfl_up_sync, the 8 warp totals
+// scanned by one warp in shared memory, then an f32 carry across tiles.
+// Shared memory is padded one float per 32, so the 4-apart reads of the
+// per-thread scans hit 32 distinct banks. kernels/reduction.py
+// `cumsum_plan` picks the spans from the shape alone:
+//  - "row" (the rows alone fill the card, or they are at most 4 tiles):
+//    one block a row, the span the whole row, from a carry of 0.
+//  - "split" (few long rows: (3, 1000003), (1, 2^24)): each row cut into
+//    chunks of whole tiles, rows x chunks blocks (about 8 an SM). A first
+//    launch writes each chunk's f32 total (thread t adds elements
+//    t + 256 k from the chunk's end, then a block reduction); the scan,
+//    launched as a programmatic dependent, loads its first tile, waits
+//    for the totals, adds those before its chunk in a fixed order
+//    (thread t the totals t, t + 256, ..., then the block's butterflies)
+//    and scans its chunk from that carry. x is read twice: while the
+//    rows fit in L2 (50 MB) the second read hits it, and past it the
+//    chunks' starts, which the totals read last. No atomics and no look-back: every
+//    carry is a sum in a fixed order, so every call gives the same bits.
+// kernels/reduction.py `cumsum_split_plain` repeats both routes' adds in
+// torch, to the bit.
 #include <cstdint>
 
 #include "common.cuh"
@@ -306,28 +321,57 @@ constexpr int kScanThreads = 256;
 constexpr int kScanItems = 4;
 constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kMaxChunks = kScanThreads * 4;  // totals a scan block adds
+constexpr int kTotalBatch = 8;                // loads a thread has in flight
+
+// route codes shared with kernels/reduction.py CUMSUM_ROUTES
+enum ScanRoute { kScanRow = 0, kScanSplit = 1 };
 
 __device__ __forceinline__ int scan_pad(int i) { return i + (i >> 5); }
 
+// The row's element at scan position g (from its end when reversed)
+__device__ __forceinline__ long long scan_at(long long N, long long g,
+                                             int reverse) {
+  return reverse ? N - 1 - g : g;
+}
+
+// this thread's elements of the tile at scan position g0 (n of them
+// valid; zeros past them)
 template <typename T>
-__global__ void __launch_bounds__(kScanThreads)
-    cumsum_kernel(const T* __restrict__ x, T* __restrict__ out, long long N,
-                  int reverse) {
-  __shared__ float tile[kScanTile + kScanTile / 32];
-  __shared__ float warp_tot[kScanWarps];
+__device__ __forceinline__ void scan_load(const T* __restrict__ xr,
+                                          long long N, long long g0, int n,
+                                          int reverse,
+                                          float (&v)[kScanItems]) {
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    const int i = threadIdx.x + k * kScanThreads;
+    v[k] = i < n ? to_f(xr[scan_at(N, g0 + i, reverse)]) : 0.f;
+  }
+}
+
+// Scan `len` elements of a row from scan position g0 and carry, `v` this
+// thread's elements of the first tile, loaded
+template <typename T>
+__device__ __forceinline__ void scan_span(const T* __restrict__ xr,
+                                          T* __restrict__ outr, long long N,
+                                          long long g0, long long len,
+                                          int reverse, float carry,
+                                          float (&v)[kScanItems],
+                                          float* tile, float* warp_tot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* xr = x + (size_t)blockIdx.x * N;
-  T* outr = out + (size_t)blockIdx.x * N;
-  float carry = 0.f;
-  for (long long t0 = 0; t0 < N; t0 += kScanTile) {
-    const int n = (int)(N - t0 < kScanTile ? N - t0 : kScanTile);
-    // element i of the tile is the (t0 + i)-th of the row in scan order
-    for (int i = threadIdx.x; i < kScanTile; i += kScanThreads) {
-      float v = 0.f;
-      if (i < n) v = to_f(xr[reverse ? N - 1 - (t0 + i) : t0 + i]);
-      tile[scan_pad(i)] = v;
-    }
+  for (long long t0 = 0; t0 < len; t0 += kScanTile) {
+    const int n = (int)(len - t0 < kScanTile ? len - t0 : kScanTile);
+    // element i of the tile is the (g0 + t0 + i)-th of the row in scan
+    // order
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k)
+      tile[scan_pad(threadIdx.x + k * kScanThreads)] = v[k];
     __syncthreads();
+    if (t0 + kScanTile < len) {  // the next tile's loads, in flight
+      const long long rest = len - t0 - kScanTile;
+      scan_load(xr, N, g0 + t0 + kScanTile,
+                (int)(rest < kScanTile ? rest : kScanTile), reverse, v);
+    }
     float part[kScanItems];
     float run = 0.f;
 #pragma unroll
@@ -364,17 +408,138 @@ __global__ void __launch_bounds__(kScanThreads)
     carry += warp_tot[kScanWarps - 1];
     __syncthreads();
     for (int i = threadIdx.x; i < n; i += kScanThreads)
-      outr[reverse ? N - 1 - (t0 + i) : t0 + i] =
-          from_f<T>(tile[scan_pad(i)]);
+      outr[scan_at(N, g0 + t0 + i, reverse)] = from_f<T>(tile[scan_pad(i)]);
     __syncthreads();  // the tile and warp_tot are rewritten next
   }
 }
 
+// "row": one block a row, the whole row from a carry of 0; 8 blocks an
+// SM (32 registers: the next tile's loads took bf16 from 26 to 35, 7
+// blocks an SM, 3% slower at (4096, 1024) on an H100)
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads, 8)
+    cumsum_kernel(const T* __restrict__ x, T* __restrict__ out, long long N,
+                  int reverse) {
+  __shared__ float tile[kScanTile + kScanTile / 32];
+  __shared__ float warp_tot[kScanWarps];
+  const T* xr = x + (size_t)blockIdx.x * N;
+  T* outr = out + (size_t)blockIdx.x * N;
+  float v[kScanItems];
+  scan_load(xr, N, 0, (int)(N < kScanTile ? N : kScanTile), reverse, v);
+  scan_span(xr, outr, N, 0, N, reverse, 0.f, v, tile, warp_tot);
+}
+
+// "split", first launch: block b = row * chunks + j writes chunk j's
+// total, thread t adding elements t + 256 k of it from the last k down to
+// k = 0 (loads kTotalBatch at a time), then block_combine. From the end:
+// a row past L2 (50 MB) then leaves each chunk's start in L2, where the
+// scan reads it first
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+    cumsum_totals_kernel(const T* __restrict__ x, long long N,
+                         long long chunk, int chunks, int reverse,
+                         float* __restrict__ totals) {
+  __shared__ float red[32];
+  const long long row = blockIdx.x / chunks;
+  const long long g0 = (blockIdx.x % chunks) * chunk;
+  const long long len = N - g0 < chunk ? N - g0 : chunk;
+  const T* xr = x + row * N;
+  float s = 0.f;
+  for (long long k0 = (len - 1) / kScanThreads; k0 >= 0; k0 -= kTotalBatch) {
+    float v[kTotalBatch];
+#pragma unroll
+    for (int b = 0; b < kTotalBatch; ++b) {
+      const long long i = threadIdx.x + (k0 - b) * kScanThreads;
+      v[b] = k0 - b >= 0 && i < len
+                 ? to_f(xr[scan_at(N, g0 + i, reverse)]) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < kTotalBatch; ++b) s += v[b];  // + 0 past the ends
+  }
+  s = block_combine<false>(s, red);
+  if (threadIdx.x == 0) totals[blockIdx.x] = s;
+  // the scan may launch once every block has written its total
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// "split", second launch (a programmatic dependent of the first): the
+// chunk's carry, the sum of the totals before it in a fixed order, then
+// the chunk's scan (loading two tiles ahead spilled under 32 registers:
+// this kernel 16% slower at (1, 2^24) on an H100)
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+    cumsum_chunk_kernel(const T* __restrict__ x, T* __restrict__ out,
+                        long long N, long long chunk, int chunks,
+                        int reverse, const float* __restrict__ totals) {
+  __shared__ float tile[kScanTile + kScanTile / 32];
+  __shared__ float warp_tot[kScanWarps];
+  __shared__ float red[32];
+  const long long row = blockIdx.x / chunks;
+  const int j = blockIdx.x % chunks;
+  const long long g0 = (long long)j * chunk;
+  const long long len = N - g0 < chunk ? N - g0 : chunk;
+  const T* xr = x + row * N;
+  T* outr = out + row * N;
+  // x is no output of the first launch: the first tile's loads go out
+  // before the wait
+  float v[kScanItems];
+  scan_load(xr, N, g0, (int)(len < kScanTile ? len : kScanTile), reverse, v);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const float* tr = totals + row * chunks;
+  float t[kMaxChunks / kScanThreads];
+#pragma unroll
+  for (int b = 0; b < kMaxChunks / kScanThreads; ++b) {
+    const int i = threadIdx.x + b * kScanThreads;
+    t[b] = i < j ? tr[i] : 0.f;
+  }
+  float c = 0.f;
+#pragma unroll
+  for (int b = 0; b < kMaxChunks / kScanThreads; ++b) c += t[b];
+  c = block_combine<false>(c, red);
+  if (threadIdx.x == 0) red[0] = c;  // block_combine's last read is done
+  __syncthreads();
+  c = red[0];
+  scan_span(xr, outr, N, g0, len, reverse, c, v, tile, warp_tot);
+}
+
 template <typename T>
 int launch_cumsum(const void* x, void* out, long long R, long long N,
-                  int reverse, cudaStream_t stream) {
-  cumsum_kernel<T><<<(unsigned)R, kScanThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), N, reverse);
+                  int reverse, int route, long long chunk, int chunks,
+                  float* totals, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (route == kScanRow) {
+    cumsum_kernel<T><<<(unsigned)R, kScanThreads, 0, stream>>>(xt, ot, N,
+                                                               reverse);
+    return (int)cudaGetLastError();
+  }
+  // whole tiles, every element in a chunk, at most kMaxChunks a row
+  if (route != kScanSplit || totals == nullptr || chunks < 2 ||
+      chunks > kMaxChunks || chunk < 1 || chunk % kScanTile != 0 ||
+      (chunks - 1) * chunk >= N || chunks * chunk < N ||
+      R * chunks > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(R * chunks);
+  cumsum_totals_kernel<T><<<grid, kScanThreads, 0, stream>>>(
+      xt, N, chunk, chunks, reverse, totals);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // programmatic dependent launch: the scan's blocks are scheduled as the
+  // totals' blocks finish, and load their first tile before they wait
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kScanThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cumsum_chunk_kernel<T>, xt, ot, N, chunk,
+                           chunks, reverse,
+                           static_cast<const float*>(totals));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -398,14 +563,20 @@ extern "C" int ff_reduce(const void* x, long long n, int vec, int kind,
   return (int)cudaErrorInvalidValue;
 }
 
-// x, out: R rows of N contiguous elements (R <= 2^31 - 1, R, N >= 1)
+// x, out: R rows of N contiguous elements (R <= 2^31 - 1, R, N >= 1).
+// The plan's arguments (kernels/reduction.py CumsumPlan) follow the
+// stream: route, chunk (elements a block scans), chunks (blocks a row);
+// totals: room for R x chunks floats ("split"; unused on "row").
 extern "C" int ff_cumsum(const void* x, void* out, long long R, long long N,
-                         int reverse, int dtype, void* stream) {
+                         int reverse, int dtype, void* stream, int route,
+                         long long chunk, int chunks, float* totals) {
   if (R < 1 || N < 1 || R > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == FF_F32)
-    return launch_cumsum<float>(x, out, R, N, reverse, s);
+    return launch_cumsum<float>(x, out, R, N, reverse, route, chunk, chunks,
+                                totals, s);
   if (dtype == FF_BF16)
-    return launch_cumsum<__nv_bfloat16>(x, out, R, N, reverse, s);
+    return launch_cumsum<__nv_bfloat16>(x, out, R, N, reverse, route, chunk,
+                                        chunks, totals, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,10 +20,10 @@ _COUNTS = (decode.LAUNCHES, decode.ROUTES, flash_attention.LAUNCHES,
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset, and the decode,
-    flash, softmax_fwd, rmsnorm_fwd, layernorm_bwd and reduce wrappers'
-    launches per route ("decode_attention/tc", "flash_fwd/tc",
-    "softmax_fwd/rows", "reduce/cta", ...)."""
+    """Kernel launches per wrapper since the last reset, and the planned
+    wrappers' calls per route ("decode_attention/tc", "flash_fwd/tc",
+    "softmax_fwd/rows", "softmax_bwd/cluster", "reduce/cta",
+    "cumsum/split", ...)."""
     return {name: n for counts in _COUNTS for name, n in counts.items()}
 
 

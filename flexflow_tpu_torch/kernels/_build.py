@@ -135,7 +135,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                      p, i, i, i, i]
     lib.ff_layernorm_bwd.restype = i
-    lib.ff_softmax_bwd.argtypes = [p, p, p, i, i, i, p]
+    lib.ff_softmax_bwd.argtypes = [p, p, p, i, i, i, p, i, i, i, i, i, i]
     lib.ff_softmax_bwd.restype = i
     lib.ff_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i,
                                  i, i, p]
@@ -152,7 +152,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                               i, i]
     lib.ff_reduce.restype = i
     lib.ff_cumsum.argtypes = [p, p, ctypes.c_longlong, ctypes.c_longlong, i,
-                              i, p]
+                              i, p, i, ctypes.c_longlong, i, p]
     lib.ff_cumsum.restype = i
     lib.ff_flash_tc_smem_bytes.argtypes = [i, i, i, i]
     lib.ff_flash_tc_smem_bytes.restype = ctypes.c_longlong

@@ -37,7 +37,15 @@ few rows a block, dgamma and dbeta summed per block, then over blocks in
 a second launch); both add in a fixed order. RMSNorm's routes are
 LayerNorm's without the mean (and without dbeta);
 `layernorm_bwd_warp_plain` and `rmsnorm_bwd_warp_plain` repeat the warp
-route's arithmetic in torch. Softmax backward gives each row a warp.
+route's arithmetic in torch. Softmax backward takes a route that
+`softmax_bwd_plan` chooses from the shape alone, the forward's routes
+with a second operand: "rows" (N <= SOFTMAX_BWD_ROWS_MAX_N: 2^k lanes a
+row, y and dy in registers, the sum of y * dy by shuffles only),
+"block" (a wide row a CTA, y and dy held as loaded 16-byte vectors),
+"cluster" (a row split over 2-8 CTAs whose partial sums meet in rank
+order through distributed shared memory) and "loop" (a CTA a row, two
+passes, the second read from L2); every sum in a fixed order, so
+`softmax_bwd_split_plain` gives each route's bits in torch.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -60,6 +68,7 @@ LAUNCHES: Dict[str, int] = {"layernorm_fwd": 0, "layernorm_bwd": 0,
 # calls by route of every planned kernel (csrc/norm.cu SoftmaxRoute,
 # RmsRoute, LnFwdRoute, LnBwdRoute), the codes the C entries take
 SOFTMAX_ROUTES = {"loop": 0, "rows": 1, "block": 2, "cluster": 3}
+SOFTMAX_BWD_ROUTES = SOFTMAX_ROUTES  # the same codes (csrc/norm.cu)
 RMSNORM_ROUTES = {"block": 0, "warp": 1}
 LN_FWD_ROUTES = {"block": 0, "warp": 1}
 LN_BWD_ROUTES = {"block": 0, "warp": 1}
@@ -68,7 +77,8 @@ ROUTES: Dict[str, int] = {
     f"{name}/{r}": 0 for name, routes in (
         ("softmax_fwd", SOFTMAX_ROUTES), ("rmsnorm_fwd", RMSNORM_ROUTES),
         ("layernorm_fwd", LN_FWD_ROUTES), ("layernorm_bwd", LN_BWD_ROUTES),
-        ("rmsnorm_bwd", RMS_BWD_ROUTES)) for r in routes}
+        ("rmsnorm_bwd", RMS_BWD_ROUTES),
+        ("softmax_bwd", SOFTMAX_BWD_ROUTES)) for r in routes}
 # SMs of the card the plans assume when not told (H100 SXM)
 H100_SMS = 132
 # softmax "rows": N up to ROWS_MAX_N (lanes a row: the power of two at or
@@ -115,6 +125,25 @@ LN_BWD_WARP_THREADS = 256
 LN_BWD_BLOCKS_PER_SM = 1
 LN_BWD_BLOCK_THREADS = 256
 LN_BWD_BLOCK_ROWS = 8
+# softmax backward "rows": N up to SOFTMAX_BWD_ROWS_MAX_N; lanes a row the
+# power of two at or above N / SOFTMAX_BWD_LANE_VALUES, at least 2 (or N)
+# and at most 32, then K values a lane (a power of two); ROWS_THREADS a
+# block, at most SOFTMAX_BWD_ROWS_BLOCKS_PER_SM blocks an SM walking the
+# rows. "block" / "cluster": a thread holds at most SOFTMAX_BWD_VECS
+# 16-byte vectors of y and as many of dy as loaded (8 registers a vector
+# pair: ptxas gives the bf16 kernel 58 of the 64 a thread of a
+# 1024-thread CTA may have), 128-1024 threads a CTA; a row takes the
+# least power-of-two cluster with rows x cluster >= SOFTMAX_BWD_FILL_CTAS
+# (at most MAX_CLUSTER), or the least that holds it; a row no cluster of
+# 8 holds (bf16 N > 262144, f32 N > 131072) takes "loop".
+# SOFTMAX_BWD_ROWS_MAX_N, SOFTMAX_BWD_LANE_VALUES and
+# SOFTMAX_BWD_FILL_CTAS are the fastest of tools/norm_bench.py --sweep
+# (PERF.md, section 6)
+SOFTMAX_BWD_ROWS_MAX_N = 512
+SOFTMAX_BWD_LANE_VALUES = 4
+SOFTMAX_BWD_ROWS_BLOCKS_PER_SM = 8
+SOFTMAX_BWD_VECS = 4
+SOFTMAX_BWD_FILL_CTAS = 64
 # shared memory a block may use; the RMSNorm block route stages a row's
 # bytes beside 32 floats of reduction scratch
 SMEM_BYTES = 232448
@@ -271,6 +300,69 @@ def layernorm_fwd_plan(rows: int, n: int, dtype,
         raise ValueError(f"layernorm_fwd: N={n} > {layernorm_max_n(dtype)}, "
                          "the widest row a block stages in shared memory")
     return LnFwdPlan("block", LN_FWD_BLOCK_THREADS, rows, 0)
+
+
+def _softmax_bwd_splits(n: int, esz: int, rows: int) -> int:
+    """CTAs a row of the softmax backward's register routes takes (1:
+    "block", 2-8: "cluster"), or 0 where no cluster of MAX_CLUSTER holds
+    it ("loop")."""
+    nvec = -(-n // (16 // esz))
+    need = _pow2_at_least(-(-nvec // (REGS_MAX_THREADS * SOFTMAX_BWD_VECS)))
+    if need > MAX_CLUSTER:
+        return 0
+    return max(need, min(MAX_CLUSTER,
+                         _pow2_at_least(-(-SOFTMAX_BWD_FILL_CTAS // rows))))
+
+
+def _softmax_bwd_cta(n: int, esz: int, splits: int):
+    """(threads, 16-byte vectors a thread) of one CTA of `splits` over a
+    row of N: the least power of two of threads in [REGS_MIN_THREADS,
+    REGS_MAX_THREADS] that holds the CTA's vectors at SOFTMAX_BWD_VECS a
+    thread."""
+    per_cta = -(-(-(-n // (16 // esz))) // splits)
+    threads = min(REGS_MAX_THREADS, max(REGS_MIN_THREADS, _pow2_at_least(
+        -(-per_cta // SOFTMAX_BWD_VECS))))
+    return threads, -(-per_cta // threads)
+
+
+def _softmax_bwd_lanes(n: int):
+    """(lanes a row, values a lane) of the softmax backward's rows route."""
+    lanes = min(_pow2_at_least(n), 32, max(2, _pow2_at_least(
+        -(-n // SOFTMAX_BWD_LANE_VALUES))))
+    return lanes, _pow2_at_least(-(-n // lanes))
+
+
+def softmax_bwd_plan(rows: int, n: int, dtype,
+                     sms: int = H100_SMS) -> SoftmaxPlan:
+    """The route and launch of softmax_bwd over `rows` rows of N, from the
+    shape and dtype alone. N <= SOFTMAX_BWD_ROWS_MAX_N: "rows" (the
+    training step's (4096, 2), the tier's (4096, 10)), a persistent grid of
+    at most SOFTMAX_BWD_ROWS_BLOCKS_PER_SM blocks an SM. Wider: the
+    cluster size c is the least power of two with rows * c >=
+    SOFTMAX_BWD_FILL_CTAS, capped at MAX_CLUSTER, raised to the least that
+    holds the row at SOFTMAX_BWD_VECS vectors of each operand a thread of
+    1024: c = 1 is "block" ((128, 30522), (2048, 32000), (4096, 1024)),
+    c > 1 "cluster" ((8, 30522): c = 8, (16, 30522): 4); a row more than
+    MAX_CLUSTER CTAs hold takes "loop" (1024 threads a row). N or a grid
+    past 2^31 - 1 raises ValueError."""
+    rows, n, esz = _shape("softmax_bwd_plan", rows, n, dtype)
+    if n > 2 ** 31 - 1 or rows * max(1, _softmax_bwd_splits(
+            n, esz, rows)) > 2 ** 31 - 1:
+        raise ValueError(f"softmax_bwd: R={rows} N={n}: the kernels index a "
+                         "row with 32-bit ints and launch at most 2^31 - 1 "
+                         "CTAs")
+    if n <= SOFTMAX_BWD_ROWS_MAX_N:
+        lanes, k = _softmax_bwd_lanes(n)
+        per_block = ROWS_THREADS // 32 * (32 // lanes)
+        blocks = min(-(-rows // per_block),
+                     sms * SOFTMAX_BWD_ROWS_BLOCKS_PER_SM)
+        return SoftmaxPlan("rows", ROWS_THREADS, blocks, k, lanes, 1)
+    c = _softmax_bwd_splits(n, esz, rows)
+    if c == 0:
+        return SoftmaxPlan("loop", LOOP_THREADS, rows, 0, 0, 1)
+    threads, vecs = _softmax_bwd_cta(n, esz, c)
+    return SoftmaxPlan("block" if c == 1 else "cluster", threads, rows * c,
+                       vecs, 0, c)
 
 
 def _bwd_plan(kernel, plan, rows, n, dtype, sms):
@@ -441,12 +533,109 @@ def layernorm_fwd_warp_plain(x, gamma, beta, eps: float, phase: int = 0):
 
 
 def _butterfly(s):
-    """Each lane's value after the warp's butterfly of adds: s + s[l ^ o]
-    for o = 16, 8, 4, 2, 1 over the last axis (32 lanes)."""
-    lanes = torch.arange(32)
-    for o in (16, 8, 4, 2, 1):
+    """Each lane's value after a butterfly of adds over the last axis (L
+    lanes, a power of two; a warp's 32): s + s[l ^ o] for o = L / 2, ...,
+    2, 1."""
+    n = s.shape[-1]
+    lanes = torch.arange(n, device=s.device)
+    o = n // 2
+    while o:
         s = s + s[..., lanes ^ o]
+        o //= 2
     return s
+
+
+def _block_sum(s):
+    """common.cuh block_reduce<false> of per-thread values s (..., T), T a
+    multiple of 32: each warp's butterfly, then the warp sums (zeros past
+    the last warp) in one more butterfly. (..., 1)."""
+    t = s.shape[-1]
+    warps = _butterfly(s.reshape(*s.shape[:-1], t // 32, 32))[..., 0]
+    pad = torch.zeros((*s.shape[:-1], 32), dtype=s.dtype, device=s.device)
+    pad[..., :t // 32] = warps
+    return _butterfly(pad)[..., :1]
+
+
+def softmax_bwd_split_plain(y, dy, splits: int = 1, phase: int = 0):
+    """The softmax backward's routes in torch, in f32, result in y.dtype:
+    dx = y * (dy - S) with S = sum(y * dy) in the kernel's order, each
+    product and sum rounded to f32 on its own (no fused multiply-add), so
+    on the card's inputs it gives the kernel's bits. The route follows
+    from N, the dtype and `splits` as `softmax_bwd_plan` picks it:
+    "rows" (N <= SOFTMAX_BWD_ROWS_MAX_N; splits 1): lane l of L takes
+    columns l, l + L, ... in order, the L lanes meet in a butterfly;
+    "block" (splits 1), "cluster" (splits 2-8) and "loop" (a row no
+    cluster holds; splits 1): each row cut as the kernel cuts it (a head
+    to its first 16-byte boundary, y's first row `phase` bytes past one,
+    16-byte vectors, a tail), CTA c taking vectors [c * per, (c + 1) *
+    per), thread t of T its vectors t, t + T, ... element by element and
+    on CTA 0 one head or tail element, then common.cuh block_reduce; the
+    CTAs' sums added in rank order (one CTA: its own sum)."""
+    n = y.shape[-1]
+    yf = y.reshape(-1, n).float()
+    d = dy.reshape(-1, n).float()
+    r = yf.shape[0]
+    esz = y.element_size()
+    w = 16 // esz
+    prod = yf * d
+    dev = yf.device
+    if n <= SOFTMAX_BWD_ROWS_MAX_N:
+        if splits != 1:
+            raise ValueError(f"softmax_bwd_split_plain: the rows route of "
+                             f"N = {n} takes no splits, got {splits}")
+        lanes, k = _softmax_bwd_lanes(n)
+        cols = torch.zeros((r, k * lanes), dtype=torch.float32, device=dev)
+        cols[:, :n] = prod
+        cols = cols.reshape(r, k, lanes)
+        s = torch.zeros((r, lanes), dtype=torch.float32, device=dev)
+        for kk in range(k):
+            s = s + cols[:, kk]
+        big_s = _butterfly(s)[:, :1]
+    else:
+        if _softmax_bwd_splits(n, esz, 1) == 0:
+            if splits != 1:
+                raise ValueError(f"softmax_bwd_split_plain: the loop route "
+                                 f"of N = {n} takes no splits, got {splits}")
+            threads = LOOP_THREADS
+        else:
+            threads = _softmax_bwd_cta(n, esz, splits)[0]
+        big_s = torch.empty((r, 1), dtype=torch.float32, device=dev)
+        heads = _row_heads(r, n, esz, phase)
+        for head in heads.unique().tolist():
+            idx = (heads == head).nonzero().flatten().to(dev)
+            p = prod[idx]
+            m = p.shape[0]
+            nv = (n - head) // w
+            tail = n - head - nv * w
+            per = -(-nv // splits)
+            total = None
+            for c in range(splits):
+                v0 = min(nv, c * per)
+                v1 = min(nv, v0 + per)
+                k = max(1, -(-(v1 - v0) // threads))
+                body = torch.zeros((m, k * threads, w), dtype=torch.float32,
+                                   device=dev)
+                body[:, :v1 - v0] = p[:, head + v0 * w:head + v1 * w].reshape(
+                    m, v1 - v0, w)
+                body = body.reshape(m, k, threads, w)
+                s = torch.zeros((m, threads), dtype=torch.float32, device=dev)
+                for kk in range(k):
+                    for j in range(w):
+                        s = s + body[:, kk, :, j]
+                if c == 0:
+                    edge = torch.zeros_like(s)
+                    edge[:, :head] = p[:, :head]
+                    edge[:, head:head + tail] = p[:, n - tail:]
+                    s = s + edge
+                s = _block_sum(s)
+                if splits == 1:
+                    total = s
+                else:
+                    total = (torch.zeros_like(s) if total is None
+                             else total) + s
+            big_s[idx] = total
+    dx = yf * (d - big_s)
+    return dx.to(y.dtype).reshape(y.shape)
 
 
 def _lane_sums(v, head, n, w):
@@ -832,15 +1021,19 @@ def softmax_bwd(y, dy):
     if not _on_card("softmax_bwd", y, dy):
         return softmax_bwd_plain(y, dy)
     n = y.shape[-1]
-    dx = torch.empty_like(y)
+    r = y.numel() // n
+    plan = softmax_bwd_plan(r, n, y.dtype, _sm_count(y.device.index))
+    dx = _empty_in_phase(y)
     lib = _build.library()
     with torch.cuda.device(y.device):
-        err = lib.ff_softmax_bwd(y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                                 y.numel() // n, n,
-                                 _build.DTYPE_CODES[y.dtype],
-                                 _build.stream_ptr(y.device))
+        err = lib.ff_softmax_bwd(
+            y.data_ptr(), dy.data_ptr(), dx.data_ptr(), r, n,
+            _build.DTYPE_CODES[y.dtype], _build.stream_ptr(y.device),
+            SOFTMAX_BWD_ROUTES[plan.route], plan.threads, plan.blocks,
+            plan.per_thread, plan.lanes, plan.cluster)
     _build.check(err, "softmax_bwd")
     LAUNCHES["softmax_bwd"] += 1
+    ROUTES[f"softmax_bwd/{plan.route}"] += 1
     return dx
 
 

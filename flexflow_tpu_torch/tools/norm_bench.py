@@ -23,12 +23,20 @@ give them:
    f32;
  - `reduce` over 4096 f32 elements, mean (the loss's and the accuracy's
    terms, 2 launches a step), and over 2^26 f32, sum and max;
+ - `softmax_bwd` at (4096, 2) and (4096, 10) in bf16 and f32 (the
+   training, tp and tier steps; "rows"), (8, 30522) and (16, 30522)
+   ("cluster"), (128, 30522), (2048, 32000) (the NMT projection at
+   `models/rnn.py` widths) and (4096, 1024) ("block"), y the softmax of
+   x and dy random;
+ - `cumsum` at (4096, 1024) f32 and bf16 ("row"), (3, 1000003) f32
+   forward and reverse, (1, 2^24) f32 and (1, 1000003) bf16 ("split");
 each beside one library call on the same inputs (`torch.softmax`,
 `F.rms_norm` and `F.layer_norm` with weights in x's dtype,
 `aten.native_layer_norm_backward` likewise, `F.rms_norm`'s backward
-through autograd, `torch.sum` and `torch.amax`) and the least time the
-card could take (bytes over
-3.35 TB/s or operations over 989 (bf16) or 67 (f32) TFLOP/s, the
+through autograd, `torch.sum` and `torch.amax`,
+`torch._softmax_backward_data`, `torch.cumsum` (forward for the reverse
+scan too: the same work)) and the least time the card could take (bytes
+over 3.35 TB/s or operations over 989 (bf16) or 67 (f32) TFLOP/s, the
 larger). Device time from CUDA events around each call, the host's
 calls queued behind a sleep kernel, no L2 flush (the activations arrive
 hot from the op before, as on the paths): `repeat` rounds of 50 calls
@@ -41,7 +49,8 @@ the bytes). Prints one JSON line.
 
 `--profile` adds each shape's device time per call by kernel (from
 torch.profiler, the device synchronised between calls): LayerNorm's and
-RMSNorm's backward row kernel beside its column sums.
+RMSNorm's backward row kernel beside its column sums, the split scan's
+totals beside its chunk scan.
 
 `--sweep` (a checkout with `layernorm_fwd_plan`) times the plans'
 alternatives: every cluster size at the wide softmax shapes
@@ -53,8 +62,16 @@ at the serving shapes, its warps a CTA (the plan's one warp a row an SM
 against CTAs of 2-8 warps), the LayerNorm and RMSNorm backward warp
 routes' grid (norm.LN_BWD_BLOCKS_PER_SM, one kernel) and the
 reduction's "cta" route against "grid" at 4096-65536 f32
-elements and 65536-131072 bf16 (reduction.REDUCE_CTA_MAX_BYTES): how the
-constants in kernels/norm.py and kernels/reduction.py were chosen.
+elements and 65536-131072 bf16 (reduction.REDUCE_CTA_MAX_BYTES), and (a
+checkout with `softmax_bwd_plan`) the softmax backward's lanes a row at
+N = 10, 33, 256 and 512 (norm.SOFTMAX_BWD_LANE_VALUES), its rows
+route's CTAs
+an SM (norm.SOFTMAX_BWD_ROWS_BLOCKS_PER_SM), its rows route against
+"block" at N = 64-1024 (norm.SOFTMAX_BWD_ROWS_MAX_N), its cluster sizes
+(norm.SOFTMAX_BWD_FILL_CTAS) and the split scan's chunk size and count
+(reduction.CUMSUM_CTAS_PER_SM, reduction.CUMSUM_MIN_CHUNK): how the
+constants in kernels/norm.py and
+kernels/reduction.py were chosen.
 
 It uses only the wrappers and absolute imports, so run as a file with an
 older checkout's root first on PYTHONPATH it times that checkout's
@@ -80,6 +97,18 @@ LN_SERVE_ROWS = (8, 16, 128)
 SWEEP_WIDE = ((8, 30522), (16, 30522), (64, 30522), (128, 30522))
 SWEEP_NARROW = ((4096, 256), (4096, 512), (4096, 1000), (4096, 1024),
                 (128, 1024))
+SOFTMAX_BWD_SHAPES = (((4096, 2), "bfloat16"), ((4096, 2), "float32"),
+                      ((4096, 10), "bfloat16"), ((4096, 10), "float32"),
+                      ((8, 30522), "bfloat16"), ((16, 30522), "bfloat16"),
+                      ((128, 30522), "bfloat16"),
+                      ((2048, 32000), "bfloat16"),
+                      ((4096, 1024), "bfloat16"))
+CUMSUM_SHAPES = (((4096, 1024), "float32", False),
+                 ((4096, 1024), "bfloat16", False),
+                 ((3, 1000003), "float32", False),
+                 ((3, 1000003), "float32", True),
+                 ((1, 2 ** 24), "float32", False),
+                 ((1, 1000003), "bfloat16", False))
 
 
 def _bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
@@ -184,6 +213,31 @@ def _cases(torch, F, norm, reduction, g):
                       8 * rows * n,
                       BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S),
             err)
+    for (rows, n), dname in SOFTMAX_BWD_SHAPES:
+        dtype = getattr(torch, dname)
+        y = norm.softmax_fwd((torch.randn((rows, n), generator=g, device=dev)
+                              * 3).to(dtype))
+        dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+        err = (norm.softmax_bwd(y, dy).float()
+               - norm.softmax_bwd_plain(y, dy).float()).abs().max()
+        out[f"softmax_bwd {rows}x{n} {dname}"] = (
+            lambda y=y, dy=dy: norm.softmax_bwd(y, dy),
+            lambda y=y, dy=dy: torch._softmax_backward_data(dy, y, -1,
+                                                            y.dtype),
+            _bound_ms(3 * y.numel() * y.element_size(), 4 * y.numel(),
+                      BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S),
+            float(err))
+    for (rows, n), dname, reverse in CUMSUM_SHAPES:
+        x = torch.randn((rows, n), generator=g, device=dev).to(
+            getattr(torch, dname))
+        err = (reduction.cumsum(x, reverse=reverse).float()
+               - reduction.cumsum_plain(x, reverse=reverse).float()
+               ).abs().max()
+        out[f"cumsum {rows}x{n} {dname}{' reverse' if reverse else ''}"] = (
+            lambda x=x, reverse=reverse: reduction.cumsum(x, reverse=reverse),
+            lambda x=x: torch.cumsum(x, -1),
+            _bound_ms(2 * x.numel() * x.element_size(), x.numel(),
+                      F32_OPS_PER_S), float(err))
     for n, kinds in ((4096, ("mean",)), (2 ** 26, ("sum", "max"))):
         x = torch.randn((n,), generator=g, device=dev)
         for kind in kinds:
@@ -291,6 +345,85 @@ def _sweep(torch, norm, reduction, g, device_ms):
     finally:
         (norm.LN_BWD_BLOCKS_PER_SM, reduction.REDUCE_CTA_MAX_BYTES,
          norm.LN_FWD_BLOCKS_PER_SM, norm.layernorm_fwd_plan) = keep
+    if hasattr(norm, "softmax_bwd_plan"):
+        out.update(_sweep_bwd_scan(torch, norm, reduction, g, device_ms))
+    return out
+
+
+def _sweep_bwd_scan(torch, norm, reduction, g, device_ms):
+    """The softmax backward's and the scan's constants, each restored."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    out = {"softmax_bwd_lanes": {}, "softmax_bwd_rows_blocks_per_sm": {},
+           "softmax_bwd_rows_vs_block": {}, "softmax_bwd_cluster": {},
+           "cumsum_chunks": {}}
+    keep = (norm.SOFTMAX_BWD_LANE_VALUES, norm.SOFTMAX_BWD_ROWS_BLOCKS_PER_SM,
+            norm.SOFTMAX_BWD_ROWS_MAX_N, norm.SOFTMAX_BWD_FILL_CTAS,
+            reduction.CUMSUM_CTAS_PER_SM, reduction.CUMSUM_MIN_CHUNK)
+
+    def pair(rows, n, dtype=bf16):
+        y = norm.softmax_fwd((torch.randn((rows, n), generator=g,
+                                          device=dev) * 3).to(dtype))
+        return y, torch.randn((rows, n), generator=g, device=dev).to(dtype)
+
+    def best(fn):
+        return min(device_ms(fn) for _ in range(3))
+
+    try:
+        for n in (10, 33, 256, 512):
+            y, dy = pair(4096, n)
+            for values in (1, 2, 4, 8, 16):
+                norm.SOFTMAX_BWD_LANE_VALUES = values
+                plan = norm.softmax_bwd_plan(4096, n, bf16)
+                key = f"4096x{n} lanes={plan.lanes} k={plan.per_thread}"
+                if key not in out["softmax_bwd_lanes"]:
+                    out["softmax_bwd_lanes"][key] = best(
+                        lambda: norm.softmax_bwd(y, dy))
+        norm.SOFTMAX_BWD_LANE_VALUES = keep[0]
+        for n in (2, 10):
+            y, dy = pair(4096, n)
+            for per_sm in (1, 2, 4, 8, 16):
+                norm.SOFTMAX_BWD_ROWS_BLOCKS_PER_SM = per_sm
+                out["softmax_bwd_rows_blocks_per_sm"][
+                    f"4096x{n} {per_sm}"] = best(
+                        lambda: norm.softmax_bwd(y, dy))
+        norm.SOFTMAX_BWD_ROWS_BLOCKS_PER_SM = keep[1]
+        for n in (64, 128, 256, 512, 1024):
+            y, dy = pair(4096, n)
+            for limit in (1024, 0):
+                norm.SOFTMAX_BWD_ROWS_MAX_N = limit
+                route = norm.softmax_bwd_plan(4096, n, bf16).route
+                out["softmax_bwd_rows_vs_block"][f"4096x{n} {route}"] = best(
+                    lambda: norm.softmax_bwd(y, dy))
+        norm.SOFTMAX_BWD_ROWS_MAX_N = keep[2]
+        for rows, n in SWEEP_WIDE + ((2048, 32000),):
+            y, dy = pair(rows, n)
+            for c in (1, 2, 4, 8):
+                norm.SOFTMAX_BWD_FILL_CTAS = rows * c
+                plan = norm.softmax_bwd_plan(rows, n, bf16)
+                out["softmax_bwd_cluster"][
+                    f"{rows}x{n} c={plan.cluster} threads={plan.threads} "
+                    f"vecs={plan.per_thread}"] = best(
+                        lambda: norm.softmax_bwd(y, dy))
+        norm.SOFTMAX_BWD_FILL_CTAS = keep[3]
+        for (rows, n), dtype in (((3, 1000003), torch.float32),
+                                 ((1, 2 ** 24), torch.float32),
+                                 ((1, 1000003), bf16)):
+            x = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+            for per_sm in (2, 4, 8, 16):
+                for least in (1024, 2048, 4096):
+                    reduction.CUMSUM_CTAS_PER_SM = per_sm
+                    reduction.CUMSUM_MIN_CHUNK = least
+                    plan = reduction.cumsum_plan(rows, n, dtype)
+                    key = (f"{rows}x{n} {str(dtype)[6:]} chunk={plan.chunk} "
+                           f"chunks={plan.chunks}")
+                    if key not in out["cumsum_chunks"]:
+                        out["cumsum_chunks"][key] = best(
+                            lambda: reduction.cumsum(x))
+    finally:
+        (norm.SOFTMAX_BWD_LANE_VALUES, norm.SOFTMAX_BWD_ROWS_BLOCKS_PER_SM,
+         norm.SOFTMAX_BWD_ROWS_MAX_N, norm.SOFTMAX_BWD_FILL_CTAS,
+         reduction.CUMSUM_CTAS_PER_SM, reduction.CUMSUM_MIN_CHUNK) = keep
     return out
 
 
@@ -320,9 +453,10 @@ def main(argv=None) -> int:
            # empty where this process loaded a library built earlier
            "ptxas": [r for src in ("norm.cu", "reduction.cu")
                      for r in _build.ptxas_report(src)
-                     if re.search(r"softmax_(?!bwd)|rmsnorm_|layernorm_|"
-                                  r"column_sums|reduce_",
-                                  str(r["kernel"]))]}
+                     if re.search(r"softmax_(?!bwd_rows)|rmsnorm_|"
+                                  r"layernorm_|column_sums|reduce_|cumsum_|"
+                                  r"softmax_bwd_rows_kernel<.*, (2|16|32), "
+                                  r"1>", str(r["kernel"]))]}
     # yardsticks of this timing: an empty kernel (the floor any call pays)
     # and a copy of the (4096, 1024) and (128, 30522) bf16 inputs, one read
     # and one write of the bytes, as a norm or softmax moves them

@@ -1110,3 +1110,163 @@ def test_rmsnorm_bwd_refuses_what_the_parent_refused(dev):
                          torch.ones((4, 1), device=dev), y)
     with pytest.raises(ValueError, match="rstd must be"):
         norm.rmsnorm_bwd(y, None, torch.ones((3, 1), device=dev), y)
+
+
+# softmax_bwd by route (kernels/norm.py softmax_bwd_plan) at the edge
+# shapes: the forward's N x R and the rows route's last N and the
+# register routes' first (512, 513)
+SOFTMAX_BWD_EDGE_N = [1, 2, 10, 33, 512, 513, 1000, 1024, 30522, 70000]
+SOFTMAX_BWD_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-4),
+                   torch.bfloat16: dict(atol=1e-4, rtol=1e-2)}
+
+
+def _softmax_bwd_route_case(dev, y, dy):
+    """softmax_bwd on the card: its route counted, dx at y's 16-byte
+    phase, within tolerance of the plain version, equal to the bit to
+    `softmax_bwd_split_plain` at the plan's split (every product and sum
+    rounded on its own, in the kernel's order; the emulation runs on the
+    card in torch's elementwise kernels, none fused) and the same bits on
+    two calls. Returns the plan."""
+    rows, n = y.shape
+    plan = norm.softmax_bwd_plan(
+        rows, n, y.dtype,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    reset_launch_counts()
+    dx = norm.softmax_bwd(y, dy)
+    counts = launch_counts()
+    assert counts["softmax_bwd"] == 1
+    assert counts[f"softmax_bwd/{plan.route}"] == 1, (plan, counts)
+    assert dx.dtype == y.dtype and dx.shape == y.shape
+    assert dx.data_ptr() % 16 == y.data_ptr() % 16
+    _close(dx, norm.softmax_bwd_plain(y, dy), SOFTMAX_BWD_TOL[y.dtype])
+    emu = norm.softmax_bwd_split_plain(y, dy, plan.cluster,
+                                       y.data_ptr() % 16)
+    assert torch.equal(dx, emu), (plan, float((dx.float()
+                                               - emu.float()).abs().max()))
+    assert torch.equal(norm.softmax_bwd(y, dy), dx)
+    return plan
+
+
+def _softmax_bwd_inputs(dev, rows, n, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = norm.softmax_fwd(
+        (torch.randn((rows, n), generator=g, device=dev) * 3).to(dtype))
+    dy = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    return y, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", NORM_EDGE_R)
+@pytest.mark.parametrize("n", SOFTMAX_BWD_EDGE_N)
+def test_softmax_bwd_routes_match_plain_and_emulation(dev, n, rows, dtype):
+    y, dy = _softmax_bwd_inputs(dev, rows, n, dtype, rows * 11 + n)
+    plan = _softmax_bwd_route_case(dev, y, dy)
+    assert plan.route == ("rows" if n <= norm.SOFTMAX_BWD_ROWS_MAX_N
+                          else "block" if plan.cluster == 1 else "cluster")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(1, 300000), (3, 300000),
+                                    (2, 131073)])
+def test_softmax_bwd_loop_route_matches_plain_and_emulation(dev, rows, n,
+                                                            dtype):
+    y, dy = _softmax_bwd_inputs(dev, rows, n, dtype, rows + n)
+    plan = _softmax_bwd_route_case(dev, y, dy)
+    # bf16 rows up to 262144 still fit a cluster of 8
+    assert plan.route == ("loop" if n > 262144 or dtype == torch.float32
+                          else "cluster")
+
+
+@pytest.mark.parametrize("rows,n", [(8, 30522), (16, 30522), (1, 70000),
+                                    (128, 30522)])
+@pytest.mark.parametrize("clusters", [1, 2, 4, 8])
+def test_softmax_bwd_cluster_sizes_match_emulation(dev, rows, n, clusters):
+    """Every cluster size the plan may choose (SOFTMAX_BWD_FILL_CTAS set
+    to ask for it), against the plain version and the emulation."""
+    keep = norm.SOFTMAX_BWD_FILL_CTAS
+    try:
+        norm.SOFTMAX_BWD_FILL_CTAS = rows * clusters
+        for dtype in (torch.float32, torch.bfloat16):
+            y, dy = _softmax_bwd_inputs(dev, rows, n, dtype, clusters + n)
+            plan = _softmax_bwd_route_case(dev, y, dy)
+            # CTAs whose 1024 threads hold the row at 4 vector pairs each
+            need = norm._pow2_at_least(-(-n * y.element_size() // 16
+                                         // (1024 * 4)))
+            assert plan.cluster == max(clusters, need), plan
+    finally:
+        norm.SOFTMAX_BWD_FILL_CTAS = keep
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+@pytest.mark.parametrize("n", [1, 33, 300, 1000, 30522])
+@pytest.mark.parametrize("dy_offset", ["same", "other"])
+def test_softmax_bwd_reads_rows_at_any_phase(dev, offset, n, dy_offset):
+    """bf16 y starting `offset` elements past a 16-byte boundary, dy at
+    the same phase (16-byte loads) or another (element loads): dx lands at
+    y's phase, the emulation's bits."""
+    rows = 37
+    g = torch.Generator(device=dev).manual_seed(offset * 100 + n + 2)
+    buf = torch.softmax(torch.randn(rows * n + 16, generator=g,
+                                    device=dev), 0).bfloat16()
+    y = buf[offset:offset + rows * n].view(rows, n)
+    dbuf = torch.randn(rows * n + 16, generator=g, device=dev).bfloat16()
+    d0 = offset if dy_offset == "same" else (offset + 3) % 8
+    dy = dbuf[d0:d0 + rows * n].view(rows, n)
+    assert y.data_ptr() % 16 == 2 * offset
+    _softmax_bwd_route_case(dev, y, dy)
+
+
+# cumsum by route (kernels/reduction.py cumsum_plan): "row" at the
+# table's, the short and the many-row shapes, "split" from the first N
+# past CUMSUM_ROW_MAX_N, at chunk edges, and the long rows
+CUMSUM_EDGE = [(1, 1), (37, 300), (4096, 1024), (1, 4096), (1056, 5000),
+               (1, 4097), (1055, 5000), (2, 3 * 1024 * 175 + 1),
+               (3, 1000003), (1, 1000003), (132, 100000), (1, 2 ** 24)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", CUMSUM_EDGE)
+def test_cumsum_routes_match_plain_and_emulation(dev, rows, n, dtype):
+    """Forward and reverse scans: within chip_smoke's tolerance of the
+    plain version, equal to the bit to `cumsum_split_plain` at the plan's
+    chunk (on the card, torch's elementwise adds), the same bits on two
+    calls, one call on the plan's route each."""
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    x = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    plan = reduction.cumsum_plan(
+        rows, n, dtype,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.route == ("row" if rows >= 1056 or n <= 4096 else "split")
+    for reverse in (False, True):
+        reset_launch_counts()
+        out = reduction.cumsum(x, reverse=reverse)
+        counts = launch_counts()
+        assert counts["cumsum"] == 1
+        assert counts[f"cumsum/{plan.route}"] == 1, (plan, counts)
+        ref = reduction.cumsum_plain(x, reverse=reverse)
+        mag = reduction.cumsum_plain(x.float().abs(), reverse=reverse)
+        lim = 1e-5 * mag + 1e-6
+        if dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * ref.float().abs()
+        assert bool(((out.float() - ref.float()).abs() <= lim).all())
+        emu = reduction.cumsum_split_plain(
+            x, plan.chunk if plan.route == "split" else None, reverse)
+        assert torch.equal(out, emu), (plan, reverse)
+        assert torch.equal(reduction.cumsum(x, reverse=reverse), out)
+
+
+def test_cumsum_split_gradient_is_the_reversed_scan(dev):
+    """fused_cumsum's gradient on the split route: the reversed scan of
+    the cotangent, two launches a call counted once."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((3, 1000003), generator=g, device=dev)
+    gx = torch.randn((3, 1000003), generator=g, device=dev)
+    xg = x.clone().requires_grad_()
+    reset_launch_counts()
+    c = reduction.fused_cumsum(xg)
+    (dx,) = torch.autograd.grad(c, xg, gx)
+    counts = launch_counts()
+    assert counts["cumsum"] == 2 and counts["cumsum/split"] == 2, counts
+    plan = reduction.cumsum_plan(3, 1000003, torch.float32)
+    assert torch.equal(dx, reduction.cumsum_split_plain(gx, plan.chunk,
+                                                        True))
