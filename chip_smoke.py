@@ -32,7 +32,11 @@ Phases, in order; any failure propagates and exits non-zero:
               beside the least time the card could take (softmax at every
               path's shape, LayerNorm also at the training shape, the
               softmax backward and the scan at the kernel table's shapes
-              of every route); print
+              of every route; the fused optimizer update at the flagship's
+              195 weight shapes, Adam with bf16 and f32 moments, with and
+              without weight decay, SGD plain, with momentum and nesterov,
+              three updates each equal to the bit to the per-tensor loop,
+              and on a ragged list of unaligned views); print
               ptxas's registers, spills and shared memory of the bf16
               tensor-core flash kernels, of the softmax, RMSNorm and
               LayerNorm forward kernels, the LayerNorm and RMSNorm
@@ -113,6 +117,21 @@ Phases, in order; any failure propagates and exits non-zero:
               same weights and batch) under model=2: loss and the six
               whole-gradient norms of two steps against the train-cross
               phase's card run, within 1e-4.
+14. train-graph — the train phase's flagship from the same initial
+              weights and batch: 12 steps through
+              fit(steps_per_execution=4) (a CUDA graph of 4 captured steps,
+              replayed) against 12 eager steps, every loss and every final
+              weight the same bits; launches counted from the warm-up
+              dispatch and the capture (2 x 4 x a step's); host wall a
+              step, device busy, idle share, launches a step and MFU for
+              K = 1 eager and K = 4 graphed (tools/train_profile.py
+              profile_fit), and peak memory of each run;
+15. mlp     — the digits gate's MLP (64 -> 128 -> 64 -> 10, RELU, Adam
+              2e-3, batch 64) on make_synthetic's seeded data, trained
+              eagerly, with steps_per_execution=4, with accum_steps=2 and
+              through attached (shuffled) dataloaders: eval accuracy > 0.9
+              each, the K=4 run's losses those of the eager run, the eager
+              run's launches per step asserted.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -138,7 +157,7 @@ SERVE_KERNELS = ("decode_attention", "multiquery_decode_attention",
 # launches per training step of the full-width flagship (12 layers)
 TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
                   "layernorm_bwd": 24, "softmax_fwd": 1, "softmax_bwd": 1,
-                  "reduce": 2}
+                  "reduce": 2, "optimizer_adam": 1}
 TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
 # the same launches by route: the flash kernels in bf16, so all on the
 # tensor cores; the classifier's (4096, 2) softmax, forward and backward,
@@ -153,7 +172,7 @@ TRAIN_ROUTES_PER_STEP = {"flash_fwd/tc": 12, "flash_bwd/tc": 12,
 # launches per step of the kernel-tier graph under kernel_impl="pallas"
 TIER_PER_STEP = {"layernorm_fwd": 1, "layernorm_bwd": 1, "rmsnorm_fwd": 1,
                  "rmsnorm_bwd": 1, "softmax_fwd": 1, "softmax_bwd": 1,
-                 "reduce": 2}
+                 "reduce": 2, "optimizer_sgd": 1}
 # the tier's (4096, 10) softmax, forward and backward, takes "rows", its
 # (4096, 1024) RMSNorm
 # and LayerNorm, forward and backward, "warp", its two 4096-element means
@@ -164,12 +183,15 @@ TIER_ROUTES_PER_STEP = {"softmax_fwd/rows": 1, "softmax_bwd/rows": 1,
                         "layernorm_bwd/warp": 1, "reduce/cta": 2}
 TIER_KERNELS = tuple(TIER_PER_STEP)
 # families the registry must pick the kernel for on the training path
-TRAIN_FAMILIES = ("attention", "layernorm", "softmax", "reduction")
+# (the optimizer update is a family of the port's own)
+TRAIN_FAMILIES = ("attention", "layernorm", "softmax", "reduction",
+                  "optimizer")
 # launches per step and rank of the full-width flagship under model=2:
 # the head-separated flash kernels in place of the packed ones
 TP_PER_STEP = {"flash_fwd_blhd": 12, "flash_bwd_blhd": 12, "flash_fwd": 0,
                "flash_bwd": 0, "layernorm_fwd": 24, "layernorm_bwd": 24,
-               "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2}
+               "softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2,
+               "optimizer_adam": 1}
 TP_ROUTES_PER_STEP = {"flash_fwd_blhd/tc": 12, "flash_bwd_blhd/tc": 12,
                       "flash_fwd_blhd/cc": 0, "flash_bwd_blhd/cc": 0,
                       "softmax_fwd/rows": 1, "softmax_bwd/rows": 1,
@@ -182,6 +204,14 @@ TP_KERNELS = ("flash_fwd_blhd", "flash_bwd_blhd")
 STANDALONE_LAUNCHES = {"flash_fwd_bhld": 1, "flash_bwd_bhld": 1,
                        "cumsum": 3, "cumsum/row": 2, "cumsum/split": 1}
 STANDALONE_KERNELS = ("flash_fwd_bhld", "flash_bwd_bhld", "cumsum")
+# the train-graph phase: fit(steps_per_execution=GRAPH_K) for GRAPH_STEPS
+# steps against as many eager steps
+GRAPH_K, GRAPH_STEPS = 4, 12
+# launches per step of the mlp phase's MLP (64 -> 128 -> 64 -> 10, batch
+# 64): the (64, 10) softmax, forward and backward, the means of the loss,
+# the accuracy and the sparse cce metric, one Adam update
+MLP_PER_STEP = {"softmax_fwd": 1, "softmax_bwd": 1, "reduce": 3,
+                "optimizer_adam": 1}
 
 
 def train_step_flops(batch, seq, hidden, layers, **_) -> float:
@@ -238,6 +268,23 @@ def _time_ms(torch, fn, iters=20, flush=None):
             return sum(a.elapsed_time(b) for a, b in pairs) / iters
         cycles *= 4
     raise RuntimeError("could not queue the timed calls ahead of the device")
+
+
+def _span_ms(torch, fn, iters=3):
+    """Device ms from an event before `iters` back-to-back calls of fn()
+    to one after them, over `iters`, after a warm-up: for a function of
+    thousands of launches, whose host issue rate bounds it, and which
+    cannot be queued ahead of the device as _time_ms does."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def _bound(nbytes, ops, dtype_name):
@@ -412,12 +459,168 @@ def phase_kernels(torch, F):
     table.update(tier_kernels(torch, F, g))
     table.update(heads_kernels(torch, F, g))
     table.update(cumsum_kernels(torch, g))
+    table.update(optimizer_kernels(torch, g))
     edges = norm_route_edges(torch, g)
     edges.update(bwd_route_edges(torch, g))
     for name in ("softmax_fwd", "rmsnorm_fwd", "layernorm_fwd",
                  "layernorm_bwd", "rmsnorm_bwd", "reduce", "softmax_bwd",
                  "cumsum"):
         table[name]["edges"] = edges[name]
+    return table
+
+
+def _flagship_weight_shapes():
+    """The flagship's 195 weight shapes, from its graph (no weights
+    drawn)."""
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models import TransformerConfig, \
+        build_bert_encoder
+
+    m = FFModel(FFConfig(batch_size=TRAIN["batch"], device="cpu"))
+    tok = m.create_tensor([TRAIN["batch"], TRAIN["seq"]], DataType.DT_INT32)
+    build_bert_encoder(m, tok, TransformerConfig(
+        num_layers=TRAIN["layers"]))
+    return [ws.dims for op in m.ops for ws in op.specs]
+
+
+def optimizer_kernels(torch, g):
+    """The fused optimizer update (csrc/optimizer.cu) at the flagship's
+    195 weight shapes: Adam with bf16 and with f32 moments, with and
+    without weight decay; SGD plain, with momentum and nesterov (weight
+    decay on nesterov). Three updates of each from zero state against the
+    per-tensor loop on the card, every weight and moment the same bits
+    (both round each operation on its own, in the same order); a ragged
+    list (sizes 1, 7, 4097, 2^20 + 3, each view one element off, so no
+    tensor takes the vector path) the same way. Timed: the kernel, the
+    loop and the library: for Adam on f32 moments
+    `torch.optim.Adam(fused=True)` (a landmark, not the same function:
+    eps on the bias-corrected sqrt(v)), for SGD `torch.optim.SGD(
+    fused=True)` (the same update);
+    the bound is the bytes (each of w, g, m, v read once, w, m, v written
+    once) over the HBM rate."""
+    from flexflow_tpu_torch.kernels import optimizer as kopt
+
+    import math
+
+    dev = torch.device("cuda")
+    shapes = _flagship_weight_shapes()
+    n_el = sum(math.prod(d) for d in shapes)
+
+    def state(moments, offset=0, sizes=None):
+        def make(n, dtype, scale):
+            buf = torch.randn((n + offset,), generator=g, device=dev)
+            return (scale * buf).to(dtype)[offset:]
+        dims = [(n,) for n in sizes] if sizes else shapes
+        numel = [math.prod(d) for d in dims]
+        ws = [make(n, torch.float32, 0.02).view(d) for n, d in
+              zip(numel, dims)]
+        gs = [make(n, torch.float32, 1e-3).view(d) for n, d in
+              zip(numel, dims)]
+        ms = [torch.zeros_like(w, dtype=moments) for w in ws]
+        vs = [torch.zeros_like(w, dtype=moments) for w in ws]
+        return ws, gs, ms, vs
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    rows = {}
+    cases = [("optimizer_adam", "bf16 moments", torch.bfloat16, 0.0),
+             ("optimizer_adam", "bf16 moments, wd 0.01", torch.bfloat16,
+              0.01),
+             ("optimizer_adam", "f32 moments", torch.float32, 0.0),
+             ("optimizer_adam", "f32 moments, wd 0.01", torch.float32, 0.01),
+             ("optimizer_sgd", "plain", None, 0.0),
+             ("optimizer_sgd", "momentum 0.9", None, 0.0),
+             ("optimizer_sgd", "nesterov 0.9, wd 0.01", None, 0.01)]
+    for name, label, moments, wd in cases:
+        for ragged in (False, True):
+            ws, gs, ms, vs = state(moments or torch.float32,
+                                   1 if ragged else 0,
+                                   (1, 7, 4097, 2**20 + 3) if ragged
+                                   else None)
+            ref = [[t.clone() for t in ts] for ts in (ws, ms, vs)]
+            step = torch.zeros((), dtype=torch.int32, device=dev)
+            lr = torch.tensor(1e-4 if moments else 0.05, device=dev)
+            mom = 0.0 if label == "plain" or moments else 0.9
+
+            def run():
+                if moments:
+                    kopt.adam(ws, gs, ms, vs, step, lr, beta1=0.9,
+                              beta2=0.999, eps=1e-8, weight_decay=wd)
+                else:
+                    kopt.sgd(ws, gs, ms, lr, momentum=mom,
+                             nesterov="nesterov" in label, weight_decay=wd)
+
+            def plain():
+                if moments:
+                    kopt.adam_plain(ref[0], gs, ref[1], ref[2], step, lr,
+                                    0.9, 0.999, 1e-8, wd)
+                else:
+                    kopt.sgd_plain(ref[0], gs, ref[1], lr, mom,
+                                   "nesterov" in label, wd)
+
+            for _ in range(3):
+                run()
+                plain()
+                step.add_(1)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in
+                      zip(ws, ref[0]) if a.numel())
+            if not (same(ws, ref[0]) and same(ms, ref[1])
+                    and same(vs, ref[2])):
+                raise AssertionError(f"{name} ({label}, ragged={ragged}) "
+                                     "differs from the per-tensor loop after "
+                                     f"3 updates (max |w err| {err})")
+            if ragged:
+                continue
+            key = f"{name} {label}"
+            row = {"shape": f"{len(shapes)} tensors, {n_el} elements, "
+                            f"{label}", "max_abs_err": err,
+                   "tolerance": "the same bits as the plain loop (w, m, v) "
+                                "after 3 updates, and on a ragged list"}
+            if wd == 0.0 or "nesterov" in label:
+                msz = 0 if not moments else (2 if moments == torch.bfloat16
+                                             else 4)
+                has_v = 0 if label == "plain" else 1
+                per = (12 + 4 * msz if moments
+                       else 12 + 8 * has_v)
+                bound, by = _bound(per * n_el, 20 * n_el, "float32")
+                row.update(bytes_per_element=per, bound_ms=bound,
+                           bound_by=by, ms=_time_ms(torch, run, iters=10),
+                           plain_ms=_span_ms(torch, plain, iters=3),
+                           plain_timing="events around 3 back-to-back "
+                                        "calls: the loop's ~3,100 launches "
+                                        "a call are not queued ahead")
+                row["library_ms"] = None
+                if moments != torch.bfloat16:
+                    params = [torch.nn.Parameter(w.clone()) for w in ws]
+                    for p_, g_ in zip(params, gs):
+                        p_.grad = g_
+                    if moments:
+                        lib = torch.optim.Adam(params, lr=1e-4, fused=True)
+                        row["library"] = ("torch.optim.Adam(fused=True), f32 "
+                                          "moments: not the same function "
+                                          "(eps on the bias-corrected "
+                                          "sqrt(v))")
+                    else:
+                        lib = torch.optim.SGD(
+                            params, lr=0.05, momentum=mom,
+                            nesterov="nesterov" in label, weight_decay=wd,
+                            fused=True)
+                        row["library"] = ("torch.optim.SGD(fused=True): the "
+                                          "same update (its buffer starts "
+                                          "as g, = momentum * 0 + g)")
+                    row["library_ms"] = _time_ms(torch, lib.step, iters=10)
+                    del params, lib
+            rows[key] = row
+            del ws, gs, ms, vs, ref
+            torch.cuda.empty_cache()
+    table = {}
+    for name, main in (("optimizer_adam", "optimizer_adam bf16 moments"),
+                       ("optimizer_sgd", "optimizer_sgd momentum 0.9")):
+        table[name] = dict(rows[main], cases={
+            k: v for k, v in rows.items() if k.startswith(name)},
+            ms_includes="1 launch (195 tensors)")
     return table
 
 
@@ -1490,7 +1693,7 @@ def phase_tp(torch, train_losses, cross_card):
         "tolerance": "|model=2 - one device| <= 1e-4 |one device| (loss "
                      "and each whole-gradient norm, steps 1 and 2)"}
     launches = {k: int(round(first["launches_per_step"][k] * 3))
-                for k in TP_KERNELS}
+                for k in (*TP_KERNELS, "optimizer_adam")}
     return record, record_cross, launches
 
 
@@ -1840,6 +2043,198 @@ def phase_tier(torch, steps=3):
             "tolerance": "|loss - other| <= 2e-2 |other| at every step"}
 
 
+def phase_train_graph(torch):
+    """The train phase's flagship, from the same initial weights (the
+    seed-0 generator) and batch: GRAPH_STEPS steps through
+    fit(steps_per_execution=GRAPH_K) (a CUDA graph of GRAPH_K captured
+    steps) against as many eager steps; every step's loss and every
+    final weight the same bits. Launches counted from 0 before the
+    graphed fit: the first dispatch's GRAPH_K steps run eagerly (the
+    warm-up) and are captured once, the replays launch nothing from the
+    host, so each kernel counts 2 x GRAPH_K x its launches a step. Then
+    host wall, device busy and idle a step for K = 1 eager and K =
+    GRAPH_K graphed (tools/train_profile.py profile_fit), peak memory of
+    each run, MFU."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model, \
+        profile_fit
+
+    b, k, n = TRAIN["batch"], GRAPH_K, GRAPH_STEPS
+    x, y = _train_batch()
+    xs, ys = np.concatenate([x] * n), np.concatenate([y] * n)
+    flops = train_step_flops(**TRAIN)
+    runs = {}
+    for name, steps_per_execution in (("eager", 1), ("graph", k)):
+        model = build_bench_model("cuda", TRAIN["layers"], True, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        model.fit(xs, ys, batch_size=b, epochs=1,
+                  steps_per_execution=steps_per_execution)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        recs = model.step_records
+        losses = [v for r in recs for v in r.get("losses", [r["loss"]])]
+        run = {"losses": losses, "records": len(recs),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {kk: launches[kk] for kk in TRAIN_PER_STEP}}
+        weights = {f"{op}/{w}": t.detach().cpu()
+                   for op, ws in model.params.items() for w, t in ws.items()}
+        prof = profile_fit(model, x, y, b, 3 * k, steps_per_execution)
+        med = prof["wall_ms_per_step"] / 1e3
+        run.update(prof, mfu_bf16_peak=flops / med /
+                   PEAK_OPS_PER_S["bfloat16"])
+        run.pop("kernels")
+        runs[name] = (run, weights)
+        del model
+        torch.cuda.empty_cache()
+    (eager, w_eager), (graph, w_graph) = runs["eager"], runs["graph"]
+    if len(eager["losses"]) != n or len(graph["losses"]) != n \
+            or not all(np.isfinite(graph["losses"])):
+        raise AssertionError(f"train-graph: losses {eager['losses']} vs "
+                             f"{graph['losses']}")
+    diff = max(abs(a - c) / abs(c) for a, c in zip(graph["losses"],
+                                                    eager["losses"]))
+    same_weights = all(torch.equal(w_graph[kk], t)
+                       for kk, t in w_eager.items())
+    if diff != 0.0 or not same_weights:
+        raise AssertionError(f"train-graph: the graphed steps differ from "
+                             f"the eager ones (loss rel diff {diff}, "
+                             f"weights equal: {same_weights})")
+    wrong = {kk: graph["launches"][kk] for kk, per in TRAIN_PER_STEP.items()
+             if graph["launches"][kk] != 2 * k * per}
+    if wrong or eager["launches"]["optimizer_adam"] != n:
+        raise AssertionError(f"train-graph: launches {wrong} (expected "
+                             f"2 x {k} x {TRAIN_PER_STEP}), eager "
+                             f"{eager['launches']}")
+    return {"phase": "train-graph", "steps": n, "steps_per_execution": k,
+            "eager": eager, "graph": graph,
+            "max_relative_loss_diff": diff, "weights_same_bits": True,
+            "tolerance": "per-step losses and final weights equal to the "
+                         "bit (the same kernels in the same order)",
+            "ms_per_step_median": {"eager_k1": eager["ms_per_step_median"],
+                                   f"graph_k{k}": graph["ms_per_step_median"]},
+            "flops_per_step": flops}
+
+
+def _synthetic(n=2048, dim=64, classes=10, seed=0):
+    """tests/test_mnist_mlp.py `make_synthetic`: a learnable linear task
+    from seeded numpy."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, dim).astype(np.float32)
+    w = rng.randn(dim, classes).astype(np.float32)
+    return x, np.argmax(x @ w, axis=1).astype(np.int32)[:, None]
+
+
+def phase_mlp(torch, epochs=12):
+    """The digits gate's MLP (64 -> 128 -> 64 -> 10, RELU, softmax, Adam
+    2e-3, batch 64) on make_synthetic's data, on the card: trained eagerly
+    and with steps_per_execution=4 from the same weights (every epoch's
+    loss within 1e-6 relative: the same steps, the epoch summing a
+    dispatch's f32 mean for its four losses), with accum_steps=2 and
+    through attached dataloaders (shuffled); each ends with eval accuracy
+    > 0.9 on the first 512 samples. Launches per step of the eager run
+    asserted (MLP_PER_STEP). Then eval, fit, eval, fit, eval (eager, then
+    K=4): each eval after a fit equal to a fresh model's given the
+    trained weights."""
+    import numpy as np
+
+    from flexflow_tpu_torch import (ActiMode, AdamOptimizer, FFConfig,
+                                    FFModel, MetricsType, SingleDataLoader)
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+
+    x, y = _synthetic()
+    bs = 64
+
+    def build():
+        m = FFModel(FFConfig(batch_size=bs, device="cuda"))
+        t = m.create_tensor([bs, 64])
+        t = m.dense(t, 128, ActiMode.AC_MODE_RELU)
+        t = m.dense(t, 64, ActiMode.AC_MODE_RELU)
+        m.softmax(m.dense(t, 10))
+        # weights from compile's default generator (seed 0)
+        m.compile(optimizer=AdamOptimizer(m, alpha=2e-3),
+                  metrics=[MetricsType.METRICS_ACCURACY,
+                           MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+        return m
+
+    out = {}
+    for name, kw in (("eager", {}), ("k4", {"steps_per_execution": 4}),
+                     ("accum2", {"accum_steps": 2}), ("dataloader", {})):
+        m = build()
+        if name == "dataloader":
+            SingleDataLoader(m, m.input_ops[0].outputs[0], x, shuffle=True,
+                             seed=5)
+            SingleDataLoader(m, m.label_tensor, y, shuffle=True, seed=5)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = m.fit(None if name == "dataloader" else x,
+                     None if name == "dataloader" else y, epochs=epochs,
+                     **kw)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ev = m.eval(x[:512], y[:512])
+        out[name] = {"losses": [h["loss"] for h in hist],
+                     "train_accuracy": hist[-1]["accuracy"],
+                     "eval": ev, "seconds": time.perf_counter() - t0,
+                     "optimizer_steps": int(m.opt_state["step"]),
+                     "launches": {kk: launches[kk] for kk in MLP_PER_STEP}}
+        if not (ev["accuracy"] > 0.9 and np.all(np.isfinite(
+                out[name]["losses"]))):
+            raise AssertionError(f"mlp {name}: {out[name]}")
+        del m
+    steps = epochs * (len(x) // bs)
+    wrong = {kk: out["eager"]["launches"][kk] for kk, per in
+             MLP_PER_STEP.items()
+             if out["eager"]["launches"][kk] != per * steps}
+    diff = max(abs(a - c) / abs(c) for a, c in zip(out["k4"]["losses"],
+                                                    out["eager"]["losses"]))
+    if wrong or diff > 1e-6 or out["accum2"]["optimizer_steps"] != steps // 2:
+        raise AssertionError(f"mlp: launches {wrong} (expected "
+                             f"{MLP_PER_STEP} x {steps}), K=4 vs eager loss "
+                             f"rel diff {diff}, accum2 "
+                             f"{out['accum2']['optimizer_steps']} steps")
+    # eval, fit, eval, fit, eval: the bf16 casts of the weights that eval
+    # reads are cached by weight version (core/op.py Op.w); the update
+    # kernel and a graph replay write the weights through raw pointers
+    # and bump the versions, so each eval after a fit equals a fresh
+    # model's given the trained weights. K=4 over 12 steps: the first fit
+    # one captured dispatch and two replays, the second replays only
+    refit = {}
+    xs, ys, xe, ye = x[:bs * 12], y[:bs * 12], x[:512], y[:512]
+    for name, k in (("eager", 1), ("k4", 4)):
+        m = build()
+        losses = [m.eval(xe, ye)["loss"]]
+        for _ in range(2):
+            m.fit(xs, ys, epochs=1, steps_per_execution=k)
+            after = m.eval(xe, ye)
+            fresh = build()
+            fresh.load_params(m.params)
+            want = fresh.eval(xe, ye)
+            if after != want or after["loss"] == losses[-1]:
+                raise AssertionError(
+                    f"mlp eval-fit-eval ({name}): eval after fit {after}, "
+                    f"a fresh model with the trained weights {want}, eval "
+                    f"losses before {losses}")
+            losses.append(after["loss"])
+            del fresh
+        refit[name] = {"eval_losses": losses}
+        del m
+    return {"phase": "mlp", "epochs": epochs, "batch": bs, **out,
+            "k4_vs_eager_max_relative_loss_diff": diff,
+            "eval_fit_eval": refit,
+            "tolerance": "eval accuracy > 0.9 each; K=4 epoch losses within "
+                         "1e-6 relative of the eager run's; each eval after a "
+                         "fit equal in every key to a fresh model's"}
+
+
 def _prefill_probs(torch, model, prompt, chunk, max_len):
     """First-token distribution of `prompt`, prefilled chunk by chunk into
     fresh one-slot caches through the executor (the batcher's path)."""
@@ -2074,9 +2469,16 @@ def main() -> int:
     _emit(dict(tp, seconds_since_start=time.perf_counter() - t_start))
     _emit(dict(tp_cross, seconds_since_start=time.perf_counter() - t_start))
 
-    # 14) the kernel table, the card, the result. A kernel's launches are
+    # 14) train-graph, 15) mlp
+    train_graph = phase_train_graph(torch)
+    _emit(dict(train_graph, seconds_since_start=time.perf_counter() - t_start))
+    mlp = phase_mlp(torch)
+    _emit(dict(mlp, seconds_since_start=time.perf_counter() - t_start))
+
+    # 16) the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
-    # on rank 0), each counted from 0 just before its path ran
+    # on rank 0, train-graph's graphed fit, mlp's eager fit), each counted
+    # from 0 just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:130",
@@ -2096,6 +2498,9 @@ def main() -> int:
         "flash_fwd_bhld": "flexflow_tpu/kernels/flash_attention.py:110",
         "flash_bwd_bhld": "flexflow_tpu/kernels/flash_attention.py:613",
         "cumsum": "flexflow_tpu/kernels/pallas/reduction.py:127",
+        # no Pallas kernel: the JAX update, which XLA fuses
+        "optimizer_adam": "flexflow_tpu/runtime/optimizers.py:110",
+        "optimizer_sgd": "flexflow_tpu/runtime/optimizers.py:53",
     }
     # the flash rows: timed in bf16, the tensor-core kernels; their f32
     # route runs the CUDA-core kernels of flash_attention.cu
@@ -2106,7 +2511,9 @@ def main() -> int:
                "reduce": src + "reduction.cu",
                "flash_fwd_blhd": flash_tc, "flash_bwd_blhd": flash_tc,
                "flash_fwd_bhld": flash_tc, "flash_bwd_bhld": flash_tc,
-               "cumsum": src + "reduction.cu"}
+               "cumsum": src + "reduction.cu",
+               "optimizer_adam": src + "optimizer.cu",
+               "optimizer_sgd": src + "optimizer.cu"}
     kernels = []
     for name in replaces:
         by_path = {}
@@ -2118,8 +2525,12 @@ def main() -> int:
             by_path["tier"] = tier["card_pallas_bf16"]["launches"][name]
         if name in STANDALONE_KERNELS:
             by_path["standalone"] = standalone["launches"][name]
-        if name in TP_KERNELS:
+        if name in TP_KERNELS or name == "optimizer_adam":
             by_path["tp"] = tp_launches[name]
+        if name in TRAIN_PER_STEP:
+            by_path["train-graph"] = train_graph["graph"]["launches"][name]
+        if name in MLP_PER_STEP:
+            by_path["mlp"] = mlp["eager"]["launches"][name]
         row = dict(
             name=name, route="cuda", source=sources.get(name, src + "norm.cu"),
             replaces=replaces[name], launches=sum(by_path.values()),

@@ -154,6 +154,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ff_cumsum.argtypes = [p, p, ctypes.c_longlong, ctypes.c_longlong, i,
                               i, p, i, ctypes.c_longlong, i, p]
     lib.ff_cumsum.restype = i
+    pp, lp = ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong)
+    lib.ff_adam.argtypes = [pp, pp, pp, pp, lp, i, p, p, f, f, f, f, f, f,
+                            i, p]
+    lib.ff_adam.restype = i
+    lib.ff_sgd.argtypes = [pp, pp, pp, lp, i, p, f, i, f, p]
+    lib.ff_sgd.restype = i
+    lib.ff_optimizer_max_tensors.argtypes = []
+    lib.ff_optimizer_max_tensors.restype = i
     lib.ff_flash_tc_smem_bytes.argtypes = [i, i, i, i]
     lib.ff_flash_tc_smem_bytes.restype = ctypes.c_longlong
     lib.ff_error_string.argtypes = [i]

@@ -4,7 +4,8 @@
 Each op family has a fused implementation, the hand-written CUDA kernel
 of kernels/ (its plain PyTorch version on a CPU tensor), and a reference
 lowering, the op's own torch code (ops/norm.py, ops/attention.py, the
-plain reductions of runtime/losses.py). Every consumer asks the same
+plain reductions of runtime/losses.py, the optimizer's per-tensor loop
+of kernels/optimizer.py). Every consumer asks the same
 `KERNELS.select(family)`. The words of `--kernel-impl` stay the JAX
 package's, so command lines carry over: `pallas` names the fused-kernel
 tier, `reference` the reference lowering.
@@ -60,6 +61,12 @@ from ..obs.registry import REGISTRY
 
 FAMILIES = ("attention", "attention_decode", "attention_decode_mq",
             "layernorm", "rmsnorm", "softmax", "reduction")
+# the port's own families: kernels with no Pallas counterpart, so no
+# family of the JAX registry and no word of its `family=impl` spellings;
+# the bare `pallas` / `reference` knobs and overrides reach them. The
+# optimizer update (kernels/optimizer.py) is the card's counterpart of
+# XLA's fusion of the JAX update: "reference" runs its per-tensor loop
+PORT_FAMILIES = ("optimizer",)
 
 # per-device f32 score-matrix bytes above which auto picks the flash
 # kernel over the einsum core; 0 (always flash) until an H100
@@ -129,7 +136,10 @@ class KernelRegistry:
         spec = (spec or "auto").strip()
         hit = self._spec_cache.get(spec)
         if hit is None:
-            hit = self._spec_cache[spec] = self.parse_spec(spec)
+            hit = self.parse_spec(spec)
+            if spec in ("pallas", "reference"):
+                hit = {**hit, **{f: spec for f in PORT_FAMILIES}}
+            self._spec_cache[spec] = hit
         return hit
 
     def configure(self, config) -> None:
@@ -144,9 +154,9 @@ class KernelRegistry:
     @contextlib.contextmanager
     def override(self, family: str, impl: str):
         """Force one family's impl for the duration; restores on exit."""
-        if family not in FAMILIES:
+        if family not in FAMILIES + PORT_FAMILIES:
             raise KeyError(f"unknown kernel family {family!r}; "
-                           f"families: {FAMILIES}")
+                           f"families: {FAMILIES + PORT_FAMILIES}")
         if impl not in ("pallas", "reference"):
             raise ValueError(f"impl must be pallas or reference, got {impl!r}")
         with self._lock:
@@ -195,9 +205,9 @@ class KernelRegistry:
         device, else the CPU); `heuristic` a zero-argument size policy
         consulted by auto on a kernel-capable device; `record=False`
         skips the counter."""
-        if family not in FAMILIES:
+        if family not in FAMILIES + PORT_FAMILIES:
             raise KeyError(f"unknown kernel family {family!r}; "
-                           f"families: {FAMILIES}")
+                           f"families: {FAMILIES + PORT_FAMILIES}")
         config_overrides = (self._spec_overrides(
             getattr(config, "kernel_impl", "auto"))
             if config is not None else self._config_overrides)

@@ -10,7 +10,7 @@ model's weights across.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Mapping, Optional, Sequence, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,7 +25,7 @@ from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OpType)
 from .kernels.registry import KERNELS
 from .runtime.collectives import gather_shards
-from .runtime.executor import Executor
+from .runtime.executor import Executor, MultiStep
 from .runtime.losses import Loss
 from .runtime.metrics import Metrics, PerfMetrics
 from .runtime.optimizers import Optimizer, SGDOptimizer
@@ -52,6 +52,12 @@ class FFModel:
         self.step_records: List[Dict[str, float]] = []
         self._name_counts: Dict[OpType, int] = {}
         self._used_names: set = set()
+        self.label_tensor: Optional[Tensor] = None
+        self._dataloaders: list = []
+        # fit(steps_per_execution=K)'s dispatch per K, and fit(accum_steps)'s
+        # step; built at first use, dropped by compile()
+        self._multi_steps: Dict[int, MultiStep] = {}
+        self._accum_step = None
 
     @property
     def device(self) -> torch.device:
@@ -90,8 +96,144 @@ class FFModel:
         self.ops.append(op)
         return op
 
-    def add(self, x: Tensor, y: Tensor, name: str = "") -> Tensor:
-        return self._add_op(OpType.EW_ADD, [x, y], name).outputs[0]
+    def _unary(self, op_type, x, name="", **params) -> Tensor:
+        return self._add_op(op_type, [x], name, **params).outputs[0]
+
+    def _binary(self, op_type, x, y, name="") -> Tensor:
+        return self._add_op(op_type, [x, y], name).outputs[0]
+
+    # -- elementwise (flexflow_tpu/model.py exp ... gelu) -------------------
+    def exp(self, x, name=""):
+        return self._unary(OpType.EXP, x, name)
+
+    def sin(self, x, name=""):
+        return self._unary(OpType.SIN, x, name)
+
+    def cos(self, x, name=""):
+        return self._unary(OpType.COS, x, name)
+
+    def pow(self, x, exponent, name=""):
+        return self._unary(OpType.POW, x, name, exponent=exponent)
+
+    def rsqrt(self, x, name=""):
+        return self._unary(OpType.RSQRT, x, name)
+
+    def add(self, x, y, name=""):
+        return self._binary(OpType.EW_ADD, x, y, name)
+
+    def subtract(self, x, y, name=""):
+        return self._binary(OpType.EW_SUB, x, y, name)
+
+    def multiply(self, x, y, name=""):
+        return self._binary(OpType.EW_MUL, x, y, name)
+
+    def divide(self, x, y, name=""):
+        return self._binary(OpType.EW_DIV, x, y, name)
+
+    def max(self, x, y, name=""):
+        return self._binary(OpType.EW_MAX, x, y, name)
+
+    def min(self, x, y, name=""):
+        return self._binary(OpType.EW_MIN, x, y, name)
+
+    def scalar_multiply(self, x, scalar, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_MULTIPLY, x, name, scalar=scalar)
+
+    def scalar_add(self, x, scalar, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_ADD, x, name, scalar=scalar)
+
+    def scalar_sub(self, x, scalar, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_SUB, x, name, scalar=scalar)
+
+    def scalar_true_divide(self, x, scalar, inplace=True, name=""):
+        return self._unary(OpType.SCALAR_TRUE_DIV, x, name, scalar=scalar)
+
+    def relu(self, x, name=""):
+        return self._unary(OpType.RELU, x, name)
+
+    def identity(self, x, name=""):
+        return self._unary(OpType.IDENTITY, x, name)
+
+    def sigmoid(self, x, name=""):
+        return self._unary(OpType.SIGMOID, x, name)
+
+    def tanh(self, x, name=""):
+        return self._unary(OpType.TANH, x, name)
+
+    def elu(self, x, inplace=True, name=""):
+        return self._unary(OpType.ELU, x, name)
+
+    def gelu(self, x, name=""):
+        return self._unary(OpType.GELU, x, name)
+
+    def cast(self, input: Tensor, dtype: DataType, name: str = "") -> Tensor:
+        return self._unary(OpType.CAST, input, name, dtype=dtype)
+
+    # -- shape ops, reductions, TopK, BatchMatmul ---------------------------
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name: str = "") -> Tensor:
+        return self._add_op(OpType.CONCAT, list(tensors), name,
+                            axis=axis).outputs[0]
+
+    def split(self, input: Tensor, sizes, axis: int,
+              name: str = "") -> List[Tensor]:
+        if isinstance(sizes, int):
+            if input.dims[axis] % sizes:
+                raise ValueError(f"split: dim {axis} of {input.dims} is not "
+                                 f"divisible by {sizes}")
+            sizes = [input.dims[axis] // sizes] * sizes
+        return self._add_op(OpType.SPLIT, [input], name, sizes=tuple(sizes),
+                            axis=axis).outputs
+
+    def reshape(self, input: Tensor, shape: Sequence[int],
+                name: str = "") -> Tensor:
+        return self._unary(OpType.RESHAPE, input, name, shape=tuple(shape))
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name: str = "") -> Tensor:
+        return self._unary(OpType.TRANSPOSE, input, name, perm=tuple(perm))
+
+    def reverse(self, input: Tensor, axis: int, name: str = "") -> Tensor:
+        return self._unary(OpType.REVERSE, input, name, axis=axis)
+
+    def gather(self, input: Tensor, index: Tensor, dim: int = 0,
+               name: str = "") -> Tensor:
+        return self._add_op(OpType.GATHER, [input, index], name,
+                            axis=dim).outputs[0]
+
+    def reduce_sum(self, input: Tensor, axes: Sequence[int],
+                   keepdims: bool = False, name: str = "") -> Tensor:
+        return self._unary(OpType.REDUCE_SUM, input, name, axes=tuple(axes),
+                           keepdims=keepdims)
+
+    def mean(self, input: Tensor, dims: Sequence[int],
+             keepdims: bool = False, name: str = "") -> Tensor:
+        return self._unary(OpType.MEAN, input, name, axes=tuple(dims),
+                           keepdims=keepdims)
+
+    def batch_matmul(self, A: Tensor, B: Tensor, a_seq_length_dim: int = -1,
+                     b_seq_length_dim: int = -1, name: str = "") -> Tensor:
+        return self._add_op(
+            OpType.BATCHMATMUL, [A, B], name,
+            a_seq_length_dim=a_seq_length_dim,
+            b_seq_length_dim=b_seq_length_dim).outputs[0]
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = False,
+              name: str = "") -> Tuple[Tensor, Tensor]:
+        outs = self._add_op(OpType.TOPK, [input], name, k=k,
+                            sorted=sorted).outputs
+        return outs[0], outs[1]
+
+    def create_constant(self, value, trainable: bool = False,
+                        dtype: Optional[DataType] = None,
+                        name: str = "") -> Tensor:
+        """A fixed tensor value as a graph source; trainable=True makes it
+        a weight ("value") that takes gradients."""
+        value = np.asarray(value)
+        if dtype is not None:
+            value = value.astype(dtype.host_np_dtype)
+        return self._add_op(OpType.WEIGHT, [], name, value=value,
+                            trainable=trainable, dtype=dtype).outputs[0]
 
     def dense(self, input: Tensor, out_dim: int,
               activation: ActiMode = ActiMode.AC_MODE_NONE,
@@ -204,6 +346,7 @@ class FFModel:
         order = self.graph.topo_order()
         self.final_tensor = self.final_tensor or order[-1].outputs[0]
         self.executor = Executor(self.graph, self.config, self.mesh)
+        self._multi_steps, self._accum_step = {}, None
         self._assign_strategy(order)
         for op in order:
             op.init_weights(generator, self.device, trainable=training)
@@ -213,6 +356,12 @@ class FFModel:
             self, lr=self.config.learning_rate)
         self.loss = Loss(loss_type)
         self.metrics = Metrics(loss_type, list(metrics))
+        # the label mirrors the final tensor (JAX `_label_dims`)
+        fd = self.final_tensor.dims
+        self.label_tensor = Tensor(
+            fd[:-1] + (1,) if loss_type ==
+            LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY else fd,
+            self._label_dtype(), name="label")
         self._train_step = self.executor.build_train_step(
             self.optimizer, self.loss.fn, self.metrics, self.final_tensor)
         self._eval_step = self.executor.build_eval_step(
@@ -253,107 +402,255 @@ class FFModel:
         return out
 
     # -- training -----------------------------------------------------------
-    def _batch(self, x: List[np.ndarray], y, lo: int, hi: int):
-        """(inputs, label) of samples [lo, hi) on this rank's device; on a
-        mesh with a `data` axis, this rank's equal slice of them (the whole
-        batch, replicated, when it does not divide, as JAX's shard_batch
-        replicates)."""
+    def _label_dtype(self) -> DataType:
+        """int class ids for the sparse-categorical loss, float targets
+        for every other (JAX `_label_dtype`)."""
+        return (DataType.DT_INT32 if self.loss.loss_type ==
+                LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+                else DataType.DT_FLOAT)
+
+    def _host_batch(self, x: Sequence[np.ndarray], y: np.ndarray, lo: int,
+                    hi: int) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+        """Host (inputs, label) of samples [lo, hi), each input in its
+        staging dtype (`DataType.host_np_dtype`), the label in the loss's;
+        on a mesh with a `data` axis, this rank's equal slice of them (the
+        whole batch, replicated, when it does not divide, as JAX's
+        shard_batch replicates)."""
         dp = self.mesh.size("data") if self.mesh is not None else 1
         if dp > 1 and (hi - lo) % dp == 0:
             n = (hi - lo) // dp
             lo += self.mesh.index("data") * n
             hi = lo + n
-        inputs = {op.name: torch.from_numpy(np.ascontiguousarray(
-            arr[lo:hi]).astype(op.outputs[0].dtype.np_dtype)).to(self.device)
+        inputs = {op.name: np.ascontiguousarray(arr[lo:hi]).astype(
+            op.outputs[0].dtype.host_np_dtype)
             for op, arr in zip(self.input_ops, x)}
-        label = torch.from_numpy(np.ascontiguousarray(y[lo:hi]).astype(
-            np.int32)).to(self.device)
+        label = np.ascontiguousarray(y[lo:hi]).astype(
+            self._label_dtype().np_dtype)
         return inputs, label
+
+    def _batch(self, x: Sequence[np.ndarray], y, lo: int, hi: int):
+        """(inputs, label) of samples [lo, hi) on this rank's device
+        (`_host_batch`'s arrays, each input cast to its dtype)."""
+        return self.executor.device_batch(*self._host_batch(x, y, lo, hi))
 
     def _require_training(self, what: str) -> None:
         if self.comp_mode != CompMode.COMP_MODE_TRAINING:
             raise RuntimeError(f"{what} needs compile() in training mode")
 
-    def fit(self, x: Union[np.ndarray, Sequence[np.ndarray]],
-            y: np.ndarray, batch_size: Optional[int] = None,
+    def _attach_dataloader(self, dl) -> None:
+        self._dataloaders.append(dl)
+
+    def _dataloader_handles(self):
+        """fit() without x and y: the attached SingleDataLoaders ordered by
+        input op, and the label's loader (None if none is attached)."""
+        if not self._dataloaders:
+            raise RuntimeError("fit() without x/y requires attached "
+                               "dataloaders")
+        by_tensor = {dl.input_tensor.guid: dl for dl in self._dataloaders}
+        xs = []
+        for op in self.input_ops:
+            dl = by_tensor.get(op.outputs[0].guid)
+            if dl is None:
+                raise RuntimeError(
+                    f"no dataloader attached for input {op.name!r}")
+            xs.append(dl)
+        y_dl = None
+        if self.label_tensor is not None:
+            y_dl = by_tensor.get(self.label_tensor.guid)
+        return xs, y_dl
+
+    def fit(self, x: Union[np.ndarray, Sequence[np.ndarray], None] = None,
+            y: Optional[np.ndarray] = None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, accum_steps: int = 1,
             steps_per_execution: int = 1) -> List[Dict[str, float]]:
-        """Train on (x, y) for `epochs` passes of n // batch_size steps.
+        """Train on (x, y) for `epochs` passes of n // batch_size steps; with
+        no x and y, on batches pulled from the attached dataloaders
+        (runtime/dataloader.py), whose num_samples is n.
 
         Returns the JAX package's history: one `PerfMetrics.summary()` per
         epoch (samples, accuracy, loss, cce, sparse_cce, mse, rmse, mae)
         with its `epoch` and `throughput` (samples per second over the
-        epoch's wall). Each optimizer step also appends a record to
-        `step_records` (emptied at the start of every call): its epoch,
-        step, loss, the compiled metrics, host wall ms (from the batch's
-        copy to the device until its loss reaches the host) and
-        samples/s. Gradient accumulation and several steps per dispatch
-        are not ported."""
+        epoch's wall). Each record of `step_records` (emptied at the start
+        of every call) is one optimizer step, or one dispatch of
+        `steps_per_execution` steps: its epoch, step (the optimizer steps
+        of this call before it), steps, loss and the compiled metrics
+        (means over its steps), step_ms (host wall per optimizer step) and
+        samples/s; a dispatch's record also holds `losses`, each step's.
+
+        accum_steps > 1: each optimizer update averages the gradients of
+        `accum_steps` consecutive microbatches of `batch_size`; its record
+        holds the microbatches' mean metrics. steps_per_execution = K > 1:
+        n // (batch_size * K) dispatches of K steps each (one CUDA graph
+        on the card, runtime/executor.py MultiStep), the trailing n mod
+        (batch_size * K) samples through the single step, so an epoch
+        takes the n // batch_size updates of plain fit; a dispatch's
+        metrics are read after the next one is queued. The two are
+        mutually exclusive, as in the JAX package."""
         self._require_training("fit()")
-        if accum_steps != 1:
-            raise NotImplementedError(
-                "fit(accum_steps > 1): gradient accumulation is not ported "
-                "yet (ROADMAP A2)")
-        if steps_per_execution != 1:
-            raise NotImplementedError(
-                "fit(steps_per_execution > 1): several optimizer steps per "
-                "dispatch are not ported yet (ROADMAP A2, a CUDA graph of "
-                "the step)")
-        if isinstance(x, np.ndarray):
-            x = [x]
+        if steps_per_execution > 1 and accum_steps > 1:
+            raise ValueError(
+                "steps_per_execution and accum_steps are mutually exclusive "
+                "(one batches optimizer steps per dispatch, the other "
+                "microbatches per optimizer step)")
         bs = batch_size or self.config.batch_size
         epochs = epochs or self.config.epochs
-        n = x[0].shape[0]
-        if n < bs:
-            raise ValueError(f"dataset has {n} samples but batch_size is "
-                             f"{bs}; fit needs at least one full step")
+        dls = y_dl = None
+        if x is None:
+            dls, y_dl = self._dataloader_handles()
+            if y_dl is None:
+                raise RuntimeError(
+                    "fit() without x/y requires a dataloader attached to the "
+                    "label tensor")
+            if bs != dls[0].batch_size:
+                raise ValueError(
+                    f"fit(batch_size={bs}) differs from the attached "
+                    f"dataloaders' batch size {dls[0].batch_size}")
+            sizes = {dl.num_samples for dl in dls + [y_dl]}
+            if len(sizes) > 1:
+                raise ValueError(
+                    f"attached dataloaders disagree on num_samples: {sizes}")
+            n = sizes.pop()
+        else:
+            if isinstance(x, np.ndarray):
+                x = [x]
+            n = x[0].shape[0]
+        if n < bs * accum_steps:
+            raise ValueError(
+                f"dataset has {n} samples but batch_size*accum_steps is "
+                f"{bs * accum_steps}; fit needs at least one full update")
+        if n < bs * steps_per_execution:
+            raise ValueError(
+                f"dataset has {n} samples but batch_size*steps_per_execution "
+                f"is {bs * steps_per_execution}; fit needs at least one full "
+                "dispatch")
+
+        def load_host(it: int):
+            """Step `it`'s host batch: sequential pulls on the dataloader
+            branch, once per batch index in order."""
+            if dls is not None:
+                return self._host_batch([dl.next_batch() for dl in dls],
+                                        y_dl.next_batch(), 0, bs)
+            return self._host_batch(x, y, it * bs, (it + 1) * bs)
+
+        k = steps_per_execution
+        multi = self._multi_step(k) if k > 1 else None
         self.step_records = []
         history: List[Dict[str, float]] = []
         for epoch in range(epochs):
             perf = PerfMetrics()
             t_epoch = time.time()
-            for step in range(n // bs):
+            if k > 1:
+                chunks = n // (bs * k)
+                pending, t_last = None, time.perf_counter()
+                for chunk in range(chunks):
+                    queued = multi([load_host(chunk * k + j)
+                                    for j in range(k)], self.opt_state)
+                    # one-deep pipeline: the previous dispatch's metrics
+                    # are read after this one is queued
+                    if pending is not None:
+                        t_last = self._absorb(perf, pending, epoch, bs, k,
+                                              t_last)
+                    pending = queued
+                if pending is not None:
+                    self._absorb(perf, pending, epoch, bs, k, t_last)
+                first_single, updates, micro = chunks * k, n // bs, 1
+            else:
+                first_single, updates = 0, n // (bs * accum_steps)
+                micro = accum_steps
+            for step_i in range(first_single, updates):
                 t0 = time.perf_counter()
-                inputs, label = self._batch(x, y, step * bs, (step + 1) * bs)
-                mvals = self._train_step(inputs, label, self.opt_state)
-                rec = {k: float(v) for k, v in mvals.items()}
-                dt = time.perf_counter() - t0
-                perf.update(bs, rec)
-                rec.update(epoch=epoch, step=len(self.step_records),
-                           step_ms=dt * 1e3, samples_per_s=bs / dt)
-                self.step_records.append(rec)
+                if micro > 1:
+                    msum, _ = self._get_accum_step()(
+                        (self.executor.device_batch(
+                            *load_host(step_i * micro + j))
+                         for j in range(micro)), self.opt_state)
+                    rec = {key: float(v) / micro for key, v in msum.items()}
+                else:
+                    mvals = self._train_step(
+                        *self.executor.device_batch(*load_host(step_i)),
+                        self.opt_state)
+                    rec = {key: float(v) for key, v in mvals.items()}
+                self._record(perf, rec, epoch, bs * micro, 1,
+                             time.perf_counter() - t0)
             summ = perf.summary()
             summ["epoch"] = epoch
-            summ["throughput"] = (n // bs) * bs / (time.time() - t_epoch)
+            summ["throughput"] = updates * bs * micro / (time.time() - t_epoch)
             history.append(summ)
         return history
 
+    def _record(self, perf: PerfMetrics, rec: Dict[str, float], epoch: int,
+                samples: int, steps: int, dt: float) -> None:
+        perf.update(samples, rec)
+        last = self.step_records[-1] if self.step_records else None
+        done = last["step"] + last["steps"] if last else 0
+        rec.update(epoch=epoch, step=done, steps=steps,
+                   step_ms=dt * 1e3 / steps, samples_per_s=samples / dt)
+        self.step_records.append(rec)
+
+    def _absorb(self, perf: PerfMetrics, queued: torch.Tensor, epoch: int,
+                bs: int, k: int, t_last: float) -> float:
+        """Record a dispatch's (keys, K) metrics: each key's mean over its K
+        steps, weighted by the K * bs samples; returns the time it was
+        read, which ends its interval."""
+        vals = queued.cpu().numpy()
+        t = time.perf_counter()
+        keys = self._multi_step(k).keys
+        rec = {key: float(vals[i].mean()) for i, key in enumerate(keys)}
+        self._record(perf, rec, epoch, k * bs, k, t - t_last)
+        rec["losses"] = [float(v) for v in vals[keys.index("loss")]]
+        return t
+
+    def _multi_step(self, k: int) -> MultiStep:
+        if k not in self._multi_steps:
+            self._multi_steps[k] = self.executor.build_multi_step(
+                self.optimizer, self.loss.fn, self.metrics,
+                self.final_tensor, k)
+        return self._multi_steps[k]
+
+    def _get_accum_step(self):
+        if self._accum_step is None:
+            self._accum_step = self.executor.build_accum_step(
+                self.optimizer, self.loss.fn, self.metrics,
+                self.final_tensor)
+        return self._accum_step
+
     def eval(self, x, y, batch_size: Optional[int] = None
              ) -> Dict[str, float]:
-        """Metrics and loss over (x, y), the tail batch included, weighted
-        by batch size."""
+        """The JAX package's `eval`: `PerfMetrics.summary()` over (x, y),
+        the tail batch included (samples, accuracy as round(accuracy x
+        batch) correct samples a batch, loss, cce, sparse_cce, mse, rmse,
+        mae); batch i's metrics are read after batch i + 1 is queued."""
         self._require_training("eval()")
         if isinstance(x, np.ndarray):
             x = [x]
         bs = batch_size or self.config.batch_size
         n = x[0].shape[0]
-        sums: Dict[str, float] = {}
+        pm = PerfMetrics()
+        pending = None
         for lo in range(0, n, bs):
             hi = min(lo + bs, n)
-            inputs, label = self._batch(x, y, lo, hi)
-            mvals, _ = self._eval_step(inputs, label)
-            for k, v in mvals.items():
-                sums[k] = sums.get(k, 0.0) + float(v) * (hi - lo)
-        out = {k: v / max(1, n) for k, v in sums.items()}
-        out["samples"] = n
-        return out
+            mvals, _ = self._eval_step(*self._batch(x, y, lo, hi))
+            if pending is not None:
+                pm.update(pending[0], {k: float(v)
+                                       for k, v in pending[1].items()})
+            pending = (hi - lo, mvals)
+        if pending is not None:
+            pm.update(pending[0], {k: float(v) for k, v in pending[1].items()})
+        return pm.summary()
+
+    def set_learning_rate(self, lr: float) -> None:
+        """Change the learning rate in place (`opt_state["lr"]`): the next
+        step, eager or a replay of a captured dispatch, uses it."""
+        self._require_training("set_learning_rate()")
+        self.optimizer.set_lr(self.opt_state, lr)
 
     def load_opt_state(self, state: Mapping[str, object]) -> None:
         """Load an optimizer state — {"step", "lr", and the optimizer's
         moment trees ("v" for momentum SGD, "m" and "v" for Adam) of op
         name -> weight name -> array} — into this model's, checking every
-        name and shape; values keep this state's dtypes and device. The
-        moments are given whole; on a mesh each rank keeps its shards."""
+        name and shape; values keep this state's dtypes and device, step
+        and lr written into its device scalars. The moments are given
+        whole; on a mesh each rank keeps its shards."""
         self._require_training("load_opt_state()")
         mine = self.opt_state
         by_name = {op.name: op for op in self.ops}
@@ -384,8 +681,8 @@ class FFModel:
         with torch.no_grad():
             for t, val in staged:
                 t.copy_(val)
-        mine["step"] = int(np.asarray(state["step"]))
-        mine["lr"] = float(np.asarray(state["lr"]))
+            mine["step"].fill_(int(np.asarray(state["step"])))
+            mine["lr"].fill_(float(np.asarray(state["lr"])))
 
     # -- weights ----------------------------------------------------------
     @property

@@ -10,6 +10,12 @@ from ..ffconst import ActiMode
 def apply_activation(x, activation: ActiMode):
     if activation is None or activation == ActiMode.AC_MODE_NONE:
         return x
+    if activation == ActiMode.AC_MODE_RELU:
+        return torch.relu(x)
+    if activation == ActiMode.AC_MODE_SIGMOID:
+        return torch.sigmoid(x)
+    if activation == ActiMode.AC_MODE_TANH:
+        return torch.tanh(x)
     if activation == ActiMode.AC_MODE_GELU:
         # jax.nn.gelu defaults to the tanh approximation
         return F.gelu(x, approximate="tanh")

@@ -1,15 +1,16 @@
-"""Metrics (counterpart of flexflow_tpu/runtime/metrics.py): accuracy, the
-metric the flagship model compiles with (other metric types raise), and
-`PerfMetrics`, the per-epoch accumulator behind `FFModel.fit`'s history."""
+"""Metrics (counterpart of flexflow_tpu/runtime/metrics.py): the six
+metric types, and `PerfMetrics`, the accumulator behind `FFModel.fit`'s
+per-epoch history and `FFModel.eval`'s result."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
 from ..ffconst import LossType, MetricsType
-from .losses import reduce_scalar
+from .losses import (categorical_crossentropy, reduce_scalar,
+                     sparse_categorical_crossentropy)
 
 
 @dataclasses.dataclass
@@ -57,29 +58,55 @@ class PerfMetrics:
         }
 
 
+# the key each metric type reports under, as the JAX package names it
+METRIC_KEYS = {
+    MetricsType.METRICS_ACCURACY: "accuracy",
+    MetricsType.METRICS_CATEGORICAL_CROSSENTROPY: "cce",
+    MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY: "sparse_cce",
+    MetricsType.METRICS_MEAN_SQUARED_ERROR: "mse",
+    MetricsType.METRICS_ROOT_MEAN_SQUARED_ERROR: "rmse",
+    MetricsType.METRICS_MEAN_ABSOLUTE_ERROR: "mae",
+}
+
+
 class Metrics:
-    """Computes the selected metric set from (pred, label) on the device."""
+    """Computes the selected metric set from (pred, label) on the device;
+    each value is an f32 scalar tensor, every reduction through
+    `reduce_scalar`, as in flexflow_tpu/runtime/metrics.py."""
 
     def __init__(self, loss_type: LossType, metrics: Sequence[MetricsType]):
         self.loss_type = loss_type
         self.metrics = list(metrics)
-        for m in self.metrics:
-            if m != MetricsType.METRICS_ACCURACY:
-                raise NotImplementedError(
-                    f"{m}: only METRICS_ACCURACY is ported so far "
-                    "(ROADMAP A2)")
+
+    def keys(self) -> List[str]:
+        """The keys `compute` returns, in its order."""
+        return list(dict.fromkeys(METRIC_KEYS[m] for m in self.metrics))
 
     def compute(self, pred, label) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
+        sparse = label
         if (label.dim() == pred.dim() and label.shape[-1] == 1
                 and pred.shape[-1] != 1 and not label.is_floating_point()):
-            label = label[..., 0]
+            sparse = label[..., 0]
         for m in self.metrics:
-            if label.is_floating_point() and label.dim() == pred.dim():
-                tgt = torch.argmax(label, dim=-1)
+            key = METRIC_KEYS[m]
+            if m == MetricsType.METRICS_ACCURACY:
+                if sparse.is_floating_point() and sparse.dim() == pred.dim():
+                    tgt = torch.argmax(sparse, dim=-1)
+                else:
+                    tgt = sparse
+                # argmax takes the first of tied maxima, as jnp.argmax does
+                out[key] = reduce_scalar(
+                    (torch.argmax(pred, dim=-1) == tgt.long()).float())
+            elif m == MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY:
+                out[key] = sparse_categorical_crossentropy(pred, label)
+            elif m == MetricsType.METRICS_CATEGORICAL_CROSSENTROPY:
+                out[key] = categorical_crossentropy(pred, label)
             else:
-                tgt = label
-            # argmax takes the first of tied maxima, as jnp.argmax does
-            out["accuracy"] = reduce_scalar(
-                (torch.argmax(pred, dim=-1) == tgt.long()).float())
+                # f32 before the reduction, as the JAX package does: the
+                # reduction's two impls must agree
+                diff = pred - label.to(pred.dtype)
+                term = torch.abs(diff) if key == "mae" else torch.square(diff)
+                val = reduce_scalar(term.float())
+                out[key] = torch.sqrt(val) if key == "rmse" else val
         return out

@@ -1,19 +1,28 @@
 """Optimizers: SGD (momentum, nesterov, weight decay) and Adam
 (counterpart of flexflow_tpu/runtime/optimizers.py).
 
-The same update math as the JAX package, written as plain tensor updates
-under `torch.no_grad()` rather than `torch.optim`: the parameters and the
-moments are updated IN PLACE (JAX returns new arrays), which is what lets
-the port keep one copy of each. State is a dict like the JAX opt_state —
-{"step", "lr", and "v" / "m" trees of op name -> weight name -> tensor} —
-so one can be carried across (FFModel.load_opt_state).
+The same update math as the JAX package, through kernels/optimizer.py:
+one launch of the fused multi-tensor kernel on the card over every
+weight tensor, its plain per-tensor loop on the CPU. The kernel
+registry's "optimizer" family decides (kernels/registry.py): auto takes
+the kernel on a Hopper card, `kernel_impl="reference"` the loop there
+too. The parameters and
+the moments are updated IN PLACE (JAX returns new arrays), which is
+what lets the port keep one copy of each. State is a dict like the JAX
+opt_state — {"step": int32 and "lr": f32 device scalars, and "v" / "m"
+trees of op name -> weight name -> tensor} — so one can be carried
+across (FFModel.load_opt_state). `step` and `lr` live on the weights'
+device and change in place, so a step captured in a CUDA graph reads
+the current ones and a schedule changes lr without a new capture.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-import numpy as np
 import torch
+
+from ..kernels import optimizer as _kernel
+from ..kernels.registry import KERNELS
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -23,19 +32,44 @@ def _zeros(params: Tree, dtype: Optional[torch.dtype] = None) -> Tree:
                  for w, p in ws.items()} for op, ws in params.items()}
 
 
-def _leaves(*trees: Tree):
-    for op, ws in trees[0].items():
-        for w in ws:
-            yield op, w, tuple(t[op][w] for t in trees)
+def _flat(params: Tree, *trees: Tree):
+    """The leaves of each tree in the order of `params`."""
+    return [[t[op][w] for op, ws in params.items() for w in ws]
+            for t in (params, *trees)]
+
+
+def _scalars(params: Tree, lr: float) -> dict:
+    """step (int32) and lr (f32) as 0-dim tensors on the weights' device."""
+    device = next((p.device for ws in params.values() for p in ws.values()),
+                  torch.device("cpu"))
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "lr": torch.tensor(float(lr), dtype=torch.float32,
+                               device=device)}
 
 
 class Optimizer:
     def init_state(self, params: Tree) -> dict:
         raise NotImplementedError
 
-    def update(self, params: Tree, grads: Tree, state: dict) -> None:
-        """Apply one step to `params` and `state`, in place."""
+    def update(self, params: Tree, grads: Tree, state: dict,
+               config=None) -> None:
+        """Apply one step to `params` and `state`, in place; `config` the
+        model's FFConfig, whose `kernel_impl` picks kernel or loop."""
         raise NotImplementedError
+
+    def _fused(self, state: dict, config) -> bool:
+        """The registry's choice for the "optimizer" family on the
+        weights' device (resolved once, as the ops resolve theirs)."""
+        memo = self.__dict__.setdefault("_kernel_memo", {})
+        return bool(KERNELS.resolve(memo, "optimizer",
+                                    device=state["lr"].device,
+                                    config=config))
+
+    def set_lr(self, state: dict, lr: float) -> None:
+        """Write a new learning rate into `state["lr"]`, in place: a
+        captured step reads it at its next replay (the JAX package carries
+        lr as a traced scalar for the same reason)."""
+        state["lr"].fill_(float(lr))
 
 
 class SGDOptimizer(Optimizer):
@@ -50,23 +84,26 @@ class SGDOptimizer(Optimizer):
         self.weight_decay = weight_decay
 
     def init_state(self, params: Tree) -> dict:
-        state = {"step": 0, "lr": float(self.lr)}
+        state = _scalars(params, self.lr)
         if self.momentum != 0.0:
             state["v"] = _zeros(params)
         return state
 
     @torch.no_grad()
-    def update(self, params: Tree, grads: Tree, state: dict) -> None:
-        mom, wd, lr = self.momentum, self.weight_decay, state["lr"]
-        if mom == 0.0:
-            for _, _, (w, g) in _leaves(params, grads):
-                w.sub_(lr * (g + wd * w if wd else g))
+    def update(self, params: Tree, grads: Tree, state: dict,
+               config=None) -> None:
+        if self.momentum != 0.0:
+            ws, gs, bufs = _flat(params, grads, state["v"])
         else:
-            for _, _, (w, g, v) in _leaves(params, grads, state["v"]):
-                gt = g + wd * w if wd else g
-                v.mul_(mom).add_(gt)
-                w.sub_(lr * (gt + mom * v if self.nesterov else v))
-        state["step"] += 1
+            (ws, gs), bufs = _flat(params, grads), None
+        if self._fused(state, config):
+            _kernel.sgd(ws, gs, bufs, state["lr"], momentum=self.momentum,
+                        nesterov=self.nesterov,
+                        weight_decay=self.weight_decay)
+        else:
+            _kernel.sgd_plain(ws, gs, bufs, state["lr"], self.momentum,
+                              self.nesterov, self.weight_decay)
+        state["step"].add_(1)
 
 
 class AdamOptimizer(Optimizer):
@@ -88,32 +125,20 @@ class AdamOptimizer(Optimizer):
         self.moments_dtype = moments_dtype
 
     def init_state(self, params: Tree) -> dict:
-        return {"step": 0, "lr": float(self.alpha),
+        return {**_scalars(params, self.alpha),
                 "m": _zeros(params, self.moments_dtype),
                 "v": _zeros(params, self.moments_dtype)}
 
-    def alpha_t(self, alpha: float, step: int) -> float:
-        """alpha * sqrt(1 - b2^t) / (1 - b1^t) in f32, as the JAX package
-        computes it from its f32 step count."""
-        f = np.float32
-        t = f(step)
-        return float(f(alpha) * np.sqrt(f(1.0) - f(self.beta2) ** t)
-                     / (f(1.0) - f(self.beta1) ** t))
-
     @torch.no_grad()
-    def update(self, params: Tree, grads: Tree, state: dict) -> None:
-        b1, b2, wd, eps = self.beta1, self.beta2, self.weight_decay, \
-            self.epsilon
-        step = state["step"] + 1
-        a_t = self.alpha_t(state["lr"], step)
-        for _, _, (w, g, m, v) in _leaves(params, grads, state["m"],
-                                          state["v"]):
-            g32 = g.float()
-            if wd:
-                g32 = g32 + wd * w.float()
-            m32 = b1 * m.float() + (1 - b1) * g32
-            v32 = b2 * v.float() + (1 - b2) * g32 * g32
-            w.copy_(w.float() - a_t * m32 / (torch.sqrt(v32) + eps))
-            m.copy_(m32)
-            v.copy_(v32)
-        state["step"] = step
+    def update(self, params: Tree, grads: Tree, state: dict,
+               config=None) -> None:
+        ws, gs, ms, vs = _flat(params, grads, state["m"], state["v"])
+        if self._fused(state, config):
+            _kernel.adam(ws, gs, ms, vs, state["step"], state["lr"],
+                         beta1=self.beta1, beta2=self.beta2,
+                         eps=self.epsilon, weight_decay=self.weight_decay)
+        else:
+            _kernel.adam_plain(ws, gs, ms, vs, state["step"], state["lr"],
+                               self.beta1, self.beta2, self.epsilon,
+                               self.weight_decay)
+        state["step"].add_(1)

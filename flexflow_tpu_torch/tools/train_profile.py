@@ -1,6 +1,7 @@
 """Where the time of the port's training step goes, on one NVIDIA GPU.
 
     python -m flexflow_tpu_torch.tools.train_profile [--steps N] [--tier]
+        [--steps-per-execution K]
 
 Builds bench.py's flagship BERT encoder at full width (batch 8, seq 512,
 hidden 1024, 16 heads, 12 layers, FFN 4096, vocab 30522; bf16 mixed
@@ -9,7 +10,11 @@ generator, tokens and labels from np.random.RandomState(0)), runs a few
 warm-up steps through FFModel.fit, then `steps` steps under torch.profiler
 with CUDA activity, and prints one JSON line: host wall per step, device
 busy time per step (the sum of kernel times), the device's idle share,
-and device time by kernel, largest first. `--tier` does the same for the
+kernel launches and elementwise launches (and their device time) per
+step, and device time by kernel, largest first.
+`--steps-per-execution K` runs every fit with K steps a dispatch (a CUDA
+graph of K captured steps; the warm-up dispatches capture it); `steps`
+is rounded up to a multiple of K. `--tier` does the same for the
 JAX package's kernel-tier graph (`build_tier_model`, bf16, the kernels
 forced; one batch from np.random.RandomState(8)): the only full-width
 path of RMSNorm forward and backward. Needs CUDA; exits 2 without.
@@ -78,14 +83,66 @@ def build_tier_model(device: str = "cuda", mixed: bool = True,
     return m
 
 
+def profile_fit(model, x, y, batch: int, steps: int, k: int = 1,
+                warmup: int = 3) -> dict:
+    """Time `model.fit` over `steps` optimizer steps of the batch (x, y),
+    `k` steps a dispatch, after `warmup` warm-up steps (dispatches): host
+    wall per step with and without the profiler (and the median of the
+    unprofiled run's `step_ms`), device busy per step (the sum of kernel
+    times under torch.profiler), launches a step and the device time by
+    kernel."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = -(-steps // k) * k
+
+    def run(n):
+        model.fit(np.concatenate([x] * n), np.concatenate([y] * n),
+                  batch_size=batch, epochs=1, steps_per_execution=k)
+        torch.cuda.synchronize()
+
+    run(warmup * k)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    busy_ms, table = _kernel_table(prof, steps)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    elementwise = [e for e in kernels if "elementwise" in e.name]
+    t0 = time.perf_counter()
+    run(steps)
+    bare_ms = (time.perf_counter() - t0) / steps * 1e3
+    return {
+        "steps": steps, "steps_per_execution": k,
+        "wall_ms_per_step": bare_ms, "wall_ms_per_step_profiled": wall_ms,
+        # the unprofiled run's records: a step, or a dispatch over its K
+        "ms_per_step_median": float(np.median(
+            [r["step_ms"] for r in model.step_records])),
+        "device_busy_ms_per_step": busy_ms,
+        # the profiler slows the host, not the device, so the same busy
+        # time over the unprofiled wall is the idle share a user's step sees
+        "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+        "device_idle_share_unprofiled": (1 - busy_ms / bare_ms)
+        if busy_ms else None,
+        "device_launches_per_step": len(kernels) / steps,
+        "elementwise_launches_per_step": len(elementwise) / steps,
+        "elementwise_ms_per_step": sum(e.time_range.elapsed_us()
+                                       for e in elementwise) / steps / 1e3,
+        "kernels": table}
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--steps-per-execution", type=int, default=1,
+                    help="optimizer steps a dispatch (K > 1: a CUDA graph)")
     ap.add_argument("--tier", action="store_true",
                     help="profile the kernel-tier graph's step")
     args = ap.parse_args(argv)
@@ -103,31 +160,11 @@ def main(argv=None) -> int:
         rng = np.random.RandomState(0)
         x = rng.randint(0, vocab, size=(batch, seq)).astype(np.int32)
         y = rng.randint(0, 2, size=(batch, seq, 1)).astype(np.int32)
-    model.fit(x, y, batch_size=batch, epochs=args.warmup)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        # each step ends when its loss reaches the host
-        model.fit(x, y, batch_size=batch, epochs=args.steps)
-        wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    busy_ms, table = _kernel_table(prof, args.steps)
-    t0 = time.perf_counter()
-    model.fit(x, y, batch_size=batch, epochs=args.steps)
-    bare_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    print(json.dumps({
-        "phase": "tier" if args.tier else "train",
-        "device": torch.cuda.get_device_name(0),
-        "steps": args.steps, "wall_ms_per_step": bare_ms,
-        "wall_ms_per_step_profiled": wall_ms,
-        "device_busy_ms_per_step": busy_ms,
-        # the profiled window, as serve_profile reports it; the profiler
-        # slows the host, not the device, so the same busy time over the
-        # unprofiled wall is the idle share a user's step sees
-        "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-        "device_idle_share_unprofiled": (1 - busy_ms / bare_ms)
-        if busy_ms else None,
-        "kernels": table}), flush=True)
+    out = profile_fit(model, x, y, batch, args.steps,
+                      args.steps_per_execution, args.warmup)
+    print(json.dumps({"phase": "tier" if args.tier else "train",
+                      "device": torch.cuda.get_device_name(0), **out}),
+          flush=True)
     return 0
 
 

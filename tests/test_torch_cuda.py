@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from flexflow_tpu_torch.kernels import decode, flash_attention, \
-    launch_counts, norm, reduction, reset_launch_counts
+    launch_counts, norm, optimizer, reduction, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -1270,3 +1270,251 @@ def test_cumsum_split_gradient_is_the_reversed_scan(dev):
     plan = reduction.cumsum_plan(3, 1000003, torch.float32)
     assert torch.equal(dx, reduction.cumsum_split_plain(gx, plan.chunk,
                                                         True))
+
+
+def _opt_tensors(dev, sizes, moments, seed, offset=0):
+    """Weights, gradients and state of `sizes`, each a view at `offset`
+    elements into its own buffer (offset 1: no tensor 16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(n, dtype, scale=1.0):
+        buf = (scale * torch.randn((n + offset,), generator=g, device=dev)
+               ).to(dtype)
+        return buf[offset:]
+
+    ws = [make(n, torch.float32) for n in sizes]
+    gs = [make(n, torch.float32, 0.1) for n in sizes]
+    ms = [make(n, moments, 0.01) for n in sizes]
+    vs = [make(n, moments, 1e-4).abs() for n in sizes]
+    return ws, gs, ms, vs
+
+
+OPT_SIZES = (1, 7, 4097, 1024 * 1024 + 3, 8192, 8191)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_adam_kernel_matches_plain_to_the_bit(dev, moments, wd, offset):
+    """Three Adam updates of a ragged list (sizes 1, 7, 4097, 2^20 + 3,
+    8192, 8191; aligned and one element off), the kernel against the
+    per-tensor loop on the card: every weight and moment the same bits,
+    one launch an update, step read and not advanced."""
+    ws, gs, ms, vs = _opt_tensors(dev, OPT_SIZES, moments, 3, offset)
+    ref = [[t.clone() for t in ts] for ts in (ws, ms, vs)]
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    lr = torch.tensor(1e-3, device=dev)
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=wd)
+    for _ in range(3):
+        reset_launch_counts()
+        optimizer.adam(ws, gs, ms, vs, step, lr, **hyper)
+        assert launch_counts()["optimizer_adam"] == 1
+        optimizer.adam_plain(*ref[:1], gs, *ref[1:], step, lr,
+                             hyper["beta1"], hyper["beta2"], hyper["eps"],
+                             wd)
+        step.add_(1)
+    for got, want in zip((ws, ms, vs), ref):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("momentum,nesterov,wd", [
+    (0.0, False, 0.0), (0.0, False, 0.01), (0.9, False, 0.0),
+    (0.9, True, 0.01)])
+def test_sgd_kernel_matches_plain_to_the_bit(dev, momentum, nesterov, wd,
+                                             offset):
+    ws, gs, bufs, _ = _opt_tensors(dev, OPT_SIZES, torch.float32, 4, offset)
+    ref = [[t.clone() for t in ts] for ts in (ws, bufs)]
+    lr = torch.tensor(0.05, device=dev)
+    for _ in range(3):
+        reset_launch_counts()
+        optimizer.sgd(ws, gs, bufs, lr, momentum=momentum,
+                      nesterov=nesterov, weight_decay=wd)
+        assert launch_counts()["optimizer_sgd"] == 1
+        optimizer.sgd_plain(ref[0], gs, ref[1], lr, momentum, nesterov, wd)
+    for got, want in zip((ws, bufs), ref):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_optimizer_kernel_splits_long_lists(dev):
+    """More tensors than one launch takes: one launch a slice."""
+    per = optimizer.max_tensors()
+    sizes = [5] * (per + 3)
+    ws, gs, ms, vs = _opt_tensors(dev, sizes, torch.float32, 5)
+    ref = [[t.clone() for t in ts] for ts in (ws, ms, vs)]
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    lr = torch.tensor(1e-2, device=dev)
+    reset_launch_counts()
+    optimizer.adam(ws, gs, ms, vs, step, lr, beta1=0.9, beta2=0.999,
+                   eps=1e-8)
+    assert launch_counts()["optimizer_adam"] == 2
+    optimizer.adam_plain(ref[0], gs, ref[1], ref[2], step, lr, 0.9, 0.999,
+                         1e-8, 0.0)
+    for got, want in zip((ws, ms, vs), ref):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _card_mlp(dev, mixed=False):
+    from flexflow_tpu_torch import (ActiMode, AdamOptimizer, FFConfig,
+                                    FFModel, MetricsType)
+    m = FFModel(FFConfig(batch_size=16, allow_mixed_precision=mixed,
+                         device=str(dev)))
+    t = m.create_tensor([16, 12])
+    t = m.dense(t, 32, ActiMode.AC_MODE_RELU)
+    m.softmax(m.dense(t, 4))
+    m.compile(optimizer=AdamOptimizer(m, alpha=1e-2,
+                                      moments_dtype=torch.bfloat16),
+              metrics=[MetricsType.METRICS_ACCURACY,
+                       MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    return m
+
+
+def test_fit_steps_per_execution_graph_matches_eager(dev):
+    """fit(steps_per_execution=4) on the card (a CUDA graph of 4 captured
+    steps, replayed) against eager single steps from the same weights:
+    every loss and every weight the same bits, the launches counted at
+    the warm-up and the capture only, a new lr read by the replays."""
+    rng = np.random.RandomState(2)
+    x = rng.randn(16 * 13, 12).astype(np.float32)
+    y = rng.randint(0, 4, size=(16 * 13, 1)).astype(np.int32)
+    eager, graphed = _card_mlp(dev), _card_mlp(dev)
+    graphed.load_params({op: {w: t.cpu() for w, t in ws.items()}
+                         for op, ws in eager.params.items()})
+    for m in (eager, graphed):
+        m.fit(x, y, epochs=1, steps_per_execution=1 if m is eager else 4)
+        m.set_learning_rate(3e-3)
+    reset_launch_counts()
+    he = eager.fit(x, y, epochs=2)
+    eager_launches = launch_counts()["optimizer_adam"]
+    reset_launch_counts()
+    hg = graphed.fit(x, y, epochs=2, steps_per_execution=4)
+    # 13 steps an epoch: 3 replayed dispatches and 1 trailing step
+    assert eager_launches == 26
+    assert launch_counts()["optimizer_adam"] == 2
+    assert [r["steps"] for r in graphed.step_records] == [4, 4, 4, 1] * 2
+    assert torch.equal(eager.opt_state["step"], graphed.opt_state["step"])
+    for op, ws in eager.params.items():
+        for w, t in ws.items():
+            assert torch.equal(t, graphed.params[op][w]), (op, w)
+    losses_e = [r["loss"] for r in eager.step_records]
+    for a, b in zip(he, hg):
+        assert a["accuracy"] == b["accuracy"]
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-6)
+    assert all(np.isfinite(losses_e))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_eval_after_fit_reads_the_trained_weights_on_card(dev, k):
+    """A bf16 model on the card: eval, fit, eval, fit, eval. Eval's bf16
+    casts of the weights are cached by weight version; the update kernel
+    (K = 1) and a graph replay (K = 4: the first fit one captured
+    dispatch and two replays, the second fit replays only) write the
+    weights through raw pointers and bump the versions, so each eval
+    after a fit equals a fresh model's given the trained weights."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(16 * 12, 12).astype(np.float32)
+    y = rng.randint(0, 4, size=(16 * 12, 1)).astype(np.int32)
+    m = _card_mlp(dev, mixed=True)
+    before = m.eval(x, y)
+    for launches in ((12, 8), (12, 0)):
+        reset_launch_counts()
+        m.fit(x, y, epochs=1, steps_per_execution=k)
+        assert launch_counts()["optimizer_adam"] == launches[k == 4]
+        after = m.eval(x, y)
+        fresh = _card_mlp(dev, mixed=True)
+        fresh.load_params(m.params)
+        assert after == fresh.eval(x, y)
+        assert after["loss"] != before["loss"]
+        before = after
+
+
+def test_reference_impl_runs_the_plain_update_on_card(dev):
+    """The update under the registry's "reference": the per-tensor loop on
+    the card, no launch, the kernel's bits (fit from the same weights,
+    every other family on auto)."""
+    from flexflow_tpu_torch.kernels.registry import KERNELS
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(16 * 5, 12).astype(np.float32)
+    y = rng.randint(0, 4, size=(16 * 5, 1)).astype(np.int32)
+    fused, plain = _card_mlp(dev), _card_mlp(dev)
+    plain.load_params({op: {w: t.cpu() for w, t in ws.items()}
+                       for op, ws in fused.params.items()})
+    reset_launch_counts()
+    fused.fit(x, y, epochs=2)
+    assert launch_counts()["optimizer_adam"] == 10
+    reset_launch_counts()
+    with KERNELS.override("optimizer", "reference"):
+        plain.fit(x, y, epochs=2)
+    assert launch_counts()["optimizer_adam"] == 0
+    for op, ws in fused.params.items():
+        for w, t in ws.items():
+            assert torch.equal(t, plain.params[op][w]), (op, w)
+
+
+def _route_case(dev, case):
+    """(function of no arguments, the route it must take) for a planned
+    route with a programmatic dependent launch or a thread-block cluster."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if case == "softmax_fwd/cluster":
+        x = rnd(8, 30522)
+        return lambda: norm.softmax_fwd(x)
+    if case == "softmax_bwd/cluster":
+        y, dy = torch.softmax(rnd(8, 30522).float(), -1).bfloat16(), \
+            rnd(8, 30522)
+        return lambda: norm.softmax_bwd(y, dy)
+    if case == "layernorm_bwd/warp":
+        x, dy = rnd(4096, 1024), rnd(4096, 1024)
+        gamma = torch.rand((1024,), generator=g, device=dev) + 0.5
+        _, mean, rstd = norm.layernorm_fwd(x, gamma, torch.zeros_like(gamma))
+        return lambda: norm.layernorm_bwd(x, gamma, mean, rstd, dy)
+    if case == "reduce/grid":
+        x = rnd(1 << 22, dtype=torch.float32)
+        return lambda: reduction.reduce(x, "sum")
+    if case == "cumsum/split":
+        x = rnd(3, 1000003, dtype=torch.float32)
+        return lambda: reduction.cumsum(x)
+    b, m, h, d = 8, 1024, 16, 64
+    q, kc, vc = rnd(b, 1, h, d), rnd(b, m, h, d), rnd(b, m, h, d)
+    pos = torch.tensor([0, 37, 255, 511, 700, 880, 1000, 1022],
+                       dtype=torch.int32, device=dev)
+    return lambda: decode.decode_attention(q, kc, vc, pos, scale=0.125,
+                                           block_k=512)
+
+
+@pytest.mark.parametrize("case", [
+    "softmax_fwd/cluster", "softmax_bwd/cluster", "layernorm_bwd/warp",
+    "reduce/grid", "cumsum/split", "decode_attention/tc"])
+def test_planned_routes_replay_in_a_cuda_graph(dev, case):
+    """The routes that launch a programmatic dependent (LayerNorm
+    backward's column sums, the reduce's finish, the scan's chunk scan,
+    decode's combine) or a thread-block cluster (softmax), captured in a
+    CUDA graph and replayed twice: the eager call's bits, on its route."""
+    fn = _route_case(dev, case)
+    reset_launch_counts()
+    eager = fn()
+    assert launch_counts()[case] == 1, launch_counts()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    out = out if isinstance(out, tuple) else (out,)
+    for _ in range(2):
+        for t in out:
+            if t is not None:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert (a is None and b is None) or torch.equal(a, b), case

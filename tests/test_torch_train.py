@@ -245,19 +245,23 @@ def test_f32_step_matches_jax_through_pallas_kernels():
 
 
 def test_eval_and_unported_options_raise():
+    """eval returns the JAX eval's PerfMetrics summary, key for key, over 6
+    samples in batches of 4 (a tail batch of 2: ROADMAP C4's case);
+    accumulation together with several steps a dispatch raises as in
+    JAX; what is still unported raises."""
     jm, pm = _models(*OPTIMIZERS["sgd_momentum"])
-    x, y = _data(3)
-    name = jm.input_ops[0].name
-    mvals, _ = jm._eval_step(jm.params, jm.state,
-                             {name: jax.numpy.asarray(x)},
-                             jax.numpy.asarray(y))
-    got = pm.eval(x, y)
-    assert got["loss"] == pytest.approx(float(mvals["loss"]), **F32_LOSS)
-    assert got["accuracy"] == pytest.approx(float(mvals["accuracy"]))
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        pm.fit(x, y, accum_steps=2)
-    with pytest.raises(NotImplementedError, match="per dispatch"):
-        pm.fit(x, y, steps_per_execution=2)
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, VOCAB, size=(6, L)).astype(np.int32)
+    y = rng.randint(0, 2, size=(6, L, 1)).astype(np.int32)
+    want = jm.eval(x, y, batch_size=B)
+    got = pm.eval(x, y, batch_size=B)
+    assert set(got) == set(want) and len(want) == 8
+    assert got["samples"] == want["samples"] == 6
+    assert got["accuracy"] == want["accuracy"]
+    for k in ("loss", "cce", "sparse_cce", "mse", "rmse", "mae"):
+        assert got[k] == pytest.approx(want[k], **F32_LOSS), k
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        pm.fit(x, y, batch_size=B, accum_steps=2, steps_per_execution=2)
     with pytest.raises(KeyError, match="optimizer state keys"):
         pm.load_opt_state({"step": 0, "lr": 0.1})
     m = pt.FFModel(pt.FFConfig(device="cpu"))
