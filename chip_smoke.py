@@ -32,7 +32,9 @@ Phases, in order; any failure propagates and exits non-zero:
               beside the least time the card could take (softmax at every
               path's shape, LayerNorm also at the training shape, the
               softmax backward and the scan at the kernel table's shapes
-              of every route; the fused optimizer update at the flagship's
+              of every route, the flash forward also causal at the
+              serving shapes (1 and 8, 512, 16 x 64) beside SDPA with
+              is_causal; the fused optimizer update at the flagship's
               195 weight shapes, Adam with bf16 and f32 moments, with and
               without weight decay, SGD plain, with momentum and nesterov,
               three updates each equal to the bit to the per-tensor loop,
@@ -49,16 +51,27 @@ Phases, in order; any failure propagates and exits non-zero:
               launch);
  4. serve   — the full-width serve-bench LM (hidden 1024, 16 heads,
               12 layers, vocab 30522, window 512; random weights from a
-              fixed generator, bf16 mixed precision) through
+              fixed generator, bf16 mixed precision) through the default
               ContinuousBatcher(num_slots=8, max_len=1024, page_size=16):
-              16 requests, prompts of 32-512 tokens, 32-64 new tokens
-              each; every request must finish with exactly its token
-              count, every serving kernel must have launched, every
-              decode and multi-query call must have taken the tc route,
-              every softmax (the LM head over 30522) the cluster route,
-              and every LayerNorm forward the warp route;
+              the decode iteration and each slot's prefill chunk as CUDA
+              graphs, the prefix cache on. 8 warm-up requests (one a
+              slot: every graph captured), then the 16 requests earlier
+              runs served (RandomState(0) after one warm-up prompt),
+              prompts of 32-512 tokens, 32-64 new tokens each, timed; the
+              timed run
+              must only replay graphs (no warm-up, capture or eager
+              walk); every request must finish with exactly its token
+              count, every serving kernel must have launched (in the
+              warm-up's walks and captures: a replay runs no wrapper and
+              counts nothing; phase 16 holds a replay's device kernels
+              against a walk's launches), every decode and
+              multi-query call must have taken the tc route, every
+              softmax (the LM head over 30522) the cluster route, and
+              every LayerNorm forward the warp route;
  5. cross   — the first token's probabilities for two prompts on the card
-              against the port on the CPU (plain versions), same weights;
+              against the port on the CPU (plain versions), same weights,
+              through the executor and read from the serve batcher's
+              captured chunk graph;
  6. train   — bench.py's flagship BERT encoder at full width (batch 8,
               seq 512, hidden 1024, 16 heads, 12 layers, FFN 4096, vocab
               30522; bf16 mixed precision, Adam alpha 1e-4 with bf16
@@ -132,6 +145,27 @@ Phases, in order; any failure propagates and exits non-zero:
               through attached (shuffled) dataloaders: eval accuracy > 0.9
               each, the K=4 run's losses those of the eager run, the eager
               run's launches per step asserted.
+16. serve-graph — one decode iteration and one prefill chunk of the serve
+              LM through the eager walk and through a graph replay, on
+              the same caches and inputs: probabilities, picks and cache
+              rows the same bits; launches of one walk of each; the
+              profiler's device kernels of a replay those of a walk, and
+              each serving kernel's count in a replay the walk's
+              launches; the host wall of a dispatch each way;
+17. generate — GenerativeSession on the serve LM (batch 8, window 512,
+              max_len 1024): 8 prompts of one length from [32, 512], 64
+              greedy tokens at tokens_per_dispatch 1 and 8 (a CUDA graph
+              of K decode steps), the same tokens; ms a token; one-token
+              calls for the prefill's host wall; the session's own
+              launches only, 12 causal flash forwards on the tensor cores
+              a generate call;
+18. oneshot — the serve mix's first 8 requests under
+              prefill_chunk_tokens=0: agreement with the serve phase's
+              greedy tokens (reported), TTFT;
+19. prefix  — make_shared_prefix_workload(16, 4, 128, 2, 8, 32, 64) with
+              the prefix cache and without: hits and pages saved, the
+              followers' tokens the cold run's bits, TTFT of hits and
+              misses. Each of 16-19 must launch its path's kernels.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -154,6 +188,16 @@ TRAIN = dict(batch=8, seq=512, hidden=1024, heads=16, layers=12,
              vocab=30522)
 SERVE_KERNELS = ("decode_attention", "multiquery_decode_attention",
                  "layernorm_fwd", "softmax_fwd")
+# the kernels each serving phase of 16-19 must launch: the session and the
+# one-shot batcher prefill through the causal flash forward
+PATH_KERNELS = {
+    "serve-graph": SERVE_KERNELS,
+    "generate": ("flash_fwd", "decode_attention", "layernorm_fwd",
+                 "softmax_fwd"),
+    "oneshot": ("flash_fwd", "decode_attention", "layernorm_fwd",
+                "softmax_fwd"),
+    "prefix": SERVE_KERNELS,
+}
 # launches per training step of the full-width flagship (12 layers)
 TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
                   "layernorm_bwd": 24, "softmax_fwd": 1, "softmax_bwd": 1,
@@ -1035,6 +1079,34 @@ def train_kernels(torch, F, g):
             qt, kt, vt, scale=scale)),
         bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
         library="F.scaled_dot_product_attention on (b, h, l, d)")
+    # the serving paths' causal forward: one-shot prefill (b = 1) and the
+    # session's prefill (b = 8) at the serve LM's window; the bound counts
+    # half of the non-causal products (the masked half is work the card
+    # need not do)
+    fwd["serving_causal"] = {}
+    for sb in (1, 8):
+        q, k, v = (rnd(sb, l, e).to(torch.bfloat16) for _ in range(3))
+        shape = f"b={sb} l={l} h={h} d={d} bfloat16 causal"
+        o, lse = fa.flash_fwd(q, k, v, h, scale=scale, causal=True)
+        ro, _ = fa.flash_fwd_plain(q, k, v, h, scale, True)
+        row = _agree("flash_fwd (causal)", o, ro, (4e-3, 2e-2), shape)
+        bound = _bound(4 * sb * l * e * 2 + sb * l * h * 4,
+                       2 * sb * h * l * l * d, "bfloat16")
+        qt, kt, vt = (t.reshape(sb, l, h, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        row.update(
+            ms=_time_ms(torch, lambda: fa.flash_fwd(
+                q, k, v, h, scale=scale, causal=True)),
+            plain_ms=_time_ms(torch, lambda: fa.flash_fwd_plain(
+                q, k, v, h, scale, True)),
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale, is_causal=True)),
+            bound_ms=bound[0], bound_by=bound[1],
+            library="F.scaled_dot_product_attention(is_causal=True) on "
+                    "(b, h, l, d)")
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        fwd["serving_causal"][f"b={sb}"] = row
+    fwd["vs_library"] = fwd["ms"] / fwd["library_ms"]
     table["flash_fwd"] = fwd
     bwd.update(
         ms=_time_ms(torch, lambda: fa.flash_bwd(q, k, v, o, lse, do, h,
@@ -2235,6 +2307,321 @@ def phase_mlp(torch, epochs=12):
                          "fit equal in every key to a fresh model's"}
 
 
+def _walk_launches(torch, fn):
+    """The kernel launches of one call of fn (a walk), by kernel."""
+    from flexflow_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in launch_counts().items()
+            if n > before[k] and "/" not in k}
+
+
+# the device kernels of each serving wrapper, by symbol (a decode call
+# launches the split kernel, counted here, then the combine)
+SERVE_SYMBOLS = {
+    "decode_attention": ("decode_tc_kernel", "decode_cc_kernel"),
+    "multiquery_decode_attention": ("decode_tc_kernel", "decode_cc_kernel"),
+    "layernorm_fwd": ("layernorm_fwd_warp_kernel", "layernorm_fwd_kernel"),
+    "softmax_fwd": ("softmax_rows_kernel", "softmax_regs_kernel",
+                    "softmax_loop_kernel"),
+}
+
+
+def _device_kernels(torch, fn, reps):
+    """The device kernels (not copies) of one call of fn, by name, as
+    torch.profiler sees them over `reps` calls."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = Counter(e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset")))
+    return {name: n / reps for name, n in seen.items()}
+
+
+def phase_serve_graph(torch, lm, max_len, page, iters=20, reps=3):
+    """One decode iteration (8 slots, ragged positions) and one prefill
+    chunk (slot 3 at 480) of the serve LM, through the eager walk and
+    through a CUDA graph replay, on the same caches and inputs: the
+    probabilities, the picked tokens and every cache row the same bits
+    (the same kernels in the same order). The launches of one eager walk
+    of each (the wrappers' counts); the device kernels of a replay, seen
+    by the profiler over `reps` replays, equal to those of an eager walk,
+    and each serving kernel's among them equal to the walk's launches (a
+    replay runs no wrapper, so this is what shows the timed serve run's
+    replays run the serving kernels). Also the host wall of a dispatch
+    each way."""
+    import re
+
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    cb = ContinuousBatcher(lm, max_len=max_len, num_slots=8,
+                           page_size=page, prefix_cache_pages=0)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rng = np.random.RandomState(7)
+    dec = np.concatenate([rng.randint(0, 30522, size=8),
+                          [40, 97, 255, 300, 511, 700, 880, 1000],
+                          np.zeros(8)]).astype(np.int32)
+    chunk = np.append(rng.randint(0, 30522, size=page), 480).astype(np.int32)
+
+    def snap():
+        return [t.clone() for c in cb._caches.values() for t in c.values()]
+
+    def restore(saved):
+        for t, v in zip((t for c in cb._caches.values()
+                         for t in c.values()), saved):
+            t.copy_(v)
+
+    def eager_decode():
+        cb._dec_in.put(dec)
+        cb._decode_walk()
+        return cb._dec_tok.cpu().numpy()
+
+    def eager_chunk():
+        cb._chunk_in.put(chunk)
+        cb._chunk_walk(3)()
+
+    with torch.no_grad():
+        for c in cb._caches.values():
+            for t in c.values():
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        saved = snap()
+        walk = {"decode": _walk_launches(torch, eager_decode),
+                "chunk": _walk_launches(torch, eager_chunk)}
+        restore(saved)
+        cb._decode_dispatch(dec)   # warm-up and capture
+        cb._chunk_dispatch(3, chunk)
+        runs = []
+        for replay in (True, False):
+            restore(saved)
+            toks = cb._decode_dispatch(dec) if replay else eager_decode()
+            dprobs = cb._dec_probs.clone()
+            if replay:
+                cb._chunk_dispatch(3, chunk)
+            else:
+                eager_chunk()
+            runs.append((toks, dprobs, cb._chunk_probs.clone(), snap()))
+        (t0, d0, c0, k0), (t1, d1, c1, k1) = runs
+        same = {"tokens": bool(np.array_equal(t0, t1)),
+                "decode_probs": bool(torch.equal(d0, d1)),
+                "chunk_probs": bool(torch.equal(c0, c1)),
+                "cache_rows": all(torch.equal(a, b) for a, b in zip(k0, k1))}
+        if not all(same.values()):
+            raise AssertionError(f"graph replay vs eager walk: {same}")
+        replay_launches = {}
+        for which, eager, replay in (
+                ("decode", eager_decode, lambda: cb._decode_dispatch(dec)),
+                ("chunk", eager_chunk, lambda: cb._chunk_dispatch(3, chunk))):
+            walked = _device_kernels(torch, eager, reps)
+            replayed = _device_kernels(torch, replay, reps)
+            if walked != replayed:
+                diff = {k: (walked.get(k, 0), replayed.get(k, 0))
+                        for k in set(walked) | set(replayed)
+                        if walked.get(k, 0) != replayed.get(k, 0)}
+                raise AssertionError(f"{which}: device kernels (walk, "
+                                     f"replay) differ: {diff}")
+            replay_launches[which] = {
+                k: sum(n for name, n in replayed.items() if re.search(
+                    r"\b(%s)\b" % "|".join(SERVE_SYMBOLS[k]), name))
+                for k in walk[which] if k in SERVE_SYMBOLS}
+            off = {k: (walk[which][k], n)
+                   for k, n in replay_launches[which].items()
+                   if n != walk[which][k]}
+            if off or not replay_launches[which]:
+                raise AssertionError(f"{which}: a replay's serving kernels "
+                                     f"(walk launches, replay kernels): "
+                                     f"{off or replay_launches[which]}")
+            replay_launches[which]["device_kernels"] = sum(replayed.values())
+        wall = {}
+        for name, fn in (("decode_graph", lambda: cb._decode_dispatch(dec)),
+                         ("decode_eager", eager_decode),
+                         ("chunk_graph", lambda: (cb._chunk_dispatch(
+                             3, chunk), cb._chunk_probs[0, -1].argmax()
+                             .cpu())),
+                         ("chunk_eager", lambda: (eager_chunk(),
+                                                  cb._chunk_probs[0, -1]
+                                                  .argmax().cpu()))):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            wall[name] = (time.perf_counter() - t) / iters * 1e3
+    graphs = dict(cb.graphs)
+    del cb, saved, runs
+    return {"phase": "serve-graph", "same_bits": same,
+            "walk_launches": walk, "replay_launches": replay_launches,
+            "host_wall_ms_per_dispatch": wall, "graphs": graphs}
+
+
+def phase_generate(torch, lm, vocab, new=64):
+    """GenerativeSession on the serve LM at full width (batch 8, window
+    512, max_len 1024): 8 prompts of one length drawn from [32, 512],
+    greedy at tokens_per_dispatch 1 and 8, each three times (the first
+    call captures the graphs of 8 steps and of the ragged 7, the second
+    makes the first replay of the latter, which uploads it): the same
+    tokens; the host wall of the third call. Then three calls of one new
+    token: the prefill and the first pick alone (the third timed). Every
+    launch of the phase is the session's own: each generate call prefills
+    through the causal flash forward, one launch a layer on the tensor
+    cores."""
+    import numpy as np
+
+    from flexflow_tpu_torch.ffconst import OpType
+    from flexflow_tpu_torch.kernels import launch_counts
+    from flexflow_tpu_torch.serving import GenerativeSession
+
+    layers = sum(op.op_type == OpType.MULTIHEAD_ATTENTION
+                 for op in lm.graph.ops.values())
+    rng = np.random.RandomState(5)
+    plen = int(rng.randint(32, 513))
+    prompts = rng.randint(0, vocab, size=(8, plen)).astype(np.int32)
+    s = GenerativeSession(lm, max_len=1024)
+    calls = 0
+    runs = {}
+    for k, n in ((1, new), (8, new), (1, 1)):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            toks = s.generate(prompts, n, tokens_per_dispatch=k)
+            runs[k, n] = (toks, (time.perf_counter() - t) * 1e3)
+            calls += 1
+    if runs[1, new][0].shape != (8, new) or not np.array_equal(
+            runs[1, new][0], runs[8, new][0]):
+        raise AssertionError("session tokens differ between "
+                             "tokens_per_dispatch 1 and 8")
+    if not np.array_equal(runs[1, 1][0], runs[1, new][0][:, :1]):
+        raise AssertionError("a one-token call's token differs from the "
+                             "first of a longer call's")
+    if runs[1, new][0].min() < 0 or runs[1, new][0].max() >= vocab:
+        raise AssertionError("session token out of range")
+    counts = launch_counts()
+    flash = {"flash_fwd": counts["flash_fwd"],
+             "flash_fwd/tc": counts["flash_fwd/tc"]}
+    if flash != {"flash_fwd": layers * calls,
+                 "flash_fwd/tc": layers * calls}:
+        raise AssertionError(f"the session's {calls} generate calls "
+                             f"launched {flash}, expected {layers} a call "
+                             f"on the tensor cores")
+    prefill = runs[1, 1][1]
+    graphs = dict(s.counts)
+    del s
+    return {"phase": "generate", "prompt_len": plen, "new_tokens": new,
+            "tokens_identical_k1_k8": True, "generate_calls": calls,
+            "flash_fwd_launches": flash,
+            "wall_ms": {f"k={k}": runs[k, new][1] for k in (1, 8)},
+            "ms_per_token": {f"k={k}": runs[k, new][1] / new
+                             for k in (1, 8)},
+            # host walls of the session's own calls: a one-token call
+            # (prefill and first pick), and the rest of a 64-token call
+            "prefill_ms": prefill,
+            "decode_ms_per_token": {f"k={k}": (runs[k, new][1] - prefill)
+                                    / (new - 1) for k in (1, 8)},
+            "graphs": graphs}
+
+
+def phase_oneshot(torch, lm, max_len, page, prompts, news, chunked):
+    """The serve mix's first 8 requests under prefill_chunk_tokens=0 (one
+    full-sequence walk a request fills the slot's caches, the flash
+    forward causal at b = 1): greedy agreement with the chunked run's
+    tokens (reported; bf16 at 12 layers may break near-ties otherwise)
+    and TTFT."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    with ContinuousBatcher(lm, max_len=max_len, num_slots=8,
+                           page_size=page, prefill_chunk_tokens=0) as cb:
+        cb.submit(np.arange(1, 41, dtype=np.int32), 4).result(timeout=600)
+        t0 = time.perf_counter()
+        reqs = [cb.submit(p, n) for p, n in zip(prompts, news)]
+        outs = [r.result(timeout=900) for r in reqs]
+        wall = time.perf_counter() - t0
+        stats = cb.stats()
+    for out, n in zip(outs, news):
+        if len(out) != n:
+            raise AssertionError(f"one-shot request: {len(out)} tokens, "
+                                 f"expected {n}")
+    agree = [int(np.argmax(np.append(a != b, True))) for a, b in
+             zip(outs, chunked)]
+    ttft = np.array([r.ttft_s for r in reqs]) * 1e3
+    return {"phase": "oneshot", "requests": len(reqs),
+            "identical_requests": sum(bool(np.array_equal(a, b))
+                                      for a, b in zip(outs, chunked)),
+            "leading_tokens_equal": agree, "new_tokens": news,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "tokens_per_s": sum(map(len, outs)) / wall,
+            "graphs": stats["graphs"], "prefill_chunks":
+            stats["prefill_chunks"]}
+
+
+def phase_prefix(torch, lm, max_len, page, vocab):
+    """make_shared_prefix_workload(16, 4, 128, 2, 8, 32, 64, vocab, seed 0)
+    (the JAX serve-bench's shared-prefix defaults), leaders first, then
+    followers, through the default batcher (prefix cache on) and one with
+    prefix_cache_pages=0: hits and pages saved, every follower's greedy
+    tokens the cold run's bits, TTFT of hits and misses."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.sched import (
+        ContinuousBatcher, make_shared_prefix_workload)
+
+    work = make_shared_prefix_workload(16, 4, 128, 2, 8, 32, 64, vocab, 0)
+
+    def run(pages):
+        with ContinuousBatcher(lm, max_len=max_len, num_slots=8,
+                               page_size=page, prefix_cache_pages=pages,
+                               max_queue=32) as cb:
+            # zeros never occur in the workload (ids from [1, vocab))
+            warm = [cb.submit(np.zeros(40, np.int32), 4) for _ in range(8)]
+            for r in warm:
+                r.result(timeout=600)
+            lead = [cb.submit(w["prompt"], w["max_new"])
+                    for w in work if w["leader"]]
+            for r in lead:
+                r.result(timeout=900)
+            foll = [cb.submit(w["prompt"], w["max_new"])
+                    for w in work if not w["leader"]]
+            for r in foll:
+                r.result(timeout=900)
+            return lead, foll, cb.stats()
+
+    lead, foll, stats = run(None)
+    _, cold_foll, cold_stats = run(0)
+    prefix = stats["pool"]["prefix"]
+    if prefix["hits"] == 0 or prefix["pages_saved"] == 0:
+        raise AssertionError(f"no prefix-cache hits: {prefix}")
+    same = [bool(np.array_equal(a.result(), b.result()))
+            for a, b in zip(foll, cold_foll)]
+    if not all(same):
+        raise AssertionError(f"followers' tokens differ from the cold "
+                             f"run's: {same}")
+    hit = [r.ttft_s * 1e3 for r in foll if r.cache_hit]
+    miss = [r.ttft_s * 1e3 for r in lead]
+    cold = [r.ttft_s * 1e3 for r in cold_foll]
+    return {"phase": "prefix", "requests": len(work),
+            "followers_hit": sum(r.cache_hit for r in foll),
+            "followers_identical_to_cold": True, "prefix": prefix,
+            "prefill_chunks": stats["prefill_chunks"],
+            "prefill_chunks_cold": cold_stats["prefill_chunks"],
+            "ttft_ms_hit_p50": float(np.percentile(hit, 50)),
+            "ttft_ms_miss_p50": float(np.percentile(miss, 50)),
+            "ttft_ms_cold_followers_p50": float(np.percentile(cold, 50)),
+            "graphs": stats["graphs"]}
+
+
 def _prefill_probs(torch, model, prompt, chunk, max_len):
     """First-token distribution of `prompt`, prefilled chunk by chunk into
     fresh one-slot caches through the executor (the batcher's path)."""
@@ -2345,24 +2732,41 @@ def main() -> int:
                    for t in ws.values())
     build_s = time.perf_counter() - t0
     rng = np.random.RandomState(0)
-    with ContinuousBatcher(lm, max_len=max_len, num_slots=num_slots,
-                           page_size=page) as cb:  # warm-up: cuBLAS init
-        cb.submit(rng.randint(0, vocab, size=40), 4).result(timeout=600)
+    # the default batcher: the decode iteration and every slot's prefill
+    # chunk as CUDA graphs, the prefix cache on. The launch counts cover
+    # the warm-up, which captures the graphs (a replay runs no wrapper)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    cb = ContinuousBatcher(lm, max_len=max_len, num_slots=num_slots,
+                           page_size=page)
+    cb.start()
+    # one a slot, so every graph is captured; the first drawn from `rng`
+    # as the earlier single warm-up request was, the rest from their own
+    # stream, so the timed mix stays the one earlier runs served
+    warm_rng = np.random.RandomState(1)
+    warm = [cb.submit((rng if i == 0 else warm_rng).randint(
+        0, vocab, size=40), 4) for i in range(num_slots)]
+    for r in warm:
+        r.result(timeout=600)
+    warm_graphs = dict(cb.stats()["graphs"])
     plens = rng.randint(32, 513, size=16)
     news = rng.randint(32, 65, size=16)
     prompts = [rng.randint(0, vocab, size=int(n)).astype(np.int32)
                for n in plens]
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
     t0 = time.perf_counter()
-    with ContinuousBatcher(lm, max_len=max_len, num_slots=num_slots,
-                           page_size=page) as cb:
-        reqs = [cb.submit(p, int(n)) for p, n in zip(prompts, news)]
-        outs = [r.result(timeout=900) for r in reqs]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        stats = cb.stats()
+    reqs = [cb.submit(p, int(n)) for p, n in zip(prompts, news)]
+    outs = [r.result(timeout=900) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cb.stop()
+    stats = cb.stats()
     launches = launch_counts()
+    timed_graphs = {k: v - warm_graphs[k] for k, v in stats["graphs"].items()}
+    if (timed_graphs["replays"] == 0 or any(
+            timed_graphs[k] for k in ("warmups", "captures", "eager_walks"))
+            or warm_graphs["eager_walks"]):
+        raise AssertionError(f"the timed serve run must only replay graphs "
+                             f"(warm-up {warm_graphs}, timed {timed_graphs})")
     for r, out, n in zip(reqs, outs, news):
         if len(out) != int(n):
             raise AssertionError(f"request {r.id}: {len(out)} tokens, "
@@ -2406,6 +2810,14 @@ def main() -> int:
         "decode_iter_ms": stats["decode_iter_s"] * 1e3,
         "decode_iterations": stats["decode_iterations"],
         "prefill_chunks": stats["prefill_chunks"],
+        "graphs_warmup": warm_graphs, "graphs_timed": timed_graphs,
+        "prefix": stats["pool"]["prefix"],
+        "launches_cover": "the warm-up only (8 requests: the eager "
+                          "warm-up and the capture of the decode graph and "
+                          "of each slot's chunk graph); the timed run only "
+                          "replays, which counts nothing here (serve-graph "
+                          "holds a replay's device kernels against a walk's "
+                          "launches)",
         "decode_routes": {k: launches[k] for k in launches
                           if k.startswith(("decode_attention/",
                                            "multiquery_decode_attention/"))},
@@ -2441,9 +2853,37 @@ def main() -> int:
         if err > tol:
             raise AssertionError(f"card vs CPU first-token probabilities: "
                                  f"{cross[-1]}")
+    # the same, the card's probabilities read from the serve batcher's
+    # captured chunk graph (slot 0 replayed chunk by chunk)
+    for plen in (40, 75):
+        prompt = rng.randint(0, vocab, size=plen).astype(np.int32)
+        with torch.no_grad():
+            for off in range(0, plen, page):
+                n = min(page, plen - off)
+                host = np.zeros(page + 1, np.int32)
+                host[:n] = prompt[off:off + n]
+                host[page] = off
+                cb._chunk_dispatch(0, host)
+            p_gpu = cb._chunk_probs[0, n - 1].float().cpu()
+        p_cpu = _prefill_probs(torch, cpu, prompt, page, 128)
+        err = float((p_gpu - p_cpu).abs().max())
+        tol = 0.05 * float(p_cpu.max())
+        cross.append({"prompt_len": plen, "captured_chunk": True,
+                      "max_abs_err": err, "tolerance": tol,
+                      "max_prob": float(p_cpu.max()),
+                      "sum": float(p_gpu.sum()),
+                      "argmax_agrees": int(p_gpu.argmax()) == int(
+                          p_cpu.argmax())})
+        if not torch.isfinite(p_gpu).all() or err > tol:
+            raise AssertionError(f"captured chunk vs CPU first-token "
+                                 f"probabilities: {cross[-1]}")
+    if cb.stats()["graphs"]["captures"] != stats["graphs"]["captures"]:
+        raise AssertionError("the cross-check re-captured a chunk graph")
+    del cb
     _emit({"phase": "cross", "checks": cross,
            "tolerance": "max|p_card - p_cpu| <= 0.05 * max(p_cpu)",
            "seconds_since_start": time.perf_counter() - t_start})
+    del cpu
 
     # 6) train, 7) train-witness, 8) train-cross
     train, init = phase_train(torch)
@@ -2475,10 +2915,32 @@ def main() -> int:
     mlp = phase_mlp(torch)
     _emit(dict(mlp, seconds_since_start=time.perf_counter() - t_start))
 
-    # 16) the kernel table, the card, the result. A kernel's launches are
+    # 16) serve-graph, 17) generate, 18) oneshot, 19) prefix: the serve LM
+    serving_paths = {}
+    for name, fn in (
+            ("serve-graph", lambda: phase_serve_graph(torch, lm, max_len,
+                                                      page)),
+            ("generate", lambda: phase_generate(torch, lm, vocab)),
+            ("oneshot", lambda: phase_oneshot(
+                torch, lm, max_len, page, prompts[:8],
+                [int(n) for n in news[:8]], outs[:8])),
+            ("prefix", lambda: phase_prefix(torch, lm, max_len, page,
+                                            vocab))):
+        reset_launch_counts()
+        line = fn()
+        counts = launch_counts()
+        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: "
+                                 f"{missing}")
+        serving_paths[name] = {k: counts[k] for k in PATH_KERNELS[name]}
+        _emit(dict(line, launches=serving_paths[name],
+                   seconds_since_start=time.perf_counter() - t_start))
+
+    # 20) the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
-    # on rank 0, train-graph's graphed fit, mlp's eager fit), each counted
-    # from 0 just before its path ran
+    # on rank 0, train-graph's graphed fit, mlp's eager fit, and the
+    # serving phases 16-19), each counted from 0 just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:130",
@@ -2518,7 +2980,9 @@ def main() -> int:
     for name in replaces:
         by_path = {}
         if name in SERVE_KERNELS:
-            by_path["serve"] = launches[name]
+            # the timed serve run replays graphs, which run no wrapper:
+            # serve-graph's profiler shows a replay's kernels
+            by_path["serve_warmup_and_capture"] = launches[name]
         if name in TRAIN_KERNELS:
             by_path["train"] = train["launches"][name]
         if name in TIER_KERNELS:
@@ -2531,6 +2995,9 @@ def main() -> int:
             by_path["train-graph"] = train_graph["graph"]["launches"][name]
         if name in MLP_PER_STEP:
             by_path["mlp"] = mlp["eager"]["launches"][name]
+        for path, counts in serving_paths.items():
+            if name in counts:
+                by_path[path] = counts[name]
         row = dict(
             name=name, route="cuda", source=sources.get(name, src + "norm.cu"),
             replaces=replaces[name], launches=sum(by_path.values()),

@@ -54,9 +54,16 @@ class LoweringContext:
         # "k_cache"/"v_cache" are written IN PLACE (the batcher preallocates
         # them once — the port's counterpart of jit-donated buffers)
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
-        # KV-cache decoding: an int chunk offset, or a (B,) int32 tensor of
-        # per-row positions (ops/attention.py _decode_step)
+        # KV-cache decoding: a 0-d int32 tensor chunk offset, or a (B,)
+        # int32 tensor of per-row positions (ops/attention.py _decode_step)
         self.decode_pos = None
+        # a full-sequence (prefill) walk that also writes its K/V rows into
+        # the caches in `state` (ops/attention.py _full_sequence)
+        self.fill_kv_cache = False
+        # a 0-d chunk offset's (cache rows, source rows), made by the first
+        # attention op of the walk and read by the others
+        # (ops/attention.py _chunk_rows)
+        self.chunk_rows = None
         # this process's core.machine.Mesh, None on one device
         self.mesh = None
 

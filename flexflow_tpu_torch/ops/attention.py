@@ -42,12 +42,24 @@ einsum decode chain over the whole cache. Two entries, as `_decode_step`
 in the JAX package:
  - a (B,) int32 tensor of per-slot positions with one query token per
    slot: the continuous batcher's decode iteration;
- - an int chunk offset with C >= 1 query tokens: chunked prefill. The
+ - a chunk offset with C >= 1 query tokens: chunked prefill. The
    chunk's K/V rows land at [pos, pos + C) and query j attends rows
    <= pos + j. Rows past the cache edge are DROPPED, where JAX's
    `dynamic_update_slice` would clamp the start and shift the chunk; the
    JAX batcher keeps chunk - 1 slack rows so that its clamp never fires,
-   the port writes the pool slot directly and drops the padded tail.
+   the port writes the pool slot directly and drops the padded tail. The
+   offset is a 0-d int32 tensor on the device (the executor makes one of
+   a host int), so a prefill chunk captured in a CUDA graph takes a new
+   offset at every replay: the rows are written through device indices,
+   each row past the edge aimed at the last row with the last row's own
+   value, so 0 <= offset < M must hold.
+
+Prefill (`fill_kv_cache`, the JAX package's `ops/attention.py:179-195`):
+a full-sequence walk whose state holds this op's caches writes the
+projections' K/V rows into cache rows [0, l) (at most M of them), then
+attends as the full-sequence path does (the flash kernel, causal for the
+LM, or the einsum core). The packed (b, l, h*d) projections view into
+the cache's (b, l, h, d) rows for free.
 """
 from __future__ import annotations
 
@@ -170,6 +182,11 @@ class MultiHeadAttentionOp(Op):
         h*d) projections with no transposes around the kernel, or on a
         tensor-parallel mesh the head-separated branch. The reference: its
         einsum core."""
+        fill = ctx.fill_kv_cache and self.name in ctx.state
+        if fill and ctx.mesh is not None:
+            raise NotImplementedError(
+                f"{self.name}: KV-cache prefill on a mesh (sharded "
+                "serving) is not ported yet (ROADMAP A8)")
         if ctx.mesh is not None and ctx.mesh.size("model") > 1:
             return self._tensor_parallel(ctx, q_in, k_in, v_in)
         _, _, _, embed, heads, kdim, vdim = self._dims()
@@ -177,6 +194,12 @@ class MultiHeadAttentionOp(Op):
         q = self._project(q_in, "wq", "bq", cdt)
         k = self._project(k_in, "wk", "bk", cdt)
         v = self._project(v_in, "wv", "bv", cdt)
+        if fill:
+            kc = ctx.state[self.name]["k_cache"]
+            vc = ctx.state[self.name]["v_cache"]
+            n = min(k.shape[1], kc.shape[1])
+            kc[:, :n] = k[:, :n].to(kc.dtype)
+            vc[:, :n] = v[:, :n].to(vc.dtype)
         scale = 1.0 / math.sqrt(kdim)
         causal = self.params.get("causal", False)
         if self._use_flash(ctx, q_in.device):
@@ -248,14 +271,27 @@ class MultiHeadAttentionOp(Op):
 
     def _decode_step(self, ctx, q, k, v, scale):
         """Write the new tokens' K/V rows into the caches, then attend:
-        per-slot positions (vector, C = 1) or a chunk offset (int, C >= 1)."""
+        per-slot positions (vector, C = 1) or a chunk offset (0-d,
+        C >= 1)."""
         pos = ctx.decode_pos
         kc = ctx.state[self.name]["k_cache"]
         vc = ctx.state[self.name]["v_cache"]
         b, c = q.shape[0], q.shape[1]
         block_k = ctx.config.flash_block_k
-        vector = torch.is_tensor(pos)
-        if vector:
+        vector = pos.dim() == 1
+        if not vector:
+            rows, src = _chunk_rows(ctx, pos, c, kc.shape[1])
+            kc.index_copy_(1, rows, k[:, src].to(kc.dtype))
+            vc.index_copy_(1, rows, v[:, src].to(vc.dtype))
+            if KERNELS.resolve(self.kernel_memo, "attention_decode_mq",
+                               config=ctx.config, device=kc.device):
+                posv = pos.reshape(1).expand(b).contiguous()
+                ctxv = multiquery_decode_attention(q, kc, vc, posv,
+                                                   scale=scale,
+                                                   block_k=block_k)
+                return self._decode_project(ctxv, q.dtype)
+            qpos = pos.long() + torch.arange(c, device=kc.device)[None, :]
+        else:
             if c != 1:
                 raise NotImplementedError(
                     f"{self.name}: per-slot positions with C={c} query "
@@ -271,20 +307,6 @@ class MultiHeadAttentionOp(Op):
                                         block_k=block_k)
                 return self._decode_project(ctxv, q.dtype)
             qpos = pos.long()[:, None]                       # (B, C)
-        else:
-            off = int(pos)
-            n = min(c, kc.shape[1] - off)
-            kc[:, off:off + n] = k[:, :n].to(kc.dtype)
-            vc[:, off:off + n] = v[:, :n].to(vc.dtype)
-            if KERNELS.resolve(self.kernel_memo, "attention_decode_mq",
-                               config=ctx.config, device=kc.device):
-                posv = torch.full((b,), off, dtype=torch.int32,
-                                  device=kc.device)
-                ctxv = multiquery_decode_attention(q, kc, vc, posv,
-                                                   scale=scale,
-                                                   block_k=block_k)
-                return self._decode_project(ctxv, q.dtype)
-            qpos = off + torch.arange(c, device=kc.device)[None, :]
         # the JAX package's einsum decode chain: query j attends cache rows
         # <= its absolute position, over the whole cache
         mask = (torch.arange(kc.shape[1], device=kc.device)[None, None, :]
@@ -308,3 +330,17 @@ class MultiHeadAttentionOp(Op):
         if self.has_weight("bo"):
             out = out + self.w("bo")
         return out
+
+
+def _chunk_rows(ctx, off: torch.Tensor, c: int, m: int):
+    """Cache rows and source rows of a chunk at the 0-d device offset
+    `off`, made once a walk (every cache of a walk has m rows): query j
+    writes row off + j; a row past the cache edge is aimed at row m - 1
+    with the source of row m - 1 (which the chunk holds whenever 0 <= off
+    < m), so every write a row takes carries the same value and the rows
+    past the edge are dropped."""
+    if ctx.chunk_rows is None:
+        j = torch.arange(c, device=off.device)
+        rows = (off.long() + j).clamp(max=m - 1)
+        ctx.chunk_rows = (rows, (rows - off.long()).clamp(0, c - 1))
+    return ctx.chunk_rows

@@ -34,6 +34,7 @@ from ..core.op import LoweringContext
 from ..ffconst import CompMode, OpType
 from ..ops.common import emit_dtype
 from .collectives import mean_
+from .graphs import CapturedCall, Staging, graph_counts
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -80,19 +81,31 @@ class Executor:
         state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         decode_pos=None,
         mode: CompMode = CompMode.COMP_MODE_INFERENCE,
+        fill_kv_cache: bool = False,
     ) -> Dict[int, torch.Tensor]:
         """Returns tensor guid -> value. state: op name -> {var: tensor},
         e.g. each attention op's "k_cache"/"v_cache", updated in place.
-        decode_pos: an int chunk offset or a (B,) int32 tensor of per-row
-        positions (ops/attention.py). COMP_MODE_TRAINING records the walk
-        for autograd and takes no caches."""
+        decode_pos: an int chunk offset, a 0-d int32 tensor offset, or a
+        (B,) int32 tensor of per-row positions (ops/attention.py).
+        fill_kv_cache: a full-sequence (prefill) walk that also writes the
+        prompt's K/V rows into the caches in `state`. COMP_MODE_TRAINING
+        records the walk for autograd and takes no caches."""
         training = mode == CompMode.COMP_MODE_TRAINING
-        if training and (state or decode_pos is not None):
+        if training and (state or decode_pos is not None or fill_kv_cache):
             raise ValueError("a training walk takes no KV caches and no "
                              "decode position")
+        if fill_kv_cache and decode_pos is not None:
+            raise ValueError("fill_kv_cache is a full-sequence walk: it "
+                             "takes no decode position")
+        if isinstance(decode_pos, (int, np.integer)):
+            # one chunk-offset entry: a host offset becomes the 0-d device
+            # tensor a captured chunk passes
+            decode_pos = torch.tensor(int(decode_pos), dtype=torch.int32,
+                                      device=self.device)
         ctx = LoweringContext(self.config, mode)
         ctx.mesh = self.mesh
         ctx.decode_pos = decode_pos
+        ctx.fill_kv_cache = bool(fill_kv_cache)
         ctx.state = state if state is not None else {}
         with torch.set_grad_enabled(training):
             for op in self.topo:
@@ -250,22 +263,22 @@ class MultiStep:
     result is queued, not waited for: reading it to the host waits.
 
     On the CPU the K steps run eagerly, one after another. On the card
-    they are one CUDA graph: the steps read their batches from static
-    stacked (K, batch, ...) buffers, packed into one byte buffer that a
-    dispatch fills by ONE copy from pinned host memory (two pinned
-    buffers alternate, each reused after its copy's event), then the
-    graph replays. The first dispatch runs its K steps eagerly on a side
-    stream (the warm-up that capture needs: cuBLAS workspaces, kernel
-    attributes, the autograd engine's streams), then captures the K
-    steps; later dispatches replay. A launch counter counts the first
-    dispatch's K eager steps and the capture's K, and nothing for a
-    replay. A failed capture or replay raises: there is no eager
-    fallback on the card. The graph's private memory pool holds one
-    step's activations and gradients for the graph's lifetime. A replay
-    writes the weights and the optimizer state behind autograd's back, so
-    each replay bumps their version counters, as an in-place op would:
-    what caches a weight by its version (core/op.py `Op.w`) sees the
-    change."""
+    they are one CUDA graph (runtime/graphs.py `CapturedCall`): the steps
+    read their batches from static stacked (K, batch, ...) buffers,
+    packed into one byte buffer that a dispatch fills by ONE copy from
+    pinned host memory (`Staging`), then the graph replays. The first
+    dispatch runs its K steps eagerly on a side stream (the warm-up that
+    capture needs: cuBLAS workspaces, kernel attributes, the autograd
+    engine's streams), then captures the K steps; later dispatches
+    replay. A launch counter counts the first dispatch's K eager steps
+    and the capture's K, and nothing for a replay. A failed capture or
+    replay raises: there is no eager fallback on the card. The graph's
+    private memory pool holds one step's activations and gradients for
+    the graph's lifetime. The graph writes the weights itself, so it is
+    captured with no weights to watch; a replay writes the weights and
+    the optimizer state behind autograd's back, so each replay bumps
+    their version counters, as an in-place op would: what caches a
+    weight by its version (core/op.py `Op.w`) sees the change."""
 
     _ALIGN = 16
 
@@ -276,7 +289,8 @@ class MultiStep:
         self.keys = list(keys)
         self.steps = int(steps)
         self.device = executor.device
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.call: Optional[CapturedCall] = None
+        self.counts = graph_counts()
         self.layout = None
 
     def __call__(self, batches: Sequence[Tuple[Dict[str, np.ndarray],
@@ -300,21 +314,14 @@ class MultiStep:
             raise ValueError(f"MultiStep: batch layout {layout} differs "
                              f"from the captured {self.layout}")
         self._stage(batches)
-        if self.graph is None:
-            cur = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                self._steps(opt_state)
-            cur.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._steps(opt_state)
-            self.graph = graph
+        if self.call is None:
+            self.call = CapturedCall(lambda: self._steps(opt_state),
+                                     self.device, [], self.counts)
+            self.call()
             self.written = [p for ws in self.executor.parameters().values()
                             for p in ws.values()] + _leaves(opt_state)
         else:
-            self.graph.replay()
+            self.call()
             torch.autograd.graph.increment_version(self.written)
         return self.out.clone()
 
@@ -326,44 +333,32 @@ class MultiStep:
                      for k, a in arrays)
 
     def _allocate(self, layout) -> None:
-        """The static byte buffer on the card, two pinned twins, and each
-        (K, batch, ...) array's view into them (16-byte aligned)."""
+        """The static byte buffer on the card, its staging, and each
+        (K, batch, ...) array's view into it (16-byte aligned)."""
         self.layout = layout
         spans, off = [], 0
         for name, shape, dt in layout:
             nbytes = self.steps * int(np.prod(shape)) * np.dtype(dt).itemsize
             spans.append((name, off, nbytes, shape, np.dtype(dt)))
             off += -(-nbytes // self._ALIGN) * self._ALIGN
-        self.static = torch.empty(max(off, 1), dtype=torch.uint8,
-                                  device=self.device)
-        self.pinned = [torch.empty(max(off, 1), dtype=torch.uint8,
-                                   pin_memory=True) for _ in range(2)]
-        self.copied = [None, None]
-        self.turn = 0
+        self.staging = Staging(max(off, 1), self.device, torch.uint8)
         self.spans = spans
         self.views = {}
         for name, start, nbytes, shape, dt in spans:
-            seg = self.static[start:start + nbytes]
+            seg = self.staging.buf[start:start + nbytes]
             tdt = torch.from_numpy(np.empty(0, dt)).dtype
             self.views[name] = seg.view(tdt).view(self.steps, *shape)
         self.out = torch.zeros((len(self.keys), self.steps),
                                dtype=torch.float32, device=self.device)
 
     def _stage(self, batches) -> None:
-        buf = self.pinned[self.turn]
-        if self.copied[self.turn] is not None:
-            self.copied[self.turn].synchronize()
-        host = buf.numpy()
+        host = self.staging.host()
         for name, start, nbytes, shape, dt in self.spans:
             dst = host[start:start + nbytes].view(dt).reshape(
                 self.steps, *shape)
             for j, (inputs, label) in enumerate(batches):
                 dst[j] = label if name == "" else inputs[name]
-        self.static.copy_(buf, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        self.copied[self.turn] = event
-        self.turn ^= 1
+        self.staging.send()
 
     def _steps(self, opt_state) -> None:
         """The K steps from the static buffers, each writing its metrics

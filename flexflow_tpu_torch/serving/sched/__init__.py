@@ -1,12 +1,18 @@
-"""Continuous-batching serving: the paged KV pool, admission control and
-the ContinuousBatcher (counterpart of flexflow_tpu/serving/sched/)."""
+"""Continuous-batching serving: the paged KV pool and its prefix cache,
+admission control, the ContinuousBatcher and the shared-prefix workload
+(counterpart of flexflow_tpu/serving/sched/)."""
 from .admission import (AdmissionController, AdmissionError, PoolSaturated,
                         QueueFull, RequestTooLarge)
+from .bench import make_shared_prefix_workload
 from .continuous import (BatcherStopped, ContinuousBatcher, GenRequest,
                          RequestState)
-from .kvpool import PagedKVPool, PoolExhausted, kv_bytes_per_token, kv_cache_spec
+from .kvpool import (PagedKVPool, PoolExhausted, PrefixCache,
+                     kv_bytes_per_token, kv_cache_spec, prefix_route_chain,
+                     prefix_route_key)
 
 __all__ = ["AdmissionController", "AdmissionError", "BatcherStopped",
            "ContinuousBatcher", "GenRequest", "PagedKVPool", "PoolExhausted",
-           "PoolSaturated", "QueueFull", "RequestState", "RequestTooLarge",
-           "kv_bytes_per_token", "kv_cache_spec"]
+           "PoolSaturated", "PrefixCache", "QueueFull", "RequestState",
+           "RequestTooLarge", "kv_bytes_per_token", "kv_cache_spec",
+           "make_shared_prefix_workload", "prefix_route_chain",
+           "prefix_route_key"]

@@ -79,9 +79,13 @@ class AdmissionController:
         self.rejections[err.reason] = self.rejections.get(err.reason, 0) + 1
         return err
 
-    def admit(self, req_id, prompt_len: int, max_new_tokens: int) -> None:
+    def admit(self, req_id, prompt_len: int, max_new_tokens: int,
+              shared_pages: int = 0) -> None:
         """Admit or raise. On success the request's worst-case pages count
-        against the backlog budget until `on_scheduled`."""
+        against the backlog budget until `on_scheduled`. shared_pages:
+        prefix pages the pool's cache is expected to install rather than
+        prefill (a probe at submit), credited against the backlog budget,
+        never against the static per-slot capacity check."""
         prompt_len = int(prompt_len)
         max_new_tokens = int(max_new_tokens)
         if prompt_len < 1:
@@ -96,7 +100,7 @@ class AdmissionController:
                 f"prompt ({prompt_len}) + max_new_tokens"
                 f" ({max_new_tokens}) = {worst} exceeds the cache capacity"
                 f" ({self.pool.max_len})"))
-        need = self.pool.pages_for(worst)
+        need = max(1, self.pool.pages_for(worst) - max(0, int(shared_pages)))
         with self._lock:
             depth = len(self._queued_pages)
             if depth >= self.max_queue:

@@ -1,10 +1,12 @@
-"""The serve-bench model builder (counterpart of
-flexflow_tpu/serving/sched/bench.py `build_tiny_lm`). The serve-bench CLI
-itself comes with a later slice."""
+"""The serve-bench model builder and the shared-prefix workload
+(counterparts of flexflow_tpu/serving/sched/bench.py `build_tiny_lm` and
+`make_shared_prefix_workload`). The serve-bench CLI itself comes with a
+later slice."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ...config import FFConfig
@@ -41,3 +43,30 @@ def build_tiny_lm(batch: int, window: int, vocab: int = 64,
     model.compile(comp_mode=CompMode.COMP_MODE_INFERENCE,
                   generator=generator)
     return model
+
+
+def make_shared_prefix_workload(n: int, groups: int, prefix_len: int,
+                                suffix_min: int, suffix_max: int,
+                                out_min: int, out_max: int, vocab: int,
+                                seed: int) -> List[Dict]:
+    """N requests over `groups` distinct system prompts: request i carries
+    prefix (i % groups) plus a unique suffix. The first request of each
+    group is the LEADER (a cold prefill that fills the prefix cache); the
+    rest should hit. The JAX serve-bench defaults: 4 groups, a 128-token
+    prefix, 2-8 suffix tokens."""
+    rng = np.random.RandomState(seed)
+    prefixes = [rng.randint(1, vocab, size=(prefix_len,)).astype(np.int32)
+                for _ in range(groups)]
+    reqs = []
+    for i in range(n):
+        g = i % groups
+        slen = int(rng.randint(suffix_min, suffix_max + 1))
+        reqs.append({
+            "prompt": np.concatenate(
+                [prefixes[g],
+                 rng.randint(1, vocab, size=(slen,)).astype(np.int32)]),
+            "max_new": int(rng.randint(out_min, out_max + 1)),
+            "group": g,
+            "leader": i < groups,
+        })
+    return reqs

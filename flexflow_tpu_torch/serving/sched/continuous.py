@@ -7,7 +7,10 @@ EOS or reaches max_new_tokens frees its slot and pages that iteration,
 and a queued request starts prefilling into the freed slot on the next
 one while the others keep decoding. Prompts prefill in fixed-size chunks
 (one KV page per scheduler iteration by default) through the chunk-offset
-entry, interleaved with decode iterations.
+entry, interleaved with decode iterations; `prefill_chunk_tokens=0` runs
+the one-shot prefill instead: one full-sequence walk over the padded
+window that fills the slot's caches (the flash kernel, causal, on the
+card), the prompt capped at the window.
 
 Requests move through a small state machine::
 
@@ -22,39 +25,62 @@ writes straight into its slot's rows (a view of the pool caches); the JAX
 batcher prefills into separate batch-1 caches and scatters them into the
 slot at the end. Either way the rows a query can attend are the prompt's.
 
-Determinism: greedy decode (temperature <= 0) is a function of the prompt
-alone, whatever shares the batch. Sampled decode draws each token from a
-generator seeded by the request's (seed, position), so a request's tokens
-depend only on its own seed and prompt, never on co-scheduled traffic.
-The numbers are not jax.random's, so sampled tokens differ from the JAX
-batcher's.
+Compiled dispatches: on the card the decode iteration is ONE CUDA graph
+(runtime/graphs.py; the counterpart of the JAX batcher's jitted
+`decode_all`): the tokens, positions and sampling keys of every slot go
+from pinned host memory into a static buffer by one copy, the graph
+replays the walk and the pick (greedy's argmax, or the sampled pick)
+into static outputs, and the tokens are read back. A prefill chunk is one
+CUDA graph per slot (the slot's cache rows are fixed views; the JAX
+batcher's `prefill_chunk` / `prefill_last_chunk`), its offset a 0-d
+device buffer; all graphs share one memory pool and replay one at a time,
+and the first token is picked from the chunk's static output. A graph is
+captured at its first dispatch and again after the weights changed. The
+one-shot prefill, the prefix install and insert run eagerly, once a
+request. On the CPU every dispatch runs eagerly.
 
-Not ported yet, each raising a clear error: one-shot prefill
-(prefill_chunk_tokens=0, needs the flash-attention slice, ROADMAP B1), the
-prefix cache, speculative decoding with a draft model, request_resize and
-the disaggregated park / handoff calls (ROADMAP A5), deriving num_slots
-from the machine model (ROADMAP A7), expert-affine admission (with the
-MoE ops, ROADMAP A6), metrics and tracing (ROADMAP A9).
+Prefix reuse (kvpool.PrefixCache, on by default with chunked prefill:
+two slots' worth of pages): cached prefix pages live in a band of
+slot-shaped rows beside the decode caches, which decode never carries or
+attends. A scheduled prompt's longest cached page-aligned prefix (at most
+all but its last token) is copied into the slot's leading rows, one
+indexed copy a cache, and only the suffix is prefilled; a finished
+prefill copies its new full pages into the band. Admission credits the
+expected sharing against its backlog budget.
+
+Determinism: greedy decode (temperature <= 0) is a function of the prompt
+alone, whatever shares the batch. Sampled decode adds Gumbel noise made
+from the request's key (its seed) and the position (serving/generate.py
+`pick_tokens`), so a request's tokens depend only on its own seed and
+prompt, never on co-scheduled traffic. The numbers are not jax.random's,
+so sampled tokens differ from the JAX batcher's.
+
+Not ported yet, each raising a clear error: speculative decoding with a
+draft model, request_resize and the disaggregated park / handoff calls
+(ROADMAP A5), deriving num_slots from the machine model (ROADMAP A7),
+expert-affine admission (with the MoE ops, ROADMAP A6), metrics and
+tracing (ROADMAP A9).
 """
 from __future__ import annotations
 
 import contextlib
 import enum
 import itertools
+import math
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ...ffconst import OpType
-from ..generate import sampling_logits
+from ...runtime.graphs import CapturedCall, Staging, graph_counts, \
+    model_weights, new_pool
+from ..generate import key_bits, pick_tokens, sample_key
 from .admission import AdmissionController
 from .kvpool import PagedKVPool, kv_cache_spec
-
-_MASK64 = (1 << 64) - 1
 
 
 class BatcherStopped(RuntimeError):
@@ -65,15 +91,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flexflow_tpu_torch yet ({item} in "
         "ROADMAP.md); use flexflow_tpu's ContinuousBatcher for it")
-
-
-def sample_seed(seed: int, pos: int) -> int:
-    """Generator seed for the token a request samples after position
-    `pos` (a splitmix64 mix of (seed, pos), 63 bits)."""
-    x = (int(seed) * 0x9E3779B97F4A7C15 + int(pos)) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (x ^ (x >> 31)) & ((1 << 63) - 1)
 
 
 class RequestState(enum.Enum):
@@ -108,6 +125,10 @@ class GenRequest:
         self.queue_wait_s: Optional[float] = None
         # emission time per token (inter-token latencies)
         self.token_times: List[float] = []
+        # prefix-cache outcome, set when the scheduler takes the request:
+        # cache_hit = at least one page of the prompt came from the cache
+        self.cache_hit = False
+        self.prefix_tokens = 0
 
     # -- consumer API ------------------------------------------------------
     def stream(self, timeout: Optional[float] = None):
@@ -169,7 +190,7 @@ class _Slot:
     """One active sequence bound to a pool slot."""
 
     __slots__ = ("req", "slot", "pos", "emitted", "last_tok", "plen",
-                 "filled")
+                 "filled", "shared", "key")
 
     def __init__(self, req: GenRequest, slot: int):
         self.req = req
@@ -179,15 +200,20 @@ class _Slot:
         self.last_tok = 0
         self.plen = 0        # prompt length
         self.filled = 0       # prompt tokens already in the cache
+        self.shared = 0       # prompt tokens installed from the prefix cache
+        self.key = sample_key(req.seed)
 
 
 class ContinuousBatcher:
     """Continuous-batching scheduler over a compiled causal-transformer
     FFModel whose final tensor is a vocabulary distribution; the model's
-    declared input length bounds the prefill chunk.
+    declared input length bounds the prefill chunk (and, one-shot, the
+    prompt).
 
     temperature / top_k are batcher-level policy; a request's `seed` is
-    per request. `num_slots` is required for now.
+    per request. `num_slots` is required for now. prefix_cache_pages:
+    band pages of the prefix cache; None gives two slots' worth with
+    chunked prefill and none one-shot, 0 turns it off.
     """
 
     def __init__(self, model, max_len: int, num_slots: Optional[int] = None,
@@ -203,16 +229,11 @@ class ContinuousBatcher:
                 "(derive_num_slots) needs the machine model, ROADMAP A7")
         if draft_model is not None:
             raise _not_ported("speculative decoding (draft_model)", "A5")
-        if prefix_cache_pages:
-            raise _not_ported("the prefix cache (prefix_cache_pages)", "A5")
         chunk = int(page_size) if prefill_chunk_tokens is None \
             else int(prefill_chunk_tokens)
         if chunk < 0:
             raise ValueError(
                 f"prefill_chunk_tokens={prefill_chunk_tokens}: need >= 0")
-        if chunk == 0:
-            raise _not_ported("one-shot prefill (prefill_chunk_tokens=0)",
-                              "the flash-attention kernel, queue B1")
         if top_k is not None and int(top_k) < 1:
             raise ValueError(f"top_k={top_k}: must be >= 1")
         if float(temperature) < 0.0:
@@ -222,6 +243,12 @@ class ContinuousBatcher:
         self.max_len = int(max_len)
         self.window = model.input_ops[0].outputs[0].dims[1]
         self.prefill_chunk_tokens = min(chunk, self.window)
+        if self.prefill_chunk_tokens == 0 and self.max_len < self.window:
+            # one-shot prefill fills a whole (1, window) pass into the
+            # slot's rows; chunked prefill has no such floor
+            raise ValueError(
+                f"max_len={max_len} smaller than the prefill window"
+                f" ({self.window})")
         self.temperature = float(temperature)
         self.top_k = top_k
         if not any(op.op_type == OpType.MULTIHEAD_ATTENTION
@@ -234,13 +261,30 @@ class ContinuousBatcher:
                            if op.op_type == OpType.EMBEDDING
                            and op.inputs[0] is model.input_ops[0].outputs[0]),
                           default=None)
+        # the prefix cache's budget (JAX continuous.py:515-533): two slots'
+        # worth of band pages with chunked prefill, which the hit path
+        # needs to prefill only the suffix
+        if prefix_cache_pages is None:
+            prefix_pages = (2 * math.ceil(self.max_len / int(page_size))
+                            if self.prefill_chunk_tokens else 0)
+        else:
+            prefix_pages = int(prefix_cache_pages)
+        if prefix_pages and not self.prefill_chunk_tokens:
+            raise ValueError(
+                "prefix caching requires chunked prefill"
+                " (prefill_chunk_tokens > 0): installing a cached prefix"
+                " leaves only the suffix to prefill, which needs the"
+                " chunk-offset entry")
         self.num_slots = int(num_slots)
         self.pool = PagedKVPool(self.num_slots, self.max_len,
-                                page_size=page_size)
+                                page_size=page_size,
+                                prefix_cache_pages=prefix_pages)
         self.admission = AdmissionController(
-            self.pool, None, max_queue=max_queue,
-            queue_pages_budget=queue_pages_budget)
+            self.pool,
+            self.window if self.prefill_chunk_tokens == 0 else None,
+            max_queue=max_queue, queue_pages_budget=queue_pages_budget)
 
+        spec = kv_cache_spec(model)
         self._caches = {
             name: {
                 "k_cache": torch.zeros(
@@ -250,7 +294,7 @@ class ContinuousBatcher:
                     (self.num_slots, self.max_len, heads, vdim), dtype=cdt,
                     device=self.device),
             }
-            for name, heads, kdim, vdim, cdt in kv_cache_spec(model)
+            for name, heads, kdim, vdim, cdt in spec
         }
         # per-slot views of the caches: a prefill chunk writes its slot's
         # rows in place through these
@@ -258,8 +302,46 @@ class ContinuousBatcher:
             {name: {var: t[i:i + 1] for var, t in c.items()}
              for name, c in self._caches.items()}
             for i in range(self.num_slots)]
+        # the prefix cache's band: slot-shaped rows beside the decode
+        # caches (JAX `_zero_band`), which decode never carries
+        band_slots = self.pool.band_slots
+        self._band = {
+            name: {
+                "k_cache": torch.zeros((band_slots, self.max_len, heads,
+                                        kdim), dtype=cdt, device=self.device),
+                "v_cache": torch.zeros((band_slots, self.max_len, heads,
+                                        vdim), dtype=cdt, device=self.device),
+            }
+            for name, heads, kdim, vdim, cdt in spec
+        } if band_slots else None
         self._input_name = model.input_ops[0].name
         self._final_guid = model.final_tensor.guid
+
+        # the compiled dispatches: static inputs and outputs, one graph
+        # for the decode iteration and one per slot for a prefill chunk
+        from ...ops.common import emit_dtype
+
+        vocab = model.final_tensor.dims[-1]
+        pdt = emit_dtype(model.config, model.final_tensor.dtype)
+        S, C = self.num_slots, self.prefill_chunk_tokens
+        self.graphs = graph_counts()
+        weights = model_weights(model)
+        pool = new_pool(self.device)
+        self._dec_in = Staging(3 * S, self.device)
+        self._dec_probs = torch.zeros((S, vocab), dtype=pdt,
+                                      device=self.device)
+        self._dec_tok = torch.zeros((S,), dtype=torch.int32,
+                                    device=self.device)
+        self._decode_call = CapturedCall(self._decode_walk, self.device,
+                                         weights, self.graphs, pool)
+        if C:
+            self._chunk_in = Staging(C + 1, self.device)
+            self._chunk_probs = torch.zeros((1, C, vocab), dtype=pdt,
+                                            device=self.device)
+            self._chunk_calls = [
+                CapturedCall(self._chunk_walk(i), self.device, weights,
+                             self.graphs, pool) for i in range(S)]
+
         self._rid = itertools.count()
         self._queue: List[GenRequest] = []
         self._slots: List[Optional[_Slot]] = [None] * self.num_slots
@@ -330,14 +412,38 @@ class ContinuousBatcher:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens={max_new_tokens}: need >= 1")
         rid = next(self._rid)
+        # expected prefix sharing, credited against the backlog budget (a
+        # probe, not a pin: the match is made when the request is
+        # scheduled)
+        shared_pages = 0
+        if self.pool.prefix is not None:
+            matched, _ = self.pool.prefix.match(prompt)
+            shared_pages = min(matched, prompt.size - 1) // self.pool.page_size
         with self._cv:
             if not self._running:
                 raise BatcherStopped("batcher is not running")
-            self.admission.admit(rid, prompt.size, max_new_tokens)
+            self.admission.admit(rid, prompt.size, max_new_tokens,
+                                 shared_pages=shared_pages)
             req = GenRequest(rid, prompt, max_new_tokens, eos_id, seed)
             self._queue.append(req)
             self._cv.notify_all()
         return req
+
+    def prefix_probe(self, prompt_ids) -> int:
+        """Tokens of the prompt this batcher's prefix cache would install
+        (a probe: no pin, no hit or miss counted; 0 with the cache off)."""
+        if self.pool.prefix is None:
+            return 0
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        matched, _ = self.pool.prefix.match(prompt)
+        return int(min(matched, max(prompt.size - 1, 0)))
+
+    def prefix_probe_chain(self, chain, prompt_len: int) -> int:
+        """`prefix_probe` against a precomputed `prefix_route_chain`."""
+        if self.pool.prefix is None or not chain:
+            return 0
+        matched = self.pool.prefix.match_chain(chain) * self.pool.page_size
+        return int(min(matched, max(int(prompt_len) - 1, 0)))
 
     def request_resize(self, *args, **kwargs):
         raise _not_ported("request_resize", "A5")
@@ -355,6 +461,9 @@ class ContinuousBatcher:
         raise _not_ported("parked requests (release_parked)", "A5")
 
     def stats(self) -> Dict[str, object]:
+        """The counters; "graphs" holds the dispatches' warm-ups, captures
+        and replays, and the walks run outside any graph (on the card:
+        the one-shot prefills)."""
         with self._cv:
             active = sum(1 for s in self._slots if s is not None)
             queued = len(self._queue)
@@ -370,37 +479,61 @@ class ContinuousBatcher:
             "decode_iterations": self._decode_iters,
             "decode_iter_s": (self._decode_s / self._decode_iters
                               if self._decode_iters else None),
+            "graphs": dict(self.graphs),
             "pool": self.pool.stats(),
             "admission": self.admission.stats(),
         }
 
     # -- device steps --------------------------------------------------------
-    def _forward(self, tokens: np.ndarray, state, pos):
-        """One executor walk: tokens (B, C) at `pos` against `state`'s
-        caches; returns the final tensor (B, C, V)."""
-        values = self.model.executor.forward_values(
-            {self._input_name: torch.from_numpy(tokens).to(self.device)},
-            state=state, decode_pos=pos)
-        return values[self._final_guid]
+    def _decode_walk(self) -> None:
+        """The decode iteration from the static input (tokens, positions,
+        key bits of every slot) into the static probabilities and picked
+        tokens."""
+        S = self.num_slots
+        buf = self._dec_in.buf
+        pos = buf[S:2 * S]
+        probs = self.model.executor.forward_values(
+            {self._input_name: buf[:S].view(S, 1)}, state=self._caches,
+            decode_pos=pos)[self._final_guid][:, 0, :]
+        self._dec_probs.copy_(probs)
+        self._dec_tok.copy_(pick_tokens(probs, self.temperature, self.top_k,
+                                        buf[2 * S:], pos))
 
-    def _pick(self, probs: torch.Tensor,
-              rows: Sequence[Tuple[int, int, int]]) -> Dict[int, int]:
-        """Next token per row of probs (R, V): rows lists (row, seed, pos).
-        Greedy takes the first maximum (as jnp.argmax); sampling adds
-        Gumbel noise from a generator seeded by (seed, pos)."""
-        if self.temperature <= 0.0:
-            toks = torch.argmax(probs, dim=-1).cpu().numpy()
-            return {r: int(toks[r]) for r, _, _ in rows}
-        logits = sampling_logits(probs, self.temperature, self.top_k)
-        picked = []
-        for r, seed, pos in rows:
-            g = torch.Generator(device=probs.device)
-            g.manual_seed(sample_seed(seed, pos))
-            u = torch.rand(logits.shape[-1], generator=g,
-                           device=probs.device).clamp_min(1e-20)
-            picked.append(torch.argmax(logits[r] - torch.log(-torch.log(u))))
-        toks = torch.stack(picked).cpu().numpy()
-        return {r: int(t) for (r, _, _), t in zip(rows, toks)}
+    def _chunk_walk(self, slot: int):
+        """Slot `slot`'s prefill chunk from the static input (C tokens,
+        then the offset) into the static probabilities."""
+        def walk() -> None:
+            C = self.prefill_chunk_tokens
+            buf = self._chunk_in.buf
+            self._chunk_probs.copy_(self.model.executor.forward_values(
+                {self._input_name: buf[:C].view(1, C)},
+                state=self._slot_caches[slot],
+                decode_pos=buf[C])[self._final_guid])
+        return walk
+
+    def _decode_dispatch(self, host: np.ndarray) -> np.ndarray:
+        """One decode iteration: host (3 * num_slots,) int32 holds the
+        tokens, positions and key bits; returns the picked tokens. The
+        static probabilities hold until the next decode dispatch."""
+        self._dec_in.put(host)
+        self._decode_call()
+        return self._dec_tok.cpu().numpy()  # syncs the device
+
+    def _chunk_dispatch(self, slot: int, host: np.ndarray) -> None:
+        """One prefill chunk of `slot`: host (C + 1,) int32, the chunk's
+        tokens then its offset. The static probabilities hold until the
+        next chunk dispatch."""
+        self._chunk_in.put(host)
+        self._chunk_calls[slot]()
+
+    def _pick_row(self, row: torch.Tensor, s: _Slot, pos: int) -> int:
+        """The token after position `pos` from one (V,) distribution."""
+        keys = pos_t = None
+        if self.temperature > 0.0:
+            keys = torch.from_numpy(key_bits([s.key])).to(row.device)
+            pos_t = torch.tensor([pos], dtype=torch.int32, device=row.device)
+        return int(pick_tokens(row[None], self.temperature, self.top_k,
+                               keys, pos_t)[0])
 
     # -- scheduler loop ----------------------------------------------------
     def _loop(self) -> None:
@@ -413,6 +546,7 @@ class ContinuousBatcher:
             self._fail_all(e)
 
     def _run(self) -> None:
+        S = self.num_slots
         while True:
             with self._cv:
                 while (self._running and not self._queue
@@ -423,7 +557,9 @@ class ContinuousBatcher:
                 running = self._running
 
             # 1) move queued requests into free slots (skipped once
-            #    stopping: queued requests fail in stop())
+            #    stopping: queued requests fail in stop()); one-shot mode
+            #    prefills them here, chunked mode installs any cached
+            #    prefix
             if running:
                 self._admit_new()
 
@@ -436,8 +572,8 @@ class ContinuousBatcher:
                       and s.req.state is RequestState.DECODE]
             if not active:
                 continue
-            toks = np.zeros((self.num_slots, 1), np.int32)
-            pos = np.zeros(self.num_slots, np.int32)
+            host = np.zeros(3 * S, np.int32)
+            toks, pos, keys = host[:S], host[S:2 * S], host[2 * S:]
             for s in self._slots:
                 if s is not None and s.req.state is not RequestState.DECODE:
                     # the decode dispatch writes one K/V row at `pos` for
@@ -446,20 +582,24 @@ class ContinuousBatcher:
                     # chunk's first row, which that chunk overwrites
                     pos[s.slot] = min(s.filled, self.max_len - 1)
             for s in active:
-                toks[s.slot, 0] = s.last_tok
+                if s.shared and s.pos < s.shared:
+                    # copy-on-write break: a write inside pages the sequence
+                    # still shares (unreachable with page-aligned matching,
+                    # decode writes at pos >= plen > shared; enforced)
+                    self.pool.prefix.cow_break(s.req.id, s.pos)
+                    s.shared = (s.pos // self.pool.page_size
+                                ) * self.pool.page_size
+                toks[s.slot] = s.last_tok
                 pos[s.slot] = s.pos
+                keys[s.slot] = key_bits([s.key])[0]
             t0 = time.monotonic()
-            probs = self._forward(toks, self._caches,
-                                  torch.from_numpy(pos).to(self.device))
-            picked = self._pick(probs[:, 0, :],
-                                [(s.slot, s.req.seed, s.pos)
-                                 for s in active])  # syncs the device
+            picked = self._decode_dispatch(host)
             self._decode_s += time.monotonic() - t0
             self._decode_iters += 1
             for s in active:
                 self.pool.extend(s.req.id, 1)
                 s.pos += 1
-                self._emit_token(s, picked[s.slot])
+                self._emit_token(s, int(picked[s.slot]))
 
     def _admit_new(self) -> None:
         while True:
@@ -469,34 +609,111 @@ class ContinuousBatcher:
                 req = self._queue.pop(0)
             req.state = RequestState.PREFILL
             req.queue_wait_s = self.admission.on_scheduled(req.id)
-            slot_idx = self.pool.alloc(req.id, req.prompt.size)
+            plen = req.prompt.size
+            slot_idx = self.pool.alloc(req.id, plen)
             s = _Slot(req, slot_idx)
-            s.plen = req.prompt.size
+            s.plen = plen
             self._slots[slot_idx] = s
+            if self.prefill_chunk_tokens == 0:
+                self._prefill_one(s)
+                continue
+            prefix = self.pool.prefix
+            if prefix is not None:
+                # leave >= 1 suffix token: the first output token's
+                # distribution comes from the last prompt position
+                matched, entries = prefix.acquire(
+                    req.id, req.prompt,
+                    max_pages=(plen - 1) // self.pool.page_size)
+                if entries:
+                    self._install_prefix(slot_idx, entries, matched)
+                    s.filled = s.shared = matched
+                    req.prefix_tokens = matched
+                    req.cache_hit = True
+
+    def _prefill_one(self, s: _Slot) -> None:
+        """One-shot prefill (JAX `prefill_one`): the padded (1, window)
+        prompt through one full-sequence walk that fills the slot's
+        caches, then the first token."""
+        padded = np.zeros((1, self.window), np.int32)
+        padded[0, :s.plen] = s.req.prompt
+        probs = self.model.executor.forward_values(
+            {self._input_name: torch.from_numpy(padded).to(self.device)},
+            state=self._slot_caches[s.slot],
+            fill_kv_cache=True)[self._final_guid]
+        self.graphs["eager_walks"] += 1
+        tok = self._pick_row(probs[0, s.plen - 1], s, s.plen - 1)
+        s.filled = s.pos = s.plen
+        s.last_tok = tok
+        self._first_token(s, tok)
 
     def _step_prefills(self) -> None:
         """One prefill chunk for every slot in the PREFILL state; a slot
-        whose prompt completes emits its first token and joins this
-        iteration's decode."""
+        whose prompt completes emits its first token, inserts its full
+        prompt pages into the prefix cache and joins this iteration's
+        decode."""
         chunk = self.prefill_chunk_tokens
         for s in [x for x in self._slots
                   if x is not None and x.req.state is RequestState.PREFILL]:
             off = s.filled
             n = min(chunk, s.plen - off)
-            tokens = np.zeros((1, chunk), np.int32)
-            tokens[0, :n] = s.req.prompt[off:off + n]
+            host = np.zeros(chunk + 1, np.int32)
+            host[:n] = s.req.prompt[off:off + n]
+            host[chunk] = off
             # the padded tail of the last chunk writes rows >= plen: they
             # are rewritten by decode before any query attends them
-            probs = self._forward(tokens, self._slot_caches[s.slot], off)
+            self._chunk_dispatch(s.slot, host)
             self._prefill_chunks += 1
             s.filled = off + n
             if s.filled < s.plen:
                 continue
-            tok = self._pick(probs[:, s.plen - 1 - off, :],
-                             [(0, s.req.seed, s.plen - 1)])[0]
+            tok = self._pick_row(self._chunk_probs[0, s.plen - 1 - off], s,
+                                 s.plen - 1)
             s.pos = s.plen
             s.last_tok = tok
+            self._insert_prefix(s)
             self._first_token(s, tok)
+
+    def _band_rows(self, pages) -> np.ndarray:
+        """Flat (band slot * max_len + row) indices of band pages' rows."""
+        ps = self.pool.page_size
+        out = []
+        for page in pages:
+            bslot, roff = self.pool.band_coords(page)
+            out.append(bslot * self.max_len + roff + np.arange(ps))
+        return np.concatenate(out)
+
+    def _install_prefix(self, slot: int, entries, matched: int) -> None:
+        """Prefix-cache hit (JAX `install_prefix`): the matched band pages'
+        rows into the slot's leading rows, one indexed copy a cache."""
+        idx = torch.from_numpy(self._band_rows(
+            [e.page for e in entries])).to(self.device)
+        for name, c in self._caches.items():
+            for var, t in c.items():
+                band = self._band[name][var]
+                torch.index_select(band.view(-1, *band.shape[2:]), 0, idx,
+                                   out=t[slot, :matched])
+
+    def _insert_prefix(self, s: _Slot) -> None:
+        """A finished prefill registers its new full prompt pages in the
+        prefix cache (JAX `insert_pages`): the slot's rows of every new
+        page into its band page, one indexed copy a cache."""
+        prefix = self.pool.prefix
+        if prefix is None:
+            return
+        ps = self.pool.page_size
+
+        def copy_pages(pairs) -> None:
+            src = torch.from_numpy(np.concatenate(
+                [b * ps + np.arange(ps) for b, _ in pairs])).to(self.device)
+            dst = torch.from_numpy(self._band_rows(
+                [page for _, page in pairs])).to(self.device)
+            for name, c in self._caches.items():
+                for var, t in c.items():
+                    band = self._band[name][var]
+                    band.view(-1, *band.shape[2:]).index_copy_(
+                        0, dst, t[s.slot].index_select(0, src))
+
+        prefix.insert(s.req.prompt, s.plen, copy_pages)
 
     def _first_token(self, s: _Slot, tok: int) -> None:
         req = s.req

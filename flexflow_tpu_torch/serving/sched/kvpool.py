@@ -1,5 +1,6 @@
-"""PagedKVPool: the serving KV cache block-allocated in fixed-size pages
-(the allocator half of flexflow_tpu/serving/sched/kvpool.py).
+"""PagedKVPool: the serving KV cache block-allocated in fixed-size pages,
+and the PrefixCache over its band (the allocator half of
+flexflow_tpu/serving/sched/kvpool.py).
 
 The device arrays are slot-dense: per attention op one
 (num_slots, max_len, heads, head_dim) K and V cache, the layout the decode
@@ -8,16 +9,26 @@ page id `slot * pages_per_slot + block` names rows
 [block * page_size, (block + 1) * page_size) of that slot. The pool only
 allocates; the ContinuousBatcher owns the device arrays.
 
-Left out until their ROADMAP items: the PrefixCache and its band, resize,
-and the export/import of the disaggregated handoff (A5), and
-`derive_num_slots`, which needs the machine model (A7).
+Prefix reuse (`PrefixCache`): cached prefix pages live in a device-side
+band of extra slot-shaped rows beside the decode caches, addressed by a
+rolling hash of page-aligned token blocks and refcounted by the live
+sequences that share them. A prompt whose page-aligned prefix is cached
+gets those rows copied into its slot and prefills only the suffix.
+
+Left out until their ROADMAP items: resize and `owned_view`, the
+export/import of the disaggregated handoff (A5), `derive_num_slots`, which
+needs the machine model (A7), and the cache's metric families (A9): its
+counts stay plain integers behind `stats()`.
 """
 from __future__ import annotations
 
+import hashlib
+import itertools
 import math
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ...ffconst import OpType
@@ -29,11 +40,280 @@ class PoolExhausted(RuntimeError):
     is unreachable for admitted requests."""
 
 
+def _chain_key(parent: bytes, block: np.ndarray) -> bytes:
+    """Rolling hash over page-aligned token blocks: the key of block i is
+    blake2b(key of block i-1, tokens of block i), so two prompts share
+    exactly the entries of their common page-aligned prefix. Lookups
+    re-verify the stored tokens, so a collision is a miss, never wrong
+    KV."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(parent)
+    h.update(np.ascontiguousarray(block, dtype=np.int64).tobytes())
+    return h.digest()
+
+
+def prefix_route_chain(tokens, page_size: int = 16) -> List[str]:
+    """The hex chain keys of a prompt's full page-aligned blocks: entry i
+    is the key of blocks 0..i, the address a PrefixCache files that
+    prefix page under, computed without a pool. Empty for a prompt
+    shorter than one page."""
+    tokens = np.asarray(tokens)
+    if int(page_size) < 1:
+        raise ValueError(f"page_size={page_size}: need >= 1")
+    chain: List[str] = []
+    parent = b""
+    for b in range(int(tokens.size) // int(page_size)):
+        parent = _chain_key(parent,
+                            tokens[b * page_size:(b + 1) * page_size])
+        chain.append(parent.hex())
+    return chain
+
+
+def prefix_route_key(tokens, page_size: int = 16, depth: int = 1) -> str:
+    """The chain key of a prompt's first `depth` full pages ("" when it
+    has no full page): requests that share a system prompt share it."""
+    if int(depth) < 1:
+        raise ValueError(f"depth={depth}: need >= 1")
+    chain = prefix_route_chain(tokens, page_size=page_size)
+    if not chain:
+        return ""
+    return chain[min(int(depth), len(chain)) - 1]
+
+
+class _PrefixEntry:
+    """One immutable cached prefix page: the K/V rows of one page-aligned
+    token block in a band page. `refcount` counts the live sequences that
+    share it; only refcount-0 entries are evictable."""
+
+    __slots__ = ("key", "parent", "tokens", "page", "refcount", "tick",
+                 "hits")
+
+    def __init__(self, key: bytes, parent: bytes, tokens: np.ndarray,
+                 page: int):
+        self.key = key
+        self.parent = parent
+        self.tokens = tokens
+        self.page = page
+        self.refcount = 0
+        self.tick = 0
+        self.hits = 0
+
+
+class PrefixCache:
+    """Hash-addressed store of immutable, refcounted prefix pages.
+
+    Entries are page-aligned token blocks keyed by `_chain_key`, each
+    owning one page of the band (the batcher owns the arrays; the cache
+    hands out band page ids). A scheduled prompt's longest cached prefix
+    is pinned (`acquire`) and its rows copied into the sequence's slot;
+    only the suffix is prefilled. The slot's rows are the sequence's
+    private copy, so a band page is written once, at insert, and reused
+    only after eviction, which a refcount above 0 blocks. `cow_break`
+    unshares a sequence from a position onward. Eviction is LRU over
+    refcount-0 entries under `capacity_pages`.
+    """
+
+    def __init__(self, capacity_pages: int, page_size: int):
+        if capacity_pages < 1:
+            raise ValueError(
+                f"capacity_pages={capacity_pages}: need >= 1 (omit the"
+                " cache entirely to disable prefix reuse)")
+        if page_size < 1:
+            raise ValueError(f"page_size={page_size}: need >= 1")
+        self.capacity = int(capacity_pages)
+        self.page_size = int(page_size)
+        self._lock = threading.Lock()
+        self._entries: Dict[bytes, _PrefixEntry] = {}
+        self._free_pages: List[int] = list(range(self.capacity))[::-1]
+        self._pins: Dict[object, List[_PrefixEntry]] = {}
+        self._ticks = itertools.count(1)
+        self._pages_saved = 0
+        self._inserts = 0
+        self._evictions = 0
+        self._hits = 0
+        self._misses = 0
+
+    # -- lookup ------------------------------------------------------------
+    def _walk(self, tokens: np.ndarray) -> List[_PrefixEntry]:
+        """Longest cached chain over the prompt's full blocks (lock held),
+        content-verified."""
+        tokens = np.asarray(tokens)
+        out: List[_PrefixEntry] = []
+        parent = b""
+        for b in range(int(tokens.size) // self.page_size):
+            blk = tokens[b * self.page_size:(b + 1) * self.page_size]
+            key = _chain_key(parent, blk)
+            e = self._entries.get(key)
+            if e is None or not np.array_equal(e.tokens, blk):
+                break
+            out.append(e)
+            parent = key
+        return out
+
+    def match(self, tokens) -> Tuple[int, List[_PrefixEntry]]:
+        """Probe only (no pin, no hit or miss counted): the longest cached
+        prefix as (matched tokens, entries)."""
+        with self._lock:
+            entries = self._walk(tokens)
+            return len(entries) * self.page_size, list(entries)
+
+    def match_chain(self, chain: Sequence[str]) -> int:
+        """Depth in full pages of the longest cached run of a precomputed
+        `prefix_route_chain` (key presence only: a routing hint)."""
+        with self._lock:
+            depth = 0
+            for hexkey in chain:
+                if bytes.fromhex(hexkey) not in self._entries:
+                    break
+                depth += 1
+            return depth
+
+    def acquire(self, seq_id, tokens, max_pages: Optional[int] = None
+                ) -> Tuple[int, List[_PrefixEntry]]:
+        """Pin the longest cached prefix (at most `max_pages` pages) for a
+        sequence being scheduled, until `release`. Returns (matched
+        tokens, entries) for the caller to copy into the slot."""
+        with self._lock:
+            if seq_id in self._pins:
+                raise ValueError(f"sequence {seq_id!r} already holds pins")
+            entries = self._walk(tokens)
+            if max_pages is not None:
+                entries = entries[:max(0, int(max_pages))]
+            tick = next(self._ticks)
+            for e in entries:
+                e.refcount += 1
+                e.tick = tick
+                e.hits += 1
+            if entries:
+                self._pins[seq_id] = entries
+                self._pages_saved += len(entries)
+                self._hits += 1
+            else:
+                self._misses += 1
+            return len(entries) * self.page_size, list(entries)
+
+    def release(self, seq_id) -> None:
+        """Drop a sequence's pins (idempotent)."""
+        with self._lock:
+            for e in self._pins.pop(seq_id, ()):
+                e.refcount -= 1
+
+    def cow_break(self, seq_id, pos: int) -> int:
+        """The sequence is about to write at `pos`: release its pins from
+        the block holding `pos` onward (its slot rows are already its own
+        copy; the cached pages are never touched). Returns the number of
+        entries unshared."""
+        with self._lock:
+            pins = self._pins.get(seq_id)
+            if not pins:
+                return 0
+            keep = max(0, int(pos)) // self.page_size
+            broken = pins[keep:]
+            del pins[keep:]
+            for e in broken:
+                e.refcount -= 1
+            if not pins:
+                self._pins.pop(seq_id, None)
+            return len(broken)
+
+    def shared_tokens(self, seq_id) -> int:
+        """Prompt tokens of the sequence backed by pinned pages."""
+        with self._lock:
+            return len(self._pins.get(seq_id, ())) * self.page_size
+
+    # -- insert / evict ----------------------------------------------------
+    def insert(self, tokens, n_tokens: int, copy_pages) -> int:
+        """Register every full page of tokens[:n_tokens] not yet cached.
+        `copy_pages(pairs)`, pairs a list of (block index, band page),
+        copies all new blocks' K/V rows into their band pages in one call
+        before the entries become matchable. With the budget spent and
+        nothing evictable it inserts fewer pages, never raises. Returns
+        the number of pages inserted."""
+        tokens = np.asarray(tokens)
+        n_full = max(0, int(n_tokens)) // self.page_size
+        with self._lock:
+            parent = b""
+            tick = next(self._ticks)
+            fresh: List[tuple] = []  # (block, page, key, parent, tokens)
+            for b in range(n_full):
+                blk = tokens[b * self.page_size:(b + 1) * self.page_size]
+                key = _chain_key(parent, blk)
+                e = self._entries.get(key)
+                if e is not None and np.array_equal(e.tokens, blk):
+                    e.tick = tick  # re-validated: keep the chain hot
+                    parent = key
+                    continue
+                if e is not None:
+                    break  # a true hash collision: keep the resident entry
+                page = self._claim_page()
+                if page is None:
+                    break  # budget spent, nothing evictable
+                fresh.append((b, page, key, parent,
+                              np.array(blk, copy=True)))
+                parent = key
+            if not fresh:
+                return 0
+            copy_pages([(b, page) for b, page, _, _, _ in fresh])
+            for b, page, key, par, blk in fresh:
+                e = _PrefixEntry(key, par, blk, page)
+                e.tick = tick
+                self._entries[key] = e
+            self._inserts += len(fresh)
+        return len(fresh)
+
+    def _claim_page(self) -> Optional[int]:
+        """A free band page, evicting the least recently used refcount-0
+        entry if none (lock held)."""
+        if self._free_pages:
+            return self._free_pages.pop()
+        victim = None
+        for e in self._entries.values():
+            if e.refcount == 0 and (victim is None or e.tick < victim.tick):
+                victim = e
+        if victim is None:
+            return None
+        del self._entries[victim.key]
+        self._evictions += 1
+        return victim.page
+
+    # -- accounting --------------------------------------------------------
+    def pages_in_use(self) -> int:
+        with self._lock:
+            return self.capacity - len(self._free_pages)
+
+    def entry_count(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def refcount_of(self, tokens) -> List[int]:
+        """Refcounts along the cached chain of `tokens`."""
+        with self._lock:
+            return [e.refcount for e in self._walk(tokens)]
+
+    def pages_saved(self) -> int:
+        with self._lock:
+            return self._pages_saved
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            return {
+                "capacity_pages": self.capacity,
+                "pages_in_use": self.capacity - len(self._free_pages),
+                "entries": len(self._entries),
+                "hits": self._hits,
+                "misses": self._misses,
+                "inserts": self._inserts,
+                "evictions": self._evictions,
+                "pages_saved": self._pages_saved,
+            }
+
+
 class PagedKVPool:
     """Page allocator and accounting over the slot-dense KV caches.
     Thread-safe: the scheduler thread allocates while others read stats."""
 
-    def __init__(self, num_slots: int, max_len: int, page_size: int = 16):
+    def __init__(self, num_slots: int, max_len: int, page_size: int = 16,
+                 prefix_cache_pages: int = 0):
         if num_slots < 1:
             raise ValueError(f"num_slots={num_slots}: need at least one")
         if page_size < 1:
@@ -43,6 +323,14 @@ class PagedKVPool:
         self.page_size = int(page_size)
         self.pages_per_slot = math.ceil(self.max_len / self.page_size)
         self.total_pages = self.num_slots * self.pages_per_slot
+        # prefix reuse (0 pages: off). Its pages live in the band,
+        # `band_slots` slot-shaped rows the batcher allocates beside the
+        # decode caches; a slot shorter than one page holds no full page,
+        # so then the cache is off
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(prefix_cache_pages, self.page_size)
+            if prefix_cache_pages and self.max_len >= self.page_size
+            else None)
         self._lock = threading.Lock()
         self._free_slots: List[int] = list(range(self.num_slots))[::-1]
         # seq_id -> (slot, [page ids]); pages are consecutive blocks of the
@@ -93,8 +381,29 @@ class PagedKVPool:
                 pages.append(slot * self.pages_per_slot + len(pages))
             self._tokens[seq_id] = total
 
+    @property
+    def full_pages_per_slot(self) -> int:
+        """Full pages one slot's rows hold: the band packs only full
+        pages (a page in a slot's partial tail would run past its edge)."""
+        return self.max_len // self.page_size
+
+    @property
+    def band_slots(self) -> int:
+        """Slot-shaped rows the band needs (0 with prefix reuse off)."""
+        if self.prefix is None:
+            return 0
+        return math.ceil(self.prefix.capacity / self.full_pages_per_slot)
+
+    def band_coords(self, page: int) -> Tuple[int, int]:
+        """(band slot, first row) of a band page."""
+        full = self.full_pages_per_slot
+        return page // full, (page % full) * self.page_size
+
     def free(self, seq_id) -> None:
-        """Release a sequence's slot and pages (idempotent)."""
+        """Release a sequence's slot and pages and its prefix pins
+        (idempotent)."""
+        if self.prefix is not None:
+            self.prefix.release(seq_id)
         with self._lock:
             ent = self._table.pop(seq_id, None)
             self._tokens.pop(seq_id, None)
@@ -119,12 +428,16 @@ class PagedKVPool:
         with self._lock:
             return len(self._free_slots)
 
+    def live_sequences(self) -> int:
+        with self._lock:
+            return len(self._table)
+
     def utilization(self) -> float:
         """Live pages / capacity, 0..1."""
         return self.pages_used() / self.total_pages
 
     def stats(self) -> Dict[str, float]:
-        return {
+        out = {
             "slots": self.num_slots,
             "slots_free": self.free_slot_count(),
             "pages_used": self.pages_used(),
@@ -132,6 +445,9 @@ class PagedKVPool:
             "page_size": self.page_size,
             "utilization": round(self.utilization(), 4),
         }
+        if self.prefix is not None:
+            out["prefix"] = self.prefix.stats()
+        return out
 
 
 def kv_cache_spec(model) -> List[tuple]:

@@ -1,17 +1,26 @@
 """Where the time of the port's serving path goes, on one NVIDIA GPU.
 
-    python -m flexflow_tpu_torch.tools.serve_profile
+    python -m flexflow_tpu_torch.tools.serve_profile [--iters N]
 
 Builds the full-width serve-bench LM that chip_smoke.py serves (hidden
 1024, 16 heads, 12 layers, vocab 30522, bf16 mixed precision, random
-weights from a fixed generator), then times, each under torch.profiler
-with CUDA activity:
- - decode: `iters` decode iterations of the executor over 8 slots at
-   ragged positions (what one ContinuousBatcher decode iteration runs);
- - prefill: `iters` 16-token chunks of one slot (one prefill chunk);
-and prints one JSON line per phase: host wall per iteration, device busy
-time per iteration (the sum of kernel times), the device's idle share,
-and device time by kernel, largest first. Needs CUDA; exits 2 without.
+weights from a fixed generator) and the default ContinuousBatcher(
+num_slots=8, max_len=1024, page_size=16) over it, then, each under
+torch.profiler with CUDA activity:
+ - decode: `iters` decode iterations of 8 slots at ragged positions, as
+   the batcher dispatches them (a replay of its decode graph), each
+   ending in the tokens' read back;
+ - prefill: `iters` 16-token chunks of one slot at offset 480, the same
+   way (a replay of the slot's chunk graph), each ending in the chunk's
+   last-row argmax read back;
+and prints one JSON line per phase: host wall per dispatch (also without
+the profiler), device busy time per dispatch (the sum of kernel times),
+the device's idle share (1 - busy / the profiled wall, as the tool has
+always printed it; also against the unprofiled wall), device operations
+(kernels and copies) per dispatch seen by the profiler, graph replays and
+captures, and device time by kernel, largest first. chip_smoke.py's serve
+line gives the serve mix's tokens/s and TTFT. Needs CUDA; exits 2
+without.
 """
 from __future__ import annotations
 
@@ -20,6 +29,13 @@ import json
 import sys
 import time
 from collections import defaultdict
+
+
+def _device_ops(prof) -> int:
+    """Device operations (kernels and copies) the profiler saw."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 def _kernel_table(prof, n_iters):
@@ -50,63 +66,61 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device visible", file=sys.stderr)
         return 2
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
     from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
-    from flexflow_tpu_torch.serving.sched.kvpool import kv_cache_spec
 
-    slots, window, max_len, chunk = 8, 512, 1024, 16
-    lm = build_tiny_lm(slots, window, vocab=30522, hidden=1024, heads=16,
+    slots, window, max_len, chunk, vocab = 8, 512, 1024, 16, 30522
+    lm = build_tiny_lm(slots, window, vocab=vocab, hidden=1024, heads=16,
                        layers=12, mixed_precision=True, device="cuda",
                        generator=torch.Generator().manual_seed(0))
-    dev = lm.device
-    caches = {name: {var: torch.zeros((slots, max_len, h, d), dtype=cdt,
-                                      device=dev)
-                     for var in ("k_cache", "v_cache")}
-              for name, h, d, _, cdt in kv_cache_spec(lm)}
-    one_slot = {name: {var: t[:1] for var, t in c.items()}
-                for name, c in caches.items()}
+    cb = ContinuousBatcher(lm, max_len=max_len, num_slots=slots,
+                           page_size=chunk)
     rng = np.random.RandomState(0)
-    inp = lm.input_ops[0].name
-    pos = torch.tensor([40, 97, 255, 300, 511, 700, 880, 1000],
-                       dtype=torch.int32, device=dev)
+    pos = np.array([40, 97, 255, 300, 511, 700, 880, 1000], np.int32)
 
     def decode():
-        toks = torch.from_numpy(
-            rng.randint(0, 30522, size=(slots, 1)).astype(np.int32)).to(dev)
-        probs = lm.executor.forward_values({inp: toks}, state=caches,
-                                           decode_pos=pos)
-        return probs[lm.final_tensor.guid].argmax(-1).cpu()
+        toks = rng.randint(0, vocab, size=slots).astype(np.int32)
+        return cb._decode_dispatch(np.concatenate(
+            [toks, pos, np.zeros(slots, np.int32)]))
 
     def prefill():
-        toks = torch.from_numpy(
-            rng.randint(0, 30522, size=(1, chunk)).astype(np.int32)).to(dev)
-        probs = lm.executor.forward_values({inp: toks}, state=one_slot,
-                                           decode_pos=480)
-        return probs[lm.final_tensor.guid][0, -1].argmax().cpu()
+        toks = rng.randint(0, vocab, size=chunk).astype(np.int32)
+        cb._chunk_dispatch(0, np.append(toks, np.int32(480)))
+        return cb._chunk_probs[0, -1].argmax().cpu()
 
     card = torch.cuda.get_device_name(0)
-    for phase, fn in (("decode", decode), ("prefill", prefill)):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    with torch.no_grad():
+        for phase, fn in (("decode", decode), ("prefill", prefill)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            before = dict(cb.graphs)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(args.iters):
+                    fn()  # ends in a host copy: synchronises every dispatch
+                wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
+            busy_ms, table = _kernel_table(prof, args.iters)
+            ops = _device_ops(prof) / args.iters
+            during = {k: v - before[k] for k, v in cb.graphs.items()}
+            # the same loop again without the profiler, for its overhead
             t0 = time.perf_counter()
             for _ in range(args.iters):
-                fn()  # ends in a host copy: synchronises every iteration
-            wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
-        busy_ms, table = _kernel_table(prof, args.iters)
-        # the same loop again without the profiler, for its overhead
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            fn()
-        bare_ms = (time.perf_counter() - t0) / args.iters * 1e3
-        print(json.dumps({
-            "phase": phase, "device": card, "iters": args.iters,
-            "wall_ms_per_iter": bare_ms,
-            "wall_ms_per_iter_profiled": wall_ms,
-            "device_busy_ms_per_iter": busy_ms,
-            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-            "kernels": table}), flush=True)
+                fn()
+            bare_ms = (time.perf_counter() - t0) / args.iters * 1e3
+            print(json.dumps({
+                "phase": phase, "device": card, "iters": args.iters,
+                "wall_ms_per_iter": bare_ms,
+                "wall_ms_per_iter_profiled": wall_ms,
+                "device_busy_ms_per_iter": busy_ms,
+                "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+                else None,
+                "device_idle_share_unprofiled": (1 - busy_ms / bare_ms)
+                if busy_ms else None,
+                "device_ops_per_iter": ops,
+                "graphs_during_profile": during,
+                "kernels": table}), flush=True)
     return 0
 
 

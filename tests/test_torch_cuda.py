@@ -1518,3 +1518,189 @@ def test_planned_routes_replay_in_a_cuda_graph(dev, case):
         torch.cuda.synchronize()
         for a, b in zip(out, eager):
             assert (a is None and b is None) or torch.equal(a, b), case
+
+
+# -- serving's compiled dispatches (CUDA graphs) -----------------------------
+def _serve_lm(seed, hidden=64, heads=4, batch=2, window=16):
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+
+    return build_tiny_lm(batch, window, vocab=50, hidden=hidden, heads=heads,
+                         mixed_precision=True, device="cuda",
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def _snapshot(tree):
+    return {n: {v: t.clone() for v, t in c.items()} for n, c in tree.items()}
+
+
+def _restore(tree, saved):
+    for n, c in tree.items():
+        for v, t in c.items():
+            t.copy_(saved[n][v])
+
+
+def _same_tree(a, b):
+    return all(torch.equal(a[n][v], b[n][v]) for n in a for v in a[n])
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_batcher_replays_equal_the_eager_walk_to_the_bit(dev, temperature):
+    """One decode iteration and one prefill chunk of a batcher, through
+    the eager walk and through a graph replay, on the same caches and
+    inputs: the same probabilities, picks and cache rows, to the bit."""
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    lm = _serve_lm(31)
+    cb = ContinuousBatcher(lm, max_len=64, num_slots=2, page_size=8,
+                           temperature=temperature, top_k=5)
+    g = torch.Generator(device=dev).manual_seed(32)
+    with torch.no_grad():
+        for c in cb._caches.values():
+            for t in c.values():
+                t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        saved = _snapshot(cb._caches)
+        dec = np.array([7, 3, 40, 21, 11, -5], np.int32)  # toks, pos, keys
+        chunk = np.array([4, 9, 1, 33, 2, 8, 0, 0, 37], np.int32)  # at 37
+        cb._decode_dispatch(dec)          # warm-up, then capture
+        cb._chunk_dispatch(1, chunk)
+        runs = []
+        for replay in (True, False):
+            _restore(cb._caches, saved)
+            if replay:
+                toks = cb._decode_dispatch(dec)
+            else:
+                cb._dec_in.put(dec)
+                cb._decode_walk()
+                toks = cb._dec_tok.cpu().numpy()
+            dprobs = cb._dec_probs.clone()
+            if replay:
+                cb._chunk_dispatch(1, chunk)
+            else:
+                cb._chunk_in.put(chunk)
+                cb._chunk_walk(1)()
+            runs.append((toks, dprobs, cb._chunk_probs.clone(),
+                         _snapshot(cb._caches)))
+    (t0, d0, c0, k0), (t1, d1, c1, k1) = runs
+    assert cb.graphs == {"warmups": 2, "captures": 2, "replays": 2,
+                         "eager_walks": 0}
+    assert np.array_equal(t0, t1)
+    assert torch.equal(d0, d1) and torch.equal(c0, c1)
+    assert _same_tree(k0, k1)
+
+
+def test_session_graph_of_k_steps_equals_eager_steps(dev):
+    """The session's K-step dispatch replayed against the same K steps
+    run eagerly from the same carry and caches: tokens, carry and cache
+    rows the same bits."""
+    from flexflow_tpu_torch.serving import GenerativeSession
+
+    lm = _serve_lm(41)
+    s = GenerativeSession(lm, max_len=48)
+    prompt = np.random.RandomState(3).randint(1, 50, size=(2, 9))
+    s.generate(prompt, 9, tokens_per_dispatch=4)   # captures k=4
+    call, out = s._decode_scan(4, 0.0, None)
+    assert call.graph is not None
+    with torch.no_grad():
+        saved = _snapshot(s._caches)
+        carry = [t.clone() for t in (s._tok, s._pos, s._keys)]
+        runs = []
+        for replay in (True, False):
+            _restore(s._caches, saved)
+            for t, c in zip((s._tok, s._pos, s._keys), carry):
+                t.copy_(c)
+            call() if replay else call.fn()
+            runs.append((out.clone(), s._tok.clone(), s._pos.clone(),
+                         _snapshot(s._caches)))
+    (o0, t0, p0, k0), (o1, t1, p1, k1) = runs
+    assert torch.equal(o0, o1) and torch.equal(t0, t1)
+    assert torch.equal(p0, p1) and _same_tree(k0, k1)
+    assert s.counts["replays"] >= 2
+
+
+def _serve_tokens(model, prompts, **kw):
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    with ContinuousBatcher(model, max_len=48, num_slots=2, page_size=4,
+                           max_queue=8, **kw) as cb:
+        toks = [r.result(timeout=120).tolist()
+                for r in [cb.submit(p, 8) for p in prompts]]
+        return toks, cb
+
+
+def test_batcher_recaptures_after_load_params(dev):
+    """The stale-cast trap: a batcher that served, then had new weights
+    loaded, serves what a fresh batcher over the new weights serves (its
+    graphs read the bf16 weight casts they were captured with, so a
+    weight change must re-capture)."""
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    lm, other = _serve_lm(51), _serve_lm(52)
+    rng = np.random.RandomState(53)
+    prompts = [rng.randint(1, 50, size=(n,)).astype(np.int32)
+               for n in (5, 11, 7)]
+    want, _ = _serve_tokens(other, prompts)
+    with ContinuousBatcher(lm, max_len=48, num_slots=2, page_size=4,
+                           max_queue=8, prefix_cache_pages=0) as cb:
+        first = [cb.submit(p, 8).result(timeout=120).tolist()
+                 for p in prompts]
+        captured = cb.graphs["captures"]
+        lm.load_params(other.params)
+        second = [cb.submit(p, 8).result(timeout=120).tolist()
+                  for p in prompts]
+        assert cb.graphs["captures"] > captured
+    assert second == want and first != want
+
+
+def test_batcher_captures_while_another_thread_uses_the_card(dev):
+    """Capture runs in the scheduler thread only: a thread that keeps
+    launching matmuls on its own stream meanwhile neither breaks a
+    capture nor changes a token."""
+    import threading
+
+    lm = _serve_lm(61)
+    rng = np.random.RandomState(62)
+    prompts = [rng.randint(1, 50, size=(n,)).astype(np.int32)
+               for n in (6, 13, 3, 9)]
+    want, _ = _serve_tokens(lm, prompts)
+    stop = threading.Event()
+    errors = []
+
+    def busy():
+        try:
+            stream = torch.cuda.Stream(dev)
+            x = torch.randn((512, 512), device=dev)
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    x = torch.tanh(x @ x)
+                    stream.synchronize()
+        except Exception as e:  # surfaced by the assert below
+            errors.append(e)
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        got, cb = _serve_tokens(lm, prompts)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not errors and got == want
+    assert cb.graphs["captures"] > 0 and cb.graphs["eager_walks"] == 0
+
+
+def test_session_sampled_tokens_same_at_any_dispatch_size(dev):
+    """Sampled tokens on the card are identical at tokens_per_dispatch 1
+    and 8 (the noise is a function of key, position and id, computed in
+    the graph); another seed gives others."""
+    from flexflow_tpu_torch.serving import GenerativeSession
+
+    lm = _serve_lm(71)
+    prompt = np.random.RandomState(72).randint(1, 50, size=(2, 6))
+    kw = dict(temperature=1.0, top_k=10, seed=5)
+    s = GenerativeSession(lm, max_len=48)
+    one = s.generate(prompt, 20, tokens_per_dispatch=1, **kw)
+    eight = s.generate(prompt, 20, tokens_per_dispatch=8, **kw)
+    np.testing.assert_array_equal(one, eight)
+    assert not np.array_equal(
+        s.generate(prompt, 20, tokens_per_dispatch=8, temperature=1.0,
+                   top_k=10, seed=6), one)
+    assert s.counts["captures"] >= 3 and s.counts["replays"] > 0

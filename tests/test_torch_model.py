@@ -40,7 +40,11 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.runtime.distributed',\n"
         "       'flexflow_tpu_torch.runtime.collectives',\n"
         "       'flexflow_tpu_torch.search.simulator',\n"
-        "       'flexflow_tpu_torch.tools.tp_train')\n"
+        "       'flexflow_tpu_torch.tools.tp_train',\n"
+        "       'flexflow_tpu_torch.runtime.graphs',\n"
+        "       'flexflow_tpu_torch.serving.generate',\n"
+        "       'flexflow_tpu_torch.serving.sched.kvpool',\n"
+        "       'flexflow_tpu_torch.serving.sched.bench')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

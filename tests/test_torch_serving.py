@@ -142,11 +142,8 @@ def test_unported_batcher_features_raise_clearly(lms):
     _, pm, prompts, _ = lms
     with pytest.raises(ValueError, match="num_slots is required"):
         ContinuousBatcher(pm, max_len=24)
-    for kw, item in ((dict(prefill_chunk_tokens=0), "queue B1"),
-                     (dict(prefix_cache_pages=4), "A5"),
-                     (dict(draft_model=pm), "A5")):
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousBatcher(pm, max_len=24, num_slots=1, **kw)
+    with pytest.raises(NotImplementedError, match="A5"):
+        ContinuousBatcher(pm, max_len=24, num_slots=1, draft_model=pm)
     cb = ContinuousBatcher(pm, max_len=24, num_slots=1)
     for call in (cb.request_resize, cb.request_export, cb.request_import,
                  cb.resume_parked, cb.release_parked):
@@ -213,3 +210,76 @@ def test_kv_bytes_per_token_matches_jax(mixed_precision):
     pm = build_tiny_lm(1, 4, vocab=50, mixed_precision=mixed_precision,
                        device="cpu")
     assert kv_bytes_per_token(pm) == jax_kv_bytes(jm)
+
+
+@pytest.mark.parametrize("num_slots", [2, 1])
+def test_one_shot_prefill_matches_jax_batcher(lms, num_slots):
+    """prefill_chunk_tokens=0: one full-sequence walk a request fills the
+    slot's caches (fill_kv_cache) and picks the first token; greedy
+    tokens equal the JAX batcher's one-shot run (prompts capped at the
+    window of 12, so the 13-token prompt is left out)."""
+    jm, pm, prompts, _ = lms
+    short = [p for p in prompts if p.size <= 12]
+    kw = dict(max_len=24, num_slots=num_slots, page_size=4, max_queue=8,
+              queue_pages_budget=64, prefill_chunk_tokens=0)
+    with JaxBatcher(jm, **kw) as cb:
+        ref = [r.result(timeout=300).tolist()
+               for r in [cb.submit(p, NEW) for p in short]]
+    with ContinuousBatcher(pm, **kw) as cb:
+        out = [r.result(timeout=120).tolist()
+               for r in [cb.submit(p, NEW) for p in short]]
+        with pytest.raises(RequestTooLarge, match="prefill window"):
+            cb.submit(prompts[4], 2)
+        stats = cb.stats()
+    assert out == ref
+    assert stats["prefill_chunks"] == 0 and "prefix" not in stats["pool"]
+    # one eager walk a prefill, one a decode iteration (the CPU has no
+    # graphs)
+    assert stats["graphs"]["eager_walks"] == (len(short)
+                                             + stats["decode_iterations"])
+    assert stats["graphs"]["captures"] == 0
+
+
+def test_chunk_offset_drops_rows_past_the_cache_edge():
+    """The chunk-offset entry (a 0-d int32 device offset, what a captured
+    chunk passes; a host int becomes one) at offsets whose chunk runs
+    past an 11-row cache: the rows inside the cache and the probabilities
+    of the queries inside it equal a walk on a 20-row cache, the rows
+    before the offset are untouched, and the host-int offset gives the
+    same bits."""
+    from flexflow_tpu_torch.serving.sched.kvpool import kv_cache_spec
+
+    pm = build_tiny_lm(1, 6, vocab=50, device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(
+        np.random.RandomState(2).randint(1, 50, size=(1, 6)).astype(
+            np.int32))
+    name = pm.input_ops[0].name
+    g = torch.Generator().manual_seed(5)
+    big = {op: {v: torch.randn((1, 20, h, d), generator=g)
+                for v in ("k_cache", "v_cache")}
+           for op, h, d, _, _ in kv_cache_spec(pm)}
+
+    def walk(rows, pos):
+        caches = {op: {v: t[:, :rows].clone() for v, t in c.items()}
+                  for op, c in big.items()}
+        probs = pm.executor.forward_values(
+            {name: toks}, state=caches,
+            decode_pos=pos)[pm.final_tensor.guid]
+        return probs, caches
+
+    for off in (0, 5, 9):  # 9: rows 9..14 of 11, the last 4 dropped
+        inside = min(6, 11 - off)
+        p_small, c_small = walk(11, torch.tensor(off, dtype=torch.int32))
+        p_int, c_int = walk(11, off)
+        p_big, c_big = walk(20, off)
+        assert torch.equal(p_small, p_int)
+        torch.testing.assert_close(p_small[:, :inside], p_big[:, :inside],
+                                   atol=1e-7, rtol=1e-6)
+        for op in c_small:
+            for v in c_small[op]:
+                assert torch.equal(c_small[op][v], c_int[op][v])
+                assert torch.equal(c_small[op][v][:, :off],
+                                   big[op][v][:, :off])
+                torch.testing.assert_close(c_small[op][v],
+                                           c_big[op][v][:, :11])
