@@ -197,7 +197,10 @@ PATH_KERNELS = {
     "oneshot": ("flash_fwd", "decode_attention", "layernorm_fwd",
                 "softmax_fwd"),
     "prefix": SERVE_KERNELS,
+    "spec": SERVE_KERNELS,
 }
+# speculative decoding's draft tokens an iteration (phase 20)
+SPEC_TOKENS = 3
 # launches per training step of the full-width flagship (12 layers)
 TRAIN_PER_STEP = {"flash_fwd": 12, "flash_bwd": 12, "layernorm_fwd": 24,
                   "layernorm_bwd": 24, "softmax_fwd": 1, "softmax_bwd": 1,
@@ -412,6 +415,16 @@ def phase_kernels(torch, F):
     table["multiquery_decode_attention"]["serving_shape"] = decode_case(
         "multiquery_decode_attention", 1, 16,
         torch.tensor([480], dtype=torch.int32, device=dev), torch.bfloat16,
+        bf16_tol)
+    # speculative decoding's verify (spec_tokens 3): 8 slots of 4 queries
+    # at ragged positions, the last slot at 1022 (two queries past the
+    # cache's last row)
+    verify_pos = torch.tensor([0, 37, 255, 511, 700, 880, 1000, 1022],
+                              dtype=torch.int32, device=dev)
+    decode_case("multiquery_decode_attention", B, 4, verify_pos,
+                torch.float32, f32_tol)
+    table["multiquery_decode_attention"]["verify_shape"] = decode_case(
+        "multiquery_decode_attention", B, 4, verify_pos, torch.bfloat16,
         bf16_tol)
 
     def norm_case(name, rows, n, dtype, tol, timed):
@@ -2622,6 +2635,218 @@ def phase_prefix(torch, lm, max_len, page, vocab):
             "graphs": stats["graphs"]}
 
 
+def _spec_serve(torch, lm, draft, max_len, page, vocab, prompts, news):
+    """The serve phase's run through ContinuousBatcher(draft_model=draft,
+    spec_tokens=3): 8 warm-up requests (one a slot: every chunk graph of
+    both models and the speculative graph captured), then the serve
+    phase's 16 requests, timed. Returns the batcher (stopped), its
+    requests, tokens, wall and the graph and spec counts before the timed
+    run."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    cb = ContinuousBatcher(lm, max_len=max_len, num_slots=8,
+                           page_size=page, draft_model=draft,
+                           spec_tokens=SPEC_TOKENS)
+    cb.start()
+    try:
+        warm_rng = np.random.RandomState(2)
+        warm = [cb.submit(warm_rng.randint(0, vocab, size=40), 4)
+                for _ in range(8)]
+        for r in warm:
+            r.result(timeout=600)
+        before = cb.stats()
+        t0 = time.perf_counter()
+        reqs = [cb.submit(p, int(n)) for p, n in zip(prompts, news)]
+        outs = [r.result(timeout=900) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cb.stop()
+    return cb, reqs, outs, wall, before
+
+
+def _spec_f32(torch, vocab, max_len, page):
+    """The spec identities in f32 at 2 layers (full widths): greedy tokens
+    of 4 requests through the speculative batcher on the card (an untied
+    1-layer draft, and the target as its own draft) equal the card's plain
+    greedy tokens and the CPU's speculative run's (untied draft)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+
+    def lm(layers, seed, device):
+        return build_tiny_lm(4, 512, vocab=vocab, hidden=1024, heads=16,
+                             layers=layers, mixed_precision=False,
+                             device=device,
+                             generator=torch.Generator().manual_seed(seed))
+
+    target, draft = lm(2, 3, "cuda"), lm(1, 4, "cuda")
+    cpu_target, cpu_draft = lm(2, 3, "cpu"), lm(1, 4, "cpu")
+    rng = np.random.RandomState(6)
+    work = [(rng.randint(0, vocab, size=n).astype(np.int32), 24)
+            for n in (23, 40, 77, 100)]
+
+    def run(model, d):
+        with ContinuousBatcher(model, max_len=max_len, num_slots=4,
+                               page_size=page, draft_model=d,
+                               spec_tokens=SPEC_TOKENS) as cb:
+            reqs = [cb.submit(p, n) for p, n in work]
+            toks = [r.result(timeout=900).tolist() for r in reqs]
+        return toks, cb.stats().get("spec")
+
+    def _counts(st):
+        # per-request sums; the EWMA also depends on which requests share
+        # an iteration, which admission timing decides
+        return {k: st[k] for k in ("proposed", "accepted", "acceptance")}
+
+    plain, _ = run(target, None)
+    untied, st_untied = run(target, draft)
+    tied, st_tied = run(target, target)
+    cpu, st_cpu = run(cpu_target, cpu_draft)
+    same = {"card_untied_vs_card_plain": untied == plain,
+            "card_tied_vs_card_plain": tied == plain,
+            "cpu_untied_vs_card_plain": cpu == plain,
+            "untied_spec_counts_card_vs_cpu": _counts(st_untied)
+            == _counts(st_cpu)}
+    if not all(same.values()):
+        raise AssertionError(f"f32 speculative identities: {same}")
+    return {"requests": len(work), "new_tokens": 24, "identical": same,
+            "acceptance": {"untied": st_untied["acceptance"],
+                           "tied": st_tied["acceptance"]}}
+
+
+def phase_spec(torch, lm, max_len, page, vocab, prompts, news, plain_outs,
+               serve, reps=10):
+    """Speculative decoding on the serve LM (phase 20): the serve mix
+    through a tied draft (the LM itself) and an untied one (2 layers at
+    the same widths, its own generator); every request whole, the timed
+    runs only replaying graphs, the tied draft's acceptance >= 0.8 in
+    bf16, and (printed) how many requests give the plain run's tokens.
+    On the tied batcher: one iteration's replay against its eager walk
+    (picks, counts, probabilities, both models' cache rows the same
+    bits), the launches of one walk, each pick the argmax of its verify
+    row, the host wall and the device busy time of an iteration. Then the
+    f32 identities (`_spec_f32`)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+    from flexflow_tpu_torch.tools.serve_profile import _kernel_table
+
+    untied = build_tiny_lm(8, 512, vocab=vocab, hidden=1024, heads=16,
+                           layers=2, mixed_precision=True, device="cuda",
+                           generator=torch.Generator().manual_seed(1))
+    out = {"phase": "spec", "spec_tokens": SPEC_TOKENS,
+           "plain": {k: serve[k] for k in ("tokens_per_s", "ttft_ms_p50",
+                                           "ttft_ms_p99")}}
+    k = SPEC_TOKENS
+    for name, draft in (("tied", lm), ("untied", untied)):
+        cb, reqs, outs, wall, before = _spec_serve(
+            torch, lm, draft, max_len, page, vocab, prompts, news)
+        stats = cb.stats()
+        timed = {g: n - before["graphs"][g]
+                 for g, n in stats["graphs"].items()}
+        if (timed["replays"] == 0 or any(
+                timed[g] for g in ("warmups", "captures", "eager_walks"))
+                or before["graphs"]["eager_walks"]):
+            raise AssertionError(f"spec {name}: the timed run must only "
+                                 f"replay graphs (warm-up "
+                                 f"{before['graphs']}, timed {timed})")
+        for r, o, n in zip(reqs, outs, news):
+            if len(o) != int(n) or o.min() < 0 or o.max() >= vocab:
+                raise AssertionError(f"spec {name}: request {r.id}: "
+                                     f"{len(o)} tokens, expected {int(n)}")
+        proposed = stats["spec"]["proposed"] - before["spec"]["proposed"]
+        accepted = stats["spec"]["accepted"] - before["spec"]["accepted"]
+        acceptance = accepted / proposed if proposed else 0.0
+        if name == "tied" and acceptance < 0.8:
+            raise AssertionError(f"tied draft's bf16 acceptance "
+                                 f"{acceptance} < 0.8")
+        ttft = np.array([r.ttft_s for r in reqs]) * 1e3
+        generated = int(sum(len(o) for o in outs))
+        iters = stats["decode_iterations"] - before["decode_iterations"]
+        row = {"tokens_per_s": generated / wall, "wall_s": wall,
+               "ttft_ms_p50": float(np.percentile(ttft, 50)),
+               "ttft_ms_p99": float(np.percentile(ttft, 99)),
+               "acceptance": acceptance, "proposed": proposed,
+               "accepted": accepted, "spec_iterations": iters,
+               "iteration_ms_mean": stats["decode_iter_s_mean"] * 1e3,
+               "identical_to_plain_bf16": sum(
+                   bool(np.array_equal(a, b))
+                   for a, b in zip(outs, plain_outs)),
+               "graphs_warmup": before["graphs"], "graphs_timed": timed}
+        # one iteration at ragged positions, the last slot at the edge
+        rng = np.random.RandomState(9)
+        host = np.concatenate([rng.randint(0, vocab, size=8),
+                               [40, 97, 255, 300, 511, 700, 880, 1020]]
+                              ).astype(np.int32)
+        caches = [t for c in (cb._caches, cb._draft_caches)
+                  for d in c.values() for t in d.values()]
+        with torch.no_grad():
+            saved = [t.clone() for t in caches]
+            runs = []
+            for replay in (True, False):
+                for t, v in zip(caches, saved):
+                    t.copy_(v)
+                if replay:
+                    got = cb._spec_dispatch(host)
+                else:
+                    cb._spec_in.put(host)
+                    cb._spec_walk()
+                    got = cb._spec_out.cpu().numpy()
+                runs.append((got, cb._spec_probs.clone(),
+                             [t.clone() for t in caches]))
+            (o0, p0, c0), (o1, p1, c1) = runs
+            same = {"picks_counts": bool(np.array_equal(o0, o1)),
+                    "verify_probs": bool(torch.equal(p0, p1)),
+                    "cache_rows": all(torch.equal(a, b)
+                                      for a, b in zip(c0, c1))}
+            if not all(same.values()):
+                raise AssertionError(f"spec {name}: replay vs eager walk: "
+                                     f"{same}")
+            argmax = cb._spec_probs.argmax(dim=-1)[:, :k].cpu().numpy()
+            if not np.array_equal(argmax, o1[:, :k]):
+                raise AssertionError(f"spec {name}: a pick is not the "
+                                     "argmax of its verify row")
+            for t, v in zip(caches, saved):
+                t.copy_(v)
+            walk = _walk_launches(torch, lambda: (cb._spec_in.put(host),
+                                                  cb._spec_walk()))
+            layers = lambda m: sum(  # noqa: E731
+                op.op_type.value == "multihead_attention"
+                for op in m.graph.ops.values())
+            want = {"multiquery_decode_attention": layers(lm),
+                    "decode_attention": k * layers(draft)}
+            if {n: walk.get(n, 0) for n in want} != want:
+                raise AssertionError(f"spec {name}: one walk launched "
+                                     f"{walk}, expected {want}")
+            from torch.profiler import ProfilerActivity, profile
+
+            cb._spec_dispatch(host)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    cb._spec_dispatch(host)
+            busy_ms, top = _kernel_table(prof, reps)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                cb._spec_dispatch(host)
+            wall_ms = (time.perf_counter() - t0) / reps * 1e3
+            del saved, runs, caches
+        row.update(replay_same_bits=same, walk_launches=walk,
+                   iteration_host_wall_ms=wall_ms,
+                   iteration_device_busy_ms=busy_ms,
+                   iteration_idle_share=1 - busy_ms / wall_ms,
+                   iteration_top_kernels=top[:6])
+        out[name] = row
+        del cb
+    del untied
+    out["f32_2_layers"] = _spec_f32(torch, vocab, max_len, page)
+    return out
+
+
 def _prefill_probs(torch, model, prompt, chunk, max_len):
     """First-token distribution of `prompt`, prefilled chunk by chunk into
     fresh one-slot caches through the executor (the batcher's path)."""
@@ -2807,7 +3032,7 @@ def main() -> int:
         "tokens_per_s": generated / wall,
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
         "ttft_ms_p99": float(np.percentile(ttft, 99)),
-        "decode_iter_ms": stats["decode_iter_s"] * 1e3,
+        "decode_iter_ms": stats["decode_iter_s_mean"] * 1e3,
         "decode_iterations": stats["decode_iterations"],
         "prefill_chunks": stats["prefill_chunks"],
         "graphs_warmup": warm_graphs, "graphs_timed": timed_graphs,
@@ -2915,7 +3140,8 @@ def main() -> int:
     mlp = phase_mlp(torch)
     _emit(dict(mlp, seconds_since_start=time.perf_counter() - t_start))
 
-    # 16) serve-graph, 17) generate, 18) oneshot, 19) prefix: the serve LM
+    # 16) serve-graph, 17) generate, 18) oneshot, 19) prefix, 20) spec: the
+    # serve LM
     serving_paths = {}
     for name, fn in (
             ("serve-graph", lambda: phase_serve_graph(torch, lm, max_len,
@@ -2925,7 +3151,9 @@ def main() -> int:
                 torch, lm, max_len, page, prompts[:8],
                 [int(n) for n in news[:8]], outs[:8])),
             ("prefix", lambda: phase_prefix(torch, lm, max_len, page,
-                                            vocab))):
+                                            vocab)),
+            ("spec", lambda: phase_spec(torch, lm, max_len, page, vocab,
+                                        prompts, news, outs, serve))):
         reset_launch_counts()
         line = fn()
         counts = launch_counts()
@@ -2937,10 +3165,10 @@ def main() -> int:
         _emit(dict(line, launches=serving_paths[name],
                    seconds_since_start=time.perf_counter() - t_start))
 
-    # 20) the kernel table, the card, the result. A kernel's launches are
+    # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
     # on rank 0, train-graph's graphed fit, mlp's eager fit, and the
-    # serving phases 16-19), each counted from 0 just before its path ran
+    # serving phases 16-20), each counted from 0 just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:130",

@@ -60,9 +60,10 @@ class LoweringContext:
         # a full-sequence (prefill) walk that also writes its K/V rows into
         # the caches in `state` (ops/attention.py _full_sequence)
         self.fill_kv_cache = False
-        # a 0-d chunk offset's (cache rows, source rows), made by the first
-        # attention op of the walk and read by the others
-        # (ops/attention.py _chunk_rows)
+        # the cache rows a decode walk writes and their sources, made by the
+        # first attention op of the walk and read by the others
+        # (ops/attention.py _chunk_rows for a 0-d chunk offset, _slot_rows
+        # for per-slot positions)
         self.chunk_rows = None
         # this process's core.machine.Mesh, None on one device
         self.mesh = None

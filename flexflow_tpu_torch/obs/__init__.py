@@ -1,6 +1,6 @@
-"""Observability of the port: so far the labelled counters
-(obs/registry.py); tracing, step stats and the exposition renderer come
-with ROADMAP A9."""
-from .registry import REGISTRY, Counter, MetricsRegistry
+"""Observability of the port: labelled counters, gauges and histograms
+and their Prometheus exposition (obs/registry.py); tracing, step stats
+and the fleet's merged render come with ROADMAP A9 and A10."""
+from .registry import REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
 
-__all__ = ["Counter", "MetricsRegistry", "REGISTRY"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY"]

@@ -1,21 +1,49 @@
-"""Labelled counters: a host-only copy of the parts of
-flexflow_tpu/obs/registry.py that a counter needs (`_Family`, `Counter`,
-`MetricsRegistry.counter`), so the port's metric families keep the JAX
-package's names and labels. Gauges, histograms and the Prometheus
-renderer come with the rest of obs/ (ROADMAP A9).
+"""Labelled metrics: a host-only copy of flexflow_tpu/obs/registry.py's
+primitives (`Counter`, `Gauge`, `Histogram` with quantiles) and its
+Prometheus exposition renderer, so the port's metric families keep the
+JAX package's names, labels and text. The merged multi-registry render,
+the exposition parser and the checkpoint-counter shim come with the rest
+of obs/ and the fleet (ROADMAP A9, A10).
 
-A metric family is (name, kind, label names); asking again for an
-existing family returns the same object, and a kind or label mismatch
-raises.
+Design rules (the JAX module's):
+ - a metric family is (name, kind, label names); asking again for an
+   existing family returns the same object, and a kind, label or bucket
+   mismatch raises;
+ - `reset_all()` zeroes values but keeps the families, so handles
+   cached at import time stay live;
+ - rendering escapes help text and label values per the exposition
+   format.
 """
 from __future__ import annotations
 
+import math
 import re
 import threading
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+DEFAULT_LATENCY_BUCKETS_MS = (
+    1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0)
+
+
+def escape_label_value(v: str) -> str:
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def escape_help(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt(v: float) -> str:
+    f = float(v)
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    if math.isnan(f):
+        return "NaN"
+    return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
 
 
 class _Family:
@@ -47,6 +75,46 @@ class _Family:
         with self._lock:
             return self._values.get(self._key(labels), 0.0)
 
+    def items(self) -> List[Tuple[Tuple[str, ...], float]]:
+        with self._lock:
+            return sorted(self._values.items())
+
+    def reset(self) -> None:
+        with self._lock:
+            self._values.clear()
+
+    def remove(self, **labels) -> None:
+        """Drop one labelset's series so it stops rendering; the family
+        stays registered."""
+        with self._lock:
+            self._values.pop(self._key(labels), None)
+
+    # -- rendering --------------------------------------------------------
+    def _sample_lines(self) -> List[str]:
+        items = self.items()
+        if not items and not self.label_names:
+            # an unlabelled family is born at 0, so a reset family renders
+            # 0, not nothing
+            items = [((), 0.0)]
+        return [self._line(self.name, self.label_names, key, v)
+                for key, v in items]
+
+    @staticmethod
+    def _line(name: str, label_names: Sequence[str],
+              label_values: Sequence[str], v: float) -> str:
+        if label_names:
+            lbl = ",".join(
+                f'{ln}="{escape_label_value(lv)}"'
+                for ln, lv in zip(label_names, label_values))
+            return f"{name}{{{lbl}}} {_fmt(v)}"
+        return f"{name} {_fmt(v)}"
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {escape_help(self.help)}",
+                 f"# TYPE {self.name} {self.kind}"]
+        lines += self._sample_lines()
+        return "\n".join(lines) + "\n"
+
 
 class Counter(_Family):
     kind = "counter"
@@ -58,27 +126,240 @@ class Counter(_Family):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + n
 
+    def set_total(self, value: float, **labels) -> None:
+        """Mirror a monotonic total accumulated elsewhere into the
+        exposition (`inc` is the counter contract)."""
+        with self._lock:
+            self._values[self._key(labels)] = float(value)
+
+
+class Gauge(_Family):
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._values[self._key(labels)] = float(value)
+
+    def inc(self, n: float = 1, **labels) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + n
+
+    def dec(self, n: float = 1, **labels) -> None:
+        self.inc(-n, **labels)
+
+
+def _norm_buckets(buckets: Sequence[float]) -> Tuple[float, ...]:
+    b = sorted(float(x) for x in buckets)
+    if not b or b[-1] != math.inf:
+        b.append(math.inf)
+    return tuple(b)
+
+
+class Histogram(_Family):
+    """Cumulative-bucket histogram (`_bucket{le=}` / `_sum` / `_count`).
+    `observe(v, exemplar=id)` pins the latest exemplar onto the landing
+    bucket, rendered as an OpenMetrics exemplar suffix."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str, labels: Sequence[str] = (),
+                 buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS_MS):
+        super().__init__(name, help, labels)
+        self.buckets: Tuple[float, ...] = _norm_buckets(buckets)
+        # per labelset: [bucket counts..., sum, count]
+        self._hist: Dict[Tuple[str, ...], List[float]] = {}
+        # (labelset, landing bucket index) -> (exemplar id, observed value)
+        self._exemplars: Dict[Tuple[Tuple[str, ...], int],
+                              Tuple[str, float]] = {}
+
+    def observe(self, value: float, exemplar: Optional[str] = None,
+                **labels) -> None:
+        key = self._key(labels)
+        v = float(value)
+        with self._lock:
+            ent = self._hist.get(key)
+            if ent is None:
+                ent = self._hist[key] = [0.0] * (len(self.buckets) + 2)
+            landing = None
+            for i, le in enumerate(self.buckets):
+                if v <= le:
+                    if landing is None:
+                        landing = i
+                    ent[i] += 1
+            ent[-2] += v
+            ent[-1] += 1
+            if exemplar is not None and landing is not None:
+                self._exemplars[(key, landing)] = (str(exemplar), v)
+
+    def exemplar(self, bucket_le: float, **labels
+                 ) -> Optional[Tuple[str, float]]:
+        """The (exemplar id, observed value) pinned on one bucket, or
+        None."""
+        key = self._key(labels)
+        try:
+            idx = self.buckets.index(float(bucket_le))
+        except ValueError:
+            return None
+        with self._lock:
+            return self._exemplars.get((key, idx))
+
+    def count(self, **labels) -> int:
+        key = self._key(labels)
+        with self._lock:
+            ent = self._hist.get(key)
+            return int(ent[-1]) if ent else 0
+
+    def snapshot(self, **labels) -> Tuple[float, ...]:
+        """A copy of one labelset's cumulative row ([bucket counts...,
+        sum, count]; all zeros when never observed): the baseline of a
+        windowed `quantile(since=)`."""
+        key = self._key(labels)
+        with self._lock:
+            ent = self._hist.get(key)
+            if ent is None:
+                return (0.0,) * (len(self.buckets) + 2)
+            return tuple(ent)
+
+    def quantile(self, q: float, since: Optional[Sequence[float]] = None,
+                 **labels) -> float:
+        """Approximate q-quantile (q in [0, 1]) from the cumulative
+        buckets, linearly interpolated inside the landing bucket; the +Inf
+        bucket clamps to the last finite boundary; 0.0 with nothing
+        observed. `since`: a `snapshot()` subtracted first, so only later
+        observations count."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"q={q}: want [0, 1]")
+        key = self._key(labels)
+        with self._lock:
+            ent = self._hist.get(key)
+            if ent is None or ent[-1] <= 0:
+                return 0.0
+            if since is not None and len(since) == len(ent):
+                ent = [max(0.0, a - b) for a, b in zip(ent, since)]
+                if ent[-1] <= 0:
+                    return 0.0
+            rank = q * ent[-1]
+            prev_le, prev_cum = 0.0, 0.0
+            for i, le in enumerate(self.buckets):
+                cum = ent[i]
+                if cum >= rank:
+                    if math.isinf(le):
+                        return prev_le
+                    if cum == prev_cum:
+                        return le
+                    frac = (rank - prev_cum) / (cum - prev_cum)
+                    return prev_le + frac * (le - prev_le)
+                prev_le, prev_cum = (0.0 if math.isinf(le) else le), cum
+            return prev_le
+
+    def sum(self, **labels) -> float:
+        key = self._key(labels)
+        with self._lock:
+            ent = self._hist.get(key)
+            return float(ent[-2]) if ent else 0.0
+
+    def reset(self) -> None:
+        with self._lock:
+            self._hist.clear()
+            self._exemplars.clear()
+
+    def remove(self, **labels) -> None:
+        with self._lock:
+            key = self._key(labels)
+            self._hist.pop(key, None)
+            for k in [k for k in self._exemplars if k[0] == key]:
+                del self._exemplars[k]
+
+    def _sample_lines(self) -> List[str]:
+        out = []
+        with self._lock:
+            # copy inside the lock: a concurrent observe() must not tear a
+            # rendered histogram (bucket{+Inf} != count)
+            items = sorted((k, list(v)) for k, v in self._hist.items())
+            exemplars = dict(self._exemplars)
+        for key, ent in items:
+            names = self.label_names + ("le",)
+            for i, le in enumerate(self.buckets):
+                line = self._line(f"{self.name}_bucket", names,
+                                  tuple(key) + (_fmt(le),), ent[i])
+                ex = exemplars.get((key, i))
+                if ex is not None:
+                    line += (f' # {{trace_id="{escape_label_value(ex[0])}"}}'
+                             f" {_fmt(ex[1])}")
+                out.append(line)
+            out.append(self._line(f"{self.name}_sum", self.label_names, key,
+                                  ent[-2]))
+            out.append(self._line(f"{self.name}_count", self.label_names,
+                                  key, ent[-1]))
+        return out
+
 
 class MetricsRegistry:
-    """A namespace of metric families."""
+    """A namespace of metric families with one exposition renderer."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._families: Dict[str, _Family] = {}
 
-    def counter(self, name: str, help: str = "",
-                labels: Sequence[str] = ()) -> Counter:
+    def _get_or_make(self, cls, name: str, help: str,
+                     labels: Sequence[str], **kw) -> _Family:
         with self._lock:
             fam = self._families.get(name)
-            if fam is None:
-                fam = self._families[name] = Counter(name, help, labels)
-            elif not isinstance(fam, Counter) or \
-                    fam.label_names != tuple(labels):
-                raise ValueError(
-                    f"metric {name!r} already registered as {fam.kind} "
-                    f"with labels {fam.label_names}")
+            if fam is not None:
+                if not isinstance(fam, cls) or \
+                        fam.label_names != tuple(labels):
+                    raise ValueError(
+                        f"metric {name!r} already registered as "
+                        f"{fam.kind} with labels {fam.label_names}")
+                if "buckets" in kw:
+                    want = _norm_buckets(kw["buckets"])
+                    if fam.buckets != want:
+                        raise ValueError(
+                            f"histogram {name!r} already registered with "
+                            f"buckets {fam.buckets}, requested {want}")
+                return fam
+            fam = cls(name, help, labels, **kw)
+            self._families[name] = fam
             return fam
+
+    def counter(self, name: str, help: str = "",
+                labels: Sequence[str] = ()) -> Counter:
+        return self._get_or_make(Counter, name, help, labels)
+
+    def gauge(self, name: str, help: str = "",
+              labels: Sequence[str] = ()) -> Gauge:
+        return self._get_or_make(Gauge, name, help, labels)
+
+    def histogram(self, name: str, help: str = "",
+                  labels: Sequence[str] = (),
+                  buckets: Optional[Sequence[float]] = None) -> Histogram:
+        """buckets=None fetches or creates with the default boundaries
+        and never conflicts; explicit buckets must match an existing
+        family."""
+        kw = {} if buckets is None else {"buckets": buckets}
+        return self._get_or_make(Histogram, name, help, labels, **kw)
+
+    def families(self) -> List[_Family]:
+        with self._lock:
+            return [self._families[n] for n in sorted(self._families)]
+
+    def get(self, name: str) -> Optional[_Family]:
+        with self._lock:
+            return self._families.get(name)
+
+    def reset_all(self, prefix: Optional[str] = None) -> None:
+        """Zero every family's values (the families stay registered);
+        `prefix` limits the reset to one group."""
+        for fam in self.families():
+            if prefix is None or fam.name.startswith(prefix):
+                fam.reset()
+
+    def render(self) -> str:
+        """Prometheus exposition text of every family, sorted by name."""
+        return "".join(fam.render() for fam in self.families())
 
 
 # the process-wide registry
 REGISTRY = MetricsRegistry()
+

@@ -36,12 +36,24 @@ f32 (`reduce_sum`) before it is cast and bo is added once.
 Decoding: the caller holds the caches in `ctx.state[op name]`, updated in
 place. The QK^T -> masked softmax -> V core runs through the port's
 decode-attention kernel (kernels/decode.py; families `attention_decode`
-for C = 1 with a position vector, `attention_decode_mq` for a chunk
-offset) or, when the kernel is not selected, through the JAX package's
-einsum decode chain over the whole cache. Two entries, as `_decode_step`
-in the JAX package:
- - a (B,) int32 tensor of per-slot positions with one query token per
-   slot: the continuous batcher's decode iteration;
+for C = 1 with a position vector, `attention_decode_mq` for C > 1 and
+for a chunk offset) or, when the kernel is not selected, through the JAX
+package's einsum decode chain over the whole cache. Two entries, as
+`_decode_step` in the JAX package:
+ - a (B,) int32 tensor of per-slot positions with C >= 1 query tokens
+   per slot: the continuous batcher's decode iteration (C = 1) and
+   speculative decoding's verify (C = k + 1). Slot i's rows land at
+   [pos[i], pos[i] + C) of its cache and its query j attends rows
+   <= pos[i] + j. A row past the cache edge takes the chunk rule below,
+   per slot: JAX's scatter drops it; the port aims it at row M - 1 with
+   the source of row M - 1, which writes what JAX writes whenever
+   pos[i] < M. A position at or past M (the draft's step j writes at
+   pos + j, past the edge on a sequence's last iteration) holds no
+   such source: row M - 1 takes the step's own row, where JAX keeps the
+   old one. No pick the batcher keeps reads row M - 1: a request's last
+   token comes from position plen + max_new - 2 <= M - 2. The rows are
+   device arithmetic on `pos` (no host read), so the walk can be
+   captured;
  - a chunk offset with C >= 1 query tokens: chunked prefill. The
    chunk's K/V rows land at [pos, pos + C) and query j attends rows
    <= pos + j. Rows past the cache edge are DROPPED, where JAX's
@@ -271,7 +283,7 @@ class MultiHeadAttentionOp(Op):
 
     def _decode_step(self, ctx, q, k, v, scale):
         """Write the new tokens' K/V rows into the caches, then attend:
-        per-slot positions (vector, C = 1) or a chunk offset (0-d,
+        per-slot positions (vector, C >= 1) or a chunk offset (0-d,
         C >= 1)."""
         pos = ctx.decode_pos
         kc = ctx.state[self.name]["k_cache"]
@@ -279,7 +291,22 @@ class MultiHeadAttentionOp(Op):
         b, c = q.shape[0], q.shape[1]
         block_k = ctx.config.flash_block_k
         vector = pos.dim() == 1
-        if not vector:
+        if vector:
+            slots, rows, src = _slot_rows(ctx, pos, c, kc.shape[1])
+            if c > 1:  # C = 1: the source is the step's only row
+                k, v = k[slots, src], v[slots, src]
+            kc.index_put_((slots, rows), k.to(kc.dtype))
+            vc.index_put_((slots, rows), v.to(vc.dtype))
+            family = "attention_decode" if c == 1 else "attention_decode_mq"
+            if KERNELS.resolve(self.kernel_memo, family, config=ctx.config,
+                               device=kc.device):
+                fn = decode_attention if c == 1 \
+                    else multiquery_decode_attention
+                ctxv = fn(q, kc, vc, pos, scale=scale, block_k=block_k)
+                return self._decode_project(ctxv, q.dtype)
+            qpos = pos.long()[:, None] + torch.arange(
+                c, device=kc.device)[None, :]                # (B, C)
+        else:
             rows, src = _chunk_rows(ctx, pos, c, kc.shape[1])
             kc.index_copy_(1, rows, k[:, src].to(kc.dtype))
             vc.index_copy_(1, rows, v[:, src].to(vc.dtype))
@@ -291,22 +318,6 @@ class MultiHeadAttentionOp(Op):
                                                    block_k=block_k)
                 return self._decode_project(ctxv, q.dtype)
             qpos = pos.long() + torch.arange(c, device=kc.device)[None, :]
-        else:
-            if c != 1:
-                raise NotImplementedError(
-                    f"{self.name}: per-slot positions with C={c} query "
-                    "tokens is speculative decoding's verify step, which "
-                    "is not ported yet (ROADMAP A5)")
-            rows = torch.arange(b, device=kc.device)
-            idx = pos.long()
-            kc.index_put_((rows, idx), k[:, 0].to(kc.dtype))
-            vc.index_put_((rows, idx), v[:, 0].to(vc.dtype))
-            if KERNELS.resolve(self.kernel_memo, "attention_decode",
-                               config=ctx.config, device=kc.device):
-                ctxv = decode_attention(q, kc, vc, pos, scale=scale,
-                                        block_k=block_k)
-                return self._decode_project(ctxv, q.dtype)
-            qpos = pos.long()[:, None]                       # (B, C)
         # the JAX package's einsum decode chain: query j attends cache rows
         # <= its absolute position, over the whole cache
         mask = (torch.arange(kc.shape[1], device=kc.device)[None, None, :]
@@ -343,4 +354,20 @@ def _chunk_rows(ctx, off: torch.Tensor, c: int, m: int):
         j = torch.arange(c, device=off.device)
         rows = (off.long() + j).clamp(max=m - 1)
         ctx.chunk_rows = (rows, (rows - off.long()).clamp(0, c - 1))
+    return ctx.chunk_rows
+
+
+def _slot_rows(ctx, pos: torch.Tensor, c: int, m: int):
+    """(slot, cache row, source row) indices, each (B, C), of per-slot
+    positions `pos` (B,) with C queries, made once a walk: slot i's query
+    j writes row pos[i] + j; a row past the cache edge is aimed at row
+    m - 1 with the source of row m - 1, or with source 0 where pos[i] >= m
+    (the walk holds no source of row m - 1), so every write a row takes
+    in one call carries the same value."""
+    if ctx.chunk_rows is None:
+        p = pos.long()[:, None]
+        rows = (p + torch.arange(c, device=pos.device)[None, :]).clamp(
+            max=m - 1)
+        slots = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        ctx.chunk_rows = (slots, rows, (rows - p).clamp(0, c - 1))
     return ctx.chunk_rows

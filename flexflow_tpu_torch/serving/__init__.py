@@ -5,11 +5,12 @@ A5, A10)."""
 from .generate import GenerativeSession
 from .sched import (AdmissionController, AdmissionError, BatcherStopped,
                     ContinuousBatcher, GenRequest, PagedKVPool,
-                    PoolSaturated, PrefixCache, QueueFull, RequestState,
-                    RequestTooLarge, prefix_route_chain, prefix_route_key)
+                    PoolSaturated, PrefixCache, QueueFull, RequestCancelled,
+                    RequestState, RequestTooLarge, prefix_route_chain,
+                    prefix_route_key)
 
 __all__ = ["AdmissionController", "AdmissionError", "BatcherStopped",
            "ContinuousBatcher", "GenRequest", "GenerativeSession",
            "PagedKVPool", "PoolSaturated", "PrefixCache", "QueueFull",
-           "RequestState", "RequestTooLarge", "prefix_route_chain",
-           "prefix_route_key"]
+           "RequestCancelled", "RequestState", "RequestTooLarge",
+           "prefix_route_chain", "prefix_route_key"]

@@ -3,16 +3,16 @@ admission control, the ContinuousBatcher and the shared-prefix workload
 (counterpart of flexflow_tpu/serving/sched/)."""
 from .admission import (AdmissionController, AdmissionError, PoolSaturated,
                         QueueFull, RequestTooLarge)
-from .bench import make_shared_prefix_workload
+from .bench import make_shared_prefix_workload, run_speculative_once
 from .continuous import (BatcherStopped, ContinuousBatcher, GenRequest,
-                         RequestState)
+                         RequestCancelled, RequestState)
 from .kvpool import (PagedKVPool, PoolExhausted, PrefixCache,
                      kv_bytes_per_token, kv_cache_spec, prefix_route_chain,
                      prefix_route_key)
 
 __all__ = ["AdmissionController", "AdmissionError", "BatcherStopped",
            "ContinuousBatcher", "GenRequest", "PagedKVPool", "PoolExhausted",
-           "PoolSaturated", "PrefixCache", "QueueFull", "RequestState",
-           "RequestTooLarge", "kv_bytes_per_token", "kv_cache_spec",
-           "make_shared_prefix_workload", "prefix_route_chain",
-           "prefix_route_key"]
+           "PoolSaturated", "PrefixCache", "QueueFull", "RequestCancelled",
+           "RequestState", "RequestTooLarge", "kv_bytes_per_token",
+           "kv_cache_spec", "make_shared_prefix_workload",
+           "prefix_route_chain", "prefix_route_key", "run_speculative_once"]

@@ -1,6 +1,8 @@
 """Admission control for continuous-batching serving (a copy of
-flexflow_tpu/serving/sched/admission.py without the metrics registry,
-which comes with the observability slice, ROADMAP A9).
+flexflow_tpu/serving/sched/admission.py; its metric families, the queue
+gauge `ff_serving_queue_depth{pool}` and the rejection counter
+`ff_serving_rejections_total{reason}`, go to the process-wide registry
+unless one is passed).
 
 The contract: a request is either rejected AT SUBMIT with a typed error
 or it is guaranteed to finish.
@@ -62,7 +64,8 @@ class AdmissionController:
 
     def __init__(self, pool: PagedKVPool, window: Optional[int],
                  max_queue: int = 64,
-                 queue_pages_budget: Optional[int] = None):
+                 queue_pages_budget: Optional[int] = None,
+                 registry=None):
         self.pool = pool
         # None = no prefill-window cap (chunked prefill)
         self.window = None if window is None else int(window)
@@ -73,10 +76,26 @@ class AdmissionController:
         self._lock = threading.Lock()
         self._queued_pages: Dict[object, int] = {}  # req id -> pages
         self._admit_times: Dict[object, float] = {}
+        # this controller's rejections by reason (`stats()`); the counter
+        # family below sums every controller of its registry
         self.rejections: Dict[str, int] = {}
+        if registry is None:
+            from ...obs.registry import REGISTRY as registry  # noqa: N813
+        # the queue gauge carries the pool's label: two controllers in one
+        # process must not clobber each other's series
+        self._pool_label = pool.label
+        self._g_queue = registry.gauge(
+            "ff_serving_queue_depth",
+            "Admitted requests waiting for a decode slot",
+            labels=("pool",))
+        self._g_queue.set(0, pool=self._pool_label)
+        self._c_rejected = registry.counter(
+            "ff_serving_rejections_total",
+            "Requests rejected at admission by reason", labels=("reason",))
 
     def _reject(self, err: AdmissionError) -> AdmissionError:
         self.rejections[err.reason] = self.rejections.get(err.reason, 0) + 1
+        self._c_rejected.inc(reason=err.reason)
         return err
 
     def admit(self, req_id, prompt_len: int, max_new_tokens: int,
@@ -111,6 +130,7 @@ class AdmissionController:
                                                  self.queue_pages_budget))
             self._queued_pages[req_id] = need
             self._admit_times[req_id] = time.monotonic()
+            self._g_queue.set(len(self._queued_pages), pool=self._pool_label)
 
     def on_scheduled(self, req_id) -> float:
         """The scheduler moved the request into a slot. Returns its queue
@@ -118,6 +138,7 @@ class AdmissionController:
         with self._lock:
             self._queued_pages.pop(req_id, None)
             t = self._admit_times.pop(req_id, None)
+            self._g_queue.set(len(self._queued_pages), pool=self._pool_label)
             return 0.0 if t is None else time.monotonic() - t
 
     def release(self, req_id) -> None:
@@ -125,6 +146,7 @@ class AdmissionController:
         with self._lock:
             self._queued_pages.pop(req_id, None)
             self._admit_times.pop(req_id, None)
+            self._g_queue.set(len(self._queued_pages), pool=self._pool_label)
 
     def backlog_pages(self) -> int:
         with self._lock:

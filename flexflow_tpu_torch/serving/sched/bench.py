@@ -1,9 +1,11 @@
-"""The serve-bench model builder and the shared-prefix workload
-(counterparts of flexflow_tpu/serving/sched/bench.py `build_tiny_lm` and
-`make_shared_prefix_workload`). The serve-bench CLI itself comes with a
-later slice."""
+"""The serve-bench LM, the shared-prefix workload and the speculative
+pass (counterparts of flexflow_tpu/serving/sched/bench.py
+`build_tiny_lm`, `make_shared_prefix_workload` and
+`run_speculative_once`). The serve-bench CLI itself comes with a later
+slice."""
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -70,3 +72,66 @@ def make_shared_prefix_workload(n: int, groups: int, prefix_len: int,
             "leader": i < groups,
         })
     return reqs
+
+
+def _submit_with_backpressure(batcher, workload, deadline_s: float,
+                              t0: float):
+    """Submit the workload as a well-behaved client: queue and pool
+    saturation (HTTP 429) retry with backoff, giving up only past
+    `deadline_s` after `t0`. Returns (handles, backpressure retries)."""
+    from .admission import PoolSaturated, QueueFull
+
+    handles = []
+    backpressured = 0
+    for w in workload:
+        while True:
+            try:
+                handles.append(batcher.submit(w["prompt"], w["max_new"]))
+                break
+            except (QueueFull, PoolSaturated):
+                backpressured += 1
+                if time.monotonic() - t0 > deadline_s:
+                    raise
+                time.sleep(0.02)
+    return handles, backpressured
+
+
+def run_speculative_once(model, draft, workload, max_len: int, slots: int,
+                         page_size: int, spec_tokens: int,
+                         deadline_s: float) -> Dict:
+    """One timed pass of the workload ([{"prompt", "max_new"}, ...]):
+    plain greedy when `draft` is None, draft-verify speculative
+    otherwise. Two warm-up requests run outside the timed window (they
+    capture the chunk graphs of the slots they take, both models', and
+    the decode or speculative graph). Returns tokens/s, the token lists
+    and the batcher's spec stats."""
+    from .continuous import ContinuousBatcher
+
+    batcher = ContinuousBatcher(
+        model, max_len=max_len, num_slots=slots, page_size=page_size,
+        prefix_cache_pages=0, max_queue=max(len(workload), 1),
+        draft_model=draft, spec_tokens=spec_tokens)
+    with batcher:
+        warm = np.zeros(
+            max(1, min(page_size * 2 + 1, max_len - 4)), np.int32)
+        batcher.submit(warm, 3).result(timeout=600.0)
+        batcher.submit(warm, 3).result(timeout=600.0)
+        t0 = time.monotonic()
+        handles, backpressured = _submit_with_backpressure(
+            batcher, workload, deadline_s, t0)
+        results = [h.result(timeout=600.0) for h in handles]
+        wall = time.monotonic() - t0
+        stats = batcher.stats()
+    tokens = sum(len(r) for r in results)
+    return {
+        "wall_s": round(wall, 3),
+        "tokens": tokens,
+        "tokens_per_s": round(tokens / wall, 2) if wall > 0 else 0.0,
+        "dropped": sum(
+            1 for h, w in zip(handles, workload)
+            if h.error is not None or len(h.tokens) != w["max_new"]),
+        "backpressure_retries": backpressured,
+        "token_lists": [[int(t) for t in h.tokens] for h in handles],
+        "spec": stats.get("spec"),
+        "decode_iter_s": stats.get("decode_iter_s"),
+    }

@@ -39,6 +39,23 @@ captured at its first dispatch and again after the weights changed. The
 one-shot prefill, the prefix install and insert run eagerly, once a
 request. On the CPU every dispatch runs eagerly.
 
+Speculative decoding (`draft_model=`, `spec_tokens=k`; the JAX batcher's
+`spec_decode_all`): every decode iteration is then ONE dispatch, on the
+card one CUDA graph over both models' caches — k unrolled greedy draft
+steps, step j at positions pos + j over the draft's own slot-dense
+caches, then the target scoring [last token, k proposals] at the
+per-slot positions in one multi-query walk (C = k + 1, the decode
+kernel's C >= 1 entry), the accept as the cumulative product of matches,
+and `min(accepted + 1, k)` tokens a slot, all picked by `pick_tokens`'
+argmax, as plain decode picks. Greedy output is token-identical to plain
+greedy whatever the draft: every emitted token is the target's own
+argmax. Emission is capped at k so the draft's cache stays exactly one
+token behind the target's; rejected rows are never cleaned, the
+positions just do not advance over them. The draft prefills the whole
+prompt through its own per-slot chunk graphs (also on a prefix-cache
+hit: the band holds target pages), and the target's last chunk waits
+until the draft has caught up. Greedy-only, chunked-prefill-only.
+
 Prefix reuse (kvpool.PrefixCache, on by default with chunked prefill:
 two slots' worth of pages): cached prefix pages live in a band of
 slot-shaped rows beside the decode caches, which decode never carries or
@@ -48,6 +65,14 @@ indexed copy a cache, and only the suffix is prefilled; a finished
 prefill copies its new full pages into the band. Admission credits the
 expected sharing against its backlog budget.
 
+The control surface (the JAX batcher's, for the fleet of ROADMAP A10):
+`cancel` of a queued request, `abort` of the whole replica (fencing each
+slotted request's emitted tokens), the health probes (`scheduler_alive`,
+`heartbeat_age_s`, `step_latency_s`, `reset_latency`), the measured rate
+model (`prefill_backlog_s`, `queued_prefill_tokens`, `predicted_ttft_s`)
+and the metric families (obs/registry.py; the process-wide registry
+unless one is passed).
+
 Determinism: greedy decode (temperature <= 0) is a function of the prompt
 alone, whatever shares the batch. Sampled decode adds Gumbel noise made
 from the request's key (its seed) and the position (serving/generate.py
@@ -55,11 +80,11 @@ from the request's key (its seed) and the position (serving/generate.py
 prompt, never on co-scheduled traffic. The numbers are not jax.random's,
 so sampled tokens differ from the JAX batcher's.
 
-Not ported yet, each raising a clear error: speculative decoding with a
-draft model, request_resize and the disaggregated park / handoff calls
-(ROADMAP A5), deriving num_slots from the machine model (ROADMAP A7),
-expert-affine admission (with the MoE ops, ROADMAP A6), metrics and
-tracing (ROADMAP A9).
+Not ported yet, each raising a clear error: request_resize (ROADMAP A5,
+after A7's machine model), the disaggregated park / handoff calls (A5,
+with A10), deriving num_slots from the machine model (A7), expert-affine
+admission (with the MoE ops, A6), tracing spans and the chaos hook (A9,
+A10).
 """
 from __future__ import annotations
 
@@ -85,6 +110,11 @@ from .kvpool import PagedKVPool, kv_cache_spec
 
 class BatcherStopped(RuntimeError):
     """The batcher is not running (typed shutdown)."""
+
+
+class RequestCancelled(RuntimeError):
+    """The caller cancelled a still-queued request (ContinuousBatcher
+    .cancel) before it reached a slot."""
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -129,6 +159,11 @@ class GenRequest:
         # cache_hit = at least one page of the prompt came from the cache
         self.cache_hit = False
         self.prefix_tokens = 0
+        # failover fence (`_fence`): once fenced, the emitted tokens are
+        # frozen, so a scheduler thread that resumes after an abort can
+        # append nothing a replay elsewhere would duplicate
+        self._emit_lock = threading.Lock()
+        self._fenced = False
 
     # -- consumer API ------------------------------------------------------
     def stream(self, timeout: Optional[float] = None):
@@ -166,31 +201,60 @@ class GenRequest:
 
     # -- scheduler side ----------------------------------------------------
     def _emit(self, tok: int) -> None:
-        self.tokens.append(int(tok))
-        self.token_times.append(time.monotonic())
-        self._stream.put(int(tok))
+        with self._emit_lock:
+            if self._fenced:
+                return
+            self.tokens.append(int(tok))
+            self.token_times.append(time.monotonic())
+            self._stream.put(int(tok))
 
     def _finish(self) -> None:
-        self.state = RequestState.FINISHED
-        self.t_done = time.monotonic()
-        self._stream.put(_DONE)
-        self._done.set()
+        with self._emit_lock:
+            if self._fenced or self._done.is_set():
+                return
+            self.state = RequestState.FINISHED
+            self.t_done = time.monotonic()
+            self._stream.put(_DONE)
+            self._done.set()
 
     def _fail(self, err: BaseException) -> None:
-        if self._done.is_set():
-            return
-        self.state = RequestState.FAILED
-        self.error = err
-        self.t_done = time.monotonic()
-        self._stream.put(err)
-        self._done.set()
+        with self._emit_lock:
+            if self._fenced or self._done.is_set():
+                return
+            self.state = RequestState.FAILED
+            self.error = err
+            self.t_done = time.monotonic()
+            self._stream.put(err)
+            self._done.set()
+
+    def _fence(self, err: BaseException):
+        """Freeze the request for failover: no token emitted after the
+        fence is visible anywhere, so the returned (tokens, token_times)
+        snapshot is exactly what the stream has shown or will show before
+        the error. Returns None when the request already FINISHED;
+        otherwise fails it with `err` (unless an error is already
+        recorded: the consumer sees exactly one) and returns the
+        snapshot."""
+        with self._emit_lock:
+            already = self._fenced
+            self._fenced = True
+            if self.state is RequestState.FINISHED:
+                return None
+            snap = (list(self.tokens), list(self.token_times))
+            if not already and self.error is None:
+                self.state = RequestState.FAILED
+                self.error = err
+                self.t_done = time.monotonic()
+                self._stream.put(err)
+                self._done.set()
+            return snap
 
 
 class _Slot:
     """One active sequence bound to a pool slot."""
 
     __slots__ = ("req", "slot", "pos", "emitted", "last_tok", "plen",
-                 "filled", "shared", "key")
+                 "filled", "shared", "key", "t_last_emit", "draft_filled")
 
     def __init__(self, req: GenRequest, slot: int):
         self.req = req
@@ -202,6 +266,10 @@ class _Slot:
         self.filled = 0       # prompt tokens already in the cache
         self.shared = 0       # prompt tokens installed from the prefix cache
         self.key = sample_key(req.seed)
+        self.t_last_emit = time.monotonic()
+        # prompt tokens in the DRAFT's cache (speculative decoding): always
+        # from 0, even on a prefix-cache hit (the band holds target pages)
+        self.draft_filled = 0
 
 
 class ContinuousBatcher:
@@ -213,22 +281,24 @@ class ContinuousBatcher:
     temperature / top_k are batcher-level policy; a request's `seed` is
     per request. `num_slots` is required for now. prefix_cache_pages:
     band pages of the prefix cache; None gives two slots' worth with
-    chunked prefill and none one-shot, 0 turns it off.
+    chunked prefill and none one-shot, 0 turns it off. draft_model /
+    spec_tokens: speculative decoding (see the module docstring).
+    registry: the metric families' registry (default the process-wide
+    one, which a server renders; pass one only to isolate a test).
     """
 
     def __init__(self, model, max_len: int, num_slots: Optional[int] = None,
                  page_size: int = 16, max_queue: int = 64,
                  queue_pages_budget: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
+                 registry=None,
                  prefill_chunk_tokens: Optional[int] = None,
                  prefix_cache_pages: Optional[int] = None,
-                 draft_model=None):
+                 draft_model=None, spec_tokens: int = 3):
         if num_slots is None:
             raise ValueError(
                 "num_slots is required: deriving it from device memory "
                 "(derive_num_slots) needs the machine model, ROADMAP A7")
-        if draft_model is not None:
-            raise _not_ported("speculative decoding (draft_model)", "A5")
         chunk = int(page_size) if prefill_chunk_tokens is None \
             else int(prefill_chunk_tokens)
         if chunk < 0:
@@ -251,16 +321,67 @@ class ContinuousBatcher:
                 f" ({self.window})")
         self.temperature = float(temperature)
         self.top_k = top_k
+        # the only role ported: prefill and decode on one replica (the
+        # disaggregated "prefill" / "decode" roles come with A5.6)
+        self.role = "unified"
         if not any(op.op_type == OpType.MULTIHEAD_ATTENTION
                    for op in model.graph.ops.values()):
             raise ValueError("generation needs multihead_attention ops")
         # ids must index the embedding table: on the card an out-of-range
         # gather is a device-side assert that takes the process down
-        self._vocab = min((op.params["num_entries"]
-                           for op in model.graph.ops.values()
-                           if op.op_type == OpType.EMBEDDING
-                           and op.inputs[0] is model.input_ops[0].outputs[0]),
-                          default=None)
+        self._vocab = _embedding_entries(model)
+
+        # speculative decoding: the JAX batcher's checks and texts
+        self.draft_model = draft_model
+        self.spec_tokens = int(spec_tokens) if draft_model is not None else 0
+        if draft_model is not None:
+            if self.spec_tokens < 2:
+                # emission is capped at k (the draft stays one token
+                # behind), so k = 1 can never beat plain decode
+                raise ValueError(
+                    f"spec_tokens={spec_tokens}: need >= 2 — emission is"
+                    " capped at spec_tokens tokens/iteration, so k=1 can"
+                    " never beat plain decode")
+            if self.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only (temperature 0):"
+                    " sampled acceptance needs rejection sampling, which"
+                    " this batcher does not implement")
+            if self.prefill_chunk_tokens == 0:
+                raise ValueError(
+                    "speculative decoding requires chunked prefill"
+                    " (prefill_chunk_tokens > 0): the draft model"
+                    " prefills its own cache through the chunk entry")
+            if self.spec_tokens + 1 > self.window:
+                raise ValueError(
+                    f"spec_tokens={self.spec_tokens}: the verify dispatch"
+                    f" feeds {self.spec_tokens + 1} query tokens, more"
+                    f" than the target's declared window ({self.window})")
+            draft_window = draft_model.input_ops[0].outputs[0].dims[1]
+            if draft_window < self.prefill_chunk_tokens:
+                raise ValueError(
+                    f"draft window ({draft_window}) smaller than the"
+                    f" prefill chunk ({self.prefill_chunk_tokens}): the"
+                    " draft prefills through the same chunk entry")
+            if not any(op.op_type == OpType.MULTIHEAD_ATTENTION
+                       for op in draft_model.graph.ops.values()):
+                raise ValueError(
+                    "draft model needs multihead_attention ops")
+            tvocab = model.final_tensor.dims[-1]
+            dvocab = draft_model.final_tensor.dims[-1]
+            if tvocab != dvocab:
+                raise ValueError(
+                    f"draft vocab ({dvocab}) != target vocab ({tvocab}):"
+                    " proposals must be scoreable by the target")
+            if draft_model.device != self.device:
+                raise ValueError(
+                    f"draft model on {draft_model.device}, target on "
+                    f"{self.device}: one dispatch runs both")
+            dv = _embedding_entries(draft_model)
+            if dv is not None:
+                self._vocab = dv if self._vocab is None \
+                    else min(self._vocab, dv)
+
         # the prefix cache's budget (JAX continuous.py:515-533): two slots'
         # worth of band pages with chunked prefill, which the hit path
         # needs to prefill only the suffix
@@ -276,44 +397,28 @@ class ContinuousBatcher:
                 " leaves only the suffix to prefill, which needs the"
                 " chunk-offset entry")
         self.num_slots = int(num_slots)
+        if registry is None:
+            from ...obs.registry import REGISTRY as registry  # noqa: N813
+        self.registry = registry
         self.pool = PagedKVPool(self.num_slots, self.max_len,
-                                page_size=page_size,
+                                page_size=page_size, registry=registry,
                                 prefix_cache_pages=prefix_pages)
         self.admission = AdmissionController(
             self.pool,
             self.window if self.prefill_chunk_tokens == 0 else None,
-            max_queue=max_queue, queue_pages_budget=queue_pages_budget)
+            max_queue=max_queue, queue_pages_budget=queue_pages_budget,
+            registry=registry)
+        self._register_metrics(registry)
 
-        spec = kv_cache_spec(model)
-        self._caches = {
-            name: {
-                "k_cache": torch.zeros(
-                    (self.num_slots, self.max_len, heads, kdim), dtype=cdt,
-                    device=self.device),
-                "v_cache": torch.zeros(
-                    (self.num_slots, self.max_len, heads, vdim), dtype=cdt,
-                    device=self.device),
-            }
-            for name, heads, kdim, vdim, cdt in spec
-        }
+        self._caches = _zero_caches(model, self.num_slots, self.max_len)
         # per-slot views of the caches: a prefill chunk writes its slot's
         # rows in place through these
-        self._slot_caches = [
-            {name: {var: t[i:i + 1] for var, t in c.items()}
-             for name, c in self._caches.items()}
-            for i in range(self.num_slots)]
+        self._slot_caches = _slot_views(self._caches, self.num_slots)
         # the prefix cache's band: slot-shaped rows beside the decode
         # caches (JAX `_zero_band`), which decode never carries
         band_slots = self.pool.band_slots
-        self._band = {
-            name: {
-                "k_cache": torch.zeros((band_slots, self.max_len, heads,
-                                        kdim), dtype=cdt, device=self.device),
-                "v_cache": torch.zeros((band_slots, self.max_len, heads,
-                                        vdim), dtype=cdt, device=self.device),
-            }
-            for name, heads, kdim, vdim, cdt in spec
-        } if band_slots else None
+        self._band = _zero_caches(model, band_slots, self.max_len) \
+            if band_slots else None
         self._input_name = model.input_ops[0].name
         self._final_guid = model.final_tensor.guid
 
@@ -341,6 +446,32 @@ class ContinuousBatcher:
             self._chunk_calls = [
                 CapturedCall(self._chunk_walk(i), self.device, weights,
                              self.graphs, pool) for i in range(S)]
+        self._draft_caches = None
+        if draft_model is not None:
+            # the draft's slot-dense caches mirror the target's slot for
+            # slot (JAX `_zero_draft_caches`), with per-slot views for its
+            # prefill chunks; its graphs share the batcher's pool
+            self._draft_caches = _zero_caches(draft_model, S, self.max_len)
+            self._draft_slot_caches = _slot_views(self._draft_caches, S)
+            self._draft_input = draft_model.input_ops[0].name
+            self._draft_final = draft_model.final_tensor.guid
+            dweights = model_weights(draft_model)
+            k = self.spec_tokens
+            self._draft_chunk_in = Staging(C + 1, self.device)
+            self._draft_chunk_calls = [
+                CapturedCall(self._draft_chunk_walk(i), self.device,
+                             dweights, self.graphs, pool) for i in range(S)]
+            # in: the tokens and positions of every slot; out: the verify
+            # probabilities, and per slot the k target picks, the count to
+            # emit and the raw accepted count, read back by one copy
+            self._spec_in = Staging(2 * S, self.device)
+            self._spec_probs = torch.zeros((S, k + 1, vocab), dtype=pdt,
+                                           device=self.device)
+            self._spec_out = torch.zeros((S, k + 2), dtype=torch.int32,
+                                         device=self.device)
+            self._spec_call = CapturedCall(self._spec_walk, self.device,
+                                           weights + dweights, self.graphs,
+                                           pool)
 
         self._rid = itertools.count()
         self._queue: List[GenRequest] = []
@@ -354,6 +485,65 @@ class ContinuousBatcher:
         self._decode_iters = 0
         self._decode_s = 0.0
         self._prefill_chunks = 0
+        # health signals: a heartbeat stamped at the top of every loop
+        # iteration (the idle wait wakes every 0.1 s, so a stale one means
+        # a stuck dispatch) and an EWMA of the wall between consecutive
+        # iterations that had work, stalls between dispatches included
+        self._t_heartbeat: Optional[float] = None
+        self._t_iter_prev: Optional[float] = None
+        self._iter_had_work = False
+        self._ewma_step_s: Optional[float] = None
+        self._step_warmup = 0
+        # the measured rate model of `predicted_ttft_s`: per-token prefill
+        # cost (sampled at synced prefill dispatches: one-shot and the
+        # final chunk, which block on the picked token), the draft's (its
+        # final chunk, synced), and the decode iteration's wall
+        self._ewma_prefill_s_per_tok: Optional[float] = None
+        self._ewma_draft_prefill_s_per_tok: Optional[float] = None
+        self._ewma_decode_iter_s: Optional[float] = None
+        self._ewma_spec_accept: Optional[float] = None
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+
+    def _register_metrics(self, registry) -> None:
+        """The batcher's metric families (JAX continuous.py:566-674)."""
+        label = self.pool.label
+        self._g_active = registry.gauge(
+            "ff_serving_slots_active", "Decode slots holding a live request",
+            labels=("pool",))
+        self._g_active.set(0, pool=label)
+        self._h_ttft = registry.histogram(
+            "ff_serving_ttft_ms",
+            "Submit-to-first-token latency, split by prefix-cache outcome",
+            labels=("cache",))
+        self._h_itl = registry.histogram(
+            "ff_serving_itl_ms", "Inter-token latency during decode")
+        self._c_requests = registry.counter(
+            "ff_serving_requests_total",
+            "Continuous-batching requests by outcome", labels=("outcome",))
+        self._c_tokens = registry.counter(
+            "ff_serving_tokens_total", "Tokens generated")
+        self._c_resizes = registry.counter(
+            "ff_serving_resizes_total",
+            "Applied serving mesh resizes", labels=("direction",))
+        self._g_prefill_rate = registry.gauge(
+            "ff_serving_prefill_tokens_per_s",
+            "Measured prefill rate, EWMA over synced prefill dispatches",
+            labels=("pool",))
+        self._g_decode_iter = registry.gauge(
+            "ff_serving_decode_iter_ms",
+            "Measured decode-iteration wall, EWMA", labels=("pool",))
+        if self.draft_model is not None:
+            self._c_spec_proposed = registry.counter(
+                "ff_spec_decode_proposed_total",
+                "Draft tokens proposed for verification")
+            self._c_spec_accepted = registry.counter(
+                "ff_spec_decode_accepted_total",
+                "Draft tokens accepted by the target's greedy verify")
+            self._g_spec_accept = registry.gauge(
+                "ff_spec_decode_acceptance",
+                "EWMA draft-token acceptance rate (accepted/proposed)",
+                labels=("pool",))
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -380,6 +570,29 @@ class ContinuousBatcher:
             if not t.is_alive():
                 self._thread = None
         self._drain_queue(BatcherStopped("batcher stopped"))
+
+    def abort(self, err: BaseException) -> None:
+        """Non-blocking kill of a replica declared dead: fence every
+        slotted request (freezing its emitted tokens for a replay
+        elsewhere, `GenRequest._fence`), fail queued work with `err`, and
+        release the pool and admission state. Unlike stop() this never
+        joins the scheduler thread (it may hang inside a dispatch); the
+        thread exits once it sees the batcher stopped, its late emissions
+        are fenced no-ops, and start() refuses a second loop meanwhile."""
+        with self._cv:
+            self._running = False
+            slots, self._slots = list(self._slots), [None] * self.num_slots
+            self._cv.notify_all()
+        for s in slots:
+            if s is None:
+                continue
+            self.pool.free(s.req.id)
+            self.admission.release(s.req.id)
+            self._failed += 1
+            self._c_requests.inc(outcome="failed")
+            s.req._fence(err)
+        self._drain_queue(err)
+        self._g_active.set(0, pool=self.pool.label)
 
     def __enter__(self):
         self.start()
@@ -429,6 +642,22 @@ class ContinuousBatcher:
             self._cv.notify_all()
         return req
 
+    def cancel(self, req: GenRequest) -> bool:
+        """Best-effort cancel of a STILL-QUEUED request: removes it from
+        the wait queue, releases its admission reservation and fails it
+        with RequestCancelled. Returns False once the request reached a
+        slot (or finished): scheduled work runs to completion."""
+        with self._cv:
+            try:
+                self._queue.remove(req)
+            except ValueError:
+                return False
+        self.admission.release(req.id)
+        self._failed += 1
+        self._c_requests.inc(outcome="cancelled")
+        req._fail(RequestCancelled(f"request {req.id} cancelled"))
+        return True
+
     def prefix_probe(self, prompt_ids) -> int:
         """Tokens of the prompt this batcher's prefix cache would install
         (a probe: no pin, no hit or miss counted; 0 with the cache off)."""
@@ -460,29 +689,210 @@ class ContinuousBatcher:
     def release_parked(self, *args, **kwargs):
         raise _not_ported("parked requests (release_parked)", "A5")
 
+    # -- the measured rate model and the health probes ---------------------
+    # (JAX continuous.py:1475-1706): read-only, no device state touched
+    _EWMA_ALPHA = 0.25
+    _STEP_EWMA_ALPHA = 0.3
+    _STEP_WARMUP = 2
+
+    def _observe_prefill(self, n_tokens: int, dt: float) -> None:
+        """One synced prefill dispatch covered `n_tokens` in `dt`
+        seconds."""
+        if n_tokens <= 0 or dt <= 0:
+            return
+        sample = dt / n_tokens
+        old = self._ewma_prefill_s_per_tok
+        self._ewma_prefill_s_per_tok = sample if old is None else \
+            (1 - self._EWMA_ALPHA) * old + self._EWMA_ALPHA * sample
+        self._g_prefill_rate.set(
+            1.0 / self._ewma_prefill_s_per_tok, pool=self.pool.label)
+
+    def _observe_draft_prefill(self, n_tokens: int, dt: float) -> None:
+        """One synced DRAFT prefill chunk covered `n_tokens` in `dt`
+        seconds: the cost speculation adds to every prompt token."""
+        if n_tokens <= 0 or dt <= 0:
+            return
+        sample = dt / n_tokens
+        old = self._ewma_draft_prefill_s_per_tok
+        self._ewma_draft_prefill_s_per_tok = sample if old is None else \
+            (1 - self._EWMA_ALPHA) * old + self._EWMA_ALPHA * sample
+
+    def _observe_decode_iter(self, dt: float) -> None:
+        """One decode iteration took `dt` seconds of wall. The EWMA is
+        the raw wall a speculative iteration takes too: speculation
+        enters `predicted_ttft_s` only as a cap on how many walls a
+        prefill can collide with (`_decode_drain_iterations`)."""
+        if dt <= 0:
+            return
+        old = self._ewma_decode_iter_s
+        self._ewma_decode_iter_s = dt if old is None else \
+            (1 - self._EWMA_ALPHA) * old + self._EWMA_ALPHA * dt
+        self._g_decode_iter.set(self._ewma_decode_iter_s * 1e3,
+                                pool=self.pool.label)
+
+    def scheduler_alive(self) -> bool:
+        """True while the scheduler thread exists and runs; False after a
+        crash or a clean stop."""
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def heartbeat_age_s(self) -> Optional[float]:
+        """Seconds since the scheduler last passed the top of its loop
+        (None before its first iteration). The idle wait wakes at least
+        every 0.1 s, so an age of seconds means a hung dispatch or a
+        stalled host thread, never an empty queue."""
+        t = self._t_heartbeat
+        return None if t is None else max(0.0, time.monotonic() - t)
+
+    def step_latency_s(self) -> Optional[float]:
+        """EWMA wall between consecutive busy scheduler iterations (None
+        until warmed up): the straggler signal."""
+        return self._ewma_step_s
+
+    def reset_latency(self) -> None:
+        """Forget the step-latency baseline and re-enter warm-up (after a
+        respawn, whose first iterations capture graphs)."""
+        self._ewma_step_s = None
+        self._step_warmup = 0
+        self._t_iter_prev = None
+
+    def _observe_step_gap(self, dt: float) -> None:
+        if dt <= 0:
+            return
+        if self._step_warmup < self._STEP_WARMUP:
+            self._step_warmup += 1
+            return
+        old = self._ewma_step_s
+        self._ewma_step_s = dt if old is None else \
+            (1 - self._STEP_EWMA_ALPHA) * old + self._STEP_EWMA_ALPHA * dt
+
+    def prefill_backlog_s(self) -> float:
+        """Queued prefill work in seconds at the measured prefill rate
+        (0.0 until the EWMA has a sample)."""
+        per_tok = self._ewma_prefill_s_per_tok
+        if per_tok is None:
+            return 0.0
+        return self.queued_prefill_tokens() * per_tok
+
+    def queued_prefill_tokens(self) -> int:
+        """Prompt tokens admitted but not yet prefilled: the whole queue
+        plus the unfilled rest of every slot still prefilling."""
+        with self._cv:
+            backlog = sum(int(r.prompt.size) for r in self._queue)
+            for s in self._slots:
+                if s is not None and s.req.state is RequestState.PREFILL:
+                    backlog += max(0, s.plen - s.filled)
+        return backlog
+
+    def predicted_ttft_s(self, prompt_len: int,
+                         shared_tokens: int = 0) -> float:
+        """Predicted time to first token of a NEW request of `prompt_len`
+        tokens, from the measured rate model:
+
+            (backlog + own) tokens x EWMA per-token prefill cost
+          + ceil((backlog + own) / chunk) x EWMA decode-iteration wall
+
+        own = prompt minus the `shared_tokens` the prefix cache would
+        install. Chunked prefill runs one decode iteration between chunks
+        while anything decodes, so each pending chunk costs a decode wall.
+        With a draft, the prefill leg also charges every prompt token
+        (own and backlog, no prefix credit: the draft prefills it all) at
+        the draft's measured per-token cost (the target's until the
+        draft has a sample), and the interleave leg charges no more walls
+        than the decode drain horizon. A batcher with no samples predicts
+        0. own = 0 (the KV is all installed) pays one decode wall."""
+        own = max(0, int(prompt_len) - max(0, int(shared_tokens)))
+        backlog = self.queued_prefill_tokens()
+        total = own + backlog
+        per_tok = self._ewma_prefill_s_per_tok
+        t = total * per_tok if per_tok is not None else 0.0
+        if self.draft_model is not None:
+            draft_per_tok = self._ewma_draft_prefill_s_per_tok
+            if draft_per_tok is None:
+                draft_per_tok = per_tok
+            if draft_per_tok is not None:
+                t += (int(prompt_len) + backlog) * draft_per_tok
+        chunk = self.prefill_chunk_tokens
+        iter_s = self._ewma_decode_iter_s
+        if own == 0 and iter_s is not None:
+            t += iter_s
+        if chunk and iter_s is not None:
+            with self._cv:
+                interleaved = len(self._queue) > 0 or any(
+                    s is not None and s.req.state is RequestState.DECODE
+                    for s in self._slots)
+            if interleaved:
+                iters = math.ceil(total / chunk)
+                if self.spec_tokens:
+                    iters = min(iters, self._decode_drain_iterations())
+                t += iters * iter_s
+        return t
+
+    def _decode_drain_iterations(self) -> int:
+        """Decode iterations left before every live request's budget
+        drains at the measured accepted-token rate (k_eff = 1 +
+        acceptance x spec_tokens, at most spec_tokens): the longest
+        budget over k_eff, or the total over the pool's slots x k_eff if
+        larger (queued requests count at their full budget)."""
+        k_eff = 1.0
+        if self.spec_tokens:
+            acc = self._ewma_spec_accept or 0.0
+            k_eff = min(float(self.spec_tokens),
+                        1.0 + acc * self.spec_tokens)
+        k_eff = max(1.0, k_eff)
+        with self._cv:
+            budgets = [s.req.max_new_tokens - s.emitted
+                       for s in self._slots if s is not None]
+            budgets += [r.max_new_tokens for r in self._queue]
+        budgets = [b for b in budgets if b > 0]
+        if not budgets:
+            return 0
+        longest = math.ceil(max(budgets) / k_eff)
+        pooled = math.ceil(sum(budgets) / (max(1, self.num_slots) * k_eff))
+        return max(longest, pooled)
+
     def stats(self) -> Dict[str, object]:
-        """The counters; "graphs" holds the dispatches' warm-ups, captures
-        and replays, and the walks run outside any graph (on the card:
-        the one-shot prefills)."""
+        """The JAX batcher's `stats()` keys ("parked" and "resizes" stay
+        empty until A5.5 / A5.6), and the port's dispatch counts:
+        "graphs" holds the warm-ups, captures and replays, and the walks
+        run outside any graph (on the card: the one-shot prefills)."""
         with self._cv:
             active = sum(1 for s in self._slots if s is not None)
             queued = len(self._queue)
-        return {
+        out = {
             "queue_depth": queued,
             "slots_active": active,
+            "role": self.role,
+            "parked": 0,
             "completed": self._completed,
             "failed": self._failed,
             "prefill_chunk_tokens": self.prefill_chunk_tokens,
             "num_slots": self.num_slots,
+            "prefill_s_per_token": self._ewma_prefill_s_per_tok,
+            "draft_prefill_s_per_token": self._ewma_draft_prefill_s_per_tok,
+            "decode_iter_s": self._ewma_decode_iter_s,
+            "step_latency_s": self._ewma_step_s,
             "tokens_emitted": self.tokens_emitted,
-            "prefill_chunks": self._prefill_chunks,
-            "decode_iterations": self._decode_iters,
-            "decode_iter_s": (self._decode_s / self._decode_iters
-                              if self._decode_iters else None),
-            "graphs": dict(self.graphs),
+            "queued_prefill_tokens": self.queued_prefill_tokens(),
+            "resizes": [],
             "pool": self.pool.stats(),
             "admission": self.admission.stats(),
+            "prefill_chunks": self._prefill_chunks,
+            "decode_iterations": self._decode_iters,
+            "decode_iter_s_mean": (self._decode_s / self._decode_iters
+                                   if self._decode_iters else None),
+            "graphs": dict(self.graphs),
         }
+        if self.draft_model is not None:
+            out["spec"] = {
+                "tokens": self.spec_tokens,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "acceptance": (self._spec_accepted / self._spec_proposed
+                               if self._spec_proposed else 0.0),
+                "acceptance_ewma": self._ewma_spec_accept,
+            }
+        return out
 
     # -- device steps --------------------------------------------------------
     def _decode_walk(self) -> None:
@@ -511,6 +921,51 @@ class ContinuousBatcher:
                 decode_pos=buf[C])[self._final_guid])
         return walk
 
+    def _draft_chunk_walk(self, slot: int):
+        """The draft's prefill chunk of slot `slot` from its static input
+        (C tokens, then the offset); only its K/V rows matter."""
+        def walk() -> None:
+            C = self.prefill_chunk_tokens
+            buf = self._draft_chunk_in.buf
+            self.draft_model.executor.forward_values(
+                {self._draft_input: buf[:C].view(1, C)},
+                state=self._draft_slot_caches[slot], decode_pos=buf[C])
+        return walk
+
+    def _spec_walk(self) -> None:
+        """The speculative iteration (JAX `spec_decode_all`) from the
+        static input (tokens, positions of every slot): k greedy draft
+        steps, step j at pos + j, then the target over [token, k
+        proposals] at pos, the accept, into the static probabilities and
+        (k target picks, count to emit, raw accepted count) a slot."""
+        S, k = self.num_slots, self.spec_tokens
+        buf = self._spec_in.buf
+        toks, pos = buf[:S], buf[S:2 * S]
+        draft = self.draft_model.executor
+        cur, props = toks, []
+        for j in range(k):
+            probs = draft.forward_values(
+                {self._draft_input: cur.view(S, 1)},
+                state=self._draft_caches,
+                decode_pos=pos + j)[self._draft_final]
+            cur = pick_tokens(probs[:, 0, :], 0.0, None, None, None).to(
+                torch.int32)
+            props.append(cur)
+        props = torch.stack(props, dim=1)                       # (S, k)
+        probs = self.model.executor.forward_values(
+            {self._input_name: torch.cat([toks.view(S, 1), props], dim=1)},
+            state=self._caches, decode_pos=pos)[self._final_guid]
+        self._spec_probs.copy_(probs)                           # (S, k+1, V)
+        tgt = pick_tokens(probs.reshape(S * (k + 1), -1), 0.0, None, None,
+                          None).view(S, k + 1)[:, :k]
+        # proposal j survives while every proposal up to it matched the
+        # target's own pick at that position
+        n_acc = torch.cumprod((props == tgt).to(torch.int32), dim=1).sum(1)
+        out = self._spec_out
+        out[:, :k].copy_(tgt)
+        out[:, k].copy_(torch.clamp(n_acc + 1, max=k))
+        out[:, k + 1].copy_(n_acc)
+
     def _decode_dispatch(self, host: np.ndarray) -> np.ndarray:
         """One decode iteration: host (3 * num_slots,) int32 holds the
         tokens, positions and key bits; returns the picked tokens. The
@@ -518,6 +973,15 @@ class ContinuousBatcher:
         self._dec_in.put(host)
         self._decode_call()
         return self._dec_tok.cpu().numpy()  # syncs the device
+
+    def _spec_dispatch(self, host: np.ndarray) -> np.ndarray:
+        """One speculative iteration: host (2 * num_slots,) int32 holds
+        the tokens and positions; returns (num_slots, k + 2) int32: the k
+        target picks, the count to emit, the raw accepted count. The
+        static probabilities hold until the next one."""
+        self._spec_in.put(host)
+        self._spec_call()
+        return self._spec_out.cpu().numpy()  # syncs the device
 
     def _chunk_dispatch(self, slot: int, host: np.ndarray) -> None:
         """One prefill chunk of `slot`: host (C + 1,) int32, the chunk's
@@ -544,6 +1008,8 @@ class ContinuousBatcher:
                 self._run()
         except BaseException as e:  # scheduler died: fail everything
             self._fail_all(e)
+        finally:
+            self._g_active.set(0, pool=self.pool.label)
 
     def _run(self) -> None:
         S = self.num_slots
@@ -551,10 +1017,22 @@ class ContinuousBatcher:
             with self._cv:
                 while (self._running and not self._queue
                        and not any(self._slots)):
+                    # an idle loop is a healthy one: stamp the heartbeat
+                    # on every wake
+                    self._t_heartbeat = time.monotonic()
                     self._cv.wait(timeout=0.1)
                 if not self._running and not any(self._slots):
                     break
                 running = self._running
+
+            # health: the heartbeat, and the gap since the last iteration
+            # that had work (stalls between dispatches count)
+            now = time.monotonic()
+            self._t_heartbeat = now
+            if self._iter_had_work and self._t_iter_prev is not None:
+                self._observe_step_gap(now - self._t_iter_prev)
+            self._t_iter_prev = now
+            self._iter_had_work = bool(self._queue) or any(self._slots)
 
             # 1) move queued requests into free slots (skipped once
             #    stopping: queued requests fail in stop()); one-shot mode
@@ -576,11 +1054,14 @@ class ContinuousBatcher:
             toks, pos, keys = host[:S], host[S:2 * S], host[2 * S:]
             for s in self._slots:
                 if s is not None and s.req.state is not RequestState.DECODE:
-                    # the decode dispatch writes one K/V row at `pos` for
-                    # EVERY slot. A slot still prefilling must not take that
-                    # dummy write inside its prompt rows: aim it at its next
-                    # chunk's first row, which that chunk overwrites
-                    pos[s.slot] = min(s.filled, self.max_len - 1)
+                    # the decode dispatch writes K/V rows from `pos` on for
+                    # EVERY slot (k + 1 of them speculating). A slot still
+                    # prefilling must not take those dummy writes inside
+                    # its prompt rows, in either model's cache: aim them
+                    # past both models' filled rows, which later chunks or
+                    # decode overwrite before any query attends them
+                    pos[s.slot] = min(max(s.filled, s.draft_filled),
+                                      self.max_len - 1)
             for s in active:
                 if s.shared and s.pos < s.shared:
                     # copy-on-write break: a write inside pages the sequence
@@ -592,14 +1073,66 @@ class ContinuousBatcher:
                 toks[s.slot] = s.last_tok
                 pos[s.slot] = s.pos
                 keys[s.slot] = key_bits([s.key])[0]
+            if self.spec_tokens:
+                self._spec_iterate(active, host[:2 * S])
+                continue
             t0 = time.monotonic()
             picked = self._decode_dispatch(host)
-            self._decode_s += time.monotonic() - t0
+            dt = time.monotonic() - t0
+            self._decode_s += dt
             self._decode_iters += 1
+            self._observe_decode_iter(dt)
+            now = time.monotonic()
             for s in active:
+                self._h_itl.observe((now - s.t_last_emit) * 1e3)
+                s.t_last_emit = now
                 self.pool.extend(s.req.id, 1)
                 s.pos += 1
                 self._emit_token(s, int(picked[s.slot]))
+
+    def _spec_iterate(self, active: List[_Slot], host: np.ndarray) -> None:
+        """One speculative iteration (JAX `_spec_iterate`): the fused
+        draft-propose and verify dispatch, then each slot's accepted
+        tokens emitted on the host. A slot's position advances only over
+        what it emits; rejected rows are left for later writes."""
+        k = self.spec_tokens
+        t0 = time.monotonic()
+        out = self._spec_dispatch(host)
+        dt = time.monotonic() - t0
+        self._decode_s += dt
+        self._decode_iters += 1
+        # acceptance counts raw verify matches (a perfect draft reads 1.0),
+        # but only of proposals that could still matter: a slot with r
+        # tokens of budget left can use at most r - 1 of them
+        proposed = accepted = 0
+        for s in active:
+            useful = min(k, s.req.max_new_tokens - s.emitted - 1)
+            if useful <= 0:
+                continue
+            proposed += useful
+            accepted += min(int(out[s.slot, k + 1]), useful)
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        self._c_spec_proposed.inc(proposed)
+        self._c_spec_accepted.inc(accepted)
+        if proposed:
+            rate = accepted / proposed
+            old = self._ewma_spec_accept
+            self._ewma_spec_accept = rate if old is None else \
+                (1 - self._EWMA_ALPHA) * old + self._EWMA_ALPHA * rate
+            self._g_spec_accept.set(self._ewma_spec_accept,
+                                    pool=self.pool.label)
+        self._observe_decode_iter(dt)
+        now = time.monotonic()
+        for s in active:
+            for i in range(int(out[s.slot, k])):
+                self._h_itl.observe((now - s.t_last_emit) * 1e3)
+                s.t_last_emit = now
+                self.pool.extend(s.req.id, 1)
+                s.pos += 1
+                self._emit_token(s, int(out[s.slot, i]))
+                if s.req.state is not RequestState.DECODE:
+                    break  # retired (EOS or budget): the rest is past the end
 
     def _admit_new(self) -> None:
         while True:
@@ -614,13 +1147,15 @@ class ContinuousBatcher:
             s = _Slot(req, slot_idx)
             s.plen = plen
             self._slots[slot_idx] = s
+            self._sync_active_gauge()
             if self.prefill_chunk_tokens == 0:
                 self._prefill_one(s)
                 continue
             prefix = self.pool.prefix
             if prefix is not None:
                 # leave >= 1 suffix token: the first output token's
-                # distribution comes from the last prompt position
+                # distribution comes from the last prompt position. The
+                # draft (s.draft_filled = 0) prefills the whole prompt
                 matched, entries = prefix.acquire(
                     req.id, req.prompt,
                     max_pages=(plen - 1) // self.pool.page_size)
@@ -634,6 +1169,7 @@ class ContinuousBatcher:
         """One-shot prefill (JAX `prefill_one`): the padded (1, window)
         prompt through one full-sequence walk that fills the slot's
         caches, then the first token."""
+        t0 = time.monotonic()
         padded = np.zeros((1, self.window), np.int32)
         padded[0, :s.plen] = s.req.prompt
         probs = self.model.executor.forward_values(
@@ -642,25 +1178,35 @@ class ContinuousBatcher:
             fill_kv_cache=True)[self._final_guid]
         self.graphs["eager_walks"] += 1
         tok = self._pick_row(probs[0, s.plen - 1], s, s.plen - 1)
+        self._observe_prefill(s.plen, time.monotonic() - t0)
         s.filled = s.pos = s.plen
         s.last_tok = tok
         self._first_token(s, tok)
 
     def _step_prefills(self) -> None:
-        """One prefill chunk for every slot in the PREFILL state; a slot
-        whose prompt completes emits its first token, inserts its full
-        prompt pages into the prefix cache and joins this iteration's
-        decode."""
+        """One prefill chunk for every slot in the PREFILL state (and, with
+        a draft, one draft chunk before it); a slot whose prompt
+        completes emits its first token, inserts its full prompt pages
+        into the prefix cache and joins this iteration's decode."""
         chunk = self.prefill_chunk_tokens
         for s in [x for x in self._slots
                   if x is not None and x.req.state is RequestState.PREFILL]:
+            if self.draft_model is not None and s.draft_filled < s.plen:
+                self._step_draft_prefill(s)
             off = s.filled
             n = min(chunk, s.plen - off)
+            if (off + n >= s.plen and self.draft_model is not None
+                    and s.draft_filled < s.plen):
+                # hold the target's last chunk (which emits the first token
+                # and arms decode) until the draft's cache holds the whole
+                # prompt: the next speculative iteration needs both
+                continue
             host = np.zeros(chunk + 1, np.int32)
             host[:n] = s.req.prompt[off:off + n]
             host[chunk] = off
             # the padded tail of the last chunk writes rows >= plen: they
             # are rewritten by decode before any query attends them
+            t0 = time.monotonic()
             self._chunk_dispatch(s.slot, host)
             self._prefill_chunks += 1
             s.filled = off + n
@@ -668,10 +1214,31 @@ class ContinuousBatcher:
                 continue
             tok = self._pick_row(self._chunk_probs[0, s.plen - 1 - off], s,
                                  s.plen - 1)
+            self._observe_prefill(n, time.monotonic() - t0)
             s.pos = s.plen
             s.last_tok = tok
             self._insert_prefix(s)
             self._first_token(s, tok)
+
+    def _step_draft_prefill(self, s: _Slot) -> None:
+        """One DRAFT prefill chunk of a speculative slot (JAX
+        `_step_draft_prefill`): the target's chunk stream, into the
+        draft's caches; its last chunk is synced and timed for the
+        draft's per-token prefill cost."""
+        chunk = self.prefill_chunk_tokens
+        off = s.draft_filled
+        n = min(chunk, s.plen - off)
+        host = np.zeros(chunk + 1, np.int32)
+        host[:n] = s.req.prompt[off:off + n]
+        host[chunk] = off
+        t0 = time.monotonic()
+        self._draft_chunk_in.put(host)
+        self._draft_chunk_calls[s.slot]()
+        s.draft_filled = off + n
+        if s.draft_filled >= s.plen:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self._observe_draft_prefill(n, time.monotonic() - t0)
 
     def _band_rows(self, pages) -> np.ndarray:
         """Flat (band slot * max_len + row) indices of band pages' rows."""
@@ -716,9 +1283,13 @@ class ContinuousBatcher:
         prefix.insert(s.req.prompt, s.plen, copy_pages)
 
     def _first_token(self, s: _Slot, tok: int) -> None:
+        """Prefill complete: the request starts decoding and its TTFT is
+        recorded, split by prefix-cache outcome."""
         req = s.req
         req.state = RequestState.DECODE
         req.t_first_token = time.monotonic()
+        self._h_ttft.observe((req.t_first_token - req.t_submit) * 1e3,
+                             cache="hit" if req.cache_hit else "miss")
         self._emit_token(s, tok)
 
     def _emit_token(self, s: _Slot, tok: int) -> None:
@@ -729,6 +1300,7 @@ class ContinuousBatcher:
         s.last_tok = tok
         s.emitted += 1
         self.tokens_emitted += 1
+        self._c_tokens.inc()
         if ((req.eos_id is not None and tok == req.eos_id)
                 or s.emitted >= req.max_new_tokens):
             self._retire(s)
@@ -738,9 +1310,15 @@ class ContinuousBatcher:
         self.pool.free(s.req.id)
         self.admission.release(s.req.id)
         self._completed += 1
+        self._c_requests.inc(outcome="completed")
+        self._sync_active_gauge()
         s.req._finish()
         with self._cv:
             self._cv.notify_all()
+
+    def _sync_active_gauge(self) -> None:
+        self._g_active.set(sum(1 for s in self._slots if s is not None),
+                           pool=self.pool.label)
 
     def _drain_queue(self, err: BaseException) -> None:
         with self._cv:
@@ -748,6 +1326,7 @@ class ContinuousBatcher:
         for req in pending:
             self.admission.release(req.id)
             self._failed += 1
+            self._c_requests.inc(outcome="failed")
             req._fail(err)
 
     def _fail_all(self, err: BaseException) -> None:
@@ -760,5 +1339,34 @@ class ContinuousBatcher:
             self.pool.free(s.req.id)
             self.admission.release(s.req.id)
             self._failed += 1
+            self._c_requests.inc(outcome="failed")
             s.req._fail(err)
         self._drain_queue(err)
+
+
+def _embedding_entries(model) -> Optional[int]:
+    """Rows of the embedding table the model's token input indexes."""
+    return min((op.params["num_entries"] for op in model.graph.ops.values()
+                if op.op_type == OpType.EMBEDDING
+                and op.inputs[0] is model.input_ops[0].outputs[0]),
+               default=None)
+
+
+def _zero_caches(model, slots: int, max_len: int):
+    """Zeroed (slots, max_len, heads, head_dim) K and V caches of every
+    attention op of `model` (kvpool.kv_cache_spec's geometry)."""
+    return {
+        name: {
+            "k_cache": torch.zeros((slots, max_len, heads, kdim), dtype=cdt,
+                                   device=model.device),
+            "v_cache": torch.zeros((slots, max_len, heads, vdim), dtype=cdt,
+                                   device=model.device),
+        }
+        for name, heads, kdim, vdim, cdt in kv_cache_spec(model)
+    }
+
+
+def _slot_views(caches, slots: int):
+    """Per-slot (1, max_len, heads, head_dim) views of slot-dense caches."""
+    return [{name: {var: t[i:i + 1] for var, t in c.items()}
+             for name, c in caches.items()} for i in range(slots)]

@@ -15,10 +15,15 @@ rolling hash of page-aligned token blocks and refcounted by the live
 sequences that share them. A prompt whose page-aligned prefix is cached
 gets those rows copied into its slot and prefills only the suffix.
 
+Metric families (obs/registry.py, the JAX package's names): the pool's
+`ff_kvpool_pages_used` / `ff_kvpool_pages_total` gauges and the cache's
+hit, miss and eviction counters and page gauges, labelled by the pool's
+`label` so two pools in one process keep their own series; the
+process-wide registry unless one is passed.
+
 Left out until their ROADMAP items: resize and `owned_view`, the
-export/import of the disaggregated handoff (A5), `derive_num_slots`, which
-needs the machine model (A7), and the cache's metric families (A9): its
-counts stay plain integers behind `stats()`.
+export/import of the disaggregated handoff (A5), and `derive_num_slots`,
+which needs the machine model (A7).
 """
 from __future__ import annotations
 
@@ -33,6 +38,10 @@ import torch
 
 from ...ffconst import OpType
 from ...ops.common import matmul_dtype
+
+
+# the `pool` label of a pool's series: pool0, pool1, ... in one process
+_POOL_IDS = itertools.count()
 
 
 class PoolExhausted(RuntimeError):
@@ -113,7 +122,8 @@ class PrefixCache:
     refcount-0 entries under `capacity_pages`.
     """
 
-    def __init__(self, capacity_pages: int, page_size: int):
+    def __init__(self, capacity_pages: int, page_size: int,
+                 registry=None, label: Optional[str] = None):
         if capacity_pages < 1:
             raise ValueError(
                 f"capacity_pages={capacity_pages}: need >= 1 (omit the"
@@ -122,6 +132,7 @@ class PrefixCache:
             raise ValueError(f"page_size={page_size}: need >= 1")
         self.capacity = int(capacity_pages)
         self.page_size = int(page_size)
+        self.label = label or f"pool{next(_POOL_IDS)}"
         self._lock = threading.Lock()
         self._entries: Dict[bytes, _PrefixEntry] = {}
         self._free_pages: List[int] = list(range(self.capacity))[::-1]
@@ -130,8 +141,29 @@ class PrefixCache:
         self._pages_saved = 0
         self._inserts = 0
         self._evictions = 0
-        self._hits = 0
-        self._misses = 0
+        if registry is None:
+            from ...obs.registry import REGISTRY as registry  # noqa: N813
+        self._c_hits = registry.counter(
+            "ff_prefix_cache_hits_total",
+            "Scheduled requests that installed >=1 cached prefix page",
+            labels=("pool",))
+        self._c_misses = registry.counter(
+            "ff_prefix_cache_misses_total",
+            "Scheduled requests with no cached prefix", labels=("pool",))
+        self._c_evictions = registry.counter(
+            "ff_prefix_cache_evictions_total",
+            "Prefix pages evicted (LRU, refcount-0)", labels=("pool",))
+        self._g_pages = registry.gauge(
+            "ff_prefix_cache_pages",
+            "Band pages holding cached prefix KV", labels=("pool",))
+        self._g_saved = registry.gauge(
+            "ff_kvpool_pages_saved",
+            "Cumulative prefill pages skipped via prefix reuse",
+            labels=("pool",))
+        self._c_hits.inc(0, pool=self.label)
+        self._c_misses.inc(0, pool=self.label)
+        self._g_pages.set(0, pool=self.label)
+        self._g_saved.set(0, pool=self.label)
 
     # -- lookup ------------------------------------------------------------
     def _walk(self, tokens: np.ndarray) -> List[_PrefixEntry]:
@@ -187,9 +219,10 @@ class PrefixCache:
             if entries:
                 self._pins[seq_id] = entries
                 self._pages_saved += len(entries)
-                self._hits += 1
+                self._c_hits.inc(pool=self.label)
+                self._g_saved.set(self._pages_saved, pool=self.label)
             else:
-                self._misses += 1
+                self._c_misses.inc(pool=self.label)
             return len(entries) * self.page_size, list(entries)
 
     def release(self, seq_id) -> None:
@@ -259,6 +292,8 @@ class PrefixCache:
                 e.tick = tick
                 self._entries[key] = e
             self._inserts += len(fresh)
+            self._g_pages.set(self.capacity - len(self._free_pages),
+                              pool=self.label)
         return len(fresh)
 
     def _claim_page(self) -> Optional[int]:
@@ -274,6 +309,7 @@ class PrefixCache:
             return None
         del self._entries[victim.key]
         self._evictions += 1
+        self._c_evictions.inc(pool=self.label)
         return victim.page
 
     # -- accounting --------------------------------------------------------
@@ -296,12 +332,14 @@ class PrefixCache:
 
     def stats(self) -> Dict[str, float]:
         with self._lock:
+            hits = self._c_hits.value(pool=self.label)
+            misses = self._c_misses.value(pool=self.label)
             return {
                 "capacity_pages": self.capacity,
                 "pages_in_use": self.capacity - len(self._free_pages),
                 "entries": len(self._entries),
-                "hits": self._hits,
-                "misses": self._misses,
+                "hits": int(hits),
+                "misses": int(misses),
                 "inserts": self._inserts,
                 "evictions": self._evictions,
                 "pages_saved": self._pages_saved,
@@ -313,6 +351,7 @@ class PagedKVPool:
     Thread-safe: the scheduler thread allocates while others read stats."""
 
     def __init__(self, num_slots: int, max_len: int, page_size: int = 16,
+                 registry=None, label: Optional[str] = None,
                  prefix_cache_pages: int = 0):
         if num_slots < 1:
             raise ValueError(f"num_slots={num_slots}: need at least one")
@@ -323,12 +362,16 @@ class PagedKVPool:
         self.page_size = int(page_size)
         self.pages_per_slot = math.ceil(self.max_len / self.page_size)
         self.total_pages = self.num_slots * self.pages_per_slot
+        # the `pool` label of this pool's series: two pools in one process
+        # must not clobber each other's gauges
+        self.label = label or f"pool{next(_POOL_IDS)}"
         # prefix reuse (0 pages: off). Its pages live in the band,
         # `band_slots` slot-shaped rows the batcher allocates beside the
         # decode caches; a slot shorter than one page holds no full page,
         # so then the cache is off
         self.prefix: Optional[PrefixCache] = (
-            PrefixCache(prefix_cache_pages, self.page_size)
+            PrefixCache(prefix_cache_pages, self.page_size,
+                        registry=registry, label=self.label)
             if prefix_cache_pages and self.max_len >= self.page_size
             else None)
         self._lock = threading.Lock()
@@ -337,6 +380,16 @@ class PagedKVPool:
         # slot, so len(pages) tracks ceil(tokens / page_size)
         self._table: Dict[object, tuple] = {}
         self._tokens: Dict[object, int] = {}
+        if registry is None:
+            from ...obs.registry import REGISTRY as registry  # noqa: N813
+        self._g_used = registry.gauge(
+            "ff_kvpool_pages_used", "KV-cache pages currently allocated",
+            labels=("pool",))
+        self._g_total = registry.gauge(
+            "ff_kvpool_pages_total", "KV-cache pool capacity in pages",
+            labels=("pool",))
+        self._g_total.set(self.total_pages, pool=self.label)
+        self._g_used.set(0, pool=self.label)
 
     def pages_for(self, n_tokens: int) -> int:
         """Pages a sequence of n_tokens occupies (>= 1: even an empty
@@ -362,6 +415,7 @@ class PagedKVPool:
             pages = [slot * self.pages_per_slot + b for b in range(need)]
             self._table[seq_id] = (slot, pages)
             self._tokens[seq_id] = int(n_tokens)
+        self._sync_gauges()
         return slot
 
     def extend(self, seq_id, n_tokens: int = 1) -> None:
@@ -380,6 +434,7 @@ class PagedKVPool:
             while len(pages) < need:
                 pages.append(slot * self.pages_per_slot + len(pages))
             self._tokens[seq_id] = total
+        self._sync_gauges()
 
     @property
     def full_pages_per_slot(self) -> int:
@@ -407,8 +462,10 @@ class PagedKVPool:
         with self._lock:
             ent = self._table.pop(seq_id, None)
             self._tokens.pop(seq_id, None)
-            if ent is not None:
-                self._free_slots.append(ent[0])
+            if ent is None:
+                return
+            self._free_slots.append(ent[0])
+        self._sync_gauges()
 
     def slot_of(self, seq_id):
         with self._lock:
@@ -448,6 +505,9 @@ class PagedKVPool:
         if self.prefix is not None:
             out["prefix"] = self.prefix.stats()
         return out
+
+    def _sync_gauges(self) -> None:
+        self._g_used.set(self.pages_used(), pool=self.label)
 
 
 def kv_cache_spec(model) -> List[tuple]:

@@ -11,6 +11,9 @@ kernel `_call_decode` in bf16 at the serving path's shapes (16 heads of
  - `multiquery_decode_attention`, B = 8, C = 16, the same positions;
  - `multiquery_decode_attention`, B = 1, C = 16 at position 480 (one
    slot's prefill chunk, what the batcher runs);
+ - `multiquery_decode_attention`, B = 8, C = 4, ragged positions, the
+   last slot at 1022 so two of its queries lie past the cache's last row
+   (speculative decoding's verify at spec_tokens = 3);
 each beside `scaled_dot_product_attention` with a bool mask on the same
 inputs (the library yardstick; it reads all M rows of every slot) and the
 least time the card could take (the attended cache rows read once at
@@ -29,7 +32,7 @@ plain version's.
 
 `--profile` adds each shape's device time by kernel (torch.profiler
 over 20 calls), which splits a call into its launches. `--sweep` (a
-checkout with `decode_plan`) times the three shapes under
+checkout with `decode_plan`) times the four shapes under
 other split rules (decode.SPLIT_ROWS, decode.MAX_SPLITS): how the rule in
 kernels/decode.py was tuned.
 
@@ -48,10 +51,13 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 B, M, H, D = 8, 1024, 16, 64
 POS8 = [0, 37, 255, 511, 700, 880, 1000, 1023 - 16]
+# the verify's base positions: ragged, the last slot at the cache's edge
+POS_VERIFY = [0, 37, 255, 511, 700, 880, 1000, 1022]
 # (name, wrapper, slots, queries per slot, positions)
 SHAPES = (("decode_b8_c1", "decode_attention", 8, 1, POS8),
           ("mq_b8_c16", "multiquery_decode_attention", 8, 16, POS8),
-          ("mq_b1_c16", "multiquery_decode_attention", 1, 16, [480]))
+          ("mq_b1_c16", "multiquery_decode_attention", 1, 16, [480]),
+          ("verify_b8_c4", "multiquery_decode_attention", 8, 4, POS_VERIFY))
 
 
 def _device_ms(torch, fn, flush, n=50):

@@ -13,6 +13,12 @@ torch.profiler with CUDA activity:
  - prefill: `iters` 16-token chunks of one slot at offset 480, the same
    way (a replay of the slot's chunk graph), each ending in the chunk's
    last-row argmax read back;
+ - spec_tied, spec_untied: `iters` speculative iterations (spec_tokens
+   3: three draft steps and the C = 4 verify, one graph replay) at the
+   decode line's positions, as a ContinuousBatcher(draft_model=...)
+   dispatches them, each ending in its picks and counts read back; the
+   tied draft is the LM itself (its architecture and weights), the
+   untied one the same widths cut to 2 layers from its own generator;
 and prints one JSON line per phase: host wall per dispatch (also without
 the profiler), device busy time per dispatch (the sum of kernel times),
 the device's idle share (1 - busy / the profiled wall, as the tool has
@@ -75,6 +81,19 @@ def main(argv=None) -> int:
                        generator=torch.Generator().manual_seed(0))
     cb = ContinuousBatcher(lm, max_len=max_len, num_slots=slots,
                            page_size=chunk)
+    drafts = {}
+
+    def spec_batcher(which):
+        if which not in drafts:
+            draft = lm if which == "tied" else build_tiny_lm(
+                slots, window, vocab=vocab, hidden=1024, heads=16, layers=2,
+                mixed_precision=True, device="cuda",
+                generator=torch.Generator().manual_seed(1))
+            drafts[which] = ContinuousBatcher(
+                lm, max_len=max_len, num_slots=slots, page_size=chunk,
+                draft_model=draft, spec_tokens=3)
+        return drafts[which]
+
     rng = np.random.RandomState(0)
     pos = np.array([40, 97, 255, 300, 511, 700, 880, 1000], np.int32)
 
@@ -88,13 +107,24 @@ def main(argv=None) -> int:
         cb._chunk_dispatch(0, np.append(toks, np.int32(480)))
         return cb._chunk_probs[0, -1].argmax().cpu()
 
+    def spec(which):
+        def run():
+            toks = rng.randint(0, vocab, size=slots).astype(np.int32)
+            return spec_batcher(which)._spec_dispatch(
+                np.concatenate([toks, pos]))
+        return run
+
     card = torch.cuda.get_device_name(0)
     with torch.no_grad():
-        for phase, fn in (("decode", decode), ("prefill", prefill)):
+        for phase, fn in (("decode", decode), ("prefill", prefill),
+                          ("spec_tied", spec("tied")),
+                          ("spec_untied", spec("untied"))):
+            graphs = (spec_batcher(phase[5:]) if phase.startswith("spec")
+                      else cb).graphs
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
-            before = dict(cb.graphs)
+            before = dict(graphs)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -103,7 +133,7 @@ def main(argv=None) -> int:
                 wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
             busy_ms, table = _kernel_table(prof, args.iters)
             ops = _device_ops(prof) / args.iters
-            during = {k: v - before[k] for k, v in cb.graphs.items()}
+            during = {k: v - before[k] for k, v in graphs.items()}
             # the same loop again without the profiler, for its overhead
             t0 = time.perf_counter()
             for _ in range(args.iters):

@@ -1704,3 +1704,105 @@ def test_session_sampled_tokens_same_at_any_dispatch_size(dev):
         s.generate(prompt, 20, tokens_per_dispatch=8, temperature=1.0,
                    top_k=10, seed=6), one)
     assert s.counts["captures"] >= 3 and s.counts["replays"] > 0
+
+
+def test_spec_replay_equals_the_eager_walk_to_the_bit(dev):
+    """One speculative iteration (3 draft steps, the C = 4 verify, the
+    accept) through its graph replay and through the eager walk, on the
+    same caches and inputs, one slot's verify rows running past the cache
+    edge: the picks, counts, probabilities and both models' cache rows
+    the same bits; every pick the argmax of its verify row."""
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    lm = _serve_lm(81)
+    draft = _serve_lm(82, hidden=32, heads=2)
+    cb = ContinuousBatcher(lm, max_len=64, num_slots=2, page_size=8,
+                           draft_model=draft, spec_tokens=3)
+    g = torch.Generator(device=dev).manual_seed(83)
+    with torch.no_grad():
+        for tree in (cb._caches, cb._draft_caches):
+            for c in tree.values():
+                for t in c.values():
+                    t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        saved = (_snapshot(cb._caches), _snapshot(cb._draft_caches))
+        host = np.array([7, 3, 40, 62], np.int32)  # tokens, positions
+        cb._spec_dispatch(host)                   # warm-up, then capture
+        runs = []
+        for replay in (True, False):
+            _restore(cb._caches, saved[0])
+            _restore(cb._draft_caches, saved[1])
+            if replay:
+                out = cb._spec_dispatch(host)
+            else:
+                cb._spec_in.put(host)
+                cb._spec_walk()
+                out = cb._spec_out.cpu().numpy()
+            runs.append((out, cb._spec_probs.clone(),
+                         _snapshot(cb._caches), _snapshot(cb._draft_caches)))
+    (o0, p0, t0, d0), (o1, p1, t1, d1) = runs
+    assert cb.graphs == {"warmups": 1, "captures": 1, "replays": 1,
+                         "eager_walks": 0}
+    assert np.array_equal(o0, o1) and torch.equal(p0, p1)
+    assert _same_tree(t0, t1) and _same_tree(d0, d1)
+    assert np.array_equal(p1.argmax(-1)[:, :3].cpu().numpy(), o1[:, :3])
+    assert ((o1[:, 3] >= 1) & (o1[:, 3] <= 3)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_kernel_at_the_spec_shape_matches_plain(dev, dtype):
+    """The multi-query kernel at speculative decoding's verify shape: 8
+    slots of 4 queries over a 1024-row cache, ragged positions, one slot
+    whose last queries lie past the cache's last row."""
+    g = torch.Generator(device=dev).manual_seed(84)
+    q = torch.randn((8, 4, 16, 64), generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randn((8, 1024, 16, 64), generator=g, device=dev)
+              .to(dtype) for _ in range(2))
+    pos = torch.tensor([0, 37, 255, 511, 700, 880, 1000, 1022],
+                       dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    out = decode.multiquery_decode_attention(q, kc, vc, pos, scale=0.125,
+                                             block_k=512)
+    ref = decode.decode_attention_plain(q, kc, vc, pos, 0.125)
+    _close(out, ref, F32_TOL if dtype == torch.float32 else BF16_TOL)
+    route = "tc" if dtype == torch.bfloat16 else "cc"
+    assert launch_counts()[f"multiquery_decode_attention/{route}"] == 1
+
+
+def test_spec_tokens_equal_plain_f32_on_card_and_cpu(dev):
+    """At f32, 2 layers: the speculative batcher's greedy tokens on the
+    card (an untied 1-layer draft, and the target as its own draft) equal
+    the card's plain greedy tokens and the CPU's speculative run's, and
+    the card's spec counts the CPU's."""
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+
+    def lm(layers, seed, device):
+        return build_tiny_lm(2, 16, vocab=50, hidden=64, heads=4,
+                             layers=layers, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+
+    rng = np.random.RandomState(85)
+    work = [(rng.randint(1, 50, size=(n,)).astype(np.int32), 48 - n)
+            for n in (5, 11, 3, 20)]  # each ends at the cache edge
+
+    def run(model, draft):
+        with ContinuousBatcher(model, max_len=48, num_slots=2, page_size=4,
+                               max_queue=8, draft_model=draft,
+                               spec_tokens=3) as cb:
+            toks = [r.result(timeout=120).tolist()
+                    for r in [cb.submit(p, n) for p, n in work]]
+        return toks, cb.stats()
+
+    card, draft = lm(2, 86, "cuda"), lm(1, 87, "cuda")
+    cpu, cpu_draft = lm(2, 86, "cpu"), lm(1, 87, "cpu")
+    plain, _ = run(card, None)
+    spec, st = run(card, draft)
+    tied, st_tied = run(card, card)
+    cpu_spec, cpu_st = run(cpu, cpu_draft)
+    assert spec == tied == plain == cpu_spec
+    # per-request sums (the EWMA also depends on which requests share an
+    # iteration, which admission timing decides)
+    for key in ("proposed", "accepted", "acceptance"):
+        assert st["spec"][key] == cpu_st["spec"][key]
+    assert st_tied["spec"]["acceptance"] == 1.0
+    assert st["graphs"]["captures"] > 0 and st["graphs"]["eager_walks"] == 0

@@ -44,7 +44,11 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.runtime.graphs',\n"
         "       'flexflow_tpu_torch.serving.generate',\n"
         "       'flexflow_tpu_torch.serving.sched.kvpool',\n"
-        "       'flexflow_tpu_torch.serving.sched.bench')\n"
+        "       'flexflow_tpu_torch.serving.sched.bench',\n"
+        "       'flexflow_tpu_torch.serving.sched.admission',\n"
+        "       'flexflow_tpu_torch.serving.sched.continuous',\n"
+        "       'flexflow_tpu_torch.tools.serve_profile',\n"
+        "       'flexflow_tpu_torch.tools.decode_bench')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

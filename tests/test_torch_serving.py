@@ -142,8 +142,6 @@ def test_unported_batcher_features_raise_clearly(lms):
     _, pm, prompts, _ = lms
     with pytest.raises(ValueError, match="num_slots is required"):
         ContinuousBatcher(pm, max_len=24)
-    with pytest.raises(NotImplementedError, match="A5"):
-        ContinuousBatcher(pm, max_len=24, num_slots=1, draft_model=pm)
     cb = ContinuousBatcher(pm, max_len=24, num_slots=1)
     for call in (cb.request_resize, cb.request_export, cb.request_import,
                  cb.resume_parked, cb.release_parked):
@@ -283,3 +281,206 @@ def test_chunk_offset_drops_rows_past_the_cache_edge():
                                    big[op][v][:, :off])
                 torch.testing.assert_close(c_small[op][v],
                                            c_big[op][v][:, :11])
+
+
+def test_pool_gauges_track_usage_per_pool():
+    """JAX test_continuous_batching.py:84: gauge series are labelled per
+    pool, so two pools in one process never clobber each other's
+    values."""
+    from flexflow_tpu_torch.obs import REGISTRY
+
+    pool = PagedKVPool(num_slots=2, max_len=8, page_size=4)
+    other = PagedKVPool(num_slots=1, max_len=8, page_size=4)
+    used = REGISTRY.gauge("ff_kvpool_pages_used", labels=("pool",))
+    total = REGISTRY.gauge("ff_kvpool_pages_total", labels=("pool",))
+    assert pool.label != other.label
+    assert total.value(pool=pool.label) == 4
+    assert total.value(pool=other.label) == 2
+    pool.alloc("a", 8)
+    other.alloc("x", 1)
+    assert used.value(pool=pool.label) == 2
+    assert used.value(pool=other.label) == 1
+    pool.free("a")
+    assert used.value(pool=pool.label) == 0
+    assert used.value(pool=other.label) == 1
+
+
+def test_admission_metric_families_match_jax():
+    """The queue gauge and the rejection counter: the same sequence of
+    admissions and rejections leaves the same series in both packages'
+    registries."""
+    from flexflow_tpu.obs.registry import MetricsRegistry as JaxRegistry
+    from flexflow_tpu.serving.sched import (
+        AdmissionController as JaxAdmission, PagedKVPool as JaxPool)
+    from flexflow_tpu.serving.sched.admission import \
+        AdmissionError as JaxAdmissionError
+    from flexflow_tpu_torch.obs.registry import MetricsRegistry
+    from flexflow_tpu_torch.serving.sched import AdmissionError
+
+    series = []
+    for reg, pool_cls, adm_cls in (
+            (MetricsRegistry(), PagedKVPool, AdmissionController),
+            (JaxRegistry(), JaxPool, JaxAdmission)):
+        pool = pool_cls(1, 16, page_size=4, registry=reg, label="p")
+        adm = adm_cls(pool, None, max_queue=2, queue_pages_budget=6,
+                      registry=reg)
+        for rid, plen, new in ((0, 0, 1), (1, 8, 4), (2, 12, 4), (3, 2, 2),
+                               (4, 1, 1)):
+            try:
+                adm.admit(rid, plen, new)
+            except (AdmissionError, JaxAdmissionError):
+                pass
+        adm.on_scheduled(1)
+        series.append(reg.render())
+    assert series[0] == series[1]
+
+
+def _queued_batcher(pm, **kw):
+    """A batcher that accepts submits while its scheduler loop never
+    runs (the JAX tests' `_running = True`)."""
+    cb = ContinuousBatcher(pm, max_len=24, num_slots=1, page_size=4,
+                           max_queue=8, queue_pages_budget=64, **kw)
+    cb._running = True
+    return cb
+
+
+def test_cancel_queued_request(lms):
+    """JAX test_continuous_batching.py:283: cancel() removes a
+    still-queued request (reservation released, RequestCancelled, the
+    `cancelled` outcome counted) and refuses once it reached a slot."""
+    from flexflow_tpu_torch.obs.registry import MetricsRegistry
+    from flexflow_tpu_torch.serving.sched import RequestCancelled
+
+    _, pm, prompts, ref = lms
+    reg = MetricsRegistry()
+    cb = _queued_batcher(pm, registry=reg)
+    a = cb.submit(prompts[0], 4)
+    assert cb.admission.queue_depth() == 1
+    assert cb.cancel(a) is True
+    with pytest.raises(RequestCancelled):
+        a.result(timeout=5)
+    assert cb.cancel(a) is False
+    assert cb.admission.queue_depth() == 0
+    assert reg.get("ff_serving_requests_total").value(
+        outcome="cancelled") == 1
+    assert cb.stats()["failed"] == 1
+    cb._running = False
+    with ContinuousBatcher(pm, max_len=24, num_slots=1, page_size=4) as cb2:
+        b = cb2.submit(prompts[0], 3)
+        assert b.result(timeout=120).tolist() == ref[0][:3]
+        assert cb2.cancel(b) is False
+
+
+def test_health_probes_and_abort_fence(lms):
+    """The health signals (scheduler_alive, heartbeat_age_s,
+    step_latency_s after its warm-up, reset_latency) and abort(): every
+    slotted request is fenced (its emitted tokens frozen, one error),
+    queued ones fail, the pool and admission books empty, the loop
+    exits; a fenced request takes no later token."""
+    _, pm, prompts, _ = lms
+    cb = ContinuousBatcher(pm, max_len=24, num_slots=1, page_size=4,
+                           max_queue=8, queue_pages_budget=64)
+    assert not cb.scheduler_alive() and cb.heartbeat_age_s() is None
+    cb.start()
+    try:
+        first = cb.submit(prompts[1], 6)
+        first.result(timeout=120)
+        assert cb.scheduler_alive()
+        assert 0.0 <= cb.heartbeat_age_s() < 5.0
+        assert cb.step_latency_s() is not None  # > 2 busy iterations
+        cb.reset_latency()
+        assert cb.step_latency_s() is None
+        # one request in the slot (or about to take it), one queued
+        long_req = cb.submit(prompts[3], 14)
+        queued = cb.submit(prompts[0], 4)
+        err = RuntimeError("replica declared dead")
+        cb.abort(err)
+        snap = long_req._fence(err)
+        assert snap is None or snap[0] == long_req.tokens
+        for r in (long_req, queued):
+            with pytest.raises(RuntimeError, match="declared dead"):
+                r.result(timeout=5)
+        n = len(long_req.tokens)
+        long_req._emit(7)
+        assert len(long_req.tokens) == n
+        cb._thread.join(timeout=60)
+        assert not cb.scheduler_alive()
+        stats = cb.stats()
+        assert stats["slots_active"] == 0 and stats["queue_depth"] == 0
+        assert stats["pool"]["pages_used"] == 0
+        assert stats["admission"]["backlog_pages"] == 0
+    finally:
+        cb.stop()
+
+
+def test_fence_freezes_tokens_like_jax():
+    """GenRequest._fence: the JAX handle's contract, case by case."""
+    from flexflow_tpu.serving.sched.continuous import GenRequest as JaxReq
+    from flexflow_tpu_torch.serving.sched import GenRequest
+
+    out = []
+    for cls in (GenRequest, JaxReq):
+        res = []
+        a = cls(0, np.zeros(2, np.int32), 4, None, 0)
+        a._emit(3)
+        a._emit(5)
+        snap = a._fence(RuntimeError("x"))
+        a._emit(9)
+        a._finish()
+        res.append((snap[0], list(a.tokens), a.state.value,
+                    str(a.error), a._fence(RuntimeError("y"))[0]))
+        b = cls(1, np.zeros(2, np.int32), 4, None, 0)
+        b._emit(1)
+        b._finish()
+        res.append((b._fence(RuntimeError("x")), b.state.value))
+        c = cls(2, np.zeros(2, np.int32), 4, None, 0)
+        c._fail(ValueError("first"))
+        snap = c._fence(RuntimeError("x"))
+        res.append((snap[0], c.state.value, str(c.error)))
+        out.append(res)
+    assert out[0] == out[1]
+    assert out[0][0][:4] == ([3, 5], [3, 5], "failed", "x")
+
+
+def test_batcher_metric_families_match_jax(lms):
+    """The batcher's families (slots, TTFT and ITL histograms, requests,
+    tokens, the rate-model gauges) over one served mix: the same
+    families, kinds, series and label names as the JAX batcher's, and
+    the same request and token counts."""
+    from flexflow_tpu.obs.registry import MetricsRegistry as JaxRegistry
+    from flexflow_tpu_torch.obs.registry import MetricsRegistry
+
+    jm, pm, prompts, ref = lms
+
+    def shape(text):
+        out = set()
+        for line in text.splitlines():
+            if line.startswith("# TYPE"):
+                out.add(tuple(line.split(" ")[2:]))
+            elif line and not line.startswith("#"):
+                name = line.split("{")[0].split(" ")[0]
+                labels = line.split("{")[1].split("}")[0] if "{" in line \
+                    else ""
+                out.add((name, tuple(sorted(
+                    (kv.split("=")[0], kv.split("=")[1])
+                    for kv in labels.split(",") if kv
+                    if kv.split("=")[0] in ("outcome", "cache", "le")))))
+        return out
+
+    texts, counts = [], []
+    for cls, model, reg in ((ContinuousBatcher, pm, MetricsRegistry()),
+                            (JaxBatcher, jm, JaxRegistry())):
+        with cls(model, max_len=24, num_slots=2, page_size=4, max_queue=8,
+                 prefix_cache_pages=0, registry=reg) as cb:
+            out = [r.result(timeout=300).tolist()
+                   for r in [cb.submit(p, NEW) for p in prompts]]
+        assert out == ref
+        texts.append(reg.render())
+        counts.append((reg.get("ff_serving_requests_total").value(
+            outcome="completed"), reg.get("ff_serving_tokens_total").value(),
+            reg.get("ff_serving_ttft_ms").count(cache="miss"),
+            reg.get("ff_serving_itl_ms").count()))
+    assert shape(texts[0]) == shape(texts[1])
+    assert counts[0] == counts[1] == (len(prompts), len(prompts) * NEW,
+                                      len(prompts),
+                                      len(prompts) * (NEW - 1))
