@@ -166,6 +166,38 @@ Phases, in order; any failure propagates and exits non-zero:
               the prefix cache and without: hits and pages saved, the
               followers' tokens the cold run's bits, TTFT of hits and
               misses. Each of 16-19 must launch its path's kernels.
+20. spec    — speculative decoding on the serve LM (tied and untied
+              drafts, spec_tokens 3): replay == eager walk, launches of
+              one walk, the f32 identities against plain greedy and the
+              CPU.
+21. resnet  — ResNet-50 (build_resnet50) at examples/python/native/
+              resnet.py's widths (batch 16, 3x224x224, 10 classes), bf16,
+              Adam with bf16 moments (tools/zoo_train.py): 12 eager fit
+              steps, then 12 from the same weights through
+              fit(steps_per_execution=4) (a CUDA graph of 4 steps);
+              losses, weights and running statistics the same bits;
+              softmax forward / backward, 2 reductions and one Adam
+              launch a step; ms a step, samples/s, MFU (3 x the ops'
+              FLOPs), peak memory, beside the card's name and power limit.
+22. nmt     — the LSTM NMT at build_lstm_nmt's defaults (vocab 32000,
+              embed 512, hidden 512, 2 layers; batch 32, seq 24 as
+              nmt_lstm.py): the same pair; the (768, 32000) softmax's
+              routes.
+23. dlrm    — DLRM at DLRMConfig()'s defaults (four 1,000,000 x 64 f32
+              tables, batch 64 as dlrm.py), bag size 1 and 8 (the SUM
+              bags): 5 fit steps each.
+24. dropout — the flagship BERT with attention dropout 0.1: the same
+              pair through the einsum core (no flash launch in training),
+              two replays at lr 0 with other losses (new masks), and
+              inference through the flash kernel equal to a dropout-0
+              model's to the bit.
+    zoo     — AlexNet, the MNIST MLP and CNN, the CIFAR-10 CNN,
+              ResNeXt-50, Inception-v3, XDL, CANDLE Uno, MLP_Unify and
+              build_transformer at their examples' widths: 3 fit steps
+              each.
+    zoo-witness — build_resnet(stages=(1, 1)) at 64 px and the NMT cut
+              to 1 layer, 2 f32 Adam steps on the card and on the CPU
+              from the same weights: losses within 1e-3.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -510,7 +542,10 @@ def phase_kernels(torch, F):
                         (1e-6, 1e-2), True)
         for path, rows, n in (("prefill chunk", 16, 30522),
                               ("train step", 4096, 2),
-                              ("tier step", 4096, 10))}
+                              ("tier step", 4096, 10),
+                              ("NMT step", 768, 32000),
+                              ("ResNet step", 16, 10),
+                              ("DLRM step", 64, 2))}
     del flush_buf
     table.update(train_kernels(torch, F, g))
     table.update(tier_kernels(torch, F, g))
@@ -835,8 +870,10 @@ CUMSUM_EDGE = ((1, 1), (37, 300), (4096, 1024), (1, 4096), (1056, 5000),
                (1, 4097), (1055, 5000), (2, 3 * 1024 * 175 + 1),
                (3, 1000003), (1, 1000003), (132, 100000), (1, 2 ** 24))
 RMS_BWD_EDGE_N = (1, 2, 33, 300, 1000, 1024, 2048, 2049, 14528)
-# the reduce's element counts, each 16-byte aligned and one element past
-REDUCE_EDGE_N = (0, 1, 4096, 4097, 1000003, 2 ** 26)
+# the reduce's element counts, each 16-byte aligned and one element past;
+# 16, 64 and 768 are the zoo's loss and accuracy means (ResNet-50, DLRM and
+# the NMT: phases 21-23)
+REDUCE_EDGE_N = (0, 1, 16, 64, 768, 4096, 4097, 1000003, 2 ** 26)
 
 
 def bwd_route_edges(torch, g):
@@ -1199,7 +1236,8 @@ def train_kernels(torch, F, g):
     for path, r, n in (("train step", b * l, 2), ("tier step", 4096, 10),
                        ("cluster", 8, 30522), ("cluster 16", 16, 30522),
                        ("block", 128, 30522), ("NMT projection", 2048, 32000),
-                       ("block mid", 4096, 1024)):
+                       ("block mid", 4096, 1024), ("NMT step", 768, 32000),
+                       ("ResNet step", 16, 10), ("DLRM step", 64, 2)):
         dtypes = ((torch.float32, torch.bfloat16) if n <= 10
                   else (torch.bfloat16,))
         for dtype in dtypes:
@@ -2847,6 +2885,263 @@ def phase_spec(torch, lm, max_len, page, vocab, prompts, news, plain_outs,
     return out
 
 
+# the model-zoo phases (21-24, zoo, zoo-witness): tools/zoo_train.py's
+# builders at their examples' widths, bf16 with Adam (bf16 moments)
+# launches per training step of a zoo classifier: the softmax forward and
+# backward, the loss's and the accuracy's means, one Adam update
+ZOO_PER_STEP = {"softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2,
+                "optimizer_adam": 1}
+# the fit steps of a graphed pair (phases 21, 22, 24): eager, and as
+# ZOO_STEPS // ZOO_K dispatches of a CUDA graph of ZOO_K steps
+ZOO_STEPS, ZOO_K = 12, 4
+# three fit steps of each other builder, then three more timed
+ZOO_OTHERS = ("alexnet", "mnist_mlp", "mnist_cnn", "cifar10_cnn",
+              "resnext50", "inception_v3", "xdl", "candle_uno", "mlp_unify",
+              "transformer")
+
+
+def _host_tree(tree):
+    return {op: {w: t.detach().cpu().clone() for w, t in ws.items()}
+            for op, ws in tree.items()}
+
+
+def _zoo_pair(torch, name, per_step=ZOO_PER_STEP):
+    """tools/zoo_train.py's ZOO[name]: ZOO_STEPS eager fit steps, then a
+    fresh model from the same weights and seed through
+    fit(steps_per_execution=ZOO_K) over the same batches (the first
+    dispatch eager then captured, the rest replayed); every loss, weight
+    and running statistic the same bits, and each kernel of `per_step`
+    launched its count a step eagerly and 2 x ZOO_K times for the graph.
+    Then each model runs the steps again, timed, and the graphed one a
+    dispatch more under the profiler (device busy, idle share, launches
+    a step). Returns both runs' records and the eager model's trained
+    weights on the host."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    xs, y = zoo.batches(name, ZOO_STEPS)
+    runs, trees = {}, {}
+    for label, k in (("eager", 1), ("graph", ZOO_K)):
+        t0 = time.perf_counter()
+        m = zoo.build(name, "cuda")
+        build_s = time.perf_counter() - t0
+        runs[label] = dict(zoo.train(m, xs, y, ZOO_STEPS, k),
+                           build_s=build_s, params=zoo.n_params(m))
+        trees[label] = (_host_tree(m.params), _host_tree(m.state))
+        runs[label].update(zoo.time_steps(m, xs, y, ZOO_STEPS, k))
+        if k > 1:
+            n = ZOO_K * zoo.ZOO[name]["batch"]
+            runs[label].update(zoo.profile_steps(
+                m, [a[:n] for a in xs], y[:n], ZOO_K, k))
+        del m
+        torch.cuda.empty_cache()
+    eager, graph = runs["eager"], runs["graph"]
+    (we, se), (wg, sg) = trees["eager"], trees["graph"]
+    same = (eager["losses"] == graph["losses"]
+            and all(torch.equal(t, wg[op][w]) for op, ws in we.items()
+                    for w, t in ws.items())
+            and all(torch.equal(t, sg[op][v]) for op, vs in se.items()
+                    for v, t in vs.items()))
+    if not same or not all(np.isfinite(eager["losses"])):
+        raise AssertionError(f"{name}: the graphed steps differ from the "
+                             f"eager ones, or a loss is not finite "
+                             f"({eager['losses']} vs {graph['losses']})")
+    wrong = {k: (eager["launches"].get(k, 0), graph["launches"].get(k, 0))
+             for k, n in per_step.items()
+             if eager["launches"].get(k, 0) != n * ZOO_STEPS
+             or graph["launches"].get(k, 0) != 2 * ZOO_K * n}
+    if wrong:
+        raise AssertionError(f"{name}: launches (eager, graph) {wrong}, "
+                             f"expected {per_step} a step")
+    return runs, we
+
+
+def _zoo_line(phase, name, runs):
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    eager, graph = runs["eager"], runs["graph"]
+    return {"phase": phase, "model": name, "source": zoo.ZOO[name]["source"],
+            "batch": zoo.ZOO[name]["batch"], "params": eager["params"],
+            "card": _card_line(), "eager": eager, "graph": graph,
+            "graph_same_bits": True,
+            "ms_per_step": {"eager_k1": eager["ms_per_step"],
+                            f"graph_k{ZOO_K}": graph["ms_per_step"]},
+            "samples_per_s": {"eager_k1": eager["samples_per_s"],
+                              f"graph_k{ZOO_K}": graph["samples_per_s"]},
+            "mfu_bf16_peak": {"eager_k1": eager["mfu_bf16_peak"],
+                              f"graph_k{ZOO_K}": graph["mfu_bf16_peak"]},
+            "tolerance": "graphed losses, weights and running statistics "
+                         "equal to the eager run's bits"}
+
+
+def phase_resnet(torch):
+    """21: ResNet-50 at examples/python/native/resnet.py's widths (batch
+    16, 3x224x224, 10 classes): the graphed pair."""
+    runs, _ = _zoo_pair(torch, "resnet50")
+    return _zoo_line("resnet", "resnet50", runs)
+
+
+def phase_nmt(torch):
+    """22: the LSTM NMT at build_lstm_nmt's defaults (vocab 32000 / 32000,
+    embed 512, hidden 512, 2 layers; batch 32, seq 24): the graphed pair;
+    the vocabulary softmax, forward and backward, at (768, 32000) and its
+    routes."""
+    runs, _ = _zoo_pair(torch, "nmt")
+    line = _zoo_line("nmt", "nmt", runs)
+    line["softmax_768x32000"] = {
+        k: n for k, n in runs["eager"]["routes"].items()
+        if k.startswith(("softmax_fwd/", "softmax_bwd/"))}
+    return line
+
+
+def phase_dlrm(torch, steps=5):
+    """23: DLRM at DLRMConfig()'s defaults (four 1,000,000 x 64 f32
+    tables, bot MLP 4-64-64, top 64-64-2, "cat" interaction; batch 64 as
+    examples/python/native/dlrm.py), bag size 1 and bag size 8 (the SUM
+    bags): `steps` eager fit steps each, finite losses, the launches a
+    step; then `steps` more timed."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    out = {"phase": "dlrm", "card": _card_line(), "runs": {}}
+    for name in ("dlrm", "dlrm_bag8"):
+        t0 = time.perf_counter()
+        m = zoo.build(name, "cuda")
+        build_s = time.perf_counter() - t0
+        xs, y = zoo.batches(name, steps)
+        run = dict(zoo.train(m, xs, y, steps), build_s=build_s,
+                   params=zoo.n_params(m), source=zoo.ZOO[name]["source"])
+        run.update(zoo.time_steps(m, xs, y, steps))
+        wrong = {k: run["launches"].get(k, 0) for k, n in
+                 ZOO_PER_STEP.items()
+                 if run["launches"].get(k, 0) != n * steps}
+        if wrong or not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"{name}: launches {wrong}, losses "
+                                 f"{run['losses']}")
+        out["runs"][name] = run
+        del m
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dropout(torch):
+    """24: bench.py's flagship BERT with attention dropout 0.1: the
+    graphed pair through the einsum core (no flash launch in training;
+    K graphed steps the bits of K eager steps from the same generator
+    state); then a fresh model at lr 0 on one repeated batch: two
+    replays give other losses (new masks) and the weights stay (the
+    initial weights: after one Adam step the flagship's classifier is
+    saturated and its loss no longer shows a mask); inference on the
+    trained weights through the flash kernel equals a dropout-0 model's
+    to the bit."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    per_step = dict(ZOO_PER_STEP, layernorm_fwd=24, layernorm_bwd=24,
+                    flash_fwd=0, flash_bwd=0)
+    runs, trained = _zoo_pair(torch, "bert_dropout", per_step)
+    line = _zoo_line("dropout", "bert_dropout", runs)
+    m = zoo.build("bert_dropout", "cuda")
+    init = _host_tree(m.params)
+    xs, y = zoo.batches("bert_dropout", 1, seed=1)
+    m.set_learning_rate(0.0)
+    m.fit([np.concatenate([xs[0]] * 3 * ZOO_K)], np.concatenate(
+        [y] * 3 * ZOO_K), epochs=1, steps_per_execution=ZOO_K)
+    d = [r["losses"] for r in m.step_records]
+    still = all(torch.equal(t.cpu(), init[op][w])
+                for op, ws in m.params.items() for w, t in ws.items())
+    del init
+    m.load_params(trained)
+    if d[1] == d[2] or len(set(d[1] + d[2])) != 2 * ZOO_K or not still:
+        raise AssertionError(f"dropout: at lr 0 two replays gave losses "
+                             f"{d[1]} and {d[2]}; weights kept: {still}")
+    plain = zoo.build("bert", "cuda")
+    plain.load_params(trained)
+    outs = []
+    for model in (m, plain):
+        reset_launch_counts()
+        with torch.no_grad():
+            feeds = model.executor.cast_inputs(
+                {model.input_ops[0].name: torch.from_numpy(xs[0]).cuda()})
+            outs.append(model.executor.forward_values(feeds)[
+                model.final_tensor.guid])
+        torch.cuda.synchronize()
+        outs.append(launch_counts()["flash_fwd"])
+    if not (torch.equal(outs[0], outs[2]) and outs[1] == outs[3] == 12):
+        raise AssertionError(f"dropout: inference with dropout set differs "
+                             f"from the dropout-0 model's, or not through "
+                             f"12 flash launches ({outs[1]}, {outs[3]})")
+    del m, plain
+    torch.cuda.empty_cache()
+    line.update(lr0_replay_losses=d[1:], inference_same_bits_as_dropout0=True,
+                inference_flash_launches=outs[1])
+    return line
+
+
+def phase_zoo(torch, steps=3):
+    """The other builders at their examples' widths (tools/zoo_train.py
+    ZOO): `steps` eager fit steps each (finite losses, the classifiers'
+    softmax and Adam launched), then `steps` more timed."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    out = {"phase": "zoo", "card": _card_line(), "models": {}}
+    for name in ZOO_OTHERS:
+        t0 = time.perf_counter()
+        m = zoo.build(name, "cuda")
+        build_s = time.perf_counter() - t0
+        xs, y = zoo.batches(name, steps)
+        run = dict(zoo.train(m, xs, y, steps), build_s=build_s,
+                   params=zoo.n_params(m), source=zoo.ZOO[name]["source"])
+        run.update(zoo.time_steps(m, xs, y, steps))
+        run.pop("routes")
+        need = ("optimizer_adam",) if zoo.ZOO[name].get("regression") \
+            else ("optimizer_adam", "softmax_fwd", "softmax_bwd")
+        if not all(np.isfinite(run["losses"])) or any(
+                run["launches"].get(k, 0) != steps for k in need):
+            raise AssertionError(f"zoo {name}: {run}")
+        out["models"][name] = run
+        del m
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_witness(torch, steps=2, tol=1e-3):
+    """The f32 witnesses: build_resnet(stages=(1, 1)) at 64 px (batch 16)
+    and the NMT cut to 1 layer (its default widths, batch 32, seq 24),
+    `steps` Adam steps in f32 on the card and on the CPU from the card's
+    weights, over the same batches: every loss within `tol` (relative)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    out = {"phase": "zoo-witness", "card": _card_line(),
+           "tolerance": f"|loss_card - loss_cpu| <= {tol} x |loss_cpu|"}
+    for name in ("resnet_small", "nmt_1layer"):
+        card = zoo.build(name, "cuda", mixed=False)
+        cpu = zoo.build(name, "cpu", mixed=False)
+        cpu.load_params(card.params)
+        xs, y = zoo.batches(name, steps)
+        losses = []
+        for m in (card, cpu):
+            m.fit(xs, y, epochs=1)
+            losses.append([r["loss"] for r in m.step_records])
+        err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+        out[name] = {"card": losses[0], "cpu": losses[1],
+                     "max_relative_err": err}
+        if err > tol or not all(np.isfinite(losses[0])):
+            raise AssertionError(f"zoo-witness {name}: {out[name]}")
+        del card, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
 def _prefill_probs(torch, model, prompt, chunk, max_len):
     """First-token distribution of `prompt`, prefilled chunk by chunk into
     fresh one-slot caches through the executor (the batcher's path)."""
@@ -3165,10 +3460,30 @@ def main() -> int:
         _emit(dict(line, launches=serving_paths[name],
                    seconds_since_start=time.perf_counter() - t_start))
 
+    # 21) resnet, 22) nmt, 23) dlrm, 24) dropout, then the other builders
+    # and the f32 witnesses: the model zoo. Launches: each path's eager
+    # run, counted from 0 just before its fit
+    zoo_paths = {}
+    for fn in (phase_resnet, phase_nmt, phase_dlrm, phase_dropout,
+               phase_zoo):
+        line = fn(torch)
+        runs = ([line["eager"]] if "eager" in line else
+                list(line.get("runs", line.get("models", {})).values()))
+        zoo_paths[line["phase"]] = {
+            k: sum(r["launches"].get(k, 0) for r in runs)
+            for k in {k for r in runs for k in r["launches"]}}
+        if "inference_flash_launches" in line:
+            zoo_paths["dropout-inference"] = {
+                "flash_fwd": line["inference_flash_launches"]}
+        _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    _emit(dict(phase_zoo_witness(torch),
+               seconds_since_start=time.perf_counter() - t_start))
+
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
-    # on rank 0, train-graph's graphed fit, mlp's eager fit, and the
-    # serving phases 16-20), each counted from 0 just before its path ran
+    # on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
+    # phases 16-20 and the zoo's eager fits), each counted from 0 just
+    # before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:130",
@@ -3225,6 +3540,9 @@ def main() -> int:
             by_path["mlp"] = mlp["eager"]["launches"][name]
         for path, counts in serving_paths.items():
             if name in counts:
+                by_path[path] = counts[name]
+        for path, counts in zoo_paths.items():
+            if counts.get(name):
                 by_path[path] = counts[name]
         row = dict(
             name=name, route="cuda", source=sources.get(name, src + "norm.cu"),

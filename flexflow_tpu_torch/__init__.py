@@ -15,7 +15,10 @@ runtime/distributed.py, runtime/collectives.py), and the single-device
 training runtime with the MLP path (the fused optimizer update,
 `fit(steps_per_execution=K)` as a CUDA graph, gradient accumulation,
 dataloader-driven fit, the six metrics, the elementwise, shape and
-reduction ops), over hand-written CUDA kernels (kernels/, csrc/): decode
+reduction ops), the op set and model zoo apart from MoE (conv, pool,
+flat, batch norm with its running statistics as op state, dropout and
+attention dropout from a seeded per-model generator, LSTM, embedding
+bags; `models`), over hand-written CUDA kernels (kernels/, csrc/): decode
 attention, flash attention forward and backward (packed and
 head-separated), LayerNorm, RMSNorm and softmax forward and backward,
 the scalar reduction and the scan, and the Adam / SGD update over a
@@ -29,12 +32,12 @@ version.
 """
 from .config import FFConfig
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
-                      MetricsType, OpType)
+                      MetricsType, OpType, PoolType)
 from .model import FFModel, opt_state_from_jax, params_from_jax
 from .runtime.dataloader import SingleDataLoader
 from .runtime.optimizers import AdamOptimizer, SGDOptimizer
 
 __all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode", "DataType",
            "FFConfig", "FFModel", "LossType", "MetricsType", "OpType",
-           "SGDOptimizer", "SingleDataLoader", "opt_state_from_jax",
-           "params_from_jax"]
+           "PoolType", "SGDOptimizer", "SingleDataLoader",
+           "opt_state_from_jax", "params_from_jax"]

@@ -28,6 +28,9 @@ class FFConfig:
     # kernel tier (kernels/registry.py): auto, pallas (the CUDA kernels),
     # reference, or family=impl[,...]
     kernel_impl: str = "auto"
+    # seeds the training walk's random stream (dropout masks), as the JAX
+    # package's `seed` seeds its per-step keys (runtime/executor.py)
+    seed: int = 0
 
     def parse_args(self, argv: Sequence[str]) -> None:
         """Set fields from the JAX package's flag spellings of the fields
@@ -54,6 +57,8 @@ class FFConfig:
                 self.flash_block_q = int(take())
             elif a == "--flash-block-k":
                 self.flash_block_k = int(take())
+            elif a == "--seed":
+                self.seed = int(take())
             elif a == "--kernel-impl":
                 v = take()
                 from .kernels.registry import KernelRegistry
@@ -64,5 +69,5 @@ class FFConfig:
                 raise ValueError(f"flag {a!r} is not ported (flags: "
                                  "--batch-size, --epochs, --learning-rate, "
                                  "--flash-block-q, --flash-block-k, "
-                                 "--kernel-impl)")
+                                 "--kernel-impl, --seed)")
             i += 1

@@ -16,6 +16,13 @@ Weights are f32 master parameters. Serving reads them under
 `torch.no_grad()` through a cache of compute-dtype copies (bf16 under
 mixed precision); training casts them inside the autograd graph on every
 step, so gradients reach the f32 masters (`Op.w`).
+
+An op's non-trainable state (`state_specs`: batch norm's running
+statistics, the JAX package's `model.state`) is held as buffers of the
+op, beside its weights, replicated on a mesh (`FFModel.state`). A
+training walk updates them in place outside autograd, so a CUDA graph
+of training steps updates them at every replay; an inference walk reads
+them.
 """
 from __future__ import annotations
 
@@ -67,6 +74,9 @@ class LoweringContext:
         self.chunk_rows = None
         # this process's core.machine.Mesh, None on one device
         self.mesh = None
+        # a training walk's random stream (dropout masks): the executor's
+        # torch.Generator on the walk's device; None outside training
+        self.generator: Optional[torch.Generator] = None
 
 
 class Op(nn.Module):
@@ -88,6 +98,7 @@ class Op(nn.Module):
             for i, (dims, dtype) in enumerate(zip(out_dims, out_dtypes))
         ]
         self.specs: List[WeightSpec] = list(self.weight_specs())
+        self.state_vars: List[WeightSpec] = list(self.state_specs())
         # compute-dtype copies of the weights (bf16 under mixed precision)
         # for reads outside autograd, each beside the version of the master
         # it was cast from: an in-place update (set_weight, an optimizer
@@ -110,6 +121,14 @@ class Op(nn.Module):
 
     def weight_specs(self) -> List[WeightSpec]:
         return []
+
+    def state_specs(self) -> List[WeightSpec]:
+        """Non-trainable per-op state (JAX `Op.state_specs`)."""
+        return []
+
+    def flops(self) -> float:
+        """Forward FLOPs (JAX `Op.flops`); 0 for an op its bytes bound."""
+        return 0.0
 
     def lower(self, ctx: LoweringContext, inputs: List[torch.Tensor]):
         """Run the op; return one value per output tensor."""
@@ -143,6 +162,9 @@ class Op(nn.Module):
             self.register_parameter(
                 ws.name, nn.Parameter(val.to(device).contiguous(),
                                       requires_grad=trainable))
+        for sv in self.state_vars:
+            self.register_buffer(sv.name, sv.initializer(
+                generator, sv.dims, sv.dtype.torch_dtype).to(device))
         self._cast.clear()
 
     def set_weight(self, name: str, value: torch.Tensor) -> None:

@@ -56,8 +56,15 @@ class ActiMode(enum.Enum):
     AC_MODE_GELU = 4
 
 
+class PoolType(enum.Enum):
+    POOL_MAX = 0
+    POOL_AVG = 1
+
+
 class AggrMode(enum.Enum):
     AGGR_MODE_NONE = 0
+    AGGR_MODE_SUM = 1
+    AGGR_MODE_AVG = 2
 
 
 class LossType(enum.Enum):
@@ -86,8 +93,11 @@ class OpType(enum.Enum):
     NOOP = "noop"
     INPUT = "input"
     WEIGHT = "weight"
+    CONV2D = "conv2d"
+    DROPOUT = "dropout"
     LINEAR = "linear"
     BATCHMATMUL = "batch_matmul"
+    POOL2D = "pool2d"
     SCALAR_MULTIPLY = "scalar_multiply"
     SCALAR_ADD = "scalar_add"
     SCALAR_SUB = "scalar_sub"
@@ -103,7 +113,9 @@ class OpType(enum.Enum):
     EXP = "exp"
     SIN = "sin"
     COS = "cos"
+    FLAT = "flat"
     SOFTMAX = "softmax"
+    BATCHNORM = "batchnorm"
     LAYERNORM = "layernorm"
     RMSNORM = "rmsnorm"
     CONCAT = "concat"
@@ -124,3 +136,4 @@ class OpType(enum.Enum):
     CAST = "cast"
     MULTIHEAD_ATTENTION = "multihead_attention"
     TOPK = "topk"
+    LSTM = "lstm"

@@ -22,7 +22,7 @@ from .core.machine import Mesh, check_axes, make_mesh
 from .core.op import OP_REGISTRY, Op
 from .core.tensor import ParallelDim, ParallelTensorShape, Tensor
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
-                      MetricsType, OpType)
+                      MetricsType, OpType, PoolType)
 from .kernels.registry import KERNELS
 from .runtime.collectives import gather_shards
 from .runtime.executor import Executor, MultiStep
@@ -246,6 +246,50 @@ class FFModel:
             kernel_initializer=kernel_initializer,
             bias_initializer=bias_initializer).outputs[0]
 
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation: ActiMode = ActiMode.AC_MODE_NONE,
+               groups: int = 1, use_bias: bool = True, shared_op=None,
+               kernel_initializer=None, bias_initializer=None,
+               name: str = "") -> Tensor:
+        return self._add_op(
+            OpType.CONV2D, [input], name, out_channels=out_channels,
+            kernel_h=kernel_h, kernel_w=kernel_w, stride_h=stride_h,
+            stride_w=stride_w, padding_h=padding_h, padding_w=padding_w,
+            activation=activation, groups=groups, use_bias=use_bias,
+            kernel_initializer=kernel_initializer,
+            bias_initializer=bias_initializer).outputs[0]
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.POOL_MAX,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               name: str = "") -> Tensor:
+        return self._add_op(
+            OpType.POOL2D, [input], name, kernel_h=kernel_h,
+            kernel_w=kernel_w, stride_h=stride_h, stride_w=stride_w,
+            padding_h=padding_h, padding_w=padding_w, pool_type=pool_type,
+            activation=activation).outputs[0]
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name: str = "") -> Tensor:
+        return self._unary(OpType.BATCHNORM, input, name, relu=relu)
+
+    def flat(self, input: Tensor, name: str = "") -> Tensor:
+        return self._unary(OpType.FLAT, input, name)
+
+    def dropout(self, input: Tensor, rate: float = 0.5, seed: int = 0,
+                name: str = "") -> Tensor:
+        """Inverted dropout in training (ops/norm.py DropoutOp); `seed` is
+        kept for the API, as in the JAX package: the masks come from the
+        executor's generator, seeded from `config.seed`."""
+        return self._unary(OpType.DROPOUT, input, name, rate=rate, seed=seed)
+
+    def lstm(self, input: Tensor, hidden_size: int,
+             return_sequences: bool = True, name: str = "") -> Tensor:
+        return self._unary(OpType.LSTM, input, name, hidden_size=hidden_size,
+                           return_sequences=return_sequences)
+
     def layer_norm(self, input: Tensor, axes: Sequence[int],
                    elementwise_affine: bool = True, eps: float = 1e-5,
                    name: str = "") -> Tensor:
@@ -286,8 +330,9 @@ class FFModel:
                             name: str = "") -> Tensor:
         """use_flash: True / False force the full-sequence path to the
         flash kernel / the einsum reference core; None leaves it to the
-        kernel registry. dropout > 0 and sequence_parallel raise: neither
-        is ported."""
+        kernel registry. dropout > 0 drops out the probabilities in
+        training through the einsum core (ops/attention.py);
+        sequence_parallel raises (ROADMAP A8)."""
         return self._add_op(
             OpType.MULTIHEAD_ATTENTION, [query, key, value], name,
             embed_dim=embed_dim, num_heads=num_heads, kdim=kdim or None,
@@ -305,7 +350,8 @@ class FFModel:
                 generator: Optional[torch.Generator] = None) -> None:
         """Build the graph and executor and draw every weight from
         `generator` (default: a CPU generator seeded 0) onto
-        `config.device`.
+        `config.device`, and the ops' state (`state`) from its
+        initializers.
 
         The strategy search is a stub that returns the one-device plan
         (ROADMAP A7). `parallel_axes={"data": dp, "model": tp}` trains on
@@ -716,6 +762,41 @@ class FFModel:
                     t = gather_shards(t, d, group, size)
                 out[op.name][w] = t
         return out
+
+    @property
+    def state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """op name -> state variable -> tensor, the JAX `model.state` tree
+        (batch norm's running statistics): the ops' buffers themselves,
+        which a training step updates in place."""
+        return {op.name: {sv.name: op._buffers[sv.name]
+                          for sv in op.state_vars}
+                for op in self.ops if op.state_vars}
+
+    def load_state(self, state: Mapping[str, Mapping[str, object]]) -> None:
+        """Load every state variable by op name and variable name, as
+        `load_params` loads weights: exactly this model's names and
+        shapes, each value (a tensor, or an array such as the JAX
+        package's `model.state` holds) converted to the variable's dtype
+        and device."""
+        mine = self.state
+        if {op: set(vs) for op, vs in state.items()} != \
+                {op: set(vs) for op, vs in mine.items()}:
+            raise KeyError(f"state tree does not match the model: expected "
+                           f"{ {op: sorted(vs) for op, vs in mine.items()} }")
+        staged = []
+        for op, vs in mine.items():
+            for name, t in vs.items():
+                val = state[op][name]
+                if not torch.is_tensor(val):
+                    val = torch.from_numpy(np.array(val, dtype=np.float32))
+                if tuple(val.shape) != tuple(t.shape):
+                    raise ValueError(f"op {op!r} state {name!r}: shape "
+                                     f"{tuple(val.shape)}, expected "
+                                     f"{tuple(t.shape)}")
+                staged.append((t, val))
+        with torch.no_grad():
+            for t, val in staged:
+                t.copy_(val)
 
     def load_params(self, params: Mapping[str, Mapping[str, object]]) -> None:
         """Load every weight by op name and weight name. The tree must name

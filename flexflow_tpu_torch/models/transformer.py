@@ -27,9 +27,10 @@ class TransformerConfig:
 
 
 def _encoder_layer(ff, t, cfg: TransformerConfig, name: str,
-                   sequence_parallel: bool = False, use_flash=None):
+                   sequence_parallel: bool = False, use_flash=None,
+                   dropout: float = 0.0):
     attn = ff.multihead_attention(
-        t, t, t, cfg.hidden_size, cfg.num_heads,
+        t, t, t, cfg.hidden_size, cfg.num_heads, dropout=dropout,
         sequence_parallel=sequence_parallel, use_flash=use_flash,
         name=f"{name}_attn")
     t = ff.layer_norm(ff.add(t, attn), [-1], name=f"{name}_ln1")
@@ -37,6 +38,20 @@ def _encoder_layer(ff, t, cfg: TransformerConfig, name: str,
                  name=f"{name}_ff1")
     h = ff.dense(h, cfg.hidden_size, name=f"{name}_ff2")
     return ff.layer_norm(ff.add(t, h), [-1], name=f"{name}_ln2")
+
+
+def build_transformer(model, input, cfg: TransformerConfig = None,
+                      num_classes: int = 2):
+    """Encoder stack on an already-embedded [batch, seq, hidden] float
+    tensor, the shape of the reference benchmark
+    (examples/cpp/Transformer/transformer.cc:60-76)."""
+    cfg = cfg or TransformerConfig()
+    ff = model
+    t = input
+    for i in range(cfg.num_layers):
+        t = _encoder_layer(ff, t, cfg, f"layer{i}")
+    t = ff.dense(t, num_classes, name="cls")
+    return ff.softmax(t)
 
 
 def build_bert_encoder(model, token_input, cfg: TransformerConfig = None,

@@ -18,8 +18,21 @@ projections, f32 logits times the scale, the causal mask
 tril(ones(lq, lk), lk - lq) with -1e30, an f32 softmax, the context
 product in the compute dtype, under autograd. Either way the context goes
 through wo, is cast to the output's boundary dtype, and bo is added in
-that dtype. Attention dropout and sequence parallelism are not ported and
-raise.
+that dtype. Sequence parallelism is not ported and raises.
+
+Attention-probability dropout (the JAX package's `ops/attention.py:
+258-278`): a training walk with `dropout > 0` takes the einsum core
+whatever the registry picks (the flash kernel has no dropout), and drops
+out the f32 probabilities there with a keep mask drawn from the walk's
+generator (ops/norm.py `dropout_keep`), divided by 1 - dropout, before
+the cast to the compute dtype. JAX rematerialises that core in the
+backward (`jax.checkpoint`); the port keeps what autograd saves instead:
+the f32 probabilities and the bool mask, 160 MiB a layer at the
+flagship's (8, 16, 512, 512), with the compute-dtype probabilities
+beside them. Inference, and dropout 0, take the path the op takes
+without dropout (the flash kernel on the card). `use_flash=True` with
+dropout raises, as in JAX. kdim != vdim also takes the einsum core (the
+kernels take one head dim), in decoding the einsum decode chain.
 
 On a mesh whose `model` axis is larger than 1 (`tp > 1`, the JAX
 package's `ops/attention.py:143-146`) the packed path is off: the heads
@@ -81,13 +94,14 @@ from typing import List
 import torch
 
 from ..core.op import Op, WeightSpec, register_op
-from ..ffconst import OpType
+from ..ffconst import CompMode, OpType
 from ..kernels.decode import decode_attention, multiquery_decode_attention
 from ..kernels.flash_attention import flash_attention, flash_attention_heads
 from ..kernels.registry import KERNELS, flash_crossover
 from ..runtime.collectives import enter_tp, reduce_sum
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
-from .common import emit_dtype, matmul_dtype
+from .common import emit_dtype, matmul_dtype, no_data_axis
+from .norm import apply_dropout, dropout_keep
 
 # score of a masked key, as the JAX package's einsum core and kernels
 NEG_INF = -1e30
@@ -107,15 +121,17 @@ class MultiHeadAttentionOp(Op):
         return q, k, v, embed, heads, kdim, vdim
 
     def output_shapes(self):
-        q, _, _, embed, _, kdim, vdim = self._dims()
-        if kdim != vdim:
-            raise NotImplementedError(
-                f"kdim={kdim} != vdim={vdim}: the attention kernels take "
-                "one head_dim")
-        if self.params.get("dropout", 0.0) > 0:
-            raise NotImplementedError(
-                f"{self.name}: attention-probability dropout is not ported "
-                "(the flash kernel has none); set dropout=0")
+        q, _, _, embed, _, _, _ = self._dims()
+        if self.params.get("use_flash"):
+            kdim, vdim = self.params.get("kdim"), self.params.get("vdim")
+            if self.params.get("dropout", 0.0) > 0:
+                raise ValueError(
+                    "use_flash=True attention has no attention-prob dropout; "
+                    "set dropout=0 or drop the explicit use_flash")
+            if kdim != vdim:
+                raise ValueError(
+                    "use_flash=True requires kdim == vdim (one head_dim in "
+                    "the kernel); got kdim={} vdim={}".format(kdim, vdim))
         if self.params.get("sequence_parallel"):
             raise NotImplementedError(
                 f"{self.name}: sequence-parallel attention (ring / Ulysses) "
@@ -176,6 +192,22 @@ class MultiHeadAttentionOp(Op):
         v = self._project(v_in, "wv", "bv", cdt)
         return [self._decode_step(ctx, q, k, v, 1.0 / math.sqrt(q.shape[-1]))]
 
+    def flops(self) -> float:
+        q, k, v, embed, heads, kdim, vdim = self._dims()
+        b, lq, lk = q.dims[0], q.dims[1], k.dims[1]
+        proj = 2.0 * b * heads * (lq * q.dims[-1] * kdim
+                                  + lk * k.dims[-1] * kdim
+                                  + lk * v.dims[-1] * vdim
+                                  + lq * vdim * embed)
+        return proj + 2.0 * b * heads * lq * lk * (kdim + vdim)
+
+    def _dropout(self, ctx) -> float:
+        """The probabilities' dropout rate of this walk: 0 outside
+        training."""
+        if ctx.mode != CompMode.COMP_MODE_TRAINING:
+            return 0.0
+        return float(self.params.get("dropout", 0.0))
+
     def _use_flash(self, ctx, device) -> bool:
         """The `attention` family through the registry: the op's use_flash
         param first, then override and knob, then auto with the
@@ -214,13 +246,17 @@ class MultiHeadAttentionOp(Op):
             vc[:, :n] = v[:, :n].to(vc.dtype)
         scale = 1.0 / math.sqrt(kdim)
         causal = self.params.get("causal", False)
-        if self._use_flash(ctx, q_in.device):
+        rate = self._dropout(ctx)
+        if rate:
+            no_data_axis(ctx, f"{self.name}: attention dropout masks")
+        if self._use_flash(ctx, q_in.device) and not rate and kdim == vdim:
             ctxv = flash_attention(
                 q.flatten(2), k.flatten(2), v.flatten(2), heads, scale=scale,
                 causal=causal, block_q=ctx.config.flash_block_q,
                 block_k=ctx.config.flash_block_k)
         else:
-            ctxv = self._einsum_core(q, k, v, scale, causal, cdt).flatten(2)
+            ctxv = self._einsum_core(q, k, v, scale, causal, cdt, rate,
+                                     ctx.generator).flatten(2)
         odt = emit_dtype(ctx.config, self.outputs[0].dtype)
         out = torch.matmul(ctxv.to(cdt),
                            self.w("wo", cdt).reshape(heads * vdim, embed))
@@ -235,6 +271,10 @@ class MultiHeadAttentionOp(Op):
         the einsum core, the local part of `wo`, then the sum over the
         model group and bo."""
         _, _, _, embed, _, kdim, vdim = self._dims()
+        if self._dropout(ctx):
+            raise NotImplementedError(
+                f"{self.name}: attention dropout on a model-parallel mesh is "
+                "not ported yet (ROADMAP A8)")
         if self.tp_degree > 1:
             group = ctx.mesh.group("model")
             entered = {}
@@ -248,7 +288,7 @@ class MultiHeadAttentionOp(Op):
         v = self._project(v_in, "wv", "bv", cdt)
         scale = 1.0 / math.sqrt(kdim)
         causal = self.params.get("causal", False)
-        if self._use_flash(ctx, q_in.device):
+        if self._use_flash(ctx, q_in.device) and kdim == vdim:
             ctxv = flash_attention_heads(
                 q, k, v, scale=scale, causal=causal,
                 block_q=ctx.config.flash_block_q,
@@ -267,10 +307,14 @@ class MultiHeadAttentionOp(Op):
         return out
 
     @staticmethod
-    def _einsum_core(q, k, v, scale, causal, cdt):
+    def _einsum_core(q, k, v, scale, causal, cdt, rate=0.0, generator=None,
+                     keep=None):
         """The JAX package's reference core on (b, l, h, d): f32 logits
         (the products of the compute-dtype values, summed in f32), the
-        causal mask, an f32 softmax, the context in the compute dtype."""
+        causal mask, an f32 softmax, the context in the compute dtype.
+        With `rate` > 0 the probabilities are dropped out first: kept
+        where `keep` (a (b, h, lq, lk) bool mask, else drawn from
+        `generator`) and divided by 1 - rate."""
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
             * scale
         if causal:
@@ -279,6 +323,10 @@ class MultiHeadAttentionOp(Op):
                               device=q.device).tril(lk - lq)
             logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)
+        if rate:
+            if keep is None:
+                keep = dropout_keep(probs, rate, generator)
+            probs = apply_dropout(probs, keep, rate)
         return torch.einsum("bhqk,bkhd->bqhd", probs.to(cdt), v)
 
     def _decode_step(self, ctx, q, k, v, scale):
@@ -298,8 +346,9 @@ class MultiHeadAttentionOp(Op):
             kc.index_put_((slots, rows), k.to(kc.dtype))
             vc.index_put_((slots, rows), v.to(vc.dtype))
             family = "attention_decode" if c == 1 else "attention_decode_mq"
-            if KERNELS.resolve(self.kernel_memo, family, config=ctx.config,
-                               device=kc.device):
+            if q.shape[-1] == v.shape[-1] and KERNELS.resolve(
+                    self.kernel_memo, family, config=ctx.config,
+                    device=kc.device):
                 fn = decode_attention if c == 1 \
                     else multiquery_decode_attention
                 ctxv = fn(q, kc, vc, pos, scale=scale, block_k=block_k)
@@ -310,8 +359,9 @@ class MultiHeadAttentionOp(Op):
             rows, src = _chunk_rows(ctx, pos, c, kc.shape[1])
             kc.index_copy_(1, rows, k[:, src].to(kc.dtype))
             vc.index_copy_(1, rows, v[:, src].to(vc.dtype))
-            if KERNELS.resolve(self.kernel_memo, "attention_decode_mq",
-                               config=ctx.config, device=kc.device):
+            if q.shape[-1] == v.shape[-1] and KERNELS.resolve(
+                    self.kernel_memo, "attention_decode_mq",
+                    config=ctx.config, device=kc.device):
                 posv = pos.reshape(1).expand(b).contiguous()
                 ctxv = multiquery_decode_attention(q, kc, vc, posv,
                                                    scale=scale,

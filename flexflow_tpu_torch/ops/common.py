@@ -22,6 +22,16 @@ def apply_activation(x, activation: ActiMode):
     raise ValueError(f"unknown activation {activation}")
 
 
+def no_data_axis(ctx, what: str) -> None:
+    """Raise for a walk on a mesh with a `data` axis: `what` (batch
+    statistics, dropout masks) would be per rank, where the JAX package
+    computes it over the global batch."""
+    if ctx.mesh is not None and ctx.mesh.size("data") > 1:
+        raise NotImplementedError(
+            f"{what} on a data-parallel mesh is not ported yet (ROADMAP "
+            "A8)")
+
+
 def matmul_dtype(config, dtype: torch.dtype) -> torch.dtype:
     """bfloat16 matmul inputs (f32 accumulation) when mixed precision is
     on and the value is f32."""

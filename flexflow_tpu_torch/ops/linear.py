@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from ..core.op import Op, WeightSpec, register_op
@@ -60,3 +61,8 @@ class LinearOp(Op):
             y = gather_last(y, ctx.mesh.group("model"),
                             ctx.mesh.index("model"), self.tp_degree)
         return [y]
+
+    def flops(self) -> float:
+        x = self.inputs[0]
+        return 2.0 * int(np.prod(x.dims[:-1])) * x.dims[-1] \
+            * self.params["out_dim"]

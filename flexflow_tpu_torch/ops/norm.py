@@ -1,4 +1,4 @@
-"""LayerNorm, RMSNorm and Softmax ops (counterpart of
+"""LayerNorm, RMSNorm, Softmax and Dropout ops (counterpart of
 flexflow_tpu/ops/norm.py).
 
 Each is a kernel-tier family (kernels/registry.py): when the registry
@@ -17,10 +17,11 @@ from typing import List
 import torch
 
 from ..core.op import Op, WeightSpec, register_op
-from ..ffconst import OpType
+from ..ffconst import CompMode, OpType
 from ..kernels.norm import layernorm, rmsnorm, softmax
 from ..kernels.registry import KERNELS
 from ..runtime.initializers import ConstantInitializer, ZeroInitializer
+from .common import no_data_axis
 
 
 def _trailing_axis_only(op: Op, axes) -> bool:
@@ -126,3 +127,37 @@ class SoftmaxOp(Op):
             return [softmax(x)]
         # f32 exp / sum even for bf16 activations
         return [torch.softmax(x.float(), dim=axis).to(x.dtype)]
+
+
+def dropout_keep(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """The keep mask of inverted dropout over x's shape: each element kept
+    with probability 1 - rate (a uniform draw below 1 - rate, as
+    `jax.random.bernoulli`), from `generator` on x's device."""
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return u < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float):
+    """where(keep, x / (1 - rate), 0) in x's dtype (JAX `DropoutOp`)."""
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+@register_op
+class DropoutOp(Op):
+    """Inverted dropout: the identity outside training and at rate 0;
+    in training each element is kept with probability 1 - rate and scaled
+    by 1 / (1 - rate), the mask drawn from the walk's generator
+    (runtime/executor.py)."""
+
+    op_type = OpType.DROPOUT
+
+    def output_shapes(self):
+        return [self.inputs[0].dims], [self.inputs[0].dtype]
+
+    def lower(self, ctx, inputs):
+        x = inputs[0]
+        rate = self.params.get("rate", 0.5)
+        if ctx.mode != CompMode.COMP_MODE_TRAINING or rate <= 0.0:
+            return [x]
+        no_data_axis(ctx, f"{self.name}: dropout masks")
+        return [apply_dropout(x, dropout_keep(x, rate, ctx.generator), rate)]

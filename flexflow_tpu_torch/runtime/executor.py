@@ -21,6 +21,19 @@ package's jitted `lax.scan` of K steps) run on the card as one CUDA
 graph of K captured steps, and on the CPU as K eager steps. Gradient
 accumulation (`build_accum_step`) sums the microbatches' gradients in
 place and runs one optimizer update on their mean.
+
+A training walk draws its dropout masks from one `torch.Generator` on
+the executor's device, seeded from `config.seed` (the JAX package seeds
+its per-step keys from the same field, `FFModel._next_rng`). The stream
+is not JAX's: each draw moves the generator on, so every step (and every
+microbatch of an accumulated step) draws new masks. K steps a dispatch
+draw what K eager steps draw from the same generator state, to the bit:
+the generator is registered with the CUDA graph, whose replays read its
+offset and advance it by the K steps' draws. JAX instead splits one key
+per K-step chunk (`flexflow_tpu/model.py` fit), so its K-step stream
+differs from its single steps'; the port's does not. Ops' state (batch
+norm's running statistics, core/op.py) is updated in place by each
+training walk, inside a graph too.
 """
 from __future__ import annotations
 
@@ -45,11 +58,21 @@ class Executor:
         self.config = config
         self.mesh = mesh
         self.topo = graph.topo_order()
+        self._generator: Optional[torch.Generator] = None
 
     @property
     def device(self) -> torch.device:
         return self.mesh.device if self.mesh is not None \
             else torch.device(self.config.device)
+
+    @property
+    def generator(self) -> torch.Generator:
+        """The training walks' random stream on this executor's device,
+        seeded from `config.seed` at first use."""
+        if self._generator is None:
+            self._generator = torch.Generator(
+                device=self.device).manual_seed(int(self.config.seed))
+        return self._generator
 
     def device_batch(self, inputs: Dict[str, np.ndarray], label: np.ndarray
                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
@@ -107,6 +130,8 @@ class Executor:
         ctx.decode_pos = decode_pos
         ctx.fill_kv_cache = bool(fill_kv_cache)
         ctx.state = state if state is not None else {}
+        if training:
+            ctx.generator = self.generator
         with torch.set_grad_enabled(training):
             for op in self.topo:
                 if op.op_type == OpType.INPUT:
@@ -278,7 +303,9 @@ class MultiStep:
     captured with no weights to watch; a replay writes the weights and
     the optimizer state behind autograd's back, so each replay bumps
     their version counters, as an in-place op would: what caches a
-    weight by its version (core/op.py `Op.w`) sees the change."""
+    weight by its version (core/op.py `Op.w`) sees the change. The
+    executor's generator is registered with the graph, so each replay
+    draws new dropout masks, those K eager steps would draw."""
 
     _ALIGN = 16
 
@@ -316,7 +343,8 @@ class MultiStep:
         self._stage(batches)
         if self.call is None:
             self.call = CapturedCall(lambda: self._steps(opt_state),
-                                     self.device, [], self.counts)
+                                     self.device, [], self.counts,
+                                     generators=[self.executor.generator])
             self.call()
             self.written = [p for ws in self.executor.parameters().values()
                             for p in ws.values()] + _leaves(opt_state)

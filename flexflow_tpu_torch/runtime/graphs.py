@@ -16,8 +16,14 @@ fallback on the card. The graph reads the weights (and their cached
 casts, `core/op.py Op.w`) at the addresses it was captured with, so each
 call compares the weights' version counters with those of the capture and
 captures again when any changed (`load_params`, `fit`); a graph that
-writes the weights itself watches none. On the CPU every call runs the
-function eagerly.
+writes the weights itself watches none. A graph that draws random
+numbers registers its generators (`torch.cuda.CUDAGraph.
+register_generator_state`): each replay then reads the generator's
+offset and advances it by the capture's draws, so replays draw new
+numbers, those an eager call from the same state would draw. The
+garbage collector is off during a capture (a graph freed while another
+is captured breaks the capture). On the CPU every call runs the function
+eagerly.
 
 `Staging` fills one static device buffer from host memory by one copy a
 dispatch, through two pinned buffers used in turn (each rewritten only
@@ -30,7 +36,8 @@ any graph.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import gc
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,12 +52,14 @@ class CapturedCall:
     """fn() as a CUDA graph on the card (see the module docstring), fn()
     itself on the CPU. `weights`: the parameters whose versions decide a
     re-capture; `pool`: a graph memory pool shared with the caller's other
-    graphs, which must replay one at a time on one stream."""
+    graphs, which must replay one at a time on one stream; `generators`:
+    the CUDA generators fn draws from."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
                  weights: List[torch.Tensor], counts: Dict[str, int],
-                 pool=None):
+                 pool=None, generators: Sequence[torch.Generator] = ()):
         self.fn = fn
+        self.generators = list(generators)
         self.device = device
         self.weights = weights
         self.counts = counts
@@ -77,9 +86,21 @@ class CapturedCall:
         cur.wait_stream(side)
         self.counts["warmups"] += 1
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            self.fn()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        # a dead graph freed during the capture (a model dropped in a
+        # reference cycle, collected when fn allocates) would destroy its
+        # executable while this thread captures, which invalidates the
+        # capture: no collection runs inside it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
         self.versions = versions
         self.counts["captures"] += 1

@@ -1806,3 +1806,169 @@ def test_spec_tokens_equal_plain_f32_on_card_and_cpu(dev):
         assert st["spec"][key] == cpu_st["spec"][key]
     assert st_tied["spec"]["acceptance"] == 1.0
     assert st["graphs"]["captures"] > 0 and st["graphs"]["eager_walks"] == 0
+
+
+def test_graph_replays_draw_from_the_registered_generator(dev):
+    """A CapturedCall that draws from its registered generator: the
+    warm-up draws, then each replay draws anew, the numbers an eager
+    draw from the same generator state gives, in order."""
+    from flexflow_tpu_torch.runtime.graphs import CapturedCall, graph_counts
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = torch.empty(4096, device=dev)
+    call = CapturedCall(
+        lambda: out.copy_(torch.rand(4096, generator=g, device=dev)), dev,
+        [], graph_counts(), generators=[g])
+    got = []
+    for _ in range(4):
+        call()
+        got.append(out.clone())
+    ref = torch.Generator(device=dev).manual_seed(7)
+    want = [torch.rand(4096, generator=ref, device=dev) for _ in range(4)]
+    assert call.counts["replays"] == 3
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[1], got[2])
+
+
+def test_f32_conv_runs_in_true_f32_on_card(dev):
+    """Conv2DOp's product in f32 with the caller's TF32 flag on: forward
+    and both gradients within 1e-5 of a float64 CPU run (TF32 would be
+    ~1e-3 off), and the caller's flag unchanged after."""
+    from flexflow_tpu_torch.ops.conv import _Conv2d
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((8, 64, 32, 32), generator=g)
+    w = torch.randn((64, 32, 3, 3), generator=g) * 0.05
+    dy = torch.randn((8, 64, 16, 16), generator=g)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        xc, wc = (t.to(dev).requires_grad_() for t in (x, w))
+        y = _Conv2d.apply(xc, wc, (2, 2), (1, 1), 2)
+        y.backward(dy.to(dev))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    xd, wd = (t.double().requires_grad_() for t in (x, w))
+    yd = torch.nn.functional.conv2d(xd, wd, None, 2, 1, 1, 2)
+    yd.backward(dy.double())
+    for got, want in ((y, yd), (xc.grad, xd.grad), (wc.grad, wd.grad)):
+        err = float((got.detach().cpu().double() - want.detach()).abs().max())
+        assert err <= 1e-5 * float(want.detach().abs().max()), err
+
+
+def _card_opset_model(device, kind, lr=0.05, mixed=True, seed=0):
+    from flexflow_tpu_torch import (ActiMode, FFConfig, FFModel, LossType,
+                                    SGDOptimizer)
+
+    m = FFModel(FFConfig(batch_size=4, allow_mixed_precision=mixed,
+                         device=device, seed=seed))
+    if kind == "conv":
+        t = m.create_tensor([4, 3, 16, 16])
+        t = m.batch_norm(m.conv2d(t, 8, 3, 3, 1, 1, 1, 1))
+        t = m.dropout(m.flat(m.pool2d(t, 2, 2, 2, 2, 0, 0)), 0.3)
+    else:
+        t = m.create_tensor([4, 16, 32])
+        t = m.multihead_attention(t, t, t, 32, 4, dropout=0.2)
+        t = m.lstm(m.dropout(t, 0.1), 16, return_sequences=False)
+    m.softmax(m.dense(t, 5, ActiMode.AC_MODE_NONE))
+    m.compile(optimizer=SGDOptimizer(m, lr=lr),
+              loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              generator=torch.Generator().manual_seed(1))
+    return m
+
+
+@pytest.mark.parametrize("kind", ["conv", "attention"])
+def test_dropout_graph_steps_equal_eager_steps_on_card(dev, kind):
+    """12 steps of a dropout model (batch norm and dropout; attention
+    dropout, dropout and LSTM) as 3 dispatches of a K = 4 CUDA graph
+    against 12 eager steps from the same weights and seed: losses,
+    weights and running statistics the same bits. With lr 0 and one
+    batch, two replays give other losses (new masks)."""
+    rng = np.random.RandomState(9)
+    shape = (4, 3, 16, 16) if kind == "conv" else (4, 16, 32)
+    x = rng.randn(48, *shape[1:]).astype(np.float32)
+    y = rng.randint(0, 5, size=(48, 1)).astype(np.int32)
+    runs = []
+    for k in (1, 4):
+        m = _card_opset_model("cuda", kind)
+        m.fit(x, y, epochs=1, steps_per_execution=k)
+        runs.append(([v for r in m.step_records
+                      for v in r.get("losses", [r["loss"]])],
+                     m.params, m.state))
+    (le, pe, se), (lg, pg, sg) = runs
+    assert le == lg and len(le) == 12 and np.all(np.isfinite(le))
+    for op, ws in pe.items():
+        for w, t in ws.items():
+            assert torch.equal(t, pg[op][w]), (op, w)
+    for op, vs in se.items():
+        for v, t in vs.items():
+            assert torch.equal(t, sg[op][v]), (op, v)
+    m = _card_opset_model("cuda", kind, lr=0.0)
+    same = np.concatenate([x[:4]] * 12)
+    m.fit(same, np.concatenate([y[:4]] * 12), epochs=1,
+          steps_per_execution=4)
+    d = [r["losses"] for r in m.step_records]
+    assert d[1] != d[2] and len(set(d[1] + d[2])) == 8
+
+
+@pytest.mark.parametrize("kind", ["conv", "attention"])
+def test_opset_f32_steps_on_card_match_cpu(dev, kind):
+    """The same models in f32 on the card and on the CPU (their dropout
+    masks come from two generators, so training is compared through
+    eval): eval from the same weights and running statistics agrees
+    within 1e-4, before and after each SGD step on the card whose
+    weights and statistics the CPU model then loads."""
+    rng = np.random.RandomState(10)
+    shape = (4, 3, 16, 16) if kind == "conv" else (4, 16, 32)
+    x = rng.randn(8, *shape[1:]).astype(np.float32)
+    y = rng.randint(0, 5, size=(8, 1)).astype(np.int32)
+    card = _card_opset_model("cuda", kind, mixed=False)
+    cpu = _card_opset_model("cpu", kind, mixed=False)
+    for _ in range(2):
+        a, b = card.eval(x, y, batch_size=4), cpu.eval(x, y, batch_size=4)
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        card.fit(x, y, epochs=1)
+        cpu.load_params({op: {w: t.cpu() for w, t in ws.items()}
+                         for op, ws in card.params.items()})
+        cpu.load_state({op: {v: t.cpu() for v, t in vs.items()}
+                        for op, vs in card.state.items()})
+
+
+def test_capture_survives_dead_graphs_in_reference_cycles(dev):
+    """A captured call dropped in a reference cycle (as a model with a
+    K-step graph is) must not be collected while another call captures:
+    no collection runs until the second call's capture, where the first
+    call's last outside reference goes and the collector is set to run
+    at every allocation; the second call still captures and replays."""
+    import gc
+
+    from flexflow_tpu_torch.runtime.graphs import CapturedCall, graph_counts
+
+    old = gc.get_threshold()
+    gc.set_threshold(10**9, 10**9, 10**9)
+    try:
+        a_out = torch.zeros(4, device=dev)
+        a = CapturedCall(lambda: a_out.add_(1), dev, [], graph_counts())
+        a()
+        a.cycle = a
+        holder = [a]  # the only reference from outside the cycle
+        del a
+        b_out = torch.zeros(4, device=dev)
+        calls = []
+
+        def fn():
+            calls.append(1)
+            if len(calls) == 2:  # the capture (the first call: warm-up)
+                holder.clear()
+                gc.set_threshold(1, 1, 1)
+            _ = [[] for _ in range(100)]  # allocations: a collection
+            b_out.add_(1)
+
+        b = CapturedCall(fn, dev, [], graph_counts())
+        for _ in range(3):
+            b()
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()
+    assert b.counts["replays"] == 2 and float(b_out[0]) == 3.0

@@ -48,7 +48,20 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.serving.sched.admission',\n"
         "       'flexflow_tpu_torch.serving.sched.continuous',\n"
         "       'flexflow_tpu_torch.tools.serve_profile',\n"
-        "       'flexflow_tpu_torch.tools.decode_bench')\n"
+        "       'flexflow_tpu_torch.tools.decode_bench',\n"
+        "       'flexflow_tpu_torch.ops.conv',\n"
+        "       'flexflow_tpu_torch.ops.rnn',\n"
+        "       'flexflow_tpu_torch.models.cnn',\n"
+        "       'flexflow_tpu_torch.models.alexnet',\n"
+        "       'flexflow_tpu_torch.models.resnet',\n"
+        "       'flexflow_tpu_torch.models.resnext',\n"
+        "       'flexflow_tpu_torch.models.inception',\n"
+        "       'flexflow_tpu_torch.models.dlrm',\n"
+        "       'flexflow_tpu_torch.models.xdl',\n"
+        "       'flexflow_tpu_torch.models.candle_uno',\n"
+        "       'flexflow_tpu_torch.models.mlp',\n"
+        "       'flexflow_tpu_torch.models.rnn',\n"
+        "       'flexflow_tpu_torch.tools.zoo_train')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -116,8 +129,8 @@ def test_forward_matches_jax_chunk_offset_then_vector_decode(
 def test_full_sequence_attention_is_not_ported():
     """Full-sequence attention runs the flash path now (the training
     slice): a forward with no caches matches the JAX executor's; what of
-    it is still not ported — attention dropout, sequence parallelism —
-    raises."""
+    it is still not ported, sequence parallelism, raises, and so does
+    attention dropout forced onto the flash kernel, as in JAX."""
     jm, pm = _models(False)
     toks = np.random.RandomState(4).randint(1, 50, size=(2, 8)).astype(
         np.int32)
@@ -130,8 +143,8 @@ def test_full_sequence_attention_is_not_ported():
         pvals[pm.final_tensor.guid].numpy(),
         np.asarray(vals[jm.final_tensor.guid]), **F32_TOL)
     t = pm.ops[1].outputs[0]
-    with pytest.raises(NotImplementedError, match="dropout"):
-        pm.multihead_attention(t, t, t, 32, 4, dropout=0.1)
+    with pytest.raises(ValueError, match="dropout"):
+        pm.multihead_attention(t, t, t, 32, 4, dropout=0.1, use_flash=True)
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
         pm.multihead_attention(t, t, t, 32, 4, sequence_parallel=True)
 

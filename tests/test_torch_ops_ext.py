@@ -1,8 +1,10 @@
 """The MLP path's ops on the CPU: every elementwise op, activation,
 shape op, reduction, TopK, BatchMatmul and core op the port gained for
-ROADMAP A2, one parametrised case each, the port's forward against the
-JAX package's on the same numpy inputs (weights carried by
-`params_from_jax`), in f32; and the six metric types key for key.
+ROADMAP A2, and the conv, pool, flat, batch-norm, LSTM, embedding-bag,
+dropout and attention cases of A3 / A6, one parametrised case each, the
+port's forward against the JAX package's on the same numpy inputs
+(weights carried by `params_from_jax`), in f32; and the six metric types
+key for key.
 
 Tolerance: f32, rtol 1e-5 / atol 1e-6 — the same math, with
 transcendentals (exp, tanh, erf-free gelu, rsqrt, pow) from another
@@ -66,6 +68,9 @@ def _port_forward(build, inputs, jm):
 X = _rand(4, 3, 8)
 XP = _rand(4, 3, 8, positive=True)
 IDX = np.random.RandomState(5).randint(0, 3, size=(4, 2, 8)).astype(np.int32)
+IMG = _rand(2, 3, 7, 8, seed=10)
+BAGS = np.random.RandomState(13).randint(0, 20, size=(4, 3, 5)).astype(
+    np.int32)
 
 CASES = {
     # unary ops and the scalar ops
@@ -123,6 +128,41 @@ CASES = {
     "constant_trainable": ([X], lambda p, m, t: m.multiply(
         t[0], m.create_constant(_rand(3, 8, seed=7), trainable=True))),
     "noop": ([X], lambda p, m, t: m._add_op(p.OpType.NOOP, [t[0]]).outputs[0]),
+    # the op set of ROADMAP A6: conv, pool, flat, batch norm (inference:
+    # the initial running statistics), LSTM, the embedding bags, dropout
+    # outside training, attention with kdim != vdim
+    "conv_bias": ([IMG], lambda p, m, t: m.conv2d(
+        t[0], 5, 3, 3, 1, 1, 0, 0)),
+    "conv_no_bias_relu": ([IMG], lambda p, m, t: m.conv2d(
+        t[0], 5, 3, 3, 1, 1, 1, 1, p.ActiMode.AC_MODE_RELU,
+        use_bias=False)),
+    "conv_grouped": ([_rand(2, 4, 9, 9, seed=11)], lambda p, m, t: m.conv2d(
+        t[0], 6, 3, 3, 1, 1, 1, 1, groups=2)),
+    "conv_strided_padded": ([IMG], lambda p, m, t: m.conv2d(
+        t[0], 4, 5, 3, 2, 3, 2, 1, p.ActiMode.AC_MODE_TANH)),
+    "max_pool": ([IMG], lambda p, m, t: m.pool2d(t[0], 2, 2, 2, 2, 0, 0)),
+    "max_pool_padded": ([IMG], lambda p, m, t: m.pool2d(
+        t[0], 3, 3, 2, 2, 1, 1, p.PoolType.POOL_MAX)),
+    "avg_pool": ([IMG], lambda p, m, t: m.pool2d(
+        t[0], 2, 3, 1, 2, 0, 0, p.PoolType.POOL_AVG)),
+    "avg_pool_padded_relu": ([IMG], lambda p, m, t: m.pool2d(
+        t[0], 3, 3, 1, 1, 1, 1, p.PoolType.POOL_AVG,
+        p.ActiMode.AC_MODE_RELU)),
+    "flat": ([IMG], lambda p, m, t: m.flat(t[0])),
+    "batch_norm_inference": ([IMG], lambda p, m, t: m.batch_norm(t[0])),
+    "batch_norm_inference_no_relu": ([IMG], lambda p, m, t: m.batch_norm(
+        t[0], relu=False)),
+    "lstm_sequences": ([X], lambda p, m, t: m.lstm(t[0], 6)),
+    "lstm_last": ([X], lambda p, m, t: m.lstm(t[0], 6,
+                                              return_sequences=False)),
+    "embedding_bag_sum": ([BAGS], lambda p, m, t: m.embedding(
+        t[0], 20, 8, p.AggrMode.AGGR_MODE_SUM)),
+    "embedding_bag_avg": ([BAGS], lambda p, m, t: m.embedding(
+        t[0], 20, 8, p.AggrMode.AGGR_MODE_AVG)),
+    "dropout_inference": ([X], lambda p, m, t: m.dropout(t[0], 0.5)),
+    "attention_kdim_ne_vdim": ([X, _rand(4, 5, 8, seed=12)],
+                               lambda p, m, t: m.multihead_attention(
+                                   t[0], t[1], t[1], 8, 2, kdim=3, vdim=5)),
 }
 
 

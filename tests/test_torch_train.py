@@ -248,7 +248,8 @@ def test_eval_and_unported_options_raise():
     """eval returns the JAX eval's PerfMetrics summary, key for key, over 6
     samples in batches of 4 (a tail batch of 2: ROADMAP C4's case);
     accumulation together with several steps a dispatch raises as in
-    JAX; what is still unported raises."""
+    JAX, and so does attention dropout forced onto the flash kernel;
+    what is still unported raises."""
     jm, pm = _models(*OPTIMIZERS["sgd_momentum"])
     rng = np.random.RandomState(3)
     x = rng.randint(0, VOCAB, size=(6, L)).astype(np.int32)
@@ -266,8 +267,8 @@ def test_eval_and_unported_options_raise():
         pm.load_opt_state({"step": 0, "lr": 0.1})
     m = pt.FFModel(pt.FFConfig(device="cpu"))
     t = m.create_tensor([2, 4, 8])
-    with pytest.raises(NotImplementedError, match="dropout"):
-        m.multihead_attention(t, t, t, 8, 2, dropout=0.1)
+    with pytest.raises(ValueError, match="dropout"):
+        m.multihead_attention(t, t, t, 8, 2, dropout=0.1, use_flash=True)
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
         m.multihead_attention(t, t, t, 8, 2, sequence_parallel=True)
     m.dense(t, 3)
