@@ -192,12 +192,34 @@ Phases, in order; any failure propagates and exits non-zero:
               inference through the flash kernel equal to a dropout-0
               model's to the bit.
     zoo     — AlexNet, the MNIST MLP and CNN, the CIFAR-10 CNN,
-              ResNeXt-50, Inception-v3, XDL, CANDLE Uno, MLP_Unify and
-              build_transformer at their examples' widths: 3 fit steps
+              ResNeXt-50, Inception-v3, XDL, CANDLE Uno, MLP_Unify,
+              build_transformer, the `profile --model moe` MoE
+              transformer and MoeConfig()'s encoder (the unfused
+              group_by / aggregate path; head dim 4, so the einsum
+              attention core) at their examples' widths: 3 fit steps
               each.
     zoo-witness — build_resnet(stages=(1, 1)) at 64 px and the NMT cut
               to 1 layer, 2 f32 Adam steps on the card and on the CPU
               from the same weights: losses within 1e-3.
+25. moe-switch — the switch transformer the JAX package's MoE dry-run
+              prices (256 experts, top-2, hidden 1024, 2 layers, vocab
+              8192; batch 8 x 128 tokens), bf16, Adam: 12 eager steps
+              and 12 through K = 4 (losses, weights and router state the
+              same bits), launches and routes a step (the gates' (1024,
+              256) softmax on "rows"), drops finite and equal; ms a step,
+              samples/s, MFU over the port's FLOPs, peak memory, busy,
+              idle.
+26. moe-serve — the MoE serve-bench LM at the serve phase's widths (4
+              experts, top-2, no drops) through the batcher with
+              expert-affine admission on and off on the serve phase's 16
+              requests: every request full length, only replays timed,
+              picks > 0, on and off the same tokens, 0 router drops, the
+              ff_moe_* and ff_serving_affinity_* families exposed; each
+              run's launches those of its batcher's warm-up walks, a
+              decode iteration's and a chunk's (MOE_SERVE_PER_WALK).
+27. moe-witness — the switch transformer cut to 1 layer, 16 experts,
+              hidden 128: 2 f32 Adam steps on the card and on the CPU,
+              losses within 1e-3, drops equal.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -230,6 +252,16 @@ PATH_KERNELS = {
                 "softmax_fwd"),
     "prefix": SERVE_KERNELS,
     "spec": SERVE_KERNELS,
+}
+# launches of one batcher walk of the 12-layer MoE serve LM (phase 26):
+# a layer's attention, its two LayerNorms and its gate's softmax, and the
+# final softmax; a decode iteration runs the decode kernel, a prefill
+# chunk the multi-query one
+MOE_SERVE_PER_WALK = {
+    "decode": {"decode_attention": 12, "layernorm_fwd": 24,
+               "softmax_fwd": 13},
+    "chunk": {"multiquery_decode_attention": 12, "layernorm_fwd": 24,
+              "softmax_fwd": 13},
 }
 # speculative decoding's draft tokens an iteration (phase 20)
 SPEC_TOKENS = 3
@@ -545,7 +577,10 @@ def phase_kernels(torch, F):
                               ("tier step", 4096, 10),
                               ("NMT step", 768, 32000),
                               ("ResNet step", 16, 10),
-                              ("DLRM step", 64, 2))}
+                              ("DLRM step", 64, 2),
+                              ("MoE switch gate", 1024, 256),
+                              ("MoE serve gate decode", 8, 4),
+                              ("MoE serve gate chunk", 16, 4))}
     del flush_buf
     table.update(train_kernels(torch, F, g))
     table.update(tier_kernels(torch, F, g))
@@ -1237,7 +1272,8 @@ def train_kernels(torch, F, g):
                        ("cluster", 8, 30522), ("cluster 16", 16, 30522),
                        ("block", 128, 30522), ("NMT projection", 2048, 32000),
                        ("block mid", 4096, 1024), ("NMT step", 768, 32000),
-                       ("ResNet step", 16, 10), ("DLRM step", 64, 2)):
+                       ("ResNet step", 16, 10), ("DLRM step", 64, 2),
+                       ("MoE switch gate", 1024, 256)):
         dtypes = ((torch.float32, torch.bfloat16) if n <= 10
                   else (torch.bfloat16,))
         for dtype in dtypes:
@@ -2382,17 +2418,17 @@ SERVE_SYMBOLS = {
 
 def _device_kernels(torch, fn, reps):
     """The device kernels (not copies) of one call of fn, by name, as
-    torch.profiler sees them over `reps` calls."""
+    torch.profiler sees them over `reps` calls (in a session padded with
+    idle time, where it drops no record: tools/trace_edges.py)."""
     from collections import Counter
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from flexflow_tpu_torch.tools.serve_profile import trace_device
+
+    with trace_device(cpu=False) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     seen = Counter(e.name for e in prof.events()
                    if e.device_type == DeviceType.CUDA
                    and not e.name.startswith(("Memcpy", "Memset")))
@@ -2771,7 +2807,8 @@ def phase_spec(torch, lm, max_len, page, vocab, prompts, news, plain_outs,
     import numpy as np
 
     from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
-    from flexflow_tpu_torch.tools.serve_profile import _kernel_table
+    from flexflow_tpu_torch.tools.serve_profile import (_kernel_table,
+                                                        trace_device)
 
     untied = build_tiny_lm(8, 512, vocab=vocab, hidden=1024, heads=16,
                            layers=2, mixed_precision=True, device="cuda",
@@ -2860,11 +2897,8 @@ def phase_spec(torch, lm, max_len, page, vocab, prompts, news, plain_outs,
             if {n: walk.get(n, 0) for n in want} != want:
                 raise AssertionError(f"spec {name}: one walk launched "
                                      f"{walk}, expected {want}")
-            from torch.profiler import ProfilerActivity, profile
-
             cb._spec_dispatch(host)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with trace_device(cpu=False) as prof:
                 for _ in range(reps):
                     cb._spec_dispatch(host)
             busy_ms, top = _kernel_table(prof, reps)
@@ -2897,7 +2931,27 @@ ZOO_STEPS, ZOO_K = 12, 4
 # three fit steps of each other builder, then three more timed
 ZOO_OTHERS = ("alexnet", "mnist_mlp", "mnist_cnn", "cifar10_cnn",
               "resnext50", "inception_v3", "xdl", "candle_uno", "mlp_unify",
-              "transformer")
+              "transformer", "moe", "moe_encoder")
+# softmax launches a step where a builder has more than its classifier's:
+# an MoE block's gate (2 layers of "moe"; 6 of MoeConfig()'s encoder)
+ZOO_SOFTMAX_PER_STEP = {"moe": 3, "moe_encoder": 7}
+# the MoE phases (25-27). Launches per step of the switch transformer
+# (zoo_train.MOE_SWITCH: 2 MoE layers): the classifier's and the two
+# gates' softmax, forward and backward, the gates' (1024, 256) and the
+# classifier's (1024, 2) on "rows"; 2 + 2 flash launches on the tensor
+# cores; 4 + 4 LayerNorm launches on "warp"; the loss's and the
+# accuracy's means on "cta"; one Adam update
+MOE_SWITCH_PER_STEP = dict(ZOO_PER_STEP, softmax_fwd=3, softmax_bwd=3,
+                           flash_fwd=2, flash_bwd=2, layernorm_fwd=4,
+                           layernorm_bwd=4)
+MOE_SWITCH_ROUTES_PER_STEP = {"softmax_fwd/rows": 3, "softmax_bwd/rows": 3,
+                              "flash_fwd/tc": 2, "flash_bwd/tc": 2,
+                              "layernorm_fwd/warp": 4,
+                              "layernorm_bwd/warp": 4, "reduce/cta": 2}
+MFU_NOTE = ("MFU counts the FLOPs the port performs: the expert FFN and the "
+            "dense ops; dispatch and combine are gathers, counted as zero "
+            "(not ExpertsOp.flops()'s one-hot contractions, which the JAX "
+            "package runs)")
 
 
 def _host_tree(tree):
@@ -2929,6 +2983,10 @@ def _zoo_pair(torch, name, per_step=ZOO_PER_STEP):
         runs[label] = dict(zoo.train(m, xs, y, ZOO_STEPS, k),
                            build_s=build_s, params=zoo.n_params(m))
         trees[label] = (_host_tree(m.params), _host_tree(m.state))
+        dropped = {op: float(vs["dropped"]) for op, vs in
+                   trees[label][1].items() if "dropped" in vs}
+        if dropped:  # an MoE model's router state after the fit
+            runs[label]["router_dropped"] = dropped
         runs[label].update(zoo.time_steps(m, xs, y, ZOO_STEPS, k))
         if k > 1:
             n = ZOO_K * zoo.ZOO[name]["batch"]
@@ -3101,11 +3159,16 @@ def phase_zoo(torch, steps=3):
                    params=zoo.n_params(m), source=zoo.ZOO[name]["source"])
         run.update(zoo.time_steps(m, xs, y, steps))
         run.pop("routes")
-        need = ("optimizer_adam",) if zoo.ZOO[name].get("regression") \
-            else ("optimizer_adam", "softmax_fwd", "softmax_bwd")
+        need = {"optimizer_adam": 1} if zoo.ZOO[name].get("regression") \
+            else {"optimizer_adam": 1, **dict.fromkeys(
+                ("softmax_fwd", "softmax_bwd"),
+                ZOO_SOFTMAX_PER_STEP.get(name, 1))}
         if not all(np.isfinite(run["losses"])) or any(
-                run["launches"].get(k, 0) != steps for k in need):
+                run["launches"].get(k, 0) != n * steps
+                for k, n in need.items()):
             raise AssertionError(f"zoo {name}: {run}")
+        if name.startswith("moe"):
+            run["mfu_note"] = MFU_NOTE
         out["models"][name] = run
         del m
         torch.cuda.empty_cache()
@@ -3139,6 +3202,197 @@ def phase_zoo_witness(torch, steps=2, tol=1e-3):
             raise AssertionError(f"zoo-witness {name}: {out[name]}")
         del card, cpu
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_switch(torch):
+    """25: the switch transformer (zoo_train.MOE_SWITCH: hidden 1024, 16
+    heads, 2 layers, 256 experts, top-2, capacity factor 2, lambda_bal
+    0.01, vocab 8192; batch 8 x 128 tokens, 2 classes a token) in bf16
+    with Adam: the graphed pair (12 eager steps, then 12 through K = 4
+    from the same weights: losses, weights and router state the same
+    bits), its launches and routes a step, assignments dropped (finite,
+    the same in both runs); ms a step, samples/s, MFU (the port's FLOPs),
+    peak memory, device busy, idle and launches a step."""
+    import numpy as np
+
+    runs, _ = _zoo_pair(torch, "moe_switch", MOE_SWITCH_PER_STEP)
+    eager, graph = runs["eager"], runs["graph"]
+    wrong = {k: eager["routes"].get(k, 0) for k, n in
+             MOE_SWITCH_ROUTES_PER_STEP.items()
+             if eager["routes"].get(k, 0) != n * ZOO_STEPS}
+    if wrong:
+        raise AssertionError(f"moe-switch: routes {wrong} in {ZOO_STEPS} "
+                             f"steps, expected {MOE_SWITCH_ROUTES_PER_STEP} "
+                             "a step")
+    dropped = eager["router_dropped"]
+    if (dropped != graph["router_dropped"]
+            or not all(np.isfinite(v) for v in dropped.values())):
+        raise AssertionError(f"moe-switch: router drops {dropped} vs "
+                             f"{graph['router_dropped']}")
+    line = _zoo_line("moe-switch", "moe_switch", runs)
+    line.update(routes_per_step=MOE_SWITCH_ROUTES_PER_STEP,
+                router_dropped_after_12_steps=dropped,
+                assignments_per_step=8 * 128 * 2, capacity=16,
+                mfu_note=MFU_NOTE,
+                tolerance="graphed losses, weights and router state equal "
+                          "to the eager run's bits")
+    return line
+
+
+def phase_moe_serve(torch, serve, prompts, news):
+    """26: build_tiny_moe_lm at the serve phase's widths (hidden 1024, 16
+    heads, 12 layers, vocab 30522, window 512; 4 experts, top-2, capacity
+    factor 4 (no drops), lambda_bal 0), bf16, through
+    ContinuousBatcher(num_slots=8, max_len=1024, page_size=16,
+    prefix_cache_pages=0) as bench.run_moe drives it, on the serve phase's
+    16 requests after 8 warm-up requests (one a slot): affinity on
+    (window 4), then off. Each run's launches, counted from 0 just before
+    it (the session references are made before), are those of the
+    warm-up's walks, MOE_SERVE_PER_WALK each. Every request full length,
+    the timed runs only replay graphs, affinity picks > 0, on and off the
+    same tokens, the session's agreement reported (bf16, other GEMM
+    shapes); then the router check walk (0 drops) and the ff_moe_* /
+    ff_serving_affinity_* families in the exposition."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from flexflow_tpu_torch.obs.registry import REGISTRY
+    from flexflow_tpu_torch.serving.sched.bench import (_moe_router_check,
+                                                        build_tiny_moe_lm,
+                                                        run_moe, session_refs)
+
+    hidden, heads, layers, vocab, window = 1024, 16, 12, 30522, 512
+    slots, max_len, page = 8, 1024, 16
+    t0 = time.perf_counter()
+    lm = build_tiny_moe_lm(slots, window, vocab=vocab, hidden=hidden,
+                           heads=heads, layers=layers, experts=4,
+                           moe_top_k=2, mixed_precision=True, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    build_s = time.perf_counter() - t0
+    work = [{"prompt": p, "max_new": int(n)} for p, n in zip(prompts, news)]
+    refs = session_refs(lm, work, max_len)
+    # the batcher's walks: the decode graph's warm-up and capture, and
+    # those of each slot's chunk graph (one warm-up request a slot)
+    walks = {"decode": 2, "chunk": 2 * slots}
+    expected = {k: sum(n * MOE_SERVE_PER_WALK[w].get(k, 0)
+                       for w, n in walks.items()) for k in SERVE_KERNELS}
+    runs, launches, routes = {}, {}, {}
+    for label, on in (("affinity_on", True), ("affinity_off", False)):
+        reset_launch_counts()
+        res = run_moe(lm, work, max_len, slots, page, deadline_s=600.0,
+                      affinity_window=4, expert_affinity=on, refs=refs)
+        counts = launch_counts()
+        launches[label] = {k: counts[k] for k in SERVE_KERNELS}
+        routes[label] = {k: n for k, n in counts.items() if "/" in k and n}
+        warm = res["graphs_warmup"]
+        if (warm["warmups"], warm["captures"], warm["eager_walks"]) != (
+                1 + slots, 1 + slots, 0):
+            raise AssertionError(f"moe-serve {label}: the warm-up must "
+                                 f"capture the decode graph and {slots} "
+                                 f"chunk graphs ({warm})")
+        if launches[label] != expected:
+            raise AssertionError(
+                f"moe-serve {label}: launches {launches[label]} are not "
+                f"{walks} walks of {MOE_SERVE_PER_WALK} ({expected})")
+        graphs = res["stats"]["graphs"]
+        timed = {k: v - warm[k] for k, v in graphs.items()}
+        if (timed["replays"] == 0 or any(
+                timed[k] for k in ("warmups", "captures", "eager_walks"))):
+            raise AssertionError(f"moe-serve {label}: the timed run must "
+                                 f"only replay graphs ({timed})")
+        if res["dropped"]:
+            raise AssertionError(f"moe-serve {label}: {res['dropped']} "
+                                 "requests short or failed")
+        ttft = np.array(res["ttft_s"]) * 1e3
+        runs[label] = dict(
+            tokens_per_s=res["tokens"] / res["wall_s"], wall_s=res["wall_s"],
+            tokens=res["tokens"], ttft_ms_p50=float(np.percentile(ttft, 50)),
+            ttft_ms_p99=float(np.percentile(ttft, 99)),
+            decode_iter_ms=res["stats"]["decode_iter_s_mean"] * 1e3,
+            decode_iterations=res["stats"]["decode_iterations"],
+            prefill_chunks=res["stats"]["prefill_chunks"],
+            session_identical_requests=len(work) - res["parity_mismatches"],
+            graphs_timed=timed, affinity=res["affinity"],
+            token_lists=res["token_lists"])
+    on, off = runs["affinity_on"], runs["affinity_off"]
+    if on["token_lists"] != off["token_lists"]:
+        diff = sum(a != b for a, b in zip(on["token_lists"],
+                                          off["token_lists"]))
+        raise AssertionError(f"moe-serve: affinity on and off differ in "
+                             f"{diff} of {len(work)} requests")
+    if sum(on["affinity"]["picks"].values()) == 0:
+        raise AssertionError(f"moe-serve: no affinity pick ({on['affinity']})")
+    router = _moe_router_check(lm, work, window)
+    if any(r["dropped"] for r in router.values()):
+        raise AssertionError(f"moe-serve: the router dropped assignments "
+                             f"{ {k: r['dropped'] for k, r in router.items()} }")
+    text = REGISTRY.render()
+    families = ("ff_moe_router_dropped_tokens_total", "ff_moe_expert_load",
+                "ff_moe_expert_load_imbalance",
+                "ff_serving_affinity_picks_total",
+                "ff_serving_affinity_overlap")
+    missing = [f for f in families if f not in text]
+    if missing:
+        raise AssertionError(f"moe-serve: families missing from the "
+                             f"exposition: {missing}")
+    for r in runs.values():
+        r.pop("token_lists")
+    n_params = sum(t.numel() for ws in lm.params.values()
+                   for t in ws.values())
+    del lm
+    torch.cuda.empty_cache()
+    return {"phase": "moe-serve", "params": n_params, "model_build_s": build_s,
+            "card": _card_line(), "requests": len(work),
+            "affinity_on_equals_off": True, **runs,
+            "dense_serve": {k: serve[k] for k in (
+                "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+                "decode_iter_ms")},
+            "router_check": {k: {"dropped": r["dropped"], "load": r["load"]}
+                             for k, r in router.items()},
+            "families": list(families),
+            "launches_per_walk": MOE_SERVE_PER_WALK, "walks_per_run": walks,
+            "routes": routes,
+            "launches": {k: sum(r[k] for r in launches.values())
+                         for k in SERVE_KERNELS},
+            "launches_cover": "each batcher's warm-up walks and captures "
+                              "(the timed runs only replay); not the "
+                              "session references or the router check"}
+
+
+def phase_moe_witness(torch, steps=2, tol=1e-3):
+    """27: the switch transformer cut to 1 layer, 16 experts, hidden 128
+    (zoo_train "moe_switch_small"), `steps` Adam steps in f32 on the card
+    and on the CPU from the card's weights over the same batches: every
+    loss within `tol` (relative), the router's drops equal."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    name = "moe_switch_small"
+    card = zoo.build(name, "cuda", mixed=False)
+    cpu = zoo.build(name, "cpu", mixed=False)
+    cpu.load_params(card.params)
+    xs, y = zoo.batches(name, steps)
+    losses, dropped = [], []
+    for m in (card, cpu):
+        m.fit(xs, y, epochs=1)
+        losses.append([r["loss"] for r in m.step_records])
+        dropped.append({op: float(vs["dropped"])
+                        for op, vs in m.state.items()})
+    err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    out = {"phase": "moe-witness", "card": _card_line(),
+           "source": zoo.ZOO[name]["source"], "params": zoo.n_params(card),
+           "losses_card": losses[0], "losses_cpu": losses[1],
+           "max_relative_err": err, "dropped_card": dropped[0],
+           "dropped_cpu": dropped[1],
+           "tolerance": f"|loss_card - loss_cpu| <= {tol} x |loss_cpu|, "
+                        "drops equal"}
+    if err > tol or dropped[0] != dropped[1] or not all(
+            np.isfinite(losses[0])):
+        raise AssertionError(f"moe-witness: {out}")
+    del card, cpu
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3477,6 +3731,16 @@ def main() -> int:
                 "flash_fwd": line["inference_flash_launches"]}
         _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
     _emit(dict(phase_zoo_witness(torch),
+               seconds_since_start=time.perf_counter() - t_start))
+
+    # 25) moe-switch, 26) moe-serve, 27) moe-witness: mixture of experts
+    line = phase_moe_switch(torch)
+    zoo_paths["moe-switch"] = line["eager"]["launches"]
+    _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    line = phase_moe_serve(torch, serve, prompts, news)
+    serving_paths["moe-serve"] = line["launches"]
+    _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    _emit(dict(phase_moe_witness(torch),
                seconds_since_start=time.perf_counter() - t_start))
 
     # the kernel table, the card, the result. A kernel's launches are

@@ -20,9 +20,9 @@ step, so gradients reach the f32 masters (`Op.w`).
 An op's non-trainable state (`state_specs`: batch norm's running
 statistics, the JAX package's `model.state`) is held as buffers of the
 op, beside its weights, replicated on a mesh (`FFModel.state`). A
-training walk updates them in place outside autograd, so a CUDA graph
-of training steps updates them at every replay; an inference walk reads
-them.
+training walk, or one handed `model.state`, updates them in place
+outside autograd (`Op.writes_state`), so a CUDA graph of training steps
+updates them at every replay; other walks read them.
 """
 from __future__ import annotations
 
@@ -77,6 +77,9 @@ class LoweringContext:
         # a training walk's random stream (dropout masks): the executor's
         # torch.Generator on the walk's device; None outside training
         self.generator: Optional[torch.Generator] = None
+        # the ops' auxiliary losses (the MoE load-balance loss), which a
+        # training step adds to its loss (JAX `ctx.aux_losses`)
+        self.aux_losses: List[torch.Tensor] = []
 
 
 class Op(nn.Module):
@@ -193,6 +196,14 @@ class Op(nn.Module):
 
     def has_weight(self, name: str) -> bool:
         return name in self._parameters
+
+    def writes_state(self, ctx: LoweringContext) -> bool:
+        """Whether this walk writes the op's state buffers: a training
+        walk, or a walk handed `state` under this op's name (`model.state`,
+        whose entries are these buffers: the JAX package keeps the updates
+        of a walk given `model.state`). Eval, predict and the serving
+        walks, which hold only KV caches, read them and write nothing."""
+        return ctx.mode == CompMode.COMP_MODE_TRAINING or self.name in ctx.state
 
 
 # registry: OpType -> Op subclass

@@ -137,3 +137,8 @@ class OpType(enum.Enum):
     MULTIHEAD_ATTENTION = "multihead_attention"
     TOPK = "topk"
     LSTM = "lstm"
+    CACHE = "cache"
+    AGGREGATE = "aggregate"
+    AGGREGATE_SPEC = "aggregate_spec"
+    GROUP_BY = "group_by"
+    EXPERTS = "experts"

@@ -246,6 +246,17 @@ class Route(NamedTuple):
 Operand = Tuple[str, int, Strides, Tuple[int, int, int]]
 
 
+def flash_fits(dtype, head_dim: int) -> bool:
+    """Whether the kernels take packed (b, l, h * head_dim) tensors of
+    `dtype` at all: a head dim in 1..MAX_HEAD_DIM and, in bf16, rows of
+    whole TMA_ALIGN-byte units (a multiple of 8 elements). The auto
+    policy (ops/attention.py `_use_flash`) keeps other shapes on the
+    einsum core; `flash_route` raises for them."""
+    if head_dim < 1 or head_dim > MAX_HEAD_DIM:
+        return False
+    return dtype != torch.bfloat16 or (2 * head_dim) % TMA_ALIGN == 0
+
+
 def flash_route(dtype, head_dim: int, operands: Sequence[Operand],
                 block_q: int, block_k: int) -> Route:
     """The route and tile caps of a launch, from plain ints: bf16 runs

@@ -58,6 +58,11 @@ class FFModel:
         # step; built at first use, dropped by compile()
         self._multi_steps: Dict[int, MultiStep] = {}
         self._accum_step = None
+        # optimizer steps taken (a K-step dispatch counts K), which a
+        # recompile trigger reads; the RecompileState fit consults before
+        # each step or dispatch (runtime/recompile.py)
+        self._step_count = 0
+        self._recompile_state = None
 
     @property
     def device(self) -> torch.device:
@@ -223,6 +228,82 @@ class FFModel:
         outs = self._add_op(OpType.TOPK, [input], name, k=k,
                             sorted=sorted).outputs
         return outs[0], outs[1]
+
+    # -- mixture of experts (ops/moe.py) -------------------------------------
+    def group_by(self, input: Tensor, assign: Tensor, n: int,
+                 alpha: float = 1.0, name: str = "") -> List[Tensor]:
+        return self._add_op(OpType.GROUP_BY, [input, assign], name, n=n,
+                            alpha=alpha).outputs
+
+    def aggregate(self, gate_preds: Tensor, gate_assign: Tensor,
+                  true_gate_assign: Tensor, full_gate_grads: Tensor,
+                  exp_preds: Sequence[Tensor], n: int,
+                  lambda_bal: float = 0.0, name: str = "") -> Tensor:
+        ins = [gate_preds, gate_assign, true_gate_assign,
+               full_gate_grads] + list(exp_preds)
+        return self._add_op(OpType.AGGREGATE, ins, name, n=n,
+                            lambda_bal=lambda_bal).outputs[0]
+
+    def aggregate_spec(self, inputs: Sequence[Tensor], n: int,
+                       lambda_bal: float = 0.0, name: str = "") -> Tensor:
+        return self._add_op(OpType.AGGREGATE_SPEC, list(inputs), name, n=n,
+                            lambda_bal=lambda_bal).outputs[0]
+
+    def cache(self, input: Tensor, num_batches: int = 1,
+              name: str = "") -> Tensor:
+        return self._unary(OpType.CACHE, input, name,
+                           num_batches=num_batches)
+
+    def experts(self, input: Tensor, gate_preds: Tensor, assign: Tensor,
+                num_exp: int, out_dim: int, alpha: float = 2.0,
+                lambda_bal: float = 0.0, full_gate: Optional[Tensor] = None,
+                activation: ActiMode = ActiMode.AC_MODE_RELU,
+                kernel_initializer=None, name: str = "") -> Tensor:
+        """The fused expert block (ops/moe.py ExpertsOp)."""
+        ins = [input, gate_preds, assign]
+        if full_gate is not None:
+            ins.append(full_gate)
+        return self._add_op(
+            OpType.EXPERTS, ins, name, n=num_exp, out_dim=out_dim,
+            alpha=alpha, lambda_bal=lambda_bal, activation=activation,
+            kernel_initializer=kernel_initializer).outputs[0]
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.0, fused: bool = False,
+            name: str = "") -> Tensor:
+        """MoE block (JAX `FFModel.moe`): gate dense, softmax, top_k, then
+        the fused experts op, or group_by -> a dense per expert ->
+        aggregate. The unfused path flattens an input of rank > 2 to
+        tokens and restores it; the fused one keeps it (ExpertsOp flattens
+        inside), so a serving walk at other leading dims runs it."""
+        orig_dims = None
+        if len(input.dims) > 2 and not fused:
+            orig_dims = input.dims
+            input = self.reshape(input, [int(np.prod(input.dims[:-1])),
+                                         input.dims[-1]],
+                                 name=f"{name}_tokens")
+        gate = self.dense(input, num_exp, ActiMode.AC_MODE_NONE,
+                          name=f"{name}_gate")
+        gate = self.softmax(gate)
+        topk_out, topk_idx = self.top_k(gate, num_select)
+        if fused:
+            out = self.experts(input, topk_out, topk_idx, num_exp,
+                               expert_hidden_size, alpha, lambda_bal,
+                               full_gate=gate, name=f"{name}_experts")
+        else:
+            grouped = self.group_by(input, topk_idx, num_exp, alpha)
+            exp_preds = [self.dense(g, expert_hidden_size,
+                                    ActiMode.AC_MODE_RELU,
+                                    name=f"{name}_exp{i}")
+                         for i, g in enumerate(grouped)]
+            out = self.aggregate(topk_out, topk_idx, topk_idx, gate,
+                                 exp_preds, num_exp, lambda_bal)
+        if orig_dims is not None:
+            out = self.reshape(out, list(orig_dims[:-1])
+                               + [expert_hidden_size],
+                               name=f"{name}_untokens")
+        return out
 
     def create_constant(self, value, trainable: bool = False,
                         dtype: Optional[DataType] = None,
@@ -579,7 +660,6 @@ class FFModel:
             return self._host_batch(x, y, it * bs, (it + 1) * bs)
 
         k = steps_per_execution
-        multi = self._multi_step(k) if k > 1 else None
         self.step_records = []
         history: List[Dict[str, float]] = []
         for epoch in range(epochs):
@@ -589,8 +669,12 @@ class FFModel:
                 chunks = n // (bs * k)
                 pending, t_last = None, time.perf_counter()
                 for chunk in range(chunks):
-                    queued = multi([load_host(chunk * k + j)
-                                    for j in range(k)], self.opt_state)
+                    self._before_step(k)
+                    # re-resolved every dispatch: a recompile trigger's
+                    # alter drops the captured steps mid-epoch
+                    queued = self._multi_step(k)(
+                        [load_host(chunk * k + j) for j in range(k)],
+                        self.opt_state)
                     # one-deep pipeline: the previous dispatch's metrics
                     # are read after this one is queued
                     if pending is not None:
@@ -604,6 +688,8 @@ class FFModel:
                 first_single, updates = 0, n // (bs * accum_steps)
                 micro = accum_steps
             for step_i in range(first_single, updates):
+                # a K-step fit's trailing steps skip the hook, as JAX's do
+                self._before_step(1, hook=k == 1)
                 t0 = time.perf_counter()
                 if micro > 1:
                     msum, _ = self._get_accum_step()(
@@ -622,7 +708,47 @@ class FFModel:
             summ["epoch"] = epoch
             summ["throughput"] = updates * bs * micro / (time.time() - t_epoch)
             history.append(summ)
+            self._publish_moe_metrics()
         return history
+
+    def _before_step(self, steps: int, hook: bool = True) -> None:
+        """Before each optimizer step (or dispatch of `steps`): the
+        recompile hook, then the step count (JAX `_next_rng` advances it
+        after the hook)."""
+        if hook and self._recompile_state is not None:
+            self._recompile_state.step(self)
+        self._step_count += steps
+
+    def _publish_moe_metrics(self) -> None:
+        """Once an epoch: every EXPERTS op's router state into the ff_moe_*
+        families (obs/moe.py); nothing for a graph without one."""
+        if any(op.op_type == OpType.EXPERTS for op in self.ops):
+            from .obs.moe import publish_moe_metrics
+
+            publish_moe_metrics(self)
+
+    # -- recompile hook (JAX `recompile_on_condition`) ---------------------
+    def recompile_on_condition(self, recompile_state) -> None:
+        """Install a trigger / alter hook that fit checks before every
+        optimizer step (runtime/recompile.py RecompileState)."""
+        self._recompile_state = recompile_state
+
+    def get_cache_score(self, cache_tensor: Tensor) -> float:
+        return float(self.state[cache_tensor.owner_op.name]["score"])
+
+    def invalidate_compiled_steps(self) -> None:
+        """Rebuild the step functions after an op-param or graph change
+        (the recompile alter): the eager steps read the ops' params at
+        every walk, and the captured K-step graphs and the accumulation
+        step are dropped, so the next dispatch captures the new dataflow.
+        Weights and optimizer state carry over."""
+        if self.comp_mode != CompMode.COMP_MODE_TRAINING:
+            return
+        self._train_step = self.executor.build_train_step(
+            self.optimizer, self.loss.fn, self.metrics, self.final_tensor)
+        self._eval_step = self.executor.build_eval_step(
+            self.loss.fn, self.metrics, self.final_tensor)
+        self._multi_steps, self._accum_step = {}, None
 
     def _record(self, perf: PerfMetrics, rec: Dict[str, float], epoch: int,
                 samples: int, steps: int, dt: float) -> None:
@@ -766,8 +892,9 @@ class FFModel:
     @property
     def state(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """op name -> state variable -> tensor, the JAX `model.state` tree
-        (batch norm's running statistics): the ops' buffers themselves,
-        which a training step updates in place."""
+        (batch norm's running statistics, the MoE router's and the cache's
+        state): the ops' buffers themselves, which a training step updates
+        in place."""
         return {op.name: {sv.name: op._buffers[sv.name]
                           for sv in op.state_vars}
                 for op in self.ops if op.state_vars}

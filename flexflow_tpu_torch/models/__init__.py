@@ -1,13 +1,15 @@
 """Model builders of the port (counterpart of flexflow_tpu/models): each
 builds its family through the FFModel layer API, with the JAX builder's
-graph, op names and defaults. The MoE builders and the pipeline
-transformer are not ported yet: reading one of their names raises."""
+graph, op names and defaults. The pipeline transformer is not ported
+yet: reading one of its names raises."""
 from .alexnet import build_alexnet
 from .candle_uno import CandleUnoConfig, build_candle_uno
 from .cnn import build_cifar10_cnn, build_mnist_cnn, build_mnist_mlp
 from .dlrm import DLRMConfig, build_dlrm
 from .inception import build_inception_v3
 from .mlp import build_mlp_unify
+from .moe import (MoeConfig, MoeTransformerConfig, build_moe_encoder,
+                  build_moe_lm, build_moe_transformer, moe_expert_ops)
 from .resnet import build_resnet, build_resnet50
 from .resnext import build_resnext50
 from .rnn import build_lstm_nmt
@@ -15,14 +17,9 @@ from .transformer import (TransformerConfig, build_bert_encoder,
                           build_transformer)
 from .xdl import XDLConfig, build_xdl
 
-_NOT_PORTED = {
-    **dict.fromkeys(("MoeConfig", "MoeTransformerConfig",
-                     "build_moe_encoder", "build_moe_transformer",
-                     "build_moe_lm", "moe_expert_ops"), "A6 MoE"),
-    **dict.fromkeys(("pipeline_transformer", "init_pipeline_params",
-                     "pipeline_forward", "sequential_forward",
-                     "make_train_step"), "A8"),
-}
+_NOT_PORTED = dict.fromkeys(
+    ("pipeline_transformer", "init_pipeline_params", "pipeline_forward",
+     "sequential_forward", "make_train_step"), "A8")
 
 
 def __getattr__(name):
@@ -39,5 +36,7 @@ __all__ = [
     "build_inception_v3", "build_resnext50", "DLRMConfig", "build_dlrm",
     "XDLConfig", "build_xdl", "CandleUnoConfig", "build_candle_uno",
     "build_mlp_unify", "TransformerConfig", "build_transformer",
-    "build_bert_encoder", "build_lstm_nmt",
+    "build_bert_encoder", "MoeConfig", "MoeTransformerConfig",
+    "build_moe_encoder", "build_moe_transformer", "build_moe_lm",
+    "moe_expert_ops", "build_lstm_nmt",
 ]

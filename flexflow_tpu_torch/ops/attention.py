@@ -96,7 +96,8 @@ import torch
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import CompMode, OpType
 from ..kernels.decode import decode_attention, multiquery_decode_attention
-from ..kernels.flash_attention import flash_attention, flash_attention_heads
+from ..kernels.flash_attention import (flash_attention, flash_attention_heads,
+                                       flash_fits)
 from ..kernels.registry import KERNELS, flash_crossover
 from ..runtime.collectives import enter_tp, reduce_sum
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
@@ -211,11 +212,16 @@ class MultiHeadAttentionOp(Op):
     def _use_flash(self, ctx, device) -> bool:
         """The `attention` family through the registry: the op's use_flash
         param first, then override and knob, then auto with the
-        score-bytes crossover as its size policy."""
+        score-bytes crossover as its size policy, and only where the
+        kernels take the head dim in the compute dtype (`flash_fits`: bf16
+        needs a multiple of 8; MoeConfig()'s 64 wide over 16 heads, a head
+        dim of 4, stays on the einsum core, as the JAX crossover keeps
+        such small scores there)."""
         def crossover() -> bool:
             q, k = self.inputs[0], self.inputs[1]
-            return flash_crossover(q.dims[0], self.params["num_heads"],
-                                   q.dims[1], k.dims[1])
+            cdt = matmul_dtype(ctx.config, torch.float32)
+            return flash_fits(cdt, self._dims()[5]) and flash_crossover(
+                q.dims[0], self.params["num_heads"], q.dims[1], k.dims[1])
 
         return bool(KERNELS.resolve(
             self.kernel_memo, "attention", config=ctx.config, device=device,

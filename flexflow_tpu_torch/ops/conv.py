@@ -201,9 +201,10 @@ class BatchNormOp(Op):
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.square(xf - mean[None, :, None, None]).mean(
                 dim=(0, 2, 3))
-            with torch.no_grad():
-                rm.copy_(((1 - m) * rm + m * mean).to(rm.dtype))
-                rv.copy_(((1 - m) * rv + m * var).to(rv.dtype))
+            if self.writes_state(ctx):
+                with torch.no_grad():
+                    rm.copy_(((1 - m) * rm + m * mean).to(rm.dtype))
+                    rv.copy_(((1 - m) * rv + m * var).to(rv.dtype))
         else:
             mean, var = rm.float(), rv.float()
         inv = torch.rsqrt(var + eps)

@@ -150,7 +150,12 @@ class MeanOp(_Reduce):
 @register_op
 class TopKOp(Op):
     """The k largest values along the last dim, largest first, and their
-    int32 indices (`jax.lax.top_k`)."""
+    int32 indices (`jax.lax.top_k`): among equal values the lower index
+    comes first. `torch.topk` gives no such order (on the CPU it returns
+    [2, 4] of [.1, .5, .5, .2, .5], where JAX returns [1, 2]), and under
+    mixed precision ties are common: a gate's bf16 probabilities over 256
+    experts sit near 1/256, where bf16 steps by ~1.5e-5. So the op takes
+    the first k of a stable descending sort."""
 
     op_type = OpType.TOPK
 
@@ -160,8 +165,10 @@ class TopKOp(Op):
         return [out, out], [x.dtype, DataType.DT_INT32]
 
     def lower(self, ctx, inputs):
-        values, indices = torch.topk(inputs[0], self.params["k"], dim=-1)
-        return [values, indices.to(torch.int32)]
+        k = self.params["k"]
+        values, indices = torch.sort(inputs[0], dim=-1, descending=True,
+                                     stable=True)
+        return [values[..., :k], indices[..., :k].to(torch.int32)]
 
 
 @register_op

@@ -105,6 +105,7 @@ class Executor:
         decode_pos=None,
         mode: CompMode = CompMode.COMP_MODE_INFERENCE,
         fill_kv_cache: bool = False,
+        aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> Dict[int, torch.Tensor]:
         """Returns tensor guid -> value. state: op name -> {var: tensor},
         e.g. each attention op's "k_cache"/"v_cache", updated in place.
@@ -112,7 +113,16 @@ class Executor:
         (B,) int32 tensor of per-row positions (ops/attention.py).
         fill_kv_cache: a full-sequence (prefill) walk that also writes the
         prompt's K/V rows into the caches in `state`. COMP_MODE_TRAINING
-        records the walk for autograd and takes no caches."""
+        records the walk for autograd and takes no caches. aux_losses: a
+        list that receives the ops' auxiliary losses (the MoE load-balance
+        loss).
+
+        Ops' own state (batch norm's running statistics, the MoE router's
+        and the cache's; core/op.py `Op.writes_state`): a training walk
+        updates it, and so does a walk handed `state` under an op's name
+        (`model.state`); other walks (eval, predict, and the serving
+        walks, which hold only KV caches, as the JAX batcher's) read it
+        and leave it."""
         training = mode == CompMode.COMP_MODE_TRAINING
         if training and (state or decode_pos is not None or fill_kv_cache):
             raise ValueError("a training walk takes no KV caches and no "
@@ -130,6 +140,8 @@ class Executor:
         ctx.decode_pos = decode_pos
         ctx.fill_kv_cache = bool(fill_kv_cache)
         ctx.state = state if state is not None else {}
+        if aux_losses is not None:
+            ctx.aux_losses = aux_losses
         if training:
             ctx.generator = self.generator
         with torch.set_grad_enabled(training):
@@ -146,7 +158,8 @@ class Executor:
     # -- step builders -----------------------------------------------------
     def build_grad_metrics_step(self, loss_fn, metrics, final_tensor):
         """(inputs, label) -> (grads, metric values incl. loss): one
-        training-mode walk, the loss, and its backward. Gradients are
+        training-mode walk, the loss (with the ops' auxiliary losses added,
+        as the JAX step adds `ctx.aux_losses`), and its backward. Gradients are
         returned as a tree like the parameters' (zeros where a weight got
         none, as jax.grad gives); on a mesh with a `data` axis, gradients
         and metrics are the means over it."""
@@ -155,10 +168,14 @@ class Executor:
                 for w, p in ws.items()]
 
         def gstep(inputs, label):
+            aux: List[torch.Tensor] = []
             values = self.forward_values(inputs,
-                                         mode=CompMode.COMP_MODE_TRAINING)
+                                         mode=CompMode.COMP_MODE_TRAINING,
+                                         aux_losses=aux)
             pred = values[final_tensor.guid]
             loss = loss_fn(pred, label)
+            if aux:
+                loss = loss + sum(aux[1:], aux[0])
             with torch.no_grad():
                 mvals = metrics.compute(pred, label) if metrics else {}
             got = torch.autograd.grad(loss, [p for _, _, p in flat],

@@ -80,11 +80,17 @@ from the request's key (its seed) and the position (serving/generate.py
 prompt, never on co-scheduled traffic. The numbers are not jax.random's,
 so sampled tokens differ from the JAX batcher's.
 
+Expert-affine admission (`expert_affinity=True`, `affinity_window=`;
+sched/affinity.py): each request is signed at submit with the experts a
+host-side probe of the first MoE gate routes it to, and a freed slot
+takes, within the window, the queued request whose signature overlaps
+the running batch's most. It orders admissions only: the MoE walks keep
+no router state, and greedy tokens do not depend on the batch.
+
 Not ported yet, each raising a clear error: request_resize (ROADMAP A5,
 after A7's machine model), the disaggregated park / handoff calls (A5,
-with A10), deriving num_slots from the machine model (A7), expert-affine
-admission (with the MoE ops, A6), tracing spans and the chaos hook (A9,
-A10).
+with A10), deriving num_slots from the machine model (A7), tracing spans
+and the chaos hook (A9, A10).
 """
 from __future__ import annotations
 
@@ -164,6 +170,10 @@ class GenRequest:
         # append nothing a replay elsewhere would duplicate
         self._emit_lock = threading.Lock()
         self._fenced = False
+        # expert-affine admission (sched/affinity.py): the probe's expert
+        # signature, and the picks this request was passed over in
+        self.expert_sig: frozenset = frozenset()
+        self.affinity_skips = 0
 
     # -- consumer API ------------------------------------------------------
     def stream(self, timeout: Optional[float] = None):
@@ -283,6 +293,8 @@ class ContinuousBatcher:
     band pages of the prefix cache; None gives two slots' worth with
     chunked prefill and none one-shot, 0 turns it off. draft_model /
     spec_tokens: speculative decoding (see the module docstring).
+    expert_affinity / affinity_window: expert-affine admission (the
+    module docstring); it needs a model with a fused EXPERTS op.
     registry: the metric families' registry (default the process-wide
     one, which a server renders; pass one only to isolate a test).
     """
@@ -294,7 +306,8 @@ class ContinuousBatcher:
                  registry=None,
                  prefill_chunk_tokens: Optional[int] = None,
                  prefix_cache_pages: Optional[int] = None,
-                 draft_model=None, spec_tokens: int = 3):
+                 draft_model=None, spec_tokens: int = 3,
+                 expert_affinity: bool = False, affinity_window: int = 4):
         if num_slots is None:
             raise ValueError(
                 "num_slots is required: deriving it from device memory "
@@ -381,6 +394,15 @@ class ContinuousBatcher:
             if dv is not None:
                 self._vocab = dv if self._vocab is None \
                     else min(self._vocab, dv)
+
+        # expert-affine admission: the probe reads the embedding table and
+        # the first gate to the host once, here
+        self._affinity_probe = None
+        self.affinity_window = max(1, int(affinity_window))
+        if expert_affinity:
+            from .affinity import ExpertAffinityProbe
+
+            self._affinity_probe = ExpertAffinityProbe(model)
 
         # the prefix cache's budget (JAX continuous.py:515-533): two slots'
         # worth of band pages with chunked prefill, which the hit path
@@ -544,6 +566,16 @@ class ContinuousBatcher:
                 "ff_spec_decode_acceptance",
                 "EWMA draft-token acceptance rate (accepted/proposed)",
                 labels=("pool",))
+        self._ewma_affinity_overlap: Optional[float] = None
+        if self._affinity_probe is not None:
+            self._c_affinity = registry.counter(
+                "ff_serving_affinity_picks_total",
+                "Expert-affine admission picks by outcome",
+                labels=("outcome",))
+            self._g_affinity_overlap = registry.gauge(
+                "ff_serving_affinity_overlap",
+                "EWMA expert-signature overlap of admitted requests with"
+                " the running batch", labels=("pool",))
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -632,12 +664,16 @@ class ContinuousBatcher:
         if self.pool.prefix is not None:
             matched, _ = self.pool.prefix.match(prompt)
             shared_pages = min(matched, prompt.size - 1) // self.pool.page_size
+        # the expert signature outside the lock: one small host matmul
+        sig = (self._affinity_probe.signature(prompt)
+               if self._affinity_probe is not None else frozenset())
         with self._cv:
             if not self._running:
                 raise BatcherStopped("batcher is not running")
             self.admission.admit(rid, prompt.size, max_new_tokens,
                                  shared_pages=shared_pages)
             req = GenRequest(rid, prompt, max_new_tokens, eos_id, seed)
+            req.expert_sig = sig
             self._queue.append(req)
             self._cv.notify_all()
         return req
@@ -892,6 +928,13 @@ class ContinuousBatcher:
                                if self._spec_proposed else 0.0),
                 "acceptance_ewma": self._ewma_spec_accept,
             }
+        if self._affinity_probe is not None:
+            out["affinity"] = {
+                "window": self.affinity_window,
+                "overlap_ewma": self._ewma_affinity_overlap,
+                "picks": {outcome: int(v) for (outcome,), v
+                          in self._c_affinity.items()},
+            }
         return out
 
     # -- device steps --------------------------------------------------------
@@ -1134,12 +1177,37 @@ class ContinuousBatcher:
                 if s.req.state is not RequestState.DECODE:
                     break  # retired (EOS or budget): the rest is past the end
 
+    def _pop_next_locked(self) -> GenRequest:
+        """The next request off the queue (the caller holds self._cv):
+        FIFO, or with expert-affine admission the best signature-overlap
+        pick within the window (affinity.py), counted by outcome, the
+        winner's overlap folded into the EWMA gauge (JAX
+        `_pop_next_locked`)."""
+        if self._affinity_probe is None or len(self._queue) < 2:
+            return self._queue.pop(0)
+        from .affinity import pick_affine
+
+        active = [s.req.expert_sig for s in self._slots
+                  if s is not None and s.req.expert_sig]
+        idx, outcome, frac = pick_affine(self._queue, active,
+                                         self.affinity_window)
+        for passed in self._queue[:idx]:
+            passed.affinity_skips += 1
+        req = self._queue.pop(idx)
+        self._c_affinity.inc(outcome=outcome)
+        old = self._ewma_affinity_overlap
+        self._ewma_affinity_overlap = frac if old is None else \
+            (1 - self._EWMA_ALPHA) * old + self._EWMA_ALPHA * frac
+        self._g_affinity_overlap.set(self._ewma_affinity_overlap,
+                                     pool=self.pool.label)
+        return req
+
     def _admit_new(self) -> None:
         while True:
             with self._cv:
                 if not self._queue or self.pool.free_slot_count() == 0:
                     return
-                req = self._queue.pop(0)
+                req = self._pop_next_locked()
             req.state = RequestState.PREFILL
             req.queue_wait_s = self.admission.on_scheduled(req.id)
             plen = req.prompt.size

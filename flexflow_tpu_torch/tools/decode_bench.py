@@ -113,13 +113,18 @@ def _by_kernel(torch, fn, flush, n=20):
     fn()
     torch.cuda.synchronize()
     per = {}
+    # idle padding at the session's edges, where the profiler drops
+    # records (tools/serve_profile.py trace_device; not imported, so an
+    # older checkout first on PYTHONPATH profiles the same way)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         for _ in range(n):
             flush()
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
+        time.sleep(0.05)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "elementwise" not in e.name \
                 and "fill" not in e.name.lower():

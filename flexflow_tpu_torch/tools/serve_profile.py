@@ -1,6 +1,6 @@
 """Where the time of the port's serving path goes, on one NVIDIA GPU.
 
-    python -m flexflow_tpu_torch.tools.serve_profile [--iters N]
+    python -m flexflow_tpu_torch.tools.serve_profile [--iters N] [--moe]
 
 Builds the full-width serve-bench LM that chip_smoke.py serves (hidden
 1024, 16 heads, 12 layers, vocab 30522, bf16 mixed precision, random
@@ -25,12 +25,15 @@ the device's idle share (1 - busy / the profiled wall, as the tool has
 always printed it; also against the unprofiled wall), device operations
 (kernels and copies) per dispatch seen by the profiler, graph replays and
 captures, and device time by kernel, largest first. chip_smoke.py's serve
-line gives the serve mix's tokens/s and TTFT. Needs CUDA; exits 2
-without.
+line gives the serve mix's tokens/s and TTFT. `--moe` profiles the
+decode and prefill dispatches of the MoE serve-bench LM at the same
+widths instead (serving/sched/bench.py build_tiny_moe_lm: 4 experts,
+top-2, no drops; chip_smoke.py phase 26). Needs CUDA; exits 2 without.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -42,6 +45,33 @@ def _device_ops(prof) -> int:
     from torch.autograd import DeviceType
 
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+# torch.profiler (CUPTI) drops some device records of a session whose
+# body starts or ends right at its edges: eager walks and CUDA graph
+# replays alike lose from one record to several hundred in a few percent
+# of sessions (tools/trace_edges.py measures how often, with and without
+# this padding)
+TRACE_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def trace_device(cpu=True):
+    """torch.profiler over the body, with the device idle and TRACE_PAD_S
+    of host time on each side of it, so that no device record of the body
+    falls at the session's edges (where the profiler drops records).
+    Time the body inside it: the padding is outside what it measures."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
 
 
 def _kernel_table(prof, n_iters):
@@ -64,21 +94,24 @@ def _kernel_table(prof, n_iters):
 def main(argv=None) -> int:
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--moe", action="store_true",
+                    help="the MoE LM (4 experts, top-2): decode, prefill")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device visible", file=sys.stderr)
         return 2
     from flexflow_tpu_torch.serving.sched import ContinuousBatcher
-    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+    from flexflow_tpu_torch.serving.sched.bench import (build_tiny_lm,
+                                                        build_tiny_moe_lm)
 
     slots, window, max_len, chunk, vocab = 8, 512, 1024, 16, 30522
-    lm = build_tiny_lm(slots, window, vocab=vocab, hidden=1024, heads=16,
-                       layers=12, mixed_precision=True, device="cuda",
-                       generator=torch.Generator().manual_seed(0))
+    builder = build_tiny_moe_lm if args.moe else build_tiny_lm
+    lm = builder(slots, window, vocab=vocab, hidden=1024, heads=16,
+                 layers=12, mixed_precision=True, device="cuda",
+                 generator=torch.Generator().manual_seed(0))
     cb = ContinuousBatcher(lm, max_len=max_len, num_slots=slots,
                            page_size=chunk)
     drafts = {}
@@ -115,18 +148,19 @@ def main(argv=None) -> int:
         return run
 
     card = torch.cuda.get_device_name(0)
+    phases = [("decode", decode), ("prefill", prefill)]
+    if not args.moe:
+        phases += [("spec_tied", spec("tied")), ("spec_untied",
+                                                 spec("untied"))]
     with torch.no_grad():
-        for phase, fn in (("decode", decode), ("prefill", prefill),
-                          ("spec_tied", spec("tied")),
-                          ("spec_untied", spec("untied"))):
+        for phase, fn in phases:
             graphs = (spec_batcher(phase[5:]) if phase.startswith("spec")
                       else cb).graphs
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
             before = dict(graphs)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with trace_device() as prof:
                 t0 = time.perf_counter()
                 for _ in range(args.iters):
                     fn()  # ends in a host copy: synchronises every dispatch
@@ -140,7 +174,8 @@ def main(argv=None) -> int:
                 fn()
             bare_ms = (time.perf_counter() - t0) / args.iters * 1e3
             print(json.dumps({
-                "phase": phase, "device": card, "iters": args.iters,
+                "phase": phase, "model": "moe" if args.moe else "dense",
+                "device": card, "iters": args.iters,
                 "wall_ms_per_iter": bare_ms,
                 "wall_ms_per_iter_profiled": wall_ms,
                 "device_busy_ms_per_iter": busy_ms,

@@ -26,7 +26,7 @@ import json
 import sys
 import time
 
-from .serve_profile import _kernel_table
+from .serve_profile import _kernel_table, trace_device
 
 
 # bench.py's flagship training configuration (bench.py:79-84)
@@ -94,7 +94,6 @@ def profile_fit(model, x, y, batch: int, steps: int, k: int = 1,
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     steps = -(-steps // k) * k
 
@@ -104,8 +103,7 @@ def profile_fit(model, x, y, batch: int, steps: int, k: int = 1,
         torch.cuda.synchronize()
 
     run(warmup * k)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace_device() as prof:
         t0 = time.perf_counter()
         run(steps)
         wall_ms = (time.perf_counter() - t0) / steps * 1e3

@@ -13,7 +13,8 @@ model). `train` runs `steps`
 fit steps, `k` a dispatch (a CUDA graph of k steps when k > 1): the
 losses, peak memory and kernel launches; `time_steps` runs them again,
 warm (at k > 1 replays only): host ms a step, samples/s and MFU (3 x the
-ops' forward FLOPs, `Op.flops`, over 989 TFLOP/s); `profile_steps`
+ops' forward FLOPs, `Op.flops`, an MoE block's expert FFN alone, over
+989 TFLOP/s); `profile_steps`
 (`--profile`) runs them under torch.profiler: device busy, idle share,
 launches. Prints one JSON line a model. Needs CUDA; exits 2 without.
 """
@@ -183,6 +184,45 @@ def _bert(dropout: float, batch: int = 8, seq: int = 512):
                        f"{dropout}")
 
 
+def _moe_transformer(batch: int, seq: int, source: str, **cfg):
+    """build_moe_transformer (2 classes a token) on random token ids."""
+    def build(m, pt):
+        tokens = m.create_tensor([batch, seq], pt.DataType.DT_INT32)
+        pt.models.build_moe_transformer(
+            m, tokens, pt.models.MoeTransformerConfig(**cfg))
+
+    def data(rng, n):
+        vocab = cfg["vocab_size"]
+        return [rng.randint(0, vocab, size=(n, seq)).astype(np.int32)], \
+            rng.randint(0, 2, size=(n, seq, 1)).astype(np.int32)
+
+    return dict(build=build, data=data, batch=batch, source=source)
+
+
+def _moe_encoder(batch: int = 32, seq: int = 16):
+    """examples/python/native/moe.py: MoeConfig()'s encoder (the unfused
+    group_by / dense / aggregate path), a mean pool and a 10-way head."""
+    def build(m, pt):
+        cfg = pt.models.MoeConfig()
+        t = m.create_tensor([batch, seq, cfg.hidden_size])
+        out = pt.models.build_moe_encoder(m, t, cfg)
+        m.softmax(m.dense(m.mean(out, [1]), 10, name="head"))
+
+    def data(rng, n):
+        return [rng.randn(n, seq, 64).astype(np.float32)], \
+            rng.randint(0, 10, size=(n, 1)).astype(np.int32)
+
+    return dict(build=build, data=data, batch=batch,
+                source="examples/python/native/moe.py: MoeConfig(), batch "
+                       "32, seq 16")
+
+
+# the switch shape the JAX package's MoE dry-run prices
+# (__graft_entry__.py:1362-1364) on its [batch, 128] tokens
+MOE_SWITCH = dict(hidden_size=1024, num_heads=16, num_layers=2,
+                  num_experts=256, top_k=2, capacity_factor=2.0,
+                  lambda_bal=0.01, vocab_size=8192)
+
 ZOO: Dict[str, dict] = {
     "resnet50": _image("build_resnet50", 16, 3, 224, 10,
                        "examples/python/native/resnet.py"),
@@ -211,6 +251,20 @@ ZOO: Dict[str, dict] = {
     "candle_uno": _candle_uno(),
     "mlp_unify": _mlp_unify(),
     "transformer": _transformer(),
+    "moe_switch": _moe_transformer(
+        8, 128, "__graft_entry__.py:1362-1364 switch shape (256 experts, "
+        "top-2, hidden 1024, 2 layers, vocab 8192), batch 8, seq 128",
+        **MOE_SWITCH),
+    # phase 27's f32 witness: the switch config cut to 1 layer, 16 experts,
+    # hidden 128
+    "moe_switch_small": _moe_transformer(
+        8, 128, "the switch shape cut to 1 layer, 16 experts, hidden 128",
+        **dict(MOE_SWITCH, hidden_size=128, num_layers=1, num_experts=16)),
+    "moe": _moe_transformer(
+        8, 64, "python -m flexflow_tpu profile --model moe -b 8 defaults "
+        "(flexflow_tpu/__main__.py:83-95)", hidden_size=512, num_heads=8,
+        num_layers=2, num_experts=8, top_k=2, vocab_size=1024),
+    "moe_encoder": _moe_encoder(),
 }
 
 
@@ -250,8 +304,14 @@ def batches(name: str, steps: int, seed: int = 0
 
 
 def step_flops(model) -> float:
-    """3 x the forward FLOPs of the model's ops (forward and backward)."""
-    return 3.0 * sum(op.flops() for op in model.ops)
+    """3 x the forward FLOPs the port performs (forward and backward): the
+    ops' `flops()`, but an EXPERTS op's batched FFN alone (`ffn_flops`:
+    its dispatch and combine are gathers, counted as zero; its `flops()`
+    also counts the JAX package's one-hot contractions)."""
+    from flexflow_tpu_torch.ffconst import OpType
+
+    return 3.0 * sum(op.ffn_flops() if op.op_type == OpType.EXPERTS
+                     else op.flops() for op in model.ops)
 
 
 def n_params(model) -> int:
@@ -313,13 +373,10 @@ def profile_steps(model, xs, y, steps: int, k: int = 1) -> dict:
     step, and the five kernels with the most device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from .serve_profile import _kernel_table
+    from .serve_profile import _kernel_table, trace_device
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    with trace_device() as prof:
         t0 = time.perf_counter()
         model.fit(xs, y, batch_size=model.config.batch_size, epochs=1,
                   steps_per_execution=k)

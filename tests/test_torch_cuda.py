@@ -1972,3 +1972,133 @@ def test_capture_survives_dead_graphs_in_reference_cycles(dev):
         gc.set_threshold(*old)
     torch.cuda.synchronize()
     assert b.counts["replays"] == 2 and float(b_out[0]) == 3.0
+
+
+def _card_moe(device, mixed=True, experts=16, alpha=0.5, lambda_bal=0.01):
+    """A 2-layer switch transformer (hidden 64, top-2, a capacity that
+    drops assignments) on `device`, weights from a fixed generator, Adam."""
+    import flexflow_tpu_torch as pt
+    import flexflow_tpu_torch.models  # noqa: F401
+
+    m = pt.FFModel(pt.FFConfig(batch_size=4, allow_mixed_precision=mixed,
+                               device=device, seed=3))
+    tokens = m.create_tensor([4, 32], pt.DataType.DT_INT32)
+    pt.models.build_moe_transformer(m, tokens, pt.models.MoeTransformerConfig(
+        hidden_size=64, num_heads=4, num_layers=2, num_experts=experts,
+        top_k=2, capacity_factor=alpha, lambda_bal=lambda_bal,
+        vocab_size=256))
+    m.compile(optimizer=pt.AdamOptimizer(m, alpha=1e-3, moments_dtype=(
+        torch.bfloat16 if mixed else torch.float32)),
+        loss_type=pt.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+        generator=torch.Generator().manual_seed(3))
+    return m
+
+
+def test_moe_graph_steps_equal_eager_steps_on_card(dev):
+    """12 steps of the switch transformer as 3 dispatches of a K = 4 CUDA
+    graph against 12 eager steps from the same weights: losses (with the
+    load-balance losses), weights and router state the same bits, and
+    assignments dropped."""
+    rng = np.random.RandomState(4)
+    x = rng.randint(0, 256, size=(48, 32)).astype(np.int32)
+    y = rng.randint(0, 2, size=(48, 32, 1)).astype(np.int32)
+    runs = []
+    for k in (1, 4):
+        m = _card_moe("cuda")
+        m.fit(x, y, epochs=1, steps_per_execution=k)
+        runs.append(([v for r in m.step_records
+                      for v in r.get("losses", [r["loss"]])],
+                     m.params, m.state))
+    (le, pe, se), (lg, pg, sg) = runs
+    assert le == lg and len(le) == 12 and np.all(np.isfinite(le))
+    for op, ws in pe.items():
+        for w, t in ws.items():
+            assert torch.equal(t, pg[op][w]), (op, w)
+    for op, vs in se.items():
+        for v, t in vs.items():
+            assert torch.equal(t, sg[op][v]), (op, v)
+    assert all(float(vs["dropped"]) > 0 for vs in se.values())
+
+
+def test_moe_walk_replays_equal_the_eager_walk_on_card(dev):
+    """An inference walk of the MoE model handed its state, captured in a
+    CUDA graph (runtime/graphs.py CapturedCall), against the eager walk:
+    the outputs and the router state's increments the same bits."""
+    from flexflow_tpu_torch.runtime.graphs import CapturedCall, graph_counts
+
+    m = _card_moe("cuda")
+    x = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, size=(4, 32)).astype(np.int32)).to(dev)
+    feeds = {m.input_ops[0].name: x}
+    out = torch.empty((4, 32, 2), dtype=torch.bfloat16, device=dev)
+
+    def walk():
+        with torch.no_grad():
+            out.copy_(m.executor.forward_values(feeds, state=m.state)[
+                m.final_tensor.guid])
+
+    walk()
+    eager = out.clone()
+    d0 = {op: vs["dropped"].clone() for op, vs in m.state.items()}
+    call = CapturedCall(walk, dev, [], graph_counts())
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    assert call.counts["replays"] == 2
+    assert torch.equal(out, eager)
+    for op, vs in m.state.items():
+        # the eager walk, the warm-up and two replays (a capture runs
+        # nothing): 4 walks
+        assert torch.equal(vs["dropped"], 4 * d0[op]), op
+
+
+def test_moe_gather_backward_same_bits_on_two_runs(dev):
+    """The dispatch / combine backward is gathers only: two backward
+    passes of one step give the same gradient bits (with atomics they
+    could differ)."""
+    m = _card_moe("cuda", experts=8, alpha=1.0)
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randint(0, 256, size=(4, 32)).astype(
+        np.int32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 2, size=(4, 32, 1)).astype(
+        np.int32)).to(dev)
+    step = m.executor.build_grad_metrics_step(m.loss.fn, m.metrics,
+                                              m.final_tensor)
+    g1, _ = step({m.input_ops[0].name: x}, y)
+    g2, _ = step({m.input_ops[0].name: x}, y)
+    for op, ws in g1.items():
+        for w, t in ws.items():
+            assert torch.equal(t, g2[op][w]), (op, w)
+    assert float(g1["l1_moe_experts"]["kernel"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_tie_order_on_card_is_jax_lower_index_first(dev, dtype):
+    """Planted ties (and bf16 gate probabilities near 1/256): TopKOp on
+    the card gives the lower index first among equal values, as
+    jax.lax.top_k, and the CPU's indices."""
+    import flexflow_tpu_torch as pt
+
+    rng = np.random.RandomState(9)
+    near = (1 / 256 + rng.randint(-2, 3, size=(1024, 256)) * 2**-16)
+    for arr, k in ((np.array([[0.1, 0.5, 0.5, 0.2, 0.5],
+                              [0.3, 0.3, 0.3, 0.3, 0.3]]), 3), (near, 2)):
+        arr = arr.astype(np.float32)
+        outs = []
+        for device in ("cuda", "cpu"):
+            m = pt.FFModel(pt.FFConfig(batch_size=arr.shape[0],
+                                       device=device))
+            vals, idx = m.top_k(m.create_tensor(list(arr.shape)), k)
+            m.compile(comp_mode=pt.CompMode.COMP_MODE_INFERENCE)
+            with torch.no_grad():
+                o = m.executor.forward_values({m.input_ops[0].name: (
+                    torch.from_numpy(arr).to(dtype).to(device))})
+            outs.append(o[idx.guid].cpu())
+        assert torch.equal(outs[0], outs[1])
+        # lower index first among ties: along each row, equal values come
+        # in increasing index order
+        v = torch.from_numpy(arr).to(dtype).float()
+        picked = torch.gather(v, 1, outs[0].long())
+        same = picked[:, 1:] == picked[:, :-1]
+        assert bool((outs[0][:, 1:] > outs[0][:, :-1])[same].all())
+    assert int(outs[0][0, 0]) in range(256)

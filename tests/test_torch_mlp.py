@@ -17,6 +17,7 @@ import torch
 
 import flexflow_tpu as ff
 import flexflow_tpu_torch as pt
+from tests.test_torch_zoo import one_torch_thread
 
 LOSS = dict(rel=1e-5)
 W_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -81,10 +82,15 @@ def _sgd(lr):
     return lambda pkg, m: pkg.SGDOptimizer(m, lr=lr)
 
 
-def test_digits_mlp_accuracy_gate():
+one_thread = pytest.fixture(name="one_thread")(one_torch_thread)
+
+
+def test_digits_mlp_accuracy_gate(one_thread):
     """tests/test_accuracy_gate.py's digits MLP (64 -> 128 -> 64 -> 10,
     RELU, Adam 2e-3, batch 64, 30 epochs) on the port, its own weights:
-    eval accuracy on the held-out digits >= 0.90."""
+    eval accuracy on the held-out digits >= 0.90. Torch on one intra-op
+    thread (`one_torch_thread`): its 720 small steps spend most of their
+    time handing work between threads on many."""
     datasets = pytest.importorskip("sklearn.datasets")
     d = datasets.load_digits()
     x = (d.data / 16.0).astype(np.float32)

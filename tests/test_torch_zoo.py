@@ -5,7 +5,8 @@ then two SGD steps (lr 0.01, f32) on the same seeded numpy batch: each
 step's loss and every weight after the two steps against JAX's. Also the
 op and weight names and shapes of the two graphs, the builders too large
 for a CPU step (ResNeXt-50, Inception-v3) at full size, and the names
-that are not ported yet.
+that are not ported yet (the pipeline transformer; the MoE builders are
+held against JAX in tests/test_torch_moe.py).
 
 Tolerance: f32, the same math through another BLAS / convolution and
 summation order: losses rel 1e-5, weights rtol 1e-4 / atol 1e-6 (a
@@ -288,14 +289,15 @@ def test_graph_matches_jax(name):
     assert _graph(pt, build, batch) == _graph(ff, build, batch)
 
 
-@pytest.mark.parametrize("name", ["MoeConfig", "build_moe_lm",
-                                  "build_moe_encoder", "pipeline_forward"])
+@pytest.mark.parametrize("name", ["pipeline_transformer",
+                                  "init_pipeline_params",
+                                  "sequential_forward", "pipeline_forward"])
 def test_unported_builders_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """The pipeline transformer waits for the `stage` axis (ROADMAP A8)."""
+    with pytest.raises(NotImplementedError, match="not ported yet.*A8"):
         getattr(pzoo, name)
 
 
 def test_zoo_exports_the_jax_builders():
-    """Every builder JAX exports is in the port's zoo, but the MoE ones."""
-    want = {n for n in jzoo.__all__ if "moe" not in n.lower()}
-    assert want == set(pzoo.__all__)
+    """Every builder JAX exports is in the port's zoo."""
+    assert set(jzoo.__all__) == set(pzoo.__all__)
