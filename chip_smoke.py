@@ -220,6 +220,43 @@ Phases, in order; any failure propagates and exits non-zero:
 27. moe-witness — the switch transformer cut to 1 layer, 16 experts,
               hidden 128: 2 f32 Adam steps on the card and on the CPU,
               losses within 1e-3, drops equal.
+28. predict — FFModel.predict at full width from seeded random weights:
+              the flagship (bf16) on 35 samples at batch 8 (a tail of 3)
+              and ResNet-50 (build_resnet50, batch 16, 224 px) on 69 (a
+              tail of 5), and on ResNet-50's inputs its stem with a batch
+              norm after two fit steps (no zoo builder has a batch norm);
+              launches a batch asserted (flagship: 12 packed flash
+              forwards on the tensor cores, 24 LayerNorm forwards, 1
+              softmax forward; the others: 1 softmax forward; no
+              backward kernel, no reduction, no update), f32 outputs of
+              the right shape, finite, the same bits on a second call,
+              the op state (the batch norm's running statistics) the same
+              bits before and after; a witness (the flagship cut to 2 layers, f32, 11
+              samples: the card against the port on the CPU, within 1e-3
+              absolute); samples/s, and host wall against device busy a
+              batch (tools/serve_profile.py trace_device);
+29. manual  — the flagship (bf16, Adam with bf16 moments) from the train
+              phase's initial weights and batch: 2 iterations of
+              set_iteration_batch / forward / zero_gradients / backward /
+              update against 2 eager fit steps, losses (the model's loss
+              on forward's output) and final weights the same bits; then
+              forward(seq_length=300) and backward(seq_length=300):
+              finite gradients, 12 flash forwards (forward) and 12 + 12
+              flash forwards and backwards (backward), all at l = 300 on
+              the tensor cores;
+30. checkpoint — the flagship cut to 2 layers (bf16, Adam bf16 moments)
+              with tracing on: fit(steps_per_execution=4) for 4 steps
+              (the graph captured), DurableCheckpointer.save (timed, its
+              size), 4 steps (losses A), restore_latest (timed), 4 steps
+              (losses B): A equal to B to the bit, replays and no new
+              capture; a model from another seed restored from the file
+              predicts the saved model's bits; the trace holds
+              checkpoint.save, checkpoint.restore and one
+              executor.multi_step a dispatch, the counters saved,
+              verified and restored; then 2 requests through a
+              ContinuousBatcher on the serve LM with trace_label="smoke":
+              the exported Chrome trace holds serve.prefill and
+              serve.decode spans on the thread named "smoke".
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -323,6 +360,22 @@ GRAPH_K, GRAPH_STEPS = 4, 12
 # the accuracy and the sparse cce metric, one Adam update
 MLP_PER_STEP = {"softmax_fwd": 1, "softmax_bwd": 1, "reduce": 3,
                 "optimizer_adam": 1}
+# phase 28: predict's samples and batch, and its launches a batch (every
+# other kernel none); the flagship's on the tensor-core route
+PREDICT_RUNS = {"flagship": (35, 8), "resnet50": (69, 16)}
+PREDICT_PER_BATCH = {
+    "flagship": {"flash_fwd": 12, "flash_fwd/tc": 12, "layernorm_fwd": 24,
+                 "softmax_fwd": 1},
+    "resnet50": {"softmax_fwd": 1},
+    # ResNet-50's stem with a batch norm, on ResNet-50's inputs
+    "bn_stem": {"softmax_fwd": 1},
+}
+# phase 29: the truncated iteration's length, and the flash launches of
+# its forward and of its backward
+MANUAL_SEQ = 300
+MANUAL_FORWARD = {"flash_fwd": 12, "flash_fwd/tc": 12, "flash_bwd": 0}
+MANUAL_BACKWARD = {"flash_fwd": 12, "flash_fwd/tc": 12, "flash_bwd": 12,
+                   "flash_bwd/tc": 12}
 
 
 def train_step_flops(batch, seq, hidden, layers, **_) -> float:
@@ -3396,6 +3449,335 @@ def phase_moe_witness(torch, steps=2, tol=1e-3):
     return out
 
 
+def _launch_check(phase, launches, want, batches=1):
+    """Each kernel of `want` launched want[k] x batches times, and every
+    other kernel (route keys aside) none."""
+    wrong = {k: launches.get(k, 0) for k in set(launches) | set(want)
+             if launches.get(k, 0) != want.get(k, 0) * batches
+             and ("/" not in k or k in want)}
+    if wrong:
+        raise AssertionError(f"{phase}: launches {wrong}, expected "
+                             f"{want} x {batches} and no other kernel")
+
+
+def _predict_run(torch, model, x, batch, name):
+    """predict twice (the same bits), launches of the first counted from 0
+    just before it, then samples/s of a third call and host wall against
+    device busy a batch under the profiler (padded: trace_device)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.tools.serve_profile import (_kernel_table,
+                                                        trace_device)
+
+    n = x.shape[0]
+    batches = -(-n // batch)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = model.predict(x, batch_size=batch)
+    launches = launch_counts()
+    _launch_check(f"predict {name}", launches, PREDICT_PER_BATCH[name],
+                  batches)
+    if out.dtype != np.float32 or not np.isfinite(out).all() or \
+            out.shape != (n,) + tuple(model.final_tensor.dims[1:]):
+        raise AssertionError(f"predict {name}: output {out.dtype} "
+                             f"{out.shape}, finite "
+                             f"{bool(np.isfinite(out).all())}")
+    if not np.array_equal(out, model.predict(x, batch_size=batch)):
+        raise AssertionError(f"predict {name}: two calls differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.predict(x, batch_size=batch)
+    wall = time.perf_counter() - t0
+    with trace_device(cpu=False) as prof:
+        t0 = time.perf_counter()
+        model.predict(x, batch_size=batch)
+        wall_prof = time.perf_counter() - t0
+    busy_ms, top = _kernel_table(prof, batches)
+    wall_ms = wall * 1e3 / batches
+    return out, {
+        "samples": n, "batch": batch, "batches": batches,
+        "samples_per_s": n / wall, "wall_ms_per_batch": wall_ms,
+        "wall_ms_per_batch_profiled": wall_prof * 1e3 / batches,
+        "busy_ms_per_batch": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "top_kernels": top[:6],
+        "launches": {k: v for k, v in launches.items() if v},
+        "launches_per_batch": {k: launches[k] / batches
+                               for k in PREDICT_PER_BATCH[name]}}
+
+
+def _bn_stem(torch, x, batch):
+    """ResNet-50's stem at its widths with a batch norm (conv 7x7/2 to 64
+    channels, batch_norm, max pool, flat, dense 10, softmax; no zoo
+    builder has a batch norm), bf16, Adam, after two fit steps from
+    RandomState(28) labels, so its running statistics are not their
+    initial values."""
+    import numpy as np
+
+    import flexflow_tpu_torch as pt
+
+    m = pt.FFModel(pt.FFConfig(batch_size=batch, device="cuda"))
+    t = m.conv2d(m.create_tensor([batch, 3, 224, 224]), 64, 7, 7, 2, 2, 3,
+                 3)
+    t = m.pool2d(m.batch_norm(t), 3, 3, 2, 2, 1, 1)
+    m.softmax(m.dense(m.flat(t), 10))
+    m.compile(optimizer=pt.AdamOptimizer(m, alpha=1e-4,
+                                         moments_dtype=torch.bfloat16),
+              generator=torch.Generator().manual_seed(0))
+    y = np.random.RandomState(28).randint(0, 10, size=(x.shape[0], 1))
+    m.fit(x, y, batch_size=batch, epochs=1)
+    return m
+
+
+def phase_predict(torch):
+    """28: predict on the flagship and on ResNet-50 at full width (see the
+    module docstring), with the f32 witness against the CPU."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    t_phase = time.perf_counter()
+    out = {"phase": "predict", "card": _card_line()}
+    rng = np.random.RandomState(28)
+    n, batch = PREDICT_RUNS["flagship"]
+    model = build_bench_model("cuda", TRAIN["layers"], True, 0)
+    x = rng.randint(0, TRAIN["vocab"], size=(n, TRAIN["seq"])).astype(
+        np.int32)
+    _, out["flagship"] = _predict_run(torch, model, x, batch, "flagship")
+    del model
+    n, batch = PREDICT_RUNS["resnet50"]
+    x = rng.randn(n, 3, 224, 224).astype(np.float32)
+    for name in ("resnet50", "bn_stem"):
+        model = zoo.build("resnet50", "cuda") if name == "resnet50" \
+            else _bn_stem(torch, x[:2 * batch], batch)
+        stats = _host_tree(model.state)
+        _, out[name] = _predict_run(torch, model, x, batch, name)
+        # predict reads the running statistics and writes none
+        same = all(torch.equal(t, model.state[op][v].cpu())
+                   for op, vs in stats.items() for v, t in vs.items())
+        if not same:
+            raise AssertionError(f"predict {name}: the running statistics "
+                                 "changed")
+        out[name]["state_same_bits"] = sum(len(vs) for vs in stats.values())
+        del model
+        torch.cuda.empty_cache()
+    if not out["bn_stem"]["state_same_bits"]:
+        raise AssertionError("predict bn_stem: no running statistics")
+    # the witness: 2 layers, f32, the card against the CPU
+    card = build_bench_model("cuda", 2, False, 0)
+    cpu = build_bench_model("cpu", 2, False, 1)
+    cpu.load_params({op: {w: t.cpu() for w, t in ws.items()}
+                     for op, ws in card.params.items()})
+    x = rng.randint(0, TRAIN["vocab"], size=(11, TRAIN["seq"])).astype(
+        np.int32)
+    p_card = card.predict(x, batch_size=8)
+    p_cpu = cpu.predict(x, batch_size=8)
+    err = float(np.abs(p_card - p_cpu).max())
+    out["witness"] = {"layers": 2, "samples": 11, "max_abs_err": err,
+                      "tolerance": 1e-3}
+    if not err <= 1e-3:
+        raise AssertionError(f"predict witness: card vs CPU {err}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_manual(torch):
+    """29: the manual loop against fit on the flagship, and one truncated
+    iteration (see the module docstring)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    t_phase = time.perf_counter()
+    b = TRAIN["batch"]
+    x, y = _train_batch()
+    model = build_bench_model("cuda", TRAIN["layers"], True, 0)
+    model.fit(np.concatenate([x, x]), np.concatenate([y, y]), batch_size=b,
+              epochs=1)
+    fit_losses = [r["loss"] for r in model.step_records]
+    fit_w = _host_tree(model.params)
+    del model
+    torch.cuda.empty_cache()
+    model = build_bench_model("cuda", TRAIN["layers"], True, 0)
+    model.set_iteration_batch([x], y)
+    losses = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(2):
+        pred = model.forward()
+        losses.append(float(model.loss.fn(pred, model._manual["label"])))
+        model.zero_gradients()
+        model.backward()
+        model.update()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    # a manual iteration: a forward walk and its loss, the backward's walk,
+    # loss and backward, one update
+    want = dict(TRAIN_PER_STEP, flash_fwd=24, layernorm_fwd=48,
+                softmax_fwd=2)
+    _launch_check("manual", {k: v for k, v in launches.items()
+                             if "/" not in k}, want, 2)
+    same_w = all(torch.equal(t.cpu(), fit_w[op][w])
+                 for op, ws in model.params.items() for w, t in ws.items())
+    if losses != fit_losses or not same_w:
+        raise AssertionError(f"manual: losses {losses} against fit's "
+                             f"{fit_losses}, weights equal {same_w}")
+    del fit_w
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    model.forward(seq_length=MANUAL_SEQ)
+    fwd = launch_counts()
+    reset_launch_counts()
+    model.backward(seq_length=MANUAL_SEQ)
+    torch.cuda.synchronize()
+    bwd = launch_counts()
+    finite = all(bool(torch.isfinite(g).all())
+                 for ws in model._manual["grads"].values()
+                 for g in ws.values())
+    wrong = {k: (fwd.get(k, 0), bwd.get(k, 0))
+             for k in set(MANUAL_FORWARD) | set(MANUAL_BACKWARD)
+             if fwd.get(k, 0) != MANUAL_FORWARD.get(k, 0)
+             or bwd.get(k, 0) != MANUAL_BACKWARD.get(k, 0)}
+    if wrong or not finite:
+        raise AssertionError(f"manual seq_length={MANUAL_SEQ}: flash "
+                             f"launches (forward, backward) {wrong}, "
+                             f"finite gradients {finite}")
+    del model
+    torch.cuda.empty_cache()
+    return {"phase": "manual", "card": _card_line(), "iterations": 2,
+            "losses": losses, "fit_losses": fit_losses,
+            "weights_same_bits": True,
+            "tolerance": "losses and final weights equal to fit's bits",
+            "launches": {k: v for k, v in launches.items() if v},
+            "seq_length": MANUAL_SEQ,
+            "truncated_forward_launches": {k: fwd.get(k, 0)
+                                           for k in MANUAL_FORWARD},
+            "truncated_backward_launches": {k: bwd.get(k, 0)
+                                            for k in MANUAL_BACKWARD},
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def phase_checkpoint(torch, lm):
+    """30: durable checkpoints into a captured K = 4 graph, and the
+    tracer's spans (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from flexflow_tpu_torch.obs.tracing import (disable_tracing,
+                                                enable_tracing)
+    from flexflow_tpu_torch.runtime.durability import (
+        DurableCheckpointer, checkpoint_counters, reset_checkpoint_counters)
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    t_phase = time.perf_counter()
+    b, k = TRAIN["batch"], GRAPH_K
+    x, y = _train_batch()
+    xs, ys = np.concatenate([x] * k), np.concatenate([y] * k)
+    tmp = tempfile.mkdtemp(prefix="ff_ckpt_")
+    tracer = enable_tracing()
+    tracer.clear()
+    reset_checkpoint_counters()
+    try:
+        model = build_bench_model("cuda", 2, True, 0)
+        n_params = sum(t.numel() for ws in model.params.values()
+                       for t in ws.values())
+        model.fit(xs, ys, batch_size=b, epochs=1, steps_per_execution=k)
+        ckpt = DurableCheckpointer(tmp, keep_last=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(model, step=model._step_count)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        saved_pred = model.predict(x, batch_size=b)
+        model.fit(xs, ys, batch_size=b, epochs=1, steps_per_execution=k)
+        a = model.step_records[-1]["losses"]
+        counts = dict(model._multi_step(k).counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, _ = ckpt.restore_latest(model)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        model.fit(xs, ys, batch_size=b, epochs=1, steps_per_execution=k)
+        bb = model.step_records[-1]["losses"]
+        graphs = dict(model._multi_step(k).counts)
+        if a != bb or not np.isfinite(a).all():
+            raise AssertionError(f"checkpoint: losses after the restore "
+                                 f"{bb} differ from those after the save "
+                                 f"{a}")
+        if graphs["captures"] != counts["captures"] or \
+                graphs["replays"] != counts["replays"] + 1:
+            raise AssertionError(f"checkpoint: graph counts {counts} -> "
+                                 f"{graphs}, expected one more replay "
+                                 "and no capture")
+        del model
+        fresh = build_bench_model("cuda", 2, True, 1)
+        ckpt.restore_latest(fresh)
+        if not np.array_equal(fresh.predict(x, batch_size=b), saved_pred):
+            raise AssertionError("checkpoint: the restored fresh model "
+                                 "predicts other bits than the saved one")
+        del fresh
+        torch.cuda.empty_cache()
+        counters = checkpoint_counters()
+        spans = {name: len(tracer.events(name)) for name in (
+            "checkpoint.save", "checkpoint.restore", "executor.multi_step",
+            "executor.train_step")}
+        if spans != {"checkpoint.save": 1, "checkpoint.restore": 2,
+                     "executor.multi_step": 3,
+                     "executor.train_step": 0} or any(
+                counters.get(c, 0) < 1
+                for c in ("saved", "verified", "restored")):
+            raise AssertionError(f"checkpoint: spans {spans}, counters "
+                                 f"{counters}")
+        # the batcher's spans, on the scheduler thread's named track
+        tracer.clear()
+        rng = np.random.RandomState(30)
+        with ContinuousBatcher(lm, max_len=1024, num_slots=8, page_size=16,
+                               trace_label="smoke") as cb:
+            reqs = [cb.submit(rng.randint(0, 30522, size=40), 4)
+                    for _ in range(2)]
+            for r in reqs:
+                r.result(timeout=600)
+        trace_path = tracer.export_chrome_trace(os.path.join(tmp,
+                                                             "serve.json"))
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        smoke = {e["tid"] for e in events if e.get("ph") == "M"
+                 and e.get("name") == "thread_name"
+                 and e["args"]["name"] == "smoke"}
+        on_smoke = {}
+        for e in events:
+            if e.get("ph") == "X" and e["tid"] in smoke:
+                on_smoke[e["name"]] = on_smoke.get(e["name"], 0) + 1
+        if not smoke or not on_smoke.get("serve.prefill") or \
+                not on_smoke.get("serve.decode"):
+            raise AssertionError(f"checkpoint: serve spans on the 'smoke' "
+                                 f"thread {on_smoke}")
+    finally:
+        disable_tracing()
+        tracer.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "checkpoint", "card": _card_line(),
+            "params": n_params, "file_bytes": size, "save_s": save_s,
+            "restore_s": restore_s, "restored_step": step,
+            "losses_after_save": a, "losses_after_restore": bb,
+            "graph_counts": graphs, "counters": counters, "spans": spans,
+            "serve_spans_on_smoke": on_smoke,
+            "tolerance": "losses after the restore equal those after the "
+                         "save to the bit; the restored fresh model's "
+                         "predict the saved model's bits",
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def _prefill_probs(torch, model, prompt, chunk, max_len):
     """First-token distribution of `prompt`, prefilled chunk by chunk into
     fresh one-slot caches through the executor (the batcher's path)."""
@@ -3743,11 +4125,26 @@ def main() -> int:
     _emit(dict(phase_moe_witness(torch),
                seconds_since_start=time.perf_counter() - t_start))
 
+    # 28) predict, 29) manual, 30) checkpoint: the rest of the FFModel API,
+    # durable checkpoints and tracing
+    t_api = time.perf_counter()
+    predict = phase_predict(torch)
+    for name in PREDICT_PER_BATCH:
+        zoo_paths[f"predict-{name}"] = predict[name]["launches"]
+    _emit(dict(predict, seconds_since_start=time.perf_counter() - t_start))
+    manual = phase_manual(torch)
+    zoo_paths["manual"] = manual["launches"]
+    _emit(dict(manual, seconds_since_start=time.perf_counter() - t_start))
+    _emit(dict(phase_checkpoint(torch, lm),
+               seconds_since_start=time.perf_counter() - t_start))
+    print(f"phases 28-30: {time.perf_counter() - t_api:.1f} s", flush=True)
+
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
     # on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
-    # phases 16-20 and the zoo's eager fits), each counted from 0 just
-    # before its path ran
+    # phases 16-20, the zoo's eager fits, predict's first call of each
+    # model and the manual loop's two iterations), each counted from 0
+    # just before its path ran
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:130",

@@ -18,7 +18,11 @@ dataloader-driven fit, the six metrics, the elementwise, shape and
 reduction ops), the op set and model zoo apart from MoE (conv, pool,
 flat, batch norm with its running statistics as op state, dropout and
 attention dropout from a seeded per-model generator, LSTM, embedding
-bags; `models`), over hand-written CUDA kernels (kernels/, csrc/): decode
+bags; `models`), mixture of experts, the rest of the FFModel API
+(`predict`, the manual loop, regularizers, `summary`, the Tensor value
+API) and durable checkpoints in the JAX package's format with the span
+tracer (runtime/checkpoint.py, runtime/durability.py, obs/tracing.py),
+over hand-written CUDA kernels (kernels/, csrc/): decode
 attention, flash attention forward and backward (packed and
 head-separated), LayerNorm, RMSNorm and softmax forward and backward,
 the scalar reduction and the scan, and the Adam / SGD update over a

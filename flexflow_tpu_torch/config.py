@@ -14,6 +14,14 @@ from typing import Sequence
 class FFConfig:
     batch_size: int = 64
     epochs: int = 1
+    # the JAX package's fields of the same names and defaults; the port
+    # reads none of them yet (JAX's CLI passes steps_per_execution to fit,
+    # and StepStats' printing under --profiling is ROADMAP A9.2)
+    iterations: int = 1
+    steps_per_execution: int = 1
+    weight_decay: float = 0.0001
+    print_freq: int = 10
+    profiling: bool = False
     # SGD's learning rate when compile() is given no optimizer
     learning_rate: float = 0.01
     # bf16 matmul inputs and bf16 activations at op boundaries, f32
@@ -51,8 +59,18 @@ class FFConfig:
                 self.batch_size = int(take())
             elif a in ("-e", "--epochs"):
                 self.epochs = int(take())
+            elif a in ("-i", "--iterations"):
+                self.iterations = int(take())
+            elif a == "--steps-per-execution":
+                self.steps_per_execution = int(take())
             elif a in ("--lr", "--learning-rate"):
                 self.learning_rate = float(take())
+            elif a in ("--wd", "--weight-decay"):
+                self.weight_decay = float(take())
+            elif a == "--print-freq":
+                self.print_freq = int(take())
+            elif a == "--profiling":
+                self.profiling = True
             elif a == "--flash-block-q":
                 self.flash_block_q = int(take())
             elif a == "--flash-block-k":
@@ -67,7 +85,9 @@ class FFConfig:
                 self.kernel_impl = v
             else:
                 raise ValueError(f"flag {a!r} is not ported (flags: "
-                                 "--batch-size, --epochs, --learning-rate, "
-                                 "--flash-block-q, --flash-block-k, "
-                                 "--kernel-impl, --seed)")
+                                 "--batch-size, --epochs, --iterations, "
+                                 "--steps-per-execution, --learning-rate, "
+                                 "--weight-decay, --print-freq, "
+                                 "--profiling, --flash-block-q, "
+                                 "--flash-block-k, --kernel-impl, --seed)")
             i += 1

@@ -22,7 +22,15 @@ statistics, the JAX package's `model.state`) is held as buffers of the
 op, beside its weights, replicated on a mesh (`FFModel.state`). A
 training walk, or one handed `model.state`, updates them in place
 outside autograd (`Op.writes_state`), so a CUDA graph of training steps
-updates them at every replay; other walks read them.
+updates them at every replay; other walks read them. The manual loop's
+backward is a training walk that writes none (`LoweringContext.
+write_state`): its forward already did.
+
+`Op.weights` holds one graph `Tensor` a weight (the JAX package's
+`Parameter` handles: `_weight_spec`, `owner_op`), through which
+`FFModel.summary`, `Tensor.get_tensor` and `Tensor.set_tensor` reach
+the weights. They are handles, not data: a plain list, outside the
+module's parameter registry.
 """
 from __future__ import annotations
 
@@ -80,6 +88,12 @@ class LoweringContext:
         # the ops' auxiliary losses (the MoE load-balance loss), which a
         # training step adds to its loss (JAX `ctx.aux_losses`)
         self.aux_losses: List[torch.Tensor] = []
+        # FFIterationConfig.seq_length (JAX `iter_seq_length`): ops with a
+        # sequence dim compute on the first L positions and pad back
+        self.iter_seq_length: Optional[int] = None
+        # False: a training walk that leaves the ops' state as it is (the
+        # manual loop's backward, whose forward wrote it)
+        self.write_state = True
 
 
 class Op(nn.Module):
@@ -101,6 +115,14 @@ class Op(nn.Module):
             for i, (dims, dtype) in enumerate(zip(out_dims, out_dtypes))
         ]
         self.specs: List[WeightSpec] = list(self.weight_specs())
+        # one handle a weight (JAX `Op.weights`): a plain list, so no
+        # module registry sees them
+        self.weights: List[Tensor] = []
+        for ws in self.specs:
+            t = Tensor(ws.dims, ws.dtype, name=f"{self.name}.{ws.name}",
+                       owner_op=self)
+            t._weight_spec = ws
+            self.weights.append(t)
         self.state_vars: List[WeightSpec] = list(self.state_specs())
         # compute-dtype copies of the weights (bf16 under mixed precision)
         # for reads outside autograd, each beside the version of the master
@@ -201,9 +223,18 @@ class Op(nn.Module):
         """Whether this walk writes the op's state buffers: a training
         walk, or a walk handed `state` under this op's name (`model.state`,
         whose entries are these buffers: the JAX package keeps the updates
-        of a walk given `model.state`). Eval, predict and the serving
-        walks, which hold only KV caches, read them and write nothing."""
+        of a walk given `model.state`), unless `ctx.write_state` is off
+        (the manual backward). Eval, predict and the serving walks, which
+        hold only KV caches, read them and write nothing."""
+        if not ctx.write_state:
+            return False
         return ctx.mode == CompMode.COMP_MODE_TRAINING or self.name in ctx.state
+
+    def __repr__(self):
+        """JAX `Op.__repr__` (what `FFModel.print_layers` prints)."""
+        ins = ",".join(str(t.dims) for t in self.inputs)
+        outs = ",".join(str(t.dims) for t in self.outputs)
+        return f"{self.op_type.value}[{self.name}]({ins})->({outs})"
 
 
 # registry: OpType -> Op subclass

@@ -1,6 +1,7 @@
-"""FFModel: the layer API, compile, fit and eval on one torch device or
-on a data x model mesh of torch.distributed ranks (the subset of
-flexflow_tpu/model.py the ported slices use).
+"""FFModel: the layer API, compile, fit, eval, predict and the manual
+loop on one torch device or on a data x model mesh of torch.distributed
+ranks (flexflow_tpu/model.py but for the strategy search, plan
+analysis, the parallel-op layer methods and the elastic hooks).
 
 Op names follow the JAX package's scheme (an explicit name, else
 `<op type>_<n>` per model), so the same builder code gives the same op
@@ -24,6 +25,7 @@ from .core.tensor import ParallelDim, ParallelTensorShape, Tensor
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OpType, PoolType)
 from .kernels.registry import KERNELS
+from .obs.tracing import get_tracer
 from .runtime.collectives import gather_shards
 from .runtime.executor import Executor, MultiStep
 from .runtime.losses import Loss
@@ -63,6 +65,26 @@ class FFModel:
         # each step or dispatch (runtime/recompile.py)
         self._step_count = 0
         self._recompile_state = None
+        self.loss: Optional[Loss] = None
+        self.metrics: Optional[Metrics] = None
+        # fit's running PerfMetrics, reset at each epoch (JAX
+        # `perf_metrics`)
+        self.perf_metrics = PerfMetrics()
+        # (op name, weight name, fn) terms of the training loss
+        self.weight_regularizers: List[Tuple[str, str, object]] = []
+        self._reg_fn = None
+        # the manual loop's batch, prediction, generator states, gradients
+        # and per-seq_length steps
+        self._manual: Dict[str, object] = {}
+
+    def add_weight_regularizer(self, op_name: str, weight_name: str,
+                               fn) -> None:
+        """Add fn(weight) to the training loss (JAX
+        `add_weight_regularizer`; Keras' kernel_regularizer): `fn` maps
+        the f32 master tensor to a 0-d tensor. Every dispatch of `fit`
+        (eager, K-step graph, accumulation) adds it; eval's loss and the
+        manual loop's backward do not, as in JAX. Call before compile."""
+        self.weight_regularizers.append((op_name, weight_name, fn))
 
     @property
     def device(self) -> torch.device:
@@ -75,13 +97,17 @@ class FFModel:
     # -- tensor & op creation ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
                       dtype: DataType = DataType.DT_FLOAT,
-                      name: str = "") -> Tensor:
+                      create_grad: bool = True, name: str = "") -> Tensor:
+        """A graph input. `create_grad` is recorded on the tensor, as in
+        JAX; inputs take no gradients in either package."""
         op = OP_REGISTRY[OpType.INPUT](
             self, [], name=name or f"input_{len(self.input_ops)}",
             dims=tuple(dims), dtype=dtype)
         self.ops.append(op)
         self.input_ops.append(op)
-        return op.outputs[0]
+        t = op.outputs[0]
+        t.create_gradients = create_grad
+        return t
 
     def _add_op(self, op_type: OpType, inputs: Sequence[Tensor],
                 name: str = "", **params) -> Op:
@@ -319,8 +345,9 @@ class FFModel:
     def dense(self, input: Tensor, out_dim: int,
               activation: ActiMode = ActiMode.AC_MODE_NONE,
               use_bias: bool = True, datatype: Optional[DataType] = None,
-              kernel_initializer=None, bias_initializer=None,
+              shared_op=None, kernel_initializer=None, bias_initializer=None,
               name: str = "") -> Tensor:
+        """`shared_op` is accepted and ignored, as in JAX."""
         return self._add_op(
             OpType.LINEAR, [input], name, out_dim=out_dim,
             activation=activation, use_bias=use_bias, dtype=datatype,
@@ -394,8 +421,9 @@ class FFModel:
 
     def embedding(self, input: Tensor, num_entries: int, out_dim: int,
                   aggr: AggrMode = AggrMode.AGGR_MODE_NONE,
-                  dtype: DataType = DataType.DT_FLOAT,
+                  dtype: DataType = DataType.DT_FLOAT, shared_op=None,
                   kernel_initializer=None, name: str = "") -> Tensor:
+        """`shared_op` is accepted and ignored, as in JAX."""
         return self._add_op(
             OpType.EMBEDDING, [input], name, num_entries=num_entries,
             out_dim=out_dim, aggr=aggr, dtype=dtype,
@@ -404,8 +432,11 @@ class FFModel:
     def multihead_attention(self, query: Tensor, key: Tensor, value: Tensor,
                             embed_dim: int, num_heads: int, kdim: int = 0,
                             vdim: int = 0, dropout: float = 0.0,
-                            bias: bool = True, causal: bool = False,
+                            bias: bool = True, add_bias_kv: bool = False,
+                            add_zero_attn: bool = False,
+                            causal: bool = False,
                             sequence_parallel: bool = False,
+                            sequence_parallel_mode: str = "ring",
                             use_flash: Optional[bool] = None,
                             kernel_initializer=None,
                             name: str = "") -> Tensor:
@@ -413,12 +444,19 @@ class FFModel:
         flash kernel / the einsum reference core; None leaves it to the
         kernel registry. dropout > 0 drops out the probabilities in
         training through the einsum core (ops/attention.py);
-        sequence_parallel raises (ROADMAP A8)."""
+        sequence_parallel raises (ROADMAP A8). `add_bias_kv` and
+        `add_zero_attn` are recorded in the op's params and change
+        nothing, as in the JAX package's lowering, which reads neither;
+        `sequence_parallel_mode` is recorded for the sequence-parallel
+        path."""
         return self._add_op(
             OpType.MULTIHEAD_ATTENTION, [query, key, value], name,
             embed_dim=embed_dim, num_heads=num_heads, kdim=kdim or None,
-            vdim=vdim or None, dropout=dropout, bias=bias, causal=causal,
-            sequence_parallel=sequence_parallel, use_flash=use_flash,
+            vdim=vdim or None, dropout=dropout, bias=bias,
+            add_bias_kv=add_bias_kv, add_zero_attn=add_zero_attn,
+            causal=causal, sequence_parallel=sequence_parallel,
+            sequence_parallel_mode=sequence_parallel_mode,
+            use_flash=use_flash,
             kernel_initializer=kernel_initializer).outputs[0]
 
     # -- compile ----------------------------------------------------------
@@ -444,11 +482,19 @@ class FFModel:
         model from the same generator and keeps its shards, so a mesh run
         starts from the one-device run's weights. The other axes, strategy
         import, row-parallel pairs and sharded serving raise (A8). In
-        training mode (the default, as in the JAX package) the weights
-        take gradients, `optimizer` defaults to SGD at
-        `config.learning_rate`, and the train and eval steps are built;
-        COMP_MODE_INFERENCE builds the executor only (the serving
-        path)."""
+        either mode the loss, the metrics, eval's step and the forward
+        walks of `predict` and the manual loop are built (JAX builds them
+        in every mode); in training mode (the default, as in the JAX
+        package) the weights take gradients, `optimizer` defaults to SGD
+        at `config.learning_rate`, and the train step and the optimizer
+        state are built too. The whole pass is one `compile` span, the
+        step build a `compile.build_steps` span inside it."""
+        with get_tracer().span("compile", ops=len(self.ops)):
+            self._compile_inner(optimizer, loss_type, metrics, comp_mode,
+                                parallel_axes, generator)
+
+    def _compile_inner(self, optimizer, loss_type, metrics, comp_mode,
+                       parallel_axes, generator) -> None:
         axes = check_axes(parallel_axes or {})
         self.mesh = None
         if axes:
@@ -471,16 +517,15 @@ class FFModel:
         training = comp_mode == CompMode.COMP_MODE_TRAINING
         self.graph = Graph(self.ops)
         order = self.graph.topo_order()
+        # the op list in the graph's order, as JAX's compile leaves it
+        # (summary, get_layers and get_layer_by_id read it)
+        self.ops = list(order)
         self.final_tensor = self.final_tensor or order[-1].outputs[0]
         self.executor = Executor(self.graph, self.config, self.mesh)
         self._multi_steps, self._accum_step = {}, None
         self._assign_strategy(order)
         for op in order:
             op.init_weights(generator, self.device, trainable=training)
-        if not training:
-            return
-        self.optimizer = optimizer or SGDOptimizer(
-            self, lr=self.config.learning_rate)
         self.loss = Loss(loss_type)
         self.metrics = Metrics(loss_type, list(metrics))
         # the label mirrors the final tensor (JAX `_label_dims`)
@@ -489,11 +534,56 @@ class FFModel:
             fd[:-1] + (1,) if loss_type ==
             LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY else fd,
             self._label_dtype(), name="label")
-        self._train_step = self.executor.build_train_step(
-            self.optimizer, self.loss.fn, self.metrics, self.final_tensor)
-        self._eval_step = self.executor.build_eval_step(
-            self.loss.fn, self.metrics, self.final_tensor)
-        self.opt_state = self.optimizer.init_state(self.executor.parameters())
+        if training:
+            self.optimizer = optimizer or SGDOptimizer(
+                self, lr=self.config.learning_rate)
+        self._reg_fn = self._make_reg_fn()
+        self._build_steps()
+        if training:
+            self.opt_state = self.optimizer.init_state(
+                self.executor.parameters())
+
+    def _make_reg_fn(self):
+        """The weight regularizers' sum over the parameters (JAX
+        `reg_fn`), None without any. A weight sharded over `model` raises:
+        fn would see one shard."""
+        if not self.weight_regularizers:
+            return None
+        by_name = {op.name: op for op in self.ops}
+        regs = [(o, w, fn) for o, w, fn in self.weight_regularizers
+                if o in by_name and by_name[o].has_weight(w)]
+        for o, w, _ in regs:
+            if w in by_name[o].shards:
+                raise NotImplementedError(
+                    f"a regularizer of {o}/{w}, which is sharded over "
+                    "`model`, is not ported yet (ROADMAP A8)")
+
+        def reg_fn(params):
+            total = 0.0
+            for o, w, fn in regs:
+                total = total + fn(params[o][w])
+            return total
+
+        return reg_fn
+
+    def _build_steps(self) -> None:
+        """The step functions (JAX `_build_step_functions`): train (in
+        training mode), eval, predict's inference walk and the manual
+        loop's forward (in the compile mode) and backward; the K-step and
+        accumulation steps are built at first use."""
+        with get_tracer().span("compile.build_steps"):
+            ex, final = self.executor, self.final_tensor
+            if self.comp_mode == CompMode.COMP_MODE_TRAINING:
+                self._train_step = ex.build_train_step(
+                    self.optimizer, self.loss.fn, self.metrics, final,
+                    self._reg_fn)
+                self._grad_step = ex.build_grad_step(self.loss.fn, final)
+            self._eval_step = ex.build_eval_step(self.loss.fn, self.metrics,
+                                                 final)
+            self._forward_fn = ex.build_forward(final, self.comp_mode)
+            self._infer_fn = ex.build_forward(final)
+            self._multi_steps, self._accum_step = {}, None
+            self._manual.pop("seq_fns", None)
 
     def _assign_strategy(self, order: Sequence[Op]) -> None:
         """The mesh-wide strategy (JAX `_assign_strategy`, its data and
@@ -543,17 +633,23 @@ class FFModel:
         on a mesh with a `data` axis, this rank's equal slice of them (the
         whole batch, replicated, when it does not divide, as JAX's
         shard_batch replicates)."""
-        dp = self.mesh.size("data") if self.mesh is not None else 1
-        if dp > 1 and (hi - lo) % dp == 0:
-            n = (hi - lo) // dp
-            lo += self.mesh.index("data") * n
-            hi = lo + n
+        lo, hi = self._data_slice(lo, hi)
         inputs = {op.name: np.ascontiguousarray(arr[lo:hi]).astype(
             op.outputs[0].dtype.host_np_dtype)
             for op, arr in zip(self.input_ops, x)}
         label = np.ascontiguousarray(y[lo:hi]).astype(
             self._label_dtype().np_dtype)
         return inputs, label
+
+    def _data_slice(self, lo: int, hi: int) -> Tuple[int, int]:
+        """This rank's equal part of samples [lo, hi) on a `data` axis that
+        divides them; all of them otherwise."""
+        dp = self.mesh.size("data") if self.mesh is not None else 1
+        if dp > 1 and (hi - lo) % dp == 0:
+            n = (hi - lo) // dp
+            lo += self.mesh.index("data") * n
+            hi = lo + n
+        return lo, hi
 
     def _batch(self, x: Sequence[np.ndarray], y, lo: int, hi: int):
         """(inputs, label) of samples [lo, hi) on this rank's device
@@ -563,6 +659,10 @@ class FFModel:
     def _require_training(self, what: str) -> None:
         if self.comp_mode != CompMode.COMP_MODE_TRAINING:
             raise RuntimeError(f"{what} needs compile() in training mode")
+
+    def _require_compiled(self, what: str) -> None:
+        if self.executor is None:
+            raise RuntimeError(f"{what} needs compile()")
 
     def _attach_dataloader(self, dl) -> None:
         self._dataloaders.append(dl)
@@ -589,7 +689,8 @@ class FFModel:
     def fit(self, x: Union[np.ndarray, Sequence[np.ndarray], None] = None,
             y: Optional[np.ndarray] = None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, accum_steps: int = 1,
-            steps_per_execution: int = 1) -> List[Dict[str, float]]:
+            steps_per_execution: int = 1,
+            verbose: bool = False) -> List[Dict[str, float]]:
         """Train on (x, y) for `epochs` passes of n // batch_size steps; with
         no x and y, on batches pulled from the attached dataloaders
         (runtime/dataloader.py), whose num_samples is n.
@@ -612,7 +713,9 @@ class FFModel:
         (batch_size * K) samples through the single step, so an epoch
         takes the n // batch_size updates of plain fit; a dispatch's
         metrics are read after the next one is queued. The two are
-        mutually exclusive, as in the JAX package."""
+        mutually exclusive, as in the JAX package. `perf_metrics` holds
+        the current epoch's running metrics; `verbose` prints JAX's line
+        an epoch."""
         self._require_training("fit()")
         if steps_per_execution > 1 and accum_steps > 1:
             raise ValueError(
@@ -663,7 +766,8 @@ class FFModel:
         self.step_records = []
         history: List[Dict[str, float]] = []
         for epoch in range(epochs):
-            perf = PerfMetrics()
+            self.reset_metrics()
+            perf = self.perf_metrics
             t_epoch = time.time()
             if k > 1:
                 chunks = n // (bs * k)
@@ -709,6 +813,12 @@ class FFModel:
             summ["throughput"] = updates * bs * micro / (time.time() - t_epoch)
             history.append(summ)
             self._publish_moe_metrics()
+            if verbose:
+                loss = self.step_records[-1]["loss"] if self.step_records \
+                    else 0
+                print(f"epoch {epoch}: loss={loss:.4f} "
+                      f"acc={summ['accuracy']:.4f} "
+                      f"{summ['throughput']:.1f} samples/s")
         return history
 
     def _before_step(self, steps: int, hook: bool = True) -> None:
@@ -742,13 +852,9 @@ class FFModel:
         every walk, and the captured K-step graphs and the accumulation
         step are dropped, so the next dispatch captures the new dataflow.
         Weights and optimizer state carry over."""
-        if self.comp_mode != CompMode.COMP_MODE_TRAINING:
+        if self.executor is None:
             return
-        self._train_step = self.executor.build_train_step(
-            self.optimizer, self.loss.fn, self.metrics, self.final_tensor)
-        self._eval_step = self.executor.build_eval_step(
-            self.loss.fn, self.metrics, self.final_tensor)
-        self._multi_steps, self._accum_step = {}, None
+        self._build_steps()
 
     def _record(self, perf: PerfMetrics, rec: Dict[str, float], epoch: int,
                 samples: int, steps: int, dt: float) -> None:
@@ -776,14 +882,14 @@ class FFModel:
         if k not in self._multi_steps:
             self._multi_steps[k] = self.executor.build_multi_step(
                 self.optimizer, self.loss.fn, self.metrics,
-                self.final_tensor, k)
+                self.final_tensor, k, self._reg_fn)
         return self._multi_steps[k]
 
     def _get_accum_step(self):
         if self._accum_step is None:
             self._accum_step = self.executor.build_accum_step(
                 self.optimizer, self.loss.fn, self.metrics,
-                self.final_tensor)
+                self.final_tensor, self._reg_fn)
         return self._accum_step
 
     def eval(self, x, y, batch_size: Optional[int] = None
@@ -791,8 +897,9 @@ class FFModel:
         """The JAX package's `eval`: `PerfMetrics.summary()` over (x, y),
         the tail batch included (samples, accuracy as round(accuracy x
         batch) correct samples a batch, loss, cce, sparse_cce, mse, rmse,
-        mae); batch i's metrics are read after batch i + 1 is queued."""
-        self._require_training("eval()")
+        mae); batch i's metrics are read after batch i + 1 is queued.
+        Either compile mode."""
+        self._require_compiled("eval()")
         if isinstance(x, np.ndarray):
             x = [x]
         bs = batch_size or self.config.batch_size
@@ -809,6 +916,125 @@ class FFModel:
         if pending is not None:
             pm.update(pending[0], {k: float(v) for k, v in pending[1].items()})
         return pm.summary()
+
+    # -- manual loop (JAX `set_iteration_batch` ... `update`) ---------------
+    def set_iteration_batch(self, inputs: Sequence[np.ndarray],
+                            label: np.ndarray) -> None:
+        """The batch the manual loop's forward and backward run on (this
+        rank's part of it on a `data` axis)."""
+        inputs = list(inputs)
+        n = inputs[0].shape[0]
+        self._manual["inputs"], self._manual["label"] = \
+            self._batch(inputs, np.asarray(label), 0, n)
+
+    def _seq_fn(self, kind: str, seq_length: Optional[int]):
+        """The forward ("fwd") or backward ("grad") step at an iteration
+        seq_length (JAX `_seq_fn`): the compiled ones for None, else one
+        built a length and kept until the steps are rebuilt."""
+        if seq_length is None:
+            return self._forward_fn if kind == "fwd" else self._grad_step
+        cache = self._manual.setdefault("seq_fns", {})
+        key = (kind, int(seq_length))
+        if key not in cache:
+            if kind == "fwd":
+                cache[key] = self.executor.build_forward(
+                    self.final_tensor, self.comp_mode, seq_length=key[1])
+            else:
+                cache[key] = self.executor.build_grad_step(
+                    self.loss.fn, self.final_tensor, seq_length=key[1])
+        return cache[key]
+
+    def forward(self, seq_length: Optional[int] = None) -> torch.Tensor:
+        """One walk of the iteration batch in the compile mode (JAX
+        `forward`); returns the final tensor's value, detached. In a
+        training compile it is a training walk (dropout, batch
+        statistics) that updates the ops' state, as JAX's keeps its new
+        state, and it saves the dropout generator's state, which
+        `backward` replays, so the backward's walk draws this forward's
+        masks. Autograd records nothing here: the backward walks again,
+        as JAX's grad step does, so no graph is held between the two.
+        Advances the step count, as JAX's `_next_rng` does."""
+        self._require_compiled("forward()")
+        self._step_count += 1
+        training = self.comp_mode == CompMode.COMP_MODE_TRAINING
+        gen = self.executor.generator if training else None
+        if gen is not None:
+            self._manual["rng"] = gen.get_state()
+        pred = self._seq_fn("fwd", seq_length)(self._manual["inputs"])
+        self._manual["pred"] = pred
+        return pred
+
+    def zero_gradients(self) -> None:
+        self._manual.pop("grads", None)
+
+    def backward(self, seq_length: Optional[int] = None) -> None:
+        """The gradients of the loss (with the auxiliary losses, without
+        the regularizers, as JAX's grad step) at the iteration batch:
+        a training walk from the generator state the last `forward` saved
+        (the same dropout masks), which writes no op state; the generator
+        is then put back where the forward left it. Without a forward
+        before it, the walk draws new masks."""
+        self._require_training("backward()")
+        gen = self.executor.generator
+        saved = self._manual.pop("rng", None)
+        after = gen.get_state()
+        if saved is not None:
+            gen.set_state(saved)
+        try:
+            self._manual["grads"] = self._seq_fn("grad", seq_length)(
+                self._manual["inputs"], self._manual["label"])
+        finally:
+            if saved is not None:
+                gen.set_state(after)
+
+    def update(self) -> None:
+        """One optimizer update from `backward`'s gradients: one call of
+        the fused update, as a `fit` step makes."""
+        self._require_training("update()")
+        grads = self._manual.get("grads")
+        if grads is None:
+            raise RuntimeError("update() needs backward() first")
+        self.optimizer.update(self.executor.parameters(), grads,
+                              self.opt_state, self.config)
+
+    # -- batched inference --------------------------------------------------
+    def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
+        """The final tensor's values over x, f32 numpy (a bf16 output
+        widened, as JAX's `fetch`), batch by batch with the tail batch:
+        an inference walk a batch that reads the ops' state and writes
+        none (batch norm uses its running statistics); batch i's output is
+        read after batch i + 1 is queued. Either compile mode. On a mesh
+        each rank walks its part of a batch that the `data` axis divides
+        (all of it otherwise) and every rank returns the whole output."""
+        self._require_compiled("predict()")
+        if isinstance(x, np.ndarray):
+            x = [x]
+        bs = batch_size or self.config.batch_size
+        n = x[0].shape[0]
+        outs: List[np.ndarray] = []
+        pending = None
+        for lo in range(0, n, bs):
+            hi = min(lo + bs, n)
+            a, b = self._data_slice(lo, hi)
+            inputs = {op.name: torch.from_numpy(np.ascontiguousarray(
+                arr[a:b]).astype(op.outputs[0].dtype.host_np_dtype)).to(
+                    self.device) for op, arr in zip(self.input_ops, x)}
+            pred = self._infer_fn(self.executor.cast_inputs(inputs))
+            if b - a < hi - lo:
+                pred = gather_shards(pred, 0, self.mesh.group("data"),
+                                     self.mesh.size("data"))
+            if pending is not None:
+                outs.append(pending.float().cpu().numpy())
+            pending = pred
+        if pending is not None:
+            outs.append(pending.float().cpu().numpy())
+        return np.concatenate(outs, axis=0)
+
+    def reset_metrics(self) -> None:
+        self.perf_metrics = PerfMetrics()
+
+    def get_perf_metrics(self) -> PerfMetrics:
+        return self.perf_metrics
 
     def set_learning_rate(self, lr: float) -> None:
         """Change the learning rate in place (`opt_state["lr"]`): the next
@@ -855,6 +1081,91 @@ class FFModel:
                 t.copy_(val)
             mine["step"].fill_(int(np.asarray(state["step"])))
             mine["lr"].fill_(float(np.asarray(state["lr"])))
+
+    # -- tensor values and layer queries (JAX `model.py:1676-1850`) --------
+    def _whole_weight(self, op: Op, name: str) -> np.ndarray:
+        """Weight `name` of `op` whole, as f32 numpy (gathered over `model`
+        on a mesh: every rank of the mesh calls it)."""
+        t = op.w(name).detach()
+        pt = op.shards.get(name)
+        if pt is not None:
+            (d,) = pt.sharded_dims()
+            t = gather_shards(t, d, self.mesh.group("model"),
+                              self.mesh.size("model"))
+        return t.float().cpu().numpy()
+
+    def _weight_of(self, tensor: Tensor):
+        """(op, weight name) of a weight handle with compiled weights;
+        None for any other tensor or before compile; a handle whose op is
+        not in this model raises (stale after a graph change)."""
+        ws = getattr(tensor, "_weight_spec", None)
+        op = tensor.owner_op
+        if ws is None or op is None:
+            return None
+        if not any(o is op for o in self.ops):
+            raise KeyError(f"no compiled parameters for op {op.name!r} "
+                           "(stale tensor handle after a graph rewrite?)")
+        return (op, ws.name) if op.has_weight(ws.name) else None
+
+    def _get_tensor_value(self, tensor: Tensor) -> Optional[np.ndarray]:
+        loc = self._weight_of(tensor)
+        return None if loc is None else self._whole_weight(*loc)
+
+    def _set_tensor_value(self, tensor: Tensor, value: np.ndarray) -> None:
+        loc = self._weight_of(tensor)
+        if loc is not None:
+            loc[0].set_weight(loc[1], torch.from_numpy(np.asarray(value)))
+
+    def get_parameter_by_id(self, op_name: str,
+                            weight_name: str) -> np.ndarray:
+        """A weight's whole value by op and weight name, f32 numpy (a bf16
+        weight widened)."""
+        for op in self.ops:
+            if op.name == op_name and op.has_weight(weight_name):
+                return self._whole_weight(op, weight_name)
+        raise KeyError(f"no parameters for op {op_name!r}")
+
+    def summary(self, print_fn=print) -> str:
+        """Keras-style model summary, character for character the JAX
+        package's: one row per op with its output shape and parameter
+        count."""
+        rows = [("Op (type)", "Output shape", "Params")]
+        total = 0
+        for op in self.ops:
+            if op.op_type == OpType.INPUT:
+                shape = str(tuple(op.outputs[0].dims))
+                rows.append((f"{op.name} (input)", shape, "0"))
+                continue
+            n = sum(w.num_elements() for w in op.weights)
+            total += n
+            shape = str(tuple(op.outputs[0].dims)) if op.outputs else "-"
+            rows.append((f"{op.name} ({op.op_type.value})", shape, f"{n:,}"))
+        w0 = max(len(r[0]) for r in rows) + 2
+        w1 = max(len(r[1]) for r in rows) + 2
+        lines = [f"{r[0]:<{w0}}{r[1]:<{w1}}{r[2]:>10}" for r in rows]
+        sep = "=" * (w0 + w1 + 10)
+        out = "\n".join(
+            [sep, lines[0], sep] + lines[1:]
+            + [sep, f"Total params: {total:,}", sep])
+        if print_fn is not None:
+            print_fn(out)
+        return out
+
+    def get_layers(self) -> List[Op]:
+        return list(self.ops)
+
+    def get_layer_by_id(self, layer_id: int) -> Op:
+        return self.ops[layer_id]
+
+    def get_layer_by_name(self, name: str) -> Op:
+        for op in self.ops:
+            if op.name == name:
+                return op
+        raise KeyError(f"no layer named {name!r}")
+
+    def print_layers(self, id: int = -1) -> None:
+        for op in self.ops:
+            print(op)
 
     # -- weights ----------------------------------------------------------
     @property

@@ -1,11 +1,15 @@
 """Observability of the port: labelled counters, gauges and histograms
-and their Prometheus exposition (obs/registry.py), and the MoE router's
-families (obs/moe.py); tracing, step stats and the fleet's merged render
-come with ROADMAP A9 and A10."""
+and their Prometheus exposition (obs/registry.py), the MoE router's
+families (obs/moe.py) and the span tracer with its Chrome-trace export
+(obs/tracing.py); step stats and the fleet's merged render come with
+ROADMAP A9.2 and A10."""
 from .moe import moe_router_families, publish_moe_metrics, \
     reset_moe_publisher
 from .registry import REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
+from .tracing import (Tracer, disable_tracing, enable_tracing, get_tracer,
+                      span)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
+           "Tracer", "disable_tracing", "enable_tracing", "get_tracer",
            "moe_router_families", "publish_moe_metrics",
-           "reset_moe_publisher"]
+           "reset_moe_publisher", "span"]

@@ -1,9 +1,10 @@
 """Labelled metrics: a host-only copy of flexflow_tpu/obs/registry.py's
 primitives (`Counter`, `Gauge`, `Histogram` with quantiles) and its
 Prometheus exposition renderer, so the port's metric families keep the
-JAX package's names, labels and text. The merged multi-registry render,
-the exposition parser and the checkpoint-counter shim come with the rest
-of obs/ and the fleet (ROADMAP A9, A10).
+JAX package's names, labels and text, and `counters_with_prefix`, behind
+runtime/durability.py's `checkpoint_counters()`. The merged
+multi-registry render and the exposition parser come with the rest of
+obs/ and the fleet (ROADMAP A9.2, A10).
 
 Design rules (the JAX module's):
  - a metric family is (name, kind, label names); asking again for an
@@ -347,6 +348,21 @@ class MetricsRegistry:
     def get(self, name: str) -> Optional[_Family]:
         with self._lock:
             return self._families.get(name)
+
+    def counters_with_prefix(self, prefix: str,
+                             suffix: str = "_total") -> Dict[str, int]:
+        """{middle: value} of the nonzero unlabeled counters named
+        <prefix><middle><suffix> (JAX `counters_with_prefix`, behind
+        `checkpoint_counters()`)."""
+        out: Dict[str, int] = {}
+        for fam in self.families():
+            if (isinstance(fam, Counter) and not fam.label_names
+                    and fam.name.startswith(prefix)
+                    and fam.name.endswith(suffix)):
+                v = fam.value()
+                if v:
+                    out[fam.name[len(prefix):-len(suffix)]] = int(v)
+        return out
 
     def reset_all(self, prefix: Optional[str] = None) -> None:
         """Zero every family's values (the families stay registered);

@@ -178,7 +178,18 @@ class MultiHeadAttentionOp(Op):
 
     def lower(self, ctx, inputs):
         if ctx.decode_pos is None:
-            return [self._full_sequence(ctx, *inputs[:3])]
+            q_in, k_in, v_in = inputs[:3]
+            full = q_in.shape[1]
+            trunc = ctx.iter_seq_length
+            if trunc is None or trunc >= full:
+                return [self._full_sequence(ctx, q_in, k_in, v_in)]
+            # iteration truncation (JAX `ops/attention.py:89-109, 302-303`):
+            # the first L positions through whichever core the walk takes,
+            # the output padded back with zeros
+            out = self._full_sequence(ctx, q_in[:, :trunc],
+                                      k_in[:, :min(trunc, k_in.shape[1])],
+                                      v_in[:, :min(trunc, v_in.shape[1])])
+            return [torch.nn.functional.pad(out, (0, 0, 0, full - trunc))]
         if self.name not in ctx.state:
             raise ValueError(f"{self.name}: decode_pos given but no KV "
                              "caches in the state")

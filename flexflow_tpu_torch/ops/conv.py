@@ -158,7 +158,9 @@ class Pool2DOp(Op):
 
 @register_op
 class FlatOp(Op):
-    """(N, C, H, W) -> (N, C * H * W)."""
+    """(N, C, H, W) -> (N, C * H * W), N the walk's own batch: `predict`'s
+    tail batch is smaller than the declared one (the JAX op reshapes to
+    the declared dims, so its predict stops at such a tail)."""
 
     op_type = OpType.FLAT
 
@@ -167,7 +169,7 @@ class FlatOp(Op):
         return [(x.dims[0], int(np.prod(x.dims[1:])))], [x.dtype]
 
     def lower(self, ctx, inputs):
-        return [inputs[0].reshape(self.outputs[0].dims)]
+        return [inputs[0].reshape(inputs[0].shape[0], -1)]
 
 
 @register_op

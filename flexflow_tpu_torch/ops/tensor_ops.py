@@ -173,11 +173,11 @@ class TopKOp(Op):
 
 @register_op
 class BatchMatmulOp(Op):
-    """Batched matmul. `a_seq_length_dim` / `b_seq_length_dim` are kept as
-    the JAX op keeps them; they slice a declared sequence dim to an
-    iteration's seq_length, which only the manual training loop
-    (`forward(seq_length)`, not ported) sets, so here they slice
-    nothing."""
+    """Batched matmul. Under an iteration's seq_length L (the manual
+    loop's `forward(seq_length=L)`, `LoweringContext.iter_seq_length`)
+    the declared `a_seq_length_dim` / `b_seq_length_dim` (when >= 0) are
+    cut to their first L entries and the product is padded back to the
+    declared shape with zeros (JAX `ops/tensor_ops.py:207-224`)."""
 
     op_type = OpType.BATCHMATMUL
 
@@ -190,10 +190,26 @@ class BatchMatmulOp(Op):
 
     def lower(self, ctx, inputs):
         a, b = inputs
+        trunc = ctx.iter_seq_length
+        if trunc is not None:
+            for name in ("a_seq_length_dim", "b_seq_length_dim"):
+                d = self.params.get(name)
+                if d is None or d < 0:
+                    continue
+                if name[0] == "a" and trunc < a.shape[d]:
+                    a = a.narrow(d, 0, trunc)
+                elif name[0] == "b" and trunc < b.shape[d]:
+                    b = b.narrow(d, 0, trunc)
         cdt = matmul_dtype(ctx.config, a.dtype)
         # f32 accumulation, one rounding to the boundary dtype, as Linear
         odt = emit_dtype(ctx.config, self.outputs[0].dtype)
-        return [torch.matmul(a.to(cdt), b.to(cdt)).to(odt)]
+        y = torch.matmul(a.to(cdt), b.to(cdt)).to(odt)
+        pad = [p for full, got in zip(reversed(self.outputs[0].dims),
+                                      reversed(y.shape))
+               for p in (0, full - got)]
+        if any(pad):
+            y = torch.nn.functional.pad(y, pad)
+        return [y]
 
     def flops(self) -> float:
         a, b = self.inputs

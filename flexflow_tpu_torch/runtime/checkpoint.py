@@ -1,0 +1,293 @@
+"""Checkpoint and resume of a model's weights, optimizer state and op
+state (the port's copy of flexflow_tpu/runtime/checkpoint.py, with THE
+SAME FILE FORMAT, so a checkpoint written by either package restores into
+the other).
+
+A checkpoint is an npz of '/'-joined keys: `params/<op>/<weight>`,
+`opt_state/step`, `opt_state/lr`, `opt_state/<m|v>/<op>/<weight>` and
+`state/<op>/<var>`, beside a `__meta__` JSON record (format name and
+version, step, step_count, the true dtype of each array stored widened,
+and a CRC32 of each array's stored bytes). A bf16 tensor is stored as
+f32 and recorded as "bfloat16" in `dtypes` (torch's `.float()`: numpy has
+no bf16 without the JAX package's ml_dtypes); on restore each value is
+converted to the receiving model's own dtype. Writes are atomic: a temp
+file in the same directory, fsync, rename over the final name, then an
+fsync of the directory.
+
+Restore is IN PLACE. Every array is read and checked against its CRC32,
+and every name and shape of the three groups against the model, before
+anything is written; then the values go through `load_params`,
+`load_opt_state` and `load_state` (copies into the existing tensors) and
+`_step_count` is set. No weight or optimizer tensor is rebound: a
+captured K-step graph (runtime/executor.py `MultiStep`) keeps reading the
+same addresses, and the serving graphs (runtime/graphs.py) re-capture on
+the version bump the copies make.
+
+On a mesh `save_checkpoint` gathers the weights and moments over `model`
+(every rank calls it), rank 0 writes, and the ranks meet at a barrier;
+`restore_checkpoint` reads the file on every rank, which keeps its
+shards. Retention, manifests and the verified fallback live in
+runtime/durability.py.
+"""
+from __future__ import annotations
+
+import json
+import os
+import zlib
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+FORMAT_NAME = "flexflow_tpu_checkpoint"
+FORMAT_VERSION = 1
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint file is missing, torn, corrupt, not a checkpoint, or
+    does not fit the model. The message names the path."""
+
+
+def _host(v) -> np.ndarray:
+    """A value as the numpy array it is stored as: a tensor on the host,
+    bf16 widened to f32."""
+    if torch.is_tensor(v):
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        return v.cpu().numpy()
+    return np.asarray(v)
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """'/'-joined keys of a nested dict's leaves."""
+    out: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    else:
+        out[prefix.rstrip("/")] = tree
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def _crc32(arr: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+
+
+def _fsync_dir(path: str) -> None:
+    """fsync the containing directory so the rename itself is durable."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    try:
+        fd = os.open(d, os.O_RDONLY)
+    except OSError:  # platforms / filesystems without directory fds
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _mesh(model):
+    return getattr(model, "mesh", None)
+
+
+def _whole(model, tree):
+    """A weight-shaped tree whole: gathered over `model` on a mesh."""
+    return tree if _mesh(model) is None else model.gather_params(tree)
+
+
+def _rank0(model) -> bool:
+    mesh = _mesh(model)
+    return mesh is None or mesh.rank == 0
+
+
+def save_checkpoint(path: str, model, step: int = 0) -> str:
+    """Atomically write weights, optimizer state and op state with their
+    metadata and CRC32s. Returns the final path (".npz" appended when
+    missing). On a mesh every rank calls it and rank 0 writes."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    trees = {"params": _whole(model, model.params or {}),
+             "opt_state": {k: _whole(model, v) if isinstance(v, dict) else v
+                           for k, v in (model.opt_state or {}).items()},
+             "state": model.state or {}}
+    flat: Dict[str, np.ndarray] = {}
+    dtypes: Dict[str, str] = {}
+    for group, tree in trees.items():
+        for k, v in _flatten(tree, f"{group}/").items():
+            if torch.is_tensor(v) and v.dtype == torch.bfloat16:
+                dtypes[k] = "bfloat16"
+            flat[k] = _host(v)
+    if _rank0(model):
+        # checksums cover the bytes as STORED (after widening)
+        meta = {
+            "format": FORMAT_NAME,
+            "version": FORMAT_VERSION,
+            "step": int(step),
+            "step_count": int(model._step_count),
+            "dtypes": dtypes,
+            "crc32": {k: _crc32(v) for k, v in flat.items()},
+        }
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
+                    exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, __meta__=json.dumps(meta), **flat)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        _fsync_dir(path)
+    if _mesh(model) is not None:
+        torch.distributed.barrier()
+    return path
+
+
+def _open_checkpoint(path: str):
+    """np.load with the torn / missing / foreign failure modes mapped to
+    CheckpointError. Returns (npz, meta)."""
+    if not path.endswith(".npz") and not os.path.exists(path):
+        path = path + ".npz"
+    if not os.path.exists(path):
+        raise CheckpointError(f"checkpoint {path!r} does not exist")
+    try:
+        data = np.load(path, allow_pickle=False)
+    except Exception as exc:  # BadZipFile / OSError / ValueError ...
+        raise CheckpointError(
+            f"checkpoint {path!r} is unreadable (torn write or not an "
+            f"npz): {type(exc).__name__}: {exc}") from exc
+    if "__meta__" not in data.files:
+        raise CheckpointError(
+            f"{path!r} is a valid npz but not a flexflow_tpu checkpoint "
+            "(no __meta__ record); checkpoints are written by "
+            "save_checkpoint")
+    try:
+        meta = json.loads(str(data["__meta__"]))
+    except Exception as exc:
+        raise CheckpointError(
+            f"checkpoint {path!r} has an unparseable __meta__ record: "
+            f"{exc}") from exc
+    return data, meta
+
+
+def _read(data, path: str, key: str, crcs: Dict[str, int]) -> np.ndarray:
+    try:
+        val = data[key]
+    except Exception as exc:  # truncated member / zlib error
+        raise CheckpointError(
+            f"checkpoint {path!r}: array {key!r} is unreadable (torn "
+            f"write): {type(exc).__name__}: {exc}") from exc
+    want = crcs.get(key)
+    if want is not None and _crc32(val) != want:
+        raise CheckpointError(
+            f"checkpoint {path!r}: array {key!r} fails its CRC32 check "
+            "(corrupt on disk)")
+    return val
+
+
+def verify_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a checkpoint whole and check every array against its CRC32.
+    Returns the metadata; raises CheckpointError naming the path (and the
+    first bad array) otherwise. A checkpoint without CRCs verifies by
+    being readable."""
+    data, meta = _open_checkpoint(path)
+    crcs = meta.get("crc32", {})
+    for key in data.files:
+        if key != "__meta__":
+            _read(data, path, key, crcs)
+    return meta
+
+
+def _check_tree(path: str, group: str, got: Dict[str, np.ndarray],
+                want: Dict[str, Any]) -> None:
+    """Every name and shape of `got` (flat keys) against `want` (the
+    model's tree, flattened the same way)."""
+    mine = _flatten(want)
+    if set(got) != set(mine):
+        missing = sorted(set(mine) - set(got))[:5]
+        extra = sorted(set(got) - set(mine))[:5]
+        raise CheckpointError(
+            f"checkpoint {path!r}: {group} names differ from the model's "
+            f"(missing {missing}, unknown {extra})")
+    for k, v in got.items():
+        if tuple(np.shape(v)) != tuple(mine[k]):
+            raise CheckpointError(
+                f"checkpoint {path!r}: {group}/{k} has shape "
+                f"{tuple(np.shape(v))}, the model's is {tuple(mine[k])}")
+
+
+def _whole_shapes(model) -> Dict[str, Any]:
+    """Each group's tree of the model's whole shapes (a mesh rank holds
+    shards of the weights and moments)."""
+    specs = {op.name: {ws.name: ws.dims for ws in op.specs}
+             for op in getattr(model, "ops", ())}
+
+    def shapes(tree):
+        return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape)
+                for k, v in tree.items()}
+
+    def whole(tree):
+        return {op: {w: specs.get(op, {}).get(w, tuple(t.shape))
+                     for w, t in ws.items()} for op, ws in tree.items()}
+
+    return {"params": whole(model.params or {}),
+            "opt_state": {k: whole(v) if isinstance(v, dict)
+                          else tuple(v.shape)
+                          for k, v in (model.opt_state or {}).items()},
+            "state": shapes(model.state or {})}
+
+
+def restore_checkpoint(path: str, model, verify: bool = True) -> int:
+    """Load a checkpoint into the model in place; returns its step.
+
+    With verify=True every array is checked against its CRC32 in the same
+    pass that reads it; every array is read and every name and shape of
+    the three groups checked against the model BEFORE anything is
+    written, so a corrupt or foreign file raises CheckpointError and
+    leaves the model as it was. A group the file lacks is left as it is,
+    and a model compiled for inference, which holds no optimizer state,
+    takes none."""
+    data, meta = _open_checkpoint(path)
+    crcs = meta.get("crc32", {}) if verify else {}
+    groups: Dict[str, Dict[str, np.ndarray]] = {
+        "params": {}, "opt_state": {}, "state": {}}
+    for key in data.files:
+        if key == "__meta__":
+            continue
+        val = _read(data, path, key, crcs)
+        head, _, rest = key.partition("/")
+        if head not in groups:
+            raise CheckpointError(
+                f"checkpoint {path!r}: unexpected top-level key {key!r}")
+        groups[head][rest] = val
+    shapes = _whole_shapes(model)
+    if model.opt_state is None:
+        groups["opt_state"] = {}
+    for group, got in groups.items():
+        if got:  # a group the file lacks stays as it is (JAX's restore)
+            _check_tree(path, group, got, shapes[group])
+    tensors = {g: _unflatten({k: torch.from_numpy(np.asarray(v))
+                              for k, v in got.items()})
+               for g, got in groups.items()}
+    if groups["params"]:
+        model.load_params(tensors["params"])
+    if groups["opt_state"]:
+        model.load_opt_state(tensors["opt_state"])
+    if groups["state"]:
+        model.load_state(tensors["state"])
+    model._step_count = int(meta.get("step_count", 0))
+    return int(meta["step"])

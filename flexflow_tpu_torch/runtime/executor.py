@@ -34,6 +34,23 @@ per K-step chunk (`flexflow_tpu/model.py` fit), so its K-step stream
 differs from its single steps'; the port's does not. Ops' state (batch
 norm's running statistics, core/op.py) is updated in place by each
 training walk, inside a graph too.
+
+The manual loop's pieces (JAX `build_forward`, `build_grad_step`):
+`build_forward` walks in a given mode without recording for autograd
+and returns the final tensor's value; `build_grad_step` is the training
+walk and backward of one batch with the auxiliary losses and no
+regularizer (JAX's `grad_step` adds none), writing no op state (the
+forward before it did). Both take an iteration seq_length
+(`LoweringContext.iter_seq_length`). A regularization term (`reg_fn`,
+the model's weight regularizers over the f32 masters) joins the
+training loss of the single step, the K-step dispatch and gradient
+accumulation, as JAX passes `reg_fn`; eval's loss has none.
+
+Dispatch spans (obs/tracing.py `traced_dispatch`, JAX's names): one
+`executor.train_step` an eager step, one `executor.multi_step` a K-step
+dispatch (its inner steps emit none), `executor.eval_step` and
+`executor.forward`. While tracing is off each costs one attribute
+check.
 """
 from __future__ import annotations
 
@@ -45,6 +62,7 @@ import torch
 from ..core.graph import Graph
 from ..core.op import LoweringContext
 from ..ffconst import CompMode, OpType
+from ..obs.tracing import get_tracer, traced_dispatch
 from ..ops.common import emit_dtype
 from .collectives import mean_
 from .graphs import CapturedCall, Staging, graph_counts
@@ -106,6 +124,9 @@ class Executor:
         mode: CompMode = CompMode.COMP_MODE_INFERENCE,
         fill_kv_cache: bool = False,
         aux_losses: Optional[List[torch.Tensor]] = None,
+        seq_length: Optional[int] = None,
+        write_state: bool = True,
+        record: Optional[bool] = None,
     ) -> Dict[int, torch.Tensor]:
         """Returns tensor guid -> value. state: op name -> {var: tensor},
         e.g. each attention op's "k_cache"/"v_cache", updated in place.
@@ -115,7 +136,10 @@ class Executor:
         prompt's K/V rows into the caches in `state`. COMP_MODE_TRAINING
         records the walk for autograd and takes no caches. aux_losses: a
         list that receives the ops' auxiliary losses (the MoE load-balance
-        loss).
+        loss). seq_length: the iteration's sequence length (ops with a
+        sequence dim compute on its first positions). write_state=False:
+        a training walk that writes no op state. record: whether autograd
+        records the walk (default: a training walk does).
 
         Ops' own state (batch norm's running statistics, the MoE router's
         and the cache's; core/op.py `Op.writes_state`): a training walk
@@ -142,9 +166,12 @@ class Executor:
         ctx.state = state if state is not None else {}
         if aux_losses is not None:
             ctx.aux_losses = aux_losses
+        ctx.iter_seq_length = seq_length
+        ctx.write_state = write_state
         if training:
             ctx.generator = self.generator
-        with torch.set_grad_enabled(training):
+        with torch.set_grad_enabled(training if record is None
+                                    else record):
             for op in self.topo:
                 if op.op_type == OpType.INPUT:
                     ctx.values[op.outputs[0].guid] = input_values[op.name]
@@ -156,13 +183,16 @@ class Executor:
         return ctx.values
 
     # -- step builders -----------------------------------------------------
-    def build_grad_metrics_step(self, loss_fn, metrics, final_tensor):
+    def build_grad_metrics_step(self, loss_fn, metrics, final_tensor,
+                                reg_fn=None, seq_length: Optional[int] = None,
+                                write_state: bool = True):
         """(inputs, label) -> (grads, metric values incl. loss): one
         training-mode walk, the loss (with the ops' auxiliary losses added,
-        as the JAX step adds `ctx.aux_losses`), and its backward. Gradients are
-        returned as a tree like the parameters' (zeros where a weight got
-        none, as jax.grad gives); on a mesh with a `data` axis, gradients
-        and metrics are the means over it."""
+        as the JAX step adds `ctx.aux_losses`, and `reg_fn(parameters)`
+        when given), and its backward. Gradients are returned as a tree
+        like the parameters' (zeros where a weight got none, as jax.grad
+        gives); on a mesh with a `data` axis, gradients and metrics are
+        the means over it. `metrics` None computes the loss alone."""
         params = self.parameters()
         flat = [(op, w, p) for op, ws in params.items()
                 for w, p in ws.items()]
@@ -171,11 +201,15 @@ class Executor:
             aux: List[torch.Tensor] = []
             values = self.forward_values(inputs,
                                          mode=CompMode.COMP_MODE_TRAINING,
-                                         aux_losses=aux)
+                                         aux_losses=aux,
+                                         seq_length=seq_length,
+                                         write_state=write_state)
             pred = values[final_tensor.guid]
             loss = loss_fn(pred, label)
             if aux:
                 loss = loss + sum(aux[1:], aux[0])
+            if reg_fn is not None:
+                loss = loss + reg_fn(params)
             with torch.no_grad():
                 mvals = metrics.compute(pred, label) if metrics else {}
             got = torch.autograd.grad(loss, [p for _, _, p in flat],
@@ -203,11 +237,15 @@ class Executor:
             mean_([vals], group, size)
         mvals.update(zip(keys, vals.unbind()))
 
-    def build_train_step(self, optimizer, loss_fn, metrics, final_tensor):
+    def build_train_step(self, optimizer, loss_fn, metrics, final_tensor,
+                         reg_fn=None):
         """(inputs, label, opt_state) -> metric values: forward, loss,
         backward, then the optimizer's in-place update of the parameters
-        and of `opt_state`."""
-        gstep = self.build_grad_metrics_step(loss_fn, metrics, final_tensor)
+        and of `opt_state`; each call an `executor.train_step` span (the
+        untraced step is the result's `__wrapped__`, which MultiStep
+        runs)."""
+        gstep = self.build_grad_metrics_step(loss_fn, metrics, final_tensor,
+                                             reg_fn)
         params = self.parameters()
 
         def train_step(inputs, label, opt_state):
@@ -215,15 +253,18 @@ class Executor:
             optimizer.update(params, grads, opt_state, self.config)
             return mvals
 
-        return train_step
+        return traced_dispatch(train_step, "executor.train_step")
 
-    def build_accum_step(self, optimizer, loss_fn, metrics, final_tensor):
+    def build_accum_step(self, optimizer, loss_fn, metrics, final_tensor,
+                         reg_fn=None):
         """(batches, opt_state) -> (summed metric values, k): the gradients
         of k microbatches (an iterable of device (inputs, label)) summed
         in place, divided by k, then one optimizer update (JAX
-        `_build_accum_fns`). The metric values are sums over the k
-        microbatches; the caller divides (on the host, as JAX does)."""
-        gstep = self.build_grad_metrics_step(loss_fn, metrics, final_tensor)
+        `_build_accum_fns`, `reg_fn` in each microbatch's loss). The
+        metric values are sums over the k microbatches; the caller divides
+        (on the host, as JAX does)."""
+        gstep = self.build_grad_metrics_step(loss_fn, metrics, final_tensor,
+                                             reg_fn)
         params = self.parameters()
 
         def accum_step(batches, opt_state):
@@ -259,7 +300,7 @@ class Executor:
         return accum_step
 
     def build_multi_step(self, optimizer, loss_fn, metrics, final_tensor,
-                         steps: int) -> "MultiStep":
+                         steps: int, reg_fn=None) -> "MultiStep":
         """K = `steps` training steps a dispatch (JAX `build_multi_step`):
         see MultiStep."""
         if self.mesh is not None and self.device.type == "cuda":
@@ -269,7 +310,7 @@ class Executor:
                 "through host memory, which a CUDA graph cannot capture, "
                 "and NCCL capture is untried")
         return MultiStep(self, self.build_train_step(
-            optimizer, loss_fn, metrics, final_tensor),
+            optimizer, loss_fn, metrics, final_tensor, reg_fn).__wrapped__,
             metrics.keys() + ["loss"], steps)
 
     def build_eval_step(self, loss_fn, metrics, final_tensor):
@@ -285,7 +326,38 @@ class Executor:
             self._data_mean([], mvals)
             return mvals, pred
 
-        return eval_step
+        return traced_dispatch(eval_step, "executor.eval_step")
+
+    def build_forward(self, final_tensor,
+                      mode: CompMode = CompMode.COMP_MODE_INFERENCE,
+                      seq_length: Optional[int] = None):
+        """inputs -> the final tensor's value, one walk in `mode` that
+        autograd does not record (JAX `build_forward`): an inference walk
+        (predict) reads the ops' state, a training walk (the manual loop's
+        forward in a training compile: dropout on, batch statistics) writes
+        it, as JAX's forward keeps its new state."""
+
+        def fwd(inputs):
+            values = self.forward_values(inputs, mode=mode,
+                                         seq_length=seq_length, record=False)
+            return values[final_tensor.guid]
+
+        return traced_dispatch(fwd, "executor.forward")
+
+    def build_grad_step(self, loss_fn, final_tensor,
+                        seq_length: Optional[int] = None):
+        """(inputs, label) -> gradients: the manual loop's backward (JAX
+        `build_grad_step`): a training walk that writes no op state, the
+        loss with the auxiliary losses and no regularizer, its backward;
+        on a `data` axis the gradients' means."""
+        gstep = self.build_grad_metrics_step(loss_fn, None, final_tensor,
+                                             seq_length=seq_length,
+                                             write_state=False)
+
+        def grad_step(inputs, label):
+            return gstep(inputs, label)[0]
+
+        return grad_step
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -322,7 +394,8 @@ class MultiStep:
     their version counters, as an in-place op would: what caches a
     weight by its version (core/op.py `Op.w`) sees the change. The
     executor's generator is registered with the graph, so each replay
-    draws new dropout masks, those K eager steps would draw."""
+    draws new dropout masks, those K eager steps would draw. A dispatch
+    is one `executor.multi_step` span; its steps emit none."""
 
     _ALIGN = 16
 
@@ -339,6 +412,10 @@ class MultiStep:
 
     def __call__(self, batches: Sequence[Tuple[Dict[str, np.ndarray],
                                                np.ndarray]], opt_state):
+        with get_tracer().span("executor.multi_step", steps=self.steps):
+            return self._dispatch(batches, opt_state)
+
+    def _dispatch(self, batches, opt_state):
         if len(batches) != self.steps:
             raise ValueError(f"MultiStep of {self.steps} steps given "
                              f"{len(batches)} batches")

@@ -87,10 +87,22 @@ takes, within the window, the queued request whose signature overlaps
 the running batch's most. It orders admissions only: the MoE walks keep
 no router state, and greedy tokens do not depend on the batch.
 
+Tracing (obs/tracing.py; the JAX batcher's spans on the paths the port
+has): `submit` opens `serve.admit` and captures the caller's context as
+the `serve.submit` handoff, which the scheduler thread resumes for that
+request's `serve.prefill` (one a chunk, or the one-shot walk),
+`serve.prefix_install`, `serve.prefix_insert` and `serve.draft_prefill`
+spans; each iteration is one `serve.decode` or `serve.spec_verify` span.
+The scheduler thread's track is named `trace_label` (default: the pool's
+label). While tracing is off each site costs one attribute check; the
+spans read the host clock only, so a dispatch captured as a CUDA graph
+inside one is captured as without it.
+
 Not ported yet, each raising a clear error: request_resize (ROADMAP A5,
 after A7's machine model), the disaggregated park / handoff calls (A5,
-with A10), deriving num_slots from the machine model (A7), tracing spans
-and the chaos hook (A9, A10).
+with A10; their `serve.kv_export` / `serve.kv_import` / `serve.resize`
+spans with them), deriving num_slots from the machine model (A7), and
+the chaos hook (A10).
 """
 from __future__ import annotations
 
@@ -107,6 +119,7 @@ import numpy as np
 import torch
 
 from ...ffconst import OpType
+from ...obs.tracing import _NULL_SPAN, get_tracer
 from ...runtime.graphs import CapturedCall, Staging, graph_counts, \
     model_weights, new_pool
 from ..generate import key_bits, pick_tokens, sample_key
@@ -173,6 +186,9 @@ class GenRequest:
         # expert-affine admission (sched/affinity.py): the probe's expert
         # signature, and the picks this request was passed over in
         self.expert_sig: frozenset = frozenset()
+        # the submitting thread's trace context, handed to the scheduler
+        # thread (obs/tracing.py Handoff; None while tracing is off)
+        self.trace = None
         self.affinity_skips = 0
 
     # -- consumer API ------------------------------------------------------
@@ -297,6 +313,8 @@ class ContinuousBatcher:
     module docstring); it needs a model with a fused EXPERTS op.
     registry: the metric families' registry (default the process-wide
     one, which a server renders; pass one only to isolate a test).
+    trace_label: the scheduler thread's track name in exported traces
+    (default: the pool's label).
     """
 
     def __init__(self, model, max_len: int, num_slots: Optional[int] = None,
@@ -307,7 +325,8 @@ class ContinuousBatcher:
                  prefill_chunk_tokens: Optional[int] = None,
                  prefix_cache_pages: Optional[int] = None,
                  draft_model=None, spec_tokens: int = 3,
-                 expert_affinity: bool = False, affinity_window: int = 4):
+                 expert_affinity: bool = False, affinity_window: int = 4,
+                 trace_label: Optional[str] = None):
         if num_slots is None:
             raise ValueError(
                 "num_slots is required: deriving it from device memory "
@@ -425,6 +444,8 @@ class ContinuousBatcher:
         self.pool = PagedKVPool(self.num_slots, self.max_len,
                                 page_size=page_size, registry=registry,
                                 prefix_cache_pages=prefix_pages)
+        self.trace_label = str(trace_label) if trace_label \
+            else self.pool.label
         self.admission = AdmissionController(
             self.pool,
             self.window if self.prefill_chunk_tokens == 0 else None,
@@ -667,12 +688,17 @@ class ContinuousBatcher:
         # the expert signature outside the lock: one small host matmul
         sig = (self._affinity_probe.signature(prompt)
                if self._affinity_probe is not None else frozenset())
+        tracer = get_tracer()
         with self._cv:
             if not self._running:
                 raise BatcherStopped("batcher is not running")
-            self.admission.admit(rid, prompt.size, max_new_tokens,
-                                 shared_pages=shared_pages)
+            with tracer.span("serve.admit", request=rid):
+                self.admission.admit(rid, prompt.size, max_new_tokens,
+                                     shared_pages=shared_pages)
             req = GenRequest(rid, prompt, max_new_tokens, eos_id, seed)
+            # the caller's context as an explicit handoff, which the
+            # scheduler thread resumes (None while tracing is off)
+            req.trace = tracer.handoff("serve.submit")
             req.expert_sig = sig
             self._queue.append(req)
             self._cv.notify_all()
@@ -1044,6 +1070,7 @@ class ContinuousBatcher:
 
     # -- scheduler loop ----------------------------------------------------
     def _loop(self) -> None:
+        get_tracer().set_thread_name(self.trace_label)
         try:
             with torch.no_grad(), (torch.cuda.device(self.device)
                                    if self.device.type == "cuda"
@@ -1056,6 +1083,7 @@ class ContinuousBatcher:
 
     def _run(self) -> None:
         S = self.num_slots
+        tracer = get_tracer()
         while True:
             with self._cv:
                 while (self._running and not self._queue
@@ -1119,9 +1147,10 @@ class ContinuousBatcher:
             if self.spec_tokens:
                 self._spec_iterate(active, host[:2 * S])
                 continue
-            t0 = time.monotonic()
-            picked = self._decode_dispatch(host)
-            dt = time.monotonic() - t0
+            with self._iteration_span(tracer, "serve.decode", active):
+                t0 = time.monotonic()
+                picked = self._decode_dispatch(host)
+                dt = time.monotonic() - t0
             self._decode_s += dt
             self._decode_iters += 1
             self._observe_decode_iter(dt)
@@ -1133,15 +1162,26 @@ class ContinuousBatcher:
                 s.pos += 1
                 self._emit_token(s, int(picked[s.slot]))
 
+    @staticmethod
+    def _iteration_span(tracer, name: str, active: List[_Slot], **args):
+        """An iteration's span over the slots it steps (one attribute
+        check while tracing is off)."""
+        if not tracer.enabled:
+            return _NULL_SPAN
+        return tracer.span(name, slots=len(active),
+                           requests=[s.req.id for s in active], **args)
+
     def _spec_iterate(self, active: List[_Slot], host: np.ndarray) -> None:
         """One speculative iteration (JAX `_spec_iterate`): the fused
         draft-propose and verify dispatch, then each slot's accepted
         tokens emitted on the host. A slot's position advances only over
         what it emits; rejected rows are left for later writes."""
         k = self.spec_tokens
-        t0 = time.monotonic()
-        out = self._spec_dispatch(host)
-        dt = time.monotonic() - t0
+        with self._iteration_span(get_tracer(), "serve.spec_verify", active,
+                                  k=k):
+            t0 = time.monotonic()
+            out = self._spec_dispatch(host)
+            dt = time.monotonic() - t0
         self._decode_s += dt
         self._decode_iters += 1
         # acceptance counts raw verify matches (a perfect draft reads 1.0),
@@ -1217,7 +1257,10 @@ class ContinuousBatcher:
             self._slots[slot_idx] = s
             self._sync_active_gauge()
             if self.prefill_chunk_tokens == 0:
-                self._prefill_one(s)
+                tracer = get_tracer()
+                with tracer.resume(req.trace), tracer.span(
+                        "serve.prefill", request=req.id, tokens=plen):
+                    self._prefill_one(s)
                 continue
             prefix = self.pool.prefix
             if prefix is not None:
@@ -1228,7 +1271,11 @@ class ContinuousBatcher:
                     req.id, req.prompt,
                     max_pages=(plen - 1) // self.pool.page_size)
                 if entries:
-                    self._install_prefix(slot_idx, entries, matched)
+                    tracer = get_tracer()
+                    with tracer.resume(req.trace), tracer.span(
+                            "serve.prefix_install", request=req.id,
+                            tokens=matched):
+                        self._install_prefix(slot_idx, entries, matched)
                     s.filled = s.shared = matched
                     req.prefix_tokens = matched
                     req.cache_hit = True
@@ -1274,15 +1321,18 @@ class ContinuousBatcher:
             host[chunk] = off
             # the padded tail of the last chunk writes rows >= plen: they
             # are rewritten by decode before any query attends them
-            t0 = time.monotonic()
-            self._chunk_dispatch(s.slot, host)
-            self._prefill_chunks += 1
-            s.filled = off + n
-            if s.filled < s.plen:
-                continue
-            tok = self._pick_row(self._chunk_probs[0, s.plen - 1 - off], s,
-                                 s.plen - 1)
-            self._observe_prefill(n, time.monotonic() - t0)
+            tracer = get_tracer()
+            with tracer.resume(s.req.trace), tracer.span(
+                    "serve.prefill", request=s.req.id, offset=off, tokens=n):
+                t0 = time.monotonic()
+                self._chunk_dispatch(s.slot, host)
+                self._prefill_chunks += 1
+                s.filled = off + n
+                if s.filled < s.plen:
+                    continue
+                tok = self._pick_row(self._chunk_probs[0, s.plen - 1 - off],
+                                     s, s.plen - 1)
+                self._observe_prefill(n, time.monotonic() - t0)
             s.pos = s.plen
             s.last_tok = tok
             self._insert_prefix(s)
@@ -1299,14 +1349,18 @@ class ContinuousBatcher:
         host = np.zeros(chunk + 1, np.int32)
         host[:n] = s.req.prompt[off:off + n]
         host[chunk] = off
-        t0 = time.monotonic()
-        self._draft_chunk_in.put(host)
-        self._draft_chunk_calls[s.slot]()
-        s.draft_filled = off + n
-        if s.draft_filled >= s.plen:
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            self._observe_draft_prefill(n, time.monotonic() - t0)
+        tracer = get_tracer()
+        with tracer.resume(s.req.trace), tracer.span(
+                "serve.draft_prefill", request=s.req.id, offset=off,
+                tokens=n):
+            t0 = time.monotonic()
+            self._draft_chunk_in.put(host)
+            self._draft_chunk_calls[s.slot]()
+            s.draft_filled = off + n
+            if s.draft_filled >= s.plen:
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                self._observe_draft_prefill(n, time.monotonic() - t0)
 
     def _band_rows(self, pages) -> np.ndarray:
         """Flat (band slot * max_len + row) indices of band pages' rows."""
@@ -1348,7 +1402,10 @@ class ContinuousBatcher:
                     band.view(-1, *band.shape[2:]).index_copy_(
                         0, dst, t[s.slot].index_select(0, src))
 
-        prefix.insert(s.req.prompt, s.plen, copy_pages)
+        tracer = get_tracer()
+        with tracer.resume(s.req.trace), tracer.span("serve.prefix_insert",
+                                                     request=s.req.id):
+            prefix.insert(s.req.prompt, s.plen, copy_pages)
 
     def _first_token(self, s: _Slot, tok: int) -> None:
         """Prefill complete: the request starts decoding and its TTFT is

@@ -60,6 +60,12 @@ JOB: Dict[str, Any] = {
     "return_params": False,
     # FFModel.eval on (x, y) after training
     "eval": False,
+    # FFModel.predict on x after training, at this batch size (0: none)
+    "predict_batch": 0,
+    # a directory: after training, save a checkpoint there
+    # (runtime/durability.py), restore it into a model drawn from another
+    # seed and predict with it (needs predict_batch)
+    "checkpoint_dir": None,
 }
 
 
@@ -175,6 +181,10 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         out["accuracy"] = [r["accuracy"] for r in steps]
         if job["eval"]:
             out["eval"] = model.eval(x, y, batch_size=job["batch"])
+        if job["predict_batch"]:
+            out["predict"] = model.predict(x, batch_size=job["predict_batch"])
+        if job["checkpoint_dir"]:
+            out.update(_checkpoint_round_trip(model, job, device))
     # the weights every rank holds whole must agree to the bit
     out["replicated_digest"] = _digest(
         t for op in model.ops for ws in op.specs if ws.name not in op.shards
@@ -189,6 +199,23 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _checkpoint_round_trip(model, job: Dict[str, Any],
+                           device: str) -> Dict[str, Any]:
+    """Save `model` into the job's checkpoint directory (every rank calls
+    it, rank 0 writes), restore it into a model drawn from another seed,
+    and predict with that one."""
+    from ..runtime.durability import DurableCheckpointer
+
+    ckpt = DurableCheckpointer(job["checkpoint_dir"])
+    path = ckpt.save(model, step=model._step_count)
+    fresh = build_encoder(dict(job, seed=job["seed"] + 1, params=None,
+                               opt_state=None), device)
+    step, restored = ckpt.restore_latest(fresh)
+    return {"checkpoint": path, "restored_step": step,
+            "restored_predict": fresh.predict(
+                job["x"], batch_size=job["predict_batch"])}
 
 
 def run_rank(rank: int, world: int, init_method: str, device: str,

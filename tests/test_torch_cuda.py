@@ -2102,3 +2102,75 @@ def test_topk_tie_order_on_card_is_jax_lower_index_first(dev, dtype):
         same = picked[:, 1:] == picked[:, :-1]
         assert bool((outs[0][:, 1:] > outs[0][:, :-1])[same].all())
     assert int(outs[0][0, 0]) in range(256)
+
+
+def test_restore_into_a_captured_k_step_graph_replays_the_same_bits(
+        dev, tmp_path):
+    """A checkpoint restored in place into a model whose K = 4 graph is
+    captured: the 4 steps after the restore repeat the 4 steps after the
+    save to the bit, by replays only (no new capture)."""
+    from flexflow_tpu_torch.runtime.durability import DurableCheckpointer
+
+    rng = np.random.RandomState(4)
+    x = rng.randn(16 * 4, 12).astype(np.float32)
+    y = rng.randint(0, 4, size=(16 * 4, 1)).astype(np.int32)
+    m = _card_mlp(dev, mixed=True)
+    m.fit(x, y, epochs=1, steps_per_execution=4)
+    ckpt = DurableCheckpointer(str(tmp_path))
+    ckpt.save(m, step=4)
+    m.fit(x, y, epochs=1, steps_per_execution=4)
+    a = m.step_records[-1]["losses"]
+    counts = dict(m._multi_step(4).counts)
+    ckpt.restore_latest(m)
+    m.fit(x, y, epochs=1, steps_per_execution=4)
+    b = m.step_records[-1]["losses"]
+    after = m._multi_step(4).counts
+    assert a == b
+    assert after["captures"] == counts["captures"] == 1
+    assert after["replays"] == counts["replays"] + 1
+
+
+def test_predict_on_card_matches_cpu(dev):
+    """predict on the card (bf16 flagship widths cut small, a tail batch)
+    against the port on the CPU from the same weights; two calls the same
+    bits; the manual loop on the card equals fit there to the bit."""
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType)
+    from flexflow_tpu_torch.models import (TransformerConfig,
+                                           build_bert_encoder)
+
+    def bert(device, mixed):
+        m = FFModel(FFConfig(batch_size=4, allow_mixed_precision=mixed,
+                             device=device))
+        tok = m.create_tensor([4, 64], DataType.DT_INT32)
+        build_bert_encoder(m, tok, TransformerConfig(
+            hidden_size=128, embedding_size=128, num_heads=2, num_layers=2,
+            sequence_length=64, vocab_size=97))
+        m.compile(optimizer=AdamOptimizer(m, alpha=1e-3),
+                  loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  generator=torch.Generator().manual_seed(0))
+        return m
+
+    rng = np.random.RandomState(6)
+    x = rng.randint(0, 97, size=(10, 64)).astype(np.int32)
+    y = rng.randint(0, 2, size=(4, 64, 1)).astype(np.int32)
+    card, cpu = bert(str(dev), False), bert("cpu", False)
+    got = card.predict(x)
+    assert got.dtype == np.float32 and got.shape == (10, 64, 2)
+    np.testing.assert_array_equal(got, card.predict(x))
+    np.testing.assert_allclose(got, cpu.predict(x), atol=1e-4, rtol=1e-3)
+    a, b = bert(str(dev), True), bert(str(dev), True)
+    a.set_iteration_batch([x[:4]], y)
+    losses = []
+    for _ in range(2):
+        pred = a.forward()
+        losses.append(float(a.loss.fn(pred, a._manual["label"])))
+        a.zero_gradients()
+        a.backward()
+        a.update()
+    b.fit(np.concatenate([x[:4], x[:4]]), np.concatenate([y, y]),
+          batch_size=4, epochs=1)
+    assert losses == [r["loss"] for r in b.step_records]
+    for op, ws in b.params.items():
+        for w, t in ws.items():
+            assert torch.equal(a.params[op][w], t), (op, w)

@@ -61,7 +61,10 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.models.candle_uno',\n"
         "       'flexflow_tpu_torch.models.mlp',\n"
         "       'flexflow_tpu_torch.models.rnn',\n"
-        "       'flexflow_tpu_torch.tools.zoo_train')\n"
+        "       'flexflow_tpu_torch.tools.zoo_train',\n"
+        "       'flexflow_tpu_torch.obs.tracing',\n"
+        "       'flexflow_tpu_torch.runtime.checkpoint',\n"
+        "       'flexflow_tpu_torch.runtime.durability')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -6,7 +6,11 @@ conftest's 8 CPU devices (its TP attention runs the head-separated flash
 kernels in interpret mode, the port their plain versions), from JAX's
 weights, 3 Adam steps; the port on a `model` or `data` axis of 2 ranks
 against the port on one device; each rank's shard shapes against JAX's
-per-device shards; and the raises of what is not ported.
+per-device shards; `predict` on the mesh (batch 3: a batch the data
+axis cannot cut and a tail it can) against JAX's on its mesh, and a
+checkpoint saved on the mesh, restored there into a model from another
+seed and into the port on one device; and the raises of what is not
+ported.
 
 The ranks are spawned processes (flexflow_tpu_torch.tools.tp_train
 `spawn_jobs`, which imports no jax) meeting at a file:// rendezvous in a
@@ -27,6 +31,8 @@ WIDTHS = dict(hidden_size=64, embedding_size=64, num_heads=4, num_layers=2,
               sequence_length=16, vocab_size=97)
 B, STEPS = 8, 3
 DP_TP = {"data": 2, "model": 2}
+# predict's batch on the mesh: 8 samples as 3 + 3 + 2
+PREDICT_BATCH = 3
 # a spawn's time limit: a hung rank fails its test, not the suite's clock
 JOIN_S = 120
 # f32, as tests/test_torch_train.py: the same math in another summation
@@ -78,7 +84,8 @@ def jax_run():
     after1 = (_host(jm.params), _host(dict(jm.opt_state)))
     hist += jm.fit(x, y, batch_size=B, epochs=STEPS - 1)
     return {"init": init, "shards": shards, "final": _host(jm.params),
-            "after1": after1, "losses": [h["loss"] for h in hist]}
+            "after1": after1, "losses": [h["loss"] for h in hist],
+            "predict": jm.predict(x, batch_size=PREDICT_BATCH)}
 
 
 @pytest.fixture(scope="module")
@@ -86,11 +93,13 @@ def port_dp_tp(jax_run, tmp_path_factory):
     """The port on 4 gloo ranks: from JAX's initial weights, and from
     JAX's weights and optimizer state after one step; results by rank."""
     x, y = _data()
+    ckpt = str(tmp_path_factory.mktemp("ckpt"))
     job = dict(JOB, axes=DP_TP, params=jax_run["init"], x=x, y=y,
-               return_params=True, eval=True)
+               return_params=True, eval=True, predict_batch=PREDICT_BATCH,
+               checkpoint_dir=ckpt)
     params1, opt1 = jax_run["after1"]
     resume = dict(job, params=params1, opt_state=opt1, steps=STEPS - 1,
-                  eval=False)
+                  eval=False, predict_batch=0, checkpoint_dir=None)
     res = spawn_jobs(4, "cpu", [job, resume], timeout_s=JOIN_S,
                      workdir=str(tmp_path_factory.mktemp("rdv")))
     return [r["jobs"] for r in res]
@@ -136,6 +145,43 @@ def test_dp_tp_ranks_agree(port_dp_tp):
                 np.testing.assert_array_equal(r["params"][op][w], v)
     assert first["eval"]["samples"] == B
     assert np.isfinite(first["eval"]["loss"])
+
+
+def test_mesh_predict_matches_jax_on_every_rank(jax_run, port_dp_tp):
+    """Every rank returns the whole output, the same bits on each, within
+    the loss tolerance of JAX's dp x tp predict."""
+    first = port_dp_tp[0][0]["predict"]
+    assert first.shape == (B, 16, 2) and first.dtype == np.float32
+    np.testing.assert_allclose(first, jax_run["predict"], rtol=LOSS_REL,
+                               atol=1e-6)
+    for ranks in port_dp_tp[1:]:
+        np.testing.assert_array_equal(ranks[0]["predict"], first)
+
+
+def test_mesh_checkpoint_restores_on_the_mesh_and_on_one_device(
+        port_dp_tp):
+    """Rank 0 wrote one file of whole tensors; a model from another seed
+    restored from it on the mesh predicts the trained model's bits on
+    every rank, and so does the port on one device within f32
+    tolerance."""
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       verify_checkpoint)
+
+    runs = [r[0] for r in port_dp_tp]
+    path = runs[0]["checkpoint"]
+    assert {r["checkpoint"] for r in runs} == {path}
+    assert verify_checkpoint(path)["step_count"] == STEPS
+    for r in runs:
+        assert r["restored_step"] == STEPS
+        np.testing.assert_array_equal(r["restored_predict"], r["predict"])
+    x, _ = _data()
+    one = build_encoder(dict(JOB, axes={}, seed=7), "cpu")
+    restore_checkpoint(path, one)
+    for op, ws in runs[0]["params"].items():
+        for w, v in ws.items():
+            np.testing.assert_array_equal(one.params[op][w].numpy(), v)
+    np.testing.assert_allclose(one.predict(x, batch_size=PREDICT_BATCH),
+                               runs[0]["predict"], rtol=LOSS_REL, atol=1e-6)
 
 
 def test_shard_shapes_match_jax_per_device_shards(jax_run, port_dp_tp):
