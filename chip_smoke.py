@@ -257,6 +257,37 @@ Phases, in order; any failure propagates and exits non-zero:
               ContinuousBatcher on the serve LM with trace_label="smoke":
               the exported Chrome trace holds serve.prefill and
               serve.decode spans on the thread named "smoke".
+31. server  — InferenceServer over HTTP at full width: the flagship
+              (bf16, 12 layers) registered with batch buckets (1, 4, 8),
+              one CUDA graph each behind the DynamicBatcher, and the serve
+              LM under register_continuous (a ContinuousBatcher with every
+              graph captured first). Each bucket's first call (its eager
+              warm-up and capture: PREDICT_PER_BATCH["flagship"] x 2 a
+              bucket, on the tensor cores) while another thread keeps the
+              batcher replaying (its tokens those of a direct submit);
+              then 6 client threads POST 16 requests of 1-3 rows each to
+              /v2/models/bert/infer while one POSTs /generate plain and
+              "stream": true: every response within 5e-2 of
+              InferenceModel.predict on its rows, the traffic only replays
+              (no capture, no eager walk, no launch), the /generate tokens
+              (and the stream's done trailer) those of the direct submit;
+              a full bucket of 8 replayed equals the eager predict walk to
+              the bit, with host wall, device busy and idle a call of each;
+              /metrics (after one forced watchdog check) passes
+              validate_exposition with the ff_inference_*, ff_serving_*,
+              ff_kvpool_*, ff_checkpoint_* and ff_watchdog_* families;
+              /healthz answers; the f32 witness: a 2-layer f32 flagship's
+              buckets within 1e-4 of the same model on the CPU;
+32. fold    — phase 28's ResNet-50 stem with a batch norm (batch 16,
+              224 px, bf16, two fit steps) through an InferenceModel bucket
+              of 16, before and after fold_batchnorm: the one batch norm
+              folded, the outputs within 5e-2, launches of each capture
+              (its warm-up and capture walks), the device kernels of a
+              replay fewer after (the batch norm's eval walk gone), fit
+              refused; then ResNet-50 through a bucket of 16 (pinned
+              staging of its 9.6 MB input) against the eager predict walk
+              of the same rows: the same bits, host wall, busy and idle a
+              batch of each beside phase 28's.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -3778,6 +3809,399 @@ def phase_checkpoint(torch, lm):
             "wall_s": time.perf_counter() - t_phase}
 
 
+# phase 31: the server's batch buckets, its client threads and requests
+# each (1-3 rows a request), the /generate prompts' lengths and new tokens
+SERVER_BUCKETS = (1, 4, 8)
+SERVER_CLIENTS, SERVER_REQUESTS = 6, 16
+SERVER_GEN = ((48, 96, 130), 16)
+# a response against InferenceModel.predict of its own rows: another
+# bucket may take other GEMM algorithms, so bf16 rounding differs
+SERVER_TOL = 5e-2
+# phase 32: the folded stem against the unfolded one (bf16: the folded
+# conv rounds k * s and its bias to bf16 where the batch norm computed in
+# f32 after the bf16 conv)
+FOLD_TOL = 5e-2
+BUCKET_ITERS = 20
+
+
+def _http(port, path, payload=None):
+    """(status, headers, body) of one GET (payload None) or JSON POST to
+    the local server."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def _call_times(torch, fn, n=BUCKET_ITERS):
+    """Host wall of fn() (which ends in a device sync) over n calls, and
+    device busy a call under the profiler (padded: trace_device) over n
+    more: {"wall_ms", "wall_ms_profiled", "busy_ms", "device_idle_share",
+    "top_kernels"}."""
+    from flexflow_tpu_torch.tools.serve_profile import (_kernel_table,
+                                                        trace_device)
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with trace_device(cpu=False) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        wall_prof = (time.perf_counter() - t0) * 1e3 / n
+    busy, top = _kernel_table(prof, n)
+    return {"wall_ms": wall, "wall_ms_profiled": wall_prof, "busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall, "top_kernels": top[:5]}
+
+
+def _bucket_vs_eager(torch, model, im, x):
+    """One full bucket through the InferenceModel's graph and the same
+    rows through the eager predict walk: the same bits, and each one's
+    host wall, device busy and idle a call, samples/s."""
+    import numpy as np
+
+    feed = {model.input_ops[0].name: x}
+    n = x.shape[0]
+    graph = im.predict(feed)
+    eager = model.predict(x, batch_size=n)
+    if not np.array_equal(graph, eager) or not np.isfinite(graph).all():
+        raise AssertionError(f"bucket {n}: a replay differs from the eager "
+                             f"walk by {float(np.abs(graph - eager).max())}")
+    out = {"rows": n, "replay_equals_eager_walk": True}
+    for name, fn in (("bucket", lambda: im.predict(feed)),
+                     ("eager_predict",
+                      lambda: model.predict(x, batch_size=n))):
+        out[name] = _call_times(torch, fn)
+        out[name]["samples_per_s"] = n * 1e3 / out[name]["wall_ms"]
+    return graph, out
+
+
+def phase_server(torch, lm, predict):
+    """31: the HTTP server at full width (see the module docstring)."""
+    import threading
+
+    import numpy as np
+
+    from flexflow_tpu_torch.elastic import TrainingWatchdog, WatchdogPolicy
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.obs import validate_exposition
+    from flexflow_tpu_torch.serving import InferenceModel, InferenceServer
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(31)
+    vocab, seq = TRAIN["vocab"], TRAIN["seq"]
+    model = build_bench_model("cuda", TRAIN["layers"], True, 0)
+    name = model.input_ops[0].name
+    server = InferenceServer()
+    server.register("bert", model, max_batch_size=max(SERVER_BUCKETS),
+                    max_delay_ms=2.0, batch_buckets=SERVER_BUCKETS)
+    im = server._models["bert"].model
+    cb = ContinuousBatcher(lm, max_len=1024, num_slots=8, page_size=16)
+    server.register_continuous("lm", cb)
+    httpd = server.serve_http(port=0)
+    port = httpd.server_address[1]
+    try:
+        # every graph of the continuous batcher captured (one request a
+        # slot), then the tokens /generate must give, by direct submit
+        warm = [cb.submit(rng.randint(0, vocab, size=40), 4)
+                for _ in range(8)]
+        for r in warm:
+            r.result(timeout=600)
+        gen_prompts = [rng.randint(0, vocab, size=n).astype(np.int32)
+                       for n in SERVER_GEN[0]]
+        direct = [cb.submit(p, SERVER_GEN[1]).result(timeout=600).tolist()
+                  for p in gen_prompts]
+        cb_graphs = dict(cb.stats()["graphs"])
+        # each bucket's first call, an eager warm-up and its capture,
+        # through the server's DynamicBatcher thread, while another thread
+        # keeps the continuous batcher replaying its graphs (which launch
+        # no counted kernel)
+        errors, overlap, stop = [], [], threading.Event()
+
+        def replaying():
+            try:
+                while not stop.is_set():
+                    overlap.append([cb.submit(p, SERVER_GEN[1]).result(
+                        timeout=600).tolist() for p in gen_prompts])
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        bg = threading.Thread(target=replaying)
+        bg.start()
+        capture_s = {}
+        try:
+            for rows, bucket in zip((1, 3, 8), SERVER_BUCKETS):
+                t0 = time.perf_counter()
+                server.infer("bert", {name: rng.randint(
+                    0, vocab, size=(rows, seq)).astype(np.int32)},
+                    timeout=600)
+                capture_s[bucket] = time.perf_counter() - t0
+        finally:
+            stop.set()
+            bg.join(timeout=600)
+        if errors or not overlap or any(o != direct for o in overlap):
+            raise AssertionError(f"server: the batcher's tokens while the "
+                                 f"buckets captured: {errors[:3]}, "
+                                 f"{len(overlap)} rounds")
+        warm_launches = launch_counts()
+        _launch_check("server buckets", warm_launches,
+                      PREDICT_PER_BATCH["flagship"], 2 * len(SERVER_BUCKETS))
+        warm_counts = dict(im.counts)
+
+        reqs = [[rng.randint(0, vocab, size=(int(rng.randint(1, 4)), seq))
+                 .astype(np.int32) for _ in range(SERVER_REQUESTS)]
+                for _ in range(SERVER_CLIENTS)]
+        outs = [[None] * SERVER_REQUESTS for _ in range(SERVER_CLIENTS)]
+        gen = {}
+
+        def client(i):
+            try:
+                for j, x in enumerate(reqs[i]):
+                    body = _http(port, "/v2/models/bert/infer",
+                                 {"inputs": {name: x.tolist()}})[2]
+                    outs[i][j] = np.asarray(json.loads(body)["outputs"],
+                                            np.float32)
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        def gen_client():
+            try:
+                path = "/v2/models/lm/generate"
+                gen["plain"] = json.loads(_http(port, path, {
+                    "prompt": [p.tolist() for p in gen_prompts],
+                    "max_new_tokens": SERVER_GEN[1]})[2])["tokens"]
+                gen["stream"], gen["trailer"] = [], []
+                for p in gen_prompts:
+                    _, headers, body = _http(port, path, {
+                        "prompt": p.tolist(),
+                        "max_new_tokens": SERVER_GEN[1], "stream": True})
+                    lines = [json.loads(ln) for ln in body.splitlines()]
+                    gen["stream"].append([ln["token"] for ln in lines[:-1]])
+                    gen["trailer"].append(lines[-1])
+                gen["content_type"] = headers["Content-Type"]
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVER_CLIENTS)]
+        threads.append(threading.Thread(target=gen_client))
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        traffic_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"server: client errors {errors[:3]}")
+        traffic_launches = {k: v - warm_launches.get(k, 0)
+                            for k, v in launch_counts().items()
+                            if v != warm_launches.get(k, 0)}
+        counts = dict(im.counts)
+        calls = counts["replays"] - warm_counts["replays"]
+        if (counts["captures"] != len(SERVER_BUCKETS)
+                or counts["warmups"] != len(SERVER_BUCKETS)
+                or counts["eager_walks"] or traffic_launches
+                or sorted(im._fns) != list(SERVER_BUCKETS)):
+            raise AssertionError(
+                f"server: buckets {sorted(im._fns)}, graph counts {counts}, "
+                f"launches during the traffic {traffic_launches}: the "
+                "traffic must only replay")
+        cb_after = dict(cb.stats()["graphs"])
+        if any(cb_after[k] != cb_graphs[k]
+               for k in ("warmups", "captures", "eager_walks")):
+            raise AssertionError(f"server: the continuous batcher's graphs "
+                                 f"{cb_graphs} -> {cb_after}")
+        if gen["plain"] != direct or gen["stream"] != direct or any(
+                t["tokens"] != d or t["done"] is not True
+                for t, d in zip(gen["trailer"], direct)):
+            raise AssertionError(f"server: /generate tokens {gen} differ "
+                                 f"from the direct submit's {direct}")
+        rows = sum(x.shape[0] for r in reqs for x in r)
+        err = 0.0
+        for r, o in zip(reqs, outs):
+            for x, got in zip(r, o):
+                want = im.predict({name: x})
+                if got.shape != want.shape:
+                    raise AssertionError(f"server: response {got.shape}, "
+                                         f"expected {want.shape}")
+                err = max(err, float(np.abs(got - want).max()))
+        if not err <= SERVER_TOL:
+            raise AssertionError(f"server: responses {err} from predict")
+
+        # one full bucket of 8: the graph against the eager walk
+        x8 = rng.randint(0, vocab, size=(8, seq)).astype(np.int32)
+        _, bucket8 = _bucket_vs_eager(torch, model, im, x8)
+
+        # /metrics after one forced watchdog check (the ff_checkpoint_*
+        # counters are phase 30's), /healthz
+        TrainingWatchdog(WatchdogPolicy(warmup_steps=0)).check(
+            0, float("nan"))
+        text = _http(port, "/metrics")[2].decode()
+        fams = validate_exposition(text)
+        prefixes = ("ff_inference_", "ff_serving_", "ff_kvpool_",
+                    "ff_checkpoint_", "ff_watchdog_")
+        missing = [p for p in prefixes
+                   if not any(f.startswith(p) for f in fams)]
+        status, _, body = _http(port, "/healthz")
+        health = json.loads(body)
+        if missing or status != 200 or health["status"] != "ok" or \
+                health["models"] != ["bert"] or \
+                health["continuous"] != ["lm"]:
+            raise AssertionError(f"server: /metrics lacks {missing} or "
+                                 f"/healthz {status} {health}")
+        stats = server.stats()
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+    del model, im, cb
+    torch.cuda.empty_cache()
+
+    # the f32 witness: a 2-layer f32 flagship's buckets against the CPU
+    card = build_bench_model("cuda", 2, False, 0)
+    cpu = build_bench_model("cpu", 2, False, 1)
+    cpu.load_params({op: {w: t.cpu() for w, t in ws.items()}
+                     for op, ws in card.params.items()})
+    x = rng.randint(0, vocab, size=(5, seq)).astype(np.int32)
+    got = InferenceModel(card, (4,)).predict({name: x})
+    want = InferenceModel(cpu, (4,)).predict({name: x})
+    werr = float(np.abs(got - want).max())
+    if not werr <= 1e-4:
+        raise AssertionError(f"server witness: card vs CPU {werr}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {
+        "phase": "server", "card": _card_line(), "buckets": SERVER_BUCKETS,
+        "capture_s": capture_s, "graph_counts": counts,
+        "batcher_rounds_during_captures": len(overlap),
+        "bucket_calls_in_traffic": calls,
+        "launches": {k: v for k, v in warm_launches.items() if v},
+        "launches_cover": "each bucket's eager warm-up and its capture "
+                          "(2 walks a bucket); the traffic only replays "
+                          "and launched nothing",
+        "clients": SERVER_CLIENTS, "requests": SERVER_CLIENTS
+        * SERVER_REQUESTS, "rows": rows, "traffic_s": traffic_s,
+        "http_samples_per_s": rows / traffic_s,
+        "max_abs_err_vs_predict": err, "tolerance": SERVER_TOL,
+        "bucket8": bucket8,
+        "eager_predict_phase28": {
+            k: predict["flagship"][k] for k in (
+                "samples_per_s", "wall_ms_per_batch", "busy_ms_per_batch",
+                "device_idle_share")},
+        "generate": {"prompts": list(SERVER_GEN[0]),
+                     "new_tokens": SERVER_GEN[1],
+                     "plain_and_stream_equal_direct": True,
+                     "content_type": gen["content_type"],
+                     "continuous_graphs": cb_after},
+        "metrics_families": len(fams),
+        "metrics_prefixes": {p: sorted(f for f in fams if f.startswith(p))
+                             for p in prefixes},
+        "stats_keys": sorted(stats),
+        "witness": {"layers": 2, "rows": 5, "buckets": [4],
+                    "max_abs_err": werr, "tolerance": 1e-4},
+        "wall_s": time.perf_counter() - t_phase}
+
+
+def phase_fold(torch, predict):
+    """32: fold_batchnorm under an InferenceModel, and ResNet-50 through
+    its bucket (see the module docstring)."""
+    import numpy as np
+
+    from flexflow_tpu_torch import OpType
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.serving import InferenceModel, fold_batchnorm
+    from flexflow_tpu_torch.tools import zoo_train as zoo
+
+    t_phase = time.perf_counter()
+    out = {"phase": "fold", "card": _card_line()}
+    batch = PREDICT_RUNS["resnet50"][1]
+    rng = np.random.RandomState(32)
+    x = rng.randn(2 * batch, 3, 224, 224).astype(np.float32)
+    stem = _bn_stem(torch, x, batch)
+    name = stem.input_ops[0].name
+    im = InferenceModel(stem, (batch,))
+    feed = {name: x[:batch]}
+    bns = [op.name for op in stem.ops if op.op_type == OpType.BATCHNORM]
+    runs = {}
+    for stage in ("before", "after"):
+        if stage == "after":
+            folded = fold_batchnorm(stem)
+            if folded != bns or len(bns) != 1:
+                raise AssertionError(f"fold: folded {folded}, batch norms "
+                                     f"{bns}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        pred = im.predict(feed)
+        launches = launch_counts()
+        _launch_check(f"fold {stage}", launches,
+                      PREDICT_PER_BATCH["bn_stem"], 2)
+        if not np.isfinite(pred).all():
+            raise AssertionError(f"fold {stage}: non-finite output")
+        kernels = _device_kernels(torch, lambda: im.predict(feed), 3)
+        runs[stage] = {"pred": pred, "launches": {
+            k: v for k, v in launches.items() if v},
+            "device_kernels_per_replay": sum(kernels.values()),
+            "kernels": kernels,
+            "times": _call_times(torch, lambda: im.predict(feed))}
+    before, after = runs["before"], runs["after"]
+    err = float(np.abs(after["pred"] - before["pred"]).max())
+    gone = sorted(set(before["kernels"]) - set(after["kernels"]))
+    if not err <= FOLD_TOL or im.counts["captures"] != 2 or \
+            after["device_kernels_per_replay"] >= \
+            before["device_kernels_per_replay"]:
+        raise AssertionError(
+            f"fold: max err {err}, graph counts {im.counts}, device kernels "
+            f"a replay {before['device_kernels_per_replay']} -> "
+            f"{after['device_kernels_per_replay']}")
+    try:
+        stem.fit(x, np.zeros((2 * batch, 1), np.int32), batch_size=batch,
+                 epochs=1)
+        raise AssertionError("fold: fit ran on a folded model")
+    except RuntimeError as e:
+        if "optimized for inference" not in str(e):
+            raise
+    out["bn_stem"] = {
+        "folded": folded, "max_abs_err": err, "tolerance": FOLD_TOL,
+        "graph_counts": dict(im.counts),
+        "fit_refused": True, "kernels_gone": gone,
+        **{stage: {k: v for k, v in r.items() if k not in ("pred",
+                                                           "kernels")}
+           for stage, r in runs.items()}}
+    del stem, im
+    torch.cuda.empty_cache()
+
+    resnet = zoo.build("resnet50", "cuda")
+    im = InferenceModel(resnet, (batch,))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    im.predict({resnet.input_ops[0].name: x[:batch]})
+    launches = launch_counts()
+    _launch_check("fold resnet50", launches, PREDICT_PER_BATCH["resnet50"],
+                  2)
+    _, out["resnet50"] = _bucket_vs_eager(torch, resnet, im, x[:batch])
+    out["resnet50"]["launches"] = {k: v for k, v in launches.items() if v}
+    out["resnet50"]["input_bytes"] = int(x[:batch].nbytes)
+    out["resnet50"]["eager_predict_phase28"] = {
+        k: predict["resnet50"][k] for k in (
+            "samples_per_s", "wall_ms_per_batch", "busy_ms_per_batch",
+            "device_idle_share")}
+    del resnet, im
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _prefill_probs(torch, model, prompt, chunk, max_len):
     """First-token distribution of `prompt`, prefilled chunk by chunk into
     fresh one-slot caches through the executor (the batcher's path)."""
@@ -4139,12 +4563,25 @@ def main() -> int:
                seconds_since_start=time.perf_counter() - t_start))
     print(f"phases 28-30: {time.perf_counter() - t_api:.1f} s", flush=True)
 
+    # 31) server, 32) fold: the serving front end
+    t_front = time.perf_counter()
+    line = phase_server(torch, lm, predict)
+    zoo_paths["server-buckets"] = line["launches"]
+    _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    line = phase_fold(torch, predict)
+    for stage in ("before", "after"):
+        zoo_paths[f"fold-stem-{stage}"] = line["bn_stem"][stage]["launches"]
+    zoo_paths["fold-resnet50"] = line["resnet50"]["launches"]
+    _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    print(f"phases 31-32: {time.perf_counter() - t_front:.1f} s", flush=True)
+
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
     # on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
     # phases 16-20, the zoo's eager fits, predict's first call of each
     # model and the manual loop's two iterations), each counted from 0
-    # just before its path ran
+    # just before its path ran; the server's and the fold's bucket
+    # graphs: their warm-up and capture walks (a replay counts nothing)
     src = "flexflow_tpu_torch/csrc/"
     replaces = {
         "decode_attention": "flexflow_tpu/kernels/pallas/decode.py:130",

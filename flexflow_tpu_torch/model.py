@@ -1,7 +1,8 @@
 """FFModel: the layer API, compile, fit, eval, predict and the manual
 loop on one torch device or on a data x model mesh of torch.distributed
 ranks (flexflow_tpu/model.py but for the strategy search, plan
-analysis, the parallel-op layer methods and the elastic hooks).
+analysis, the parallel-op layer methods and the elastic coordinator's
+hooks; fit's training watchdog is ported).
 
 Op names follow the JAX package's scheme (an explicit name, else
 `<op type>_<n>` per model), so the same builder code gives the same op
@@ -76,6 +77,9 @@ class FFModel:
         # the manual loop's batch, prediction, generator states, gradients
         # and per-seq_length steps
         self._manual: Dict[str, object] = {}
+        # why this model refuses to train (serving/optimize.py
+        # fold_batchnorm sets it), None while it may
+        self._inference_only: Optional[str] = None
 
     def add_weight_regularizer(self, op_name: str, weight_name: str,
                                fn) -> None:
@@ -660,6 +664,15 @@ class FFModel:
         if self.comp_mode != CompMode.COMP_MODE_TRAINING:
             raise RuntimeError(f"{what} needs compile() in training mode")
 
+    def _assert_trainable(self) -> None:
+        """JAX `_assert_trainable`: a model rewritten for inference
+        (serving/optimize.py `fold_batchnorm`) refuses to train."""
+        if self._inference_only:
+            raise RuntimeError(
+                f"model was optimized for inference "
+                f"({self._inference_only}); training is no longer valid — "
+                "rebuild and compile a fresh model to train")
+
     def _require_compiled(self, what: str) -> None:
         if self.executor is None:
             raise RuntimeError(f"{what} needs compile()")
@@ -690,7 +703,8 @@ class FFModel:
             y: Optional[np.ndarray] = None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, accum_steps: int = 1,
             steps_per_execution: int = 1,
-            verbose: bool = False) -> List[Dict[str, float]]:
+            verbose: bool = False, watchdog=None,
+            drift_detector=None) -> List[Dict[str, float]]:
         """Train on (x, y) for `epochs` passes of n // batch_size steps; with
         no x and y, on batches pulled from the attached dataloaders
         (runtime/dataloader.py), whose num_samples is n.
@@ -715,8 +729,23 @@ class FFModel:
         metrics are read after the next one is queued. The two are
         mutually exclusive, as in the JAX package. `perf_metrics` holds
         the current epoch's running metrics; `verbose` prints JAX's line
-        an epoch."""
+        an epoch.
+
+        watchdog: an elastic.TrainingWatchdog (JAX `fit(watchdog=)`). Every
+        committed loss is health-checked (NaN/Inf, EMA spike) where fit
+        reads it anyway: each step's, each accumulated update's, and each
+        K-step dispatch's mean loss, read after the next dispatch is
+        queued; so the guard adds no device sync. Bad steps are flagged
+        in the watchdog's event log, and after max_consecutive_bad of
+        them in a row fit raises the typed NumericBlowup (this loop
+        cannot undo an update). `drift_detector` (JAX's calibration-drift
+        hook) raises: the drift detector is ROADMAP A7.5."""
         self._require_training("fit()")
+        self._assert_trainable()
+        if drift_detector is not None:
+            raise NotImplementedError(
+                "fit(drift_detector=...): the calibration-drift detector is "
+                "not ported yet (ROADMAP A7.5)")
         if steps_per_execution > 1 and accum_steps > 1:
             raise ValueError(
                 "steps_per_execution and accum_steps are mutually exclusive "
@@ -762,6 +791,12 @@ class FFModel:
                                         y_dl.next_batch(), 0, bs)
             return self._host_batch(x, y, it * bs, (it + 1) * bs)
 
+        def guard() -> None:
+            # the watchdog on the record just committed (JAX `_wd_guard`)
+            if watchdog is not None:
+                watchdog.guard(self._step_count,
+                               self.step_records[-1]["loss"])
+
         k = steps_per_execution
         self.step_records = []
         history: List[Dict[str, float]] = []
@@ -784,9 +819,11 @@ class FFModel:
                     if pending is not None:
                         t_last = self._absorb(perf, pending, epoch, bs, k,
                                               t_last)
+                        guard()
                     pending = queued
                 if pending is not None:
                     self._absorb(perf, pending, epoch, bs, k, t_last)
+                    guard()
                 first_single, updates, micro = chunks * k, n // bs, 1
             else:
                 first_single, updates = 0, n // (bs * accum_steps)
@@ -808,6 +845,7 @@ class FFModel:
                     rec = {key: float(v) for key, v in mvals.items()}
                 self._record(perf, rec, epoch, bs * micro, 1,
                              time.perf_counter() - t0)
+                guard()
             summ = perf.summary()
             summ["epoch"] = epoch
             summ["throughput"] = updates * bs * micro / (time.time() - t_epoch)
@@ -975,6 +1013,7 @@ class FFModel:
         is then put back where the forward left it. Without a forward
         before it, the walk draws new masks."""
         self._require_training("backward()")
+        self._assert_trainable()
         gen = self.executor.generator
         saved = self._manual.pop("rng", None)
         after = gen.get_state()
@@ -991,6 +1030,7 @@ class FFModel:
         """One optimizer update from `backward`'s gradients: one call of
         the fused update, as a `fit` step makes."""
         self._require_training("update()")
+        self._assert_trainable()
         grads = self._manual.get("grads")
         if grads is None:
             raise RuntimeError("update() needs backward() first")

@@ -1,10 +1,13 @@
 """Labelled metrics: a host-only copy of flexflow_tpu/obs/registry.py's
 primitives (`Counter`, `Gauge`, `Histogram` with quantiles) and its
 Prometheus exposition renderer, so the port's metric families keep the
-JAX package's names, labels and text, and `counters_with_prefix`, behind
-runtime/durability.py's `checkpoint_counters()`. The merged
-multi-registry render and the exposition parser come with the rest of
-obs/ and the fleet (ROADMAP A9.2, A10).
+JAX package's names, labels and text, `counters_with_prefix`, behind
+runtime/durability.py's `checkpoint_counters()` and elastic/watchdog.py's
+`watchdog_counters()`, and the exposition parser and checker
+(`parse_exposition`, `validate_exposition`, `iter_samples`) that the
+tests and `chip_smoke.py` run over `/metrics`. The merged
+multi-registry render (`render_labeled`, `render_merged`) comes with the
+fleet (ROADMAP A10).
 
 Design rules (the JAX module's):
  - a metric family is (name, kind, label names); asking again for an
@@ -20,7 +23,7 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -379,3 +382,126 @@ class MetricsRegistry:
 # the process-wide registry
 REGISTRY = MetricsRegistry()
 
+
+# -- exposition-format checking -------------------------------------------
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"          # metric name
+    r"(?:\{(.*)\})?"                          # optional label block
+    r" ([-+]?(?:[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?|Inf|NaN))"
+    r"(?: [0-9]+)?$")                         # optional timestamp
+# OpenMetrics exemplar suffix, split off a sample line before _SAMPLE_RE
+# runs (the greedy label-block match must never see it)
+_EXEMPLAR_RE = re.compile(
+    r"^\{(.*)\} ([-+]?(?:[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?|Inf|NaN))"
+    r"(?: [0-9.]+)?$")
+_LABEL_PAIR_RE = re.compile(
+    r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _unescape_label_value(v: str) -> str:
+    out, i = [], 0
+    while i < len(v):
+        c = v[i]
+        if c == "\\" and i + 1 < len(v):
+            nxt = v[i + 1]
+            out.append({"n": "\n", "\\": "\\", '"': '"'}.get(nxt, c + nxt))
+            i += 2
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
+def parse_exposition(text: str) -> Dict[str, Dict]:
+    """Strict-enough parser for the exposition subset we emit. Returns
+    {family name: {"type": ..., "help": ..., "samples":
+    [(name, {label: value}, float)], "exemplars":
+    [(name, {label: value}, {exemplar label: value}, float)]}}. Raises
+    ValueError on any line that does not parse — the checker the tests
+    run over `/metrics` output."""
+    families: Dict[str, Dict] = {}
+
+    def fam(name: str) -> Dict:
+        return families.setdefault(
+            name, {"type": None, "help": None, "samples": [],
+                   "exemplars": []})
+
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# HELP "):
+            parts = line.split(" ", 3)
+            if len(parts) < 3 or not _NAME_RE.match(parts[2]):
+                raise ValueError(f"line {lineno}: bad HELP: {line!r}")
+            fam(parts[2])["help"] = parts[3] if len(parts) > 3 else ""
+            continue
+        if line.startswith("# TYPE "):
+            parts = line.split(" ")
+            if (len(parts) != 4 or not _NAME_RE.match(parts[2])
+                    or parts[3] not in ("counter", "gauge", "histogram",
+                                        "summary", "untyped")):
+                raise ValueError(f"line {lineno}: bad TYPE: {line!r}")
+            if families.get(parts[2], {}).get("type") is not None:
+                raise ValueError(
+                    f"line {lineno}: duplicate TYPE for {parts[2]}")
+            fam(parts[2])["type"] = parts[3]
+            continue
+        if line.startswith("#"):
+            continue  # comment
+        exemplar = None
+        if " # " in line:  # OpenMetrics exemplar suffix on a sample line
+            head, _, ex_part = line.rpartition(" # ")
+            em = _EXEMPLAR_RE.match(ex_part)
+            if em:  # else: " # " inside a label value — leave the line be
+                line = head
+                ex_labels = {pm.group(1): _unescape_label_value(pm.group(2))
+                             for pm in _LABEL_PAIR_RE.finditer(em.group(1))}
+                exemplar = (ex_labels,
+                            float(em.group(2).replace("Inf", "inf")
+                                  .replace("NaN", "nan")))
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            raise ValueError(f"line {lineno}: unparseable sample: {line!r}")
+        name, label_block, value = m.group(1), m.group(2), m.group(3)
+        labels: Dict[str, str] = {}
+        if label_block:
+            consumed = 0
+            for pm in _LABEL_PAIR_RE.finditer(label_block):
+                labels[pm.group(1)] = _unescape_label_value(pm.group(2))
+                consumed = pm.end()
+                if (consumed < len(label_block)
+                        and label_block[consumed] == ","):
+                    consumed += 1
+            if consumed != len(label_block):
+                raise ValueError(
+                    f"line {lineno}: bad label block: {label_block!r}")
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        entry = fam(base if base in families else name)
+        entry["samples"].append(
+            (name, labels, float(value.replace("Inf", "inf")
+                                 .replace("NaN", "nan"))))
+        if exemplar is not None:
+            entry["exemplars"].append(
+                (name, labels, exemplar[0], exemplar[1]))
+    return families
+
+
+def validate_exposition(text: str) -> Dict[str, Dict]:
+    """parse_exposition + structural checks: every sample belongs to a
+    family with a TYPE header, and histogram families carry their
+    _bucket/_sum/_count series."""
+    families = parse_exposition(text)
+    for name, f in families.items():
+        if f["samples"] and f["type"] is None:
+            raise ValueError(f"samples for {name} without a # TYPE header")
+        if f["type"] == "histogram":
+            kinds = {n.rsplit("_", 1)[-1] for n, _, _ in f["samples"]
+                     if n != name}
+            if f["samples"] and not {"sum", "count"} <= kinds:
+                raise ValueError(f"histogram {name} missing _sum/_count")
+    return families
+
+
+def iter_samples(text: str) -> Iterable[Tuple[str, Dict[str, str], float]]:
+    for f in parse_exposition(text).values():
+        yield from f["samples"]

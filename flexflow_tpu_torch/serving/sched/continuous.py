@@ -122,13 +122,10 @@ from ...ffconst import OpType
 from ...obs.tracing import _NULL_SPAN, get_tracer
 from ...runtime.graphs import CapturedCall, Staging, graph_counts, \
     model_weights, new_pool
+from ..batcher import BatcherStopped
 from ..generate import key_bits, pick_tokens, sample_key
 from .admission import AdmissionController
 from .kvpool import PagedKVPool, kv_cache_spec
-
-
-class BatcherStopped(RuntimeError):
-    """The batcher is not running (typed shutdown)."""
 
 
 class RequestCancelled(RuntimeError):

@@ -2174,3 +2174,156 @@ def test_predict_on_card_matches_cpu(dev):
     for op, ws in b.params.items():
         for w, t in ws.items():
             assert torch.equal(a.params[op][w], t), (op, w)
+
+
+def _card_bert(device, mixed, batch=4, seed=0):
+    from flexflow_tpu_torch import (AdamOptimizer, DataType, FFConfig,
+                                    FFModel, LossType)
+    from flexflow_tpu_torch.models import (TransformerConfig,
+                                           build_bert_encoder)
+
+    m = FFModel(FFConfig(batch_size=batch, allow_mixed_precision=mixed,
+                         device=device))
+    tok = m.create_tensor([batch, 64], DataType.DT_INT32)
+    build_bert_encoder(m, tok, TransformerConfig(
+        hidden_size=128, embedding_size=128, num_heads=2, num_layers=2,
+        sequence_length=64, vocab_size=97))
+    m.compile(optimizer=AdamOptimizer(m, alpha=1e-3),
+              loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              generator=torch.Generator().manual_seed(seed))
+    return m
+
+
+def test_bucket_replay_equals_the_eager_walk_on_card(dev):
+    """InferenceModel on the card: a bucket's first call captures, later
+    calls replay; a replay gives the eager inference walk's bits at the
+    bucket's shape (predict of the zero-padded batch), the hand-written
+    kernels launched at the capture; an f32 model's buckets match the
+    port on the CPU."""
+    from flexflow_tpu_torch.serving import InferenceModel
+
+    rng = np.random.RandomState(7)
+    x = rng.randint(0, 97, size=(3, 64)).astype(np.int32)
+    m = _card_bert(str(dev), True)
+    im = InferenceModel(m, batch_buckets=(2, 4))
+    reset_launch_counts()
+    got = im.predict({"input_0": x})
+    launches = launch_counts()
+    assert launches["flash_fwd"] == 2 * 2  # warm-up and capture, 2 layers
+    assert launches["layernorm_fwd"] > 0
+    assert im.counts == {"warmups": 1, "captures": 1, "replays": 0,
+                         "eager_walks": 0}
+    np.testing.assert_array_equal(got, im.predict({"input_0": x}))
+    assert im.counts["replays"] == 1 and im.counts["captures"] == 1
+    padded = np.concatenate([x, np.zeros((1, 64), np.int32)])
+    np.testing.assert_array_equal(got, m.predict(padded, batch_size=4)[:3])
+    # over the largest bucket: chunks of 4 through the one graph
+    x9 = rng.randint(0, 97, size=(9, 64)).astype(np.int32)
+    assert im.predict({"input_0": x9}).shape == (9, 64, 2)
+    assert im.counts["captures"] == 1
+    card, cpu = _card_bert(str(dev), False), _card_bert("cpu", False)
+    a = InferenceModel(card, batch_buckets=(4,)).predict({"input_0": x9})
+    b = InferenceModel(cpu, batch_buckets=(4,)).predict({"input_0": x9})
+    np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-3)
+
+
+def _card_bn_net(dev, seed):
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+
+    m = FFModel(FFConfig(batch_size=8, allow_mixed_precision=True,
+                         device=str(dev)))
+    t = m.conv2d(m.create_tensor([8, 3, 16, 16]), 8, 3, 3, 1, 1, 1, 1,
+                 use_bias=False)
+    t = m.pool2d(m.batch_norm(t, relu=True), 2, 2, 2, 2, 0, 0)
+    m.softmax(m.dense(m.flat(t), 4))
+    m.compile(optimizer=SGDOptimizer(m, lr=0.05),
+              generator=torch.Generator().manual_seed(seed))
+    return m
+
+
+def test_bucket_recaptures_after_load_params_and_fold(dev):
+    """A captured bucket never replays stale: new weights (load_params)
+    re-capture it, and fold_batchnorm's new executor drops it, so the
+    folded graph (no batch-norm walk) is captured anew; the folded model
+    predicts the unfolded one within bf16 rounding and refuses fit."""
+    from flexflow_tpu_torch.serving import InferenceModel, fold_batchnorm
+
+    rng = np.random.RandomState(8)
+    x = rng.randn(16, 3, 16, 16).astype(np.float32)
+    y = rng.randint(0, 4, size=(16, 1)).astype(np.int32)
+    m, other = _card_bn_net(dev, 0), _card_bn_net(dev, 1)
+    m.fit(x, y, epochs=1)
+    other.fit(x, y, epochs=1)
+    im = InferenceModel(m, batch_buckets=(8,))
+    first = im.predict({"input_0": x[:5]})
+    m.load_params(other.params)
+    m.load_state(other.state)
+    second = im.predict({"input_0": x[:5]})
+    assert im.counts["captures"] == 2 and im.counts["replays"] == 0
+    padded = np.concatenate([x[:5], np.zeros((3, 3, 16, 16), np.float32)])
+    want = other.predict(padded, batch_size=8)[:5]
+    np.testing.assert_array_equal(second, want)
+    assert not np.array_equal(first, second)
+    old = im._fns[8]
+    assert fold_batchnorm(m) == ["batchnorm_0"]
+    folded = im.predict({"input_0": x[:5]})
+    assert im._fns[8] is not old and im.counts["captures"] == 3
+    np.testing.assert_allclose(folded, want, atol=2e-2, rtol=5e-2)
+    np.testing.assert_array_equal(folded, im.predict({"input_0": x[:5]}))
+    assert im.counts["replays"] == 1
+    with pytest.raises(RuntimeError, match="optimized for inference"):
+        m.fit(x, y, epochs=1)
+
+
+def test_bucket_captures_while_another_thread_replays(dev):
+    """A DynamicBatcher thread captures its buckets while the continuous
+    batcher's thread replays its decode graphs on the same card (two
+    graph pools): the tokens and the bucket outputs are those of each
+    path run alone."""
+    import threading
+
+    from flexflow_tpu_torch.serving import DynamicBatcher, InferenceModel
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    lm = _serve_lm(71)
+    rng = np.random.RandomState(72)
+    prompts = [rng.randint(1, 50, size=(n,)).astype(np.int32)
+               for n in (6, 13, 3, 9)]
+    want, _ = _serve_tokens(lm, prompts)
+    m = _card_bert(str(dev), True)
+    xs = [rng.randint(0, 97, size=(n, 64)).astype(np.int32)
+          for n in (1, 3, 2, 4, 1)]
+    alone = [m.predict(np.concatenate(
+        [x, np.zeros((4 - len(x) if len(x) > 1 else 0, 64), np.int32)]),
+        batch_size=4 if len(x) > 1 else 1)[:len(x)] for x in xs]
+    got, errors = [], []
+    with ContinuousBatcher(lm, max_len=48, num_slots=2, page_size=4,
+                           max_queue=64) as cb:
+        # every graph of the continuous batcher captured first
+        for r in [cb.submit(p, 8) for p in prompts]:
+            r.result(timeout=120)
+        stop = threading.Event()
+
+        def serve():
+            try:
+                while not stop.is_set():
+                    reqs = [cb.submit(p, 8) for p in prompts]
+                    got.append([r.result(timeout=120).tolist()
+                                for r in reqs])
+            except Exception as e:  # surfaced by the assert below
+                errors.append(e)
+
+        t = threading.Thread(target=serve)
+        t.start()
+        try:
+            im = InferenceModel(m, batch_buckets=(1, 4))
+            with DynamicBatcher(im, max_batch_size=4,
+                                max_delay_ms=0.0) as b:
+                outs = [b.infer({"input_0": x}, timeout=120) for x in xs]
+        finally:
+            stop.set()
+            t.join(timeout=120)
+    assert not errors and got and all(g == want for g in got)
+    assert im.counts["captures"] == 2 and im.counts["eager_walks"] == 0
+    for o, a in zip(outs, alone):
+        np.testing.assert_array_equal(o, a)
