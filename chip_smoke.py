@@ -288,6 +288,41 @@ Phases, in order; any failure propagates and exits non-zero:
               staging of its 9.6 MB input) against the eager predict walk
               of the same rows: the same bits, host wall, busy and idle a
               batch of each beside phase 28's.
+33. cost    — the cost model and its calibration loop on the train phase's
+              flagship (its weights): fit with profiling, 3 + 10 steps at
+              K = 1, then 4 + 12 at K = 4 (StepStats: its MFU within 5%
+              of the train phase's formula on the same steps); the
+              Simulator over OpCostCache's measurements (CUDA events;
+              hits, misses, failures); profile_ops (the five slowest
+              ops); calibrate; refit against the K = 1 StepStats p50 (3
+              rounds, tol 0.15: predicted, measured and ratio each round,
+              converged or fail); the FittedProfile (h100-sxm / gpu)
+              saved and reloaded through make_machine_model (the same
+              prediction), the kernel registry's selections from its
+              residual evidence; every weight, buffer and the generator
+              the same bits after profile_ops and calibrate; a
+              DriftDetector over 10 more steps (no breach); the
+              task-graph dot written and parsed back (a node an op, an
+              edge an edge); and the flash crossover sweep: the attention
+              op (16 x 64, bf16) with use_flash True and False at b in
+              {1, 8}, l in {16, ..., 512}, forward and forward + backward.
+34. slots   — the serve LM through ContinuousBatcher(num_slots=None): the
+              count derived from the H100 spec's 80 GB (clamped and not),
+              16 warm-up requests (slots 0-15 and the decode graph
+              captured), then the serve phase's 16 requests, timed (only
+              replays): tokens/s, TTFT p50 / p99, ms a decode iteration,
+              captures and replays, peak memory, beside the 8-slot run;
+              the tokens equal to the bit to a batcher given the count
+              explicitly; each request's first-token probabilities
+              within 5% of the 8-slot run's peak; decode_attention at
+              B = the derived count (M 1024, 16 x 64, positions from 0
+              to 1023; bf16 and f32) against its plain version; one
+              decode iteration of the derived batcher's graph (all its
+              slots) against the one-slot chunk path over each prompt
+              and its first token, within 5% of the peak; the f32
+              witness (1 layer, hidden 64, num_slots=None) the CPU's
+              tokens. Its decode ms is the timed run's own, beside the
+              batcher's lifetime mean, whose warm-up captures the graph.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -401,6 +436,11 @@ PREDICT_PER_BATCH = {
     # ResNet-50's stem with a batch norm, on ResNet-50's inputs
     "bn_stem": {"softmax_fwd": 1},
 }
+# phase 33: the crossover sweep's sequence lengths and rounds
+# decode attention against its plain version: |err| <= a + r * |plain|
+DECODE_TOL = {"bfloat16": (4e-3, 2e-2), "float32": (1e-5, 1e-4)}
+CROSSOVER_LENGTHS = (16, 32, 64, 128, 256, 512)
+CROSSOVER_ROUNDS = 5
 # phase 29: the truncated iteration's length, and the flash launches of
 # its forward and of its backward
 MANUAL_SEQ = 300
@@ -552,7 +592,7 @@ def phase_kernels(torch, F):
             bound_ms=bound, bound_by=by)
         return row
 
-    bf16_tol, f32_tol = (4e-3, 2e-2), (1e-5, 1e-4)
+    bf16_tol, f32_tol = DECODE_TOL["bfloat16"], DECODE_TOL["float32"]
     table = {}
     for name, c, b, pos in (
             ("decode_attention", 1, B, pos8),
@@ -4202,6 +4242,479 @@ def phase_fold(torch, predict):
     return out
 
 
+def _first_token_probs(torch, cb, prompts, page):
+    """Each prompt's first-token distribution from batcher `cb`'s captured
+    chunk graph: the prompt replayed chunk by chunk through slot 0, the
+    last row of the last chunk read (on the host)."""
+    import numpy as np
+
+    out = []
+    with torch.no_grad():
+        for prompt in prompts:
+            for off in range(0, len(prompt), page):
+                n = min(page, len(prompt) - off)
+                host = np.zeros(page + 1, np.int32)
+                host[:n] = prompt[off:off + n]
+                host[page] = off
+                cb._chunk_dispatch(0, host)
+            # a copy: the static buffer is the next chunk's output
+            out.append(cb._chunk_probs[0, n - 1].float().cpu().clone())
+    return out
+
+
+def _model_bits(torch, model):
+    """Every weight and state buffer of `model` (cloned on its device) and
+    its training generator's state."""
+    return ([(op.name, n, v.detach().clone()) for op in model.ops
+             for n, v in list(op.named_parameters())
+             + list(op.named_buffers())],
+            model.executor.generator.get_state().clone())
+
+
+def _same_bits(torch, model, bits):
+    tensors, gen = bits
+    now = {(op.name, n): v for op in model.ops
+           for n, v in list(op.named_parameters())
+           + list(op.named_buffers())}
+    changed = [f"{o}/{n}" for o, n, v in tensors
+               if not torch.equal(now[(o, n)], v)]
+    if not torch.equal(gen, model.executor.generator.get_state()):
+        changed.append("generator")
+    return changed
+
+
+def _crossover_sweep(torch, rounds=CROSSOVER_ROUNDS):
+    """OpCostCache's measurement of one attention op (h 16, d 64, bf16
+    mixed precision) with use_flash True and False at b in (1, 8), l in
+    CROSSOVER_LENGTHS: forward and forward + backward us, each the median
+    of `rounds` rounds (a fresh cache a round, the two impls in turns),
+    beside the score bytes the registry's crossover compares (4 b h l^2).
+    At these shapes the eager op is bound by the host's launches, so the
+    rounds' spread is printed too. The sweep's crossover: the largest
+    score bytes below which the einsum core's median forward + backward
+    beats flash's at every swept shape (0 when flash is at or under it at
+    the smallest)."""
+    import numpy as np
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.kernels.registry import \
+        FLASH_SCORE_BYTES_CROSSOVER
+    from flexflow_tpu_torch.search.simulator import OpCostCache, OpStrategy
+
+    ops = {}
+    for b in (1, 8):
+        for seq in CROSSOVER_LENGTHS:
+            for flash in (True, False):
+                m = FFModel(FFConfig(batch_size=b, device="cuda"))
+                t = m.create_tensor([b, seq, 1024])
+                m.multihead_attention(t, t, t, 1024, 16, use_flash=flash)
+                ops[(b, seq, flash)] = m.ops[-1]
+    times = {k: [] for k in ops}
+    misses = 0
+    for rnd in range(rounds):
+        cache = OpCostCache(FFConfig(device="cuda"), warmup=3, repeats=20)
+        for (b, seq, flash), op in sorted(
+                ops.items(), key=lambda kv: (kv[0][:2], kv[0][2] != rnd % 2)):
+            fwd, bwd = cache.measure_us(op, OpStrategy())
+            if fwd <= 0 or bwd < 0:
+                raise AssertionError(f"crossover sweep: {b}x{seq} "
+                                     f"flash={flash} unmeasured: "
+                                     f"{cache.failures}")
+            times[(b, seq, flash)].append((fwd, fwd + bwd))
+        misses += cache.misses
+    rows = []
+    for b in (1, 8):
+        for seq in CROSSOVER_LENGTHS:
+            row = {"b": b, "l": seq, "score_bytes": 4.0 * b * 16 * seq * seq}
+            for flash, tag in ((True, "flash"), (False, "einsum")):
+                t = np.array(times[(b, seq, flash)])
+                row[f"{tag}_fwd_us"] = float(np.median(t[:, 0]))
+                row[f"{tag}_fwd_bwd_us"] = float(np.median(t[:, 1]))
+                row[f"{tag}_fwd_bwd_us_min_max"] = [float(t[:, 1].min()),
+                                                    float(t[:, 1].max())]
+            row["flash_wins_fwd"] = row["flash_fwd_us"] <= row["einsum_fwd_us"]
+            row["flash_wins_fwd_bwd"] = (row["flash_fwd_bwd_us"]
+                                         <= row["einsum_fwd_bwd_us"])
+            rows.append(row)
+    crossover = 0.0
+    for r in sorted(rows, key=lambda r: r["score_bytes"]):
+        if r["flash_wins_fwd_bwd"]:
+            break
+        crossover = r["score_bytes"]
+    return {"rows": rows, "rounds": rounds, "measurements": misses,
+            "crossover_bytes_in_use": FLASH_SCORE_BYTES_CROSSOVER,
+            "crossover_bytes_from_sweep": crossover,
+            "flash_wins_every_shape_fwd_bwd": all(
+                r["flash_wins_fwd_bwd"] for r in rows)}
+
+
+def phase_cost(torch, train, steps=10, warmup=3):
+    """Phase 33: the cost model and its calibration loop on the flagship.
+    fit with profiling at K = 1 (warmup + steps) and K = 4, StepStats'
+    MFU against the train phase's formula on the same steps; the
+    simulator with OpCostCache's measurements; profile_ops; calibrate;
+    refit against the K = 1 StepStats p50 (3 rounds, tol 0.15); the
+    FittedProfile saved for h100-sxm / gpu and reloaded through
+    make_machine_model; the registry's residual evidence from it; a
+    DriftDetector over `steps` more steps; the task-graph dot written
+    and parsed back; and the flash crossover sweep."""
+    import dataclasses
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels.registry import KERNELS, OPTYPE_FAMILY
+    from flexflow_tpu_torch.obs import (REGISTRY, DriftDetector, calibrate,
+                                        refit)
+    from flexflow_tpu_torch.runtime.profiling import profile_ops
+    from flexflow_tpu_torch.search.machine_model import make_machine_model
+    from flexflow_tpu_torch.search.simulator import OpCostCache, Simulator
+    from flexflow_tpu_torch.tools.train_profile import build_bench_model
+
+    model = build_bench_model("cuda", TRAIN["layers"], True, 0)
+    model.config.profiling = True
+    b = TRAIN["batch"]
+    x, y = _train_batch()
+    model.fit(x, y, batch_size=b, epochs=warmup)
+    model.fit(x, y, batch_size=b, epochs=steps)
+    k1 = model.step_stats
+    k1_records = list(model.step_records)
+    stats_mfu = float(np.median([r["mfu"] for r in k1.records()]))
+    formula_mfu = float(np.median(
+        [train_step_flops(**TRAIN) / (r["step_ms"] / 1e3)
+         / PEAK_OPS_PER_S["bfloat16"] for r in k1_records]))
+    # one clock (StepStats takes each step record's wall): this holds
+    # StepStats' FLOPs a step (from the graph) and peak (from the spec)
+    # against the train phase's formula and the data sheet's peak
+    if abs(stats_mfu / formula_mfu - 1.0) > 0.05:
+        raise AssertionError(f"StepStats MFU {stats_mfu} vs the train "
+                             f"phase's formula {formula_mfu} on the same "
+                             f"steps: more than 5% apart")
+    # K = 4: one dispatch warms and captures, three are read
+    xk, yk = np.concatenate([x] * GRAPH_K), np.concatenate([y] * GRAPH_K)
+    model.fit(xk, yk, batch_size=b, epochs=1, steps_per_execution=GRAPH_K)
+    model.fit(xk, yk, batch_size=b, epochs=3, steps_per_execution=GRAPH_K)
+    k4 = model.step_stats.summary()
+    model.step_stats = k1
+
+    bits = _model_bits(torch, model)
+    measured = OpCostCache(model.config, warmup=2, repeats=10)
+    machine = make_machine_model(model.config, 1)
+    sim_measured_us = Simulator(machine, model.config,
+                                measured=measured).simulate(model.graph, {})
+    failures = dict(measured.failures)
+    rows = profile_ops(model)
+    report = calibrate(model)
+    changed = _same_bits(torch, model, bits)
+    if changed:
+        raise AssertionError(f"calibration changed the model: {changed[:8]}")
+    errors = ([r["op"] for r in rows if "error" in r]
+              + [o.op for o in report.ops if o.error or
+                 not o.measured_us > 0])
+    if failures or errors:
+        raise AssertionError(f"measurement failures on flagship ops: "
+                             f"{failures} {errors}")
+    measured_us = k1.summary()["p50_step_ms"] * 1e3
+    profile, history = refit(model, measured_us, report.ops, rounds=3,
+                             tol=0.15)
+    converged = abs(history[-1].ratio - 1.0) <= 0.15
+    if not converged:
+        raise AssertionError(f"refit did not converge: "
+                             f"{[h.to_dict() for h in history]}")
+    if (profile.chip, profile.backend) != ("h100-sxm", "gpu"):
+        raise AssertionError(f"profile keyed {profile.chip}/"
+                             f"{profile.backend}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cost_")
+    path = profile.save(os.path.join(tmp, "fitted_profile.json"))
+    cfg = dataclasses.replace(model.config, fitted_profile_file=path)
+    fitted = make_machine_model(cfg, 1)
+    repriced = Simulator(fitted, cfg).simulate(model.graph, {})
+    if abs(repriced / history[-1].predicted_step_us - 1.0) > 1e-6:
+        raise AssertionError(f"reloaded profile prices {repriced} us, refit "
+                             f"ended at {history[-1].predicted_step_us}")
+    selections = {f: dict(zip(("impl", "reason"), (c.impl, c.reason)))
+                  for f in sorted(set(OPTYPE_FAMILY.values()))
+                  for c in [KERNELS.select(f, config=cfg, record=False)]}
+    # drift over more steps of the same run, against the refit prediction
+    # (flagged: the detector's verdict, a breach outlasting its patience)
+    breaches = REGISTRY.counter("ff_drift_breaches_total", "")
+    before = breaches.value()
+    det = DriftDetector(repriced)
+    verdicts = []
+    observe = det.observe
+    det.observe = lambda us: verdicts.append(observe(us)) or verdicts[-1]
+    model.fit(x, y, batch_size=b, epochs=steps, drift_detector=det)
+    if any(verdicts):
+        raise AssertionError(f"drift flagged on an unchanged run: "
+                             f"verdicts {verdicts}, drift {det.drift}")
+    dot = os.path.join(tmp, "task_graph.dot")
+    model._export_task_graph(dot)
+    text = open(dot).read()
+    nodes = re.findall(r'^  n(\d+) \[label="([^"]*)"', text, re.M)
+    edges = re.findall(r"^  n(\d+) -> n(\d+);", text, re.M)
+    if (len(nodes) != len(model.graph.ops)
+            or len(edges) != len(model.graph.edges())
+            or not all("fwd=" in lab for _, lab in nodes)):
+        raise AssertionError(f"task graph: {len(nodes)} nodes, {len(edges)} "
+                             f"edges for {len(model.graph.ops)} ops")
+    sweep = _crossover_sweep(torch)
+    top = [{k: r[k] for k in ("op", "type", "forward_us", "eff_tflops")}
+           for r in rows[:5]]
+    del model
+    return {
+        "phase": "cost", "steps": steps, "warmup_steps": warmup,
+        "k1": k1.summary(), "k4": k4,
+        "stepstats_mfu_median": stats_mfu,
+        "train_formula_mfu_same_steps": formula_mfu,
+        "train_phase_mfu": train["mfu_bf16_peak"],
+        "flops_per_step": {"stepstats": k1.flops_per_step,
+                           "train_formula": train_step_flops(**TRAIN)},
+        "peak_tflops": k1.peak_tflops,
+        "predicted_step_us_analytic": report.predicted_step_us,
+        "predicted_step_us_measured_ops": sim_measured_us,
+        "measured_step_us_p50": measured_us,
+        "ratio_before": report.step_ratio,
+        "refit_rounds": [h.to_dict() for h in history],
+        "converged": converged,
+        "coefficients": profile.coefficients.to_dict(),
+        "op_family_residuals": profile.op_family_residuals,
+        "kernel_candidates": report.kernel_candidates(),
+        "registry_from_profile": selections,
+        "top5_ops": top, "ops_profiled": len(rows),
+        "cost_cache": {"hits": measured.hits, "misses": measured.misses,
+                       "failures": len(measured.failures)},
+        "drift": {"predicted_step_us": repriced, "observed": det._seen,
+                  "ema_us": det.measured_step_us, "drift": det.drift,
+                  "flagged": sum(verdicts),
+                  "breaches": breaches.value() - before},
+        "task_graph": {"nodes": len(nodes), "edges": len(edges)},
+        "crossover": sweep,
+    }
+
+
+def _slots_serve(torch, cb, prompts, news, vocab):
+    """Warm `cb`'s slots 0-15 (its decode graph and 16 chunk graphs), then
+    serve the serve phase's 16 requests, timed; returns the tokens, the
+    wall, the TTFTs, the graph counts of the timed run and its mean ms a
+    decode iteration."""
+    import numpy as np
+
+    warm_rng = np.random.RandomState(1)
+    cb.start()
+    for r in [cb.submit(warm_rng.randint(0, vocab, size=40), 4)
+              for _ in range(len(prompts))]:
+        r.result(timeout=600)
+    warm_stats = cb.stats()
+    warm = dict(warm_stats["graphs"])
+    t0 = time.perf_counter()
+    reqs = [cb.submit(p, int(n)) for p, n in zip(prompts, news)]
+    outs = [r.result(timeout=900).tolist() for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cb.stop()
+    stats = cb.stats()
+    timed = {k: v - warm[k] for k, v in stats["graphs"].items()}
+    return (outs, wall, [r.ttft_s for r in reqs], warm, timed,
+            _timed_decode_ms(warm_stats, stats))
+
+
+def _timed_decode_ms(before, after):
+    """Mean ms a decode iteration between two `stats()` of one batcher:
+    the timed run's own, without the warm-up's (whose first iteration
+    captures the decode graph)."""
+    def total_s(st):
+        return (st["decode_iter_s_mean"] or 0.0) * st["decode_iterations"]
+
+    iters = after["decode_iterations"] - before["decode_iterations"]
+    return (total_s(after) - total_s(before)) / iters * 1e3 if iters \
+        else None
+
+
+def _decode_at_slots(torch, slots, m, h, d):
+    """decode_attention (C = 1) at the derived batcher's shape: `slots`
+    rows at positions spread from an empty slot (0) to a full one
+    (m - 1), bf16 and f32, each against decode_attention_plain within
+    DECODE_TOL; returns {dtype: row}."""
+    from flexflow_tpu_torch.kernels import decode
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    pos = torch.linspace(0, m - 1, slots, device=dev).round().to(torch.int32)
+    scale = 1.0 / d ** 0.5
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q, kc, vc = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((slots, 1, h, d), (slots, m, h, d),
+                                   (slots, m, h, d)))
+        out = decode.decode_attention(q, kc, vc, pos, scale=scale,
+                                      block_k=512)
+        ref = decode.decode_attention_plain(q, kc, vc, pos, scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        a, r = DECODE_TOL[name]
+        plan = decode.decode_plan(slots, 1, m, h, d, 512, dtype, dtype)
+        rows[name] = {
+            "shape": f"B={slots} C=1 M={m} h={h} d={d} {name}",
+            "route": plan.route, "max_abs_err": float(err.max()),
+            "tolerance": f"|err| <= {a} + {r}*|plain|"}
+        if not bool((err <= a + r * ref.float().abs()).all()):
+            raise AssertionError(f"slots: decode_attention disagrees with "
+                                 f"its plain version: {rows[name]}")
+    return rows
+
+
+def _decode_iteration_probs(torch, cb, prompts, firsts, page, max_len):
+    """One decode iteration of batcher `cb` (its captured graph, all
+    num_slots rows): slot i holds prompt i (prefilled through its chunk
+    graph) and decodes its first token `firsts[i]` at position len(prompt
+    i); the other slots decode at positions spread over the cache. Each
+    prompt's distribution is then held against the one-slot chunk path
+    over prompt + [first token] (slot 0's chunk graph, the multi-query
+    kernel at B = 1): the largest |p - q| over the peak of q, a request."""
+    import numpy as np
+
+    S = cb.num_slots
+    host = np.zeros(3 * S, np.int32)
+    host[S:2 * S] = np.linspace(0, max_len - 1, S).round().astype(np.int32)
+    with torch.no_grad():
+        for slot, prompt in enumerate(prompts):
+            for off in range(0, len(prompt), page):
+                n = min(page, len(prompt) - off)
+                chunk = np.zeros(page + 1, np.int32)
+                chunk[:n] = prompt[off:off + n]
+                chunk[page] = off
+                cb._chunk_dispatch(slot, chunk)
+            host[slot], host[S + slot] = firsts[slot], len(prompt)
+        cb._decode_dispatch(host)
+        dec = cb._dec_probs.float().cpu().clone()
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError("slots: non-finite decode probabilities")
+    ref = _first_token_probs(torch, cb, [np.append(p, t).astype(np.int32)
+                                         for p, t in zip(prompts, firsts)],
+                             page)
+    return [float((dec[i] - q).abs().max()) / float(q.max())
+            for i, q in enumerate(ref)]
+
+
+def phase_slots(torch, lm, max_len, page, vocab, prompts, news, serve,
+                serve_probs):
+    """Phase 34: the serve LM's ContinuousBatcher(num_slots=None) on the
+    serve phase's 16 requests; tokens against a batcher given that count,
+    first-token probabilities against the 8-slot run's; the f32 witness
+    (1 layer, hidden 64) against the CPU's tokens."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.search.machine_model import make_machine_model
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+    from flexflow_tpu_torch.serving.sched.kvpool import (derive_num_slots,
+                                                         kv_bytes_per_token,
+                                                         kv_cache_spec)
+
+    machine = make_machine_model(lm.config, 1)
+    unclamped = derive_num_slots(lm, max_len, machine, max_slots=sys.maxsize)
+    clamped = derive_num_slots(lm, max_len, machine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    cb = ContinuousBatcher(lm, max_len=max_len, num_slots=None,
+                           page_size=page)
+    slots = cb.num_slots
+    outs, wall, ttft, warm, timed, decode_ms = _slots_serve(
+        torch, cb, prompts, news, vocab)
+    launches = launch_counts()
+    stats = cb.stats()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if timed["replays"] == 0 or any(timed[k] for k in
+                                    ("warmups", "captures", "eager_walks")):
+        raise AssertionError(f"slots: the timed run must only replay "
+                             f"(warm-up {warm}, timed {timed})")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"slots: kernels never launched: {missing}")
+    probs = _first_token_probs(torch, cb, prompts, page)
+    worst = max(float((p - q).abs().max()) / float(q.max())
+                for p, q in zip(probs, serve_probs))
+    if worst > 0.05:
+        raise AssertionError(f"slots: first-token probabilities "
+                             f"{worst:.3g} x max from the 8-slot run's")
+    # the decode kernel at B = slots: alone against its plain version, and
+    # the batcher's decode iteration against the one-slot chunk path
+    spec = kv_cache_spec(lm)[0]
+    kernel_rows = _decode_at_slots(torch, slots, max_len, spec[1], spec[2])
+    decode_errs = _decode_iteration_probs(torch, cb, prompts,
+                                          [o[0] for o in outs], page, max_len)
+    if max(decode_errs) > 0.05:
+        raise AssertionError(f"slots: decode-iteration probabilities at "
+                             f"{slots} slots {max(decode_errs):.3g} x max "
+                             f"from the one-slot chunk path's")
+    del cb
+    explicit = ContinuousBatcher(lm, max_len=max_len, num_slots=slots,
+                                 page_size=page)
+    outs_explicit = _slots_serve(torch, explicit, prompts, news, vocab)[0]
+    del explicit
+    if outs_explicit != outs:
+        diff = sum(a != b for a, b in zip(outs, outs_explicit))
+        raise AssertionError(f"slots: {diff} of 16 requests' tokens differ "
+                             f"from a batcher given num_slots={slots}")
+
+    def witness(device):
+        m = build_tiny_lm(8, 64, vocab=vocab, hidden=64, heads=4, layers=1,
+                          mixed_precision=False, device=device,
+                          generator=torch.Generator().manual_seed(5))
+        rng = np.random.RandomState(9)
+        work = [(rng.randint(0, vocab, size=n).astype(np.int32), 12)
+                for n in (5, 17, 33, 60)]
+        with ContinuousBatcher(m, max_len=128, num_slots=None,
+                               page_size=page) as wb:
+            toks = [r.result(timeout=600).tolist()
+                    for r in [wb.submit(p, n) for p, n in work]]
+            return toks, wb.num_slots
+
+    card_toks, card_slots = witness("cuda")
+    cpu_toks, cpu_slots = witness("cpu")
+    if card_toks != cpu_toks:
+        raise AssertionError(f"slots f32 witness: card tokens differ from "
+                             f"the CPU's ({card_slots} / {cpu_slots} "
+                             f"slots)")
+    ttft_ms = np.array(ttft) * 1e3
+    generated = int(sum(len(o) for o in outs))
+    return {
+        "phase": "slots", "num_slots": slots,
+        "derived_clamped": clamped, "derived_unclamped": unclamped,
+        "band_slots": clamped - slots,
+        "kv_bytes_per_token": kv_bytes_per_token(lm),
+        "machine_budget_gb": machine.memory_budget_bytes() / 1e9,
+        "requests": len(outs), "generated_tokens": generated,
+        "wall_s": wall, "tokens_per_s": generated / wall,
+        "ttft_ms_p50": float(np.percentile(ttft_ms, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft_ms, 99)),
+        "decode_iter_ms": stats["decode_iter_s_mean"] * 1e3,
+        "decode_iter_ms_timed": decode_ms,
+        "decode_iterations": stats["decode_iterations"],
+        "prefill_chunks": stats["prefill_chunks"],
+        "graphs_warmup": warm, "graphs_timed": timed,
+        "eight_slot_run": {k: serve[k] for k in (
+            "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "decode_iter_ms",
+            "decode_iter_ms_timed")},
+        "tokens_equal_explicit_count": True,
+        "first_token_probs_max_rel_err": worst,
+        "decode_kernel_at_slots": kernel_rows,
+        "decode_iteration_probs_max_rel_err": max(decode_errs),
+        "f32_witness": {"card_slots": card_slots, "cpu_slots": cpu_slots,
+                        "tokens_equal": True},
+        "decode_routes": {k: launches[k] for k in launches
+                          if k.startswith(("decode_attention/",
+                                           "multiquery_decode_attention/"))},
+        "launches": launches,
+        "peak_mem_gib": peak,
+    }
+
+
 def _prefill_probs(torch, model, prompt, chunk, max_len):
     """First-token distribution of `prompt`, prefilled chunk by chunk into
     fresh one-slot caches through the executor (the batcher's path)."""
@@ -4328,7 +4841,8 @@ def main() -> int:
         0, vocab, size=40), 4) for i in range(num_slots)]
     for r in warm:
         r.result(timeout=600)
-    warm_graphs = dict(cb.stats()["graphs"])
+    warm_stats = cb.stats()
+    warm_graphs = dict(warm_stats["graphs"])
     plens = rng.randint(32, 513, size=16)
     news = rng.randint(32, 65, size=16)
     prompts = [rng.randint(0, vocab, size=int(n)).astype(np.int32)
@@ -4388,6 +4902,7 @@ def main() -> int:
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
         "ttft_ms_p99": float(np.percentile(ttft, 99)),
         "decode_iter_ms": stats["decode_iter_s_mean"] * 1e3,
+        "decode_iter_ms_timed": _timed_decode_ms(warm_stats, stats),
         "decode_iterations": stats["decode_iterations"],
         "prefill_chunks": stats["prefill_chunks"],
         "graphs_warmup": warm_graphs, "graphs_timed": timed_graphs,
@@ -4459,6 +4974,9 @@ def main() -> int:
                                  f"probabilities: {cross[-1]}")
     if cb.stats()["graphs"]["captures"] != stats["graphs"]["captures"]:
         raise AssertionError("the cross-check re-captured a chunk graph")
+    # the 16 requests' first-token probabilities through the same captured
+    # chunk graph, which phase 34 holds the derived-slot batcher's against
+    serve_probs = _first_token_probs(torch, cb, prompts, page)
     del cb
     _emit({"phase": "cross", "checks": cross,
            "tolerance": "max|p_card - p_cpu| <= 0.05 * max(p_cpu)",
@@ -4574,6 +5092,22 @@ def main() -> int:
     zoo_paths["fold-resnet50"] = line["resnet50"]["launches"]
     _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
     print(f"phases 31-32: {time.perf_counter() - t_front:.1f} s", flush=True)
+
+    # 33) cost, 34) slots: the cost model, its calibration loop, and the
+    # batcher that sizes its slots from the machine model
+    t_cost = time.perf_counter()
+    reset_launch_counts()
+    line = phase_cost(torch, train)
+    zoo_paths["cost"] = {k: n for k, n in launch_counts().items() if n}
+    _emit(dict(line, launches=zoo_paths["cost"],
+               seconds_since_start=time.perf_counter() - t_start))
+    line = phase_slots(torch, lm, max_len, page, vocab, prompts, news,
+                       serve, serve_probs)
+    serving_paths["slots"] = line["launches"]
+    table["decode_attention"]["derived_slots_shape"] = \
+        line["decode_kernel_at_slots"]["bfloat16"]
+    _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    print(f"phases 33-34: {time.perf_counter() - t_cost:.1f} s", flush=True)
 
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp

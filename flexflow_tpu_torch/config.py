@@ -1,22 +1,26 @@
 """Runtime configuration: the FFConfig fields the ported slices read.
 
-Counterpart of flexflow_tpu/config.py FFConfig. The search and mesh flags
-arrive with their slices; `device` is new — the port runs on one explicit
-torch device, CUDA unless the caller asks for the CPU.
+Counterpart of flexflow_tpu/config.py FFConfig. The cost model's flags
+(the machine model, the fitted profile, the op-cost cache, the task-graph
+export) are the JAX package's, with its defaults and spellings; the
+search's and the mesh's arrive with their slices. `device` is new — the
+port runs on one explicit torch device, CUDA unless the caller asks for
+the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass
 class FFConfig:
     batch_size: int = 64
     epochs: int = 1
-    # the JAX package's fields of the same names and defaults; the port
-    # reads none of them yet (JAX's CLI passes steps_per_execution to fit,
-    # and StepStats' printing under --profiling is ROADMAP A9.2)
+    # the JAX package's fields of the same names and defaults: fit prints
+    # StepStats' samples/s line every print_freq steps and its summary
+    # under profiling (obs/stepstats.py); JAX's CLI passes
+    # steps_per_execution to fit
     iterations: int = 1
     steps_per_execution: int = 1
     weight_decay: float = 0.0001
@@ -39,6 +43,43 @@ class FFConfig:
     # seeds the training walk's random stream (dropout masks), as the JAX
     # package's `seed` seeds its per-step keys (runtime/executor.py)
     seed: int = 0
+    # -- the cost model (search/machine_model.py, search/simulator.py,
+    # obs/refit.py), the JAX package's fields and defaults --------------
+    # chips the machine model prices (JAX `num_devices`); None: the
+    # torch.distributed world when one is initialized, else 1
+    num_devices: Optional[int] = None
+    # 0: SimpleMachineModel, >= 1: TpuPodModel (the two-link ring)
+    machine_model_version: int = 0
+    # a machine spec file: a "tiers" list is hierarchical, else a topology
+    machine_model_file: Optional[str] = None
+    # a FittedProfile (obs/refit.py) overlaid on the machine model, whose
+    # per-family residuals the kernel registry reads
+    fitted_profile_file: Optional[str] = None
+    # the registry's residual threshold when the profile fitted none.
+    # In the port it labels a choice ("residual") and never changes one:
+    # auto's no-evidence default is already the kernel (kernels/registry.py)
+    kernel_residual_threshold: float = 1.10
+    # OpCostCache's file of measured op costs (JSON)
+    op_cost_cache_file: Optional[str] = None
+    # compile() writes the cost-annotated task graph (dot) here
+    export_strategy_task_graph_file: Optional[str] = None
+    # the memory model's per-weight optimizer state (compile sets it from
+    # the optimizer: Adam 3, SGD with momentum 2, plain SGD 1)
+    optimizer_state_factor: float = 3.0
+    # the simulator: gradient syncs overlap the backward; their bucket
+    search_overlap_backward_update: bool = True
+    grad_bucket_bytes: int = 25 * 1024 * 1024
+
+    @property
+    def total_devices(self) -> int:
+        """Chips the cost model prices (JAX `total_devices`)."""
+        if self.num_devices is not None:
+            return int(self.num_devices)
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
+        return 1
 
     def parse_args(self, argv: Sequence[str]) -> None:
         """Set fields from the JAX package's flag spellings of the fields
@@ -77,6 +118,23 @@ class FFConfig:
                 self.flash_block_k = int(take())
             elif a == "--seed":
                 self.seed = int(take())
+            elif a == "--kernel-residual-threshold":
+                v = float(take())
+                if not v > 0:
+                    raise ValueError(
+                        "--kernel-residual-threshold must be > 0 "
+                        f"(a measured/predicted ratio), got {v}")
+                self.kernel_residual_threshold = v
+            elif a == "--machine-model-version":
+                self.machine_model_version = int(take())
+            elif a in ("--machine-model-file", "--machine-spec"):
+                self.machine_model_file = take()
+            elif a == "--fitted-profile":
+                self.fitted_profile_file = take()
+            elif a == "--op-cost-cache":
+                self.op_cost_cache_file = take()
+            elif a == "--export-strategy-task-graph-file":
+                self.export_strategy_task_graph_file = take()
             elif a == "--kernel-impl":
                 v = take()
                 from .kernels.registry import KernelRegistry
@@ -89,5 +147,10 @@ class FFConfig:
                                  "--steps-per-execution, --learning-rate, "
                                  "--weight-decay, --print-freq, "
                                  "--profiling, --flash-block-q, "
-                                 "--flash-block-k, --kernel-impl, --seed)")
+                                 "--flash-block-k, --kernel-impl, --seed, "
+                                 "--kernel-residual-threshold, "
+                                 "--machine-model-version, "
+                                 "--machine-model-file, --machine-spec, "
+                                 "--fitted-profile, --op-cost-cache, "
+                                 "--export-strategy-task-graph-file)")
             i += 1

@@ -6,15 +6,26 @@ Copy of the ordering and mutation halves of flexflow_tpu/core/graph.py
 guid, cached until a mutation; add_op, remove_op, tensor_aliases and
 resolve_tensor, invalidate_topo), which serving's graph rewrites
 (serving/optimize.py `fold_batchnorm`, through search/substitution.py
-`_rewire`) use. Dominators and hashing come with the search slice.
+`_rewire`) use, `edges` and the dot export (`to_dot`, `export_dot`,
+which `FFModel`'s task-graph export writes). Dominators and hashing come
+with the search slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import defaultdict, deque
 from typing import Dict, List, Optional, Sequence
 
 from .op import Op
 from .tensor import Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Edge:
+    src: int  # producer op guid
+    dst: int  # consumer op guid
+    src_idx: int  # producer output index
+    dst_idx: int  # consumer input index
 
 
 class Graph:
@@ -65,6 +76,38 @@ class Graph:
 
     def __contains__(self, op: Op):
         return op.guid in self.ops
+
+    def edges(self) -> List[Edge]:
+        out: List[Edge] = []
+        for op in self.ops.values():
+            for dst_idx, t in enumerate(op.inputs):
+                if t.owner_op is not None and t.owner_op.guid in self.ops:
+                    out.append(Edge(t.owner_op.guid, op.guid, t.owner_idx,
+                                    dst_idx))
+        return out
+
+    # -- dot export (reference: --export-strategy-task-graph-file) ---------
+    def to_dot(self, include_costs: bool = False,
+               costs: Optional[Dict[int, float]] = None,
+               labels: Optional[Dict[int, str]] = None) -> str:
+        """JAX `Graph.to_dot`: one box a node (name, type, an optional
+        label and cost), one arrow an edge."""
+        lines = ["digraph PCG {", "  rankdir=TB;"]
+        for g, op in sorted(self.ops.items()):
+            label = f"{op.name}\\n{op.op_type.value}"
+            if labels and g in labels:
+                label += f"\\n{labels[g]}"
+            if include_costs and costs and g in costs:
+                label += f"\\ncost={costs[g]:.3g}"
+            lines.append(f'  n{g} [label="{label}", shape=box];')
+        for e in self.edges():
+            lines.append(f"  n{e.src} -> n{e.dst};")
+        lines.append("}")
+        return "\n".join(lines)
+
+    def export_dot(self, path: str, **kw) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_dot(**kw))
 
     def topo_order(self) -> List[Op]:
         """The stable Kahn order, cached; every mutation (add_op,

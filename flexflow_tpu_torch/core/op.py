@@ -38,6 +38,7 @@ import dataclasses
 import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -45,6 +46,21 @@ from ..ffconst import CompMode, DataType, OpType
 from .tensor import ParallelTensorShape, Tensor
 
 _op_guid = itertools.count(1)
+
+
+def _freeze(v):
+    """Hashable deep-freeze of op params (lists/dicts/arrays/callables),
+    JAX `core/op.py _freeze`: the same params give the same repr in both
+    packages, so an op-cost cache file keys alike in either."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, np.ndarray):
+        return (v.shape, v.dtype.str, v.tobytes())
+    if callable(v):
+        return getattr(v, "__name__", repr(v))
+    return v
 
 
 @dataclasses.dataclass
@@ -105,6 +121,9 @@ class Op(nn.Module):
                  **params):
         super().__init__()
         self.guid = next(_op_guid)
+        # the model's config, which the cost model's measurement reads
+        # (JAX `op.model.config`)
+        self.model_config = model.config if model is not None else None
         self.inputs: List[Tensor] = list(inputs)
         self.params: Dict[str, Any] = params
         self.name = name or f"{self.op_type.value}_{self.guid}"
@@ -151,9 +170,30 @@ class Op(nn.Module):
         """Non-trainable per-op state (JAX `Op.state_specs`)."""
         return []
 
+    # -- cost hooks (the simulator's, search/simulator.py) ----------------
     def flops(self) -> float:
         """Forward FLOPs (JAX `Op.flops`); 0 for an op its bytes bound."""
         return 0.0
+
+    def bytes_accessed(self) -> float:
+        """Bytes of every input, output and weight, once each (JAX
+        `Op.bytes_accessed`)."""
+        n = sum(t.num_elements() * t.dtype.itemsize for t in self.inputs)
+        n += sum(t.num_elements() * t.dtype.itemsize for t in self.outputs)
+        n += sum(w.num_elements() * w.dtype.itemsize for w in self.weights)
+        return float(n)
+
+    def param_key(self) -> Tuple:
+        return (self.op_type, tuple(t.guid for t in self.inputs),
+                _freeze(self.params))
+
+    def cost_key(self) -> Tuple:
+        """Shape-based identity for cost caching (JAX `Op.cost_key`):
+        identical ops (the 12 layers of a BERT stack, the same op in a
+        fresh compile) share one key."""
+        return (self.op_type,
+                tuple((t.dims, t.dtype) for t in self.inputs),
+                _freeze(self.params))
 
     def lower(self, ctx: LoweringContext, inputs: List[torch.Tensor]):
         """Run the op; return one value per output tensor."""

@@ -36,6 +36,11 @@ class DataType(enum.Enum):
         return np.dtype(self.value)
 
     @property
+    def itemsize(self) -> int:
+        """Bytes an element (JAX `dtype.np_dtype.itemsize`; bf16 is 2)."""
+        return torch.empty((), dtype=self.torch_dtype).element_size()
+
+    @property
     def host_np_dtype(self):
         """The numpy dtype a host array of this type is staged in: its own,
         float32 for bf16."""

@@ -23,12 +23,21 @@ Selection order (first match wins), as in the JAX package:
     - backend gate: JAX asks `jax.default_backend() == "tpu"`; the port
       asks that the op's device be CUDA with compute capability >= 9.0.
       Anything else, the CPU always, takes the reference lowering.
-    - residual evidence: JAX reads the fitted profile's per-family
-      residuals and thresholds; not ported (ROADMAP A7/A9), so none is
-      consulted.
+    - residual evidence, as in JAX: the fitted profile's
+      (`config.fitted_profile_file`, obs/refit.py) per-family residuals
+      (measured / predicted, `obs.calibrate`) against the profile's
+      fitted threshold, else `config.kernel_residual_threshold`, else
+      RESIDUAL_CANDIDATE_THRESHOLD; a family at or past it takes the
+      kernel ("residual"), the heuristic still gating attention.
+      `attention_decode*` read the `attention` family's residual. In the
+      port this step cannot change a choice, only its reason: what it
+      nominates is the kernel, which the heuristic or the port's
+      no-evidence default picks all the same. It stays for JAX's
+      reasons and for the day auto's default becomes the reference
+      lowering (ROADMAP A7.3); `cost_factor` reads the impl alone.
     - heuristic (attention): the same `flash_crossover`; its crossover
-      is 0 bytes here, not JAX's 1e8 (a v5e measurement), until an H100
-      measurement sets it.
+      is the port's own (FLASH_SCORE_BYTES_CROSSOVER), not JAX's 1e8 (a
+      v5e measurement).
     - no-evidence default: JAX takes the reference lowering; the port
       takes the kernel, for every family.
 
@@ -39,7 +48,9 @@ Selection order (first match wins), as in the JAX package:
     not exist on one device (revisit with ROADMAP A8). And the card's
     main path runs the kernels: the plain versions never run there.
 
-`cost_factor` and `PALLAS_COST_GAIN` belong to the cost model (A7).
+`cost_factor` prices a family for the cost model (search/simulator.py
+CostModel): PALLAS_COST_GAIN[family] where the kernel would be selected,
+1.0 where the reference lowering would; it never counts.
 
 The port runs eagerly, so an op does not select on every call: it
 resolves its choice once through `resolve()`, which caches it in a memo
@@ -57,7 +68,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..obs.registry import REGISTRY
+from ..ffconst import OpType
 
 FAMILIES = ("attention", "attention_decode", "attention_decode_mq",
             "layernorm", "rmsnorm", "softmax", "reduction")
@@ -68,10 +79,49 @@ FAMILIES = ("attention", "attention_decode", "attention_decode_mq",
 # XLA's fusion of the JAX update: "reference" runs its per-tensor loop
 PORT_FAMILIES = ("optimizer",)
 
+# graph-op families the cost simulator can price (serving decode and the
+# loss reduction never appear as graph ops)
+OPTYPE_FAMILY = {
+    OpType.MULTIHEAD_ATTENTION: "attention",
+    OpType.LAYERNORM: "layernorm",
+    OpType.RMSNORM: "rmsnorm",
+    OpType.SOFTMAX: "softmax",
+}
+
+# families whose residual evidence comes from another family's rows (the
+# decode steps are the attention core over the KV cache)
+RESIDUAL_ALIAS = {"attention_decode": "attention",
+                  "attention_decode_mq": "attention"}
+
 # per-device f32 score-matrix bytes above which auto picks the flash
-# kernel over the einsum core; 0 (always flash) until an H100
-# measurement sets it
+# kernel over the einsum core. 0: flash at every shape, as the H100 sweep
+# measured it (chip_smoke.py phase 33: OpCostCache's times of the
+# attention op with use_flash True and False, b 1 and 8, 16 heads of 64,
+# l 16-512, bf16, the median of 5 rounds). Its rule, the largest score
+# bytes under which the einsum core's forward + backward wins at every
+# smaller shape, gave 0: flash won the smallest shape, and 11 of the 12
+# (the 12th, b 8 l 16, within the rounds' spread). The forward alone is
+# bound by the host's launches there and went either way at scattered
+# shapes (PERF.md section 6)
 FLASH_SCORE_BYTES_CROSSOVER = 0.0
+
+# the JAX package's modeled step-time factor of the fused impl against
+# the unfused lowering, which CostModel applies where the registry selects
+# the kernel (and the lowering would emit it); refit's step_scale absorbs
+# what these get wrong, uniformly
+PALLAS_COST_GAIN = {
+    "attention": 0.89,
+    "attention_decode": 0.80,
+    "attention_decode_mq": 0.75,
+    "layernorm": 0.70,
+    "rmsnorm": 0.70,
+    "softmax": 0.75,
+    "reduction": 0.85,
+}
+
+# the residual (measured / predicted) at which a family is a fusion
+# candidate when neither the profile nor the config names a threshold
+RESIDUAL_CANDIDATE_THRESHOLD = 1.10
 
 # first compute capability the kernels are built for (sm_90a)
 KERNEL_CAPABILITY = (9, 0)
@@ -89,7 +139,8 @@ class KernelChoice:
 
     family: str
     impl: str    # "pallas" | "reference"
-    reason: str  # param | override | config | backend | heuristic | default
+    reason: str  # param | override | config | backend | residual |
+    #              heuristic | default
 
     def __bool__(self) -> bool:
         return self.impl == "pallas"
@@ -102,6 +153,14 @@ class KernelRegistry:
         self._overrides: Dict[str, str] = {}
         self._spec_cache: Dict[str, Dict[str, str]] = {}
         self._capability: Dict[int, tuple] = {}
+        # the configure()d profile's evidence: per-family residuals and
+        # fitted thresholds (obs/refit.py FittedProfile)
+        self._residuals: Dict[str, float] = {}
+        self._threshold: float = RESIDUAL_CANDIDATE_THRESHOLD
+        self._fitted_thresholds: Dict[str, float] = {}
+        self.residual_source: Optional[str] = None
+        # (path, mtime, size, backend) -> (residuals, fitted thresholds)
+        self._residual_cache: Dict[tuple, tuple] = {}
         # bumped by configure() and by entering or leaving an override:
         # a choice resolved under an older generation is stale
         self.generation = 0
@@ -142,14 +201,61 @@ class KernelRegistry:
             self._spec_cache[spec] = hit
         return hit
 
+    def _profile_evidence(self, config) -> tuple:
+        """(residuals, fitted thresholds) of `config`'s fitted profile,
+        both {} when there is none or it does not load (JAX
+        `_profile_evidence`; the machine model's load raises, the
+        registry declines the evidence). Cached by the file's identity,
+        so a refit that rewrites the file is read again."""
+        path = getattr(config, "fitted_profile_file", None)
+        if not path:
+            return {}, {}
+        import os
+
+        from ..search.machine_model import config_backend
+
+        backend = config_backend(config)
+        try:
+            st = os.stat(path)
+            key = (path, st.st_mtime_ns, st.st_size, backend)
+        except OSError:
+            key = (path, -1, -1, backend)
+        hit = self._residual_cache.get(key)
+        if hit is not None:
+            return hit
+        from ..obs.refit import FittedProfile, FittedProfileError
+
+        try:
+            prof = FittedProfile.load(path, expect_backend=backend)
+            out = ({k: float(v)
+                    for k, v in (prof.op_family_residuals or {}).items()},
+                   {k: float(v) for k, v in
+                    (prof.kernel_residual_thresholds or {}).items()})
+        except FittedProfileError:
+            out = ({}, {})
+        self._residual_cache[key] = out
+        return out
+
     def configure(self, config) -> None:
-        """Adopt a model config's `--kernel-impl` knob as the process
-        default, which only the config-less consumers (the loss and
-        metric reductions) read. Called by FFModel.compile()."""
+        """Adopt a model config's `--kernel-impl` knob and its fitted
+        profile's residual evidence as the process default, which only
+        the config-less consumers (the loss and metric reductions) read.
+        Called by FFModel.compile()."""
         with self._lock:
             self._config_overrides = self._spec_overrides(
                 getattr(config, "kernel_impl", "auto"))
+            self._threshold = float(getattr(
+                config, "kernel_residual_threshold",
+                RESIDUAL_CANDIDATE_THRESHOLD))
+            self._residuals, self._fitted_thresholds = \
+                self._profile_evidence(config)
+            self.residual_source = (getattr(config, "fitted_profile_file",
+                                            None)
+                                    if self._residuals else None)
             self.generation += 1
+
+    def residual(self, family: str) -> Optional[float]:
+        return self._residuals.get(family)
 
     @contextlib.contextmanager
     def override(self, family: str, impl: str):
@@ -176,6 +282,9 @@ class KernelRegistry:
     # -- selection ---------------------------------------------------------
     @staticmethod
     def _counter():
+        # imported here: obs/ imports this module (obs/calibration.py)
+        from ..obs.registry import REGISTRY
+
         return REGISTRY.counter(
             "ff_kernel_selected_total",
             "Kernel-tier selections by op family and implementation",
@@ -184,7 +293,7 @@ class KernelRegistry:
     def _has_kernels(self, device) -> bool:
         """The backend gate: a CUDA device of compute capability >= 9.0."""
         device = torch.device(device)
-        if device.type != "cuda":
+        if device.type != "cuda" or not torch.cuda.is_available():
             return False
         idx = device.index if device.index is not None \
             else torch.cuda.current_device()
@@ -222,6 +331,8 @@ class KernelRegistry:
             choice = KernelChoice(family, config_overrides[family], "config")
         elif not self._has_kernels(device):
             choice = KernelChoice(family, "reference", "backend")
+        elif self._residual_nominates(family, config, heuristic):
+            choice = KernelChoice(family, "pallas", "residual")
         elif heuristic is not None:
             choice = KernelChoice(
                 family, "pallas" if heuristic() else "reference",
@@ -231,6 +342,39 @@ class KernelRegistry:
         if record:
             self._counter().inc(op=family, impl=choice.impl)
         return choice
+
+    def _residual_nominates(self, family: str, config, heuristic) -> bool:
+        """JAX's residual step: the evidence family's residual at or past
+        its threshold (the profile's fitted one, else the config's knob,
+        else the default), with the size heuristic still a gate. True
+        only where the steps after it would pick the kernel too, so it
+        sets the reason alone (module docstring)."""
+        if config is not None:
+            residuals, fitted = self._profile_evidence(config)
+            knob = float(getattr(config, "kernel_residual_threshold",
+                                 self._threshold))
+        else:
+            residuals, fitted = self._residuals, self._fitted_thresholds
+            knob = self._threshold
+        evidence_fam = RESIDUAL_ALIAS.get(family, family)
+        threshold = fitted.get(family, fitted.get(evidence_fam))
+        if threshold is None:
+            threshold = knob
+        r = residuals.get(evidence_fam)
+        return (r is not None and r >= threshold
+                and (heuristic is None or heuristic()))
+
+    def cost_factor(self, family: Optional[str], *, param=None,
+                    config=None, heuristic=None) -> float:
+        """Step-time factor the simulator applies to an op of `family`:
+        1.0 for the reference lowering (or a non-tier op),
+        PALLAS_COST_GAIN[family] where the kernel would be selected (on
+        the config's device). Never counts."""
+        if family is None:
+            return 1.0
+        choice = self.select(family, param=param, config=config,
+                             heuristic=heuristic, record=False)
+        return PALLAS_COST_GAIN[family] if choice else 1.0
 
     def resolve(self, memo: dict, family: str, *, device, param=None,
                 config=None, heuristic=None) -> KernelChoice:

@@ -48,11 +48,13 @@ class FFModel:
         self.comp_mode: Optional[CompMode] = None
         self.mesh: Optional[Mesh] = None
         # one record per optimizer step of the last fit() call (epoch,
-        # step, loss, metrics, step_ms, samples_per_s): it stands in for
-        # the JAX package's `step_stats` (a StepStats ring,
-        # flexflow_tpu/model.py fit) until ROADMAP A9 ports
-        # obs/stepstats.py
+        # step, loss, metrics, step_ms, samples_per_s; a K-step dispatch's
+        # also `losses`)
         self.step_records: List[Dict[str, float]] = []
+        # the last fit() call's StepStats (obs/stepstats.py, JAX
+        # `step_stats`): a record per committed step or K-step dispatch,
+        # with TFLOP/s and MFU against the machine spec's peak
+        self.step_stats = None
         self._name_counts: Dict[OpType, int] = {}
         self._used_names: set = set()
         self.label_tensor: Optional[Tensor] = None
@@ -541,11 +543,48 @@ class FFModel:
         if training:
             self.optimizer = optimizer or SGDOptimizer(
                 self, lr=self.config.learning_rate)
+        # the memory model's per-weight optimizer state (JAX compile):
+        # Adam param + m + v, momentum SGD param + v, plain SGD param
+        from .runtime.optimizers import AdamOptimizer
+
+        opt = self.optimizer if training else optimizer
+        self.config.optimizer_state_factor = (
+            3.0 if isinstance(opt, AdamOptimizer)
+            else 2.0 if getattr(opt, "momentum", 0.0) else 1.0)
         self._reg_fn = self._make_reg_fn()
         self._build_steps()
         if training:
             self.opt_state = self.optimizer.init_state(
                 self.executor.parameters())
+        if self.config.export_strategy_task_graph_file:
+            self._export_task_graph(
+                self.config.export_strategy_task_graph_file)
+
+    def _export_task_graph(self, path: str) -> None:
+        """Cost-annotated task-graph dot (JAX `_export_task_graph`;
+        reference: --export-strategy-task-graph-file with
+        --include-costs-dot-graph): each node carries its strategy and the
+        cost model's forward and backward estimates."""
+        from .obs.calibration import op_strategies
+        from .search.machine_model import make_machine_model
+        from .search.simulator import CostModel, OpStrategy
+
+        cost = CostModel(make_machine_model(
+            self.config, self.config.total_devices), self.config)
+        strategies = op_strategies(self)
+        costs, labels = {}, {}
+        for op in self.graph.ops.values():
+            s = strategies.get(op.guid, OpStrategy(dp=1, tp=1))
+            try:
+                f = cost.forward_time_us(op, s)
+                b = cost.backward_time_us(op, s)
+            except Exception:
+                f = b = 0.0
+            costs[op.guid] = f + b
+            labels[op.guid] = (f"dp={s.dp},tp={s.tp} fwd={f:.1f}us "
+                               f"bwd={b:.1f}us")
+        self.graph.export_dot(path, include_costs=True, costs=costs,
+                              labels=labels)
 
     def _make_reg_fn(self):
         """The weight regularizers' sum over the parameters (JAX
@@ -738,14 +777,23 @@ class FFModel:
         queued; so the guard adds no device sync. Bad steps are flagged
         in the watchdog's event log, and after max_consecutive_bad of
         them in a row fit raises the typed NumericBlowup (this loop
-        cannot undo an update). `drift_detector` (JAX's calibration-drift
-        hook) raises: the drift detector is ROADMAP A7.5."""
+        cannot undo an update).
+
+        `step_stats` (obs/stepstats.py StepStats, JAX's) takes a record per
+        committed step, accumulated update or K-step dispatch, on the one
+        clock of `step_records` (its wall the committed record's: a
+        dispatch's is read where its metrics are, so no device sync is
+        added): samples/s, TFLOP/s and MFU against the machine spec's peak
+        (the H100's on the card).
+        With `config.profiling` it prints a samples/s line every
+        `print_freq` steps and its summary at the end.
+
+        drift_detector: an obs.DriftDetector. Each record's per-step wall
+        feeds its measured-vs-predicted EMA (`ff_calibration_drift`,
+        `ff_drift_breaches_total`); a breach marks an `obs.drift` trace
+        instant: this loop cannot re-plan (JAX's contract)."""
         self._require_training("fit()")
         self._assert_trainable()
-        if drift_detector is not None:
-            raise NotImplementedError(
-                "fit(drift_detector=...): the calibration-drift detector is "
-                "not ported yet (ROADMAP A7.5)")
         if steps_per_execution > 1 and accum_steps > 1:
             raise ValueError(
                 "steps_per_execution and accum_steps are mutually exclusive "
@@ -791,11 +839,31 @@ class FFModel:
                                         y_dl.next_batch(), 0, bs)
             return self._host_batch(x, y, it * bs, (it + 1) * bs)
 
+        from .obs.stepstats import (StepStats, model_peak_tflops,
+                                    model_train_flops_per_step)
+
+        stats = StepStats(
+            flops_per_step=model_train_flops_per_step(self),
+            peak_tflops=model_peak_tflops(self),
+            print_freq=(max(1, self.config.print_freq)
+                        if self.config.profiling else 0))
+        self.step_stats = stats
+
         def guard() -> None:
-            # the watchdog on the record just committed (JAX `_wd_guard`)
+            # the record just committed: StepStats, the drift detector on
+            # its per-step wall (JAX `_drift_guard`), then the watchdog
+            # (JAX `_wd_guard`)
+            rec = self.step_records[-1]
+            srec = stats.record_step(int(rec["samples"]), loss=rec["loss"],
+                                     steps=int(rec["steps"]),
+                                     wall_s=rec["step_ms"] * rec["steps"]
+                                     / 1e3)
+            if drift_detector is not None and srec["step_ms"] > 0 \
+                    and drift_detector.observe(srec["step_ms"] * 1e3):
+                get_tracer().instant("obs.drift", step=self._step_count,
+                                     drift=drift_detector.drift)
             if watchdog is not None:
-                watchdog.guard(self._step_count,
-                               self.step_records[-1]["loss"])
+                watchdog.guard(self._step_count, rec["loss"])
 
         k = steps_per_execution
         self.step_records = []
@@ -857,6 +925,9 @@ class FFModel:
                 print(f"epoch {epoch}: loss={loss:.4f} "
                       f"acc={summ['accuracy']:.4f} "
                       f"{summ['throughput']:.1f} samples/s")
+        # the fit-end step summary, off the history records (JAX's)
+        if len(stats) and self.config.profiling:
+            print(stats.format_summary())
         return history
 
     def _before_step(self, steps: int, hook: bool = True) -> None:
@@ -899,7 +970,7 @@ class FFModel:
         perf.update(samples, rec)
         last = self.step_records[-1] if self.step_records else None
         done = last["step"] + last["steps"] if last else 0
-        rec.update(epoch=epoch, step=done, steps=steps,
+        rec.update(epoch=epoch, step=done, steps=steps, samples=samples,
                    step_ms=dt * 1e3 / steps, samples_per_s=samples / dt)
         self.step_records.append(rec)
 

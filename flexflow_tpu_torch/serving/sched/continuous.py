@@ -98,11 +98,16 @@ label). While tracing is off each site costs one attribute check; the
 spans read the host clock only, so a dispatch captured as a CUDA graph
 inside one is captured as without it.
 
-Not ported yet, each raising a clear error: request_resize (ROADMAP A5,
-after A7's machine model), the disaggregated park / handoff calls (A5,
-with A10; their `serve.kv_export` / `serve.kv_import` / `serve.resize`
-spans with them), deriving num_slots from the machine model (A7), and
-the chaos hook (A10).
+`num_slots=None` derives the slot count from the machine model's device
+memory (kvpool.py derive_num_slots; `machine=` names the machine model,
+else the config's: the H100 spec on the card), less the prefix band's
+slots, and with a draft scaled by the target's share of the combined
+per-token cache cost, as the JAX batcher does.
+
+Not ported yet, each raising a clear error: request_resize (ROADMAP A5),
+the disaggregated park / handoff calls (A5, with A10; their
+`serve.kv_export` / `serve.kv_import` / `serve.resize` spans with them),
+and the chaos hook (A10).
 """
 from __future__ import annotations
 
@@ -302,7 +307,8 @@ class ContinuousBatcher:
     prompt).
 
     temperature / top_k are batcher-level policy; a request's `seed` is
-    per request. `num_slots` is required for now. prefix_cache_pages:
+    per request. `num_slots=None` derives it from the machine model
+    (`machine`, default the config's). prefix_cache_pages:
     band pages of the prefix cache; None gives two slots' worth with
     chunked prefill and none one-shot, 0 turns it off. draft_model /
     spec_tokens: speculative decoding (see the module docstring).
@@ -323,11 +329,7 @@ class ContinuousBatcher:
                  prefix_cache_pages: Optional[int] = None,
                  draft_model=None, spec_tokens: int = 3,
                  expert_affinity: bool = False, affinity_window: int = 4,
-                 trace_label: Optional[str] = None):
-        if num_slots is None:
-            raise ValueError(
-                "num_slots is required: deriving it from device memory "
-                "(derive_num_slots) needs the machine model, ROADMAP A7")
+                 trace_label: Optional[str] = None, machine=None):
         chunk = int(page_size) if prefill_chunk_tokens is None \
             else int(prefill_chunk_tokens)
         if chunk < 0:
@@ -434,6 +436,9 @@ class ContinuousBatcher:
                 " (prefill_chunk_tokens > 0): installing a cached prefix"
                 " leaves only the suffix to prefill, which needs the"
                 " chunk-offset entry")
+        if num_slots is None:
+            num_slots = self._derive_slots(prefix_pages, int(page_size),
+                                           machine)
         self.num_slots = int(num_slots)
         if registry is None:
             from ...obs.registry import REGISTRY as registry  # noqa: N813
@@ -594,6 +599,25 @@ class ContinuousBatcher:
                 "ff_serving_affinity_overlap",
                 "EWMA expert-signature overlap of admitted requests with"
                 " the running batch", labels=("pool",))
+
+    def _derive_slots(self, prefix_pages: int, page_size: int,
+                      machine) -> int:
+        """JAX continuous.py:534-548: the derived count less the band's
+        slots (the band lives in device memory beside the decode slots),
+        with a draft scaled by the combined per-token cache cost."""
+        from .kvpool import derive_num_slots, kv_bytes_per_token
+
+        full_pages_per_slot = self.max_len // page_size
+        if full_pages_per_slot == 0:
+            prefix_pages = 0  # no full page fits a slot: nothing cacheable
+        band_slots = (math.ceil(prefix_pages / full_pages_per_slot)
+                      if prefix_pages else 0)
+        derived = derive_num_slots(self.model, self.max_len, machine=machine)
+        if self.draft_model is not None:
+            tb = kv_bytes_per_token(self.model)
+            db = kv_bytes_per_token(self.draft_model)
+            derived = max(1, int(derived * tb / max(1, tb + db)))
+        return max(1, derived - band_slots)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:

@@ -21,9 +21,13 @@ hit, miss and eviction counters and page gauges, labelled by the pool's
 `label` so two pools in one process keep their own series; the
 process-wide registry unless one is passed.
 
-Left out until their ROADMAP items: resize and `owned_view`, the
-export/import of the disaggregated handoff (A5), and `derive_num_slots`,
-which needs the machine model (A7).
+`derive_num_slots` sizes the batcher's slots from the machine model's
+device memory (search/machine_model.py: the H100 spec's 80 GB on a CUDA
+config) less the plan's inference footprint (analysis/passes.py
+`plan_memory_bytes`), as the JAX package does.
+
+Left out until their ROADMAP items: resize and `owned_view`, and the
+export/import of the disaggregated handoff (A5).
 """
 from __future__ import annotations
 
@@ -535,3 +539,27 @@ def kv_bytes_per_token(model) -> int:
     op."""
     return sum(heads * (kdim + vdim) * torch.empty((), dtype=cdt).element_size()
                for _, heads, kdim, vdim, cdt in kv_cache_spec(model))
+
+
+def derive_num_slots(model, max_len: int, machine=None,
+                     max_slots: int = 64, min_slots: int = 1) -> int:
+    """Slots the machine's device memory can hold (JAX
+    `derive_num_slots`): (memory - model inference footprint) / (KV bytes
+    per token x max_len), clamped to [min_slots, max_slots]. The footprint
+    is `analysis.plan_memory_bytes` with optimizer_state_factor=1 (serving
+    keeps weights, not optimizer moments). The budget is the machine
+    spec's memory (`machine.memory_budget_bytes()`), not what the device
+    reports free, exactly as the JAX package budgets the spec's HBM."""
+    from ...analysis import plan_memory_bytes
+
+    if machine is None:
+        from ...search.machine_model import make_machine_model
+
+        machine = make_machine_model(
+            model.config, max(1, model.config.total_devices))
+    model_bytes, _, _ = plan_memory_bytes(
+        model.graph, machine, model.config, optimizer_state_factor=1.0)
+    free = machine.memory_budget_bytes() - model_bytes
+    per_slot = kv_bytes_per_token(model) * int(max_len)
+    slots = int(free // per_slot) if per_slot > 0 else min_slots
+    return max(int(min_slots), min(int(max_slots), slots))

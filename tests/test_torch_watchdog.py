@@ -126,9 +126,18 @@ def test_fit_watchdog_quiet_on_healthy_training():
 
 
 def test_fit_drift_detector_raises_naming_a75():
+    """A7.5 is ported: fit takes the drift detector (no longer raises) and
+    feeds it each committed step; one without `observe` fails as any
+    object missing the detector's interface does
+    (tests/test_torch_calibration.py holds it against JAX's fit)."""
+    from flexflow_tpu_torch.obs import DriftDetector
+
     x = np.zeros((8, 32), np.float32)
     y = np.zeros((8, 1), np.int32)
-    with pytest.raises(NotImplementedError, match="A7.5"):
+    det = DriftDetector(1e6)
+    _dense_net(pt).fit(x, y, epochs=1, drift_detector=det)
+    assert det._seen == 1
+    with pytest.raises(AttributeError, match="observe"):
         _dense_net(pt).fit(x, y, epochs=1, drift_detector=object())
 
 
