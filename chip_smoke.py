@@ -273,9 +273,13 @@ Phases, in order; any failure propagates and exits non-zero:
               (and the stream's done trailer) those of the direct submit;
               a full bucket of 8 replayed equals the eager predict walk to
               the bit, with host wall, device busy and idle a call of each;
-              /metrics (after one forced watchdog check) passes
+              /metrics (after one forced watchdog check, and a compile
+              whose imported strategy names an op the graph lacks: one
+              FFTA051 warning of the plan analysis) passes
               validate_exposition with the ff_inference_*, ff_serving_*,
-              ff_kvpool_*, ff_checkpoint_* and ff_watchdog_* families;
+              ff_kvpool_*, ff_checkpoint_*, ff_watchdog_* and
+              ff_plan_diagnostics_total families, and stats() carries
+              the analysis' counts under "_analysis";
               /healthz answers; the f32 witness: a 2-layer f32 flagship's
               buckets within 1e-4 of the same model on the CPU;
 32. fold    — phase 28's ResNet-50 stem with a batch norm (batch 16,
@@ -323,6 +327,27 @@ Phases, in order; any failure propagates and exits non-zero:
               witness (1 layer, hidden 64, num_slots=None) the CPU's
               tokens. Its decode ms is the timed run's own, beside the
               batcher's lifetime mean, whose warm-up captures the graph.
+35. search  — four ranks sharing cuda:0 (gloo, host-staged) compile the
+              train phase's encoder (full width and depth, bf16, Adam
+              1e-4 with bf16 moments, seed 0) with no axes and
+              search_budget > 0: rank 0 runs the Unity search on op costs
+              measured on the card (OpCostCache, CUDA events) and
+              broadcasts the plan, every rank adopts it (the mesh may be
+              smaller than the world: a rank past it must refuse to fit),
+              and the mesh's ranks fit 3 steps on the train phase's
+              batch. Fails if the ranks' plans or losses differ, a loss
+              is more than 2e-2 relative from the one-device train
+              phase's, a flagship op's cost measurement failed, the plan
+              analysis reported an error, or a rank past the mesh
+              trained. Rank 0 also runs the analytic search of the same
+              graph for h100-sxm x 4 twice: the second must be a
+              plan-cache hit with the same plan. Prints the plan (axes,
+              ops by (dp, tp), the ops below the data degree or above tp
+              1), the predicted step, the search's wall, the cost cache's
+              hits, misses and failures, the candidates simulated and
+              pruned, the diagnostics by code, launches a step by kernel,
+              and ms a step (four ranks time-sharing one card over gloo:
+              not a mesh speed).
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -1978,6 +2003,143 @@ def phase_tp(torch, train_losses, cross_card):
     launches = {k: int(round(first["launches_per_step"][k] * 3))
                 for k in (*TP_KERNELS, "optimizer_adam")}
     return record, record_cross, launches
+
+
+# phase 35: the Unity search's budget, the world, and the train path's
+# kernels every searched plan runs (attention takes the packed flash
+# kernels without a model axis, the head-separated ones with it)
+SEARCH_BUDGET = 10
+SEARCH_RANKS = 4
+SEARCH_KERNELS = ("layernorm_fwd", "layernorm_bwd", "softmax_fwd",
+                  "softmax_bwd", "reduce", "optimizer_adam")
+
+
+def _search_job():
+    """Phase 35's job (flexflow_tpu_torch/tools/tp_train.py): the train
+    phase's encoder, weights and batch, compiled with no axes under the
+    Unity search (costs measured on the card)."""
+    x, y = _train_batch()
+    return {"axes": None, "config": {"search_budget": SEARCH_BUDGET},
+            "widths": {"num_layers": TRAIN["layers"]}, "x": x, "y": y,
+            "steps": 3, "count_steps": 2, "seed": 0, "mixed": True,
+            "adam": (1e-4, "bfloat16"), "analytic_twice": True}
+
+
+def phase_search(torch, train_losses):
+    """35: the searched plan on four ranks (see the module docstring).
+    Returns the phase's record and rank 0's launches over the counted
+    steps."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.tools.tp_train import spawn_jobs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_jobs(SEARCH_RANKS, "cuda", [_search_job()],
+                       timeout_s=900)
+    wall = time.perf_counter() - t0
+    jobs = [r["jobs"][0] for r in ranks]
+    first = jobs[0]
+    plan = first["plan"]
+    for i, j in enumerate(jobs[1:], 1):
+        if (j["plan"]["axes"], j["plan"]["ops"]) != (plan["axes"],
+                                                     plan["ops"]):
+            raise AssertionError(f"search: rank {i}'s plan {j['plan']} "
+                                 f"differs from rank 0's {plan}")
+    cost = first["op_cost_cache"]
+    if cost["failures"]:
+        raise AssertionError(f"search: op-cost measurements failed: "
+                             f"{cost['failures']}")
+    if cost["misses"] == 0:
+        raise AssertionError("search: no op cost was measured on the card")
+    diag = plan.get("diagnostics", {})
+    errors = {k: n for k, n in diag.items() if k.endswith("/error")}
+    if errors:
+        raise AssertionError(f"search: error diagnostics {errors}")
+    on_mesh = [j for j in jobs if not j.get("outside_mesh")]
+    past = [j for j in jobs if j.get("outside_mesh")]
+    for j in past:
+        if not j.get("fit_error") or "losses" in j:
+            raise AssertionError(f"search: a rank past the mesh trained: "
+                                 f"{j}")
+    losses = on_mesh[0]["losses"]
+    for j in on_mesh[1:]:
+        if j["losses"] != losses:
+            raise AssertionError(f"search: losses differ across the mesh: "
+                                 f"{[k['losses'] for k in on_mesh]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"search: non-finite loss {losses}")
+    rels = [abs(a - c) / abs(c) for a, c in zip(losses[:3],
+                                                 train_losses[:3])]
+    if max(rels) > 2e-2:
+        raise AssertionError(f"search: losses {losses[:3]} vs one device "
+                             f"{train_losses[:3]} (relative {rels})")
+    per_step = first["launches_per_step"]
+    flash = (("flash_fwd_blhd", "flash_bwd_blhd")
+             if plan["axes"].get("model", 1) > 1
+             else ("flash_fwd", "flash_bwd"))
+    missing = [k for k in SEARCH_KERNELS + flash if not per_step.get(k)]
+    if missing:
+        raise AssertionError(f"search: kernels never launched on the "
+                             f"searched plan's steps: {missing}")
+    first_run, second_run = first["analytic"]
+    if second_run["cache_mode"] != "hit" or (
+            second_run["axes"], second_run["ops"]) != (first_run["axes"],
+                                                       first_run["ops"]):
+        raise AssertionError(f"search: the analytic search's second run "
+                             f"{second_run['cache_mode']} is not a hit with "
+                             f"the first run's plan")
+    dp = plan["axes"].get("data", 1)
+    by_degree = {}
+    for d, t in plan["ops"].values():
+        by_degree[f"dp={d},tp={t}"] = by_degree.get(f"dp={d},tp={t}", 0) + 1
+    counted = _search_job()["count_steps"]
+    search = plan["search"]
+    record = {
+        "phase": "search", "card": _card_line(), "world_size": SEARCH_RANKS,
+        "backend": ranks[0]["host"]["backend"],
+        "host_staging": ranks[0]["host"]["host_staging"],
+        "layers": TRAIN["layers"], "search_budget": SEARCH_BUDGET,
+        "measured": {"axes": plan["axes"], "ops_by_degree": by_degree,
+                     "ops_off_default": {
+                         k: v for k, v in plan["ops"].items()
+                         if v[0] < dp or v[1] > 1},
+                     "applied_rewrites": search["applied_rewrites"]},
+        "predicted_step_ms": search["predicted_step_us"] / 1e3,
+        "search_wall_s": search["wall_ms"] / 1e3,
+        "op_cost_cache": {"hits": cost["hits"], "misses": cost["misses"],
+                          "failures": len(cost["failures"])},
+        "candidates_simulated": search["candidates_simulated"],
+        "candidates_pruned": search["candidates_pruned"],
+        "diagnostics": diag,
+        "ranks_on_mesh": len(on_mesh), "ranks_past_mesh": len(past),
+        "analytic": {"axes": first_run["axes"],
+                     "equals_measured": (first_run["axes"], first_run["ops"])
+                     == (plan["axes"], plan["ops"]),
+                     "predicted_step_ms":
+                         first_run["predicted_step_us"] / 1e3,
+                     "walls_s": [first_run["wall_s"], second_run["wall_s"]],
+                     "cache_modes": [first_run["cache_mode"],
+                                     second_run["cache_mode"]]},
+        "losses": losses, "one_device_losses": train_losses[:3],
+        "max_relative_diff_first3": max(rels),
+        "launches_per_step": {k: v for k, v in per_step.items()
+                              if "/" not in k},
+        "ms_per_step_rank0": first["ms_per_step"],
+        "ms_per_step_note": "4 ranks time-sharing one card over gloo: "
+                            "not a mesh speed",
+        "peak_mem_gib_by_rank": [j.get("peak_mem_gib") for j in on_mesh],
+        "build_s_by_rank": [j["build_s"] for j in jobs],
+        "spawn_wall_s": wall,
+        "tolerance": "every rank the same plan; the mesh's ranks the same "
+                     "losses; |loss - one device| <= 2e-2 |one device|, "
+                     "steps 1-3"}
+    launches = {k: int(round(v * counted)) for k, v in per_step.items()
+                if "/" not in k and v}
+    return record, launches
 
 
 def _cls_margins(torch, model, x):
@@ -3922,6 +4084,27 @@ def _bucket_vs_eager(torch, model, im, x):
     return graph, out
 
 
+def _analysis_warning(torch):
+    """A compile whose imported strategy file names an op the graph lacks:
+    the plan analysis records one FFTA051 warning (process-wide, so the
+    server's /metrics and stats() carry it)."""
+    import tempfile
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "strategy.json")
+        with open(path, "w") as f:
+            json.dump({"mesh_axes": {}, "ops": {"not_in_this_graph":
+                                                {"dp": 1, "tp": 1}}}, f)
+        m = FFModel(FFConfig(batch_size=8, device="cuda",
+                             import_strategy_file=path))
+        m.dense(m.create_tensor([8, 16]), 4)
+        m.compile()
+    del m
+    torch.cuda.empty_cache()
+
+
 def phase_server(torch, lm, predict):
     """31: the HTTP server at full width (see the module docstring)."""
     import threading
@@ -4087,10 +4270,12 @@ def phase_server(torch, lm, predict):
         # counters are phase 30's), /healthz
         TrainingWatchdog(WatchdogPolicy(warmup_steps=0)).check(
             0, float("nan"))
+        _analysis_warning(torch)
         text = _http(port, "/metrics")[2].decode()
         fams = validate_exposition(text)
         prefixes = ("ff_inference_", "ff_serving_", "ff_kvpool_",
-                    "ff_checkpoint_", "ff_watchdog_")
+                    "ff_checkpoint_", "ff_watchdog_",
+                    "ff_plan_diagnostics_total")
         missing = [p for p in prefixes
                    if not any(f.startswith(p) for f in fams)]
         status, _, body = _http(port, "/healthz")
@@ -4101,6 +4286,9 @@ def phase_server(torch, lm, predict):
             raise AssertionError(f"server: /metrics lacks {missing} or "
                                  f"/healthz {status} {health}")
         stats = server.stats()
+        if not stats.get("_analysis", {}).get("FFTA051"):
+            raise AssertionError(f"server: stats()['_analysis'] lacks the "
+                                 f"compile's FFTA051: {stats.get('_analysis')}")
     finally:
         httpd.shutdown()
         server.shutdown()
@@ -4147,6 +4335,7 @@ def phase_server(torch, lm, predict):
         "metrics_prefixes": {p: sorted(f for f in fams if f.startswith(p))
                              for p in prefixes},
         "stats_keys": sorted(stats),
+        "analysis_counts": stats["_analysis"],
         "witness": {"layers": 2, "rows": 5, "buckets": [4],
                     "max_abs_err": werr, "tolerance": 1e-4},
         "wall_s": time.perf_counter() - t_phase}
@@ -5109,9 +5298,16 @@ def main() -> int:
     _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
     print(f"phases 33-34: {time.perf_counter() - t_cost:.1f} s", flush=True)
 
+    # 35) search: compile() searches on the card's measured op costs and
+    # trains the searched plan on four ranks
+    t_search = time.perf_counter()
+    line, zoo_paths["search"] = phase_search(torch, train["losses"])
+    _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    print(f"phase 35: {time.perf_counter() - t_search:.1f} s", flush=True)
+
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
-    # on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
+    # and search on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
     # phases 16-20, the zoo's eager fits, predict's first call of each
     # model and the manual loop's two iterations), each counted from 0
     # just before its path ran; the server's and the fold's bucket

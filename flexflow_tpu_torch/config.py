@@ -2,10 +2,10 @@
 
 Counterpart of flexflow_tpu/config.py FFConfig. The cost model's flags
 (the machine model, the fitted profile, the op-cost cache, the task-graph
-export) are the JAX package's, with its defaults and spellings; the
-search's and the mesh's arrive with their slices. `device` is new — the
-port runs on one explicit torch device, CUDA unless the caller asks for
-the CPU.
+export) and the strategy search's (search/unity.py, search/mcmc.py,
+search/plan_cache.py, analysis/) are the JAX package's, with its
+defaults and spellings. `device` is new — the port runs on one explicit
+torch device, CUDA unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -69,6 +69,63 @@ class FFConfig:
     # the simulator: gradient syncs overlap the backward; their bucket
     search_overlap_backward_update: bool = True
     grad_bucket_bytes: int = 25 * 1024 * 1024
+    # -- the strategy search (search/unity.py), the JAX package's fields
+    # and defaults. compile() searches when search_budget > 0 (or under
+    # strategy_search="mcmc" with mcmc_budget > 0) on a world of more
+    # than one rank, and adopts the per-op plan ------------------------
+    search_budget: int = 0
+    search_alpha: float = 1.2
+    base_optimize_threshold: int = 10
+    # mesh factorizations that get the cross-segment refinement
+    refine_top_k: int = 4
+    # the plan cache (search/plan_cache.py): an exact hit skips the
+    # enumeration (the analysis gate still runs), a near miss seeds a
+    # warm refinement that falls back to a cold search past
+    # warm_fallback_tolerance x the warm sweep's floor
+    plan_cache: bool = True
+    plan_cache_dir: Optional[str] = None
+    plan_cache_capacity: int = 32
+    search_warm_start: bool = True
+    warm_fallback_tolerance: float = 1.05
+    # the re-plan's plan-distance term and its live plan: a live plan
+    # comes only from the elastic re-plan (ROADMAP A9.3), and pricing it
+    # needs the resharding planner (A8), so a live plan raises
+    replan_distance_weight: float = 1.0
+    replan_live_plan: Optional[object] = None
+    # joint substitution x parallelization search; False applies the
+    # trade-off rewrites greedily first
+    joint_search: bool = True
+    # "unity" or "mcmc" (search/mcmc.py)
+    strategy_search: str = "unity"
+    mcmc_budget: Optional[int] = None
+    mcmc_propagate: bool = False
+    only_data_parallel: bool = False
+    # the search's axes beyond data and model: plans that use them (and
+    # pipeline candidates) raise at compile, naming ROADMAP A8
+    enable_parameter_parallel: bool = False
+    enable_attribute_parallel: bool = False
+    enable_sequence_parallel: bool = False
+    enable_pipeline_parallel: bool = False
+    pipeline_microbatches: int = 4
+    enable_inplace_optimizations: bool = False
+    # the plan analysis (analysis/): pruning of mesh factorizations,
+    # verification of the candidates, compile's gate ("error", "warn",
+    # "off") and the memory-aware search
+    analysis_prune: bool = True
+    verify_candidates: bool = False
+    plan_analysis: str = "error"
+    memory_search: bool = False
+    memory_budget_mb: float = 16 * 1024.0
+    substitution_json_path: Optional[str] = None
+    # measured op costs (OpCostCache): None = measure when `device` is a
+    # CUDA card, stay analytic on the CPU
+    measure_op_costs: Optional[bool] = None
+    # parsed for the JAX package's command lines; it has no effect: the
+    # native search core (src/ffcore) is ROADMAP A11, and the Python
+    # search is the JAX package's behavioral spec
+    use_native_search: bool = True
+    export_strategy_file: Optional[str] = None
+    import_strategy_file: Optional[str] = None
 
     @property
     def total_devices(self) -> int:
@@ -141,7 +198,18 @@ class FFConfig:
 
                 KernelRegistry.parse_spec(v)  # raises on a bad spec
                 self.kernel_impl = v
-            else:
+            elif a == "--grad-bucket-bytes":
+                v = int(take())
+                if v < 0:
+                    raise ValueError(
+                        "--grad-bucket-bytes must be >= 0 (bytes; 0 "
+                        f"disables bucketing), got {v}")
+                self.grad_bucket_bytes = v
+            elif a == "--search-overlap-backward-update":
+                self.search_overlap_backward_update = True
+            elif a in ("--chips", "-ll:gpu"):
+                self.num_devices = int(take())
+            elif not self._parse_search_flag(a, take):
                 raise ValueError(f"flag {a!r} is not ported (flags: "
                                  "--batch-size, --epochs, --iterations, "
                                  "--steps-per-execution, --learning-rate, "
@@ -152,5 +220,97 @@ class FFConfig:
                                  "--machine-model-version, "
                                  "--machine-model-file, --machine-spec, "
                                  "--fitted-profile, --op-cost-cache, "
-                                 "--export-strategy-task-graph-file)")
+                                 "--export-strategy-task-graph-file, "
+                                 "--grad-bucket-bytes, --chips, "
+                                 "--search-overlap-backward-update and "
+                                 "the strategy search's, "
+                                 "FFConfig._parse_search_flag)")
             i += 1
+
+    def _parse_search_flag(self, a: str, take) -> bool:
+        """Set a strategy-search field from its JAX spelling (with JAX's
+        checks); False for any other flag."""
+        if a in ("--budget", "--search-budget"):
+            self.search_budget = int(take())
+        elif a in ("--alpha", "--search-alpha"):
+            self.search_alpha = float(take())
+        elif a == "--base-optimize-threshold":
+            self.base_optimize_threshold = int(take())
+        elif a == "--refine-top-k":
+            self.refine_top_k = int(take())
+        elif a == "--plan-cache-dir":
+            self.plan_cache_dir = take()
+        elif a == "--plan-cache-capacity":
+            v = int(take())
+            if v < 1:
+                raise ValueError(
+                    f"--plan-cache-capacity must be >= 1, got {v}")
+            self.plan_cache_capacity = v
+        elif a == "--no-plan-cache":
+            self.plan_cache = False
+        elif a == "--no-search-warm-start":
+            self.search_warm_start = False
+        elif a == "--warm-fallback-tolerance":
+            v = float(take())
+            if not v >= 1.0:
+                raise ValueError(
+                    "--warm-fallback-tolerance must be >= 1.0 (a"
+                    f" refined/floor cost ratio), got {v}")
+            self.warm_fallback_tolerance = v
+        elif a == "--replan-distance-weight":
+            v = float(take())
+            if v < 0:
+                raise ValueError(
+                    "--replan-distance-weight must be >= 0"
+                    f" (0 disables the term), got {v}")
+            self.replan_distance_weight = v
+        elif a == "--strategy-search":
+            v = take()
+            if v not in ("unity", "mcmc"):
+                raise ValueError(
+                    f"--strategy-search must be unity or mcmc, got {v!r}")
+            self.strategy_search = v
+        elif a == "--mcmc-budget":
+            self.mcmc_budget = int(take())
+        elif a == "--mcmc-propagate":
+            self.mcmc_propagate = True
+        elif a == "--only-data-parallel":
+            self.only_data_parallel = True
+        elif a == "--enable-parameter-parallel":
+            self.enable_parameter_parallel = True
+        elif a == "--enable-attribute-parallel":
+            self.enable_attribute_parallel = True
+        elif a == "--enable-sequence-parallel":
+            self.enable_sequence_parallel = True
+        elif a == "--enable-pipeline-parallel":
+            self.enable_pipeline_parallel = True
+        elif a == "--pipeline-microbatches":
+            self.pipeline_microbatches = int(take())
+        elif a == "--no-analysis-prune":
+            self.analysis_prune = False
+        elif a == "--verify-candidates":
+            self.verify_candidates = True
+        elif a == "--plan-analysis":
+            v = take()
+            if v not in ("error", "warn", "off"):
+                raise ValueError(
+                    f"--plan-analysis must be error, warn or off, got {v!r}")
+            self.plan_analysis = v
+        elif a == "--memory-search":
+            self.memory_search = True
+        elif a == "--memory-budget":
+            self.memory_budget_mb = float(take())
+        elif a == "--measure-op-costs":
+            self.measure_op_costs = True
+        elif a == "--no-measure-op-costs":
+            self.measure_op_costs = False
+        elif a == "--substitution-json":
+            self.substitution_json_path = take()
+        elif a == "--export":
+            self.export_strategy_file = take()
+        elif a == "--import":
+            self.import_strategy_file = take()
+        else:
+            return False
+        return True
+

@@ -8,6 +8,11 @@ the JAX order (data, then model; search/unity.py mesh_axes_for), so rank
 = data_index * model_size + model_index, and each axis of size > 1 gets
 a process group over the ranks that differ only along it.
 
+A mesh may be smaller than the world, as a searched plan's often is (the
+JAX package builds its mesh over a prefix of the devices): it spans ranks
+0 .. prod(axes) - 1, and a rank past it holds no position
+(`Mesh.holds_position`; its model trains nothing, FFModel.compile).
+
 Ported axes: `data` and `model`. `seq`, `expert`, `attr` and `stage`
 raise, naming ROADMAP A8.
 """
@@ -69,6 +74,12 @@ class Mesh:
             self.coords[name] = rest % size
             rest //= size
 
+    @property
+    def holds_position(self) -> bool:
+        """Whether this rank is one of the mesh's (ranks past a mesh
+        smaller than the world are not)."""
+        return self.rank < self.view.num_devices
+
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
@@ -102,9 +113,10 @@ def check_axes(axis_sizes: Dict[str, int]) -> Dict[str, int]:
 
 
 def make_mesh(axis_sizes: Dict[str, int]) -> Mesh:
-    """This process's Mesh over the default process group, which must hold
-    exactly one process per mesh position. Every rank calls it, in the
-    same order as any other group creation."""
+    """This process's Mesh over the first prod(axes) ranks of the default
+    process group, one process per mesh position. Every rank of the world
+    calls it, in the same order as any other group creation (a rank past
+    the mesh takes part in making the groups, and holds no position)."""
     import torch.distributed as dist
 
     from ..runtime import distributed
@@ -118,7 +130,7 @@ def make_mesh(axis_sizes: Dict[str, int]) -> Mesh:
             "ROADMAP A8)")
     view = MachineView(axes=tuple(axes.items()))
     world = dist.get_world_size()
-    if view.num_devices != world:
+    if view.num_devices > world:
         raise ValueError(f"parallel_axes={axis_sizes} needs "
                          f"{view.num_devices} processes, one per mesh "
                          f"position; the process group has {world}")
@@ -132,7 +144,8 @@ def make_mesh(axis_sizes: Dict[str, int]) -> Mesh:
         stride = 1
         for s in sizes[i + 1:]:
             stride *= s
-        others = [r for r in range(world) if (r // stride) % sizes[i] == 0]
+        others = [r for r in range(view.num_devices)
+                  if (r // stride) % sizes[i] == 0]
         for base in others:
             ranks = [base + j * stride for j in range(sizes[i])]
             group = dist.new_group(ranks)

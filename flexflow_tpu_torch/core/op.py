@@ -10,7 +10,9 @@ weight name with no transpose.
 On a mesh (core/machine.py) an op holds only its shard of each weight
 that `shards` names (FFModel._assign_tp_weights): drawn and loaded whole,
 then cut to the mesh position's piece. Its `tp_degree` is the number of
-shards over the `model` axis, 1 for an op that runs unsharded.
+shards over the `model` axis, 1 for an op that runs unsharded. An op
+whose plan puts it below the mesh's data degree (`whole_batch`, from the
+strategy search) computes the whole batch (runtime/executor.py).
 
 Weights are f32 master parameters. Serving reads them under
 `torch.no_grad()` through a cache of compute-dtype copies (bf16 under
@@ -158,6 +160,7 @@ class Op(nn.Module):
         self.shards: Dict[str, ParallelTensorShape] = {}
         self.coords: Dict[str, int] = {}
         self.tp_degree = 1
+        self.whole_batch = False
 
     # -- subclass API -----------------------------------------------------
     def output_shapes(self) -> Tuple[List[Tuple[int, ...]], List[DataType]]:

@@ -147,3 +147,15 @@ class OpType(enum.Enum):
     AGGREGATE_SPEC = "aggregate_spec"
     GROUP_BY = "group_by"
     EXPERTS = "experts"
+    # parallel-op and fused types: named by the rule loader, the
+    # substitutions and the cost model, as in the JAX package; the port
+    # registers no op of these types (the parallel ops are ROADMAP A8)
+    FUSED = "fused"
+    REPARTITION = "repartition"
+    COMBINE = "combine"
+    REPLICATE = "replicate"
+    REDUCTION = "reduction"
+    ALLREDUCE = "allreduce"
+    FUSED_PARALLEL = "fused_parallel"
+    PIPELINE = "pipeline"
+    RING_ATTENTION = "ring_attention"

@@ -32,9 +32,11 @@ Selection order (first match wins), as in the JAX package:
       `attention_decode*` read the `attention` family's residual. In the
       port this step cannot change a choice, only its reason: what it
       nominates is the kernel, which the heuristic or the port's
-      no-evidence default picks all the same. It stays for JAX's
-      reasons and for the day auto's default becomes the reference
-      lowering (ROADMAP A7.3); `cost_factor` reads the impl alone.
+      no-evidence default picks all the same. It stays as a reason, for
+      JAX's bookkeeping; `cost_factor` reads the impl alone. The
+      strategy search (search/unity.py) prices each op's `cost_factor`
+      from this selection, so on the card it prices the kernels the
+      step runs.
     - heuristic (attention): the same `flash_crossover`; its crossover
       is the port's own (FLASH_SCORE_BYTES_CROSSOVER), not JAX's 1e8 (a
       v5e measurement).

@@ -1,7 +1,7 @@
-"""FFModel: the layer API, compile, fit, eval, predict and the manual
-loop on one torch device or on a data x model mesh of torch.distributed
-ranks (flexflow_tpu/model.py but for the strategy search, plan
-analysis, the parallel-op layer methods and the elastic coordinator's
+"""FFModel: the layer API, compile with the strategy search and the plan
+analysis, fit, eval, predict and the manual loop on one torch device or
+on a data x model mesh of torch.distributed ranks (flexflow_tpu/model.py
+but for the parallel-op layer methods and the elastic coordinator's
 hooks; fit's training watchdog is ported).
 
 Op names follow the JAX package's scheme (an explicit name, else
@@ -11,6 +11,7 @@ model's weights across.
 """
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -34,6 +35,8 @@ from .runtime.metrics import Metrics, PerfMetrics
 from .runtime.optimizers import Optimizer, SGDOptimizer
 from .search.simulator import TP_CAPABLE, TP_WEIGHT_SHARD_DIMS
 
+_log = logging.getLogger("flexflow_tpu_torch.model")
+
 
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None):
@@ -47,6 +50,14 @@ class FFModel:
         self.opt_state: Optional[dict] = None
         self.comp_mode: Optional[CompMode] = None
         self.mesh: Optional[Mesh] = None
+        # the plan compile chose: the mesh axes, the per-op strategies by
+        # op guid (None: every op at the mesh-wide default), the search's
+        # result when it searched, and why this rank holds no position
+        # (None on the mesh or on one device)
+        self.parallel_axes: Dict[str, int] = {}
+        self._op_strategies = None
+        self.search_result = None
+        self.outside_mesh: Optional[str] = None
         # one record per optimizer step of the last fit() call (epoch,
         # step, loss, metrics, step_ms, samples_per_s; a K-step dispatch's
         # also `losses`)
@@ -473,60 +484,107 @@ class FFModel:
                 comp_mode: CompMode = CompMode.COMP_MODE_TRAINING,
                 parallel_axes: Optional[Dict[str, int]] = None,
                 generator: Optional[torch.Generator] = None) -> None:
-        """Build the graph and executor and draw every weight from
-        `generator` (default: a CPU generator seeded 0) onto
-        `config.device`, and the ops' state (`state`) from its
+        """Build the graph, choose the plan, build the executor and draw
+        every weight from `generator` (default: a CPU generator seeded 0)
+        onto `config.device`, and the ops' state (`state`) from its
         initializers.
 
-        The strategy search is a stub that returns the one-device plan
-        (ROADMAP A7). `parallel_axes={"data": dp, "model": tp}` trains on
-        a mesh of dp * tp torch.distributed ranks, one process each
-        (runtime/distributed.py initialize, before compile, on every
-        rank): each data rank takes its slice of the batch, and the
-        TP-capable ops shard their weights over `model` as the JAX
-        package's `_assign_tp_weights` does. Every rank draws the whole
-        model from the same generator and keeps its shards, so a mesh run
-        starts from the one-device run's weights. The other axes, strategy
-        import, row-parallel pairs and sharded serving raise (A8). In
-        either mode the loss, the metrics, eval's step and the forward
-        walks of `predict` and the manual loop are built (JAX builds them
-        in every mode); in training mode (the default, as in the JAX
-        package) the weights take gradients, `optimizer` defaults to SGD
-        at `config.learning_rate`, and the train step and the optimizer
-        state are built too. The whole pass is one `compile` span, the
-        step build a `compile.build_steps` span inside it."""
+        The plan (JAX `_compile_inner`): `parallel_axes` when given; else
+        `config.import_strategy_file`'s per-op strategies; else, on a
+        machine of n > 1 devices (`config.total_devices`) with
+        `search_budget` > 0 (or the MCMC search's budget), the Unity
+        search's (search/unity.py; costs measured on the card by
+        default, search/simulator.py OpCostCache), with its graph
+        rewrites; else `{"data": n}` on a world of n > 1 ranks. Under
+        torch.distributed rank 0 searches and broadcasts the plan (the
+        per-op strategies by op name, the mesh axes and the rewrites);
+        the other ranks replay the rewrites and adopt it, so every rank
+        holds the same plan. Rewrites run before any weight is drawn. The
+        plan analysis (analysis/, `analyze_plan`) gates the plan under
+        `config.plan_analysis` ("error": PlanAnalysisError on an error
+        diagnostic); its findings go to `analysis_events`.
+
+        A plan trains on a mesh of torch.distributed ranks, one process
+        a position (runtime/distributed.py initialize, before compile, on
+        every rank), over ranks 0 .. prod(axes) - 1; a rank past the mesh
+        holds no position (`outside_mesh` says so), and its fit, eval and
+        predict raise. Each data rank takes its slice of the batch; an op
+        whose plan dp is 1 computes the whole batch (runtime/executor.py);
+        the TP-capable ops whose plan tp is the `model` degree shard their
+        weights over it as the JAX package's `_assign_tp_weights` does,
+        the others keep theirs whole. Every rank draws the whole model
+        from the same generator and keeps its shards, so a mesh run starts
+        from the one-device run's weights. The seq, expert, attr and stage
+        axes, row-parallel (`tp_row`) linears and sharded serving raise,
+        naming ROADMAP A8, before any weight is drawn. In either mode the
+        loss, the metrics, eval's step and the forward walks of `predict`
+        and the manual loop are built (JAX builds them in every mode); in
+        training mode (the default, as in the JAX package) the weights
+        take gradients, `optimizer` defaults to SGD at
+        `config.learning_rate`, and the train step and the optimizer
+        state are built too. The whole pass is one `compile` span, with
+        the search, the analysis and the step build inside it."""
         with get_tracer().span("compile", ops=len(self.ops)):
             self._compile_inner(optimizer, loss_type, metrics, comp_mode,
                                 parallel_axes, generator)
 
     def _compile_inner(self, optimizer, loss_type, metrics, comp_mode,
                        parallel_axes, generator) -> None:
-        axes = check_axes(parallel_axes or {})
-        self.mesh = None
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        # the kernel tier: this model's --kernel-impl becomes the default
+        # of the config-less consumers (the loss and metric reductions),
+        # before the search, which prices the same selections
+        KERNELS.configure(self.config)
+        self.comp_mode = comp_mode
+        training = comp_mode == CompMode.COMP_MODE_TRAINING
+        if training:
+            self.optimizer = optimizer or SGDOptimizer(
+                self, lr=self.config.learning_rate)
+        # the memory model's per-weight optimizer state, which the search
+        # reads (JAX compile): Adam param + m + v, momentum SGD param + v,
+        # plain SGD param
+        from .runtime.optimizers import AdamOptimizer
+
+        opt = self.optimizer if training else optimizer
+        self.config.optimizer_state_factor = (
+            3.0 if isinstance(opt, AdamOptimizer)
+            else 2.0 if getattr(opt, "momentum", 0.0) else 1.0)
+        self.graph = Graph(self.ops)
+        order = self.graph.topo_order()
+        self.final_tensor = self.final_tensor or order[-1].outputs[0]
+        self.parallel_axes = self._choose_plan(parallel_axes)
+        # rewrites may have removed, fused or created ops: follow the
+        # tensor aliases and take the op list from the rewritten graph
+        self.final_tensor = self.graph.resolve_tensor(self.final_tensor)
+        order = self.graph.topo_order()
+        # the op list in the graph's order, as JAX's compile leaves it
+        # (summary, get_layers and get_layer_by_id read it)
+        self.ops = list(order)
+        axes = self._check_executable(self.parallel_axes)
+        self.mesh, self.outside_mesh, mesh = None, None, None
         if axes:
             if comp_mode != CompMode.COMP_MODE_TRAINING:
                 raise NotImplementedError(
-                    f"parallel_axes={parallel_axes}: sharded serving "
+                    f"parallel_axes={self.parallel_axes}: sharded serving "
                     "(inference on a mesh) is not ported yet (ROADMAP A8)")
             mesh = make_mesh(axes)
             if mesh.device.type != torch.device(self.config.device).type:
                 raise ValueError(
                     f"config.device={self.config.device!r}, but this rank "
                     f"was initialized on {mesh.device}")
+        self._plan_reductions()
+        self._run_plan_analysis()
+        if mesh is not None:
+            if not mesh.holds_position:
+                self.outside_mesh = (
+                    f"rank {mesh.rank} is past the plan's mesh {axes} "
+                    f"(ranks 0..{mesh.view.num_devices - 1}): it holds no "
+                    "position and trains nothing")
+                _log.warning("compile: %s", self.outside_mesh)
+                self.executor = None
+                return
             self.mesh = mesh
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        # the kernel tier: this model's --kernel-impl becomes the default
-        # of the config-less consumers (the loss and metric reductions)
-        KERNELS.configure(self.config)
-        self.comp_mode = comp_mode
-        training = comp_mode == CompMode.COMP_MODE_TRAINING
-        self.graph = Graph(self.ops)
-        order = self.graph.topo_order()
-        # the op list in the graph's order, as JAX's compile leaves it
-        # (summary, get_layers and get_layer_by_id read it)
-        self.ops = list(order)
-        self.final_tensor = self.final_tensor or order[-1].outputs[0]
         self.executor = Executor(self.graph, self.config, self.mesh)
         self._multi_steps, self._accum_step = {}, None
         self._assign_strategy(order)
@@ -540,17 +598,6 @@ class FFModel:
             fd[:-1] + (1,) if loss_type ==
             LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY else fd,
             self._label_dtype(), name="label")
-        if training:
-            self.optimizer = optimizer or SGDOptimizer(
-                self, lr=self.config.learning_rate)
-        # the memory model's per-weight optimizer state (JAX compile):
-        # Adam param + m + v, momentum SGD param + v, plain SGD param
-        from .runtime.optimizers import AdamOptimizer
-
-        opt = self.optimizer if training else optimizer
-        self.config.optimizer_state_factor = (
-            3.0 if isinstance(opt, AdamOptimizer)
-            else 2.0 if getattr(opt, "momentum", 0.0) else 1.0)
         self._reg_fn = self._make_reg_fn()
         self._build_steps()
         if training:
@@ -559,6 +606,222 @@ class FFModel:
         if self.config.export_strategy_task_graph_file:
             self._export_task_graph(
                 self.config.export_strategy_task_graph_file)
+
+    # -- the plan ---------------------------------------------------------
+    def _choose_plan(self, parallel_axes) -> Dict[str, int]:
+        """The mesh axes, and the per-op strategies in `_op_strategies`
+        (JAX `_compile_inner`'s strategy selection): explicit axes, an
+        imported strategy file, the search, or the default."""
+        from .runtime import distributed
+
+        n_dev = self.config.total_devices
+        # the default data axis needs the ranks to run it on
+        ranks = n_dev if distributed.is_initialized() else 1
+        self.search_result = None
+        self._op_strategies = None
+        if parallel_axes is None:
+            cfg = self.config
+            if cfg.import_strategy_file:
+                from .search.unity import rewrite_and_import_strategy
+
+                strategies, axes = rewrite_and_import_strategy(
+                    self.graph, cfg, cfg.import_strategy_file)
+                self._op_strategies = strategies
+                parallel_axes = axes
+            elif ((cfg.search_budget > 0
+                   or (cfg.strategy_search == "mcmc"
+                       and (cfg.mcmc_budget or 0) > 0))
+                  and n_dev > 1 and not cfg.only_data_parallel):
+                self.search_result = self._search(n_dev)
+                self._op_strategies = self.search_result.strategies
+                parallel_axes = self.search_result.mesh_axes
+            else:
+                parallel_axes = {"data": ranks} if ranks > 1 else {}
+        if self.config.only_data_parallel:
+            parallel_axes = {"data": ranks} if ranks > 1 else {}
+        return dict(parallel_axes)
+
+    def _search(self, n_dev: int):
+        """The search's result on every rank: rank 0 searches (unity or
+        mcmc) and broadcasts the plan over the default process group
+        before any mesh group is made; the other ranks replay its
+        rewrites and adopt it (search/unity.py `result_from_dict`). A
+        failed search raises on every rank."""
+        import torch.distributed as dist
+
+        from .runtime import distributed
+        from .search.unity import export_strategy, result_from_dict, \
+            result_to_dict
+
+        shared = distributed.is_initialized() and dist.get_world_size() > 1
+        rank = dist.get_rank() if shared else 0
+        result, payload = None, None
+        if rank == 0:
+            try:
+                result = self._search_here(n_dev)
+                payload = {"plan": result_to_dict(result, self.graph),
+                           "log": list(result.log)}
+            except Exception as exc:
+                if shared:  # the other ranks wait in the broadcast
+                    dist.broadcast_object_list(
+                        [{"error": f"{type(exc).__name__}: {exc}"}], src=0)
+                raise
+        if shared:
+            box = [payload]
+            dist.broadcast_object_list(box, src=0)
+            payload = box[0]
+            if "error" in payload:
+                raise RuntimeError(
+                    f"rank 0's strategy search failed: {payload['error']}")
+            if rank != 0:
+                result = result_from_dict(self.graph, self.config,
+                                          payload["plan"], payload["log"])
+        if self.config.export_strategy_file and rank == 0:
+            export_strategy(result, self.graph,
+                            self.config.export_strategy_file)
+        return result
+
+    def _search_here(self, n_dev: int):
+        from .search.machine_model import make_machine_model
+
+        machine = make_machine_model(self.config, n_dev)
+        if self.config.strategy_search == "mcmc":
+            from .search.mcmc import mcmc_search
+
+            return mcmc_search(self.graph, self.config, machine,
+                               self.config.batch_size, n_dev)
+        from .search.unity import unity_optimize
+
+        return unity_optimize(self.graph, self.config, machine,
+                              self.config.batch_size, n_dev)
+
+    def _check_executable(self, axes: Dict[str, int]) -> Dict[str, int]:
+        """The plan's axes of size > 1 (core/machine.py check_axes, which
+        raises for the seq, expert, attr and stage axes, naming ROADMAP
+        A8); raises for what the port's executor cannot run yet: a
+        row-parallel (`tp_row`) linear, and an op degree between 1 and
+        its axis (JAX's menu offers only those two)."""
+        live = check_axes(axes)
+        dp, tp = live.get("data", 1), live.get("model", 1)
+        for op in self.graph.topo_order():
+            s = (self._op_strategies or {}).get(op.guid)
+            if s is None:
+                continue
+            op_dp, op_tp = min(s.dp, dp), min(s.tp, tp)
+            if op_tp > 1 and s.tp_row and op.op_type == OpType.LINEAR:
+                raise NotImplementedError(
+                    f"{op.name}: the plan makes it row-parallel (tp_row), "
+                    "which is not ported yet (ROADMAP A8)")
+            if op_dp not in (1, dp) or op_tp not in (1, tp):
+                raise NotImplementedError(
+                    f"{op.name}: dp={op_dp}, tp={op_tp} on the mesh {live}: "
+                    "an op degree between 1 and its axis is not ported yet "
+                    "(ROADMAP A8)")
+        return live
+
+    def _plan_reductions(self) -> None:
+        """The per-tier reduction decomposition of the chosen plan on a
+        hierarchical machine (JAX compile): recorded for the analysis and
+        the strategy export (the executor consumes it with ROADMAP A8's
+        GradSyncLowering), and the predicted grad-sync overlap split on
+        the `ff_grad_sync_overlap_us` gauge."""
+        self._reduction_plan = None
+        self._sync_overlap = None
+        n_dev = self.config.total_devices
+        sr = self.search_result
+        if sr is not None and sr.reduction_strategies:
+            self._reduction_plan = sr.reduction_strategies
+            if sr.exposed_sync_us is not None:
+                self._sync_overlap = {
+                    "overlapped_sync_us": sr.overlapped_sync_us,
+                    "exposed_sync_us": sr.exposed_sync_us,
+                    "buckets": sr.sync_buckets}
+        elif n_dev > 1:
+            from .search.machine_model import make_machine_model
+
+            machine = make_machine_model(self.config, n_dev)
+            if hasattr(machine, "tier_path"):
+                from .analysis.passes import default_strategies_for
+                from .search.simulator import CostModel, Simulator
+
+                strats = self._op_strategies or default_strategies_for(
+                    self.graph, self.parallel_axes, self.config.batch_size)
+                self._reduction_plan = CostModel(
+                    machine, self.config).reduction_plan(self.graph, strats)
+                if any(e.get("bucket") is not None
+                       for e in self._reduction_plan.values()):
+                    sim = Simulator(machine, self.config)
+                    sim.simulate(self.graph, strats)
+                    st = sim.last_sync_stats or {}
+                    self._sync_overlap = {
+                        "overlapped_sync_us": st.get("overlapped_sync_us"),
+                        "exposed_sync_us": st.get("exposed_sync_us"),
+                        "buckets": len(st.get("buckets") or [])}
+        if self._sync_overlap is not None:
+            from .obs.registry import REGISTRY
+
+            g = REGISTRY.gauge(
+                "ff_grad_sync_overlap_us",
+                "Predicted grad-sync overlap split of the compiled plan",
+                labels=("kind",))
+            g.set(float(self._sync_overlap["overlapped_sync_us"] or 0.0),
+                  kind="overlapped")
+            g.set(float(self._sync_overlap["exposed_sync_us"] or 0.0),
+                  kind="exposed")
+
+    def analyze_plan(self, passes=None):
+        """The plan analysis (analysis/) over this model's graph, chosen
+        strategies and machine spec: the DiagnosticReport (never raises;
+        JAX `analyze_plan`). Usable mid-compile and after compile()."""
+        from .analysis import analyze_plan as _analyze
+        from .search.machine_model import make_machine_model
+
+        n_dev = self.config.total_devices
+        final = (self.graph.resolve_tensor(self.final_tensor)
+                 if self.final_tensor is not None else None)
+        final_guid = (final.owner_op.guid
+                      if final is not None and final.owner_op is not None
+                      and final.owner_op.guid in self.graph.ops else None)
+        return _analyze(
+            self.graph,
+            strategies=self._op_strategies,
+            machine=make_machine_model(self.config, n_dev),
+            config=self.config,
+            batch_size=self.config.batch_size,
+            n_devices=n_dev,
+            mesh_axes=getattr(self, "parallel_axes", None),
+            final_guid=final_guid,
+            reduction_strategies=getattr(self, "_reduction_plan", None),
+            passes=passes)
+
+    def _run_plan_analysis(self) -> None:
+        """compile()'s gate (JAX `_run_plan_analysis`):
+        plan_analysis="error" raises PlanAnalysisError on an error
+        diagnostic, "warn" only records, "off" skips. Every diagnostic
+        lands in `analysis_events` (an elastic EventLog) and the
+        process-wide per-code counters (`ff_plan_diagnostics_total`)."""
+        mode = getattr(self.config, "plan_analysis", "error")
+        if mode == "off":
+            return
+        from .analysis import PlanAnalysisError, record_report
+        from .elastic.events import EventLog
+
+        with get_tracer().span("compile.analysis"):
+            report = self.analyze_plan()
+        self._analysis_report = report
+        record_report(report)
+        if not hasattr(self, "analysis_events"):
+            self.analysis_events = EventLog()
+        for d in report.diagnostics:
+            self.analysis_events.record(
+                f"analysis.{d.severity.value}", code=d.code,
+                op=d.op_name, message=d.message)
+        for d in report.warnings():
+            _log.warning("plan analysis: %s", d.format())
+        for d in report.errors():
+            _log.error("plan analysis: %s", d.format())
+        if report.errors() and mode == "error":
+            raise PlanAnalysisError(report)
 
     def _export_task_graph(self, path: str) -> None:
         """Cost-annotated task-graph dot (JAX `_export_task_graph`;
@@ -629,25 +892,33 @@ class FFModel:
             self._manual.pop("seq_fns", None)
 
     def _assign_strategy(self, order: Sequence[Op]) -> None:
-        """The mesh-wide strategy (JAX `_assign_strategy`, its data and
-        model dims): every TP-capable op shards its weights over `model`;
-        the others keep theirs whole. The batch is cut over `data` in
-        `_batch`, the activations stay replicated."""
+        """Each op's part of the plan (JAX `_assign_strategy`: `op_dp =
+        min(s.dp, dp)`, `op_tp = min(s.tp, tp)`, the mesh-wide degree for
+        an op the plan does not name): a TP-capable op at tp > 1 shards
+        its weights over `model`, the others keep theirs whole; an op at
+        dp below the mesh's data degree computes the whole batch
+        (`Op.whole_batch`, runtime/executor.py). The batch is cut over
+        `data` in `_batch`."""
+        dp = self.mesh.size("data") if self.mesh is not None else 1
         tp = self.mesh.size("model") if self.mesh is not None else 1
         coords = self.mesh.coords if self.mesh is not None else {}
+        strategies = self._op_strategies or {}
         for op in order:
+            s = strategies.get(op.guid)
+            op_dp = min(s.dp, dp) if s else dp
+            op_tp = min(s.tp, tp) if s else tp
             shards = {}
-            if tp > 1 and op.op_type in TP_CAPABLE:
-                shards = self._assign_tp_weights(op, tp)
+            if op_tp > 1 and op.op_type in TP_CAPABLE:
+                shards = self._assign_tp_weights(op, op_tp)
             op.set_sharding(shards, coords)
+            op.whole_batch = op_dp < dp
 
     @staticmethod
     def _assign_tp_weights(op: Op, tp: int) -> Dict[str, ParallelTensorShape]:
         """The parallel shape of each of `op`'s weights that shards over
         `model` (JAX `_assign_tp_weights`, column-parallel): the dim
-        TP_WEIGHT_SHARD_DIMS names, where tp divides it. Row-parallel
-        (`tp_row`) pairs come only from an imported strategy, which waits
-        for ROADMAP A7."""
+        TP_WEIGHT_SHARD_DIMS names, where tp divides it. A plan's
+        row-parallel (`tp_row`) linears raise at compile (ROADMAP A8)."""
         shard_dim = TP_WEIGHT_SHARD_DIMS.get(op.op_type, {})
         out = {}
         for ws in op.specs:
@@ -686,9 +957,14 @@ class FFModel:
 
     def _data_slice(self, lo: int, hi: int) -> Tuple[int, int]:
         """This rank's equal part of samples [lo, hi) on a `data` axis that
-        divides them; all of them otherwise."""
+        divides them; all of them otherwise. The executor's next walks
+        take the decision with it (`Executor.batch_cut`): an op that
+        computes the whole batch gathers only inputs that were cut."""
         dp = self.mesh.size("data") if self.mesh is not None else 1
-        if dp > 1 and (hi - lo) % dp == 0:
+        cut = dp > 1 and (hi - lo) % dp == 0
+        if self.executor is not None:
+            self.executor.batch_cut = cut
+        if cut:
             n = (hi - lo) // dp
             lo += self.mesh.index("data") * n
             hi = lo + n
@@ -699,7 +975,14 @@ class FFModel:
         (`_host_batch`'s arrays, each input cast to its dtype)."""
         return self.executor.device_batch(*self._host_batch(x, y, lo, hi))
 
+    def _require_position(self, what: str) -> None:
+        """A rank past the plan's mesh runs nothing (compile's
+        `outside_mesh`): it would train a copy alone."""
+        if self.outside_mesh:
+            raise RuntimeError(f"{what}: {self.outside_mesh}")
+
     def _require_training(self, what: str) -> None:
+        self._require_position(what)
         if self.comp_mode != CompMode.COMP_MODE_TRAINING:
             raise RuntimeError(f"{what} needs compile() in training mode")
 
@@ -713,6 +996,7 @@ class FFModel:
                 "rebuild and compile a fresh model to train")
 
     def _require_compiled(self, what: str) -> None:
+        self._require_position(what)
         if self.executor is None:
             raise RuntimeError(f"{what} needs compile()")
 
@@ -1352,6 +1636,7 @@ class FFModel:
         exactly this model's weights with their (whole) shapes; each value
         (numpy array or tensor) is converted to the weight's dtype and
         device, and on a mesh each rank keeps its shards."""
+        self._require_position("load_params()")
         expected = {op.name: op for op in self.ops if op.specs}
         missing_ops = sorted(set(expected) - set(params))
         extra_ops = sorted(set(params) - set(expected))

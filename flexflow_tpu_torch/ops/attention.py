@@ -250,11 +250,16 @@ class MultiHeadAttentionOp(Op):
                 "serving) is not ported yet (ROADMAP A8)")
         if ctx.mesh is not None and ctx.mesh.size("model") > 1:
             return self._tensor_parallel(ctx, q_in, k_in, v_in)
-        _, _, _, embed, heads, kdim, vdim = self._dims()
+        _, _, _, embed, _, kdim, vdim = self._dims()
         cdt = matmul_dtype(ctx.config, q_in.dtype)
         q = self._project(q_in, "wq", "bq", cdt)
         k = self._project(k_in, "wk", "bk", cdt)
         v = self._project(v_in, "wv", "bv", cdt)
+        # the heads this op's weights hold: all of them, or a head-sharded
+        # copy's local ones (the cost model's measurement of a TP shard,
+        # search/simulator.py OpCostCache, whose output is that shard's
+        # partial sum)
+        heads = q.shape[2]
         if fill:
             kc = ctx.state[self.name]["k_cache"]
             vc = ctx.state[self.name]["v_cache"]

@@ -334,8 +334,8 @@ class ExpertsOp(Op):
 
     def flops(self) -> float:
         """JAX `ExpertsOp.flops`: the one-hot dispatch and combine
-        contractions the JAX package runs, and the FFN (the cost model of
-        ROADMAP A7 reads it)."""
+        contractions the JAX package runs, and the FFN (the cost model and
+        the strategy search price it)."""
         x, n, cap, out_dim = self._shape()
         t = moe_tokens(x.dims) * self.inputs[2].dims[-1]
         f = x.dims[-1]

@@ -15,18 +15,30 @@ each an autograd Function:
    partial sums over its local heads, before `bo`).
 
 Over the `data` axis, `mean_` averages the gradients (one flat bucket)
-and the reported metrics after backward, before the optimizer.
+and the reported metrics after backward, before the optimizer. An op
+whose plan keeps it at dp = 1 on a data axis (the strategy search's
+choice) computes the whole batch: `gather_batch` gathers its batch-cut
+inputs over `data` before it (all-gather along dim 0 forward), and the
+executor cuts its outputs back to the rank's slice after it (a slice, so
+autograd pads its gradient with zeros). Backward, `gather_batch` hands
+each rank its own slice of the gradient. So each rank's gradient of such
+an op's weights holds only its own samples' part, and the weights keep
+the data-axis mean like every other: the same numbers as the plan's
+GSPMD backward in the JAX package, which gathers the output gradient
+instead and leaves those weights out of the mean.
 
 Under gloo a CUDA tensor is staged through host memory explicitly
 (runtime/distributed.py decides when): copied to the host, reduced or
 gathered there, and copied back. That is the transport of ranks that
 share one card, not a fallback; STAGED counts its copies and bytes.
 GradSyncLowering and the bucketed per-tier plans of the JAX package wait
-for ROADMAP A7/A8.
+for ROADMAP A8; the plan analysis reads the per-tier groups the
+lowering would use (`tier_axis_groups`, a copy of the JAX function).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import math
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -36,6 +48,37 @@ from . import distributed
 # host-staged collectives since the last reset: device -> host copies and
 # the bytes they moved (each copy back moves as many again)
 STAGED: Dict[str, int] = {"copies": 0, "bytes": 0}
+
+
+class CollectiveLoweringError(ValueError):
+    """A reduction plan that cannot be lowered to per-tier collectives
+    (the JAX package's error of the same name)."""
+
+
+def tier_axis_groups(n: int, group_sizes: List[int]
+                     ) -> List[List[List[int]]]:
+    """Per-tier groups of axis coordinates along one mesh axis of size `n`
+    (JAX `runtime/collectives.py tier_axis_groups`). `group_sizes` is the
+    tier decomposition inner-first; their product must equal `n`. The
+    innermost tier's members are consecutive coordinates; level j's groups
+    hold coordinates that differ only in mixed-radix digit j: level 0 of
+    (4, 2) over n=8 is [[0..3], [4..7]], level 1 is [[0,4], [1,5], [2,6],
+    [3,7]]."""
+    if math.prod(group_sizes) != n:
+        raise CollectiveLoweringError(
+            f"tier group sizes {group_sizes} do not multiply to the axis"
+            f" degree {n}")
+    out: List[List[List[int]]] = []
+    stride = 1
+    for nj in group_sizes:
+        block = stride * nj
+        level = []
+        for base in range(0, n, block):
+            for r in range(stride):
+                level.append([base + r + stride * m for m in range(nj)])
+        out.append(level)
+        stride = block
+    return out
 
 
 def reset_staged() -> None:
@@ -69,6 +112,44 @@ def all_gather_last(t: torch.Tensor, group, size: int) -> torch.Tensor:
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=-1)
     return out.to(t.device) if staged else out
+
+
+def all_gather_first(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The ranks' `t` of `group` (in rank order) stacked along dim 0."""
+    staged = t.is_cuda and distributed.host_staging()
+    src = _to_host(t.contiguous()) if staged else t.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=0)
+    return out.to(t.device) if staged else out
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        ctx.rank, ctx.rows = rank, x.shape[0]
+        return all_gather_first(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.rows
+        return g[lo:lo + ctx.rows], None, None, None
+
+
+def gather_batch(x: torch.Tensor, group, rank: int, size: int):
+    """The whole batch from the data ranks' slices `x` (this rank's the
+    rank-th); backward, this rank's slice of the gradient (see the module
+    docstring)."""
+    return _GatherBatch.apply(x, group, rank, size)
+
+
+def cut_batch(x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+    """This rank's slice of a whole-batch value (dim 0 in `size` equal
+    parts); the value itself where dim 0 does not divide."""
+    if x.dim() == 0 or x.shape[0] % size:
+        return x
+    n = x.shape[0] // size
+    return x.narrow(0, rank * n, n)
 
 
 class _EnterTP(torch.autograd.Function):

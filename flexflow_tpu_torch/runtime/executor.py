@@ -11,10 +11,15 @@ in place. Parameters stay f32, so their gradients arrive in f32, as
 
 On a mesh (core/machine.py) each process walks the graph on its slice of
 the batch with its shards of the weights; the ops restore replicated
-activations themselves (runtime/collectives.py). After the backward, the
-gradients and the reported metrics are averaged over the `data` axis, so
-every rank's optimizer sees the gradient of the global batch's loss, as
-`jax.grad` under GSPMD gives it.
+activations themselves (runtime/collectives.py). An op the plan keeps
+below the mesh's data degree (`Op.whole_batch`, the strategy search's
+dp = 1) computes the whole batch: the walk gathers its batch-cut inputs
+over `data` before it and cuts its outputs back after it
+(collectives.gather_batch / cut_batch; `batch_cut` says whether this
+walk's inputs were cut, FFModel._data_slice sets it). After the
+backward, the gradients and the reported metrics are averaged over the
+`data` axis, so every rank's optimizer sees the gradient of the global
+batch's loss, as `jax.grad` under GSPMD gives it.
 
 Several optimizer steps a dispatch (`build_multi_step`, the JAX
 package's jitted `lax.scan` of K steps) run on the card as one CUDA
@@ -64,7 +69,7 @@ from ..core.op import LoweringContext
 from ..ffconst import CompMode, OpType
 from ..obs.tracing import get_tracer, traced_dispatch
 from ..ops.common import emit_dtype
-from .collectives import mean_
+from .collectives import cut_batch, gather_batch, mean_
 from .graphs import CapturedCall, Staging, graph_counts
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -77,6 +82,9 @@ class Executor:
         self.mesh = mesh
         self.topo = graph.topo_order()
         self._generator: Optional[torch.Generator] = None
+        # whether the walks' inputs are this rank's slice of the batch
+        # over `data` (FFModel._data_slice decides it a batch)
+        self.batch_cut = True
 
     @property
     def device(self) -> torch.device:
@@ -170,16 +178,37 @@ class Executor:
         ctx.write_state = write_state
         if training:
             ctx.generator = self.generator
+        dp = self.mesh.size("data") if self.mesh is not None else 1
+        # guids of the values cut over `data` (a walk on cut inputs)
+        cut = set() if dp > 1 and self.batch_cut else None
         with torch.set_grad_enabled(training if record is None
                                     else record):
             for op in self.topo:
                 if op.op_type == OpType.INPUT:
                     ctx.values[op.outputs[0].guid] = input_values[op.name]
+                    if cut is not None:
+                        cut.add(op.outputs[0].guid)
                     continue
-                outs = op.lower(ctx, [ctx.values[t.guid] for t in op.inputs])
+                ins = [ctx.values[t.guid] for t in op.inputs]
+                fed_cut = cut is not None and any(t.guid in cut
+                                                  for t in op.inputs)
+                whole = fed_cut and op.whole_batch
+                if whole:
+                    group, at = self.mesh.group("data"), self.mesh.index(
+                        "data")
+                    ins = [gather_batch(v, group, at, dp) if t.guid in cut
+                           else v for t, v in zip(op.inputs, ins)]
+                outs = op.lower(ctx, ins)
                 for t, v in zip(op.outputs, outs):
-                    ctx.values[t.guid] = v.to(emit_dtype(self.config,
-                                                         t.dtype))
+                    v = v.to(emit_dtype(self.config, t.dtype))
+                    is_cut = fed_cut
+                    if whole:
+                        part = cut_batch(v, at, dp)
+                        is_cut = part is not v  # no batch dim: whole
+                        v = part
+                    ctx.values[t.guid] = v
+                    if is_cut:
+                        cut.add(t.guid)
         return ctx.values
 
     # -- step builders -----------------------------------------------------

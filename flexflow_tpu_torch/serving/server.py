@@ -13,14 +13,15 @@ DynamicBatcher: one CUDA graph per batch bucket on the card),
 `register_continuous` (a ContinuousBatcher), each answering over HTTP
 with typed 429 / 400 / 404 bodies. `/metrics` renders this server's
 per-model families and the process-wide registry, which carries the
-serving (`ff_serving_*`, `ff_kvpool_*`), durability (`ff_checkpoint_*`)
-and training-watchdog (`ff_watchdog_*`) families.
+serving (`ff_serving_*`, `ff_kvpool_*`), durability (`ff_checkpoint_*`),
+training-watchdog (`ff_watchdog_*`) and plan-analysis
+(`ff_plan_diagnostics_total`) families; `stats()` carries the analysis'
+per-code counts under `_analysis`, as JAX's does.
 
 Not ported yet, and absent rather than faked: the fleet
 (`register_fleet` raises; its merged `/metrics` render and the
-aggregated `/healthz` come with ROADMAP A10) and the plan sanitizer's
-counters (no `_analysis` key in `stats()`, no `ff_plan_diagnostics_total`
-on `/metrics`, until ROADMAP A7.4). The model repository is A5.10c.
+aggregated `/healthz` come with ROADMAP A10). The model repository is
+A5.10c.
 """
 from __future__ import annotations
 
@@ -401,6 +402,9 @@ class InferenceServer:
                                   for n, b in sorted(self._continuous.items())}
         if self._elastic_events is not None:
             out["_elastic"] = self._elastic_events.counts()
+        analysis = self._analysis_counters()
+        if analysis:
+            out["_analysis"] = analysis
         if self._load_failures:
             out["_load_failures"] = dict(self._load_failures)
         durability = self._durability_counters()
@@ -410,6 +414,15 @@ class InferenceServer:
         if watchdog:
             out["_watchdog"] = watchdog
         return out
+
+    @staticmethod
+    def _analysis_counters():
+        """The plan analysis' per-code counters (analysis/diagnostics.py):
+        process-wide, so every compile, search and import in this process
+        shows."""
+        from ..analysis import diagnostic_counters
+
+        return diagnostic_counters()
 
     @staticmethod
     def _durability_counters():
@@ -431,7 +444,8 @@ class InferenceServer:
         """Prometheus exposition-format metrics (the Triton /metrics
         role). One renderer — `MetricsRegistry.render()` — over two
         registries: this server's per-model families plus the process-wide
-        default registry, which carries `ff_checkpoint_*`,
+        default registry, which carries `ff_plan_diagnostics_total`,
+        `ff_checkpoint_*`,
         `ff_watchdog_*` and the batchers' `ff_serving_*` / `ff_kvpool_*`
         families without any per-family code here. Derived/mirrored
         series (avg-latency gauge, elastic event counts) are synced right

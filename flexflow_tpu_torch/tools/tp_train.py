@@ -15,7 +15,12 @@ per step by kernel, peak memory, backend and host staging.
 
 `run_rank` is the rank's body, also what chip_smoke.py and
 tests/test_torch_tp.py spawn: a list of jobs, each a dict (see `JOB`),
-run one after another in one process group.
+run one after another in one process group. A job with `axes` None
+compiles with no axes, so the model's plan comes from its config
+(`config`: the strategy search, an imported strategy file, or the
+`{"data": world}` default); each rank then reports the plan it holds,
+and a rank past the plan's mesh trains nothing: it reports the error
+its `fit` raises.
 """
 from __future__ import annotations
 
@@ -32,7 +37,11 @@ import numpy as np
 
 # a job's keys and their defaults
 JOB: Dict[str, Any] = {
+    # the mesh axes; None: the plan compile chooses from `config`
     "axes": {"model": 2},
+    # further FFConfig fields (the strategy search's: search_budget,
+    # measure_op_costs, import_strategy_file, ...)
+    "config": {},
     # TransformerConfig fields; the default is bench.py's encoder
     "widths": {},
     "batch": 8,
@@ -62,6 +71,10 @@ JOB: Dict[str, Any] = {
     "eval": False,
     # FFModel.predict on x after training, at this batch size (0: none)
     "predict_batch": 0,
+    # on rank 0, after compile: the analytic search (no measured costs)
+    # of a fresh build of the same graph, twice (the second a plan-cache
+    # hit); each result's plan, cache mode and wall
+    "analytic_twice": False,
     # a directory: after training, save a checkpoint there
     # (runtime/durability.py), restore it into a model drawn from another
     # seed and predict with it (needs predict_batch)
@@ -69,24 +82,31 @@ JOB: Dict[str, Any] = {
 }
 
 
+def _encoder_graph(job: Dict[str, Any], device: str, **config):
+    """The job's BERT encoder, built and not compiled."""
+    from .. import DataType, FFConfig, FFModel
+    from ..models import TransformerConfig, build_bert_encoder
+
+    cfg = TransformerConfig(**job["widths"])
+    batch = job["batch"]
+    model = FFModel(FFConfig(batch_size=batch,
+                             allow_mixed_precision=job["mixed"],
+                             device=device, **{**job["config"], **config}))
+    tokens = model.create_tensor([batch, cfg.sequence_length],
+                                 DataType.DT_INT32)
+    build_bert_encoder(model, tokens, cfg, use_flash=job["use_flash"])
+    return model
+
+
 def build_encoder(job: Dict[str, Any], device: str):
     """The job's BERT encoder (JOB's keys, defaults filled in), compiled
     for training on its mesh."""
     import torch
 
-    from .. import (AdamOptimizer, DataType, FFConfig, FFModel, LossType,
-                    MetricsType)
-    from ..models import TransformerConfig, build_bert_encoder
+    from .. import AdamOptimizer, LossType, MetricsType
 
     job = dict(JOB, **job)
-    cfg = TransformerConfig(**job["widths"])
-    batch = job["batch"]
-    model = FFModel(FFConfig(batch_size=batch,
-                             allow_mixed_precision=job["mixed"],
-                             device=device))
-    tokens = model.create_tensor([batch, cfg.sequence_length],
-                                 DataType.DT_INT32)
-    build_bert_encoder(model, tokens, cfg, use_flash=job["use_flash"])
+    model = _encoder_graph(job, device)
     alpha, moments = job["adam"]
     opt = AdamOptimizer(model, alpha=alpha, moments_dtype=getattr(
         torch, moments) if moments else None)
@@ -95,6 +115,8 @@ def build_encoder(job: Dict[str, Any], device: str):
                   metrics=[MetricsType.METRICS_ACCURACY],
                   parallel_axes=job["axes"],
                   generator=torch.Generator().manual_seed(job["seed"]))
+    if model.outside_mesh:
+        return model  # a rank past the plan's mesh holds no weights
     if job["params"] is not None:
         model.load_params(job["params"])
     if job["opt_state"] is not None:
@@ -133,20 +155,102 @@ def grad_steps(model, x, y, steps: int, names) -> List[Dict[str, Any]]:
     return out
 
 
+def plan_of(model) -> Dict[str, Any]:
+    """The plan a compiled model holds: its mesh axes and each op's
+    (dp, tp) by name (the mesh-wide degrees for an op the plan does not
+    name), and what its search did, when it searched."""
+    strategies = model._op_strategies or {}
+    axes = dict(model.parallel_axes)
+    ops = {}
+    for op in model.graph.topo_order():
+        s = strategies.get(op.guid)
+        ops[op.name] = ([s.dp, s.tp] if s is not None
+                        else [axes.get("data", 1), axes.get("model", 1)])
+    out: Dict[str, Any] = {"axes": axes, "ops": ops}
+    sr = model.search_result
+    if sr is not None:
+        out["search"] = {
+            "cache_mode": sr.cache_mode, "wall_ms": sr.search_wall_ms,
+            "predicted_step_us": sr.predicted_step_us,
+            "cost_us": sr.cost_us, "memory_bytes": sr.memory_bytes,
+            "candidates_simulated": sr.candidates_simulated,
+            "candidates_pruned": sr.candidates_pruned,
+            "applied_rewrites": [list(r) for r in sr.applied_rewrites]}
+    report = getattr(model, "_analysis_report", None)
+    if report is not None:
+        codes: Dict[str, int] = {}
+        for d in report.diagnostics:
+            key = f"{d.code}/{d.severity.value}"
+            codes[key] = codes.get(key, 0) + 1
+        out["diagnostics"] = codes
+    return out
+
+
+def analytic_twice(job: Dict[str, Any], device: str, n_dev: int,
+                   optimizer_state_factor: float) -> List[Dict[str, Any]]:
+    """The analytic Unity search (measure_op_costs off) of fresh builds of
+    the job's graph on `n_dev` devices, twice: the second run is the
+    process-wide plan cache's to answer. Each run's plan (axes and (dp,
+    tp) by op name), cache mode and wall."""
+    from ..core.graph import Graph
+    from ..search.machine_model import make_machine_model
+    from ..search.unity import result_to_dict, unity_optimize
+
+    out = []
+    for _ in range(2):
+        model = _encoder_graph(job, device, measure_op_costs=False)
+        model.config.optimizer_state_factor = optimizer_state_factor
+        graph = Graph(model.ops)
+        t0 = time.perf_counter()
+        res = unity_optimize(graph, model.config,
+                             make_machine_model(model.config, n_dev),
+                             model.config.batch_size, n_dev)
+        wall = time.perf_counter() - t0
+        plan = result_to_dict(res, graph)
+        out.append({"axes": plan["mesh_axes"],
+                    "ops": {k: [v["dp"], v["tp"]]
+                            for k, v in plan["ops"].items()},
+                    "cache_mode": res.cache_mode, "wall_s": wall,
+                    "predicted_step_us": res.predicted_step_us,
+                    "candidates_simulated": res.candidates_simulated,
+                    "candidates_pruned": res.candidates_pruned})
+    return out
+
+
 def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     import torch
 
     from ..kernels import launch_counts, reset_launch_counts
     from ..runtime import collectives
+    from ..search.simulator import get_op_cost_cache
 
     job = dict(JOB, **job)
     t0 = time.perf_counter()
     model = build_encoder(job, device)
     build_s = time.perf_counter() - t0
-    dev = model.device
     out: Dict[str, Any] = {"mesh_coords": dict(model.mesh.coords)
-                           if model.mesh else {}, "build_s": build_s}
+                           if model.mesh else {}, "build_s": build_s,
+                           "plan": plan_of(model)}
+    if model.search_result is not None:
+        cache = get_op_cost_cache(model.config)
+        out["op_cost_cache"] = {"hits": cache.hits, "misses": cache.misses,
+                                "failures": dict(cache.failures)}
+    import torch.distributed as dist
+
+    if job["analytic_twice"] and dist.get_rank() == 0:
+        out["analytic"] = analytic_twice(
+            job, device, model.config.total_devices,
+            model.config.optimizer_state_factor)
     x, y = job["x"], job["y"]
+    if model.outside_mesh:
+        out["outside_mesh"] = model.outside_mesh
+        try:
+            model.fit(x, y, batch_size=job["batch"], epochs=1)
+            out["fit_error"] = None
+        except RuntimeError as exc:
+            out["fit_error"] = str(exc)
+        return out
+    dev = model.device
     if job["grad_steps"]:
         out["steps"] = grad_steps(model, x, y, job["grad_steps"],
                                   job["grad_norms_of"])

@@ -531,6 +531,13 @@ def test_lambda_bal_without_full_gate_raises():
     g = m.create_tensor([8, 2])
     ids = m.create_tensor([8, 2], pt.DataType.DT_INT32)
     m.final_tensor = m.experts(x, g, ids, 4, 5, lambda_bal=0.1)
+    # compile's plan analysis rejects the plan first (FFTA082, as JAX's
+    # compile does); with the gate off, the lowering raises
+    from flexflow_tpu_torch.analysis import PlanAnalysisError
+
+    with pytest.raises(PlanAnalysisError, match="FFTA082"):
+        _compile(pt, m)
+    m.config.plan_analysis = "off"
     _compile(pt, m)
     feeds = {m.input_ops[0].name: torch.zeros(8, 6),
              m.input_ops[1].name: torch.zeros(8, 2),

@@ -578,4 +578,4 @@ def test_new_signatures_and_config_flags():
     cfg.parse_args(["--iterations", "5", "--weight-decay", "0.25"])
     assert (cfg.iterations, cfg.weight_decay) == (5, 0.25)
     with pytest.raises(ValueError, match="not ported"):
-        cfg.parse_args(["--budget", "4"])
+        cfg.parse_args(["--collective-lowering", "explicit"])

@@ -474,9 +474,13 @@ def test_register_modes_exclusive_and_fleet_absent(lms):
                 "c", GenerativeSession(lms[1], max_len=12))
         with pytest.raises(NotImplementedError, match="A10"):
             server.register_fleet("f", object())
-        # the plan sanitizer's counters are absent, not faked (A7.4)
-        assert "_analysis" not in server.stats()
-        assert "ff_plan_diagnostics_total" not in server.prometheus_text()
+        # the plan analysis' counters, as the JAX server carries them:
+        # the family on /metrics (compile records every report), and the
+        # per-code counts under "_analysis" once there are any
+        from flexflow_tpu_torch.analysis import diagnostic_counters
+
+        assert server.stats().get("_analysis", {}) == diagnostic_counters()
+        assert "ff_plan_diagnostics_total" in server.prometheus_text()
     finally:
         server.shutdown()
 
@@ -630,6 +634,10 @@ def test_server_metrics_render_validates_and_keeps_names():
         ev = EventLog()
         ev.record("retry", step=1)
         server.attach_elastic_events(ev)
+        # the plan analysis' family, which every compile feeds
+        from flexflow_tpu_torch.analysis import diagnostic_counters
+
+        diagnostic_counters()
         text = server.prometheus_text()
         fams = validate_exposition(text)
         assert jax_validate(text).keys() == fams.keys()
@@ -641,7 +649,7 @@ def test_server_metrics_render_validates_and_keeps_names():
                      "ff_watchdog_skips_total",
                      "ff_elastic_events_total"):
             assert name in fams, name
-        assert "ff_plan_diagnostics_total" not in fams  # A7.4
+        assert "ff_plan_diagnostics_total" in fams
         assert 'ff_model_load_failures_total{model="broken"} 1' in text
         (_, ev_lbl, ev_n), = fams["ff_elastic_events_total"]["samples"]
         assert ev_lbl == {"kind": "retry"} and ev_n == 1
