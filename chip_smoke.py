@@ -349,6 +349,27 @@ Phases, in order; any failure propagates and exits non-zero:
               and ms a step (four ranks time-sharing one card over gloo:
               not a mesh speed).
 
+36-41. axes — four ranks sharing cuda:0 (gloo, host-staged), one spawn,
+              one job a leg (tools/tp_train.py), bf16, Adam 1e-4 with
+              bf16 moments, 3 fit steps (the last counted): seq-ring (the
+              flagship encoder at full width, 2 of its 12 layers, batch 8,
+              l 512, on {"seq": 4}: ring attention), seq-ulysses (the
+              same, Ulysses: B1 at 4 heads a rank), expert (the switch
+              transformer of phase 25 on {"expert": 4}), row (the flagship
+              at 2 layers on {"data": 2, "model": 2} by an imported plan
+              that makes each FFN a Megatron pair, fit(
+              steps_per_execution=2), 4 steps), attr (ResNet-50 at 224,
+              batch 16, on {"data": 2, "attr": 2}) and stage (the
+              flagship's 12 layers as 4 stages, 4 microbatches). Fails if
+              the ranks' losses or replicated weights differ, a loss is
+              more than 2e-2 relative from the same model on one card
+              (this process, after the spawn), or a leg's kernels did not
+              launch (Ulysses' flash on the tensor cores). Prints each
+              leg's launches a step by kernel and route, the staged bytes,
+              peak memory and weights by rank, and ms a step (four ranks
+              time-sharing one card: not a mesh speed). The kernels
+              phase holds B1 at the Ulysses shape (8, 512, 4 x 64) too.
+
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits 2 without printing a result when no
@@ -736,6 +757,7 @@ def phase_kernels(torch, F):
     table.update(heads_kernels(torch, F, g))
     table.update(cumsum_kernels(torch, g))
     table.update(optimizer_kernels(torch, g))
+    ulysses_flash_kernels(torch, F, g, table)
     edges = norm_route_edges(torch, g)
     edges.update(bwd_route_edges(torch, g))
     for name in ("softmax_fwd", "rmsnorm_fwd", "layernorm_fwd",
@@ -4926,6 +4948,253 @@ def _prefill_probs(torch, model, prompt, chunk, max_len):
     return vals[model.final_tensor.guid][0, n - 1].float().cpu()
 
 
+# phases 36-41: the other mesh axes, on four ranks sharing cuda:0 (gloo,
+# host-staged), each leg's model at full width (depth cut as listed), 3
+# steps (the row pair: 4, two K = 2 dispatches), the last step counted
+AXES_RANKS = 4
+AXES_LEGS = ("seq-ring", "seq-ulysses", "expert", "row", "attr", "stage")
+# the kernels each leg's counted step must launch (on the tensor cores
+# where a flash kernel runs)
+AXES_KERNELS = {
+    "seq-ring": ("layernorm_fwd", "layernorm_bwd", "softmax_fwd",
+                 "softmax_bwd", "reduce", "optimizer_adam"),
+    "seq-ulysses": ("flash_fwd", "flash_bwd", "flash_fwd/tc",
+                    "flash_bwd/tc", "layernorm_fwd", "layernorm_bwd",
+                    "softmax_fwd", "softmax_bwd", "reduce",
+                    "optimizer_adam"),
+    "expert": ("softmax_fwd", "softmax_bwd", "layernorm_fwd",
+               "layernorm_bwd", "reduce", "optimizer_adam"),
+    "row": ("flash_fwd_blhd", "flash_bwd_blhd", "layernorm_fwd",
+            "layernorm_bwd", "softmax_fwd", "softmax_bwd", "reduce",
+            "optimizer_adam"),
+    "attr": ("softmax_fwd", "softmax_bwd", "reduce", "optimizer_adam"),
+    "stage": ("flash_fwd", "flash_bwd", "layernorm_fwd", "layernorm_bwd",
+              "softmax_fwd", "softmax_bwd", "reduce", "optimizer_adam"),
+}
+# each leg's depth cut (the whole script keeps inside its time)
+AXES_CUTS = {
+    "seq-ring": "12 -> 2 encoder layers",
+    "seq-ulysses": "12 -> 2 encoder layers",
+    "expert": "none (the switch transformer's 2 layers)",
+    "row": "12 -> 2 encoder layers",
+    "attr": "none (ResNet-50)",
+    "stage": "none (12 encoder layers, 3 a stage)",
+}
+
+
+def _row_strategy(path, layers):
+    """The row leg's imported plan: every op of the flagship cut to
+    `layers` layers at dp 2 x tp 2, each FFN's second linear (ff2)
+    row-parallel, so each FFN is a Megatron pair."""
+    from flexflow_tpu_torch.tools.tp_train import JOB, _encoder_graph
+
+    from flexflow_tpu_torch.search.simulator import TP_CAPABLE
+
+    model = _encoder_graph(dict(JOB, widths={"num_layers": layers}), "cpu")
+    ops = {op.name: {"dp": 2, "tp": 2 if op.op_type in TP_CAPABLE else 1,
+                     "ep": 1, "ap": 1, "tp_row": op.name.endswith("_ff2")}
+           for op in model.ops}
+    with open(path, "w") as f:
+        json.dump({"mesh_axes": {"data": 2, "model": 2}, "cost_us": 0.0,
+                   "memory_bytes": 0.0, "ops": ops}, f)
+
+
+def _axes_jobs(tmp):
+    """Phases 36-41's jobs (flexflow_tpu_torch/tools/tp_train.py), by
+    leg."""
+    import numpy as np
+
+    from flexflow_tpu_torch.tools import zoo_train
+
+    x, y = _train_batch()
+    enc = {"model": "encoder", "x": x, "y": y, "steps": 3, "count_steps": 1,
+           "seed": 0, "mixed": True, "adam": (1e-4, "bfloat16")}
+    rng = np.random.RandomState(1)
+    x2 = np.concatenate([x, rng.randint(0, TRAIN["vocab"], size=x.shape)
+                         .astype(np.int32)])
+    y2 = np.concatenate([y, rng.randint(0, 2, size=y.shape)
+                         .astype(np.int32)])
+    strat = os.path.join(tmp, "row_pairs.json")
+    _row_strategy(strat, 2)
+    mx, my = zoo_train.batches("moe_switch", 1)
+    rx, ry = zoo_train.batches("resnet50", 1)
+    return {
+        "seq-ring": dict(enc, axes={"seq": 4}, widths={"num_layers": 2}),
+        "seq-ulysses": dict(enc, axes={"seq": 4}, widths={"num_layers": 2},
+                            sp_mode="ulysses"),
+        "expert": dict(enc, model="zoo", widths={"name": "moe_switch"},
+                       batch=zoo_train.ZOO["moe_switch"]["batch"],
+                       x=mx[0], y=my, axes={"expert": 4}),
+        "row": dict(enc, axes=None, widths={"num_layers": 2}, x=x2, y=y2,
+                    steps=2, count_steps=1, steps_per_execution=2,
+                    config={"import_strategy_file": strat,
+                            "num_devices": 4}),
+        "attr": dict(enc, model="zoo", widths={"name": "resnet50"},
+                     batch=zoo_train.ZOO["resnet50"]["batch"], x=rx[0],
+                     y=ry, axes={"data": 2, "attr": 2},
+                     config={"enable_attribute_parallel": True}),
+        "stage": dict(enc, axes={"stage": 4},
+                      widths={"num_layers": TRAIN["layers"]},
+                      config={"pipeline_microbatches": 4}),
+    }
+
+
+def _one_device_losses(torch, job):
+    """The leg's model on one card (cuda:0, this process), from the same
+    seed's weights and batch: its per-step losses."""
+    import gc
+
+    from flexflow_tpu_torch.tools.tp_train import JOB, build_encoder
+
+    job = {**JOB, **job, "axes": {}}
+    config = {k: v for k, v in job.get("config", {}).items()
+              if k not in ("import_strategy_file", "num_devices")}
+    model = build_encoder(dict(job, config=config), "cuda")
+    k = job.get("steps_per_execution", 1)
+    model.fit(job["x"], job["y"], batch_size=job["batch"],
+              epochs=job["steps"], steps_per_execution=k)
+    losses = [v for r in model.step_records
+              for v in r.get("losses", [r["loss"]])]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_axes(torch):
+    """36-41: the six mesh legs in one spawn of four ranks (see the module
+    docstring). Returns one record a leg and rank 0's launches over each
+    leg's counted step."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from flexflow_tpu_torch.tools.tp_train import spawn_jobs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = _axes_jobs(tmp)
+        t0 = time.perf_counter()
+        ranks = spawn_jobs(AXES_RANKS, "cuda", list(jobs.values()),
+                           timeout_s=600)
+        wall = time.perf_counter() - t0
+        records, launches = [], {}
+        for i, (leg, job) in enumerate(jobs.items()):
+            runs = [r["jobs"][i] for r in ranks]
+            first = runs[0]
+            losses = first["losses"]
+            for j, r in enumerate(runs[1:], 1):
+                if r["losses"] != losses:
+                    raise AssertionError(
+                        f"{leg}: rank {j} losses {r['losses']} differ from "
+                        f"rank 0's {losses}")
+                if r["replicated_digest"] != first["replicated_digest"]:
+                    raise AssertionError(f"{leg}: rank {j}'s replicated "
+                                         "weights differ from rank 0's")
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"{leg}: non-finite loss {losses}")
+            t1 = time.perf_counter()
+            one = _one_device_losses(torch, job)
+            rels = [abs(a - c) / abs(c) for a, c in zip(losses[:3], one)]
+            if max(rels) > 2e-2:
+                raise AssertionError(f"{leg}: losses {losses[:3]} vs one "
+                                     f"device {one[:3]} (relative {rels})")
+            counted = {k: v for k, v in first["launches_per_step"].items()
+                       if v}
+            missing = [k for k in AXES_KERNELS[leg] if not counted.get(k)]
+            if missing:
+                raise AssertionError(f"{leg}: kernels never launched in the "
+                                     f"counted step: {missing}")
+            if leg == "seq-ulysses" and (
+                    counted["flash_fwd/tc"] != counted["flash_fwd"]):
+                raise AssertionError(f"{leg}: flash calls off the tensor "
+                                     f"cores: {counted}")
+            plan = first["plan"]
+            launches[leg] = {k: int(round(v)) for k, v in counted.items()
+                             if "/" not in k}
+            records.append({
+                "phase": f"axes-{leg}", "axes": plan["axes"],
+                "depth_cut": AXES_CUTS[leg],
+                "world_size": ranks[0]["host"]["process_count"],
+                "backend": ranks[0]["host"]["backend"],
+                "host_staging": ranks[0]["host"]["host_staging"],
+                "losses": losses, "one_device_losses": one,
+                "one_device_s": time.perf_counter() - t1,
+                "max_relative_diff_first3": max(rels),
+                "launches_per_step": counted,
+                "staged_per_step_rank0": first["staged_per_step"],
+                "staged_mib_per_step_by_rank": [
+                    r["staged_per_step"]["bytes"] / 2 ** 20 for r in runs],
+                "ms_per_step_rank0": first["ms_per_step"],
+                "ms_per_step_note": "four ranks time-sharing one card over "
+                                    "a host-staged gloo transport: not a "
+                                    "mesh speed",
+                "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in runs],
+                "params_gib_by_rank": [r["params_gib"] for r in runs],
+                "build_s_by_rank": [r["build_s"] for r in runs],
+                "roles": {k: v for k, v in first["roles"].items() if v},
+                **({"multi_step": first["multi_step"]}
+                   if "multi_step" in first else {}),
+                "tolerance": "ranks' losses and replicated weights "
+                             "identical; |loss - one device| <= 2e-2 "
+                             "|one device|, steps 1-3"})
+    records[0]["spawn_wall_s"] = wall
+    return records, launches
+
+
+def ulysses_flash_kernels(torch, F, g, table):
+    """B1 at Ulysses' local shape on the seq-ulysses leg: the packed
+    kernel at h = 16 / 4 = 4 heads a rank, (8, 512, 4 x 64) bf16, forward
+    and backward against their plain versions, timed beside SDPA and the
+    bound; added to the flash rows as `ulysses_shape`."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, l, h, d = TRAIN["batch"], TRAIN["seq"], TRAIN["heads"] // 4, 64
+    e, scale = h * d, d ** -0.5
+    q, k, v, do = (torch.randn((b, l, e), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    shape = f"b={b} l={l} h={h} d={d} bfloat16 (Ulysses, seq=4)"
+    o, lse = fa.flash_fwd(q, k, v, h, scale=scale)
+    ro, _ = fa.flash_fwd_plain(q, k, v, h, scale, False)
+    fwd = _agree("flash_fwd (ulysses)", o, ro, (4e-3, 2e-2), shape)
+    grads = fa.flash_bwd(q, k, v, o, lse, do, h, scale=scale)
+    delta = (do.float() * o.float()).reshape(b, l, h, d).sum(-1)
+    ref = fa.flash_bwd_plain(q, k, v, do, lse, delta, h, scale, False)
+    rows = [_agree(f"flash_bwd (ulysses d{n})", a, r, (1e-3, 1e-2), shape)
+            for n, a, r in zip("qkv", grads, ref)]
+    bwd = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    qt, kt, vt, dot = (t.reshape(b, l, h, d).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    fb = _bound(4 * b * l * e * 2 + b * l * h * 4, 4 * b * h * l * l * d,
+                "bfloat16")
+    bb = _bound(8 * b * l * e * 2 + 2 * b * l * h * 4,
+                10 * b * h * l * l * d, "bfloat16")
+    fwd.update(
+        ms=_time_ms(torch, lambda: fa.flash_fwd(q, k, v, h, scale=scale)),
+        plain_ms=_time_ms(torch, lambda: fa.flash_fwd_plain(
+            q, k, v, h, scale, False)),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale)),
+        bound_ms=fb[0], bound_by=fb[1])
+    bwd.update(
+        ms=_time_ms(torch, lambda: fa.flash_bwd(q, k, v, o, lse, do, h,
+                                                scale=scale)),
+        plain_ms=_time_ms(torch, lambda: fa.flash_bwd_plain(
+            q, k, v, do, lse, delta, h, scale, False)),
+        library_ms=_time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qg, kg, vg), dot, retain_graph=True)),
+        bound_ms=bb[0], bound_by=bb[1])
+    for row in (fwd, bwd):
+        row["vs_library"] = row["ms"] / row["library_ms"]
+    table["flash_fwd"]["ulysses_shape"] = fwd
+    table["flash_bwd"]["ulysses_shape"] = bwd
+
+
 def main() -> int:
     import torch
 
@@ -5304,6 +5573,16 @@ def main() -> int:
     line, zoo_paths["search"] = phase_search(torch, train["losses"])
     _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
     print(f"phase 35: {time.perf_counter() - t_search:.1f} s", flush=True)
+
+    # 36-41) the other mesh axes: seq (ring, Ulysses), expert, the row
+    # pair with K = 2, attr and stage, on four ranks
+    t_axes = time.perf_counter()
+    records, axes_launches = phase_axes(torch)
+    for line in records:
+        _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    for leg, counts in axes_launches.items():
+        zoo_paths[f"axes-{leg}"] = counts
+    print(f"phases 36-41: {time.perf_counter() - t_axes:.1f} s", flush=True)
 
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp

@@ -4,17 +4,23 @@ flexflow_tpu/core/machine.py `MachineView` and `make_mesh`).
 In the JAX package a mesh is an array of devices with named axes and one
 program runs over all of them. Here each mesh position is one process of
 the default process group: ranks are laid out row-major over the axes in
-the JAX order (data, then model; search/unity.py mesh_axes_for), so rank
-= data_index * model_size + model_index, and each axis of size > 1 gets
-a process group over the ranks that differ only along it.
+the JAX order (data, model, expert, attr, seq: search/unity.py
+mesh_axes_for; then stage, which the JAX package's pipeline meshes put
+after data), so on a data x model mesh rank = data_index * model_size +
+model_index, and each axis of size > 1 gets a process group over the
+ranks that differ only along it (`Mesh.groups`, and the group's ranks in
+coordinate order in `Mesh.group_ranks`).
 
 A mesh may be smaller than the world, as a searched plan's often is (the
 JAX package builds its mesh over a prefix of the devices): it spans ranks
 0 .. prod(axes) - 1, and a rank past it holds no position
 (`Mesh.holds_position`; its model trains nothing, FFModel.compile).
 
-Ported axes: `data` and `model`. `seq`, `expert`, `attr` and `stage`
-raise, naming ROADMAP A8.
+What runs over each axis: `data` cuts the batch, `model` shards the
+weights of the tensor-parallel ops, `expert` the stacked expert weights,
+`attr` cuts the H dim of NCHW activations, `seq` the position dim of
+sequence activations, and `stage` splits the graph's repeated block into
+pipeline stages (runtime/executor.py).
 """
 from __future__ import annotations
 
@@ -23,14 +29,9 @@ from typing import Dict, Tuple
 
 import torch
 
-# the JAX order of the mesh axes (search/unity.py mesh_axes_for)
-AXIS_ORDER = ("data", "model")
-UNPORTED_AXES = {
-    "seq": "sequence parallelism (ring / Ulysses attention)",
-    "expert": "expert parallelism",
-    "attr": "attribute (spatial) parallelism",
-    "stage": "pipeline parallelism",
-}
+# the JAX order of the mesh axes (search/unity.py mesh_axes_for), then
+# the pipeline's stage axis
+AXIS_ORDER = ("data", "model", "expert", "attr", "seq", "stage")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +68,9 @@ class Mesh:
         self.rank = rank
         self.shape = view.axis_sizes
         self.groups = groups
+        # axis -> the global ranks of this position's group, in the order
+        # of the axis coordinate
+        self.group_ranks: Dict[str, list] = {}
         self.device = device
         self.coords: Dict[str, int] = {}
         rest = rank
@@ -94,19 +98,14 @@ class Mesh:
 
 
 def check_axes(axis_sizes: Dict[str, int]) -> Dict[str, int]:
-    """The axes of size > 1 in the JAX order; raises for an axis the port
-    cannot run yet (naming ROADMAP A8) or does not know."""
+    """The axes of size > 1 in the JAX order; raises for an axis it does
+    not know."""
     axes = {str(k): int(v) for k, v in axis_sizes.items()}
     for name, size in axes.items():
         if size < 1:
             raise ValueError(f"parallel_axes={axis_sizes}: axis {name!r} has "
                              f"size {size}")
-        if name in UNPORTED_AXES and size > 1:
-            raise NotImplementedError(
-                f"parallel_axes={axis_sizes}: the {name!r} axis "
-                f"({UNPORTED_AXES[name]}) is not ported yet (ROADMAP A8); "
-                f"the port runs the {' and '.join(AXIS_ORDER)} axes")
-        if name not in AXIS_ORDER and name not in UNPORTED_AXES:
+        if name not in AXIS_ORDER:
             raise ValueError(f"parallel_axes={axis_sizes}: unknown mesh "
                              f"axis {name!r}")
     return {a: axes[a] for a in AXIS_ORDER if axes.get(a, 1) > 1}
@@ -151,4 +150,5 @@ def make_mesh(axis_sizes: Dict[str, int]) -> Mesh:
             group = dist.new_group(ranks)
             if rank in ranks:
                 mesh.groups[name] = group
+                mesh.group_ranks[name] = ranks
     return mesh

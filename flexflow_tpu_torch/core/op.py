@@ -8,11 +8,15 @@ package's weight names and layouts (`wq` (e, h, d), dense `kernel`
 weight name with no transpose.
 
 On a mesh (core/machine.py) an op holds only its shard of each weight
-that `shards` names (FFModel._assign_tp_weights): drawn and loaded whole,
-then cut to the mesh position's piece. Its `tp_degree` is the number of
-shards over the `model` axis, 1 for an op that runs unsharded. An op
-whose plan puts it below the mesh's data degree (`whole_batch`, from the
-strategy search) computes the whole batch (runtime/executor.py).
+that `shards` names (FFModel._assign_tp_weights, and the stacked expert
+weights over `expert`): drawn and loaded whole, then cut to the mesh
+position's piece. Its `tp_degree` is the number of shards over the
+`model` axis, 1 for an op that runs unsharded. An op whose plan puts it
+below the mesh's data degree (`whole_batch`, from the strategy search)
+computes the whole batch (runtime/executor.py); `seq_local` and
+`attr_local` say that it computes on this rank's positions or H rows;
+on a `stage` axis the ops of the other stages' part of the pipelined
+region are not `held`: they keep no weights here.
 
 Weights are f32 master parameters. Serving reads them under
 `torch.no_grad()` through a cache of compute-dtype copies (bf16 under
@@ -100,6 +104,10 @@ class LoweringContext:
         self.chunk_rows = None
         # this process's core.machine.Mesh, None on one device
         self.mesh = None
+        # on a mesh, the op being lowered: for each of its inputs, the
+        # mesh axes its value is cut over ("data": the batch, "seq": the
+        # positions, "attr": the H of NCHW; runtime/executor.py)
+        self.in_cuts: List[frozenset] = []
         # a training walk's random stream (dropout masks): the executor's
         # torch.Generator on the walk's device; None outside training
         self.generator: Optional[torch.Generator] = None
@@ -118,6 +126,9 @@ class Op(nn.Module):
     """Base operator. Subclasses implement shape inference and lowering."""
 
     op_type: OpType = OpType.INPUT
+    # True: on a mesh the op gathers its inputs' `data` cut itself and its
+    # outputs are whole (the MoE GroupBy's expert buffers)
+    gathers_data = False
 
     def __init__(self, model, inputs: Sequence[Tensor], name: str = "",
                  **params):
@@ -161,6 +172,15 @@ class Op(nn.Module):
         self.coords: Dict[str, int] = {}
         self.tp_degree = 1
         self.whole_batch = False
+        # the plan's other axes (FFModel._assign_strategy): computed on
+        # this rank's positions (`seq`) or H rows (`attr`) of its inputs
+        # (runtime/executor.py); a row-parallel linear (`tp_row`); and
+        # whether this rank holds the op's weights (a pipeline stage's
+        # ops are held by that stage's ranks alone)
+        self.seq_local = False
+        self.attr_local = False
+        self.row_parallel = False
+        self.held = True
 
     # -- subclass API -----------------------------------------------------
     def output_shapes(self) -> Tuple[List[Tuple[int, ...]], List[DataType]]:
@@ -209,6 +229,7 @@ class Op(nn.Module):
         names; call before init_weights."""
         self.shards = dict(shards)
         self.coords = dict(coords)
+        self._cast.clear()
         self.tp_degree = max((pt.dims[i].degree for pt in shards.values()
                               for i in pt.sharded_dims()
                               if pt.dims[i].axis == "model"), default=1)
@@ -223,9 +244,13 @@ class Op(nn.Module):
         """Draw every weight whole from `generator` on the host, in spec
         order (so every mesh position draws the same model), keep this
         position's piece and place it on `device`; `trainable` weights
-        take gradients."""
+        take gradients. An op this rank does not hold (`held`) draws its
+        weights, so the stream stays the same on every rank, and keeps
+        none."""
         for ws in self.specs:
             val = ws.initializer(generator, ws.dims, ws.dtype.torch_dtype)
+            if not self.held:
+                continue
             val = self.local_value(ws.name, val)
             self.register_parameter(
                 ws.name, nn.Parameter(val.to(device).contiguous(),
@@ -236,7 +261,10 @@ class Op(nn.Module):
         self._cast.clear()
 
     def set_weight(self, name: str, value: torch.Tensor) -> None:
-        """Load the full weight `name` (this position keeps its piece)."""
+        """Load the full weight `name` (this position keeps its piece;
+        nothing where it does not hold the op)."""
+        if not self.held:
+            return
         p = self._parameters[name]
         with torch.no_grad():
             p.copy_(self.local_value(name, value))

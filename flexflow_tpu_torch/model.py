@@ -1,6 +1,6 @@
 """FFModel: the layer API, compile with the strategy search and the plan
 analysis, fit, eval, predict and the manual loop on one torch device or
-on a data x model mesh of torch.distributed ranks (flexflow_tpu/model.py
+on a mesh of torch.distributed ranks (flexflow_tpu/model.py
 but for the parallel-op layer methods and the elastic coordinator's
 hooks; fit's training watchdog is ported).
 
@@ -28,14 +28,40 @@ from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
                       MetricsType, OpType, PoolType)
 from .kernels.registry import KERNELS
 from .obs.tracing import get_tracer
+from .ops.elementwise import POINTWISE_TYPES
 from .runtime.collectives import gather_shards
 from .runtime.executor import Executor, MultiStep
 from .runtime.losses import Loss
 from .runtime.metrics import Metrics, PerfMetrics
 from .runtime.optimizers import Optimizer, SGDOptimizer
-from .search.simulator import TP_CAPABLE, TP_WEIGHT_SHARD_DIMS
+from .search.simulator import AP_CAPABLE, TP_CAPABLE, TP_WEIGHT_SHARD_DIMS
 
 _log = logging.getLogger("flexflow_tpu_torch.model")
+
+# ops that compute each position of a (B, L, ...) value alone, so they run
+# on a rank's positions of a `seq` axis (FFModel._assign_strategy); norms
+# and softmax only over other dims than the positions
+SEQ_LOCAL = POINTWISE_TYPES | {
+    OpType.DROPOUT, OpType.LINEAR, OpType.EMBEDDING, OpType.LAYERNORM,
+    OpType.RMSNORM, OpType.SOFTMAX, OpType.MULTIHEAD_ATTENTION}
+# ops beside convolutions and pools that run on a rank's H rows of an
+# `attr` axis
+ATTR_LOCAL = POINTWISE_TYPES | {OpType.DROPOUT, OpType.BATCHNORM}
+
+
+def _seq_local_type(op: Op) -> bool:
+    """Whether `op` computes each position alone (see SEQ_LOCAL); attention
+    does through the sequence-parallel kernels, where it has no
+    dropout."""
+    t = op.op_type
+    if t == OpType.MULTIHEAD_ATTENTION:
+        return not op.params.get("dropout", 0.0) > 0
+    if t in (OpType.LAYERNORM, OpType.RMSNORM):
+        rank = len(op.inputs[0].dims)
+        return all(a % rank != 1 for a in op.params["axes"])
+    if t == OpType.SOFTMAX:
+        return op.params.get("axis", -1) % len(op.inputs[0].dims) != 1
+    return t in SEQ_LOCAL
 
 
 class FFModel:
@@ -461,11 +487,11 @@ class FFModel:
         flash kernel / the einsum reference core; None leaves it to the
         kernel registry. dropout > 0 drops out the probabilities in
         training through the einsum core (ops/attention.py);
-        sequence_parallel raises (ROADMAP A8). `add_bias_kv` and
-        `add_zero_attn` are recorded in the op's params and change
-        nothing, as in the JAX package's lowering, which reads neither;
-        `sequence_parallel_mode` is recorded for the sequence-parallel
-        path."""
+        sequence_parallel (with a `seq` mesh axis) runs ring attention,
+        or Ulysses under sequence_parallel_mode "ulysses" / "all_to_all"
+        (ops/attention.py). `add_bias_kv` and `add_zero_attn` are recorded
+        in the op's params and change nothing, as in the JAX package's
+        lowering, which reads neither."""
         return self._add_op(
             OpType.MULTIHEAD_ATTENTION, [query, key, value], name,
             embed_dim=embed_dim, num_heads=num_heads, kdim=kdim or None,
@@ -511,12 +537,14 @@ class FFModel:
         predict raise. Each data rank takes its slice of the batch; an op
         whose plan dp is 1 computes the whole batch (runtime/executor.py);
         the TP-capable ops whose plan tp is the `model` degree shard their
-        weights over it as the JAX package's `_assign_tp_weights` does,
-        the others keep theirs whole. Every rank draws the whole model
-        from the same generator and keeps its shards, so a mesh run starts
-        from the one-device run's weights. The seq, expert, attr and stage
-        axes, row-parallel (`tp_row`) linears and sharded serving raise,
-        naming ROADMAP A8, before any weight is drawn. In either mode the
+        weights over it as the JAX package's `_assign_tp_weights` does
+        (row-parallel for a `tp_row` linear), the others keep theirs
+        whole; the `expert`, `attr`, `seq` and `stage` axes are assigned
+        as `_assign_strategy` says. Every rank draws the whole model from
+        the same generator and keeps its shards, so a mesh run starts
+        from the one-device run's weights. Sharded serving (inference on
+        a mesh) raises, naming ROADMAP A8, before any weight is drawn. In
+        either mode the
         loss, the metrics, eval's step and the forward walks of `predict`
         and the manual loop are built (JAX builds them in every mode); in
         training mode (the default, as in the JAX package) the weights
@@ -696,27 +724,29 @@ class FFModel:
                               self.config.batch_size, n_dev)
 
     def _check_executable(self, axes: Dict[str, int]) -> Dict[str, int]:
-        """The plan's axes of size > 1 (core/machine.py check_axes, which
-        raises for the seq, expert, attr and stage axes, naming ROADMAP
-        A8); raises for what the port's executor cannot run yet: a
-        row-parallel (`tp_row`) linear, and an op degree between 1 and
-        its axis (JAX's menu offers only those two)."""
+        """The plan's axes of size > 1 (core/machine.py check_axes); raises
+        for what the port's executor cannot run yet: an op degree between
+        1 and its axis (JAX's menu offers only those two), and a `stage`
+        axis beside any but `data`."""
         live = check_axes(axes)
-        dp, tp = live.get("data", 1), live.get("model", 1)
+        if live.get("stage", 1) > 1 and set(live) - {"data", "stage"}:
+            raise NotImplementedError(
+                f"parallel_axes={axes}: a stage axis beside "
+                f"{sorted(set(live) - {'data', 'stage'})} is not ported yet "
+                "(ROADMAP A8); it runs beside `data`")
         for op in self.graph.topo_order():
             s = (self._op_strategies or {}).get(op.guid)
             if s is None:
                 continue
-            op_dp, op_tp = min(s.dp, dp), min(s.tp, tp)
-            if op_tp > 1 and s.tp_row and op.op_type == OpType.LINEAR:
-                raise NotImplementedError(
-                    f"{op.name}: the plan makes it row-parallel (tp_row), "
-                    "which is not ported yet (ROADMAP A8)")
-            if op_dp not in (1, dp) or op_tp not in (1, tp):
-                raise NotImplementedError(
-                    f"{op.name}: dp={op_dp}, tp={op_tp} on the mesh {live}: "
-                    "an op degree between 1 and its axis is not ported yet "
-                    "(ROADMAP A8)")
+            for field, axis in (("dp", "data"), ("tp", "model"),
+                                ("ep", "expert"), ("ap", "attr"),
+                                ("sp", "seq")):
+                size = live.get(axis, 1)
+                if min(getattr(s, field), size) not in (1, size):
+                    raise NotImplementedError(
+                        f"{op.name}: {field}={getattr(s, field)} on the mesh "
+                        f"{live}: an op degree between 1 and its axis is not "
+                        "ported yet (ROADMAP A8)")
         return live
 
     def _plan_reductions(self) -> None:
@@ -892,45 +922,128 @@ class FFModel:
             self._manual.pop("seq_fns", None)
 
     def _assign_strategy(self, order: Sequence[Op]) -> None:
-        """Each op's part of the plan (JAX `_assign_strategy`: `op_dp =
-        min(s.dp, dp)`, `op_tp = min(s.tp, tp)`, the mesh-wide degree for
-        an op the plan does not name): a TP-capable op at tp > 1 shards
-        its weights over `model`, the others keep theirs whole; an op at
-        dp below the mesh's data degree computes the whole batch
-        (`Op.whole_batch`, runtime/executor.py). The batch is cut over
-        `data` in `_batch`."""
-        dp = self.mesh.size("data") if self.mesh is not None else 1
-        tp = self.mesh.size("model") if self.mesh is not None else 1
-        coords = self.mesh.coords if self.mesh is not None else {}
+        """Each op's part of the plan (JAX `_assign_strategy`,
+        `model.py:1028-1125`: `op_dp = min(s.dp, dp)`, and so each axis,
+        the mesh-wide degree for an op the plan does not name):
+
+        - a TP-capable op at tp > 1 shards its weights over `model`,
+          column-parallel, or row-parallel for a `tp_row` linear (its
+          kernel on the in-dim); a column-parallel linear whose every
+          consumer is a row-parallel linear of its degree keeps its
+          output sharded on the features (the Megatron pair);
+        - an EXPERTS op at ep > 1 shards its stacked weights on dim 0 over
+          `expert`;
+        - an op whose position dim divides over `seq`
+          (search/simulator.py `sp_shardable`) and which computes each
+          position alone (SEQ_LOCAL) is `seq_local`; attention too,
+          unless it has dropout (JAX keeps that unsharded), and then it
+          runs the sequence-parallel kernels (`sequence_parallel`, as
+          JAX sets it);
+        - a convolution or pool whose H rows cut evenly over `attr`
+          (ops/conv.py `attr_halo`) is `attr_local`, and so is a batch
+          norm or element-wise op on NCHW values whose H divides;
+        - an op at dp below the mesh's data degree computes the whole
+          batch (`Op.whole_batch`);
+        - on a `stage` axis, the ops of the pipelined region that other
+          stages run are not `held` here.
+
+        The batch is cut over `data` in `_batch`; the executor cuts and
+        gathers the `seq` and `attr` dims (runtime/executor.py)."""
+        from .ops.conv import attr_halo
+        from .search.simulator import _dim1_is_channel, sp_shardable
+
+        mesh = self.mesh
+
+        def size(axis):
+            return mesh.size(axis) if mesh is not None else 1
+
+        dp, tp, ep = size("data"), size("model"), size("expert")
+        ap, sp = size("attr"), size("seq")
+        coords = mesh.coords if mesh is not None else {}
         strategies = self._op_strategies or {}
+        stage = (mesh.index("stage") if mesh is not None
+                 and self.executor.pipeline_plan is not None else None)
         for op in order:
             s = strategies.get(op.guid)
-            op_dp = min(s.dp, dp) if s else dp
-            op_tp = min(s.tp, tp) if s else tp
-            shards = {}
-            if op_tp > 1 and op.op_type in TP_CAPABLE:
-                shards = self._assign_tp_weights(op, op_tp)
+
+            def deg(field, axis_size):
+                return min(getattr(s, field), axis_size) if s else axis_size
+
+            op_tp, op_ep = deg("tp", tp), deg("ep", ep)
+            op_ap, op_sp = deg("ap", ap), deg("sp", sp)
+            shards, row = {}, False
+            if op.op_type == OpType.EXPERTS and op_ep > 1:
+                shards = self._assign_shards(op, op_ep, "expert",
+                                             {ws.name: 0 for ws in op.specs})
+            elif op_tp > 1 and op.op_type in TP_CAPABLE:
+                row = bool(s and s.tp_row and op.op_type == OpType.LINEAR)
+                shards = self._assign_tp_weights(op, op_tp, row=row)
             op.set_sharding(shards, coords)
-            op.whole_batch = op_dp < dp
+            op.row_parallel = row and "kernel" in shards
+            op.gather_out = True
+            op.whole_batch = deg("dp", dp) < dp
+            op.seq_local = (op_sp > 1 and sp_shardable(op, op_sp)
+                            and _seq_local_type(op))
+            if op.seq_local and op.op_type == OpType.MULTIHEAD_ATTENTION:
+                op.params["sequence_parallel"] = True
+            op.attr_local = op_ap > 1 and (
+                attr_halo(op, op_ap) is not None
+                if op.op_type in AP_CAPABLE else
+                op.op_type in ATTR_LOCAL and len(op.outputs[0].dims) == 4
+                and op.outputs[0].dims[2] % op_ap == 0
+                and _dim1_is_channel(op))
+            op.held = stage is None or self.executor.stage_of(op) in (
+                None, stage)
+        self._pair_megatron(order)
+
+    def _pair_megatron(self, order: Sequence[Op]) -> None:
+        """Keep a column-parallel linear's output sharded where every
+        consumer is a row-parallel linear of its degree (JAX `model.py:
+        1116-1127`: the producer's output then never gathers)."""
+        consumers: Dict[int, List[Op]] = {}
+        for op in order:
+            for t in op.inputs:
+                consumers.setdefault(t.guid, []).append(op)
+        for op in order:
+            if (op.op_type != OpType.LINEAR or op.row_parallel
+                    or op.tp_degree == 1 or "kernel" not in op.shards
+                    or op.outputs[0] is self.final_tensor):
+                continue
+            users = consumers.get(op.outputs[0].guid, [])
+            if users and all(u.op_type == OpType.LINEAR and u.row_parallel
+                             and u.tp_degree == op.tp_degree
+                             for u in users):
+                op.gather_out = False
 
     @staticmethod
-    def _assign_tp_weights(op: Op, tp: int) -> Dict[str, ParallelTensorShape]:
-        """The parallel shape of each of `op`'s weights that shards over
-        `model` (JAX `_assign_tp_weights`, column-parallel): the dim
-        TP_WEIGHT_SHARD_DIMS names, where tp divides it. A plan's
-        row-parallel (`tp_row`) linears raise at compile (ROADMAP A8)."""
-        shard_dim = TP_WEIGHT_SHARD_DIMS.get(op.op_type, {})
+    def _assign_shards(op: Op, degree: int, axis: str,
+                       shard_dim: Dict[str, int]
+                       ) -> Dict[str, ParallelTensorShape]:
+        """The parallel shape of each of `op`'s weights that `shard_dim`
+        names, sharded on that dim over `axis` where `degree` divides
+        it."""
         out = {}
         for ws in op.specs:
             if ws.name not in shard_dim:
                 continue
             d = shard_dim[ws.name] % len(ws.dims)
-            if ws.dims[d] % tp:
+            if ws.dims[d] % degree:
                 continue
             dims = [ParallelDim(s) for s in ws.dims]
-            dims[d] = ParallelDim(ws.dims[d], tp, "model")
+            dims[d] = ParallelDim(ws.dims[d], degree, axis)
             out[ws.name] = ParallelTensorShape(dims, ws.dtype)
         return out
+
+    @classmethod
+    def _assign_tp_weights(cls, op: Op, tp: int, row: bool = False
+                           ) -> Dict[str, ParallelTensorShape]:
+        """The parallel shape of each of `op`'s weights that shards over
+        `model` (JAX `_assign_tp_weights`): the dim TP_WEIGHT_SHARD_DIMS
+        names (column-parallel), or the kernel's in-dim with the bias
+        whole for a row-parallel linear, where tp divides it."""
+        return cls._assign_shards(
+            op, tp, "model", {"kernel": 0} if row
+            else TP_WEIGHT_SHARD_DIMS.get(op.op_type, {}))
 
     # -- training -----------------------------------------------------------
     def _label_dtype(self) -> DataType:
@@ -1479,15 +1592,39 @@ class FFModel:
 
     # -- tensor values and layer queries (JAX `model.py:1676-1850`) --------
     def _whole_weight(self, op: Op, name: str) -> np.ndarray:
-        """Weight `name` of `op` whole, as f32 numpy (gathered over `model`
-        on a mesh: every rank of the mesh calls it)."""
-        t = op.w(name).detach()
+        """Weight `name` of `op` whole, as f32 numpy (gathered over its
+        shards' axes on a mesh, and from its stage's ranks on a `stage`
+        axis: every rank of the mesh calls it)."""
+        t = op.w(name).detach() if op.held else None
+        return self._whole(op, name, t).float().cpu().numpy()
+
+    def _whole(self, op: Op, name: str, t: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+        """The whole of this rank's piece `t` of `op`'s weight `name` (or
+        of a tree shaped like the weights): gathered over each axis its
+        shards are cut over, and broadcast from the stage that holds it on
+        a `stage` axis (`t` None where this rank holds no piece). Every
+        rank of the mesh calls it."""
+        if self.mesh is None:
+            return t
+        from .runtime.collectives import broadcast_from
+
+        ex = self.executor
+        owner = ex.stage_of(op) if ex is not None else None
         pt = op.shards.get(name)
-        if pt is not None:
-            (d,) = pt.sharded_dims()
-            t = gather_shards(t, d, self.mesh.group("model"),
-                              self.mesh.size("model"))
-        return t.float().cpu().numpy()
+        if t is not None and pt is not None:
+            for d in pt.sharded_dims():
+                axis = pt.dims[d].axis
+                t = gather_shards(t, d, self.mesh.group(axis),
+                                  self.mesh.size(axis))
+        if owner is not None:
+            ws = next(w for w in op.specs if w.name == name)
+            t = (torch.empty(ws.dims, dtype=ws.dtype.torch_dtype,
+                             device=self.device) if t is None
+                 else t.to(ws.dtype.torch_dtype))
+            with torch.no_grad():
+                t = broadcast_from(t, self.mesh, "stage", owner)
+        return t
 
     def _weight_of(self, tensor: Tensor):
         """(op, weight name) of a weight handle with compiled weights;
@@ -1569,30 +1706,28 @@ class FFModel:
         each tensor shares the master's storage, outside autograd. On a
         mesh: this rank's shards (`gather_params` gives the whole)."""
         return {op.name: {ws.name: op.w(ws.name).detach() for ws in op.specs}
-                for op in self.ops if op.specs}
+                for op in self.ops if op.specs and op.held}
 
     def gather_params(self, tree: Optional[Mapping] = None
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
         """The whole of `tree` (default: the weights; or any tree shaped
         like them, such as gradients or moments) on every rank, gathered
-        from the shards over `model`. Every rank of the mesh calls it. On
-        one device it is the tree itself."""
+        from the shards over their axes and, on a `stage` axis, from the
+        stage that holds each op. Every rank of the mesh calls it. On one
+        device it is the tree itself."""
         tree = self.params if tree is None else tree
         if self.mesh is None:
             return {op: dict(ws) for op, ws in tree.items()}
-        group = self.mesh.group("model")
-        size = self.mesh.size("model")
+        ex = self.executor
         out = {}
         for op in self.ops:
-            if op.name not in tree:
+            staged = ex is not None and ex.stage_of(op) is not None
+            if op.name not in tree and not (staged and op.specs):
                 continue
-            out[op.name] = {}
-            for w, t in tree[op.name].items():
-                pt = op.shards.get(w)
-                if pt is not None:
-                    (d,) = pt.sharded_dims()
-                    t = gather_shards(t, d, group, size)
-                out[op.name][w] = t
+            mine = tree.get(op.name, {})
+            names = [ws.name for ws in op.specs] if staged else list(mine)
+            out[op.name] = {w: self._whole(op, w, mine.get(w))
+                            for w in names}
         return out
 
     @property
@@ -1630,6 +1765,28 @@ class FFModel:
         with torch.no_grad():
             for t, val in staged:
                 t.copy_(val)
+
+    def adopt_params_from(self, other: "FFModel") -> None:
+        """Copy a sequentially-compiled model's weights into this one, by
+        op and weight name (JAX `adopt_params_from`, `model.py:1735`):
+        on a mesh each rank keeps its pieces, on a `stage` axis each stage
+        its ops'. `other` must not be pipeline-parallel. The optimizer
+        state is initialized anew for the adopted weights."""
+        if getattr(other.executor, "pipeline_plan", None) is not None:
+            raise ValueError("adopt_params_from needs a sequential source "
+                             "model (the stacked stage tree is not "
+                             "unstacked in this direction)")
+        src = other.gather_params()
+        for op in self.ops:
+            if op.specs and op.name not in src:
+                raise KeyError(
+                    f"adopt_params_from: op {op.name!r} has no counterpart "
+                    "in the source model (same-graph models only)")
+        self.load_params({op.name: src[op.name] for op in self.ops
+                          if op.specs})
+        if self.comp_mode == CompMode.COMP_MODE_TRAINING:
+            self.opt_state = self.optimizer.init_state(
+                self.executor.parameters())
 
     def load_params(self, params: Mapping[str, Mapping[str, object]]) -> None:
         """Load every weight by op name and weight name. The tree must name
@@ -1670,9 +1827,30 @@ def params_from_jax(model: FFModel, params) -> None:
     name -> array, whole or sharded: numpy gathers them) into the port's
     `model`, checking every name and shape; on a mesh each rank keeps its
     shards. The layouts are the same in both packages, so nothing is
-    transposed."""
-    model.load_params({op: {w: np.asarray(v) for w, v in ws.items()}
-                       for op, ws in params.items()})
+    transposed. A pipeline-parallel JAX model's stacked `__pipeline__`
+    tree (JAX `executor.py _init_pipeline_params`: key seg{j}_op{r}_{name}
+    of the stage-0 template op, leading dim the stage) is unstacked into
+    the ops of every stage."""
+    tree = {op: {w: np.asarray(v) for w, v in ws.items()}
+            for op, ws in params.items() if op != "__pipeline__"}
+    stacked = params.get("__pipeline__") or {}
+    if stacked:
+        from .parallel.pipeline_plan import find_pipeline_plan
+
+        plan = getattr(model.executor, "pipeline_plan", None)
+        if plan is None:
+            leaf = next(iter(next(iter(stacked.values())).values()))
+            plan = find_pipeline_plan(model.graph, np.asarray(leaf).shape[0])
+        k = plan.segs_per_stage
+        for j in range(k):
+            for r, template in enumerate(plan.segments[j]):
+                entry = stacked.get(f"seg{j}_op{r}_{template.name}")
+                for w, stack in (entry or {}).items():
+                    stack = np.asarray(stack)
+                    for st in range(plan.n_stages):
+                        op_s = plan.segments[st * k + j][r]
+                        tree.setdefault(op_s.name, {})[w] = stack[st]
+    model.load_params(tree)
 
 
 def opt_state_from_jax(model: FFModel, opt_state) -> None:

@@ -1,7 +1,8 @@
 """Model builders of the port (counterpart of flexflow_tpu/models): each
 builds its family through the FFModel layer API, with the JAX builder's
-graph, op names and defaults. The pipeline transformer is not ported
-yet: reading one of its names raises."""
+graph, op names and defaults. The pipeline transformer is the submodule
+`pipeline_transformer`, as in the JAX package (its names are reached
+through the package too)."""
 from .alexnet import build_alexnet
 from .candle_uno import CandleUnoConfig, build_candle_uno
 from .cnn import build_cifar10_cnn, build_mnist_cnn, build_mnist_mlp
@@ -17,16 +18,16 @@ from .transformer import (TransformerConfig, build_bert_encoder,
                           build_transformer)
 from .xdl import XDLConfig, build_xdl
 
-_NOT_PORTED = dict.fromkeys(
-    ("pipeline_transformer", "init_pipeline_params", "pipeline_forward",
-     "sequential_forward", "make_train_step"), "A8")
+_PIPELINE = ("init_pipeline_params", "pipeline_forward",
+             "sequential_forward", "make_train_step", "stage_slice")
 
 
 def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"flexflow_tpu_torch.models.{name} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[name]})")
+    if name == "pipeline_transformer" or name in _PIPELINE:
+        import importlib
+
+        mod = importlib.import_module(f"{__name__}.pipeline_transformer")
+        return mod if name == "pipeline_transformer" else getattr(mod, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -18,7 +18,24 @@ projections, f32 logits times the scale, the causal mask
 tril(ones(lq, lk), lk - lq) with -1e30, an f32 softmax, the context
 product in the compute dtype, under autograd. Either way the context goes
 through wo, is cast to the output's boundary dtype, and bo is added in
-that dtype. Sequence parallelism is not ported and raises.
+that dtype.
+
+Sequence parallelism (the JAX package's `ops/attention.py:97-99,
+205-232`): on a mesh with a `seq` axis an op the plan cuts over it
+(FFModel._assign_strategy, which sets `sequence_parallel` as JAX's
+does; `Op.seq_local`) takes its q, k and v inputs cut on the positions
+(runtime/executor.py) and projects them head-separated, (b, l/s, h, d).
+`sequence_parallel_mode` "ring" (the default) runs
+kernels/ring_attention.py, "ulysses" or "all_to_all"
+kernels/ulysses_attention.py, whose local core is the flash kernel
+where `_use_flash` chooses it; any other mode raises ValueError. The
+context goes through wo and bo as above; with a `model` axis too, the
+heads are this rank's and the output is summed over the model group.
+Iteration truncation does not apply under it, as in JAX.
+`sequence_parallel=True` with dropout raises ValueError at build, as in
+JAX; the plan keeps attention with dropout > 0 unsharded over `seq`
+(JAX `model.py:1051-1058`), and so do the ops whose positions do not
+divide over it.
 
 Attention-probability dropout (the JAX package's `ops/attention.py:
 258-278`): a training walk with `dropout > 0` takes the einsum core
@@ -33,6 +50,10 @@ beside them. Inference, and dropout 0, take the path the op takes
 without dropout (the flash kernel on the card). `use_flash=True` with
 dropout raises, as in JAX. kdim != vdim also takes the einsum core (the
 kernels take one head dim), in decoding the einsum decode chain.
+
+A training walk's dropout mask is drawn at the op's whole shape (the
+global batch, every head) and cut to this rank's slice of the batch and
+heads, so a mesh run draws what the one-device run draws.
 
 On a mesh whose `model` axis is larger than 1 (`tp > 1`, the JAX
 package's `ops/attention.py:143-146`) the packed path is off: the heads
@@ -99,10 +120,12 @@ from ..kernels.decode import decode_attention, multiquery_decode_attention
 from ..kernels.flash_attention import (flash_attention, flash_attention_heads,
                                        flash_fits)
 from ..kernels.registry import KERNELS, flash_crossover
+from ..kernels.ring_attention import ring_attention
+from ..kernels.ulysses_attention import check_ulysses, ulysses_attention
 from ..runtime.collectives import enter_tp, reduce_sum
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
-from .common import emit_dtype, matmul_dtype, no_data_axis
-from .norm import apply_dropout, dropout_keep
+from .common import emit_dtype, matmul_dtype
+from .norm import apply_dropout, dropout_keep, global_keep
 
 # score of a masked key, as the JAX package's einsum core and kernels
 NEG_INF = -1e30
@@ -133,10 +156,12 @@ class MultiHeadAttentionOp(Op):
                 raise ValueError(
                     "use_flash=True requires kdim == vdim (one head_dim in "
                     "the kernel); got kdim={} vdim={}".format(kdim, vdim))
-        if self.params.get("sequence_parallel"):
-            raise NotImplementedError(
-                f"{self.name}: sequence-parallel attention (ring / Ulysses) "
-                "is not ported yet (ROADMAP A8); the port runs one device")
+        if self.params.get("sequence_parallel") \
+                and self.params.get("dropout", 0.0) > 0:
+            # the sequence-parallel kernels have no attention-prob dropout
+            raise ValueError(
+                "sequence_parallel attention does not support attention-prob "
+                "dropout; set dropout=0 or sequence_parallel=False")
         return [q.dims[:-1] + (embed,)], [q.dtype]
 
     def weight_specs(self) -> List[WeightSpec]:
@@ -181,6 +206,8 @@ class MultiHeadAttentionOp(Op):
             q_in, k_in, v_in = inputs[:3]
             full = q_in.shape[1]
             trunc = ctx.iter_seq_length
+            if self._seq_parallel(ctx):  # no truncation under it (JAX)
+                return [self._head_separated(ctx, q_in, k_in, v_in)]
             if trunc is None or trunc >= full:
                 return [self._full_sequence(ctx, q_in, k_in, v_in)]
             # iteration truncation (JAX `ops/attention.py:89-109, 302-303`):
@@ -249,7 +276,7 @@ class MultiHeadAttentionOp(Op):
                 f"{self.name}: KV-cache prefill on a mesh (sharded "
                 "serving) is not ported yet (ROADMAP A8)")
         if ctx.mesh is not None and ctx.mesh.size("model") > 1:
-            return self._tensor_parallel(ctx, q_in, k_in, v_in)
+            return self._head_separated(ctx, q_in, k_in, v_in)
         _, _, _, embed, _, kdim, vdim = self._dims()
         cdt = matmul_dtype(ctx.config, q_in.dtype)
         q = self._project(q_in, "wq", "bq", cdt)
@@ -269,8 +296,6 @@ class MultiHeadAttentionOp(Op):
         scale = 1.0 / math.sqrt(kdim)
         causal = self.params.get("causal", False)
         rate = self._dropout(ctx)
-        if rate:
-            no_data_axis(ctx, f"{self.name}: attention dropout masks")
         if self._use_flash(ctx, q_in.device) and not rate and kdim == vdim:
             ctxv = flash_attention(
                 q.flatten(2), k.flatten(2), v.flatten(2), heads, scale=scale,
@@ -278,7 +303,8 @@ class MultiHeadAttentionOp(Op):
                 block_k=ctx.config.flash_block_k)
         else:
             ctxv = self._einsum_core(q, k, v, scale, causal, cdt, rate,
-                                     ctx.generator).flatten(2)
+                                     keep=self._keep(ctx, q, k, rate)
+                                     ).flatten(2)
         odt = emit_dtype(ctx.config, self.outputs[0].dtype)
         out = torch.matmul(ctxv.to(cdt),
                            self.w("wo", cdt).reshape(heads * vdim, embed))
@@ -287,16 +313,14 @@ class MultiHeadAttentionOp(Op):
             out = out + self.w("bo", odt)
         return out
 
-    def _tensor_parallel(self, ctx, q_in, k_in, v_in):
-        """This rank's heads (JAX `ops/attention.py:160-175, 245-288`):
-        head-separated projections, the head-separated flash kernel or
-        the einsum core, the local part of `wo`, then the sum over the
-        model group and bo."""
+    def _head_separated(self, ctx, q_in, k_in, v_in):
+        """This rank's heads (JAX `ops/attention.py:160-175, 205-288`):
+        head-separated projections; on a `seq` axis ring or Ulysses
+        attention over this rank's positions, else the head-separated
+        flash kernel or the einsum core; the local part of `wo`, then the
+        sum over the model group and bo."""
         _, _, _, embed, _, kdim, vdim = self._dims()
-        if self._dropout(ctx):
-            raise NotImplementedError(
-                f"{self.name}: attention dropout on a model-parallel mesh is "
-                "not ported yet (ROADMAP A8)")
+        rate = self._dropout(ctx)
         if self.tp_degree > 1:
             group = ctx.mesh.group("model")
             entered = {}
@@ -310,13 +334,18 @@ class MultiHeadAttentionOp(Op):
         v = self._project(v_in, "wv", "bv", cdt)
         scale = 1.0 / math.sqrt(kdim)
         causal = self.params.get("causal", False)
-        if self._use_flash(ctx, q_in.device) and kdim == vdim:
+        if self._seq_parallel(ctx):
+            ctxv = self._sp_core(ctx, q, k, v, scale, causal,
+                                 kdim == vdim)
+        elif self._use_flash(ctx, q_in.device) and not rate \
+                and kdim == vdim:
             ctxv = flash_attention_heads(
                 q, k, v, scale=scale, causal=causal,
                 block_q=ctx.config.flash_block_q,
                 block_k=ctx.config.flash_block_k, layout="blhd")
         else:
-            ctxv = self._einsum_core(q, k, v, scale, causal, cdt)
+            ctxv = self._einsum_core(q, k, v, scale, causal, cdt, rate,
+                                     keep=self._keep(ctx, q, k, rate))
         local = ctxv.shape[2] * vdim
         out = torch.matmul(ctxv.to(cdt).reshape(*ctxv.shape[:2], local),
                            self.w("wo", cdt).reshape(local, embed))
@@ -327,6 +356,58 @@ class MultiHeadAttentionOp(Op):
         if self.has_weight("bo"):
             out = out + self.w("bo", odt)
         return out
+
+    def _keep(self, ctx, q, k, rate):
+        """The walk's dropout keep mask for this rank's (b, h, lq, lk)
+        probabilities: drawn at the op's whole (B, H, Lq, Lk) shape from
+        the walk's generator, then cut to this rank's batch rows (when the
+        walk's inputs are cut over `data`) and heads (over `model`); None
+        at rate 0."""
+        if not rate:
+            return None
+        cuts = {0: "data"} if ctx.in_cuts and "data" in ctx.in_cuts[0] \
+            else {}
+        if self.tp_degree > 1:
+            cuts[1] = "model"
+        return global_keep(ctx, (q.shape[0], q.shape[2], q.shape[1],
+                                 k.shape[1]), rate, cuts, q.device)
+
+    def _sp_core(self, ctx, q, k, v, scale, causal, same_dims):
+        """Attention over the whole sequence from this rank's (b, l/s, h,
+        d) blocks, by `sequence_parallel_mode` (JAX `ops/attention.py:
+        205-232`)."""
+        mode = self.params.get("sequence_parallel_mode", "ring")
+        if mode in ("ulysses", "all_to_all"):
+            return ulysses_attention(
+                q, k, v, ctx.mesh, "seq", causal=causal, scale=scale,
+                use_flash=self._use_flash(ctx, q.device) and same_dims,
+                block_q=ctx.config.flash_block_q,
+                block_k=ctx.config.flash_block_k)
+        if mode == "ring":
+            return ring_attention(q, k, v, ctx.mesh, "seq", causal=causal,
+                                  scale=scale)
+        raise ValueError(f"unknown sequence_parallel_mode {mode!r}: "
+                         "expected 'ring' or 'ulysses'")
+
+    def _seq_parallel(self, ctx) -> bool:
+        """Whether this walk runs the sequence-parallel kernels: the op is
+        cut over a `seq` axis (`Op.seq_local`). An op asked for them
+        (`sequence_parallel`) whose positions do not divide over the axis
+        raises, as the JAX kernels do."""
+        if ctx.mesh is None or ctx.mesh.size("seq") == 1:
+            return False
+        if self.seq_local:
+            return True
+        if self.params.get("sequence_parallel"):
+            sp = ctx.mesh.size("seq")
+            if self.params.get("sequence_parallel_mode") in (
+                    "ulysses", "all_to_all"):
+                check_ulysses(self.params["num_heads"],
+                              self.inputs[0].dims[1], sp)
+            raise ValueError(
+                f"sequence length {self.inputs[0].dims[1]} not divisible by "
+                f"'seq' axis size {sp}")
+        return False
 
     @staticmethod
     def _einsum_core(q, k, v, scale, causal, cdt, rate=0.0, generator=None,

@@ -22,26 +22,6 @@ def apply_activation(x, activation: ActiMode):
     raise ValueError(f"unknown activation {activation}")
 
 
-def no_data_axis(ctx, what: str) -> None:
-    """Raise for a walk on a mesh with a `data` axis: `what` (batch
-    statistics, dropout masks) would be per rank, where the JAX package
-    computes it over the global batch."""
-    if ctx.mesh is not None and ctx.mesh.size("data") > 1:
-        raise NotImplementedError(
-            f"{what} on a data-parallel mesh is not ported yet (ROADMAP "
-            "A8)")
-
-
-def no_mesh(ctx, what: str) -> None:
-    """Raise for a walk on any mesh: `what` (the MoE dispatch) sizes its
-    capacity from the global batch in the JAX package, which a per-rank
-    walk does not see, and the expert axis is not ported."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh is not ported yet (ROADMAP A8: the expert "
-            "axis)")
-
-
 def matmul_dtype(config, dtype: torch.dtype) -> torch.dtype:
     """bfloat16 matmul inputs (f32 accumulation) when mixed precision is
     on and the value is f32."""

@@ -26,9 +26,25 @@ op state (core/op.py), in place: (1 - m) * running + m * batch, m = 0.1,
 the biased variance in both places (`F.batch_norm(training=True)` would
 update with the unbiased one, so it is not used). Inference reads the
 running statistics.
+
+On a mesh with an `attr` axis (JAX `model.py:1094-1101`, where GSPMD
+inserts the exchanges) a convolution or pool the plan cuts over it
+(`Op.attr_local`, FFModel._assign_strategy) computes this rank's H/ap
+output rows from the input rows its windows need: its own H/ap input
+rows (runtime/executor.py) and a halo of the neighbours' edge rows
+(runtime/collectives.py `halo`: `padding_h` rows before, kernel_h -
+stride_h - padding_h after, from the kernel, stride and padding), with
+the padding value (0, or -inf for a max pool) past the image's edges, so
+H is never gathered whole; from a whole input it slices those rows
+itself. The op then runs with no H padding. Batch norm's statistics are
+the global batch's, as JAX computes under GSPMD: the sums are all-reduced
+over `data` where the batch is cut and over `attr` where H is
+(collectives `psum`, whose backward sums the gradients too), two passes
+as on one device.
 """
 from __future__ import annotations
 
+import math
 from typing import List
 
 import numpy as np
@@ -37,9 +53,10 @@ import torch.nn.functional as F
 
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import ActiMode, CompMode, OpType, PoolType
+from ..runtime.collectives import halo, psum
 from ..runtime.initializers import (ConstantInitializer, DefaultInitializer,
                                     ZeroInitializer)
-from .common import apply_activation, emit_dtype, matmul_dtype, no_data_axis
+from .common import apply_activation, emit_dtype, matmul_dtype
 
 
 def _out_size(size, pad, kernel, stride):
@@ -56,6 +73,41 @@ def _cudnn_flags(dtype: torch.dtype):
                        benchmark_limit=None, deterministic=True,
                        allow_tf32=cudnn.allow_tf32
                        and dtype != torch.float32)
+
+
+def attr_halo(op: Op, ap: int):
+    """(before, after) input rows around a rank's H / ap rows that its
+    H_out / ap output rows need (`after` < 0: fewer than its own), or None
+    where the op's rows do not cut evenly over `ap` ranks: H_out and H
+    must divide, H must be stride_h x H_out (every rank's window then
+    starts padding_h rows before its own first row), and each halo must
+    fit in a neighbour's rows."""
+    h_in, h_out = op.inputs[0].dims[2], op.outputs[0].dims[2]
+    p = op.params
+    k, st, pad = p["kernel_h"], p["stride_h"], p["padding_h"]
+    if h_out % ap or h_in % ap or h_in != st * h_out:
+        return None
+    before, after = pad, k - st - pad
+    if max(before, after) > h_in // ap:
+        return None
+    return before, after
+
+
+def _attr_rows(op: Op, ctx, x: torch.Tensor, fill: float) -> torch.Tensor:
+    """The input rows this rank's output rows read (see the module
+    docstring), the H padding in place."""
+    mesh = ctx.mesh
+    before, after = attr_halo(op, mesh.size("attr"))
+    if "attr" in ctx.in_cuts[0]:
+        slab = halo(x, mesh, "attr", 2, before, max(after, 0), fill)
+        return slab if after >= 0 else slab.narrow(2, 0,
+                                                   slab.shape[2] + after)
+    h = x.shape[2] // mesh.size("attr")
+    lo = mesh.index("attr") * h - before
+    hi = lo + before + h + after
+    slab = x[:, :, max(lo, 0):min(hi, x.shape[2])]
+    return F.pad(slab, (0, 0, max(-lo, 0), max(hi - x.shape[2], 0)),
+                 value=fill)
 
 
 class _Conv2d(torch.autograd.Function):
@@ -113,10 +165,12 @@ class Conv2DOp(Op):
         x = inputs[0]
         p = self.params
         cdt = matmul_dtype(ctx.config, x.dtype)
+        pad_h = p["padding_h"]
+        if self.attr_local:
+            x, pad_h = _attr_rows(self, ctx, x, 0.0), 0
         y = _Conv2d.apply(x.to(cdt), self.w("kernel", cdt),
                           (p["stride_h"], p["stride_w"]),
-                          (p["padding_h"], p["padding_w"]),
-                          p.get("groups", 1))
+                          (pad_h, p["padding_w"]), p.get("groups", 1))
         y = y.to(emit_dtype(ctx.config, self.outputs[0].dtype))
         if self.has_weight("bias"):
             y = y + self.w("bias", y.dtype)[None, :, None, None]
@@ -148,7 +202,11 @@ class Pool2DOp(Op):
         window = (p["kernel_h"], p["kernel_w"])
         stride = (p["stride_h"], p["stride_w"])
         pad = (p["padding_h"], p["padding_w"])
-        if p.get("pool_type", PoolType.POOL_MAX) == PoolType.POOL_MAX:
+        is_max = p.get("pool_type", PoolType.POOL_MAX) == PoolType.POOL_MAX
+        if self.attr_local:
+            x = _attr_rows(self, ctx, x, -math.inf if is_max else 0.0)
+            pad = (0, p["padding_w"])
+        if is_max:
             y = F.max_pool2d(x, window, stride, pad)
         else:
             y = F.avg_pool2d(x, window, stride, pad, count_include_pad=True)
@@ -199,10 +257,26 @@ class BatchNormOp(Op):
         xf = x.float()
         rm, rv = self.running_mean, self.running_var
         if ctx.mode == CompMode.COMP_MODE_TRAINING:
-            no_data_axis(ctx, f"{self.name}: batch statistics")
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.square(xf - mean[None, :, None, None]).mean(
-                dim=(0, 2, 3))
+            groups = [ctx.mesh.group(a) for a in ("data", "attr")
+                      if ctx.in_cuts and a in ctx.in_cuts[0]]
+            if groups:  # the global batch's (the module docstring)
+                n = xf.numel() // xf.shape[1]
+                for a in ("data", "attr"):
+                    if a in ctx.in_cuts[0]:
+                        n *= ctx.mesh.size(a)
+                mean = xf.sum(dim=(0, 2, 3))
+                for g in groups:
+                    mean = psum(mean, g)
+                mean = mean / n
+                var = torch.square(xf - mean[None, :, None, None]).sum(
+                    dim=(0, 2, 3))
+                for g in groups:
+                    var = psum(var, g)
+                var = var / n
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.square(xf - mean[None, :, None, None]).mean(
+                    dim=(0, 2, 3))
             if self.writes_state(ctx):
                 with torch.no_grad():
                     rm.copy_(((1 - m) * rm + m * mean).to(rm.dtype))

@@ -65,6 +65,11 @@ class _Binary(Op):
         return [_BINARY_FNS[self.op_type](inputs[0], inputs[1])]
 
 
+# the op types that compute each element alone (runtime/executor.py runs
+# them on a rank's slice of a value cut over `seq` or `attr`)
+POINTWISE_TYPES = frozenset((*_UNARY_FNS, *_SCALAR_FNS, *_BINARY_FNS,
+                             OpType.CAST))
+
 for _t in (*_UNARY_FNS, *_SCALAR_FNS):
     register_op(type(f"Unary_{_t.value}", (_Unary,), {"op_type": _t}))
 for _t in _BINARY_FNS:

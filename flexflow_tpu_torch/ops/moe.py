@@ -33,9 +33,23 @@ Router state (ExpertsOp `dropped`, `load`) and the cache's (`cached`,
 `score`) are op buffers (core/op.py `Op.writes_state`): a training walk
 and a walk handed `model.state` write them; eval and predict read them
 and write none; the serving walks, handed only KV caches, neither read
-nor write them. On a mesh the ops raise (ROADMAP A8): capacity is sized from the
-global batch in the JAX package, which a per-rank dispatch would not
-see.
+nor write them.
+
+On a mesh (JAX `ops/moe.py:9-12, 54-60`, the expert block under GSPMD):
+capacity, and each assignment's position in its expert, come from the
+global batch. Where a walk's inputs are cut over `data`, the ops gather
+the tokens, the gate's weights and assignments (and the full gate) over
+`data` first (runtime/collectives.py `gather_dim`, whose backward sums
+the ranks' gradients of each rank's rows), so every slot is the
+one-device slot; GroupBy's buffers are then whole on every rank, and
+Aggregate's and ExpertsOp's outputs are cut back to the rank's rows. On
+an `expert` axis of ep ranks the stacked kernel and bias are sharded on
+dim 0 (FFModel._assign_strategy): each rank runs its n / ep experts on
+their buffers, combines their share of every token's output, and the
+shares are summed over the expert group (`reduce_sum`); the tokens and
+gate weights enter through `enter_tp`, which sums their gradients over
+the group. The load-balance loss, `dropped` and `load` are the global
+ones, and every rank holds the same router state.
 """
 from __future__ import annotations
 
@@ -46,8 +60,20 @@ import torch
 
 from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import ActiMode, DataType, OpType
+from ..runtime.collectives import cut_dim, enter_tp, gather_dim, reduce_sum
 from ..runtime.initializers import DefaultInitializer, ZeroInitializer
-from .common import apply_activation, emit_dtype, matmul_dtype, no_mesh
+from .common import apply_activation, emit_dtype, matmul_dtype
+
+
+def _data_cut(ctx, i: int = 0) -> bool:
+    """Whether input i of the op being lowered is cut over `data`."""
+    return (ctx.mesh is not None and len(ctx.in_cuts) > i
+            and "data" in ctx.in_cuts[i])
+
+
+def _whole(ctx, t: torch.Tensor, i: int) -> torch.Tensor:
+    """Input i whole over `data` (gathered where it is cut)."""
+    return gather_dim(t, ctx.mesh, "data", 0) if _data_cut(ctx, i) else t
 
 
 def moe_capacity(batch: int, k: int, n: int, alpha: float) -> int:
@@ -201,6 +227,7 @@ class GroupByOp(Op):
     F)."""
 
     op_type = OpType.GROUP_BY
+    gathers_data = True
 
     def output_shapes(self):
         x, assign = self.inputs
@@ -210,8 +237,7 @@ class GroupByOp(Op):
         return [(cap, x.dims[1])] * n, [x.dtype] * n
 
     def lower(self, ctx, inputs):
-        no_mesh(ctx, f"{self.name}: the MoE dispatch")
-        x, assign = inputs
+        x, assign = (_whole(ctx, t, i) for i, t in enumerate(inputs))
         n = self.params["n"]
         cap = moe_capacity(x.shape[0], assign.shape[1], n,
                            self.params.get("alpha", 1.0))
@@ -233,7 +259,9 @@ class AggregateOp(Op):
         return [(self.inputs[0].dims[0], exp0.dims[1])], [exp0.dtype]
 
     def lower(self, ctx, inputs):
-        no_mesh(ctx, f"{self.name}: the MoE combine")
+        cut = _data_cut(ctx)
+        inputs = [_whole(ctx, t, i) if i < 4 else t
+                  for i, t in enumerate(inputs)]
         gate_preds, gate_assign = inputs[0], inputs[1]
         n = self.params["n"]
         exp_preds = inputs[4:4 + n]
@@ -243,7 +271,8 @@ class AggregateOp(Op):
             ctx.aux_losses.append(
                 load_balance_loss(inputs[3], plan, lambda_bal))
         out = combine(torch.stack(exp_preds), gate_preds, plan)
-        return [out.to(exp_preds[0].dtype)]
+        out = out.to(exp_preds[0].dtype)
+        return [cut_dim(out, ctx.mesh, "data", 0) if cut else out]
 
 
 @register_op
@@ -293,7 +322,8 @@ class ExpertsOp(Op):
                            ZeroInitializer())]
 
     def lower(self, ctx, inputs):
-        no_mesh(ctx, f"{self.name}: the MoE dispatch")
+        cut = _data_cut(ctx)
+        inputs = [_whole(ctx, t, i) for i, t in enumerate(inputs)]
         x, gate_preds, assign = inputs[:3]
         n = self.params["n"]
         lead = x.shape[:-1]
@@ -317,14 +347,27 @@ class ExpertsOp(Op):
                 self.dropped.add_(plan.dropped())
                 self.load.copy_(plan.load())
         cdt = matmul_dtype(ctx.config, torch.float32)
+        local = self._parameters["kernel"].shape[0]
+        group = ctx.mesh.group("expert") if local < n else None
+        if group is not None:  # this rank's experts (the module docstring)
+            x, gate_preds = enter_tp(x, group), enter_tp(gate_preds, group)
         buf = dispatch(x.to(cdt), plan)
+        if group is not None:
+            first = ctx.mesh.index("expert") * local
+            buf = buf[first:first + local]
         h = torch.matmul(buf, self.w("kernel", cdt)).float() \
             + self.w("bias", torch.float32)[:, None, :]
         h = apply_activation(h, self.params.get(
             "activation", ActiMode.AC_MODE_RELU)).to(cdt)
+        if group is not None:  # the other experts' slots combine to 0
+            h = torch.cat([h.new_zeros((first,) + h.shape[1:]), h,
+                           h.new_zeros((n - first - local,) + h.shape[1:])])
         out = combine(h, gate_preds.to(cdt), plan)
+        if group is not None:
+            out = reduce_sum(out, group)
         out = out.to(emit_dtype(ctx.config, self.outputs[0].dtype))
-        return [out.view(*lead, out.shape[-1])]
+        out = out.view(*lead, out.shape[-1])
+        return [cut_dim(out, ctx.mesh, "data", 0) if cut else out]
 
     def ffn_flops(self) -> float:
         """The forward FLOPs the port performs: the batched expert FFN

@@ -20,8 +20,8 @@ from ..core.op import Op, WeightSpec, register_op
 from ..ffconst import CompMode, OpType
 from ..kernels.norm import layernorm, rmsnorm, softmax
 from ..kernels.registry import KERNELS
+from ..runtime.collectives import CUT_DIMS
 from ..runtime.initializers import ConstantInitializer, ZeroInitializer
-from .common import no_data_axis
 
 
 def _trailing_axis_only(op: Op, axes) -> bool:
@@ -137,6 +137,26 @@ def dropout_keep(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     return u < 1.0 - rate
 
 
+def global_keep(ctx, local_shape, rate: float, cuts, device
+                ) -> torch.Tensor:
+    """The keep mask of this rank's slice of a value of `local_shape`,
+    cut along dim d over axis a for each (d, a) of `cuts`: drawn at the
+    whole shape from the walk's generator (the same draw on every rank,
+    and the one-device run's), then cut to this rank's slice."""
+    mesh = ctx.mesh
+    live = {d: a for d, a in cuts.items()
+            if mesh is not None and mesh.size(a) > 1}
+    shape = list(local_shape)
+    for d, a in live.items():
+        shape[d] *= mesh.size(a)
+    keep = torch.rand(shape, generator=ctx.generator, device=device) \
+        < 1.0 - rate
+    for d, a in live.items():
+        n = local_shape[d]
+        keep = keep.narrow(d, mesh.index(a) * n, n)
+    return keep
+
+
 def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float):
     """where(keep, x / (1 - rate), 0) in x's dtype (JAX `DropoutOp`)."""
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
@@ -147,7 +167,8 @@ class DropoutOp(Op):
     """Inverted dropout: the identity outside training and at rate 0;
     in training each element is kept with probability 1 - rate and scaled
     by 1 / (1 - rate), the mask drawn from the walk's generator
-    (runtime/executor.py)."""
+    (runtime/executor.py) at the value's whole shape and cut to this
+    rank's slice on a mesh (`global_keep`)."""
 
     op_type = OpType.DROPOUT
 
@@ -159,5 +180,7 @@ class DropoutOp(Op):
         rate = self.params.get("rate", 0.5)
         if ctx.mode != CompMode.COMP_MODE_TRAINING or rate <= 0.0:
             return [x]
-        no_data_axis(ctx, f"{self.name}: dropout masks")
-        return [apply_dropout(x, dropout_keep(x, rate, ctx.generator), rate)]
+        cuts = ctx.in_cuts[0] if ctx.in_cuts else ()
+        keep = global_keep(ctx, x.shape, rate,
+                           {CUT_DIMS[a]: a for a in cuts}, x.device)
+        return [apply_dropout(x, keep, rate)]

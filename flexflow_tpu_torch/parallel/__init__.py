@@ -1,0 +1,2 @@
+"""Parallel planning of the port (counterpart of flexflow_tpu/parallel):
+the pipeline planner (`pipeline_plan`)."""

@@ -27,6 +27,36 @@ the data-axis mean like every other: the same numbers as the plan's
 GSPMD backward in the JAX package, which gathers the output gradient
 instead and leaves those weights out of the mean.
 
+The other mesh axes (core/machine.py) cut an activation dim instead:
+`seq` the positions, `attr` the H of NCHW values. Over `data`, `seq`
+and `attr` each rank's gradients are averaged after the backward (the
+executor), so a collective between the ranks of those axes must give in
+its backward the sum, over the ranks, of what each rank's loss
+contributes: the transpose of the forward. These are:
+
+ - `gather_dim`: all-gather along any dim forward, reduce-scatter
+   backward (each rank sums the ranks' gradients of its own slice);
+   `cut_dim` is its local inverse (a slice);
+ - `ppermute`: a ring shift over an axis group (coordinate i's tensor
+   goes to i + shift), the opposite shift backward (ring attention's
+   K/V rotation, the pipeline's activation hop);
+ - `all_to_all`: the tiled all-to-all (split one dim into the group's
+   chunks, chunk j to coordinate j, the received chunks concatenated
+   along another dim), the opposite all-to-all backward (Ulysses);
+ - `halo`: the neighbours' edge rows along one dim (the previous
+   coordinate's last rows before, the next's first rows after, a fill
+   value past either end of the axis), backward the halo rows'
+   gradients sent back and added to their owners' rows (attr
+   convolutions and pools);
+ - `psum`: all-reduce forward and backward (batch statistics over the
+   global batch).
+
+Over `expert` and `stage` the loss is the same on every rank and the
+gradients are not averaged, as over `model`: the expert combine is a
+`reduce_sum` and its inputs enter through `enter_tp`; the pipeline's
+last stage hands its outputs to every stage by `broadcast_from`, whose
+backward keeps the gradient on the source alone.
+
 Under gloo a CUDA tensor is staged through host memory explicitly
 (runtime/distributed.py decides when): copied to the host, reduced or
 gathered there, and copied back. That is the transport of ranks that
@@ -44,6 +74,9 @@ import torch
 import torch.distributed as dist
 
 from . import distributed
+
+# the dim each activation-cutting mesh axis cuts (runtime/executor.py)
+CUT_DIMS = {"data": 0, "seq": 1, "attr": 2}
 
 # host-staged collectives since the last reset: device -> host copies and
 # the bytes they moved (each copy back moves as many again)
@@ -214,6 +247,221 @@ def mean_(tensors: Sequence[torch.Tensor], group, size: int) -> None:
             n = t.numel()
             t.copy_(flat[at:at + n].view_as(t))
             at += n
+
+
+def _staged_src(t: torch.Tensor):
+    """(the tensor to send, staged): a host copy of a CUDA tensor under
+    gloo (counted in STAGED), else t itself, contiguous."""
+    staged = t.is_cuda and distributed.host_staging()
+    return (_to_host(t.contiguous()) if staged
+            else t.detach().contiguous()), staged
+
+
+def _ppermute_raw(t: torch.Tensor, ranks: Sequence[int], index: int,
+                  shift: int, group) -> torch.Tensor:
+    """The tensor coordinate (index - shift) sends when every coordinate
+    i sends `t` to (i + shift) mod n (`ranks`: the group's global ranks
+    in coordinate order)."""
+    n = len(ranks)
+    src, staged = _staged_src(t)
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, ranks[(index + shift) % n], group),
+           dist.P2POp(dist.irecv, out, ranks[(index - shift) % n], group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(t.device) if staged else out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, index, shift, group):
+        ctx.conf = (ranks, index, shift, group)
+        return _ppermute_raw(x, ranks, index, shift, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        ranks, index, shift, group = ctx.conf
+        return _ppermute_raw(g, ranks, index, -shift, group), None, None, \
+            None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1):
+    """The ring shift of `x` over `mesh`'s `axis` group: what coordinate
+    (i - shift) mod n holds; backward, the opposite shift."""
+    return _PPermute.apply(x, mesh.group_ranks[axis], mesh.index(axis),
+                           shift, mesh.group(axis))
+
+
+def _all_to_all_raw(t: torch.Tensor, ranks: Sequence[int], index: int,
+                    split: int, concat: int, group) -> torch.Tensor:
+    """The tiled all-to-all as point-to-point sends and receives (gloo
+    has no list all-to-all in every torch build): chunk j of `t` along
+    `split` to coordinate j, the chunks received concatenated along
+    `concat` in coordinate order (this rank's own chunk kept)."""
+    n = len(ranks)
+    src, staged = _staged_src(t)
+    ins = [c.contiguous() for c in src.chunk(n, dim=split)]
+    outs = [ins[j] if j == index else torch.empty_like(ins[j])
+            for j in range(n)]
+    ops = []
+    for j in range(n):
+        if j != index:
+            ops.append(dist.P2POp(dist.isend, ins[j], ranks[j], group))
+            ops.append(dist.P2POp(dist.irecv, outs[j], ranks[j], group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    out = torch.cat(outs, dim=concat)
+    return out.to(t.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ranks, index, split, concat, group):
+        ctx.conf = (ranks, index, split, concat, group)
+        return _all_to_all_raw(x, ranks, index, split, concat, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        ranks, index, split, concat, group = ctx.conf
+        return _all_to_all_raw(g, ranks, index, concat, split, group), \
+            None, None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split: int, concat: int):
+    """The tiled all-to-all over `axis` (JAX `lax.all_to_all(...,
+    tiled=True)`): dim `split` cut into the group's n chunks, chunk j to
+    coordinate j, the n chunks received concatenated along `concat` in
+    coordinate order; backward, the opposite all-to-all."""
+    return _AllToAll.apply(x, mesh.group_ranks[axis], mesh.index(axis),
+                           split, concat, mesh.group(axis))
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ranks, index, group):
+        ctx.conf = (dim, ranks, index, group)
+        moved = x.detach().movedim(dim, -1)
+        return all_gather_last(moved, group, len(ranks)).movedim(-1, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, ranks, index, group = ctx.conf
+        parts = _all_to_all_raw(g, ranks, index, dim, 0, group).chunk(
+            len(ranks), dim=0)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out, None, None, None, None
+
+
+def gather_dim(x: torch.Tensor, mesh, axis: str, dim: int):
+    """The whole of a value cut along `dim` over `axis` (the ranks' equal
+    slices in coordinate order); backward, the sum over the ranks of the
+    gradients of this rank's slice (a reduce-scatter)."""
+    return _GatherDim.apply(x, dim % x.dim(), mesh.group_ranks[axis],
+                            mesh.index(axis), mesh.group(axis))
+
+
+def cut_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's slice along `dim` of a value whole over `axis`."""
+    n = mesh.size(axis)
+    m = x.shape[dim] // n
+    return x.narrow(dim, mesh.index(axis) * m, m)
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, before, after, fill, ranks, index, group):
+        n, rows = len(ranks), x.shape[dim]
+        ctx.conf = (dim, before, after, ranks, index, group, rows)
+        parts = []
+        if before:
+            got = _ppermute_raw(x.narrow(dim, rows - before, before), ranks,
+                                index, 1, group)
+            if index == 0:
+                got.fill_(fill)
+            parts.append(got)
+        parts.append(x)
+        if after:
+            got = _ppermute_raw(x.narrow(dim, 0, after), ranks, index, -1,
+                                group)
+            if index == n - 1:
+                got.fill_(fill)
+            parts.append(got)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, before, after, ranks, index, group, rows = ctx.conf
+        n = len(ranks)
+        gx = g.narrow(dim, before, rows).clone()
+        if before:
+            back = _ppermute_raw(g.narrow(dim, 0, before), ranks, index, -1,
+                                 group)
+            if index != n - 1:
+                gx.narrow(dim, rows - before, before).add_(back)
+        if after:
+            back = _ppermute_raw(g.narrow(dim, before + rows, after), ranks,
+                                 index, 1, group)
+            if index != 0:
+                gx.narrow(dim, 0, after).add_(back)
+        return gx, None, None, None, None, None, None, None
+
+
+def halo(x: torch.Tensor, mesh, axis: str, dim: int, before: int,
+         after: int, fill: float = 0.0) -> torch.Tensor:
+    """x with `before` rows of the previous coordinate's end and `after`
+    rows of the next's start around it along `dim` (`fill` past the ends
+    of the axis); backward, the halo rows' gradients added to their
+    owners' rows. Each halo fits in one neighbour's rows."""
+    if max(before, after) > x.shape[dim]:
+        raise ValueError(f"halo of {before} / {after} rows over slices of "
+                         f"{x.shape[dim]} rows: a halo must fit in one "
+                         "neighbour's slice")
+    return _Halo.apply(x, dim % x.dim(), before, after, fill,
+                       mesh.group_ranks[axis], mesh.index(axis),
+                       mesh.group(axis))
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over `group`; backward, the sum of the gradients
+    (see the module docstring)."""
+    return _PSum.apply(x, group)
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, is_src, group):
+        ctx.is_src = is_src
+        buf, staged = _staged_src(x)
+        if not staged:
+            buf = buf.clone()
+        dist.broadcast(buf, src, group=group)
+        return buf.to(x.device) if staged else buf
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.is_src else torch.zeros_like(g)), None, None, None
+
+
+def broadcast_from(x: torch.Tensor, mesh, axis: str, index: int):
+    """Coordinate `index`'s x on every rank of `axis`; backward, the
+    gradient on that coordinate alone (the loss is the same on every
+    rank)."""
+    return _Broadcast.apply(x, mesh.group_ranks[axis][index],
+                            mesh.index(axis) == index, mesh.group(axis))
 
 
 def gather_shards(t: torch.Tensor, dim: int, group, size: int):

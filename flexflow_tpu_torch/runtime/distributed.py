@@ -15,7 +15,13 @@ process and fixes, once:
    a machine whose ranks share one card. Under gloo with CUDA tensors,
    runtime/collectives.py stages each collective's tensor through host
    memory explicitly (counted there). The rule is decided here and
-   printed, never reached by catching an NCCL error.
+   printed, never reached by catching an NCCL error;
+ - whether several optimizer steps a dispatch (`fit(steps_per_execution=
+   K)`) are captured as one CUDA graph (`graph_capture`): on a mesh of
+   CUDA ranks they run as K eager steps in one host dispatch instead,
+   since gloo's host-staged collectives cannot be captured and ranks
+   that share one card cannot use NCCL (capturing NCCL collectives is
+   untried). Printed with the backend.
 
 `spawn` starts the ranks of one machine as fresh processes (the spawn
 method) and collects what each returns, with one time limit for all.
@@ -28,7 +34,7 @@ import queue
 import sys
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,6 +50,21 @@ def backend_for(device_type: str, local_world: int) -> str:
     if device_type == "cuda" and local_world <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
+
+
+def graph_capture(device: torch.device, mesh) -> Tuple[bool, Optional[str]]:
+    """(whether a K-step dispatch on `device` is one captured CUDA graph,
+    why not): on one card it is; the CPU and a mesh of CUDA ranks run the
+    K steps eagerly (see the module docstring)."""
+    if device.type != "cuda":
+        return False, "the CPU runs the K steps eagerly"
+    if mesh is None:
+        return True, None
+    if host_staging():
+        return False, ("gloo stages every collective through host memory, "
+                       "which a CUDA graph cannot capture (ranks that share "
+                       "one card cannot use NCCL)")
+    return False, "capturing NCCL collectives is untried"
 
 
 def initialize(init_method: Optional[str] = None,
@@ -89,7 +110,10 @@ def initialize(init_method: Optional[str] = None,
         print(f"flexflow_tpu_torch.distributed: {world} ranks, backend "
               f"{backend}, rank 0 on {dev}"
               + (", collectives staged through host memory"
-                 if _STATE["host_staging"] else ""), file=sys.stderr,
+                 if _STATE["host_staging"] else "")
+              + ("; fit(steps_per_execution=K) runs K eager steps a "
+                 "dispatch on a mesh (no CUDA graph)"
+                 if dev.type == "cuda" else ""), file=sys.stderr,
               flush=True)
     return host_info()
 

@@ -21,9 +21,36 @@ backward, the gradients and the reported metrics are averaged over the
 `data` axis, so every rank's optimizer sees the gradient of the global
 batch's loss, as `jax.grad` under GSPMD gives it.
 
+The other mesh axes cut activations too (core/machine.py). Each value
+of a walk carries the axes it is cut over (`data`: the batch, dim 0;
+`seq`: the positions, dim 1; `attr`: the H of NCHW, dim 2), and each op
+says whether it computes on cut values (`Op.seq_local`,
+`Op.attr_local`, FFModel._assign_strategy). Before an op that does not,
+the walk gathers its inputs' cut dims (collectives.gather_dim); before
+one that does, it cuts its whole inputs of the same positions (or H)
+to this rank's slice (a slice: convolutions and pools cut their own,
+halo included, ops/conv.py). The op sees its inputs' axes in
+`LoweringContext.in_cuts`; its outputs are cut where an input was. The
+final tensor is gathered over `seq` and `attr` before the loss. After
+the backward the gradients are averaged over `seq` and `attr` as over
+`data`: each rank's loss is the whole loss, and every collective
+between those ranks gives in its backward the sum of the ranks'
+gradients (runtime/collectives.py), so the average is the global
+gradient.
+
+On a `stage` axis (JAX `executor.py:55-64, 100-140`) the graph's
+repeated-block region (parallel/pipeline_plan.py `find_pipeline_plan`)
+runs through the GPipe schedule (kernels/pipeline.py): this rank walks
+its stage's segments of the region with its own ops' weights, on
+`config.pipeline_microbatches` microbatches; the ops outside the region
+run replicated on every stage.
+
 Several optimizer steps a dispatch (`build_multi_step`, the JAX
 package's jitted `lax.scan` of K steps) run on the card as one CUDA
-graph of K captured steps, and on the CPU as K eager steps. Gradient
+graph of K captured steps, and on the CPU as K eager steps. On a mesh of
+CUDA ranks they run as K eager steps in one host dispatch, uncaptured:
+runtime/distributed.py `graph_capture` decides it where it decides the
+backend, and `MultiStep.stats()` says so. Gradient
 accumulation (`build_accum_step`) sums the microbatches' gradients in
 place and runs one optimizer update on their mean.
 
@@ -69,7 +96,9 @@ from ..core.op import LoweringContext
 from ..ffconst import CompMode, OpType
 from ..obs.tracing import get_tracer, traced_dispatch
 from ..ops.common import emit_dtype
-from .collectives import cut_batch, gather_batch, mean_
+from ..search.simulator import AP_CAPABLE
+from .collectives import (CUT_DIMS, cut_batch, cut_dim, gather_batch,
+                          gather_dim, mean_)
 from .graphs import CapturedCall, Staging, graph_counts
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -85,6 +114,21 @@ class Executor:
         # whether the walks' inputs are this rank's slice of the batch
         # over `data` (FFModel._data_slice decides it a batch)
         self.batch_cut = True
+        # the last walk's cut axes by tensor guid
+        self.last_cuts: Dict[int, frozenset] = {}
+        # a `stage` axis: the pipelined region and its microbatches
+        self.pipeline_plan = None
+        if mesh is not None and mesh.size("stage") > 1:
+            from ..parallel.pipeline_plan import find_pipeline_plan
+
+            plan = self.pipeline_plan = find_pipeline_plan(
+                graph, mesh.size("stage"))
+            self.pipeline_microbatches = max(
+                1, int(getattr(config, "pipeline_microbatches", 4)))
+            # op guid -> the stage whose ranks hold the op
+            self._stages = {op.guid: g // plan.segs_per_stage
+                            for g, group in enumerate(plan.segments)
+                            for op in group}
 
     @property
     def device(self) -> torch.device:
@@ -122,7 +166,80 @@ class Executor:
         """op name -> weight name -> the op's parameter (the master)."""
         return {op.name: {ws.name: op._parameters[ws.name]
                           for ws in op.specs}
-                for op in self.topo if op.specs}
+                for op in self.topo if op.specs and op.held}
+
+    # -- the pipelined region (a `stage` axis) -------------------------------
+    def stage_of(self, op) -> Optional[int]:
+        """The stage whose ranks hold `op`'s weights; None outside the
+        pipelined region."""
+        if self.pipeline_plan is None:
+            return None
+        return self._stages.get(op.guid)
+
+    def _run_pipeline(self, x: torch.Tensor, ctx) -> torch.Tensor:
+        """The region's output from its input: GPipe over `stage`, this
+        rank's stage walking its own segments' ops on each microbatch."""
+        from ..kernels.pipeline import gpipe
+
+        plan = self.pipeline_plan
+        k = plan.segs_per_stage
+        s = self.mesh.index("stage")
+        groups = plan.segments[s * k:(s + 1) * k]
+        entry, last = plan.entries[s * k], groups[-1][-1].outputs[0]
+        sub = LoweringContext(self.config, ctx.mode)
+        sub.generator = ctx.generator
+        sub.aux_losses = ctx.aux_losses
+        sub.iter_seq_length = ctx.iter_seq_length
+        sub.write_state = ctx.write_state
+
+        def stage_fn(x_in):
+            values = {entry.guid: x_in}
+            for group in groups:
+                for op in group:
+                    outs = op.lower(sub, [values[t.guid] for t in op.inputs])
+                    for t, v in zip(op.outputs, outs):
+                        values[t.guid] = v.to(emit_dtype(self.config,
+                                                         t.dtype))
+            return values[last.guid]
+
+        return gpipe(stage_fn, x, self.mesh, "stage",
+                     self.pipeline_microbatches)
+
+    # -- cut activations (the module docstring) ------------------------------
+    def _prepare(self, op, ins, in_cuts, axis: str, local: bool,
+                 min_rank: int):
+        """`op`'s inputs over `axis`: gathered where the op does not
+        compute on cut values; where it does, its whole inputs of rank >=
+        min_rank with the output's size on the axis's dim cut (not for a
+        convolution or pool, which cut their own rows)."""
+        dim = CUT_DIMS[axis]
+        ins, in_cuts = list(ins), list(in_cuts)
+        out = op.outputs[0].dims
+        for i, (t, v, c) in enumerate(zip(op.inputs, ins, in_cuts)):
+            if axis in c and not local:
+                ins[i] = gather_dim(v, self.mesh, axis, dim)
+                in_cuts[i] = c - {axis}
+            elif (local and axis not in c and op.op_type not in AP_CAPABLE
+                  and len(t.dims) >= min_rank and len(out) > dim
+                  and t.dims[dim] == out[dim] and v.dim() == len(t.dims)):
+                ins[i] = cut_dim(v, self.mesh, axis, dim)
+                in_cuts[i] = c | {axis}
+        return ins, in_cuts
+
+    def _whole(self, v: torch.Tensor, cuts) -> torch.Tensor:
+        """v gathered over `seq` and `attr` where `cuts` names them (its
+        `data` cut stays)."""
+        for axis in ("seq", "attr"):
+            if axis in cuts:
+                v = gather_dim(v, self.mesh, axis, CUT_DIMS[axis])
+        return v
+
+    def whole_value(self, values: Dict[int, torch.Tensor], tensor
+                    ) -> torch.Tensor:
+        """`tensor`'s value of the last walk, whole over `seq` and
+        `attr`."""
+        return self._whole(values[tensor.guid],
+                           self.last_cuts.get(tensor.guid, frozenset()))
 
     def forward_values(
         self,
@@ -178,37 +295,70 @@ class Executor:
         ctx.write_state = write_state
         if training:
             ctx.generator = self.generator
-        dp = self.mesh.size("data") if self.mesh is not None else 1
-        # guids of the values cut over `data` (a walk on cut inputs)
-        cut = set() if dp > 1 and self.batch_cut else None
+        mesh = self.mesh
+        dp, sp, ap = ((mesh.size("data"), mesh.size("seq"), mesh.size("attr"))
+                      if mesh is not None else (1, 1, 1))
+        # tensor guid -> the mesh axes its value is cut over
+        cuts: Dict[int, frozenset] = {}
+        inputs_cut = frozenset({"data"} if dp > 1 and self.batch_cut
+                               else ())
+        plan = self.pipeline_plan
         with torch.set_grad_enabled(training if record is None
                                     else record):
             for op in self.topo:
+                if plan is not None and op.guid in plan.region_guids:
+                    if op.guid == plan.first_op_guid:
+                        t_in, t_out = plan.region_input, plan.region_output
+                        c = cuts.get(t_in.guid, frozenset())
+                        out = self._run_pipeline(
+                            self._whole(ctx.values[t_in.guid], c), ctx)
+                        ctx.values[t_out.guid] = out.to(
+                            emit_dtype(self.config, t_out.dtype))
+                        if "data" in c:
+                            cuts[t_out.guid] = frozenset({"data"})
+                    continue
                 if op.op_type == OpType.INPUT:
                     ctx.values[op.outputs[0].guid] = input_values[op.name]
-                    if cut is not None:
-                        cut.add(op.outputs[0].guid)
+                    if inputs_cut:
+                        cuts[op.outputs[0].guid] = inputs_cut
                     continue
                 ins = [ctx.values[t.guid] for t in op.inputs]
-                fed_cut = cut is not None and any(t.guid in cut
-                                                  for t in op.inputs)
+                in_cuts = [cuts.get(t.guid, frozenset()) for t in op.inputs]
+                fed_cut = any("data" in c for c in in_cuts)
                 whole = fed_cut and op.whole_batch
                 if whole:
-                    group, at = self.mesh.group("data"), self.mesh.index(
-                        "data")
-                    ins = [gather_batch(v, group, at, dp) if t.guid in cut
-                           else v for t, v in zip(op.inputs, ins)]
+                    group, at = mesh.group("data"), mesh.index("data")
+                    ins = [gather_batch(v, group, at, dp) if "data" in c
+                           else v for v, c in zip(ins, in_cuts)]
+                    in_cuts = [c - {"data"} for c in in_cuts]
+                if sp > 1:
+                    ins, in_cuts = self._prepare(op, ins, in_cuts, "seq",
+                                                 op.seq_local, 3)
+                if ap > 1:
+                    ins, in_cuts = self._prepare(op, ins, in_cuts, "attr",
+                                                 op.attr_local, 4)
+                ctx.in_cuts = in_cuts
                 outs = op.lower(ctx, ins)
+                axes = set()
+                if fed_cut and not op.gathers_data:
+                    axes.add("data")
+                if op.seq_local and any("seq" in c for c in in_cuts):
+                    axes.add("seq")
+                if op.attr_local and (op.op_type in AP_CAPABLE or any(
+                        "attr" in c for c in in_cuts)):
+                    axes.add("attr")
                 for t, v in zip(op.outputs, outs):
                     v = v.to(emit_dtype(self.config, t.dtype))
-                    is_cut = fed_cut
+                    t_axes = set(axes)
                     if whole:
                         part = cut_batch(v, at, dp)
-                        is_cut = part is not v  # no batch dim: whole
+                        if part is v:  # no batch dim: whole
+                            t_axes.discard("data")
                         v = part
                     ctx.values[t.guid] = v
-                    if is_cut:
-                        cut.add(t.guid)
+                    if t_axes:
+                        cuts[t.guid] = frozenset(t_axes)
+        self.last_cuts = cuts
         return ctx.values
 
     # -- step builders -----------------------------------------------------
@@ -233,7 +383,7 @@ class Executor:
                                          aux_losses=aux,
                                          seq_length=seq_length,
                                          write_state=write_state)
-            pred = values[final_tensor.guid]
+            pred = self.whole_value(values, final_tensor)
             loss = loss_fn(pred, label)
             if aux:
                 loss = loss + sum(aux[1:], aux[0])
@@ -253,13 +403,21 @@ class Executor:
         return gstep
 
     def _data_mean(self, grads, mvals) -> None:
-        """Average gradients (one bucket) and metric values over the mesh's
-        `data` axis, in place; nothing without one."""
-        size = self.mesh.size("data") if self.mesh is not None else 1
-        if size == 1:
+        """Average gradients (one bucket an axis) over the mesh's `data`,
+        `seq` and `attr` axes, and the metric values over `data` (they are
+        the same on every rank of the other two), in place; nothing
+        without those axes."""
+        if self.mesh is None:
             return
-        group = self.mesh.group("data")
         with torch.no_grad():
+            for axis in ("seq", "attr"):
+                size = self.mesh.size(axis)
+                if size > 1:
+                    mean_(grads, self.mesh.group(axis), size)
+            size = self.mesh.size("data")
+            if size == 1:
+                return
+            group = self.mesh.group("data")
             mean_(grads, group, size)
             keys = sorted(mvals)
             vals = torch.stack([mvals[k].float() for k in keys])
@@ -332,12 +490,6 @@ class Executor:
                          steps: int, reg_fn=None) -> "MultiStep":
         """K = `steps` training steps a dispatch (JAX `build_multi_step`):
         see MultiStep."""
-        if self.mesh is not None and self.device.type == "cuda":
-            raise NotImplementedError(
-                "steps_per_execution > 1 on a mesh of CUDA ranks is not "
-                "ported yet (ROADMAP A8): gloo stages every collective "
-                "through host memory, which a CUDA graph cannot capture, "
-                "and NCCL capture is untried")
         return MultiStep(self, self.build_train_step(
             optimizer, loss_fn, metrics, final_tensor, reg_fn).__wrapped__,
             metrics.keys() + ["loss"], steps)
@@ -348,7 +500,7 @@ class Executor:
 
         def eval_step(inputs, label):
             values = self.forward_values(inputs)
-            pred = values[final_tensor.guid]
+            pred = self.whole_value(values, final_tensor)
             with torch.no_grad():
                 mvals = metrics.compute(pred, label) if metrics else {}
                 mvals["loss"] = loss_fn(pred, label)
@@ -369,7 +521,7 @@ class Executor:
         def fwd(inputs):
             values = self.forward_values(inputs, mode=mode,
                                          seq_length=seq_length, record=False)
-            return values[final_tensor.guid]
+            return self.whole_value(values, final_tensor)
 
         return traced_dispatch(fwd, "executor.forward")
 
@@ -405,7 +557,12 @@ class MultiStep:
     (the compiled metrics, then "loss") of each step. On the card the
     result is queued, not waited for: reading it to the host waits.
 
-    On the CPU the K steps run eagerly, one after another. On the card
+    On the CPU the K steps run eagerly, one after another, and so they
+    do on a mesh of CUDA ranks (runtime/distributed.py `graph_capture`:
+    gloo's host-staged collectives cannot be captured, ranks sharing one
+    card cannot use NCCL, and capturing NCCL is untried), the metrics
+    written into a device tensor, so the dispatch queues and reading it
+    waits, as a replay's. On one card
     they are one CUDA graph (runtime/graphs.py `CapturedCall`): the steps
     read their batches from static stacked (K, batch, ...) buffers,
     packed into one byte buffer that a dispatch fills by ONE copy from
@@ -438,6 +595,16 @@ class MultiStep:
         self.call: Optional[CapturedCall] = None
         self.counts = graph_counts()
         self.layout = None
+        from .distributed import graph_capture
+
+        self.captured, self.reason = graph_capture(self.device,
+                                                   executor.mesh)
+
+    def stats(self) -> Dict[str, object]:
+        """Whether the K steps are one captured CUDA graph (and, if not,
+        why), with the graph's warm-up / capture / replay counts."""
+        return {"steps": self.steps, "captured": self.captured,
+                "reason": self.reason, **self.counts}
 
     def __call__(self, batches: Sequence[Tuple[Dict[str, np.ndarray],
                                                np.ndarray]], opt_state):
@@ -448,9 +615,9 @@ class MultiStep:
         if len(batches) != self.steps:
             raise ValueError(f"MultiStep of {self.steps} steps given "
                              f"{len(batches)} batches")
-        if self.device.type != "cuda":
+        if not self.captured:
             out = torch.empty((len(self.keys), self.steps),
-                              dtype=torch.float32)
+                              dtype=torch.float32, device=self.device)
             for j, (inputs, label) in enumerate(batches):
                 mvals = self.train_step(
                     *self.executor.device_batch(inputs, label), opt_state)

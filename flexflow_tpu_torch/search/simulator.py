@@ -1106,6 +1106,11 @@ class OpCostCache:
         object.__setattr__(clone, "kernel_memo", {})
         object.__setattr__(clone, "shards", {})
         object.__setattr__(clone, "tp_degree", 1)
+        # the copy runs on one device: none of a mesh plan's roles
+        for flag, value in (("seq_local", False), ("attr_local", False),
+                            ("row_parallel", False), ("gather_out", True),
+                            ("held", True)):
+            object.__setattr__(clone, flag, value)
         out_dtypes = [emit_dtype(cfg, t.dtype) for t in op.outputs]
         generator = torch.Generator(device=device).manual_seed(0)
 

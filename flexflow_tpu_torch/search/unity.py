@@ -25,9 +25,8 @@ three places: the search is always this Python path (the native core,
 `use_native_search`, has no effect here); measured op costs are the
 default when the config's device is a CUDA card (`_want_measured`); and
 what needs the parallel-op layer or the resharding planner raises,
-naming ROADMAP A8 (pipeline candidates under `enable_pipeline_parallel`,
-a rule file whose GraphXfers insert parallel ops, the re-plan's
-plan-distance term).
+naming ROADMAP A8 (a rule file whose GraphXfers insert parallel ops, the
+re-plan's plan-distance term).
 """
 from __future__ import annotations
 
@@ -715,18 +714,180 @@ class GraphSearchHelper:
 
     def _pipeline_candidates(self, graph: Graph, batch_size: int,
                              n_devices: int) -> List[SearchResult]:
-        """Pipeline-parallel mesh candidates (the JAX package's (dp, pp)
-        meshes through the GPipe kernel). None without
-        `enable_pipeline_parallel` (or under only_data_parallel); with it,
-        NotImplementedError: the candidates need the stage planner
-        (parallel/pipeline_plan), which is ROADMAP A8."""
+        """Pipeline-parallel mesh candidates (JAX `_pipeline_candidates`; the
+        reference's OP_PIPELINE enum ffconst.h:159 is unused): a (dp, pp)
+        mesh routes the graph's repeated-block region through the GPipe
+        kernel (kernels/pipeline.py). Priced
+        as region_cost * (M+S-1)/(M*S) — the bubble-inclusive GPipe
+        schedule length — plus 2(M+S-1) activation ppermute hops, with
+        region weights/optimizer state sharded S-ways (the memory win the
+        lambda search can buy when dp replication does not fit).
+
+        Tier-aware placement (docs/machine.md "Overlap"): on a
+        multi-tier hierarchical machine each (dp, pp) split is priced
+        under BOTH stage-axis nestings (pipeline_plan
+        .stage_placement_options) — stage OUTERMOST puts every stage on
+        a contiguous device block, so when dp covers whole inner-tier
+        groups the stage cut lands on a pod edge: DCN carries only the
+        thin inter-stage activation hops while each stage's dp
+        weight syncs stay on ICI. Stage-boundary hops are priced on
+        the tier path (ring_hop_time_us with the placement's stage
+        stride), not the flat innermost p2p term, and weight-gradient
+        syncs (region: per-stage dp group; rest: the whole mesh) are
+        priced with the bucket/overlap model — only the exposed tail
+        is charged when overlap is on."""
         if (not getattr(self.config, "enable_pipeline_parallel", False)
                 or self.config.only_data_parallel):
             return []
-        raise NotImplementedError(
-            "enable_pipeline_parallel: the search's pipeline candidates need "
-            "the stage planner (parallel/pipeline_plan), which is not ported "
-            "yet (ROADMAP A8)")
+        from ..parallel.pipeline_plan import (find_isomorphic_run,
+                                              stage_placement_options)
+
+        # the lambda search re-enters per probe with an unchanged graph:
+        # cache the run finder rather than re-scanning. Only the REAL graph
+        # is cached (keyed by its op-guid set, which every rewrite changes);
+        # joint-search probe clones are transient and caching them would
+        # pin every discarded clone in memory for the helper's lifetime
+        if graph is self.graph:
+            if not hasattr(self, "_pp_run_cache"):
+                self._pp_run_cache = {}
+            key = frozenset(graph.ops)
+            if key not in self._pp_run_cache:
+                self._pp_run_cache.clear()  # rewrites invalidated the old
+                self._pp_run_cache[key] = find_isomorphic_run(graph)
+            run_len, run, entries = self._pp_run_cache[key]
+        else:
+            run_len, run, entries = find_isomorphic_run(graph)
+        if run_len < 2:
+            return []
+        m = max(1, getattr(self.config, "pipeline_microbatches", 4))
+        if batch_size % m:
+            return []
+        # pipeline candidates are dp-only: reset any tiered mesh context
+        # a previous factorization's seeding installed
+        self.sim.cost.set_mesh_degrees()
+        entry = entries[0]
+        import numpy as np
+
+        act_elems = int(np.prod(entry.dims[1:]))  # per-sample activation
+        act_bytes_el = 2 if self.config.allow_mixed_precision else 4
+        overlap = bool(self.config is None
+                       or self.config.search_overlap_backward_update)
+        bucket_bytes = (float(getattr(self.config, "grad_bucket_bytes", 0)
+                              or 0) if overlap else 0.0)
+        # the weight-sync term below is priced only where the overlap
+        # model is active at all: a MULTI-tier machine with the overlap
+        # knob on. Flat and one-tier machines keep the historical
+        # compute+hop pipeline pricing bit-for-bit, and
+        # search_overlap_backward_update=False keeps the legacy
+        # blocking path untouched (config.grad_bucket_bytes is
+        # documented inert in both cases)
+        multi = (hasattr(self.machine, "tier_path")
+                 and len(getattr(self.machine, "tiers", ())) > 1)
+        sync_active = multi and overlap
+        out: List[SearchResult] = []
+        for dp, pp in _divisor_pairs(n_devices):
+            if pp <= 1 or pp > run_len:
+                continue
+            if batch_size % dp or (batch_size // m) % dp:
+                continue
+            # the executor pipelines the largest multiple of pp groups and
+            # runs the rest sequentially (pipeline_plan truncation) — price
+            # the same split
+            usable = (run_len // pp) * pp
+            region = {op.guid for g in run[:usable] for op in g}
+            strategies = {guid: OpStrategy(dp=dp, tp=1)
+                          for guid in graph.ops}
+            region_cost = rest_cost = 0.0
+            mem = region_w = rest_w = 0.0
+            region_wbs: List[float] = []
+            rest_wbs: List[float] = []
+            for guid, op in graph.ops.items():
+                t = self.sim.op_step_time_us(op, strategies[guid])
+                om = self.sim.cost.op_memory_bytes(op, strategies[guid])
+                wb = sum(w.num_elements() * w.dtype.np_dtype.itemsize
+                         for w in op.weights)
+                if guid in region:
+                    region_cost += t
+                    mem += om / pp
+                    region_w += wb
+                    if wb:
+                        region_wbs.append(wb)
+                else:
+                    rest_cost += t
+                    mem += om
+                    rest_w += wb
+                    if wb:
+                        rest_wbs.append(wb)
+            hop_bytes = (batch_size // m // dp) * act_elems * act_bytes_el
+            ticks = m + pp - 1
+            compute_us = rest_cost + region_cost * ticks / (m * pp)
+            for place in stage_placement_options(self.machine, dp, pp):
+                if self.sim.cost.tiered:
+                    # the stage hop crosses the tiers the stage axis
+                    # actually spans at this nesting — a pod-aligned cut
+                    # pays DCN for the thin activation, never the
+                    # innermost p2p price
+                    hop_us = self.machine.ring_hop_time_us(
+                        hop_bytes, pp, inner=place["hop_inner"])
+                else:
+                    hop_us = self.machine.p2p_time_us(hop_bytes)
+                # weight-gradient sync: region weights sync over each
+                # stage's OWN dp group (concurrent across stages -> one
+                # stage's 1/pp share at the placement's dp stride); rest
+                # weights replicate across stages and sync mesh-wide.
+                # Bucketed into grad_bucket_bytes chunks; with overlap
+                # on, the backward window (bwd = 2x fwd -> 2/3 of
+                # compute) hides what fits and only the exposed tail is
+                # charged — blocking pricing charges it all.
+                sync_us = 0.0
+                n_buckets = 0
+                if sync_active:
+                    # region weights sync concurrently across stages
+                    # (conc=pp, one stage's share); rest weights sync
+                    # mesh-wide. grad_bucket_bytes=0 prices true
+                    # per-tensor issue — one latency payment per
+                    # tensor, matching simulate()'s un-bucketed path —
+                    # not one fused collective
+                    for wbs, total, n, inner, conc in (
+                            (region_wbs, region_w, dp,
+                             place["dp_inner"], pp),
+                            (rest_wbs, rest_w, dp * pp, 1, 1)):
+                        if n <= 1 or total <= 0:
+                            continue
+                        if bucket_bytes:
+                            share = total / conc
+                            k = max(1, int(-(-share // bucket_bytes)))
+                            sync_us += k * self.sim.cost._allreduce_us(
+                                share / k, n, inner)
+                            n_buckets += k
+                        else:
+                            sync_us += sum(
+                                self.sim.cost._allreduce_us(wb, n, inner)
+                                for wb in wbs) / conc
+                            n_buckets += len(wbs)
+                window = (2.0 / 3.0) * compute_us if sync_active else 0.0
+                exposed = max(0.0, sync_us - window)
+                cost = compute_us + 2.0 * ticks * hop_us + exposed
+                axes = {name: size for name, size in place["axes"]
+                        if name != "data" or dp > 1}
+                placement = {"order": place["order"],
+                             "hop_tier": place["hop_tier"],
+                             "hop_us": hop_us,
+                             "cut_on_tier_boundary":
+                                 place["cut_on_tier_boundary"],
+                             "sync_us": sync_us}
+                out.append(SearchResult(
+                    dict(strategies), axes, cost, mem,
+                    [f"dp={dp} pp={pp} m={m} place={place['order']}"
+                     + (f" hop={place['hop_tier']}"
+                        if place["hop_tier"] else "")
+                     + f" cost={cost:.1f}us mem={mem/1e9:.2f}GB"],
+                    overlapped_sync_us=(sync_us - exposed
+                                        if sync_active else None),
+                    exposed_sync_us=exposed if sync_active else None,
+                    sync_buckets=n_buckets,
+                    pipeline_placement=placement))
+        return out
 
     def _boundary_ops(self, graph: Graph) -> List[Op]:
         """Ops with an edge crossing a segment boundary — the only ops whose

@@ -14,8 +14,12 @@ and fit. Prints one JSON line per rank: losses, ms per step, launches
 per step by kernel, peak memory, backend and host staging.
 
 `run_rank` is the rank's body, also what chip_smoke.py and
-tests/test_torch_tp.py spawn: a list of jobs, each a dict (see `JOB`),
-run one after another in one process group. A job with `axes` None
+tests/test_torch_tp.py, test_torch_axes.py and test_torch_pipeline.py
+spawn: a list of jobs, each a dict (see `JOB`), run one after another in
+one process group. A job's `model` names its graph (`MODELS`: the BERT
+encoder, the small graphs of the JAX package's multi-device entry, a
+`tools/zoo_train.py` model), its `axes` any mesh of the data, model,
+expert, attr, seq and stage axes. A job with `axes` None
 compiles with no axes, so the model's plan comes from its config
 (`config`: the strategy search, an imported strategy file, or the
 `{"data": world}` default); each rank then reports the plan it holds,
@@ -37,6 +41,22 @@ import numpy as np
 
 # a job's keys and their defaults
 JOB: Dict[str, Any] = {
+    # the graph: a key of MODELS ("encoder" reads `widths` as
+    # TransformerConfig fields, the others as their builder's keywords)
+    "model": "encoder",
+    # ("adam", alpha, moments dtype name or None) or ("sgd", lr); None:
+    # `adam` below
+    "optimizer": None,
+    # fit(steps_per_execution=)
+    "steps_per_execution": 1,
+    # compile a one-device copy of the same graph from the same seed and
+    # adopt its weights (FFModel.adopt_params_from)
+    "adopt_sequential": False,
+    # a JAX model's params (numpy, a `__pipeline__` tree unstacked),
+    # loaded through params_from_jax
+    "jax_params": None,
+    # every attention op's sequence_parallel_mode ("ring", "ulysses")
+    "sp_mode": None,
     # the mesh axes; None: the plan compile chooses from `config`
     "axes": {"model": 2},
     # further FFConfig fields (the strategy search's: search_budget,
@@ -82,41 +102,167 @@ JOB: Dict[str, Any] = {
 }
 
 
-def _encoder_graph(job: Dict[str, Any], device: str, **config):
-    """The job's BERT encoder, built and not compiled."""
-    from .. import DataType, FFConfig, FFModel
-    from ..models import TransformerConfig, build_bert_encoder
+def _build_encoder(lib, model, job, **widths):
+    """bench.py's BERT encoder at `widths` (TransformerConfig fields)."""
+    cfg = lib.models.TransformerConfig(**widths)
+    tokens = model.create_tensor([job["batch"], cfg.sequence_length],
+                                 lib.DataType.DT_INT32)
+    lib.models.build_bert_encoder(model, tokens, cfg,
+                                  use_flash=job["use_flash"])
 
-    cfg = TransformerConfig(**job["widths"])
-    batch = job["batch"]
-    model = FFModel(FFConfig(batch_size=batch,
+
+def _build_sp_attn(lib, model, job, seq: int = 16, hidden: int = 32,
+                   heads: int = 4, mode: str = "ring",
+                   causal: bool = False, layers: int = 1,
+                   ffn: bool = False):
+    """The JAX entry's sequence-parallel leg (`__graft_entry__.py:
+    134-186`): attention over (B, seq, hidden), residual, LayerNorm (and
+    with `ffn` a GELU FFN of 2 x hidden, residual, LayerNorm), `layers`
+    times, then a 2-way classifier a position."""
+    t = x = model.create_tensor([job["batch"], seq, hidden])
+    for i in range(layers):
+        attn = model.multihead_attention(
+            t, t, t, hidden, heads, causal=causal, sequence_parallel=True,
+            sequence_parallel_mode=mode, name=f"sp_attn{i}")
+        t = model.layer_norm(model.add(t, attn), [-1], name=f"sp_ln{i}")
+        if ffn:
+            h = model.dense(t, 2 * hidden, lib.ActiMode.AC_MODE_GELU,
+                            name=f"sp_ff{i}a")
+            h = model.dense(h, hidden, name=f"sp_ff{i}b")
+            t = model.layer_norm(model.add(t, h), [-1], name=f"sp_lnf{i}")
+    del x
+    model.softmax(model.dense(t, 2, name="sp_cls"))
+
+
+def _build_moe(lib, model, job, features: int = 16, experts: int = 8,
+               select: int = 2, hidden: int = 16, lambda_bal: float = 0.05,
+               fused: bool = True):
+    """The JAX entry's expert leg (`:218-245`): a fused MoE block and a
+    3-way classifier."""
+    x = model.create_tensor([job["batch"], features])
+    out = model.moe(x, num_exp=experts, num_select=select,
+                    expert_hidden_size=hidden, alpha=float(experts),
+                    lambda_bal=lambda_bal, fused=fused, name="moe")
+    model.softmax(model.dense(out, 3, name="moe_cls"))
+
+
+def _build_row_mlp(lib, model, job):
+    """The JAX entry's row-parallel leg (`:255-321`): rp_fc1 (64, relu),
+    rp_fc2 (32), rp_cls (4)."""
+    x = model.create_tensor([job["batch"], 32])
+    t = model.dense(x, 64, lib.ActiMode.AC_MODE_RELU, name="rp_fc1")
+    t = model.dense(t, 32, name="rp_fc2")
+    model.softmax(model.dense(t, 4, name="rp_cls"))
+
+
+def _build_conv(lib, model, job, size: int = 8, batch_norm: bool = False,
+                convs: int = 1):
+    """The JAX entry's attribute leg (`:323-372`): `convs` 3x3 convs (8,
+    relu, each followed by a batch norm with `batch_norm`), max pool 2x2,
+    flat, a 4-way classifier."""
+    t = model.create_tensor([job["batch"], 3, size, size])
+    for i in range(convs):
+        t = model.conv2d(t, 8, 3, 3, 1, 1, 1, 1,
+                         activation=lib.ActiMode.AC_MODE_RELU,
+                         name=f"ap_c{i + 1}")
+        if batch_norm:
+            t = model.batch_norm(t, relu=False, name=f"ap_bn{i + 1}")
+    t = model.pool2d(t, 2, 2, 2, 2, 0, 0, name="ap_p1")
+    t = model.flat(t, name="ap_flat")
+    model.softmax(model.dense(t, 4, name="ap_cls"))
+
+
+def _build_sp_search(lib, model, job, seq: int = 128, hidden: int = 64,
+                     heads: int = 4):
+    """tests/test_sequence_parallel_search.py's transformer (one encoder
+    layer over 100 token ids, a 4-way classifier a position), a graph
+    whose plan the Unity search cuts over `seq`."""
+    tokens = model.create_tensor([job["batch"], seq], lib.DataType.DT_INT32)
+    t = model.embedding(tokens, 100, hidden, lib.AggrMode.AGGR_MODE_NONE,
+                        name="emb")
+    attn = model.multihead_attention(t, t, t, hidden, heads, name="attn")
+    t = model.layer_norm(model.add(t, attn), [-1], name="ln1")
+    h = model.dense(t, hidden * 4, lib.ActiMode.AC_MODE_GELU, name="ff1")
+    h = model.dense(h, hidden, name="ff2")
+    t = model.layer_norm(model.add(t, h), [-1], name="ln2")
+    model.softmax(model.dense(t, 4, name="cls"))
+
+
+def _build_zoo(lib, model, job, name: str = "moe_switch"):
+    """A tools/zoo_train.py model's graph (its widths and batch)."""
+    from . import zoo_train
+
+    zoo_train.ZOO[name]["build"](model, lib)
+
+
+# job["model"] -> builder(lib, model, job, **job["widths"]), `lib` the
+# package whose FFModel `model` is (flexflow_tpu_torch here; the tests
+# build the same graph in the JAX package)
+MODELS = {"encoder": _build_encoder, "sp_attn": _build_sp_attn,
+          "moe": _build_moe, "row_mlp": _build_row_mlp,
+          "conv": _build_conv, "sp_search": _build_sp_search,
+          "zoo": _build_zoo}
+
+
+def _encoder_graph(job: Dict[str, Any], device: str, **config):
+    """The job's graph (`MODELS`), built and not compiled."""
+    from .. import FFConfig, FFModel
+
+    model = FFModel(FFConfig(batch_size=job["batch"],
                              allow_mixed_precision=job["mixed"],
-                             device=device, **{**job["config"], **config}))
-    tokens = model.create_tensor([batch, cfg.sequence_length],
-                                 DataType.DT_INT32)
-    build_bert_encoder(model, tokens, cfg, use_flash=job["use_flash"])
+                             device=device, seed=job["seed"],
+                             **{**job["config"], **config}))
+    import flexflow_tpu_torch as lib
+    import flexflow_tpu_torch.models  # noqa: F401
+
+    MODELS[job["model"]](lib, model, job, **job["widths"])
+    if job["sp_mode"]:
+        for op in model.ops:
+            if op.op_type.value == "multihead_attention":
+                op.params["sequence_parallel_mode"] = job["sp_mode"]
     return model
 
 
-def build_encoder(job: Dict[str, Any], device: str):
-    """The job's BERT encoder (JOB's keys, defaults filled in), compiled
-    for training on its mesh."""
+def _compile(model, job: Dict[str, Any], axes) -> None:
     import torch
 
-    from .. import AdamOptimizer, LossType, MetricsType
+    from .. import AdamOptimizer, LossType, MetricsType, SGDOptimizer
 
-    job = dict(JOB, **job)
-    model = _encoder_graph(job, device)
-    alpha, moments = job["adam"]
-    opt = AdamOptimizer(model, alpha=alpha, moments_dtype=getattr(
-        torch, moments) if moments else None)
+    spec = job["optimizer"] or ("adam",) + tuple(job["adam"])
+    if spec[0] == "sgd":
+        opt = SGDOptimizer(model, lr=spec[1])
+    else:
+        opt = AdamOptimizer(model, alpha=spec[1], moments_dtype=getattr(
+            torch, spec[2]) if spec[2] else None)
     model.compile(optimizer=opt,
                   loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                   metrics=[MetricsType.METRICS_ACCURACY],
-                  parallel_axes=job["axes"],
+                  parallel_axes=axes,
                   generator=torch.Generator().manual_seed(job["seed"]))
+
+
+def build_encoder(job: Dict[str, Any], device: str):
+    """The job's model (JOB's keys, defaults filled in), compiled for
+    training on its mesh."""
+    from ..model import params_from_jax
+
+    job = dict(JOB, **job)
+    model = _encoder_graph(job, device)
+    _compile(model, job, job["axes"])
     if model.outside_mesh:
         return model  # a rank past the plan's mesh holds no weights
+    if job["adopt_sequential"]:
+        seq = _encoder_graph(job, device)
+        _compile(seq, job, {})
+        model.adopt_params_from(seq)
+        try:  # a pipeline-parallel source is refused
+            seq.adopt_params_from(model)
+            model.adopt_error = None
+        except ValueError as exc:
+            model.adopt_error = str(exc)
+        del seq
+    if job["jax_params"] is not None:
+        params_from_jax(model, job["jax_params"])
     if job["params"] is not None:
         model.load_params(job["params"])
     if job["opt_state"] is not None:
@@ -166,7 +312,14 @@ def plan_of(model) -> Dict[str, Any]:
         s = strategies.get(op.guid)
         ops[op.name] = ([s.dp, s.tp] if s is not None
                         else [axes.get("data", 1), axes.get("model", 1)])
-    out: Dict[str, Any] = {"axes": axes, "ops": ops}
+    degrees = {}
+    for op in model.graph.topo_order():
+        s = strategies.get(op.guid)
+        degrees[op.name] = ([s.dp, s.tp, s.ep, s.ap, s.sp] if s is not None
+                            else [axes.get(a, 1) for a in
+                                  ("data", "model", "expert", "attr",
+                                   "seq")])
+    out: Dict[str, Any] = {"axes": axes, "ops": ops, "degrees": degrees}
     sr = model.search_result
     if sr is not None:
         out["search"] = {
@@ -183,6 +336,27 @@ def plan_of(model) -> Dict[str, Any]:
             key = f"{d.code}/{d.severity.value}"
             codes[key] = codes.get(key, 0) + 1
         out["diagnostics"] = codes
+    return out
+
+
+def roles_of(model) -> Dict[str, Any]:
+    """What a rank of the mesh runs of the plan: the ops on its positions
+    (`seq`) or H rows (`attr`), the row-parallel linears and the
+    column-parallel ones whose output stays sharded (the Megatron pair),
+    and the pipelined region."""
+    out: Dict[str, Any] = {
+        "seq_local": sorted(op.name for op in model.ops if op.seq_local),
+        "attr_local": sorted(op.name for op in model.ops if op.attr_local),
+        "row_parallel": sorted(op.name for op in model.ops
+                               if op.row_parallel),
+        "unsharded_outputs": sorted(
+            op.name for op in model.ops
+            if op.op_type.value == "linear" and not op.gather_out)}
+    plan = model.executor.pipeline_plan
+    if plan is not None:
+        out["pipeline"] = {"stages": plan.n_stages,
+                           "segs_per_stage": plan.segs_per_stage,
+                           "region_ops": len(plan.region_guids)}
     return out
 
 
@@ -217,8 +391,75 @@ def analytic_twice(job: Dict[str, Any], device: str, n_dev: int,
     return out
 
 
+def attention_blocks(job: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """`ring_attention` or `ulysses_attention` alone on a `seq` axis of
+    every rank: job["attention"] holds "fn", "causal" and the whole f32
+    "q", "k", "v" and output gradient "dout" (B, L, H, D); returns this
+    rank's blocks of the output and of the gradients of q, k and v."""
+    import torch
+
+    from ..core.machine import make_mesh
+    from ..kernels.ring_attention import ring_attention
+    from ..kernels.ulysses_attention import ulysses_attention
+    import torch.distributed as dist
+
+    spec = job["attention"]
+    mesh = make_mesh({"seq": dist.get_world_size()})
+    n, i = mesh.size("seq"), mesh.index("seq")
+
+    def block(a):
+        a = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        m = a.shape[1] // n
+        return a[:, i * m:(i + 1) * m].contiguous()
+
+    q, k, v = (block(spec[x]).requires_grad_(True) for x in "qkv")
+    fn = ring_attention if spec["fn"] == "ring" else ulysses_attention
+    out = fn(q, k, v, mesh, "seq", causal=spec["causal"])
+    grads = torch.autograd.grad(out, (q, k, v), block(spec["dout"]))
+    return {"out": out.detach().cpu().numpy(),
+            **{f"d{x}": g.cpu().numpy() for x, g in zip("qkv", grads)}}
+
+
+def pipeline_transformer_steps(job: Dict[str, Any], device: str
+                               ) -> Dict[str, Any]:
+    """models/pipeline_transformer.py's train step on a `stage` axis of
+    every rank: job["pipeline_transformer"] holds the whole stacked
+    "params", "emb", "head", "tokens", "labels", "microbatches", "lr" and
+    "steps"; returns the losses and this rank's final stage slice."""
+    import torch
+    import torch.distributed as dist
+
+    from ..core.machine import make_mesh
+    from ..models import pipeline_transformer as ptx
+
+    spec = job["pipeline_transformer"]
+    mesh = make_mesh({"stage": dist.get_world_size()})
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    params = ptx.stage_slice({k: dev(v) for k, v in spec["params"].items()},
+                             mesh)
+    emb, head = dev(spec["emb"]), dev(spec["head"])
+    step = ptx.make_train_step(mesh, spec["microbatches"], spec["lr"])
+    losses = []
+    for _ in range(spec["steps"]):
+        params, emb, head, loss = step(params, emb, head,
+                                       dev(spec["tokens"]),
+                                       dev(spec["labels"]))
+        losses.append(float(loss))
+    return {"losses": losses, "stage": mesh.index("stage"),
+            "params": {k: v.cpu().numpy() for k, v in params.items()},
+            "emb": emb.cpu().numpy(), "head": head.cpu().numpy()}
+
+
 def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     import torch
+
+    if "attention" in job:
+        return attention_blocks(job, device)
+    if "pipeline_transformer" in job:
+        return pipeline_transformer_steps(job, device)
 
     from ..kernels import launch_counts, reset_launch_counts
     from ..runtime import collectives
@@ -230,7 +471,9 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     build_s = time.perf_counter() - t0
     out: Dict[str, Any] = {"mesh_coords": dict(model.mesh.coords)
                            if model.mesh else {}, "build_s": build_s,
-                           "plan": plan_of(model)}
+                           "plan": plan_of(model),
+                           "adopt_error": getattr(model, "adopt_error",
+                                                  None)}
     if model.search_result is not None:
         cache = get_op_cost_cache(model.config)
         out["op_cost_cache"] = {"hits": cache.hits, "misses": cache.misses,
@@ -251,15 +494,18 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
             out["fit_error"] = str(exc)
         return out
     dev = model.device
+    out["roles"] = roles_of(model)
     if job["grad_steps"]:
         out["steps"] = grad_steps(model, x, y, job["grad_steps"],
                                   job["grad_norms_of"])
     else:
         warm = job["steps"] - job["count_steps"]
+        k = job["steps_per_execution"]
         # fit's per-step records (its history has one summary per epoch)
         steps = []
         if warm:
-            model.fit(x, y, batch_size=job["batch"], epochs=warm)
+            model.fit(x, y, batch_size=job["batch"], epochs=warm,
+                      steps_per_execution=k)
             steps += model.step_records
         n_warm = len(steps)
         if dev.type == "cuda":
@@ -269,7 +515,8 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         collectives.reset_staged()
         counted = job["count_steps"]
         if counted:
-            model.fit(x, y, batch_size=job["batch"], epochs=counted)
+            model.fit(x, y, batch_size=job["batch"], epochs=counted,
+                      steps_per_execution=k)
             steps += model.step_records
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -281,8 +528,16 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
                                       collectives.STAGED.items()}
             out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev)
                                    / 2 ** 30 if dev.type == "cuda" else None)
-        out["losses"] = [r["loss"] for r in steps]
+        out["losses"] = [v for r in steps for v in r.get("losses",
+                                                         [r["loss"]])]
+        out["record_losses"] = [r["loss"] for r in steps]
         out["accuracy"] = [r["accuracy"] for r in steps]
+        if k > 1:
+            out["multi_step"] = model._multi_step(k).stats()
+        if dev.type == "cuda":
+            out["params_gib"] = sum(
+                t.numel() * t.element_size() for ws in model.params.values()
+                for t in ws.values()) / 2 ** 30
         if job["eval"]:
             out["eval"] = model.eval(x, y, batch_size=job["batch"])
         if job["predict_batch"]:
@@ -290,8 +545,10 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         if job["checkpoint_dir"]:
             out.update(_checkpoint_round_trip(model, job, device))
     # the weights every rank holds whole must agree to the bit
+    ex = model.executor
     out["replicated_digest"] = _digest(
-        t for op in model.ops for ws in op.specs if ws.name not in op.shards
+        t for op in model.ops for ws in op.specs
+        if ws.name not in op.shards and ex.stage_of(op) is None
         for t in [op.w(ws.name)])
     if job["return_params"]:
         out["shard_shapes"] = {op: {w: tuple(t.shape) for w, t in ws.items()}
@@ -325,13 +582,26 @@ def _checkpoint_round_trip(model, job: Dict[str, Any],
 def run_rank(rank: int, world: int, init_method: str, device: str,
              jobs: List[Dict[str, Any]]) -> Dict[str, Any]:
     """One rank's body: join the process group, run `jobs` in order,
-    leave. Returns {"host": host_info, "jobs": [result, ...]}."""
+    leave. Returns {"host": host_info, "jobs": [result, ...]}, each result
+    with its wall `job_s`; rank 0 prints a line a finished job to
+    stderr."""
     from ..runtime import distributed
 
     info = distributed.initialize(init_method, world_size=world, rank=rank,
                                   device=device)
     try:
-        return {"host": info, "jobs": [run_job(j, device) for j in jobs]}
+        results = []
+        for i, job in enumerate(jobs):
+            t0 = time.perf_counter()
+            res = run_job(job, device)
+            res["job_s"] = time.perf_counter() - t0
+            results.append(res)
+            if rank == 0:
+                print(f"tp_train: job {i + 1} of {len(jobs)} "
+                      f"({job.get('model', 'encoder')}, axes "
+                      f"{job.get('axes')}) done in {res['job_s']:.1f} s",
+                      file=sys.stderr, flush=True)
+        return {"host": info, "jobs": results}
     finally:
         distributed.shutdown()
 

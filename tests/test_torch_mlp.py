@@ -296,15 +296,24 @@ def test_regression_labels_stay_float_like_jax():
 
 def test_steps_per_execution_on_a_cuda_mesh_raises():
     """K steps a dispatch on a mesh of CUDA ranks would capture gloo's
-    host-staged collectives: it raises, naming ROADMAP A8 (on CPU ranks
-    the K steps run eagerly)."""
+    host-staged collectives: it no longer raises, it runs the K steps
+    eagerly in one dispatch, and says so (`MultiStep.stats()`; the rule
+    is runtime/distributed.py `graph_capture`); on one card it captures,
+    on the CPU it runs eagerly."""
     from types import SimpleNamespace
 
+    from flexflow_tpu_torch.runtime import distributed
     from flexflow_tpu_torch.runtime.executor import Executor
 
     pm = _mlp(pt, 4, (6, 3), _sgd(0.1))
-    ex = Executor(pm.graph, pm.config,
-                  SimpleNamespace(device=torch.device("cuda")))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ex.build_multi_step(pm.optimizer, pm.loss.fn, pm.metrics,
-                            pm.final_tensor, 4)
+    cuda = torch.device("cuda")
+    ex = Executor(pm.graph, pm.config, SimpleNamespace(
+        device=cuda, size=lambda axis: 1))
+    ms = ex.build_multi_step(pm.optimizer, pm.loss.fn, pm.metrics,
+                             pm.final_tensor, 4)
+    st = ms.stats()
+    assert st["captured"] is False and st["steps"] == 4
+    assert "NCCL" in st["reason"]
+    assert distributed.graph_capture(cuda, None) == (True, None)
+    assert distributed.graph_capture(torch.device("cpu"), None)[0] is False
+    assert pm._multi_step(4).stats()["captured"] is False

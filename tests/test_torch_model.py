@@ -131,9 +131,11 @@ def test_forward_matches_jax_chunk_offset_then_vector_decode(
 
 def test_full_sequence_attention_is_not_ported():
     """Full-sequence attention runs the flash path now (the training
-    slice): a forward with no caches matches the JAX executor's; what of
-    it is still not ported, sequence parallelism, raises, and so does
-    attention dropout forced onto the flash kernel, as in JAX."""
+    slice): a forward with no caches matches the JAX executor's.
+    Sequence parallelism is ported (tests/test_torch_axes.py): asked for
+    with dropout it raises JAX's ValueError, and off a `seq` mesh it is
+    the one-device op; attention dropout forced onto the flash kernel
+    raises, as in JAX."""
     jm, pm = _models(False)
     toks = np.random.RandomState(4).randint(1, 50, size=(2, 8)).astype(
         np.int32)
@@ -148,8 +150,11 @@ def test_full_sequence_attention_is_not_ported():
     t = pm.ops[1].outputs[0]
     with pytest.raises(ValueError, match="dropout"):
         pm.multihead_attention(t, t, t, 32, 4, dropout=0.1, use_flash=True)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        pm.multihead_attention(t, t, t, 32, 4, sequence_parallel=True)
+    with pytest.raises(ValueError, match="sequence_parallel attention"):
+        pm.multihead_attention(t, t, t, 32, 4, dropout=0.1,
+                               sequence_parallel=True)
+    sp = pm.multihead_attention(t, t, t, 32, 4, sequence_parallel=True)
+    assert sp.dims == t.dims
 
 
 def test_params_from_jax_checks_names_and_shapes():

@@ -504,25 +504,34 @@ def test_fit_publishes_the_router_families_once_an_epoch():
 
 
 def test_moe_ops_on_a_mesh_raise_naming_a8():
-    """A walk on any mesh raises for the MoE ops (capacity comes from the
-    global batch in JAX): ExpertsOp, GroupByOp, AggregateOp."""
+    """The MoE ops run on a mesh now (capacity from the global batch,
+    tests/test_torch_axes.py holds the expert axis against JAX): a walk
+    whose inputs the `data` axis did not cut (`in_cuts` empty: a batch it
+    does not divide) gives the one-device values, for ExpertsOp, GroupByOp
+    and AggregateOp."""
     from flexflow_tpu_torch.core.op import LoweringContext
 
     _, fused = _pair((8, 6))
     _, unfused = _pair((8, 6), fused=False)
     mesh = SimpleNamespace(size=lambda axis: 2 if axis == "data" else 1)
-    x = torch.zeros(8, 6)
-    g, ids = torch.full((8, 2), 0.5), torch.zeros(8, 2, dtype=torch.int32)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(8, 6).astype(np.float32))
+    g = torch.full((8, 2), 0.5)
+    ids = torch.from_numpy(rng.randint(0, 4, (8, 2)).astype(np.int32))
     experts = [op for op in fused.ops if op.op_type.value == "experts"][0]
     gb = [op for op in unfused.ops if op.op_type.value == "group_by"][0]
     agg = [op for op in unfused.ops if op.op_type.value == "aggregate"][0]
     for op, args in ((experts, [x, g, ids]), (gb, [x, ids]),
                      (agg, [g, ids, ids, torch.zeros(8, 4)]
-                      + [torch.zeros(16, 5)] * 4)):
-        ctx = LoweringContext(fused.config, CompMode.COMP_MODE_TRAINING)
-        ctx.mesh = mesh
-        with pytest.raises(NotImplementedError, match="A8"):
-            op.lower(ctx, args)
+                      + [torch.ones(16, 5)] * 4)):
+        outs = []
+        for m in (mesh, None):
+            ctx = LoweringContext(fused.config, CompMode.COMP_MODE_INFERENCE)
+            ctx.mesh = m
+            with torch.no_grad():
+                outs.append(op.lower(ctx, args))
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_lambda_bal_without_full_gate_raises():

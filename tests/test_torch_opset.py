@@ -411,9 +411,12 @@ def test_jax_model_state_is_the_initial_running_stats():
 
 
 def test_batch_stats_and_dropout_on_a_data_mesh_raise():
-    """Batch statistics and dropout masks over a `data` axis would be per
-    rank, where JAX takes the global batch: a training walk raises,
-    naming ROADMAP A8; inference reads the running statistics."""
+    """Batch statistics and dropout masks over a `data` axis are the global
+    batch's now (tests/test_torch_axes.py holds batch norm on a data x
+    attr mesh against JAX): a training walk whose inputs the axis did not
+    cut (`in_cuts` empty) gives the one-device values from the same
+    generator, batch norm, dropout and attention dropout alike;
+    inference reads the running statistics."""
     from types import SimpleNamespace
 
     from flexflow_tpu_torch.core.op import LoweringContext
@@ -426,16 +429,23 @@ def test_batch_stats_and_dropout_on_a_data_mesh_raise():
     m.final_tensor = m.multihead_attention(s, s, s, 16, 2, dropout=0.1)
     m.compile(loss_type=pt.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
     mesh = SimpleNamespace(size=lambda axis: 2 if axis == "data" else 1)
-    x = torch.zeros(4, 3, 8, 8)
-    for op, arg, match in ((m.ops[1], x, "batch statistics"),
-                           (m.ops[3], torch.zeros(4, 192), "dropout"),
-                           (m.ops[5], torch.zeros(4, 12, 16),
-                            "attention dropout")):
-        ctx = LoweringContext(m.config, CompMode.COMP_MODE_TRAINING)
-        ctx.mesh = mesh
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(4, 3, 8, 8).astype(np.float32))
+    for op, arg in ((m.ops[1], x),
+                    (m.ops[3], torch.from_numpy(
+                        rng.randn(4, 192).astype(np.float32))),
+                    (m.ops[5], torch.from_numpy(
+                        rng.randn(4, 12, 16).astype(np.float32)))):
         args = [arg] * (3 if op is m.ops[5] else 1)
-        with pytest.raises(NotImplementedError, match=f"{match}.*A8"):
-            op.lower(ctx, args)
+        outs = []
+        for mm in (mesh, None):
+            ctx = LoweringContext(m.config, CompMode.COMP_MODE_TRAINING)
+            ctx.mesh = mm
+            ctx.write_state = False
+            ctx.generator = torch.Generator().manual_seed(3)
+            with torch.no_grad():
+                outs.append(op.lower(ctx, args)[0])
+        torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
     ctx = LoweringContext(m.config, CompMode.COMP_MODE_INFERENCE)
     ctx.mesh = mesh
     assert m.ops[1].lower(ctx, [x])[0].shape == x.shape

@@ -242,10 +242,25 @@ def test_search_knob_fields_and_defaults_are_jax_s():
         pt.FFConfig().parse_args(["--strategy-search", "greedy"])
 
 
+def test_pipeline_candidates_raise(tmp_path):
+    """The pipeline candidates are ported (parallel/pipeline_plan.py): the
+    search under enable_pipeline_parallel gives JAX's plan and log, on the
+    flat pod and on a tiered machine, where the (data, stage) nestings
+    are priced."""
+    from flexflow_tpu.parallel.pipeline_plan import \
+        max_pipeline_stages as jmax
+    from flexflow_tpu_torch.parallel.pipeline_plan import \
+        max_pipeline_stages as pmax
+
+    for machine in ("pod", "tiered"):
+        _search_both("bert", 4, machine, tmp_path,
+                     enable_pipeline_parallel=True)
+    stages = pmax(PGraph(_model(pt, "bert").ops))
+    assert stages > 1
+    assert stages == jmax(JGraph(_model(ff, "bert").ops))
+
+
 # -- what is not ported raises, naming ROADMAP A8 ---------------------------
-def test_pipeline_candidates_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        _search_both("bert", 4, enable_pipeline_parallel=True)
 
 
 def test_taso_file_with_parallel_op_rules_raises_at_the_start():
@@ -316,8 +331,9 @@ def test_compile_on_one_device_searches_nothing_and_analyzes():
     ("tp_row", True), ("sp", 2), ("ep", 2), ("ap", 2)])
 def test_unported_plans_raise_before_any_weight(tmp_path, field, value):
     """An imported plan that needs tp_row, sp, ep or ap (and so a seq,
-    expert or attr axis) raises at compile, naming ROADMAP A8, before any
-    weight is drawn."""
+    expert or attr axis) is executable now (tests/test_torch_axes.py runs
+    such plans on ranks): compile takes it as far as the mesh, which
+    raises for want of a process group, before any weight is drawn."""
     name = {"tp_row": "mlp_split", "sp": "bert", "ep": "moe",
             "ap": "resnet"}[field]
     m = _model(pt, name)
@@ -337,23 +353,35 @@ def test_unported_plans_raise_before_any_weight(tmp_path, field, value):
     path.write_text(json.dumps({"mesh_axes": {axis: 2}, "ops": ops}))
     m.config.import_strategy_file = str(path)
     m.config.plan_analysis = "off"
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match=f"'{axis}'.*has not "
+                       "joined"):
         m.compile()
     assert not any(op._parameters for op in m.ops)
 
 
 def test_imported_stage_axis_raises_naming_a8(tmp_path):
+    """An imported pipeline plan is executable now (tests/
+    test_torch_pipeline.py): compile takes it as far as the mesh, which
+    raises for want of a process group, before any weight is drawn; a
+    stage axis beside a model axis still raises, naming ROADMAP A8."""
     m = _model(pt, "bert")
     path = tmp_path / "plan.json"
     path.write_text(json.dumps({"mesh_axes": {"stage": 2}, "ops": {
         op.name: {"dp": 1, "tp": 1} for op in m.ops}}))
     m.config.import_strategy_file = str(path)
-    with pytest.raises(NotImplementedError, match="'stage'.*A8"):
+    with pytest.raises(NotImplementedError, match="'stage'.*has not joined"):
         m.compile()
+    assert not any(op._parameters for op in m.ops)
+    m = _model(pt, "bert")
+    with pytest.raises(NotImplementedError, match="stage axis beside.*A8"):
+        m.compile(parallel_axes={"stage": 2, "model": 2})
     assert not any(op._parameters for op in m.ops)
 
 
 def test_imported_row_parallel_linear_raises_naming_a8(tmp_path):
+    """A plan's row-parallel (tp_row) linear is executable now (the
+    Megatron pair of tests/test_torch_axes.py): compile takes it as far
+    as the mesh, which raises for want of a process group."""
     m = _model(pt, "mlp_split")
     ops = {op.name: {"dp": 1, "tp": 1} for op in m.ops}
     ops["linear_1"] = {"dp": 1, "tp": 2, "tp_row": True}
@@ -361,7 +389,7 @@ def test_imported_row_parallel_linear_raises_naming_a8(tmp_path):
     path.write_text(json.dumps({"mesh_axes": {"model": 2}, "ops": ops}))
     m.config.import_strategy_file = str(path)
     m.config.plan_analysis = "off"
-    with pytest.raises(NotImplementedError, match="tp_row.*A8"):
+    with pytest.raises(NotImplementedError, match="has not joined"):
         m.compile()
 
 

@@ -179,12 +179,17 @@ def _compile_with_failing_search(rank, world, init, job):
 
 
 def test_a_failed_search_raises_on_every_rank(tmp_path):
-    """Rank 0's search raises (pipeline candidates are ROADMAP A8) and
-    tells the other rank, which raises too rather than wait for a plan."""
+    """Rank 0's search raises (a TASO file whose rules insert parallel
+    ops, ROADMAP A8) and tells the other rank, which raises too rather
+    than wait for a plan."""
+    import os
+
     from flexflow_tpu_torch.runtime.distributed import spawn
 
+    rules = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "substitutions", "graph_subst_3_v2.json")
     job = dict(TP_JOB, axes=None, config={
-        "search_budget": 5, "enable_pipeline_parallel": True})
+        "search_budget": 5, "substitution_json_path": rules})
     init = "file://" + str(tmp_path / "rdv")
     errors = spawn(_compile_with_failing_search, 2, (2, init, job),
                    timeout_s=JOIN_S)

@@ -9,8 +9,8 @@ against the port on one device; each rank's shard shapes against JAX's
 per-device shards; `predict` on the mesh (batch 3: a batch the data
 axis cannot cut and a tail it can) against JAX's on its mesh, and a
 checkpoint saved on the mesh, restored there into a model from another
-seed and into the port on one device; and the raises of what is not
-ported.
+seed and into the port on one device; and the raises of what a mesh
+needs (a process group of its size) or is not ported (sharded serving).
 
 The ranks are spawned processes (flexflow_tpu_torch.tools.tp_train
 `spawn_jobs`, which imports no jax) meeting at a file:// rendezvous in a
@@ -24,6 +24,7 @@ import flexflow_tpu as ff
 import flexflow_tpu_torch as pt
 from flexflow_tpu.models import TransformerConfig as JaxTransformerConfig
 from flexflow_tpu.models import build_bert_encoder as jax_build_bert
+from flexflow_tpu_torch.core.machine import AXIS_ORDER, check_axes
 from flexflow_tpu_torch.runtime import distributed
 from flexflow_tpu_torch.tools.tp_train import build_encoder, spawn_jobs
 
@@ -229,7 +230,14 @@ def _small_model():
 
 @pytest.mark.parametrize("axis", ["seq", "expert", "attr", "stage"])
 def test_unported_axes_raise_naming_roadmap(axis):
-    with pytest.raises(NotImplementedError, match=f"'{axis}'.*ROADMAP A8"):
+    """Every axis of the JAX package is ported now (tests/
+    test_torch_axes.py, tests/test_torch_pipeline.py): check_axes takes
+    it in the JAX order, and compile on it raises only for want of the
+    process group a mesh runs over."""
+    assert check_axes({axis: 2, "data": 2}) == {"data": 2, axis: 2}
+    assert list(check_axes({"stage": 2, "seq": 2, "attr": 2, "expert": 2,
+                            "model": 2, "data": 2})) == list(AXIS_ORDER)
+    with pytest.raises(NotImplementedError, match="has not joined"):
         _small_model().compile(parallel_axes={"data": 2, axis: 2})
 
 

@@ -269,8 +269,9 @@ def test_eval_and_unported_options_raise():
     t = m.create_tensor([2, 4, 8])
     with pytest.raises(ValueError, match="dropout"):
         m.multihead_attention(t, t, t, 8, 2, dropout=0.1, use_flash=True)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        m.multihead_attention(t, t, t, 8, 2, sequence_parallel=True)
+    with pytest.raises(ValueError, match="sequence_parallel attention"):
+        m.multihead_attention(t, t, t, 8, 2, dropout=0.1,
+                              sequence_parallel=True)
     m.dense(t, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         m.compile(parallel_axes={"model": 2})

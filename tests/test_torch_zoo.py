@@ -4,9 +4,10 @@ builder code, the port given the JAX model's weights (`params_from_jax`),
 then two SGD steps (lr 0.01, f32) on the same seeded numpy batch: each
 step's loss and every weight after the two steps against JAX's. Also the
 op and weight names and shapes of the two graphs, the builders too large
-for a CPU step (ResNeXt-50, Inception-v3) at full size, and the names
-that are not ported yet (the pipeline transformer; the MoE builders are
-held against JAX in tests/test_torch_moe.py).
+for a CPU step (ResNeXt-50, Inception-v3) at full size, and the
+pipeline transformer's names (held against JAX in
+tests/test_torch_pipeline.py; the MoE builders are held against JAX in
+tests/test_torch_moe.py).
 
 Tolerance: f32, the same math through another BLAS / convolution and
 summation order: losses rel 1e-5, weights rtol 1e-4 / atol 1e-6 (a
@@ -293,9 +294,15 @@ def test_graph_matches_jax(name):
                                   "init_pipeline_params",
                                   "sequential_forward", "pipeline_forward"])
 def test_unported_builders_raise(name):
-    """The pipeline transformer waits for the `stage` axis (ROADMAP A8)."""
-    with pytest.raises(NotImplementedError, match="not ported yet.*A8"):
-        getattr(pzoo, name)
+    """The pipeline transformer is ported (tests/test_torch_pipeline.py):
+    its module, as in the JAX package, and its names through the zoo
+    package; it is not in `__all__`, as JAX's is not."""
+    from flexflow_tpu_torch.models import pipeline_transformer as ptx
+
+    got = getattr(pzoo, name)
+    assert got is (ptx if name == "pipeline_transformer"
+                   else getattr(ptx, name))
+    assert name not in pzoo.__all__
 
 
 def test_zoo_exports_the_jax_builders():
