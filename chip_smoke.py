@@ -369,6 +369,50 @@ Phases, in order; any failure propagates and exits non-zero:
               peak memory and weights by rank, and ms a step (four ranks
               time-sharing one card: not a mesh speed). The kernels
               phase holds B1 at the Ulysses shape (8, 512, 4 x 64) too.
+42. stage-checkpoint — in the same spawn, the stage leg saves a
+              checkpoint (runtime/durability.py) and restores it into a
+              fresh compile drawn from another seed: the file's keys are
+              the JAX package's stacked `__pipeline__` layout (built here
+              from the pipeline plan), and the restore gives the weights,
+              Adam's moments and the predictions to the bit.
+43. lowering — in the same spawn, the flagship at 2 layers in f32 on
+              {"data": 4} with a two-tier 2 x 2 machine spec (A82_SPEC),
+              3 SGD steps under collective_lowering="explicit" (the
+              priced per-tier plan run as grouped collectives) and under
+              "gspmd" (one flat bucket): the executed plan equals the
+              priced plan with at least one entry decomposed, the losses
+              agree within 1e-5 relative and each weight's update norm
+              within 1e-3 (SGD's update scales with the synced gradient,
+              so a sync off by a factor fails). In every leg of 43-45
+              the ranks' replicated weights agree to the bit.
+44. reshard — in the same spawn, the flagship (12 layers, bf16) after 2
+              steps on {"data": 4}: its weights and Adam moments
+              redistributed (resharding/, the FFTA06x gate on, 64 MiB of
+              round scratch) onto a fresh compile on {"data": 2,
+              "model": 2}, every leaf the gathered whole's slice to the
+              bit, the observed round scratch within the planned, 2 more
+              steps there; then moved back onto {"data": 4}, checked the
+              same way.
+45. taso    — in the same spawn, the flagship at 2 layers with its tokens
+              repartitioned and combined (explicit parallel ops) compiled
+              with no axes under the analytic search and
+              substitutions/graph_subst_3_v2.json: the plan holds a
+              parallel op, and 2 steps are finite, rank-identical and
+              within 2e-2 of one card. The search applies no rewrite:
+              graph_subst_3_v2.json's GraphXfers match no op of the
+              encoder (as in the JAX package). So a second leg
+              (taso-replay) compiles from a strategy file that records
+              tp_rules.json's partition_linear_combine_d2 on layer0_ff1
+              over {"data": 2, "model": 2}: compile applies the GraphXfer,
+              the plan holds its Replicate and Combine, and 2 steps are
+              rank-identical and within 2e-2 of one card.
+46. collective-sweep — in the same spawn, obs/collective_bench.py's
+              sweep over flat, rs_ar_ag and hier_ring at 0.25-4 MB and
+              each tier's ring phase, on the four ranks as one data axis
+              of A82_SPEC: every row positive, and
+              fit_collective_coefficients gives a scale per tier. Its
+              times are rank 0's CUDA events of host-staged gloo
+              collectives: not a mesh speed.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -378,6 +422,7 @@ CUDA device is visible.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -5035,8 +5080,132 @@ def _axes_jobs(tmp):
                      config={"enable_attribute_parallel": True}),
         "stage": dict(enc, axes={"stage": 4},
                       widths={"num_layers": TRAIN["layers"]},
-                      config={"pipeline_microbatches": 4}),
+                      config={"pipeline_microbatches": 4},
+                      checkpoint_dir=os.path.join(tmp, "stage_ckpt"),
+                      predict_batch=TRAIN["batch"]),
     }
+
+
+# phases 43-46 (A8.2 items 1-4) in phase_axes's spawn: the two-tier 2 x 2
+# machine of tests/test_torch_collectives.py (SPEC_2x2) on the H100 spec,
+# the flagship's depth for each leg, the sweep's sizes and strategies
+A82_SPEC = {"chip": "h100-sxm", "tiers": [
+    {"name": "ici", "degree": 2, "gbps": 45.0, "links": 2},
+    {"name": "dcn", "degree": 2, "gbps": 3.125, "links": 1,
+     "latency_us": 10.0}]}
+A82_LEGS = ("lowering-explicit", "lowering-gspmd", "reshard", "taso",
+            "taso-replay")
+A82_CUTS = {"lowering-explicit": "12 -> 2 encoder layers, f32, SGD",
+            "lowering-gspmd": "12 -> 2 encoder layers, f32, SGD",
+            "reshard": "none (12 encoder layers)",
+            "taso": "12 -> 2 encoder layers",
+            "taso-replay": "12 -> 2 encoder layers"}
+# the lowering legs train under SGD, whose update scales with the synced
+# gradient (Adam's hardly does): a sync off by a factor shows in the loss
+# and in each weight's update
+A82_SGD_LR = 5e-2
+# a rewrite of substitutions/tp_rules.json that inserts parallel ops
+# (a Replicate and a Combine around the first FFN linear), replayed by
+# compile from a strategy file: graph_subst_3_v2.json's GraphXfers match
+# no op of the encoder, so the search under it applies none
+A82_REPLAY = {"mesh_axes": {"data": 2, "model": 2}, "ops": {},
+              "applied_rewrites": [
+                  ["xfer:partition_linear_combine_d2",
+                   "partition_linear_combine_d2(layer0_ff1)"]]}
+A82_KERNELS = ("layernorm_fwd", "layernorm_bwd", "softmax_fwd",
+               "softmax_bwd", "reduce", "optimizer_adam")
+A82_SWEEP = {"sizes_mb": (0.25, 1.0, 4.0),
+             "strategies": ("flat", "rs_ar_ag", "hier_ring"),
+             "warmup": 1, "repeats": 3}
+
+
+def _a82_jobs(tmp):
+    """Phases 43-46's jobs (tools/tp_train.py), by leg."""
+    x, y = _train_batch()
+    spec = os.path.join(tmp, "machine_2x2.json")
+    with open(spec, "w") as f:
+        json.dump(A82_SPEC, f)
+    subs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "substitutions")
+    rules = os.path.join(subs, "graph_subst_3_v2.json")
+    replay = os.path.join(tmp, "replay_strategy.json")
+    with open(replay, "w") as f:
+        json.dump(A82_REPLAY, f)
+    enc = {"model": "encoder", "x": x, "y": y, "seed": 0, "mixed": True,
+           "adam": (1e-4, "bfloat16"), "steps": 3, "count_steps": 1}
+    low = dict(enc, axes={"data": 4}, widths={"num_layers": 2},
+               mixed=False, optimizer=("sgd", A82_SGD_LR),
+               update_norms=True)
+    return {
+        "lowering-explicit": dict(low, config={
+            "machine_model_file": spec, "collective_lowering": "explicit"}),
+        "lowering-gspmd": dict(low, config={
+            "machine_model_file": spec, "collective_lowering": "gspmd"}),
+        "reshard": dict(enc, axes={"data": 4}, steps=2,
+                        widths={"num_layers": TRAIN["layers"]},
+                        reshard_to={"data": 2, "model": 2},
+                        reshard_peak=64 << 20),
+        "taso": dict(enc, axes=None, steps=2, widths={"num_layers": 2},
+                     parallel_chain=2, config={
+                         "search_budget": SEARCH_BUDGET,
+                         "measure_op_costs": False,
+                         "substitution_json_path": rules}),
+        "taso-replay": dict(enc, axes=None, steps=2,
+                            widths={"num_layers": 2}, config={
+                                "import_strategy_file": replay,
+                                "substitution_json_path": os.path.join(
+                                    subs, "tp_rules.json")}),
+        "sweep": {"collective_sweep": dict(A82_SWEEP, machine=spec)},
+    }
+
+
+def _stage_checkpoint(runs):
+    """42: the stage leg's checkpoint against JAX's stacked layout (the
+    keys `flexflow_tpu/runtime/executor.py _pp_key` gives, built here
+    from the port's pipeline plan of the same graph), its restore's
+    weights, Adam moments and predictions."""
+    import numpy as np
+
+    from flexflow_tpu_torch.core.graph import Graph
+    from flexflow_tpu_torch.parallel.pipeline_plan import find_pipeline_plan
+    from flexflow_tpu_torch.tools.tp_train import JOB, _encoder_graph
+
+    model = _encoder_graph(dict(JOB, widths={"num_layers": TRAIN["layers"]}),
+                           "cpu")
+    plan = find_pipeline_plan(Graph(model.ops), 4)
+    k = plan.segs_per_stage
+    region = {op.name for group in plan.segments for op in group}
+    weights = [f"{op.name}/{ws.name}" for op in model.ops
+               if op.specs and op.name not in region for ws in op.specs]
+    weights += [f"__pipeline__/seg{j}_op{r}_{t.name}/{ws.name}"
+                for j in range(k) for r, t in enumerate(plan.segments[j])
+                for ws in t.specs]
+    want = sorted([f"params/{w}" for w in weights]
+                  + [f"opt_state/{g}/{w}" for g in ("m", "v")
+                     for w in weights]
+                  + ["opt_state/lr", "opt_state/step", "__meta__"])
+    first = runs[0]
+    if first["checkpoint_keys"] != want:
+        missing = sorted(set(want) - set(first["checkpoint_keys"]))[:5]
+        extra = sorted(set(first["checkpoint_keys"]) - set(want))[:5]
+        raise AssertionError(f"stage checkpoint keys: missing {missing}, "
+                             f"unexpected {extra}")
+    for j, r in enumerate(runs):
+        if not r["restored_state_equal"]:
+            raise AssertionError(f"stage checkpoint: rank {j}'s restored "
+                                 "weights or Adam moments differ")
+        if not np.array_equal(r["restored_predict"], r["predict"]):
+            raise AssertionError(f"stage checkpoint: rank {j}'s restored "
+                                 "predictions differ")
+    return {"phase": "stage-checkpoint", "axes": {"stage": 4},
+            "arrays": len(want) - 1,
+            "stacked_params": sum(w.startswith("__pipeline__/")
+                                  for w in weights),
+            "restored_step": first["restored_step"],
+            "save_s_by_rank": [r["save_s"] for r in runs],
+            "restore_s_by_rank": [r["restore_s"] for r in runs],
+            "tolerance": "keys = JAX's stacked layout; restored weights "
+                         "and Adam moments, and predict, to the bit"}
 
 
 def _one_device_losses(torch, job):
@@ -5062,9 +5231,9 @@ def _one_device_losses(torch, job):
 
 
 def phase_axes(torch):
-    """36-41: the six mesh legs in one spawn of four ranks (see the module
-    docstring). Returns one record a leg and rank 0's launches over each
-    leg's counted step."""
+    """36-46: the six mesh legs and the A8.2 legs in one spawn of four
+    ranks (see the module docstring). Returns one record a leg and rank
+    0's launches over each leg's counted step."""
     import gc
     import tempfile
 
@@ -5076,9 +5245,11 @@ def phase_axes(torch):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         jobs = _axes_jobs(tmp)
+        a82 = _a82_jobs(tmp)
         t0 = time.perf_counter()
-        ranks = spawn_jobs(AXES_RANKS, "cuda", list(jobs.values()),
-                           timeout_s=600)
+        ranks = spawn_jobs(AXES_RANKS, "cuda",
+                           list(jobs.values()) + list(a82.values()),
+                           timeout_s=900)
         wall = time.perf_counter() - t0
         records, launches = [], {}
         for i, (leg, job) in enumerate(jobs.items()):
@@ -5140,7 +5311,210 @@ def phase_axes(torch):
                 "tolerance": "ranks' losses and replicated weights "
                              "identical; |loss - one device| <= 2e-2 "
                              "|one device|, steps 1-3"})
+            if leg == "stage":
+                records.append(_stage_checkpoint(runs))
+        a82_records, a82_launches = _a82_records(
+            torch, ranks, len(jobs), a82)
+    records += a82_records
+    launches.update(a82_launches)
     records[0]["spawn_wall_s"] = wall
+    return records, launches
+
+
+def _a82_records(torch, ranks, offset, jobs):
+    """43-46 from the spawn's results (jobs from `offset` on): the
+    explicit grad sync against gspmd, the live reshard, the searched plan
+    under the TASO rules, the collective sweep."""
+    import numpy as np
+
+    from flexflow_tpu_torch.obs.calibration import CollectiveCalibration
+    from flexflow_tpu_torch.obs.refit import fit_collective_coefficients
+    from flexflow_tpu_torch.search.machine_model import \
+        HierarchicalMachineModel
+
+    res = {leg: [r["jobs"][offset + i] for r in ranks]
+           for i, leg in enumerate(jobs)}
+    note = ("four ranks time-sharing one card over a host-staged gloo "
+            "transport: not a mesh speed")
+    records, launches = [], {}
+    for leg in A82_LEGS:
+        runs = res[leg]
+        first = runs[0]
+        for j, r in enumerate(runs[1:], 1):
+            if r["losses"] != first["losses"]:
+                raise AssertionError(f"{leg}: rank {j} losses {r['losses']}"
+                                     f" differ from rank 0's "
+                                     f"{first['losses']}")
+            if r["replicated_digest"] != first["replicated_digest"]:
+                raise AssertionError(f"{leg}: rank {j}'s replicated "
+                                     "weights differ from rank 0's")
+        if not all(np.isfinite(first["losses"])):
+            raise AssertionError(f"{leg}: non-finite loss "
+                                 f"{first['losses']}")
+        counted = {k: v for k, v in first["launches_per_step"].items() if v}
+        kernels = (A82_KERNELS if "optimizer" not in jobs[leg]
+                   else A82_KERNELS[:-1] + ("optimizer_sgd",))
+        missing = [k for k in kernels if not counted.get(k)]
+        if not any(k.startswith("flash_fwd") for k in counted):
+            missing.append("flash_fwd*")
+        if missing:
+            raise AssertionError(f"{leg}: kernels never launched in the "
+                                 f"counted step: {missing}")
+        launches[leg] = {k: int(round(v)) for k, v in counted.items()
+                         if "/" not in k}
+        records.append({
+            "phase": leg, "axes": first["plan"]["axes"],
+            "depth_cut": A82_CUTS[leg], "losses": first["losses"],
+            "launches_per_step": counted,
+            "staged_per_step_rank0": first["staged_per_step"],
+            "ms_per_step_rank0": first["ms_per_step"],
+            "ms_per_step_note": note,
+            "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in runs],
+            "build_s_by_rank": [r["build_s"] for r in runs]})
+    by = {r["phase"]: r for r in records}
+    # 43: explicit against gspmd
+    ex, gs = res["lowering-explicit"][0], res["lowering-gspmd"][0]
+    sync = ex["plan"].get("grad_sync")
+    if sync is None or sync["mode"] != "explicit":
+        raise AssertionError(f"lowering-explicit: no explicit lowering "
+                             f"({ex['plan'].get('grad_sync')})")
+    if sync["executed"] != sync["priced"]:
+        raise AssertionError(f"lowering-explicit: executed plan "
+                             f"{sync['executed']} != priced "
+                             f"{sync['priced']}")
+    if sync["decomposed"] < 1:
+        raise AssertionError("lowering-explicit: no entry decomposed")
+    if "grad_sync" in gs["plan"]:
+        raise AssertionError("lowering-gspmd: a lowering was planned")
+    rels = [abs(a - b) / abs(b) for a, b in zip(ex["losses"], gs["losses"])]
+    if max(rels) > 1e-5:
+        raise AssertionError(f"lowering: explicit {ex['losses']} vs gspmd "
+                             f"{gs['losses']} (relative {rels})")
+    # each weight's SGD update: a sync that divides by the wrong degree
+    # moves it by that factor
+    if set(ex["update_norms"]) != set(gs["update_norms"]):
+        raise AssertionError("lowering: explicit and gspmd updated "
+                             "different weights")
+    # relative to the weight's own update, or to 1e-4 of the whole
+    # update where its gradient is zero in exact arithmetic (the key
+    # bias: softmax ignores a shift along the keys)
+    total = math.sqrt(sum(v * v for v in gs["update_norms"].values()))
+    if not total > 0:
+        raise AssertionError("lowering-gspmd: no weight moved")
+    upd = {k: abs(ex["update_norms"][k] - v) / max(v, 1e-4 * total)
+           for k, v in gs["update_norms"].items()}
+    worst = max(upd, key=upd.get)
+    if upd[worst] > 1e-3:
+        raise AssertionError(f"lowering: {worst}'s update norm explicit "
+                             f"{ex['update_norms'][worst]} vs gspmd "
+                             f"{gs['update_norms'][worst]}")
+    by["lowering-explicit"].update(
+        strategies={s: list(sync["executed"].values()).count(s)
+                    for s in set(sync["executed"].values())},
+        decomposed=sync["decomposed"], buckets=sync["buckets"],
+        executed_equals_priced=True, gspmd_losses=gs["losses"],
+        max_relative_diff=max(rels), update_norms=len(upd),
+        max_update_norm_relative_diff=upd[worst],
+        worst_update_norm=[worst, ex["update_norms"][worst],
+                           gs["update_norms"][worst]],
+        tolerance="executed plan = priced plan, >= 1 entry decomposed; "
+                  "under SGD |explicit - gspmd| <= 1e-5 |gspmd| a step's "
+                  "loss and <= 1e-3 max(|gspmd|, 1e-4 of the whole update) "
+                  "each weight's update norm; "
+                  "every leg's replicated weights rank-identical")
+    # 44: the live reshard and back
+    for j, r in enumerate(res["reshard"]):
+        rs = r["reshard"]
+        for move in (rs, rs["back"]):
+            if move["mismatched"]:
+                raise AssertionError(f"reshard: rank {j}'s leaves "
+                                     f"{move['mismatched'][:5]} differ from "
+                                     "the gathered whole's slices")
+            if move["observed_peak_bytes"] > move["planned_scratch_bytes"]:
+                raise AssertionError(
+                    f"reshard: rank {j} observed {move['observed_peak_bytes']}"
+                    f" B > planned {move['planned_scratch_bytes']} B")
+        if not all(np.isfinite(rs["losses_after"])) or \
+                len(rs["losses_after"]) != 2:
+            raise AssertionError(f"reshard: losses after {rs['losses_after']}")
+    rs0 = res["reshard"][0]["reshard"]
+    if any(r["reshard"]["losses_after"] != rs0["losses_after"]
+           for r in res["reshard"]):
+        raise AssertionError("reshard: the ranks' losses after differ")
+    keys = ("old_axes", "new_axes", "arrays", "noop", "rounds",
+            "planned_scratch_bytes", "peak_bytes_bound",
+            "observed_peak_bytes", "bytes_moved", "wall_s",
+            "transfer_rounds", "allgather_rounds", "staged")
+    by["reshard"].update(
+        there={k: rs0[k] for k in keys},
+        back={k: rs0["back"][k] for k in keys},
+        observed_peak_bytes_by_rank=[
+            [r["reshard"]["observed_peak_bytes"],
+             r["reshard"]["back"]["observed_peak_bytes"]]
+            for r in res["reshard"]],
+        losses_after=rs0["losses_after"],
+        tolerance="every leaf the gathered whole's slice to the bit; "
+                  "observed round scratch <= planned, both ways; 2 more "
+                  "steps finite and rank-identical")
+    # 45: the search under the TASO rules
+    taso = res["taso"][0]
+    if not taso["plan"]["axes"]:
+        raise AssertionError("taso: the searched plan has no mesh axis")
+    if not taso["plan"]["parallel_ops"]:
+        raise AssertionError("taso: the searched plan holds no parallel op")
+    one = _one_device_losses(torch, dict(jobs["taso"], config={}))
+    rels = [abs(a - c) / abs(c) for a, c in zip(taso["losses"], one)]
+    if max(rels) > 2e-2:
+        raise AssertionError(f"taso: losses {taso['losses']} vs one device "
+                             f"{one} (relative {rels})")
+    by["taso"].update(
+        parallel_ops=taso["plan"]["parallel_ops"],
+        search=taso["plan"].get("search"), one_device_losses=one,
+        max_relative_diff=max(rels),
+        tolerance="the layer methods' parallel ops in the plan; ranks' "
+                  "losses identical; |loss - one device| <= 2e-2 |one "
+                  "device|")
+    # 45: a TASO GraphXfer that inserts parallel ops, applied by compile
+    rep = res["taso-replay"][0]
+    made = {rep["plan"]["parallel_ops"].get(n) for n in
+            rep["plan"]["xfer_ops"]}
+    if not {"replicate", "combine"} <= made:
+        raise AssertionError(f"taso-replay: the rewrite made "
+                             f"{rep['plan']['xfer_ops']} ({made})")
+    one = _one_device_losses(torch, dict(jobs["taso-replay"], config={}))
+    rels = [abs(a - c) / abs(c) for a, c in zip(rep["losses"], one)]
+    if max(rels) > 2e-2:
+        raise AssertionError(f"taso-replay: losses {rep['losses']} vs one "
+                             f"device {one} (relative {rels})")
+    by["taso-replay"].update(
+        applied_rewrites=A82_REPLAY["applied_rewrites"],
+        xfer_ops=rep["plan"]["xfer_ops"], one_device_losses=one,
+        max_relative_diff=max(rels),
+        tolerance="the rewrite's Replicate and Combine in the plan; ranks' "
+                  "losses and replicated weights identical; |loss - one "
+                  "device| <= 2e-2 |one device|")
+    # 46: the collective sweep, and the per-tier fit on it
+    sweep = res["sweep"][0]
+    rows = [CollectiveCalibration(**{k: v for k, v in r.items()
+                                     if k != "ratio"})
+            for r in sweep["rows"]]
+    if not rows or not all(r.measured_us > 0 for r in rows):
+        raise AssertionError(f"sweep: rows {sweep['rows']}")
+    coeffs = fit_collective_coefficients(
+        rows, HierarchicalMachineModel.from_json(A82_SPEC))
+    if set(coeffs.tier_link_scales) != {"ici", "dcn"}:
+        raise AssertionError(f"sweep: per-tier scales "
+                             f"{coeffs.tier_link_scales}")
+    records.append({
+        "phase": "collective-sweep", "tiers": sweep["tiers"],
+        "rows": [{k: r[k] for k in ("op", "strategy", "tier", "bytes",
+                                    "participants", "predicted_us",
+                                    "measured_us")} for r in sweep["rows"]],
+        "tier_link_scales": coeffs.tier_link_scales,
+        "wall_s": sweep["wall_s"], "staged": sweep["staged"],
+        "measured_note": "rank 0's CUDA-event time of each collective, " +
+                         note,
+        "tolerance": "every row positive; a fitted scale per tier"})
     return records, launches
 
 
@@ -5574,15 +5948,17 @@ def main() -> int:
     _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
     print(f"phase 35: {time.perf_counter() - t_search:.1f} s", flush=True)
 
-    # 36-41) the other mesh axes: seq (ring, Ulysses), expert, the row
-    # pair with K = 2, attr and stage, on four ranks
+    # 36-46) the other mesh axes: seq (ring, Ulysses), expert, the row
+    # pair with K = 2, attr and stage (its checkpoint), and A8.2's
+    # explicit grad sync, live reshard, TASO-rule search and collective
+    # sweep, on four ranks in one spawn
     t_axes = time.perf_counter()
     records, axes_launches = phase_axes(torch)
     for line in records:
         _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
     for leg, counts in axes_launches.items():
         zoo_paths[f"axes-{leg}"] = counts
-    print(f"phases 36-41: {time.perf_counter() - t_axes:.1f} s", flush=True)
+    print(f"phases 36-46: {time.perf_counter() - t_axes:.1f} s", flush=True)
 
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp

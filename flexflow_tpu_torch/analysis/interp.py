@@ -2,8 +2,8 @@
 deadlock/uniformity model checking of the executed collective program
 (FFTA09x, docs/analysis.md "Verifier"). The port's copy of
 flexflow_tpu/analysis/interp.py: `tier_axis_groups` is the port's own
-copy (runtime/collectives.py); the reshard programs raise naming ROADMAP
-A8.
+copy (runtime/collectives.py); the reshard programs read the port's
+resharding/ schedules.
 
 The FFTA00x-08x passes check per-op legality; nothing there *executes* a
 plan symbolically. This module closes that gap — the correctness budget
@@ -545,21 +545,48 @@ def _mesh_axis_groups(mesh, axis: str) -> Tuple[Tuple[int, ...], ...]:
 
 def build_reshard_program(schedule) -> Tuple[List[CollectiveEvent],
                                              List[int]]:
-    """A live-resharding schedule's collective program (JAX
-    `build_reshard_program`): schedules come from the resharding planner,
-    so this raises NotImplementedError naming ROADMAP A8."""
-    raise NotImplementedError(
-        "build_reshard_program needs a resharding schedule, "
-        "which is not ported yet (ROADMAP A8)")
+    """Project a ReshardSchedule onto the collective-program model:
+    moves run serially, each move's rounds serially, each round's steps
+    in order (resharding/plan.py's execution contract). ALLGATHER steps
+    group the OLD mesh along their axis; TRANSFER/PERMUTE rounds are one
+    synchronization over every involved device; SLICE is chip-local and
+    emits no event. Returns (events, all participant ids)."""
+    from ..resharding.plan import ALLGATHER as RS_ALLGATHER
+    from ..resharding.plan import PERMUTE as RS_PERMUTE
+    from ..resharding.plan import TRANSFER as RS_TRANSFER
+
+    devices = sorted(set(int(d) for d in schedule.old_mesh.device_ids)
+                     | set(int(d) for d in schedule.new_mesh.device_ids))
+    all_group = (tuple(devices),)
+    events: List[CollectiveEvent] = []
+    for move in schedule.moves:
+        for r in range(max(1, int(move.rounds))):
+            for i, step in enumerate(move.steps):
+                tag = f"{move.path}/r{r}/s{i}"
+                if step.kind == RS_ALLGATHER and step.axis \
+                        and step.axis in schedule.old_mesh.axis_sizes:
+                    groups = _mesh_axis_groups(schedule.old_mesh,
+                                               step.axis)
+                    events.append(CollectiveEvent(ALL_GATHER, tag, 0,
+                                                  groups))
+                elif step.kind in (RS_TRANSFER, RS_PERMUTE):
+                    events.append(CollectiveEvent(TRANSFER, tag, 0,
+                                                  all_group))
+    return events, devices
 
 
 def verify_reshard_program(schedule) -> List[Diagnostic]:
-    """Uniformity and deadlock check of a live-resharding schedule (JAX
-    `verify_reshard_program`): raises NotImplementedError naming ROADMAP
-    A8, as build_reshard_program does."""
-    raise NotImplementedError(
-        "verify_reshard_program needs a resharding schedule, "
-        "which is not ported yet (ROADMAP A8)")
+    """Uniformity/deadlock verification of a live-resharding schedule's
+    collective rounds — the FFTA06x analog of verify_grad_sync_program
+    (legality and memory stay redistribution_diagnostics' domain)."""
+    events, devices = build_reshard_program(schedule)
+    # subset participation is legal here (an allgather only involves
+    # the old mesh), so no full-cover requirement
+    diags = check_event_partitions(events, degree=None, full_cover=False)
+    if not diags:
+        diags = check_program_uniformity(
+            participant_programs(events, devices))
+    return diags
 
 
 # ---------------------------------------------------------------------

@@ -20,8 +20,7 @@ checks a mesh tuple without needing per-op strategies.
 
 The port's copy of flexflow_tpu/analysis/passes.py: `pass_moe` reads the
 port's ops/moe.py helpers; `redistribution_diagnostics` and
-`survivor_diagnostics` need resharding schedules and raise naming ROADMAP
-A8.
+`survivor_diagnostics` read the port's resharding/ schedules and plans.
 """
 from __future__ import annotations
 
@@ -687,23 +686,95 @@ def _ancestors(graph: Graph, guid: int) -> Set[int]:
 
 # -- live resharding (FFTA06x) --------------------------------------------
 def redistribution_diagnostics(schedule, machine=None) -> List[Diagnostic]:
-    """The FFTA060-062 legality and memory fit of a live-resharding
-    schedule (JAX `redistribution_diagnostics`). Schedules come from the
-    resharding planner, so this raises NotImplementedError naming ROADMAP
-    A8."""
-    raise NotImplementedError(
-        "redistribution_diagnostics needs a resharding schedule, "
-        "which is not ported yet (ROADMAP A8)")
+    """Legality + memory fit of a resharding.ReshardSchedule (the
+    redistribution analog of pass_collectives + pass_memory_fit):
+
+     - FFTA060: a move's target spec names a mesh axis the target mesh
+       lacks, its degree mismatches the axis size or does not divide the
+       dim, or the target layout needs more devices than the mesh has;
+     - FFTA061: a move's planned peak scratch exceeds the requested
+       bound (the planner could not chunk it down) or the machine's
+       per-chip HBM;
+     - FFTA062: peak scratch above 85% of HBM — legal but one fragment
+       away from an OOM during recovery, worth a log line.
+
+    Pure function of (schedule, machine); never touches a device.
+    """
+    diags: List[Diagnostic] = []
+    axis_sizes = schedule.new_mesh.axis_sizes
+    n_devices = max(1, len(schedule.new_mesh.device_ids))
+    for move in schedule.moves:
+        spec = move.new
+        for d, (deg, axis) in enumerate(zip(spec.degrees, spec.axes)):
+            if deg <= 1:
+                continue
+            if axis not in axis_sizes:
+                diags.append(make_diag(
+                    "FFTA060",
+                    f"{move.path}: dim {d} shards over mesh axis"
+                    f" {axis!r}, absent from the target mesh"
+                    f" (axes: {sorted(axis_sizes) or 'none'})",
+                    hint="re-run the search for the target topology"))
+                continue
+            if axis_sizes[axis] != deg:
+                diags.append(make_diag(
+                    "FFTA060",
+                    f"{move.path}: dim {d} degree {deg} != target mesh"
+                    f" axis {axis!r} size {axis_sizes[axis]}",
+                    hint="degrees must equal their axis extent to lower"
+                         " to a NamedSharding"))
+            if move.shape and move.shape[d] % deg != 0:
+                diags.append(make_diag(
+                    "FFTA060",
+                    f"{move.path}: degree {deg} does not divide dim {d}"
+                    f" (size {move.shape[d]})"))
+        if spec.total_degree() > n_devices:
+            diags.append(make_diag(
+                "FFTA060",
+                f"{move.path}: target layout needs"
+                f" {spec.total_degree()} devices, mesh has {n_devices}"))
+        if move.infeasible_peak:
+            diags.append(make_diag(
+                "FFTA061",
+                f"{move.path}: no chunking meets the"
+                f" {schedule.peak_bytes} B bound (best achievable"
+                f" {move.peak_scratch_bytes} B over {move.rounds}"
+                " rounds)",
+                hint="raise peak_bytes or shard the move's kept dims"))
+    cap = machine.memory_budget_bytes() if machine is not None else None
+    if cap:
+        peak = schedule.peak_scratch_bytes
+        if peak > cap:
+            diags.append(make_diag(
+                "FFTA061",
+                f"schedule peak scratch {peak / 1e9:.2f} GB exceeds"
+                f" per-chip HBM {cap / 1e9:.2f} GB"))
+        elif peak > 0.85 * cap:
+            diags.append(make_diag(
+                "FFTA062",
+                f"schedule peak scratch {peak / 1e9:.2f} GB is"
+                f" {peak / cap:.0%} of per-chip HBM"
+                f" ({cap / 1e9:.2f} GB)"))
+    return diags
 
 
 def survivor_diagnostics(old_plan, leaves: Dict[str, int],
                          lost_positions) -> List[Diagnostic]:
-    """The FFTA063 shard-coverage check of a live plan's survivors (JAX
-    `survivor_diagnostics`): it reads the resharding planner's plans, so
-    it raises NotImplementedError naming ROADMAP A8."""
-    raise NotImplementedError(
-        "survivor_diagnostics needs the resharding planner, "
-        "which is not ported yet (ROADMAP A8)")
+    """FFTA063 findings: arrays of a live tree whose shards cannot be
+    reassembled from the surviving devices of `old_plan`'s mesh (every
+    holder of some shard is among `lost_positions`). The elastic
+    coordinator consults this BEFORE attempting a zero-disk recovery —
+    any finding forces the checkpoint fallback."""
+    from ..resharding.plan import uncovered_arrays
+
+    diags: List[Diagnostic] = []
+    for path, n_lost in uncovered_arrays(old_plan, leaves, lost_positions):
+        diags.append(make_diag(
+            "FFTA063",
+            f"{path}: {n_lost} shard(s) held only by lost devices"
+            f" {sorted(int(p) for p in lost_positions)}",
+            hint="recover from the newest verified checkpoint instead"))
+    return diags
 
 
 # ---------------------------------------------------------------------

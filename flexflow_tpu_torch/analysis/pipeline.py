@@ -12,8 +12,7 @@ Three call sites:
  - `python -m flexflow_tpu analyze` (analysis/cli.py) loads an exported
    strategy JSON and prints the report (the port's CLI is ROADMAP A11).
 
-The port's copy of flexflow_tpu/analysis/pipeline.py;
-`check_redistribution` raises naming ROADMAP A8 (resharding schedules).
+The port's copy of flexflow_tpu/analysis/pipeline.py.
 """
 from __future__ import annotations
 
@@ -99,9 +98,25 @@ def check_plan(graph: Graph, record: bool = True,
 
 def check_redistribution(schedule, machine=None,
                          record: bool = True) -> DiagnosticReport:
-    """The FFTA06x gate over live-resharding schedules (JAX
-    `check_redistribution`): schedules come from the resharding planner,
-    so this raises NotImplementedError naming ROADMAP A8."""
-    raise NotImplementedError(
-        "check_redistribution needs a resharding schedule, "
-        "which is not ported yet (ROADMAP A8)")
+    """The FFTA06x gate for live-resharding schedules
+    (resharding/plan.py): redistribution_diagnostics with check_plan's
+    gate semantics — warnings logged and counted, errors raise
+    PlanAnalysisError carrying the report. Every schedule the elastic
+    coordinator or the serving resize path is about to execute goes
+    through here first. The sharding-flow verifier's program checker
+    rides along (FFTA091/092, docs/analysis.md "Verifier"): the
+    schedule's collective rounds must be SPMD-uniform and deadlock-free
+    as a per-participant program, not just legal move-by-move."""
+    from .interp import verify_reshard_program
+    from .passes import redistribution_diagnostics
+
+    report = DiagnosticReport(passes_run=["redistribution", "flow"])
+    report.extend(redistribution_diagnostics(schedule, machine=machine))
+    report.extend(verify_reshard_program(schedule))
+    if record:
+        record_report(report)
+    for d in report.warnings():
+        _log.warning("%s", d.format())
+    if report.errors():
+        raise PlanAnalysisError(report)
+    return report

@@ -87,9 +87,9 @@ class FFConfig:
     plan_cache_capacity: int = 32
     search_warm_start: bool = True
     warm_fallback_tolerance: float = 1.05
-    # the re-plan's plan-distance term and its live plan: a live plan
-    # comes only from the elastic re-plan (ROADMAP A9.3), and pricing it
-    # needs the resharding planner (A8), so a live plan raises
+    # the re-plan's plan-distance term and its live plan (a
+    # resharding.ShardingPlan, priced through resharding/cost.py; the
+    # elastic re-plan that produces one is ROADMAP A9.3)
     replan_distance_weight: float = 1.0
     replan_live_plan: Optional[object] = None
     # joint substitution x parallelization search; False applies the
@@ -100,8 +100,8 @@ class FFConfig:
     mcmc_budget: Optional[int] = None
     mcmc_propagate: bool = False
     only_data_parallel: bool = False
-    # the search's axes beyond data and model: plans that use them (and
-    # pipeline candidates) raise at compile, naming ROADMAP A8
+    # the search's axes beyond data and model (attr, seq, stage) and the
+    # parameter-parallel reductions
     enable_parameter_parallel: bool = False
     enable_attribute_parallel: bool = False
     enable_sequence_parallel: bool = False
@@ -124,6 +124,12 @@ class FFConfig:
     # native search core (src/ffcore) is ROADMAP A11, and the Python
     # search is the JAX package's behavioral spec
     use_native_search: bool = True
+    # the data axis's gradient sync (runtime/collectives.py): "gspmd" one
+    # flat all-reduce bucket, "explicit" the reduction plan's per-tier
+    # strategies and buckets (CollectiveLoweringError where the plan
+    # cannot be lowered), "auto" explicit when supported and the plan
+    # crosses a tier boundary
+    collective_lowering: str = "gspmd"
     export_strategy_file: Optional[str] = None
     import_strategy_file: Optional[str] = None
 
@@ -264,6 +270,15 @@ class FFConfig:
                     "--replan-distance-weight must be >= 0"
                     f" (0 disables the term), got {v}")
             self.replan_distance_weight = v
+        elif a == "--collective-lowering":
+            v = take()
+            from .runtime.collectives import COLLECTIVE_LOWERINGS
+
+            if v not in COLLECTIVE_LOWERINGS:
+                raise ValueError(
+                    "--collective-lowering must be one of "
+                    f"{COLLECTIVE_LOWERINGS}, got {v!r}")
+            self.collective_lowering = v
         elif a == "--strategy-search":
             v = take()
             if v not in ("unity", "mcmc"):

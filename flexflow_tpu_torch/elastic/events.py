@@ -6,7 +6,7 @@ In the port the training watchdog (elastic/watchdog.py) records into it,
 and the serving metrics endpoint exports its per-kind counters
 (`InferenceServer.attach_elastic_events`). The fault injector, the
 detector and the coordinator's recovery phases that also record here in
-the JAX package come with the rest of the elastic runtime (ROADMAP A9.2);
+the JAX package come with the rest of the elastic runtime (ROADMAP A9.3);
 their kinds are kept so the two packages' logs read alike.
 """
 from __future__ import annotations

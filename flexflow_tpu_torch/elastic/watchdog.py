@@ -159,4 +159,4 @@ class TrainingWatchdog:
                 "consecutive bad steps (non-finite or spiking loss) and no "
                 "checkpoint to roll back to — lower the learning rate, or "
                 "restore a DurableCheckpointer checkpoint and resume (the "
-                "elastic coordinator's automatic rollback is ROADMAP A9.2)")
+                "elastic coordinator's automatic rollback is ROADMAP A9.3)")

@@ -148,8 +148,8 @@ class OpType(enum.Enum):
     GROUP_BY = "group_by"
     EXPERTS = "experts"
     # parallel-op and fused types: named by the rule loader, the
-    # substitutions and the cost model, as in the JAX package; the port
-    # registers no op of these types (the parallel ops are ROADMAP A8)
+    # substitutions and the cost model, as in the JAX package; the
+    # parallel ops are registered by parallel/parallel_ops.py
     FUSED = "fused"
     REPARTITION = "repartition"
     COMBINE = "combine"

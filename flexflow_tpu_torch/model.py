@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import ops as _ops  # noqa: F401  (registers every op type)
+from .parallel import parallel_ops as _parallel_ops
 from .config import FFConfig
 from .core.graph import Graph
 from .core.machine import Mesh, check_axes, make_mesh
@@ -374,6 +375,40 @@ class FFModel:
                                name=f"{name}_untokens")
         return out
 
+    # -- explicit parallel ops (reference: src/parallel_ops/;
+    # parallel/parallel_ops.py says what each does on a mesh rank) ---------
+    def repartition(self, input: Tensor, dim: int, degree: int,
+                    axis: Optional[str] = None, name: str = "") -> Tensor:
+        return self._unary(OpType.REPARTITION, input, name, dim=dim,
+                           degree=degree, axis=axis)
+
+    def combine(self, input: Tensor, dim: int, degree: int = 1,
+                name: str = "") -> Tensor:
+        return self._unary(OpType.COMBINE, input, name, dim=dim,
+                           degree=degree)
+
+    def replicate(self, input: Tensor, degree: int = 1,
+                  name: str = "") -> Tensor:
+        return self._unary(OpType.REPLICATE, input, name, degree=degree)
+
+    def reduction(self, input: Tensor, degree: int = 1,
+                  name: str = "") -> Tensor:
+        return self._unary(OpType.REDUCTION, input, name, degree=degree)
+
+    def allreduce(self, input: Tensor, axis_name: str = "data",
+                  name: str = "") -> Tensor:
+        return self._unary(OpType.ALLREDUCE, input, name,
+                           axis_name=axis_name)
+
+    def fused_parallel(self, input: Tensor, descriptors: Sequence[dict],
+                       name: str = "") -> Tensor:
+        """Chain of parallel-op descriptors applied as ONE reshard
+        (reference: src/parallel_ops/fused_parallel_op.cc). Each
+        descriptor: {"type": "partition"|"combine"|"replicate", "dim": int,
+        "degree": int, "axis": Optional[str]}."""
+        return self._unary(OpType.FUSED_PARALLEL, input, name,
+                           descriptors=list(descriptors))
+
     def create_constant(self, value, trainable: bool = False,
                         dtype: Optional[DataType] = None,
                         name: str = "") -> Tensor:
@@ -543,7 +578,7 @@ class FFModel:
         as `_assign_strategy` says. Every rank draws the whole model from
         the same generator and keeps its shards, so a mesh run starts
         from the one-device run's weights. Sharded serving (inference on
-        a mesh) raises, naming ROADMAP A8, before any weight is drawn. In
+        a mesh) raises, naming ROADMAP A8.2, before any weight is drawn. In
         either mode the
         loss, the metrics, eval's step and the forward walks of `predict`
         and the manual loop are built (JAX builds them in every mode); in
@@ -595,7 +630,7 @@ class FFModel:
             if comp_mode != CompMode.COMP_MODE_TRAINING:
                 raise NotImplementedError(
                     f"parallel_axes={self.parallel_axes}: sharded serving "
-                    "(inference on a mesh) is not ported yet (ROADMAP A8)")
+                    "(inference on a mesh) is not ported yet (ROADMAP A8.2)")
             mesh = make_mesh(axes)
             if mesh.device.type != torch.device(self.config.device).type:
                 raise ValueError(
@@ -603,6 +638,7 @@ class FFModel:
                     f"was initialized on {mesh.device}")
         self._plan_reductions()
         self._run_plan_analysis()
+        self._plan_grad_sync(mesh)
         if mesh is not None:
             if not mesh.holds_position:
                 self.outside_mesh = (
@@ -614,6 +650,7 @@ class FFModel:
                 return
             self.mesh = mesh
         self.executor = Executor(self.graph, self.config, self.mesh)
+        self.executor.grad_sync_lowering = self._grad_sync
         self._multi_steps, self._accum_step = {}, None
         self._assign_strategy(order)
         for op in order:
@@ -752,11 +789,12 @@ class FFModel:
     def _plan_reductions(self) -> None:
         """The per-tier reduction decomposition of the chosen plan on a
         hierarchical machine (JAX compile): recorded for the analysis and
-        the strategy export (the executor consumes it with ROADMAP A8's
-        GradSyncLowering), and the predicted grad-sync overlap split on
+        the strategy export, and which the executor runs under
+        `collective_lowering` (`_plan_grad_sync`), and the predicted grad-sync overlap split on
         the `ff_grad_sync_overlap_us` gauge."""
         self._reduction_plan = None
         self._sync_overlap = None
+        self._grad_sync = None
         n_dev = self.config.total_devices
         sr = self.search_result
         if sr is not None and sr.reduction_strategies:
@@ -799,6 +837,67 @@ class FFModel:
             g.set(float(self._sync_overlap["exposed_sync_us"] or 0.0),
                   kind="exposed")
 
+    def _plan_grad_sync(self, mesh) -> None:
+        """The data axis's gradient sync under
+        `config.collective_lowering` (runtime/collectives.py
+        plan_grad_sync_lowering, JAX `Executor.__init__`): the lowering,
+        or None for the one flat bucket; `explicit` raises
+        CollectiveLoweringError naming why a plan cannot be lowered.
+        Every rank of the world makes the lowering's tier groups here, in
+        one order, a rank past the mesh too. With a lowering, FFTA072 and
+        FFTA090 check the executed schedule against the priced plan
+        (`_verify_executed_reductions`)."""
+        from .runtime.collectives import (CollectiveLoweringError,
+                                          plan_grad_sync_lowering)
+
+        # a stage axis runs the pipeline region (JAX's first reason)
+        staged = mesh is not None and mesh.size("stage") > 1
+        self._grad_sync, reasons = plan_grad_sync_lowering(
+            self.config, self.graph, mesh, self._reduction_plan,
+            pipeline_plan=True if staged else None)
+        if self._grad_sync is None:
+            if self.config.collective_lowering == "explicit":
+                raise CollectiveLoweringError(
+                    "collective_lowering='explicit' cannot lower this "
+                    "plan: " + "; ".join(reasons))
+            return
+        self._grad_sync.make_groups(mesh)
+        self._grad_sync.record()
+        self._verify_executed_reductions()
+
+    def _verify_executed_reductions(self) -> None:
+        """The compile-time executed-schedule gate (JAX
+        `_verify_executed_reductions`): under plan_analysis="error", fail
+        if the lowering dropped or renamed a tensor the priced plan names
+        (FFTA072), or if the executed schedule does not discharge every
+        pending gradient of the graph and strategies (FFTA090)."""
+        lowering = self._grad_sync
+        mode = getattr(self.config, "plan_analysis", "error")
+        if lowering is None or mode == "off" or not self._reduction_plan:
+            return
+        from .analysis import PlanAnalysisError, record_report
+        from .analysis.diagnostics import DiagnosticReport
+        from .analysis.interp import semantic_reduction_diagnostics
+        from .analysis.passes import (AnalysisContext,
+                                      check_executed_reductions)
+
+        ctx = AnalysisContext(
+            graph=self.graph,
+            strategies=getattr(self, "_op_strategies", None),
+            reduction_strategies=self._reduction_plan,
+            executed_reductions=lowering.executed_plan(),
+            executed_buckets=lowering.executed_buckets())
+        report = DiagnosticReport(passes_run=["tiers", "flow"])
+        report.extend(check_executed_reductions(ctx))
+        report.extend(semantic_reduction_diagnostics(ctx))
+        if not report.diagnostics:
+            return
+        record_report(report)
+        for d in report.errors():
+            _log.error("plan analysis: %s", d.format())
+        if mode == "error" and report.errors():
+            raise PlanAnalysisError(report)
+
     def analyze_plan(self, passes=None):
         """The plan analysis (analysis/) over this model's graph, chosen
         strategies and machine spec: the DiagnosticReport (never raises;
@@ -812,6 +911,9 @@ class FFModel:
         final_guid = (final.owner_op.guid
                       if final is not None and final.owner_op is not None
                       and final.owner_op.guid in self.graph.ops else None)
+        # an active explicit lowering: the analysis compares the EXECUTED
+        # schedule against the plan (FFTA072)
+        lowering = getattr(self, "_grad_sync", None)
         return _analyze(
             self.graph,
             strategies=self._op_strategies,
@@ -822,6 +924,10 @@ class FFModel:
             mesh_axes=getattr(self, "parallel_axes", None),
             final_guid=final_guid,
             reduction_strategies=getattr(self, "_reduction_plan", None),
+            executed_reductions=(lowering.executed_plan()
+                                 if lowering is not None else None),
+            executed_buckets=(lowering.executed_buckets()
+                              if lowering is not None else None),
             passes=passes)
 
     def _run_plan_analysis(self) -> None:
@@ -881,23 +987,33 @@ class FFModel:
 
     def _make_reg_fn(self):
         """The weight regularizers' sum over the parameters (JAX
-        `reg_fn`), None without any. A weight sharded over `model` raises:
-        fn would see one shard."""
+        `reg_fn`), None without any. The term of a weight sharded over an
+        axis (`model`, `expert`) is the sum of its shards' terms over that
+        axis's group (`reduce_sum`: all-reduce forward, identity backward,
+        since the loss is the same on every rank of those axes), which is
+        JAX's term on the whole weight for the element-wise sums a
+        regularizer computes."""
         if not self.weight_regularizers:
             return None
+        from .runtime.collectives import reduce_sum
+
         by_name = {op.name: op for op in self.ops}
-        regs = [(o, w, fn) for o, w, fn in self.weight_regularizers
-                if o in by_name and by_name[o].has_weight(w)]
-        for o, w, _ in regs:
-            if w in by_name[o].shards:
-                raise NotImplementedError(
-                    f"a regularizer of {o}/{w}, which is sharded over "
-                    "`model`, is not ported yet (ROADMAP A8)")
+        regs = []
+        for o, w, fn in self.weight_regularizers:
+            if o in by_name and by_name[o].has_weight(w):
+                pt = by_name[o].shards.get(w)
+                axes = sorted({pt.dims[d].axis for d in pt.sharded_dims()}
+                              if pt is not None else ())
+                regs.append((o, w, fn, axes))
+        mesh = self.mesh
 
         def reg_fn(params):
             total = 0.0
-            for o, w, fn in regs:
-                total = total + fn(params[o][w])
+            for o, w, fn, axes in regs:
+                term = fn(params[o][w])
+                for axis in axes:
+                    term = reduce_sum(term, mesh.group(axis))
+                total = total + term
             return total
 
         return reg_fn
@@ -994,7 +1110,26 @@ class FFModel:
                 and _dim1_is_channel(op))
             op.held = stage is None or self.executor.stage_of(op) in (
                 None, stage)
+            if op.op_type in _parallel_ops.PARALLEL_OP_TYPES:
+                self._apply_parallel_shape(op, dict(mesh.shape)
+                                           if mesh is not None else {})
         self._pair_megatron(order)
+
+    @staticmethod
+    def _apply_parallel_shape(op: Op, axes: Dict[str, int]) -> None:
+        """An explicit parallel op's output parallel shape (JAX
+        `_assign_strategy`, `model.py:1134-1148`); a repartition's axis
+        resolved over the mesh's axes."""
+        if op.op_type == OpType.REPARTITION:
+            axis = _parallel_ops.resolve_partition_axis(
+                op.name, op.params["dim"], op.params["degree"], axes,
+                axis=op.params.get("axis"))
+            if axis is not None:
+                op.apply_parallel_shape(axis)
+        elif op.op_type in (OpType.COMBINE, OpType.REPLICATE):
+            op.apply_parallel_shape()
+        elif op.op_type == OpType.FUSED_PARALLEL:
+            op.apply_parallel_shape(axes)
 
     def _pair_megatron(self, order: Sequence[Op]) -> None:
         """Keep a column-parallel linear's output sharded where every

@@ -6,7 +6,10 @@ families (obs/moe.py), the span tracer with its Chrome-trace export
 by FFModel.fit), and the calibration loop: `calibrate()`
 (obs/calibration.py: the simulator's predicted step and op costs against
 measured ones) and `refit()` with its persisted `FittedProfile` overlay
-and the `DriftDetector` (obs/refit.py). The fleet's merged render, the
+and the `DriftDetector` (obs/refit.py), with the collective sweep whose
+rows the per-tier fit reads (obs/collective_bench.py, run as
+`python -m flexflow_tpu_torch.obs.collective_bench`). The fleet's
+merged render, the
 timeline and the flight recorder come with ROADMAP A9.2's rest and A10."""
 from .calibration import (CalibrationReport, CollectiveCalibration,
                           OpCalibration, calibrate)

@@ -223,7 +223,7 @@ class MultiHeadAttentionOp(Op):
         if ctx.mesh is not None:
             raise NotImplementedError(
                 f"{self.name}: KV-cache decoding on a mesh (sharded "
-                "serving) is not ported yet (ROADMAP A8)")
+                "serving) is not ported yet (ROADMAP A8.2)")
         q_in, k_in, v_in = inputs[:3]
         cdt = matmul_dtype(ctx.config, q_in.dtype)
         q = self._project(q_in, "wq", "bq", cdt)
@@ -274,7 +274,7 @@ class MultiHeadAttentionOp(Op):
         if fill and ctx.mesh is not None:
             raise NotImplementedError(
                 f"{self.name}: KV-cache prefill on a mesh (sharded "
-                "serving) is not ported yet (ROADMAP A8)")
+                "serving) is not ported yet (ROADMAP A8.2)")
         if ctx.mesh is not None and ctx.mesh.size("model") > 1:
             return self._head_separated(ctx, q_in, k_in, v_in)
         _, _, _, embed, _, kdim, vdim = self._dims()

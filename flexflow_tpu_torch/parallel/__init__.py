@@ -1,2 +1,3 @@
 """Parallel planning of the port (counterpart of flexflow_tpu/parallel):
-the pipeline planner (`pipeline_plan`)."""
+the pipeline planner (`pipeline_plan`) and the explicit parallel ops
+(`parallel_ops`)."""

@@ -26,8 +26,13 @@ the version bump the copies make.
 On a mesh `save_checkpoint` gathers the weights and moments over `model`
 (every rank calls it), rank 0 writes, and the ranks meet at a barrier;
 `restore_checkpoint` reads the file on every rank, which keeps its
-shards. Retention, manifests and the verified fallback live in
-runtime/durability.py.
+shards. On a `stage` axis the pipelined region's weights and moments are
+stored as the JAX package stores them: stacked over the stages under
+`__pipeline__/seg{j}_op{r}_{name}/{w}` (JAX `executor.py _pp_key`: r-th
+op of the stage-0 template segment j, leading dim the stage), which
+`_stack` builds from the gathered per-op tree and `_unstack` takes back
+into each stage's ops, as `model.params_from_jax` does. Retention,
+manifests and the verified fallback live in runtime/durability.py.
 """
 from __future__ import annotations
 
@@ -107,6 +112,57 @@ def _whole(model, tree):
     return tree if _mesh(model) is None else model.gather_params(tree)
 
 
+def _pipeline_plan(model):
+    return getattr(getattr(model, "executor", None), "pipeline_plan", None)
+
+
+def _stack(model, tree):
+    """A whole weight-shaped tree in the file's layout: on a `stage` axis
+    the pipelined ops' entries stacked over the stages under
+    `__pipeline__` (JAX `_init_pipeline_params`), the others as they
+    are."""
+    plan = _pipeline_plan(model)
+    if plan is None:
+        return tree
+    k = plan.segs_per_stage
+    region = {op.name for group in plan.segments for op in group}
+    out = {op: ws for op, ws in tree.items() if op not in region}
+    stacked = {}
+    for j in range(k):
+        for r, template in enumerate(plan.segments[j]):
+            if not template.specs:
+                continue
+            stacked[f"seg{j}_op{r}_{template.name}"] = {
+                ws.name: torch.stack([
+                    tree[plan.segments[s * k + j][r].name][ws.name]
+                    for s in range(plan.n_stages)])
+                for ws in template.specs}
+    out["__pipeline__"] = stacked
+    return out
+
+
+def _unstack(model, tree):
+    """The inverse of `_stack`: each stacked entry's slices back under
+    the names of every stage's ops. Entries it does not know stay, for
+    the name check to report."""
+    plan = _pipeline_plan(model)
+    if plan is None or "__pipeline__" not in tree:
+        return tree
+    out = {op: ws for op, ws in tree.items() if op != "__pipeline__"}
+    stacked = dict(tree["__pipeline__"])
+    k = plan.segs_per_stage
+    for j in range(k):
+        for r, template in enumerate(plan.segments[j]):
+            entry = stacked.pop(f"seg{j}_op{r}_{template.name}", None)
+            for w, stack in (entry or {}).items():
+                for s in range(plan.n_stages):
+                    name = plan.segments[s * k + j][r].name
+                    out.setdefault(name, {})[w] = stack[s]
+    if stacked:
+        out["__pipeline__"] = stacked
+    return out
+
+
 def _rank0(model) -> bool:
     mesh = _mesh(model)
     return mesh is None or mesh.rank == 0
@@ -118,8 +174,9 @@ def save_checkpoint(path: str, model, step: int = 0) -> str:
     missing). On a mesh every rank calls it and rank 0 writes."""
     if not path.endswith(".npz"):
         path = path + ".npz"
-    trees = {"params": _whole(model, model.params or {}),
-             "opt_state": {k: _whole(model, v) if isinstance(v, dict) else v
+    trees = {"params": _stack(model, _whole(model, model.params or {})),
+             "opt_state": {k: _stack(model, _whole(model, v))
+                           if isinstance(v, dict) else v
                            for k, v in (model.opt_state or {}).items()},
              "state": model.state or {}}
     flat: Dict[str, np.ndarray] = {}
@@ -232,16 +289,21 @@ def _check_tree(path: str, group: str, got: Dict[str, np.ndarray],
 
 def _whole_shapes(model) -> Dict[str, Any]:
     """Each group's tree of the model's whole shapes (a mesh rank holds
-    shards of the weights and moments)."""
+    shards of the weights and moments; on a `stage` axis, only its own
+    stage's ops, and the check covers every stage's)."""
     specs = {op.name: {ws.name: ws.dims for ws in op.specs}
              for op in getattr(model, "ops", ())}
+    every = ({op.name: {ws.name: None for ws in op.specs}
+              for op in model.ops if op.specs}
+             if _pipeline_plan(model) is not None else None)
 
     def shapes(tree):
         return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape)
                 for k, v in tree.items()}
 
     def whole(tree):
-        return {op: {w: specs.get(op, {}).get(w, tuple(t.shape))
+        tree = every if every is not None else tree
+        return {op: {w: specs.get(op, {}).get(w) or tuple(t.shape)
                      for w, t in ws.items()} for op, ws in tree.items()}
 
     return {"params": whole(model.params or {}),
@@ -277,12 +339,22 @@ def restore_checkpoint(path: str, model, verify: bool = True) -> int:
     shapes = _whole_shapes(model)
     if model.opt_state is None:
         groups["opt_state"] = {}
-    for group, got in groups.items():
-        if got:  # a group the file lacks stays as it is (JAX's restore)
-            _check_tree(path, group, got, shapes[group])
     tensors = {g: _unflatten({k: torch.from_numpy(np.asarray(v))
                               for k, v in got.items()})
                for g, got in groups.items()}
+    tensors["params"] = _unstack(model, tensors["params"])
+    tensors["opt_state"] = {k: _unstack(model, v) if isinstance(v, dict)
+                            else v for k, v in tensors["opt_state"].items()}
+    for group in groups:
+        if groups[group]:  # a group the file lacks stays as it is (JAX's)
+            _check_tree(path, group, _flatten(tensors[group]),
+                        shapes[group])
+    if _pipeline_plan(model) is not None:
+        # a stage rank's optimizer holds its own stage's moments only
+        tensors["opt_state"] = {
+            k: {op: ws for op, ws in v.items() if op in model.opt_state[k]}
+            if isinstance(v, dict) else v
+            for k, v in tensors["opt_state"].items()}
     if groups["params"]:
         model.load_params(tensors["params"])
     if groups["opt_state"]:

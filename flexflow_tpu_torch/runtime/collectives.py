@@ -61,19 +61,34 @@ Under gloo a CUDA tensor is staged through host memory explicitly
 (runtime/distributed.py decides when): copied to the host, reduced or
 gathered there, and copied back. That is the transport of ranks that
 share one card, not a fallback; STAGED counts its copies and bytes.
-GradSyncLowering and the bucketed per-tier plans of the JAX package wait
-for ROADMAP A8; the plan analysis reads the per-tier groups the
-lowering would use (`tier_axis_groups`, a copy of the JAX function).
+
+The data axis's gradient sync (JAX `GradSyncLowering`, under
+`config.collective_lowering`): "gspmd" is the one flat bucket of
+`mean_`; "explicit" (and "auto" where the plan crosses a tier boundary)
+runs the searched reduction plan, per synced tensor or fused bucket, as
+grouped collectives over the tier groups of the data axis
+(`tier_axis_groups`): `flat` one all-reduce, `hier_ring` one all-reduce
+a tier inner-first, `rs_ar_ag` a reduce-scatter up the inner tiers, an
+all-reduce across the outermost and an all-gather back down. Gloo has
+no reduce-scatter, so it is the point-to-point all-to-all of
+`_all_to_all_raw` and a sum, as `_GatherDim.backward`'s. The tier
+groups are made once, by every rank in one order, when compile plans
+the lowering (`make_tier_groups`), never inside a step.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..obs.registry import REGISTRY
+from ..obs.tracing import get_tracer
 from . import distributed
+
+COLLECTIVE_LOWERINGS = ("gspmd", "explicit", "auto")
 
 # the dim each activation-cutting mesh axis cuts (runtime/executor.py)
 CUT_DIMS = {"data": 0, "seq": 1, "attr": 2}
@@ -84,8 +99,26 @@ STAGED: Dict[str, int] = {"copies": 0, "bytes": 0}
 
 
 class CollectiveLoweringError(ValueError):
-    """A reduction plan that cannot be lowered to per-tier collectives
-    (the JAX package's error of the same name)."""
+    """collective_lowering="explicit" was asked for but the compiled plan
+    cannot be lowered explicitly (the error names every reason)."""
+
+
+def lowered_counter():
+    """The process-wide lowering counter (one schema, shared with the
+    resharding transfer path)."""
+    return REGISTRY.counter(
+        "ff_collective_lowered_total",
+        "Collectives lowered explicitly, by reduction strategy and tier",
+        labels=("strategy", "tier"))
+
+
+def overlap_bucket_counter():
+    """Bucketed grad-sync collectives lowered: one per bucket, each ONE
+    fused per-tier collective over its concatenated tensors."""
+    return REGISTRY.counter(
+        "ff_grad_sync_overlap_buckets_total",
+        "Bucketed grad-sync collectives lowered, by reduction strategy",
+        labels=("strategy",))
 
 
 def tier_axis_groups(n: int, group_sizes: List[int]
@@ -337,6 +370,19 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split: int, concat: int):
                            split, concat, mesh.group(axis))
 
 
+def _reduce_scatter(t: torch.Tensor, dim: int, ranks: Sequence[int],
+                    index: int, group) -> torch.Tensor:
+    """This member's 1/n along `dim` of the sum over the group of each
+    member's `t` (`dim` a multiple of n): the all-to-all of the n chunks
+    (gloo has no reduce-scatter), then their sum in member order."""
+    parts = _all_to_all_raw(t, ranks, index, dim, 0, group).chunk(
+        len(ranks), dim=0)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
 class _GatherDim(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, ranks, index, group):
@@ -347,12 +393,8 @@ class _GatherDim(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dim, ranks, index, group = ctx.conf
-        parts = _all_to_all_raw(g, ranks, index, dim, 0, group).chunk(
-            len(ranks), dim=0)
-        out = parts[0]
-        for p in parts[1:]:
-            out = out + p
-        return out, None, None, None, None
+        return _reduce_scatter(g, dim, ranks, index, group), None, None, \
+            None, None
 
 
 def gather_dim(x: torch.Tensor, mesh, axis: str, dim: int):
@@ -468,3 +510,318 @@ def gather_shards(t: torch.Tensor, dim: int, group, size: int):
     """The full tensor from the ranks' equal shards along `dim`."""
     moved = t.detach().movedim(dim, -1)
     return all_gather_last(moved, group, size).movedim(-1, dim)
+
+
+def allgather_dims(x: torch.Tensor, mesh, axes: Sequence[Optional[str]],
+                   dims: Sequence[int]) -> torch.Tensor:
+    """`x` gathered along each dim of `dims` over the group of its mesh
+    axis (`axes[d]`), the other dims as they are; no gradient (JAX
+    `kernels/redistribute.py allgather_dims`, the resharding executor's
+    same-mesh gather)."""
+    for d in dims:
+        x = gather_shards(x, d, mesh.group(axes[d]), mesh.size(axes[d]))
+    return x
+
+
+# -- the explicit gradient sync (the module docstring) ----------------------
+
+@dataclasses.dataclass
+class TierGroups:
+    """One tier decomposition of the data axis: for each level
+    (inner-first), this rank's group, its members' global ranks in
+    coordinate order and its position among them."""
+
+    sizes: Tuple[int, ...]
+    groups: List[Any]
+    ranks: List[List[int]]
+    index: List[int]
+
+
+def make_tier_groups(mesh, sizes: Sequence[int]) -> Optional[TierGroups]:
+    """The process groups of each tier level of `mesh`'s data axis
+    (`tier_axis_groups`), made by every rank of the world in the same
+    order (a rank past the mesh too, which holds none: None)."""
+    n = mesh.size("data")
+    coords_ranks = mesh.group_ranks.get("data") or list(range(n))
+    mine = None
+    if mesh.holds_position:
+        mine = TierGroups(tuple(sizes), [], [], [])
+    for level in tier_axis_groups(n, list(sizes)):
+        for coords in level:
+            ranks = [coords_ranks[c] for c in coords]
+            group = dist.new_group(ranks)
+            if mine is not None and mesh.rank in ranks:
+                mine.groups.append(group)
+                mine.ranks.append(ranks)
+                mine.index.append(ranks.index(mesh.rank))
+    return mine
+
+
+def lower_allreduce(x: torch.Tensor, strategy: str, tiers: TierGroups,
+                    flat_group) -> torch.Tensor:
+    """One synced tensor's explicit all-reduce (SUM) over the data axis,
+    decomposed per `strategy` over the tier groups (JAX
+    `lower_allreduce`). The caller divides by the degree for the MEAN."""
+    if strategy == "flat" or len(tiers.sizes) <= 1:
+        return all_reduce(x, flat_group)
+    if strategy == "hier_ring":
+        # a full-bytes ring per tier, inner-first
+        for group in tiers.groups:
+            x = all_reduce(x, group)
+        return x
+    if strategy == "rs_ar_ag":
+        shape, size = x.shape, x.numel()
+        flat = x.reshape(-1)
+        inner = math.prod(tiers.sizes[:-1])
+        pad = (-size) % inner
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        levels = list(zip(tiers.groups, tiers.ranks, tiers.index))
+        # reduce-scatter up the inner tiers: each phase leaves this rank
+        # its 1/nj shard of its group's partial sum
+        for group, ranks, index in levels[:-1]:
+            flat = _reduce_scatter(flat, 0, ranks, index, group)
+        # all-reduce the residual shard across the outermost tier
+        flat = all_reduce(flat, levels[-1][0])
+        # all-gather back down, mirroring the scatter order
+        for group, ranks, _ in reversed(levels[:-1]):
+            flat = all_gather_first(flat, group, len(ranks))
+        if pad:
+            flat = flat[:size]
+        return flat.reshape(shape)
+    raise CollectiveLoweringError(
+        f"unknown reduction strategy {strategy!r}; choices:"
+        " flat, rs_ar_ag, hier_ring")
+
+
+@dataclasses.dataclass
+class GradSyncLowering:
+    """The executable form of a reduction plan (JAX `GradSyncLowering`):
+    per synced op, the strategy and tier group sizes its gradients'
+    all-reduce decomposes into along the data axis."""
+
+    axis_name: str
+    degree: int
+    # op name -> {"strategy", "sizes": [inner..outer], "tiers": [names],
+    # "bucket": priced bucket id or None (per-tensor), "bytes"}
+    entries: Dict[str, Dict[str, Any]]
+    mode: str = "explicit"
+    # sizes tuple -> this rank's TierGroups (make_groups)
+    tier_groups: Dict[Tuple[int, ...], Any] = dataclasses.field(
+        default_factory=dict)
+    flat_group: Any = None
+
+    def executed_plan(self) -> Dict[str, str]:
+        """{op name: strategy} as lowered — what the FFTA072 analysis
+        check compares the priced reduction_plan against."""
+        return {name: e["strategy"] for name, e in self.entries.items()}
+
+    def executed_buckets(self) -> Dict[str, Optional[int]]:
+        """{op name: bucket id (None = per-tensor)} as lowered."""
+        return {name: e.get("bucket")
+                for name, e in self.entries.items()}
+
+    def bucket_map(self) -> Dict[int, List[str]]:
+        """{bucket id: [op names]} over the bucketed entries, in entry
+        (topo) order — each bucket lowers as ONE fused collective over
+        its members' concatenated gradients."""
+        out: Dict[int, List[str]] = {}
+        for name, e in self.entries.items():
+            bid = e.get("bucket")
+            if bid is not None:
+                out.setdefault(bid, []).append(name)
+        return out
+
+    def strategy_counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for e in self.entries.values():
+            out[e["strategy"]] = out.get(e["strategy"], 0) + 1
+        return out
+
+    def make_groups(self, mesh) -> None:
+        """The tier groups of every decomposition the entries use, made
+        once by every rank of the world in entry order (compile calls
+        it, before any step)."""
+        self.flat_group = mesh.group("data")
+        for e in self.entries.values():
+            sizes = tuple(e["sizes"])
+            if len(sizes) > 1 and sizes not in self.tier_groups:
+                self.tier_groups[sizes] = make_tier_groups(mesh, sizes)
+
+    def _reduce(self, x: torch.Tensor, e) -> torch.Tensor:
+        strategy = e["strategy"] if e else "flat"
+        sizes = tuple(e["sizes"]) if e else (self.degree,)
+        tiers = self.tier_groups.get(sizes) or TierGroups(sizes, [], [], [])
+        return lower_allreduce(x, strategy, tiers,
+                               self.flat_group).div_(self.degree)
+
+    def sync_tree(self, grads: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        """Replace each gradient of a {op: {weight: grad}} tree by its
+        data-group MEAN, in place, with each op's planned strategy (ops
+        absent from the plan sync flat). A bucket's members are flattened
+        and concatenated (per dtype), reduced as one, and split back.
+        Every result is computed before any is written: autograd may hand
+        one tensor to two weights."""
+        results: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        buckets: Dict[int, List[torch.Tensor]] = {}
+        for op_name, sub in grads.items():
+            e = self.entries.get(op_name)
+            if e is not None and e.get("bucket") is not None:
+                buckets.setdefault(e["bucket"], []).extend(sub.values())
+                continue
+            for g in sub.values():
+                results.append((g, self._reduce(g, e)))
+        for bid in sorted(buckets):
+            e0 = self.entries[self.bucket_map()[bid][0]]
+            by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+            for g in buckets[bid]:
+                by_dtype.setdefault(g.dtype, []).append(g)
+            for gs in by_dtype.values():
+                red = self._reduce(torch.cat([g.reshape(-1) for g in gs]),
+                                   e0)
+                at = 0
+                for g in gs:
+                    results.append((g, red[at:at + g.numel()].view_as(g)))
+                    at += g.numel()
+        with torch.no_grad():
+            for g, r in results:
+                g.copy_(r)
+
+    def record(self) -> None:
+        """Count every lowered tensor on
+        ff_collective_lowered_total{strategy,tier} (and each bucket on
+        ff_grad_sync_overlap_buckets_total{strategy}) and emit the
+        exec.grad_sync span carrying the executed schedule, with one
+        exec.grad_sync.bucket child a bucket. Once per lowering."""
+        if getattr(self, "_recorded", False):
+            return
+        self._recorded = True
+        c = lowered_counter()
+        buckets = self.bucket_map()
+        tracer = get_tracer()
+        with tracer.span(
+                "exec.grad_sync", mode=self.mode, axis=self.axis_name,
+                degree=self.degree, tensors=len(self.entries),
+                buckets=len(buckets),
+                strategies=self.strategy_counts()):
+            for e in self.entries.values():
+                for tier in (e["tiers"] or ["mesh"]):
+                    c.inc(strategy=e["strategy"], tier=tier)
+            bc = overlap_bucket_counter()
+            for bid, names in sorted(buckets.items()):
+                e0 = self.entries[names[0]]
+                bc.inc(strategy=e0["strategy"])
+                with tracer.span("exec.grad_sync.bucket", bucket=bid,
+                                 tensors=len(names),
+                                 strategy=e0["strategy"],
+                                 bytes=sum(self.entries[n].get("bytes")
+                                           or 0 for n in names)):
+                    pass
+
+
+def plan_grad_sync_lowering(config, graph, mesh, reduction_plan,
+                            pipeline_plan=None
+                            ) -> Tuple[Optional[GradSyncLowering],
+                                       Tuple[str, ...]]:
+    """Decide whether (and how) to lower the reduction plan explicitly
+    (JAX `plan_grad_sync_lowering`, the same reasons). Returns
+    (lowering, reasons): lowering is None when the flat mean should run,
+    because the knob says so, because ``auto`` found nothing cross-tier
+    to decompose, or because the plan is unsupported (reasons name why;
+    the caller raises for mode ``explicit``). Supported means: a 'data'
+    mesh axis (degree > 1) carries every sync group, no pipeline region
+    and no other mesh axis, and no ops with running state. `mesh` is a
+    core.machine.Mesh (or None). The lowering's tier groups are not made
+    here: the caller makes them on every rank (make_groups)."""
+    mode = getattr(config, "collective_lowering", "gspmd") or "gspmd"
+    if mode not in COLLECTIVE_LOWERINGS:
+        raise CollectiveLoweringError(
+            f"collective_lowering={mode!r}: choices are"
+            f" {COLLECTIVE_LOWERINGS}")
+    if mode == "gspmd":
+        return None, ()
+    reasons: List[str] = []
+    axis = "data"
+    shape = dict(mesh.shape) if mesh is not None else {}
+    dp = int(shape.get(axis, 1))
+    if dp <= 1:
+        reasons.append("no 'data' mesh axis with degree > 1 to sync over")
+    if pipeline_plan is not None:
+        reasons.append("the pipeline region already lowers through its"
+                       " own shard_map (nesting is illegal)")
+    other = sorted(a for a, s in shape.items() if a != axis and s > 1)
+    if other:
+        reasons.append(
+            "mesh axes beyond 'data' cannot be lowered explicitly"
+            " yet: " + ", ".join(other))
+    stateful = sorted(op.name for op in graph.ops.values()
+                      if op.state_vars)
+    if stateful:
+        reasons.append(
+            "ops with running state need GSPMD's global batch statistics:"
+            " " + ", ".join(stateful[:3]))
+    plan = dict(reduction_plan or {})
+    if not reasons:
+        mismatched = sorted(
+            name for name, e in plan.items()
+            if int(e.get("degree") or dp) != dp)
+        if mismatched:
+            reasons.append(
+                "sync group != the data axis (dp x ap attribute-parallel"
+                " sync) for: " + ", ".join(mismatched[:3]))
+    if reasons:
+        return None, tuple(reasons)
+    entries: Dict[str, Dict[str, Any]] = {}
+    for op in graph.topo_order():
+        if not op.weights:
+            continue
+        e = plan.get(op.name)
+        strategy, sizes, tiers, bucket = "flat", [dp], [], None
+        if e:
+            tier_list = e.get("tiers") or []
+            cand = [int(t["group"]) for t in tier_list]
+            if cand and math.prod(cand) == dp:
+                strategy = str(e.get("strategy", "flat"))
+                sizes = cand
+                tiers = [str(t["tier"]) for t in tier_list]
+                bucket = e.get("bucket")
+        entries[op.name] = {"strategy": strategy, "sizes": sizes,
+                            "tiers": tiers, "bucket": bucket,
+                            "bytes": float((e or {}).get("bytes") or 0.0)}
+    if mode == "auto" and not any(len(e["sizes"]) > 1
+                                  for e in entries.values()):
+        return None, ("auto: no cross-tier reduction to decompose — the"
+                      " flat mean is already tier-optimal",)
+    if not entries:
+        return None, ("no synced weight tensors",)
+    lowering = GradSyncLowering(axis_name=axis, degree=dp,
+                                entries=entries, mode=mode)
+    _verify_lowered_program(config, graph, lowering)
+    return lowering, ()
+
+
+def _verify_lowered_program(config, graph, lowering) -> None:
+    """The sharding-flow gate before the lowering's first step (JAX
+    `_verify_lowered_program`): the executed program must discharge every
+    pending gradient (FFTA090), carry partition-legal groups (FFTA091),
+    and be deadlock-free (FFTA092). Honors plan_analysis: "error" raises
+    PlanAnalysisError, "warn" logs, "off" skips."""
+    gate = getattr(config, "plan_analysis", "error") or "error"
+    if gate == "off":
+        return
+    from ..analysis.diagnostics import (DiagnosticReport,
+                                        PlanAnalysisError, record_report)
+    from ..analysis.interp import verify_grad_sync_program
+
+    report = DiagnosticReport(passes_run=["collective_program"])
+    report.extend(verify_grad_sync_program(lowering, graph=graph))
+    if not report.diagnostics:
+        return
+    record_report(report)
+    import logging
+
+    log = logging.getLogger("flexflow_tpu_torch.collectives")
+    for d in report.diagnostics:
+        log.warning("collective program: %s", d.format())
+    if gate == "error" and report.errors():
+        raise PlanAnalysisError(report)

@@ -38,6 +38,16 @@ between those ranks gives in its backward the sum of the ranks'
 gradients (runtime/collectives.py), so the average is the global
 gradient.
 
+An explicit parallel op (parallel/parallel_ops.py) changes its value's
+cuts itself (`Op.reshard`): a Combine or Replicate of a data-cut value
+makes it whole, and the ops after it compute on the whole batch until a
+Repartition cuts it again; an op meeting such a value beside a data-cut
+one cuts it to the rank's samples, and so does the loss (`whole_value`).
+Over `data` the gradients are averaged in one flat bucket, or, under an
+explicit grad-sync lowering (`grad_sync_lowering`,
+runtime/collectives.py GradSyncLowering), by the reduction plan's
+per-tensor strategies and fused buckets.
+
 On a `stage` axis (JAX `executor.py:55-64, 100-140`) the graph's
 repeated-block region (parallel/pipeline_plan.py `find_pipeline_plan`)
 runs through the GPipe schedule (kernels/pipeline.py): this rank walks
@@ -114,8 +124,13 @@ class Executor:
         # whether the walks' inputs are this rank's slice of the batch
         # over `data` (FFModel._data_slice decides it a batch)
         self.batch_cut = True
-        # the last walk's cut axes by tensor guid
+        # the last walk's cut axes by tensor guid, and the values a
+        # parallel op made whole of the batch (forward_values)
         self.last_cuts: Dict[int, frozenset] = {}
+        self.last_made_whole: set = set()
+        # the data axis's explicit gradient sync (FFModel.compile sets it
+        # under collective_lowering; None: the one flat bucket)
+        self.grad_sync_lowering = None
         # a `stage` axis: the pipelined region and its microbatches
         self.pipeline_plan = None
         if mesh is not None and mesh.size("stage") > 1:
@@ -226,6 +241,22 @@ class Executor:
                 in_cuts[i] = c | {axis}
         return ins, in_cuts
 
+    def _cut_whole_batch(self, op, ins, in_cuts, made_whole):
+        """Beside a data-cut input, a whole input of the same batch that
+        a parallel op made whole (`made_whole`) cut to this rank's slice:
+        the op computes on the rank's samples alone."""
+        if not made_whole:
+            return ins, in_cuts
+        batch = next(t.dims[0] for t, c in zip(op.inputs, in_cuts)
+                     if "data" in c)
+        ins, in_cuts = list(ins), list(in_cuts)
+        for i, (t, v, c) in enumerate(zip(op.inputs, ins, in_cuts)):
+            if (t.guid in made_whole and t.dims[0] == batch
+                    and v.shape[0] == batch):
+                ins[i] = cut_dim(v, self.mesh, "data", 0)
+                in_cuts[i] = c | {"data"}
+        return ins, in_cuts
+
     def _whole(self, v: torch.Tensor, cuts) -> torch.Tensor:
         """v gathered over `seq` and `attr` where `cuts` names them (its
         `data` cut stays)."""
@@ -237,9 +268,16 @@ class Executor:
     def whole_value(self, values: Dict[int, torch.Tensor], tensor
                     ) -> torch.Tensor:
         """`tensor`'s value of the last walk, whole over `seq` and
-        `attr`."""
-        return self._whole(values[tensor.guid],
-                           self.last_cuts.get(tensor.guid, frozenset()))
+        `attr`, and cut over `data` as the walk's inputs were (a value a
+        parallel op made whole is cut to the rank's samples, which its
+        label holds)."""
+        cuts = self.last_cuts.get(tensor.guid, frozenset())
+        v = self._whole(values[tensor.guid], cuts)
+        mesh = self.mesh
+        if (tensor.guid in self.last_made_whole
+                and tensor.dims[0] % mesh.size("data") == 0):
+            v = cut_dim(v, mesh, "data", 0)
+        return v
 
     def forward_values(
         self,
@@ -302,6 +340,9 @@ class Executor:
         cuts: Dict[int, frozenset] = {}
         inputs_cut = frozenset({"data"} if dp > 1 and self.batch_cut
                                else ())
+        # values of the whole batch a parallel op made from data-cut ones,
+        # and what ops compute from them alone
+        made_whole: set = set()
         plan = self.pipeline_plan
         with torch.set_grad_enabled(training if record is None
                                     else record):
@@ -324,8 +365,27 @@ class Executor:
                     continue
                 ins = [ctx.values[t.guid] for t in op.inputs]
                 in_cuts = [cuts.get(t.guid, frozenset()) for t in op.inputs]
+                if mesh is not None and hasattr(op, "reshard"):
+                    # an explicit parallel op (parallel/parallel_ops.py)
+                    v, c = op.reshard(mesh, ins[0], in_cuts[0])
+                    t = op.outputs[0]
+                    # a gather's or a cut's view, laid out for the kernels
+                    ctx.values[t.guid] = v.to(emit_dtype(
+                        self.config, t.dtype)).contiguous()
+                    if c:
+                        cuts[t.guid] = frozenset(c)
+                    elif inputs_cut and t.dims and v.dim() \
+                            and v.shape[0] == t.dims[0]:
+                        made_whole.add(t.guid)
+                    continue
                 fed_cut = any("data" in c for c in in_cuts)
                 whole = fed_cut and op.whole_batch
+                if fed_cut and not whole:
+                    ins, in_cuts = self._cut_whole_batch(op, ins, in_cuts,
+                                                         made_whole)
+                elif not fed_cut and any(t.guid in made_whole
+                                         for t in op.inputs):
+                    made_whole.update(t.guid for t in op.outputs)
                 if whole:
                     group, at = mesh.group("data"), mesh.index("data")
                     ins = [gather_batch(v, group, at, dp) if "data" in c
@@ -359,6 +419,7 @@ class Executor:
                     if t_axes:
                         cuts[t.guid] = frozenset(t_axes)
         self.last_cuts = cuts
+        self.last_made_whole = made_whole
         return ctx.values
 
     # -- step builders -----------------------------------------------------
@@ -397,16 +458,20 @@ class Executor:
             for (op, w, p), g in zip(flat, got):
                 grads[op][w] = torch.zeros_like(p) if g is None else g
             mvals["loss"] = loss.detach()
-            self._data_mean([grads[op][w] for op, w, _ in flat], mvals)
+            self._data_mean([grads[op][w] for op, w, _ in flat], mvals,
+                            grads)
             return grads, mvals
 
         return gstep
 
-    def _data_mean(self, grads, mvals) -> None:
+    def _data_mean(self, grads, mvals, tree: Optional[Tree] = None) -> None:
         """Average gradients (one bucket an axis) over the mesh's `data`,
         `seq` and `attr` axes, and the metric values over `data` (they are
         the same on every rank of the other two), in place; nothing
-        without those axes."""
+        without those axes. Over `data`, an explicit grad-sync lowering
+        (`grad_sync_lowering`, runtime/collectives.py GradSyncLowering)
+        runs the plan's per-tensor strategies and fused buckets over the
+        gradient `tree` instead of the one flat bucket."""
         if self.mesh is None:
             return
         with torch.no_grad():
@@ -418,7 +483,10 @@ class Executor:
             if size == 1:
                 return
             group = self.mesh.group("data")
-            mean_(grads, group, size)
+            if self.grad_sync_lowering is not None and tree is not None:
+                self.grad_sync_lowering.sync_tree(tree)
+            else:
+                mean_(grads, group, size)
             keys = sorted(mvals)
             vals = torch.stack([mvals[k].float() for k in keys])
             mean_([vals], group, size)

@@ -30,10 +30,9 @@ executed. Here a Rule becomes a real rewrite:
 Applications integrate with the joint search (search_rules) and the
 import-strategy replay exactly like the hand-written algebraic rules.
 
-The port's copy of flexflow_tpu/search/graph_xfer.py: matching whole;
-applying a rule whose target holds a parallel op raises, naming ROADMAP
-A8 (the port has no parallel ops; a search under a file that loads such
-rules raises before it starts, substitution.reject_parallel_op_rules).
+The port's copy of flexflow_tpu/search/graph_xfer.py: the parallel ops a
+target inserts are the port's (parallel/parallel_ops.py), built from the
+matched op's model config (substitution._model_of).
 """
 from __future__ import annotations
 
@@ -277,12 +276,13 @@ class GraphXfer:
 
     # -- replacement -------------------------------------------------------
     def _apply(self, graph: Graph, binding: List[Op], ext: Dict) -> None:
+        from ..parallel import parallel_ops as P
+        from .substitution import _model_of
+
         rule = self.rule
-        if any(o.is_parallel_op for o in rule.dst_ops):
-            raise NotImplementedError(
-                f"{self.name}: the rule's target inserts parallel ops, which "
-                "are not ported yet (ROADMAP A8)")
+        model = _model_of(binding[0])
         dst_vals: Dict[Tuple[int, int], object] = {}
+        new_guids = set()
 
         def resolve(tx):
             if tx.is_external:
@@ -291,15 +291,30 @@ class GraphXfer:
 
         for j, o in enumerate(rule.dst_ops):
             ins = [resolve(tx) for tx in o.inputs]
-            op_new = binding[self.dst_pairing[j]]
-            for k, t in enumerate(ins):
-                # weight markers: the reused op's own internal weights,
-                # nothing to rewire (_valid_match guarantees every
-                # non-marker entry sits within the op's data arity)
-                if isinstance(t, _WeightRef):
-                    continue
-                op_new.inputs[k] = t
-            graph.invalidate_topo()  # in-place edge mutation
+            if o.is_parallel_op:
+                cls = getattr(P, _PARALLEL_CLS[o.op_type])
+                kwargs = {"degree": o.parallel_degree or 1}
+                if o.op_type != OpType.REPLICATE:
+                    kwargs["dim"] = o.parallel_dim or 0
+                # deterministic name from the match site: a replayed
+                # rewrite (strategy --import) recreates the SAME names, so
+                # exported per-op strategy entries resolve
+                op_new = cls(model, [ins[0]],
+                             name=f"xfer.{rule.name}.{j}.{binding[0].name}",
+                             **kwargs)
+                op_new.xfer_created = True  # anti-restacking marker
+                graph.add_op(op_new)
+                new_guids.add(op_new.guid)
+            else:
+                op_new = binding[self.dst_pairing[j]]
+                for k, t in enumerate(ins):
+                    # weight markers: the reused op's own internal weights,
+                    # nothing to rewire (_valid_match guarantees every
+                    # non-marker entry sits within the op's data arity)
+                    if isinstance(t, _WeightRef):
+                        continue
+                    op_new.inputs[k] = t
+                graph.invalidate_topo()  # in-place edge mutation
             for ts, t in enumerate(op_new.outputs):
                 dst_vals[(j, ts)] = t
 
@@ -310,7 +325,7 @@ class GraphXfer:
             old = binding[m.src_op_id].outputs[m.src_ts_id]
             new = dst_vals[(m.dst_op_id, m.dst_ts_id)]
             if old.guid != new.guid:
-                _rewire(graph, old, new, skip_guids=reused)
+                _rewire(graph, old, new, skip_guids=new_guids | reused)
 
         # drop src ops that were not reused as dst compute ops
         for i, op in enumerate(binding):

@@ -81,9 +81,7 @@ def mcmc_search(graph: Graph, config, machine: MachineModel,
     Simulator — measured costs auto-enabled on real accelerators exactly
     as unity_optimize does — so the two searches are comparable)."""
     from ..obs.tracing import get_tracer
-    from .substitution import reject_parallel_op_rules
 
-    reject_parallel_op_rules(config)
     with get_tracer().span("search", algo="mcmc", n_devices=n_devices):
         return _mcmc_search_inner(graph, config, machine, batch_size,
                                   n_devices, simulator)

@@ -27,9 +27,9 @@ moved by one pod. This module makes the search incremental:
    cache HIT by the time the event fires and the search leaves the
    recovery pause entirely.
  - `plan_distance_us` — the reshard-awareness term of a re-plan off a
-   LIVE plan. The port's copy raises, naming ROADMAP A8: it prices
-   through the resharding planner, and a live plan comes only from the
-   elastic re-plan (A9.3).
+   LIVE plan, priced through the port's resharding planner (a live plan
+   is resharding.plan_of of a running model; the elastic re-plan that
+   produces one is ROADMAP A9.3).
 
 Metrics: ff_search_cache_{hits,misses,evictions}_total,
 ff_search_warm_starts_total, and the ff_search_wall_time_ms histogram
@@ -471,26 +471,96 @@ def count_warm_start(registry=None) -> None:
 
 # -- plan distance (reshard-aware re-planning) ------------------------------
 
-def _candidate_weight_plan(graph, strategies, mesh_axes, device_ids):
-    """A ShardingPlan of the candidate's weights (the JAX package builds
-    it over resharding/plan.py): NotImplementedError, since the
-    resharding planner is ROADMAP A8."""
-    raise NotImplementedError(
-        "the candidate weight plan needs the resharding planner "
-        "(resharding/plan.py), which is not ported yet (ROADMAP A8)")
+def _candidate_weight_plan(graph, strategies, mesh_axes,
+                           device_ids) -> "object":
+    """A ShardingPlan for the candidate's WEIGHTS under `strategies`,
+    built without compiling: the same per-op sharding rules
+    FFModel._assign_strategy applies (TP shards the registered weight
+    dim over 'model', row-TP the linear kernel's in-features, EP the
+    stacked expert dim; dp/ap/sp leave weights replicated)."""
+    from ..ffconst import OpType
+    from ..resharding.plan import ArraySpec, MeshSpec, ShardingPlan
+    from .simulator import TP_WEIGHT_SHARD_DIMS
+
+    mesh = MeshSpec(device_ids=tuple(int(i) for i in device_ids),
+                    axes=tuple((str(k), int(v))
+                               for k, v in (mesh_axes or {}).items()))
+    # the runtime clamps a searched ep to the mesh's expert axis
+    # (model.py _assign_strategy: min(s.ep, axes['expert'])) — the priced
+    # candidate must claim the same degree, or a cached ep plan
+    # transplanted onto a pod-loss survivor mesh prices a reshard the
+    # runtime will never perform
+    ep_cap = int((mesh_axes or {}).get("expert", 1))
+    arrays: Dict[str, Any] = {}
+    for op in graph.topo_order():
+        s = strategies.get(op.guid)
+        if s is None:
+            continue
+        for w in op.weights:
+            wname = getattr(w._weight_spec, "name", None)
+            if wname is None:
+                continue
+            degrees = [1] * len(w.dims)
+            axes: List[Optional[str]] = [None] * len(w.dims)
+            op_ep = min(int(getattr(s, "ep", 1)), ep_cap)
+            if (op.op_type == OpType.EXPERTS and op_ep > 1
+                    and w.dims[0] % op_ep == 0):
+                degrees[0], axes[0] = op_ep, "expert"
+            elif s.tp > 1:
+                shard_dim = ({"kernel": 0} if s.tp_row
+                             else TP_WEIGHT_SHARD_DIMS.get(op.op_type))
+                if shard_dim and wname in shard_dim:
+                    d = shard_dim[wname] % len(w.dims)
+                    if w.dims[d] % s.tp == 0:
+                        degrees[d], axes[d] = s.tp, "model"
+            arrays[f"params/{op.name}/{wname}"] = ArraySpec(
+                degrees=tuple(degrees), axes=tuple(axes))
+    return ShardingPlan(mesh=mesh, arrays=arrays)
 
 
 def plan_distance_us(graph, live_plan, strategies, mesh_axes, machine,
                      n_devices: int, device_ids=None) -> float:
-    """Predicted cost (us) of redistributing the LIVE weights onto a
-    candidate plan, the warm re-plan's distance term (JAX prices it
-    through resharding/cost.py). A live plan comes only from the elastic
-    re-plan (ROADMAP A9.3); pricing it needs the resharding planner, so a
-    live plan raises NotImplementedError naming ROADMAP A8."""
-    raise NotImplementedError(
-        "plan_distance_us with a live plan needs the resharding planner "
-        "(resharding/plan.py, resharding/cost.py), which is not ported yet "
-        "(ROADMAP A8)")
+    """Predicted cost (us) of redistributing the LIVE weights from
+    `live_plan` (resharding.plan_of of the running model) onto the
+    candidate plan — priced through the same resharding/cost.py terms
+    an actual recovery pays. The warm re-plan's objective adds this,
+    weighted by --replan-distance-weight, so a marginally-cheaper step
+    never wins by triggering a massive reshard. Unplannable moves
+    (shape/spec mismatch) degrade to a bytes/bandwidth estimate.
+    `device_ids`: the candidate's real device set — defaults to
+    0..n-1, but re-plans must pass the survivor ids so an unchanged
+    layout prices as a noop rather than a cross-mesh transfer."""
+    from ..resharding.cost import step_cost_us
+    from ..resharding.plan import ReshardPlanError, plan_move
+
+    ids = (list(device_ids)[:int(n_devices)] if device_ids
+           else list(range(int(n_devices))))
+    cand = _candidate_weight_plan(graph, strategies, mesh_axes, ids)
+    peak = int(0.25 * machine.memory_budget_bytes())
+    total = 0.0
+    for op in graph.topo_order():
+        for w in op.weights:
+            wname = getattr(w._weight_spec, "name", None)
+            if wname is None:
+                continue
+            path = f"params/{op.name}/{wname}"
+            itemsize = w.dtype.np_dtype.itemsize
+            try:
+                move = plan_move(path, tuple(int(d) for d in w.dims),
+                                 itemsize, str(w.dtype.value), live_plan,
+                                 cand, peak, machine=machine)
+            except ReshardPlanError:
+                bytes_ = w.num_elements() * itemsize
+                total += machine.p2p_time_us(bytes_)
+                continue
+            if move.noop:
+                continue
+            per_round = sum(
+                step_cost_us(s, machine,
+                             n_devices=len(cand.mesh.device_ids))
+                for s in move.steps)
+            total += max(1, move.rounds) * per_round
+    return total
 
 
 # -- background pre-planning ------------------------------------------------

@@ -1,6 +1,5 @@
 """Cost simulator: per-op costs and whole-graph strategy cost
-(counterpart of flexflow_tpu/search/simulator.py: everything but
-resharding, which is ROADMAP A8).
+(counterpart of flexflow_tpu/search/simulator.py).
 
 Reference: src/runtime/simulator.{cc,cu} — per-op cost comes from *measuring*
 real kernels (measure_operator_cost, simulator.cc:489; cudaEvent timing
@@ -1505,7 +1504,12 @@ class Simulator:
 
 
 def reshard_cost_us(schedule, machine) -> float:
-    """Price a live-resharding schedule (JAX: resharding/cost.py
-    schedule_cost_us); live resharding is not ported (ROADMAP A8)."""
-    raise NotImplementedError(
-        "reshard_cost_us: live resharding is not ported yet (ROADMAP A8)")
+    """Price a live-resharding schedule (resharding/plan.py) with the
+    SAME machine-model collective terms the simulator prices plans with —
+    so an elastic recovery's redistribute step and a serving mesh resize
+    are costed in the same currency as the plans they move between. Thin
+    hook over resharding.cost.schedule_cost_us, exposed here so search-
+    side callers need not import the resharding package directly."""
+    from ..resharding.cost import schedule_cost_us
+
+    return schedule_cost_us(schedule, machine)

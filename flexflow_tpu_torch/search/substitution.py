@@ -23,10 +23,7 @@ before compile draws any weight (FFModel._compile_inner), so an op a rule
 creates (a merged linear or conv) draws its weights once, at its final
 shape. The port's ops keep their model's config, not the model
 (core/op.py), so a created op is built from that (`_model_of`). The
-port's graphs hold no parallel op (the layer methods raise, naming
-ROADMAP A8), so `rule_fuse_parallel_ops` finds no application, and
-`reject_parallel_op_rules` refuses a TASO rule file whose GraphXfers
-would insert one.
+parallel ops a rule creates are parallel/parallel_ops.py's.
 """
 from __future__ import annotations
 
@@ -337,12 +334,43 @@ def rule_drop_noop_cast(graph: Graph) -> List[Application]:
 
 
 def rule_fuse_parallel_ops(graph: Graph) -> List[Application]:
-    """Two consecutive parallel ops ==> one FusedParallelOp (reference:
-    src/parallel_ops/fused_parallel_op.cc). The port's graphs hold no
-    parallel op: the layer methods that make them raise, naming ROADMAP A8,
-    and so does a rule file whose GraphXfers would insert them
-    (reject_parallel_op_rules). So this rule finds no application."""
-    return []
+    """Two consecutive parallel ops ==> one FusedParallelOp carrying both
+    descriptor chains (reference: src/parallel_ops/fused_parallel_op.cc —
+    the reference's graph optimizer emits FusedParallelOp for chained
+    reshards so data is forwarded once). Strictly shrinking and
+    value-identity (every absorbed op is an identity on values), so it runs
+    in the greedy pass; re-matching to fixed point collapses chains of any
+    length."""
+    from ..parallel.parallel_ops import descriptors_of
+
+    FUSABLE = {OpType.REPARTITION, OpType.COMBINE, OpType.REPLICATE,
+               OpType.FUSED_PARALLEL}
+    apps = []
+    for op in list(graph.ops.values()):
+        if op.op_type not in FUSABLE:
+            continue
+        src = op.inputs[0].owner_op
+        if src is None or src.op_type not in FUSABLE or src.guid not in graph.ops:
+            continue
+        if len(_consumers(graph, src)) != 1:
+            continue
+
+        def apply(op=op, src=src):
+            from ..core.op import OP_REGISTRY
+            from ..ffconst import OpType as OT
+
+            fused = OP_REGISTRY[OT.FUSED_PARALLEL](
+                _model_of(op), [src.inputs[0]], f"{src.name}+{op.name}",
+                descriptors=descriptors_of(src) + descriptors_of(op))
+            graph.add_op(fused)
+            _rewire(graph, op.outputs[0], fused.outputs[0])
+            graph.remove_op(op)
+            graph.remove_op(src)
+
+        apps.append(Application("fuse_parallel_ops", apply,
+                                f"{src.name}->{op.name}",
+                                key=(src.guid, op.guid)))
+    return apps
 
 
 ALL_RULES: Dict[str, Callable[[Graph], List[Application]]] = {
@@ -473,29 +501,6 @@ def load_rule_spec(json_path: Optional[str]):
     if isinstance(spec, list):
         return spec, True
     return spec, False
-
-
-def reject_parallel_op_rules(config) -> None:
-    """Raise, naming ROADMAP A8, when `config.substitution_json_path` is a
-    TASO rule file with rules whose targets insert parallel ops (476 of
-    the 640 rules of substitutions/graph_subst_3_v2.json; they are both
-    GraphXfers and TP-degree proposals): the port has no parallel ops, and
-    a search must not half-explore such a file. Called at the start of
-    every search."""
-    spec, is_taso = load_rule_spec(getattr(config, "substitution_json_path",
-                                           None))
-    if not is_taso:
-        return
-    from .substitution_loader import rules_from_spec
-
-    names = [r.name for r in rules_from_spec(spec)
-             if any(o.is_parallel_op for o in r.dst_ops)]
-    if names:
-        raise NotImplementedError(
-            f"{config.substitution_json_path}: {len(names)} rule(s) insert "
-            f"parallel ops (first: {names[0]}); parallel ops are not ported "
-            "yet (ROADMAP A8)")
-
 
 def rule_set_from_spec(spec, is_taso: bool) -> Dict[str, Callable]:
     """Select algebraic rules for a parsed spec. TASO files parameterize the

@@ -21,12 +21,9 @@ Memory-aware mode wraps the cost with runtime + lambda * overflow and binary
 searches lambda to fit the per-chip HBM budget (reference: graph.cc:2075-2131).
 
 The port's copy of flexflow_tpu/search/unity.py, host-only. It differs in
-three places: the search is always this Python path (the native core,
-`use_native_search`, has no effect here); measured op costs are the
-default when the config's device is a CUDA card (`_want_measured`); and
-what needs the parallel-op layer or the resharding planner raises,
-naming ROADMAP A8 (a rule file whose GraphXfers insert parallel ops, the
-re-plan's plan-distance term).
+two places: the search is always this Python path (the native core,
+`use_native_search`, has no effect here), and measured op costs are the
+default when the config's device is a CUDA card (`_want_measured`).
 """
 from __future__ import annotations
 
@@ -1098,8 +1095,6 @@ class GraphSearchHelper:
                 return plan_distance_us(self.graph, live_plan,
                                         strategies, axes, self.machine,
                                         n_devices, device_ids=cand_ids)
-            except NotImplementedError:
-                raise  # the term is not ported (ROADMAP A8): no silent drop
             except Exception as exc:  # noqa: BLE001 — pricing the
                 # distance term must never kill a re-plan; without it
                 # the candidate ranks on runtime alone
@@ -1408,9 +1403,7 @@ def unity_optimize(graph: Graph, config, machine: MachineModel,
     """Entry point (reference: FFModel::graph_optimize, substitution.cc:3589).
 
     The Python search below (the JAX package's behavioral spec; the
-    native core is not ported). A rule file that loads GraphXfers
-    inserting parallel ops raises here, before any search work, naming
-    ROADMAP A8.
+    native core is not ported).
 
     Plan cache (docs/search.md): unless disabled, the search is keyed by
     a content hash over (pre-rewrite graph, overlaid machine, batch,
@@ -1424,10 +1417,9 @@ def unity_optimize(graph: Graph, config, machine: MachineModel,
     cache — their answers depend on the mutable measured-cost cache,
     not just the key's content legs."""
     from . import plan_cache as _pc
-    from .substitution import load_rule_spec, reject_parallel_op_rules
+    from .substitution import load_rule_spec
 
     t_start = time.perf_counter()
-    reject_parallel_op_rules(config)
     # measured op costs (reference: the simulator profiles real kernels,
     # simulator.cc:489,537): on by default when a real accelerator is the
     # backend; the process-wide cache persists across compiles

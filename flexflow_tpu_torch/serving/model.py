@@ -28,7 +28,7 @@ state is written):
    captured before a graph rewrite never replays after it;
  - on the CPU each call runs the walk eagerly.
 
-On a mesh of CUDA ranks it raises (ROADMAP A8): a bucket is a CUDA
+On a mesh of CUDA ranks it raises (ROADMAP A8.2): a bucket is a CUDA
 graph, and gloo's host-staged collectives cannot be captured (the reason
 `fit(steps_per_execution > 1)` raises there too). On CPU ranks each
 bucket walks as `FFModel.predict` does on a mesh.
@@ -104,7 +104,7 @@ class InferenceModel:
         if model.mesh is not None and model.device.type == "cuda":
             raise NotImplementedError(
                 "InferenceModel on a mesh of CUDA ranks is not ported yet "
-                "(ROADMAP A8): a batch bucket is a CUDA graph, and gloo "
+                "(ROADMAP A8.2): a batch bucket is a CUDA graph, and gloo "
                 "stages every collective through host memory, which a "
                 "graph cannot capture")
         self.model = model

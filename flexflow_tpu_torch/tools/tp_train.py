@@ -97,8 +97,25 @@ JOB: Dict[str, Any] = {
     "analytic_twice": False,
     # a directory: after training, save a checkpoint there
     # (runtime/durability.py), restore it into a model drawn from another
-    # seed and predict with it (needs predict_batch)
+    # seed and predict with it (needs predict_batch); the restored
+    # weights and optimizer state are compared with the saved ones
     "checkpoint_dir": None,
+    # a checkpoint file restored into the model after compile, before
+    # training (runtime/checkpoint.py restore_checkpoint)
+    "restore_path": None,
+    # mesh axes: after training, redistribute the live weights and Adam
+    # moments (resharding/) onto a model compiled on these axes, with
+    # `reshard_peak` bytes of round scratch, check every shard against
+    # the gathered whole, train 2 more steps there, and move back
+    "reshard_to": None,
+    "reshard_peak": 64 << 20,
+    # > 0: the tokens repartitioned over dim 0 to this degree and combined
+    # back before the encoder (explicit parallel ops,
+    # parallel/parallel_ops.py)
+    "parallel_chain": 0,
+    # report each whole weight's change over the training as its norm
+    # (float64, "op/weight" -> norm): under SGD the sync's gradient scale
+    "update_norms": False,
 }
 
 
@@ -107,6 +124,9 @@ def _build_encoder(lib, model, job, **widths):
     cfg = lib.models.TransformerConfig(**widths)
     tokens = model.create_tensor([job["batch"], cfg.sequence_length],
                                  lib.DataType.DT_INT32)
+    if job.get("parallel_chain"):
+        tokens = model.combine(model.repartition(
+            tokens, 0, job["parallel_chain"]), 0)
     lib.models.build_bert_encoder(model, tokens, cfg,
                                   use_flash=job["use_flash"])
 
@@ -267,6 +287,10 @@ def build_encoder(job: Dict[str, Any], device: str):
         model.load_params(job["params"])
     if job["opt_state"] is not None:
         model.load_opt_state(job["opt_state"])
+    if job["restore_path"]:
+        from ..runtime.checkpoint import restore_checkpoint
+
+        restore_checkpoint(job["restore_path"], model)
     return model
 
 
@@ -319,7 +343,23 @@ def plan_of(model) -> Dict[str, Any]:
                             else [axes.get(a, 1) for a in
                                   ("data", "model", "expert", "attr",
                                    "seq")])
-    out: Dict[str, Any] = {"axes": axes, "ops": ops, "degrees": degrees}
+    out: Dict[str, Any] = {"axes": axes, "ops": ops, "degrees": degrees,
+                           "parallel_ops": {
+                               op.name: op.op_type.value
+                               for op in model.graph.topo_order()
+                               if hasattr(op, "reshard")},
+                           "xfer_ops": sorted(
+                               op.name for op in model.graph.topo_order()
+                               if getattr(op, "xfer_created", False))}
+    low = getattr(model, "_grad_sync", None)
+    if low is not None:
+        out["grad_sync"] = {
+            "mode": low.mode, "executed": low.executed_plan(),
+            "priced": {k: v["strategy"]
+                       for k, v in (model._reduction_plan or {}).items()},
+            "decomposed": sum(len(e["sizes"]) > 1
+                              for e in low.entries.values()),
+            "buckets": len(low.bucket_map())}
     sr = model.search_result
     if sr is not None:
         out["search"] = {
@@ -453,6 +493,27 @@ def pipeline_transformer_steps(job: Dict[str, Any], device: str
             "emb": emb.cpu().numpy(), "head": head.cpu().numpy()}
 
 
+def collective_sweep(spec: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """obs/collective_bench.py's sweep on this world's ranks as one data
+    axis: `spec` has the machine spec file (`machine`), the sizes in MB,
+    the strategies, warm-up and repeats. Rows as dicts."""
+    from ..config import FFConfig
+    from ..obs.collective_bench import sweep_collectives
+    from ..runtime import collectives
+
+    config = FFConfig(device=device, machine_model_file=spec["machine"])
+    collectives.reset_staged()
+    t0 = time.perf_counter()
+    res = sweep_collectives(
+        config, [int(mb * 1e6) for mb in spec["sizes_mb"]],
+        list(spec["strategies"]), warmup=spec.get("warmup", 1),
+        repeats=spec.get("repeats", 3))
+    res["rows"] = [r.to_dict() for r in res["rows"]]
+    res["wall_s"] = time.perf_counter() - t0
+    res["staged"] = dict(collectives.STAGED)
+    return res
+
+
 def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     import torch
 
@@ -460,6 +521,8 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         return attention_blocks(job, device)
     if "pipeline_transformer" in job:
         return pipeline_transformer_steps(job, device)
+    if "collective_sweep" in job:
+        return collective_sweep(job["collective_sweep"], device)
 
     from ..kernels import launch_counts, reset_launch_counts
     from ..runtime import collectives
@@ -495,6 +558,9 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         return out
     dev = model.device
     out["roles"] = roles_of(model)
+    before = ({op: {w: t.detach().clone() for w, t in ws.items()}
+               for op, ws in model.gather_params().items()}
+              if job["update_norms"] else None)
     if job["grad_steps"]:
         out["steps"] = grad_steps(model, x, y, job["grad_steps"],
                                   job["grad_norms_of"])
@@ -542,8 +608,17 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
             out["eval"] = model.eval(x, y, batch_size=job["batch"])
         if job["predict_batch"]:
             out["predict"] = model.predict(x, batch_size=job["predict_batch"])
+        if before is not None:
+            out["update_norms"] = {
+                f"{op}/{w}": float((t.double() - before[op][w].double())
+                                   .norm())
+                for op, ws in model.gather_params().items()
+                for w, t in ws.items()}
+            del before
         if job["checkpoint_dir"]:
             out.update(_checkpoint_round_trip(model, job, device))
+        if job["reshard_to"]:
+            out.update(_reshard(model, job, device))
     # the weights every rank holds whole must agree to the bit
     ex = model.executor
     out["replicated_digest"] = _digest(
@@ -569,14 +644,113 @@ def _checkpoint_round_trip(model, job: Dict[str, Any],
     and predict with that one."""
     from ..runtime.durability import DurableCheckpointer
 
+    import torch.distributed as dist
+
     ckpt = DurableCheckpointer(job["checkpoint_dir"])
+    t0 = time.perf_counter()
     path = ckpt.save(model, step=model._step_count)
+    save_s = time.perf_counter() - t0
     fresh = build_encoder(dict(job, seed=job["seed"] + 1, params=None,
-                               opt_state=None), device)
+                               opt_state=None, jax_params=None,
+                               restore_path=None), device)
+    t0 = time.perf_counter()
     step, restored = ckpt.restore_latest(fresh)
+    restore_s = time.perf_counter() - t0
+
+    def whole(m):
+        trees = {"params": m.gather_params()}
+        for k, v in m.opt_state.items():
+            trees[k] = m.gather_params(v) if isinstance(v, dict) else {
+                "": {"": v}}
+        return _digest(t for tree in trees.values() for ws in tree.values()
+                       for t in ws.values())
+
+    keys = (sorted(np.load(path).files) if dist.get_rank() == 0 else None)
     return {"checkpoint": path, "restored_step": step,
+            "checkpoint_keys": keys, "save_s": save_s,
+            "restore_s": restore_s,
+            "restored_state_equal": whole(model) == whole(fresh),
             "restored_predict": fresh.predict(
                 job["x"], batch_size=job["predict_batch"])}
+
+
+def _reshard(model, job: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """Redistribute `model`'s live weights and optimizer moments onto a
+    model compiled on `job["reshard_to"]` (resharding/, the FFTA06x gate
+    on), check every leaf of this rank against the slice of the gathered
+    whole, adopt them and train 2 steps there; then move
+    that model's state back onto a model on the first axes and check it
+    the same way (a gather of the `model` shards)."""
+    there, rec = _move(model, job["reshard_to"], job, device)
+    there.fit(job["x"], job["y"], batch_size=job["batch"], epochs=2)
+    rec["losses_after"] = [r["loss"] for r in there.step_records]
+    _, back = _move(there, model.parallel_axes, job, device)
+    rec["back"] = back
+    return {"reshard": rec}
+
+
+def _move(model, axes, job: Dict[str, Any], device: str):
+    """(a model compiled on `axes` holding `model`'s live state moved by
+    `redistribute`, the move's record)."""
+    import torch
+    import torch.distributed as dist
+
+    from ..resharding import (flatten_tree, live_tree, load_live_tree,
+                              plan_of, redistribute)
+    from ..resharding.executor import shard_box
+    from ..runtime import collectives
+    from ..search.machine_model import make_machine_model
+
+    old_plan = plan_of(model)
+    tree = live_tree(model)
+    whole = {"params": model.gather_params()}
+    if "opt_state" in tree:
+        whole["opt_state"] = {k: model.gather_params(v)
+                              for k, v in tree["opt_state"].items()}
+    new = build_encoder(dict(job, axes=axes, seed=job["seed"] + 1,
+                             params=None, opt_state=None, jax_params=None,
+                             restore_path=None), device)
+    new_plan = plan_of(new)
+    machine = make_machine_model(model.config, dist.get_world_size())
+    collectives.reset_staged()
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    res = redistribute(tree, old_plan, new_plan,
+                       peak_bytes=job["reshard_peak"], machine=machine,
+                       check=True, mesh=model.mesh)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    staged = dict(collectives.STAGED)
+    me = dist.get_rank()
+    flat_whole = flatten_tree(whole)
+    moves = {m.path: m for m in res.schedule.moves}
+    mismatched = []
+    for path, got in flatten_tree(res.tree).items():
+        move = moves[path]
+        box = shard_box(move.new, res.schedule.new_mesh, me, move.shape)
+        want = flat_whole[path]
+        for d, (lo, hi) in enumerate(box):
+            want = want.narrow(d, lo, hi - lo)
+        if not torch.equal(got.cpu(), want.to(got.dtype).cpu()):
+            mismatched.append(path)
+    load_live_tree(new, res.tree)
+    with torch.no_grad():
+        for k in ("step", "lr"):
+            new.opt_state[k].copy_(model.opt_state[k])
+    new._step_count = model._step_count
+    summary = res.schedule.summary()
+    return new, {
+        "old_axes": dict(old_plan.mesh.axes),
+        "new_axes": dict(new_plan.mesh.axes),
+        "arrays": summary["arrays"], "noop": summary["noop"],
+        "rounds": summary["rounds"],
+        "planned_scratch_bytes": summary["peak_scratch_bytes"],
+        "peak_bytes_bound": summary["peak_bytes_bound"],
+        "observed_peak_bytes": res.observed_peak_bytes,
+        "bytes_moved": res.bytes_moved, "wall_s": res.wall_s,
+        "transfer_rounds": res.transfer_rounds,
+        "allgather_rounds": res.allgather_rounds,
+        "staged": staged, "mismatched": mismatched}
 
 
 def run_rank(rank: int, world: int, init_method: str, device: str,

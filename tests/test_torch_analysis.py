@@ -385,12 +385,45 @@ def test_tier_axis_groups_match_jax():
 
 
 def test_resharding_checks_raise_naming_a8():
-    for fn in (pan.redistribution_diagnostics, pan.check_redistribution,
-               pinterp.build_reshard_program, pinterp.verify_reshard_program):
-        with pytest.raises(NotImplementedError, match="A8"):
-            fn(object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        pan.survivor_diagnostics(object(), {}, [0])
+    """The five resharding checks give JAX's findings on a schedule that
+    trips FFTA060 and FFTA061 and on a lost-shard plan (FFTA063);
+    tests/test_torch_resharding.py holds the rest."""
+    import numpy as np
+
+    from flexflow_tpu import resharding as jrs
+    from flexflow_tpu.analysis import interp as jinterp
+    from flexflow_tpu_torch import resharding as prs
+
+    out = {}
+    for pkg, an, it, mm in ((jrs, jan, jinterp, jmm),
+                            (prs, pan, pinterp, pmm)):
+        mesh = pkg.MeshSpec(device_ids=tuple(range(8)),
+                            axes=(("data", 4), ("model", 2)))
+        old = pkg.ShardingPlan(mesh=mesh, arrays={
+            "w": pkg.ArraySpec((4, 1), ("data", None))})
+        new = pkg.ShardingPlan(mesh=mesh, arrays={
+            "w": pkg.ArraySpec((1, 1), (None, None)),
+            "x": pkg.ArraySpec((8, 1), ("expert", None))})
+        tree = {"w": np.zeros((8, 4), np.float32),
+                "x": np.zeros((8, 4), np.float32)}
+        sched = pkg.plan_redistribution(tree, old, new, peak_bytes=8)
+        machine = mm.SimpleMachineModel(8, mm.ChipSpec(hbm_gb=16.0))
+        try:
+            an.check_redistribution(sched, machine=machine, record=False)
+            raised = None
+        except Exception as exc:  # PlanAnalysisError of either package
+            raised = sorted(d.code for d in exc.report.errors())
+        out[pkg] = (
+            [d.format() for d in an.redistribution_diagnostics(sched,
+                                                               machine)],
+            [(e.kind, e.tag, e.phase, e.groups)
+             for e in it.build_reshard_program(sched)[0]],
+            [d.format() for d in it.verify_reshard_program(sched)], raised,
+            [d.format() for d in an.survivor_diagnostics(old, {"w": 2},
+                                                         [6, 7])])
+    assert out[prs] == out[jrs]
+    assert "FFTA060" in out[prs][3] and "FFTA061" in out[prs][3]
+    assert out[prs][4]
 
 
 # -- strategy-file validation ------------------------------------------------

@@ -10,7 +10,15 @@ as it was.
 Tolerances: the port against itself to the bit (a restore copies); JAX
 against the port (f32, another BLAS) predict 1e-5 and one more epoch's
 sparse_cce 1e-4 relative, as tests/test_checkpoint.py holds JAX against
-itself."""
+itself.
+
+On a `stage` mesh (ROADMAP C13), {"stage": 4} and {"data": 2,
+"stage": 2} with tests/test_torch_pipeline.py's encoder and Adam, four
+gloo ranks in one spawn: the port's file holds JAX's stacked
+`__pipeline__` tree; JAX's file restored into the port predicts as JAX
+does (atol 1e-6), the port's file restored into JAX predicts as the port
+does (atol 1e-6), and the port's own round trip restores the weights and
+Adam's moments to the bit and predicts to the bit."""
 import json
 import os
 
@@ -367,3 +375,98 @@ def test_inference_model_takes_the_weights_only(tmp_path):
     inf.compile(comp_mode=pt.CompMode.COMP_MODE_INFERENCE)
     assert restore_checkpoint(path, inf) == 2
     np.testing.assert_array_equal(inf.predict(x), src.predict(x))
+
+
+# -- a stage mesh (ROADMAP C13) ------------------------------------------
+STAGE_MESHES = {"stage4": {"stage": 4}, "data2_stage2": {"data": 2, "stage": 2}}
+
+
+def _jax_stage_model(axes, seed=45):
+    import flexflow_tpu.models  # noqa: F401
+    from flexflow_tpu_torch.tools.tp_train import MODELS
+    from tests.test_torch_pipeline import B, WIDTHS
+
+    cfg = ff.FFConfig()
+    cfg.num_devices = 4
+    cfg.batch_size = B
+    cfg.pipeline_microbatches = 4
+    cfg.allow_mixed_precision = False
+    cfg.seed = seed
+    jm = ff.FFModel(cfg)
+    MODELS["encoder"](ff, jm, {"batch": B, "use_flash": None}, **WIDTHS)
+    jm.compile(optimizer=ff.AdamOptimizer(jm, alpha=0.01),
+               loss_type=ff.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[ff.MetricsType.METRICS_ACCURACY],
+               parallel_axes=axes)
+    return jm
+
+
+@pytest.fixture(scope="module")
+def stage_runs(tmp_path_factory):
+    from flexflow_tpu_torch.tools.tp_train import spawn_jobs
+    from tests.test_torch_pipeline import B, WIDTHS, _data, _host
+
+    tmp = tmp_path_factory.mktemp("stage_ckpt")
+    x, y = _data()
+    base = dict(model="encoder", widths=WIDTHS, batch=B, mixed=False,
+                optimizer=("adam", 0.01, None), x=x, y=y,
+                config={"pipeline_microbatches": 4}, predict_batch=B)
+    jax_side, jobs = {}, []
+    for name, axes in STAGE_MESHES.items():
+        jm = _jax_stage_model(axes)
+        init = _host(jm.params)
+        jm.fit(x, y, batch_size=B, epochs=2)
+        path = jax_save(str(tmp / f"jax_{name}.npz"), jm, step=2)
+        jax_side[name] = {"file": path, "keys": sorted(
+            np.load(path).files), "predict": np.asarray(
+                jm.predict(x, batch_size=B))}
+        jobs.append(dict(base, axes=axes, steps=0, restore_path=path))
+        jobs.append(dict(base, axes=axes, steps=2, jax_params=init,
+                         checkpoint_dir=str(tmp / f"port_{name}")))
+    ranks = spawn_jobs(4, "cpu", jobs, timeout_s=300)
+    out = {}
+    for i, name in enumerate(STAGE_MESHES):
+        out[name] = {"from_jax": [r["jobs"][2 * i] for r in ranks],
+                     "own": [r["jobs"][2 * i + 1] for r in ranks]}
+    return out, jax_side
+
+
+@pytest.mark.parametrize("mesh", sorted(STAGE_MESHES))
+def test_stage_mesh_checkpoint_is_the_jax_stacked_tree(stage_runs, mesh):
+    """The port's file names the arrays as JAX's file does: the stacked
+    `__pipeline__` tree, Adam's moments following it."""
+    runs, jax_side = stage_runs
+    keys = runs[mesh]["own"][0]["checkpoint_keys"]
+    assert keys == jax_side[mesh]["keys"]
+    assert any(k.startswith("params/__pipeline__/seg0_op") for k in keys)
+    assert any(k.startswith("opt_state/m/__pipeline__/") for k in keys)
+
+
+@pytest.mark.parametrize("mesh", sorted(STAGE_MESHES))
+def test_jax_stage_checkpoint_restores_into_the_port(stage_runs, mesh):
+    runs, jax_side = stage_runs
+    for r in runs[mesh]["from_jax"]:
+        np.testing.assert_allclose(r["predict"], jax_side[mesh]["predict"],
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh", sorted(STAGE_MESHES))
+def test_port_stage_checkpoint_restores_into_jax(stage_runs, mesh):
+    from tests.test_torch_pipeline import B, _data
+
+    runs, _ = stage_runs
+    own = runs[mesh]["own"][0]
+    jm = _jax_stage_model(STAGE_MESHES[mesh], seed=46)
+    assert jax_restore(own["checkpoint"], jm) == own["restored_step"]
+    x, _ = _data()
+    np.testing.assert_allclose(np.asarray(jm.predict(x, batch_size=B)),
+                               own["predict"], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh", sorted(STAGE_MESHES))
+def test_port_stage_round_trip_keeps_adam_moments(stage_runs, mesh):
+    runs, _ = stage_runs
+    for r in runs[mesh]["own"]:
+        assert r["restored_step"] == 2
+        assert r["restored_state_equal"]
+        np.testing.assert_array_equal(r["restored_predict"], r["predict"])

@@ -467,8 +467,29 @@ def test_plan_sync_buckets_and_sp_helpers_match_jax():
 
 
 def test_reshard_cost_raises_naming_a8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        psim.reshard_cost_us([], pmm.TpuPodModel(2))
+    """reshard_cost_us prices a schedule as JAX's does (a chunked gather
+    and slice, and a cross-mesh transfer) on the pod model."""
+    import numpy as np
+
+    from flexflow_tpu import resharding as jrs
+    from flexflow_tpu_torch import resharding as prs
+
+    costs = {}
+    for pkg, sim, mm in ((jrs, jsim, jmm), (prs, psim, pmm)):
+        mesh = pkg.MeshSpec(device_ids=(0, 1, 2, 3),
+                            axes=(("data", 2), ("model", 2)))
+        old = pkg.ShardingPlan(mesh=mesh, arrays={
+            "w": pkg.ArraySpec((2, 1), ("data", None))})
+        new = pkg.ShardingPlan(mesh=mesh, arrays={
+            "w": pkg.ArraySpec((1, 2), (None, "model"))})
+        other = pkg.ShardingPlan(mesh=pkg.MeshSpec(
+            device_ids=(0, 1, 2, 3), axes=(("data", 4),)))
+        tree = {"w": np.zeros((64, 32), np.float32)}
+        costs[pkg] = [sim.reshard_cost_us(pkg.plan_redistribution(
+            tree, old, n, peak_bytes=p), mm.TpuPodModel(4))
+            for n in (new, other) for p in (1 << 30, 2048)]
+    assert all(c > 0 for c in costs[prs])
+    assert costs[prs] == pytest.approx(costs[jrs], rel=1e-12)
 
 
 # -- OpCostCache mechanics -------------------------------------------------

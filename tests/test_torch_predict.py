@@ -577,5 +577,8 @@ def test_new_signatures_and_config_flags():
         assert getattr(pt.FFConfig(), field) == getattr(ff.FFConfig(), field)
     cfg.parse_args(["--iterations", "5", "--weight-decay", "0.25"])
     assert (cfg.iterations, cfg.weight_decay) == (5, 0.25)
+    cfg.parse_args(["--collective-lowering", "explicit"])
+    jcfg.parse_args(["--collective-lowering", "explicit"])
+    assert cfg.collective_lowering == jcfg.collective_lowering == "explicit"
     with pytest.raises(ValueError, match="not ported"):
-        cfg.parse_args(["--collective-lowering", "explicit"])
+        cfg.parse_args(["--nodes", "2"])

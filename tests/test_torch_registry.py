@@ -155,8 +155,11 @@ def test_parse_args_takes_the_jax_spellings():
     assert (cfg.learning_rate, cfg.batch_size, cfg.epochs) == (0.25, 2, 1)
     with pytest.raises(ValueError, match="kernel-impl"):
         pt.FFConfig().parse_args(["--kernel-impl", "bogus"])
-    with pytest.raises(ValueError, match="'--collective-lowering'"):
-        pt.FFConfig().parse_args(["--collective-lowering", "explicit"])
+    lowering = pt.FFConfig()
+    lowering.parse_args(["--collective-lowering", "explicit"])
+    assert lowering.collective_lowering == "explicit"
+    with pytest.raises(ValueError, match="'--nodes'"):
+        pt.FFConfig().parse_args(["--nodes", "2"])
     with pytest.raises(ValueError, match="requires a value"):
         pt.FFConfig().parse_args(["--kernel-impl"])
     # the JAX package's FFConfig reads the same line the same way

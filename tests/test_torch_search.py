@@ -12,9 +12,10 @@ test_joint_search.py and test_sequence_parallel_search.py. The plan caches
 of both packages are reset around each case, so every search runs cold
 unless a case asks for the cache.
 
-Then compile(): the searched plan adopted, the default data axis, the
-raises of what is not ported (ROADMAP A8), and the search's and the
-analysis' modules imported without jax.
+Then the TASO rules that insert parallel ops and the live plan's
+distance term, against JAX's; compile(): the searched plan adopted, the
+default data axis, and the search's and the analysis' modules imported
+without jax.
 """
 import json
 import os
@@ -260,35 +261,71 @@ def test_pipeline_candidates_raise(tmp_path):
     assert stages == jmax(JGraph(_model(ff, "bert").ops))
 
 
-# -- what is not ported raises, naming ROADMAP A8 ---------------------------
+# -- the TASO rules that insert parallel ops, and the live plan -------------
 
 
-def test_taso_file_with_parallel_op_rules_raises_at_the_start():
+@pytest.mark.parametrize("algo", ["unity", "mcmc"])
+@pytest.mark.parametrize("name", ["mlp_split", "bert"])
+def test_taso_file_with_parallel_op_rules_raises_at_the_start(name, algo):
+    """The search under substitutions/graph_subst_3_v2.json (476 of its
+    640 rules insert parallel ops) gives JAX's plan, rewrites and log
+    counts, unity and mcmc alike."""
     path = os.path.join(ROOT, "substitutions", "graph_subst_3_v2.json")
-    m = _model(pt, "mlp_split", substitution_json_path=path)
-    g = PGraph(m.ops)
-    before = sorted(op.name for op in g.ops.values())
-    with pytest.raises(NotImplementedError, match="476 rule.*A8"):
-        punity.unity_optimize(g, m.config, pmm.TpuPodModel(4), 8, 4)
-    # nothing was half-explored: the graph is untouched
-    assert sorted(op.name for op in g.ops.values()) == before
-    with pytest.raises(NotImplementedError, match="A8"):
-        pmcmc.mcmc_search(g, m.config, pmm.TpuPodModel(4), 8, 4)
+    _search_both(name, 4, "pod", algo=algo, substitution_json_path=path)
+
+
+def _live_plan(pkg, graph, axes, tp):
+    """A live plan of `graph`'s weights at tp (dp the rest) on `axes`."""
+    pcache, sim = (ppc, __import__("flexflow_tpu_torch.search.simulator",
+                                   fromlist=["x"])) if pkg is pt else \
+        (jpc, __import__("flexflow_tpu.search.simulator", fromlist=["x"]))
+    strategies = {op.guid: sim.OpStrategy(dp=4 // tp, tp=tp)
+                  for op in graph.topo_order()}
+    return pcache._candidate_weight_plan(graph, strategies, axes,
+                                         list(range(4))), strategies
+
+
+def plan_distance_both():
+    """plan_distance_us of a {data 2, model 2} live plan onto a {data 4}
+    candidate and onto itself, in both packages."""
+    got = {}
+    for pkg, G, pcache, mm in ((ff, JGraph, jpc, jmm), (pt, PGraph, ppc,
+                                                         pmm)):
+        g = G(_model(pkg, "bert").ops)
+        live, same = _live_plan(pkg, g, {"data": 2, "model": 2}, 2)
+        _, cand = _live_plan(pkg, g, {"data": 4}, 1)
+        machine = mm.TpuPodModel(4)
+        got[pkg] = (pcache.plan_distance_us(g, live, cand, {"data": 4},
+                                            machine, 4),
+                    pcache.plan_distance_us(g, live, same,
+                                            {"data": 2, "model": 2},
+                                            machine, 4))
+    assert got[pt][0] > 0 and got[pt][1] == 0.0
+    for a, b in zip(got[pt], got[ff]):
+        assert a == pytest.approx(b, rel=REL, abs=0.0)
 
 
 def test_plan_distance_with_a_live_plan_raises():
-    m = _model(pt, "bert", replan_live_plan=object())
-    g = PGraph(m.ops)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ppc.plan_distance_us(g, object(), {}, {"data": 4},
-                             pmm.TpuPodModel(4), 4)
-    # a warm re-plan off a live plan reaches the term and raises
-    # rather than dropping it
-    seed_model = _model(pt, "bert")
-    punity.unity_optimize(PGraph(seed_model.ops), seed_model.config,
-                          pmm.TpuPodModel(8), 2, 8)
-    with pytest.raises(NotImplementedError, match="A8"):
-        punity.unity_optimize(g, m.config, pmm.TpuPodModel(4), 2, 4)
+    """The plan distance of a live plan is priced as JAX's, and a warm
+    re-plan off a live plan (the distance term in its ranking) gives
+    JAX's plan."""
+    plan_distance_both()
+    out = []
+    for pkg, G, un, mm in ((ff, JGraph, junity, jmm),
+                           (pt, PGraph, punity, pmm)):
+        seed_model = _model(pkg, "bert")
+        un.unity_optimize(G(seed_model.ops), seed_model.config,
+                          mm.TpuPodModel(8), 2, 8)
+        m = _model(pkg, "bert")
+        g = G(m.ops)
+        m.config.replan_live_plan = _live_plan(
+            pkg, g, {"data": 2, "model": 2}, 2)[0]
+        r = un.unity_optimize(g, m.config, mm.TpuPodModel(4), 2, 4)
+        out.append(_summary(r, g))
+    (jx, jf), (px, pf) = out
+    assert px == jx
+    for a, b in zip(pf, jf):
+        assert a == pytest.approx(b, rel=REL, abs=0.0)
 
 
 # -- compile(): the searched plan -------------------------------------------

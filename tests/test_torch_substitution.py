@@ -5,9 +5,9 @@ SEARCH_RULES on a graph where it fires gives the same applications and
 the same rewritten graph (op names, types, params, output dims and edges
 by producer name), the graph algorithms give the same answers, and the
 shipped TASO files (substitutions/*.json) give the same parse, summary,
-templates, TP candidates and GraphXfer matches. A rule whose target
-inserts parallel ops raises, naming ROADMAP A8, when applied. Adapted
-from tests/test_graph_xfer.py and tests/test_substitution_loader.py.
+templates, TP candidates and GraphXfer matches; a rule whose target
+inserts parallel ops rewrites the graph as JAX's does. Adapted from
+tests/test_graph_xfer.py and tests/test_substitution_loader.py.
 """
 import os
 
@@ -207,9 +207,31 @@ def test_clone_leaves_the_graph_and_copies_no_weights():
 
 
 def test_fuse_parallel_ops_finds_no_application():
+    """rule_fuse_parallel_ops finds JAX's applications: none on the
+    cases' graphs, and on a parallel-op chain the same collapse."""
     for case in CASES:
-        _, g = _build(pt, case)
-        assert psub.rule_fuse_parallel_ops(g) == []
+        (_, jg), (_, pg) = _build(ff, case), _build(pt, case)
+        assert psub.rule_fuse_parallel_ops(pg) == [] == \
+            jsub.rule_fuse_parallel_ops(jg)
+
+    def chain(pkg, m):
+        t = m.create_tensor([4, 8])
+        m.dense(m.replicate(m.combine(m.repartition(t, 0, 2), 0)), 3)
+
+    graphs = []
+    for pkg, G in ((ff, JGraph), (pt, PGraph)):
+        m = pkg.FFModel(_config(pkg))
+        chain(pkg, m)
+        graphs.append(G(m.ops))
+    jg, pg = graphs
+    papps, japps = psub.rule_fuse_parallel_ops(pg), \
+        jsub.rule_fuse_parallel_ops(jg)
+    assert [(a.rule, a.description) for a in papps] == \
+        [(a.rule, a.description) for a in japps] and papps
+    rule = "fuse_parallel_ops"
+    assert psub.apply_substitutions(pg, {rule: psub.rule_fuse_parallel_ops}) \
+        == jsub.apply_substitutions(jg, {rule: jsub.rule_fuse_parallel_ops})
+    assert _sig(pt, pg) == _sig(ff, jg)
 
 
 def test_rewritten_model_compiles_and_trains(tmp_path):
@@ -291,22 +313,58 @@ def test_xfers_match_like_jax(name, case):
 
 
 def test_parallel_op_target_raises_naming_a8():
+    """Applying a rule whose target inserts parallel ops rewrites the
+    graph as JAX's does: the same op names, types, params and edges (the
+    replicate, the reused linear and the combine)."""
     path = os.path.join(ROOT, "substitutions", "tp_rules.json")
-    xfers = pgx.xfers_from_rules(pload.load_substitution_file(path))
-    _, g = _build(pt, "merge_parallel_linears")
-    name = next(n for n in xfers if "partition_linear_combine_d2" in n)
-    apps = xfers[name](g)
-    assert apps
-    before = _sig(pt, g)
-    with pytest.raises(NotImplementedError, match="parallel ops.*A8"):
-        apps[0].apply()
-    assert _sig(pt, g) == before
+    px = pgx.xfers_from_rules(pload.load_substitution_file(path))
+    jx = jgx.xfers_from_rules(jload.load_substitution_file(path))
+    (_, jg), (_, pg) = _build(ff, "merge_parallel_linears"), \
+        _build(pt, "merge_parallel_linears")
+    name = next(n for n in px if "partition_linear_combine_d2" in n)
+    papps, japps = px[name](pg), jx[name](jg)
+    assert papps and len(papps) == len(japps)
+    papps[0].apply()
+    japps[0].apply()
+    assert _sig(pt, pg) == _sig(ff, jg)
+    types = {op.op_type for op in pg.ops.values()}
+    assert {pt.OpType.REPLICATE, pt.OpType.COMBINE} <= types
+    assert all(getattr(op, "xfer_created", False) for op in pg.ops.values()
+               if op.op_type in (pt.OpType.REPLICATE, pt.OpType.COMBINE))
 
 
-def test_rule_file_with_parallel_op_rules_is_refused():
-    for name, n in (("tp_rules.json", 5), ("graph_subst_3_v2.json", 476)):
-        cfg = pt.FFConfig(device="cpu", substitution_json_path=os.path.join(
-            ROOT, "substitutions", name))
-        with pytest.raises(NotImplementedError, match=f"{n} rule.*A8"):
-            psub.reject_parallel_op_rules(cfg)
-    psub.reject_parallel_op_rules(pt.FFConfig(device="cpu"))
+@pytest.mark.parametrize("name,n", [("tp_rules.json", 5),
+                                    ("graph_subst_3_v2.json", 476)])
+def test_rule_file_with_parallel_op_rules_is_refused(name, n):
+    """The rule files' parallel-op rules (5 and 476) are GraphXfers the
+    port applies: each one's first application on the linear and conv
+    graphs rewrites them as JAX's does."""
+    path = os.path.join(ROOT, "substitutions", name)
+    pr, jr = pload.load_substitution_file(path), \
+        jload.load_substitution_file(path)
+    par = [r.name for r in pr if any(o.is_parallel_op for o in r.dst_ops)]
+    assert len(par) == n == len(
+        [r for r in jr if any(o.is_parallel_op for o in r.dst_ops)])
+    px, jx = pgx.xfers_from_rules(pr), jgx.xfers_from_rules(jr)
+    applied = 0
+    for case in ("merge_parallel_linears", "fuse_linear_activation"):
+        for xname in sorted(px):
+            (_, jg), (_, pg) = _build(ff, case), _build(pt, case)
+            papps, japps = px[xname](pg), jx[xname](jg)
+            assert len(papps) == len(japps), xname
+            if papps:
+                papps[0].apply()
+                japps[0].apply()
+                # by op, not in topo order: some of the file's rewrites
+                # leave a cycle, in both packages alike
+                assert _edges(pg) == _edges(jg), xname
+                applied += 1
+    assert applied > 0
+
+
+def _edges(graph):
+    """The graph by op name: type and each input's producer."""
+    return {op.name: (op.op_type.value,
+                      [(t.owner_op.name, t.owner_idx) if t.owner_op
+                       else (t.name, -1) for t in op.inputs])
+            for op in graph.ops.values()}
