@@ -413,6 +413,42 @@ Phases, in order; any failure propagates and exits non-zero:
               fit_collective_coefficients gives a scale per tier. Its
               times are rank 0's CUDA events of host-staged gloo
               collectives: not a mesh speed.
+47. mesh-session-f32 — in the same spawn, the serve LM at its full widths
+              (hidden 1024, 16 heads, vocab 30522, window 512) cut to 2 of
+              its 12 layers, f32, compiled in inference mode on {"data":
+              2, "model": 2}: a GenerativeSession of 4 prompts (64 tokens)
+              and 32 greedy tokens (max_len 1024), each rank prefilling
+              and decoding its 2 rows over its 8 heads. Fails unless every
+              rank returns the same tokens, equal to the same session on
+              one card (this process, the same weights).
+48. mesh-session — the same at bf16 and full depth (12 layers): every
+              rank the same tokens; the prefill's last-position
+              probabilities within 5e-2 of max(p) of one card's; the
+              tokens that agree with one card's counted; rank 0's
+              launches of one prefill (12 causal flash_fwd_blhd, 24
+              layernorm_fwd, 1 softmax_fwd) and of one decode step (12
+              decode_attention on the tensor cores, 24 layernorm_fwd, 1
+              softmax_fwd) exactly.
+49. mesh-infer — the flagship encoder (full width and depth, bf16) in an
+              InferenceModel with buckets (1, 4, 8) on the same mesh: the
+              buckets walk eagerly (no capture; graph_capture's reason
+              printed), the 8-row output within 5e-2 of the one-card
+              bucket graph's, a walk's launches on rank 0 (12
+              flash_fwd_blhd, 24 layernorm_fwd, 1 softmax_fwd), and 8
+              single-row requests through the leader-driven DynamicBatcher
+              (one batch) equal to the direct predict within 1e-6, the
+              followers walking the leader's batches.
+50. resize  — on one card, the serve LM at full width and depth in f32
+              (bf16 probabilities tie at the vocabulary's top, and 4 slots
+              run other GEMM shapes than 8) in a ContinuousBatcher of 8
+              slots: 6 requests with staggered budgets, shrunk to 4 slots
+              and grown back to 8 while they decode. Fails unless every
+              request's tokens equal an unresized run's, none is dropped,
+              both resizes migrated live rows and captured the graphs
+              again; prints each migration's priced us and moved bytes.
+              The kernels phase holds B7 causal at the mesh's local shape
+              (4, 512, 8 x 64, blhd) and B5 at 8 heads (the session's 2
+              rows a rank) against their plain versions and SDPA.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -796,6 +832,12 @@ def phase_kernels(torch, F):
                               ("MoE switch gate", 1024, 256),
                               ("MoE serve gate decode", 8, 4),
                               ("MoE serve gate chunk", 16, 4))}
+    # a mesh session's decode rows on a rank of {"data": 2, "model": 2}
+    # (phase 48): 2 rows of the hidden width and of the vocabulary
+    for name, n, tol in (("layernorm_fwd", 1024, (1e-2, 1e-2)),
+                         ("softmax_fwd", 30522, (1e-6, 1e-2))):
+        table[name]["mesh_decode_shape"] = norm_case(
+            name, 2, n, torch.bfloat16, tol, True)
     del flush_buf
     table.update(train_kernels(torch, F, g))
     table.update(tier_kernels(torch, F, g))
@@ -803,6 +845,7 @@ def phase_kernels(torch, F):
     table.update(cumsum_kernels(torch, g))
     table.update(optimizer_kernels(torch, g))
     ulysses_flash_kernels(torch, F, g, table)
+    mesh_serve_kernels(torch, F, g, table)
     edges = norm_route_edges(torch, g)
     edges.update(bwd_route_edges(torch, g))
     for name in ("softmax_fwd", "rmsnorm_fwd", "layernorm_fwd",
@@ -5117,6 +5160,25 @@ A82_KERNELS = ("layernorm_fwd", "layernorm_bwd", "softmax_fwd",
 A82_SWEEP = {"sizes_mb": (0.25, 1.0, 4.0),
              "strategies": ("flat", "rs_ar_ag", "hier_ring"),
              "warmup": 1, "repeats": 3}
+# phases 47-49 (A8.2 item 5) in phase_axes's spawn: serving on a data x
+# model mesh, the serve LM's widths (phase 4) and its sessions' shape
+SERVE_MESH = {"data": 2, "model": 2}
+MESH_LM = {"vocab": 30522, "hidden": 1024, "heads": 16, "window": 512}
+MESH_SESSION = {"rows": 4, "prompt": 64, "new": 32, "max_len": 1024}
+MESH_CUTS = {"mesh-session-f32": "12 -> 2 serve LM layers, f32",
+             "mesh-session": "none (12 serve LM layers, bf16)",
+             "mesh-infer": "none (12 encoder layers, bf16)"}
+# rank 0's launches of one session prefill, one decode step and one
+# bucket walk (12 layers): the head-separated causal flash forward on the
+# rank's 8 heads, two LayerNorms a layer, the vocabulary softmax
+MESH_PER_WALK = {
+    "prefill": {"flash_fwd_blhd": 12, "layernorm_fwd": 24,
+                "softmax_fwd": 1},
+    "decode_step": {"decode_attention": 12, "decode_attention/tc": 12,
+                    "layernorm_fwd": 24, "softmax_fwd": 1},
+    "bucket": {"flash_fwd_blhd": 12, "layernorm_fwd": 24, "softmax_fwd": 1},
+}
+MESH_INFER_BUCKETS = (1, 4, 8)
 
 
 def _a82_jobs(tmp):
@@ -5231,9 +5293,10 @@ def _one_device_losses(torch, job):
 
 
 def phase_axes(torch):
-    """36-46: the six mesh legs and the A8.2 legs in one spawn of four
-    ranks (see the module docstring). Returns one record a leg and rank
-    0's launches over each leg's counted step."""
+    """36-49: the six mesh legs, the A8.2 legs and the mesh-serving legs
+    in one spawn of four ranks (see the module docstring). Returns one
+    record a leg and rank 0's launches over each leg's counted step or
+    walk."""
     import gc
     import tempfile
 
@@ -5246,10 +5309,11 @@ def phase_axes(torch):
     with tempfile.TemporaryDirectory() as tmp:
         jobs = _axes_jobs(tmp)
         a82 = _a82_jobs(tmp)
+        serve = _serve_mesh_jobs()
         t0 = time.perf_counter()
         ranks = spawn_jobs(AXES_RANKS, "cuda",
-                           list(jobs.values()) + list(a82.values()),
-                           timeout_s=900)
+                           list(jobs.values()) + list(a82.values())
+                           + list(serve.values()), timeout_s=1200)
         wall = time.perf_counter() - t0
         records, launches = [], {}
         for i, (leg, job) in enumerate(jobs.items()):
@@ -5315,8 +5379,17 @@ def phase_axes(torch):
                 records.append(_stage_checkpoint(runs))
         a82_records, a82_launches = _a82_records(
             torch, ranks, len(jobs), a82)
-    records += a82_records
+        t1 = time.perf_counter()
+        serve_records, serve_launches = _serve_mesh_records(
+            torch, ranks, len(jobs) + len(a82), serve)
+        # the serving legs' time: their jobs in the spawn (rank 0) and
+        # their one-card references here
+        serve_records[0]["legs_s"] = time.perf_counter() - t1 + sum(
+            ranks[0]["jobs"][len(jobs) + len(a82) + i]["job_s"]
+            for i in range(len(serve)))
+    records += a82_records + serve_records
     launches.update(a82_launches)
+    launches.update(serve_launches)
     records[0]["spawn_wall_s"] = wall
     return records, launches
 
@@ -5516,6 +5589,324 @@ def _a82_records(torch, ranks, offset, jobs):
                          note,
         "tolerance": "every row positive; a fitted scale per tier"})
     return records, launches
+
+
+def _serve_mesh_jobs():
+    """Phases 47-49's jobs (tools/tp_train.py `serve_job`), by leg."""
+    import numpy as np
+
+    rng = np.random.RandomState(47)
+    prompts = rng.randint(0, MESH_LM["vocab"], size=(
+        MESH_SESSION["rows"], MESH_SESSION["prompt"])).astype(np.int32)
+    lm = {"model": "serve_lm", "batch": MESH_SESSION["rows"], "seed": 0,
+          "comp_mode": "inference", "axes": SERVE_MESH}
+    session = {"kind": "session", "prompts": prompts,
+               "max_len": MESH_SESSION["max_len"],
+               "runs": [{"new": MESH_SESSION["new"]}]}
+    x, _ = _train_batch()
+    return {
+        "mesh-session-f32": dict(lm, mixed=False, serve=session,
+                                 widths=dict(MESH_LM, layers=2)),
+        "mesh-session": dict(lm, mixed=True, widths=dict(MESH_LM,
+                                                         layers=12),
+                             serve=dict(session, launches=True,
+                                        last_probs=True)),
+        "mesh-infer": {"model": "encoder", "batch": TRAIN["batch"],
+                       "seed": 0, "mixed": True, "comp_mode": "inference",
+                       "axes": SERVE_MESH, "serve": {
+                           "kind": "infer", "buckets": MESH_INFER_BUCKETS,
+                           "x": x, "launches": True,
+                           "batcher_rows": TRAIN["batch"],
+                           "max_batch": TRAIN["batch"],
+                           "delay_ms": 5000.0}},
+    }
+
+
+def _one_card(job):
+    """The leg's model on one card (cuda:0, this process), from the same
+    seed's weights."""
+    from flexflow_tpu_torch.tools.tp_train import JOB, build_encoder
+
+    return build_encoder({**JOB, **{k: v for k, v in job.items()
+                                    if k != "serve"}, "axes": {}}, "cuda")
+
+
+def _serve_mesh_records(torch, ranks, offset, jobs):
+    """47-49 from the spawn's results (jobs from `offset` on), each held
+    against the same model on one card in this process."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.serving import InferenceModel
+    from flexflow_tpu_torch.tools.tp_train import _session
+
+    res = {leg: [r["jobs"][offset + i] for r in ranks]
+           for i, leg in enumerate(jobs)}
+    note = ("four ranks time-sharing one card over a host-staged gloo "
+            "transport: not a mesh speed")
+    records, launches = [], {}
+    for leg in ("mesh-session-f32", "mesh-session"):
+        runs, job = res[leg], jobs[leg]
+        toks = runs[0]["runs"][0]["tokens"]
+        for j, r in enumerate(runs[1:], 1):
+            if not np.array_equal(r["runs"][0]["tokens"], toks):
+                raise AssertionError(f"{leg}: rank {j}'s tokens differ "
+                                     "from rank 0's")
+        st = runs[0]["stats"]
+        if st["graph_capture"] or st["graphs"]["captures"] or \
+                st["rows"] != MESH_SESSION["rows"] // 2:
+            raise AssertionError(f"{leg}: rank 0 stats {st}")
+        t1 = time.perf_counter()
+        one = _one_card(job)
+        card = _session(one, job["serve"], "cuda")
+        one_s = time.perf_counter() - t1
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = card["runs"][0]["tokens"]
+        if toks.shape != want.shape or not (
+                (toks >= 0) & (toks < MESH_LM["vocab"])).all():
+            raise AssertionError(f"{leg}: tokens {toks.shape}")
+        agree = int((toks == want).sum())
+        rec = {"phase": leg, "axes": SERVE_MESH, "depth_cut": MESH_CUTS[leg],
+               "tokens_rank0": toks.tolist(),
+               "tokens_agreeing_with_one_card": agree,
+               "tokens_total": int(toks.size),
+               "session_s_rank0": runs[0]["runs"][0]["s"],
+               "session_s_one_card": card["runs"][0]["s"],
+               "session_s_note": note, "one_card_build_and_run_s": one_s,
+               "staged_rank0": runs[0]["staged"], "stats_rank0": st,
+               "build_s_by_rank": [r["build_s"] for r in runs],
+               "train_step_built": runs[0]["train_step"],
+               "opt_state_built": runs[0]["opt_state"]}
+        if leg == "mesh-session-f32":
+            if agree != toks.size:
+                raise AssertionError(f"{leg}: {agree} of {toks.size} tokens "
+                                     f"agree with one card: {toks.tolist()}"
+                                     f" vs {want.tolist()}")
+            rec["tolerance"] = ("every rank's tokens identical, and "
+                                "identical to one card's")
+            records.append(rec)
+            continue
+        p, q = runs[0]["last_probs"], card["last_probs"]
+        err = float(np.abs(p - q).max())
+        tol = 0.05 * float(q.max())
+        if not np.isfinite(p).all() or err > tol:
+            raise AssertionError(f"{leg}: prefill probabilities {err} from "
+                                 f"one card's (tolerance {tol})")
+        got = runs[0]["launches"]
+        for walk in ("prefill", "decode_step"):
+            seen = {k: got[walk].get(k, 0) for k in MESH_PER_WALK[walk]}
+            if seen != MESH_PER_WALK[walk]:
+                raise AssertionError(f"{leg}: rank 0's launches of one "
+                                     f"{walk} {got[walk]}, expected "
+                                     f"{MESH_PER_WALK[walk]}")
+        stray = [k for k in ("flash_fwd", "multiquery_decode_attention")
+                 if got["prefill"].get(k) or got["decode_step"].get(k)]
+        if stray or got["decode_step"].get("flash_fwd_blhd"):
+            raise AssertionError(f"{leg}: unexpected launches {got}")
+        launches["mesh-session-prefill"] = {
+            k: v for k, v in got["prefill"].items() if "/" not in k}
+        launches["mesh-session-decode-step"] = {
+            k: v for k, v in got["decode_step"].items() if "/" not in k}
+        rec.update(prefill_max_abs_err=err, prefill_tolerance=tol,
+                   prefill_max_prob=float(q.max()), launches=got,
+                   tolerance="every rank's tokens identical; prefill's "
+                             "last-position probabilities within 5e-2 of "
+                             "max(p) of one card's; launches a walk exact")
+        records.append(rec)
+    # 49: the flagship's buckets on the mesh, and the leader's batcher
+    runs, job = res["mesh-infer"], jobs["mesh-infer"]
+    first = runs[0]
+    for j, r in enumerate(runs[1:], 1):
+        if not np.array_equal(r["predict"], first["predict"]):
+            raise AssertionError(f"mesh-infer: rank {j}'s output differs")
+        if r["followed"] < 1 or "rank 0" not in r["follower_submit"]:
+            raise AssertionError(f"mesh-infer: rank {j} followed "
+                                 f"{r['followed']} batches, submit "
+                                 f"{r['follower_submit']!r}")
+    st = first["stats"]
+    if st["graph_capture"] or st["graphs"]["captures"] or \
+            st["graphs"]["replays"] or not st["graphs"]["eager_walks"]:
+        raise AssertionError(f"mesh-infer: buckets {st}")
+    seen = {k: first["launches"].get(k, 0) for k in MESH_PER_WALK["bucket"]}
+    if seen != MESH_PER_WALK["bucket"]:
+        raise AssertionError(f"mesh-infer: rank 0's launches of a bucket "
+                             f"walk {first['launches']}")
+    launches["mesh-infer-bucket"] = {
+        k: v for k, v in first["launches"].items() if "/" not in k}
+    batch_err = float(np.abs(first["batcher"] - first["predict"]).max())
+    if batch_err > 1e-6:
+        raise AssertionError(f"mesh-infer: the batcher's rows {batch_err} "
+                             "from the direct predict")
+    t1 = time.perf_counter()
+    one = _one_card(job)
+    im = InferenceModel(one, batch_buckets=MESH_INFER_BUCKETS)
+    x = job["serve"]["x"]
+    card = im.predict({im.input_names[0]: x})
+    card_stats = im.stats()
+    del im, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = float(np.abs(first["predict"] - card).max())
+    if not np.isfinite(first["predict"]).all() or err > 5e-2 or \
+            not card_stats["graphs"]["captures"]:
+        raise AssertionError(f"mesh-infer: {err} from the one-card bucket "
+                             f"graph ({card_stats})")
+    records.append({
+        "phase": "mesh-infer", "axes": SERVE_MESH,
+        "depth_cut": MESH_CUTS["mesh-infer"], "output": list(card.shape),
+        "max_abs_err_vs_one_card_graph": err,
+        "batcher_max_abs_err_vs_predict": batch_err,
+        "followed_by_rank": [r.get("followed") for r in runs],
+        "stats_rank0": st, "one_card_stats": card_stats,
+        "launches_rank0": first["launches"],
+        "predict_s_rank0": first["predict_s"], "predict_s_note": note,
+        "one_card_s": time.perf_counter() - t1,
+        "build_s_by_rank": [r["build_s"] for r in runs],
+        "tolerance": "eager walks, no capture; |mesh - one-card graph| "
+                     "<= 5e-2; the leader's batch within 1e-6 of the "
+                     "direct predict; launches a walk exact"})
+    return records, launches
+
+
+def phase_resize(torch, new=(48, 48, 16, 16, 12, 12)):
+    """50: the serve LM (full width and depth, f32) in a ContinuousBatcher
+    of 8 slots: 6 requests unresized, then the same 6 shrunk to 4 slots
+    and grown back to 8 while they decode. Returns the phase's record."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = build_tiny_lm(8, MESH_LM["window"], vocab=MESH_LM["vocab"],
+                       hidden=MESH_LM["hidden"], heads=MESH_LM["heads"],
+                       layers=12, device="cuda",
+                       generator=torch.Generator().manual_seed(50))
+    rng = np.random.RandomState(50)
+    prompts = [rng.randint(0, MESH_LM["vocab"], size=int(n)).astype(
+        np.int32) for n in rng.randint(32, 129, size=len(new))]
+
+    def run(resize):
+        cb = ContinuousBatcher(lm, max_len=1024, num_slots=8, page_size=16)
+        tickets = []
+        with cb:
+            reqs = [cb.submit(p, n) for p, n in zip(prompts, new)]
+            if resize:
+                deadline = time.monotonic() + 300
+                while not any(r.tokens for r in reqs):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("resize: no token in 300 s")
+                    time.sleep(0.005)
+                before = dict(cb.stats()["graphs"])
+                tickets = [cb.request_resize(4).wait(timeout=600),
+                           cb.request_resize(8).wait(timeout=600)]
+            outs = [r.result(timeout=900) for r in reqs]
+            errors = [r.error for r in reqs if r.error is not None]
+        stats = cb.stats()
+        if resize:
+            stats["graphs_before_resize"] = before
+        return outs, errors, stats, tickets
+
+    plain, _, _, _ = run(False)
+    outs, errors, stats, (shrink, grow) = run(True)
+    same = all(np.array_equal(a, b) for a, b in zip(outs, plain))
+    if errors or not same or [len(o) for o in outs] != list(new):
+        raise AssertionError(f"resize: tokens differ from the unresized "
+                             f"run ({same}) or requests failed {errors}")
+    if (shrink["direction"], grow["direction"]) != ("shrink", "grow") or \
+            not (shrink["migrated_rows"] and grow["migrated_rows"]):
+        raise AssertionError(f"resize: {shrink} then {grow}")
+    before, after = stats["graphs_before_resize"], stats["graphs"]
+    if after["captures"] <= before["captures"]:
+        raise AssertionError(f"resize: no graph captured again ({before} -> "
+                             f"{after})")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "resize", "model": "serve LM, 12 layers, f32",
+            "requests": len(new), "new_tokens": list(new),
+            "shrink": shrink, "grow": grow,
+            "stats_resizes": stats["resizes"],
+            "graphs_before_resize": before, "graphs_after": after,
+            "captures_after_resize": after["captures"] - before["captures"],
+            "wall_s": time.perf_counter() - t0,
+            "tolerance": "every request's tokens equal the unresized "
+                         "run's; no request failed; both resizes migrated "
+                         "live rows; graphs captured again"}
+
+
+def mesh_serve_kernels(torch, F, g, table):
+    """The ported kernels at the mesh-serving shapes of phases 47-49, bf16,
+    against their plain versions and timed beside SDPA and the bound: B7
+    causal at the mesh's local shape (4, 512, 8 x 64, blhd), added to the
+    flash_fwd_blhd row as `mesh_causal_shape`, and B5 at 8 heads over the
+    session's 2 rows a rank (M 1024, both at position 80), added to the
+    decode_attention row as `mesh_shape`."""
+    from flexflow_tpu_torch.kernels import decode
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, l, h, d = 4, MESH_LM["window"], MESH_LM["heads"] // 2, 64
+    scale = d ** -0.5
+    q, k, v = (torch.randn((b, l, h, d), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    shape = f"b={b} l={l} h={h} d={d} blhd bfloat16 causal"
+    o, _ = fa.flash_fwd_heads(q, k, v, scale=scale, causal=True,
+                              layout="blhd")
+    ro, _ = fa.flash_fwd_heads_plain(q, k, v, scale, True, "blhd")
+    row = _agree("flash_fwd_heads (mesh causal)", o, ro, (4e-3, 2e-2),
+                 shape)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    # the causal product: the score and context products of the
+    # attended half, each row its own prefix
+    attended = b * h * l * (l + 1) // 2
+    bound = _bound(4 * b * l * h * d * 2 + b * h * l * 4,
+                   4 * attended * d, "bfloat16")
+    row.update(
+        ms=_time_ms(torch, lambda: fa.flash_fwd_heads(
+            q, k, v, scale=scale, causal=True, layout="blhd")),
+        plain_ms=_time_ms(torch, lambda: fa.flash_fwd_heads_plain(
+            q, k, v, scale, True, "blhd")),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale, is_causal=True)),
+        bound_ms=bound[0], bound_by=bound[1],
+        library="F.scaled_dot_product_attention(is_causal=True) on "
+                "(b, h, l, d)")
+    table["flash_fwd_blhd"]["mesh_causal_shape"] = row
+    rows, m = MESH_SESSION["rows"] // 2, MESH_SESSION["max_len"]
+    at = MESH_SESSION["prompt"] + MESH_SESSION["new"] // 2
+    pos = torch.full((rows,), at, dtype=torch.int32, device=dev)
+    q = torch.randn((rows, 1, h, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    kc, vc = (torch.randn((rows, m, h, d), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    out = decode.decode_attention(q, kc, vc, pos, scale=scale, block_k=512)
+    ref = decode.decode_attention_plain(q, kc, vc, pos, scale)
+    dshape = f"B={rows} C=1 M={m} h={h} d={d} bfloat16 (pos {at})"
+    drow = _agree("decode_attention (mesh)", out, ref,
+                  DECODE_TOL["bfloat16"], dshape)
+    mask = (torch.arange(m, device=dev)[None, None, :]
+            <= pos.long()[:, None, None])[:, None]          # (B, 1, 1, M)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+    nbytes = 2 * rows * (at + 1) * h * d * 2 + 2 * q.numel() * 2 + rows * 4
+    dbound = _bound(nbytes, 4 * h * d * rows * (at + 1), "bfloat16")
+    drow.update(
+        ms=_time_ms(torch, lambda: decode.decode_attention(
+            q, kc, vc, pos, scale=scale, block_k=512)),
+        plain_ms=_time_ms(torch, lambda: decode.decode_attention_plain(
+            q, kc, vc, pos, scale)),
+        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale)),
+        bound_ms=dbound[0], bound_by=dbound[1],
+        library="F.scaled_dot_product_attention with a bool mask")
+    table["decode_attention"]["mesh_shape"] = drow
 
 
 def ulysses_flash_kernels(torch, F, g, table):
@@ -5958,7 +6349,22 @@ def main() -> int:
         _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
     for leg, counts in axes_launches.items():
         zoo_paths[f"axes-{leg}"] = counts
-    print(f"phases 36-46: {time.perf_counter() - t_axes:.1f} s", flush=True)
+    legs_s = next(r["legs_s"] for r in records if "legs_s" in r)
+    print(f"phases 36-49: {time.perf_counter() - t_axes:.1f} s (47-49: "
+          f"{legs_s:.1f} s)", flush=True)
+
+    # 50) resize: the serving mesh's live resize on one card
+    t_resize = time.perf_counter()
+    reset_launch_counts()
+    line = phase_resize(torch)
+    zoo_paths["resize"] = {k: n for k, n in launch_counts().items()
+                           if n and "/" not in k}
+    missing = [k for k in SERVE_KERNELS if not zoo_paths["resize"].get(k)]
+    if missing:
+        raise AssertionError(f"resize: kernels never launched: {missing}")
+    _emit(dict(line, launches=zoo_paths["resize"],
+               seconds_since_start=time.perf_counter() - t_start))
+    print(f"phase 50: {time.perf_counter() - t_resize:.1f} s", flush=True)
 
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp

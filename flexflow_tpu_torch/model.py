@@ -577,15 +577,18 @@ class FFModel:
         whole; the `expert`, `attr`, `seq` and `stage` axes are assigned
         as `_assign_strategy` says. Every rank draws the whole model from
         the same generator and keeps its shards, so a mesh run starts
-        from the one-device run's weights. Sharded serving (inference on
-        a mesh) raises, naming ROADMAP A8.2, before any weight is drawn. In
-        either mode the
+        from the one-device run's weights. In inference mode a mesh draws
+        and shards the weights as training mode does, and the model
+        serves on it (`predict`, serving/model.py `InferenceModel`,
+        serving/generate.py `GenerativeSession`, every rank calling with
+        the same inputs). In either mode the
         loss, the metrics, eval's step and the forward walks of `predict`
         and the manual loop are built (JAX builds them in every mode); in
         training mode (the default, as in the JAX package) the weights
         take gradients, `optimizer` defaults to SGD at
         `config.learning_rate`, and the train step and the optimizer
-        state are built too. The whole pass is one `compile` span, with
+        state are built too; in inference mode neither is, on one device
+        or a mesh, and `fit` raises. The whole pass is one `compile` span, with
         the search, the analysis and the step build inside it."""
         with get_tracer().span("compile", ops=len(self.ops)):
             self._compile_inner(optimizer, loss_type, metrics, comp_mode,
@@ -627,10 +630,6 @@ class FFModel:
         axes = self._check_executable(self.parallel_axes)
         self.mesh, self.outside_mesh, mesh = None, None, None
         if axes:
-            if comp_mode != CompMode.COMP_MODE_TRAINING:
-                raise NotImplementedError(
-                    f"parallel_axes={self.parallel_axes}: sharded serving "
-                    "(inference on a mesh) is not ported yet (ROADMAP A8.2)")
             mesh = make_mesh(axes)
             if mesh.device.type != torch.device(self.config.device).type:
                 raise ValueError(

@@ -106,6 +106,16 @@ projections' K/V rows into cache rows [0, l) (at most M of them), then
 attends as the full-sequence path does (the flash kernel, causal for the
 LM, or the einsum core). The packed (b, l, h*d) projections view into
 the cache's (b, l, h, d) rows for free.
+
+On a data x model mesh (serving on ranks, the JAX entry's leg 9) a
+rank's caches hold its own rows (b/dp where `data` divides the batch)
+and its own heads (h/tp on `model`; serving/sched/kvpool.py
+`local_kv_cache_spec`). A prefill on `model` > 1 takes the
+head-separated path and writes the local K and V heads before the `wo`
+product (the blhd flash kernel, causal, as JAX keeps a TP mesh on it);
+on `data` alone the packed path runs on the rank's rows. Decoding runs
+the decode kernels on the local heads, and `_decode_project` sums the
+local heads' `wo` products over `model` in f32 before it adds bo once.
 """
 from __future__ import annotations
 
@@ -220,10 +230,6 @@ class MultiHeadAttentionOp(Op):
         if self.name not in ctx.state:
             raise ValueError(f"{self.name}: decode_pos given but no KV "
                              "caches in the state")
-        if ctx.mesh is not None:
-            raise NotImplementedError(
-                f"{self.name}: KV-cache decoding on a mesh (sharded "
-                "serving) is not ported yet (ROADMAP A8.2)")
         q_in, k_in, v_in = inputs[:3]
         cdt = matmul_dtype(ctx.config, q_in.dtype)
         q = self._project(q_in, "wq", "bq", cdt)
@@ -271,10 +277,6 @@ class MultiHeadAttentionOp(Op):
         tensor-parallel mesh the head-separated branch. The reference: its
         einsum core."""
         fill = ctx.fill_kv_cache and self.name in ctx.state
-        if fill and ctx.mesh is not None:
-            raise NotImplementedError(
-                f"{self.name}: KV-cache prefill on a mesh (sharded "
-                "serving) is not ported yet (ROADMAP A8.2)")
         if ctx.mesh is not None and ctx.mesh.size("model") > 1:
             return self._head_separated(ctx, q_in, k_in, v_in)
         _, _, _, embed, _, kdim, vdim = self._dims()
@@ -288,11 +290,7 @@ class MultiHeadAttentionOp(Op):
         # partial sum)
         heads = q.shape[2]
         if fill:
-            kc = ctx.state[self.name]["k_cache"]
-            vc = ctx.state[self.name]["v_cache"]
-            n = min(k.shape[1], kc.shape[1])
-            kc[:, :n] = k[:, :n].to(kc.dtype)
-            vc[:, :n] = v[:, :n].to(vc.dtype)
+            self._fill_caches(ctx, k, v)
         scale = 1.0 / math.sqrt(kdim)
         causal = self.params.get("causal", False)
         rate = self._dropout(ctx)
@@ -332,6 +330,8 @@ class MultiHeadAttentionOp(Op):
         q = self._project(q_in, "wq", "bq", cdt)            # (b, l, h/tp, d)
         k = self._project(k_in, "wk", "bk", cdt)
         v = self._project(v_in, "wv", "bv", cdt)
+        if ctx.fill_kv_cache and self.name in ctx.state:
+            self._fill_caches(ctx, k, v)  # this rank's heads
         scale = 1.0 / math.sqrt(kdim)
         causal = self.params.get("causal", False)
         if self._seq_parallel(ctx):
@@ -356,6 +356,22 @@ class MultiHeadAttentionOp(Op):
         if self.has_weight("bo"):
             out = out + self.w("bo", odt)
         return out
+
+    def _fill_caches(self, ctx, k, v) -> None:
+        """A prefill's K/V rows (b, l, h, d) into cache rows [0, l), at
+        most as many as the cache holds; on a mesh the rank's rows and
+        heads into its own caches (kvpool.py `local_kv_cache_spec`)."""
+        kc = ctx.state[self.name]["k_cache"]
+        vc = ctx.state[self.name]["v_cache"]
+        if kc.shape[0] != k.shape[0] or kc.shape[2] != k.shape[2]:
+            raise ValueError(
+                f"{self.name}: the caches hold {kc.shape[0]} rows of "
+                f"{kc.shape[2]} heads, the walk {k.shape[0]} rows of "
+                f"{k.shape[2]} heads (on a mesh the caches take the "
+                "rank's local geometry, kvpool.local_kv_cache_spec)")
+        n = min(k.shape[1], kc.shape[1])
+        kc[:, :n] = k[:, :n].to(kc.dtype)
+        vc[:, :n] = v[:, :n].to(vc.dtype)
 
     def _keep(self, ctx, q, k, rate):
         """The walk's dropout keep mask for this rank's (b, h, lq, lk)
@@ -455,7 +471,7 @@ class MultiHeadAttentionOp(Op):
                 fn = decode_attention if c == 1 \
                     else multiquery_decode_attention
                 ctxv = fn(q, kc, vc, pos, scale=scale, block_k=block_k)
-                return self._decode_project(ctxv, q.dtype)
+                return self._decode_project(ctx, ctxv, q.dtype)
             qpos = pos.long()[:, None] + torch.arange(
                 c, device=kc.device)[None, :]                # (B, C)
         else:
@@ -469,7 +485,7 @@ class MultiHeadAttentionOp(Op):
                 ctxv = multiquery_decode_attention(q, kc, vc, posv,
                                                    scale=scale,
                                                    block_k=block_k)
-                return self._decode_project(ctxv, q.dtype)
+                return self._decode_project(ctx, ctxv, q.dtype)
             qpos = pos.long() + torch.arange(c, device=kc.device)[None, :]
         # the JAX package's einsum decode chain: query j attends cache rows
         # <= its absolute position, over the whole cache
@@ -481,15 +497,19 @@ class MultiHeadAttentionOp(Op):
         probs = torch.softmax(logits, dim=-1)
         ctxv = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype),
                             vc.to(q.dtype))
-        return self._decode_project(ctxv, q.dtype)
+        return self._decode_project(ctx, ctxv, q.dtype)
 
-    def _decode_project(self, ctxv, cdt):
+    def _decode_project(self, ctx, ctxv, cdt):
         """Output projection: the product in the compute dtype, cast to the
-        DECLARED output dtype, then bo added (as the JAX decode path)."""
+        DECLARED output dtype, then bo added (as the JAX decode path). On
+        a `model` axis the local heads' products are summed over the
+        group in f32 first, so bo is added once."""
         b, c, h, d = ctxv.shape
         wo = self.w("wo", cdt)
         out = torch.matmul(ctxv.to(cdt).reshape(b, c, h * d),
                            wo.reshape(h * d, wo.shape[-1]))
+        if self.tp_degree > 1:
+            out = reduce_sum(out.float(), ctx.mesh.group("model"))
         out = out.to(self.outputs[0].dtype.torch_dtype)
         if self.has_weight("bo"):
             out = out + self.w("bo")

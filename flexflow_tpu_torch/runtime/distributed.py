@@ -17,8 +17,9 @@ process and fixes, once:
    memory explicitly (counted there). The rule is decided here and
    printed, never reached by catching an NCCL error;
  - whether several optimizer steps a dispatch (`fit(steps_per_execution=
-   K)`) are captured as one CUDA graph (`graph_capture`): on a mesh of
-   CUDA ranks they run as K eager steps in one host dispatch instead,
+   K)`), a session's decode steps and an inference bucket are captured as
+   one CUDA graph (`graph_capture`): on a mesh of CUDA ranks they run
+   eagerly in one host dispatch instead,
    since gloo's host-staged collectives cannot be captured and ranks
    that share one card cannot use NCCL (capturing NCCL collectives is
    untried). Printed with the backend.
@@ -53,11 +54,12 @@ def backend_for(device_type: str, local_world: int) -> str:
 
 
 def graph_capture(device: torch.device, mesh) -> Tuple[bool, Optional[str]]:
-    """(whether a K-step dispatch on `device` is one captured CUDA graph,
-    why not): on one card it is; the CPU and a mesh of CUDA ranks run the
-    K steps eagerly (see the module docstring)."""
+    """(whether a dispatch on `device` is one captured CUDA graph, why
+    not): on one card it is; the CPU and a mesh of CUDA ranks run it
+    eagerly (see the module docstring). Read by K-step fits, the
+    session's decode dispatches and the inference buckets."""
     if device.type != "cuda":
-        return False, "the CPU runs the K steps eagerly"
+        return False, "the CPU runs every dispatch eagerly"
     if mesh is None:
         return True, None
     if host_staging():

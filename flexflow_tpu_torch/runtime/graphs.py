@@ -23,7 +23,9 @@ offset and advances it by the capture's draws, so replays draw new
 numbers, those an eager call from the same state would draw. The
 garbage collector is off during a capture (a graph freed while another
 is captured breaks the capture). On the CPU every call runs the function
-eagerly.
+eagerly, and so does a call made with `capture=False` (a mesh of CUDA
+ranks: runtime/distributed.py `graph_capture` says why), counted as an
+eager walk.
 
 `Staging` fills one static device buffer from host memory by one copy a
 dispatch, through two pinned buffers used in turn (each rewritten only
@@ -53,12 +55,15 @@ class CapturedCall:
     itself on the CPU. `weights`: the parameters whose versions decide a
     re-capture; `pool`: a graph memory pool shared with the caller's other
     graphs, which must replay one at a time on one stream; `generators`:
-    the CUDA generators fn draws from."""
+    the CUDA generators fn draws from; `capture=False`: every call runs fn
+    eagerly on the card too."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
                  weights: List[torch.Tensor], counts: Dict[str, int],
-                 pool=None, generators: Sequence[torch.Generator] = ()):
+                 pool=None, generators: Sequence[torch.Generator] = (),
+                 capture: bool = True):
         self.fn = fn
+        self.capture = capture
         self.generators = list(generators)
         self.device = device
         self.weights = weights
@@ -68,7 +73,7 @@ class CapturedCall:
         self.versions: Optional[List[int]] = None
 
     def __call__(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             self.fn()
             self.counts["eager_walks"] += 1
             return

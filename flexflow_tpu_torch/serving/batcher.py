@@ -7,6 +7,15 @@ its bucket and runs as one CUDA graph replay on the card. The loop thread
 makes the model's card its current device before its first call, so a
 bucket it captures lands on the model's device.
 
+On a mesh of ranks (an InferenceModel over a model compiled with
+`parallel_axes`) the batcher is leader-driven: requests enter at rank 0,
+which forms each batch and, before walking it, broadcasts it over the
+world (its bucket, its number of real rows and the stacked inputs); every
+other rank runs the follower loop (`follow`, or `start` / `stop` around
+it), which walks each broadcast batch with the leader, since a walk on a
+mesh is collective, until the leader stops. `submit` on a follower
+raises.
+
 `BatcherStopped` is defined here, as in the JAX package, and shared with
 the continuous batcher (serving/sched/continuous.py).
 """
@@ -18,6 +27,15 @@ from concurrent.futures import Future
 from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def _broadcast(obj=None):
+    """Rank 0's `obj` on every rank of the world."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 class BatcherStopped(RuntimeError):
@@ -37,6 +55,22 @@ class DynamicBatcher:
         self._thread: threading.Thread = None
         self._running = False
         self._stopped = False  # stop() was called; submits fail fast
+        # on a mesh: whether this rank leads (rank 0), and the batches a
+        # follower walked
+        self.mesh = getattr(getattr(inference_model, "model", None),
+                            "mesh", None)
+        self.leader = True
+        self.followed = 0
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            world = dist.get_world_size()
+            if self.mesh.view.num_devices != world:
+                raise ValueError(
+                    f"a DynamicBatcher on a mesh broadcasts each batch over "
+                    f"the world: the mesh holds {self.mesh.view.num_devices}"
+                    f" of its {world} ranks")
+            self.leader = dist.get_rank() == 0
 
     # -- lifecycle -----------------------------------------------------
     def start(self):
@@ -44,19 +78,28 @@ class DynamicBatcher:
             return
         self._running = True
         self._stopped = False
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(
+            target=self._loop if self.leader else self.follow, daemon=True)
         self._thread.start()
 
     def stop(self):
         """Stop the loop, then DRAIN: every request still queued fails
         with BatcherStopped instead of hanging its waiter. Later submits
         fail fast with the same error (nothing consumes the queue any
-        more) until a start() revives the batcher."""
+        more) until a start() revives the batcher. On a mesh the leader's
+        loop tells the followers to stop as it ends; a follower's stop
+        waits for that."""
         self._running = False
         self._stopped = True
         if self._thread is not None:
+            if not self.leader:
+                self._thread.join()
+                self._thread = None
+                return
             self._queue.put(None)  # wake the loop
-            self._thread.join(timeout=5.0)
+            # a walk on a mesh is collective and host-staged: it may take
+            # longer than one device's
+            self._thread.join(timeout=5.0 if self.mesh is None else 600.0)
             self._thread = None
         err = BatcherStopped("batcher stopped before running this request")
         while True:
@@ -81,7 +124,13 @@ class DynamicBatcher:
 
         Malformed requests (wrong input names, wrong trailing shape,
         inconsistent leading dims) fail HERE — only the offending future,
-        never the batch they would have been coalesced into."""
+        never the batch they would have been coalesced into. On a mesh
+        only the leader (rank 0) takes requests."""
+        if not self.leader:
+            raise RuntimeError(
+                "DynamicBatcher.submit on a follower rank: on a mesh "
+                "requests enter at rank 0, whose batches every other rank "
+                "walks (follow)")
         fut: Future = Future()
         try:
             if self._stopped:
@@ -132,12 +181,37 @@ class DynamicBatcher:
                     f" does not match the model's {tuple(want)}")
 
     # -- batching loop -------------------------------------------------
-    def _loop(self):
+    def _use_device(self):
         device = getattr(self.model, "device", None)
         if device is not None and device.type == "cuda":
             import torch
 
             torch.cuda.set_device(device)
+
+    def follow(self) -> int:
+        """A follower's loop: walk each batch the leader broadcasts until
+        the leader stops; returns the number of batches walked."""
+        self._use_device()
+        while True:
+            msg = _broadcast()
+            if msg is None:
+                return self.followed
+            if self.model._bucket_for(msg["rows"]) != msg["bucket"]:
+                raise RuntimeError(
+                    f"the leader's bucket {msg['bucket']} for "
+                    f"{msg['rows']} rows is not this rank's")
+            self.model.predict(msg["inputs"])
+            self.followed += 1
+
+    def _loop(self):
+        self._use_device()
+        try:
+            self._batches()
+        finally:
+            if self.mesh is not None:
+                _broadcast(None)  # the followers stop
+
+    def _batches(self):
         carry = None  # popped but over-budget for the previous batch
         while self._running:
             if carry is not None:
@@ -181,6 +255,10 @@ class DynamicBatcher:
                 name: np.concatenate([np.asarray(req[name]) for req, _ in batch])
                 for name in names
             }
+            if self.mesh is not None:
+                rows = sum(counts)
+                _broadcast({"bucket": self.model._bucket_for(rows),
+                            "rows": rows, "inputs": merged})
             out = self.model.predict(merged)
             lo = 0
             for (_, fut), n in zip(batch, counts):

@@ -7,6 +7,16 @@ decodes every row at one shared position, K steps a dispatch: on the card
 one CUDA graph of K steps (runtime/graphs.py), the counterpart of JAX's
 `lax.scan`; on the CPU the K steps run eagerly.
 
+On a data x model mesh of ranks (compile(parallel_axes=...), the JAX
+entry's leg 9) every rank calls `generate` with the same prompts. Each
+rank prefills and decodes its own rows (b/dp where `data` divides the
+batch) over its own heads, picks tokens with the keys of the GLOBAL row
+indices, and gathers the tokens over `data` before it reads them, so
+every rank returns the whole array and decides an eos stop on the same
+rows. There the K decode steps of a dispatch run eagerly in one host
+dispatch (runtime/distributed.py `graph_capture`: gloo's host-staged
+collectives cannot be captured); `stats()` says so and why.
+
 Sampling: a token is argmax(log-probs / temperature + Gumbel noise), the
 noise of every vocabulary id computed on the device by integer hashing of
 (the row's 32-bit key, the position, the id), so a pick runs inside a
@@ -22,6 +32,8 @@ import numpy as np
 import torch
 
 from ..ffconst import OpType
+from ..runtime.collectives import gather_shards
+from ..runtime.distributed import graph_capture
 from ..runtime.graphs import CapturedCall, graph_counts, model_weights, \
     new_pool
 
@@ -102,6 +114,9 @@ class GenerativeSession:
     (cache rows past the prompt are overwritten as decoding proceeds)."""
 
     def __init__(self, model, max_len: int):
+        if model.executor is None:
+            raise RuntimeError(model.outside_mesh
+                               or "GenerativeSession needs a compiled model")
         self.model = model
         self.max_len = int(max_len)
         window = model.input_ops[0].outputs[0].dims[1]
@@ -113,10 +128,19 @@ class GenerativeSession:
         if not any(op.op_type == OpType.MULTIHEAD_ATTENTION
                    for op in model.graph.ops.values()):
             raise ValueError("generation needs multihead_attention ops")
-        from .sched.kvpool import kv_cache_spec
+        from .sched.kvpool import local_kv_cache_spec, local_rows
 
         self.device = model.device
-        b = model.config.batch_size
+        self.mesh = model.mesh
+        if self.mesh is not None and set(self.mesh.shape) - {"data",
+                                                             "model"}:
+            raise NotImplementedError(
+                f"generation on the mesh {dict(self.mesh.shape)}: a "
+                "session runs on the data and model axes (ROADMAP A8)")
+        # this rank's rows of the session batch: [row0, row0 + b)
+        b = self.rows = local_rows(model, model.config.batch_size)
+        self._row0 = (self.mesh.index("data") * b
+                      if b < model.config.batch_size else 0)
         self._caches = {
             name: {
                 "k_cache": torch.zeros((b, self.max_len, heads, kdim),
@@ -124,7 +148,7 @@ class GenerativeSession:
                 "v_cache": torch.zeros((b, self.max_len, heads, vdim),
                                        dtype=cdt, device=self.device),
             }
-            for name, heads, kdim, vdim, cdt in kv_cache_spec(model)
+            for name, heads, kdim, vdim, cdt in local_kv_cache_spec(model)
         }
         # the decode carry: the next token and its write position of every
         # row, and the rows' sampling keys (int32 bit patterns)
@@ -139,6 +163,24 @@ class GenerativeSession:
         self._decode_scans: Dict[tuple, Tuple[CapturedCall,
                                               torch.Tensor]] = {}
         self.counts = graph_counts()
+        self.capture, self.capture_reason = graph_capture(self.device,
+                                                          self.mesh)
+
+    def stats(self) -> Dict[str, object]:
+        """The dispatch counts (warm-ups, captures, replays, eager walks),
+        whether a K-step dispatch is a captured graph and why not, and
+        the rows this rank walks."""
+        return {"graphs": dict(self.counts), "graph_capture": self.capture,
+                "reason": self.capture_reason, "rows": self.rows,
+                "row0": self._row0}
+
+    def _walk(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
+        """The final tensor's value of one walk over this rank's rows
+        (cut over `data` when they are a part of the batch)."""
+        ex = self.model.executor
+        ex.batch_cut = self.rows < self.model.config.batch_size
+        return ex.forward_values({self._input_name: tokens},
+                                 state=self._caches, **kw)[self._final_guid]
 
     def _decode_scan(self, k: int, temperature: float,
                      top_k: Optional[int]):
@@ -155,9 +197,7 @@ class GenerativeSession:
 
         def steps():
             for i in range(k):
-                probs = self.model.executor.forward_values(
-                    {self._input_name: self._tok}, state=self._caches,
-                    decode_pos=self._pos)[self._final_guid]
+                probs = self._walk(self._tok, decode_pos=self._pos)
                 tok = pick_tokens(probs[:, 0, :], temperature, top_k,
                                   self._keys, self._pos)
                 out[i].copy_(tok)
@@ -165,13 +205,18 @@ class GenerativeSession:
                 self._pos.add_(1)
 
         hit = (CapturedCall(steps, self.device, self._weights, self.counts,
-                            self._pool), out)
+                            self._pool, capture=self.capture), out)
         self._decode_scans[cache_key] = hit
         return hit
 
     def _fetch(self, t: torch.Tensor):
-        """Start copying a device result to the host; returns a callable
-        that waits for the copy and gives the numpy array."""
+        """Start copying a device result (k, rows) to the host; returns a
+        callable that waits for the copy and gives the numpy array. On a
+        mesh whose `data` axis cut the rows, every rank gathers the whole
+        (k, batch) first, here, in the same order on every rank."""
+        if self.rows < self.model.config.batch_size:
+            t = gather_shards(t, 1, self.mesh.group("data"),
+                              self.mesh.size("data"))
         if self.device.type != "cuda":
             host = t.clone()
             return host.numpy
@@ -200,7 +245,8 @@ class GenerativeSession:
         next dispatch queued before the previous one's tokens are read
         (the carry stays on the device). With an eos_id the stop happens
         on the same step as at K = 1, at the cost of up to one dispatch of
-        discarded work."""
+        discarded work. On a mesh every rank calls it with the same
+        arguments and returns the same array."""
         model = self.model
         b = model.config.batch_size
         window = model.input_ops[0].outputs[0].dims[1]
@@ -244,12 +290,13 @@ class GenerativeSession:
     def _generate(self, padded, prompt_len, n_real, max_new_tokens, eos_id,
                   K, temperature, top_k, seed) -> np.ndarray:
         b = padded.shape[0]
-        probs = self.model.executor.forward_values(
-            {self._input_name: torch.from_numpy(padded).to(self.device)},
-            state=self._caches, fill_kv_cache=True)[self._final_guid]
+        lo, n = self._row0, self.rows
+        probs = self._walk(torch.from_numpy(padded[lo:lo + n]).to(
+            self.device), fill_kv_cache=True)
         self.counts["eager_walks"] += 1
+        # the keys of the global rows: a mesh picks what one device picks
         self._keys.copy_(torch.from_numpy(key_bits(
-            [sample_key(seed, r) for r in range(b)])))
+            [sample_key(seed, r) for r in range(lo, lo + n)])))
         self._pos.fill_(prompt_len - 1)
         # the next token from the last REAL prompt position
         tok = pick_tokens(probs[:, prompt_len - 1, :], temperature, top_k,

@@ -28,10 +28,16 @@ state is written):
    captured before a graph rewrite never replays after it;
  - on the CPU each call runs the walk eagerly.
 
-On a mesh of CUDA ranks it raises (ROADMAP A8.2): a bucket is a CUDA
-graph, and gloo's host-staged collectives cannot be captured (the reason
-`fit(steps_per_execution > 1)` raises there too). On CPU ranks each
-bucket walks as `FFModel.predict` does on a mesh.
+On a mesh of ranks `predict` is collective: every rank calls it with the
+same rows (serving/batcher.py's leader-driven DynamicBatcher does that
+for requests that arrive on rank 0), and each bucket walks eagerly as
+`FFModel.predict` does on a mesh, each rank its part of the `data` axis,
+every rank returning the whole output. On CUDA ranks that walk runs on
+the card uncaptured: gloo stages every collective through host memory,
+which a CUDA graph cannot capture (runtime/distributed.py
+`graph_capture`, which also keeps `fit(steps_per_execution=K)` eager
+there). `counts` shows the eager walks and no capture, and `stats()`
+carries the reason.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..runtime.distributed import graph_capture
 from ..runtime.graphs import (CapturedCall, Staging, graph_counts,
                               model_weights, new_pool)
 
@@ -96,18 +103,16 @@ class InferenceModel:
     The model must already be compiled (any comp_mode); serving always runs
     the inference-mode walk (dropout off, batchnorm in eval mode).
     `counts`: the buckets' warm-ups, captures, replays and eager walks
-    (runtime/graphs.py `graph_counts`)."""
+    (runtime/graphs.py `graph_counts`); on a mesh each bucket call is
+    one eager walk (see the module docstring)."""
 
     def __init__(self, model, batch_buckets: Sequence[int] = (1, 4, 16, 64)):
         if model.executor is None:
-            raise RuntimeError("InferenceModel needs a compiled model")
-        if model.mesh is not None and model.device.type == "cuda":
-            raise NotImplementedError(
-                "InferenceModel on a mesh of CUDA ranks is not ported yet "
-                "(ROADMAP A8.2): a batch bucket is a CUDA graph, and gloo "
-                "stages every collective through host memory, which a "
-                "graph cannot capture")
+            raise RuntimeError(model.outside_mesh
+                               or "InferenceModel needs a compiled model")
         self.model = model
+        self.capture, self.capture_reason = graph_capture(model.device,
+                                                          model.mesh)
         # the card with its index (`cuda` alone names the current one):
         # the threads that call the buckets make it theirs
         self.device = model.device
@@ -121,6 +126,12 @@ class InferenceModel:
         self._walk = None
         self._pool = None
         self._fns: Dict[int, _Bucket] = {}
+
+    def stats(self) -> Dict[str, object]:
+        """The buckets' dispatch counts, whether a bucket is a captured
+        CUDA graph, and why not."""
+        return {"graphs": dict(self.counts), "graph_capture": self.capture,
+                "reason": self.capture_reason}
 
     @property
     def input_names(self) -> List[str]:
@@ -160,11 +171,15 @@ class InferenceModel:
              rows: int) -> np.ndarray:
         model = self.model
         if model.mesh is not None:
-            # CPU ranks: each walks its `data` part and gathers, as predict
+            # every rank walks its `data` part eagerly and gathers, as
+            # predict does on a mesh
             padded = [np.concatenate([a, np.zeros((bucket - rows,)
                                                   + a.shape[1:], a.dtype)])
                       for a in (arrays[n] for n in self.input_names)]
-            return model.predict(padded, batch_size=bucket)[:rows]
+            with self._lock:
+                out = model.predict(padded, batch_size=bucket)[:rows]
+                self.counts["eager_walks"] += 1
+            return out
         dev = self.device
         with self._lock, torch.no_grad(), (
                 torch.cuda.device(dev) if dev.type == "cuda"

@@ -5,14 +5,15 @@ from .admission import (AdmissionController, AdmissionError, PoolSaturated,
                         QueueFull, RequestTooLarge)
 from .bench import make_shared_prefix_workload, run_speculative_once
 from .continuous import (BatcherStopped, ContinuousBatcher, GenRequest,
-                         RequestCancelled, RequestState)
+                         RequestCancelled, RequestState, ResizeTicket)
 from .kvpool import (PagedKVPool, PoolExhausted, PrefixCache,
-                     kv_bytes_per_token, kv_cache_spec, prefix_route_chain,
-                     prefix_route_key)
+                     kv_bytes_per_token, kv_cache_spec, local_kv_cache_spec,
+                     local_rows, prefix_route_chain, prefix_route_key)
 
 __all__ = ["AdmissionController", "AdmissionError", "BatcherStopped",
            "ContinuousBatcher", "GenRequest", "PagedKVPool", "PoolExhausted",
            "PoolSaturated", "PrefixCache", "QueueFull", "RequestCancelled",
-           "RequestState", "RequestTooLarge", "kv_bytes_per_token",
-           "kv_cache_spec", "make_shared_prefix_workload",
+           "RequestState", "RequestTooLarge", "ResizeTicket",
+           "kv_bytes_per_token", "kv_cache_spec", "local_kv_cache_spec",
+           "local_rows", "make_shared_prefix_workload",
            "prefix_route_chain", "prefix_route_key", "run_speculative_once"]

@@ -104,10 +104,30 @@ else the config's: the H100 spec on the card), less the prefix band's
 slots, and with a draft scaled by the target's share of the combined
 per-token cache cost, as the JAX batcher does.
 
-Not ported yet, each raising a clear error: request_resize (ROADMAP A5),
-the disaggregated park / handoff calls (A5, with A10; their
-`serve.kv_export` / `serve.kv_import` / `serve.resize` spans with them),
-and the chaos hook (A10).
+Live resize (`request_resize`, the JAX batcher's; ROADMAP A5.5): the
+serving mesh grew or shrank, so the slot count changes between
+iterations. A shrink waits until the live sequences fit the target and
+holds admissions meanwhile; nothing is dropped. Before any device work
+the migration is planned as a resharding schedule
+(resharding/plan.py `plan_slot_migration`, the old and new arrays both
+counted as scratch), gated by the FFTA06x analysis and priced with the
+machine model (`schedule_cost_us`). New slot-dense caches are made and
+only the rows the page tables own (`PagedKVPool.owned_view`) are copied
+into them, the draft's caches with the target's. Every compiled
+dispatch was captured over the old arrays and staging buffers, so all of
+them are dropped and captured again over the new ones (a graph that
+replayed over freed arrays would corrupt tokens silently). Each resize
+is one `serve.resize` span, one `ff_serving_resizes_total` count and one
+entry of `stats()["resizes"]`.
+
+The JAX batcher serves unsharded models only: a model with a tensor
+partitioned over a mesh axis is refused at construction with its
+ValueError, before anything is allocated (sharded generation on ranks
+is serving/generate.py `GenerativeSession`).
+
+Not ported yet, each raising a clear error: the disaggregated park /
+handoff calls (A5.6, with A10; their `serve.kv_export` /
+`serve.kv_import` spans with them), and the chaos hook (A10).
 """
 from __future__ import annotations
 
@@ -136,6 +156,70 @@ from .kvpool import PagedKVPool, kv_cache_spec
 class RequestCancelled(RuntimeError):
     """The caller cancelled a still-queued request (ContinuousBatcher
     .cancel) before it reached a slot."""
+
+
+class ResizeTicket:
+    """Handle for one requested resize (ContinuousBatcher.request_resize):
+    the scheduler applies it between iterations, once the live sequences
+    fit the target, and resolves it with the migration's record;
+    `wait()` blocks until then."""
+
+    def __init__(self, target_slots: int):
+        self.target_slots = int(target_slots)
+        self.result: Optional[Dict] = None
+        self.error: Optional[BaseException] = None
+        self._done = threading.Event()
+
+    def wait(self, timeout: Optional[float] = None) -> Dict:
+        if not self._done.wait(timeout=timeout):
+            raise TimeoutError(
+                f"resize to {self.target_slots} slots not applied within"
+                f" {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def _finish(self, result: Dict) -> None:
+        self.result = result
+        self._done.set()
+
+    def _fail(self, err: BaseException) -> None:
+        self.error = err
+        self._done.set()
+
+
+def _partitioned_tensor(model):
+    """(name, spec) of the first tensor of `model` that a mesh partitions,
+    in the JAX batcher's order (each op's outputs, then its weights), or
+    None: an output cut over `data` on its batch (where the degree
+    divides it) and a weight sharded over any axis (`Op.shards`)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return None
+    dp = mesh.size("data")
+    for op in model.graph.ops.values():
+        for t in op.outputs:
+            spec = [None] * len(t.dims)
+            if dp > 1 and t.dims and t.dims[0] % dp == 0 \
+                    and not op.whole_batch:
+                spec[0] = "data"
+            if any(spec):
+                return t.name, spec
+        for t, ws in zip(op.weights, op.specs):
+            pt = op.shards.get(ws.name)
+            if pt is not None and pt.sharded_dims():
+                return t.name, [d.axis if d.degree > 1 else None
+                                for d in pt.dims]
+    return None
+
+
+def _spec_text(spec) -> str:
+    """A partition spec as jax.sharding.PartitionSpec prints."""
+    inner = ", ".join("None" if a is None else repr(a) for a in spec)
+    return f"PartitionSpec({inner}{',' if len(spec) == 1 else ''})"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -330,6 +414,16 @@ class ContinuousBatcher:
                  draft_model=None, spec_tokens: int = 3,
                  expert_affinity: bool = False, affinity_window: int = 4,
                  trace_label: Optional[str] = None, machine=None):
+        found = _partitioned_tensor(model)
+        if found is not None:
+            # the JAX batcher's refusal and text (its sharding constraints
+            # assume the compiled batch)
+            name, spec = found
+            raise ValueError(
+                "ContinuousBatcher serves unsharded models;"
+                f" tensor {name!r} is partitioned"
+                f" ({_spec_text(spec)}) and its sharding"
+                " constraint assumes the compiled batch")
         chunk = int(page_size) if prefill_chunk_tokens is None \
             else int(prefill_chunk_tokens)
         if chunk < 0:
@@ -456,9 +550,6 @@ class ContinuousBatcher:
         self._register_metrics(registry)
 
         self._caches = _zero_caches(model, self.num_slots, self.max_len)
-        # per-slot views of the caches: a prefill chunk writes its slot's
-        # rows in place through these
-        self._slot_caches = _slot_views(self._caches, self.num_slots)
         # the prefix cache's band: slot-shaped rows beside the decode
         # caches (JAX `_zero_band`), which decode never carries
         band_slots = self.pool.band_slots
@@ -466,57 +557,16 @@ class ContinuousBatcher:
             if band_slots else None
         self._input_name = model.input_ops[0].name
         self._final_guid = model.final_tensor.guid
-
-        # the compiled dispatches: static inputs and outputs, one graph
-        # for the decode iteration and one per slot for a prefill chunk
-        from ...ops.common import emit_dtype
-
-        vocab = model.final_tensor.dims[-1]
-        pdt = emit_dtype(model.config, model.final_tensor.dtype)
-        S, C = self.num_slots, self.prefill_chunk_tokens
-        self.graphs = graph_counts()
-        weights = model_weights(model)
-        pool = new_pool(self.device)
-        self._dec_in = Staging(3 * S, self.device)
-        self._dec_probs = torch.zeros((S, vocab), dtype=pdt,
-                                      device=self.device)
-        self._dec_tok = torch.zeros((S,), dtype=torch.int32,
-                                    device=self.device)
-        self._decode_call = CapturedCall(self._decode_walk, self.device,
-                                         weights, self.graphs, pool)
-        if C:
-            self._chunk_in = Staging(C + 1, self.device)
-            self._chunk_probs = torch.zeros((1, C, vocab), dtype=pdt,
-                                            device=self.device)
-            self._chunk_calls = [
-                CapturedCall(self._chunk_walk(i), self.device, weights,
-                             self.graphs, pool) for i in range(S)]
         self._draft_caches = None
         if draft_model is not None:
             # the draft's slot-dense caches mirror the target's slot for
-            # slot (JAX `_zero_draft_caches`), with per-slot views for its
-            # prefill chunks; its graphs share the batcher's pool
-            self._draft_caches = _zero_caches(draft_model, S, self.max_len)
-            self._draft_slot_caches = _slot_views(self._draft_caches, S)
+            # slot (JAX `_zero_draft_caches`)
+            self._draft_caches = _zero_caches(draft_model, self.num_slots,
+                                              self.max_len)
             self._draft_input = draft_model.input_ops[0].name
             self._draft_final = draft_model.final_tensor.guid
-            dweights = model_weights(draft_model)
-            k = self.spec_tokens
-            self._draft_chunk_in = Staging(C + 1, self.device)
-            self._draft_chunk_calls = [
-                CapturedCall(self._draft_chunk_walk(i), self.device,
-                             dweights, self.graphs, pool) for i in range(S)]
-            # in: the tokens and positions of every slot; out: the verify
-            # probabilities, and per slot the k target picks, the count to
-            # emit and the raw accepted count, read back by one copy
-            self._spec_in = Staging(2 * S, self.device)
-            self._spec_probs = torch.zeros((S, k + 1, vocab), dtype=pdt,
-                                           device=self.device)
-            self._spec_out = torch.zeros((S, k + 2), dtype=torch.int32,
-                                         device=self.device)
-            self._spec_call = CapturedCall(self._spec_walk, self.device,
-                                           weights + dweights, self.graphs,
-                                           pool)
+        self.graphs = graph_counts()
+        self._build_dispatches()
 
         self._rid = itertools.count()
         self._queue: List[GenRequest] = []
@@ -524,6 +574,8 @@ class ContinuousBatcher:
         self._cv = threading.Condition()
         self._running = False
         self._thread: Optional[threading.Thread] = None
+        self._pending_resize: Optional[ResizeTicket] = None
+        self._resizes: List[Dict] = []
         self._completed = 0
         self._failed = 0
         self.tokens_emitted = 0
@@ -549,6 +601,60 @@ class ContinuousBatcher:
         self._ewma_spec_accept: Optional[float] = None
         self._spec_proposed = 0
         self._spec_accepted = 0
+
+    def _build_dispatches(self) -> None:
+        """The compiled dispatches over the current caches: static inputs
+        and outputs, one graph for the decode iteration (or the
+        speculative one) and one per slot for a prefill chunk (and the
+        draft's), all in one new graph pool; the caches' per-slot views
+        the chunks write through. Built at construction and again after
+        a resize, whose new arrays no old graph may replay over."""
+        from ...ops.common import emit_dtype
+
+        model = self.model
+        vocab = model.final_tensor.dims[-1]
+        pdt = emit_dtype(model.config, model.final_tensor.dtype)
+        S, C = self.num_slots, self.prefill_chunk_tokens
+        weights = model_weights(model)
+        pool = new_pool(self.device)
+        # per-slot views of the caches: a prefill chunk writes its slot's
+        # rows in place through these
+        self._slot_caches = _slot_views(self._caches, S)
+        self._dec_in = Staging(3 * S, self.device)
+        self._dec_probs = torch.zeros((S, vocab), dtype=pdt,
+                                      device=self.device)
+        self._dec_tok = torch.zeros((S,), dtype=torch.int32,
+                                    device=self.device)
+        self._decode_call = CapturedCall(self._decode_walk, self.device,
+                                         weights, self.graphs, pool)
+        if C:
+            self._chunk_in = Staging(C + 1, self.device)
+            self._chunk_probs = torch.zeros((1, C, vocab), dtype=pdt,
+                                            device=self.device)
+            self._chunk_calls = [
+                CapturedCall(self._chunk_walk(i), self.device, weights,
+                             self.graphs, pool) for i in range(S)]
+        if self.draft_model is None:
+            return
+        # the draft's per-slot chunk views and graphs, in the same pool
+        self._draft_slot_caches = _slot_views(self._draft_caches, S)
+        dweights = model_weights(self.draft_model)
+        k = self.spec_tokens
+        self._draft_chunk_in = Staging(C + 1, self.device)
+        self._draft_chunk_calls = [
+            CapturedCall(self._draft_chunk_walk(i), self.device,
+                         dweights, self.graphs, pool) for i in range(S)]
+        # in: the tokens and positions of every slot; out: the verify
+        # probabilities, and per slot the k target picks, the count to
+        # emit and the raw accepted count, read back by one copy
+        self._spec_in = Staging(2 * S, self.device)
+        self._spec_probs = torch.zeros((S, k + 1, vocab), dtype=pdt,
+                                       device=self.device)
+        self._spec_out = torch.zeros((S, k + 2), dtype=torch.int32,
+                                     device=self.device)
+        self._spec_call = CapturedCall(self._spec_walk, self.device,
+                                       weights + dweights, self.graphs,
+                                       pool)
 
     def _register_metrics(self, registry) -> None:
         """The batcher's metric families (JAX continuous.py:566-674)."""
@@ -644,6 +750,7 @@ class ContinuousBatcher:
             if not t.is_alive():
                 self._thread = None
         self._drain_queue(BatcherStopped("batcher stopped"))
+        self._fail_pending_resize(BatcherStopped("batcher stopped"))
 
     def abort(self, err: BaseException) -> None:
         """Non-blocking kill of a replica declared dead: fence every
@@ -666,6 +773,7 @@ class ContinuousBatcher:
             self._c_requests.inc(outcome="failed")
             s.req._fence(err)
         self._drain_queue(err)
+        self._fail_pending_resize(err)
         self._g_active.set(0, pool=self.pool.label)
 
     def __enter__(self):
@@ -757,8 +865,35 @@ class ContinuousBatcher:
         matched = self.pool.prefix.match_chain(chain) * self.pool.page_size
         return int(min(matched, max(int(prompt_len) - 1, 0)))
 
-    def request_resize(self, *args, **kwargs):
-        raise _not_ported("request_resize", "A5")
+    def request_resize(self, num_slots: Optional[int] = None,
+                       machine=None) -> ResizeTicket:
+        """Resize the serving mesh's capacity under load (JAX
+        `request_resize`): an explicit slot target, or a machine model
+        (the grown or shrunk mesh's) from which `derive_num_slots` makes
+        it, less the prefix band's slots. The scheduler applies it
+        between iterations (see the module docstring). Returns a
+        ResizeTicket; `.wait()` blocks until it is applied."""
+        if num_slots is None and machine is None:
+            raise ValueError("give num_slots or a machine spec")
+        if num_slots is None:
+            from .kvpool import derive_num_slots
+
+            num_slots = max(1, derive_num_slots(self.model, self.max_len,
+                                                machine=machine)
+                            - self.pool.band_slots)
+        target = int(num_slots)
+        if target < 1:
+            raise ValueError(f"num_slots={target}: need >= 1")
+        ticket = ResizeTicket(target)
+        with self._cv:
+            if not self._running:
+                raise BatcherStopped("batcher is not running")
+            if (self._pending_resize is not None
+                    and not self._pending_resize.done()):
+                raise RuntimeError("a resize is already pending")
+            self._pending_resize = ticket
+            self._cv.notify_all()
+        return ticket
 
     def request_export(self, *args, **kwargs):
         raise _not_ported("the KV handoff (request_export)", "A5")
@@ -935,8 +1070,8 @@ class ContinuousBatcher:
         return max(longest, pooled)
 
     def stats(self) -> Dict[str, object]:
-        """The JAX batcher's `stats()` keys ("parked" and "resizes" stay
-        empty until A5.5 / A5.6), and the port's dispatch counts:
+        """The JAX batcher's `stats()` keys ("parked" stays 0 until
+        A5.6), and the port's dispatch counts:
         "graphs" holds the warm-ups, captures and replays, and the walks
         run outside any graph (on the card: the one-shot prefills)."""
         with self._cv:
@@ -957,7 +1092,7 @@ class ContinuousBatcher:
             "step_latency_s": self._ewma_step_s,
             "tokens_emitted": self.tokens_emitted,
             "queued_prefill_tokens": self.queued_prefill_tokens(),
-            "resizes": [],
+            "resizes": list(self._resizes),
             "pool": self.pool.stats(),
             "admission": self.admission.stats(),
             "prefill_chunks": self._prefill_chunks,
@@ -1103,12 +1238,12 @@ class ContinuousBatcher:
             self._g_active.set(0, pool=self.pool.label)
 
     def _run(self) -> None:
-        S = self.num_slots
         tracer = get_tracer()
         while True:
             with self._cv:
                 while (self._running and not self._queue
-                       and not any(self._slots)):
+                       and not any(self._slots)
+                       and self._pending_resize is None):
                     # an idle loop is a healthy one: stamp the heartbeat
                     # on every wake
                     self._t_heartbeat = time.monotonic()
@@ -1125,6 +1260,12 @@ class ContinuousBatcher:
                 self._observe_step_gap(now - self._t_iter_prev)
             self._t_iter_prev = now
             self._iter_had_work = bool(self._queue) or any(self._slots)
+
+            # 0) a pending resize (a shrink waits until the live
+            #    sequences fit; admissions are held meanwhile)
+            if self._pending_resize is not None:
+                self._maybe_resize(tracer)
+            S = self.num_slots
 
             # 1) move queued requests into free slots (skipped once
             #    stopping: queued requests fail in stop()); one-shot mode
@@ -1238,6 +1379,137 @@ class ContinuousBatcher:
                 if s.req.state is not RequestState.DECODE:
                     break  # retired (EOS or budget): the rest is past the end
 
+    def _maybe_resize(self, tracer) -> None:
+        """Apply the pending resize (scheduler thread only; JAX
+        `_maybe_resize`): gated and priced before any device work, then
+        the owned rows into new arrays, the dispatches rebuilt over them
+        (see the module docstring)."""
+        ticket = self._pending_resize
+        if ticket is None:  # failed by stop() or abort() meanwhile
+            return
+        target = ticket.target_slots
+        if target == self.num_slots:
+            with self._cv:
+                self._pending_resize = None
+            ticket._finish({"from": target, "to": target,
+                            "direction": "noop", "migrated_rows": 0,
+                            "in_flight": 0, "predicted_us": 0.0,
+                            "wall_ms": 0.0, "noop": True})
+            return
+        if self.pool.live_sequences() > target:
+            return  # a shrink waits until enough sequences finish
+        direction = "shrink" if target < self.num_slots else "grow"
+        t0 = time.monotonic()
+        with tracer.span("serve.resize", slots_from=self.num_slots,
+                         slots_to=target) as sp:
+            from ...analysis import PlanAnalysisError, check_redistribution
+            from ...resharding import (leaf_itemsize, plan_slot_migration,
+                                       schedule_cost_us)
+            from ...search.machine_model import make_machine_model
+            from .kvpool import PoolExhausted
+
+            # the draft's caches ride the same migration: the same slot
+            # map and owned rows (draft row p mirrors target row p)
+            cache_sets = [("kv", self._caches)]
+            if self._draft_caches is not None:
+                cache_sets.append(("draft_kv", self._draft_caches))
+            kv_shapes = {
+                f"{tag}/{name}/{part}": (tuple(arr.shape),
+                                         leaf_itemsize(arr.dtype))
+                for tag, caches in cache_sets
+                for name, pair in caches.items()
+                for part, arr in pair.items()}
+            live = [s for s in self._slots if s is not None]
+            n_rows = sum(hi - lo for s in live
+                         for _, lo, hi in self.pool.owned_view(s.req.id))
+            machine = make_machine_model(
+                self.model.config, max(1, self.model.config.total_devices))
+            schedule = plan_slot_migration(kv_shapes, self.num_slots,
+                                           target, n_rows)
+            try:
+                check_redistribution(schedule, machine=machine)
+            except PlanAnalysisError as err:
+                with self._cv:
+                    self._pending_resize = None
+                ticket._fail(err)
+                return
+            predicted_us = schedule_cost_us(schedule, machine)
+            try:
+                moves = self.pool.resize(target)
+            except PoolExhausted:
+                return  # a request landed since the check: wait again
+            # row coordinates, made ONLY from what the page tables own
+            src_sl, dst_sl, rows = [], [], []
+            slot_map: Dict[object, int] = {}
+            for seq_id, old_slot, new_slot, n_pages in moves:
+                slot_map[seq_id] = new_slot
+                owned = 0
+                for slot, lo, hi in self.pool.owned_view(seq_id):
+                    # every copied row lies in a page the sequence owns
+                    assert slot == new_slot and hi <= self.max_len, \
+                        (seq_id, slot, new_slot, lo, hi)
+                    src_sl += [old_slot] * (hi - lo)
+                    dst_sl += [new_slot] * (hi - lo)
+                    rows += range(lo, hi)
+                    owned += hi - lo
+                assert owned <= n_pages * self.pool.page_size, \
+                    (seq_id, owned, n_pages)
+            copied = len(rows)
+            idx = [torch.tensor(a, dtype=torch.long, device=self.device)
+                   for a in (src_sl, rows, dst_sl)]
+
+            def migrate(old_caches):
+                new_caches: Dict[str, Dict[str, torch.Tensor]] = {}
+                for name, pair in old_caches.items():
+                    new_caches[name] = {}
+                    for part, arr in pair.items():
+                        buf = torch.zeros((target,) + tuple(arr.shape[1:]),
+                                          dtype=arr.dtype, device=arr.device)
+                        if copied:
+                            buf[idx[2], idx[1]] = arr[idx[0], idx[1]]
+                        new_caches[name][part] = buf
+                return new_caches
+
+            new_caches = migrate(self._caches)
+            new_draft = (migrate(self._draft_caches)
+                         if self._draft_caches is not None else None)
+            moved = copied * sum(
+                arr[0, 0].numel() * arr.element_size()
+                for _, caches in cache_sets for pair in caches.values()
+                for arr in pair.values())
+            with self._cv:
+                self._caches = new_caches
+                self._draft_caches = new_draft
+                new_slots: List[Optional[_Slot]] = [None] * target
+                for s in live:
+                    s.slot = slot_map[s.req.id]
+                    new_slots[s.slot] = s
+                self._slots = new_slots
+                prev = self.num_slots
+                self.num_slots = target
+                # every graph was captured over the old arrays
+                self._build_dispatches()
+                self._pending_resize = None
+            result = {
+                "from": prev, "to": target, "direction": direction,
+                "migrated_rows": copied, "in_flight": len(moves),
+                "predicted_us": round(float(predicted_us), 2),
+                "bytes_moved": int(moved),
+                "wall_ms": round((time.monotonic() - t0) * 1e3, 3),
+            }
+            self._resizes.append(result)
+            self._c_resizes.inc(direction=direction)
+            sp.set(**result)
+        ticket._finish(result)
+        with self._cv:
+            self._cv.notify_all()
+
+    def _fail_pending_resize(self, err: BaseException) -> None:
+        with self._cv:
+            ticket, self._pending_resize = self._pending_resize, None
+        if ticket is not None and not ticket.done():
+            ticket._fail(err)
+
     def _pop_next_locked(self) -> GenRequest:
         """The next request off the queue (the caller holds self._cv):
         FIFO, or with expert-affine admission the best signature-overlap
@@ -1266,6 +1538,10 @@ class ContinuousBatcher:
     def _admit_new(self) -> None:
         while True:
             with self._cv:
+                if self._pending_resize is not None:
+                    # a pending shrink waits for live sequences to drain:
+                    # filling freed slots would starve it
+                    return
                 if not self._queue or self.pool.free_slot_count() == 0:
                     return
                 req = self._pop_next_locked()
@@ -1488,6 +1764,7 @@ class ContinuousBatcher:
             self._c_requests.inc(outcome="failed")
             s.req._fail(err)
         self._drain_queue(err)
+        self._fail_pending_resize(err)
 
 
 def _embedding_entries(model) -> Optional[int]:

@@ -26,8 +26,19 @@ device memory (search/machine_model.py: the H100 spec's 80 GB on a CUDA
 config) less the plan's inference footprint (analysis/passes.py
 `plan_memory_bytes`), as the JAX package does.
 
-Left out until their ROADMAP items: resize and `owned_view`, and the
-export/import of the disaggregated handoff (A5).
+`kv_cache_spec` is the whole model's cache geometry (what
+`kv_bytes_per_token` and `derive_num_slots` read, as JAX's do);
+`local_kv_cache_spec` and `local_rows` are a mesh rank's part of it (its
+heads over `model`, its rows over `data`), which serving on ranks
+allocates (serving/generate.py `GenerativeSession`).
+
+Live resize (the serving mesh grew or shrank; ContinuousBatcher
+`request_resize`): `PagedKVPool.resize` rewrites the page tables for a
+new slot count and `owned_view` gives the rows a sequence's table owns,
+the only rows a migration copies.
+
+Left out until its ROADMAP item: the export/import of the disaggregated
+handoff (A5.6).
 """
 from __future__ import annotations
 
@@ -481,6 +492,66 @@ class PagedKVPool:
             ent = self._table.get(seq_id)
             return list(ent[1]) if ent else []
 
+    # -- live resize (JAX kvpool.py:563-630) ---------------------------------
+    def owned_view(self, seq_id) -> List[Tuple[int, int, int]]:
+        """(slot, row_lo, row_hi) spans of the cache rows `seq_id` owns by
+        its page table, adjacent pages merged. A freed page's rows stay in
+        the device arrays until reused, so everything outside these spans
+        is stale: a migration copies these rows and no others."""
+        with self._lock:
+            ent = self._table.get(seq_id)
+            if ent is None:
+                return []
+            slot, pages = ent
+            spans: List[Tuple[int, int, int]] = []
+            for p in pages:
+                lo = (p - slot * self.pages_per_slot) * self.page_size
+                hi = min(lo + self.page_size, self.max_len)
+                if spans and spans[-1][0] == slot and spans[-1][2] == lo:
+                    spans[-1] = (slot, spans[-1][1], hi)
+                else:
+                    spans.append((slot, lo, hi))
+            return spans
+
+    def resize(self, new_num_slots: int) -> List[Tuple[object, int, int,
+                                                       int]]:
+        """Rewrite the page tables for `new_num_slots` decode slots, the
+        per-slot geometry unchanged: a sequence whose slot survives keeps
+        it, one whose slot is gone moves into the lowest free surviving
+        slot. Raises PoolExhausted when the live sequences exceed the new
+        count (the batcher defers the resize until enough finish).
+        Returns every live sequence's (seq_id, old_slot, new_slot,
+        n_pages): the device arrays are made anew, so even a sequence
+        that kept its slot has its owned rows copied."""
+        new_num_slots = int(new_num_slots)
+        if new_num_slots < 1:
+            raise ValueError(f"new_num_slots={new_num_slots}: need >= 1")
+        with self._lock:
+            live = sorted(self._table.items(), key=lambda kv: kv[1][0])
+            if len(live) > new_num_slots:
+                raise PoolExhausted(
+                    f"{len(live)} live sequences exceed the new capacity"
+                    f" ({new_num_slots} slots); drain first")
+            keep = {slot for _, (slot, _) in live if slot < new_num_slots}
+            free_new = [s for s in range(new_num_slots) if s not in keep]
+            free_new.reverse()  # pop() yields the lowest index first
+            moves: List[Tuple[object, int, int, int]] = []
+            pps = self.pages_per_slot
+            for seq_id, (slot, pages) in live:
+                new_slot = slot if slot < new_num_slots else free_new.pop()
+                self._table[seq_id] = (
+                    new_slot, [new_slot * pps + p - slot * pps
+                               for p in pages])
+                moves.append((seq_id, slot, new_slot, len(pages)))
+            taken = {m[2] for m in moves}
+            self._free_slots = [s for s in range(new_num_slots)
+                                if s not in taken][::-1]
+            self.num_slots = new_num_slots
+            self.total_pages = new_num_slots * pps
+        self._g_total.set(self.total_pages, pool=self.label)
+        self._sync_gauges()
+        return moves
+
     def pages_used(self) -> int:
         with self._lock:
             return sum(len(pages) for _, pages in self._table.values())
@@ -532,6 +603,28 @@ def kv_cache_spec(model) -> List[tuple]:
         raise ValueError(
             "model has no multihead_attention ops: nothing to cache")
     return out
+
+
+def local_kv_cache_spec(model) -> List[tuple]:
+    """`kv_cache_spec` with each op's heads this rank holds: h / tp where
+    the op's K projection is sharded over `model`, all of them
+    otherwise. On one device it is `kv_cache_spec`."""
+    by_name = {op.name: op for op in model.graph.ops.values()}
+    out = []
+    for name, heads, kdim, vdim, cdt in kv_cache_spec(model):
+        pt = by_name[name].shards.get("wk")
+        if pt is not None:
+            heads //= pt.dims[1].degree
+        out.append((name, heads, kdim, vdim, cdt))
+    return out
+
+
+def local_rows(model, rows: int) -> int:
+    """The rows of a `rows`-row batch this rank walks: rows / dp where the
+    mesh's `data` degree divides them (the model cuts its batch so,
+    FFModel._data_slice), all of them otherwise."""
+    dp = model.mesh.size("data") if model.mesh is not None else 1
+    return rows // dp if dp > 1 and rows % dp == 0 else rows
 
 
 def kv_bytes_per_token(model) -> int:

@@ -14,8 +14,8 @@ and fit. Prints one JSON line per rank: losses, ms per step, launches
 per step by kernel, peak memory, backend and host staging.
 
 `run_rank` is the rank's body, also what chip_smoke.py and
-tests/test_torch_tp.py, test_torch_axes.py and test_torch_pipeline.py
-spawn: a list of jobs, each a dict (see `JOB`), run one after another in
+tests/test_torch_tp.py, test_torch_axes.py, test_torch_pipeline.py and
+test_torch_serving_mesh.py spawn: a list of jobs, each a dict (see `JOB`), run one after another in
 one process group. A job's `model` names its graph (`MODELS`: the BERT
 encoder, the small graphs of the JAX package's multi-device entry, a
 `tools/zoo_train.py` model), its `axes` any mesh of the data, model,
@@ -24,7 +24,10 @@ compiles with no axes, so the model's plan comes from its config
 (`config`: the strategy search, an imported strategy file, or the
 `{"data": world}` default); each rank then reports the plan it holds,
 and a rank past the plan's mesh trains nothing: it reports the error
-its `fit` raises.
+its `fit` raises. A job with a `serve` spec serves its model on the
+mesh instead of training it (`serve_job`): a GenerativeSession, an
+InferenceModel with the leader-driven DynamicBatcher, or a
+ContinuousBatcher's construction.
 """
 from __future__ import annotations
 
@@ -116,6 +119,8 @@ JOB: Dict[str, Any] = {
     # report each whole weight's change over the training as its norm
     # (float64, "op/weight" -> norm): under SGD the sync's gradient scale
     "update_norms": False,
+    # compile() mode: "training" or "inference"
+    "comp_mode": "training",
 }
 
 
@@ -208,6 +213,46 @@ def _build_sp_search(lib, model, job, seq: int = 128, hidden: int = 64,
     model.softmax(model.dense(t, 4, name="cls"))
 
 
+def _build_lm9(lib, model, job, vocab: int = 50, hidden: int = 32,
+               heads: int = 4, window: int = 8):
+    """The JAX entry's sharded-serving leg (`__graft_entry__.py:432-451`):
+    embedding, causal attention, add, LayerNorm, the vocabulary head and
+    its softmax."""
+    t = model.embedding(
+        model.create_tensor([job["batch"], window], lib.DataType.DT_INT32),
+        vocab, hidden, lib.AggrMode.AGGR_MODE_NONE, name="g_emb")
+    attn = model.multihead_attention(t, t, t, hidden, heads, causal=True,
+                                     name="g_attn")
+    t = model.layer_norm(model.add(t, attn), [-1], name="g_ln")
+    model.softmax(model.dense(t, vocab, name="g_head"))
+
+
+def _build_serve_lm(lib, model, job, vocab: int = 64, hidden: int = 32,
+                    heads: int = 4, layers: int = 2, window: int = 16):
+    """The serve LM (serving/sched/bench.py `build_tiny_lm`'s graph and
+    op names)."""
+    t = model.embedding(
+        model.create_tensor([job["batch"], window], lib.DataType.DT_INT32),
+        vocab, hidden, lib.AggrMode.AGGR_MODE_NONE, name="emb")
+    for i in range(layers):
+        attn = model.multihead_attention(t, t, t, hidden, heads,
+                                         causal=True, name=f"l{i}_attn")
+        t = model.layer_norm(model.add(t, attn), [-1], name=f"l{i}_ln1")
+        h = model.dense(t, hidden * 2, lib.ActiMode.AC_MODE_GELU,
+                        name=f"l{i}_ff1")
+        h = model.dense(h, hidden, name=f"l{i}_ff2")
+        t = model.layer_norm(model.add(t, h), [-1], name=f"l{i}_ln2")
+    model.softmax(model.dense(t, vocab, name="lm_head"))
+
+
+def _build_serve_mlp(lib, model, job, dim: int = 8, classes: int = 4):
+    """tests/test_serving.py's serving model: dense 16 (relu), dense,
+    softmax."""
+    t = model.dense(model.create_tensor([job["batch"], dim]), 16,
+                    lib.ActiMode.AC_MODE_RELU, name="sv_fc1")
+    model.softmax(model.dense(t, classes, name="sv_fc2"))
+
+
 def _build_zoo(lib, model, job, name: str = "moe_switch"):
     """A tools/zoo_train.py model's graph (its widths and batch)."""
     from . import zoo_train
@@ -221,7 +266,8 @@ def _build_zoo(lib, model, job, name: str = "moe_switch"):
 MODELS = {"encoder": _build_encoder, "sp_attn": _build_sp_attn,
           "moe": _build_moe, "row_mlp": _build_row_mlp,
           "conv": _build_conv, "sp_search": _build_sp_search,
-          "zoo": _build_zoo}
+          "zoo": _build_zoo, "lm9": _build_lm9,
+          "serve_lm": _build_serve_lm, "serve_mlp": _build_serve_mlp}
 
 
 def _encoder_graph(job: Dict[str, Any], device: str, **config):
@@ -246,8 +292,15 @@ def _encoder_graph(job: Dict[str, Any], device: str, **config):
 def _compile(model, job: Dict[str, Any], axes) -> None:
     import torch
 
-    from .. import AdamOptimizer, LossType, MetricsType, SGDOptimizer
+    from .. import (AdamOptimizer, CompMode, LossType, MetricsType,
+                    SGDOptimizer)
 
+    if job["comp_mode"] == "inference":
+        model.compile(loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                      comp_mode=CompMode.COMP_MODE_INFERENCE,
+                      parallel_axes=axes,
+                      generator=torch.Generator().manual_seed(job["seed"]))
+        return
     spec = job["optimizer"] or ("adam",) + tuple(job["adam"])
     if spec[0] == "sgd":
         opt = SGDOptimizer(model, lr=spec[1])
@@ -514,9 +567,168 @@ def collective_sweep(spec: Dict[str, Any], device: str) -> Dict[str, Any]:
     return res
 
 
+def _synced(device):
+    """A no-argument wait for the rank's card (nothing on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return torch.cuda.synchronize
+    return lambda: None
+
+
+def _session(model, spec: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """GenerativeSession runs on the mesh: spec["runs"], each generate's
+    keywords (`new`, `eos_id`, `k`, `temperature`, `top_k`, `seed`), over
+    spec["prompts"]; with spec["launches"] the kernel launches of one
+    prefill and of one decode step on this rank; with
+    spec["last_probs"] the prefill's last-prompt-position probabilities
+    (gathered over `data`)."""
+    import torch
+
+    from ..kernels import launch_counts, reset_launch_counts
+    from ..runtime import collectives
+    from ..serving.generate import GenerativeSession
+
+    sync = _synced(device)
+    prompts = np.asarray(spec["prompts"], np.int32)
+    sess = GenerativeSession(model, max_len=spec["max_len"])
+    runs = []
+    collectives.reset_staged()
+    for r in spec["runs"]:
+        sync()
+        t0 = time.perf_counter()
+        toks = sess.generate(prompts, max_new_tokens=r["new"],
+                             eos_id=r.get("eos_id"),
+                             tokens_per_dispatch=r.get("k", 1),
+                             temperature=r.get("temperature", 0.0),
+                             top_k=r.get("top_k"), seed=r.get("seed", 0))
+        sync()
+        runs.append({"tokens": toks, "s": time.perf_counter() - t0})
+    out: Dict[str, Any] = {"runs": runs, "stats": sess.stats(),
+                           "staged": dict(collectives.STAGED)}
+    if spec.get("launches"):
+        reset_launch_counts()
+        sess.generate(prompts, max_new_tokens=1)
+        prefill = launch_counts()
+        reset_launch_counts()
+        sess.generate(prompts, max_new_tokens=2)
+        both = launch_counts()
+        out["launches"] = {
+            "prefill": {k: v for k, v in prefill.items() if v},
+            "decode_step": {k: both[k] - prefill.get(k, 0) for k in both
+                            if both[k] - prefill.get(k, 0)}}
+    if spec.get("last_probs"):
+        b, plen = model.config.batch_size, prompts.shape[1]
+        window = model.input_ops[0].outputs[0].dims[1]
+        padded = np.zeros((b, window), np.int32)
+        padded[:, :plen] = prompts[-1]
+        padded[:prompts.shape[0], :plen] = prompts
+        lo, n = sess._row0, sess.rows
+        ex = model.executor
+        ex.batch_cut = n < b
+        with torch.no_grad():
+            probs = ex.forward_values({model.input_ops[0].name:
+                                       torch.from_numpy(padded[lo:lo + n]
+                                                        ).to(model.device)})
+            probs = probs[model.final_tensor.guid][:, plen - 1].float()
+            if n < b:
+                probs = collectives.gather_shards(
+                    probs, 0, model.mesh.group("data"),
+                    model.mesh.size("data"))
+        out["last_probs"] = probs.cpu().numpy()[:prompts.shape[0]]
+    return out
+
+
+def _infer(model, spec: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """An InferenceModel over spec["buckets"] on the mesh: predict of
+    spec["x"] (every rank the same rows), with spec["launches"] the kernel
+    launches of one walk of the largest bucket, then spec["batcher_rows"]
+    single-row requests through the DynamicBatcher, which rank 0 leads
+    and the others follow."""
+    from ..kernels import launch_counts, reset_launch_counts
+    from ..serving import DynamicBatcher, InferenceModel
+
+    sync = _synced(device)
+    im = InferenceModel(model, batch_buckets=spec["buckets"])
+    name = im.input_names[0]
+    x = np.asarray(spec["x"])
+    sync()
+    t0 = time.perf_counter()
+    out: Dict[str, Any] = {"predict": im.predict({name: x})}
+    sync()
+    out["predict_s"] = time.perf_counter() - t0
+    if spec.get("launches"):
+        reset_launch_counts()
+        im.predict({name: x[:max(spec["buckets"])]})
+        out["launches"] = {k: v for k, v in launch_counts().items() if v}
+    batcher = DynamicBatcher(im, max_batch_size=spec.get("max_batch", 8),
+                             max_delay_ms=spec.get("delay_ms", 5.0))
+    rows = spec.get("batcher_rows", 0)
+    if batcher.leader:
+        with batcher:
+            futs = [batcher.submit({name: x[i:i + 1]}) for i in range(rows)]
+            got = [f.result(timeout=600) for f in futs]
+        out["batcher"] = np.concatenate(got) if got else None
+    else:
+        try:
+            batcher.submit({name: x[:1]})
+            out["follower_submit"] = None
+        except RuntimeError as exc:
+            out["follower_submit"] = str(exc)
+        with batcher:
+            pass  # follows the leader's batches until it stops
+        out["followed"] = batcher.followed
+    out["stats"] = im.stats()
+    return out
+
+
+def serve_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """A job's model built and compiled on its mesh (JOB's keys), then
+    served by job["serve"]["kind"]: "session" (`_session`), "infer"
+    (`_infer`), or "refusal" (the ValueError of a ContinuousBatcher over
+    it). Reports whether compile built a train step and an optimizer
+    state, and the error `fit` raises in inference mode."""
+    spec = job["serve"]
+    job = dict(JOB, **{k: v for k, v in job.items() if k != "serve"})
+    t0 = time.perf_counter()
+    model = build_encoder(job, device)
+    out: Dict[str, Any] = {"mesh_coords": dict(model.mesh.coords)
+                           if model.mesh else {},
+                           "build_s": time.perf_counter() - t0,
+                           "train_step": hasattr(model, "_train_step"),
+                           "opt_state": model.opt_state is not None}
+    if model.outside_mesh:
+        out["outside_mesh"] = model.outside_mesh
+        return out
+    if job["comp_mode"] == "inference" and job["x"] is not None:
+        try:
+            model.fit(job["x"], job["y"], batch_size=job["batch"])
+            out["fit_error"] = None
+        except RuntimeError as exc:
+            out["fit_error"] = str(exc)
+    kind = spec["kind"]
+    if kind == "session":
+        out.update(_session(model, spec, device))
+    elif kind == "infer":
+        out.update(_infer(model, spec, device))
+    elif kind == "refusal":
+        from ..serving.sched import ContinuousBatcher
+
+        try:
+            ContinuousBatcher(model, max_len=spec["max_len"], num_slots=2)
+            out["refusal"] = None
+        except ValueError as exc:
+            out["refusal"] = str(exc)
+    else:
+        raise ValueError(f"unknown serve kind {kind!r}")
+    return out
+
+
 def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     import torch
 
+    if "serve" in job:
+        return serve_job(job, device)
     if "attention" in job:
         return attention_blocks(job, device)
     if "pipeline_transformer" in job:

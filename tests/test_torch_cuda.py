@@ -2327,3 +2327,38 @@ def test_bucket_captures_while_another_thread_replays(dev):
     assert im.counts["captures"] == 2 and im.counts["eager_walks"] == 0
     for o, a in zip(outs, alone):
         np.testing.assert_array_equal(o, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_heads_causal_at_the_mesh_serving_shape(dev, dtype):
+    """B7 as a prefill on a data x model mesh runs it: causal, blhd, a
+    rank's 8 of the serve LM's 16 heads over the 512-token window (4
+    rows), against its plain version; counted on its layout."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    b, l, h, d = 4, 512, 8, 64
+    q, k, v = (torch.randn((b, l, h, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    reset_launch_counts()
+    o, lse = flash_attention.flash_fwd_heads(q, k, v, scale=d ** -0.5,
+                                             causal=True, layout="blhd")
+    ro, rlse = flash_attention.flash_fwd_heads_plain(q, k, v, d ** -0.5,
+                                                     True, "blhd")
+    _close(o, ro, F32_TOL if dtype == torch.float32 else BF16_TOL)
+    _close(lse, rlse, F32_TOL)
+    assert launch_counts()["flash_fwd_blhd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_the_mesh_serving_shape(dev, dtype):
+    """B5 as a mesh session's decode step runs it: a rank's 2 rows and 8
+    heads over a 1024-row cache, both rows at one position."""
+    g = torch.Generator(device=dev).manual_seed(48)
+    b, m, h, d = 2, 1024, 8, 64
+    q = torch.randn((b, 1, h, d), generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randn((b, m, h, d), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    pos = torch.full((b,), 80, dtype=torch.int32, device=dev)
+    out = decode.decode_attention(q, kc, vc, pos, scale=d ** -0.5,
+                                  block_k=512)
+    ref = decode.decode_attention_plain(q, kc, vc, pos, d ** -0.5)
+    _close(out, ref, F32_TOL if dtype == torch.float32 else BF16_TOL)

@@ -266,7 +266,7 @@ def test_pipeline_candidates_raise(tmp_path):
 
 @pytest.mark.parametrize("algo", ["unity", "mcmc"])
 @pytest.mark.parametrize("name", ["mlp_split", "bert"])
-def test_taso_file_with_parallel_op_rules_raises_at_the_start(name, algo):
+def test_taso_file_with_parallel_op_rules_searches_as_jax(name, algo):
     """The search under substitutions/graph_subst_3_v2.json (476 of its
     640 rules insert parallel ops) gives JAX's plan, rewrites and log
     counts, unity and mcmc alike."""

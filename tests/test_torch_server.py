@@ -265,15 +265,36 @@ def test_batcher_submit_racing_stop_never_hangs():
         sys.setswitchinterval(old)
 
 
-def test_inference_model_refuses_cuda_mesh():
+def test_inference_model_on_a_cuda_mesh_walks_eagerly_and_says_why(
+        monkeypatch):
+    """On a mesh of CUDA ranks sharing a card (gloo, host-staged) a bucket
+    is one eager walk of the model's collective predict: counted as an
+    eager walk, never captured, with graph_capture's reason in stats()."""
     from types import SimpleNamespace
 
-    fake = SimpleNamespace(executor=object(), mesh=object(),
-                           device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        InferenceModel(fake)
+    from flexflow_tpu_torch.runtime import distributed
+
+    monkeypatch.setattr(distributed, "_STATE", {"host_staging": True})
+    calls = []
+
+    def predict(padded, batch_size):
+        calls.append((padded[0].shape, batch_size))
+        return np.arange(batch_size * 2, dtype=np.float32).reshape(-1, 2)
+
+    fake = SimpleNamespace(
+        executor=object(), mesh=object(), device=torch.device("cuda", 0),
+        outside_mesh=None, predict=predict,
+        input_ops=[SimpleNamespace(name="x", outputs=[
+            SimpleNamespace(dims=(8, 3))])])
+    im = InferenceModel(fake, batch_buckets=(2, 8))
+    out = im.predict({"x": np.ones((5, 3), np.float32)})
+    assert out.shape == (5, 2) and calls == [((8, 3), 8)]
+    st = im.stats()
+    assert st["graphs"]["eager_walks"] == 1
+    assert st["graphs"]["captures"] == st["graphs"]["replays"] == 0
+    assert not st["graph_capture"] and "gloo" in st["reason"]
     with pytest.raises(RuntimeError, match="compiled"):
-        InferenceModel(SimpleNamespace(executor=None))
+        InferenceModel(SimpleNamespace(executor=None, outside_mesh=None))
 
 
 # ---------------------------------------------------------------------

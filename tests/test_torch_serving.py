@@ -144,8 +144,8 @@ def test_unported_batcher_features_raise_clearly(lms):
     # JAX's in tests/test_torch_calibration.py)
     assert ContinuousBatcher(pm, max_len=24).num_slots >= 1
     cb = ContinuousBatcher(pm, max_len=24, num_slots=1)
-    for call in (cb.request_resize, cb.request_export, cb.request_import,
-                 cb.resume_parked, cb.release_parked):
+    for call in (cb.request_export, cb.request_import, cb.resume_parked,
+                 cb.release_parked):
         with pytest.raises(NotImplementedError, match="A5"):
             call()
     with pytest.raises(BatcherStopped):

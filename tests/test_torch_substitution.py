@@ -206,7 +206,7 @@ def test_clone_leaves_the_graph_and_copies_no_weights():
     assert merged and all(op.model_config is m.config for op in merged)
 
 
-def test_fuse_parallel_ops_finds_no_application():
+def test_fuse_parallel_ops_matches_jax_applications():
     """rule_fuse_parallel_ops finds JAX's applications: none on the
     cases' graphs, and on a parallel-op chain the same collapse."""
     for case in CASES:
@@ -312,7 +312,7 @@ def test_xfers_match_like_jax(name, case):
         assert total > 0  # its replicate-linear-combine rules match
 
 
-def test_parallel_op_target_raises_naming_a8():
+def test_parallel_op_target_rewrites_graph_as_jax():
     """Applying a rule whose target inserts parallel ops rewrites the
     graph as JAX's does: the same op names, types, params and edges (the
     replicate, the reused linear and the combine)."""
@@ -335,7 +335,7 @@ def test_parallel_op_target_raises_naming_a8():
 
 @pytest.mark.parametrize("name,n", [("tp_rules.json", 5),
                                     ("graph_subst_3_v2.json", 476)])
-def test_rule_file_with_parallel_op_rules_is_refused(name, n):
+def test_rule_file_parallel_op_rules_apply_as_jax(name, n):
     """The rule files' parallel-op rules (5 and 476) are GraphXfers the
     port applies: each one's first application on the linear and conv
     graphs rewrites them as JAX's does."""
