@@ -450,6 +450,42 @@ Phases, in order; any failure propagates and exits non-zero:
               (4, 512, 8 x 64, blhd) and B5 at 8 heads (the session's 2
               rows a rank) against their plain versions and SDPA.
 
+51. elastic-live — the elastic coordinator (flexflow_tpu_torch/elastic/)
+              on four ranks sharing the card over gloo, in a spawn of
+              their own (tools/tp_train.py `elastic` jobs): the flagship
+              encoder at full width (batch 8, seq 512, hidden 1024, 16
+              heads, vocab 30522) cut to 2 of its 12 layers, f32, SGD,
+              the analytic search (search_budget 4). A transient at step
+              1 and the loss of ranks 2 and 3 at step 3, over 8 steps:
+              the retry absorbs the transient, the re-plan runs on 2
+              ranks, the restore is live (no checkpoint file read on any
+              survivor: the ff_checkpoint_* restored / verified / corrupt
+              counters do not move) and resumes at step 3, every step
+              commits once, the survivors' losses equal each other to the
+              bit and lie within 1e-4 relative of an uninterrupted run of
+              the same weights and data on all four ranks (the next job:
+              ranks 2 and 3, which left at step 3, came back). Prints the
+              reshard's bytes moved, rounds and wall, and rank 0's
+              launches of the first step after the recovery.
+52. elastic-disk — in the same spawn: the live tree poisoned and ranks 0
+              and 1 lost at step 3: recovery.live_fallback (reason
+              verify), a disk restore of the step-2 checkpoint and its
+              replay, rank 2 leading the search and writing the
+              checkpoints after the loss; then a torn newest checkpoint
+              and the loss of ranks 2 and 3 at step 4 with live
+              resharding off: checkpoint.corrupt, then checkpoint.fallback
+              to step 2's verified checkpoint.
+53. elastic-nan — one card, the flagship at full depth (12 layers), bf16,
+              Adam with bf16 moments: NaN steps 3-6, checkpoints every 2
+              steps, 10 steps: 3 skips and one rollback to step 2 in the
+              JAX package's event order, each skip leaving the weights,
+              the optimizer state and the step count bit-identical, every
+              loss finite; prints the rollback's restore wall and the
+              checkpoint bytes.
+54. elastic-drill — `python -m flexflow_tpu_torch.elastic.drill
+              --scenario live-reshard --devices 4` on ranks sharing the
+              card: it exits 0; its JSON line is printed.
+
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits 2 without printing a result when no
@@ -5960,6 +5996,295 @@ def ulysses_flash_kernels(torch, F, g, table):
     table["flash_bwd"]["ulysses_shape"] = bwd
 
 
+# phases 51-54: the elastic coordinator (flexflow_tpu_torch/elastic/).
+# 51-52: four ranks sharing the card over gloo, the flagship encoder at
+# full width cut to 2 of its 12 layers, f32, SGD, the analytic search
+ELASTIC_RANKS = 4
+ELASTIC_WIDTHS = {"num_layers": 2}
+ELASTIC_STEPS = 8
+ELASTIC_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd",
+                   "layernorm_bwd", "softmax_fwd", "softmax_bwd", "reduce",
+                   "optimizer_sgd")
+# 53: one card, the flagship at full depth, bf16, Adam
+NAN_WIDTHS = {"num_layers": 12}
+ELASTIC_NAN_KERNELS = ("flash_fwd", "flash_bwd", "layernorm_fwd",
+                       "layernorm_bwd", "softmax_fwd", "softmax_bwd",
+                       "reduce", "optimizer_adam")
+# the JAX package's event order of its NaN scenario (tests/
+# test_watchdog.py; tests/test_torch_elastic.py holds the port to it)
+NAN_EVENTS = [
+    ("checkpoint", 0), ("checkpoint", 2), ("fault.nan_step", 3),
+    ("watchdog.bad_step", 3), ("watchdog.skip", 3), ("fault.nan_step", 4),
+    ("watchdog.bad_step", 4), ("watchdog.skip", 4), ("fault.nan_step", 5),
+    ("watchdog.bad_step", 5), ("recovery.restore", 2),
+    ("watchdog.rollback", 2), ("checkpoint", 4), ("checkpoint.gc", 0),
+    ("checkpoint", 6), ("fault.nan_step", 6), ("watchdog.bad_step", 6),
+    ("watchdog.skip", 6), ("checkpoint.gc", 2), ("checkpoint", 8)]
+
+
+def _elastic_batches(n_batches=4):
+    """Four batches of bench.py's shape: tokens and labels from
+    RandomState(0)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+    x = rng.randint(0, TRAIN["vocab"],
+                    size=(b * n_batches, seq)).astype(np.int32)
+    y = rng.randint(0, 2, size=(b * n_batches, seq, 1)).astype(np.int32)
+    return x, y
+
+
+def _elastic_jobs(tmp):
+    """51-52's jobs (tools/tp_train.py `elastic`): the live recovery, the
+    uninterrupted reference (on every rank: the lost ones came back),
+    the poisoned live tree with ranks 0 and 1 lost, and the torn
+    checkpoint with live resharding off."""
+    x, y = _elastic_batches()
+
+    def job(tag, faults, **coordinator):
+        return {"elastic": {
+            "model": "encoder", "widths": dict(ELASTIC_WIDTHS),
+            "batch": TRAIN["batch"], "mixed": False,
+            "optimizer": ("sgd", 0.01), "accuracy": True,
+            "config": {"search_budget": 4, "measure_op_costs": False},
+            "faults": faults, "x": x, "y": y, "steps": ELASTIC_STEPS,
+            "checkpoint_dir": os.path.join(tmp, tag),
+            "retry": {"max_retries": 3, "base_delay_s": 0.01},
+            "coordinator": dict({"checkpoint_every": 2}, **coordinator),
+            "preplan_join": True, "step_launches": True}}
+
+    return {"live": job("live", [("transient", 1, (), 1),
+                                 ("chip_loss", 3, (2, 3), 1)]),
+            "ref": job("ref", []),
+            "disk": job("disk", [("poison_live_state", 3, (), 1),
+                                 ("chip_loss", 3, (0, 1), 1)]),
+            "torn": job("torn", [("corrupt_checkpoint", 4, (), 1),
+                                 ("chip_loss", 4, (2, 3), 1)],
+                        live_resharding=False)}
+
+
+def _events(run, kind):
+    return [e for e in run["events"] if e[0] == kind]
+
+
+def _elastic_leader(runs):
+    alive = [r for r in runs if not r["departed"]]
+    lead = alive[0]["device_ids"][0]
+    return next(r for r in alive if r["rank"] == lead)
+
+
+def _step_after(run, step):
+    """Launches of one step after `step`'s verdict: the update of step
+    `step` and the walk of the next (tools/tp_train.py StepProbe)."""
+    counts = run["step_launches"]
+    i = next(i for i, (s, _) in enumerate(counts) if s == step)
+    (_, a), (_, b) = counts[i], counts[i + 1]
+    return {k: b[k] - a.get(k, 0) for k in b if b[k] - a.get(k, 0)
+            and "/" not in k}
+
+
+def _elastic_check(name, runs, lost, at):
+    """The checks every recovery run shares: the lost ranks left at the
+    loss, every survivor committed every step once with the same losses
+    to the bit, every loss finite, every kernel of the path launched on
+    rank 0 of the survivors."""
+    import numpy as np
+
+    lead = _elastic_leader(runs)
+    for r in runs:
+        if r["rank"] in lost:
+            if r["departed"] != {"step": at, "lost_chips": list(lost)}:
+                raise AssertionError(f"{name}: rank {r['rank']} did not "
+                                     f"leave at step {at}: {r['departed']}")
+            continue
+        if [h["step"] for h in r["history"]] != list(range(ELASTIC_STEPS)):
+            raise AssertionError(f"{name}: rank {r['rank']} committed "
+                                 f"{[h['step'] for h in r['history']]}")
+        if [h["loss"] for h in r["history"]] != \
+                [h["loss"] for h in lead["history"]]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s losses "
+                                 "differ from the leader's")
+    losses = [h["loss"] for h in lead["history"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    first = min(r["rank"] for r in runs if not r["departed"])
+    launched = next(r for r in runs if r["rank"] == first)["launches"]
+    missing = [k for k in ELASTIC_KERNELS if not launched.get(k)]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched on the "
+                             f"recovered run: {missing}")
+    return lead, losses
+
+
+def phase_elastic(torch):
+    """51-52 in one spawn of four ranks sharing the card (see the module
+    docstring). Returns the two records and rank 0's launches by run."""
+    import gc
+    import tempfile
+
+    from flexflow_tpu_torch.tools.tp_train import spawn_jobs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = _elastic_jobs(tmp)
+        t0 = time.perf_counter()
+        ranks = spawn_jobs(ELASTIC_RANKS, "cuda", list(jobs.values()),
+                           timeout_s=900)
+        wall = time.perf_counter() - t0
+    runs = {tag: [r["jobs"][i] for r in ranks]
+            for i, tag in enumerate(jobs)}
+    ref = runs["ref"]
+    if any(r["departed"] for r in ref) or \
+            len({tuple(h["loss"] for h in r["history"]) for r in ref}) != 1:
+        raise AssertionError("ref: every rank (the returned ones too) must "
+                             "train the same 8 steps")
+    ref_losses = [h["loss"] for h in ref[0]["history"]]
+    # 51: transient, then ranks 2 and 3 lost: a live recovery
+    lead, losses = _elastic_check("elastic-live", runs["live"], (2, 3), 3)
+    restore = _events(lead, "recovery.restore")
+    search = _events(lead, "recovery.search")
+    reads = {r["rank"]: sum(r["checkpoint_counts"].get(k, 0) for k in
+                            ("restored", "verified", "corrupt"))
+             for r in runs["live"] if not r["departed"]}
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    checks = {
+        "retry_absorbed": len(_events(lead, "fault.transient")) == 1
+        and len(_events(lead, "retry")) == 1,
+        "replan_on_2": bool(search) and search[0][2]["n_devices"] == 2,
+        "live_restore": len(restore) == 1
+        and restore[0][2]["source"] == "live",
+        "no_checkpoint_read": not any(reads.values()),
+        "resumed_at_3": bool(restore) and restore[0][1] == 3,
+        "ref_within_1e-4": max(rels) <= 1e-4,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"elastic-live: {checks}; events "
+                             f"{[e[:2] for e in lead['events']]}")
+    launches = {"elastic-live": lead["launches"]}
+    live = {
+        "phase": "elastic-live", "ranks": ELASTIC_RANKS,
+        "widths": ELASTIC_WIDTHS, "dtype": "float32", "optimizer": "sgd",
+        "axes_before": runs["live"][2]["axes"], "axes_after": lead["axes"],
+        "device_ids_after": lead["device_ids"], "checks": checks,
+        "losses": losses, "ref_losses": ref_losses,
+        "max_relative_diff_vs_ref": max(rels),
+        "reshard": lead["reshard"],
+        "restore_ms": restore[0][2]["restore_ms"],
+        "replan_ms": search[0][2]["replan_ms"],
+        "search_cache": search[0][2]["cache"],
+        "first_step_after_recovery_launches_rank0": _step_after(lead, 3),
+        "fit_s_by_rank": [r["fit_s"] for r in runs["live"]],
+        "ref_fit_s": ref[0]["fit_s"], "spawn_wall_s": wall,
+        "departed": {r["rank"]: r["departed"] for r in runs["live"]
+                     if r["departed"]},
+        "tolerance": "survivors' losses equal to the bit; |loss - "
+                     "uninterrupted| <= 1e-4 |uninterrupted|"}
+    # 52: poisoned live tree, ranks 0 and 1 lost; then a torn checkpoint
+    lead, losses = _elastic_check("elastic-disk", runs["disk"], (0, 1), 3)
+    fb = _events(lead, "recovery.live_fallback")
+    restore = _events(lead, "recovery.restore")
+    checks = {
+        "fallback_verify": len(fb) == 1 and fb[0][2]["reason"] == "verify",
+        "disk_restore_step_2": len(restore) == 1 and restore[0][1] == 2
+        and restore[0][2]["source"] == "disk",
+        "rank2_leads": lead["rank"] == 2 and lead["search_leader"] == 2,
+        "rank2_writes": lead["written"] == [4, 6],
+    }
+    t_lead, _ = _elastic_check("elastic-torn", runs["torn"], (2, 3), 4)
+    t_fb = _events(t_lead, "checkpoint.fallback")
+    t_restore = _events(t_lead, "recovery.restore")
+    checks.update({
+        "torn_corrupt": len(_events(t_lead, "checkpoint.corrupt")) == 1,
+        "torn_fallback_step_2": [e[1] for e in t_fb] == [2]
+        and bool(t_restore) and t_restore[0][1] == 2,
+    })
+    if not all(checks.values()):
+        raise AssertionError(f"elastic-disk: {checks}")
+    launches["elastic-disk"] = lead["launches"]
+    launches["elastic-torn"] = t_lead["launches"]
+    disk = {
+        "phase": "elastic-disk", "checks": checks, "losses": losses,
+        "restore_ms": restore[0][2]["restore_ms"],
+        "torn_restore_ms": t_restore[0][2]["restore_ms"],
+        "device_ids_after": lead["device_ids"], "axes_after": lead["axes"],
+        "torn_losses": [h["loss"] for h in t_lead["history"]],
+        "fit_s_by_rank": [r["fit_s"] for r in runs["disk"]],
+        "torn_fit_s": t_lead["fit_s"]}
+    return live, disk, launches
+
+
+def phase_elastic_nan(torch, steps=10):
+    """53: the coordinator on one card (see the module docstring)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from flexflow_tpu_torch.tools.tp_train import elastic_job
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    x, y = _elastic_batches()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = elastic_job({
+            "model": "encoder", "widths": dict(NAN_WIDTHS),
+            "batch": TRAIN["batch"], "mixed": True,
+            "optimizer": ("adam", 1e-4, "bfloat16"), "accuracy": True,
+            "faults": [("nan_step", s, (), 1) for s in range(3, 7)],
+            "x": x, "y": y, "steps": steps, "checkpoint_dir": tmp,
+            "coordinator": {"checkpoint_every": 2}, "skip_witness": True,
+            "trace": True}, "cuda")
+        ckpt_bytes = sorted(os.path.getsize(os.path.join(tmp, f))
+                            for f in os.listdir(tmp) if f.endswith(".npz"))
+    seq = [tuple(e[:2]) for e in out["events"]
+           if e[0] not in ("detect.slow_step", "plan.precompute")]
+    losses = [h["loss"] for h in out["history"]]
+    checks = {
+        "jax_event_order": seq == NAN_EVENTS,
+        "skips_identical": out["skips_identical"] == [True, True, True],
+        "steps": [h["step"] for h in out["history"]]
+        == [0, 1, 2, 3, 4, 5, 7, 8, 9],
+        "finite": bool(np.all(np.isfinite(losses))),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"elastic-nan: {checks}; events {seq}")
+    missing = [k for k in ELASTIC_NAN_KERNELS if not out["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"elastic-nan: kernels never launched: "
+                             f"{missing}")
+    spans = out["span_us"]
+    return {"phase": "elastic-nan", "widths": NAN_WIDTHS,
+            "dtype": "bfloat16", "optimizer": "adam (bf16 moments)",
+            "checks": checks, "losses": losses,
+            "rollback_restore_ms": [d / 1e3 for d in
+                                    spans.get("elastic.rollback", [])],
+            "checkpoint_save_ms": [d / 1e3 for d in
+                                   spans.get("checkpoint.save", [])],
+            "checkpoint_bytes": ckpt_bytes, "fit_s": out["fit_s"]}, \
+        out["launches"]
+
+
+def phase_elastic_drill(torch):
+    """54: the port's drill, --scenario live-reshard on four ranks sharing
+    the card; exits 0, its JSON line kept."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "flexflow_tpu_torch.elastic.drill",
+         "--scenario", "live-reshard", "--devices", str(ELASTIC_RANKS),
+         "--device", "cuda"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"elastic drill exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    summary = json.loads(lines[-1])
+    return {"phase": "elastic-drill", "exit_code": proc.returncode,
+            "wall_s": wall, "summary": summary}
+
+
 def main() -> int:
     import torch
 
@@ -6365,6 +6690,25 @@ def main() -> int:
     _emit(dict(line, launches=zoo_paths["resize"],
                seconds_since_start=time.perf_counter() - t_start))
     print(f"phase 50: {time.perf_counter() - t_resize:.1f} s", flush=True)
+
+    # 51) elastic-live, 52) elastic-disk: the elastic coordinator on four
+    # ranks sharing the card, in a spawn of their own; 53) elastic-nan on
+    # one card; 54) elastic-drill. Launches: rank 0's (the survivors'
+    # first rank) over each recovered fit, counted from 0 at its start
+    t_elastic = time.perf_counter()
+    live, disk, elastic_launches = phase_elastic(torch)
+    _emit(dict(live, seconds_since_start=time.perf_counter() - t_start))
+    _emit(dict(disk, seconds_since_start=time.perf_counter() - t_start))
+    for path, counts in elastic_launches.items():
+        zoo_paths[path] = {k: n for k, n in counts.items() if "/" not in k}
+    line, counts = phase_elastic_nan(torch)
+    zoo_paths["elastic-nan"] = {k: n for k, n in counts.items()
+                                if "/" not in k}
+    _emit(dict(line, seconds_since_start=time.perf_counter() - t_start))
+    _emit(dict(phase_elastic_drill(torch),
+               seconds_since_start=time.perf_counter() - t_start))
+    print(f"phases 51-54: {time.perf_counter() - t_elastic:.1f} s",
+          flush=True)
 
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp

@@ -10,7 +10,7 @@ torch device, CUDA unless the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 
 @dataclasses.dataclass
@@ -48,6 +48,15 @@ class FFConfig:
     # chips the machine model prices (JAX `num_devices`); None: the
     # torch.distributed world when one is initialized, else 1
     num_devices: Optional[int] = None
+    # the ranks to run on (global torch.distributed ranks, ascending): the
+    # plan's mesh is laid over them, its leader is the first. Set by the
+    # elastic coordinator to compile onto the SURVIVORS of a rank loss;
+    # wins over num_devices. None: every rank of the world
+    device_ids: Optional[List[int]] = None
+    # the elastic runtime's hook (elastic/detector.py FailureDetector.wrap):
+    # FFModel wraps the elastic step's dispatch with it, so fault
+    # injection, failure classification and retry ride every dispatch
+    elastic_step_wrapper: Optional[object] = None
     # 0: SimpleMachineModel, >= 1: TpuPodModel (the two-link ring)
     machine_model_version: int = 0
     # a machine spec file: a "tiers" list is hierarchical, else a topology
@@ -89,7 +98,7 @@ class FFConfig:
     warm_fallback_tolerance: float = 1.05
     # the re-plan's plan-distance term and its live plan (a
     # resharding.ShardingPlan, priced through resharding/cost.py; the
-    # elastic re-plan that produces one is ROADMAP A9.3)
+    # elastic coordinator's re-plans set it, elastic/coordinator.py)
     replan_distance_weight: float = 1.0
     replan_live_plan: Optional[object] = None
     # joint substitution x parallelization search; False applies the
@@ -135,7 +144,10 @@ class FFConfig:
 
     @property
     def total_devices(self) -> int:
-        """Chips the cost model prices (JAX `total_devices`)."""
+        """Chips the cost model prices (JAX `total_devices`): the ranks of
+        `device_ids` when set."""
+        if self.device_ids is not None:
+            return len(self.device_ids)
         if self.num_devices is not None:
             return int(self.num_devices)
         import torch.distributed as dist

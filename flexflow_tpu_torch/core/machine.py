@@ -3,17 +3,22 @@ flexflow_tpu/core/machine.py `MachineView` and `make_mesh`).
 
 In the JAX package a mesh is an array of devices with named axes and one
 program runs over all of them. Here each mesh position is one process of
-the default process group: ranks are laid out row-major over the axes in
-the JAX order (data, model, expert, attr, seq: search/unity.py
-mesh_axes_for; then stage, which the JAX package's pipeline meshes put
-after data), so on a data x model mesh rank = data_index * model_size +
-model_index, and each axis of size > 1 gets a process group over the
+torch.distributed. A mesh is laid over a list of global ranks (the JAX
+package's `device_ids`; by default every rank of the world): positions
+row-major over the axes in the JAX order (data, model, expert, attr,
+seq: search/unity.py mesh_axes_for; then stage, which the JAX package's
+pipeline meshes put after data), so on a data x model mesh position =
+data_index * model_size + model_index, and the rank at a position is
+`ranks[position]`. Each axis of size > 1 gets a process group over the
 ranks that differ only along it (`Mesh.groups`, and the group's ranks in
-coordinate order in `Mesh.group_ranks`).
+coordinate order in `Mesh.group_ranks`), and the mesh a group of its
+own over all its ranks (`Mesh.group_all`, the default group when the
+mesh is the world), which mesh-wide work uses (a checkpoint's barrier,
+the reshard's maxima); its leader is the rank at position 0.
 
-A mesh may be smaller than the world, as a searched plan's often is (the
-JAX package builds its mesh over a prefix of the devices): it spans ranks
-0 .. prod(axes) - 1, and a rank past it holds no position
+A mesh may be smaller than its rank list, as a searched plan's often is
+(the JAX package builds its mesh over a prefix of the devices): it spans
+the first prod(axes) ranks, and a rank past it holds no position
 (`Mesh.holds_position`; its model trains nothing, FFModel.compile).
 
 What runs over each axis: `data` cuts the batch, `model` shards the
@@ -25,7 +30,7 @@ pipeline stages (runtime/executor.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,30 +64,55 @@ class MachineView:
 
 
 class Mesh:
-    """This process's position in a mesh: its coordinates and the process
-    group of each axis of size > 1 (None for an axis of size 1)."""
+    """This process's position in a mesh laid over `ranks` (global,
+    ascending; default 0 .. n - 1): its coordinates and the process group
+    of each axis of size > 1 (None for an axis of size 1)."""
 
     def __init__(self, view: MachineView, rank: int,
-                 groups: Dict[str, object], device: torch.device):
+                 groups: Dict[str, object], device: torch.device,
+                 ranks: Optional[Sequence[int]] = None):
         self.view = view
         self.rank = rank
+        self.ranks = (list(ranks) if ranks is not None
+                      else list(range(view.num_devices)))
         self.shape = view.axis_sizes
         self.groups = groups
         # axis -> the global ranks of this position's group, in the order
         # of the axis coordinate
         self.group_ranks: Dict[str, list] = {}
+        # the group over every rank of the mesh (None: the default group)
+        self.group_all = None
         self.device = device
         self.coords: Dict[str, int] = {}
-        rest = rank
+        rest = self.position if self.holds_position else rank
         for name, size in reversed(view.axes):
             self.coords[name] = rest % size
             rest //= size
 
     @property
+    def mesh_ranks(self) -> list:
+        """The global ranks of the mesh's positions, in position order."""
+        return self.ranks[:self.view.num_devices]
+
+    @property
     def holds_position(self) -> bool:
         """Whether this rank is one of the mesh's (ranks past a mesh
-        smaller than the world are not)."""
-        return self.rank < self.view.num_devices
+        smaller than its rank list are not)."""
+        return self.rank in self.mesh_ranks
+
+    @property
+    def position(self) -> int:
+        """This rank's position in the mesh (row-major over the axes)."""
+        return self.mesh_ranks.index(self.rank)
+
+    @property
+    def leader(self) -> int:
+        """The global rank at position 0: it writes the checkpoints."""
+        return self.ranks[0]
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == self.leader
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -111,11 +141,14 @@ def check_axes(axis_sizes: Dict[str, int]) -> Dict[str, int]:
     return {a: axes[a] for a in AXIS_ORDER if axes.get(a, 1) > 1}
 
 
-def make_mesh(axis_sizes: Dict[str, int]) -> Mesh:
-    """This process's Mesh over the first prod(axes) ranks of the default
-    process group, one process per mesh position. Every rank of the world
-    calls it, in the same order as any other group creation (a rank past
-    the mesh takes part in making the groups, and holds no position)."""
+def make_mesh(axis_sizes: Dict[str, int],
+              ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """This process's Mesh over the first prod(axes) of `ranks` (global,
+    ascending; default every rank of the default process group), one
+    process per mesh position. Every rank of `ranks` calls it, in the
+    same order as any other group creation (a rank past the mesh takes
+    part in making the groups, and holds no position); a rank outside
+    `ranks` takes part in nothing."""
     import torch.distributed as dist
 
     from ..runtime import distributed
@@ -129,26 +162,38 @@ def make_mesh(axis_sizes: Dict[str, int]) -> Mesh:
             "ROADMAP A8)")
     view = MachineView(axes=tuple(axes.items()))
     world = dist.get_world_size()
-    if view.num_devices > world:
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if ranks != sorted(set(ranks)) or ranks[-1] >= world:
+        raise ValueError(f"mesh ranks {ranks}: ascending ranks of the "
+                         f"world of {world}, each once")
+    if view.num_devices > len(ranks):
         raise ValueError(f"parallel_axes={axis_sizes} needs "
                          f"{view.num_devices} processes, one per mesh "
-                         f"position; the process group has {world}")
+                         f"position; the process group has {len(ranks)}"
+                         + (f" (ranks {ranks})" if len(ranks) < world
+                            else ""))
     rank = dist.get_rank()
-    mesh = Mesh(view, rank, {}, distributed.device())
+    if rank not in ranks:
+        raise ValueError(f"rank {rank} is not one of the mesh's ranks "
+                         f"{ranks}")
+    mesh = Mesh(view, rank, {}, distributed.device(), ranks)
+    at = mesh.mesh_ranks
+    mesh.group_all = distributed.group_of(at)
     names = [n for n, _ in view.axes]
     sizes = [s for _, s in view.axes]
     for i, name in enumerate(names):
-        # the ranks that share every other coordinate, for each setting of
-        # those coordinates in row-major order: created by every rank
+        # the positions that share every other coordinate, for each
+        # setting of those coordinates in row-major order: the group of
+        # their ranks made by every rank
         stride = 1
         for s in sizes[i + 1:]:
             stride *= s
-        others = [r for r in range(view.num_devices)
-                  if (r // stride) % sizes[i] == 0]
+        others = [p for p in range(view.num_devices)
+                  if (p // stride) % sizes[i] == 0]
         for base in others:
-            ranks = [base + j * stride for j in range(sizes[i])]
-            group = dist.new_group(ranks)
-            if rank in ranks:
+            group_ranks = [at[base + j * stride] for j in range(sizes[i])]
+            group = dist.new_group(group_ranks)
+            if rank in group_ranks:
                 mesh.groups[name] = group
-                mesh.group_ranks[name] = ranks
+                mesh.group_ranks[name] = group_ranks
     return mesh

@@ -2,12 +2,14 @@
 flexflow_tpu/elastic/events.py): the canonical event kinds, `ElasticEvent`
 and the thread-safe `EventLog`.
 
-In the port the training watchdog (elastic/watchdog.py) records into it,
-and the serving metrics endpoint exports its per-kind counters
-(`InferenceServer.attach_elastic_events`). The fault injector, the
-detector and the coordinator's recovery phases that also record here in
-the JAX package come with the rest of the elastic runtime (ROADMAP A9.3);
-their kinds are kept so the two packages' logs read alike.
+Every fault the injector fires, every detector classification, every
+retry, every watchdog verdict and every phase of the coordinator's
+recoveries (search, restore, resume) lands here as one timestamped
+record, so a post-mortem can replay what the runtime saw and did; on a
+mesh every rank keeps its own log, and the survivors' logs agree. The
+serving metrics endpoint exports its per-kind counters
+(`InferenceServer.attach_elastic_events`), and
+runtime/profiling.py `print_event_log` renders it.
 """
 from __future__ import annotations
 

@@ -16,8 +16,10 @@ serving /metrics endpoint exports as `ff_watchdog_*`.
 `FFModel.fit(watchdog=...)` runs the checks on every committed loss (a
 K-step dispatch's mean loss under `steps_per_execution=K`) but cannot
 revert a step: the update is already in the weights, so a rollback
-verdict raises the typed `NumericBlowup`. The elastic coordinator's
-skip-and-rollback fit comes with ROADMAP A9.2.
+verdict raises the typed `NumericBlowup`. The elastic coordinator
+(elastic/coordinator.py) computes each step into temporaries, so it
+skips a bad step's update and rolls back to the newest verified
+checkpoint.
 """
 from __future__ import annotations
 
@@ -157,6 +159,6 @@ class TrainingWatchdog:
             raise NumericBlowup(
                 f"step {step}: {self.policy.max_consecutive_bad} "
                 "consecutive bad steps (non-finite or spiking loss) and no "
-                "checkpoint to roll back to — lower the learning rate, or "
-                "restore a DurableCheckpointer checkpoint and resume (the "
-                "elastic coordinator's automatic rollback is ROADMAP A9.3)")
+                "checkpoint to roll back to — train under an "
+                "ElasticCoordinator with a checkpoint_dir for automatic "
+                "rollback, or lower the learning rate")

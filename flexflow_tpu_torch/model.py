@@ -1,8 +1,8 @@
 """FFModel: the layer API, compile with the strategy search and the plan
 analysis, fit, eval, predict and the manual loop on one torch device or
-on a mesh of torch.distributed ranks (flexflow_tpu/model.py
-but for the parallel-op layer methods and the elastic coordinator's
-hooks; fit's training watchdog is ported).
+on a mesh of torch.distributed ranks (flexflow_tpu/model.py), with the
+hooks the elastic coordinator's loop drives (elastic/coordinator.py:
+`_prep_step_batch`, `_next_rng`, `_elastic_step`, `_commit_step`).
 
 Op names follow the JAX package's scheme (an explicit name, else
 `<op type>_<n>` per model), so the same builder code gives the same op
@@ -84,7 +84,14 @@ class FFModel:
         self.parallel_axes: Dict[str, int] = {}
         self._op_strategies = None
         self.search_result = None
+        # the rank that ran the search (the live ranks' leader), when one
+        # ran under torch.distributed
+        self.search_leader: Optional[int] = None
         self.outside_mesh: Optional[str] = None
+        # the ranks compile ran on (`config.device_ids`, default the
+        # world's; None without torch.distributed): a mesh-less model
+        # compiled on several of them is a whole copy on each
+        self.live_ranks: Optional[List[int]] = None
         # one record per optimizer step of the last fit() call (epoch,
         # step, loss, metrics, step_ms, samples_per_s; a K-step dispatch's
         # also `losses`)
@@ -557,17 +564,19 @@ class FFModel:
         search's (search/unity.py; costs measured on the card by
         default, search/simulator.py OpCostCache), with its graph
         rewrites; else `{"data": n}` on a world of n > 1 ranks. Under
-        torch.distributed rank 0 searches and broadcasts the plan (the
-        per-op strategies by op name, the mesh axes and the rewrites);
-        the other ranks replay the rewrites and adopt it, so every rank
-        holds the same plan. Rewrites run before any weight is drawn. The
+        torch.distributed the leader (the first rank of
+        `config.device_ids`, default rank 0) searches and broadcasts the
+        plan (the per-op strategies by op name, the mesh axes and the
+        rewrites); the other ranks replay the rewrites and adopt it, so
+        every rank holds the same plan. Rewrites run before any weight is drawn. The
         plan analysis (analysis/, `analyze_plan`) gates the plan under
         `config.plan_analysis` ("error": PlanAnalysisError on an error
         diagnostic); its findings go to `analysis_events`.
 
         A plan trains on a mesh of torch.distributed ranks, one process
         a position (runtime/distributed.py initialize, before compile, on
-        every rank), over ranks 0 .. prod(axes) - 1; a rank past the mesh
+        every rank), over the first prod(axes) ranks of
+        `config.device_ids` (default: the world's); a rank past the mesh
         holds no position (`outside_mesh` says so), and its fit, eval and
         predict raise. Each data rank takes its slice of the batch; an op
         whose plan dp is 1 computes the whole batch (runtime/executor.py);
@@ -602,6 +611,7 @@ class FFModel:
         # of the config-less consumers (the loss and metric reductions),
         # before the search, which prices the same selections
         KERNELS.configure(self.config)
+        self.live_ranks = self._live_ranks()
         self.comp_mode = comp_mode
         training = comp_mode == CompMode.COMP_MODE_TRAINING
         if training:
@@ -630,7 +640,7 @@ class FFModel:
         axes = self._check_executable(self.parallel_axes)
         self.mesh, self.outside_mesh, mesh = None, None, None
         if axes:
-            mesh = make_mesh(axes)
+            mesh = make_mesh(axes, self.live_ranks)
             if mesh.device.type != torch.device(self.config.device).type:
                 raise ValueError(
                     f"config.device={self.config.device!r}, but this rank "
@@ -642,7 +652,7 @@ class FFModel:
             if not mesh.holds_position:
                 self.outside_mesh = (
                     f"rank {mesh.rank} is past the plan's mesh {axes} "
-                    f"(ranks 0..{mesh.view.num_devices - 1}): it holds no "
+                    f"(ranks {mesh.mesh_ranks}): it holds no "
                     "position and trains nothing")
                 _log.warning("compile: %s", self.outside_mesh)
                 self.executor = None
@@ -705,22 +715,44 @@ class FFModel:
             parallel_axes = {"data": ranks} if ranks > 1 else {}
         return dict(parallel_axes)
 
+    def _live_ranks(self) -> Optional[List[int]]:
+        """The ranks this model runs on: `config.device_ids`, else every
+        rank of the world (None without torch.distributed). Raises on a
+        rank outside them, which takes part in nothing."""
+        import torch.distributed as dist
+
+        from .runtime import distributed
+
+        if not distributed.is_initialized():
+            return None
+        ids = self.config.device_ids
+        ranks = (list(range(dist.get_world_size())) if ids is None
+                 else [int(r) for r in ids])
+        if dist.get_rank() not in ranks:
+            raise ValueError(f"rank {dist.get_rank()} is not one of "
+                             f"config.device_ids {ranks}")
+        return ranks
+
     def _search(self, n_dev: int):
-        """The search's result on every rank: rank 0 searches (unity or
-        mcmc) and broadcasts the plan over the default process group
-        before any mesh group is made; the other ranks replay its
-        rewrites and adopt it (search/unity.py `result_from_dict`). A
-        failed search raises on every rank."""
+        """The search's result on every rank: the leader (the first of
+        the live ranks, `live_ranks`) searches (unity or mcmc) and
+        broadcasts the plan over their group before any mesh group is
+        made; the other ranks replay its rewrites and adopt it
+        (search/unity.py `result_from_dict`). A failed search raises on
+        every rank."""
         import torch.distributed as dist
 
         from .runtime import distributed
         from .search.unity import export_strategy, result_from_dict, \
             result_to_dict
 
-        shared = distributed.is_initialized() and dist.get_world_size() > 1
+        ranks = self.live_ranks
+        shared = ranks is not None and len(ranks) > 1
+        leader = ranks[0] if shared else 0
         rank = dist.get_rank() if shared else 0
+        group = distributed.group_of(ranks) if shared else None
         result, payload = None, None
-        if rank == 0:
+        if rank == leader:
             try:
                 result = self._search_here(n_dev)
                 payload = {"plan": result_to_dict(result, self.graph),
@@ -728,19 +760,22 @@ class FFModel:
             except Exception as exc:
                 if shared:  # the other ranks wait in the broadcast
                     dist.broadcast_object_list(
-                        [{"error": f"{type(exc).__name__}: {exc}"}], src=0)
+                        [{"error": f"{type(exc).__name__}: {exc}"}],
+                        src=leader, group=group)
                 raise
         if shared:
             box = [payload]
-            dist.broadcast_object_list(box, src=0)
+            dist.broadcast_object_list(box, src=leader, group=group)
             payload = box[0]
             if "error" in payload:
                 raise RuntimeError(
-                    f"rank 0's strategy search failed: {payload['error']}")
-            if rank != 0:
+                    f"rank {leader}'s strategy search failed: "
+                    f"{payload['error']}")
+            if rank != leader:
                 result = result_from_dict(self.graph, self.config,
                                           payload["plan"], payload["log"])
-        if self.config.export_strategy_file and rank == 0:
+        self.search_leader = leader
+        if self.config.export_strategy_file and rank == leader:
             export_strategy(result, self.graph,
                             self.config.export_strategy_file)
         return result
@@ -1029,6 +1064,8 @@ class FFModel:
                     self.optimizer, self.loss.fn, self.metrics, final,
                     self._reg_fn)
                 self._grad_step = ex.build_grad_step(self.loss.fn, final)
+                self._elastic_dispatch = ex.build_elastic_step(
+                    self.loss.fn, self.metrics, final, self._reg_fn)
             self._eval_step = ex.build_eval_step(self.loss.fn, self.metrics,
                                                  final)
             self._forward_fn = ex.build_forward(final, self.comp_mode)
@@ -1221,6 +1258,41 @@ class FFModel:
         """(inputs, label) of samples [lo, hi) on this rank's device
         (`_host_batch`'s arrays, each input cast to its dtype)."""
         return self.executor.device_batch(*self._host_batch(x, y, lo, hi))
+
+    # -- the elastic coordinator's step (elastic/coordinator.py) -----------
+    def _prep_step_batch(self, x: Sequence[np.ndarray], y: np.ndarray,
+                         lo: int, hi: int):
+        """Device (inputs, label) of samples [lo, hi) for one step, this
+        rank's slice on a `data` axis (JAX `_prep_step_batch`: the batch
+        rule fit and the coordinator's loop share)."""
+        return self._batch(x, y, lo, hi)
+
+    def _next_rng(self, advance: int = 1) -> torch.Generator:
+        """Advance the optimizer step count by `advance` and return the
+        training walk's random stream (JAX `_next_rng`, whose dropout key
+        the count derives; here the executor's generator, which every
+        training walk draws its masks from)."""
+        self._step_count += advance
+        return self.executor.generator
+
+    def _elastic_step(self, inputs, label):
+        """One step into temporaries (JAX's coordinator step): (the
+        gradients, the metric values) of (inputs, label), dispatched under
+        `config.elastic_step_wrapper` (runtime/executor.py
+        build_elastic_step); nothing is applied. `_commit_step` applies
+        it; dropping it leaves the weights, the optimizer state and the
+        step count as they were (a walk's writes of op state, batch norm's
+        statistics, are the caller's to take back)."""
+        self._require_training("the elastic step")
+        return self._elastic_dispatch(inputs, label)
+
+    def _commit_step(self, grads) -> None:
+        """Apply an `_elastic_step`'s gradients: the optimizer's update of
+        the weights and of `opt_state`, in place, and one optimizer step
+        on the count (`_next_rng`)."""
+        self.optimizer.update(self.executor.parameters(), grads,
+                              self.opt_state, self.config)
+        self._next_rng()
 
     def _require_position(self, what: str) -> None:
         """A rank past the plan's mesh runs nothing (compile's

@@ -28,9 +28,9 @@ plan's `predicted_step_us`, and live `StepStats`. Three pieces:
    of measured/predicted), publishes the `ff_calibration_drift` gauge and
    `ff_drift_breaches_total` counter, and — past a configurable threshold
    for `patience` consecutive steps, within a re-plan budget — tells its
-   caller to re-plan (in the JAX package the ElasticCoordinator's refit
-   and budgeted re-search; the port's coordinator is ROADMAP A9.3, so
-   here `FFModel.fit` marks the verdict only).
+   caller to re-plan: the ElasticCoordinator (elastic/coordinator.py)
+   runs its refit and budgeted re-search; plain `FFModel.fit` marks the
+   verdict only.
 
 `refit(model, ...)` iterates fit rounds: apply the current coefficients
 as an overlay, re-simulate the plan's predicted step cost and per-op
@@ -676,8 +676,7 @@ class DriftDetector:
     """EMA watch of measured-vs-predicted step time during training.
 
     `observe(measured_step_us)` is called once per committed optimizer
-    step (FFModel.fit feeds it; in the JAX package the ElasticCoordinator
-    loop too). It
+    step (FFModel.fit feeds it, and the ElasticCoordinator's loop). It
     maintains an EMA of the measured step time, publishes
     `ff_calibration_drift` (|ema/predicted - 1|, 0 = perfectly
     calibrated), and returns True when the drift has exceeded `threshold`

@@ -7,10 +7,14 @@ shards. Here each rank holds its LOCAL shard of every leaf under the old
 plan (`tree`: the same paths on every rank, each leaf this rank's piece;
 a rank outside the old mesh passes leaves of the same local shape, which
 are read for their shape alone), and gets back its local shard under the
-new plan. Every rank of the world calls `apply_schedule` (or
+new plan. Every taking-part rank calls `apply_schedule` (or
 `redistribute`) with the same schedule, and issues the same collectives
 in the same order: moves serially, each move's rounds serially, as the
-planner's execution contract says. Per round:
+planner's execution contract says. By default every rank of the world
+takes part; a caller that names `ranks` and their `group` (the elastic
+coordinator: the survivors of a rank loss, which hold the old mesh's
+surviving shards and make up the new mesh) moves among those alone, and
+a rank outside them (a lost one) neither sends nor receives. Per round:
 
  - a same-mesh pure all-gather (every changed dim goes degree d -> 1,
    the chunk dim not sharded) with the old mesh's process groups at hand
@@ -23,7 +27,9 @@ planner's execution contract says. Per round:
    shard of the round's chunk is cut into the pieces of the old shards
    it overlaps, and each piece comes from one rank that holds it (the
    receiving rank itself when it does, a local cut; else the first
-   holder in rank order). This is the round's all-gather and slice
+   holder in rank order among the taking-part ranks; a piece no such
+   rank holds raises ReshardPlanError). This is the round's all-gather
+   and slice
    without the whole chunk on every rank: gathering the chunk over the
    world group would hold world x chunk bytes a rank, beyond the planned
    round scratch, where the exchange holds at most this rank's piece of
@@ -47,9 +53,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .plan import (ArrayMove, ArraySpec, MeshSpec, ReshardSchedule,
-                   ShardingPlan, flatten_tree, plan_redistribution,
-                   unflatten_tree)
+from .plan import (ArrayMove, ArraySpec, MeshSpec, ReshardPlanError,
+                   ReshardSchedule, ShardingPlan, flatten_tree,
+                   plan_redistribution, unflatten_tree)
 
 Box = Tuple[Tuple[int, int], ...]
 
@@ -136,17 +142,25 @@ def _groups_of(mesh, spec: MeshSpec):
         return None
     if tuple(mesh.view.axes) != tuple(spec.axes) or \
             tuple(spec.device_ids[:spec.n_mesh_devices]) != \
-            tuple(range(mesh.view.num_devices)):
+            tuple(mesh.mesh_ranks):
         return None
     return mesh
 
 
+def _volume(box: Box) -> int:
+    n = 1
+    for lo, hi in box:
+        n *= hi - lo
+    return n
+
+
 def _exchange(src: Optional[torch.Tensor], out: Optional[torch.Tensor],
               move: ArrayMove, schedule: ReshardSchedule, chunk: Box,
-              ranks: Sequence[int], me: int) -> int:
+              ranks: Sequence[int], me: int, group=None) -> int:
     """One round's point-to-point exchange (the module docstring): this
-    rank's new shard of `chunk` filled into `out` from the holders of the
-    old shards it overlaps. Returns the bytes of the buffers this rank
+    rank's new shard of `chunk` filled into `out` from the holders among
+    `ranks` of the old shards it overlaps, over `group` (None: the
+    default group). Returns the bytes of the buffers this rank
     materialised."""
     import torch.distributed as dist
 
@@ -173,10 +187,12 @@ def _exchange(src: Optional[torch.Tensor], out: Optional[torch.Tensor],
         target = _meet(tb, chunk)
         if target is None:
             continue
+        covered = 0
         for box, hs in holders.items():
             piece = _meet(box, target)
             if piece is None:
                 continue
+            covered += _volume(piece)
             sender = q if q in hs else hs[0]
             if sender == me and q == me:
                 with torch.no_grad():
@@ -190,14 +206,22 @@ def _exchange(src: Optional[torch.Tensor], out: Optional[torch.Tensor],
                     if staged:
                         buf = _to_host(buf)
                     sends[piece] = buf
-                ops.append(dist.P2POp(dist.isend, buf, q))
+                ops.append(dist.P2POp(dist.isend, buf, q, group=group))
             elif q == me:
                 dims = [hi - lo for lo, hi in piece]
                 buf = torch.empty(dims, dtype=out.dtype,
                                   device="cpu" if staged else out.device)
                 used += _nbytes(buf)
-                ops.append(dist.P2POp(dist.irecv, buf, sender))
+                ops.append(dist.P2POp(dist.irecv, buf, sender,
+                                      group=group))
                 landings.append((piece, buf))
+        if covered != _volume(target):
+            # the old shards' holders among the taking-part ranks miss
+            # part of rank q's new shard (FFTA063 decides this before a
+            # recovery reshards): never land uninitialised memory
+            raise ReshardPlanError(
+                f"{move.path}: rank {q}'s new shard {list(target)} is not "
+                f"covered by the old shards of ranks {list(ranks)}")
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -227,27 +251,30 @@ def _transfer_tier(machine, n_devices: int) -> str:
     return path[-1][0].name if path else machine.tiers[0].name
 
 
-def _max_over_ranks(value: int) -> int:
+def _max_over_ranks(value: int, n_ranks: int, group=None) -> int:
     import torch.distributed as dist
 
-    _, world = _world()
-    if world == 1:
+    if n_ranks == 1:
         return value
     t = torch.tensor([value], dtype=torch.int64)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return int(t.item())
 
 
 def apply_schedule(tree, schedule: ReshardSchedule,
                    new_plan: ShardingPlan, machine=None,
                    collect_timings: bool = False,
-                   mesh=None) -> ReshardResult:
+                   mesh=None, ranks: Optional[Sequence[int]] = None,
+                   group=None) -> ReshardResult:
     """Move every leaf of this rank's `tree` (its local shards under the
     old plan) per its scheduled ArrayMove; returns its local shards under
     the new plan (a rank outside the new mesh gets no leaves). Leaves and
     moves are matched by flattened path; a leaf without a move raises.
     `mesh`: the old mesh's core.machine.Mesh, whose axis groups a
-    same-mesh gather uses.
+    same-mesh gather uses. `ranks` and `group`: the taking-part ranks
+    (ascending; they must hold the new mesh) and their process group
+    (runtime/distributed.py group_of); default every rank of the world
+    and the default group.
 
     Every non-noop move runs under an ``exec.transfer`` span and counts
     its rounds on ``ff_collective_lowered_total{strategy=transfer|
@@ -261,8 +288,17 @@ def apply_schedule(tree, schedule: ReshardSchedule,
 
     t0 = time.perf_counter()
     me, world = _world()
-    ranks = sorted(set(range(world)) | set(schedule.old_mesh.device_ids)
-                   | set(schedule.new_mesh.device_ids))
+    if ranks is None:
+        ranks = sorted(set(range(world))
+                       | set(schedule.old_mesh.device_ids)
+                       | set(schedule.new_mesh.device_ids))
+    else:
+        ranks = sorted(int(r) for r in ranks)
+        outside = set(schedule.new_mesh.device_ids) - set(ranks)
+        if outside or me not in ranks:
+            raise ValueError(
+                f"taking-part ranks {ranks} must hold this rank ({me}) "
+                f"and the new mesh's (missing {sorted(outside)})")
     flat = flatten_tree(tree)
     by_path: Dict[str, ArrayMove] = {m.path: m for m in schedule.moves}
     missing = set(flat) - set(by_path)
@@ -330,7 +366,7 @@ def apply_schedule(tree, schedule: ReshardSchedule,
                     n_allgather += 1
                 else:
                     used = _exchange(src, dst, move, schedule, chunk, ranks,
-                                     me)
+                                     me, group)
                     n_transfer += 1
                 observed = max(observed, used)
                 if collect_timings:
@@ -346,7 +382,8 @@ def apply_schedule(tree, schedule: ReshardSchedule,
         counter.inc(rounds, strategy=strategy, tier=move_tier)
     return ReshardResult(
         tree=unflatten_tree(out), schedule=schedule,
-        observed_peak_bytes=_max_over_ranks(int(observed)),
+        observed_peak_bytes=_max_over_ranks(int(observed), len(ranks),
+                                            group),
         bytes_moved=int(schedule.total_bytes_moved),
         wall_s=time.perf_counter() - t0,
         allgather_rounds=n_allgather, transfer_rounds=n_transfer,
@@ -366,10 +403,12 @@ def global_shapes(tree, old_plan: ShardingPlan):
 
 def redistribute(tree, old_plan: ShardingPlan, new_plan: ShardingPlan, *,
                  peak_bytes: int, machine=None, check: bool = True,
-                 collect_timings: bool = False, mesh=None) -> ReshardResult:
+                 collect_timings: bool = False, mesh=None,
+                 ranks: Optional[Sequence[int]] = None,
+                 group=None) -> ReshardResult:
     """THE primitive: move this rank's local shards of a live tree from
     old_plan's layout to new_plan's under a per-chip scratch bound. Every
-    rank calls it. Plans the schedule from the leaves' global shapes,
+    taking-part rank calls it (`ranks` and `group`, apply_schedule). Plans the schedule from the leaves' global shapes,
     proves it through the FFTA06x analysis gate (when `check`, raising
     PlanAnalysisError on an illegal or over-budget schedule — pass
     `machine` so the memory-fit check has an HBM figure), then applies
@@ -382,7 +421,8 @@ def redistribute(tree, old_plan: ShardingPlan, new_plan: ShardingPlan, *,
 
         check_redistribution(schedule, machine=machine)
     return apply_schedule(tree, schedule, new_plan, machine=machine,
-                          collect_timings=collect_timings, mesh=mesh)
+                          collect_timings=collect_timings, mesh=mesh,
+                          ranks=ranks, group=group)
 
 
 def verify_live_tree(tree) -> Optional[str]:

@@ -35,7 +35,8 @@ sum.
 
 The port's copy of flexflow_tpu/resharding/plan.py (numpy only). A
 mesh's `device_ids` are torch.distributed ranks in the mesh's row-major
-order (core/machine.py lays a mesh over ranks 0 .. prod(axes) - 1), and
+order (core/machine.py lays a mesh over the first prod(axes) of its rank
+list, `FFConfig.device_ids`), and
 `MeshSpec.from_model` and `plan_of` read the port's mesh and its ops'
 weight shards (`Op.shards`); JAX's `jax_mesh` and `partition_spec` have
 no counterpart. A `stage` mesh holds a different set of ops on each
@@ -113,12 +114,20 @@ class MeshSpec:
 
     @classmethod
     def from_model(cls, model) -> "MeshSpec":
-        """The port's mesh of a compiled model: its ranks 0 .. n-1 and its
-        live axes (core/machine.py), or one device."""
+        """The port's mesh of a compiled model: its ranks and its live axes
+        (core/machine.py). A mesh-less model compiled on several ranks
+        (FFModel.live_ranks) is a whole copy on each: a `data` axis over
+        them that no array is cut on. Else one device: the first of
+        `config.device_ids` (JAX's rule), else rank 0."""
         mesh = model.mesh
         if mesh is None:
-            return cls(device_ids=(0,))
-        return cls(device_ids=tuple(range(mesh.view.num_devices)),
+            live = getattr(model, "live_ranks", None) or ()
+            if len(live) > 1:
+                return cls(device_ids=tuple(live),
+                           axes=(("data", len(live)),))
+            ids = getattr(model.config, "device_ids", None)
+            return cls(device_ids=(int(ids[0]) if ids else 0,))
+        return cls(device_ids=tuple(mesh.mesh_ranks),
                    axes=tuple((str(k), int(v)) for k, v in mesh.view.axes))
 
 

@@ -24,7 +24,12 @@ same addresses, and the serving graphs (runtime/graphs.py) re-capture on
 the version bump the copies make.
 
 On a mesh `save_checkpoint` gathers the weights and moments over `model`
-(every rank calls it), rank 0 writes, and the ranks meet at a barrier;
+(every rank of the mesh calls it), the mesh's leader (the rank at
+position 0, `Mesh.leader`) writes, and the ranks meet at a barrier of
+the mesh's own group (`Mesh.group_all`: a rank outside the mesh, or one
+lost to the elastic coordinator, takes no part); a mesh-less model
+compiled on several ranks holds a whole copy on each, and the first of
+them writes (`holders`);
 `restore_checkpoint` reads the file on every rank, which keeps its
 shards. On a `stage` axis the pipelined region's weights and moments are
 stored as the JAX package stores them: stacked over the stages under
@@ -163,15 +168,35 @@ def _unstack(model, tree):
     return out
 
 
-def _rank0(model) -> bool:
+def holders(model):
+    """(leader, group) of the ranks that hold `model`'s state and meet
+    when its checkpoint is written: the mesh's (`Mesh.leader`,
+    `Mesh.group_all`); for a mesh-less model compiled on several ranks
+    (FFModel.live_ranks), each holding a whole copy, the first of them
+    and their group; None for a model of one process."""
     mesh = _mesh(model)
-    return mesh is None or mesh.rank == 0
+    if mesh is not None:
+        return mesh.leader, mesh.group_all
+    live = getattr(model, "live_ranks", None)
+    if live and len(live) > 1:
+        from . import distributed
+
+        return live[0], distributed.group_of(live)
+    return None
+
+
+def _writes(model) -> bool:
+    """Whether this rank writes `model`'s checkpoints: the holders'
+    leader, or the one process."""
+    held = holders(model)
+    return held is None or torch.distributed.get_rank() == held[0]
 
 
 def save_checkpoint(path: str, model, step: int = 0) -> str:
     """Atomically write weights, optimizer state and op state with their
     metadata and CRC32s. Returns the final path (".npz" appended when
-    missing). On a mesh every rank calls it and rank 0 writes."""
+    missing). On a mesh every rank of it calls it and the leader
+    writes."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     trees = {"params": _stack(model, _whole(model, model.params or {})),
@@ -186,7 +211,7 @@ def save_checkpoint(path: str, model, step: int = 0) -> str:
             if torch.is_tensor(v) and v.dtype == torch.bfloat16:
                 dtypes[k] = "bfloat16"
             flat[k] = _host(v)
-    if _rank0(model):
+    if _writes(model):
         # checksums cover the bytes as STORED (after widening)
         meta = {
             "format": FORMAT_NAME,
@@ -209,8 +234,9 @@ def save_checkpoint(path: str, model, step: int = 0) -> str:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         _fsync_dir(path)
-    if _mesh(model) is not None:
-        torch.distributed.barrier()
+    held = holders(model)
+    if held is not None:
+        torch.distributed.barrier(group=held[1])
     return path
 
 

@@ -24,6 +24,19 @@ process and fixes, once:
    that share one card cannot use NCCL (capturing NCCL collectives is
    untried). Printed with the backend.
 
+`group_of(ranks)` is the process group over a set of ranks (a mesh's,
+or the ranks of `FFConfig.device_ids`), made once and kept. Groups are
+made by `dist.new_group(ranks)`, whose name is a counter every caller
+advances: every LIVE rank makes every group, in the same order, members
+or not. A rank that left (the elastic coordinator's lost rank) makes no
+group again, and the live ranks' counters stay equal without it. (gloo
+also takes `use_local_synchronization=True`, where only members call;
+but that names a group by a hash over the count of groups the caller
+already belongs to, so two members with different histories, such as a
+rank past an earlier mesh, name the same group differently and wait for
+each other for ever.) After ranks have left, a later job re-joins a
+fresh process group (tools/tp_train.py `run_rank`).
+
 `spawn` starts the ranks of one machine as fresh processes (the spawn
 method) and collects what each returns, with one time limit for all.
 """
@@ -107,7 +120,8 @@ def initialize(init_method: Optional[str] = None,
         backend, init_method=init_method or "env://", world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     _STATE = {"backend": backend, "device": dev, "local_rank": local,
-              "host_staging": backend == "gloo" and dev.type == "cuda"}
+              "host_staging": backend == "gloo" and dev.type == "cuda",
+              "groups": {}}
     if rank == 0:
         print(f"flexflow_tpu_torch.distributed: {world} ranks, backend "
               f"{backend}, rank 0 on {dev}"
@@ -122,6 +136,23 @@ def initialize(init_method: Optional[str] = None,
 
 def is_initialized() -> bool:
     return _STATE is not None and dist.is_initialized()
+
+
+def group_of(ranks: Sequence[int]):
+    """The process group over `ranks` (global ranks, ascending), made at
+    the first call and kept: None (the default group) for every rank of
+    the world. Every live rank calls it at the same point (see the module
+    docstring), members or not."""
+    ranks = tuple(int(r) for r in ranks)
+    if list(ranks) != sorted(set(ranks)):
+        raise ValueError(f"ranks {list(ranks)}: a group's ranks ascend, "
+                         "each once")
+    if ranks == tuple(range(dist.get_world_size())):
+        return None
+    groups = _STATE["groups"]
+    if ranks not in groups:
+        groups[ranks] = dist.new_group(list(ranks))
+    return groups[ranks]
 
 
 def shutdown() -> None:

@@ -21,8 +21,12 @@ newest file degrades to a fallback (recorded in `events` and in the
 process-wide `ff_checkpoint_*_total` counters), and only when NO
 retained checkpoint survives does it raise CheckpointError. Each save
 and restore is one span (`checkpoint.save`, `checkpoint.restore`,
-obs/tracing.py). On a mesh every rank calls `save` and `restore_latest`;
-rank 0 writes the file and the manifest.
+obs/tracing.py). On a mesh every rank of it calls `save` and
+`restore_latest`; the mesh's leader (runtime/checkpoint.py `holders`)
+writes the file and the manifest,
+then sends the ranks what its retention removed (one broadcast over the
+mesh's group, which is also the barrier before any restore), so every
+rank's event log holds the same `checkpoint.gc` records.
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ import torch
 
 from ..obs.registry import REGISTRY
 from ..obs.tracing import get_tracer
-from .checkpoint import (CheckpointError, _fsync_dir, restore_checkpoint,
-                         save_checkpoint, verify_checkpoint)
+from .checkpoint import (CheckpointError, _fsync_dir, holders,
+                         restore_checkpoint, save_checkpoint,
+                         verify_checkpoint)
 
 MANIFEST_NAME = "MANIFEST.json"
 MANIFEST_VERSION = 1
@@ -65,16 +70,18 @@ def reset_checkpoint_counters() -> None:
 class DurableCheckpointer:
     """Manifest-tracked, last-K-retained, verify-on-restore checkpoints.
 
-    events: any object with `record(kind, **details)` (the JAX package's
-    elastic EventLog is ROADMAP A9.3): corruption discoveries, fallbacks
-    and GC land there as `checkpoint.corrupt` / `checkpoint.fallback` /
-    `checkpoint.gc` records."""
+    events: any object with `record(kind, **details)` (the elastic
+    EventLog, which elastic/coordinator.py shares): corruption
+    discoveries, fallbacks and GC land there as `checkpoint.corrupt` /
+    `checkpoint.fallback` / `checkpoint.gc` records."""
 
     def __init__(self, directory: str, keep_last: int = 3,
                  events: Optional[Any] = None):
         self.directory = directory
         self.keep_last = max(1, keep_last)
         self.events = events
+        # the steps this process wrote (on a mesh, only its leader writes)
+        self.written: List[int] = []
         os.makedirs(directory, exist_ok=True)
 
     # -- manifest ---------------------------------------------------------
@@ -126,15 +133,24 @@ class DurableCheckpointer:
             path = save_checkpoint(os.path.join(self.directory, fname),
                                    model, step=step)
         _bump("saved")
-        mesh = getattr(model, "mesh", None)
-        if mesh is None or mesh.rank == 0:
-            self._commit(fname, path, step)
-        if mesh is not None:  # the manifest is written before any restore
-            torch.distributed.barrier()
+        held = holders(model)
+        removed = None
+        if held is None or torch.distributed.get_rank() == held[0]:
+            removed = self._commit(fname, path, step)
+            self.written.append(int(step))
+        if held is not None:  # the manifest is written before any restore
+            box = [removed]
+            torch.distributed.broadcast_object_list(box, src=held[0],
+                                                    group=held[1])
+            removed = box[0]
+        for e, p in removed:
+            _bump("gc_removed")
+            self._record("checkpoint.gc", step=e.get("step", -1), path=p)
         return path
 
-    def _commit(self, fname: str, path: str, step: int) -> None:
-        """The manifest entry of a saved file, then GC beyond keep_last."""
+    def _commit(self, fname: str, path: str, step: int) -> list:
+        """The manifest entry of a saved file, then GC beyond keep_last.
+        Returns the (entry, path) of each file removed."""
         # re-saving a step (a replay after rollback/recovery) overwrites
         # the file; dedup the manifest entry so it appears once, as newest
         entries = [e for e in self.entries() if e.get("file") != fname]
@@ -144,15 +160,15 @@ class DurableCheckpointer:
         # GC: keep the newest keep_last, unlink the rest
         doomed, entries = entries[:-self.keep_last], entries[-self.keep_last:]
         self._write_manifest(entries)
+        removed = []
         for e in doomed:
             p = os.path.join(self.directory, e["file"])
             try:
                 os.unlink(p)
             except OSError:
                 pass
-            _bump("gc_removed")
-            self._record("checkpoint.gc", step=e.get("step", -1),
-                         path=p)
+            removed.append((e, p))
+        return removed
 
     # -- restore with verified fallback -----------------------------------
     def latest_verified(self) -> Tuple[int, str]:

@@ -510,6 +510,23 @@ class Executor:
 
         return traced_dispatch(train_step, "executor.train_step")
 
+    def build_elastic_step(self, loss_fn, metrics, final_tensor,
+                           reg_fn=None):
+        """(inputs, label) -> (gradients, metric values), nothing applied:
+        the elastic coordinator's step (JAX's coordinator computes each
+        step into temporaries, so that a watchdog SKIP never commits;
+        FFModel `_commit_step` applies the update). The dispatch runs
+        under `config.elastic_step_wrapper` when set (JAX
+        `Executor.step_wrapper`: fault injection, classification and
+        retry), inside one `executor.train_step` span, so retries are
+        inside it."""
+        fn = self.build_grad_metrics_step(loss_fn, metrics, final_tensor,
+                                          reg_fn)
+        wrapper = getattr(self.config, "elastic_step_wrapper", None)
+        if wrapper is not None:
+            fn = wrapper(fn)
+        return traced_dispatch(fn, "executor.train_step")
+
     def build_accum_step(self, optimizer, loss_fn, metrics, final_tensor,
                          reg_fn=None):
         """(batches, opt_state) -> (summed metric values, k): the gradients

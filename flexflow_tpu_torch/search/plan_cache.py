@@ -28,8 +28,8 @@ moved by one pod. This module makes the search incremental:
    recovery pause entirely.
  - `plan_distance_us` — the reshard-awareness term of a re-plan off a
    LIVE plan, priced through the port's resharding planner (a live plan
-   is resharding.plan_of of a running model; the elastic re-plan that
-   produces one is ROADMAP A9.3).
+   is resharding.plan_of of a running model, which the elastic
+   coordinator's re-plans set, elastic/coordinator.py).
 
 Metrics: ff_search_cache_{hits,misses,evictions}_total,
 ff_search_warm_starts_total, and the ff_search_wall_time_ms histogram

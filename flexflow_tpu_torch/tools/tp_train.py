@@ -27,7 +27,11 @@ and a rank past the plan's mesh trains nothing: it reports the error
 its `fit` raises. A job with a `serve` spec serves its model on the
 mesh instead of training it (`serve_job`): a GenerativeSession, an
 InferenceModel with the leader-driven DynamicBatcher, or a
-ContinuousBatcher's construction.
+ContinuousBatcher's construction. A job with an `elastic` spec (see
+`ELASTIC`) trains under the elastic coordinator instead
+(`elastic_job`): its fault plan may take ranks away, so after such a job
+every rank, the lost ones too, joins a fresh process group before the
+next job (`run_rank`).
 """
 from __future__ import annotations
 
@@ -260,6 +264,18 @@ def _build_zoo(lib, model, job, name: str = "moe_switch"):
     zoo_train.ZOO[name]["build"](model, lib)
 
 
+def _build_elastic_mlp(lib, model, job, din: int = 32,
+                       hidden: int = 64, classes: int = 10):
+    """The JAX package's elastic tests' MLP (tests/test_elastic.py
+    `builder`): dense `hidden` (relu), dense `classes`, softmax; no
+    hidden layer with hidden 0. Unnamed ops, so both packages name them
+    alike."""
+    t = model.create_tensor([job["batch"], din])
+    if hidden:
+        t = model.dense(t, hidden, lib.ActiMode.AC_MODE_RELU)
+    model.softmax(model.dense(t, classes))
+
+
 # job["model"] -> builder(lib, model, job, **job["widths"]), `lib` the
 # package whose FFModel `model` is (flexflow_tpu_torch here; the tests
 # build the same graph in the JAX package)
@@ -267,7 +283,8 @@ MODELS = {"encoder": _build_encoder, "sp_attn": _build_sp_attn,
           "moe": _build_moe, "row_mlp": _build_row_mlp,
           "conv": _build_conv, "sp_search": _build_sp_search,
           "zoo": _build_zoo, "lm9": _build_lm9,
-          "serve_lm": _build_serve_lm, "serve_mlp": _build_serve_mlp}
+          "serve_lm": _build_serve_lm, "serve_mlp": _build_serve_mlp,
+          "elastic_mlp": _build_elastic_mlp}
 
 
 def _encoder_graph(job: Dict[str, Any], device: str, **config):
@@ -724,6 +741,308 @@ def serve_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     return out
 
 
+# an `elastic` job's spec keys and their defaults
+ELASTIC: Dict[str, Any] = {
+    # the graph (a key of MODELS, its keywords), batch, seed, precision
+    "model": "elastic_mlp",
+    "widths": {},
+    "batch": 12,
+    "seed": 0,
+    "mixed": False,
+    "use_flash": None,
+    # ("sgd", lr) or ("adam", alpha, moments dtype name or None)
+    "optimizer": ("sgd", 0.05),
+    # compile with the accuracy metric
+    "accuracy": False,
+    # further FFConfig fields (search_budget, measure_op_costs, ...)
+    "config": {},
+    # the ranks (config.device_ids); None: the world
+    "device_ids": None,
+    # whole initial weights (a JAX model's, numpy) every build loads
+    "jax_params": None,
+    # the FaultPlan: (kind, at_step, chips, times) each
+    "faults": (),
+    # ElasticCoordinator keywords (checkpoint_every, live_resharding,
+    # max_rollbacks, preplan, ...) and its checkpoint directory
+    "coordinator": {},
+    "checkpoint_dir": None,
+    # RetryPolicy keywords; WatchdogPolicy keywords (None: "auto")
+    "retry": {"max_retries": 3, "base_delay_s": 0.0},
+    "watchdog": None,
+    # wait for the constructor's background plans before fit
+    "preplan_join": False,
+    # a DriftDetector's keywords, and "refit": whether the drift re-plan
+    # refits the machine model (obs/refit.py refit) first
+    "drift": None,
+    # tokens or features x and labels y (numpy), and fit's steps
+    "x": None,
+    "y": None,
+    "steps": 6,
+    # "fit", or "recover_unidentified": a checkpoint, then _recover of a
+    # topology loss naming no rank
+    "call": "fit",
+    # record the trace's spans (obs.enable_tracing) over the run; the
+    # rank that leads at the end exports it to `trace_out` when given
+    "trace": False,
+    "trace_out": None,
+    # check that every watchdog SKIP left the weights, the optimizer
+    # state and the step count bit-identical, and record the kernel
+    # launches at every step's verdict (`StepProbe`)
+    "skip_witness": False,
+    "step_launches": False,
+}
+
+
+class StepProbe:
+    """A TrainingWatchdog's verdicts, watched. With `skips`: the check
+    that a SKIP changed nothing — at the verdict after a SKIP (the next
+    step's, before any update of it) this rank's weights, optimizer state
+    and step count equal, to the bit, their copies taken at the SKIP
+    (`same`, one bool per SKIP so checked). With `launches`: the kernel
+    launch counts at each verdict (`counts`, (step, counts) pairs); two
+    consecutive verdicts' difference is one step's launches (the update
+    of the first step and the walk of the second)."""
+
+    def __init__(self, watchdog, model_of, skips: bool, launches: bool):
+        self.inner = watchdog
+        self.model_of = model_of
+        self.skips, self.launches = skips, launches
+        self.same: List[bool] = []
+        self.counts: List[Any] = []
+        self._copy = None
+
+    def _state(self):
+        m = self.model_of()
+        leaves = [t for ws in m.params.values() for t in ws.values()]
+        for v in m.opt_state.values():
+            leaves += ([t for ws in v.values() for t in ws.values()]
+                       if isinstance(v, dict) else [v])
+        return leaves, m._step_count
+
+    def check(self, step, loss):
+        import torch
+
+        from ..kernels import launch_counts
+
+        if self.launches:
+            self.counts.append((step, dict(launch_counts())))
+        if self._copy is not None:
+            (before, count), self._copy = self._copy, None
+            now, now_count = self._state()
+            self.same.append(count == now_count and all(
+                torch.equal(a, b) for a, b in zip(before, now)))
+        verdict = self.inner.check(step, loss)
+        if verdict == "skip" and self.skips:
+            leaves, count = self._state()
+            self._copy = ([t.detach().clone() for t in leaves], count)
+        return verdict
+
+    def note_rollback(self, restored_step):
+        self._copy = None
+        self.inner.note_rollback(restored_step)
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    return repr(v)
+
+
+def elastic_job(spec: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """One rank's elastic run (`ELASTIC`'s keys): build the coordinator
+    over the spec's ranks, fit under its fault plan, and report what
+    this rank saw: whether it left (`departed`), its rank list and plan
+    at the end, the committed history, the event log, the restore and
+    checkpoint counters' moves, the checkpoints it wrote, the searching
+    rank, the live reshard, the kernels launched, the spans. The run
+    starts from an empty plan cache."""
+    import torch
+    import torch.distributed as dist
+
+    import flexflow_tpu_torch as lib
+    import flexflow_tpu_torch.models  # noqa: F401
+    from .. import (AdamOptimizer, FFConfig, FFModel, LossType,
+                    MetricsType, SGDOptimizer)
+    from ..elastic import (ElasticCoordinator, EventLog, Fault, FaultPlan,
+                           RecoveryFailed, RetryPolicy, TopologyLoss,
+                           TrainingWatchdog, WatchdogPolicy)
+    from ..kernels import launch_counts, reset_launch_counts
+    from ..model import params_from_jax
+    from ..obs.registry import REGISTRY
+    from ..runtime.durability import checkpoint_counters
+    from ..search.plan_cache import reset_plan_cache
+
+    spec = dict(ELASTIC, **spec)
+    reset_plan_cache()
+    if device == "cpu":
+        # ranks that share the host's cores: one intra-op thread each
+        torch.set_num_threads(1)
+
+    def builder(cfg):
+        model = FFModel(cfg)
+        MODELS[spec["model"]](lib, model, spec, **spec["widths"])
+        opt = spec["optimizer"]
+        if opt[0] == "sgd":
+            optimizer = SGDOptimizer(model, lr=opt[1])
+        else:
+            optimizer = AdamOptimizer(model, alpha=opt[1],
+                                      moments_dtype=getattr(torch, opt[2])
+                                      if opt[2] else None)
+        model.compile(
+            optimizer=optimizer,
+            loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+            metrics=[MetricsType.METRICS_ACCURACY]
+            if spec["accuracy"] else [],
+            generator=torch.Generator().manual_seed(spec["seed"]))
+        if spec["jax_params"] is not None:
+            params_from_jax(model, spec["jax_params"])
+        return model
+
+    config = FFConfig(batch_size=spec["batch"], seed=spec["seed"],
+                      allow_mixed_precision=spec["mixed"], device=device,
+                      device_ids=spec["device_ids"], **spec["config"])
+    plan = FaultPlan([Fault(kind, at, chips=tuple(chips), times=times)
+                      for kind, at, chips, times in spec["faults"]])
+    events = EventLog()
+    wd = "auto" if spec["watchdog"] is None else TrainingWatchdog(
+        WatchdogPolicy(**spec["watchdog"]), events=events)
+    restores = REGISTRY.counter("ff_recovery_restore_total", "",
+                                labels=("source",))
+    before = ({s: restores.value(source=s) for s in ("live", "disk")},
+              checkpoint_counters(),
+              REGISTRY.counter("ff_replan_total", "").value())
+    tracer = None
+    if spec["trace"]:
+        from ..obs import enable_tracing
+
+        tracer = enable_tracing()
+        tracer.clear()
+    coord = ElasticCoordinator(
+        builder, config, fault_plan=plan, events=events,
+        checkpoint_dir=spec["checkpoint_dir"], watchdog=wd,
+        retry_policy=RetryPolicy(**spec["retry"]), **spec["coordinator"])
+    if spec["preplan_join"]:
+        coord.preplan_join(timeout=120)
+    witness = None
+    if spec["skip_witness"] or spec["step_launches"]:
+        witness = StepProbe(coord.watchdog, lambda: coord.model,
+                            spec["skip_witness"], spec["step_launches"])
+        coord.watchdog = witness
+    det = None
+    if spec["drift"] is not None:
+        from ..obs.refit import DriftDetector, refit
+
+        drift = dict(spec["drift"])
+        do_refit = drift.pop("refit", False)
+        det = DriftDetector(**drift)
+        coord.drift_detector = det
+        if do_refit:
+            def refit_hook(model, measured_us):
+                prof, hist = refit(model, measured_us, [], rounds=3,
+                                   tol=0.15)
+                out["refit_ratio"] = hist[-1].ratio
+                return prof.save(os.path.join(
+                    coord.checkpoint_dir, f"fitted_{me}.json"))
+
+            coord.drift_refit = refit_hook
+    me = dist.get_rank() if dist.is_initialized() else 0
+    out: Dict[str, Any] = {"rank": me, "raised": None}
+    dev = coord.model.device
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = []
+    try:
+        if spec["call"] == "recover_unidentified":
+            coord._save(0)
+            coord._recover(TopologyLoss([]))
+        else:
+            history = coord.fit(spec["x"], spec["y"], steps=spec["steps"])
+    except RecoveryFailed as exc:
+        out["raised"] = f"RecoveryFailed: {exc}"
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["fit_s"] = time.perf_counter() - t0
+    out["launches"] = {k: n for k, n in launch_counts().items() if n}
+    if tracer is not None:
+        from ..obs import disable_tracing
+
+        names = tracer.span_names()
+        nested = None
+        if tracer.events("elastic.recover"):
+            rec = tracer.events("elastic.recover")[0]
+            nested = all(
+                rec["ts"] <= ev["ts"]
+                and ev["ts"] + ev["dur"] <= rec["ts"] + rec["dur"] + 1e-3
+                for child in ("elastic.replan", "elastic.restore")
+                for ev in tracer.events(child)[:1])
+        out["spans"] = sorted(set(names))
+        # each span's durations (the trace's microseconds)
+        out["span_us"] = {n: [ev["dur"] for ev in tracer.events(n)
+                              if "dur" in ev] for n in set(names)}
+        out["recover_nested"] = nested
+        if spec["trace_out"] and not coord.departed and \
+                me == coord.device_ids[0]:
+            out["trace"] = tracer.export_chrome_trace(spec["trace_out"])
+        disable_tracing()
+    model = coord.model
+    ckpt_after = checkpoint_counters()
+    from ..serving.server import InferenceServer
+
+    srv = InferenceServer()
+    srv.attach_elastic_events(events)
+    out.update({
+        "departed": coord.departed,
+        "device_ids": list(coord.device_ids),
+        "axes": dict(model.parallel_axes),
+        "mesh": model.mesh is not None,
+        "mesh_ranks": model.mesh.mesh_ranks if model.mesh else None,
+        "total_devices": model.config.total_devices,
+        "history": history,
+        "events": [[e.kind, e.step, _jsonable(e.details)]
+                   for e in events.events()],
+        "events_json": events.to_json(),
+        # the ff_watchdog_* / ff_checkpoint_* lines this rank's serving
+        # /metrics endpoint exports
+        "metrics": [ln for ln in srv.prometheus_text().splitlines()
+                    if ("watchdog" in ln or "checkpoint" in ln)
+                    and not ln.startswith("#")],
+        "restores": {s: restores.value(source=s) - before[0][s]
+                     for s in ("live", "disk")},
+        "checkpoint_counts": {k: v - before[1].get(k, 0)
+                              for k, v in ckpt_after.items()},
+        "replans": REGISTRY.counter("ff_replan_total", "").value()
+        - before[2],
+        "written": list(coord._ckpt.written),
+        "search_leader": model.search_leader,
+        "planner": coord.planner is not None,
+        "reshard": coord.last_reshard,
+        "model_device": str(dev),
+        "param_devices": sorted({str(t.device)
+                                 for ws in model.params.values()
+                                 for t in ws.values()}),
+        "fitted_profile": model.config.fitted_profile_file,
+        "skips_identical": witness.same if witness and witness.skips
+        else None,
+        "step_launches": witness.counts if witness else None,
+    })
+    if det is not None:
+        from ..obs.calibration import predicted_step_us
+
+        out["drift"] = {"predicted_step_us": det.predicted_step_us,
+                        "replans": det.replans,
+                        "measured_step_us": det.measured_step_us,
+                        "model_predicted_step_us": predicted_step_us(
+                            model) if not coord.departed else None}
+    del coord, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     import torch
 
@@ -735,6 +1054,8 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         return pipeline_transformer_steps(job, device)
     if "collective_sweep" in job:
         return collective_sweep(job["collective_sweep"], device)
+    if "elastic" in job:
+        return elastic_job(job["elastic"], device)
 
     from ..kernels import launch_counts, reset_launch_counts
     from ..runtime import collectives
@@ -982,6 +1303,13 @@ def run_rank(rank: int, world: int, init_method: str, device: str,
             res = run_job(job, device)
             res["job_s"] = time.perf_counter() - t0
             results.append(res)
+            if "elastic" in job and i + 1 < len(jobs):
+                # ranks may have left: every rank joins a fresh group
+                # (runtime/distributed.py group_of's naming rule)
+                distributed.shutdown()
+                distributed.initialize(f"{init_method}.{i + 1}",
+                                       world_size=world, rank=rank,
+                                       device=device)
             if rank == 0:
                 print(f"tp_train: job {i + 1} of {len(jobs)} "
                       f"({job.get('model', 'encoder')}, axes "

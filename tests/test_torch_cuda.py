@@ -2362,3 +2362,41 @@ def test_decode_kernel_at_the_mesh_serving_shape(dev, dtype):
                                   block_k=512)
     ref = decode.decode_attention_plain(q, kc, vc, pos, d ** -0.5)
     _close(out, ref, F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("opt", [("sgd", 0.05), ("adam", 1e-3, "bfloat16")],
+                         ids=["sgd", "adam_bf16_moments"])
+def test_elastic_skip_leaves_card_state_bit_identical(dev, opt):
+    """The elastic coordinator on one card (tools/tp_train.py
+    elastic_job): NaN-poisoned steps 3-6, checkpoints every 2 steps. Each
+    watchdog SKIP leaves the CUDA weights, the fused optimizer kernel's
+    state (step, lr, moments) and the step count bit-identical; the
+    rollback restores step 2's checkpoint; the optimizer kernel ran once
+    a committed step."""
+    import tempfile
+
+    from flexflow_tpu_torch.tools.tp_train import elastic_job
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(48, 32).astype(np.float32)
+    y = rng.randint(0, 10, size=(48, 1)).astype(np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = elastic_job({
+            "optimizer": opt, "x": x, "y": y, "steps": 10,
+            "faults": [("nan_step", s, (), 1) for s in range(3, 7)],
+            "coordinator": {"checkpoint_every": 2},
+            "checkpoint_dir": tmp, "skip_witness": True}, "cuda")
+    assert out["model_device"].startswith("cuda")
+    assert out["skips_identical"] == [True, True, True]
+    kinds = [e[0] for e in out["events"]]
+    assert kinds.count("watchdog.skip") == 3
+    assert kinds.count("watchdog.rollback") == 1
+    assert [e[1] for e in out["events"] if e[0] == "recovery.restore"] \
+        == [2]
+    assert [h["step"] for h in out["history"]] == [0, 1, 2, 3, 4, 5, 7, 8,
+                                                   9]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    # one update a committed step: 0-2, the rollback's replay of 2-5,
+    # then 7-9 (a skipped step launches none)
+    name = "optimizer_sgd" if opt[0] == "sgd" else "optimizer_adam"
+    assert out["launches"].get(name, 0) == 10

@@ -197,7 +197,10 @@ def test_profile_ops_returns_a_row_per_op(capsys):
     assert all(r["forward_us"] > 0 for r in measured)
     assert [r["forward_us"] for r in rows] == sorted(
         (r["forward_us"] for r in rows), reverse=True)
-    lin = next(r for r in rows if r["type"] == "linear")
+    # the first dense (16 -> 32) by name: rows are in time order, which
+    # puts either dense first under load
+    first = next(op.name for op in m.ops if op.op_type.value == "linear")
+    lin = next(r for r in rows if r["op"] == first)
     assert lin["gflops"] == pytest.approx(2 * 8 * 16 * 32 / 1e9)
     profiling.print_profile(rows, top=5)
     assert "eff TFLOP/s" in capsys.readouterr().out
