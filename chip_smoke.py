@@ -486,6 +486,42 @@ Phases, in order; any failure propagates and exits non-zero:
               --scenario live-reshard --devices 4` on ranks sharing the
               card: it exits 0; its JSON line is printed.
 
+55. fleet   — two replicas of 8 slots (max_len 1024, page 16) sharing
+              the serve LM's weights behind the fleet Router: the
+              shared-prefix mix (48 requests, 9 tenants of 256 tokens)
+              under "affine" and "round_robin" (bf16), then an f32 copy
+              through a peak -> trough -> peak swing with the Autoscaler
+              live (8 -> 16 -> 4 slots) and one replica drained mid-burst.
+              Fails unless no request is dropped, every greedy token list
+              equals one ContinuousBatcher's on the same prompts, a grow
+              and a shrink applied, a replica drained, the merged
+              exposition validates with `replica` on ff_serving_ttft_ms
+              and ff_kvpool_pages_used, and one replica's decode
+              iteration and prefill chunk launch what FLEET_PER_WALK
+              says. Prints tokens/s and TTFT p50 / p99 of each policy.
+56. chaos   — the f32 copy through the chaos drill: a crash 12 tokens
+              after arming on the replica homing the most tenants,
+              under a live HealthMonitor (suspect 2 s, dead 10 s, polled
+              every 0.1 s) and an Autoscaler that respawns it, traced
+              with a flight recorder armed. Fails unless no request is
+              dropped, every token list equals the undisturbed batcher's,
+              every failed-over request's spans share its trace id, a
+              bundle is written and DEAD lands inside the dead window;
+              prints the time to DEAD.
+57. disagg  — 12 prefill-heavy requests (384-512 tokens, the first 512)
+              through ["unified", "unified"] and ["prefill", "decode"]
+              (bf16), the handoffs priced on
+              examples/machines/multipod_2x8.json. Fails unless the
+              tokens are equal, nothing is dropped, and every committed
+              handoff is priced, ships 49,152 B a prompt token and at
+              most 64 MB a chunk; prints the handoffs' bytes, export and
+              import ms, priced us and both layouts' ITL p99.
+58. fleet-server — two one-shot replicas (the causal flash prefill)
+              registered on the HTTP server: /generate plain and NDJSON
+              and after a replica's loss equal to one batcher's tokens,
+              /metrics validates with the `replica` label, /healthz ok
+              and then degraded with the lost replica named.
+
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits 2 without printing a result when no
@@ -2336,17 +2372,17 @@ def phase_train(torch, warmup=3, steps=10):
     x, y = _train_batch()
     margins = [_cls_margins(torch, model, x)]
     # fit returns one summary per epoch (one step each here); the per-step
-    # losses and times are its step_records
+    # losses and times are its StepStats records
     model.fit(x, y, batch_size=b, epochs=1)
-    warm = list(model.step_records)
+    warm = model.step_stats.records()
     margins.append(_cls_margins(torch, model, x))
     model.fit(x, y, batch_size=b, epochs=warmup - 1)
-    warm += model.step_records
+    warm += model.step_stats.records()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     model.fit(x, y, batch_size=b, epochs=steps)
-    hist = model.step_records
+    hist = model.step_stats.records()
     torch.cuda.synchronize()
     launches = launch_counts()
     losses = [r["loss"] for r in warm + hist]
@@ -2390,6 +2426,22 @@ def phase_train(torch, warmup=3, steps=10):
     }, init
 
 
+def _k_means(np, losses, k):
+    """Per-step losses folded as fit records a K-step dispatch: the f32
+    mean of each K in turn (runtime/executor.py MultiStep's metrics,
+    reduced by FFModel._absorb)."""
+    return [float(np.asarray(losses[i:i + k], np.float32).mean())
+            for i in range(0, len(losses), k)]
+
+
+def _dispatch_losses(model, k):
+    """The per-step losses of the model's last K-step dispatch: the
+    captured graph's static output (MultiStep.out), which fit's StepStats
+    record reduces to their mean."""
+    ms = model._multi_step(k)
+    return [float(v) for v in ms.out[ms.keys.index("loss")].cpu()]
+
+
 def _selections(families):
     """ff_kernel_selected_total by (family, impl)."""
     from flexflow_tpu_torch.obs import REGISTRY
@@ -2421,10 +2473,10 @@ def phase_train_witness(torch, init, bf16_losses, steps=3):
         m.load_params(init)
         margins = [_cls_margins(torch, m, x)]
         m.fit(x, y, batch_size=TRAIN["batch"], epochs=1)
-        losses = [r["loss"] for r in m.step_records]
+        losses = [r["loss"] for r in m.step_stats.records()]
         margins.append(_cls_margins(torch, m, x))
         m.fit(x, y, batch_size=TRAIN["batch"], epochs=steps - 1)
-        losses += [r["loss"] for r in m.step_records]
+        losses += [r["loss"] for r in m.step_stats.records()]
         out[name] = {"losses": losses, "cls_margins_before_after_step1":
                      margins, "seconds": time.perf_counter() - t0}
         del m
@@ -2597,11 +2649,11 @@ def phase_tier(torch, steps=3):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        m.fit(x, y, batch_size=b, epochs=1)
-        hist = m.step_records  # `steps` steps in the one epoch
+        epoch = m.fit(x, y, batch_size=b, epochs=1)
+        hist = m.step_stats.records()  # `steps` steps in the one epoch
         torch.cuda.synchronize()
         out[name] = {"losses": [r["loss"] for r in hist],
-                     "accuracy": [r["accuracy"] for r in hist],
+                     "accuracy": epoch[0]["accuracy"],
                      "launches": launch_counts(),
                      "seconds": time.perf_counter() - t0}
         del m
@@ -2667,8 +2719,9 @@ def phase_train_graph(torch):
                   steps_per_execution=steps_per_execution)
         torch.cuda.synchronize()
         launches = launch_counts()
-        recs = model.step_records
-        losses = [v for r in recs for v in r.get("losses", [r["loss"]])]
+        recs = model.step_stats.records()
+        # a record a step, or a K-step dispatch's f32 mean loss
+        losses = [r["loss"] for r in recs]
         run = {"losses": losses, "records": len(recs),
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                "launches": {kk: launches[kk] for kk in TRAIN_PER_STEP}}
@@ -2683,12 +2736,14 @@ def phase_train_graph(torch):
         del model
         torch.cuda.empty_cache()
     (eager, w_eager), (graph, w_graph) = runs["eager"], runs["graph"]
-    if len(eager["losses"]) != n or len(graph["losses"]) != n \
+    if len(eager["losses"]) != n or len(graph["losses"]) != n // k \
             or not all(np.isfinite(graph["losses"])):
         raise AssertionError(f"train-graph: losses {eager['losses']} vs "
                              f"{graph['losses']}")
-    diff = max(abs(a - c) / abs(c) for a, c in zip(graph["losses"],
-                                                    eager["losses"]))
+    # each dispatch's record against the f32 mean of the same K eager
+    # steps (MultiStep's reduction)
+    diff = max(abs(a - c) / abs(c) for a, c in zip(
+        graph["losses"], _k_means(np, eager["losses"], k)))
     same_weights = all(torch.equal(w_graph[kk], t)
                        for kk, t in w_eager.items())
     if diff != 0.0 or not same_weights:
@@ -2704,8 +2759,10 @@ def phase_train_graph(torch):
     return {"phase": "train-graph", "steps": n, "steps_per_execution": k,
             "eager": eager, "graph": graph,
             "max_relative_loss_diff": diff, "weights_same_bits": True,
-            "tolerance": "per-step losses and final weights equal to the "
-                         "bit (the same kernels in the same order)",
+            "tolerance": "each dispatch's mean loss (the eager steps' f32 "
+                         "mean over the same K) and the final weights "
+                         "equal to the bit (the same kernels in the same "
+                         "order)",
             "ms_per_step_median": {"eager_k1": eager["ms_per_step_median"],
                                    f"graph_k{k}": graph["ms_per_step_median"]},
             "flops_per_step": flops}
@@ -3395,8 +3452,9 @@ def _zoo_pair(torch, name, per_step=ZOO_PER_STEP):
     """tools/zoo_train.py's ZOO[name]: ZOO_STEPS eager fit steps, then a
     fresh model from the same weights and seed through
     fit(steps_per_execution=ZOO_K) over the same batches (the first
-    dispatch eager then captured, the rest replayed); every loss, weight
-    and running statistic the same bits, and each kernel of `per_step`
+    dispatch eager then captured, the rest replayed); every dispatch's
+    mean loss (the eager steps' over the same K), weight and running
+    statistic the same bits, and each kernel of `per_step`
     launched its count a step eagerly and 2 x ZOO_K times for the graph.
     Then each model runs the steps again, timed, and the graphed one a
     dispatch more under the profiler (device busy, idle share, launches
@@ -3428,7 +3486,9 @@ def _zoo_pair(torch, name, per_step=ZOO_PER_STEP):
         torch.cuda.empty_cache()
     eager, graph = runs["eager"], runs["graph"]
     (we, se), (wg, sg) = trees["eager"], trees["graph"]
-    same = (eager["losses"] == graph["losses"]
+    # fit records a K-step dispatch's mean loss: the eager steps' f32 mean
+    # over the same K, to the bit
+    same = (_k_means(np, eager["losses"], ZOO_K) == graph["losses"]
             and all(torch.equal(t, wg[op][w]) for op, ws in we.items()
                     for w, t in ws.items())
             and all(torch.equal(t, sg[op][v]) for op, vs in se.items()
@@ -3461,8 +3521,9 @@ def _zoo_line(phase, name, runs):
                               f"graph_k{ZOO_K}": graph["samples_per_s"]},
             "mfu_bf16_peak": {"eager_k1": eager["mfu_bf16_peak"],
                               f"graph_k{ZOO_K}": graph["mfu_bf16_peak"]},
-            "tolerance": "graphed losses, weights and running statistics "
-                         "equal to the eager run's bits"}
+            "tolerance": "each graphed dispatch's mean loss (the eager "
+                         "steps' f32 mean over it), weights and running "
+                         "statistics equal to the eager run's bits"}
 
 
 def phase_resnet(torch):
@@ -3540,9 +3601,13 @@ def phase_dropout(torch):
     init = _host_tree(m.params)
     xs, y = zoo.batches("bert_dropout", 1, seed=1)
     m.set_learning_rate(0.0)
-    m.fit([np.concatenate([xs[0]] * 3 * ZOO_K)], np.concatenate(
-        [y] * 3 * ZOO_K), epochs=1, steps_per_execution=ZOO_K)
-    d = [r["losses"] for r in m.step_records]
+    d = []
+    for _ in range(3):
+        # one dispatch a call: its steps' losses are the graph's static
+        # output, which fit's record reduces to their mean
+        m.fit([np.concatenate([xs[0]] * ZOO_K)], np.concatenate(
+            [y] * ZOO_K), epochs=1, steps_per_execution=ZOO_K)
+        d.append(_dispatch_losses(m, ZOO_K))
     still = all(torch.equal(t.cpu(), init[op][w])
                 for op, ws in m.params.items() for w, t in ws.items())
     del init
@@ -3626,7 +3691,7 @@ def phase_zoo_witness(torch, steps=2, tol=1e-3):
         losses = []
         for m in (card, cpu):
             m.fit(xs, y, epochs=1)
-            losses.append([r["loss"] for r in m.step_records])
+            losses.append([r["loss"] for r in m.step_stats.records()])
         err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
         out[name] = {"card": losses[0], "cpu": losses[1],
                      "max_relative_err": err}
@@ -3809,7 +3874,7 @@ def phase_moe_witness(torch, steps=2, tol=1e-3):
     losses, dropped = [], []
     for m in (card, cpu):
         m.fit(xs, y, epochs=1)
-        losses.append([r["loss"] for r in m.step_records])
+        losses.append([r["loss"] for r in m.step_stats.records()])
         dropped.append({op: float(vs["dropped"])
                         for op, vs in m.state.items()})
     err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
@@ -3980,7 +4045,7 @@ def phase_manual(torch):
     model = build_bench_model("cuda", TRAIN["layers"], True, 0)
     model.fit(np.concatenate([x, x]), np.concatenate([y, y]), batch_size=b,
               epochs=1)
-    fit_losses = [r["loss"] for r in model.step_records]
+    fit_losses = [r["loss"] for r in model.step_stats.records()]
     fit_w = _host_tree(model.params)
     del model
     torch.cuda.empty_cache()
@@ -4079,7 +4144,7 @@ def phase_checkpoint(torch, lm):
         size = os.path.getsize(path)
         saved_pred = model.predict(x, batch_size=b)
         model.fit(xs, ys, batch_size=b, epochs=1, steps_per_execution=k)
-        a = model.step_records[-1]["losses"]
+        a = _dispatch_losses(model, k)
         counts = dict(model._multi_step(k).counts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4087,7 +4152,7 @@ def phase_checkpoint(torch, lm):
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
         model.fit(xs, ys, batch_size=b, epochs=1, steps_per_execution=k)
-        bb = model.step_records[-1]["losses"]
+        bb = _dispatch_losses(model, k)
         graphs = dict(model._multi_step(k).counts)
         if a != bb or not np.isfinite(a).all():
             raise AssertionError(f"checkpoint: losses after the restore "
@@ -4714,12 +4779,12 @@ def phase_cost(torch, train, steps=10, warmup=3):
     model.fit(x, y, batch_size=b, epochs=warmup)
     model.fit(x, y, batch_size=b, epochs=steps)
     k1 = model.step_stats
-    k1_records = list(model.step_records)
-    stats_mfu = float(np.median([r["mfu"] for r in k1.records()]))
+    k1_records = k1.records()
+    stats_mfu = float(np.median([r["mfu"] for r in k1_records]))
     formula_mfu = float(np.median(
         [train_step_flops(**TRAIN) / (r["step_ms"] / 1e3)
          / PEAK_OPS_PER_S["bfloat16"] for r in k1_records]))
-    # one clock (StepStats takes each step record's wall): this holds
+    # one clock (the records' own step_ms): this holds
     # StepStats' FLOPs a step (from the graph) and peak (from the spec)
     # against the train phase's formula and the data sheet's peak
     if abs(stats_mfu / formula_mfu - 1.0) > 0.05:
@@ -5320,8 +5385,8 @@ def _one_device_losses(torch, job):
     k = job.get("steps_per_execution", 1)
     model.fit(job["x"], job["y"], batch_size=job["batch"],
               epochs=job["steps"], steps_per_execution=k)
-    losses = [v for r in model.step_records
-              for v in r.get("losses", [r["loss"]])]
+    # a record a step, or a K-step dispatch's mean (as the ranks report)
+    losses = [r["loss"] for r in model.step_stats.records()]
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6285,6 +6350,475 @@ def phase_elastic_drill(torch):
             "wall_s": wall, "summary": summary}
 
 
+# the fleet phases (55-58): the serve LM's widths, two replicas of 8
+# slots sharing one model, max_len 1024, pages of 16
+FLEET_SLOTS, FLEET_MAX_LEN, FLEET_PAGE = 8, 1024, 16
+FLEET_PREFIX_PAGES = 128  # two slots' worth, the batcher's default
+# the shared-prefix tenant mix of phases 55-56 (sched/bench.py
+# make_shared_prefix_workload): 9 system prompts of 256 tokens (more
+# than one replica's prefix band holds, 8, and odd, so round robin does
+# not send each tenant's followers home by parity), a suffix of 16-64 and
+# 16-32 new tokens a request
+FLEET_MIX = dict(n=48, groups=9, prefix_len=256, suffix_min=16,
+                 suffix_max=64, out_min=16, out_max=32, seed=55)
+# the HealthMonitor's windows and poll of the JAX chaos drill's defaults
+FLEET_SUSPECT_S, FLEET_DEAD_S, FLEET_PROBE_S = 2.0, 10.0, 0.1
+FLEET_CRASH_AFTER = 12
+# phase 57's prefill-heavy stream (sched/bench.py make_workload) and the
+# machine it is priced on: the JAX tests' two pods of 8 over DCN, the
+# prefill pool on one pod and the decode pool on the other
+DISAGG_MIX = dict(n=12, prompt_min=384, prompt_max=512, out_min=16,
+                  out_max=32, seed=57)
+DISAGG_SPEC = "examples/machines/multipod_2x8.json"
+DISAGG_LONG = 512  # the first prompt's tokens: the window's
+# phase 58's prompts (one-shot prefill: each within the window of 512)
+FLEET_SERVER_PROMPTS = (40, 130, 257, 500)
+# K and V of 12 layers x 1024 wide in bf16: the bytes one prompt token's
+# rows take in the handoff
+DISAGG_BYTES_PER_TOKEN = 12 * 2 * 1024 * 2
+FLEET_KERNELS = ("decode_attention", "multiquery_decode_attention",
+                 "layernorm_fwd", "softmax_fwd")
+# one-shot replicas (phase 58) prefill through the causal flash forward
+FLEET_ONESHOT_KERNELS = ("flash_fwd", "decode_attention", "layernorm_fwd",
+                         "softmax_fwd")
+# one walk of the 12-layer serve LM: a layer's attention and its two
+# LayerNorms, and the LM head's softmax
+FLEET_PER_WALK = {
+    "decode": {"decode_attention": 12, "layernorm_fwd": 24,
+               "softmax_fwd": 1},
+    "chunk": {"multiquery_decode_attention": 12, "layernorm_fwd": 24,
+              "softmax_fwd": 1},
+    "oneshot": {"flash_fwd": 12, "layernorm_fwd": 24, "softmax_fwd": 1},
+}
+
+
+def _fleet_lm_f32(torch):
+    """The serve LM at full width and depth in f32 (phase 50's: greedy
+    tokens that a slot count, a resize or a replay's recomputed rows do
+    not tip at a bf16 tie)."""
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+
+    return build_tiny_lm(FLEET_SLOTS, MESH_LM["window"],
+                         vocab=MESH_LM["vocab"], hidden=MESH_LM["hidden"],
+                         heads=MESH_LM["heads"], layers=12, device="cuda",
+                         generator=torch.Generator().manual_seed(55))
+
+
+def _single_tokens(lm, workload, **kw):
+    """One ContinuousBatcher's greedy tokens for the workload, in order
+    (the fleet's geometry)."""
+    from flexflow_tpu_torch.serving.sched import ContinuousBatcher
+
+    # every request admitted at once: the reference queues, never sheds
+    args = dict(max_len=FLEET_MAX_LEN, num_slots=FLEET_SLOTS,
+                page_size=FLEET_PAGE, prefix_cache_pages=FLEET_PREFIX_PAGES,
+                max_queue=len(workload) + 1, queue_pages_budget=1 << 30)
+    args.update(kw)
+    with ContinuousBatcher(lm, **args) as cb:
+        reqs = [cb.submit(w["prompt"], w["max_new"]) for w in workload]
+        return [[int(t) for t in r.result(timeout=900)] for r in reqs]
+
+
+def _fleet_summary(run, keys=("tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+                              "ttft_steady_ms_p99", "wall_s", "tokens",
+                              "requests", "dropped", "hits", "misses",
+                              "handoffs", "routes", "shed_retries")):
+    return {k: run[k] for k in keys if k in run}
+
+
+def _fleet_walk_launches(torch, lm, oneshot=False):
+    """The launches of one eager decode walk and one prefill chunk (or
+    one-shot prefill) of a replica of the fleet's geometry: what each
+    capture and warm-up walk of its graphs launches."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serving.fleet import Replica
+
+    if oneshot:
+        rep = Replica("walk", lm, start=False, max_len=FLEET_MAX_LEN,
+                      num_slots=FLEET_SLOTS, page_size=FLEET_PAGE,
+                      prefill_chunk_tokens=0, prefix_cache_pages=0)
+    else:
+        rep = Replica("walk", lm, start=False, max_len=FLEET_MAX_LEN,
+                      num_slots=FLEET_SLOTS, page_size=FLEET_PAGE,
+                      prefix_cache_pages=0)
+    cb = rep.batcher
+    out = {}
+    with torch.no_grad():
+        out["decode"] = _walk_launches(torch, cb._decode_walk)
+        if oneshot:
+            def walk():
+                padded = np.zeros((1, cb.window), np.int32)
+                cb.model.executor.forward_values(
+                    {cb._input_name: torch.from_numpy(padded).cuda()},
+                    state=cb._slot_caches[0], fill_kv_cache=True)
+            out["oneshot"] = _walk_launches(torch, walk)
+        else:
+            out["chunk"] = _walk_launches(torch, cb._chunk_walk(0))
+    del rep, cb
+    return out
+
+
+def phase_fleet(torch, lm, lm32, vocab):
+    """55: two replicas of the serve LM behind the Router. The static
+    shared-prefix mix under "affine" and "round_robin" (bf16), then the
+    peak -> trough -> peak swing with the Autoscaler live and one replica
+    drained mid-burst (f32). Returns the phase's record, its launches and
+    the f32 single-batcher tokens phase 56 holds its failover to."""
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.serving.fleet.bench import (run_fleet_autoscale,
+                                                        run_fleet_static)
+    from flexflow_tpu_torch.serving.sched.bench import \
+        make_shared_prefix_workload
+
+    t0 = time.perf_counter()
+    mix = dict(FLEET_MIX)
+    workload = make_shared_prefix_workload(vocab=vocab, **mix)
+    ref = _single_tokens(lm, workload)
+    ref32 = _single_tokens(lm32, workload)
+    common = dict(n_replicas=2, slots=FLEET_SLOTS, page_size=FLEET_PAGE,
+                  max_len=FLEET_MAX_LEN,
+                  prefix_cache_pages=FLEET_PREFIX_PAGES, slo_ttft_s=None,
+                  deadline_s=600.0)
+    reset_launch_counts()
+    runs = {p: run_fleet_static(lm, workload, policy=p, **common)
+            for p in ("affine", "round_robin")}
+    launches = {k: n for k, n in launch_counts().items() if n}
+    scale = run_fleet_autoscale(lm32, workload, min_slots=4, max_slots=16,
+                                **common)
+    walks = _fleet_walk_launches(torch, lm)
+    failures = []
+    for name, run in list(runs.items()) + [("autoscale", scale)]:
+        want = ref32 if name == "autoscale" else ref
+        same = sum(1 for a, b in zip(run["token_lists"], want) if a == b)
+        run["identical_to_single_batcher"] = same
+        if run["dropped"] or same != len(workload):
+            failures.append(f"{name}: {run['dropped']} dropped, {same} of "
+                            f"{len(workload)} token lists equal one "
+                            f"batcher's")
+        fams = run["exposition"]["replica_labeled_families"]
+        if not {"ff_serving_ttft_ms", "ff_kvpool_pages_used"} <= set(fams):
+            failures.append(f"{name}: replica-labelled families {fams}")
+    if not scale["grows_applied"] or not scale["shrinks_applied"]:
+        failures.append(f"autoscale: {scale['grows_applied']} grows, "
+                        f"{scale['shrinks_applied']} shrinks applied")
+    if scale["drained_replica"] is None:
+        failures.append("autoscale: no replica drained")
+    missing = [k for k in FLEET_KERNELS if not launches.get(k)]
+    if missing:
+        failures.append(f"fleet: kernels never launched: {missing}")
+    wrong = {k: v for k, v in walks.items() if v != FLEET_PER_WALK[k]}
+    if wrong:
+        failures.append(f"fleet: launches a walk {wrong}, expected "
+                        f"{FLEET_PER_WALK}")
+    line = {
+        "phase": "fleet", "card": _card_line(),
+        "model": "serve LM, hidden 1024, 16 heads, 12 layers, vocab "
+                 "30522, window 512; 2 replicas sharing its weights, 8 "
+                 "slots each, max_len 1024, page 16",
+        "workload": mix,
+        "affine": _fleet_summary(runs["affine"]),
+        "round_robin": _fleet_summary(runs["round_robin"]),
+        "affine_vs_round_robin_ttft_p99": (
+            runs["round_robin"]["ttft_ms_p99"]
+            / max(runs["affine"]["ttft_ms_p99"], 1e-9)),
+        "autoscale": dict(
+            _fleet_summary(scale), model="the same LM in f32",
+            grows_applied=scale["grows_applied"],
+            shrinks_applied=scale["shrinks_applied"],
+            drained_replica=scale["drained_replica"],
+            drain=scale["drain"], phases=scale["phases"],
+            resizes=[{k: r.get(k) for k in ("replica", "from", "to",
+                                            "direction", "migrated_rows",
+                                            "predicted_us", "wall_ms")}
+                     for r in scale["resizes"]]),
+        "identical_to_single_batcher": {
+            n: r["identical_to_single_batcher"]
+            for n, r in list(runs.items()) + [("autoscale", scale)]},
+        "replica_labeled_families":
+            runs["affine"]["exposition"]["replica_labeled_families"],
+        "launches_per_walk": walks,
+        "launches_cover": "the static runs' replicas' warm-up and "
+                          "capture walks (a replay counts nothing)",
+        "wall_s": time.perf_counter() - t0,
+        "tolerance": "0 drops; every greedy token list equal to one "
+                     "ContinuousBatcher's on the same prompts (bf16 "
+                     "static runs, f32 autoscale); >= 1 grow and shrink "
+                     "applied; a replica drained; the merged exposition "
+                     "validates with ff_serving_ttft_ms and "
+                     "ff_kvpool_pages_used under `replica`",
+    }
+    _emit(dict(line, launches=launches))
+    if failures:
+        raise AssertionError(f"fleet: {failures}")
+    return line, launches, workload, ref32
+
+
+def phase_chaos(torch, lm32, workload, ref32):
+    """56: the chaos drill on the f32 LM: a crash FLEET_CRASH_AFTER tokens
+    after arming on the loaded replica, under a live HealthMonitor and
+    Autoscaler (respawn), traced with a flight recorder armed."""
+    import tempfile
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.serving.fleet.bench import run_fleet_chaos
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="ff_chaos_") as tmp:
+        run = run_fleet_chaos(
+            lm32, workload, n_replicas=2, slots=FLEET_SLOTS,
+            page_size=FLEET_PAGE, max_len=FLEET_MAX_LEN,
+            prefix_cache_pages=FLEET_PREFIX_PAGES, deadline_s=600.0,
+            crash_after_tokens=FLEET_CRASH_AFTER,
+            suspect_after_s=FLEET_SUSPECT_S, dead_after_s=FLEET_DEAD_S,
+            probe_interval_s=FLEET_PROBE_S, artifact_dir=tmp)
+        dumps = run["artifacts"]["flight_dumps"]
+        bundle = sorted(os.listdir(dumps[0])) if dumps else []
+    launches = {k: n for k, n in launch_counts().items() if n}
+    cont = run["trace_continuity"]
+    same = sum(1 for a, b in zip(run["token_lists"], ref32) if a == b)
+    failures = []
+    if run["dropped"] or same != len(workload):
+        failures.append(f"{run['dropped']} dropped, {same} of "
+                        f"{len(workload)} token lists equal the "
+                        f"undisturbed batcher's")
+    if not run["failed_over_requests"] or cont["unstitched"] \
+            or cont["stitched"] != cont["failed_over"]:
+        failures.append(f"failover and trace continuity {cont}")
+    if not dumps or "recorder.json" not in bundle:
+        failures.append(f"flight recorder bundle {dumps} {bundle}")
+    if run["detect_s"] is None or run["detect_s"] > FLEET_DEAD_S:
+        failures.append(f"time to DEAD {run['detect_s']}")
+    missing = [k for k in FLEET_KERNELS if not launches.get(k)]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    line = {
+        "phase": "chaos", "card": _card_line(),
+        "model": "serve LM, 12 layers, f32; 2 replicas of 8 slots",
+        "victim": run["victim"], "faults_fired": [
+            {k: f[k] for k in ("kind", "replica", "token", "at_token")}
+            for f in run["faults_fired"]],
+        "time_to_dead_s": run["detect_s"], "recover_s": run["recover_s"],
+        "failed_over_requests": run["failed_over_requests"],
+        "failovers": run["failovers"],
+        "identical_to_undisturbed": same,
+        "trace_continuity": {k: cont[k] for k in
+                             ("failed_over", "mid_decode", "stitched",
+                              "unstitched")},
+        "flight_dumps": len(dumps), "bundle_files": bundle,
+        "health_after": run["health_after"],
+        "monitor_states": run["monitor_states"],
+        **_fleet_summary(run),
+        "windows_s": {"suspect": FLEET_SUSPECT_S, "dead": FLEET_DEAD_S,
+                      "probe": FLEET_PROBE_S},
+        "wall_s_phase": time.perf_counter() - t0,
+        "tolerance": "0 drops; every token list equal to one undisturbed "
+                     "batcher's; every failed-over request's spans under "
+                     "its one trace id; a flight-recorder bundle; DEAD "
+                     "within the dead window",
+    }
+    _emit(dict(line, launches=launches))
+    if failures:
+        raise AssertionError(f"chaos: {failures}")
+    return line, launches
+
+
+def phase_disagg(torch, lm, vocab):
+    """57: the same prefill-heavy stream through ["unified", "unified"]
+    and ["prefill", "decode"] (bf16), the handoffs priced on the
+    two-pod machine spec."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.resharding.plan import TRANSFER_TIER_CHUNK_BYTES
+    from flexflow_tpu_torch.search.machine_model import (
+        HierarchicalMachineModel, load_machine_spec)
+    from flexflow_tpu_torch.serving.fleet.bench import run_disagg_fleet
+    from flexflow_tpu_torch.serving.sched.bench import make_workload
+
+    t0 = time.perf_counter()
+    mix = dict(DISAGG_MIX)
+    workload = make_workload(vocab=vocab, **mix)
+    # one prompt of the window's 512 tokens (its rows: 25,165,824 bytes)
+    workload[0]["prompt"] = np.random.RandomState(570).randint(
+        1, vocab, size=DISAGG_LONG).astype(np.int32)
+    machine = HierarchicalMachineModel.from_json(load_machine_spec(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     DISAGG_SPEC)))
+    common = dict(slots=FLEET_SLOTS, page_size=FLEET_PAGE,
+                  max_len=FLEET_MAX_LEN, deadline_s=600.0,
+                  concurrency=FLEET_SLOTS, machine=machine,
+                  device_ids=tuple(range(machine.num_chips)))
+    uni = run_disagg_fleet(lm, workload, roles=["unified", "unified"],
+                           **common)
+    reset_launch_counts()
+    dis = run_disagg_fleet(lm, workload, roles=["prefill", "decode"],
+                           **common)
+    launches = {k: n for k, n in launch_counts().items() if n}
+    log = dis["handoff_log"]
+    same = sum(1 for a, b in zip(dis["token_lists"], uni["token_lists"])
+               if a == b)
+    failures = []
+    if uni["dropped"] or dis["dropped"] or same != len(workload):
+        failures.append(f"{uni['dropped']} / {dis['dropped']} dropped, "
+                        f"{same} of {len(workload)} token lists equal")
+    if not log:
+        failures.append("no handoff committed")
+    for h in log:
+        if not h["predicted_us"] > 0 or \
+                h["bytes"] / h["chunks"] > TRANSFER_TIER_CHUNK_BYTES or \
+                h["bytes"] != DISAGG_BYTES_PER_TOKEN * h["tokens"]:
+            failures.append(f"handoff {h}")
+    missing = [k for k in FLEET_KERNELS if not launches.get(k)]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+
+    def pct(key, q):
+        return float(np.percentile([h[key] for h in log], q)) if log \
+            else None
+
+    line = {
+        "phase": "disagg", "card": _card_line(),
+        "model": "serve LM, bf16; 2 replicas of 8 slots sharing it",
+        "workload": dict(mix, first_prompt=DISAGG_LONG),
+        "unified": dict(_fleet_summary(uni), itl_ms_p50=uni["itl_ms_p50"],
+                        itl_ms_p99=uni["itl_ms_p99"]),
+        "disagg": dict(_fleet_summary(dis), itl_ms_p50=dis["itl_ms_p50"],
+                       itl_ms_p99=dis["itl_ms_p99"],
+                       handoff=dis["handoff"]),
+        "identical_tokens": same,
+        "handoffs": len(log),
+        "bytes_per_token": DISAGG_BYTES_PER_TOKEN,
+        "handoff_longest": next((h for h in log
+                                 if h["tokens"] == DISAGG_LONG), None),
+        "handoff_ms_p50": {k: pct(k, 50) for k in ("export_ms",
+                                                   "import_ms", "wall_ms")},
+        "predicted_us_p50": pct("predicted_us", 50),
+        "handoff_log": log,
+        "priced_on": DISAGG_SPEC + " (two 8-chip pods over DCN, prefill "
+                     "and decode pools on different pods); the walls are "
+                     "a device -> host -> device copy on one card, not a "
+                     "link",
+        "wall_s": time.perf_counter() - t0,
+        "tolerance": "0 drops; the disaggregated fleet's tokens equal the "
+                     "unified fleet's; every committed handoff priced, "
+                     "<= 64 MB a chunk, 49,152 B a prompt token",
+    }
+    _emit(dict(line, launches=launches))
+    if failures:
+        raise AssertionError(f"disagg: {failures}")
+    return line, launches
+
+
+def phase_fleet_server(torch, lm):
+    """58: a fleet of two one-shot replicas registered on the HTTP server:
+    /generate plain and NDJSON through it, /metrics merged under a
+    `replica` label, /healthz aggregated and degraded once a replica is
+    declared dead."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.obs.registry import validate_exposition
+    from flexflow_tpu_torch.serving import InferenceServer
+    from flexflow_tpu_torch.serving.fleet import Replica, ReplicaLost, Router
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(58)
+    vocab = lm.final_tensor.dims[-1]
+    prompts = [rng.randint(1, vocab, size=int(n)).astype(np.int32)
+               for n in FLEET_SERVER_PROMPTS]
+    new = 16
+    oneshot = dict(max_len=FLEET_MAX_LEN, num_slots=FLEET_SLOTS,
+                   page_size=FLEET_PAGE, prefill_chunk_tokens=0,
+                   prefix_cache_pages=0)
+    want = _single_tokens(lm, [{"prompt": p, "max_new": new}
+                               for p in prompts], **oneshot)
+    reset_launch_counts()
+    router = Router()
+    for i in range(2):
+        router.add_replica(f"r{i}", Replica(f"r{i}", lm, **oneshot))
+    server = InferenceServer()
+    server.register_fleet("lm", router)
+    httpd = server.serve_http(port=0)
+    failures = []
+    try:
+        port = httpd.server_address[1]
+        path = "/v2/models/lm/generate"
+        t_req = time.perf_counter()
+        plain = json.loads(_http(port, path, {
+            "prompt": [p.tolist() for p in prompts],
+            "max_new_tokens": new})[2])["tokens"]
+        plain_s = time.perf_counter() - t_req
+        _, headers, body = _http(port, path, {"prompt": prompts[2].tolist(),
+                                              "max_new_tokens": new,
+                                              "stream": True})
+        lines = [json.loads(ln) for ln in body.splitlines()]
+        streamed = [ln["token"] for ln in lines[:-1]]
+        if headers.get("Content-Type") != "application/x-ndjson":
+            failures.append(f"stream content type {headers}")
+        metrics = _http(port, "/metrics")[2].decode()
+        fams = validate_exposition(metrics)
+        labeled = sorted(n for n, f in fams.items()
+                         if any("replica" in lb for _, lb, _ in f["samples"]))
+        health_ok = json.loads(_http(port, "/healthz")[2])
+        router.fail_over("r1", reason="scheduler_crashed",
+                         error=ReplicaLost("r1 declared dead"))
+        health_dead = json.loads(_http(port, "/healthz")[2])
+        after = json.loads(_http(port, path, {
+            "prompt": [prompts[0].tolist()],
+            "max_new_tokens": new})[2])["tokens"]
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+    launches = {k: n for k, n in launch_counts().items() if n}
+    if plain != want or streamed != want[2] or lines[-1]["tokens"] != want[2] \
+            or after != [want[0]]:
+        failures.append(f"tokens: plain {plain == want}, stream "
+                        f"{streamed == want[2]}, after the loss "
+                        f"{after == [want[0]]}")
+    if not {"ff_serving_ttft_ms", "ff_kvpool_pages_used"} <= set(labeled) \
+            or "ff_fleet_requests_total" not in fams:
+        failures.append(f"/metrics families under `replica`: {labeled}")
+    if health_ok["status"] != "ok" or health_ok["fleets"]["lm"]["ready"] != 2:
+        failures.append(f"/healthz before the loss: {health_ok}")
+    if health_dead["status"] != "degraded" or \
+            health_dead["fleets"]["lm"]["lost_replicas"] != {
+                "r1": "scheduler_crashed"}:
+        failures.append(f"/healthz after the loss: {health_dead}")
+    missing = [k for k in FLEET_ONESHOT_KERNELS if not launches.get(k)]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    walks = _fleet_walk_launches(torch, lm, oneshot=True)
+    if walks["oneshot"] != FLEET_PER_WALK["oneshot"] or \
+            walks["decode"] != FLEET_PER_WALK["decode"]:
+        failures.append(f"launches a walk {walks}")
+    line = {
+        "phase": "fleet-server", "card": _card_line(),
+        "model": "serve LM, bf16; 2 one-shot replicas of 8 slots",
+        "prompts": [len(p) for p in prompts], "new_tokens": new,
+        "plain_request_s": plain_s, "ndjson_lines": len(lines),
+        "replica_labeled_families": labeled,
+        "metrics_lines": len(metrics.splitlines()),
+        "healthz": {"before": health_ok["status"],
+                    "after_loss": health_dead["status"]},
+        "launches_per_walk": walks,
+        "wall_s": time.perf_counter() - t0,
+        "tolerance": "plain, NDJSON and after-the-loss tokens equal one "
+                     "one-shot batcher's; /metrics validates with the "
+                     "replica label; /healthz ok, then degraded with r1 "
+                     "lost",
+    }
+    _emit(dict(line, launches=launches))
+    if failures:
+        raise AssertionError(f"fleet-server: {failures}")
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -6710,6 +7244,27 @@ def main() -> int:
     print(f"phases 51-54: {time.perf_counter() - t_elastic:.1f} s",
           flush=True)
 
+    # 55) fleet, 56) chaos, 57) disagg, 58) fleet-server: the serving
+    # fleet (serving/fleet/) of two replicas sharing the serve LM on the
+    # card. Launches: each phase's runs, counted from 0 at its start
+    t_fleet = time.perf_counter()
+    import gc
+
+    lm32 = _fleet_lm_f32(torch)
+    line, counts, fleet_mix, ref32 = phase_fleet(torch, lm, lm32, vocab)
+    serving_paths["fleet"] = counts
+    fleet_walks = line["launches_per_walk"]
+    line, serving_paths["chaos"] = phase_chaos(torch, lm32, fleet_mix,
+                                                ref32)
+    del lm32
+    gc.collect()
+    torch.cuda.empty_cache()
+    line, serving_paths["disagg"] = phase_disagg(torch, lm, vocab)
+    line, serving_paths["fleet-server"] = phase_fleet_server(torch, lm)
+    fleet_walks["oneshot"] = line["launches_per_walk"]["oneshot"]
+    print(f"phases 55-58: {time.perf_counter() - t_fleet:.1f} s, "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
+
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
     # and search on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
@@ -6780,7 +7335,12 @@ def main() -> int:
         row = dict(
             name=name, route="cuda", source=sources.get(name, src + "norm.cu"),
             replaces=replaces[name], launches=sum(by_path.values()),
-            launches_by_path=by_path, **table[name])
+            launches_by_path=by_path,
+            # one fleet replica's launches a decode iteration, a prefill
+            # chunk and a one-shot prefill (phases 55 and 58)
+            fleet_per_walk={w: n.get(name, 0)
+                            for w, n in sorted(fleet_walks.items())},
+            **table[name])
         if name.startswith("flash_"):
             row["f32_source"] = src + "flash_attention.cu"
         kernels.append(row)

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +53,10 @@ from ..ffconst import CompMode, DataType, OpType
 from .tensor import ParallelTensorShape, Tensor
 
 _op_guid = itertools.count(1)
+# guards every op's cast cache (`Op.w`): the replicas of a fleet walk one
+# shared model on several scheduler threads at once, and each weight
+# version must be cast once, not once a thread
+_CAST_LOCK = threading.Lock()
 
 
 def _freeze(v):
@@ -274,18 +279,27 @@ class Op(nn.Module):
         """Weight `name`, in `dtype` when given. Under autograd (a trainable
         weight with grad mode on) the cast is a node of the graph, made
         anew on every call; otherwise it is a cached copy, cast again only
-        after the master changed."""
+        after the master changed. A cast first made inside a CUDA graph
+        capture is not cached (see below)."""
         p = self._parameters[name]
         if dtype is None or p.dtype == dtype:
             return p
         if p.requires_grad and torch.is_grad_enabled():
             return p.to(dtype)
         key = (name, dtype)
-        hit = self._cast.get(key)
-        if hit is None or hit[0] != p._version:
-            hit = (p._version, p.detach().to(dtype))
-            self._cast[key] = hit
-        return hit[1]
+        with _CAST_LOCK:
+            hit = self._cast.get(key)
+            if hit is not None and hit[0] == p._version:
+                return hit[1]
+            cast = p.detach().to(dtype)
+            if p.is_cuda and torch.cuda.is_current_stream_capturing():
+                # a cast made inside a capture lives in that graph's pool:
+                # the graph keeps it to itself, and the cache holds only
+                # casts made eagerly (the warm-up before every capture
+                # makes them), which every graph may read
+                return cast
+            self._cast[key] = (p._version, cast)
+        return cast
 
     def has_weight(self, name: str) -> bool:
         return name in self._parameters

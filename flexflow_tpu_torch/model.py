@@ -92,10 +92,6 @@ class FFModel:
         # world's; None without torch.distributed): a mesh-less model
         # compiled on several of them is a whole copy on each
         self.live_ranks: Optional[List[int]] = None
-        # one record per optimizer step of the last fit() call (epoch,
-        # step, loss, metrics, step_ms, samples_per_s; a K-step dispatch's
-        # also `losses`)
-        self.step_records: List[Dict[str, float]] = []
         # the last fit() call's StepStats (obs/stepstats.py, JAX
         # `step_stats`): a record per committed step or K-step dispatch,
         # with TFLOP/s and MFU against the machine spec's peak
@@ -1354,12 +1350,8 @@ class FFModel:
         Returns the JAX package's history: one `PerfMetrics.summary()` per
         epoch (samples, accuracy, loss, cce, sparse_cce, mse, rmse, mae)
         with its `epoch` and `throughput` (samples per second over the
-        epoch's wall). Each record of `step_records` (emptied at the start
-        of every call) is one optimizer step, or one dispatch of
-        `steps_per_execution` steps: its epoch, step (the optimizer steps
-        of this call before it), steps, loss and the compiled metrics
-        (means over its steps), step_ms (host wall per optimizer step) and
-        samples/s; a dispatch's record also holds `losses`, each step's.
+        epoch's wall). The call's per-step records are `step_stats`'
+        (below).
 
         accum_steps > 1: each optimizer update averages the gradients of
         `accum_steps` consecutive microbatches of `batch_size`; its record
@@ -1382,12 +1374,13 @@ class FFModel:
         them in a row fit raises the typed NumericBlowup (this loop
         cannot undo an update).
 
-        `step_stats` (obs/stepstats.py StepStats, JAX's) takes a record per
-        committed step, accumulated update or K-step dispatch, on the one
-        clock of `step_records` (its wall the committed record's: a
-        dispatch's is read where its metrics are, so no device sync is
-        added): samples/s, TFLOP/s and MFU against the machine spec's peak
-        (the H100's on the card).
+        `step_stats` (obs/stepstats.py StepStats, JAX's, made anew by every
+        call) takes a record per committed step, accumulated update or
+        K-step dispatch: its loss (a dispatch's the mean over its K
+        steps, as JAX's), samples, steps, wall (a dispatch's read where
+        its metrics are, so no device sync is added), samples/s, TFLOP/s
+        and MFU against the machine spec's peak (the H100's on the
+        card).
         With `config.profiling` it prints a samples/s line every
         `print_freq` steps and its summary at the end.
 
@@ -1452,15 +1445,12 @@ class FFModel:
                         if self.config.profiling else 0))
         self.step_stats = stats
 
-        def guard() -> None:
+        def guard(rec: Dict[str, float]) -> None:
             # the record just committed: StepStats, the drift detector on
             # its per-step wall (JAX `_drift_guard`), then the watchdog
             # (JAX `_wd_guard`)
-            rec = self.step_records[-1]
-            srec = stats.record_step(int(rec["samples"]), loss=rec["loss"],
-                                     steps=int(rec["steps"]),
-                                     wall_s=rec["step_ms"] * rec["steps"]
-                                     / 1e3)
+            srec = stats.record_step(rec["samples"], loss=rec["loss"],
+                                     steps=rec["steps"], wall_s=rec["wall_s"])
             if drift_detector is not None and srec["step_ms"] > 0 \
                     and drift_detector.observe(srec["step_ms"] * 1e3):
                 get_tracer().instant("obs.drift", step=self._step_count,
@@ -1469,7 +1459,6 @@ class FFModel:
                 watchdog.guard(self._step_count, rec["loss"])
 
         k = steps_per_execution
-        self.step_records = []
         history: List[Dict[str, float]] = []
         for epoch in range(epochs):
             self.reset_metrics()
@@ -1488,13 +1477,12 @@ class FFModel:
                     # one-deep pipeline: the previous dispatch's metrics
                     # are read after this one is queued
                     if pending is not None:
-                        t_last = self._absorb(perf, pending, epoch, bs, k,
-                                              t_last)
-                        guard()
+                        t_last, rec = self._absorb(perf, pending, bs, k,
+                                                   t_last)
+                        guard(rec)
                     pending = queued
                 if pending is not None:
-                    self._absorb(perf, pending, epoch, bs, k, t_last)
-                    guard()
+                    guard(self._absorb(perf, pending, bs, k, t_last)[1])
                 first_single, updates, micro = chunks * k, n // bs, 1
             else:
                 first_single, updates = 0, n // (bs * accum_steps)
@@ -1514,17 +1502,15 @@ class FFModel:
                         *self.executor.device_batch(*load_host(step_i)),
                         self.opt_state)
                     rec = {key: float(v) for key, v in mvals.items()}
-                self._record(perf, rec, epoch, bs * micro, 1,
-                             time.perf_counter() - t0)
-                guard()
+                guard(self._record(perf, rec, bs * micro, 1,
+                                   time.perf_counter() - t0))
             summ = perf.summary()
             summ["epoch"] = epoch
             summ["throughput"] = updates * bs * micro / (time.time() - t_epoch)
             history.append(summ)
             self._publish_moe_metrics()
             if verbose:
-                loss = self.step_records[-1]["loss"] if self.step_records \
-                    else 0
+                loss = stats.last()["loss"] if len(stats) else 0
                 print(f"epoch {epoch}: loss={loss:.4f} "
                       f"acc={summ['accuracy']:.4f} "
                       f"{summ['throughput']:.1f} samples/s")
@@ -1568,27 +1554,25 @@ class FFModel:
             return
         self._build_steps()
 
-    def _record(self, perf: PerfMetrics, rec: Dict[str, float], epoch: int,
-                samples: int, steps: int, dt: float) -> None:
+    @staticmethod
+    def _record(perf: PerfMetrics, rec: Dict[str, float], samples: int,
+                steps: int, dt: float) -> Dict[str, float]:
+        """Fold one committed record's metrics into the epoch's; returns
+        what StepStats takes of it."""
         perf.update(samples, rec)
-        last = self.step_records[-1] if self.step_records else None
-        done = last["step"] + last["steps"] if last else 0
-        rec.update(epoch=epoch, step=done, steps=steps, samples=samples,
-                   step_ms=dt * 1e3 / steps, samples_per_s=samples / dt)
-        self.step_records.append(rec)
+        return {"loss": rec["loss"], "samples": samples, "steps": steps,
+                "wall_s": dt}
 
-    def _absorb(self, perf: PerfMetrics, queued: torch.Tensor, epoch: int,
-                bs: int, k: int, t_last: float) -> float:
+    def _absorb(self, perf: PerfMetrics, queued: torch.Tensor, bs: int,
+                k: int, t_last: float):
         """Record a dispatch's (keys, K) metrics: each key's mean over its K
         steps, weighted by the K * bs samples; returns the time it was
-        read, which ends its interval."""
+        read, which ends its interval, and `_record`'s record."""
         vals = queued.cpu().numpy()
         t = time.perf_counter()
         keys = self._multi_step(k).keys
         rec = {key: float(vals[i].mean()) for i, key in enumerate(keys)}
-        self._record(perf, rec, epoch, k * bs, k, t - t_last)
-        rec["losses"] = [float(v) for v in vals[keys.index("loss")]]
-        return t
+        return t, self._record(perf, rec, k * bs, k, t - t_last)
 
     def _multi_step(self, k: int) -> MultiStep:
         if k not in self._multi_steps:

@@ -8,28 +8,31 @@ by FFModel.fit), and the calibration loop: `calibrate()`
 measured ones) and `refit()` with its persisted `FittedProfile` overlay
 and the `DriftDetector` (obs/refit.py), with the collective sweep whose
 rows the per-tier fit reads (obs/collective_bench.py, run as
-`python -m flexflow_tpu_torch.obs.collective_bench`). The fleet's
-merged render, the
-timeline and the flight recorder come with ROADMAP A9.2's rest and A10."""
+`python -m flexflow_tpu_torch.obs.collective_bench`), the merged render
+of many registries (`render_labeled`, `render_merged`: the fleet's
+`/metrics`) and the fleet's `FlightRecorder` (obs/flightrecorder.py).
+The timeline merge comes with `obs/cli.py` (ROADMAP A11)."""
 from .calibration import (CalibrationReport, CollectiveCalibration,
                           OpCalibration, calibrate)
 from .moe import moe_router_families, publish_moe_metrics, \
     reset_moe_publisher
 from .refit import (DriftDetector, FittedCoefficients, FittedProfile,
                     FittedProfileError, FittedProfileMismatch, refit)
+from .flightrecorder import DEFAULT_DUMP_KINDS, FlightRecorder
 from .registry import (REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
-                       iter_samples, parse_exposition, validate_exposition)
+                       iter_samples, parse_exposition, render_labeled,
+                       render_merged, validate_exposition)
 from .stepstats import (StepStats, model_peak_tflops,
                         model_train_flops_per_step)
 from .tracing import (Tracer, disable_tracing, enable_tracing, get_tracer,
                       span)
 
 __all__ = ["CalibrationReport", "CollectiveCalibration", "Counter",
-           "DriftDetector", "FittedCoefficients", "FittedProfile",
+           "DEFAULT_DUMP_KINDS", "DriftDetector", "FlightRecorder", "FittedCoefficients", "FittedProfile",
            "FittedProfileError", "FittedProfileMismatch", "Gauge",
            "Histogram", "MetricsRegistry", "OpCalibration", "REGISTRY",
            "StepStats", "Tracer", "calibrate", "disable_tracing",
            "enable_tracing", "get_tracer", "iter_samples",
            "model_peak_tflops", "model_train_flops_per_step",
            "moe_router_families", "parse_exposition", "publish_moe_metrics",
-           "refit", "reset_moe_publisher", "span", "validate_exposition"]
+           "refit", "render_labeled", "render_merged", "reset_moe_publisher", "span", "validate_exposition"]

@@ -5,9 +5,9 @@ JAX package's names, labels and text, `counters_with_prefix`, behind
 runtime/durability.py's `checkpoint_counters()` and elastic/watchdog.py's
 `watchdog_counters()`, and the exposition parser and checker
 (`parse_exposition`, `validate_exposition`, `iter_samples`) that the
-tests and `chip_smoke.py` run over `/metrics`. The merged
-multi-registry render (`render_labeled`, `render_merged`) comes with the
-fleet (ROADMAP A10).
+tests and `chip_smoke.py` run over `/metrics`, and the merged render of
+many registries (`render_labeled`, `render_merged`): the fleet's
+`/metrics`, each replica's samples under a `replica` label.
 
 Design rules (the JAX module's):
  - a metric family is (name, kind, label names); asking again for an
@@ -94,13 +94,19 @@ class _Family:
             self._values.pop(self._key(labels), None)
 
     # -- rendering --------------------------------------------------------
-    def _sample_lines(self) -> List[str]:
+    def _sample_lines(self, extra: Sequence[Tuple[str, str]] = ()
+                      ) -> List[str]:
+        """Sample lines, with the `extra` (name, value) label pairs put
+        before each series' own (how `render_merged` stamps a replica's
+        samples)."""
         items = self.items()
         if not items and not self.label_names:
             # an unlabelled family is born at 0, so a reset family renders
             # 0, not nothing
             items = [((), 0.0)]
-        return [self._line(self.name, self.label_names, key, v)
+        names = tuple(n for n, _ in extra) + self.label_names
+        vals = tuple(v for _, v in extra)
+        return [self._line(self.name, names, vals + key, v)
                 for key, v in items]
 
     @staticmethod
@@ -275,27 +281,36 @@ class Histogram(_Family):
             for k in [k for k in self._exemplars if k[0] == key]:
                 del self._exemplars[k]
 
-    def _sample_lines(self) -> List[str]:
+    def _sample_lines(self, extra: Sequence[Tuple[str, str]] = ()
+                      ) -> List[str]:
+        """Sample lines, with the `extra` (name, value) label pairs put
+        before each series' own (how `render_merged` stamps a replica's
+        samples)."""
         out = []
         with self._lock:
             # copy inside the lock: a concurrent observe() must not tear a
             # rendered histogram (bucket{+Inf} != count)
             items = sorted((k, list(v)) for k, v in self._hist.items())
             exemplars = dict(self._exemplars)
+        ex_names = tuple(n for n, _ in extra)
+        ex_vals = tuple(v for _, v in extra)
         for key, ent in items:
-            names = self.label_names + ("le",)
+            names = ex_names + self.label_names + ("le",)
             for i, le in enumerate(self.buckets):
                 line = self._line(f"{self.name}_bucket", names,
-                                  tuple(key) + (_fmt(le),), ent[i])
+                                  ex_vals + tuple(key) + (_fmt(le),),
+                                  ent[i])
                 ex = exemplars.get((key, i))
                 if ex is not None:
                     line += (f' # {{trace_id="{escape_label_value(ex[0])}"}}'
                              f" {_fmt(ex[1])}")
                 out.append(line)
-            out.append(self._line(f"{self.name}_sum", self.label_names, key,
-                                  ent[-2]))
-            out.append(self._line(f"{self.name}_count", self.label_names,
-                                  key, ent[-1]))
+            out.append(self._line(f"{self.name}_sum",
+                                  ex_names + self.label_names,
+                                  ex_vals + key, ent[-2]))
+            out.append(self._line(f"{self.name}_count",
+                                  ex_names + self.label_names,
+                                  ex_vals + key, ent[-1]))
         return out
 
 
@@ -377,6 +392,67 @@ class MetricsRegistry:
     def render(self) -> str:
         """Prometheus exposition text of every family, sorted by name."""
         return "".join(fam.render() for fam in self.families())
+
+
+def render_labeled(
+        members: List[Tuple[Tuple[Tuple[str, str], ...],
+                            "MetricsRegistry"]]) -> str:
+    """One exposition document over many registries, each member's
+    samples with its (possibly empty) extra label pairs put first, and
+    ONE # HELP / # TYPE header a family name across all members (a
+    server whose default registry and whose fleet replicas carry the
+    same families renders one document, not two with duplicate headers).
+    Families of one name must agree on kind, labels and buckets, and may
+    not already carry a stamp label: else ValueError."""
+    merged: Dict[str, Tuple[_Family, List[Tuple[Tuple[Tuple[str, str],
+                                                       ...], _Family]]]] = {}
+    for pairs, reg in members:
+        for ln, _ in pairs:
+            if not _LABEL_RE.match(ln):
+                raise ValueError(f"invalid merge label name {ln!r}")
+        for fam in reg.families():
+            for ln, _ in pairs:
+                if ln in fam.label_names:
+                    raise ValueError(
+                        f"metric {fam.name!r} already carries a {ln!r}"
+                        f" label; merging under {ln!r} would be"
+                        " ambiguous")
+            proto_entry = merged.get(fam.name)
+            if proto_entry is None:
+                merged[fam.name] = (fam, [(pairs, fam)])
+                continue
+            proto = proto_entry[0]
+            if (proto.kind != fam.kind
+                    or proto.label_names != fam.label_names
+                    or getattr(proto, "buckets", None)
+                    != getattr(fam, "buckets", None)):
+                raise ValueError(
+                    f"metric-name collision on {fam.name!r}: registered as"
+                    f" {proto.kind}{proto.label_names} and"
+                    f" {fam.kind}{fam.label_names} in different"
+                    " registries; refusing to merge")
+            proto_entry[1].append((pairs, fam))
+    out = []
+    for name in sorted(merged):
+        proto, fams = merged[name]
+        out.append(f"# HELP {name} {escape_help(proto.help)}\n")
+        out.append(f"# TYPE {name} {proto.kind}\n")
+        for pairs, fam in fams:
+            for line in fam._sample_lines(extra=pairs):
+                out.append(line + "\n")
+    return "".join(out)
+
+
+def render_merged(registries: Dict[str, "MetricsRegistry"],
+                  label: str = "replica") -> str:
+    """One exposition document over many registries, every sample of
+    `registries[key]` stamped `label`="key" (the fleet's `/metrics`:
+    each replica keeps a registry of its own); `render_labeled`'s
+    collision rules."""
+    if not _LABEL_RE.match(label):
+        raise ValueError(f"invalid merge label name {label!r}")
+    return render_labeled([(((label, key),), registries[key])
+                           for key in sorted(registries)])
 
 
 # the process-wide registry

@@ -11,7 +11,14 @@ that capture needs: cuBLAS workspaces, the kernels' shared-memory
 attributes, the weights' cached bf16 casts), then captures it into a CUDA
 graph; later calls replay the graph. Capture runs in the calling thread
 only (`capture_error_mode="thread_local"`), so other threads may use the
-card meanwhile. A failed capture or replay raises: there is no eager
+card meanwhile, and one capture at a time in the process (`_CAPTURE_LOCK`:
+the replicas of a fleet capture on their own scheduler threads). It
+begins and ends the capture itself, on the warm-up's side stream:
+`torch.cuda.graph`'s entry synchronizes the whole device first, which the
+card refuses while another thread captures. Inside the lock it empties
+the device and pinned-host caching allocators as that entry does (a pool
+whose graphs were all dropped must be released before a capture reuses
+its handle). A failed capture or replay raises: there is no eager
 fallback on the card. The graph reads the weights (and their cached
 casts, `core/op.py Op.w`) at the addresses it was captured with, so each
 call compares the weights' version counters with those of the capture and
@@ -21,8 +28,12 @@ numbers registers its generators (`torch.cuda.CUDAGraph.
 register_generator_state`): each replay then reads the generator's
 offset and advances it by the capture's draws, so replays draw new
 numbers, those an eager call from the same state would draw. The
-garbage collector is off during a capture (a graph freed while another
-is captured breaks the capture). On the CPU every call runs the function
+garbage collector is off while any capture runs (a graph freed while
+another is captured breaks the capture): `gc_paused` keeps a
+process-wide count of captures in flight, so with several threads
+capturing at once (the replicas of a fleet on one card) the first to
+enter turns the collector off and the last to leave restores it. On the
+CPU every call runs the function
 eagerly, and so does a call made with `capture=False` (a mesh of CUDA
 ranks: runtime/distributed.py `graph_capture` says why), counted as an
 eager walk.
@@ -38,7 +49,9 @@ any graph.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -48,6 +61,35 @@ import torch
 def graph_counts() -> Dict[str, int]:
     """A fresh counter of warm-ups, captures, replays and eager walks."""
     return {"warmups": 0, "captures": 0, "replays": 0, "eager_walks": 0}
+
+
+# one capture at a time in the process (see the module docstring)
+_CAPTURE_LOCK = threading.Lock()
+# captures in flight in this process, and whether the collector was on
+# when the first of them entered (`gc_paused`)
+_GC_LOCK = threading.Lock()
+_GC_HOLDERS = 0
+_GC_WAS_ENABLED = False
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """No garbage collection inside the block, whichever threads hold it
+    at once: the first holder turns the collector off (only if it was
+    on), the last to leave restores it."""
+    global _GC_HOLDERS, _GC_WAS_ENABLED
+    with _GC_LOCK:
+        if _GC_HOLDERS == 0:
+            _GC_WAS_ENABLED = gc.isenabled()
+            gc.disable()
+        _GC_HOLDERS += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_HOLDERS -= 1
+            if _GC_HOLDERS == 0 and _GC_WAS_ENABLED:
+                gc.enable()
 
 
 class CapturedCall:
@@ -97,15 +139,17 @@ class CapturedCall:
         # reference cycle, collected when fn allocates) would destroy its
         # executable while this thread captures, which invalidates the
         # capture: no collection runs inside it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  capture_error_mode="thread_local"):
+        with _CAPTURE_LOCK, gc_paused(), torch.cuda.stream(side):
+            torch.cuda.empty_cache()
+            if hasattr(torch._C, "_host_emptyCache"):
+                torch._C._host_emptyCache()
+            graph.capture_begin(*(() if self.pool is None else (self.pool,)),
+                                capture_error_mode="thread_local")
+            try:
                 self.fn()
-        finally:
-            if collecting:
-                gc.enable()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
         self.graph = graph
         self.versions = versions
         self.counts["captures"] += 1

@@ -15,6 +15,9 @@ or it is guaranteed to finish.
    (`max_queue`, `QueueFull`) and by the pages admitted-but-unscheduled
    requests reserve (`queue_pages_budget`, default two pool turnovers,
    `PoolSaturated`). Both are HTTP 429: retry with backoff.
+ - SLO: the fleet router sheds a request whose predicted time to first
+   token exceeds its budget on every candidate replica (`SLOExceeded`,
+   HTTP 429).
 """
 from __future__ import annotations
 
@@ -54,6 +57,23 @@ class PoolSaturated(AdmissionError):
 class RequestTooLarge(AdmissionError):
     http_status = 400
     reason = "too_large"
+
+
+class SLOExceeded(AdmissionError):
+    """The fleet router's shedding: every candidate replica's PREDICTED
+    time to first token (`ContinuousBatcher.predicted_ttft_s`) exceeds
+    the TTFT budget. The 429 of the queue and pool rejections:
+    transient, retry with backoff."""
+
+    reason = "slo_ttft"
+
+    def __init__(self, predicted_s: float, budget_s: float,
+                 scope: str = "fleet"):
+        self.predicted_s = float(predicted_s)
+        self.budget_s = float(budget_s)
+        super().__init__(
+            f"predicted TTFT {predicted_s * 1e3:.0f} ms exceeds the"
+            f" {budget_s * 1e3:.0f} ms SLO budget ({scope}); retry later")
 
 
 class AdmissionController:

@@ -1,6 +1,7 @@
-"""The serve-bench LMs, the shared-prefix workload, the speculative pass
-and the MoE pass (counterparts of flexflow_tpu/serving/sched/bench.py
-`build_tiny_lm`, `build_tiny_moe_lm`, `make_shared_prefix_workload`,
+"""The serve-bench LMs, the random and shared-prefix workloads, the
+speculative pass and the MoE pass (counterparts of
+flexflow_tpu/serving/sched/bench.py `build_tiny_lm`, `build_tiny_moe_lm`,
+`make_workload`, `make_shared_prefix_workload`,
 `run_speculative_once`, `run_moe` and `_moe_router_check`). The
 serve-bench CLI itself comes with a later slice."""
 from __future__ import annotations
@@ -75,6 +76,23 @@ def build_tiny_moe_lm(batch: int, window: int, vocab: int = 64,
     model.compile(comp_mode=CompMode.COMP_MODE_INFERENCE,
                   generator=generator)
     return model
+
+
+def make_workload(n: int, prompt_min: int, prompt_max: int, out_min: int,
+                  out_max: int, vocab: int, seed: int) -> List[Dict]:
+    """N requests of independent random prompts (JAX `make_workload`):
+    lengths uniform in [prompt_min, prompt_max], budgets in [out_min,
+    out_max], from one RandomState(seed) stream."""
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for _ in range(n):
+        plen = int(rng.randint(prompt_min, prompt_max + 1))
+        olen = int(rng.randint(out_min, out_max + 1))
+        reqs.append({
+            "prompt": rng.randint(1, vocab, size=(plen,)).astype(np.int32),
+            "max_new": olen,
+        })
+    return reqs
 
 
 def make_shared_prefix_workload(n: int, groups: int, prefix_len: int,

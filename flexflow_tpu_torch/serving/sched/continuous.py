@@ -18,6 +18,11 @@ Requests move through a small state machine::
         \\                                             \\
          +------------------ FAILED <------------------+
 
+and a prefill-only request (disaggregated serving, below) parks::
+
+    PREFILL --first token--> PARKED --release_parked--> (the decode replica)
+                                \\--resume_parked--> DECODE
+
 Device state: the per-op K/V caches, (num_slots, max_len, heads, head_dim)
 each, are allocated once and updated in place — the JAX batcher gets the
 same effect by donating them to its jitted dispatches. A prefill chunk
@@ -125,9 +130,24 @@ partitioned over a mesh axis is refused at construction with its
 ValueError, before anything is allocated (sharded generation on ranks
 is serving/generate.py `GenerativeSession`).
 
-Not ported yet, each raising a clear error: the disaggregated park /
-handoff calls (A5.6, with A10; their `serve.kv_export` /
-`serve.kv_import` spans with them), and the chaos hook (A10).
+Disaggregated serving (`role=`, the JAX batcher's; serving/fleet/
+disagg.py drives it): a "prefill" replica (or a `prefill_only` submit)
+PARKS each request after its first token, slot and pages held, and
+tells `on_parked`; the coordinator then asks `request_export`, ships
+the rows, asks the decode replica's `request_import`, and commits with
+`release_parked` (outcome "handed_off") or falls back to
+`resume_parked` (local decode) on any failure. Both steps run on the
+scheduler thread between iterations, as the resize does. The export
+copies `cache[slot, :plen]` of every cache into pinned host memory and
+waits on that copy's own event, not on the device; the import writes the
+shipped rows into the EXISTING caches in place, one copy a cache, since
+the captured decode and chunk graphs read those tensors (rows past plen
+stay stale, never attended before decode rewrites them). The imported
+request's sampling key comes from its seed as `submit` makes it, so its
+continuation is the unified run's, greedy or sampled. Each step is one
+`serve.kv_export` / `serve.kv_import` span. `fault_hook` (the fleet's
+chaos engine) runs once an iteration with the batcher: a raise kills
+the loop, a sleep stalls it.
 """
 from __future__ import annotations
 
@@ -150,7 +170,7 @@ from ...runtime.graphs import CapturedCall, Staging, graph_counts, \
 from ..batcher import BatcherStopped
 from ..generate import key_bits, pick_tokens, sample_key
 from .admission import AdmissionController
-from .kvpool import PagedKVPool, kv_cache_spec
+from .kvpool import KVGeometryMismatch, PagedKVPool, kv_cache_spec
 
 
 class RequestCancelled(RuntimeError):
@@ -191,6 +211,39 @@ class ResizeTicket:
         self._done.set()
 
 
+class HandoffTicket:
+    """Handle for one step of the KV handoff on the scheduler thread: the
+    EXPORT of a parked sequence's rows to host memory, or the IMPORT of
+    shipped rows as a request entering decode. Applied between
+    iterations, as a resize is; `wait()` blocks until then. Failures are
+    typed (admission errors, `KVGeometryMismatch`) and land here, never
+    in the loop."""
+
+    def __init__(self):
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self._done = threading.Event()
+
+    def wait(self, timeout: Optional[float] = None):
+        if not self._done.wait(timeout=timeout):
+            raise TimeoutError(
+                f"KV handoff step not applied within {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def _finish(self, result) -> None:
+        self.result = result
+        self._done.set()
+
+    def _fail(self, err: BaseException) -> None:
+        self.error = err
+        self._done.set()
+
+
 def _partitioned_tensor(model):
     """(name, spec) of the first tensor of `model` that a mesh partitions,
     in the JAX batcher's order (each op's outputs, then its weights), or
@@ -222,16 +275,14 @@ def _spec_text(spec) -> str:
     return f"PartitionSpec({inner}{',' if len(spec) == 1 else ''})"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to flexflow_tpu_torch yet ({item} in "
-        "ROADMAP.md); use flexflow_tpu's ContinuousBatcher for it")
-
-
 class RequestState(enum.Enum):
     QUEUED = "queued"
     PREFILL = "prefill"
     DECODE = "decode"
+    # a prefill-only request after its first token: its KV resident, slot
+    # and pages held, not decoding, until the handoff commits
+    # (release_parked) or falls back to local decode (resume_parked)
+    PARKED = "parked"
     FINISHED = "finished"
     FAILED = "failed"
 
@@ -276,6 +327,8 @@ class GenRequest:
         # thread (obs/tracing.py Handoff; None while tracing is off)
         self.trace = None
         self.affinity_skips = 0
+        # disaggregated serving: park after the first token for the handoff
+        self.prefill_only = False
 
     # -- consumer API ------------------------------------------------------
     def stream(self, timeout: Optional[float] = None):
@@ -310,6 +363,10 @@ class GenRequest:
         if self.t_first_token is None:
             return None
         return self.t_first_token - self.t_submit
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        return self.trace.trace_id if self.trace is not None else None
 
     # -- scheduler side ----------------------------------------------------
     def _emit(self, tok: int) -> None:
@@ -413,7 +470,8 @@ class ContinuousBatcher:
                  prefix_cache_pages: Optional[int] = None,
                  draft_model=None, spec_tokens: int = 3,
                  expert_affinity: bool = False, affinity_window: int = 4,
-                 trace_label: Optional[str] = None, machine=None):
+                 trace_label: Optional[str] = None, machine=None,
+                 role: str = "unified"):
         found = _partitioned_tensor(model)
         if found is not None:
             # the JAX batcher's refusal and text (its sharding constraints
@@ -446,9 +504,20 @@ class ContinuousBatcher:
                 f" ({self.window})")
         self.temperature = float(temperature)
         self.top_k = top_k
-        # the only role ported: prefill and decode on one replica (the
-        # disaggregated "prefill" / "decode" roles come with A5.6)
-        self.role = "unified"
+        # disaggregated serving: "prefill" parks every request after its
+        # first token for the handoff (and charges no decode leg in
+        # predicted_ttft_s), "decode" serves imported sequences beside
+        # its own traffic, "unified" does both phases
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"role={role!r}: must be 'prefill', 'decode' or"
+                " 'unified'")
+        if role == "prefill" and draft_model is not None:
+            raise ValueError(
+                "role='prefill' cannot speculate: a parked request never"
+                " decodes here, and the draft's caches do not ship in"
+                " the KV handoff")
+        self.role = role
         if not any(op.op_type == OpType.MULTIHEAD_ATTENTION
                    for op in model.graph.ops.values()):
             raise ValueError("generation needs multihead_attention ops")
@@ -576,6 +645,15 @@ class ContinuousBatcher:
         self._thread: Optional[threading.Thread] = None
         self._pending_resize: Optional[ResizeTicket] = None
         self._resizes: List[Dict] = []
+        # the chaos hook (serving/fleet/chaos.py): called once an
+        # iteration with the batcher; it reads `tokens_emitted`
+        self.fault_hook = None
+        # parked requests awaiting the handoff, the hook the coordinator
+        # sets to hear of them, and the export / import steps queued for
+        # the scheduler thread (the only thread that touches the caches)
+        self._parked: Dict[int, _Slot] = {}
+        self.on_parked = None
+        self._pending_handoffs: List[tuple] = []
         self._completed = 0
         self._failed = 0
         self.tokens_emitted = 0
@@ -751,6 +829,8 @@ class ContinuousBatcher:
                 self._thread = None
         self._drain_queue(BatcherStopped("batcher stopped"))
         self._fail_pending_resize(BatcherStopped("batcher stopped"))
+        self._fail_pending_handoffs(BatcherStopped("batcher stopped"))
+        self._fail_parked(BatcherStopped("batcher stopped"))
 
     def abort(self, err: BaseException) -> None:
         """Non-blocking kill of a replica declared dead: fence every
@@ -763,6 +843,7 @@ class ContinuousBatcher:
         with self._cv:
             self._running = False
             slots, self._slots = list(self._slots), [None] * self.num_slots
+            self._parked.clear()
             self._cv.notify_all()
         for s in slots:
             if s is None:
@@ -774,6 +855,7 @@ class ContinuousBatcher:
             s.req._fence(err)
         self._drain_queue(err)
         self._fail_pending_resize(err)
+        self._fail_pending_handoffs(err)
         self._g_active.set(0, pool=self.pool.label)
 
     def __enter__(self):
@@ -789,9 +871,16 @@ class ContinuousBatcher:
                prefill_only: bool = False) -> GenRequest:
         """Admit one request (prompt_ids: (L,) or (1, L) int tokens).
         Raises an AdmissionError subclass on rejection; otherwise returns
-        a GenRequest whose stream()/result() deliver the tokens."""
-        if prefill_only:
-            raise _not_ported("prefill_only (disaggregated serving)", "A5")
+        a GenRequest whose stream()/result() deliver the tokens.
+
+        prefill_only (implied by role='prefill'): the request prefills,
+        emits its first token and PARKS for the KV handoff
+        (`request_export`, `release_parked`, `resume_parked`)."""
+        prefill_only = bool(prefill_only) or self.role == "prefill"
+        if prefill_only and self.draft_model is not None:
+            raise ValueError(
+                "prefill_only cannot speculate: the draft's caches do"
+                " not ship in the KV handoff")
         prompt = np.asarray(prompt_ids, np.int32)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -825,6 +914,7 @@ class ContinuousBatcher:
                 self.admission.admit(rid, prompt.size, max_new_tokens,
                                      shared_pages=shared_pages)
             req = GenRequest(rid, prompt, max_new_tokens, eos_id, seed)
+            req.prefill_only = prefill_only
             # the caller's context as an explicit handoff, which the
             # scheduler thread resumes (None while tracing is off)
             req.trace = tracer.handoff("serve.submit")
@@ -895,17 +985,212 @@ class ContinuousBatcher:
             self._cv.notify_all()
         return ticket
 
-    def request_export(self, *args, **kwargs):
-        raise _not_ported("the KV handoff (request_export)", "A5")
+    # -- the disaggregated KV handoff (JAX continuous.py:1238-1460) ---------
+    def parked_requests(self) -> List[GenRequest]:
+        with self._cv:
+            return [s.req for s in self._parked.values()]
 
-    def request_import(self, *args, **kwargs):
-        raise _not_ported("the KV handoff (request_import)", "A5")
+    def request_export(self, req: GenRequest) -> HandoffTicket:
+        """Queue the export of a PARKED request's rows to host memory. The
+        ticket resolves with {"desc", "rows", "plen", "last_tok",
+        "bytes", "wall_ms"}: `desc` is the pool's descriptor
+        (`PagedKVPool.export_sequence`), `rows` maps "op/part" to the
+        (plen, heads, dim) host array of the rows the page table owns
+        (bf16 as its bits, int16). The request STAYS parked, so a failed
+        ship can still resume_parked with nothing lost."""
+        ticket = HandoffTicket()
+        with self._cv:
+            if not self._running:
+                raise BatcherStopped("batcher is not running")
+            self._pending_handoffs.append(("export", ticket, req))
+            self._cv.notify_all()
+        return ticket
 
-    def resume_parked(self, *args, **kwargs):
-        raise _not_ported("parked requests (resume_parked)", "A5")
+    def request_import(self, desc: Dict, rows: Dict, prompt,
+                       last_tok: int, max_new_tokens: int,
+                       eos_id: Optional[int] = None, seed: int = 0,
+                       trace=None) -> HandoffTicket:
+        """Queue the import of a shipped sequence as a request entering
+        DECODE with nothing recomputed: `max_new_tokens` is the REMAINING
+        budget (the prefill side emitted the first token), `last_tok`
+        feeds the first decode step. The ticket resolves with the new
+        GenRequest, or fails typed: an AdmissionError where this replica
+        sheds, `KVGeometryMismatch` where the exporter's geometry
+        differs."""
+        ticket = HandoffTicket()
+        payload = {"desc": desc, "rows": rows,
+                   "prompt": np.asarray(prompt, np.int32),
+                   "last_tok": int(last_tok),
+                   "max_new_tokens": int(max_new_tokens),
+                   "eos_id": eos_id, "seed": int(seed), "trace": trace}
+        with self._cv:
+            if not self._running:
+                raise BatcherStopped("batcher is not running")
+            self._pending_handoffs.append(("import", ticket, payload))
+            self._cv.notify_all()
+        return ticket
 
-    def release_parked(self, *args, **kwargs):
-        raise _not_ported("parked requests (release_parked)", "A5")
+    def resume_parked(self, req: GenRequest) -> bool:
+        """The fall-back of every failed handoff: a PARKED request decodes
+        here after all. False once it is no longer parked."""
+        with self._cv:
+            s = self._parked.pop(req.id, None)
+            if s is None or req.state is not RequestState.PARKED:
+                return False
+            req.state = RequestState.DECODE
+            self._cv.notify_all()
+        return True
+
+    def release_parked(self, req: GenRequest) -> bool:
+        """The handoff committed on the decode side: free the parked
+        request's slot, pages and reservation here and close its local
+        handle with RequestCancelled (not a clean finish, which would read
+        as a whole one-token answer; the fleet handle has rebound to the
+        decode side and waits for it). False once it is no longer
+        parked."""
+        with self._cv:
+            s = self._parked.pop(req.id, None)
+            if s is None:
+                return False
+            self._slots[s.slot] = None
+        self.pool.free(req.id)
+        self.admission.release(req.id)
+        self._completed += 1
+        self._c_requests.inc(outcome="handed_off")
+        self._sync_active_gauge()
+        req._fail(RequestCancelled(
+            f"request {req.id} handed off to a decode replica"))
+        with self._cv:
+            self._cv.notify_all()
+        return True
+
+    def _runnable_locked(self) -> bool:
+        """Any slot that still schedules work (the caller holds _cv):
+        PARKED slots hold pages but neither prefill nor decode."""
+        return any(s is not None and s.req.state is not RequestState.PARKED
+                   for s in self._slots)
+
+    def _process_handoffs(self, tracer) -> None:
+        """The queued export and import steps (scheduler thread). A failed
+        step fails its own ticket."""
+        with self._cv:
+            work, self._pending_handoffs = self._pending_handoffs, []
+        for kind, ticket, payload in work:
+            try:
+                if kind == "export":
+                    ticket._finish(self._export_parked(payload, tracer))
+                else:
+                    ticket._finish(self._import_one(tracer, **payload))
+            except Exception as e:
+                ticket._fail(e)
+
+    def _export_parked(self, req: GenRequest, tracer) -> Dict:
+        """A parked request's owned rows, `cache[slot, :plen]` of every
+        cache, copied into pinned host memory; waits on the copies' own
+        event, not on the device."""
+        with self._cv:
+            s = self._parked.get(req.id)
+        if s is None or req.state is not RequestState.PARKED:
+            raise KeyError(f"request {req.id} is not parked")
+        desc = self.pool.export_sequence(req.id)
+        plen = int(s.plen)
+        t0 = time.monotonic()
+        with tracer.resume(req.trace), \
+                tracer.span("serve.kv_export", request=req.id, tokens=plen):
+            host = {}
+            for name, pair in self._caches.items():
+                for part, arr in pair.items():
+                    src = arr[s.slot, :plen]
+                    if self.device.type == "cuda":
+                        dst = torch.empty(src.shape, dtype=src.dtype,
+                                          pin_memory=True)
+                        dst.copy_(src, non_blocking=True)
+                    else:
+                        dst = src.clone()
+                    host[f"{name}/{part}"] = dst
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+            rows = {key: _host_array(t) for key, t in host.items()}
+        return {"desc": desc, "rows": rows, "plen": plen,
+                "last_tok": int(s.last_tok),
+                "bytes": int(sum(r.nbytes for r in rows.values())),
+                "wall_ms": (time.monotonic() - t0) * 1e3}
+
+    def _import_one(self, tracer, desc, rows, prompt, last_tok,
+                    max_new_tokens, eos_id, seed, trace) -> GenRequest:
+        """A shipped sequence as a request entering DECODE (scheduler
+        thread; see request_import)."""
+        plen = int(desc["n_tokens"])
+        for name, pair in self._caches.items():
+            for part, arr in pair.items():
+                src = rows.get(f"{name}/{part}")
+                want = (plen,) + tuple(int(d) for d in arr.shape[2:])
+                if src is None or tuple(src.shape) != want:
+                    raise KVGeometryMismatch(
+                        f"kv_rows[{name}/{part}]",
+                        None if src is None else tuple(src.shape), want)
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens}: an import with no"
+                " remaining budget has nothing to decode")
+        rid = next(self._rid)
+        self.admission.admit(rid, plen, max_new_tokens)
+        try:
+            slot_idx = self.pool.import_sequence(desc, seq_id=rid)
+        except BaseException:
+            self.admission.release(rid)
+            raise
+        req = GenRequest(rid, np.asarray(prompt, np.int32), max_new_tokens,
+                         eos_id, seed)
+        req.trace = trace
+        # the KV arrived whole: no prefill leg to charge it
+        req.cache_hit = True
+        req.prefix_tokens = plen
+        req.queue_wait_s = self.admission.on_scheduled(rid)
+        s = _Slot(req, slot_idx)  # the key from the seed, as submit's
+        s.plen = s.filled = s.pos = plen
+        s.last_tok = int(last_tok)
+        with tracer.resume(trace), \
+                tracer.span("serve.kv_import", request=rid, tokens=plen):
+            # in place: the captured graphs read these very tensors
+            for name, pair in self._caches.items():
+                for part, arr in pair.items():
+                    arr[slot_idx, :plen].copy_(_device_rows(
+                        rows[f"{name}/{part}"], arr.dtype))
+        req.state = RequestState.DECODE
+        req.t_first_token = time.monotonic()
+        with self._cv:
+            self._slots[slot_idx] = s
+            self._cv.notify_all()
+        self._sync_active_gauge()
+        return req
+
+    def _fail_pending_handoffs(self, err: BaseException) -> None:
+        with self._cv:
+            work, self._pending_handoffs = self._pending_handoffs, []
+        for _, ticket, _ in work:
+            if not ticket.done():
+                ticket._fail(err)
+
+    def _fail_parked(self, err: BaseException) -> None:
+        """Fail every request still parked (stop): fenced, so a fleet
+        replay sees the frozen first token, its pool and admission state
+        released."""
+        with self._cv:
+            parked, self._parked = dict(self._parked), {}
+            for s in parked.values():
+                if self._slots[s.slot] is s:
+                    self._slots[s.slot] = None
+        for s in parked.values():
+            self.pool.free(s.req.id)
+            self.admission.release(s.req.id)
+            self._failed += 1
+            self._c_requests.inc(outcome="failed")
+            s.req._fence(err)
+        if parked:
+            self._sync_active_gauge()
 
     # -- the measured rate model and the health probes ---------------------
     # (JAX continuous.py:1475-1706): read-only, no device state touched
@@ -1018,7 +1303,9 @@ class ContinuousBatcher:
         the draft's measured per-token cost (the target's until the
         draft has a sample), and the interleave leg charges no more walls
         than the decode drain horizon. A batcher with no samples predicts
-        0. own = 0 (the KV is all installed) pays one decode wall."""
+        0. own = 0 (the KV is all installed, or imported) pays one decode
+        wall; a role='prefill' replica charges no decode leg (nothing
+        decodes there)."""
         own = max(0, int(prompt_len) - max(0, int(shared_tokens)))
         backlog = self.queued_prefill_tokens()
         total = own + backlog
@@ -1034,7 +1321,7 @@ class ContinuousBatcher:
         iter_s = self._ewma_decode_iter_s
         if own == 0 and iter_s is not None:
             t += iter_s
-        if chunk and iter_s is not None:
+        if chunk and iter_s is not None and self.role != "prefill":
             with self._cv:
                 interleaved = len(self._queue) > 0 or any(
                     s is not None and s.req.state is RequestState.DECODE
@@ -1070,18 +1357,19 @@ class ContinuousBatcher:
         return max(longest, pooled)
 
     def stats(self) -> Dict[str, object]:
-        """The JAX batcher's `stats()` keys ("parked" stays 0 until
-        A5.6), and the port's dispatch counts:
+        """The JAX batcher's `stats()` keys, and the port's dispatch
+        counts:
         "graphs" holds the warm-ups, captures and replays, and the walks
         run outside any graph (on the card: the one-shot prefills)."""
         with self._cv:
             active = sum(1 for s in self._slots if s is not None)
             queued = len(self._queue)
+            parked = len(self._parked)
         out = {
             "queue_depth": queued,
             "slots_active": active,
             "role": self.role,
-            "parked": 0,
+            "parked": parked,
             "completed": self._completed,
             "failed": self._failed,
             "prefill_chunk_tokens": self.prefill_chunk_tokens,
@@ -1241,14 +1529,17 @@ class ContinuousBatcher:
         tracer = get_tracer()
         while True:
             with self._cv:
+                # PARKED slots hold KV for the handoff but schedule
+                # nothing: they neither keep the loop busy nor hold a stop
                 while (self._running and not self._queue
-                       and not any(self._slots)
-                       and self._pending_resize is None):
+                       and not self._runnable_locked()
+                       and self._pending_resize is None
+                       and not self._pending_handoffs):
                     # an idle loop is a healthy one: stamp the heartbeat
                     # on every wake
                     self._t_heartbeat = time.monotonic()
                     self._cv.wait(timeout=0.1)
-                if not self._running and not any(self._slots):
+                if not self._running and not self._runnable_locked():
                     break
                 running = self._running
 
@@ -1260,12 +1551,20 @@ class ContinuousBatcher:
                 self._observe_step_gap(now - self._t_iter_prev)
             self._t_iter_prev = now
             self._iter_had_work = bool(self._queue) or any(self._slots)
+            hook = self.fault_hook
+            if hook is not None:
+                hook(self)
 
             # 0) a pending resize (a shrink waits until the live
             #    sequences fit; admissions are held meanwhile)
             if self._pending_resize is not None:
                 self._maybe_resize(tracer)
             S = self.num_slots
+
+            # 0b) queued handoff steps (export parked rows, import shipped
+            #     ones)
+            if self._pending_handoffs:
+                self._process_handoffs(tracer)
 
             # 1) move queued requests into free slots (skipped once
             #    stopping: queued requests fail in stop()); one-shot mode
@@ -1706,13 +2005,26 @@ class ContinuousBatcher:
 
     def _first_token(self, s: _Slot, tok: int) -> None:
         """Prefill complete: the request starts decoding and its TTFT is
-        recorded, split by prefix-cache outcome."""
+        recorded, split by prefix-cache outcome. A prefill-only request
+        PARKS instead and `on_parked` is told; if the hook fails, the
+        request decodes here (a broken coordinator strands nothing)."""
         req = s.req
         req.state = RequestState.DECODE
         req.t_first_token = time.monotonic()
         self._h_ttft.observe((req.t_first_token - req.t_submit) * 1e3,
+                             exemplar=req.trace_id,
                              cache="hit" if req.cache_hit else "miss")
         self._emit_token(s, tok)
+        if req.prefill_only and req.state is RequestState.DECODE:
+            with self._cv:
+                req.state = RequestState.PARKED
+                self._parked[req.id] = s
+            cb = self.on_parked
+            if cb is not None:
+                try:
+                    cb(req)
+                except Exception:
+                    self.resume_parked(req)
 
     def _emit_token(self, s: _Slot, tok: int) -> None:
         """Deliver one token; retire the request on EOS or its budget,
@@ -1729,6 +2041,8 @@ class ContinuousBatcher:
 
     def _retire(self, s: _Slot) -> None:
         self._slots[s.slot] = None
+        with self._cv:
+            self._parked.pop(s.req.id, None)
         self.pool.free(s.req.id)
         self.admission.release(s.req.id)
         self._completed += 1
@@ -1755,6 +2069,7 @@ class ContinuousBatcher:
         with self._cv:
             self._running = False
             slots, self._slots = list(self._slots), [None] * self.num_slots
+            self._parked.clear()
         for s in slots:
             if s is None:
                 continue
@@ -1765,6 +2080,7 @@ class ContinuousBatcher:
             s.req._fail(err)
         self._drain_queue(err)
         self._fail_pending_resize(err)
+        self._fail_pending_handoffs(err)
 
 
 def _embedding_entries(model) -> Optional[int]:
@@ -1773,6 +2089,21 @@ def _embedding_entries(model) -> Optional[int]:
                 if op.op_type == OpType.EMBEDDING
                 and op.inputs[0] is model.input_ops[0].outputs[0]),
                default=None)
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy; bf16, which numpy lacks, as its bits."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _device_rows(rows: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Shipped rows (`_host_array`'s) as a host tensor of `dtype`."""
+    t = torch.from_numpy(np.ascontiguousarray(rows))
+    if dtype == torch.bfloat16 and t.dtype == torch.int16:
+        return t.view(dtype)
+    return t.to(dtype)
 
 
 def _zero_caches(model, slots: int, max_len: int):

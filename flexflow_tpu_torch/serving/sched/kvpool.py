@@ -37,8 +37,11 @@ Live resize (the serving mesh grew or shrank; ContinuousBatcher
 new slot count and `owned_view` gives the rows a sequence's table owns,
 the only rows a migration copies.
 
-Left out until its ROADMAP item: the export/import of the disaggregated
-handoff (A5.6).
+The disaggregated handoff (ContinuousBatcher `request_export` /
+`request_import`): `PagedKVPool.export_sequence` describes a live
+sequence (its tokens, pages, geometry and owned row spans) without
+touching it, and `import_sequence` allocates the same pages in another
+pool after checking the geometry (`KVGeometryMismatch`, typed).
 """
 from __future__ import annotations
 
@@ -361,6 +364,21 @@ class PrefixCache:
             }
 
 
+class KVGeometryMismatch(ValueError):
+    """An exported sequence cannot land in this pool: the importer's page
+    geometry differs from the exporter's. Page ids mean something only
+    under one (page_size, max_len) regime, so the handoff treats this as
+    a typed routing error that no retry fixes."""
+
+    def __init__(self, field: str, exporter, importer):
+        self.field = field
+        self.exporter = exporter
+        self.importer = importer
+        super().__init__(
+            f"kv import geometry mismatch on {field!r}: exporter has"
+            f" {exporter}, importing pool has {importer}")
+
+
 class PagedKVPool:
     """Page allocator and accounting over the slot-dense KV caches.
     Thread-safe: the scheduler thread allocates while others read stats."""
@@ -551,6 +569,53 @@ class PagedKVPool:
         self._g_total.set(self.total_pages, pool=self.label)
         self._sync_gauges()
         return moves
+
+    # -- the disaggregated handoff (JAX kvpool.py:633-680) -------------------
+    def export_sequence(self, seq_id) -> Dict[str, object]:
+        """A live sequence's page-table state for a handoff to another
+        pool. Read-only: the sequence stays allocated here (its prefix
+        pins too) until the caller frees it after the import commits, so
+        a failed handoff leaves this pool as it was. The descriptor
+        carries the geometry the importer must match and the owned row
+        spans, the only rows the copy ships."""
+        with self._lock:
+            ent = self._table.get(seq_id)
+            if ent is None:
+                raise KeyError(f"sequence {seq_id!r} not allocated")
+            n_tokens = self._tokens[seq_id]
+            n_pages = len(ent[1])
+        return {
+            "seq_id": seq_id,
+            "n_tokens": int(n_tokens),
+            "n_pages": int(n_pages),
+            "page_size": self.page_size,
+            "max_len": self.max_len,
+            "spans": self.owned_view(seq_id),
+        }
+
+    def import_sequence(self, desc: Dict[str, object], seq_id=None) -> int:
+        """Allocate an exported sequence in this pool and return its slot:
+        the geometry checked (`KVGeometryMismatch`), the pages claimed
+        equal to those the exporter reported (so the fleet's pages in use
+        are conserved once the exporter frees), `PoolExhausted` when no
+        slot is free. The import takes no prefix-cache pins: the shipped
+        rows are the sequence's own copy."""
+        sid = seq_id if seq_id is not None else desc["seq_id"]
+        if int(desc["page_size"]) != self.page_size:
+            raise KVGeometryMismatch(
+                "page_size", desc["page_size"], self.page_size)
+        if int(desc["n_tokens"]) > self.max_len:
+            raise KVGeometryMismatch(
+                "max_len", f"{desc['n_tokens']} live tokens"
+                f" (max_len {desc['max_len']})", self.max_len)
+        slot = self.alloc(sid, int(desc["n_tokens"]))
+        got = len(self.pages_of(sid))
+        if got != int(desc["n_pages"]):
+            # the same page size and token count give the same pages: the
+            # descriptor is wrong, so undo and refuse
+            self.free(sid)
+            raise KVGeometryMismatch("n_pages", desc["n_pages"], got)
+        return slot
 
     def pages_used(self) -> int:
         with self._lock:

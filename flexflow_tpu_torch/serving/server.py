@@ -18,10 +18,14 @@ training-watchdog (`ff_watchdog_*`) and plan-analysis
 (`ff_plan_diagnostics_total`) families; `stats()` carries the analysis'
 per-code counts under `_analysis`, as JAX's does.
 
-Not ported yet, and absent rather than faked: the fleet
-(`register_fleet` raises; its merged `/metrics` render and the
-aggregated `/healthz` come with ROADMAP A10). The model repository is
-A5.10c.
+`register_fleet` puts a fleet Router (serving/fleet/) behind a name:
+`/generate`, plain and NDJSON, routes through it; `/metrics` is ONE
+exposition over this server's registry, the process-wide one, the
+router's `ff_fleet_*` families and every replica's registry under a
+`replica` label (obs/registry.py `render_labeled`); `/healthz`
+aggregates the replicas' health ("degraded" while one drains, is lost
+or failed to load, "down" with none ready). The model repository
+(ROADMAP A5.10c) is not ported yet.
 """
 from __future__ import annotations
 
@@ -184,6 +188,9 @@ class InferenceServer:
         # scheduling over the paged KV pool — requests from many clients
         # interleave in one decode batch instead of serializing on a lock
         self._continuous: Dict[str, object] = {}
+        # name -> fleet Router (serving/fleet/): N replicas behind
+        # prefix-affine routing and SLO admission
+        self._fleets: Dict[str, object] = {}
         # elastic runtime event log (elastic/events.py), exported on
         # /metrics when attached
         self._elastic_events = None
@@ -230,6 +237,7 @@ class InferenceServer:
         b = self._models.pop(name, None)
         self._generative.pop(name, None)
         cb = self._continuous.pop(name, None)
+        fleet = self._fleets.pop(name, None)
         m = self._metrics.pop(name, None)
         if m is not None:
             m.remove_series()
@@ -237,6 +245,8 @@ class InferenceServer:
             b.stop()
         if cb is not None:
             cb.stop()
+        if fleet is not None:
+            fleet.shutdown()
 
     def models(self):
         return sorted(self._models)
@@ -280,7 +290,7 @@ class InferenceServer:
             raise ValueError(f"top_k={top_k}: must be >= 1")
         if float(temperature) < 0.0:
             raise ValueError(f"temperature={temperature}: must be >= 0")
-        if name in self._continuous:
+        if name in self._continuous or name in self._fleets:
             raise ValueError(
                 f"{name!r} already has a continuous batcher or fleet;"
                 " pick one serving mode per name")
@@ -303,7 +313,7 @@ class InferenceServer:
         chunk-prefilled without stalling other clients' decodes. The
         batcher's decode policy (temperature/top_k) is fixed at
         construction — same capture-DoS rule as register_generative."""
-        if name in self._generative:
+        if name in self._generative or name in self._fleets:
             raise ValueError(
                 f"{name!r} already has a lockstep generative session or"
                 " fleet; pick one serving mode per name")
@@ -318,16 +328,32 @@ class InferenceServer:
         self._metrics_for(name)
 
     def register_fleet(self, name: str, router) -> None:
-        """A fleet Router's replicas behind one name: not ported yet
-        (ROADMAP A10, with the fleet's merged /metrics render and the
-        per-replica /healthz aggregation)."""
-        raise NotImplementedError(
-            "register_fleet: the serving fleet is not ported yet "
-            "(ROADMAP A10)")
+        """Register a fleet Router (serving/fleet/) for POST
+        /v2/models/<name>/generate: requests route across its replicas
+        with its SLO admission, AdmissionError rejections (SLOExceeded
+        too) answer as typed HTTP backpressure, /metrics merges every
+        replica's registry under a `replica` label beside the router's
+        ff_fleet_* families, and /healthz aggregates the replicas'.
+        The router's replica load failures count in
+        ff_model_load_failures_total as "<name>/<replica>"."""
+        if name in self._generative or name in self._continuous:
+            raise ValueError(
+                f"{name!r} already has a serving mode; pick one per name")
+        old = self._fleets.get(name)
+        if old is not None and old is not router:
+            old.shutdown()
+        router.on_load_failure = (
+            lambda rep, exc, _name=name:
+            self.record_load_failure(f"{_name}/{rep}", exc))
+        self._fleets[name] = router
+        self._metrics_for(name)
 
     def generate(self, name: str, prompt_ids: np.ndarray,
                  max_new_tokens: int, eos_id: Optional[int] = None,
                  seed: int = 0):
+        if name in self._fleets:
+            return self._generate_fleet(
+                name, prompt_ids, max_new_tokens, eos_id=eos_id, seed=seed)
         if name in self._continuous:
             return self._generate_continuous(
                 name, prompt_ids, max_new_tokens, eos_id=eos_id, seed=seed)
@@ -382,11 +408,45 @@ class InferenceServer:
         finally:
             metrics.record((time.perf_counter() - t0) * 1e3, ok)
 
+    def _generate_fleet(self, name: str, prompt_ids, max_new_tokens,
+                        eos_id=None, seed: int = 0):
+        """The continuous fan-out contract over a fleet Router: ragged
+        rows become independent routed requests, admission all or nothing
+        per HTTP request (a rejected row cancels its accepted siblings
+        before the error propagates)."""
+        router = self._fleets[name]
+        metrics = self._metrics_for(name)
+        prompts = _prompt_rows(prompt_ids)
+        t0 = time.perf_counter()
+        ok = False
+        try:
+            with get_tracer().span("serve.generate", model=name,
+                                   requests=len(prompts)):
+                reqs = []
+                try:
+                    for row in prompts:
+                        reqs.append(router.submit(
+                            row, max_new_tokens, eos_id=eos_id, seed=seed))
+                except Exception:
+                    for r in reqs:
+                        router.cancel(r)
+                    raise
+                out = [r.result(timeout=600.0).tolist() for r in reqs]
+            ok = True
+            return out
+        finally:
+            metrics.record((time.perf_counter() - t0) * 1e3, ok)
+
     def generate_stream(self, name: str, prompt_ids, max_new_tokens,
                         eos_id=None, seed: int = 0):
-        """Submit ONE prompt to a continuous batcher and return the
-        request handle — its .stream() yields tokens as the scheduler
-        emits them (the HTTP endpoint's "stream": true path)."""
+        """Submit ONE prompt to a continuous batcher (or fleet router)
+        and return the request handle — its .stream() yields tokens as
+        the scheduler emits them (the HTTP endpoint's "stream": true
+        path)."""
+        if name in self._fleets:
+            return self._fleets[name].submit(
+                np.asarray(prompt_ids, np.int32), max_new_tokens,
+                eos_id=eos_id, seed=seed)
         if name not in self._continuous:
             raise KeyError(f"no continuous batcher {name!r}")
         return self._continuous[name].submit(
@@ -400,6 +460,9 @@ class InferenceServer:
         if self._continuous:
             out["_continuous"] = {n: b.stats()
                                   for n, b in sorted(self._continuous.items())}
+        if self._fleets:
+            out["_fleet"] = {n: r.stats()
+                             for n, r in sorted(self._fleets.items())}
         if self._elastic_events is not None:
             out["_elastic"] = self._elastic_events.counts()
         analysis = self._analysis_counters()
@@ -461,11 +524,33 @@ class InferenceServer:
                 "Elastic runtime events by kind", labels=("kind",))
             for kind, n in self._elastic_events.counts().items():
                 c.set_total(n, kind=kind)
-        return self.registry.render() + REGISTRY.render()
+        if not self._fleets:
+            return self.registry.render() + REGISTRY.render()
+        # one exposition document over every source: this server's
+        # registry, the process-wide one, each router's ff_fleet_*
+        # families and every replica's registry under a `replica` label.
+        # One render_labeled pass emits one TYPE header a family even
+        # where the default registry carries the same families (a
+        # non-fleet batcher in this process); concatenated renders would
+        # repeat the headers, which scrapers and validate_exposition
+        # refuse
+        from ..obs.registry import render_labeled
+
+        multi = len(self._fleets) > 1
+        members = [((), self.registry), ((), REGISTRY)]
+        for fname in sorted(self._fleets):
+            router = self._fleets[fname]
+            members.append(
+                (((("fleet", fname),) if multi else ()), router.registry))
+            for rname, reg in sorted(router.replica_registries().items()):
+                pairs = (("fleet", fname), ("replica", rname)) if multi \
+                    else (("replica", rname),)
+                members.append((pairs, reg))
+        return render_labeled(members)
 
     def shutdown(self):
         for name in (list(self._models) + list(self._generative)
-                     + list(self._continuous)):
+                     + list(self._continuous) + list(self._fleets)):
             self.unregister(name)
 
     # -- optional HTTP endpoint ---------------------------------------
@@ -507,12 +592,21 @@ class InferenceServer:
                     self._reply(200, {"models": server_ref.models()})
                 elif self.path == "/healthz":
                     # liveness + readiness in one: 200 with the serving
-                    # inventory (Triton's /v2/health/ready role);
-                    # "degraded" while a model failed to load (the
-                    # ff_model_load_failures_total leg). The fleet's
-                    # per-replica aggregation is ROADMAP A10.
-                    status = ("degraded" if server_ref._load_failures
-                              else "ok")
+                    # inventory (Triton's /v2/health/ready role). With a
+                    # fleet registered the status aggregates its
+                    # replicas' health: "degraded" while any replica
+                    # drains, is lost or failed to load (the
+                    # ff_model_load_failures_total leg), "down" when a
+                    # fleet has nothing ready
+                    fleets = {n: r.health()
+                              for n, r in sorted(server_ref._fleets.items())}
+                    status = "ok"
+                    if server_ref._load_failures or any(
+                            f["status"] == "degraded"
+                            for f in fleets.values()):
+                        status = "degraded"
+                    if any(f["status"] == "down" for f in fleets.values()):
+                        status = "down"
                     payload = {
                         "status": status,
                         "models": server_ref.models(),
@@ -522,6 +616,8 @@ class InferenceServer:
                         "uptime_s": round(
                             time.time() - server_ref._start_time, 3),
                     }
+                    if fleets:
+                        payload["fleets"] = fleets
                     self._reply(200, payload)
                 elif self.path == "/metrics":
                     body = server_ref.prometheus_text().encode()
@@ -598,7 +694,8 @@ class InferenceServer:
                 if (len(parts) == 4 and parts[0] == "v2"
                         and parts[1] == "models"
                         and parts[3] == "generate"):
-                    continuous = parts[2] in server_ref._continuous
+                    continuous = (parts[2] in server_ref._continuous
+                                  or parts[2] in server_ref._fleets)
                     if not continuous and parts[2] not in server_ref._generative:
                         self._reply(
                             404, {"error": f"no generative session "

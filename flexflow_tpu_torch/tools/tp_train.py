@@ -1100,12 +1100,13 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
     else:
         warm = job["steps"] - job["count_steps"]
         k = job["steps_per_execution"]
-        # fit's per-step records (its history has one summary per epoch)
+        # fit's StepStats records, one a step or K-step dispatch (its
+        # history has one summary per epoch)
         steps = []
         if warm:
             model.fit(x, y, batch_size=job["batch"], epochs=warm,
                       steps_per_execution=k)
-            steps += model.step_records
+            steps += model.step_stats.records()
         n_warm = len(steps)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -1116,7 +1117,7 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         if counted:
             model.fit(x, y, batch_size=job["batch"], epochs=counted,
                       steps_per_execution=k)
-            steps += model.step_records
+            steps += model.step_stats.records()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             launches = launch_counts()
@@ -1127,10 +1128,8 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
                                       collectives.STAGED.items()}
             out["peak_mem_gib"] = (torch.cuda.max_memory_allocated(dev)
                                    / 2 ** 30 if dev.type == "cuda" else None)
-        out["losses"] = [v for r in steps for v in r.get("losses",
-                                                         [r["loss"]])]
-        out["record_losses"] = [r["loss"] for r in steps]
-        out["accuracy"] = [r["accuracy"] for r in steps]
+        # a record's loss: a step's, or a K-step dispatch's mean
+        out["losses"] = out["record_losses"] = [r["loss"] for r in steps]
         if k > 1:
             out["multi_step"] = model._multi_step(k).stats()
         if dev.type == "cuda":
@@ -1216,7 +1215,7 @@ def _reshard(model, job: Dict[str, Any], device: str) -> Dict[str, Any]:
     the same way (a gather of the `model` shards)."""
     there, rec = _move(model, job["reshard_to"], job, device)
     there.fit(job["x"], job["y"], batch_size=job["batch"], epochs=2)
-    rec["losses_after"] = [r["loss"] for r in there.step_records]
+    rec["losses_after"] = [r["loss"] for r in there.step_stats.records()]
     _, back = _move(there, model.parallel_axes, job, device)
     rec["back"] = back
     return {"reshard": rec}

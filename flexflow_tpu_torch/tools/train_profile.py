@@ -118,7 +118,7 @@ def profile_fit(model, x, y, batch: int, steps: int, k: int = 1,
         "wall_ms_per_step": bare_ms, "wall_ms_per_step_profiled": wall_ms,
         # the unprofiled run's records: a step, or a dispatch over its K
         "ms_per_step_median": float(np.median(
-            [r["step_ms"] for r in model.step_records])),
+            [r["step_ms"] for r in model.step_stats.records()])),
         "device_busy_ms_per_step": busy_ms,
         # the profiler slows the host, not the device, so the same busy
         # time over the unprofiled wall is the idle share a user's step sees

@@ -336,9 +336,10 @@ def train(model, xs, y, steps: int, k: int = 1) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    losses = [v for r in model.step_records
-              for v in r.get("losses", [r["loss"]])]
-    return {"steps": len(losses), "steps_per_execution": k,
+    # a record a step, or a K-step dispatch's mean loss
+    losses = [r["loss"] for r in model.step_stats.records()]
+    return {"steps": model.step_stats.total_steps,
+            "steps_per_execution": k,
             "losses": losses, "wall_s": wall,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": {n: c for n, c in launches.items()

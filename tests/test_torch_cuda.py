@@ -7,6 +7,8 @@ installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -628,7 +630,9 @@ def test_fit_step_on_card_matches_cpu_port(dev):
         assert launch_counts()[k] > 0, (k, launch_counts())
     h_cpu = cpu.fit(x, y, batch_size=4, epochs=1)
     assert h_gpu[0]["loss"] == pytest.approx(h_cpu[0]["loss"], rel=1e-4)
-    assert gpu.step_records[0]["loss"] == h_gpu[0]["loss"]  # one step
+    # one step: its StepStats record holds the epoch's loss
+    assert [r["loss"] for r in gpu.step_stats.records()] == \
+        [h_gpu[0]["loss"]]
     for op, ws in cpu.params.items():
         for w, t in ws.items():
             torch.testing.assert_close(gpu.params[op][w].cpu(), t,
@@ -1393,12 +1397,13 @@ def test_fit_steps_per_execution_graph_matches_eager(dev):
     # 13 steps an epoch: 3 replayed dispatches and 1 trailing step
     assert eager_launches == 26
     assert launch_counts()["optimizer_adam"] == 2
-    assert [r["steps"] for r in graphed.step_records] == [4, 4, 4, 1] * 2
+    assert [r["steps"] for r in graphed.step_stats.records()] == \
+        [4, 4, 4, 1] * 2
     assert torch.equal(eager.opt_state["step"], graphed.opt_state["step"])
     for op, ws in eager.params.items():
         for w, t in ws.items():
             assert torch.equal(t, graphed.params[op][w]), (op, w)
-    losses_e = [r["loss"] for r in eager.step_records]
+    losses_e = [r["loss"] for r in eager.step_stats.records()]
     for a, b in zip(he, hg):
         assert a["accuracy"] == b["accuracy"]
         assert b["loss"] == pytest.approx(a["loss"], rel=1e-6)
@@ -1651,6 +1656,99 @@ def test_batcher_recaptures_after_load_params(dev):
     assert second == want and first != want
 
 
+def test_two_replicas_of_one_model_capture_at_once(dev):
+    """Two fleet replicas sharing one model warm up and capture their
+    graphs at the same time on one card (one scheduler thread each: the
+    process-wide gc guard, the bf16 casts made once and outside any
+    capture) and serve the greedy tokens one replica serves alone."""
+    import threading
+
+    from flexflow_tpu_torch.serving.fleet import Replica
+
+    lm = _serve_lm(71)
+    rng = np.random.RandomState(72)
+    prompts = [rng.randint(1, 50, size=(n,)).astype(np.int32)
+               for n in (5, 11, 7, 9, 13, 6)]
+    solo = Replica("solo", lm, max_len=48, num_slots=2, page_size=4)
+    try:
+        want = [solo.submit(p, 8).result(timeout=120).tolist()
+                for p in prompts]
+    finally:
+        solo.stop()
+    # a fresh model of the same weights: no cast is cached yet, so the
+    # two replicas' first walks race to make them
+    lm2 = _serve_lm(71)
+    reps = [Replica(f"r{i}", lm2, max_len=48, num_slots=2, page_size=4)
+            for i in range(2)]
+    try:
+        go = threading.Barrier(2)
+        got = [None, None]
+
+        def serve(i):
+            go.wait(timeout=60)
+            hs = [reps[i].submit(p, 8) for p in prompts]
+            got[i] = [h.result(timeout=120).tolist() for h in hs]
+
+        ts = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+        assert got == [want, want]
+        for r in reps:
+            g = r.batcher.stats()["graphs"]
+            assert g["captures"] >= 2 and g["eager_walks"] == 0, g
+    finally:
+        for r in reps:
+            r.stop()
+
+
+def test_import_into_a_captured_decode_graph_continues_unified(dev):
+    """A prefill replica parks a request, its rows are exported and
+    imported into a decode replica whose decode graph is already
+    captured: the imported request's tokens, greedy and sampled with
+    one seed, are a unified batcher's (the import writes the captured
+    caches in place)."""
+    from flexflow_tpu_torch.serving.sched import (ContinuousBatcher,
+                                                  RequestCancelled,
+                                                  RequestState)
+
+    lm = _serve_lm(81)
+    rng = np.random.RandomState(82)
+    prompts = [rng.randint(1, 50, size=(n,)).astype(np.int32)
+               for n in (9, 17)]
+    for temperature in (0.0, 0.8):
+        kw = dict(max_len=48, num_slots=2, page_size=4,
+                  temperature=temperature, top_k=5)
+        with ContinuousBatcher(lm, **kw) as uni:
+            want = [uni.submit(p, 8, seed=5 + i).result(timeout=120)
+                    .tolist() for i, p in enumerate(prompts)]
+        with ContinuousBatcher(lm, role="prefill", **kw) as pre, \
+                ContinuousBatcher(lm, role="decode", **kw) as dec:
+            # the decode replica's graphs captured by its own traffic
+            dec.submit(prompts[0], 4).result(timeout=120)
+            captured = dec.graphs["captures"]
+            assert captured >= 1
+            for i, p in enumerate(prompts):
+                req = pre.submit(p, 8, seed=5 + i)
+                deadline = time.monotonic() + 120
+                while req.state is not RequestState.PARKED:
+                    assert time.monotonic() < deadline and not req.done()
+                    time.sleep(0.002)
+                exp = pre.request_export(req).wait(60)
+                assert exp["bytes"] == sum(
+                    r.nbytes for r in exp["rows"].values())
+                inner = dec.request_import(
+                    exp["desc"], exp["rows"], req.prompt, exp["last_tok"],
+                    8 - len(req.tokens), seed=req.seed).wait(60)
+                assert pre.release_parked(req)
+                with pytest.raises(RequestCancelled):
+                    req.result(timeout=60)
+                got = req.tokens + inner.result(timeout=120).tolist()
+                assert got == want[i], (temperature, i)
+            assert dec.graphs["captures"] == captured
+
+
 def test_batcher_captures_while_another_thread_uses_the_card(dev):
     """Capture runs in the scheduler thread only: a thread that keeps
     launching matmuls on its own stream meanwhile neither breaks a
@@ -1878,6 +1976,30 @@ def _card_opset_model(device, kind, lr=0.05, mixed=True, seed=0):
     return m
 
 
+def _dispatch_losses(m, k):
+    """The per-step losses of `m`'s last K-step dispatch: the captured
+    graph's static output (runtime/executor.py MultiStep.out), which
+    fit's StepStats record reduces to their mean, as JAX's does."""
+    ms = m._multi_step(k)
+    return [float(v) for v in ms.out[ms.keys.index("loss")].cpu()]
+
+
+def _step_losses(m, x, y, k, batch):
+    """Every step's loss of one epoch over (x, y): K = 1 from fit's
+    StepStats records, one a step; K > 1 by one fit call a dispatch (the
+    same steps in the same order), each dispatch's losses read from its
+    graph's static output."""
+    if k == 1:
+        m.fit(x, y, epochs=1)
+        return [r["loss"] for r in m.step_stats.records()]
+    out = []
+    for lo in range(0, len(x), k * batch):
+        m.fit(x[lo:lo + k * batch], y[lo:lo + k * batch], epochs=1,
+              steps_per_execution=k)
+        out += _dispatch_losses(m, k)
+    return out
+
+
 @pytest.mark.parametrize("kind", ["conv", "attention"])
 def test_dropout_graph_steps_equal_eager_steps_on_card(dev, kind):
     """12 steps of a dropout model (batch norm and dropout; attention
@@ -1892,10 +2014,7 @@ def test_dropout_graph_steps_equal_eager_steps_on_card(dev, kind):
     runs = []
     for k in (1, 4):
         m = _card_opset_model("cuda", kind)
-        m.fit(x, y, epochs=1, steps_per_execution=k)
-        runs.append(([v for r in m.step_records
-                      for v in r.get("losses", [r["loss"]])],
-                     m.params, m.state))
+        runs.append((_step_losses(m, x, y, k, 4), m.params, m.state))
     (le, pe, se), (lg, pg, sg) = runs
     assert le == lg and len(le) == 12 and np.all(np.isfinite(le))
     for op, ws in pe.items():
@@ -1905,10 +2024,9 @@ def test_dropout_graph_steps_equal_eager_steps_on_card(dev, kind):
         for v, t in vs.items():
             assert torch.equal(t, sg[op][v]), (op, v)
     m = _card_opset_model("cuda", kind, lr=0.0)
-    same = np.concatenate([x[:4]] * 12)
-    m.fit(same, np.concatenate([y[:4]] * 12), epochs=1,
-          steps_per_execution=4)
-    d = [r["losses"] for r in m.step_records]
+    same = _step_losses(m, np.concatenate([x[:4]] * 12),
+                        np.concatenate([y[:4]] * 12), 4, 4)
+    d = [same[i:i + 4] for i in (0, 4, 8)]
     assert d[1] != d[2] and len(set(d[1] + d[2])) == 8
 
 
@@ -2005,10 +2123,7 @@ def test_moe_graph_steps_equal_eager_steps_on_card(dev):
     runs = []
     for k in (1, 4):
         m = _card_moe("cuda")
-        m.fit(x, y, epochs=1, steps_per_execution=k)
-        runs.append(([v for r in m.step_records
-                      for v in r.get("losses", [r["loss"]])],
-                     m.params, m.state))
+        runs.append((_step_losses(m, x, y, k, 4), m.params, m.state))
     (le, pe, se), (lg, pg, sg) = runs
     assert le == lg and len(le) == 12 and np.all(np.isfinite(le))
     for op, ws in pe.items():
@@ -2119,11 +2234,11 @@ def test_restore_into_a_captured_k_step_graph_replays_the_same_bits(
     ckpt = DurableCheckpointer(str(tmp_path))
     ckpt.save(m, step=4)
     m.fit(x, y, epochs=1, steps_per_execution=4)
-    a = m.step_records[-1]["losses"]
+    a = _dispatch_losses(m, 4)
     counts = dict(m._multi_step(4).counts)
     ckpt.restore_latest(m)
     m.fit(x, y, epochs=1, steps_per_execution=4)
-    b = m.step_records[-1]["losses"]
+    b = _dispatch_losses(m, 4)
     after = m._multi_step(4).counts
     assert a == b
     assert after["captures"] == counts["captures"] == 1
@@ -2170,7 +2285,7 @@ def test_predict_on_card_matches_cpu(dev):
         a.update()
     b.fit(np.concatenate([x[:4], x[:4]]), np.concatenate([y, y]),
           batch_size=4, epochs=1)
-    assert losses == [r["loss"] for r in b.step_records]
+    assert losses == [r["loss"] for r in b.step_stats.records()]
     for op, ws in b.params.items():
         for w, t in ws.items():
             assert torch.equal(a.params[op][w], t), (op, w)

@@ -186,9 +186,12 @@ def test_steps_per_execution_matches_single_step_and_jax():
         assert b["samples"] == j["samples"] == 20
     assert int(chunked.opt_state["step"]) == int(plain.opt_state["step"]) \
         == jm._step_count == 10
-    # one record a dispatch (steps=4), then the trailing step (steps=1)
-    assert [(r["step"], r["steps"]) for r in chunked.step_records] == \
-        [(0, 4), (4, 1), (5, 4), (9, 1)]
+    # one record a dispatch (steps=4), then the trailing step (steps=1),
+    # as JAX's StepStats
+    assert [(r["steps"], r["samples"])
+            for r in chunked.step_stats.records()] == \
+        [(r["steps"], r["samples"]) for r in jm.step_stats.records()] == \
+        [(4, 16), (1, 4), (4, 16), (1, 4)]
     with pytest.raises(ValueError, match="mutually exclusive"):
         chunked.fit(x=x, y=y, epochs=1, accum_steps=2, steps_per_execution=2)
     with pytest.raises(ValueError, match="full dispatch"):
@@ -219,7 +222,10 @@ def test_gradient_accumulation_matches_large_batch_and_jax():
     assert sh[0]["samples"] == jh[0]["samples"] == 8
     # one optimizer step, one record of the two microbatches
     assert int(small.opt_state["step"]) == int(big.opt_state["step"]) == 1
-    assert len(small.step_records) == 1
+    assert [(r["steps"], r["samples"])
+            for r in small.step_stats.records()] == \
+        [(r["steps"], r["samples"])
+         for r in jsmall.step_stats.records()] == [(1, 8)]
     with pytest.raises(ValueError, match="full update"):
         small.fit(x=x, y=y, epochs=1, accum_steps=3)
 

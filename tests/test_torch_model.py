@@ -64,7 +64,15 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.tools.zoo_train',\n"
         "       'flexflow_tpu_torch.obs.tracing',\n"
         "       'flexflow_tpu_torch.runtime.checkpoint',\n"
-        "       'flexflow_tpu_torch.runtime.durability')\n"
+        "       'flexflow_tpu_torch.runtime.durability',\n"
+        "       'flexflow_tpu_torch.obs.flightrecorder',\n"
+        "       'flexflow_tpu_torch.serving.fleet.replica',\n"
+        "       'flexflow_tpu_torch.serving.fleet.health',\n"
+        "       'flexflow_tpu_torch.serving.fleet.router',\n"
+        "       'flexflow_tpu_torch.serving.fleet.chaos',\n"
+        "       'flexflow_tpu_torch.serving.fleet.autoscaler',\n"
+        "       'flexflow_tpu_torch.serving.fleet.disagg',\n"
+        "       'flexflow_tpu_torch.serving.fleet.bench')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

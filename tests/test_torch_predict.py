@@ -267,7 +267,7 @@ def test_manual_loop_equals_fit_to_the_bit():
         a.update()
     b.fit(np.concatenate([x, x]), np.concatenate([y, y]), batch_size=32,
           epochs=1)
-    assert manual == [r["loss"] for r in b.step_records]
+    assert manual == [r["loss"] for r in b.step_stats.records()]
     for op, ws in b.params.items():
         for w, t in ws.items():
             assert torch.equal(a.params[op][w], t), (op, w)

@@ -455,6 +455,119 @@ def test_server_continuous_generate_and_stream(lms):
         server.shutdown()
 
 
+def _fleet(pm, n=2):
+    from flexflow_tpu_torch.serving.fleet import Replica, Router
+
+    router = Router()
+    for i in range(n):
+        router.add_replica(f"r{i}", Replica(
+            f"r{i}", pm, max_len=12, num_slots=2, page_size=4))
+    return router
+
+
+def test_server_fleet_generate_plain_and_ndjson(lms):
+    """register_fleet (tests/test_fleet.py:456-479, 496-508 over HTTP):
+    /generate through the fleet, ragged rows and an NDJSON stream, gives
+    the JAX session's greedy tokens; stats() carries the fleet."""
+    jm, pm = lms
+    prompts = _prompts([4, 6, 3], seed=16)
+    session = JaxSession(jm, max_len=12)
+    refs = [list(session.generate(p[None, :], 5)[0]) for p in prompts]
+    server = InferenceServer()
+    server.register_fleet("flm", _fleet(pm))
+    httpd = server.serve_http(port=0)
+    try:
+        port = httpd.server_address[1]
+        path = "/v2/models/flm/generate"
+        with _post(port, path, {"prompt": [p.tolist() for p in prompts],
+                                "max_new_tokens": 5}) as r:
+            assert json.load(r)["tokens"] == refs
+        with _post(port, path, {"prompt": prompts[1].tolist(),
+                                "max_new_tokens": 5, "stream": True}) as r:
+            assert r.headers["Content-Type"] == "application/x-ndjson"
+            lines = [json.loads(ln) for ln in r.read().splitlines()]
+        assert [ln["token"] for ln in lines[:-1]] == refs[1]
+        assert lines[-1]["done"] is True and lines[-1]["tokens"] == refs[1]
+        assert server.generate("flm", prompts[2], 5) == [refs[2]]
+        fleet = server.stats()["_fleet"]["flm"]
+        assert set(fleet["replicas"]) == {"r0", "r1"}
+        # one serving mode a name
+        with pytest.raises(ValueError, match="serving mode"):
+            server.register_continuous(
+                "flm", ContinuousBatcher(pm, max_len=12, num_slots=1),
+                start=False)
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+
+
+def test_server_fleet_metrics_merge_replicas_under_a_label(lms):
+    """/metrics with a fleet: one document that both packages' checkers
+    accept, one TYPE header a family, the replicas' serving and pool
+    families under a `replica` label beside the router's own."""
+    from flexflow_tpu_torch.obs.registry import parse_exposition
+
+    server = InferenceServer()
+    server.register_fleet("flm", _fleet(lms[1]))
+    httpd = server.serve_http(port=0)
+    try:
+        port = httpd.server_address[1]
+        server.generate("flm", _prompts([5, 7], seed=17), 3)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics") as r:
+            text = r.read().decode()
+        fams = validate_exposition(text)
+        jax_validate(text)
+        for fam in ("ff_serving_ttft_ms", "ff_kvpool_pages_used"):
+            # (the process-wide registry may carry unlabelled series of
+            # other batchers beside the replicas')
+            reps = {lbls.get("replica") for _, lbls, _ in
+                    fams[fam]["samples"]}
+            assert {"r0", "r1"} <= reps <= {"r0", "r1", None}, (fam, reps)
+        assert text.count("# TYPE ff_serving_ttft_ms histogram") == 1
+        assert "ff_fleet_requests_total" in parse_exposition(text)
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+
+
+def test_server_fleet_healthz_degrades_on_a_dead_replica(lms):
+    """/healthz aggregates the fleet: "ok" with both replicas ready,
+    "degraded" once one is declared dead and failed over, "down" when
+    none is ready."""
+    from flexflow_tpu_torch.serving.fleet import ReplicaLost
+
+    server = InferenceServer()
+    router = _fleet(lms[1])
+    server.register_fleet("flm", router)
+    httpd = server.serve_http(port=0)
+
+    def health():
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz") as r:
+            return json.load(r)
+
+    try:
+        port = httpd.server_address[1]
+        server.generate("flm", _prompts([5], seed=18), 2)
+        body = health()
+        assert body["status"] == "ok" and body["fleets"]["flm"]["ready"] == 2
+        router.fail_over("r1", reason="scheduler_crashed",
+                         error=ReplicaLost("r1 declared dead"))
+        body = health()
+        assert body["status"] == "degraded"
+        assert body["fleets"]["flm"]["lost_replicas"] == {
+            "r1": "scheduler_crashed"}
+        # the survivor still serves
+        assert len(server.generate("flm", _prompts([4], seed=19), 2)[0]) \
+            == 2
+        router.drain("r0")
+        assert health()["status"] == "down"
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+
+
 def test_server_continuous_backpressure_429(lms):
     server = InferenceServer()
     cb = ContinuousBatcher(lms[1], max_len=12, num_slots=1, page_size=4,
@@ -493,8 +606,11 @@ def test_register_modes_exclusive_and_fleet_absent(lms):
         with pytest.raises(ValueError, match="one serving mode"):
             server.register_generative(
                 "c", GenerativeSession(lms[1], max_len=12))
-        with pytest.raises(NotImplementedError, match="A10"):
-            server.register_fleet("f", object())
+        # a fleet takes a name of its own too (the JAX server's check)
+        with pytest.raises(ValueError, match="serving mode"):
+            server.register_fleet("c", object())
+        with pytest.raises(ValueError, match="serving mode"):
+            server.register_fleet("lm", object())
         # the plan analysis' counters, as the JAX server carries them:
         # the family on /metrics (compile records every report), and the
         # per-code counts under "_analysis" once there are any

@@ -3,6 +3,8 @@ ContinuousBatcher are identical to the JAX ContinuousBatcher's (mixed
 prompt lengths, prompts longer than one chunk, slot reuse, eos); sampling
 depends only on a request's (seed, position); the pool and admission
 control behave as the JAX package's."""
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,8 @@ from flexflow_tpu_torch.serving.sched import (AdmissionController,
                                               BatcherStopped,
                                               ContinuousBatcher, PagedKVPool,
                                               PoolExhausted, PoolSaturated,
-                                              QueueFull, RequestTooLarge,
+                                              QueueFull, RequestState,
+                                              RequestTooLarge,
                                               kv_bytes_per_token)
 from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
 from tests.conftest import module_xla_cache
@@ -143,16 +146,29 @@ def test_unported_batcher_features_raise_clearly(lms):
     # num_slots is derived from the machine model now (A5.8; held against
     # JAX's in tests/test_torch_calibration.py)
     assert ContinuousBatcher(pm, max_len=24).num_slots >= 1
+    # the disaggregated roles and handoff calls are ported (A5.6): their
+    # refusals are JAX's
+    with pytest.raises(ValueError, match="role='bogus'"):
+        ContinuousBatcher(pm, max_len=24, num_slots=1, role="bogus")
     cb = ContinuousBatcher(pm, max_len=24, num_slots=1)
-    for call in (cb.request_export, cb.request_import, cb.resume_parked,
-                 cb.release_parked):
-        with pytest.raises(NotImplementedError, match="A5"):
-            call()
+    with pytest.raises(BatcherStopped):
+        cb.request_export(object())
+    with pytest.raises(BatcherStopped):
+        cb.request_import({}, {}, prompts[0], 1, 2)
     with pytest.raises(BatcherStopped):
         cb.submit(prompts[0], 2)
     with cb:
-        with pytest.raises(NotImplementedError, match="A5"):
-            cb.submit(prompts[0], 2, prefill_only=True)
+        # a prefill-only request parks after its first token; resuming
+        # it decodes the rest here, as a unified run would
+        req = cb.submit(prompts[0], 3, prefill_only=True)
+        deadline = time.monotonic() + 60
+        while req.state is not RequestState.PARKED:
+            assert time.monotonic() < deadline and not req.done()
+            time.sleep(0.002)
+        assert cb.parked_requests() == [req] and cb.stats()["parked"] == 1
+        assert cb.resume_parked(req) and not cb.resume_parked(req)
+        assert not cb.release_parked(req)
+        assert len(req.result(timeout=60)) == 3
         with pytest.raises(ValueError, match=r"\[0, 50\)"):
             cb.submit(np.array([3, 50], np.int32), 2)
         with pytest.raises(RequestTooLarge):

@@ -130,15 +130,25 @@ def test_fit_step_stats_like_jax(fit_kw, mixed):
     got = {}
     for pkg in (ff, pt):
         m = _net(pkg, mixed=mixed)
-        m.fit(x, y, epochs=2, **fit_kw)
+        hist = m.fit(x, y, epochs=2, **fit_kw)
         st = m.step_stats
         got[pkg] = ([(r["steps"], r["samples"]) for r in st.records()],
                     st.total_steps, st.flops_per_step, st.peak_tflops,
                     [r["loss"] for r in st.records()])
         assert all(r["wall_ms"] >= 0 for r in st.records())
         if pkg is pt:
-            # the records' losses are fit's committed losses
-            assert got[pkg][4] == [r["loss"] for r in m.step_records]
+            # the records' losses are fit's committed losses: each
+            # epoch's history loss is their sample-weighted mean, summed
+            # in record order (PerfMetrics)
+            recs, done = st.records(), 0
+            for e, h in enumerate(hist):
+                acc, n = 0.0, 0
+                while n < 64:
+                    acc += recs[done]["loss"] * recs[done]["samples"]
+                    n += int(recs[done]["samples"])
+                    done += 1
+                assert n == 64 and h["loss"] == acc / 64, e
+            assert done == len(recs)
     # (the losses differ: the two models draw their own weights)
     assert got[pt][:4] == got[ff][:4]
     assert got[pt][3] == (197.0 if mixed else 49.0)

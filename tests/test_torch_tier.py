@@ -118,16 +118,28 @@ def test_tier_graph_reference_vs_forced_kernels():
     x, y = _tier_data()
     _, ref = _tier_models(mixed=True)
     _, fused = _tier_models(mixed=True)
-    h_ref = ref.fit(x, y, batch_size=4, epochs=2)
+
+    def steps(m):
+        # 2 epochs of the 2 batches, one fit call a batch: each call's
+        # history is one step's loss and accuracy, and its StepStats
+        # record that step's loss
+        out = []
+        for _ in range(2):
+            for lo in (0, 4):
+                h = m.fit(x[lo:lo + 4], y[lo:lo + 4], batch_size=4,
+                          epochs=1)
+                assert [r["loss"] for r in m.step_stats.records()] == \
+                    [h[0]["loss"]]
+                out += h
+        return out
+
+    h_ref = steps(ref)
     with forced(KERNELS, TIER):
-        h_fused = fused.fit(x, y, batch_size=4, epochs=2)
-    # epoch by epoch (fit's history), then step by step (its step_records)
-    for hr, hf in ((h_ref, h_fused), (ref.step_records, fused.step_records)):
-        assert len(hr) == len(hf) > 0
-        for r, f in zip(hr, hf):
-            assert f["loss"] == pytest.approx(r["loss"], **LOSS_TOL)
-            assert f["accuracy"] == r["accuracy"]
-    assert len(ref.step_records) == 4
+        h_fused = steps(fused)
+    assert len(h_ref) == len(h_fused) == 4
+    for r, f in zip(h_ref, h_fused):
+        assert f["loss"] == pytest.approx(r["loss"], **LOSS_TOL)
+        assert f["accuracy"] == r["accuracy"]
 
 
 def _axes_graph(m, pkg):

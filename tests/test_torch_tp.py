@@ -207,7 +207,7 @@ def test_two_ranks_match_one_device(axes, tmp_path):
     job = dict(JOB, seed=3, x=x, y=y, return_params=True)
     one = build_encoder(dict(job, axes={}), "cpu")
     one.fit(x, y, batch_size=B, epochs=STEPS)
-    hist = one.step_records  # per step, as tp_train reports the ranks'
+    hist = one.step_stats.records()  # a step each, as the ranks report
     res = spawn_jobs(2, "cpu", [dict(job, axes=axes)], timeout_s=JOIN_S,
                      workdir=str(tmp_path))
     for r in res:

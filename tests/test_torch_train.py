@@ -112,10 +112,11 @@ def test_f32_steps_match_jax(opt):
     _check_grads(jgrads, pgrads, F32_GRAD_RTOL)
     jh = jm.fit(x, y, batch_size=B, epochs=3)
     ph = pm.fit(x, y, batch_size=B, epochs=3)
-    # one epoch of one step each: the history per epoch, the per-step
-    # records beside it
+    # one epoch of one step each: the history per epoch, the step
+    # records (StepStats) beside it, one step each, as JAX's
     assert [r["epoch"] for r in ph] == [0, 1, 2]
-    assert [r["step"] for r in pm.step_records] == [0, 1, 2]
+    assert [r["steps"] for r in pm.step_stats.records()] == \
+        [r["steps"] for r in jm.step_stats.records()] == [1, 1, 1]
     for j, p in zip(jh, ph):
         assert p["loss"] == pytest.approx(j["loss"], **F32_LOSS)
         # both count round(accuracy * batch) correct samples
@@ -145,7 +146,8 @@ def _mlp(pkg, config):
 def test_fit_history_matches_jax_per_epoch():
     """fit returns the JAX package's history over several steps per
     epoch: one PerfMetrics summary per epoch with its epoch and
-    throughput, key for key; the steps' records go to step_records."""
+    throughput, key for key; the steps' records go to step_stats, as
+    JAX's."""
     config = ff.FFConfig()
     config.num_devices = 1
     config.batch_size = 4
@@ -168,13 +170,16 @@ def test_fit_history_matches_jax_per_epoch():
         assert p["throughput"] > 0
         for k in ("loss", "cce", "sparse_cce", "mse", "rmse", "mae"):
             assert p[k] == pytest.approx(j[k], **F32_LOSS), k
-    assert [(r["epoch"], r["step"]) for r in pm.step_records] == \
-        [(e, 4 * e + s) for e in range(2) for s in range(4)]
+    recs, jrecs = pm.step_stats.records(), jm.step_stats.records()
+    assert [(r["steps"], r["samples"]) for r in recs] == \
+        [(r["steps"], r["samples"]) for r in jrecs] == [(1, 4)] * 8
+    for r, j in zip(recs, jrecs):
+        assert r["loss"] == pytest.approx(j["loss"], **F32_LOSS)
     for e in range(2):  # equal batches: the epoch's loss is their mean
-        steps = [r["loss"] for r in pm.step_records if r["epoch"] == e]
+        steps = [r["loss"] for r in recs[4 * e:4 * e + 4]]
         assert ph[e]["loss"] == pytest.approx(np.mean(steps), rel=1e-6)
     pm.fit(x, y, batch_size=4, epochs=1)
-    assert len(pm.step_records) == 4  # emptied by every call
+    assert len(pm.step_stats) == 4  # made anew by every call
 
 
 def test_bf16_mixed_precision_adam_matches_jax():
