@@ -522,6 +522,50 @@ Phases, in order; any failure propagates and exits non-zero:
               /metrics validates with the `replica` label, /healthz ok
               and then degraded with the lost replica named.
 
+59. onnx    — two graphs written with the port's wire.make_model,
+              initializers N(0, 0.02) from a seed: the zoo's mnist_mlp
+              (784 -> 512 -> 512 -> 10, Gemm + Relu, Softmax, batch 64)
+              and a 2-layer attention stack at the flagship widths
+              (hidden 1024, 16 heads of 64, FFN 4096 with Gelu, seq 512,
+              batch 8; MatMul, Add, Reshape, Transpose, Div, Softmax,
+              Gelu, residual Adds). Each imported with ONNXModel into
+              the port, compiled, every initializer transferred (equal to
+              the bit) and predicted in f32 (within 1e-4 of numpy's
+              evaluation of the same graph, Gelu the importer's tanh
+              form) and bf16 (max |err| within 2e-2 of max |ref|); prints
+              predict ms of each.
+60. fx      — a plain nn.Module encoder at the flagship widths
+              (Embedding(30522, 1024), a learned position table read
+              through get_attr, 12 blocks of MultiheadAttention(1024, 16)
+              + residual + LayerNorm and Linear(1024, 4096), F.gelu,
+              Linear(4096, 1024) + residual + LayerNorm, a Linear(1024, 2)
+              head with softmax; seq 512, batch 8) traced with
+              PyTorchModel: f32 predict within atol 1e-3, rtol 1e-3 of the
+              module's own forward (f32 on the card, then freed), bf16
+              within 5e-2; 3 SGD steps of fit with finite losses; the .ff
+              file written by torch_to_flexflow reloads into the same
+              ops. Launches of a bf16 predict walk and a fit step exactly
+              (flash on the tensor cores).
+61. cspec   — a flexflow_tpu_c_model spec of the same mnist_mlp through
+              model_from_spec (f32): predict equal to the port's
+              build_mnist_mlp given the same weights (load_params), and 3
+              SGD steps' losses within 1e-5; the trained weights
+              checkpointed for 62.
+62. repository — one directory on the HTTP server: 59's two ONNX entries
+              (the attention stack with "mixed_precision": false), 61's
+              spec with its checkpoint and a broken entry (load goes on,
+              ff_model_load_failures_total counts it); beside them the
+              serve LM (bf16; 8 slots, max_len 1024, page 16) as a
+              2-replica fleet entry with a speculative 2-layer draft and
+              a disaggregated entry (one-shot prefill, priced on
+              examples/machines/multipod_2x8.json). /infer equal to each
+              entry's predict; the fleet's and the disagg entry's greedy
+              tokens equal to one ContinuousBatcher's of the same
+              geometry; every handoff priced; after unload /healthz and
+              /metrics valid. One speculative iteration of the fleet
+              entry's own replica launches what _spec_per_walk counts.
+              Prints each entry's /infer ms and the fleet's tokens/s.
+
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits 2 without printing a result when no
@@ -6459,6 +6503,37 @@ def _fleet_walk_launches(torch, lm, oneshot=False):
     return out
 
 
+def _spec_per_walk(lm, draft, k):
+    """What one speculative iteration launches: k draft steps on the C=1
+    decode entry, then the target's verify over k + 1 rows on the C>=1
+    entry, each model's LayerNorms and LM-head softmax a walk."""
+    def n(m, kind):
+        return sum(op.op_type.value == kind for op in m.graph.ops.values())
+
+    return {"decode_attention": k * n(draft, "multihead_attention"),
+            "multiquery_decode_attention": n(lm, "multihead_attention"),
+            "layernorm_fwd": n(lm, "layernorm") + k * n(draft, "layernorm"),
+            "softmax_fwd": n(lm, "softmax") + k * n(draft, "softmax")}
+
+
+def _spec_iteration_launches(torch, cb, seed):
+    """The launches of one eager speculative iteration of batcher cb
+    (tokens drawn from seed, every slot at a position with room for its
+    k proposals). It writes K/V rows of every slot: call it on an idle
+    batcher whose caches are not read again."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    S, vocab = cb.num_slots, cb.model.final_tensor.dims[-1]
+    host = np.concatenate([
+        rng.randint(1, vocab, size=S),
+        rng.randint(0, cb.max_len - cb.spec_tokens, size=S)]
+    ).astype(np.int32)
+    with torch.no_grad():
+        return _walk_launches(torch, lambda: (cb._spec_in.put(host),
+                                              cb._spec_walk()))
+
+
 def phase_fleet(torch, lm, lm32, vocab):
     """55: two replicas of the serve LM behind the Router. The static
     shared-prefix mix under "affine" and "round_robin" (bf16), then the
@@ -6817,6 +6892,738 @@ def phase_fleet_server(torch, lm):
     if failures:
         raise AssertionError(f"fleet-server: {failures}")
     return line, launches
+
+
+# 59-62: the graph importers (ONNX, torch.fx, the C model spec) and the
+# model repository, at the repo's own widths. Weights random from seeds
+IMPORT_SEED = 59
+INIT_STD = 0.02
+# the zoo's mnist_mlp (tests/test_mnist_mlp.py, models/cnn.py)
+MNIST_BATCH, MNIST_WIDTHS = 64, (784, 512, 512, 10)
+# 59(b): two attention layers at the flagship's widths
+ONNX_ATTN = dict(batch=8, seq=512, hidden=1024, heads=16, ffn=4096,
+                 layers=2)
+# f32 against numpy's evaluation of the same graph (JAX's test tolerance,
+# atol and rtol); bf16 activations: max |err| <= IMPORT_BF16_REL * max|ref|
+IMPORT_F32_TOL = 1e-4
+IMPORT_BF16_REL = 2e-2
+# 60: the encoder traced from torch, the module's own forward the
+# reference (atol, rtol in f32; absolute on its probabilities in bf16)
+FX_ENCODER = dict(vocab=30522, hidden=1024, heads=16, layers=12,
+                  ffn=4096, seq=512, batch=8)
+FX_F32_TOL = 1e-3
+FX_BF16_TOL = 5e-2
+FX_STEPS, FX_LR = 3, 1e-3
+# launches of one bf16 predict walk and one fit step of the encoder
+FX_PER_WALK = {"flash_fwd": 12, "flash_fwd/tc": 12, "layernorm_fwd": 24,
+               "softmax_fwd": 1}
+FX_PER_STEP = {"flash_fwd": 12, "flash_fwd/tc": 12, "flash_bwd": 12,
+               "flash_bwd/tc": 12, "layernorm_fwd": 24, "layernorm_bwd": 24,
+               "softmax_fwd": 1, "softmax_bwd": 1, "optimizer_sgd": 1}
+CSPEC_STEPS, CSPEC_LR, CSPEC_LOSS_REL = 3, 0.05, 1e-5
+# 62: the serve LM's fleet entry (its speculative draft: 2 layers at the
+# same widths) and disaggregated entry (one-shot prefill: the causal
+# flash forward), and the prompts both serve over /generate
+REPO_DRAFT_LAYERS, REPO_SPEC_TOKENS = 2, 3
+REPO_PROMPTS, REPO_NEW = (40, 130, 257, 500), 16
+# the frontends' walks the kernel table's column reads
+FRONTEND_WALKS = ("fx-predict-bf16", "fx-fit-step", "onnx-b-predict",
+                  "cspec-predict", "repository-fleet-spec-iter")
+
+
+def _launches_wrong(phase, launches, want=None, present=()):
+    """What is wrong with a frontend phase's launches: a kernel of `want`
+    launched another count than want[k], or one of `present` never."""
+    want = want or {}
+    wrong = {k: (launches.get(k, 0), n) for k, n in want.items()
+             if launches.get(k, 0) != n}
+    wrong.update({k: (0, ">= 1") for k in present if not launches.get(k)})
+    return [f"{phase}: launches (got, want) {wrong}"] if wrong else []
+
+
+def _launches_since(before):
+    """The launches since `before` (a launch_counts() reading), routes
+    included: a walk inside a phase whose own count runs from its
+    start."""
+    from flexflow_tpu_torch.kernels import launch_counts
+
+    return {k: n - before.get(k, 0) for k, n in launch_counts().items()
+            if n > before.get(k, 0)}
+
+
+def _gelu_tanh(np, x):
+    """The importer's Gelu: fm.gelu, JAX's tanh form."""
+    return 0.5 * x * (1.0 + np.tanh(0.7978845608028654
+                                    * (x + 0.044715 * x ** 3)))
+
+
+def _softmax_np(np, x):
+    e = np.exp(x - x.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def _mnist_onnx(np, wire):
+    """59(a): mnist_mlp as ONNX (Gemm, Relu, Softmax), its initializers
+    and the numpy evaluation of the graph."""
+    rng = np.random.RandomState(IMPORT_SEED)
+    w = MNIST_WIDTHS
+    inits, nodes, prev = {}, [], "x"
+    for i in range(3):
+        inits[f"w{i}"] = (rng.randn(w[i], w[i + 1]) * INIT_STD).astype(
+            np.float32)
+        inits[f"b{i}"] = (rng.randn(w[i + 1]) * INIT_STD).astype(np.float32)
+        nodes.append(wire.make_node("Gemm", [prev, f"w{i}", f"b{i}"],
+                                    [f"g{i}"], name=f"mlp{i + 1}"))
+        prev = f"g{i}"
+        if i < 2:
+            nodes.append(wire.make_node("Relu", [prev], [f"r{i}"],
+                                        name=f"relu{i + 1}"))
+            prev = f"r{i}"
+    nodes.append(wire.make_node("Softmax", [prev], ["y"], name="softmax",
+                                axis=-1))
+    proto = wire.make_model(nodes, {"x": (MNIST_BATCH, w[0])},
+                            {"y": (MNIST_BATCH, w[-1])}, inits,
+                            name="mnist_mlp")
+
+    def ref(x):
+        h = x
+        for i in range(3):
+            h = h @ inits[f"w{i}"] + inits[f"b{i}"]
+            if i < 2:
+                h = np.maximum(h, 0)
+        return _softmax_np(np, h)
+
+    return proto, inits, ref
+
+
+def _attn_onnx(np, wire):
+    """59(b): ONNX_ATTN's layers, each scaled dot-product attention over
+    16 heads and a Gelu FFN with residual Adds; its initializers and the
+    numpy evaluation of the graph."""
+    c = ONNX_ATTN
+    b, l, e, h, f = c["batch"], c["seq"], c["hidden"], c["heads"], c["ffn"]
+    hd = e // h
+    rng = np.random.RandomState(IMPORT_SEED + 1)
+    inits = {"heads_shape": np.array([b, l, h, hd], np.int64),
+             "merge_shape": np.array([0, 0, -1], np.int64),
+             "scale": np.array(np.sqrt(hd), np.float32)}
+    nodes, x = [], "x"
+    for i in range(c["layers"]):
+        for name, shape in (("wq", (e, e)), ("wk", (e, e)), ("wv", (e, e)),
+                            ("wo", (e, e)), ("w1", (e, f)), ("w2", (f, e))):
+            inits[f"l{i}_{name}"] = (rng.randn(*shape) * INIT_STD).astype(
+                np.float32)
+
+        def n(op, ins, out, name, **kw):
+            nodes.append(wire.make_node(op, ins, [out], name=f"l{i}_{name}",
+                                        **kw))
+            return out
+
+        heads = {}
+        for p, perm in (("q", [0, 2, 1, 3]), ("k", [0, 2, 3, 1]),
+                        ("v", [0, 2, 1, 3])):
+            t = n("MatMul", [x, f"l{i}_w{p}"], f"l{i}_{p}", f"proj_{p}")
+            t = n("Reshape", [t, "heads_shape"], f"l{i}_{p}4", f"split_{p}")
+            heads[p] = n("Transpose", [t], f"l{i}_{p}h", f"{p}T", perm=perm)
+        t = n("MatMul", [heads["q"], heads["k"]], f"l{i}_s", "scores")
+        t = n("Div", [t, "scale"], f"l{i}_ss", "scaled")
+        t = n("Softmax", [t], f"l{i}_p", "probs", axis=-1)
+        t = n("MatMul", [t, heads["v"]], f"l{i}_ctx", "context")
+        t = n("Transpose", [t], f"l{i}_ctxT", "ctxT", perm=[0, 2, 1, 3])
+        t = n("Reshape", [t, "merge_shape"], f"l{i}_m", "merge")
+        t = n("MatMul", [t, f"l{i}_wo"], f"l{i}_o", "out_proj")
+        r = n("Add", [x, t], f"l{i}_r", "residual1")
+        t = n("MatMul", [r, f"l{i}_w1"], f"l{i}_f1", "ffn1")
+        t = n("Gelu", [t], f"l{i}_g", "gelu")
+        t = n("MatMul", [t, f"l{i}_w2"], f"l{i}_f2", "ffn2")
+        x = n("Add", [r, t], "y" if i == c["layers"] - 1 else f"l{i}_y",
+              "residual2")
+    proto = wire.make_model(nodes, {"x": (b, l, e)}, {"y": (b, l, e)}, inits,
+                            name="attention")
+
+    def ref(xv):
+        for i in range(c["layers"]):
+            w = {k: inits[f"l{i}_{k}"] for k in ("wq", "wk", "wv", "wo",
+                                                 "w1", "w2")}
+            q, k, v = ((xv @ w[f"w{p}"]).reshape(b, l, h, hd)
+                       .transpose(0, 2, 1, 3) for p in "qkv")
+            p = _softmax_np(np, q @ k.transpose(0, 1, 3, 2)
+                            / np.float32(np.sqrt(hd)))
+            ctx = (p @ v).transpose(0, 2, 1, 3).reshape(b, l, e)
+            r = xv + ctx @ w["wo"]
+            xv = r + _gelu_tanh(np, r @ w["w1"]) @ w["w2"]
+        return xv
+
+    return proto, inits, ref
+
+
+def _onnx_import(torch, path, dims, mixed, dtype=None):
+    """An FFModel on the card from the ONNX file, compiled for inference,
+    its initializers transferred: (model, ONNXModel, weights copied)."""
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.onnx import ONNXModel
+
+    model = ff.FFModel(ff.FFConfig(batch_size=dims[0], device="cuda",
+                                   allow_mixed_precision=mixed))
+    t = model.create_tensor(list(dims), dtype or ff.DataType.DT_FLOAT)
+    om = ONNXModel(path)
+    model.final_tensor = om.apply(model, [t])[0]
+    model.compile(optimizer=ff.SGDOptimizer(model, lr=0.0),
+                  loss_type=ff.LossType.LOSS_IDENTITY)
+    return model, om, om.transfer_weights(model)
+
+
+def _predict_ms(model, x, reps=5):
+    """Host wall of predict (which returns host arrays, so the device is
+    done) over reps calls after one: the median, in ms."""
+    import numpy as np
+
+    model.predict(x)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        model.predict(x)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _transferred_equal(np, model, om):
+    """Every stashed initializer equals the model's weight, to the bit."""
+    params = model.params
+    return all(np.array_equal(params[op][k].float().cpu().numpy(),
+                              np.asarray(v, np.float32))
+               for op, slot in om._pending_weights.items()
+               for k, v in slot.items())
+
+
+def phase_onnx(torch, tmp):
+    """59: the two ONNX graphs through ONNXModel, f32 and bf16. Returns
+    the phase's record, each graph's file path and inputs, and the
+    launches of a bf16 predict walk of (b)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts
+    from flexflow_tpu_torch.onnx import wire
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(IMPORT_SEED)
+    graphs = {"mnist_mlp": _mnist_onnx(np, wire),
+              "attention": _attn_onnx(np, wire)}
+    inputs = {"mnist_mlp": rng.randn(MNIST_BATCH, MNIST_WIDTHS[0]).astype(
+                  np.float32),
+              "attention": rng.randn(ONNX_ATTN["batch"], ONNX_ATTN["seq"],
+                                     ONNX_ATTN["hidden"]).astype(np.float32)}
+    line = {"phase": "onnx", "card": _card_line(), "graphs": {}}
+    paths, failures, walk = {}, [], {}
+    for name, (proto, inits, ref_fn) in graphs.items():
+        paths[name] = os.path.join(tmp, f"{name}.onnx")
+        wire.save(proto, paths[name])
+        x = inputs[name]
+        t_ref = time.perf_counter()
+        ref = ref_fn(x)
+        rec = {"bytes": len(proto), "nodes": len(wire.load(proto).graph.node),
+               "initializers": len(inits),
+               "numpy_reference_s": time.perf_counter() - t_ref}
+        for prec, mixed in (("f32", False), ("bf16", True)):
+            model, om, n = _onnx_import(torch, paths[name], x.shape, mixed)
+            expected = sum(len(v) for v in om._pending_weights.values())
+            same = _transferred_equal(np, model, om)
+            if prec == "bf16" and name == "attention":
+                before = launch_counts()
+                out = model.predict(x)
+                walk = _launches_since(before)
+            else:
+                out = model.predict(x)
+            err = float(np.abs(out - ref).max())
+            r = {"transferred": n, "stashed": expected,
+                 "transferred_equal": same, "max_abs_err": err,
+                 "max_abs_ref": float(np.abs(ref).max()),
+                 "finite": bool(np.isfinite(out).all()),
+                 "predict_ms": _predict_ms(model, x)}
+            if prec == "f32":
+                ok = np.allclose(out, ref, atol=IMPORT_F32_TOL,
+                                 rtol=IMPORT_F32_TOL)
+            else:
+                ok = err <= IMPORT_BF16_REL * r["max_abs_ref"]
+            r["samples_per_s"] = x.shape[0] * 1e3 / r["predict_ms"]
+            rec[prec] = r
+            if not (ok and r["finite"] and same and n == expected > 0
+                    and out.shape == ref.shape):
+                failures.append(f"{name} {prec}: {r}")
+            del model, om
+        line["graphs"][name] = rec
+    failures += _launches_wrong("(b) bf16 predict", walk,
+                                present=("softmax_fwd",))
+    line.update(onnx_b_predict_launches=walk,
+                wall_s=time.perf_counter() - t0,
+                tolerance=f"f32: numpy's evaluation of the graph within "
+                          f"atol {IMPORT_F32_TOL}, rtol {IMPORT_F32_TOL}; "
+                          f"bf16: max |err| <= {IMPORT_BF16_REL} max |ref|;"
+                          f" every initializer transferred, equal to the "
+                          f"bit")
+    _emit(line)
+    if failures:
+        raise AssertionError(f"onnx: {failures}")
+    return line, paths, inputs, walk
+
+
+def _fx_encoder(torch):
+    """60's module: a plain nn.Module encoder at FX_ENCODER's widths,
+    weights from torch's default initializers under a fixed seed."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    c = FX_ENCODER
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            e, n = c["hidden"], c["layers"]
+            self.emb = nn.Embedding(c["vocab"], e)
+            self.pos = nn.Parameter(torch.randn(c["seq"], e) * INIT_STD)
+            self.attn = nn.ModuleList(nn.MultiheadAttention(
+                e, c["heads"], batch_first=True) for _ in range(n))
+            self.ln1 = nn.ModuleList(nn.LayerNorm(e) for _ in range(n))
+            self.ff1 = nn.ModuleList(nn.Linear(e, c["ffn"])
+                                     for _ in range(n))
+            self.ff2 = nn.ModuleList(nn.Linear(c["ffn"], e)
+                                     for _ in range(n))
+            self.ln2 = nn.ModuleList(nn.LayerNorm(e) for _ in range(n))
+            self.head = nn.Linear(e, 2)
+
+        def forward(self, ids):
+            h = self.emb(ids) + self.pos
+            for attn, ln1, ff1, ff2, ln2 in zip(self.attn, self.ln1,
+                                                self.ff1, self.ff2,
+                                                self.ln2):
+                a, _ = attn(h, h, h)
+                h = ln1(h + a)
+                h = ln2(h + ff2(F.gelu(ff1(h))))
+            return torch.softmax(self.head(h), dim=-1)
+
+    torch.manual_seed(IMPORT_SEED + 1)
+    return Encoder().eval()
+
+
+def phase_fx(torch, tmp):
+    """60: the encoder through PyTorchModel (see the module docstring).
+    Returns the phase's record and the launches of a bf16 predict walk
+    and of a fit step."""
+    import gc
+
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.kernels import launch_counts
+    from flexflow_tpu_torch.torch import PyTorchModel, fx
+
+    t0 = time.perf_counter()
+    c = FX_ENCODER
+    rng = np.random.RandomState(IMPORT_SEED + 2)
+    ids = rng.randint(0, c["vocab"], size=(c["batch"], c["seq"])).astype(
+        np.int32)
+    y = rng.randint(0, 2, size=(c["batch"], c["seq"], 1)).astype(np.int32)
+    module = _fx_encoder(torch).cuda()
+    n_params = sum(p.numel() for p in module.parameters())
+    with torch.no_grad():
+        ref = module(torch.from_numpy(ids).long().cuda()).float().cpu() \
+            .numpy()
+    torch.cuda.synchronize()
+    models, failures, line = {}, [], {"phase": "fx", "card": _card_line(),
+                                      "params": n_params}
+    for prec, mixed in (("f32", False), ("bf16", True)):
+        t_b = time.perf_counter()
+        model = ff.FFModel(ff.FFConfig(batch_size=c["batch"], device="cuda",
+                                       allow_mixed_precision=mixed))
+        t = model.create_tensor([c["batch"], c["seq"]], ff.DataType.DT_INT32)
+        pt = PyTorchModel(module)
+        model.final_tensor = pt.apply(model, [t])[0]
+        model.compile(optimizer=ff.SGDOptimizer(model, lr=FX_LR),
+                      loss_type=ff.LossType.
+                      LOSS_SPARSE_CATEGORICAL_CROSSENTROPY, metrics=[])
+        n = pt.transfer_weights(model)
+        held = sum(len(ws) for ws in model.params.values())
+        build_s = time.perf_counter() - t_b
+        if prec == "bf16":
+            before = launch_counts()
+            out = model.predict(ids)
+            walk = _launches_since(before)
+        else:
+            out = model.predict(ids)
+        err = float(np.abs(out - ref).max())
+        r = {"transferred": n, "weights": held, "max_abs_err": err,
+             "finite": bool(np.isfinite(out).all()),
+             "build_compile_transfer_s": build_s,
+             "predict_ms": _predict_ms(model, ids)}
+        r["samples_per_s"] = c["batch"] * 1e3 / r["predict_ms"]
+        ok = (np.allclose(out, ref, atol=FX_F32_TOL, rtol=FX_F32_TOL)
+              if prec == "f32" else err <= FX_BF16_TOL)
+        if not (ok and r["finite"] and n == held > 0):
+            failures.append(f"{prec}: {r}")
+        line[prec] = r
+        models[prec] = (model, pt)
+    # the .ff file reloads into the same ops
+    path = os.path.join(tmp, "encoder.ff")
+    fx.torch_to_flexflow(module, path)
+    # the user's module is done with: free it before the fit
+    del module
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = ff.FFModel(ff.FFConfig(batch_size=c["batch"], device="cuda"))
+    PyTorchModel(path).apply(again, [again.create_tensor(
+        [c["batch"], c["seq"]], ff.DataType.DT_INT32)])
+
+    def ops(m):
+        # by name: compile orders the ops topologically
+        return sorted((op.name, op.op_type.value,
+                       [tuple(o.dims) for o in op.outputs]) for op in m.ops)
+
+    bf16 = models["bf16"][0]
+    same_ops = ops(again) == ops(bf16)
+    if not same_ops:
+        failures.append("the .ff file reloads into other ops")
+    del again, models["f32"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t_fit = time.perf_counter()
+    bf16.fit(ids, y, batch_size=c["batch"], epochs=FX_STEPS)
+    fit_s = time.perf_counter() - t_fit
+    launches = _launches_since(before)
+    records = bf16.step_stats.records()
+    losses = [r["loss"] for r in records]
+    step = {k: v / FX_STEPS for k, v in launches.items() if v}
+    failures += _launches_wrong("a bf16 predict walk", walk, FX_PER_WALK)
+    failures += _launches_wrong("a fit step", step, FX_PER_STEP,
+                                present=("reduce",))
+    if len(losses) != FX_STEPS or not all(np.isfinite(losses)):
+        failures.append(f"fit losses {losses}")
+    line.update(ff_file_bytes=os.path.getsize(path),
+                ff_file_same_ops=same_ops, fit_losses=losses,
+                fit_step_ms=[r["step_ms"] for r in records],
+                fit_s=fit_s, predict_launches=walk,
+                fit_launches_per_step=step,
+                wall_s=time.perf_counter() - t0,
+                tolerance=f"f32 within atol {FX_F32_TOL}, rtol {FX_F32_TOL}"
+                          f" of the module's forward (f32 on the card); "
+                          f"bf16 max |err| <= {FX_BF16_TOL}; every weight "
+                          f"transferred; losses finite")
+    _emit(line)
+    if failures:
+        raise AssertionError(f"fx: {failures}")
+    del models, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, {k: v for k, v in walk.items() if "/" not in k}, \
+        {k: v for k, v in step.items() if "/" not in k}
+
+
+def _mnist_spec():
+    """61's flexflow_tpu_c_model spec of mnist_mlp, op names as
+    models/cnn.py build_mnist_mlp gives them."""
+    w = MNIST_WIDTHS
+    ops = [{"type": "input", "name": "input_0",
+            "dims": [MNIST_BATCH, w[0]], "dtype": "float32", "inputs": [],
+            "outputs": [1]}]
+    for i in range(3):
+        ops.append({"type": "dense", "name": f"mlp{i + 1}", "inputs": [i + 1],
+                    "outputs": [i + 2],
+                    "params": {"out_dim": w[i + 1],
+                               "activation": "relu" if i < 2 else ""}})
+    ops.append({"type": "softmax", "name": "softmax_0", "inputs": [4],
+                "outputs": [5], "params": {}})
+    return {"format": "flexflow_tpu_c_model",
+            "config": {"batch_size": MNIST_BATCH}, "ops": ops}
+
+
+def phase_cspec(torch, tmp):
+    """61: the spec through model_from_spec against build_mnist_mlp (see
+    the module docstring). Returns the phase's record, the spec, the
+    trained model's checkpoint path and inputs, and a predict walk's
+    launches."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.kernels import launch_counts
+    from flexflow_tpu_torch.models import build_mnist_mlp
+    from flexflow_tpu_torch.native.c_model import model_from_spec
+    from flexflow_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    spec = _mnist_spec()
+    rng = np.random.RandomState(IMPORT_SEED + 3)
+    x = rng.randn(MNIST_BATCH, MNIST_WIDTHS[0]).astype(np.float32)
+    y = rng.randint(0, MNIST_WIDTHS[-1], size=(MNIST_BATCH, 1)).astype(
+        np.int32)
+
+    def config():
+        return ff.FFConfig(batch_size=MNIST_BATCH, device="cuda",
+                           allow_mixed_precision=False)
+
+    cm = model_from_spec(json.dumps(spec), config=config())
+    zm = ff.FFModel(config())
+    build_mnist_mlp(zm, zm.create_tensor([MNIST_BATCH, MNIST_WIDTHS[0]]))
+    for m in (cm, zm):
+        m.compile(optimizer=ff.SGDOptimizer(m, lr=CSPEC_LR),
+                  loss_type=ff.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  metrics=[])
+    zm.load_params(cm.params)
+    before = launch_counts()
+    p_spec = cm.predict(x)
+    walk = {k: n for k, n in _launches_since(before).items()
+            if "/" not in k}
+    p_zoo = zm.predict(x)
+    predict_err = float(np.abs(p_spec - p_zoo).max())
+    losses = {}
+    for name, m in (("spec", cm), ("zoo", zm)):
+        m.fit(x, y, batch_size=MNIST_BATCH, epochs=CSPEC_STEPS)
+        losses[name] = [r["loss"] for r in m.step_stats.records()]
+    ckpt = save_checkpoint(os.path.join(tmp, "mnist_trained"), cm)
+    trained = cm.predict(x)
+    failures = []
+    if predict_err > 1e-5 or not np.isfinite(p_spec).all():
+        failures.append(f"predict differs by {predict_err}")
+    if len(losses["spec"]) != CSPEC_STEPS or not all(
+            abs(a - b) <= CSPEC_LOSS_REL * abs(b)
+            for a, b in zip(losses["spec"], losses["zoo"])):
+        failures.append(f"losses {losses}")
+    failures += _launches_wrong("predict", walk, present=("softmax_fwd",))
+    line = {"phase": "cspec", "card": _card_line(),
+            "ops": [op["name"] for op in spec["ops"]],
+            "predict_max_abs_err": predict_err, "losses": losses,
+            "predict_ms": _predict_ms(cm, x), "predict_launches": walk,
+            "checkpoint_bytes": os.path.getsize(ckpt),
+            "wall_s": time.perf_counter() - t0,
+            "tolerance": f"predict within 1e-5 of build_mnist_mlp's; "
+                         f"{CSPEC_STEPS} SGD losses within "
+                         f"{CSPEC_LOSS_REL} relative (f32)"}
+    _emit(line)
+    if failures:
+        raise AssertionError(f"cspec: {failures}")
+    return line, spec, ckpt, x, trained, walk
+
+
+def _write_entry(root, name, config, files=()):
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    for fname, src in files:
+        with open(src, "rb") as f_in, open(os.path.join(d, fname),
+                                            "wb") as f_out:
+            f_out.write(f_in.read())
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+    return d
+
+
+def phase_repository(torch, lm, tmp, onnx_paths, onnx_inputs, spec, ckpt,
+                     cspec_x, cspec_trained):
+    """62: the model repository on the HTTP server (see the module
+    docstring). Returns the phase's record and its launches."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.obs.registry import validate_exposition
+    from flexflow_tpu_torch.resharding.plan import TRANSFER_TIER_CHUNK_BYTES
+    from flexflow_tpu_torch.serving import InferenceServer, ModelRepository
+    from flexflow_tpu_torch.serving.sched.bench import build_tiny_lm
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "repository")
+    os.makedirs(root)
+    _write_entry(root, "onnx_mlp", {
+        "format": "onnx", "file": "model.onnx",
+        "inputs": [{"dims": [MNIST_BATCH, MNIST_WIDTHS[0]],
+                    "dtype": "float32"}]},
+        [("model.onnx", onnx_paths["mnist_mlp"])])
+    c = ONNX_ATTN
+    # the graph's Reshapes carry its batch: one bucket, the built batch
+    _write_entry(root, "onnx_attention", {
+        "format": "onnx", "file": "model.onnx", "mixed_precision": False,
+        "batch_buckets": [c["batch"]],
+        "inputs": [{"dims": [c["batch"], c["seq"], c["hidden"]],
+                    "dtype": "float32"}]},
+        [("model.onnx", onnx_paths["attention"])])
+    spec_path = os.path.join(tmp, "mnist_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    _write_entry(root, "cspec", {"format": "ff_cspec",
+                                 "file": "model_spec.json",
+                                 "checkpoint": "weights.npz"},
+                 [("model_spec.json", spec_path), ("weights.npz", ckpt)])
+    _write_entry(root, "broken", {"format": "onnx", "file": "missing.onnx",
+                                  "inputs": [{"dims": [1, 4]}]})
+    disagg_dir = _write_entry(
+        root + "_lm", "disagg", {}, [("machine.json", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), DISAGG_SPEC))])
+    vocab = lm.final_tensor.dims[-1]
+    window = lm.input_ops[0].outputs[0].dims[1]
+    geometry = dict(max_len=FLEET_MAX_LEN, num_slots=FLEET_SLOTS,
+                    page_size=FLEET_PAGE)
+    draft = build_tiny_lm(FLEET_SLOTS, window, vocab=vocab,
+                          hidden=MESH_LM["hidden"], heads=MESH_LM["heads"],
+                          layers=REPO_DRAFT_LAYERS, mixed_precision=True,
+                          device="cuda",
+                          generator=torch.Generator().manual_seed(62))
+    rng = np.random.RandomState(62)
+    prompts = [rng.randint(1, vocab, size=int(n)).astype(np.int32)
+               for n in REPO_PROMPTS]
+    oneshot = dict(prefill_chunk_tokens=0, prefix_cache_pages=0)
+    want = {"fleet": _single_tokens(
+                lm, [{"prompt": p, "max_new": REPO_NEW} for p in prompts],
+                draft_model=draft, spec_tokens=REPO_SPEC_TOKENS),
+            "disagg": _single_tokens(
+                lm, [{"prompt": p, "max_new": REPO_NEW} for p in prompts],
+                **oneshot)}
+    plain = _single_tokens(lm, [{"prompt": p, "max_new": REPO_NEW}
+                                for p in prompts])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    server = InferenceServer()
+    repo = ModelRepository(root)
+    failures = []
+    t_load = time.perf_counter()
+    loaded = repo.load(server)
+    load_s = time.perf_counter() - t_load
+    ModelRepository._register_fleet(
+        server, "lm_fleet", lm,
+        dict(geometry, mode="fleet", replicas=2,
+             speculative={"draft": "lm_draft", "tokens": REPO_SPEC_TOKENS}),
+        draft=draft)
+    ModelRepository._register_disagg(
+        server, "lm_disagg", lm,
+        dict(geometry, **oneshot, mode="disagg", prefill_replicas=1,
+             decode_replicas=1, machine_spec="machine.json"),
+        model_dir=disagg_dir)
+    httpd = server.serve_http(port=0)
+    infer, tokens = {}, {}
+    try:
+        port = httpd.server_address[1]
+        if loaded != ["cspec", "onnx_attention", "onnx_mlp"]:
+            failures.append(f"loaded {loaded}")
+        metrics = _http(port, "/metrics")[2].decode()
+        if 'ff_model_load_failures_total{model="broken"} 1' not in metrics:
+            failures.append("the broken entry's load failure not counted")
+        feeds = {"onnx_mlp": onnx_inputs["mnist_mlp"],
+                 "onnx_attention": onnx_inputs["attention"][:1],
+                 "cspec": cspec_x}
+        for name in loaded:
+            im = server._models[name].model
+            x = feeds[name]
+            body = {"inputs": {im.input_names[0]: x.tolist()}}
+            walls = []
+            for _ in range(4):  # the first captures the bucket
+                t_req = time.perf_counter()
+                out = np.asarray(json.loads(_http(
+                    port, f"/v2/models/{name}/infer", body)[2])["outputs"],
+                    np.float32)
+                walls.append((time.perf_counter() - t_req) * 1e3)
+            # the entry's own predict over the bucket the request took
+            rows, bucket = x.shape[0], im._bucket_for(x.shape[0])
+            padded = np.concatenate(
+                [x, np.zeros((bucket - rows,) + x.shape[1:], x.dtype)])
+            want_out = im.model.predict(padded, batch_size=bucket)[:rows]
+            err = float(np.abs(out - want_out).max())
+            f32 = not im.model.config.allow_mixed_precision
+            ok = (np.allclose(out, want_out, atol=IMPORT_F32_TOL,
+                              rtol=IMPORT_F32_TOL) if f32 else
+                  err <= IMPORT_BF16_REL * float(np.abs(want_out).max()))
+            infer[name] = {"rows": rows, "bucket": bucket, "f32": f32,
+                           "max_abs_err_vs_predict": err,
+                           "first_ms": walls[0],
+                           "steady_ms_median": float(np.median(walls[1:])),
+                           "graphs": dict(im.counts)}
+            if name == "cspec":
+                trained_err = float(np.abs(out - cspec_trained).max())
+                infer[name]["max_abs_err_vs_trained_f32"] = trained_err
+                if trained_err > IMPORT_BF16_REL:
+                    failures.append(f"cspec serves {trained_err} off the "
+                                    f"trained model")
+            if not ok or out.shape != want_out.shape:
+                failures.append(f"/infer {name}: {infer[name]}")
+        for name in ("lm_fleet", "lm_disagg"):
+            t_req = time.perf_counter()
+            got = json.loads(_http(port, f"/v2/models/{name}/generate", {
+                "prompt": [p.tolist() for p in prompts],
+                "max_new_tokens": REPO_NEW})[2])["tokens"]
+            wall = time.perf_counter() - t_req
+            ref = want["fleet" if name == "lm_fleet" else "disagg"]
+            tokens[name] = {"identical": got == ref,
+                            "equal_to_plain_batcher": sum(
+                                a == b for a, b in zip(got, plain)),
+                            "wall_s": wall,
+                            "tokens_per_s": sum(map(len, got)) / wall}
+            if got != ref:
+                failures.append(f"{name}: tokens differ from one batcher's")
+        coord = server._fleets["lm_disagg"].disagg
+        deadline = time.monotonic() + 120
+        while coord.committed + coord.resumed < len(prompts):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        log = list(coord.log)
+        if not log or coord.failed:
+            failures.append(f"handoffs: {len(log)} logged, {coord.failed} "
+                            f"failed")
+        for h in log:
+            if not h["predicted_us"] > 0 or \
+                    h["bytes"] / h["chunks"] > TRANSFER_TIER_CHUNK_BYTES:
+                failures.append(f"handoff {h}")
+        spec_stats = [server._fleets["lm_fleet"].replica(n).batcher.stats()
+                      .get("spec") for n in ("r0", "r1")]
+        # the fleet entry's decode iteration is speculative: walk it on
+        # the entry's own replica, idle now and unloaded next
+        walk = _spec_iteration_launches(
+            torch, server._fleets["lm_fleet"].replica("r0").batcher, 62)
+        failures += _launches_wrong(
+            "a fleet replica's speculative iteration", walk,
+            _spec_per_walk(lm, draft, REPO_SPEC_TOKENS))
+        for name in ("onnx_mlp", "lm_fleet"):
+            repo.unload(server, name)
+        health = json.loads(_http(port, "/healthz")[2])
+        fams = validate_exposition(_http(port, "/metrics")[2].decode())
+        if health["models"] != ["cspec", "onnx_attention"] or \
+                "lm_fleet" in health.get("fleets", {}):
+            failures.append(f"/healthz after unload {health}")
+        if "ff_model_load_failures_total" not in fams:
+            failures.append("/metrics lost ff_model_load_failures_total")
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+    launches = {k: n for k, n in launch_counts().items() if n}
+    failures += _launches_wrong(
+        "the phase", launches,
+        present=FLEET_ONESHOT_KERNELS + ("multiquery_decode_attention",))
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "repository", "card": _card_line(),
+        "entries": loaded, "load_s": load_s,
+        "load_failures": sorted(server._load_failures),
+        "infer": infer, "generate": tokens,
+        "prompts": [len(p) for p in prompts], "new_tokens": REPO_NEW,
+        "spec": spec_stats, "handoffs": len(log),
+        "predicted_us": [h["predicted_us"] for h in log],
+        "handoff_bytes": [h["bytes"] for h in log],
+        "healthz_after_unload": health["status"],
+        "fleet_spec_iteration": walk,
+        "wall_s": time.perf_counter() - t0,
+        "tolerance": "/infer against the entry's own predict: f32 within "
+                     "atol 1e-4, rtol 1e-4, bf16 max |err| <= 2e-2 max "
+                     "|predict|; fleet "
+                     "(speculative) and disagg (one-shot) tokens equal one "
+                     "batcher's of the same geometry; every handoff priced,"
+                     " <= 64 MB a chunk; /healthz and /metrics valid after "
+                     "unload",
+    }
+    _emit(dict(line, launches=launches))
+    if failures:
+        raise AssertionError(f"repository: {failures}")
+    return line, launches, walk
 
 
 def main() -> int:
@@ -7265,6 +8072,40 @@ def main() -> int:
     print(f"phases 55-58: {time.perf_counter() - t_fleet:.1f} s, "
           f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
 
+    # 59) onnx, 60) fx, 61) cspec, 62) repository: the graph importers
+    # and the model repository. Launches: each phase's runs, counted from
+    # 0 at its start; the frontends' walks for the kernel table
+    import tempfile
+
+    t_import = time.perf_counter()
+    frontend_walks = {}
+    with tempfile.TemporaryDirectory(prefix="ff_import_") as tmp:
+        reset_launch_counts()
+        line, onnx_paths, onnx_inputs, walk = phase_onnx(torch, tmp)
+        zoo_paths["onnx"] = {k: n for k, n in launch_counts().items()
+                             if n and "/" not in k}
+        frontend_walks["onnx-b-predict"] = {k: n for k, n in walk.items()
+                                            if "/" not in k}
+        reset_launch_counts()
+        line, walk, step = phase_fx(torch, tmp)
+        zoo_paths["fx"] = {k: n for k, n in launch_counts().items()
+                           if n and "/" not in k}
+        frontend_walks["fx-predict-bf16"] = walk
+        frontend_walks["fx-fit-step"] = step
+        reset_launch_counts()
+        line, spec, ckpt, cspec_x, trained, walk = phase_cspec(torch, tmp)
+        zoo_paths["cspec"] = {k: n for k, n in launch_counts().items()
+                              if n and "/" not in k}
+        frontend_walks["cspec-predict"] = walk
+        line, launches_62, walk = phase_repository(
+            torch, lm, tmp, onnx_paths, onnx_inputs, spec, ckpt, cspec_x,
+            trained)
+        serving_paths["repository"] = {k: n for k, n in launches_62.items()
+                                       if "/" not in k}
+        frontend_walks["repository-fleet-spec-iter"] = walk
+    print(f"phases 59-62: {time.perf_counter() - t_import:.1f} s, "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
+
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
     # and search on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
@@ -7340,6 +8181,12 @@ def main() -> int:
             # chunk and a one-shot prefill (phases 55 and 58)
             fleet_per_walk={w: n.get(name, 0)
                             for w, n in sorted(fleet_walks.items())},
+            # an fx predict walk (bf16) and fit step, an ONNX (b) and a
+            # C-spec predict walk, a repository fleet replica's decode
+            # iteration: speculative, 3 draft steps and the verify
+            # (phases 59-62)
+            frontends_per_walk={w: frontend_walks[w].get(name, 0)
+                                for w in FRONTEND_WALKS},
             **table[name])
         if name.startswith("flash_"):
             row["f32_source"] = src + "flash_attention.cu"

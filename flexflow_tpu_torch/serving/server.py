@@ -25,7 +25,9 @@ router's `ff_fleet_*` families and every replica's registry under a
 `replica` label (obs/registry.py `render_labeled`); `/healthz`
 aggregates the replicas' health ("degraded" while one drains, is lost
 or failed to load, "down" with none ready). The model repository
-(ROADMAP A5.10c) is not ported yet.
+(repository.py) registers its entries through these calls and notes an
+entry it could not load with `record_load_failure`
+(`ff_model_load_failures_total`).
 """
 from __future__ import annotations
 

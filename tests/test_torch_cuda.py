@@ -2515,3 +2515,104 @@ def test_elastic_skip_leaves_card_state_bit_identical(dev, opt):
     # then 7-9 (a skipped step launches none)
     name = "optimizer_sgd" if opt[0] == "sgd" else "optimizer_adam"
     assert out["launches"].get(name, 0) == 10
+
+
+def _post_infer(port, name, x):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v2/models/{name}/infer",
+        data=json.dumps({"inputs": {"input_0": x.tolist()}}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return np.asarray(json.loads(r.read())["outputs"], np.float32)
+
+
+def test_repository_entry_serves_new_weights_after_capture(dev, tmp_path):
+    """Repository entries whose bucket graphs are captured take new
+    weights in place, by an ONNX transfer_weights and by a checkpoint
+    restore, and the next /infer serves them: each bucket re-captures
+    on the weights' version bump (f32 ONNX entry against numpy within
+    1e-4; the bf16 C-spec entry against the source model's own predict
+    within BF16_TOL)."""
+    import json
+
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, \
+        SGDOptimizer
+    from flexflow_tpu_torch.native.c_model import model_from_spec
+    from flexflow_tpu_torch.onnx import ONNXModel, wire
+    from flexflow_tpu_torch.runtime.checkpoint import restore_checkpoint, \
+        save_checkpoint
+    from flexflow_tpu_torch.serving import InferenceServer, ModelRepository
+
+    rng = np.random.RandomState(25)
+
+    def mlp_onnx(path):
+        w1 = rng.randn(6, 12).astype(np.float32)
+        w2 = rng.randn(12, 3).astype(np.float32)
+        wire.save(wire.make_model(
+            [wire.make_node("MatMul", ["x", "w1"], ["h"], name="fc1"),
+             wire.make_node("Relu", ["h"], ["hr"], name="relu1"),
+             wire.make_node("MatMul", ["hr", "w2"], ["y"], name="fc2")],
+            {"x": (8, 6)}, {"y": (8, 3)}, {"w1": w1, "w2": w2}), path)
+        return w1, w2
+
+    (tmp_path / "repo" / "mlp").mkdir(parents=True)
+    mlp_onnx(str(tmp_path / "repo" / "mlp" / "model.onnx"))
+    (tmp_path / "repo" / "mlp" / "config.json").write_text(json.dumps({
+        "format": "onnx", "file": "model.onnx", "mixed_precision": False,
+        "inputs": [{"dims": [8, 6], "dtype": "float32"}]}))
+    spec = {"format": "flexflow_tpu_c_model", "config": {"batch_size": 8},
+            "ops": [{"type": "input", "name": "input_0", "dims": [8, 6],
+                     "dtype": "float32", "inputs": [], "outputs": [1]},
+                    {"type": "dense", "name": "fc", "inputs": [1],
+                     "outputs": [2], "params": {"out_dim": 3}},
+                    {"type": "softmax", "name": "sm", "inputs": [2],
+                     "outputs": [3], "params": {}}]}
+    (tmp_path / "repo" / "cspec").mkdir()
+    (tmp_path / "repo" / "cspec" / "spec.json").write_text(json.dumps(spec))
+    (tmp_path / "repo" / "cspec" / "config.json").write_text(json.dumps(
+        {"format": "ff_cspec", "file": "spec.json"}))
+
+    server = InferenceServer()
+    httpd = None
+    try:
+        assert ModelRepository(str(tmp_path / "repo")).load(
+            server, strict=True) == ["cspec", "mlp"]
+        httpd = server.serve_http(port=0)
+        port = httpd.server_address[1]
+        x = rng.randn(4, 6).astype(np.float32)
+        for name in ("mlp", "cspec"):  # captures bucket 4, then replays
+            _post_infer(port, name, x)
+            _post_infer(port, name, x)
+        ims = {n: server._models[n].model for n in ("mlp", "cspec")}
+        assert all(im.counts["captures"] == 1 and im.counts["replays"] == 1
+                   for im in ims.values())
+
+        w1, w2 = mlp_onnx(str(tmp_path / "new.onnx"))
+        scratch = FFModel(FFConfig(batch_size=8, device="cpu"))
+        new = ONNXModel(str(tmp_path / "new.onnx"))
+        new.apply(scratch, [scratch.create_tensor([8, 6])])
+        assert new.transfer_weights(ims["mlp"].model) == 2
+        np.testing.assert_allclose(_post_infer(port, "mlp", x),
+                                   np.maximum(x @ w1, 0) @ w2,
+                                   atol=1e-4, rtol=1e-4)
+
+        # the same spec with other weights (the same seed would draw the
+        # entry's own)
+        other = model_from_spec(spec, config=FFConfig(device="cuda"))
+        other.compile(optimizer=SGDOptimizer(other, lr=0.0),
+                      loss_type=LossType.LOSS_IDENTITY)
+        other.load_params({"fc": {"kernel": rng.randn(6, 3).astype(
+            np.float32), "bias": rng.randn(3).astype(np.float32)}})
+        path = save_checkpoint(str(tmp_path / "other"), other)
+        restore_checkpoint(path, ims["cspec"].model)
+        padded = np.concatenate([x, np.zeros((4, 6), np.float32)])
+        _close(torch.from_numpy(_post_infer(port, "cspec", x)),
+               torch.from_numpy(other.predict(padded)[:4]), BF16_TOL)
+        assert all(im.counts["captures"] == 2 for im in ims.values())
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        server.shutdown()

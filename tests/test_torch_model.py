@@ -32,7 +32,7 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flexflow_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flexflow_tpu', 'transformers'))\n"
         "new = ('flexflow_tpu_torch.kernels.registry',\n"
         "       'flexflow_tpu_torch.kernels.reduction',\n"
         "       'flexflow_tpu_torch.obs.registry',\n"
@@ -72,7 +72,13 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.serving.fleet.chaos',\n"
         "       'flexflow_tpu_torch.serving.fleet.autoscaler',\n"
         "       'flexflow_tpu_torch.serving.fleet.disagg',\n"
-        "       'flexflow_tpu_torch.serving.fleet.bench')\n"
+        "       'flexflow_tpu_torch.serving.fleet.bench',\n"
+        "       'flexflow_tpu_torch.onnx.wire',\n"
+        "       'flexflow_tpu_torch.onnx.model',\n"
+        "       'flexflow_tpu_torch.torch.fx',\n"
+        "       'flexflow_tpu_torch.torch.model',\n"
+        "       'flexflow_tpu_torch.native.c_model',\n"
+        "       'flexflow_tpu_torch.serving.repository')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
