@@ -565,6 +565,41 @@ Phases, in order; any failure propagates and exits non-zero:
               /metrics valid. One speculative iteration of the fleet
               entry's own replica launches what _spec_per_walk counts.
               Prints each entry's /infer ms and the fleet's tokens/s.
+63. keras   — the Keras frontend (flexflow_tpu_torch.keras) at the
+              examples' widths on keras.datasets' synthetic data:
+              seq_mnist_mlp.py's Sequential 784-512-512-10 (Adam 1e-3,
+              batch 64, 4 epochs over 6,000 samples) clears the
+              example's 90% gate at the port's default bf16 (the softmax
+              kernels) and in f32; under steps_per_execution=4: one
+              CUDA graph captured for all 4 epochs' fit calls, every
+              epoch's loss within 1e-6 relative of K = 1;
+              func_cifar10_cnn.py's functional CNN (3x32x32, conv
+              32/32/64/64, two max-pools, dense 512 and 10) for 20 steps
+              (the example: 2 epochs of 50,000); the step losses on the
+              card within 1e-3 in f32 and 2e-2 in bf16 of the port's CPU
+              run of the same steps in the same precision (the MLP's
+              first 40 in f32 and 20 in bf16, the CNN's first 8), and
+              the MLP's first 40 bf16 within 2e-2 of the card's
+              reference lowering (no kernel of the port; it parts from
+              the CPU past ~26 steps as the kernels' run does); exactly
+              the launches of one fit step (softmax forward and
+              backward, the reduce twice, the fused Adam) and one
+              predict walk (softmax forward) of each, and nothing else
+              of the table; a Sequential with
+              LayerNormalization: the LayerNorm kernels through Keras,
+              its launches over its 10 steps and a predict exactly;
+              keras_exp's Model over 59's ONNX mnist_mlp: build,
+              compile, predict against numpy, fit, predict.
+64. elastic-dead-peer — two ranks over gloo sharing the card: an
+              all-reduce rank 1 never joins times out on rank 0 (gloo's
+              text classifies transient), the failure detector's retry
+              on the same group fails at once (gloo closed the pair:
+              topology) and is escalated as TopologyLoss; then under the
+              elastic coordinator rank 1 exits inside its step-2
+              all-reduce: rank 0's failure classifies topology and the
+              coordinator raises RecoveryFailed with the
+              restart-from-checkpoint hint, within the spawn's time
+              limit.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -936,18 +971,22 @@ def phase_kernels(torch, F):
     table["layernorm_fwd"]["training_shape_f32"] = norm_case(
         "layernorm_fwd", 4096, 1024, torch.float32, (1e-5, 1e-4), True)
     table["layernorm_fwd"]["ms_includes"] = "1 launch"
+    # a training step's softmax runs the kernels in f32 on its bf16
+    # logits (the autograd Function saves y in f32); inference in bf16
     table["softmax_fwd"]["path_shapes"] = {
-        path: norm_case("softmax_fwd", rows, n, torch.bfloat16,
-                        (1e-6, 1e-2), True)
-        for path, rows, n in (("prefill chunk", 16, 30522),
-                              ("train step", 4096, 2),
-                              ("tier step", 4096, 10),
-                              ("NMT step", 768, 32000),
-                              ("ResNet step", 16, 10),
-                              ("DLRM step", 64, 2),
-                              ("MoE switch gate", 1024, 256),
-                              ("MoE serve gate decode", 8, 4),
-                              ("MoE serve gate chunk", 16, 4))}
+        path: norm_case("softmax_fwd", rows, n, dtype,
+                        (1e-6, 1e-2) if dtype == torch.bfloat16
+                        else (1e-5, 1e-4), True)
+        for path, rows, n, dtype in (
+            ("prefill chunk", 16, 30522, torch.bfloat16),
+            ("train step", 4096, 2, torch.float32),
+            ("tier step", 4096, 10, torch.float32),
+            ("NMT step", 768, 32000, torch.float32),
+            ("ResNet step", 16, 10, torch.float32),
+            ("DLRM step", 64, 2, torch.float32),
+            ("MoE switch gate", 1024, 256, torch.float32),
+            ("MoE serve gate decode", 8, 4, torch.bfloat16),
+            ("MoE serve gate chunk", 16, 4, torch.bfloat16))}
     # a mesh session's decode rows on a rank of {"data": 2, "model": 2}
     # (phase 48): 2 rows of the hidden width and of the vocabulary
     for name, n, tol in (("layernorm_fwd", 1024, (1e-2, 1e-2)),
@@ -1640,7 +1679,9 @@ def train_kernels(torch, F, g):
 
     # softmax backward: the classifier's (b*l, 2) probabilities (the
     # table's row), the tier's (4096, 10), and the wide shapes of its
-    # other routes; every one the bits of its route's emulation
+    # other routes; every one the bits of its route's emulation. The
+    # paths give it f32 (the autograd Function saves y in f32, whatever
+    # the activations' dtype); bf16 is held too
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = {}
     for path, r, n in (("train step", b * l, 2), ("tier step", 4096, 10),
@@ -1649,14 +1690,12 @@ def train_kernels(torch, F, g):
                        ("block mid", 4096, 1024), ("NMT step", 768, 32000),
                        ("ResNet step", 16, 10), ("DLRM step", 64, 2),
                        ("MoE switch gate", 1024, 256)):
-        dtypes = ((torch.float32, torch.bfloat16) if n <= 10
-                  else (torch.bfloat16,))
-        for dtype in dtypes:
+        for dtype in (torch.float32, torch.bfloat16):
             y = norm.softmax_fwd((rnd(r, n) * 3).to(dtype))
             dy = rnd(r, n).to(dtype)
             shapes[f"{path} {str(dtype)[6:]}"] = softmax_bwd_case(
                 torch, norm, y, dy, sms)
-    sm = dict(shapes.pop("train step bfloat16"),
+    sm = dict(shapes.pop("train step float32"),
               library="torch._softmax_backward_data",
               ms_includes="1 launch",
               note="N = 2: bound by launch latency, not by bytes")
@@ -7626,6 +7665,409 @@ def phase_repository(torch, lm, tmp, onnx_paths, onnx_inputs, spec, ckpt,
     return line, launches, walk
 
 
+# 63) keras: the examples' models through flexflow_tpu_torch.keras
+KERAS_BATCH = 64
+# seq_mnist_mlp.py: 784-512-512-10, Adam 1e-3, 4 epochs over the 6,000
+# synthetic samples, its 90% gate
+KERAS_MNIST_EPOCHS, KERAS_MNIST_GATE = 4, 0.90
+# func_cifar10_cnn.py trains 2 epochs of 50,000 samples; cut to 20 steps
+KERAS_CNN_STEPS = 20
+KERAS_K = 4
+# the first steps of each on the card against the port's CPU run of the
+# same steps in the same precision: the MLP's 40 in f32 and its first 20
+# in bf16, the CNN's 8. Past ~26 steps torch's bf16 arithmetic on the
+# card parts from the CPU's by up to 0.07 with no kernel of the port in
+# the run (kernel_impl="reference"), as far as the bf16 runs part from
+# f32; so the MLP's 40 bf16 steps through the kernels are held to the
+# same card's reference lowering (the same torch ops without the kernels)
+KERAS_F32_TOL, KERAS_BF16_TOL = 1e-3, 2e-2
+KERAS_MLP_WITNESS, KERAS_MLP_BF16_CPU, KERAS_CNN_WITNESS = 40, 20, 8
+# K = 4 against K = 1, every epoch's loss (phase 15's bound)
+KERAS_K_RTOL = 1e-6
+KERAS_LN_STEPS = 10
+# the kernels one fit step and one predict walk of a keras model launch
+# on the card (the reduce: the loss and the accuracy), nothing else of
+# the table
+KERAS_STEP = {"softmax_fwd": 1, "softmax_bwd": 1, "reduce": 2,
+              "optimizer_adam": 1}
+KERAS_PREDICT = {"softmax_fwd": 1}
+KERAS_CUTS = {"cnn": f"2 epochs of 50,000 samples -> {KERAS_CNN_STEPS} "
+                     f"steps of {KERAS_BATCH}",
+              "elastic-dead-peer": "2-rank MLP (32-64-10, batch 12), "
+                                   "the leg checks the failure path"}
+KERAS_WALKS = ("mlp-fit-step", "cnn-fit-step", "mlp-predict", "cnn-predict")
+
+
+def _keras_mlp(device, mixed, steps=1, kernel_impl="auto"):
+    """seq_mnist_mlp.py's model (weights from compile's default
+    generator, so every build draws the same)."""
+    import flexflow_tpu_torch.keras as keras
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.keras.layers import Activation, Dense
+    from flexflow_tpu_torch.keras.models import Sequential
+
+    model = Sequential()
+    model.add(Dense(512, activation="relu", input_shape=(784,)))
+    model.add(Dense(512, activation="relu"))
+    model.add(Dense(10))
+    model.add(Activation("softmax"))
+    model.compile(optimizer=keras.optimizers.Adam(learning_rate=1e-3),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"],
+                  ffconfig=FFConfig(batch_size=KERAS_BATCH, device=device,
+                                    allow_mixed_precision=mixed,
+                                    kernel_impl=kernel_impl),
+                  steps_per_execution=steps)
+    return model
+
+
+def _keras_cnn(device, mixed):
+    """func_cifar10_cnn.py's functional model."""
+    import flexflow_tpu_torch.keras as keras
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.keras.layers import (Activation, Conv2D, Dense,
+                                                 Flatten, Input,
+                                                 MaxPooling2D)
+    from flexflow_tpu_torch.keras.models import Model
+
+    inp = Input(shape=(3, 32, 32))
+    t = Conv2D(32, (3, 3), padding="same", activation="relu")(inp)
+    t = Conv2D(32, (3, 3), padding="same", activation="relu")(t)
+    t = MaxPooling2D((2, 2))(t)
+    t = Conv2D(64, (3, 3), padding="same", activation="relu")(t)
+    t = Conv2D(64, (3, 3), padding="same", activation="relu")(t)
+    t = MaxPooling2D((2, 2))(t)
+    t = Flatten()(t)
+    t = Dense(512, activation="relu")(t)
+    t = Dense(10)(t)
+    out = Activation("softmax")(t)
+    model = Model(inputs=inp, outputs=out)
+    model.compile(optimizer=keras.optimizers.Adam(learning_rate=1e-3),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"],
+                  ffconfig=FFConfig(batch_size=KERAS_BATCH, device=device,
+                                    allow_mixed_precision=mixed))
+    return model
+
+
+def _keras_data(np):
+    from flexflow_tpu_torch.keras.datasets import cifar10, mnist
+
+    (xm, ym), _ = mnist.load_data()
+    xm = xm.reshape(-1, 784).astype(np.float32) / 255.0
+    ym = ym.astype(np.int32).reshape(-1, 1)
+    (xc, yc), _ = cifar10.load_data(num_samples=KERAS_CNN_STEPS
+                                    * KERAS_BATCH)
+    xc = xc.astype(np.float32) / 255.0
+    yc = yc.astype(np.int32).reshape(-1, 1)
+    return xm, ym, xc, yc
+
+
+def _keras_walks(torch, model, x, y):
+    """One fit step's and one predict walk's launches (a batch each)."""
+    from flexflow_tpu_torch.kernels import launch_counts
+
+    b = KERAS_BATCH
+    before = launch_counts()
+    model.ffmodel.fit(x[:b], y[:b], batch_size=b, epochs=1)
+    torch.cuda.synchronize()
+    step = {k: n for k, n in _launches_since(before).items() if "/" not in k}
+    before = launch_counts()
+    model.predict(x[:b])
+    walk = {k: n for k, n in _launches_since(before).items() if "/" not in k}
+    return step, walk
+
+
+def _launches_exact(walk, launches, want):
+    """_launches_wrong with every other kernel of the table wanted 0."""
+    return _launches_wrong(walk, launches,
+                           {**{k: 0 for k in launches}, **want})
+
+
+def _close(a, b, tol):
+    return len(a) == len(b) and all(abs(u - v) <= tol for u, v in zip(a, b))
+
+
+def phase_keras(torch):
+    """63: the Keras frontend on the card (see the module docstring).
+    Returns the phase's record and the walks' launches."""
+    import numpy as np
+
+    import flexflow_tpu_torch.keras as keras
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.keras_exp import Model as ExpModel
+    from flexflow_tpu_torch.kernels import launch_counts
+    from flexflow_tpu_torch.onnx import wire
+
+    t0 = time.perf_counter()
+    xm, ym, xc, yc = _keras_data(np)
+    failures, secs = [], {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        if name.endswith("card"):
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    # the MLP at the port's default bf16 at K = 1 and K = 4, and in f32;
+    # the first epoch's step losses kept (fit's StepStats of that epoch)
+    hist, models, first = {}, {}, {}
+
+    class FirstEpoch(keras.callbacks.Callback):
+        def __init__(self, name):
+            super().__init__()
+            self.name = name
+
+        def on_epoch_end(self, epoch, logs=None):
+            if epoch == 0:
+                first[self.name] = [
+                    r["loss"] for r in self.model.ffmodel.step_stats.records()]
+
+    for name, mixed, k in (("mlp-f32-card", False, 1),
+                           ("mlp-bf16-card", True, 1),
+                           ("mlp-bf16-k4-card", True, KERAS_K)):
+        models[name] = _keras_mlp("cuda", mixed, k)
+        hist[name] = timed(name, lambda: models[name].fit(
+            xm, ym, epochs=KERAS_MNIST_EPOCHS, batch_size=KERAS_BATCH,
+            callbacks=[FirstEpoch(name)]).history)
+    accuracy = {n: h["accuracy"] for n, h in hist.items()}
+    for name in hist:
+        if accuracy[name][-1] < KERAS_MNIST_GATE:
+            failures.append(f"{name} accuracy {accuracy[name][-1]} below "
+                            f"the example's gate")
+    k1 = hist["mlp-bf16-card"]["loss"]
+    k4 = hist["mlp-bf16-k4-card"]["loss"]
+    if not all(abs(a - b) <= KERAS_K_RTOL * abs(a) for a, b in zip(k1, k4)):
+        failures.append("mlp K = 4 vs K = 1")
+    ms = models["mlp-bf16-k4-card"].ffmodel._multi_steps
+    k_stats = {k: v.stats() for k, v in ms.items()}
+    dispatches = KERAS_MNIST_EPOCHS * (len(xm) // (KERAS_BATCH * KERAS_K))
+    if list(k_stats) != [KERAS_K] or k_stats[KERAS_K]["captures"] != 1 \
+            or k_stats[KERAS_K]["replays"] != dispatches - 1:
+        failures.append(f"K = {KERAS_K}: one capture over "
+                        f"{KERAS_MNIST_EPOCHS} epochs, {dispatches - 1} "
+                        f"replays expected, got {k_stats}")
+
+    # the CNN at bf16: 20 steps on the card
+    cnns = {"cnn-bf16-card": _keras_cnn("cuda", True)}
+    timed("cnn-bf16-card", lambda: cnns["cnn-bf16-card"].fit(
+        xc, yc, epochs=1, batch_size=KERAS_BATCH))
+    first["cnn-bf16-card"] = [r["loss"] for r in cnns[
+        "cnn-bf16-card"].ffmodel.step_stats.records()]
+    if len(first["cnn-bf16-card"]) != KERAS_CNN_STEPS or not all(
+            np.isfinite(first["cnn-bf16-card"])):
+        failures.append("cnn steps")
+
+    # a fit step's and a predict walk's launches of each (bf16, card),
+    # before the witness's kernel_impl="reference" build configures
+    # the registry's default (a later compile restores it)
+    walks = {}
+    walks["mlp-fit-step"], walks["mlp-predict"] = _keras_walks(
+        torch, models["mlp-bf16-card"], xm, ym)
+    walks["cnn-fit-step"], walks["cnn-predict"] = _keras_walks(
+        torch, cnns["cnn-bf16-card"], xc, yc)
+    for w in ("mlp-fit-step", "cnn-fit-step"):
+        failures += _launches_exact(w, walks[w], KERAS_STEP)
+    for w in ("mlp-predict", "cnn-predict"):
+        failures += _launches_exact(w, walks[w], KERAS_PREDICT)
+    predict = models["mlp-bf16-card"].predict(xm[:1000])
+    if predict.shape != (1000, 10) or not np.isfinite(predict).all():
+        failures.append("mlp predict")
+    del models, cnns
+
+    # the witness: each model's first steps from the same weights and
+    # batches on the card and on the CPU, in both precisions, and the
+    # MLP's bf16 steps on the card's reference lowering
+    witness = {}
+
+    def steps_of(name, m, x, y, steps):
+        n = steps * KERAS_BATCH
+        timed(name, lambda: m.fit(x[:n], y[:n], epochs=1,
+                                  batch_size=KERAS_BATCH))
+        witness[name] = [r["loss"] for r in m.ffmodel.step_stats.records()]
+
+    for net, build, x, y, steps in (
+            ("mlp", _keras_mlp, xm, ym, KERAS_MLP_WITNESS),
+            ("cnn", _keras_cnn, xc, yc, KERAS_CNN_WITNESS)):
+        for prec, mixed in (("bf16", True), ("f32", False)):
+            for where in ("card", "cpu"):
+                name = f"{net}-{prec}-{where}"
+                if name in first:
+                    witness[name] = first[name][:steps]
+                else:
+                    steps_of(name, build("cuda" if where == "card"
+                                         else "cpu", mixed), x, y, steps)
+            tol = KERAS_BF16_TOL if prec == "bf16" else KERAS_F32_TOL
+            n = KERAS_MLP_BF16_CPU if (net, prec) == ("mlp", "bf16") \
+                else steps
+            if not _close(witness[f"{net}-{prec}-card"][:n],
+                          witness[f"{net}-{prec}-cpu"][:n], tol):
+                failures.append(f"{net} {prec} card vs CPU")
+    steps_of("mlp-bf16-card-reference",
+             _keras_mlp("cuda", True, kernel_impl="reference"), xm, ym,
+             KERAS_MLP_WITNESS)
+    if not _close(witness["mlp-bf16-card"],
+                  witness["mlp-bf16-card-reference"], KERAS_BF16_TOL):
+        failures.append("mlp bf16 kernels vs the card's reference")
+    gaps = {f"{a} vs {b}": max(abs(u - v) for u, v in zip(
+        witness[a], witness[b])) for a, b in (
+            ("mlp-bf16-card", "mlp-bf16-cpu"),
+            ("mlp-bf16-card-reference", "mlp-bf16-cpu"),
+            ("mlp-bf16-card", "mlp-bf16-card-reference"),
+            ("mlp-bf16-cpu", "mlp-f32-cpu"),
+            ("mlp-f32-card", "mlp-f32-cpu"),
+            ("cnn-bf16-card", "cnn-bf16-cpu"),
+            ("cnn-f32-card", "cnn-f32-cpu"))}
+
+    # a Sequential with LayerNormalization: the LayerNorm kernels through
+    # Keras
+    from flexflow_tpu_torch.keras.layers import (Activation, Dense,
+                                                 LayerNormalization)
+    from flexflow_tpu_torch.keras.models import Sequential
+
+    before = launch_counts()
+    ln = Sequential()
+    ln.add(Dense(512, activation="relu", input_shape=(784,)))
+    ln.add(LayerNormalization())
+    ln.add(Dense(10))
+    ln.add(Activation("softmax"))
+    ln.compile(optimizer=keras.optimizers.Adam(learning_rate=1e-3),
+               loss="sparse_categorical_crossentropy", metrics=["accuracy"],
+               ffconfig=FFConfig(batch_size=KERAS_BATCH, device="cuda"))
+    n_ln = KERAS_LN_STEPS * KERAS_BATCH
+    ln_hist = timed("layernorm-card", lambda: ln.fit(
+        xm[:n_ln], ym[:n_ln], epochs=1, batch_size=KERAS_BATCH).history)
+    ln_pred = ln.predict(xm[:KERAS_BATCH])
+    ln_launches = {k: n for k, n in _launches_since(before).items()
+                   if "/" not in k}
+    # each step one LayerNorm forward and backward beside a fit step's
+    # kernels; the predict walk one LayerNorm and one softmax forward
+    failures += _launches_exact("layernorm", ln_launches, {
+        **{k: n * KERAS_LN_STEPS for k, n in KERAS_STEP.items()},
+        "layernorm_fwd": KERAS_LN_STEPS + 1,
+        "layernorm_bwd": KERAS_LN_STEPS,
+        "softmax_fwd": KERAS_LN_STEPS + 1})
+    if not np.isfinite(ln_hist["loss"]).all() or \
+            not np.isfinite(ln_pred).all():
+        failures.append("layernorm model not finite")
+
+    # keras_exp: 59's ONNX MNIST MLP, build, compile, fit, predict (f32)
+    proto, inits, ref = _mnist_onnx(np, wire)
+    em = ExpModel(proto, batch_size=MNIST_BATCH,
+                  config=FFConfig(device="cuda",
+                                  allow_mixed_precision=False))
+    ffm = em.build([[MNIST_BATCH, MNIST_WIDTHS[0]]])
+    em.compile(optimizer=AdamOptimizer(ffm, alpha=1e-3),
+               metrics=[])
+    x_exp = xm[:10 * MNIST_BATCH]
+    exp_err = float(np.abs(ffm.predict(x_exp) - ref(x_exp)).max())
+    exp_hist = timed("keras-exp-card", lambda: em.fit(
+        x_exp, ym[:10 * MNIST_BATCH], batch_size=MNIST_BATCH, epochs=2))
+    exp_after = ffm.predict(x_exp)
+    if exp_err > 1e-4 or not np.isfinite(exp_after).all() or \
+            exp_hist[-1]["loss"] >= exp_hist[0]["loss"]:
+        failures.append(f"keras_exp: predict err {exp_err}, losses "
+                        f"{[h['loss'] for h in exp_hist]}")
+
+    line = {"phase": "keras", "card": _card_line(),
+            "mlp_accuracy_by_epoch": accuracy,
+            "mlp_epoch_losses": {n: h["loss"] for n, h in hist.items()},
+            "mlp_k_stats": k_stats,
+            "cnn_losses": first["cnn-bf16-card"], "witness": witness,
+            "witness_max_gaps": gaps,
+            "layernorm_losses": ln_hist["loss"],
+            "keras_exp_predict_max_abs_err": exp_err,
+            "keras_exp_losses": [h["loss"] for h in exp_hist],
+            "walks": walks, "layernorm_launches": ln_launches,
+            "seconds": secs, "cuts": {"cnn": KERAS_CUTS["cnn"]},
+            "wall_s": time.perf_counter() - t0,
+            "gate": f"accuracy >= {KERAS_MNIST_GATE} after "
+                    f"{KERAS_MNIST_EPOCHS} epochs at the port's default "
+                    f"bf16 (K = 1 and K = {KERAS_K}) and in f32",
+            "tolerance": f"step losses on the card within "
+                         f"{KERAS_F32_TOL} (f32) and {KERAS_BF16_TOL} "
+                         f"(bf16) of the port's CPU run: the MLP's first "
+                         f"{KERAS_MLP_WITNESS} in f32 and "
+                         f"{KERAS_MLP_BF16_CPU} in bf16, the CNN's first "
+                         f"{KERAS_CNN_WITNESS}; the MLP's first "
+                         f"{KERAS_MLP_WITNESS} bf16 within "
+                         f"{KERAS_BF16_TOL} of the card's reference "
+                         f"lowering; every epoch's loss at K = "
+                         f"{KERAS_K} within "
+                         f"{KERAS_K_RTOL} relative of K = 1; keras_exp "
+                         f"predict within 1e-4 of numpy (f32)"}
+    _emit(line)
+    if failures:
+        raise AssertionError(f"keras: {failures}")
+    return line, walks
+
+
+def phase_elastic_dead_peer(torch):
+    """64: two ranks over gloo sharing the card (see the module
+    docstring)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.elastic.faults import classify_error
+    from flexflow_tpu_torch.tools.tp_train import spawn_jobs
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    x = rng.randn(48, 32).astype(np.float32)
+    y = rng.randint(0, 10, size=(48, 1)).astype(np.int32)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ff_dead_peer_") as tmp:
+        jobs = [{"collective_timeout": {"timeout_s": 1.0}},
+                {"elastic": {"batch": 12,
+                             "config": {"search_budget": 0,
+                                        "measure_op_costs": False},
+                             "device_ids": [0, 1],
+                             "coordinator": {"checkpoint_every": 2},
+                             "checkpoint_dir": os.path.join(tmp, "ckpt"),
+                             "x": x, "y": y, "steps": 6,
+                             "exit_in_allreduce": (1, 2)}}]
+        ranks = spawn_jobs(2, "cuda", jobs, timeout_s=DEAD_PEER_LIMIT_S,
+                           workdir=tmp, leavers=(1,))
+    timeout, run = ranks[0]["jobs"]
+    detect = [e for e in run["events"] if e[0] == "detect.topology_loss"]
+    err = detect[0][2]["error"] if detect else ""
+    failures = []
+    if ranks[1] is not None:
+        failures.append("rank 1 did not exit")
+    if timeout["classes"] != ["transient", "topology"] or \
+            "Timed out waiting" not in timeout["errors"][0] or \
+            "pair closure" not in timeout["errors"][1] or \
+            not (timeout["raised"] or "").startswith("TopologyLoss: "):
+        failures.append(f"timeout: {timeout}")
+    if [(e[1], e[2]["chips"]) for e in detect] != [(2, [])] or \
+            classify_error(RuntimeError(err)) != "topology":
+        failures.append(f"detect: {detect}")
+    raised = run["raised"] or ""
+    if not raised.startswith("RecoveryFailed: ") or \
+            "restart from the latest checkpoint" not in raised:
+        failures.append(f"raised: {raised!r}")
+    line = {"phase": "elastic-dead-peer", "card": _card_line(),
+            "timeout_errors": timeout["errors"],
+            "timeout_classes": timeout["classes"],
+            "timeout_waits_s": timeout["waits_s"],
+            "timeout_raised": timeout["raised"],
+            "detect": detect, "raised": raised,
+            "model_device": run["model_device"],
+            "cut": KERAS_CUTS["elastic-dead-peer"],
+            "limit_s": DEAD_PEER_LIMIT_S,
+            "wall_s": time.perf_counter() - t0}
+    _emit(line)
+    if failures:
+        raise AssertionError(f"elastic-dead-peer: {failures}")
+    return line
+
+
+# the spawn's limit: past it the spawn stops both ranks and raises
+DEAD_PEER_LIMIT_S = 120
+
+
 def main() -> int:
     import torch
 
@@ -8106,6 +8548,22 @@ def main() -> int:
     print(f"phases 59-62: {time.perf_counter() - t_import:.1f} s, "
           f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
 
+    # 63) keras: the Keras frontend's example models and keras_exp;
+    # 64) elastic-dead-peer: a rank exits mid all-reduce. Launches: the
+    # phase's runs, counted from 0 at its start; one fit step and one
+    # predict walk of each example model for the kernel table
+    t_keras = time.perf_counter()
+    reset_launch_counts()
+    line, keras_walks = phase_keras(torch)
+    zoo_paths["keras"] = {k: n for k, n in launch_counts().items()
+                          if n and "/" not in k}
+    print(f"phase 63: {time.perf_counter() - t_keras:.1f} s", flush=True)
+    t_dead = time.perf_counter()
+    phase_elastic_dead_peer(torch)
+    print(f"phase 64: {time.perf_counter() - t_dead:.1f} s; phases 63-64: "
+          f"{time.perf_counter() - t_keras:.1f} s, "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
+
     # the kernel table, the card, the result. A kernel's launches are
     # those of the path(s) that run it (serve, train, tier, standalone, tp
     # and search on rank 0, train-graph's graphed fit, mlp's eager fit, the serving
@@ -8187,6 +8645,10 @@ def main() -> int:
             # (phases 59-62)
             frontends_per_walk={w: frontend_walks[w].get(name, 0)
                                 for w in FRONTEND_WALKS},
+            # a keras fit step and predict walk of seq_mnist_mlp's and
+            # func_cifar10_cnn's models, bf16 (phase 63)
+            keras_per_walk={w: keras_walks[w].get(name, 0)
+                            for w in KERAS_WALKS},
             **table[name])
         if name.startswith("flash_"):
             row["f32_source"] = src + "flash_attention.cu"

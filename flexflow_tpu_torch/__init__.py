@@ -26,7 +26,11 @@ over hand-written CUDA kernels (kernels/, csrc/): decode
 attention, flash attention forward and backward (packed and
 head-separated), LayerNorm, RMSNorm and softmax forward and backward,
 the scalar reduction and the scan, and the Adam / SGD update over a
-list of weight tensors.
+list of weight tensors. Later slices ported the serving front end and
+fleet, the cost model and the search, the mesh axes, the elastic
+coordinator, the graph importers (`onnx`, `torch`, `native`) and the
+Keras frontends (`keras`, `keras_exp`); the package exports the JAX
+package's top-level names.
 
 Entry points run on `FFConfig.device`, "cuda" unless the caller passes
 "cpu". The kernel registry (kernels/registry.py) runs the kernels on a
@@ -34,14 +38,32 @@ Hopper card and the ops' reference lowerings on the CPU; forced to the
 kernel tier on the CPU, every kernel wrapper runs its plain PyTorch
 version.
 """
-from .config import FFConfig
+from .config import FFConfig, FFIterationConfig
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
-                      MetricsType, OpType, PoolType)
+                      MetricsType, OpType, ParameterSyncType, PoolType)
 from .model import FFModel, opt_state_from_jax, params_from_jax
+from .core.tensor import ParallelDim, ParallelTensorShape, Tensor
+from .core.machine import MachineResource, MachineView, make_mesh
+from .core.graph import Graph
+from . import ops  # noqa: F401 — registers the operator types
+from . import parallel  # noqa: F401 — registers the parallel ops
 from .runtime.dataloader import SingleDataLoader
-from .runtime.optimizers import AdamOptimizer, SGDOptimizer
+from .runtime.initializers import (ConstantInitializer,
+                                   GlorotUniformInitializer,
+                                   NormInitializer, UniformInitializer,
+                                   ZeroInitializer)
+from .runtime.losses import Loss
+from .runtime.metrics import Metrics, PerfMetrics
+from .runtime.optimizers import AdamOptimizer, Optimizer, SGDOptimizer
+from .runtime.recompile import RecompileState
 
-__all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode", "DataType",
-           "FFConfig", "FFModel", "LossType", "MetricsType", "OpType",
-           "PoolType", "SGDOptimizer", "SingleDataLoader",
+__all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode",
+           "ConstantInitializer", "DataType", "FFConfig",
+           "FFIterationConfig", "FFModel", "GlorotUniformInitializer",
+           "Graph", "Loss", "LossType", "MachineResource", "MachineView",
+           "Metrics", "MetricsType", "NormInitializer", "OpType",
+           "Optimizer", "ParallelDim", "ParallelTensorShape",
+           "ParameterSyncType", "PerfMetrics", "PoolType", "RecompileState",
+           "SGDOptimizer", "SingleDataLoader", "Tensor",
+           "UniformInitializer", "ZeroInitializer", "make_mesh",
            "opt_state_from_jax", "params_from_jax"]

@@ -10,7 +10,20 @@ torch device, CUDA unless the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence
+
+
+@dataclasses.dataclass
+class FFIterationConfig:
+    """Per-iteration attributes (flexflow_tpu/config.py FFIterationConfig):
+    the manual loop's `forward(seq_length=)` / `backward(seq_length=)`
+    carry its one field (core/op.py `iter_seq_length`)."""
+
+    seq_length: int = -1
+
+    def reset(self) -> None:
+        self.seq_length = -1
 
 
 @dataclasses.dataclass
@@ -155,6 +168,18 @@ class FFConfig:
         if dist.is_available() and dist.is_initialized():
             return dist.get_world_size()
         return 1
+
+    @property
+    def workers_per_node(self) -> int:
+        """The devices of a host: all of them, as the port runs on one
+        host (JAX's divides by its `num_nodes`, which is 1 there too
+        unless `--nodes` says otherwise)."""
+        return max(1, self.total_devices)
+
+    def get_current_time(self) -> float:
+        """Microseconds since the epoch (JAX's, like Legion's
+        timestamps)."""
+        return time.time() * 1e6
 
     def parse_args(self, argv: Sequence[str]) -> None:
         """Set fields from the JAX package's flag spellings of the fields

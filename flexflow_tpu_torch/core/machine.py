@@ -30,7 +30,7 @@ pipeline stages (runtime/executor.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,12 +40,32 @@ AXIS_ORDER = ("data", "model", "expert", "attr", "seq", "stage")
 
 
 @dataclasses.dataclass(frozen=True)
+class MachineResource:
+    """Total resources available (flexflow_tpu/core/machine.py:18)."""
+
+    num_nodes: int = 1
+    devices_per_node: int = 1
+    start_device_id: int = 0
+
+    @property
+    def num_devices(self) -> int:
+        return self.num_nodes * self.devices_per_node
+
+
+@dataclasses.dataclass(frozen=True)
 class MachineView:
     """A device sub-grid: ordered (axis name, size) pairs and a start
-    offset (flexflow_tpu/core/machine.py:31)."""
+    offset (flexflow_tpu/core/machine.py:31). `hash` and `device_ids`
+    are JAX's (the reference's MachineView::hash and start + row-major
+    addressing of a contiguous grid); `hash` folds Python's string hash
+    of each axis name, so it is stable within a process only, as JAX's."""
 
     axes: Tuple[Tuple[str, int], ...] = ()
     start_device_id: int = 0
+
+    @property
+    def ndims(self) -> int:
+        return len(self.axes)
 
     @property
     def num_devices(self) -> int:
@@ -57,6 +77,21 @@ class MachineView:
     @property
     def axis_sizes(self) -> Dict[str, int]:
         return dict(self.axes)
+
+    def device_ids(self) -> List[int]:
+        return list(range(self.start_device_id,
+                          self.start_device_id + self.num_devices))
+
+    def hash(self) -> int:
+        h = 17
+        h = h * 31 + self.start_device_id
+        for name, size in self.axes:
+            h = h * 31 + hash(name) % (2**31)
+            h = h * 31 + size
+        return h & 0x7FFFFFFFFFFFFFFF
+
+    def with_axis(self, name: str, size: int) -> "MachineView":
+        return MachineView(self.axes + ((name, size),), self.start_device_id)
 
     def __str__(self):
         body = "x".join(f"{n}:{s}" for n, s in self.axes) or "1"

@@ -41,6 +41,8 @@ import os
 import time
 from typing import Iterable, List, Optional, Sequence, Tuple
 
+import torch
+
 from .events import (FAULT_CHIP_LOSS, FAULT_CORRUPT_CKPT, FAULT_NAN_STEP,
                      FAULT_POISON_LIVE, FAULT_SLOW_LINK, FAULT_TRANSIENT,
                      EventLog)
@@ -249,25 +251,50 @@ class FaultInjector:
 
 
 # substrings of real runtime errors worth classifying; checked against
-# str(exc) lower-cased. Topology patterns win over transient ones.
+# str(exc) lower-cased. Topology patterns win over transient ones. The
+# first lines of each are the JAX package's (XLA's runtime vocabulary);
+# the rest are what torch.distributed's backends raise for the same
+# events:
+# - a peer gone: gloo's "Connection closed by peer ... remote worker
+#   crashing" (tcp/pair.cc), NCCL's "remote process exited";
+# - NCCL's "communicator was aborted": ncclCommAbort runs when a rank's
+#   watchdog has seen a peer fail or hang, and an aborted communicator
+#   serves no further collective, so retrying the step on it cannot
+#   succeed. Topology, like the dead peer it follows (and it wins over
+#   the transient "aborted" below, which is XLA's ABORTED status);
+# - NCCL's "Watchdog caught collective operation timeout": the watchdog
+#   aborts the communicator after the timeout (and by default ends the
+#   process), so this is topology for the same reason;
+# - gloo's "Timed out waiting <n>ms for recv operation"
+#   (tcp/unbound_buffer.cc): transient, like XLA's DEADLINE_EXCEEDED, so
+#   the step is retried once in place. But gloo closes the timed-out pair,
+#   and the retry on that group fails with "Application timeout caused
+#   pair closure" (tcp/pair.cc), which is topology: the failure then
+#   goes to the coordinator, as a lost peer does.
 _TOPOLOGY_PATTERNS = (
     "data_loss", "device unhealthy", "chip reboot", "preempt",
     "slice has been terminated", "failed to connect", "connection reset",
     "device or resource busy", "halted",
+    "connection closed by peer", "remote process exited",
+    "communicator was aborted", "collective operation timeout",
+    "timeout caused pair closure",
 )
 _TRANSIENT_PATTERNS = (
     "deadline_exceeded", "deadline exceeded", "unavailable", "aborted",
     "resource_exhausted", "resource exhausted", "compilation failure",
     "failed to compile", "too many requests", "cancelled",
+    "timed out waiting",
 )
 
 
 def classify_error(exc: BaseException) -> str:
     """Map an exception to CLASS_TRANSIENT / CLASS_TOPOLOGY / CLASS_UNKNOWN.
-    Injected faults classify by type; real errors by message pattern."""
+    Injected faults classify by type, and so does a device out of memory
+    (`torch.cuda.OutOfMemoryError`: transient, as XLA's
+    RESOURCE_EXHAUSTED); other real errors by message pattern."""
     if isinstance(exc, TopologyLoss):
         return CLASS_TOPOLOGY
-    if isinstance(exc, TransientFault):
+    if isinstance(exc, (TransientFault, torch.cuda.OutOfMemoryError)):
         return CLASS_TRANSIENT
     msg = str(exc).lower()
     for pat in _TOPOLOGY_PATTERNS:

@@ -94,6 +94,18 @@ class CompMode(enum.Enum):
     COMP_MODE_INFERENCE = 1
 
 
+class ParameterSyncType(enum.Enum):
+    """The reference's parameter-server vs NCCL gradient sync
+    (flexflow_tpu/ffconst.py ParameterSyncType). The port syncs gradients
+    with torch.distributed all-reduces over the mesh's data groups
+    (runtime/collectives.py) whatever the value; the enum is kept for
+    the API."""
+
+    NONE = 0
+    PS = 1
+    NCCL = 2
+
+
 class OpType(enum.Enum):
     NOOP = "noop"
     INPUT = "input"
@@ -159,3 +171,15 @@ class OpType(enum.Enum):
     FUSED_PARALLEL = "fused_parallel"
     PIPELINE = "pipeline"
     RING_ATTENTION = "ring_attention"
+
+
+class ParallelDimKind(enum.Enum):
+    """Parallel-dimension kinds of the strategy layer and the search
+    (flexflow_tpu/ffconst.py ParallelDimKind)."""
+
+    SAMPLE = "sample"  # batch dim (data parallelism)
+    CHANNEL = "channel"  # feature dims (tensor/"parameter" parallelism)
+    ATTRIBUTE = "attribute"  # spatial/attribute dims
+    SEQUENCE = "sequence"  # sequence dim (context parallelism)
+    REPLICA = "replica"  # replication dim
+    EXPERT = "expert"  # expert dim (MoE)

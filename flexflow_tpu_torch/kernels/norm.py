@@ -7,7 +7,8 @@ norm.py `_ln_fwd` / `_ln_bwd` (`fused_layernorm`); `rmsnorm_fwd` /
 `softmax_fwd` / `softmax_bwd` replace `_softmax_call` with
 `_softmax_fwd_kernel` / `_softmax_bwd_kernel` (`fused_softmax`);
 `layernorm`, `rmsnorm` and `softmax` are the differentiable ops, saving
-what the JAX custom VJPs save. All normalize
+what the JAX custom VJPs save, but for softmax's y, saved in f32 (see
+`_Softmax`). All normalize
 the trailing axis with leading dims flattened into rows, compute in f32
 and store in x's dtype. The kernels are csrc/norm.cu. On the card all
 are bound by bytes (one read and one write per element, a few operations
@@ -1072,18 +1073,24 @@ class _RMSNorm(torch.autograd.Function):
 
 
 class _Softmax(torch.autograd.Function):
-    """Saves y, as `_fused_softmax_fwd`."""
+    """Saves y in f32: the kernels run on x in f32 and the output is
+    rounded to x's dtype after, so the backward reads the unrounded y and
+    the cotangent in f32, as autograd of the reference lowering
+    `torch.softmax(x.float()).to(x.dtype)` does. (`_fused_softmax_fwd`
+    saves y in x's dtype: in bf16 a probability near 1 rounds 1 - y to 0,
+    and a classifier's gradient through softmax then cross-entropy goes
+    wrong as it learns.)"""
 
     @staticmethod
     def forward(ctx, x):
-        y = softmax_fwd(x)
+        y = softmax_fwd(x.float())
         ctx.save_for_backward(y)
-        return y
+        return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        return softmax_bwd(y, g.contiguous())
+        return softmax_bwd(y, g.float().contiguous()).to(g.dtype)
 
 
 def layernorm(x, gamma=None, beta=None, *, eps: float = 1e-5):
@@ -1102,5 +1109,7 @@ def rmsnorm(x, gamma=None, eps: float = 1e-6):
 
 def softmax(x):
     """Differentiable softmax over the trailing axis through softmax_fwd /
-    softmax_bwd."""
-    return _Softmax.apply(x)
+    softmax_bwd; without a gradient to take, softmax_fwd in x's dtype."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Softmax.apply(x)
+    return softmax_fwd(x)

@@ -11,7 +11,8 @@ rows the per-tier fit reads (obs/collective_bench.py, run as
 `python -m flexflow_tpu_torch.obs.collective_bench`), the merged render
 of many registries (`render_labeled`, `render_merged`: the fleet's
 `/metrics`) and the fleet's `FlightRecorder` (obs/flightrecorder.py).
-The timeline merge comes with `obs/cli.py` (ROADMAP A11)."""
+`reset_all` zeroes the default registry and the tracer. The timeline
+merge comes with `obs/cli.py` (ROADMAP A11 item 2)."""
 from .calibration import (CalibrationReport, CollectiveCalibration,
                           OpCalibration, calibrate)
 from .moe import moe_router_families, publish_moe_metrics, \
@@ -20,19 +21,38 @@ from .refit import (DriftDetector, FittedCoefficients, FittedProfile,
                     FittedProfileError, FittedProfileMismatch, refit)
 from .flightrecorder import DEFAULT_DUMP_KINDS, FlightRecorder
 from .registry import (REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
-                       iter_samples, parse_exposition, render_labeled,
-                       render_merged, validate_exposition)
+                       get_registry, iter_samples, parse_exposition,
+                       render_labeled, render_merged, validate_exposition)
 from .stepstats import (StepStats, model_peak_tflops,
                         model_train_flops_per_step)
-from .tracing import (Tracer, disable_tracing, enable_tracing, get_tracer,
-                      span)
+from .tracing import (Handoff, TraceContext, Tracer, current_context,
+                      current_trace_id, disable_tracing, enable_tracing,
+                      get_tracer, new_trace_id, root_context, span,
+                      traced_dispatch, use_context)
+
+
+def reset_all() -> None:
+    """Zero every metric family of the default registry and drop the
+    tracer's buffered events (JAX `obs.reset_all`): no counter or span
+    state is left over from an earlier run."""
+    REGISTRY.reset_all()
+    reset_moe_publisher()
+    tr = get_tracer()
+    tr.disable()
+    tr.clear()
+
 
 __all__ = ["CalibrationReport", "CollectiveCalibration", "Counter",
-           "DEFAULT_DUMP_KINDS", "DriftDetector", "FlightRecorder", "FittedCoefficients", "FittedProfile",
-           "FittedProfileError", "FittedProfileMismatch", "Gauge",
-           "Histogram", "MetricsRegistry", "OpCalibration", "REGISTRY",
-           "StepStats", "Tracer", "calibrate", "disable_tracing",
-           "enable_tracing", "get_tracer", "iter_samples",
+           "DEFAULT_DUMP_KINDS", "DriftDetector", "FlightRecorder",
+           "FittedCoefficients", "FittedProfile", "FittedProfileError",
+           "FittedProfileMismatch", "Gauge", "Handoff", "Histogram",
+           "MetricsRegistry", "OpCalibration", "REGISTRY", "StepStats",
+           "TraceContext", "Tracer", "calibrate", "current_context",
+           "current_trace_id", "disable_tracing", "enable_tracing",
+           "get_registry", "get_tracer", "iter_samples",
            "model_peak_tflops", "model_train_flops_per_step",
-           "moe_router_families", "parse_exposition", "publish_moe_metrics",
-           "refit", "render_labeled", "render_merged", "reset_moe_publisher", "span", "validate_exposition"]
+           "moe_router_families", "new_trace_id", "parse_exposition",
+           "publish_moe_metrics", "refit", "render_labeled",
+           "render_merged", "reset_all", "reset_moe_publisher",
+           "root_context", "span", "traced_dispatch", "use_context",
+           "validate_exposition"]

@@ -459,6 +459,10 @@ def render_merged(registries: Dict[str, "MetricsRegistry"],
 REGISTRY = MetricsRegistry()
 
 
+def get_registry() -> MetricsRegistry:
+    return REGISTRY
+
+
 # -- exposition-format checking -------------------------------------------
 _SAMPLE_RE = re.compile(
     r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"          # metric name

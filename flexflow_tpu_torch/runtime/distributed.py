@@ -208,12 +208,15 @@ def _run_rank(fn, rank: int, args: Sequence, results) -> None:
 
 
 def spawn(fn: Callable, nprocs: int, args: Sequence = (),
-          timeout_s: float = 120.0) -> List[Any]:
+          timeout_s: float = 120.0, leavers: Sequence[int] = ()
+          ) -> List[Any]:
     """Run fn(rank, *args) in `nprocs` fresh processes (the spawn method)
     and return their results by rank. `fn` must be importable by name and
     its results picklable. Raises RuntimeError with the traceback when a
     rank fails, and TimeoutError when any is still running after
-    `timeout_s`; either way every rank is stopped before it returns."""
+    `timeout_s`; either way every rank is stopped before it returns. A
+    rank of `leavers` may exit without a result, as a crashed peer does:
+    its result is None."""
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_run_rank, args=(fn, r, tuple(args), results))
@@ -223,22 +226,31 @@ def spawn(fn: Callable, nprocs: int, args: Sequence = (),
     got: Dict[int, Any] = {}
     failed: Dict[int, str] = {}
     deadline = time.monotonic() + timeout_s
+    leavers = set(leavers)
+
+    def waiting():
+        return [r for r in range(nprocs) if r not in got and r not in failed
+                and not (r in leavers and procs[r].exitcode is not None)]
+
     try:
         # drain the queue before any join: a child's feeder thread cannot
         # finish (and the child exit) while its result is unread
-        while len(got) + len(failed) < nprocs and not failed:
+        while waiting() and not failed:
             left = deadline - time.monotonic()
             if left <= 0:
                 break
             try:
                 rank, ok, payload = results.get(timeout=min(left, 1.0))
             except queue.Empty:
-                if any(p.exitcode not in (None, 0) for p in procs):
+                if any(p.exitcode not in (None, 0) for r, p in
+                       enumerate(procs) if r not in leavers):
                     time.sleep(0.5)  # a dying rank's report may be in flight
                     if results.empty():
                         break
                 continue
             (got if ok else failed)[rank] = payload
+        # a leaver still running at the deadline is missing like any rank
+        missing = waiting()
     finally:
         for p in procs:
             p.join(timeout=5.0 if (failed or len(got) < nprocs) else 60.0)
@@ -252,12 +264,11 @@ def spawn(fn: Callable, nprocs: int, args: Sequence = (),
     if failed:
         rank = min(failed)
         raise RuntimeError(f"rank {rank} of {nprocs} failed:\n{failed[rank]}")
-    if len(got) < nprocs:
-        missing = sorted(set(range(nprocs)) - set(got))
+    if missing:
         codes = {r: procs[r].exitcode for r in missing}
         if time.monotonic() >= deadline:
             raise TimeoutError(f"ranks {missing} of {nprocs} still running "
                                f"after {timeout_s} s; stopped")
         raise RuntimeError(f"ranks {missing} of {nprocs} exited without a "
                            f"result (exit codes {codes})")
-    return [got[r] for r in range(nprocs)]
+    return [got.get(r) for r in range(nprocs)]

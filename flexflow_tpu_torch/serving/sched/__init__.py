@@ -10,7 +10,7 @@ from .continuous import (BatcherStopped, ContinuousBatcher, GenRequest,
                          HandoffTicket, RequestCancelled, RequestState,
                          ResizeTicket)
 from .kvpool import (KVGeometryMismatch, PagedKVPool, PoolExhausted,
-                     PrefixCache,
+                     PrefixCache, derive_num_slots,
                      kv_bytes_per_token, kv_cache_spec, local_kv_cache_spec,
                      local_rows, prefix_route_chain, prefix_route_key)
 
@@ -19,6 +19,6 @@ __all__ = ["AdmissionController", "AdmissionError", "BatcherStopped",
            "KVGeometryMismatch", "PagedKVPool", "PoolExhausted",
            "PoolSaturated", "PrefixCache", "QueueFull", "RequestCancelled",
            "RequestState", "RequestTooLarge", "ResizeTicket", "SLOExceeded",
-           "kv_bytes_per_token", "kv_cache_spec", "local_kv_cache_spec",
+           "derive_num_slots", "kv_bytes_per_token", "kv_cache_spec", "local_kv_cache_spec",
            "local_rows", "make_shared_prefix_workload", "make_workload",
            "prefix_route_chain", "prefix_route_key", "run_speculative_once"]

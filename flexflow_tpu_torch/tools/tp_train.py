@@ -31,7 +31,10 @@ ContinuousBatcher's construction. A job with an `elastic` spec (see
 `ELASTIC`) trains under the elastic coordinator instead
 (`elastic_job`): its fault plan may take ranks away, so after such a job
 every rank, the lost ones too, joins a fresh process group before the
-next job (`run_rank`).
+next job (`run_rank`); with `exit_in_allreduce` a rank exits mid
+all-reduce, as a crashed peer does. A `collective_timeout` job makes
+rank 0's all-reduce time out and retries it on the same group
+(`collective_timeout`).
 """
 from __future__ import annotations
 
@@ -790,7 +793,77 @@ ELASTIC: Dict[str, Any] = {
     # launches at every step's verdict (`StepProbe`)
     "skip_witness": False,
     "step_launches": False,
+    # (rank, step): that rank exits (os._exit) inside its first
+    # torch.distributed.all_reduce from that step on, as a crashed peer
+    # does mid-collective; spawn it with the rank among `leavers`
+    "exit_in_allreduce": None,
 }
+
+# the exit code of a rank that `exit_in_allreduce` takes away
+EXIT_IN_ALLREDUCE = 17
+
+
+def _exit_in_allreduce(step_of, at_step: int) -> None:
+    """Make this process exit inside its first torch.distributed
+    all_reduce once step_of() >= at_step (the peers' matching call then
+    sees the connection close)."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def all_reduce(*args, **kwargs):
+        if step_of() >= at_step:
+            os._exit(EXIT_IN_ALLREDUCE)
+        return real(*args, **kwargs)
+
+    dist.all_reduce = all_reduce
+
+
+def collective_timeout(spec: Dict[str, Any], device: str) -> Dict[str, Any]:
+    """A collective that only rank 0 joins: every rank makes a group over
+    the world with a `timeout_s` limit; rank 0 dispatches an all-reduce
+    on it through the elastic FailureDetector (its retry policy, no
+    delay), the others never join. Rank 0 reports the first error (the
+    timeout) and its elastic/faults.py class, the error of the retry on
+    the same group and its class, what the dispatch raised, and the
+    detector's events. The ranks then meet at a barrier of the default
+    group."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ..elastic.detector import FailureDetector
+    from ..elastic.faults import classify_error
+    from ..elastic.retry import RetryPolicy
+
+    group = dist.new_group(list(range(dist.get_world_size())),
+                           timeout=datetime.timedelta(
+                               seconds=spec["timeout_s"]))
+    out: Dict[str, Any] = {"rank": dist.get_rank(), "errors": [],
+                           "classes": [], "waits_s": [], "raised": None,
+                           "events": []}
+    if dist.get_rank() == 0:
+        det = FailureDetector(retry_policy=RetryPolicy(base_delay_s=0.0))
+
+        def all_reduce():
+            try:
+                dist.all_reduce(torch.ones(4, device=device), group=group)
+            except Exception as exc:
+                out["errors"].append(f"{type(exc).__name__}: {exc}")
+                out["classes"].append(classify_error(exc))
+                out["waits_s"].append(time.perf_counter() - t0)
+                raise
+
+        t0 = time.perf_counter()
+        try:
+            det.dispatch(all_reduce)
+        except Exception as exc:  # noqa: BLE001 — the error is the result
+            out["raised"] = f"{type(exc).__name__}: {exc}"
+        out["events"] = [[e.kind, e.step, _jsonable(e.details)]
+                         for e in det.events.events()]
+    dist.barrier()
+    return out
 
 
 class StepProbe:
@@ -950,6 +1023,10 @@ def elastic_job(spec: Dict[str, Any], device: str) -> Dict[str, Any]:
 
             coord.drift_refit = refit_hook
     me = dist.get_rank() if dist.is_initialized() else 0
+    if spec["exit_in_allreduce"] is not None and \
+            me == spec["exit_in_allreduce"][0]:
+        _exit_in_allreduce(lambda: coord.detector.current_step,
+                           spec["exit_in_allreduce"][1])
     out: Dict[str, Any] = {"rank": me, "raised": None}
     dev = coord.model.device
     reset_launch_counts()
@@ -1056,6 +1133,8 @@ def run_job(job: Dict[str, Any], device: str) -> Dict[str, Any]:
         return collective_sweep(job["collective_sweep"], device)
     if "elastic" in job:
         return elastic_job(job["elastic"], device)
+    if "collective_timeout" in job:
+        return collective_timeout(job["collective_timeout"], device)
 
     from ..kernels import launch_counts, reset_launch_counts
     from ..runtime import collectives
@@ -1320,16 +1399,17 @@ def run_rank(rank: int, world: int, init_method: str, device: str,
 
 
 def spawn_jobs(world: int, device: str, jobs: List[Dict[str, Any]],
-               timeout_s: float = 900.0,
-               workdir: Optional[str] = None) -> List[Dict[str, Any]]:
+               timeout_s: float = 900.0, workdir: Optional[str] = None,
+               leavers=()) -> List[Dict[str, Any]]:
     """Run `jobs` on `world` spawned ranks (a file:// rendezvous in
-    `workdir`, default a fresh temporary directory); results by rank."""
+    `workdir`, default a fresh temporary directory); results by rank,
+    None for a rank of `leavers` that exited (`exit_in_allreduce`)."""
     from ..runtime.distributed import spawn
 
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         return spawn(run_rank, world, (world, init, device, jobs),
-                     timeout_s=timeout_s)
+                     timeout_s=timeout_s, leavers=leavers)
 
 
 def bench_batch(batch: int = 8, seq: int = 512, vocab: int = 30522):

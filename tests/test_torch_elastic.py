@@ -29,6 +29,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import flexflow_tpu as ff
 from flexflow_tpu import elastic as jel
@@ -126,17 +127,88 @@ def test_call_with_retry_exhaustion_and_topology(lib):
 @pytest.mark.parametrize("message", [
     "DEADLINE_EXCEEDED: tunnel", "DATA_LOSS: chip went away",
     "slice has been preempted", "plain bug", "Connection reset by peer",
-    "NCCL error: unhandled system error, remote process exited",
-    "[../third_party/gloo/gloo/transport/tcp/pair.cc:534] Read error: "
-    "Connection reset by peer", "Timed out waiting 1800000ms for recv",
     "RESOURCE_EXHAUSTED: out of memory"])
 def test_classify_error_patterns(message):
     """classify_error keeps JAX's two pattern lists: the same class for
-    the same text, torch's error texts included."""
+    the same XLA-style text."""
     assert tel.classify_error(RuntimeError(message)) == \
         jel.classify_error(RuntimeError(message))
     assert tel.classify_error(tel.TransientFault("x")) == "transient"
     assert tel.classify_error(tel.TopologyLoss([0])) == "topology"
+
+
+@pytest.mark.parametrize("exc, want", [
+    (RuntimeError("NCCL error: unhandled system error, remote process "
+                  "exited"), "topology"),
+    (RuntimeError("[../third_party/gloo/gloo/transport/tcp/pair.cc:534] "
+                  "Read error: Connection reset by peer"), "topology"),
+    (RuntimeError("Timed out waiting 1800000ms for recv"), "transient"),
+    (RuntimeError("NCCL communicator was aborted on rank 1."), "topology"),
+    (RuntimeError("[Rank 0] Watchdog caught collective operation timeout: "
+                  "WorkNCCL(SeqNum=5, OpType=ALLREDUCE, NumelIn=1, "
+                  "NumelOut=1, Timeout(ms)=600000) ran for 600013 "
+                  "milliseconds before timing out."), "topology"),
+    (RuntimeError("Application timeout caused pair closure"), "topology"),
+    (torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate "
+                                 "2.00 GiB"), "transient"),
+], ids=["nccl-remote-exited", "gloo-reset", "gloo-timeout", "nccl-abort",
+        "nccl-watchdog-timeout", "gloo-pair-closed", "cuda-oom"])
+def test_classify_torch_runtime_errors(exc, want):
+    """torch's, gloo's and NCCL's errors take their XLA analogue's class
+    (a timeout DEADLINE_EXCEEDED's, a lost peer DATA_LOSS's, an out of
+    memory RESOURCE_EXHAUSTED's, this one by its type). An error after
+    which the communicator serves no further collective is topology:
+    NCCL's abort and its watchdog's timeout (which aborts), and gloo's
+    pair closed after a timeout."""
+    assert tel.classify_error(exc) == want
+
+
+def test_gloo_timeout_and_dead_peer_on_two_ranks(tmp_path):
+    """On two gloo ranks: an all-reduce that rank 1 never joins, dispatched
+    through the failure detector, times out on rank 0 with gloo's own
+    text, which classifies transient; the retry on the same group fails
+    at once, gloo having closed the pair, and that text classifies
+    topology, so the detector escalates it (DETECT_TOPOLOGY, TopologyLoss)
+    after one retry. Then, under the elastic coordinator, rank 1 exits
+    inside its step-2 all-reduce. Rank 0's step fails with gloo's lost-peer text, the
+    detector classifies it topology (a DETECT_TOPOLOGY event naming no
+    rank), and the coordinator raises the typed RecoveryFailed with the
+    restart-from-checkpoint hint, not the raw RuntimeError."""
+    from flexflow_tpu_torch.tools.tp_train import spawn_jobs
+
+    x, y = _rand_data(48, 32, 10)
+    jobs = [{"collective_timeout": {"timeout_s": 1.0}},
+            {"elastic": {"widths": MLP32, "batch": 12,
+                         "config": {"search_budget": 0,
+                                    "measure_op_costs": False},
+                         "device_ids": [0, 1],
+                         "coordinator": {"checkpoint_every": 2},
+                         "checkpoint_dir": str(tmp_path / "ckpt"),
+                         "x": x, "y": y, "steps": 6,
+                         "exit_in_allreduce": (1, 2)}}]
+    ranks = spawn_jobs(2, "cpu", jobs, timeout_s=120,
+                       workdir=str(tmp_path), leavers=(1,))
+    assert ranks[1] is None  # rank 1 exited in its all-reduce
+    timeout, run = ranks[0]["jobs"]
+    first, retry = timeout["errors"]
+    assert "Timed out waiting 1000ms for recv" in first
+    assert "Application timeout caused pair closure" in retry
+    assert timeout["classes"] == ["transient", "topology"]
+    assert [e[0] for e in timeout["events"]] == ["retry",
+                                                 "detect.topology_loss"]
+    assert timeout["raised"].startswith("TopologyLoss: ")
+    detect = [e for e in run["events"] if e[0] == "detect.topology_loss"]
+    assert [(e[1], e[2]["chips"]) for e in detect] == [(2, [])]
+    err = detect[0][2]["error"]
+    # gloo reads the dead peer's socket as closed, or as reset when the
+    # peer died with bytes unread (tcp/pair.cc)
+    assert "Connection closed by peer" in err or \
+        "Connection reset by peer" in err
+    assert tel.classify_error(RuntimeError(err)) == "topology"
+    assert run["raised"].startswith("RecoveryFailed: ")
+    assert "restart from the latest checkpoint" in run["raised"]
+    assert "ckpt_000002" in run["raised"]
+    assert "recovery.start" not in [e[0] for e in run["events"]]
 
 
 def test_fault_plan_times_and_spending():

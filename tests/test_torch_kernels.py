@@ -188,6 +188,38 @@ def test_norm_autograd_functions_match_torch(affine):
                                    atol=1e-5)
 
 
+def test_softmax_bf16_gradient_reads_f32_output():
+    """In bf16 the autograd Function saves y in f32: a classifier's
+    gradient through softmax then cross-entropy, with the true class's
+    probability near 1, equals to the bit the reference lowering's
+    (`torch.softmax(x.float()).to(bf16)`), and is within 3e-6 of the f32
+    gradient where the backward on the bf16-rounded y is 2e-5 off."""
+    rng = np.random.RandomState(5)
+    x0 = rng.randn(64, 10).astype(np.float32)
+    lab = torch.from_numpy(rng.randint(0, 10, 64))
+    x0[np.arange(64), lab.numpy()] += 7.0
+
+    def loss(y):
+        return -torch.log_softmax(y.float(), -1)[torch.arange(64),
+                                                 lab].mean()
+
+    def grad(fn, dtype=torch.bfloat16):
+        x = torch.from_numpy(x0).to(torch.bfloat16).to(dtype)
+        x.requires_grad_()
+        return torch.autograd.grad(loss(fn(x)), x)[0].float()
+
+    got = grad(norm.softmax)
+    ref = grad(lambda x: torch.softmax(x.float(), -1).to(x.dtype))
+    f32 = grad(lambda x: torch.softmax(x, -1), torch.float32)
+    y = norm.softmax_fwd(torch.from_numpy(x0).to(torch.bfloat16))
+    yy = y.clone().requires_grad_()
+    rounded = norm.softmax_bwd_plain(
+        y, torch.autograd.grad(loss(yy), yy)[0]).float()
+    assert torch.equal(got, ref)
+    assert (got - f32).abs().max() < 3e-6
+    assert (rounded - f32).abs().max() > 1e-5
+
+
 def test_plain_versions_count_no_launch():
     before = launch_counts()
     x = torch.randn(3, 8)

@@ -32,7 +32,8 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flexflow_tpu', 'transformers'))\n"
+        "             ('jax', 'jaxlib', 'flexflow_tpu', 'transformers',\n"
+        "              'tensorflow', 'tf2onnx'))\n"
         "new = ('flexflow_tpu_torch.kernels.registry',\n"
         "       'flexflow_tpu_torch.kernels.reduction',\n"
         "       'flexflow_tpu_torch.obs.registry',\n"
@@ -78,7 +79,22 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.torch.fx',\n"
         "       'flexflow_tpu_torch.torch.model',\n"
         "       'flexflow_tpu_torch.native.c_model',\n"
-        "       'flexflow_tpu_torch.serving.repository')\n"
+        "       'flexflow_tpu_torch.serving.repository',\n"
+        "       'flexflow_tpu_torch.keras',\n"
+        "       'flexflow_tpu_torch.keras.initializers',\n"
+        "       'flexflow_tpu_torch.keras.regularizers',\n"
+        "       'flexflow_tpu_torch.keras.optimizers',\n"
+        "       'flexflow_tpu_torch.keras.callbacks',\n"
+        "       'flexflow_tpu_torch.keras.layers.core',\n"
+        "       'flexflow_tpu_torch.keras.layers.convolutional',\n"
+        "       'flexflow_tpu_torch.keras.layers.normalization',\n"
+        "       'flexflow_tpu_torch.keras.models.base_model',\n"
+        "       'flexflow_tpu_torch.keras.models.sequential',\n"
+        "       'flexflow_tpu_torch.keras.models.model',\n"
+        "       'flexflow_tpu_torch.keras.datasets._synthetic',\n"
+        "       'flexflow_tpu_torch.keras.preprocessing.text',\n"
+        "       'flexflow_tpu_torch.keras.utils.np_utils',\n"
+        "       'flexflow_tpu_torch.keras_exp.models')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -220,10 +220,14 @@ def test_resize_never_copies_stale_pages(lms):
         b = ContinuousBatcher(pm, max_len=48, num_slots=3, page_size=4,
                               max_queue=8)
         with b:
-            # submitted together, so they land in distinct slots; the
-            # short one finishes first, leaving its rows stale
-            short = b.submit(_prompts([6], seed=1)[0], 2)
-            long_req = b.submit(_prompts([6], seed=2)[0], 30)
+            # both queued under the scheduler's lock, so one admission
+            # pass gives them distinct slots (else the short one may
+            # finish before the long one is submitted, which then reuses
+            # its slot); the short one finishes first, leaving its rows
+            # stale
+            with b._cv:
+                short = b.submit(_prompts([6], seed=1)[0], 2)
+                long_req = b.submit(_prompts([6], seed=2)[0], 30)
             short.result(timeout=WAIT_S)
             _wait_for(lambda: long_req.tokens)
             if resize:

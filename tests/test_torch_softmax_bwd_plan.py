@@ -207,8 +207,10 @@ def test_softmax_bwd_rows_route_sums_lanes_in_a_butterfly():
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_plain_and_emulation_match_pallas_vjp(rows, n, splits, dtype):
     """`fused_softmax`'s VJP through `_softmax_bwd_kernel` in interpret
-    mode against the port's plain version, the route emulation and the
-    autograd Function, on the same y and cotangent."""
+    mode against the port's plain version and the route emulation, on the
+    same y and cotangent; and against the autograd Function, which runs
+    the kernels in f32 on x and the cotangent (saving y in f32), so the
+    VJP there is taken in f32 on the same values and rounded to dtype."""
     rng = np.random.RandomState(rows + n + splits)
     x = rng.randn(rows, n).astype(np.float32) * 3
     g = rng.randn(rows, n).astype(np.float32)
@@ -224,9 +226,15 @@ def test_plain_and_emulation_match_pallas_vjp(rows, n, splits, dtype):
                 norm.softmax_bwd_split_plain(ty, tg, splits)):
         assert got.dtype == tdt
         np.testing.assert_allclose(got.float().numpy(), want, **TOL[tdt])
+    _, vjp32 = jax.vjp(lambda a: fused_softmax(a, block_rows=8,
+                                               interpret=True),
+                       jnp.asarray(x, dtype).astype(jnp.float32))
+    (want32,) = vjp32(jnp.asarray(g, dtype).astype(jnp.float32))
+    want32 = np.asarray(want32.astype(dtype), np.float32)
     tx = torch.from_numpy(x).to(tdt).requires_grad_()
     (dx,) = torch.autograd.grad(norm.softmax(tx), tx, tg)
-    np.testing.assert_allclose(dx.float().numpy(), want, **TOL[tdt])
+    assert dx.dtype == tdt
+    np.testing.assert_allclose(dx.float().numpy(), want32, **TOL[tdt])
 
 
 def test_cpu_softmax_bwd_plans_nothing_and_counts_no_route():
