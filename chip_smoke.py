@@ -600,6 +600,23 @@ Phases, in order; any failure propagates and exits non-zero:
               coordinator raises RecoveryFailed with the
               restart-from-checkpoint hint, within the spawn's time
               limit.
+65. cli     — the command line, `flexflow_tpu_torch.__main__.main(argv)`
+              in this process (each exit code read from its SystemExit,
+              any but 0 fails): `serve-bench` at the flagship serving
+              widths (hidden 1024, 16 heads, 12 layers, vocab 30522,
+              8 slots, pages of 16, prompts 64-448, outputs 16-64, 16
+              requests, max_len 512; f32, as the bench builds it) with
+              the lockstep baseline: every requested token emitted, the
+              continuous run launching the decode, multi-query decode,
+              LayerNorm and softmax kernels and the lockstep run the
+              flash forward; `profile --model bert -b 8` at the full
+              widths (mixed precision, SGD): ok, its BENCH point, and
+              the launches of one fit step equal to the flagship's step
+              with SGD's one update (calibrate's own launches reported
+              apart); `analyze` of examples/strategies/bert_8dev.json on
+              8 chips, in process and through `python -m
+              flexflow_tpu_torch`; `timeline` over the profile's trace,
+              its merged file passing validate_trace.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -8068,6 +8085,215 @@ def phase_elastic_dead_peer(torch):
 DEAD_PEER_LIMIT_S = 120
 
 
+# phase 65: the command line's serve-bench at the flagship serving
+# widths, max_len = 448 + 64 = 512 as in phases 16-19
+CLI_SERVE = ["serve-bench", "--hidden", "1024", "--heads", "16",
+             "--layers", "12", "--vocab", "30522", "--slots", "8",
+             "--page-size", "16", "--prompt-min", "64", "--prompt-max",
+             "448", "--out-min", "16", "--out-max", "64", "--requests", "16"]
+CLI_CONTINUOUS_KERNELS = ("decode_attention", "multiquery_decode_attention",
+                          "layernorm_fwd", "softmax_fwd")
+CLI_LOCKSTEP_KERNELS = ("flash_fwd",)
+# profile's training step: the flagship's, with SGD's one update
+CLI_PROFILE = ["profile", "--model", "bert", "-b", "8"]
+CLI_STEP = {k: n for k, n in TRAIN_PER_STEP.items() if k != "optimizer_adam"}
+CLI_STEP["optimizer_sgd"] = 1
+CLI_ANALYZE = ["analyze", "--model", "bert", "--chips", "8", "--strategy",
+               "examples/strategies/bert_8dev.json", "--json"]
+BERT_ENV = ("FF_BERT_HIDDEN", "FF_BERT_HEADS", "FF_BERT_LAYERS",
+            "FF_BERT_SEQ", "FF_BERT_VOCAB")
+# appended to every subcommand's argv: empty, so each runs on the card
+CLI_DEVICE = []
+
+
+def _cli(argv, out=None):
+    """main(argv) in this process: its exit code from the SystemExit a
+    subcommand raises (0 where it returns); stdout to `out` when given."""
+    import contextlib
+    import io
+
+    from flexflow_tpu_torch.__main__ import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf if out is None else out):
+        try:
+            main(list(argv) + CLI_DEVICE)
+            code = 0
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return code, buf.getvalue()
+
+
+def _counted(owner, name, into):
+    """Wrap owner.name so each call adds its launches to `into` (a list of
+    per-call dicts, routes left out); returns the restore."""
+    from flexflow_tpu_torch.kernels import launch_counts
+
+    fn = getattr(owner, name)
+
+    def wrapped(*a, **kw):
+        before = launch_counts()
+        try:
+            return fn(*a, **kw)
+        finally:
+            after = launch_counts()
+            into.append({k: n - before.get(k, 0) for k, n in after.items()
+                         if n > before.get(k, 0) and "/" not in k})
+
+    setattr(owner, name, wrapped)
+    return lambda: setattr(owner, name, fn)
+
+
+def phase_cli(torch, tmp):
+    """65: the command line in this process (see the module docstring).
+    Returns (line, {path: launches}) for the kernel table."""
+    import flexflow_tpu_torch.obs as obs
+    import flexflow_tpu_torch.serving.sched.bench as sbench
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.obs.cli import validate_trace
+
+    failures = []
+    seconds = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    # serve-bench: the continuous batcher, then the lockstep session
+    t0 = time.perf_counter()
+    cont, lock = [], []
+    undo = [_counted(sbench, "run_continuous", cont),
+            _counted(sbench, "run_lockstep", lock)]
+    report = os.path.join(tmp, "serve_bench.json")
+    reset_launch_counts()
+    try:
+        code, text = _cli(CLI_SERVE + ["--report", report])
+    finally:
+        for u in undo:
+            u()
+    serve_all = {k: n for k, n in launch_counts().items()
+                 if n and "/" not in k}
+    seconds["serve-bench"] = time.perf_counter() - t0
+    print(text, end="", flush=True)
+    if code != 0:
+        failures.append(f"serve-bench exited {code}")
+    rep = json.load(open(report)) if os.path.exists(report) else {}
+    c, base = rep.get("continuous", {}), rep.get("lockstep", {})
+    cfg = rep.get("config", {})
+    requested = sum(w["max_new"] for w in sbench.make_workload(
+        cfg.get("requests", 0), cfg.get("prompt_min", 0),
+        cfg.get("prompt_max", 0), cfg.get("out_min", 0),
+        cfg.get("out_max", 0), cfg.get("vocab", 2), cfg.get("seed", 0)))
+    if c.get("tokens") != requested or c.get("dropped"):
+        failures.append(f"serve-bench: {c.get('tokens')} of {requested} "
+                        f"tokens, {c.get('dropped')} dropped")
+    cont_l = cont[0] if cont else {}
+    lock_l = lock[0] if lock else {}
+    failures += _launches_wrong("serve-bench continuous", cont_l,
+                                present=CLI_CONTINUOUS_KERNELS)
+    failures += _launches_wrong("serve-bench lockstep", lock_l,
+                                present=CLI_LOCKSTEP_KERNELS)
+    serve = {"tokens_per_s": c.get("tokens_per_s"),
+             "lockstep_tokens_per_s": base.get("tokens_per_s"),
+             "speedup": rep.get("speedup"),
+             "ttft_ms_p50": c.get("ttft_ms_p50"),
+             "ttft_ms_p95": c.get("ttft_ms_p95"),
+             "ttft_ms_p99": c.get("ttft_ms_p99"),
+             "latency_ms_p50": c.get("latency_ms_p50"),
+             "latency_ms_p95": c.get("latency_ms_p95"),
+             "tokens": c.get("tokens"), "requested": requested,
+             "exit_code": code, "continuous_launches": cont_l,
+             "lockstep_launches": lock_l}
+
+    # profile: the flagship's widths, the default (mixed precision) config
+    t0 = time.perf_counter()
+    for k in BERT_ENV:
+        os.environ.pop(k, None)
+    out_dir = os.path.join(tmp, "profile_out")
+    fits, cals = [], []
+    undo = [_counted(FFModel, "fit", fits), _counted(obs, "calibrate", cals)]
+    log = open(os.path.join(tmp, "profile.txt"), "w")
+    try:
+        code, _ = _cli(CLI_PROFILE + ["--out", out_dir], out=log)
+    finally:
+        log.close()
+        for u in undo:
+            u()
+    seconds["profile"] = time.perf_counter() - t0
+    lines = open(os.path.join(tmp, "profile.txt")).read().splitlines()
+    summary = json.loads(lines[-1]) if lines else {}
+    bench = (json.load(open(os.path.join(out_dir, "bench.json")))
+             if os.path.exists(os.path.join(out_dir, "bench.json")) else {})
+    if code != 0 or not summary.get("ok"):
+        failures.append(f"profile exited {code}: "
+                        f"{summary.get('problems')}")
+    steps = summary.get("steps_recorded") or 0
+    fit_l = fits[0] if fits else {}
+    want = {k: n * steps for k, n in CLI_STEP.items()}
+    failures += _launches_wrong("profile fit", fit_l, want)
+    if not steps or set(fit_l) - set(want):
+        failures.append(f"profile fit: {steps} steps, launches {fit_l}")
+    profile = {"exit_code": code, "ok": summary.get("ok"),
+               "spans": summary.get("spans"), "steps_recorded": steps,
+               "samples_per_s": bench.get("value"), "mfu": bench.get("mfu"),
+               "predicted_step_us": bench.get("predicted_step_us"),
+               "measured_step_us": bench.get("measured_step_us"),
+               "step_ratio": bench.get("step_ratio"),
+               "backend": bench.get("backend"),
+               "fit_launches": fit_l,
+               "step_launches": {k: n / steps for k, n in fit_l.items()}
+               if steps else {},
+               "calibrate_launches": cals[0] if cals else {},
+               "problems": summary.get("problems")}
+
+    # analyze: in process, then through the module entry
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(repo)
+    try:
+        code, text = _cli(CLI_ANALYZE)
+    finally:
+        os.chdir(cwd)
+    doc = json.loads(text) if code == 0 else {}
+    if code != 0 or not doc.get("ok"):
+        failures.append(f"analyze exited {code}")
+    proc = subprocess.run([sys.executable, "-m", "flexflow_tpu_torch"]
+                          + CLI_ANALYZE + CLI_DEVICE, capture_output=True,
+                          text=True,
+                          timeout=300, cwd=repo)
+    if proc.returncode != 0 or not json.loads(proc.stdout).get("ok"):
+        failures.append(f"python -m analyze exited {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+    analyze = {"exit_code": code, "python_m_exit_code": proc.returncode,
+               "errors": doc.get("errors"), "warnings": doc.get("warnings"),
+               "passes_run": doc.get("passes_run")}
+    seconds["analyze"] = time.perf_counter() - t0
+
+    # timeline over the profile's trace
+    t0 = time.perf_counter()
+    merged = os.path.join(tmp, "timeline.json")
+    code, text = _cli(["timeline", "--trace",
+                       os.path.join(out_dir, "trace.json"), "--out", merged])
+    try:
+        merged_spans = validate_trace(merged)
+    except (OSError, ValueError, KeyError) as e:
+        merged_spans = None
+        failures.append(f"timeline: {e}")
+    if code != 0:
+        failures.append(f"timeline exited {code}")
+    timeline = {"exit_code": code, "summary": json.loads(
+        text.strip().splitlines()[-1]) if code == 0 else None,
+        "valid_span_names": len(merged_spans or [])}
+    seconds["timeline"] = time.perf_counter() - t0
+
+    line = {"phase": "cli", "card": _card_line(), "serve_bench": serve,
+            "profile": profile, "analyze": analyze, "timeline": timeline,
+            "seconds": seconds, "wall_s": sum(seconds.values())}
+    _emit(line)
+    if failures:
+        raise AssertionError(f"cli: {failures}")
+    return line, {"cli-serve-bench": serve_all, "cli-profile-fit": fit_l}
+
+
 def main() -> int:
     import torch
 
@@ -8562,6 +8788,16 @@ def main() -> int:
     phase_elastic_dead_peer(torch)
     print(f"phase 64: {time.perf_counter() - t_dead:.1f} s; phases 63-64: "
           f"{time.perf_counter() - t_keras:.1f} s, "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
+
+    # 65) cli: the command line in this process. Launches: serve-bench's
+    # run, counted from 0 at its start, and profile's fit
+    t_cli = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ff_cli_") as tmp:
+        line, cli_paths = phase_cli(torch, tmp)
+    serving_paths["cli-serve-bench"] = cli_paths["cli-serve-bench"]
+    zoo_paths["cli-profile-fit"] = cli_paths["cli-profile-fit"]
+    print(f"phase 65: {time.perf_counter() - t_cli:.1f} s, "
           f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     # the kernel table, the card, the result. A kernel's launches are

@@ -10,6 +10,7 @@ torch device, CUDA unless the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import List, Optional, Sequence
 
@@ -70,6 +71,9 @@ class FFConfig:
     # FFModel wraps the elastic step's dispatch with it, so fault
     # injection, failure classification and retry ride every dispatch
     elastic_step_wrapper: Optional[object] = None
+    # hosts the devices span (JAX `num_nodes`, `--nodes`): divides them
+    # into `workers_per_node`
+    num_nodes: int = 1
     # 0: SimpleMachineModel, >= 1: TpuPodModel (the two-link ring)
     machine_model_version: int = 0
     # a machine spec file: a "tiers" list is hierarchical, else a topology
@@ -154,6 +158,22 @@ class FFConfig:
     collective_lowering: str = "gspmd"
     export_strategy_file: Optional[str] = None
     import_strategy_file: Optional[str] = None
+    # compile() writes the computation graph (dot) here
+    export_strategy_computation_graph_file: Optional[str] = None
+    # the JAX package's flags of these three fields, parsed and kept; as
+    # in JAX, nothing reads them
+    include_costs_dot_graph: bool = False
+    perform_fusion: bool = False
+    simulator_work_space_size: int = 2 * 1024 * 1024 * 1024
+
+    @classmethod
+    def from_command_line(cls, argv: Optional[Sequence[str]] = None
+                          ) -> "FFConfig":
+        """A config from command-line flags (JAX `from_command_line`): an
+        explicit opt-in, as FFConfig() never reads sys.argv."""
+        cfg = cls()
+        cfg.parse_args(sys.argv[1:] if argv is None else argv)
+        return cfg
 
     @property
     def total_devices(self) -> int:
@@ -171,19 +191,19 @@ class FFConfig:
 
     @property
     def workers_per_node(self) -> int:
-        """The devices of a host: all of them, as the port runs on one
-        host (JAX's divides by its `num_nodes`, which is 1 there too
-        unless `--nodes` says otherwise)."""
-        return max(1, self.total_devices)
+        """The devices of a host (JAX's): the devices over `num_nodes`."""
+        return max(1, self.total_devices // max(1, self.num_nodes))
 
     def get_current_time(self) -> float:
         """Microseconds since the epoch (JAX's, like Legion's
         timestamps)."""
         return time.time() * 1e6
 
-    def parse_args(self, argv: Sequence[str]) -> None:
-        """Set fields from the JAX package's flag spellings of the fields
-        the port has; any other flag raises ValueError naming it."""
+    def parse_args(self, argv: Sequence[str]) -> List[str]:
+        """Set fields from the JAX package's flag spellings; returns the
+        flags it does not know, in order (JAX `parse_args`). A flag that
+        wants a value and has none raises ValueError."""
+        rest: List[str] = []
         args = list(argv)
         i = 0
 
@@ -212,6 +232,8 @@ class FFConfig:
                 self.print_freq = int(take())
             elif a == "--profiling":
                 self.profiling = True
+            elif a == "--fusion":
+                self.perform_fusion = True
             elif a == "--flash-block-q":
                 self.flash_block_q = int(take())
             elif a == "--flash-block-k":
@@ -233,8 +255,14 @@ class FFConfig:
                 self.fitted_profile_file = take()
             elif a == "--op-cost-cache":
                 self.op_cost_cache_file = take()
+            elif a == "--export-strategy-computation-graph-file":
+                self.export_strategy_computation_graph_file = take()
             elif a == "--export-strategy-task-graph-file":
                 self.export_strategy_task_graph_file = take()
+            elif a == "--include-costs-dot-graph":
+                self.include_costs_dot_graph = True
+            elif a == "--simulator-workspace-size":
+                self.simulator_work_space_size = int(take())
             elif a == "--kernel-impl":
                 v = take()
                 from .kernels.registry import KernelRegistry
@@ -250,25 +278,14 @@ class FFConfig:
                 self.grad_bucket_bytes = v
             elif a == "--search-overlap-backward-update":
                 self.search_overlap_backward_update = True
+            elif a == "--nodes":
+                self.num_nodes = int(take())
             elif a in ("--chips", "-ll:gpu"):
                 self.num_devices = int(take())
             elif not self._parse_search_flag(a, take):
-                raise ValueError(f"flag {a!r} is not ported (flags: "
-                                 "--batch-size, --epochs, --iterations, "
-                                 "--steps-per-execution, --learning-rate, "
-                                 "--weight-decay, --print-freq, "
-                                 "--profiling, --flash-block-q, "
-                                 "--flash-block-k, --kernel-impl, --seed, "
-                                 "--kernel-residual-threshold, "
-                                 "--machine-model-version, "
-                                 "--machine-model-file, --machine-spec, "
-                                 "--fitted-profile, --op-cost-cache, "
-                                 "--export-strategy-task-graph-file, "
-                                 "--grad-bucket-bytes, --chips, "
-                                 "--search-overlap-backward-update and "
-                                 "the strategy search's, "
-                                 "FFConfig._parse_search_flag)")
+                rest.append(a)
             i += 1
+        return rest
 
     def _parse_search_flag(self, a: str, take) -> bool:
         """Set a strategy-search field from its JAX spelling (with JAX's
@@ -366,3 +383,32 @@ class FFConfig:
             return False
         return True
 
+
+
+def take_device(argv: List[str], default: str = "cuda") -> str:
+    """Take `--device cuda|cpu` off `argv` (in place) and return it: the
+    command line's device, CUDA unless the caller asks for the CPU. A
+    CUDA request where no card is visible exits with an error; it never
+    falls back to the CPU."""
+    device = default
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            raise SystemExit("missing value for --device")
+        device = argv[i + 1]
+        del argv[i:i + 2]
+    require_device(device)
+    return device
+
+
+def require_device(device: str) -> None:
+    """Exit with an error unless `device` is "cpu", or "cuda" with a card
+    visible."""
+    if device not in ("cuda", "cpu"):
+        raise SystemExit(f"--device {device!r}: cuda or cpu")
+    if device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device visible (--device cpu runs "
+                             "on the CPU)")

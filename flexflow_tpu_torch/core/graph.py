@@ -219,11 +219,13 @@ class Graph:
     def to_dot(self, include_costs: bool = False,
                costs: Optional[Dict[int, float]] = None,
                labels: Optional[Dict[int, str]] = None) -> str:
-        """JAX `Graph.to_dot`: one box a node (name, type, an optional
-        label and cost), one arrow an edge."""
+        """JAX `Graph.to_dot`: one box a node (name, type, its machine view
+        once compiled, an optional label and cost), one arrow an edge."""
         lines = ["digraph PCG {", "  rankdir=TB;"]
         for g, op in sorted(self.ops.items()):
             label = f"{op.name}\\n{op.op_type.value}"
+            if op.machine_view:
+                label += f"\\n{op.machine_view}"
             if labels and g in labels:
                 label += f"\\n{labels[g]}"
             if include_costs and costs and g in costs:

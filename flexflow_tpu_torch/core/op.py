@@ -186,6 +186,9 @@ class Op(nn.Module):
         self.attr_local = False
         self.row_parallel = False
         self.held = True
+        # the plan's device grid (JAX's `machine_view`, the mesh-wide
+        # view), which the dot export labels each node with
+        self.machine_view = None
 
     # -- subclass API -----------------------------------------------------
     def output_shapes(self) -> Tuple[List[Tuple[int, ...]], List[DataType]]:

@@ -51,6 +51,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..config import require_device
+
 
 def _take(argv: List[str], flag: str, default, cast=int):
     """Pop `flag VALUE` from argv (the last occurrence wins), cast;
@@ -94,19 +96,13 @@ def run_drill(argv: Optional[List[str]] = None) -> int:
     if scenario not in SCENARIOS:
         raise SystemExit(f"--scenario {scenario!r}: choices are "
                          f"{', '.join(SCENARIOS)}")
-    if device not in ("cuda", "cpu"):
-        raise SystemExit(f"--device {device!r}: cuda or cpu")
+    require_device(device)
     if scenario == "nan-step":
         kill = 0  # numerics drill: the mesh stays intact
     if kill >= devices:
         raise SystemExit(f"--kill {kill} must leave at least one of "
                          f"--devices {devices} alive")
     if device == "cuda":
-        import torch
-
-        if not torch.cuda.is_available():
-            raise SystemExit("drill: no CUDA device visible (--device cpu "
-                             "runs the ranks on the CPU)")
         from ..kernels import _build
 
         _build.library()  # once, before the ranks start

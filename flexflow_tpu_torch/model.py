@@ -22,7 +22,7 @@ from . import ops as _ops  # noqa: F401  (registers every op type)
 from .parallel import parallel_ops as _parallel_ops
 from .config import FFConfig
 from .core.graph import Graph
-from .core.machine import Mesh, check_axes, make_mesh
+from .core.machine import MachineView, Mesh, check_axes, make_mesh
 from .core.op import OP_REGISTRY, Op
 from .core.tensor import ParallelDim, ParallelTensorShape, Tensor
 from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType,
@@ -673,6 +673,9 @@ class FFModel:
         if training:
             self.opt_state = self.optimizer.init_state(
                 self.executor.parameters())
+        if self.config.export_strategy_computation_graph_file:
+            self.graph.export_dot(
+                self.config.export_strategy_computation_graph_file)
         if self.config.export_strategy_task_graph_file:
             self._export_task_graph(
                 self.config.export_strategy_task_graph_file)
@@ -1111,8 +1114,10 @@ class FFModel:
         strategies = self._op_strategies or {}
         stage = (mesh.index("stage") if mesh is not None
                  and self.executor.pipeline_plan is not None else None)
+        view = mesh.view if mesh is not None else MachineView()
         for op in order:
             s = strategies.get(op.guid)
+            op.machine_view = view
 
             def deg(field, axis_size):
                 return min(getattr(s, field), axis_size) if s else axis_size

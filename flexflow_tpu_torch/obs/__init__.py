@@ -11,8 +11,10 @@ rows the per-tier fit reads (obs/collective_bench.py, run as
 `python -m flexflow_tpu_torch.obs.collective_bench`), the merged render
 of many registries (`render_labeled`, `render_merged`: the fleet's
 `/metrics`) and the fleet's `FlightRecorder` (obs/flightrecorder.py).
-`reset_all` zeroes the default registry and the tracer. The timeline
-merge comes with `obs/cli.py` (ROADMAP A11 item 2)."""
+`reset_all` zeroes the default registry and the tracer. The command
+line's pieces are `obs/cli.py` (`python -m flexflow_tpu_torch profile`,
+`validate_trace`) and `obs/timeline.py` (`merge_timeline`, the
+`timeline` subcommand)."""
 from .calibration import (CalibrationReport, CollectiveCalibration,
                           OpCalibration, calibrate)
 from .moe import moe_router_families, publish_moe_metrics, \
@@ -25,6 +27,7 @@ from .registry import (REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
                        render_labeled, render_merged, validate_exposition)
 from .stepstats import (StepStats, model_peak_tflops,
                         model_train_flops_per_step)
+from .timeline import merge_timeline
 from .tracing import (Handoff, TraceContext, Tracer, current_context,
                       current_trace_id, disable_tracing, enable_tracing,
                       get_tracer, new_trace_id, root_context, span,
@@ -49,7 +52,7 @@ __all__ = ["CalibrationReport", "CollectiveCalibration", "Counter",
            "MetricsRegistry", "OpCalibration", "REGISTRY", "StepStats",
            "TraceContext", "Tracer", "calibrate", "current_context",
            "current_trace_id", "disable_tracing", "enable_tracing",
-           "get_registry", "get_tracer", "iter_samples",
+           "get_registry", "get_tracer", "iter_samples", "merge_timeline",
            "model_peak_tflops", "model_train_flops_per_step",
            "moe_router_families", "new_trace_id", "parse_exposition",
            "publish_moe_metrics", "refit", "render_labeled",

@@ -176,7 +176,7 @@ def _rank_sweep(rank: int, world: int, init: str, device: str,
     distributed.initialize(init, world_size=world, rank=rank, device=device)
     try:
         config = FFConfig(device=device)
-        config.parse_args(list(argv))
+        config.parse_args(list(argv))  # the parent warned of the rest
         result = sweep_collectives(config, sizes, strategies, warmup=warmup,
                                    repeats=repeats)
         result["rows"] = [r.to_dict() for r in result["rows"]]
@@ -185,18 +185,10 @@ def _rank_sweep(rank: int, world: int, init: str, device: str,
         distributed.shutdown()
 
 
-def _take(argv: List[str], flag: str, default, cast=str):
-    if flag not in argv:
-        return default
-    i = argv.index(flag)
-    value = argv[i + 1]
-    del argv[i:i + 2]
-    return cast(value)
-
-
 def run_collective_bench(argv: Optional[List[str]] = None) -> int:
     from ..runtime.distributed import spawn
     from .calibration import CollectiveCalibration
+    from .cli import _take
 
     argv = list(argv or [])
     out_dir = _take(argv, "--out", "collective_bench_out")
@@ -233,7 +225,9 @@ def run_collective_bench(argv: Optional[List[str]] = None) -> int:
     from ..config import FFConfig
 
     config = FFConfig(device=device)
-    config.parse_args(list(argv))  # unknown flags raise here, not on ranks
+    rest = config.parse_args(list(argv))
+    if rest:
+        print(f"warning: unrecognized flags {rest}", file=sys.stderr)
     os.makedirs(out_dir, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")

@@ -1,6 +1,5 @@
-"""The fleet's measurement drivers (the port's copy of
-flexflow_tpu/serving/fleet/bench.py, without its argparse front ends,
-which come with the serve-bench CLI):
+"""The fleet's measurement runs and their serve-bench front ends (the
+port's copy of flexflow_tpu/serving/fleet/bench.py):
 
  - `run_fleet_static`: a shared-prefix tenant mix through N replicas
    behind the Router under one routing policy (leaders first, then the
@@ -21,6 +20,13 @@ Each returns tokens/s, TTFT percentiles, drops, the greedy token lists
 `_warm` runs before any timing, monitor or chaos engine: on the card it
 captures every replica's decode graph and every slot's chunk graph, so
 no capture lands inside a timed or monitored window.
+
+`run_fleet_cli`, `run_chaos_cli` and `run_disagg_cli` are the
+`serve-bench --workload fleet|chaos|disagg` entries (dispatched from
+serving/sched/bench.py `run_bench`, whose argparse namespace they take):
+each builds the LM on `args.device`, makes its runs and holds them to
+the JAX bench's hard checks; chaos with `--artifacts` merges the drill's
+trace, events and flight bundle through obs/timeline.py.
 """
 from __future__ import annotations
 
@@ -642,3 +648,562 @@ def run_disagg_fleet(model, workload, *, roles: List[str], slots: int,
         if coord is not None:
             coord.stop()
         router.shutdown()
+
+
+def run_chaos_cli(args) -> int:
+    """The `serve-bench --workload chaos` entry (dispatched from
+    serving/sched/bench.py): fault-free affine reference first (token
+    parity + baseline p99 TTFT), then the chaos drill against the same
+    request list."""
+    import json
+
+    from .chaos import FleetFaultPlan
+    from ..sched.bench import build_tiny_lm, make_shared_prefix_workload
+
+    n_rep = args.replicas
+    if n_rep < 2:
+        print("[serve-bench] FAIL: chaos needs --replicas >= 2 — the"
+              " failover replays in-flight work on survivors")
+        return 1
+    window = args.prefix_len + args.suffix_max
+    max_len = window + args.out_max
+    print(f"[serve-bench] chaos: {args.requests} sessions over"
+          f" {args.prefix_groups} tenants x {n_rep} replicas of"
+          f" {args.slots} slots | crash victim after"
+          f" +{args.chaos_crash_after} tokens, heartbeat windows"
+          f" {args.chaos_suspect}s/{args.chaos_dead}s")
+    model = build_tiny_lm(args.slots, window, vocab=args.vocab,
+                          hidden=args.hidden, heads=args.heads,
+                          layers=args.layers, device=args.device)
+    workload = make_shared_prefix_workload(
+        args.requests, args.prefix_groups, args.prefix_len,
+        args.suffix_min, args.suffix_max, args.out_min, args.out_max,
+        args.vocab, args.seed)
+    import math
+
+    pages = 2 + args.prefix_groups * math.ceil(
+        (args.prefix_len + args.suffix_max) / args.page_size)
+    common = dict(n_replicas=n_rep, slots=args.slots,
+                  page_size=args.page_size, max_len=max_len,
+                  prefix_cache_pages=pages, deadline_s=args.deadline)
+
+    # the determinism contract the seeded plans pin: same seed, same
+    # schedule — byte-identical describe()
+    names = [f"r{i}" for i in range(n_rep)]
+    determinism_ok = (
+        FleetFaultPlan.randomized(args.chaos_seed, names).describe()
+        == FleetFaultPlan.randomized(args.chaos_seed, names).describe())
+
+    ref = run_fleet_static(model, workload, policy="affine",
+                           slo_ttft_s=None, **common)
+    chaos = run_fleet_chaos(
+        model, workload, crash_after_tokens=args.chaos_crash_after,
+        suspect_after_s=args.chaos_suspect, dead_after_s=args.chaos_dead,
+        probe_interval_s=args.chaos_interval,
+        artifact_dir=args.artifacts, **common)
+
+    def line(tag: str, r: Dict) -> None:
+        print(f"[serve-bench] {tag:12s} {r['tokens']} tokens in"
+              f" {r['wall_s']}s = {r['tokens_per_s']} tok/s |"
+              f" ttft p99 {r['ttft_ms_p99']} ms |"
+              f" dropped={r['dropped']} starved={r['starved']}")
+
+    line("fault-free:", ref)
+    line("chaos:", chaos)
+    print(f"[serve-bench] drill: victim {chaos['victim']!r} |"
+          f" faults {[f['kind'] for f in chaos['faults_fired']]} |"
+          f" dead detected in {chaos['detect_s']}s, respawned in"
+          f" {chaos['recover_s']}s | {chaos['failed_over_requests']}"
+          f" requests failed over ({chaos['failovers']} replays) |"
+          f" health after: {chaos['health_after']}")
+
+    failures: List[str] = []
+    if ref["dropped"] or ref["starved"]:
+        failures.append(
+            f"fault-free reference unhealthy: {ref['dropped']} dropped,"
+            f" {ref['starved']} starved")
+    if chaos["dropped"]:
+        failures.append(
+            f"{chaos['dropped']} requests dropped/short across the"
+            " replica crash — failover must lose nothing")
+    if chaos["starved"]:
+        failures.append(f"{chaos['starved']} requests starved past"
+                        f" {args.deadline}s")
+    parity_bad = sum(1 for a, b in zip(chaos["token_lists"],
+                                       ref["token_lists"]) if a != b)
+    if parity_bad:
+        failures.append(
+            f"{parity_bad} requests' greedy tokens changed across the"
+            " mid-decode failover (vs the fault-free run)")
+    crash_fired = any(f["kind"] == "crash" for f in chaos["faults_fired"])
+    if not crash_fired:
+        failures.append("the scripted crash never fired — the drill"
+                        " tested nothing")
+    if chaos["detect_s"] is None:
+        failures.append(
+            f"victim {chaos['victim']!r} was never declared DEAD")
+    elif chaos["detect_s"] > args.chaos_dead:
+        failures.append(
+            f"DEAD verdict took {chaos['detect_s']}s — outside the"
+            f" {args.chaos_dead}s heartbeat window")
+    if chaos["failed_over_requests"] < 1:
+        failures.append(
+            "no in-flight request was failed over — the crash missed"
+            " the loaded window (raise --requests or lower"
+            " --chaos-crash-after)")
+    if chaos["recover_s"] is None:
+        failures.append(
+            f"victim {chaos['victim']!r} was never respawned")
+    if chaos["health_after"] != "ok":
+        failures.append(
+            f"fleet health is {chaos['health_after']!r} after the"
+            " respawn — expected 'ok'")
+    if not determinism_ok:
+        failures.append(
+            "FleetFaultPlan.randomized is not deterministic by seed")
+    fams = chaos["exposition"]["replica_labeled_families"]
+    for required in ("ff_serving_ttft_ms", "ff_kvpool_pages_used"):
+        if required not in fams:
+            failures.append(
+                f"chaos: {required} missing a replica-labeled series in"
+                " the merged exposition")
+
+    # the observability leg: failover trace continuity, the auto-dumped
+    # post-mortem bundle, and the merged Perfetto timeline
+    timeline_path = None
+    if args.artifacts:
+        import os
+
+        from ...obs.timeline import run_timeline
+
+        cont = chaos["trace_continuity"]
+        tracks = sorted({n for v in cont["multi_track_traces"].values()
+                         for n in v})
+        print(f"[serve-bench] tracing: {cont['stitched']}/"
+              f"{cont['failed_over']} failed-over requests' spans stitch"
+              f" under one trace_id ({cont['mid_decode']} died"
+              f" mid-decode) across replica tracks {tracks} |"
+              f" flight dumps:"
+              f" {len(chaos['artifacts']['flight_dumps'])}")
+        if cont["failed_over"] and cont["stitched"] != cont["failed_over"]:
+            failures.append(
+                f"trace continuity broken: only {cont['stitched']} of"
+                f" {cont['failed_over']} failed-over requests' spans"
+                f" stitch across the dead replica and a survivor"
+                f" (unstitched trace_ids: {cont['unstitched']})")
+        if cont["failed_over"] and not cont["mid_decode"]:
+            failures.append(
+                "no failed-over request died mid-decode — the drill"
+                " never exercised cross-replica span stitching (raise"
+                " --chaos-crash-after or --requests)")
+        if not chaos["artifacts"]["flight_dumps"]:
+            failures.append(
+                "the replica death triggered no flight-recorder"
+                " post-mortem dump")
+        timeline_path = os.path.join(args.artifacts, "timeline.json")
+        rc = run_timeline([
+            "--trace", chaos["artifacts"]["trace"],
+            "--events", chaos["artifacts"]["events"],
+            "--flight", os.path.join(args.artifacts, "flight_recorder"),
+            "--out", timeline_path, "--device", args.device])
+        if rc != 0:
+            failures.append(
+                "the merged post-mortem timeline failed validate_trace")
+
+    blip = (chaos["ttft_ms_p99"] / ref["ttft_ms_p99"]
+            if ref["ttft_ms_p99"] > 0 else 0.0)
+    print(f"[serve-bench] ttft blip: chaos p99 / fault-free p99 ="
+          f" {blip:.2f}x ({chaos['ttft_ms_p99']} /"
+          f" {ref['ttft_ms_p99']} ms)")
+
+    report = {
+        "bench": "serving_fleet_chaos",
+        "config": vars(args),
+        "chips": n_rep,
+        "fault_free": {k: v for k, v in ref.items()
+                       if k != "token_lists"},
+        "chaos": {k: v for k, v in chaos.items() if k != "token_lists"},
+        "parity_mismatches_vs_fault_free": parity_bad,
+        "plan_determinism_ok": determinism_ok,
+        # THE pinned numbers: how big the blast radius of one replica
+        # death is, and how fast the fleet closes it
+        "pinned": {
+            "ttft_blip_x": round(blip, 3),
+            "ttft_ms_p99_under_failover": chaos["ttft_ms_p99"],
+            "dead_detect_s": chaos["detect_s"],
+            "respawn_recover_s": chaos["recover_s"],
+            "failed_over_requests": chaos["failed_over_requests"],
+        },
+    }
+    if args.artifacts:
+        report["timeline"] = timeline_path
+        report["trace_continuity"] = chaos["trace_continuity"]
+        report["flight_dumps"] = chaos["artifacts"]["flight_dumps"]
+        report["pinned"]["stitched_failovers"] = \
+            chaos["trace_continuity"]["stitched"]
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=2, default=str)
+        print(f"[serve-bench] report -> {args.report}")
+    if failures:
+        for f in failures:
+            print(f"[serve-bench] FAIL: {f}")
+        return 1
+    print("[serve-bench] OK")
+    return 0
+
+
+# the default machine that prices the disagg handoff: the JAX bench's,
+# two pods of 8 bridged by DCN (examples/machines/multipod_2x8.json's
+# tiers). The bench places the prefill pool on pod 0 and the decode pool
+# on pod 1, so every KV shipment prices over the DCN hop; a priced time
+# is the model's, not a measurement of this machine.
+_DISAGG_MACHINE_SPEC = {
+    "chip": "tpu-v5e",
+    "num_chips": 16,
+    "tiers": [
+        {"name": "ici", "degree": 8, "gbps": 45.0, "links": 2},
+        {"name": "dcn", "degree": 2, "gbps": 3.125, "links": 1,
+         "latency_us": 10.0},
+    ],
+}
+
+
+def run_disagg_cli(args) -> int:
+    """The `serve-bench --workload disagg` entry (dispatched from
+    serving/sched/bench.py): the SAME prefill-heavy request stream
+    through a unified fleet and a disaggregated (prefill pool + decode
+    pool + KV-handoff plane) fleet at equal chips, with the disagg
+    contract hard-asserted — decode-tail win, token parity, zero drops,
+    one priced handoff per routed request, handoff spans stitched into
+    each request's trace."""
+    import json
+
+    from ..sched.bench import build_tiny_lm, make_workload
+    from ...search.machine_model import (HierarchicalMachineModel,
+                                         load_machine_spec)
+
+    n_rep = args.replicas
+    if n_rep < 2:
+        print("[serve-bench] FAIL: disagg needs --replicas >= 2 — the"
+              " prefill and decode pools are disjoint replicas")
+        return 1
+    n_prefill = max(1, n_rep // 2)
+    n_decode = n_rep - n_prefill
+    window = args.prompt_max
+    max_len = args.prompt_max + args.out_max
+    spec = load_machine_spec(args.machine_spec) if args.machine_spec \
+        else dict(_DISAGG_MACHINE_SPEC)
+    machine = HierarchicalMachineModel.from_json(spec)
+    device_ids = tuple(range(machine.num_chips))
+    concurrency = args.slots * n_decode
+    print(f"[serve-bench] disagg: {args.requests} requests"
+          f" (prompts {args.prompt_min}-{args.prompt_max}, outputs"
+          f" {args.out_min}-{args.out_max}) | unified {n_rep}x{args.slots}"
+          f" slots vs {n_prefill} prefill + {n_decode} decode |"
+          f" window {concurrency} in flight | KV priced on"
+          f" {machine.num_chips}-chip"
+          f" {'/'.join(t['name'] for t in spec['tiers'])} machine")
+    model = build_tiny_lm(args.slots, window, vocab=args.vocab,
+                          hidden=args.hidden, heads=args.heads,
+                          layers=args.layers, device=args.device)
+    workload = make_workload(args.requests, args.prompt_min,
+                             args.prompt_max, args.out_min, args.out_max,
+                             args.vocab, args.seed)
+    common = dict(slots=args.slots, page_size=args.page_size,
+                  max_len=max_len, deadline_s=args.deadline,
+                  concurrency=concurrency,
+                  prefill_chunk=args.prefill_chunk)
+
+    def best_of(**kw) -> Dict:
+        """Best (lowest p99 ITL) of --repeats runs — the ITL comparison
+        is a wall-clock measurement on shared runners, and one
+        descheduling stall in either run would flip the hard assert.
+        Every repeat's drop/starve/handoff counts still gate."""
+        import gc
+
+        runs = []
+        for _ in range(max(1, args.repeats)):
+            gc.collect()  # drop the previous fleet's cache arrays
+            runs.append(run_disagg_fleet(model, workload, **common, **kw))
+        best = min(runs, key=lambda r: r["itl_ms_p99"] or 1e18)
+        best["repeats_dropped"] = sum(r["dropped"] for r in runs)
+        best["repeats_starved"] = sum(r["starved"] for r in runs)
+        if "handoff" in best:
+            best["repeats_handed_off_min"] = min(
+                r["handoff"]["requests_handed_off"] for r in runs)
+        return best
+
+    unified = best_of(roles=["unified"] * n_rep)
+    disagg = best_of(
+        roles=["prefill"] * n_prefill + ["decode"] * n_decode,
+        machine=machine, device_ids=device_ids, trace=True)
+
+    def line(tag: str, r: Dict) -> None:
+        print(f"[serve-bench] {tag:9s} {r['tokens']} tokens in"
+              f" {r['wall_s']}s = {r['tokens_per_s']} tok/s |"
+              f" itl p50/p99 {r['itl_ms_p50']}/{r['itl_ms_p99']} ms"
+              f" ({r['itl_gaps']} gaps) | ttft p99 {r['ttft_ms_p99']} ms |"
+              f" dropped={r['dropped']} starved={r['starved']}")
+
+    line("unified:", unified)
+    line("disagg:", disagg)
+    ho = disagg["handoff"]
+    print(f"[serve-bench] handoff: {ho['committed_run']} committed"
+          f" ({ho['resumed']} resumed, {ho['failed']} failed) |"
+          f" {ho['requests_handed_off']}/{len(workload)} requests |"
+          f" learned {round(ho['bytes_per_token'] or 0.0, 1)} B/token,"
+          f" last priced {round(ho['last_predicted_us'] or 0.0, 1)} us |"
+          f" routes {disagg['routes']}")
+
+    failures: List[str] = []
+    for tag, r in (("unified", unified), ("disagg", disagg)):
+        dropped = r.get("repeats_dropped", r["dropped"])
+        starved = r.get("repeats_starved", r["starved"])
+        if dropped:
+            failures.append(f"{tag}: {dropped} requests dropped/short")
+        if starved:
+            failures.append(f"{tag}: {starved} requests starved past"
+                            f" {args.deadline}s")
+    parity_bad = sum(1 for a, b in zip(disagg["token_lists"],
+                                       unified["token_lists"]) if a != b)
+    if parity_bad:
+        failures.append(
+            f"{parity_bad} requests' greedy tokens changed across the"
+            " prefill->decode handoff (vs the unified fleet)")
+    handed = disagg.get("repeats_handed_off_min",
+                        ho["requests_handed_off"])
+    if handed < len(workload):
+        failures.append(
+            f"only {handed} of {len(workload)} routed requests were"
+            " handed off to the decode pool (the rest resumed locally)")
+    if ho["committed_run"] < len(workload):
+        failures.append(
+            f"{ho['committed_run']} committed handoffs for"
+            f" {len(workload)} requests — every routed request must ship"
+            f" its KV once (last_error: {ho['last_error']})")
+    if not (ho["last_predicted_us"] or 0.0) > 0.0:
+        failures.append(
+            "handoffs were not priced: ff_disagg_predicted_transfer_us"
+            " stayed 0 despite a machine model")
+    missing = [n for n in ("ff_disagg_handoffs_total",
+                           "ff_disagg_handoff_bytes_total",
+                           "ff_disagg_handoff_ms")
+               if n not in ho["disagg_families"]]
+    if missing:
+        failures.append(f"disagg metric families missing from the fleet"
+                        f" exposition: {missing}")
+    tr = disagg["trace"]
+    if tr["stitched"] < len(workload):
+        failures.append(
+            f"handoff trace continuity broken: only {tr['stitched']} of"
+            f" {len(workload)} requests have a fleet.kv_handoff span"
+            f" under their own trace_id (unstitched:"
+            f" {tr['unstitched'][:4]})")
+    ratio = (unified["itl_ms_p99"] / disagg["itl_ms_p99"]
+             if disagg["itl_ms_p99"] > 0 else 0.0)
+    print(f"[serve-bench] disagg win: unified p99 ITL / disagg p99 ITL ="
+          f" {ratio:.2f}x ({unified['itl_ms_p99']} /"
+          f" {disagg['itl_ms_p99']} ms; require >="
+          f" {args.disagg_margin}x)")
+    if ratio < args.disagg_margin:
+        failures.append(
+            f"disaggregation did not protect the decode tail: p99 ITL"
+            f" ratio {ratio:.2f}x < required {args.disagg_margin}x")
+
+    report = {
+        "bench": "serving_disagg",
+        "config": vars(args),
+        "chips": n_rep,
+        "machine": spec,
+        "unified": {k: v for k, v in unified.items()
+                    if k != "token_lists"},
+        "disagg": {k: v for k, v in disagg.items() if k != "token_lists"},
+        "unified_over_disagg_itl_p99": round(ratio, 3),
+        "parity_mismatches_vs_unified": parity_bad,
+        # THE pinned numbers: what phase separation buys the decode tail
+        # at equal chips, and what one KV shipment costs
+        "pinned": {
+            "itl_ms_p99_unified": unified["itl_ms_p99"],
+            "itl_ms_p99_disagg": disagg["itl_ms_p99"],
+            "itl_p99_win_x": round(ratio, 3),
+            "handoffs_committed": ho["committed_run"],
+            "handoff_bytes_per_token": ho["bytes_per_token"],
+            "handoff_predicted_us": ho["last_predicted_us"],
+        },
+    }
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=2, default=str)
+        print(f"[serve-bench] report -> {args.report}")
+    if failures:
+        for f in failures:
+            print(f"[serve-bench] FAIL: {f}")
+        return 1
+    print("[serve-bench] OK")
+    return 0
+
+
+def run_fleet_cli(args) -> int:
+    """The `serve-bench --workload fleet` entry (dispatched from
+    serving/sched/bench.py)."""
+    import json
+
+    from ..sched.bench import build_tiny_lm, make_shared_prefix_workload
+
+    n_rep = args.replicas
+    window = args.prefix_len + args.suffix_max
+    max_len = window + args.out_max
+    min_slots = args.min_slots if args.min_slots is not None \
+        else max(1, args.slots // 2)
+    max_slots = args.max_slots if args.max_slots is not None \
+        else args.slots * 2
+    slo_s = None if args.slo_ttft is None else args.slo_ttft / 1e3
+    print(f"[serve-bench] fleet: {args.requests} sessions over"
+          f" {args.prefix_groups} tenants ({args.prefix_len}-token"
+          f" prefixes) x {n_rep} replicas of {args.slots} slots"
+          f" (autoscale {min_slots}..{max_slots}),"
+          f" slo_ttft={args.slo_ttft} ms")
+    model = build_tiny_lm(args.slots, window, vocab=args.vocab,
+                          hidden=args.hidden, heads=args.heads,
+                          layers=args.layers, device=args.device)
+    workload = make_shared_prefix_workload(
+        args.requests, args.prefix_groups, args.prefix_len,
+        args.suffix_min, args.suffix_max, args.out_min, args.out_max,
+        args.vocab, args.seed)
+    # shuffle the FOLLOWER arrival order (same permutation for all three
+    # runs, so per-index parity still compares like with like): the
+    # generator emits tenants cyclically, and a cyclic tenant stream is
+    # exactly the pattern a round-robin router accidentally routes
+    # affine — real tenant arrivals are interleaved, not modular
+    rng = np.random.RandomState(args.seed + 1)
+    fidx = [i for i, w in enumerate(workload) if not w["leader"]]
+    shuffled = [workload[i] for i in rng.permutation(fidx)]
+    for i, w in zip(fidx, shuffled):
+        workload[i] = w
+    import math
+
+    pages = 2 + args.prefix_groups * math.ceil(
+        (args.prefix_len + args.suffix_max) / args.page_size)
+
+    common = dict(n_replicas=n_rep, slots=args.slots,
+                  page_size=args.page_size, max_len=max_len,
+                  prefix_cache_pages=pages, slo_ttft_s=slo_s,
+                  deadline_s=args.deadline)
+
+    def best_of(policy: str) -> Dict:
+        """Best (lowest steady-state p99) of --repeats runs: the routing
+        comparison is a wall-clock measurement on shared runners, and a
+        single descheduling stall in either run would flip a hard
+        assert. Every repeat's drop/starve counts still gate."""
+        import gc
+
+        runs = []
+        for _ in range(max(1, args.repeats)):
+            gc.collect()  # drop the previous fleet's cache arrays
+            runs.append(run_fleet_static(model, workload, policy=policy,
+                                         **common))
+        best = min(runs, key=lambda r: r["ttft_steady_ms_p99"] or 1e18)
+        best["repeats_dropped"] = sum(r["dropped"] for r in runs)
+        best["repeats_starved"] = sum(r["starved"] for r in runs)
+        return best
+
+    rr = best_of("round_robin")
+    affine = best_of("affine")
+    auto = run_fleet_autoscale(
+        model, workload, min_slots=min_slots, max_slots=max_slots,
+        **common)
+
+    def line(tag: str, r: Dict) -> None:
+        # the one-line summary, p99 TTFT split by cache outcome — the
+        # affine-routing win must be readable off two BENCH lines
+        print(f"[serve-bench] {tag:18s} {r['tokens']} tokens in"
+              f" {r['wall_s']}s = {r['tokens_per_s']} tok/s"
+              f" ({r['tokens_per_s_per_chip']}/chip) |"
+              f" ttft p99 {r['ttft_ms_p99']} ms"
+              f" (hit {r['ttft_hit_ms_p99']} / miss"
+              f" {r['ttft_miss_ms_p99']} ms,"
+              f" {r['hits']}h/{r['misses']}m) |"
+              f" dropped={r['dropped']} starved={r['starved']}")
+
+    line("round-robin:", rr)
+    line("affine:", affine)
+    line("affine+autoscale:", auto)
+    applied = [(r["replica"], r["from"], r["to"]) for r in auto["resizes"]]
+    print(f"[serve-bench] autoscale: {auto['grows_applied']} grows +"
+          f" {auto['shrinks_applied']} shrinks applied ({applied}),"
+          f" drained {auto['drained_replica']!r}"
+          f" (handed off {auto['drain']['handed_off']},"
+          f" kept {auto['drain']['kept']}), sheds {auto['shed_retries']}")
+
+    failures: List[str] = []
+    for tag, r in (("round-robin", rr), ("affine", affine),
+                   ("autoscale", auto)):
+        dropped = r.get("repeats_dropped", r["dropped"])
+        starved = r.get("repeats_starved", r["starved"])
+        if dropped:
+            failures.append(f"{tag}: {dropped} requests dropped/short")
+        if starved:
+            failures.append(
+                f"{tag}: {starved} requests starved past"
+                f" {args.deadline}s")
+    parity_bad = sum(1 for a, b in zip(auto["token_lists"],
+                                       affine["token_lists"]) if a != b)
+    if parity_bad:
+        failures.append(
+            f"{parity_bad} requests' greedy tokens changed across the"
+            " autoscale grow+shrink cycle (vs the no-resize affine run)")
+    if auto["grows_applied"] < 1 or auto["shrinks_applied"] < 1:
+        failures.append(
+            f"autoscale cycle incomplete: {auto['grows_applied']} grows,"
+            f" {auto['shrinks_applied']} shrinks applied (need >= 1 each)")
+    ratio = (rr["ttft_steady_ms_p99"] / affine["ttft_steady_ms_p99"]
+             if affine["ttft_steady_ms_p99"] > 0 else 0.0)
+    print(f"[serve-bench] affine win: rr steady-state p99 / affine"
+          f" steady-state p99 = {ratio:.2f}x"
+          f" ({rr['ttft_steady_ms_p99']} / {affine['ttft_steady_ms_p99']}"
+          f" ms; leaders excluded — require >= {args.affine_margin}x)")
+    if ratio < args.affine_margin:
+        failures.append(
+            f"prefix-affine routing did not beat round-robin:"
+            f" steady-state p99 TTFT ratio {ratio:.2f}x < required"
+            f" {args.affine_margin}x")
+    for tag, r in (("affine", affine), ("autoscale", auto)):
+        fams = r["exposition"]["replica_labeled_families"]
+        for required in ("ff_serving_ttft_ms", "ff_serving_queue_depth",
+                         "ff_kvpool_pages_used"):
+            if required not in fams:
+                failures.append(
+                    f"{tag}: {required} missing a replica-labeled series"
+                    " in the merged exposition")
+
+    report = {
+        "bench": "serving_fleet",
+        "config": vars(args),
+        "chips": n_rep,
+        "round_robin": {k: v for k, v in rr.items()
+                        if k != "token_lists"},
+        "affine": {k: v for k, v in affine.items() if k != "token_lists"},
+        "autoscale": {k: v for k, v in auto.items()
+                      if k != "token_lists"},
+        "affine_over_rr_ttft_p99": round(ratio, 3),
+        "parity_mismatches_vs_noresize": parity_bad,
+        # THE pinned numbers: fleet throughput per chip and tail TTFT
+        # while meshes resize underneath the traffic
+        "pinned": {
+            "tokens_per_s_per_chip": auto["tokens_per_s_per_chip"],
+            "ttft_ms_p99_under_resize": auto["ttft_ms_p99"],
+            "ttft_hit_ms_p99_under_resize": auto["ttft_hit_ms_p99"],
+            "ttft_miss_ms_p99_under_resize": auto["ttft_miss_ms_p99"],
+        },
+    }
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=2, default=str)
+        print(f"[serve-bench] report -> {args.report}")
+    if failures:
+        for f in failures:
+            print(f"[serve-bench] FAIL: {f}")
+        return 1
+    print("[serve-bench] OK")
+    return 0

@@ -94,7 +94,11 @@ def test_import_loads_neither_jax_nor_flexflow_tpu():
         "       'flexflow_tpu_torch.keras.datasets._synthetic',\n"
         "       'flexflow_tpu_torch.keras.preprocessing.text',\n"
         "       'flexflow_tpu_torch.keras.utils.np_utils',\n"
-        "       'flexflow_tpu_torch.keras_exp.models')\n"
+        "       'flexflow_tpu_torch.keras_exp.models',\n"
+        "       'flexflow_tpu_torch.__main__',\n"
+        "       'flexflow_tpu_torch.obs.cli',\n"
+        "       'flexflow_tpu_torch.obs.timeline',\n"
+        "       'flexflow_tpu_torch.analysis.cli')\n"
         "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -3,8 +3,7 @@ obs/, parallel/, serving/sched/) against the JAX package's: every name
 JAX exports resolves in the port, and the ones that compute something
 (MachineView's addressing and hash, MachineResource, FFIterationConfig,
 FFConfig.workers_per_node and get_current_time, the enums, obs.reset_all)
-agree with JAX's on the same inputs. `obs.merge_timeline` comes with
-obs/timeline.py (ROADMAP A11 item 2)."""
+agree with JAX's on the same inputs."""
 import time
 
 import pytest
@@ -20,7 +19,7 @@ import flexflow_tpu_torch.serving.sched as psched
 from flexflow_tpu import ffconst as jconst
 from flexflow_tpu_torch import ffconst as pconst
 
-LATER = {"merge_timeline"}
+LATER = set()
 
 
 @pytest.mark.parametrize("jmod, pmod", [

@@ -580,5 +580,10 @@ def test_new_signatures_and_config_flags():
     cfg.parse_args(["--collective-lowering", "explicit"])
     jcfg.parse_args(["--collective-lowering", "explicit"])
     assert cfg.collective_lowering == jcfg.collective_lowering == "explicit"
-    with pytest.raises(ValueError, match="not ported"):
-        cfg.parse_args(["--nodes", "2"])
+    # --nodes sets JAX's fields; an unknown flag comes back, as in JAX
+    for c in (cfg, jcfg):
+        c.num_devices = 8
+        assert c.parse_args(["--nodes", "2", "--bogus", "-b", "4"]) == \
+            ["--bogus"]
+    assert (cfg.num_nodes, cfg.workers_per_node, cfg.batch_size) == \
+        (jcfg.num_nodes, jcfg.workers_per_node, jcfg.batch_size) == (2, 4, 4)
