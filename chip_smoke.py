@@ -144,7 +144,8 @@ Phases, in order; any failure propagates and exits non-zero:
               eagerly, with steps_per_execution=4, with accum_steps=2 and
               through attached (shuffled) dataloaders: eval accuracy > 0.9
               each, the K=4 run's losses those of the eager run, the eager
-              run's launches per step asserted.
+              run's launches per step asserted; prints the loaders'
+              backend (native: the prefetch ring of phase 66's library).
 16. serve-graph — one decode iteration and one prefill chunk of the serve
               LM through the eager walk and through a graph replay, on
               the same caches and inputs: probabilities, picks and cache
@@ -341,7 +342,9 @@ Phases, in order; any failure propagates and exits non-zero:
               analysis reported an error, or a rank past the mesh
               trained. Rank 0 also runs the analytic search of the same
               graph for h100-sxm x 4 twice: the second must be a
-              plan-cache hit with the same plan. Prints the plan (axes,
+              plan-cache hit with the same plan (each run's backend
+              printed: native, the core of phase 66, or cache). Prints
+              the plan (axes,
               ops by (dp, tp), the ops below the data degree or above tp
               1), the predicted step, the search's wall, the cost cache's
               hits, misses and failures, the candidates simulated and
@@ -484,7 +487,9 @@ Phases, in order; any failure propagates and exits non-zero:
               checkpoint bytes.
 54. elastic-drill — `python -m flexflow_tpu_torch.elastic.drill
               --scenario live-reshard --devices 4` on ranks sharing the
-              card: it exits 0; its JSON line is printed.
+              card: it exits 0; its JSON line is printed, and the backend
+              of each search in the live run's trace (compile's and the
+              re-plans').
 
 55. fleet   — two replicas of 8 slots (max_len 1024, page 16) sharing
               the serve LM's weights behind the fleet Router: the
@@ -617,6 +622,31 @@ Phases, in order; any failure propagates and exits non-zero:
               8 chips, in process and through `python -m
               flexflow_tpu_torch`; `timeline` over the profile's trace,
               its merged file passing validate_trace.
+66. native  — the native core (flexflow_tpu_torch/native: the port's
+              copy of libffcore, built with g++ from csrc/ffcore into
+              _build/ at first use): (a) the build, its seconds and
+              version; (b) on the 8-card host (TpuPodModel(8,
+              h100-sxm)) at search_budget 10, the flagship BERT and
+              ResNet-50 (batch 16, 224 px) at their widths: the native
+              topological order a valid one (the flagship's equal to
+              Python's), the bottlenecks equal to Python's, the native
+              plan feasible, unity_optimize with measure_op_costs off
+              dispatching to the core (one search span, backend native)
+              and adopting its plan; the Python search's plan, cost and
+              wall beside it; (c) the flagship on one card fed by two
+              native SingleDataLoaders (tokens, labels; shuffled, one
+              seed) over 64 samples, one epoch of 8 steps: losses within
+              1e-6 relative of the same steps from the same weights given
+              the batches a second pair of BatchStreams yields, exactly
+              the flagship step's launches 8 times and no other kernel of
+              the table (one card: compile searches nothing); (d)
+              examples/c/mlp.c compiled with gcc against the library
+              (into _build/) and run: its native search result, and its
+              exported spec through model_from_spec on the card, predict
+              within 1e-5 of build_mnist_mlp given the same weights, 3
+              SGD losses within 1e-5 of its; (e) a record: next_batch ms
+              of the ring (copied and as a view) against the numpy
+              gather at the flagship's and ResNet-50's batches.
 
 Prints one JSON line per phase, then the kernel table
 ({"kernels": [...]}), the card's name and power limit, and last
@@ -2399,6 +2429,8 @@ def phase_search(torch, train_losses):
         "diagnostics": diag,
         "ranks_on_mesh": len(on_mesh), "ranks_past_mesh": len(past),
         "analytic": {"axes": first_run["axes"],
+                     "backends": [first_run["backend"],
+                                  second_run["backend"]],
                      "equals_measured": (first_run["axes"], first_run["ops"])
                      == (plan["axes"], plan["ops"]),
                      "predicted_step_ms":
@@ -2934,6 +2966,8 @@ def phase_mlp(torch, epochs=12):
                      "eval": ev, "seconds": time.perf_counter() - t0,
                      "optimizer_steps": int(m.opt_state["step"]),
                      "launches": {kk: launches[kk] for kk in MLP_PER_STEP}}
+        if name == "dataloader":
+            out[name]["backend"] = m._dataloaders[0].backend
         if not (ev["accuracy"] > 0.9 and np.all(np.isfinite(
                 out[name]["losses"]))):
             raise AssertionError(f"mlp {name}: {out[name]}")
@@ -6434,20 +6468,34 @@ def phase_elastic_nan(torch, steps=10):
 def phase_elastic_drill(torch):
     """54: the port's drill, --scenario live-reshard on four ranks sharing
     the card; exits 0, its JSON line kept."""
+    import tempfile
+
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "flexflow_tpu_torch.elastic.drill",
-         "--scenario", "live-reshard", "--devices", str(ELASTIC_RANKS),
-         "--device", "cuda"], capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"elastic drill exited {proc.returncode}: "
-                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory(prefix="ff_drill_trace_") as tmp:
+        trace = os.path.join(tmp, "drill.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "flexflow_tpu_torch.elastic.drill",
+             "--scenario", "live-reshard", "--devices", str(ELASTIC_RANKS),
+             "--device", "cuda", "--trace-out", trace], capture_output=True,
+            text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"elastic drill exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-2000:]}")
+        # the live run's leader: each search (compile's and the re-plans',
+        # the background planner's too) by backend
+        backends = []
+        if os.path.exists(trace):
+            with open(trace) as f:
+                backends = [ev.get("args", {}).get("backend")
+                            for ev in json.load(f).get("traceEvents", [])
+                            if ev.get("name") == "search"]
     summary = json.loads(lines[-1])
     return {"phase": "elastic-drill", "exit_code": proc.returncode,
-            "wall_s": wall, "summary": summary}
+            "wall_s": wall, "search_backends": backends, "summary": summary}
 
 
 # the fleet phases (55-58): the serve LM's widths, two replicas of 8
@@ -8294,6 +8342,399 @@ def phase_cli(torch, tmp):
     return line, {"cli-serve-bench": serve_all, "cli-profile-fit": fit_l}
 
 
+# phase 66: the native core (flexflow_tpu_torch/native, its libffcore
+# built with g++ from csrc/ffcore): the search at full width on the
+# 8-card host, a loader-fed flagship fit, the C program
+NATIVE_GRAPHS = ("bert", "resnet50")  # tools/zoo_train.py ZOO entries
+NATIVE_CHIPS = 8
+NATIVE_SAMPLES = 64  # 8 flagship batches: one epoch of the loaders
+NATIVE_SEED = 66
+NATIVE_FIT_REL = 1e-6
+NATIVE_LOADER_CALLS = 50
+NATIVE_C_STEPS = 3
+
+
+def _topo_valid(graph, order):
+    """`order` names every op of `graph` once, each after its inputs."""
+    pos = {g: i for i, g in enumerate(order)}
+    return (sorted(order) == sorted(graph.ops)
+            and all(pos[e.src] < pos[e.dst] for e in graph.edges()))
+
+
+def _plan_feasible(graph, res, batch, n):
+    """Every op has a strategy within the mesh, its data degree divides
+    the batch, and the mesh fits on `n` chips."""
+    size = math.prod(res.mesh_axes.values()) if res.mesh_axes else 1
+    bad = [graph.ops[g].name for g, s in res.strategies.items()
+           if s.dp > res.mesh_axes.get("data", 1) or batch % s.dp
+           or s.tp > res.mesh_axes.get("model", 1)]
+    return (n % size == 0 and not bad
+            and set(res.strategies) == set(graph.ops)
+            and math.isfinite(res.cost_us) and res.cost_us > 0), bad
+
+
+def _native_search(name):
+    """66(b) for one zoo graph: the protocol's graph algorithms against the
+    Python ones, the native plan, the dispatch from unity_optimize (its
+    search span), and the Python search's plan beside it, each timed."""
+    import flexflow_tpu_torch as pt
+    import flexflow_tpu_torch.models  # noqa: F401
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.core.graph import Graph
+    from flexflow_tpu_torch.obs.tracing import disable_tracing, \
+        enable_tracing
+    from flexflow_tpu_torch.search import plan_cache
+    from flexflow_tpu_torch.search.machine_model import CHIP_SPECS, \
+        TpuPodModel
+    from flexflow_tpu_torch.search.unity import unity_optimize
+    from flexflow_tpu_torch.tools.zoo_train import ZOO
+
+    spec = ZOO[name]
+    batch = spec["batch"]
+    machine = TpuPodModel(NATIVE_CHIPS, CHIP_SPECS["h100-sxm"])
+
+    def graph(use_native):
+        m = pt.FFModel(pt.FFConfig(
+            batch_size=batch, device="cuda", measure_op_costs=False,
+            search_budget=SEARCH_BUDGET, use_native_search=use_native))
+        spec["build"](m, pt)
+        return m.config, Graph(m.ops)
+
+    def plan(res, g):
+        return {g.ops[k].name: [s.dp, s.tp, s.sp, s.ep, s.ap, int(s.tp_row)]
+                for k, s in res.strategies.items()}
+
+    failures = []
+    cfg, g = graph(True)
+    n_ops = len(g.ops)
+    order = native.topo_order(g)
+    python_order = [op.guid for op in g.topo_order()]
+    bottlenecks = native.bottlenecks(g)
+    if not _topo_valid(g, order):
+        failures.append(f"{name}: native topo order is not one of the graph")
+    if bottlenecks != [op.guid for op in g.bottleneck_nodes()]:
+        failures.append(f"{name}: native bottlenecks differ from Python's")
+    if name == "bert" and order != python_order:
+        failures.append(f"{name}: native topo order differs from Python's")
+    t0 = time.perf_counter()
+    direct = native.optimize_strategy(g, cfg, machine, batch, NATIVE_CHIPS)
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    ok, bad = _plan_feasible(g, direct, batch, NATIVE_CHIPS)
+    if not ok:
+        failures.append(f"{name}: native plan infeasible {direct.mesh_axes} "
+                        f"{bad[:5]}")
+    plan_cache.reset_plan_cache()
+    cfg, g = graph(True)
+    tracer = enable_tracing()
+    tracer.clear()
+    try:
+        t0 = time.perf_counter()
+        res = unity_optimize(g, cfg, machine, batch, NATIVE_CHIPS)
+        unity_ms = (time.perf_counter() - t0) * 1e3
+        backends = [e["args"].get("backend") for e in tracer.events("search")]
+    finally:
+        tracer.clear()
+        disable_tracing()
+    # unity_optimize applied its greedy rewrites to g first: the native
+    # core on the rewritten graph is the plan it adopted
+    adopted = native.optimize_strategy(g, cfg, machine, batch, NATIVE_CHIPS)
+    if res.log[0] != "native ffcore search" or backends != ["native"]:
+        failures.append(f"{name}: unity_optimize took {res.log[:2]}, "
+                        f"search spans {backends}")
+    if (plan(res, g), res.mesh_axes, res.cost_us) != (
+            plan(adopted, g), adopted.mesh_axes, adopted.cost_us):
+        failures.append(f"{name}: unity_optimize's plan is not the native "
+                        f"core's")
+    plan_cache.reset_plan_cache()
+    cfg, gp = graph(False)
+    t0 = time.perf_counter()
+    py = unity_optimize(gp, cfg, machine, batch, NATIVE_CHIPS)
+    python_ms = (time.perf_counter() - t0) * 1e3
+    plan_cache.reset_plan_cache()
+    native_plan, python_plan = plan(res, g), plan(py, gp)
+    rewrites = [ln for ln in res.log if ln.startswith("substitutions: ")]
+    return {
+        "graph": name, "source": spec["source"], "batch": batch,
+        "ops": n_ops, "ops_after_rewrites": len(g.ops),
+        "topo_equals_python": order == python_order,
+        "bottlenecks": len(bottlenecks),
+        "native": {"axes": res.mesh_axes, "cost_us": res.cost_us,
+                   "optimize_strategy_ms": direct_ms,
+                   "unity_optimize_ms": unity_ms,
+                   "search_wall_ms": res.search_wall_ms,
+                   "factorizations": [ln for ln in res.log
+                                      if ln.startswith("dp=")],
+                   "rewrites": rewrites[0].count("(") if rewrites else 0},
+        "python": {"axes": py.mesh_axes, "cost_us": py.cost_us,
+                   "unity_optimize_ms": python_ms,
+                   "search_wall_ms": py.search_wall_ms,
+                   "candidates_simulated": py.candidates_simulated,
+                   "rewrites": len(py.applied_rewrites)},
+        "ops_off_python_plan": sum(
+            1 for k, v in native_plan.items() if python_plan.get(k) != v),
+        "wall_ratio_python_over_native": python_ms / unity_ms,
+    }, failures
+
+
+def _native_fit(torch):
+    """66(c): the flagship (TRAIN's widths) fed by two native loaders over
+    NATIVE_SAMPLES samples, one epoch, against the same steps from the
+    same weights given explicitly the batches a second pair of
+    BatchStreams yields. Returns (record, launches, failures)."""
+    import numpy as np
+
+    import flexflow_tpu_torch as pt
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.kernels import launch_counts, \
+        reset_launch_counts
+    from flexflow_tpu_torch.models import TransformerConfig, \
+        build_bert_encoder
+
+    b, seq = TRAIN["batch"], TRAIN["seq"]
+    rng = np.random.RandomState(NATIVE_SEED)
+    x = rng.randint(0, TRAIN["vocab"], size=(NATIVE_SAMPLES, seq)).astype(
+        np.int32)
+    y = rng.randint(0, 2, size=(NATIVE_SAMPLES, seq, 1)).astype(np.int32)
+    steps = NATIVE_SAMPLES // b
+
+    def build():
+        # bench.py's flagship (tools/train_profile.py build_bench_model)
+        # under the search knobs of 66(b); one card: compile searches
+        # nothing (the search runs for more than one device)
+        m = pt.FFModel(pt.FFConfig(
+            batch_size=b, allow_mixed_precision=True, device="cuda",
+            measure_op_costs=False, search_budget=SEARCH_BUDGET))
+        tokens = m.create_tensor([b, seq], pt.DataType.DT_INT32)
+        build_bert_encoder(m, tokens,
+                           TransformerConfig(num_layers=TRAIN["layers"]))
+        m.compile(optimizer=pt.AdamOptimizer(m, alpha=1e-4,
+                                             moments_dtype=torch.bfloat16),
+                  loss_type=pt.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  metrics=[pt.MetricsType.METRICS_ACCURACY],
+                  generator=torch.Generator().manual_seed(0))
+        return m
+
+    failures = []
+    m = build()
+    init = {op: {w: t.cpu().clone() for w, t in ws.items()}
+            for op, ws in m.params.items()}
+    loaders = [pt.SingleDataLoader(m, m.input_ops[0].outputs[0], x,
+                                   shuffle=True, seed=NATIVE_SEED),
+               pt.SingleDataLoader(m, m.label_tensor, y, shuffle=True,
+                                   seed=NATIVE_SEED)]
+    backends = [dl.backend for dl in loaders]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m.fit(epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: n for k, n in launch_counts().items() if n}
+    losses = [r["loss"] for r in m.step_stats.records()]
+    searched = m.search_result is not None
+    del m, loaders
+    torch.cuda.empty_cache()
+    ref = build()
+    ref.load_params(init)
+    streams = [native.BatchStream(x, b, shuffle=True, seed=NATIVE_SEED),
+               native.BatchStream(y, b, shuffle=True, seed=NATIVE_SEED)]
+    ref_losses = []
+    for _ in range(steps):
+        xb, yb = (s.next_batch().copy() for s in streams)
+        ref.fit(xb, yb, batch_size=b, epochs=1)
+        ref_losses += [r["loss"] for r in ref.step_stats.records()]
+    for s in streams:
+        s.close()
+    del ref
+    torch.cuda.empty_cache()
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses, ref_losses))
+    if backends != ["native", "native"]:
+        failures.append(f"fit: loader backends {backends}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or \
+            rel > NATIVE_FIT_REL:
+        failures.append(f"fit: losses {losses} vs explicit batches "
+                        f"{ref_losses} (relative {rel})")
+    want = {k: n * steps for k, n in {**TRAIN_PER_STEP,
+                                      **TRAIN_ROUTES_PER_STEP}.items()}
+    failures += _launches_wrong("fit", launches, want)
+    others = {k: n for k, n in launches.items()
+              if "/" not in k and k not in TRAIN_PER_STEP}
+    if others:
+        failures.append(f"fit: other kernels launched {others}")
+    return {"samples": NATIVE_SAMPLES, "batch": b, "steps": steps,
+            "loader_backends": backends, "compile_searched": searched,
+            "losses": losses, "explicit_batch_losses": ref_losses,
+            "max_relative_loss_diff": rel, "fit_s": fit_s,
+            "launches": {k: n for k, n in launches.items()
+                         if "/" not in k}}, launches, failures
+
+
+def _native_c_program(torch, tmp):
+    """66(d): examples/c/mlp.c compiled with gcc against the port's
+    library (into _build/), run in `tmp`; its exported spec through
+    model_from_spec on the card against build_mnist_mlp given the same
+    weights, then NATIVE_C_STEPS SGD steps."""
+    import shutil
+
+    import numpy as np
+
+    import flexflow_tpu_torch as pt
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.models import build_mnist_mlp
+    from flexflow_tpu_torch.native.c_model import model_from_spec
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    lib = native.library_path()
+    exe = lib.parent / f"mlp_c_{lib.stem[len('libffcore_'):]}"
+    cc = shutil.which("gcc") or shutil.which("cc")
+    t0 = time.perf_counter()
+    build = subprocess.run(
+        [cc, os.path.join(repo, "examples", "c", "mlp.c"), "-o", str(exe),
+         f"-L{lib.parent}", f"-l:{lib.name}", f"-Wl,-rpath,{lib.parent}"],
+        capture_output=True, text=True, timeout=120)
+    if build.returncode != 0:
+        raise AssertionError(f"native: gcc failed on examples/c/mlp.c: "
+                             f"{build.stderr[-2000:]}")
+    gcc_s = time.perf_counter() - t0
+    run = subprocess.run([str(exe)], cwd=tmp, capture_output=True,
+                         text=True, timeout=120)
+    if run.returncode != 0:
+        raise AssertionError(f"native: mlp exited {run.returncode}: "
+                             f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    found = [ln for ln in run.stdout.splitlines()
+             if ln.startswith(("cost ", "mesh "))]
+    with open(os.path.join(tmp, "mlp.json")) as f:
+        spec = json.load(f)
+
+    def config():
+        return pt.FFConfig(batch_size=MNIST_BATCH, device="cuda",
+                           allow_mixed_precision=False)
+
+    cm = model_from_spec(spec, config=config())
+    zm = pt.FFModel(config())
+    build_mnist_mlp(zm, zm.create_tensor([MNIST_BATCH, MNIST_WIDTHS[0]]))
+    for m in (cm, zm):
+        m.compile(optimizer=pt.SGDOptimizer(m, lr=CSPEC_LR),
+                  loss_type=pt.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  metrics=[])
+    # the C side names its ops by type and guid: pair the dense layers
+    dense = [op.name for op in cm.ops if op.op_type.value == "linear"]
+    zm.load_params({z: cm.params[c] for z, c in
+                    zip(("mlp1", "mlp2", "mlp3"), dense)})
+    rng = np.random.RandomState(NATIVE_SEED)
+    x = rng.randn(MNIST_BATCH, MNIST_WIDTHS[0]).astype(np.float32)
+    y = rng.randint(0, MNIST_WIDTHS[-1], size=(MNIST_BATCH, 1)).astype(
+        np.int32)
+    err = float(np.abs(cm.predict(x) - zm.predict(x)).max())
+    losses = {}
+    for name, m in (("spec", cm), ("zoo", zm)):
+        m.fit(x, y, batch_size=MNIST_BATCH, epochs=NATIVE_C_STEPS)
+        losses[name] = [r["loss"] for r in m.step_stats.records()]
+    failures = []
+    if len(dense) != 3 or err > 1e-5:
+        failures.append(f"cprog: predict differs by {err} ({dense})")
+    if len(losses["spec"]) != NATIVE_C_STEPS or not all(
+            np.isfinite(losses["spec"])) or not all(
+            abs(a - c) <= CSPEC_LOSS_REL * abs(c)
+            for a, c in zip(losses["spec"], losses["zoo"])):
+        failures.append(f"cprog: losses {losses}")
+    if len(found) != 2:
+        failures.append(f"cprog: no native search result in "
+                        f"{run.stdout[-500:]}")
+    return {"gcc_s": gcc_s, "executable": os.path.relpath(exe, repo),
+            "search": found, "ops": [op["name"] for op in spec["ops"]],
+            "predict_max_abs_err": err, "losses": losses}, failures
+
+
+def _native_loader_ms():
+    """66(e), a record: ms a `next_batch` of the native ring (the loader's
+    copy out of the slot, and the slot's view alone) against the numpy
+    gather, at the flagship's batch (tokens) and ResNet-50's (images),
+    over NATIVE_SAMPLES samples, shuffled."""
+    import types
+
+    import numpy as np
+
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
+
+    rng = np.random.RandomState(NATIVE_SEED)
+    cases = {"flagship_tokens": (TRAIN["batch"], rng.randint(
+        0, TRAIN["vocab"], size=(NATIVE_SAMPLES, TRAIN["seq"])).astype(
+            np.int32)),
+             "resnet50_images": (16, rng.randn(
+                 NATIVE_SAMPLES, 3, 224, 224).astype(np.float32))}
+    out = {}
+    for name, (bs, data) in cases.items():
+        host = types.SimpleNamespace(
+            config=types.SimpleNamespace(batch_size=bs),
+            _attach_dataloader=lambda dl: None)
+
+        def per_call(fn):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(NATIVE_LOADER_CALLS):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / NATIVE_LOADER_CALLS
+
+        ring = SingleDataLoader(host, None, data, shuffle=True,
+                                seed=NATIVE_SEED)
+        plain = SingleDataLoader(host, None, data, shuffle=True,
+                                 seed=NATIVE_SEED, prefetch=False)
+        stream = native.BatchStream(data, bs, shuffle=True,
+                                    seed=NATIVE_SEED)
+        out[name] = {"batch_bytes": bs * data[0].nbytes,
+                     "backends": [ring.backend, plain.backend],
+                     "native_copy_ms": per_call(ring.next_batch),
+                     "native_view_ms": per_call(stream.next_batch),
+                     "numpy_ms": per_call(plain.next_batch)}
+        stream.close()
+        ring.reset()
+    return out
+
+
+def phase_native(torch, tmp):
+    """66: the native core (see the module docstring). Returns (line,
+    the loader-fed fit's launches)."""
+    from flexflow_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.ensure_built()
+    if path is None or not native.available():
+        raise AssertionError(f"native: libffcore unavailable: "
+                             f"{native.load_error()}")
+    line = {"phase": "native", "card": _card_line(),
+            "build": {"library": os.path.relpath(
+                          path, os.path.dirname(os.path.abspath(__file__))),
+                      "compiled": native.BUILD_INFO.get("compiled"),
+                      "seconds": native.BUILD_INFO.get("seconds"),
+                      "version": native.version()}}
+    failures = []
+    searches = []
+    for name in NATIVE_GRAPHS:
+        rec, bad = _native_search(name)
+        searches.append(rec)
+        failures += bad
+    line["search"] = {"machine": f"TpuPodModel({NATIVE_CHIPS}, h100-sxm)",
+                      "search_budget": SEARCH_BUDGET, "graphs": searches}
+    fit, launches, bad = _native_fit(torch)
+    line["fit"] = fit
+    failures += bad
+    line["c_program"], bad = _native_c_program(torch, tmp)
+    failures += bad
+    line["loader_ms"] = _native_loader_ms()
+    line["wall_s"] = time.perf_counter() - t0
+    line["tolerance"] = (f"native plans feasible and adopted by "
+                         f"unity_optimize (search span backend native); "
+                         f"fit losses within {NATIVE_FIT_REL} relative of "
+                         f"the explicit batches'; C spec predict within "
+                         f"1e-5, its SGD losses within {CSPEC_LOSS_REL}")
+    _emit(line)
+    if failures:
+        raise AssertionError(f"native: {failures}")
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -8798,6 +9239,16 @@ def main() -> int:
     serving_paths["cli-serve-bench"] = cli_paths["cli-serve-bench"]
     zoo_paths["cli-profile-fit"] = cli_paths["cli-profile-fit"]
     print(f"phase 65: {time.perf_counter() - t_cli:.1f} s, "
+          f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
+
+    # 66) native: the native core. Launches: the loader-fed fit's,
+    # counted from 0 at its start
+    t_native = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ff_native_") as tmp:
+        line, native_launches = phase_native(torch, tmp)
+    zoo_paths["native"] = {k: n for k, n in native_launches.items()
+                           if "/" not in k}
+    print(f"phase 66: {time.perf_counter() - t_native:.1f} s, "
           f"{time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     # the kernel table, the card, the result. A kernel's launches are

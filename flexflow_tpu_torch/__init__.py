@@ -28,8 +28,12 @@ head-separated), LayerNorm, RMSNorm and softmax forward and backward,
 the scalar reduction and the scan, and the Adam / SGD update over a
 list of weight tensors. Later slices ported the serving front end and
 fleet, the cost model and the search, the mesh axes, the elastic
-coordinator, the graph importers (`onnx`, `torch`, `native`) and the
-Keras frontends (`keras`, `keras_exp`); the package exports the JAX
+coordinator, the graph importers (`onnx`, `torch`, the C model spec's
+`native.c_model`), the Keras frontends (`keras`, `keras_exp`), the
+command line, and the native host core (`native`: the port's own copy
+of libffcore, built with g++ at first use, with the native Unity search
+that `unity_optimize` dispatches to, the prefetching `BatchStream`
+behind `SingleDataLoader`, and the C API); the package exports the JAX
 package's top-level names.
 
 Entry points run on `FFConfig.device`, "cuda" unless the caller passes

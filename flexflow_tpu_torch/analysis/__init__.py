@@ -1,7 +1,7 @@
 """Plan sanitizer: static analysis over the PCG + strategy that rejects
 illegal plans before any weight is drawn or step runs (the port's copy
-of flexflow_tpu/analysis/, apart from cli.py, ROADMAP A11; the
-resharding checks read the port's resharding/ planner).
+of flexflow_tpu/analysis/; the resharding checks read the port's
+resharding/ planner).
 
 Public surface:
  - Diagnostic / DiagnosticReport / PlanAnalysisError / Severity — typed

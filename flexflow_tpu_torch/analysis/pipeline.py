@@ -9,8 +9,8 @@ Three call sites:
    pre-flight gate — errors raise PlanAnalysisError with the diagnostic
    list, warnings go to the log and the process-wide counters the serving
    /metrics endpoint exports;
- - `python -m flexflow_tpu analyze` (analysis/cli.py) loads an exported
-   strategy JSON and prints the report (the port's CLI is ROADMAP A11).
+ - `python -m flexflow_tpu_torch analyze` (analysis/cli.py) loads an
+   exported strategy JSON and prints the report.
 
 The port's copy of flexflow_tpu/analysis/pipeline.py.
 """

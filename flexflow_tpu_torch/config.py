@@ -146,9 +146,9 @@ class FFConfig:
     # measured op costs (OpCostCache): None = measure when `device` is a
     # CUDA card, stay analytic on the CPU
     measure_op_costs: Optional[bool] = None
-    # parsed for the JAX package's command lines; it has no effect: the
-    # native search core (src/ffcore) is ROADMAP A11, and the Python
-    # search is the JAX package's behavioral spec
+    # the analytic search runs in the native core (native/, the port's
+    # libffcore) where it applies, as the JAX package's does; False keeps
+    # the Python path (search/unity.py)
     use_native_search: bool = True
     # the data axis's gradient sync (runtime/collectives.py): "gspmd" one
     # flat all-reduce bucket, "explicit" the reduction plan's per-tier

@@ -40,8 +40,9 @@ package's file format: the fingerprints canonicalize the port's op
 params and config knobs as JAX's do, so a plan either package caches is
 an exact hit in the other. The config's `device` (port-only) is left out
 of the knob leg: the plan depends on the machine spec, which has its own
-leg, not on where the process runs. `use_native_search` is keyed False:
-the port's search is the Python path, as JAX's is under that value.
+leg, not on where the process runs. `use_native_search` is keyed as it
+is set: both packages' native cores are the same C++ core, so a plan
+either package searched natively is an exact hit in the other.
 """
 from __future__ import annotations
 
@@ -165,10 +166,6 @@ def _file_digest(path: Optional[str]) -> Optional[str]:
 def knobs_fingerprint(config) -> str:
     knobs = {f: _canon(getattr(config, f, None))
              for f in SEARCH_KNOB_FIELDS}
-    # the port's search is always the Python path, whatever the flag says
-    # (config.py): keyed as the JAX package keys its Python path, so a
-    # plan either package searched there is an exact hit in the other
-    knobs["use_native_search"] = False
     # rule files and fitted profiles change the result by CONTENT, so
     # hash the bytes, not the path (same file moved = same plans;
     # edited in place = different plans)

@@ -20,10 +20,14 @@ search:
 Memory-aware mode wraps the cost with runtime + lambda * overflow and binary
 searches lambda to fit the per-chip HBM budget (reference: graph.cc:2075-2131).
 
-The port's copy of flexflow_tpu/search/unity.py, host-only. It differs in
-two places: the search is always this Python path (the native core,
-`use_native_search`, has no effect here), and measured op costs are the
-default when the config's device is a CUDA card (`_want_measured`).
+The port's copy of flexflow_tpu/search/unity.py, host-only. As in the JAX
+package, `unity_optimize` dispatches to the native core (the port's
+libffcore, flexflow_tpu_torch/native) where it applies and
+`use_native_search` is on; this Python path is the fallback and the
+behavioral spec. It differs in one place: measured op costs are the
+default when the config's device is a CUDA card (`_want_measured`), and
+a measured search keeps this Python path, as JAX's accelerator default
+does.
 """
 from __future__ import annotations
 
@@ -1402,8 +1406,10 @@ def unity_optimize(graph: Graph, config, machine: MachineModel,
                    cache_graph_hash: Optional[str] = None) -> SearchResult:
     """Entry point (reference: FFModel::graph_optimize, substitution.cc:3589).
 
-    The Python search below (the JAX package's behavioral spec; the
-    native core is not ported).
+    Dispatches to the native C++ core (flexflow_tpu_torch/csrc/ffcore,
+    loaded via ctypes) when available; the pure-Python path below is the
+    fallback and the behavioral spec. A custom simulator (e.g. measured
+    costs, the default on a CUDA config) forces the Python path.
 
     Plan cache (docs/search.md): unless disabled, the search is keyed by
     a content hash over (pre-rewrite graph, overlaid machine, batch,
@@ -1417,7 +1423,11 @@ def unity_optimize(graph: Graph, config, machine: MachineModel,
     cache — their answers depend on the mutable measured-cost cache,
     not just the key's content legs."""
     from . import plan_cache as _pc
-    from .substitution import load_rule_spec
+    from .substitution import (
+        apply_substitutions,
+        load_rule_spec,
+        rule_set_from_spec,
+    )
 
     t_start = time.perf_counter()
     # measured op costs (reference: the simulator profiles real kernels,
@@ -1466,12 +1476,83 @@ def unity_optimize(graph: Graph, config, machine: MachineModel,
             warm_seed = cache.get_warm(key)
 
     spec, is_taso = load_rule_spec(config.substitution_json_path)
+    # a TASO rule file constrains the TP menu; the lambda memory search,
+    # pipeline parallelism, and the joint substitution search are
+    # Python-search capabilities — the native core covers the per-op axis
+    # space (dp, tp incl. row/Megatron pairs, sp, ep, ap)
+    from .substitution import search_rules_from_spec
     # parse TASO Rule objects once; threaded to every consumer below
     taso_rules = None
     if is_taso:
         from .substitution_loader import rules_from_spec
 
         taso_rules = rules_from_spec(spec)
+    # trade-off rewrites (joint-search actions, or the greedy fallback when
+    # joint_search=False) only exist on the Python path — route there
+    # whenever any rewrite matches, so native availability never changes
+    # which graph a config compiles
+    rewrites_applicable = (
+        config.search_budget > 0
+        and any(fn(graph)
+                for fn in search_rules_from_spec(
+                    spec, is_taso, parsed=taso_rules).values())
+    )
+    if (simulator is None and not is_taso
+            and not rewrites_applicable
+            and not config.memory_search  # lambda search is Python-only
+            and not getattr(config, "enable_pipeline_parallel", False)
+            # hierarchical machines are Python-only: the native core's line
+            # protocol carries chip scalars, not tiers, so it would price a
+            # cross-DCN all-reduce like a neighbor hop
+            and not hasattr(machine, "tier_path")
+            and getattr(config, "use_native_search", True)):
+        from .. import native
+
+        if native.available():
+            from ..obs.tracing import get_tracer
+
+            # the native core runs enumerate/prune/simulate internally;
+            # one "search" span still marks the phase in the trace
+            with get_tracer().span("search", backend="native",
+                                   n_devices=n_devices) as sp:
+                applied = apply_substitutions(
+                    graph, rule_set_from_spec(spec, is_taso))
+                result = native.optimize_strategy(
+                    graph, config, machine, batch_size, n_devices
+                )
+                sp.set(cost_us=result.cost_us, axes=result.mesh_axes)
+            if applied:
+                result.log.append(f"substitutions: {applied}")
+            result.predicted_step_us = result.cost_us
+            # the native core prices from the chip scalars alone — the
+            # fitted latency/step-scale coefficients a profile overlay
+            # sets (obs/refit.py) don't cross the line protocol, and
+            # neither does the kernel tier's pricing (kernel_time_factor).
+            # When either is active, re-price the CHOSEN plan with the
+            # fully-overlaid Python simulator so predicted_step_us (what
+            # calibration and the drift detector compare against)
+            # reflects them; the native ranking stands
+            sim = Simulator(machine, config)
+            tier_active = any(
+                sim.cost.kernel_time_factor(
+                    op, result.strategies.get(op.guid, OpStrategy())) != 1.0
+                for op in graph.ops.values())
+            if (getattr(machine, "step_time_scale", 1.0) != 1.0
+                    or getattr(machine, "dispatch_overhead_us", 1.0) != 1.0
+                    or getattr(machine, "collective_latency_us", 1.0)
+                    != 1.0
+                    or tier_active):
+                repriced = sim.simulate(graph, result.strategies)
+                result.log.append(
+                    f"{'kernel-tier' if tier_active else 'fitted-profile'}"
+                    f" reprice: native {result.cost_us:.1f}"
+                    f"us -> {repriced:.1f}us predicted")
+                result.predicted_step_us = repriced
+                st = sim.last_sync_stats or {}
+                result.overlapped_sync_us = st.get("overlapped_sync_us")
+                result.exposed_sync_us = st.get("exposed_sync_us")
+                result.sync_buckets = len(st.get("buckets") or [])
+            return _finish_search(result, key, cache, t_start, graph)
     helper = GraphSearchHelper(graph, config, machine, simulator)
     budget = None
     if config.memory_search:

@@ -498,6 +498,9 @@ def analytic_twice(job: Dict[str, Any], device: str, n_dev: int,
                     "ops": {k: [v["dp"], v["tp"]]
                             for k, v in plan["ops"].items()},
                     "cache_mode": res.cache_mode, "wall_s": wall,
+                    "backend": ("cache" if res.cache_mode == "hit" else
+                                "native" if res.log[:1] == [
+                                    "native ffcore search"] else "python"),
                     "predicted_step_us": res.predicted_step_us,
                     "candidates_simulated": res.candidates_simulated,
                     "candidates_pruned": res.candidates_pruned})

@@ -3,12 +3,14 @@ A11): tests/test_c_model_api.py's cases over the port's
 `model_from_spec`, and the port held against the JAX package's loader on
 the same spec.
 
-The spec comes from the JAX package's C API (src/ffcore through ctypes,
-as a C program would link it) where `flexflow_tpu.native.ensure_built()`
-builds it here, else from the handwritten spec of tests/test_serving.py.
-Against the JAX package, f32: predictions and three SGD losses within
-1e-5 after the JAX model's weights are carried across
-(`params_from_jax`)."""
+The spec comes from the port's C API (its own libffcore, through ctypes
+as a C program would link it) where `flexflow_tpu_torch.native.
+ensure_built()` builds it (g++), else from the handwritten spec of
+tests/test_serving.py. tests/test_c_model_api.py's cases also run on the
+port's library itself: shape inference, the native search, the error
+report, an exported spec trained by the port. Against the JAX package,
+f32: predictions and three SGD losses within 1e-5 after the JAX model's
+weights are carried across (`params_from_jax`)."""
 import ctypes
 import json
 
@@ -17,9 +19,8 @@ import pytest
 
 import flexflow_tpu as jff
 import flexflow_tpu_torch as ff
-from flexflow_tpu import native
 from flexflow_tpu.native.c_model import model_from_spec as jax_from_spec
-from flexflow_tpu_torch import params_from_jax
+from flexflow_tpu_torch import native, params_from_jax
 from flexflow_tpu_torch.native.c_model import model_from_spec
 from tests.test_torch_zoo import one_torch_thread
 
@@ -70,6 +71,9 @@ def _lib():
     lib.ffc_tensor_ndims.restype = ctypes.c_int
     lib.ffc_model_export_json.argtypes = [ctypes.c_void_p]
     lib.ffc_model_export_json.restype = ctypes.c_void_p
+    lib.ffc_model_optimize.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_double]
+    lib.ffc_model_optimize.restype = ctypes.c_void_p
     lib.ffc_free.argtypes = [ctypes.c_void_p]
     return lib
 
@@ -154,6 +158,68 @@ def test_c_built_model_trains_in_python_runtime(c_spec, tmp_path):
     path = tmp_path / "spec.json"
     path.write_text(json.dumps(spec))
     model = model_from_spec(str(path), config=_cpu())
+    model.compile(optimizer=ff.AdamOptimizer(model, alpha=1e-3),
+                  loss_type=ff.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  metrics=[ff.MetricsType.METRICS_ACCURACY])
+    x = np.random.RandomState(0).randn(8, 32).astype(np.float32)
+    y = np.zeros((8, 1), dtype=np.int32)
+    hist = model.fit([x], y, batch_size=8, epochs=1)
+    assert np.isfinite(hist[0]["loss"])
+
+
+# ---------------------------------------------------------------------
+# tests/test_c_model_api.py's cases on the port's library
+# ---------------------------------------------------------------------
+def _take_string(lib, ptr):
+    s = ctypes.string_at(ptr).decode()
+    lib.ffc_free(ptr)
+    return s
+
+
+def _build_mlp(lib, batch=8):
+    h = lib.ffc_model_create(batch)
+    x = lib.ffc_tensor_create(h, 2, _i64([batch, 32]), b"float32")
+    assert x > 0
+    t = lib.ffc_op(h, b"dense", 1, _i64([x]), b"out_dim=64;activation=relu")
+    assert t > 0, lib.ffc_model_last_error(h)
+    t = lib.ffc_op(h, b"dense", 1, _i64([t]), b"out_dim=16")
+    t = lib.ffc_op(h, b"softmax", 1, _i64([t]), b"")
+    assert t > 0
+    return h, t
+
+
+def test_port_c_api_builds_infers_shapes_and_optimizes():
+    lib = _lib()
+    assert lib is not None, native.load_error()
+    h, out = _build_mlp(lib)
+    dims = (ctypes.c_int64 * 4)()
+    n = lib.ffc_tensor_ndims(h, out, dims, 4)
+    assert n == 2 and list(dims[:2]) == [8, 16]
+    result = _take_string(lib, lib.ffc_model_optimize(h, 8, 4, 1.2))
+    assert result.startswith("cost "), result
+    assert "mesh " in result and "strategy " in result
+    lib.ffc_model_destroy(h)
+
+
+def test_port_c_api_error_reporting():
+    lib = _lib()
+    h = lib.ffc_model_create(8)
+    bad = lib.ffc_op(h, b"warp_drive", 0, _i64([]), b"")
+    assert bad == -1
+    assert b"warp_drive" in lib.ffc_model_last_error(h)
+    lib.ffc_model_destroy(h)
+
+
+def test_port_c_built_model_trains_in_the_port():
+    """The port's library exports the spec, the port's loader builds it,
+    and one Adam epoch gives a finite loss."""
+    lib = _lib()
+    h, _ = _build_mlp(lib)
+    spec = _take_string(lib, lib.ffc_model_export_json(h))
+    lib.ffc_model_destroy(h)
+    doc = json.loads(spec)
+    assert doc["format"] == "flexflow_tpu_c_model"
+    model = model_from_spec(doc, config=_cpu())
     model.compile(optimizer=ff.AdamOptimizer(model, alpha=1e-3),
                   loss_type=ff.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                   metrics=[ff.MetricsType.METRICS_ACCURACY])

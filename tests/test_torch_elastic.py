@@ -14,7 +14,7 @@ of one world size in one `tools/tp_train.py spawn_jobs` call (4 ranks,
 then 2), each scenario its own case; JAX's side runs in this process on
 conftest's virtual CPU devices, from the same initial weights (JAX's,
 carried by `params_from_jax`), with the Python search
-(use_native_search=False, which is what the port's search is) and f32.
+(use_native_search=False, on the port's side too) and f32.
 Each case holds the rank that led at the end against JAX's run: the same
 (kind, step) sequence of events and their n_devices, axes, source and
 cache details (the background planner's `plan.precompute` records land
@@ -611,7 +611,8 @@ def _job(world, s, jax_init, tmp):
     x, y = s["data"]
     spec = {"widths": s["widths"], "batch": s["batch"],
             "config": {"search_budget": s["budget"],
-                       "measure_op_costs": False},
+                       "measure_op_costs": False,
+                       "use_native_search": False},
             "device_ids": list(range(world)), "jax_params": jax_init,
             "faults": s["faults"], "coordinator": s["coordinator"],
             "checkpoint_dir": str(tmp), "retry": s["retry"],

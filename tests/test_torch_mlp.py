@@ -232,20 +232,23 @@ def test_gradient_accumulation_matches_large_batch_and_jax():
 
 @pytest.mark.parametrize("k,shuffle", [(1, False), (1, True), (3, False),
                                        (3, True)])
-def test_dataloader_fit_matches_jax(k, shuffle):
+def test_dataloader_fit_matches_jax(k, shuffle, prefetch=False):
     """Dataloader-driven fit (tests/test_mnist_mlp.py:77, :133): the
     attached loaders feed both packages the same batches (shuffled: a
-    per-epoch permutation from RandomState(seed + epoch), the JAX numpy
-    backend's order), one step or K = 3 steps a dispatch."""
+    per-epoch permutation from RandomState(seed + epoch), the numpy
+    backend's order, both packages under prefetch=False), one step or
+    K = 3 steps a dispatch."""
     bs, n = 16, 96
     x, y = make_synthetic(n=n, dim=32)
     jm, pm = _pair(bs, (32, 10), _sgd(0.05))
+    kw = {} if prefetch is None else dict(prefetch=prefetch)
     for pkg, m in ((ff, jm), (pt, pm)):
-        kw = dict(prefetch=False) if pkg is ff else {}
         inp = m.input_ops[0].outputs[0]
         pkg.SingleDataLoader(m, inp, x, n, shuffle=shuffle, seed=3, **kw)
         pkg.SingleDataLoader(m, m.label_tensor, y, n, shuffle=shuffle,
                              seed=3, **kw)
+    backend = "numpy" if prefetch is False else "native"
+    assert [d.backend for d in jm._dataloaders] == [backend] * 2
     jh = jm.fit(epochs=2, steps_per_execution=k)
     ph = pm.fit(epochs=2, steps_per_execution=k)
     assert len(ph) == 2
@@ -256,9 +259,18 @@ def test_dataloader_fit_matches_jax(k, shuffle):
     assert ph[-1]["loss"] < ph[0]["loss"]
     _same_params(pm, jm)
     loader = pm._dataloaders[0]
-    assert loader.backend == "numpy" and loader.num_batches == n // bs
+    assert loader.backend == backend and loader.num_batches == n // bs
     with pytest.raises(ValueError, match="batch size"):
         pm.fit(batch_size=8)
+
+
+@pytest.mark.parametrize("k,shuffle", [(1, False), (1, True), (3, False),
+                                       (3, True)])
+def test_dataloader_fit_default_loaders_match_jax(k, shuffle):
+    """The same fit with both packages' default loaders: the native
+    prefetch ring (shuffled: `std::mt19937_64` seeded by seed + epoch)
+    feeds both the same batches."""
+    test_dataloader_fit_matches_jax(k, shuffle, prefetch=None)
 
 
 def test_dataloader_fit_needs_loaders():

@@ -39,11 +39,14 @@ def _fresh_plan_caches():
     ppc.reset_plan_cache()
 
 
-def _config(pkg, n_devices=8, budget=4, **kw):
+def _config(pkg, n_devices=8, budget=4, native=False, **kw):
+    """Both packages on their Python search paths unless `native`, which
+    leaves `use_native_search` at its default (the native cores)."""
     if pkg is pt:
         cfg = pt.FFConfig(device="cpu")
     else:
         cfg = ff.FFConfig()
+    if not native:
         cfg.use_native_search = False
     cfg.batch_size = 64
     cfg.search_budget = budget
@@ -96,7 +99,7 @@ def _counter(name, **labels):
 
 # -- fingerprints and keys -------------------------------------------------
 def test_fingerprints_equal_jax_s():
-    for kw in ({}, {"width": 64}):
+    for kw in ({}, {"width": 64}, {"native": True}):
         (pg, pc), (jg, jc) = _graph(pt, **kw), _graph(ff, **kw)
         assert ppc.graph_fingerprint(pg) == jpc.graph_fingerprint(jg)
         assert ppc.knobs_fingerprint(pc) == jpc.knobs_fingerprint(jc)
@@ -244,6 +247,27 @@ def test_plan_files_are_exact_hits_across_packages(tmp_path, writer):
     assert _by_name(hit, rg) == _by_name(cold, wg)
     assert (hit.cost_us, hit.memory_bytes, hit.mesh_axes) == (
         cold.cost_us, cold.memory_bytes, cold.mesh_axes)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_native_plan_files_are_exact_hits_across_packages(tmp_path, writer):
+    """With the default flags both packages search in their native cores:
+    the same plan, and a plan the one cached natively is an exact hit in
+    the other's; the flag is a knob (a Python-path plan misses)."""
+    w, r = (ff, pt) if writer == "jax" else (pt, ff)
+    cold, wg = _search(w, plan_cache_dir=str(tmp_path), native=True)
+    assert cold.cache_mode == "cold" and "native ffcore search" in cold.log
+    jpc.reset_plan_cache()
+    ppc.reset_plan_cache()
+    hit, rg = _search(r, plan_cache_dir=str(tmp_path), native=True)
+    assert hit.cache_mode == "hit"
+    assert _by_name(hit, rg) == _by_name(cold, wg)
+    assert (hit.cost_us, hit.memory_bytes, hit.mesh_axes) == (
+        cold.cost_us, cold.memory_bytes, cold.mesh_axes)
+    ppc.reset_plan_cache()
+    jpc.reset_plan_cache()
+    other, _ = _search(r, plan_cache_dir=str(tmp_path))
+    assert other.cache_mode == "cold"
 
 
 # -- warm starts -------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The strategy search of the port (search/unity.py, search/mcmc.py)
 against the JAX package's, on the CPU: the same graphs, built by the same
 builder code in both packages at small widths, searched on the same
-machine specs with the same knobs (the JAX side on its Python path,
-`use_native_search=False`).
+machine specs with the same knobs, both on their Python paths
+(`use_native_search=False`), and with the default flags, where both
+dispatch to their native cores (the same C++ core).
 
 Each case compares the per-op strategies by op name, the mesh axes, the
 applied rewrites and the candidates simulated and pruned (identical), and
@@ -71,12 +72,15 @@ def _mlp_split(pkg, m):
 GRAPHS = dict(COST_GRAPHS, mlp_split=_mlp_split)
 
 
-def _config(pkg, **knobs):
+def _config(pkg, native=False, **knobs):
+    """The search's config; both packages on their Python paths unless
+    `native`, which leaves `use_native_search` at its default."""
     if pkg is pt:
         c = pt.FFConfig(device="cpu", allow_mixed_precision=False)
     else:
         c = ff.FFConfig()
         c.allow_mixed_precision = False
+    if not native:
         c.use_native_search = False
     c.batch_size = 8
     c.search_budget = BUDGET
@@ -145,6 +149,19 @@ def _search_both(name, n, machine="pod", tmp_path=None, algo="unity",
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_unity_matches_jax(name, machine, n, tmp_path):
     _search_both(name, n, machine, tmp_path)
+
+
+@pytest.mark.parametrize("budget", [0, BUDGET])
+@pytest.mark.parametrize("machine,n", [("simple", 4), ("pod", 8)])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_unity_default_flags_match_jax(name, machine, n, budget, tmp_path):
+    """With the default `use_native_search`, both packages' searches take
+    the native core where it applies (where a rewrite applies, both the
+    Python path): the same plan, cost and log."""
+    r, _ = _search_both(name, n, machine, tmp_path, native=True,
+                        search_budget=budget)
+    rewrites = name == "mlp_split" and budget > 0
+    assert (r.log[0] == "native ffcore search") != rewrites, r.log
 
 
 @pytest.mark.parametrize("name", ["bert", "mlp_split", "resnet"])

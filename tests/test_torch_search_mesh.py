@@ -11,6 +11,8 @@ initial weights) under
    and the first attention at dp 1, one FFN linear at tp 2;
  - compile() with no axes and no search on 2 ranks: {"data": 2}.
 
+Both packages search on their Python paths (`use_native_search=False`;
+tests/test_torch_search.py holds the native cores against each other).
 Against JAX on 4 (2) of conftest's CPU devices: the same plan on every
 rank, the losses within test_torch_tp.py's LOSS_REL and the final
 weights within its W_RTOL / W_ATOL. Each spawn runs under its own time
@@ -99,7 +101,8 @@ def port_mesh_runs(jax_mesh_runs, strategy_file, tmp_path_factory):
     base = dict(TP_JOB, axes=None, x=x, y=y, return_params=True, eval=True,
                 predict_batch=PREDICT_BATCH)
     jobs = [dict(base, params=jax_mesh_runs["searched"]["init"],
-                 config={"search_budget": SEARCH_BUDGET}),
+                 config={"search_budget": SEARCH_BUDGET,
+                         "use_native_search": False}),
             dict(base, params=jax_mesh_runs["imported"]["init"],
                  config={"import_strategy_file": strategy_file})]
     four = spawn_jobs(4, "cpu", jobs, timeout_s=JOIN_S,
